@@ -1,0 +1,67 @@
+"""Carry a trained ALS model's weights into the port.
+
+:func:`als_model_from_numpy` takes what a JAX-package ``ALSModel`` holds,
+as plain host data: ``np.asarray`` of each factor table (or of a
+quantized table's data and scale), ``dict(bimap)`` of each id map and
+``dataclasses.asdict(params)``. Nothing of the JAX package is imported,
+so both packages can compute on the same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..data.bimap import BiMap
+from ..utils.device import DeviceLike, resolve_device
+from .als import ALSModel, ALSParams, QuantizedFactors, SERVING_QUANT_MODES
+
+
+def _bf16_tensor(arr) -> torch.Tensor:
+    """A bf16 tensor with the bits of a bfloat16 host array (numpy has no
+    bf16 of its own: the array's dtype is an extension type)."""
+    arr = np.asarray(arr)
+    if arr.dtype.name != "bfloat16":
+        raise TypeError(f"a bf16 table needs bfloat16 data, got {arr.dtype}")
+    bits = np.ascontiguousarray(arr).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+def _table(data, scale, quant: str):
+    if quant == "off":
+        return torch.from_numpy(np.ascontiguousarray(data, np.float32))
+    if quant == "bf16":
+        return QuantizedFactors(_bf16_tensor(data), None, "bf16")
+    if scale is None:
+        raise ValueError("an int8 table needs its per-row scales")
+    return QuantizedFactors(
+        torch.from_numpy(np.ascontiguousarray(data, np.int8)),
+        torch.from_numpy(np.ascontiguousarray(scale, np.float32)
+                         .reshape(-1, 1)),
+        "int8")
+
+
+def als_model_from_numpy(user_factors, item_factors, n_users: int,
+                         n_items: int, user_ids: Optional[Mapping],
+                         item_ids: Optional[Mapping], params,
+                         *, user_scale=None, item_scale=None,
+                         quant: str = "off",
+                         device: DeviceLike = None) -> ALSModel:
+    """The port's :class:`ALSModel` from host arrays and plain maps,
+    placed on ``device`` (the card by default)."""
+    if quant not in SERVING_QUANT_MODES:
+        raise ValueError(f"quant must be one of {SERVING_QUANT_MODES}, "
+                         f"got {quant!r}")
+    if not isinstance(params, ALSParams):
+        params = ALSParams(**dict(params or {}))
+    dev = resolve_device(device)
+    uf = _table(user_factors, user_scale, quant)
+    vf = _table(item_factors, item_scale, quant)
+    return ALSModel(
+        user_factors=uf.to(dev), item_factors=vf.to(dev),
+        n_users=int(n_users), n_items=int(n_items),
+        user_ids=None if user_ids is None else BiMap(dict(user_ids)),
+        item_ids=None if item_ids is None else BiMap(dict(item_ids)),
+        params=params)

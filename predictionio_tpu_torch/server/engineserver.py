@@ -1,0 +1,316 @@
+"""Engine server: deployed-model query serving on the card (the port of the
+serving core of ``predictionio_tpu/server/engineserver.py``).
+
+``POST /queries.json`` parses the query into the template's query class,
+runs supplement, per-algorithm predict and serve, and returns the result
+as JSON. At bind a model is row-quantized if asked (behind the
+template's parity probe) and then placed on the serving device once.
+With ``batching`` on, concurrent queries coalesce in a
+:class:`MicroBatcher` into one batched top-k launch. ``GET /status.json``
+names the card, the quantization in force and the kernel's launch
+count; ``POST /stop`` shuts the server down.
+"""
+
+from __future__ import annotations
+
+import logging
+import queue
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, List, Optional
+
+from ..controller.engine import Engine
+from ..controller.params import EngineParams
+from ..models.als import SERVING_QUANT_MODES, serving_quant_of
+from ..ops import fused_topk as _fused_topk
+from ..utils.device import card_info, resolve_device
+from ..utils.jsonutil import from_jsonable, to_jsonable
+from .http import AppServer, HTTPApp, HTTPError, Request, Response, json_response
+
+log = logging.getLogger(__name__)
+
+#: batcher threads draining the query queue: while one waits for its
+#: batch's results, the next forms and launches a batch
+_DRAINERS = 2
+
+
+@dataclass
+class ServerConfig:
+    """Serving knobs (a subset of the JAX package's ``ServerConfig``)."""
+
+    #: coalesce concurrent queries into one batched launch
+    batching: bool = False
+    #: most queries one batch takes
+    max_batch: int = 128
+    #: how long a lone query waits for company before it serves alone
+    batch_window_ms: float = 2.0
+    #: "int8" or "bf16" row-quantized serving tables, or "off" (f32);
+    #: the template's parity probe may keep f32 (auto-off)
+    serving_quant: str = "off"
+    #: serving device; None is the CUDA card, "cpu" the plain versions
+    device: Optional[str] = None
+
+
+class QueryServer:
+    """One deployed engine: algorithms, bound models and serving."""
+
+    def __init__(self, engine: Engine, engine_params: EngineParams,
+                 models: List[Any], config: Optional[ServerConfig] = None):
+        self.engine = engine
+        self.config = config or ServerConfig()
+        if self.config.serving_quant not in SERVING_QUANT_MODES:
+            raise ValueError(
+                f"serving_quant must be one of {SERVING_QUANT_MODES}, "
+                f"got {self.config.serving_quant!r}")
+        self.device = resolve_device(self.config.device)
+        self.card = card_info(self.device)
+        self._lock = threading.Lock()
+        self.request_count = 0
+        self._bind(engine_params, models)
+        self.batcher: Optional[MicroBatcher] = None
+        if self.config.batching:
+            self.batcher = MicroBatcher(self, self.config.batch_window_ms,
+                                        self.config.max_batch)
+
+    def _bind(self, engine_params: EngineParams, models: List[Any]) -> None:
+        """Bind: quantize (if asked), then place every model on the
+        serving device once — no query moves a table."""
+        algorithms = self.engine.make_algorithms(engine_params)
+        if len(models) != len(algorithms):
+            raise ValueError(f"{len(models)} models for "
+                             f"{len(algorithms)} algorithms")
+        quant = self.config.serving_quant
+        if quant != "off":
+            models = [a.quantize_serving_model(m, quant)
+                      if hasattr(a, "quantize_serving_model") else m
+                      for a, m in zip(algorithms, models)]
+        models = [a.prepare_serving_model(m, self.device)
+                  for a, m in zip(algorithms, models)]
+        serving = self.engine.make_serving(engine_params)
+        with self._lock:
+            self.engine_params = engine_params
+            self.algorithms, self.models, self.serving = \
+                algorithms, models, serving
+
+    def _binding(self):
+        with self._lock:
+            return self.algorithms, self.models, self.serving
+
+    def _count(self, n: int) -> None:
+        with self._lock:
+            self.request_count += n
+
+    def serve(self, query_json: Any) -> Any:
+        """The ``/queries.json`` entry: the micro-batcher when batching,
+        else the per-query path. Raises :class:`HTTPError`."""
+        if self.batcher is not None:
+            result = self.batcher.submit(query_json)
+            if isinstance(result, HTTPError):
+                raise result
+            return result
+        return self.query(query_json)
+
+    def query(self, query_json: Any) -> Any:
+        """One query: parse, supplement, predict with every algorithm,
+        serve, and render JSON."""
+        algorithms, models, serving = self._binding()
+        try:
+            query = from_jsonable(algorithms[0].query_class, query_json)
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, str(e)) from e
+        supplemented = serving.supplement(query)
+        predictions = [a.predict(m, supplemented)
+                       for a, m in zip(algorithms, models)]
+        result = to_jsonable(serving.serve(query, predictions))
+        self._count(1)
+        return result
+
+    def query_batch(self, query_jsons: List[Any]) -> List[Any]:
+        """Serve many queries with ONE batched launch per algorithm.
+        A query that fails to parse gets its own 400; the other slots
+        are unaffected."""
+        algorithms, models, serving = self._binding()
+        out: List[Any] = [None] * len(query_jsons)
+        parsed, rows = [], []
+        for i, qj in enumerate(query_jsons):
+            try:
+                parsed.append(from_jsonable(algorithms[0].query_class, qj))
+                rows.append(i)
+            except (TypeError, ValueError) as e:
+                out[i] = HTTPError(400, str(e))
+        if parsed:
+            supplemented = [serving.supplement(q) for q in parsed]
+            per_algo = [a.batch_predict(m, supplemented)
+                        for a, m in zip(algorithms, models)]
+            for j, i in enumerate(rows):
+                out[i] = to_jsonable(serving.serve(
+                    parsed[j], [preds[j] for preds in per_algo]))
+        self._count(len(rows))
+        return out
+
+    def status(self) -> dict:
+        _, models, _ = self._binding()
+        return {
+            "status": "alive",
+            "device": str(self.device),
+            "card": self.card["name"],
+            "powerLimit": self.card["power_limit"],
+            "servingQuant": serving_quant_of(models[0]) if models else "off",
+            "servingQuantRequested": self.config.serving_quant,
+            "batching": self.config.batching,
+            "kernels": {"fused_topk": {
+                "launches": _fused_topk.LAUNCHES}},
+            "requestCount": self.request_count,
+        }
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the batcher's threads (queued queries still serve)."""
+        if self.batcher is not None:
+            self.batcher.close(timeout)
+
+
+class _Submit:
+    """One caller's queue entry: the query and its completion slot."""
+
+    __slots__ = ("query_json", "done", "result")
+
+    def __init__(self, query_json: Any):
+        self.query_json = query_json
+        self.done = threading.Event()
+        self.result: Any = None
+
+
+#: close sentinel: each drainer consumes exactly one and exits
+_CLOSE = object()
+
+
+class MicroBatcher:
+    """Coalesces concurrent queries into one batched launch.
+
+    Each HTTP worker thread enqueues its query and blocks; drainer
+    threads take everything queued (up to ``max_batch``) and run
+    :meth:`QueryServer.query_batch`. A lone query waits ``window_ms``
+    once for company, so a burst coalesces while a single query is
+    delayed by at most the window."""
+
+    def __init__(self, server: QueryServer, window_ms: float = 2.0,
+                 max_batch: int = 128):
+        self.server = server
+        self.window = max(window_ms, 0.0) / 1000.0
+        self.max_batch = max(max_batch, 1)
+        # depth is bounded by the HTTP threads blocked on their entries
+        self._q: "queue.Queue" = queue.Queue()
+        self._threads = [
+            threading.Thread(target=self._drain, daemon=True,
+                             name=f"query-microbatcher-{i}")
+            for i in range(_DRAINERS)]
+        for t in self._threads:
+            t.start()
+
+    def submit(self, query_json: Any) -> Any:
+        e = _Submit(query_json)
+        self._q.put(e)
+        e.done.wait()
+        return e.result
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the drainers: one close sentinel per live drainer, then
+        join. Work queued ahead of the sentinels still serves, so no
+        caller is stranded. Idempotent."""
+        live = [t for t in self._threads if t.is_alive()]
+        for _ in live:
+            self._q.put(_CLOSE)
+        deadline = time.monotonic() + timeout
+        for t in live:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+    def _form_batch(self, first: _Submit) -> List[_Submit]:
+        """Everything already queued, up to ``max_batch``; a lone query
+        waits the window once for a concurrent arrival."""
+        batch = [first]
+        waited = False
+        while len(batch) < self.max_batch:
+            try:
+                nxt = self._q.get_nowait()
+            except queue.Empty:
+                if waited or len(batch) > 1 or self.window <= 0:
+                    break
+                waited = True
+                try:
+                    nxt = self._q.get(timeout=self.window)
+                except queue.Empty:
+                    break
+            if nxt is _CLOSE:
+                self._q.put(nxt)  # a sibling's sentinel: hand it back
+                break
+            batch.append(nxt)
+        return batch
+
+    def _drain(self) -> None:
+        while True:
+            first = self._q.get()
+            if first is _CLOSE:
+                return
+            batch = self._form_batch(first)
+            try:
+                results = self.server.query_batch(
+                    [e.query_json for e in batch])
+            except Exception as exc:  # noqa: BLE001 — fail the batch, keep draining
+                log.exception("batched query failed")
+                results = [HTTPError(500, str(exc))] * len(batch)
+            for e, result in zip(batch, results):
+                e.result = result
+                e.done.set()
+
+
+def build_app(server: QueryServer) -> HTTPApp:
+    app = HTTPApp("engineserver")
+    app_server_ref: List[AppServer] = []
+
+    @app.route("POST", "/queries.json")
+    def queries(req: Request) -> Response:
+        try:
+            query_json = req.json()
+        except (ValueError, UnicodeDecodeError) as e:
+            raise HTTPError(400, str(e)) from e
+        return json_response(server.serve(query_json))
+
+    @app.route("GET", "/status.json")
+    def status(req: Request) -> Response:
+        return json_response(server.status())
+
+    @app.route("POST", "/stop")
+    def stop(req: Request) -> Response:
+        def delayed_shutdown():
+            # let THIS response flush before the listener goes down
+            time.sleep(0.25)
+            app_server_ref[0].close()
+
+        threading.Thread(target=delayed_shutdown, daemon=True,
+                         name="engineserver-stop").start()
+        return json_response({"message": "Shutting down..."})
+
+    app._server_ref = app_server_ref  # type: ignore[attr-defined]
+    return app
+
+
+def create_engine_server(server: QueryServer, host: str = "0.0.0.0",
+                         port: int = 8000) -> AppServer:
+    """Bind the engine server's HTTP app; closing it closes the server."""
+    app = build_app(server)
+    srv = AppServer(app, host, port)
+    srv.query_server = server  # the binding behind the routes
+    srv.on_close(server.close)
+    app._server_ref.append(srv)  # type: ignore[attr-defined]
+    return srv
+
+
+def deploy(engine: Engine, engine_params: EngineParams, models: List[Any],
+           config: Optional[ServerConfig] = None, host: str = "0.0.0.0",
+           port: int = 8000) -> AppServer:
+    """Bind ``models`` (quantize, place on the device) and return the
+    engine server, not yet serving: call ``start_background()`` or
+    ``serve_forever()`` on it."""
+    server = QueryServer(engine, engine_params, models, config)
+    return create_engine_server(server, host, port)

@@ -1,0 +1,181 @@
+"""A small threaded HTTP app framework: the port's own copy of the core of
+``predictionio_tpu/server/http.py`` (routing, JSON responses, a server
+that starts in the background and closes cleanly).
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import threading
+from dataclasses import dataclass
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, List, Optional, Tuple
+from urllib.parse import urlparse
+
+__all__ = ["Request", "Response", "HTTPError", "HTTPApp", "AppServer",
+           "json_response"]
+
+
+@dataclass
+class Request:
+    method: str
+    path: str
+    body: bytes
+
+    def json(self) -> Any:
+        if not self.body:
+            return None
+        return json.loads(self.body.decode("utf-8"))
+
+
+@dataclass
+class Response:
+    status: int = 200
+    body: Any = None
+    content_type: str = "application/json"
+
+    def encoded(self) -> bytes:
+        if self.body is None:
+            return b""
+        if isinstance(self.body, bytes):
+            return self.body
+        if isinstance(self.body, str):
+            return self.body.encode("utf-8")
+        return json.dumps(self.body).encode("utf-8")
+
+
+def json_response(body: Any, status: int = 200) -> Response:
+    return Response(status=status, body=body)
+
+
+class HTTPError(Exception):
+    """Raise inside a handler to produce a JSON error response."""
+
+    def __init__(self, status: int, message: str):
+        super().__init__(message)
+        self.status = status
+        self.message = message
+
+
+Handler = Callable[[Request], Response]
+
+
+class HTTPApp:
+    """Routes ``(method, path-regex) -> handler``; first match wins."""
+
+    def __init__(self, name: str = "app"):
+        self.name = name
+        self._routes: List[Tuple[str, re.Pattern, Handler]] = []
+
+    def route(self, method: str, pattern: str) -> Callable[[Handler], Handler]:
+        compiled = re.compile(f"^{pattern}$")
+
+        def deco(fn: Handler) -> Handler:
+            self._routes.append((method.upper(), compiled, fn))
+            return fn
+        return deco
+
+    def handle(self, req: Request) -> Response:
+        path_matched = False
+        for method, pattern, fn in self._routes:
+            if not pattern.match(req.path):
+                continue
+            path_matched = True
+            if method != req.method:
+                continue
+            try:
+                return fn(req)
+            except HTTPError as e:
+                return json_response({"message": e.message}, e.status)
+            except Exception as e:  # noqa: BLE001 — the server boundary
+                return json_response({"message": str(e)}, 500)
+        if path_matched:
+            return json_response({"message": "Method Not Allowed"}, 405)
+        return json_response({"message": "Not Found"}, 404)
+
+
+class _Handler(BaseHTTPRequestHandler):
+    app: HTTPApp  # bound by AppServer
+    protocol_version = "HTTP/1.1"
+    # header and body go out in separate writes; without TCP_NODELAY,
+    # Nagle and the peer's delayed ACK stall each keep-alive response
+    disable_nagle_algorithm = True
+
+    def log_message(self, fmt, *args):  # quiet by default
+        pass
+
+    def _dispatch(self) -> None:
+        length = int(self.headers.get("Content-Length") or 0)
+        body = self.rfile.read(length) if length else b""
+        req = Request(method=self.command, path=urlparse(self.path).path,
+                      body=body)
+        resp = self.app.handle(req)
+        payload = resp.encoded()
+        self.send_response(resp.status)
+        self.send_header("Content-Type", resp.content_type)
+        self.send_header("Content-Length", str(len(payload)))
+        self.end_headers()
+        self.wfile.write(payload)
+
+    do_GET = do_POST = _dispatch
+
+
+class _AppHTTPServer(ThreadingHTTPServer):
+    # the stdlib's listen backlog (5) resets connections when a burst of
+    # concurrent clients lands; the micro-batcher exists for such bursts
+    request_queue_size = 256
+    daemon_threads = True
+
+
+class AppServer:
+    """Owns a ``ThreadingHTTPServer`` for one :class:`HTTPApp`: serve in a
+    background thread (``start_background``, tests and embedding) or on
+    the calling thread (``serve_forever``, the CLI). ``port=0`` picks a
+    free port; read it back from :attr:`port`."""
+
+    def __init__(self, app: HTTPApp, host: str = "0.0.0.0", port: int = 0):
+        handler = type("BoundHandler", (_Handler,), {"app": app})
+        self.httpd = _AppHTTPServer((host, port), handler)
+        self.app = app
+        self._thread: Optional[threading.Thread] = None
+        self._on_close: List[Callable[[], None]] = []
+        self._close_lock = threading.Lock()
+        self._closed = False
+        self._serving = False
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
+    def on_close(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` once the listener is down (releases what the app
+        owns, such as batcher threads)."""
+        self._on_close.append(fn)
+
+    def start_background(self) -> "AppServer":
+        self._serving = True
+        self._thread = threading.Thread(
+            target=self.httpd.serve_forever, name=f"{self.app.name}-http",
+            daemon=True)
+        self._thread.start()
+        return self
+
+    def serve_forever(self) -> None:
+        self._serving = True
+        self.httpd.serve_forever()
+
+    def close(self) -> None:
+        """Stop accepting, close the socket, join the serving thread and
+        release what the app owns. Idempotent."""
+        with self._close_lock:
+            if self._closed:
+                return
+            self._closed = True
+        if self._serving:  # shutdown() waits for a serve loop to exit
+            self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        for fn in self._on_close:
+            fn()

@@ -1,0 +1,50 @@
+"""Where the port runs: the CUDA card, unless the caller asks for the CPU.
+
+There is no silent fallback. ``resolve_device()`` with no argument is the
+first CUDA card and raises where there is none; the CPU is used only when
+asked for by name (the tests do, to run the kernels' plain versions).
+"""
+
+from __future__ import annotations
+
+import subprocess
+from typing import Union
+
+import torch
+
+DeviceLike = Union[None, str, torch.device]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``cuda:0`` by default; raises when CUDA is absent and the CPU was
+    not asked for."""
+    if device is None:
+        device = "cuda:0"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but CUDA is not available; "
+                f"pass device='cpu' to run the plain versions on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: cuda or cpu")
+    return dev
+
+
+def card_info(device: DeviceLike = None) -> dict:
+    """Name and power limit of the card: ``torch.cuda.get_device_name``
+    and ``nvidia-smi --query-gpu=name,power.limit`` (the limit a
+    measurement has to be read beside). ``{"name": "cpu"}`` for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return {"name": "cpu", "power_limit": None, "nvidia_smi": None}
+    out = subprocess.run(
+        ["nvidia-smi", f"--id={dev.index}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30, check=True)
+    line = out.stdout.strip().splitlines()[0]
+    return {"name": torch.cuda.get_device_name(dev),
+            "power_limit": line.rsplit(",", 1)[-1].strip(),
+            "nvidia_smi": line}

@@ -1,0 +1,87 @@
+"""The port stands alone: no JAX, no ml_dtypes, nothing of the JAX
+package, and no silent CPU default."""
+
+import ast
+import importlib
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import predictionio_tpu_torch
+from predictionio_tpu_torch.utils.device import card_info, resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "predictionio_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "predictionio_tpu"}
+
+
+def port_files():
+    return sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_import(path):
+    bad = sorted(set(imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_module_imports():
+    for path in sorted(PACKAGE.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        name = ".".join(p for p in rel.parts if p != "__init__")
+        importlib.import_module(name)
+    assert predictionio_tpu_torch.__version__
+
+
+def test_server_import_loads_no_jax():
+    code = ("import sys, predictionio_tpu_torch.server.engineserver, "
+            "predictionio_tpu_torch.cli; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        card_info()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert card_info("cpu")["name"] == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_chip_smoke_needs_the_card(tmp_path):
+    """Without CUDA the script exits non-zero and prints no result; alone
+    in a directory (no package beside it) it fails too."""
+    for cwd in (ROOT, tmp_path):
+        script = ROOT / "chip_smoke.py"
+        if cwd == tmp_path:
+            script = tmp_path / "chip_smoke.py"
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, capture_output=True,
+            text=True, timeout=120,
+            env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
