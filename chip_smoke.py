@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on the CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths once on the CUDA
+card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,7 +9,8 @@ Phases, each printing one line of numbers, any failure exits non-zero:
 1. card   — CUDA must be present; prints ``nvidia-smi``'s name and power
             limit.
 2. build  — compiles every ``predictionio_tpu_torch/csrc/*.cu`` with nvcc
-            (all at once) into ``build/torch_kernels/``.
+            (one process per source, all started together) into
+            ``build/torch_kernels/``.
 3. kernel — ``fused_topk`` on the f32, bf16 and int8 wires at ML-20M width
             (138,493 users x 26,744 items, rank 64), B in {1, 37, 2048},
             k in {16, 128}, one ``base != 0`` case and an integer-valued tie
@@ -26,6 +28,33 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``recommend_batch`` of 2,048 users runs beside them. The kernel
             launch counts are zeroed just before and read just after, and
             must be positive.
+5. train-kernel — the MovieLens-20M surrogate
+            (``benchmarks/ml20m_surrogate.py``, 20,000,263 ratings from
+            ``--seed``) is packed as training packs it; ``fused_gram`` runs
+            on every row block of one iteration (both sides, f32 and bf16
+            wires) from the initial factors, each held against the plain
+            version: |dA| <= 1e-5 * sum_l |wa| * max|f|^2 and |db| <=
+            1e-5 * sum_l |wb| * max|f| per row (only the summation order
+            differs). ``chol_solve`` solves those 138,493 user systems at
+            r = 64 (and the item systems) and synthetic SPD systems at r in
+            {10, 96, 128}: the relative residual ||Ax - b|| / (||A||_F
+            ||x|| + ||b||) <= 1e-5
+            and ||x - x_plain|| <= 1e-3 ||x_plain|| per system (f32
+            Cholesky with another order of sums); r = 136 must take the
+            plain route and launch nothing.
+6. train  — ``Engine.train`` of the recommendation template on the card
+            through a data source over the surrogate: rank 64, 10
+            iterations, default ``ALSParams``, launch counts zeroed just
+            before and read just after (both must be positive). The
+            training RMSE must be finite and lower than after 1 iteration;
+            one iteration of the kernel path and of the same half-steps
+            with the plain ``fused_gram`` and solve, from the same initial
+            factors, agree within rtol 2e-3, atol 2e-4. The model goes
+            through the model file, is deployed with int8 tables and
+            batching, and its answers are checked as in phase 4. Prints
+            the ``Engine.train`` window (read, pack and 10 iterations,
+            synchronized) per iteration beside the median of isolated,
+            synchronized iterations from the initial factors.
 
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
 launches) and, last, ``{"ok": true, "device": {...}}``.
@@ -34,11 +63,15 @@ launches) and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import importlib.util
 import json
 import sys
 import threading
 import time
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -60,6 +93,14 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print a phase's wall seconds when it ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name} seconds={time.perf_counter() - t0:.2f}", flush=True)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -255,9 +296,36 @@ def _post(port: int, body) -> tuple:
     return out, time.perf_counter() - t0
 
 
+def check_answer(query, answer, ud, us, vd, vs, U64, V64, n_items,
+                 dev) -> None:
+    """An answer agrees with the plain version on the bound tables."""
+    from predictionio_tpu_torch.models.als import _compiled_k
+    from predictionio_tpu_torch.ops.fused_topk import fused_topk_reference
+
+    got = answer["itemScores"]
+    uidx = int(query["user"][1:])
+    black = {int(b[1:]) for b in query.get("blackList", [])}
+    kk = _compiled_k(query["num"] + len(black), n_items)
+    idx = torch.tensor([uidx], dtype=torch.int32, device=dev)
+    ps, pi = fused_topk_reference(ud, idx, vd, us, vs, k=kk,
+                                  n_items=n_items)
+    keep = [j for j, it in enumerate(pi[0].tolist()) if it not in black]
+    want = ps[0, keep][: query["num"]].double()
+    check(len(got) == len(want), f"{query}: {len(got)} items returned")
+    ids = torch.tensor([int(g["item"][1:]) for g in got], device=dev)
+    s = torch.tensor([g["score"] for g in got], dtype=torch.float64,
+                     device=dev)
+    tol = RTOL["int8"] * (1 + want.abs())
+    check(bool(((s - want).abs() <= tol).all()),
+          f"{query}: scores off the plain version")
+    own = (U64[uidx][None, :] * V64[ids]).sum(1)
+    check(bool(((own - s).abs() <= tol).all()),
+          f"{query}: an item does not score what was returned")
+    check(not (set(ids.tolist()) & black), f"{query}: blacklisted item")
+
+
 def phase_slice(rng, U, V, dev) -> int:
     from predictionio_tpu_torch.models.als import (
-        _compiled_k,
         _table_leaves,
         recommend_batch,
     )
@@ -295,27 +363,7 @@ def phase_slice(rng, U, V, dev) -> int:
     V64 = vd.double() * vs.double()
 
     def expect_ok(query, answer):
-        """An answer agrees with the plain version on the bound tables."""
-        got = answer["itemScores"]
-        uidx = int(query["user"][1:])
-        black = {int(b[1:]) for b in query.get("blackList", [])}
-        kk = _compiled_k(query["num"] + len(black), N_ITEMS)
-        idx = torch.tensor([uidx], dtype=torch.int32, device=dev)
-        ps, pi = ft.fused_topk_reference(ud, idx, vd, us, vs, k=kk,
-                                         n_items=N_ITEMS)
-        keep = [j for j, it in enumerate(pi[0].tolist()) if it not in black]
-        want = ps[0, keep][: query["num"]].double()
-        check(len(got) == len(want), f"{query}: {len(got)} items returned")
-        ids = torch.tensor([int(g["item"][1:]) for g in got], device=dev)
-        s = torch.tensor([g["score"] for g in got], dtype=torch.float64,
-                         device=dev)
-        tol = RTOL["int8"] * (1 + want.abs())
-        check(bool(((s - want).abs() <= tol).all()),
-              f"{query}: scores off the plain version")
-        own = (U64[uidx][None, :] * V64[ids]).sum(1)
-        check(bool(((own - s).abs() <= tol).all()),
-              f"{query}: an item does not score what was returned")
-        check(not (set(ids.tolist()) & black), f"{query}: blacklisted item")
+        check_answer(query, answer, ud, us, vd, vs, U64, V64, N_ITEMS, dev)
 
     queries = [{"user": f"u{u}", "num": 10}
                for u in rng.integers(0, N_USERS, 64)]
@@ -411,22 +459,469 @@ def phase_slice(rng, U, V, dev) -> int:
           f"{inproc_ms:.3f} recommend_products={model_ms:.3f}", flush=True)
     return launches
 
+# -- training ---------------------------------------------------------------
+
+TRAIN_ITERS = 10
+
+
+def load_surrogate(seed: int):
+    """The MovieLens-20M surrogate (pure numpy), loaded by file path."""
+    path = Path(__file__).resolve().parent / "benchmarks" / "ml20m_surrogate.py"
+    spec = importlib.util.spec_from_file_location("ml20m_surrogate", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    users, items, stars, _, n_users, n_items = mod.generate(scale=1.0,
+                                                            seed=seed)
+    print(f"phase train-data: {len(users)} ratings, {n_users} users x "
+          f"{n_items} items (seed {seed}) in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return users, items, stars, n_users, n_items
+
+
+def gram_bound(B: int, L: int, rows: int, r: int, wire: str) -> tuple:
+    """(least ms, what bounds it) for one fused_gram call: the ``rows``
+    distinct table rows the indices name, the indices and both weights
+    read once, A (all r x r, as returned) and b written once. Per slot
+    r(r+1)/2 multiply-adds for the distinct entries of the symmetric A,
+    r multiplies for wa * f and r multiply-adds for b: r^2 + 4r operations
+    at the wire's peak (bf16 x bf16 products are exact in f32, so the bf16
+    wire may run them on tensor cores)."""
+    w = {"f32": 4, "bf16": 2}[wire]
+    nbytes = rows * r * w + B * L * 12 + B * (r * r + r) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * L * (r * r + 4.0 * r) / PEAK_OPS[wire] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def solve_bound(n: int, r: int) -> tuple:
+    """(least ms, what bounds it) for one chol_solve call: the lower
+    triangle of A (all a Cholesky solve reads) and b read once, x written
+    once; r^3/3 + 2r^2 operations per system at the f32 peak."""
+    t_bytes = n * (r * (r + 1) // 2 + 2 * r) * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = n * (r ** 3 / 3.0 + 2.0 * r * r) / PEAK_OPS["f32"] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_gram(tag, A, b, Ar, br, table, wa, wb) -> float:
+    """|dA| <= 1e-5 * sum_l |wa| * max|f|^2 and |db| <= 1e-5 * sum_l |wb|
+    * max|f| per row; returns the largest |dA|."""
+    fmax = table.float().abs().max()
+    errA = (A - Ar).abs().amax(dim=(1, 2))
+    errb = (b - br).abs().amax(dim=1)
+    tolA = 1e-5 * wa.abs().sum(1) * fmax * fmax
+    tolb = 1e-5 * wb.abs().sum(1) * fmax
+    check(bool((errA <= tolA).all()) and bool((errb <= tolb).all()),
+          f"{tag}: A off the plain version by {errA.max().item():.3e}, b by "
+          f"{errb.max().item():.3e}")
+    return errA.max().item()
+
+
+def library_gram(table, idx, wa, wb):
+    """One library computation of the same (A, b): gather, then torch.bmm."""
+    F = table[idx.long()].float()
+    Fw = F * wa[..., None]
+    return (torch.bmm(Fw.transpose(1, 2), F),
+            torch.bmm(wb[:, None, :], F)[:, 0])
+
+
+def phase_train_kernel(packed, params, dev) -> tuple:
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import solve as sv
+
+    r = params.rank
+    for side, h in (("user", packed.user_h), ("item", packed.item_h)):
+        if isinstance(h, als.BucketedHistories):
+            shape = " ".join(f"{b.length}x{b.n_rows}" for b in h.buckets)
+            real = sum(int((b.counts > 0).sum()) for b in h.buckets)
+            print(f"phase train-kernel: {side} layout bucket, L x rows: "
+                  f"{shape}; {h.padded_entries} padded slots; "
+                  f"{h.n_rows - real} of {h.n_rows} rows without a rating",
+                  flush=True)
+        else:
+            print(f"phase train-kernel: {side} layout pad {h.n_rows} x "
+                  f"{h.max_len}", flush=True)
+    U0, V0 = als.draw_initial_factors(
+        params.seed, packed.n_users, als._rows_padded(packed.user_h),
+        packed.n_items, als._rows_padded(packed.item_h), r)
+    U0, V0 = U0.to(dev), V0.to(dev)
+    total = {w: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                     slots=0, err=0.0, by={"bytes": 0.0, "operations": 0.0})
+             for w in ("f32", "bf16")}
+    systems = {}
+    named = {("user", 32), ("user", 512), ("item", 131072)}
+    for side, h, table in (("user", packed.user_h, V0),
+                           ("item", packed.item_h, U0)):
+        As, bs = [], []
+        for idx, val, cnt, _ in als.training_blocks(h, r):
+            B, L = idx.shape
+            wa, wb = als._weights(val, cnt, params.alpha, implicit=False)
+            rows = int(torch.unique(idx).numel())
+            for wire, tab in (("f32", table), ("bf16", table.bfloat16())):
+                A, b = fg.fused_gram(tab, idx, wa, wb)
+                torch.cuda.synchronize()
+                Ar, br = fg.fused_gram_reference(tab, idx, wa, wb)
+                tag = f"fused_gram {side} {wire} B={B} L={L}"
+                err = check_gram(tag, A, b, Ar, br, tab, wa, wb)
+                del Ar, br
+                ms = median_ms(lambda: fg.fused_gram(tab, idx, wa, wb), 5)
+                plain_ms = median_ms(
+                    lambda: fg.fused_gram_reference(tab, idx, wa, wb), 3)
+                lib_ms = median_ms(lambda: library_gram(tab, idx, wa, wb), 3)
+                b_ms, b_by = gram_bound(B, L, rows, r, wire)
+                t = total[wire]
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["library_ms"] += lib_ms
+                t["bound_ms"] += b_ms
+                t["by"][b_by] += b_ms
+                t["slots"] += B * L
+                t["err"] = max(t["err"], err)
+                if (side, L) in named:
+                    print(f"phase train-kernel: {tag} max_abs_err={err:.3e} "
+                          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} "
+                          f"bound_by={b_by}", flush=True)
+                if wire == "f32":
+                    A.diagonal(dim1=-2, dim2=-1).add_(
+                        (params.reg * torch.clamp(cnt.float(), min=1.0))
+                        [:, None])
+                    As.append(A)
+                    bs.append(b)
+                else:
+                    del A, b
+        systems[side] = (torch.cat(As), torch.cat(bs))
+        del As, bs
+    for wire, t in total.items():
+        print(f"phase train-kernel: fused_gram {wire} one iteration "
+              f"({t['slots']} slots, both sides) max_abs_err={t['err']:.3e} "
+              f"ms={t['ms']:.3f} plain_ms={t['plain_ms']:.3f} "
+              f"library_ms={t['library_ms']:.3f} bound_ms={t['bound_ms']:.4f} "
+              f"(bytes-bound calls {t['by']['bytes']:.4f}, operations-bound "
+              f"calls {t['by']['operations']:.4f})", flush=True)
+    f32 = total["f32"]
+    gram_row = {"max_abs_err": f32["err"], "ms": f32["ms"],
+                "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+                "bound_by": max(f32["by"], key=f32["by"].get),
+                "library_ms": f32["library_ms"]}
+
+    def solve_case(tag, A, b):
+        n, rr = b.shape
+        before = sv.LAUNCHES
+        x = sv.solve_spd_batch(A, b)
+        torch.cuda.synchronize()
+        launched = sv.LAUNCHES - before
+        xp = sv.solve_spd_reference(A, b)
+        Aj = A + 1e-6 * torch.eye(rr, device=dev)
+        res = ((torch.einsum("nrs,ns->nr", Aj, x) - b).norm(dim=1)
+               / (torch.linalg.matrix_norm(Aj) * x.norm(dim=1)
+                  + b.norm(dim=1)))
+        dx = (x - xp).norm(dim=1) / xp.norm(dim=1).clamp(min=1e-30)
+        check(bool(torch.isfinite(x).all()), f"{tag}: non-finite x")
+        check(res.max().item() <= 1e-5, f"{tag}: relative residual "
+              f"{res.max().item():.3e} > 1e-5")
+        check(dx.max().item() <= 1e-3, f"{tag}: x off the plain version by "
+              f"{dx.max().item():.3e} (normwise relative)")
+        err = (x - xp).abs().max().item()
+        ms = median_ms(lambda: sv.solve_spd_batch(A, b), 5)
+        plain_ms = median_ms(lambda: sv.solve_spd_reference(A, b), 2)
+        lib_ms = median_ms(lambda: torch.cholesky_solve(
+            b[..., None], torch.linalg.cholesky(Aj))[..., 0], 5)
+        b_ms, b_by = solve_bound(n, rr)
+        print(f"phase train-kernel: chol_solve {tag} n={n} r={rr} "
+              f"launched={launched} residual={res.max().item():.3e} "
+              f"dx={dx.max().item():.3e} max_abs_err={err:.3e} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.5f} bound_by={b_by}", flush=True)
+        return launched, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "library_ms": lib_ms}
+
+    launched, solve_row = solve_case("user systems", *systems["user"])
+    check(launched == 1, "the user systems did not take the kernel")
+    item_launched, item_row = solve_case("item systems", *systems["item"])
+    del systems
+    rng = np.random.default_rng(5)
+    for rr in (10, 96, 128, 136):
+        n = 4096 if rr <= 128 else 256
+        W = torch.from_numpy(rng.standard_normal(
+            (n, 2 * rr, rr), dtype=np.float32)).to(dev)
+        A = torch.einsum("nkr,nks->nrs", W, W) / (2 * rr) \
+            + 0.1 * torch.eye(rr, device=dev)
+        b = torch.from_numpy(rng.standard_normal((n, rr),
+                                                 dtype=np.float32)).to(dev)
+        launched, _ = solve_case(f"synthetic r={rr}", A, b)
+        check(launched == (1 if rr <= 128 else 0),
+              f"r={rr}: {launched} launches, routed wrong")
+    per_iter = {"gram_ms": gram_row["ms"],
+                "solve_ms": solve_row["ms"] + item_row["ms"]}
+    return gram_row, solve_row, per_iter
+
+
+def rmse(U, V, users, items, stars) -> float:
+    """Training RMSE over every rating, on the card in chunks."""
+    se = 0.0
+    for s in range(0, len(users), 1 << 22):
+        e = min(s + (1 << 22), len(users))
+        pred = (U[users[s:e]] * V[items[s:e]]).sum(1)
+        se += ((pred - stars[s:e]) ** 2).sum().item()
+    return (se / len(users)) ** 0.5
+
+
+@contextlib.contextmanager
+def plain_kernels(als):
+    """The training path's two kernels swapped for their plain versions,
+    for the duration."""
+    from predictionio_tpu_torch.ops.fused_gram import fused_gram_reference
+    from predictionio_tpu_torch.ops.solve import solve_spd_reference
+
+    saved = als.fused_gram, als.solve_spd_batch
+    als.fused_gram, als.solve_spd_batch = (fused_gram_reference,
+                                           solve_spd_reference)
+    try:
+        yield
+    finally:
+        als.fused_gram, als.solve_spd_batch = saved
+
+
+def phase_train(data, dev) -> dict:
+    from predictionio_tpu_torch.controller.base import DataSource
+    from predictionio_tpu_torch.controller.context import Context
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.models.als import (
+        _table_leaves,
+        pack_ratings_cached,
+    )
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy,
+    )
+    from predictionio_tpu_torch.templates.recommendation import (
+        TrainingData,
+        recommendation_engine,
+    )
+    from predictionio_tpu_torch.workflow.persistence import (
+        dumps_models,
+        loads_models,
+    )
+
+    users, items, stars, n_users, n_items = data
+    ratings = als.RatingsCOO(users, items, stars, n_users, n_items)
+
+    class SurrogateDataSource(DataSource):
+        def read_training(self, ctx):
+            return TrainingData(
+                ratings, BiMap({f"u{n}": n for n in range(n_users)}),
+                BiMap({f"i{n}": n for n in range(n_items)}))
+
+    engine = recommendation_engine(datasource_classes=SurrogateDataSource)
+    ep = engine.params_from_variant({"algorithms": [{"name": "als", "params": {
+        "rank": RANK, "numIterations": TRAIN_ITERS}}]})
+    params = ep.algorithms[0][1]
+    ctx = Context(device=dev)
+
+    # -- the training path, counted ------------------------------------
+    fg.LAUNCHES = 0
+    sv.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = engine.train(ctx, ep)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"fused_gram": fg.LAUNCHES, "chol_solve": sv.LAUNCHES}
+    # ------------------------------------------------------------------
+    check(launches["fused_gram"] > 0, "training launched fused_gram no time")
+    check(launches["chol_solve"] > 0, "training launched chol_solve no time")
+    (model,) = result.models
+    packed = pack_ratings_cached(ratings, params, device=dev)
+    u_t = torch.from_numpy(users.astype(np.int64)).to(dev)
+    i_t = torch.from_numpy(items.astype(np.int64)).to(dev)
+    s_t = torch.from_numpy(stars).to(dev)
+    rmse_10 = rmse(model.user_factors, model.item_factors, u_t, i_t, s_t)
+
+    one = dataclasses.replace(params, num_iterations=1)
+    U1, V1 = als.train_als(ratings, one, device=dev, packed=packed)
+    rmse_1 = rmse(U1, V1, u_t, i_t, s_t)
+    check(np.isfinite(rmse_10) and rmse_10 < rmse_1,
+          f"training RMSE {rmse_10:.4f} after {TRAIN_ITERS} iterations is "
+          f"not below {rmse_1:.4f} after 1")
+    before = (fg.LAUNCHES, sv.LAUNCHES)
+    with plain_kernels(als):
+        U1p, V1p = als.train_als(ratings, one, device=dev, packed=packed)
+    torch.cuda.synchronize()
+    check((fg.LAUNCHES, sv.LAUNCHES) == before,
+          "the plain half-steps launched a kernel")
+    for name, got, want in (("U", U1, U1p), ("V", V1, V1p)):
+        bad = (got - want).abs() > 2e-4 + 2e-3 * want.abs()
+        check(not bool(bad.any()),
+              f"one iteration: {name} off the plain half-steps at "
+              f"{int(bad.sum())} entries (max "
+              f"{(got - want).abs().max().item():.3e})")
+    dU = (U1 - U1p).abs().max().item()
+    dV = (V1 - V1p).abs().max().item()
+    del U1p, V1p
+
+    # one iteration (a user and an item half-step) from the initial
+    # factors, timed alone: host clock around work ending in a sync
+    U0, V0 = (t.to(dev) for t in als.draw_initial_factors(
+        params.seed, n_users, als._rows_padded(packed.user_h), n_items,
+        als._rows_padded(packed.item_h), RANK))
+
+    def iteration():
+        U = als._update_side(V0, packed.user_h, params)
+        return U, als._update_side(U, packed.item_h, params)
+
+    iteration()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iteration()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    iter_s = float(np.median(times))
+    flops = als.als_flops_per_iter(packed.user_h, packed.item_h, params)
+    breakdown = profile_iteration(iteration)
+    print(f"phase train: Engine.train {TRAIN_ITERS} iterations rank {RANK} "
+          f"{len(users)} ratings in {train_s:.3f}s (stages "
+          f"{ctx.stage_timings}), over that whole window (read and pack "
+          f"included) {train_s / TRAIN_ITERS * 1e3:.2f} ms an iteration, "
+          f"ratings_per_s_per_iter={len(users) * TRAIN_ITERS / train_s:.1f}"
+          f" | launches fused_gram="
+          f"{launches['fused_gram']} chol_solve={launches['chol_solve']} | "
+          f"rmse after 1={rmse_1:.4f} after {TRAIN_ITERS}={rmse_10:.4f} | "
+          f"one isolated iteration from the initial factors s={iter_s:.4f} "
+          f"(median of runs "
+          f"{', '.join(f'{t:.4f}' for t in times)}) ratings_per_s_per_iter="
+          f"{len(users) / iter_s:.1f} padded_tflop_per_s="
+          f"{flops / iter_s / 1e12:.3f} ({flops / 1e9:.1f} GFLOP an "
+          f"iteration) | kernel vs plain one iteration: "
+          f"max |dU|={dU:.3e} |dV|={dV:.3e}", flush=True)
+
+    (loaded,) = loads_models(dumps_models(result.models))
+    srv = deploy(engine, ep, [loaded],
+                 ServerConfig(batching=True, serving_quant="int8"),
+                 host="127.0.0.1", port=0)
+    srv.start_background()
+    try:
+        bound_model = srv.query_server.models[0]
+        ud, us = _table_leaves(bound_model.user_factors)
+        vd, vs = _table_leaves(bound_model.item_factors)
+        U64 = ud.double() * (us.double() if us is not None else 1.0)
+        V64 = vd.double() * (vs.double() if vs is not None else 1.0)
+        rng = np.random.default_rng(11)
+        queries = [{"user": f"u{u}", "num": 10}
+                   for u in rng.integers(0, n_users, 32)]
+        queries[0]["blackList"] = ["i1", "i2", "i3"]
+        for q in queries:
+            check_answer(q, _post(srv.port, q)[0], ud, us, vd, vs, U64, V64,
+                         n_items, dev)
+        with _LOCAL.open(f"http://127.0.0.1:{srv.port}/status.json",
+                         timeout=30) as resp:
+            quant = json.loads(resp.read())["servingQuant"]
+    finally:
+        srv.close()
+    print(f"phase train deploy: {len(queries)} /queries.json answers "
+          f"checked on the trained model, servingQuant={quant}", flush=True)
+    return {"launches": launches, "iter_s": iter_s, "breakdown": breakdown}
+
+
+def profile_iteration(fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``);
+    the busy share is the summed kernel time over the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels only: a CPU op also carries the device time of the kernels
+    # it launched, which would count them twice
+    rows = sorted(((dev_us(e) / 1e3, e.key) for e in prof.key_averages()
+                   if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")),
+                  reverse=True)
+    total = sum(ms for ms, _ in rows)
+    if not rows:
+        print("phase train profile: the profiler shows no device time",
+              flush=True)
+        return {}
+    top = " | ".join(f"{name[:48]}={ms:.3f}" for ms, name in rows[:8])
+    print(f"phase train profile, one iteration: wall_ms={wall_ms:.3f} "
+          f"device_ms={total:.3f} busy_share={total / wall_ms:.3f} | {top}",
+          flush=True)
+    out = {"wall_ms": wall_ms, "device_ms": total}
+    for key in ("fused_gram", "chol_solve"):
+        out[key] = sum(ms for ms, name in rows if key in name)
+    return out
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    phase_card()
-    phase_build()
+    with phase("card"):
+        phase_card()
+    with phase("build"):
+        phase_build()
     dev = torch.device("cuda", torch.cuda.current_device())
     rng, U, V = make_tables(args.seed)
-    row = phase_kernel(rng, U, V, dev)
-    launches = phase_slice(rng, U, V, dev)
-    kernels = [dict(name="fused_topk", route="cuda",
-                    source="predictionio_tpu_torch/csrc/fused_topk.cu",
-                    replaces="predictionio_tpu/ops/fused_topk.py:97",
-                    launches=launches, **row)]
+    with phase("kernel"):
+        row = phase_kernel(rng, U, V, dev)
+    with phase("slice"):
+        launches = phase_slice(rng, U, V, dev)
+    del U, V
+    from predictionio_tpu_torch.models import als
+
+    data = load_surrogate(args.seed)
+    params = als.ALSParams(rank=RANK, num_iterations=TRAIN_ITERS)
+    with phase("train-kernel"):
+        t0 = time.perf_counter()
+        packed = als.pack_ratings(als.RatingsCOO(*data), params, device=dev)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        print(f"phase train-kernel: pack_ratings alone {pack_s:.3f}s",
+              flush=True)
+        gram_row, solve_row, per_iter = phase_train_kernel(packed, params,
+                                                           dev)
+        del packed
+    with phase("train"):
+        trained = phase_train(data, dev)
+    bd = trained["breakdown"]
+    if bd:
+        other = bd["device_ms"] - bd["fused_gram"] - bd["chol_solve"]
+        print(f"phase train where the time goes, one profiled iteration ms: "
+              f"wall={bd['wall_ms']:.3f} fused_gram={bd['fused_gram']:.3f} "
+              f"chol_solve={bd['chol_solve']:.3f} other_kernels={other:.3f} "
+              f"device_idle={bd['wall_ms'] - bd['device_ms']:.3f} | kernel "
+              f"phase sums at the same shapes: fused_gram="
+              f"{per_iter['gram_ms']:.3f} chol_solve={per_iter['solve_ms']:.3f}",
+              flush=True)
+    kernels = [
+        dict(name="fused_topk", route="cuda",
+             source="predictionio_tpu_torch/csrc/fused_topk.cu",
+             replaces="predictionio_tpu/ops/fused_topk.py:97",
+             launches=launches, **row),
+        dict(name="fused_gram", route="cuda",
+             source="predictionio_tpu_torch/csrc/fused_gram.cu",
+             replaces="predictionio_tpu/ops/fused_gram.py:93",
+             launches=trained["launches"]["fused_gram"], **gram_row),
+        dict(name="chol_solve", route="cuda",
+             source="predictionio_tpu_torch/csrc/chol_solve.cu",
+             replaces="predictionio_tpu/ops/solve.py:126,133",
+             launches=trained["launches"]["chol_solve"], **solve_row),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

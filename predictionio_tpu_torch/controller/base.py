@@ -1,9 +1,10 @@
-"""DASE serving contracts: Algorithm and Serving (the serving half of
-``predictionio_tpu/controller/base.py``).
+"""DASE contracts: DataSource, Preparator, Algorithm and Serving (the
+port of ``predictionio_tpu/controller/base.py``).
 
-An algorithm predicts from a model bound at deploy; a serving combines
-the per-algorithm predictions into the served result. Models are plain
-objects holding torch tensors; there is no Context or mesh.
+A data source reads training data, a preparator turns it into algorithm
+input, an algorithm trains a model and predicts from it, and a serving
+combines the per-algorithm predictions into the served result. Models
+are plain objects holding torch tensors; there is no mesh.
 """
 
 from __future__ import annotations
@@ -13,12 +14,54 @@ from typing import Any, List, Optional, Sequence
 
 import torch
 
+from .context import Context
+
+
+class SanityCheck(abc.ABC):
+    """Optional self-check hook on data and model objects; training calls
+    it after read, prepare and train unless the context skips it."""
+
+    @abc.abstractmethod
+    def sanity_check(self) -> None:
+        """Raise if the object is malformed (e.g. empty training data)."""
+
+
+class DataSource(abc.ABC):
+    """Reads the training data."""
+
+    @abc.abstractmethod
+    def read_training(self, ctx: Context) -> Any:
+        ...
+
+
+class Preparator(abc.ABC):
+    """Transforms training data into algorithm input."""
+
+    @abc.abstractmethod
+    def prepare(self, ctx: Context, training_data: Any) -> Any:
+        ...
+
+
+class IdentityPreparator(Preparator):
+    """Pass-through preparator."""
+
+    def __init__(self, params: Any = None):
+        pass
+
+    def prepare(self, ctx: Context, training_data):
+        return training_data
+
 
 class Algorithm(abc.ABC):
-    """The predict contract of one engine algorithm."""
+    """The train and predict contract of one engine algorithm."""
 
     #: optional dataclass type for typed query parsing at the REST boundary
     query_class: Optional[type] = None
+
+    def train(self, ctx: Context, prepared_data: Any) -> Any:
+        """A model trained on ``prepared_data`` on ``ctx.device``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} serves models but does not train them")
 
     @abc.abstractmethod
     def predict(self, model: Any, query: Any) -> Any:

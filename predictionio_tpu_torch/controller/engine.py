@@ -1,31 +1,65 @@
-"""Engine: binds named algorithm and serving classes (the serving half of
-``predictionio_tpu/controller/engine.py``)."""
+"""Engine: binds named DASE component classes and trains (the port of
+``predictionio_tpu/controller/engine.py``: training and serving slots;
+eval and deploy-time re-materialization are not ported yet)."""
 
 from __future__ import annotations
 
+import logging
+import time
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Type, Union
 
-from .base import Algorithm, Serving
+from .base import Algorithm, DataSource, Preparator, SanityCheck, Serving
+from .context import Context
 from .params import EngineParams, engine_params_from_variant, instantiate
+
+log = logging.getLogger(__name__)
 
 ClassMap = Union[Type, Dict[str, Type]]
 
 
-def _as_map(x: ClassMap) -> Dict[str, Type]:
+def _as_map(x: Optional[ClassMap]) -> Dict[str, Type]:
+    if x is None:
+        return {}
     return x if isinstance(x, dict) else {"": x}
 
 
+def _sanity(obj: Any, what: str, skip: bool) -> None:
+    if skip:
+        return
+    if isinstance(obj, SanityCheck):
+        log.info("sanity check %s", what)
+        obj.sanity_check()
+
+
+@dataclass
+class TrainResult:
+    """Everything ``train`` produced: per-algorithm models in params
+    order."""
+
+    models: List[Any]
+    engine_params: EngineParams
+
+
 class Engine:
-    """Named class maps for the algorithm and serving slots."""
+    """Named class maps for every DASE slot, and training."""
 
     def __init__(self, algorithm_classes: ClassMap,
                  serving_classes: ClassMap,
                  algorithm_params_classes: Optional[Dict[str, Type]] = None,
-                 serving_params_class: Optional[Type] = None):
+                 serving_params_class: Optional[Type] = None, *,
+                 datasource_classes: Optional[ClassMap] = None,
+                 preparator_classes: Optional[ClassMap] = None,
+                 datasource_params_class: Optional[Type] = None,
+                 preparator_params_class: Optional[Type] = None):
         self.algorithm_classes = _as_map(algorithm_classes)
         self.serving_classes = _as_map(serving_classes)
         self.algorithm_params_classes = algorithm_params_classes or {}
         self.serving_params_class = serving_params_class
+        self.datasource_classes = _as_map(datasource_classes)
+        self.preparator_classes = _as_map(preparator_classes)
+        self.datasource_params_class = datasource_params_class
+        self.preparator_params_class = preparator_params_class
 
     def _make(self, classes: Dict[str, Type], pair: Tuple[str, Any],
               slot: str):
@@ -34,6 +68,14 @@ class Engine:
             raise KeyError(f"{slot} {name!r} not registered "
                            f"(available: {sorted(classes)})")
         return instantiate(classes[name], params)
+
+    def make_datasource(self, ep: EngineParams) -> DataSource:
+        return self._make(self.datasource_classes, ep.datasource,
+                          "datasource")
+
+    def make_preparator(self, ep: EngineParams) -> Preparator:
+        return self._make(self.preparator_classes, ep.preparator,
+                          "preparator")
 
     def make_algorithms(self, ep: EngineParams) -> List[Algorithm]:
         return [self._make(self.algorithm_classes, pair, "algorithm")
@@ -45,5 +87,41 @@ class Engine:
     def params_from_variant(self, variant: dict) -> EngineParams:
         return engine_params_from_variant(
             variant,
+            datasource_params_cls=self.datasource_params_class,
+            preparator_params_cls=self.preparator_params_class,
             algorithm_params_classes=self.algorithm_params_classes,
             serving_params_cls=self.serving_params_class)
+
+    def train(self, ctx: Context, engine_params: EngineParams) -> TrainResult:
+        """Read, sanity-check, prepare, sanity-check, then train every
+        algorithm and sanity-check its model; ``ctx.stop_after_read`` and
+        ``ctx.stop_after_prepare`` end early with no models. Stage
+        seconds land in ``ctx.stage_timings``."""
+        stages = ctx.stage_timings
+        t0 = time.monotonic()
+        datasource = self.make_datasource(engine_params)
+        td = datasource.read_training(ctx)
+        stages["read_s"] = round(time.monotonic() - t0, 2)
+        _sanity(td, "training data", ctx.skip_sanity_check)
+        if ctx.stop_after_read:
+            log.info("stopping after read")
+            return TrainResult(models=[], engine_params=engine_params)
+
+        t0 = time.monotonic()
+        preparator = self.make_preparator(engine_params)
+        pd = preparator.prepare(ctx, td)
+        stages["prepare_s"] = round(time.monotonic() - t0, 2)
+        _sanity(pd, "prepared data", ctx.skip_sanity_check)
+        if ctx.stop_after_prepare:
+            log.info("stopping after prepare")
+            return TrainResult(models=[], engine_params=engine_params)
+
+        models = []
+        t0 = time.monotonic()
+        for i, algo in enumerate(self.make_algorithms(engine_params)):
+            log.info("training algorithm %d: %s", i, type(algo).__name__)
+            model = algo.train(ctx, pd)
+            _sanity(model, f"model[{i}]", ctx.skip_sanity_check)
+            models.append(model)
+        stages["algo_train_s"] = round(time.monotonic() - t0, 2)
+        return TrainResult(models=models, engine_params=engine_params)

@@ -1,5 +1,5 @@
 """Typed per-controller parameters from engine variant JSON (the port's
-copy of ``predictionio_tpu/controller/params.py``, serving slots only).
+copy of ``predictionio_tpu/controller/params.py``).
 
 Params are plain dataclasses; a controller class is built from its
 params object, or from nothing if it takes none.
@@ -48,32 +48,45 @@ def instantiate(controller_cls: Type, params: Any):
 
 @dataclasses.dataclass(frozen=True)
 class EngineParams:
-    """Named params for the serving slots. ``algorithms`` is a list of
+    """Named params for every DASE slot. ``algorithms`` is a list of
     (name, params)."""
 
+    datasource: Tuple[str, Any] = ("", None)
+    preparator: Tuple[str, Any] = ("", None)
     algorithms: Sequence[Tuple[str, Any]] = (("", None),)
     serving: Tuple[str, Any] = ("", None)
 
 
 def engine_params_from_variant(
         variant: Mapping[str, Any],
+        datasource_params_cls: Optional[Type] = None,
+        preparator_params_cls: Optional[Type] = None,
         algorithm_params_classes: Optional[Dict[str, Type]] = None,
         serving_params_cls: Optional[Type] = None) -> EngineParams:
     """Extract :class:`EngineParams` from an ``engine.json``-shaped
     variant. Each slot is ``{"name": ..., "params": {...}}`` (name
-    optional); ``algorithms`` is a list of such entries. The training
-    slots (datasource, preparator) are not read."""
+    optional); ``algorithms`` is a list of such entries. A ``*_cls`` may
+    be one params class or a name -> class map."""
+
+    def one(key: str, cls) -> Tuple[str, Any]:
+        node = variant.get(key)
+        if not node:
+            return ("", None)
+        name = node.get("name", "")
+        if isinstance(cls, Mapping):
+            cls = cls.get(name)
+        return (name, params_from_json(cls, node.get("params", {})))
+
     algos: List[Tuple[str, Any]] = []
     for node in variant.get("algorithms", []):
         name = node.get("name", "")
         cls = (algorithm_params_classes or {}).get(name)
         algos.append((name, params_from_json(cls, node.get("params", {}))))
-    node = variant.get("serving") or {}
-    serving = (node.get("name", ""),
-               params_from_json(serving_params_cls, node.get("params", {}))
-               if node else None)
-    return EngineParams(algorithms=tuple(algos) if algos else (("", None),),
-                        serving=serving)
+    return EngineParams(
+        datasource=one("datasource", datasource_params_cls),
+        preparator=one("preparator", preparator_params_cls),
+        algorithms=tuple(algos) if algos else (("", None),),
+        serving=one("serving", serving_params_cls))
 
 
 def load_variant(path: str) -> dict:

@@ -308,5 +308,3 @@ int launch(int device, const void* user, const void* idx, const void* item,
 FUSED_TOPK_ENTRY(fused_topk_f32, float)
 FUSED_TOPK_ENTRY(fused_topk_bf16, __nv_bfloat16)
 FUSED_TOPK_ENTRY(fused_topk_i8, int8_t)
-
-extern "C" int fused_topk_max_rank() { return kMaxRank; }

@@ -1,4 +1,16 @@
-"""ALS serving on the card: the serving half of ``predictionio_tpu/models/als.py``.
+"""ALS on the card: the training and serving halves of
+``predictionio_tpu/models/als.py``.
+
+Training (:func:`train_als`) alternates half-steps: each packs one side's
+rating histories (``ops/ragged.py``, pad or bucket layout), builds every
+row's normal equations against the fixed other side in
+:func:`_lhs_fn` -- the hand-written fused gather + Gramian kernel
+(``ops/fused_gram.py``) for ``gram_mode`` "fused" (and "auto" up to the
+kernel's rank limit), the plain gather and einsum (``ops/gram.py``)
+otherwise -- adds ALS-WR regularization ``reg * max(n, 1) * I`` (and for
+implicit feedback the fixed side's Gramian), and solves them all with
+the hand-written batched Cholesky kernel (``ops/solve.py``). CPU tensors
+take each kernel's plain version; nothing falls back on the card.
 
 A trained model is two factor tables plus the id maps. Serving ranks all
 items for a user by ``user_row . item_row`` and returns the top k, ties
@@ -12,21 +24,35 @@ Serving tables may be row-quantized at deploy time (int8 with per-row
 absmax scales, or bf16) behind an NDCG@10 parity probe against the f32
 ranking (:func:`quantize_serving_model`); products always accumulate f32.
 
-Training, fold-in, sharded and replicated placement and pinned rows are
-not in this module yet.
+Not in this module yet: the split history layout, checkpoint resume,
+fold-in, sharded and replicated placement and pinned rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
+import threading
+import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..ops.fused_gram import FUSED_GRAM_MAX_RANK, fused_gram
 from ..ops.fused_topk import TOPK_MAX_K, fused_topk, fused_topk_reference
+from ..ops.gram import gram_dispatch
+from ..ops.ragged import (
+    AUTO_CAP_ENTRIES,
+    BucketedHistories,
+    PaddedHistories,
+    pack_histories_bucketed_device,
+    pack_histories_device,
+    resolve_max_len,
+)
+from ..ops.solve import gramian, solve_spd_batch
 from ..utils.device import DeviceLike, resolve_device
 
 log = logging.getLogger(__name__)
@@ -382,3 +408,368 @@ def predict_rating(model: ALSModel, user_index: int, item_index: int
     u = _host_row_f32(model.user_factors, user_index)
     v = _host_row_f32(model.item_factors, item_index)
     return float(u @ v)
+
+
+# -- training ---------------------------------------------------------------
+
+@dataclass(frozen=True)
+class RatingsCOO:
+    """Integer-indexed rating triples (host numpy)."""
+
+    users: np.ndarray    # int32 [nnz]
+    items: np.ndarray    # int32 [nnz]
+    ratings: np.ndarray  # float32 [nnz]
+    n_users: int
+    n_items: int
+
+
+def _resolves_fused(gram: str, rank: int) -> bool:
+    """Whether ``gram`` lands on the fused kernel: "fused" explicitly
+    (raising past the kernel's rank limit), or "auto" within it -- "auto"
+    never resolves to a kernel that cannot take the shape."""
+    if gram == "fused":
+        if rank > FUSED_GRAM_MAX_RANK:
+            raise ValueError(
+                f"gram_mode='fused' takes rank <= {FUSED_GRAM_MAX_RANK}, "
+                f"got {rank}; use 'auto' or 'einsum'")
+        return True
+    return gram == "auto" and rank <= FUSED_GRAM_MAX_RANK
+
+
+def resolved_gram_mode(params: ALSParams) -> str:
+    """The concrete gram realization ``params`` trains with."""
+    if params.gram_mode != "auto":
+        return params.gram_mode
+    return "fused" if _resolves_fused("auto", params.rank) else "einsum"
+
+
+def _fused_lhs(table: torch.Tensor, indices: torch.Tensor,
+               wa: torch.Tensor, wb: torch.Tensor):
+    """The fused realization of :func:`_lhs_fn`: gather and Gramian in
+    one kernel launch; the ``[..., L, r]`` gather never exists."""
+    r = table.shape[-1]
+    L = indices.shape[-1]
+    lead = tuple(indices.shape[:-1])
+    A, b = fused_gram(table, indices.reshape(-1, L).contiguous(),
+                      wa.reshape(-1, L).contiguous(),
+                      wb.reshape(-1, L).contiguous())
+    return A.reshape(lead + (r, r)), b.reshape(lead + (r,))
+
+
+def _lhs_fn(table: torch.Tensor, indices: torch.Tensor, wa: torch.Tensor,
+            wb: torch.Tensor, *, gram: str, bf16: bool):
+    """Per-row normal equations, the one place the factor gather exists:
+    ``A = sum_l wa * f f^T`` and ``b = sum_l wb * f`` over
+    ``f = table[indices]``. ``table`` is the f32 factors or their bf16
+    shadow; weights arrive pre-masked, so padding contributes zero.
+    "fused" (and "auto" within the kernel's rank) goes to the fused
+    kernel; every other mode gathers and takes ``ops/gram.py``."""
+    if _resolves_fused(gram, table.shape[-1]):
+        return _fused_lhs(table, indices, wa, wb)
+    F = table[indices.long()]
+    A = gram_dispatch(F, wa, mode=gram, bf16=bf16)
+    # a bf16 shadow is upcast first: the right-hand side sums in f32 too
+    b = torch.einsum("...lr,...l->...r", F.float(), wb.float())
+    return A, b
+
+
+def _shadow_lhs_fn(table_f32: torch.Tensor, indices: torch.Tensor,
+                   wa: torch.Tensor, wb: torch.Tensor, *, gram: str,
+                   bf16: bool):
+    """:func:`_lhs_fn` over the bf16 shadow of an f32 table (the
+    ``gather_dtype="bfloat16"`` wire), for one-off callers; the
+    half-steps cast one shadow per half-step and share it."""
+    return _lhs_fn(table_f32.bfloat16(), indices, wa, wb, gram=gram,
+                   bf16=bf16)
+
+
+def _weights(values: torch.Tensor, counts: torch.Tensor, alpha: float,
+             implicit: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked Gramian and right-hand-side weights of a ``[B, L]`` block.
+    Implicit (Hu-Koren-Volinsky): ``wa = c - 1 = alpha * r`` and
+    ``wb = c = 1 + alpha * r`` on observed slots; explicit: ``wa = 1``,
+    ``wb = r``. Padding gets 0."""
+    L = values.shape[-1]
+    valid = (torch.arange(L, device=values.device)[None, :]
+             < counts[:, None]).float()
+    if implicit:
+        wa = alpha * values * valid
+        wb = (wa + 1.0) * valid
+    else:
+        wa = valid
+        wb = values * valid
+    return wa, wb
+
+
+def _update_block(fixed: torch.Tensor, G: Optional[torch.Tensor],
+                  indices: torch.Tensor, values: torch.Tensor,
+                  counts: torch.Tensor, reg: float, alpha: float,
+                  implicit: bool, scale_reg: bool, bf16: bool = False,
+                  gram: str = "auto") -> torch.Tensor:
+    """New factors ``[B, r]`` for one block of rows, holding ``fixed``
+    constant: ``G`` is the fixed side's Gramian (implicit only),
+    ``indices``/``values`` ``[B, L]``, ``counts`` ``[B]``. The
+    regularization (and ``G``) go onto the fresh ``A`` in place: it is
+    this block's own buffer, and a copy would double its memory."""
+    wa, wb = _weights(values, counts, alpha, implicit)
+    A, b = _lhs_fn(fixed, indices, wa, wb, gram=gram, bf16=bf16)
+    if implicit:
+        A += G
+    reg_n = reg * torch.clamp(counts.float(), min=1.0) if scale_reg \
+        else torch.full(counts.shape, reg, dtype=torch.float32,
+                        device=counts.device)
+    A.diagonal(dim1=-2, dim2=-1).add_(reg_n[..., None])
+    return solve_spd_batch(A, b)
+
+
+def _auto_block_rows(n_per: int, L: int, rank: int) -> int:
+    """Rows per update block, targeting ~1 GB for the ``[B, L, r]`` f32
+    gather of the einsum path (the JAX package's budget, kept so both
+    packages cut the same blocks)."""
+    budget = 1024 * 1024 * 1024
+    b = max(64, budget // max(1, L * rank * 4))
+    return min(n_per, b)
+
+
+def training_blocks(h, rank: int, block_rows: Optional[int] = None):
+    """``(indices, values, counts, rows)`` of every row block one
+    half-step over ``h`` hands to :func:`_update_block`, in order -- the
+    shapes the training path gives the kernels. ``rows`` is where the
+    block's new factors go: a slice of the pad layout's rows, or the
+    bucket rows' ids (padding rows carry sentinels past the table)."""
+    if isinstance(h, BucketedHistories):
+        for bk in h.buckets:
+            block = block_rows or _auto_block_rows(bk.n_rows, bk.length,
+                                                   rank)
+            for s in range(0, bk.n_rows, block):
+                e = min(s + block, bk.n_rows)
+                yield (bk.indices[s:e], bk.values[s:e], bk.counts[s:e],
+                       bk.row_ids[s:e])
+        return
+    block = block_rows or _auto_block_rows(h.n_rows, h.max_len, rank)
+    for s in range(0, h.n_rows, block):
+        e = min(s + block, h.n_rows)
+        yield h.indices[s:e], h.values[s:e], h.counts[s:e], slice(s, e)
+
+
+def _update_side(fixed: torch.Tensor, h, params: ALSParams
+                 ) -> torch.Tensor:
+    """One half-iteration over either layout: the JAX package's
+    ``_pad_half_impl``, ``_bucket_half_impl`` and ``_update_side*`` with
+    no mesh. The fixed side's Gramian (implicit; ``_fixed_gramian``
+    without a mesh is ``gramian``) and one bf16 shadow
+    (``gather_dtype="bfloat16"``) are made once, then every row block
+    goes through :func:`_update_block`. Bucket rows are written back by
+    row id: each real row sits in one bucket, so the writes are unique,
+    and padding rows' sentinels land in one trash row past the table,
+    cut off at the end. Rows with no history keep factor 0."""
+    r = fixed.shape[-1]
+    G = gramian(fixed) if params.implicit_prefs else None
+    gsrc = fixed.bfloat16() if params.gather_dtype == "bfloat16" else fixed
+    bucketed = isinstance(h, BucketedHistories)
+    n = h.n_rows_padded if bucketed else h.n_rows
+    out = torch.zeros((n + bucketed, r), dtype=torch.float32,
+                      device=fixed.device)
+    for idx, val, cnt, rows in training_blocks(h, r, params.block_rows):
+        new = _update_block(
+            gsrc, G, idx, val, cnt, params.reg, params.alpha,
+            params.implicit_prefs, params.scale_reg_by_count,
+            bf16=params.matmul_dtype == "bfloat16", gram=params.gram_mode)
+        if bucketed:
+            out.index_copy_(0, torch.clamp(rows.long(), max=n), new)
+        else:
+            out[rows] = new
+    return out[:n]
+
+
+def _pack(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+          n_rows: int, params: ALSParams, device: DeviceLike):
+    """History packing for one side (``history_mode``): "pad" keeps
+    round-1 semantics (entries past the length drop), "bucket" is
+    drop-free, "auto" pads when that is dense enough and drops nothing
+    (or when ``max_history`` explicitly caps), buckets otherwise."""
+    max_history = params.max_history
+    mode = params.history_mode
+    counts = None
+    if mode == "split":
+        raise ValueError("history_mode='split' is not ported yet; use "
+                         "'bucket' (drop-free) or 'auto'")
+    if mode == "auto":
+        if max_history is not None:
+            mode = "pad"
+        else:
+            counts = np.bincount(rows, minlength=n_rows)
+            slots = n_rows * int(counts.max(initial=1))
+            dense_enough = slots <= max(4 * len(rows), 1_000_000)
+            mode = "pad" if (slots <= AUTO_CAP_ENTRIES
+                             and dense_enough) else "bucket"
+    if mode == "bucket":
+        return pack_histories_bucketed_device(
+            rows, cols, vals, n_rows,
+            max_len=None if max_history is None else int(max_history),
+            counts=counts, device=device)
+    if max_history is not None:
+        L = int(max_history)
+    else:
+        if counts is None:
+            counts = np.bincount(rows, minlength=n_rows)
+        L = resolve_max_len(counts, n_rows, None)
+    return pack_histories_device(rows, cols, vals, n_rows, max(L, 1),
+                                 device=device)
+
+
+@dataclass
+class PackedRatings:
+    """Packed histories of both sides, on the training device, plus the
+    real problem dims. Iterates as ``(user_h, item_h)``."""
+
+    user_h: object
+    item_h: object
+    n_users: int
+    n_items: int
+
+    def __iter__(self):
+        return iter((self.user_h, self.item_h))
+
+    def __getitem__(self, i: int):
+        return (self.user_h, self.item_h)[i]
+
+
+def pack_ratings(ratings: RatingsCOO, params: ALSParams,
+                 device: DeviceLike = None) -> PackedRatings:
+    """Pack both sides' histories on ``device`` (the card by default)
+    for :func:`train_als`; sweeps pack once and pass ``packed=``."""
+    dev = resolve_device(device)
+    users = np.asarray(ratings.users)
+    items = np.asarray(ratings.items)
+    vals = np.asarray(ratings.ratings)
+    return PackedRatings(
+        user_h=_pack(users, items, vals, ratings.n_users, params, dev),
+        item_h=_pack(items, users, vals, ratings.n_items, params, dev),
+        n_users=ratings.n_users, n_items=ratings.n_items)
+
+
+#: id(ratings) -> (weakref to the ratings, {packing key: PackedRatings})
+_pack_cache: dict = {}
+_pack_cache_lock = threading.Lock()
+
+
+def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
+                        device: DeviceLike = None) -> PackedRatings:
+    """Memoizing :func:`pack_ratings`, keyed by the ratings object and
+    the knobs the packing reads (``history_mode``, ``max_history``, the
+    device); entries die with the ratings object."""
+    dev = resolve_device(device)
+    key = (params.history_mode, params.max_history, str(dev))
+    with _pack_cache_lock:
+        ent = _pack_cache.get(id(ratings))
+        if ent is None or ent[0]() is not ratings:
+            rid = id(ratings)
+            ent = _pack_cache[rid] = (
+                weakref.ref(ratings, lambda _, i=rid: _pack_cache.pop(i, None)),
+                {})
+        packed = ent[1].get(key)
+    if packed is None:
+        packed = pack_ratings(ratings, params, dev)
+        with _pack_cache_lock:
+            ent[1].setdefault(key, packed)
+    return packed
+
+
+def _rows_padded(h) -> int:
+    return h.n_rows_padded if isinstance(h, BucketedHistories) else h.n_rows
+
+
+def draw_initial_factors(seed: int, n_users: int, n_users_padded: int,
+                         n_items: int, n_items_padded: int, rank: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MLlib-style init on the host: N(0, 1) / sqrt(rank) for the real
+    rows, drawn user table first from a ``torch.Generator`` seeded with
+    ``seed``, zeros for padding rows (they stay zero: their b is 0)."""
+    gen = torch.Generator().manual_seed(int(seed))
+
+    def one(n, n_pad):
+        f = torch.zeros((n_pad, rank), dtype=torch.float32)
+        f[:n] = torch.randn((n, rank), generator=gen,
+                            dtype=torch.float32) / math.sqrt(rank)
+        return f
+
+    return one(n_users, n_users_padded), one(n_items, n_items_padded)
+
+
+def _init_table(arr, n_real: int, n_padded: int, rank: int,
+                which: str) -> torch.Tensor:
+    arr = np.asarray(arr, dtype=np.float32)
+    if arr.ndim != 2 or arr.shape[1] != rank \
+            or not n_real <= arr.shape[0] <= n_padded:
+        raise ValueError(f"init {which} factors must be [n, {rank}] with "
+                         f"{n_real} <= n <= {n_padded}, got {arr.shape}")
+    f = torch.zeros((n_padded, rank), dtype=torch.float32)
+    f[:arr.shape[0]] = torch.from_numpy(arr.copy())
+    return f
+
+
+def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
+              device: DeviceLike = None,
+              init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+              packed: Optional[PackedRatings] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ALS on ``device`` (the card by default; ``"cpu"`` runs every
+    kernel's plain version); returns ``(user_factors, item_factors)`` f32
+    with padded rows.
+
+    ``init`` is optional initial factors ``(U0, V0)`` as host arrays
+    (real rows, or real plus padding rows). Without it the factors are
+    drawn by :func:`draw_initial_factors` from ``params.seed``. The JAX
+    package draws with ``jax.random``, which torch cannot reproduce, so a
+    parity run passes the JAX package's own draw in here. ``packed``
+    (from :func:`pack_ratings` with the same params and device) skips
+    the packing. There is no mesh and no checkpointing; each iteration
+    is a user half-step then an item half-step, as Python loops."""
+    dev = resolve_device(device)
+    if packed is None:
+        if ratings is None or len(ratings.users) == 0 \
+                or ratings.n_users == 0 or ratings.n_items == 0:
+            raise ValueError("ALS requires a non-empty ratings matrix "
+                             "(0 entries/users/items given)")
+        packed = pack_ratings(ratings, params, dev)
+    user_h, item_h = packed
+    n_u, n_i = packed.n_users, packed.n_items
+    u_pad, i_pad = _rows_padded(user_h), _rows_padded(item_h)
+    if init is None:
+        U, V = draw_initial_factors(params.seed, n_u, u_pad, n_i, i_pad,
+                                    params.rank)
+    else:
+        U = _init_table(init[0], n_u, u_pad, params.rank, "user")
+        V = _init_table(init[1], n_i, i_pad, params.rank, "item")
+    U, V = U.to(dev), V.to(dev)
+    for _ in range(params.num_iterations):
+        U = _update_side(V, user_h, params)
+        V = _update_side(U, item_h, params)
+    return U, V
+
+
+def als_flops_per_iter(user_h, item_h, params: ALSParams) -> int:
+    """Padded-work FLOP model of one full iteration (both half-steps),
+    padding slots included: A outer products ``2 * padded * r^2``, b
+    products ``2 * padded * r``, the fixed-side Gramian
+    ``2 * rows_fixed * r^2`` (implicit only), and per solved row a
+    Cholesky ``r^3 / 3`` plus two triangular solves ``2 r^2``."""
+    r = params.rank
+
+    def side(h, fixed_rows: int) -> int:
+        if isinstance(h, BucketedHistories):
+            padded = h.padded_entries
+            n_solve = sum(b.n_rows for b in h.buckets)
+        else:
+            padded = h.n_rows * h.max_len
+            n_solve = h.n_rows
+        f = 2 * padded * r * r + 2 * padded * r
+        if params.implicit_prefs:
+            f += 2 * fixed_rows * r * r
+        f += n_solve * (r ** 3 // 3 + 2 * r * r)
+        return f
+
+    return (side(user_h, _rows_padded(item_h))
+            + side(item_h, _rows_padded(user_h)))
+

@@ -1,6 +1,7 @@
-"""Carry a trained ALS model's weights into the port.
+"""Carry a trained ALS model's weights (or initial factors) into the port.
 
-:func:`als_model_from_numpy` takes what a JAX-package ``ALSModel`` holds,
+:func:`factors_to_numpy` takes a factor pair as host f32 arrays, for
+``train_als(init=...)``; :func:`als_model_from_numpy` takes what a JAX-package ``ALSModel`` holds,
 as plain host data: ``np.asarray`` of each factor table (or of a
 quantized table's data and scale), ``dict(bimap)`` of each id map and
 ``dataclasses.asdict(params)``. Nothing of the JAX package is imported,
@@ -9,7 +10,7 @@ so both packages can compute on the same numbers.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +42,25 @@ def _table(data, scale, quant: str):
         torch.from_numpy(np.ascontiguousarray(scale, np.float32)
                          .reshape(-1, 1)),
         "int8")
+
+
+def factors_to_numpy(user_factors, item_factors
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host f32 copies of a factor pair from any array type that
+    ``np.asarray`` reads: a JAX-package model's trained tables, or the
+    initial draw of its ``train_als``. Pass the pair to
+    ``train_als(init=...)`` to start the port from the same factors, or
+    to :func:`als_model_from_numpy`."""
+    out = tuple(np.array(f, dtype=np.float32, copy=True)
+                for f in (user_factors, item_factors))
+    for name, f in zip(("user", "item"), out):
+        if f.ndim != 2:
+            raise ValueError(f"{name} factors must be [n, rank], got "
+                             f"{f.shape}")
+    if out[0].shape[1] != out[1].shape[1]:
+        raise ValueError(f"factor ranks differ: {out[0].shape[1]} and "
+                         f"{out[1].shape[1]}")
+    return out
 
 
 def als_model_from_numpy(user_factors, item_factors, n_users: int,

@@ -1,0 +1,132 @@
+"""Fused gather + weighted Gramian: the training kernel and its plain
+version (the port of ``predictionio_tpu/ops/fused_gram.py``).
+
+``fused_gram(table, idx, wa, wb)`` returns ``(A [B, r, r] f32, b [B, r]
+f32)`` with ``A[i] = sum_l wa[i, l] * f f^T`` and ``b[i] = sum_l
+wb[i, l] * f`` over ``f = table[idx[i, l]]``. The table is f32 or the
+bf16 shadow of one (upcast after the load); every sum is f32. Padding
+slots carry w = 0 and any valid index.
+
+The one switch is the device of the tensors: CPU tensors go to
+:func:`fused_gram_reference`, CUDA tensors to the hand-written kernel in
+``csrc/fused_gram.cu`` (built at first use), or the call raises. The
+kernel takes rank up to :data:`FUSED_GRAM_MAX_RANK`; above it
+``models/als.py`` resolves ``gram_mode="auto"`` to the einsum path and an
+explicit ``"fused"`` raises, as the JAX package never resolves "auto" to
+a kernel that cannot take the shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Tuple
+
+import torch
+
+#: largest rank the kernel's register tile holds (``csrc/fused_gram.cu``
+#: kMaxRank: a 16 x 16 thread grid of 8 x 8 tiles)
+FUSED_GRAM_MAX_RANK = 128
+
+#: kernel launches since the last reset (a plain count; ``chip_smoke.py``
+#: zeroes it before driving the training path and reads it after)
+LAUNCHES = 0
+_launch_lock = threading.Lock()
+
+_ENTRY = {torch.float32: "fused_gram_f32", torch.bfloat16: "fused_gram_bf16"}
+
+_lib = None
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from ._build import load_library
+
+        lib = load_library("fused_gram")
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check_args(table, idx, wa, wb):
+    if table.dim() != 2:
+        raise ValueError(f"table must be [m, r], got {tuple(table.shape)}")
+    if idx.dim() != 2 or wa.shape != idx.shape or wb.shape != idx.shape:
+        raise ValueError(f"idx, wa and wb must be one [B, L] shape, got "
+                         f"{tuple(idx.shape)}, {tuple(wa.shape)} and "
+                         f"{tuple(wb.shape)}")
+
+
+def _check_cuda(table, idx, wa, wb):
+    dev = table.device
+    for name, t in (("idx", idx), ("wa", wa), ("wb", wb)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, table on {dev}")
+    if table.dtype not in _ENTRY:
+        raise TypeError(f"the kernel's table is f32 or bf16, got "
+                        f"{table.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if wa.dtype != torch.float32 or wb.dtype != torch.float32:
+        raise TypeError(f"weights must be f32, got {wa.dtype} and "
+                        f"{wb.dtype}")
+    r = table.shape[1]
+    if not 1 <= r <= FUSED_GRAM_MAX_RANK:
+        raise ValueError(f"the kernel takes rank 1..{FUSED_GRAM_MAX_RANK}, "
+                         f"got {r}")
+    for name, t in (("table", table), ("idx", idx), ("wa", wa), ("wb", wb)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if table.shape[0] < 1:
+        raise ValueError("the table has no rows")
+    if max(table.shape[0], idx.shape[0], idx.shape[1]) >= 2 ** 31:
+        raise ValueError("a dimension past 2**31 is not supported")
+
+
+def fused_gram(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
+               wb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(A, b)`` of the fused gather and weighted Gramian (module
+    docstring). CPU tensors run the plain version; CUDA tensors launch
+    the kernel on the current stream and raise if it is refused."""
+    global LAUNCHES
+    _check_args(table, idx, wa, wb)
+    dev = table.device
+    if dev.type == "cpu":
+        return fused_gram_reference(table, idx, wa, wb)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_gram runs on cuda or cpu, got {dev}")
+    _check_cuda(table, idx, wa, wb)
+    B, L = idx.shape
+    r = table.shape[1]
+    A = torch.empty((B, r, r), dtype=torch.float32, device=dev)
+    b = torch.empty((B, r), dtype=torch.float32, device=dev)
+    if B == 0:
+        return A, b
+    fn = getattr(_kernel_lib(), _ENTRY[table.dtype])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(dev.index, table.data_ptr(), idx.data_ptr(), wa.data_ptr(),
+             wb.data_ptr(), B, L, table.shape[0], r, A.data_ptr(),
+             b.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_gram kernel launch failed: CUDA error "
+                           f"{err}")
+    with _launch_lock:
+        LAUNCHES += 1
+    return A, b
+
+
+def fused_gram_reference(table: torch.Tensor, idx: torch.Tensor,
+                         wa: torch.Tensor, wb: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: gather, upcast, f32 contractions. It
+    materializes the ``[B, L, r]`` gather that the kernel exists to
+    avoid."""
+    F = table[idx.long()].float()
+    A = torch.einsum("blr,bls,bl->brs", F, F, wa.float())
+    b = torch.einsum("blr,bl->br", F, wb.float())
+    return A, b

@@ -1,8 +1,11 @@
-"""Recommendation engine template, serving half: the port of
-``predictionio_tpu/templates/recommendation.py``.
+"""Recommendation engine template: the port of
+``predictionio_tpu/templates/recommendation.py`` (training and serving).
 
-Queries and results use the JSON shapes of the JAX package's engine
-server::
+Training takes a :class:`TrainingData` of rating triples from the
+caller's own ``DataSource`` (the event-store data source waits for the
+storage slice), passes it through :class:`IdentityPreparator`, and trains
+an ALS model on the context's device. Queries and results use the JSON
+shapes of the JAX package's engine server::
 
     POST /queries.json  {"user": "1", "num": 4, "blackList": ["22"]}
     -> {"itemScores": [{"item": "7", "score": 4.07}, ...]}
@@ -16,15 +19,24 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..controller.base import Algorithm, FirstServing
-from ..controller.engine import Engine
+from ..controller.base import (
+    Algorithm,
+    FirstServing,
+    IdentityPreparator,
+    SanityCheck,
+)
+from ..controller.context import Context
+from ..controller.engine import ClassMap, Engine
 from ..models.als import (
     ALSModel,
     ALSParams,
+    RatingsCOO,
+    pack_ratings_cached,
     place_model,
     quantize_serving_model,
     recommend_batch_async,
     recommend_products,
+    train_als,
 )
 
 
@@ -55,6 +67,20 @@ class PredictedResult:
                                for s in self.item_scores]}
 
 
+@dataclass
+class TrainingData(SanityCheck):
+    """Rating triples with the id maps from entity ids to their rows."""
+
+    ratings: RatingsCOO
+    user_ids: object  # BiMap
+    item_ids: object  # BiMap
+
+    def sanity_check(self):
+        if self.ratings.users.size == 0:
+            raise ValueError("TrainingData has no ratings; check that "
+                             "rate/buy events exist for the app")
+
+
 def query_from_json(obj: dict) -> Query:
     return Query(user=str(obj["user"]), num=int(obj.get("num", 10)))
 
@@ -82,6 +108,22 @@ class ALSAlgorithm(Algorithm):
 
     def __init__(self, params: ALSParams = ALSParams()):
         self.params = params
+
+    def train(self, ctx: Context, td: TrainingData) -> ALSModel:
+        """Pack once per ratings object and train on ``ctx.device``. On
+        the card, returns only once the queued iterations have run, so
+        the engine's stage clock covers them."""
+        packed = pack_ratings_cached(td.ratings, self.params,
+                                     device=ctx.device)
+        U, V = train_als(td.ratings, self.params, device=ctx.device,
+                         packed=packed)
+        if U.is_cuda:
+            torch.cuda.synchronize(U.device)
+        return ALSModel(user_factors=U, item_factors=V,
+                        n_users=td.ratings.n_users,
+                        n_items=td.ratings.n_items,
+                        user_ids=td.user_ids, item_ids=td.item_ids,
+                        params=self.params)
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         uidx = model.user_ids.get(query.user) if model.user_ids else None
@@ -138,10 +180,15 @@ class RecommendationServing(FirstServing):
     pass
 
 
-def recommendation_engine() -> Engine:
-    """Engine factory of the template."""
+def recommendation_engine(datasource_classes: Optional[ClassMap] = None
+                          ) -> Engine:
+    """Engine factory of the template. ``datasource_classes`` is the
+    caller's own data source (yielding :class:`TrainingData`); serving
+    alone needs none."""
     return Engine(
         algorithm_classes={"als": ALSAlgorithm, "": ALSAlgorithm},
         serving_classes={"": RecommendationServing},
         algorithm_params_classes={"als": ALSParams, "": ALSParams},
+        datasource_classes=datasource_classes,
+        preparator_classes={"": IdentityPreparator},
     )

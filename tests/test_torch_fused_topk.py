@@ -227,7 +227,8 @@ class TestWrapperContract:
         for name in ft._ENTRY.values():
             assert f"FUSED_TOPK_ENTRY({name}," in src
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
-        assert _build.all_sources() == ["fused_topk"]
+        assert _build.all_sources() == ["chol_solve", "fused_gram",
+                                        "fused_topk"]
 
     def test_build_without_nvcc_raises(self, monkeypatch):
         monkeypatch.setattr(_build.shutil, "which", lambda _: None)

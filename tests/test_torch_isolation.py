@@ -48,9 +48,32 @@ def test_every_module_imports():
 
 def test_server_import_loads_no_jax():
     code = ("import sys, predictionio_tpu_torch.server.engineserver, "
-            "predictionio_tpu_torch.cli; "
+            "predictionio_tpu_torch.cli, predictionio_tpu_torch.models.als, "
+            "predictionio_tpu_torch.ops.fused_gram, "
+            "predictionio_tpu_torch.ops.solve, "
+            "predictionio_tpu_torch.controller.engine; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_surrogate_generator_imports_numpy_and_stdlib_only():
+    """``chip_smoke.py`` loads ``benchmarks/ml20m_surrogate.py`` by path,
+    so it must need nothing past numpy and the standard library."""
+    path = ROOT / "benchmarks" / "ml20m_surrogate.py"
+    roots = set(imported_roots(path))
+    extra = {m for m in roots - {"numpy"}
+             if m not in sys.stdlib_module_names}
+    assert not extra, f"ml20m_surrogate.py imports {sorted(extra)}"
+    code = ("import importlib.util, sys; spec = importlib.util."
+            f"spec_from_file_location('s', {str(path)!r}); "
+            "m = importlib.util.module_from_spec(spec); "
+            "spec.loader.exec_module(m); "
+            "bad = [k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'ml_dtypes', 'torch', 'predictionio_tpu')]; "
             "assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
