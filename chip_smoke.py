@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on the CUDA
-card and check them.
+"""Drive the PyTorch port's serving, training and ``pio`` lifecycle paths
+once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -21,7 +21,7 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             tolerance (so an id differs from the plain version's only
             inside a near-tie); ids are exact in the tie case.
 4. slice  — an ML-20M-width model made from ``--seed`` is deployed through
-            ``server.engineserver.deploy`` on the card with int8 serving
+            ``server.engineserver.deploy_models`` on the card with int8 serving
             tables and batching, on a free port. Single queries and a
             concurrent burst go over HTTP and every answer is checked
             against the plain version on the same tables; one
@@ -55,6 +55,32 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the ``Engine.train`` window (read, pack and 10 iterations,
             synchronized) per iteration beside the median of isolated,
             synchronized iterations from the initial factors.
+7. gram-table — ``gram_table`` (no path of the system launches it) held
+            against its plain version with phase 5's tolerance at two
+            shapes: a 512 x 64 f32 table (in shared memory), B = 8,192,
+            L = 512 from ``--seed``; and the ML-20M width, the 26,744 x 64
+            initial item table with the user side's L = 512 bucket
+            (8,192 rows), the block phase 5 reports for ``fused_gram``.
+            Each must take its path (1, the table in shared memory; 2,
+            rows gathered through L2). The ML-20M block is also timed
+            with a persisting L2 window over the table and without one,
+            in alternation on one stream.
+8. pio    — the lifecycle in a temporary ``PIO_HOME`` (SQLite): ``app
+            new`` through the CLI, the event server on a free port, every
+            rating of every 10th surrogate user (2,010,817 at seed 0) sent
+            over HTTP (a few hundred through ``/events.json`` and
+            ``/batch/events.json``, the rest as npz column blocks), one
+            user read back through ``GET /events.json``, the store read
+            back as exactly the sent (user, item, rating) multiset, ``cli
+            train`` on the card with ``examples/recommendation/
+            engine.json``'s factory at rank 64 x 10 iterations (the
+            ``fused_gram`` and ``chol_solve`` counts zeroed just before and
+            read just after, both positive; the instance COMPLETED; RMSE
+            finite and below one iteration's), then the storage-backed
+            ``deploy`` with batching and 64 ``/queries.json`` answers
+            checked against the plain top-k (``fused_topk`` count
+            positive). The whole phase runs under ``torch.profiler``,
+            which gives the device's busy and idle share.
 
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
 launches) and, last, ``{"ok": true, "device": {...}}``.
@@ -64,10 +90,14 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
+import shutil
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -297,14 +327,18 @@ def _post(port: int, body) -> tuple:
 
 
 def check_answer(query, answer, ud, us, vd, vs, U64, V64, n_items,
-                 dev) -> None:
-    """An answer agrees with the plain version on the bound tables."""
+                 dev, user_ids=None, item_ids=None) -> None:
+    """An answer agrees with the plain version on the bound tables.
+    Without id maps, "u<n>" and "i<n>" name rows n."""
     from predictionio_tpu_torch.models.als import _compiled_k
     from predictionio_tpu_torch.ops.fused_topk import fused_topk_reference
 
+    def row(ids, name):
+        return ids[name] if ids is not None else int(name[1:])
+
     got = answer["itemScores"]
-    uidx = int(query["user"][1:])
-    black = {int(b[1:]) for b in query.get("blackList", [])}
+    uidx = row(user_ids, query["user"])
+    black = {row(item_ids, b) for b in query.get("blackList", [])}
     kk = _compiled_k(query["num"] + len(black), n_items)
     idx = torch.tensor([uidx], dtype=torch.int32, device=dev)
     ps, pi = fused_topk_reference(ud, idx, vd, us, vs, k=kk,
@@ -312,7 +346,7 @@ def check_answer(query, answer, ud, us, vd, vs, U64, V64, n_items,
     keep = [j for j, it in enumerate(pi[0].tolist()) if it not in black]
     want = ps[0, keep][: query["num"]].double()
     check(len(got) == len(want), f"{query}: {len(got)} items returned")
-    ids = torch.tensor([int(g["item"][1:]) for g in got], device=dev)
+    ids = torch.tensor([row(item_ids, g["item"]) for g in got], device=dev)
     s = torch.tensor([g["score"] for g in got], dtype=torch.float64,
                      device=dev)
     tol = RTOL["int8"] * (1 + want.abs())
@@ -333,7 +367,7 @@ def phase_slice(rng, U, V, dev) -> int:
     from predictionio_tpu_torch.ops import fused_topk as ft
     from predictionio_tpu_torch.server.engineserver import (
         ServerConfig,
-        deploy,
+        deploy_models,
     )
     from predictionio_tpu_torch.templates.recommendation import (
         recommendation_engine,
@@ -349,7 +383,7 @@ def phase_slice(rng, U, V, dev) -> int:
     ep = engine.params_from_variant(
         {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
     t0 = time.perf_counter()
-    srv = deploy(engine, ep, [model],
+    srv = deploy_models(engine, ep, [model],
                  ServerConfig(batching=True, serving_quant="int8"),
                  host="127.0.0.1", port=0)
     srv.start_background()
@@ -550,6 +584,7 @@ def phase_train_kernel(packed, params, dev) -> tuple:
                      slots=0, err=0.0, by={"bytes": 0.0, "operations": 0.0})
              for w in ("f32", "bf16")}
     systems = {}
+    table_block = None  # the user L = 512 block, for the gram-table phase
     named = {("user", 32), ("user", 512), ("item", 131072)}
     for side, h, table in (("user", packed.user_h, V0),
                            ("item", packed.item_h, U0)):
@@ -578,6 +613,9 @@ def phase_train_kernel(packed, params, dev) -> tuple:
                 t["by"][b_by] += b_ms
                 t["slots"] += B * L
                 t["err"] = max(t["err"], err)
+                if (side, L, wire) == ("user", 512, "f32") \
+                        and table_block is None:  # the 8,192-row block
+                    table_block = (tab, idx, wa, wb, rows)
                 if (side, L) in named:
                     print(f"phase train-kernel: {tag} max_abs_err={err:.3e} "
                           f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -656,7 +694,7 @@ def phase_train_kernel(packed, params, dev) -> tuple:
               f"r={rr}: {launched} launches, routed wrong")
     per_iter = {"gram_ms": gram_row["ms"],
                 "solve_ms": solve_row["ms"] + item_row["ms"]}
-    return gram_row, solve_row, per_iter
+    return gram_row, solve_row, per_iter, table_block
 
 
 def rmse(U, V, users, items, stars) -> float:
@@ -698,7 +736,7 @@ def phase_train(data, dev) -> dict:
     from predictionio_tpu_torch.ops import solve as sv
     from predictionio_tpu_torch.server.engineserver import (
         ServerConfig,
-        deploy,
+        deploy_models,
     )
     from predictionio_tpu_torch.templates.recommendation import (
         TrainingData,
@@ -784,7 +822,8 @@ def phase_train(data, dev) -> dict:
         times.append(time.perf_counter() - t0)
     iter_s = float(np.median(times))
     flops = als.als_flops_per_iter(packed.user_h, packed.item_h, params)
-    breakdown = profile_iteration(iteration)
+    _, breakdown = profile_device("phase train profile, one iteration",
+                                  iteration)
     print(f"phase train: Engine.train {TRAIN_ITERS} iterations rank {RANK} "
           f"{len(users)} ratings in {train_s:.3f}s (stages "
           f"{ctx.stage_timings}), over that whole window (read and pack "
@@ -802,7 +841,7 @@ def phase_train(data, dev) -> dict:
           f"max |dU|={dU:.3e} |dV|={dV:.3e}", flush=True)
 
     (loaded,) = loads_models(dumps_models(result.models))
-    srv = deploy(engine, ep, [loaded],
+    srv = deploy_models(engine, ep, [loaded],
                  ServerConfig(batching=True, serving_quant="int8"),
                  host="127.0.0.1", port=0)
     srv.start_background()
@@ -829,16 +868,17 @@ def phase_train(data, dev) -> dict:
     return {"launches": launches, "iter_s": iter_s, "breakdown": breakdown}
 
 
-def profile_iteration(fn) -> dict:
-    """Device time by kernel over one call of ``fn`` (``torch.profiler``);
-    the busy share is the summed kernel time over the wall time."""
+def profile_device(label: str, fn) -> tuple:
+    """Run ``fn`` once under ``torch.profiler`` and print its device time
+    by kernel; the busy share is the summed kernel and copy time over the
+    wall time. Returns ``fn``'s result and the breakdown."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -852,18 +892,430 @@ def profile_iteration(fn) -> dict:
                    if dev_us(e) > 0 and str(e.device_type).endswith("CUDA")),
                   reverse=True)
     total = sum(ms for ms, _ in rows)
-    if not rows:
-        print("phase train profile: the profiler shows no device time",
-              flush=True)
-        return {}
+    check(bool(rows), f"{label}: the profiler shows no device time")
     top = " | ".join(f"{name[:48]}={ms:.3f}" for ms, name in rows[:8])
-    print(f"phase train profile, one iteration: wall_ms={wall_ms:.3f} "
-          f"device_ms={total:.3f} busy_share={total / wall_ms:.3f} | {top}",
-          flush=True)
+    print(f"{label}: wall_ms={wall_ms:.3f} device_ms={total:.3f} "
+          f"busy_share={total / wall_ms:.5f} idle_share="
+          f"{1 - total / wall_ms:.5f} | {top}", flush=True)
     out = {"wall_ms": wall_ms, "device_ms": total}
-    for key in ("fused_gram", "chol_solve"):
-        out[key] = sum(ms for ms, name in rows if key in name)
+    # each wrapper by its kernel's name in the trace (fused_gram launches
+    # gram_tile.cuh's gram_rows_kernel)
+    for key, kernel in (("fused_gram", "gram_rows_kernel"),
+                        ("chol_solve", "chol_solve_kernel"),
+                        ("fused_topk", "fused_topk_kernel")):
+        out[key] = sum(ms for ms, name in rows if kernel in name)
+    return result, out
+
+
+# -- the last kernel and the pio lifecycle ----------------------------------
+
+class _Window(ctypes.Structure):
+    """``cudaAccessPolicyWindow``."""
+    _fields_ = [("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t),
+                ("hitRatio", ctypes.c_float), ("hitProp", ctypes.c_int),
+                ("missProp", ctypes.c_int)]
+
+
+class _StreamAttr(ctypes.Union):
+    """``cudaStreamAttrValue`` (64 bytes)."""
+    _fields_ = [("window", _Window), ("pad", ctypes.c_char * 64)]
+
+
+def _cudart() -> ctypes.CDLL:
+    """The CUDA runtime this process already loaded for torch, else the
+    toolkit's."""
+    with open("/proc/self/maps") as maps:
+        paths = sorted({ln.split()[-1] for ln in maps
+                        if "libcudart.so" in ln.split()[-1]})
+    return ctypes.CDLL(paths[0] if paths
+                       else "/usr/local/cuda/lib64/libcudart.so")
+
+
+@contextlib.contextmanager
+def l2_window(stream, tensor):
+    """A persisting L2 access-policy window over ``tensor`` on ``stream``
+    (the persisting carve-out raised to its size) for the body; after it
+    the window is cleared, the persisting lines reset and the previous
+    carve-out restored."""
+    rt = _cudart()
+    handle = ctypes.c_void_p(stream.cuda_stream)
+
+    def ok(err, what):
+        check(err == 0, f"{what} failed: CUDA error {err}")
+
+    limit_id = 6  # cudaLimitPersistingL2CacheSize
+    attr_id = 1   # cudaStreamAttributeAccessPolicyWindow
+    nbytes = tensor.numel() * tensor.element_size()
+    prev, got = ctypes.c_size_t(0), ctypes.c_size_t(0)
+    ok(rt.cudaDeviceGetLimit(ctypes.byref(prev), limit_id),
+       "cudaDeviceGetLimit")
+    ok(rt.cudaDeviceSetLimit(limit_id, ctypes.c_size_t(nbytes)),
+       "cudaDeviceSetLimit")
+    ok(rt.cudaDeviceGetLimit(ctypes.byref(got), limit_id),
+       "cudaDeviceGetLimit")
+    val = _StreamAttr()
+    val.window.base_ptr = tensor.data_ptr()
+    val.window.num_bytes = nbytes
+    val.window.hitRatio = min(1.0, got.value / nbytes)
+    val.window.hitProp = 2   # cudaAccessPropertyPersisting
+    val.window.missProp = 1  # cudaAccessPropertyStreaming
+    ok(rt.cudaStreamSetAttribute(handle, attr_id, ctypes.byref(val)),
+       "cudaStreamSetAttribute")
+    back = _StreamAttr()
+    ok(rt.cudaStreamGetAttribute(handle, attr_id, ctypes.byref(back)),
+       "cudaStreamGetAttribute")
+    check(back.window.num_bytes == nbytes, "the L2 window did not take")
+    try:
+        yield got.value
+    finally:
+        stream.synchronize()
+        val.window.num_bytes = 0
+        ok(rt.cudaStreamSetAttribute(handle, attr_id, ctypes.byref(val)),
+           "cudaStreamSetAttribute")
+        ok(rt.cudaCtxResetPersistingL2Cache(), "cudaCtxResetPersistingL2Cache")
+        ok(rt.cudaDeviceSetLimit(limit_id, prev), "cudaDeviceSetLimit")
+
+
+def phase_gram_table(seed: int, table_block, dev) -> dict:
+    """``gram_table`` against its plain version at its two shapes; times
+    beside its bound (``gram_bound``: the same function as fused_gram),
+    the plain version's and the library's (gather, then ``torch.bmm``).
+    The ML-20M block is also timed with a persisting L2 window over the
+    table and without one, in alternation on one stream."""
+    from predictionio_tpu_torch.ops import gram
+
+    rng = np.random.default_rng(seed + 3)
+    m, r, B, L = 512, RANK, 8192, 512
+    small = (torch.from_numpy(rng.standard_normal((m, r), dtype=np.float32)
+                              ).to(dev),
+             torch.from_numpy(rng.integers(0, m, (B, L)).astype(np.int32)
+                              ).to(dev),
+             torch.from_numpy(rng.random((B, L), dtype=np.float32)).to(dev),
+             torch.from_numpy(rng.random((B, L), dtype=np.float32)).to(dev))
+    small_rows = int(torch.unique(small[1]).numel())
+    cases = (("table in shared memory", 1, small + (small_rows,)),
+             ("ML-20M width item table", 2, table_block))
+    row = {}
+    for tag, want_path, (tab, idx, wa, wb, rows) in cases:
+        A, b = gram.gram_table(tab, idx, wa, wb)
+        torch.cuda.synchronize()
+        path = gram.LAST_PATH
+        check(path == want_path, f"gram_table {tag} took path {path}, not "
+              f"{want_path}")
+        Ar, br = gram.gram_table_reference(tab, idx, wa, wb)
+        Bn, Ln = idx.shape
+        err = check_gram(f"gram_table {tag}", A, b, Ar, br, tab, wa, wb)
+        del A, b, Ar, br
+        ms = median_ms(lambda: gram.gram_table(tab, idx, wa, wb), 10)
+        plain_ms = median_ms(lambda: gram.gram_table_reference(
+            tab, idx, wa, wb), 3)
+        lib_ms = median_ms(lambda: library_gram(tab, idx, wa, wb), 3)
+        b_ms, b_by = gram_bound(Bn, Ln, rows, tab.shape[1], "f32")
+        print(f"phase gram-table: {tag} m={tab.shape[0]} r={tab.shape[1]} "
+              f"B={Bn} L={Ln} path={path} max_abs_err={err:.3e} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+              f"bound_ms={b_ms:.5f} bound_by={b_by}", flush=True)
+        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+    # path 2 with the table pinned in L2 and without: does pinning pay?
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    plain_l2, pinned = [], []
+    with torch.cuda.stream(side):
+        for _ in range(4):
+            plain_l2.append(median_ms(
+                lambda: gram.gram_table(tab, idx, wa, wb), 10))
+            with l2_window(side, tab) as carve:
+                pinned.append(median_ms(
+                    lambda: gram.gram_table(tab, idx, wa, wb), 10))
+    torch.cuda.current_stream(dev).wait_stream(side)
+    base = float(np.median(plain_l2))
+    print(f"phase gram-table: ML-20M block through L2, without / with a "
+          f"persisting window over the table ({tab.numel() * 4} B, carve-out "
+          f"{carve} B) ms: {' '.join(f'{t:.4f}' for t in plain_l2)} / "
+          f"{' '.join(f'{t:.4f}' for t in pinned)} | median "
+          f"{base:.4f} / {float(np.median(pinned)):.4f}, window gain "
+          f"{base / float(np.median(pinned)) - 1:+.4f}, spread without "
+          f"{(max(plain_l2) - min(plain_l2)) / min(plain_l2):.4f}",
+          flush=True)
+    return row  # the ML-20M width case, the same work as fused_gram's row
+
+
+#: the lifecycle's subset of the surrogate: every rating of 1 user in 10
+PIO_USER_STRIDE = 10
+PIO_APP = "MyApp1"
+#: rows per npz column block of the bulk ingest route
+PIO_BLOCK = 100_000
+
+
+def rating_block(users, items, stars, t0_ms: int):
+    """One npz column block of ``rate`` events with their ``rating``
+    property as JSON bytes (what the row store keeps), built with numpy
+    and no per-event objects."""
+    from predictionio_tpu_torch.data.columnar import (
+        ColumnarBatch,
+        ColumnarDicts,
+        StringDict,
+    )
+    from predictionio_tpu_torch.data.storage.wire import batch_to_npz
+
+    n = len(users)
+    uu, u_codes = np.unique(users, return_inverse=True)
+    ii, i_codes = np.unique(items, return_inverse=True)
+    vals, v_codes = np.unique(stars, return_inverse=True)
+    props = [json.dumps({"rating": float(v)}).encode() for v in vals]
+    lens = np.array([len(p) for p in props], np.int64)[v_codes]
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    blob = np.frombuffer(b"".join([props[c] for c in v_codes.tolist()]),
+                         np.uint8)
+    zeros = np.zeros(n, np.int32)
+    batch = ColumnarBatch(
+        event=zeros, entity_type=zeros, entity_id=u_codes.astype(np.int32),
+        target_type=zeros, target_id=i_codes.astype(np.int32),
+        event_time=t0_ms + np.arange(n, dtype=np.int64),
+        props_offsets=offsets, props_blob=blob,
+        float_props={"rating": stars.astype(np.float64)},
+        dicts=ColumnarDicts(
+            event_names=StringDict(["rate"]),
+            entity_types=StringDict(["user"]),
+            entity_ids=StringDict([f"u{x}" for x in uu.tolist()]),
+            target_types=StringDict(["item"]),
+            target_ids=StringDict([f"i{x}" for x in ii.tolist()])))
+    return batch_to_npz(batch)
+
+
+def _http(port, method, path, body=None, raw=None) -> tuple:
+    data = raw if raw is not None else (
+        json.dumps(body).encode() if body is not None else None)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method=method)
+    with _LOCAL.open(req, timeout=300) as resp:
+        return resp.status, json.loads(resp.read() or b"null")
+
+
+def triples(u, i, r) -> np.ndarray:
+    """(user, item, rating) rows in one order, for multiset equality."""
+    order = np.lexsort((r, i, u))
+    return np.stack([u[order].astype(np.float64), i[order].astype(np.float64),
+                     r[order].astype(np.float64)], axis=1)
+
+
+def id_numbers(bimap, n: int) -> np.ndarray:
+    """Dense row -> the number in its "u<n>"/"i<n>" id."""
+    out = np.empty(n, np.int64)
+    for k, j in bimap.items():
+        out[j] = int(k[1:])
     return out
+
+
+def phase_pio(data, dev) -> dict:
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.controller.context import Context
+    from predictionio_tpu_torch.data.storage.base import STATUS_COMPLETED
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.models.als import _table_leaves
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.templates.recommendation import (
+        DataSourceParams,
+        RecommendationDataSource,
+    )
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    users, items, stars = data[:3]
+    keep = users % PIO_USER_STRIDE == 0
+    users, items, stars = users[keep], items[keep], stars[keep]
+    n = len(users)
+    root = Path(__file__).resolve().parent
+    scratch = root / "build"
+    scratch.mkdir(exist_ok=True)
+    home = tempfile.mkdtemp(prefix="pio_home_", dir=scratch)
+    storage = Storage(env={"PIO_HOME": home})
+    try:
+        check(cli.main(["app", "new", PIO_APP], storage=storage) == 0,
+              "app new failed")
+        app = storage.apps().get_by_name(PIO_APP)
+        key = storage.access_keys().get_by_app_id(app.id)[0].key
+        q = f"?accessKey={key}"
+        args = cli._parser().parse_args(["eventserver", "--ip", "127.0.0.1",
+                                         "--port", "0"])
+        srv = cli.build_eventserver(args, storage).start_background()
+        t0_ms = 1_700_000_000_000
+
+        def event(k: int) -> dict:
+            return {"event": "rate", "entityType": "user",
+                    "entityId": f"u{users[k]}", "targetEntityType": "item",
+                    "targetEntityId": f"i{items[k]}",
+                    "properties": {"rating": float(stars[k])},
+                    "eventTime": time.strftime(
+                        "%Y-%m-%dT%H:%M:%S.000Z",
+                        time.gmtime((t0_ms + k) // 1000))}
+
+        try:
+            t_ingest = time.perf_counter()
+            n_single, n_batch = 50, 250
+            for k in range(n_single):
+                status, _ = _http(srv.port, "POST", f"/events.json{q}",
+                                  event(k))
+                check(status == 201, f"/events.json answered {status}")
+            for s in range(n_single, n_single + n_batch, 50):
+                status, body = _http(srv.port, "POST",
+                                     f"/batch/events.json{q}",
+                                     [event(k) for k in range(s, s + 50)])
+                check(status == 200 and all(r["status"] == 201
+                                            for r in body),
+                      "/batch/events.json refused an event")
+            block_s = []
+            for s in range(n_single + n_batch, n, PIO_BLOCK):
+                e = min(s + PIO_BLOCK, n)
+                raw = rating_block(users[s:e], items[s:e], stars[s:e],
+                                   t0_ms + s)
+                t = time.perf_counter()
+                status, body = _http(srv.port, "POST",
+                                     f"/columnar/events.npz{q}", raw=raw)
+                block_s.append(time.perf_counter() - t)
+                check(status == 201 and body["accepted"] == e - s,
+                      f"/columnar/events.npz: {status} {body}")
+            ingest_s = time.perf_counter() - t_ingest
+            probe = int(users[0])
+            status, got = _http(srv.port, "GET",
+                                f"/events.json{q}&entityType=user&entityId="
+                                f"u{probe}&limit=-1")
+            mine = users == probe
+            want = sorted(zip([f"i{x}" for x in items[mine]],
+                              stars[mine].tolist()))
+            check(status == 200 and sorted(
+                (g["targetEntityId"], g["properties"]["rating"])
+                for g in got) == want,
+                  f"GET /events.json of u{probe} differs from what was sent")
+        finally:
+            srv.close()
+
+        t = time.perf_counter()
+        batch = storage.events().find_columnar(app.id, ordered=False,
+                                               with_props=False)
+        find_cold_s = time.perf_counter() - t
+        ctx = Context(device=dev, _storage=storage)
+        td = RecommendationDataSource(DataSourceParams(
+            app_name=PIO_APP)).read_training(ctx)
+        r = td.ratings
+        u_num = id_numbers(td.user_ids, r.n_users)
+        i_num = id_numbers(td.item_ids, r.n_items)
+        check(batch.n == n and np.array_equal(
+            triples(u_num[r.users], i_num[r.items], r.ratings),
+            triples(users, items, stars)),
+              "the store did not read back the ingested ratings")
+
+        variant = json.loads((root / "examples" / "recommendation" /
+                              "engine.json").read_text())
+        variant["datasource"] = {"params": {"app_name": PIO_APP}}
+        variant["algorithms"] = [{"name": "als", "params": {
+            "rank": RANK, "num_iterations": TRAIN_ITERS}}]
+        engine_json = Path(home) / "engine.json"
+        engine_json.write_text(json.dumps(variant))
+
+        # -- the lifecycle's training, counted -------------------------
+        fg.LAUNCHES = sv.LAUNCHES = gram.LAUNCHES = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--engine-json", str(engine_json)],
+                          storage=storage)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        launches = {"fused_gram": fg.LAUNCHES, "chol_solve": sv.LAUNCHES,
+                    "gram_table": gram.LAUNCHES}
+        # ----------------------------------------------------------------
+        check(rc == 0, f"cli train returned {rc}: {out.getvalue()}")
+        check(launches["fused_gram"] > 0, "cli train launched fused_gram "
+              "no time")
+        check(launches["chol_solve"] > 0, "cli train launched chol_solve "
+              "no time")
+        stages = json.loads(next(
+            ln for ln in out.getvalue().splitlines()
+            if ln.startswith("Train stages: "))[len("Train stages: "):])
+        (inst,) = storage.engine_instances().get_all()
+        check(inst.status == STATUS_COMPLETED,
+              f"engine instance {inst.id} is {inst.status}")
+
+        (model,) = loads_models(storage.models().get(inst.id).models)
+        u_t = torch.from_numpy(r.users.astype(np.int64)).to(dev)
+        i_t = torch.from_numpy(r.items.astype(np.int64)).to(dev)
+        s_t = torch.from_numpy(r.ratings).to(dev)
+        rmse_10 = rmse(model.user_factors.to(dev), model.item_factors.to(dev),
+                       u_t, i_t, s_t)
+        one = als.ALSParams(rank=RANK, num_iterations=1)
+        U1, V1 = als.train_als(r, one, device=dev)
+        rmse_1 = rmse(U1, V1, u_t, i_t, s_t)
+        check(np.isfinite(rmse_10) and rmse_10 < rmse_1,
+              f"lifecycle RMSE {rmse_10:.4f} after {TRAIN_ITERS} is not "
+              f"below {rmse_1:.4f} after 1")
+        del U1, V1
+
+        # -- the lifecycle's deploy, counted -----------------------------
+        ft.LAUNCHES = 0
+        args = cli._parser().parse_args([
+            "deploy", "--engine-json", str(engine_json), "--ip",
+            "127.0.0.1", "--port", "0", "--batching"])
+        rng = np.random.default_rng(17)
+        picks = rng.choice(np.unique(users), 64, replace=False)
+        queries = [{"user": f"u{u}", "num": 10} for u in picks]
+        queries[0]["blackList"] = [f"i{x}" for x in items[users == picks[0]][:3]]
+        t = time.perf_counter()
+        srv = cli.build_deploy(args, storage).start_background()
+        try:
+            answers = [_post(srv.port, queries[0])]
+            first_s = time.perf_counter() - t
+            answers += [_post(srv.port, qq) for qq in queries[1:]]
+            dep_launches = ft.LAUNCHES
+            bound_model = srv.query_server.models[0]
+            ud, us = _table_leaves(bound_model.user_factors)
+            vd, vs = _table_leaves(bound_model.item_factors)
+            U64 = ud.double() * (us.double() if us is not None else 1.0)
+            V64 = vd.double() * (vs.double() if vs is not None else 1.0)
+            for qq, (a, _) in zip(queries, answers):
+                check_answer(qq, a, ud, us, vd, vs, U64, V64,
+                             bound_model.n_items, dev,
+                             bound_model.user_ids, bound_model.item_ids)
+            with _LOCAL.open(f"http://127.0.0.1:{srv.port}/status.json",
+                             timeout=30) as resp:
+                status = json.loads(resp.read())
+        finally:
+            srv.close()
+        check(dep_launches > 0, "the deploy launched fused_topk no time")
+        check(status["engineInstanceId"] == inst.id,
+              "deploy bound another instance")
+        lat = np.array([s for _, s in answers[1:]]) * 1e3
+        print(f"phase pio: {n} rate events of {len(np.unique(users))} users "
+              f"x {len(np.unique(items))} items (1 user in "
+              f"{PIO_USER_STRIDE}) | ingest {n_single} single + {n_batch} "
+              f"batched + {n - n_single - n_batch} in {len(block_s)} npz "
+              f"blocks in {ingest_s:.3f}s = {n / ingest_s:.1f} events/s "
+              f"(a block's POST first {block_s[0]:.3f}s last "
+              f"{block_s[-1]:.3f}s max {max(block_s):.3f}s) | "
+              f"find_columnar cold {find_cold_s:.3f}s | cli train "
+              f"{train_s:.3f}s stages {stages} | Engine.train window "
+              f"{sum(stages[k] for k in ('read_s', 'prepare_s', 'algo_train_s')) / TRAIN_ITERS * 1e3:.2f}"
+              f" ms an iteration | launches fused_gram="
+              f"{launches['fused_gram']} chol_solve={launches['chol_solve']}"
+              f" gram_table={launches['gram_table']} | rmse after 1="
+              f"{rmse_1:.4f} after {TRAIN_ITERS}={rmse_10:.4f} | deploy to "
+              f"first answer {first_s:.3f}s servingQuant="
+              f"{status['servingQuant']} | 63 queries p50_ms="
+              f"{np.percentile(lat, 50):.3f} p99_ms="
+              f"{np.percentile(lat, 99):.3f} fused_topk launches="
+              f"{dep_launches} | instance {inst.id} {inst.status}",
+              flush=True)
+        return {"gram_table_launches": launches["gram_table"]}
+    finally:
+        storage.close()
+        shutil.rmtree(home, ignore_errors=True)
+
 
 
 def main(argv=None) -> int:
@@ -893,21 +1345,27 @@ def main(argv=None) -> int:
         pack_s = time.perf_counter() - t0
         print(f"phase train-kernel: pack_ratings alone {pack_s:.3f}s",
               flush=True)
-        gram_row, solve_row, per_iter = phase_train_kernel(packed, params,
-                                                           dev)
+        gram_row, solve_row, per_iter, table_block = phase_train_kernel(
+            packed, params, dev)
         del packed
     with phase("train"):
         trained = phase_train(data, dev)
     bd = trained["breakdown"]
-    if bd:
-        other = bd["device_ms"] - bd["fused_gram"] - bd["chol_solve"]
-        print(f"phase train where the time goes, one profiled iteration ms: "
-              f"wall={bd['wall_ms']:.3f} fused_gram={bd['fused_gram']:.3f} "
-              f"chol_solve={bd['chol_solve']:.3f} other_kernels={other:.3f} "
-              f"device_idle={bd['wall_ms'] - bd['device_ms']:.3f} | kernel "
-              f"phase sums at the same shapes: fused_gram="
-              f"{per_iter['gram_ms']:.3f} chol_solve={per_iter['solve_ms']:.3f}",
-              flush=True)
+    other = bd["device_ms"] - bd["fused_gram"] - bd["chol_solve"]
+    print(f"phase train where the time goes, one profiled iteration ms: "
+          f"wall={bd['wall_ms']:.3f} fused_gram={bd['fused_gram']:.3f} "
+          f"chol_solve={bd['chol_solve']:.3f} other_kernels={other:.3f} "
+          f"device_idle={bd['wall_ms'] - bd['device_ms']:.3f} | kernel "
+          f"phase sums at the same shapes: fused_gram="
+          f"{per_iter['gram_ms']:.3f} chol_solve={per_iter['solve_ms']:.3f}",
+          flush=True)
+    with phase("gram-table"):
+        table_row = phase_gram_table(args.seed, table_block, dev)
+        del table_block
+    with phase("pio"):
+        # the whole phase traced: ingest and the store read launch nothing
+        pio, _ = profile_device("phase pio profile, the whole phase",
+                                lambda: phase_pio(data, dev))
     kernels = [
         dict(name="fused_topk", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_topk.cu",
@@ -921,6 +1379,10 @@ def main(argv=None) -> int:
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
              launches=trained["launches"]["chol_solve"], **solve_row),
+        dict(name="gram_table", route="cuda",
+             source="predictionio_tpu_torch/csrc/gram_table.cu",
+             replaces="predictionio_tpu/ops/gram.py:148",
+             launches=pio["gram_table_launches"], **table_row),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

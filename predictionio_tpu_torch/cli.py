@@ -1,69 +1,324 @@
-"""Command line of the port (the deploy command of ``predictionio_tpu.cli``).
+"""Command line of the port (the lifecycle commands of
+``predictionio_tpu.cli``)::
 
+    python -m predictionio_tpu_torch.cli app new MyApp1
+    python -m predictionio_tpu_torch.cli accesskey new MyApp1 [EVENT ...]
+    python -m predictionio_tpu_torch.cli eventserver --port 7070
+    python -m predictionio_tpu_torch.cli import --app MyApp1 --input ev.jsonl
+    python -m predictionio_tpu_torch.cli train --engine-json engine.json
     python -m predictionio_tpu_torch.cli deploy --engine-json engine.json \\
-        --model model.npz --port 8000 [--device cpu] \\
-        [--serving-quant int8] [--batching]
+        --port 8000 [--serving-quant int8] [--batching] [--model FILE]
 
-``--model`` is a file written by ``workflow/persistence.py::dumps_models``.
-The server runs on the CUDA card unless ``--device cpu`` is given, and
-serves until ``POST /stop``.
+Storage is the JAX package's: ``PIO_STORAGE_*`` variables, else one
+SQLite file at ``$PIO_HOME/pio.db``. ``train`` and ``deploy`` run on the
+CUDA card unless ``--device cpu`` is given; without CUDA they raise.
+``deploy`` binds the latest COMPLETED instance of the variant's engine,
+or, with ``--model``, a file written by
+``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``.
+
+An ``engineFactory`` under ``predictionio_tpu.`` is read as the same path
+under ``predictionio_tpu_torch.``, so the JAX package's shipped variants
+train and deploy on the port unchanged; the JAX package is never
+imported. Left out (``ROADMAP.md`` queue 1): eval, batchpredict, build,
+undeploy, status, export, channels and app deletion, TLS, fleets and the
+release commands.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import json
 import sys
 from typing import List, Optional
 
+from .controller.context import Context
 from .controller.params import load_variant
-from .server.engineserver import ServerConfig, deploy
+from .data.storage.base import AccessKey, App, JsonlImportError
+from .data.storage.registry import Storage, get_storage
+from .server.engineserver import ServerConfig, deploy, deploy_models
 from .server.http import AppServer
-from .templates.recommendation import recommendation_engine
-from .workflow.persistence import loads_models
 
+JAX_PACKAGE = "predictionio_tpu"
+#: the engine of a variant that names no ``engineFactory`` (the port has
+#: one template)
+DEFAULT_FACTORY = ("predictionio_tpu_torch.templates.recommendation:"
+                   "recommendation_engine")
+
+
+def _out(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _err(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def port_module_name(mod_name: str) -> str:
+    """A module path of the JAX package read as the port's own."""
+    if mod_name == JAX_PACKAGE or mod_name.startswith(JAX_PACKAGE + "."):
+        return "predictionio_tpu_torch" + mod_name[len(JAX_PACKAGE):]
+    return mod_name
+
+
+def load_engine_factory(spec: str):
+    """Resolve ``module.path:callable``, a JAX-package path read as the
+    port's."""
+    if ":" not in spec:
+        raise SystemExit(f"engineFactory must look like "
+                         f"'package.module:factory', got {spec!r}")
+    mod_name, attr = spec.split(":", 1)
+    mod_name = port_module_name(mod_name)
+    try:
+        mod = importlib.import_module(mod_name)
+    except ImportError as e:
+        raise SystemExit(f"Cannot import engine factory module "
+                         f"{mod_name!r}: {e}")
+    try:
+        return getattr(mod, attr)
+    except AttributeError:
+        raise SystemExit(f"Module {mod_name!r} has no attribute {attr!r}")
+
+
+def engine_from_variant(variant: dict):
+    factory = load_engine_factory(variant.get("engineFactory")
+                                  or DEFAULT_FACTORY)
+    engine = factory() if callable(factory) else factory
+    return engine, engine.params_from_variant(variant)
+
+
+def _engine_key(args, variant: dict) -> dict:
+    return dict(engine_id=args.engine_id or variant.get("id", "default"),
+                engine_version=(args.engine_version
+                                or variant.get("version", "1")),
+                engine_variant=args.engine_json)
+
+
+# -- commands ---------------------------------------------------------------
+
+def cmd_app(args, storage: Storage) -> int:
+    apps, keys = storage.apps(), storage.access_keys()
+    if args.app_command == "new":
+        if apps.get_by_name(args.name) is not None:
+            _err(f"App {args.name} already exists. Aborting.")
+            return 1
+        app_id = apps.insert(App(id=args.id or 0, name=args.name,
+                                 description=args.description))
+        if app_id is None:
+            _err(f"Unable to create app {args.name} (ID conflict?). "
+                 f"Aborting.")
+            return 1
+        storage.events().init(app_id)
+        key = keys.insert(AccessKey(key=args.access_key or "",
+                                    app_id=app_id, events=()))
+        if key is None:
+            _err("Unable to create access key (duplicate?). Aborting.")
+            return 1
+        _out(f"Initialized Event Store for this app ID: {app_id}.")
+        _out("Created new app:")
+        _out(f"      Name: {args.name}")
+        _out(f"        ID: {app_id}")
+        _out(f"Access Key: {key}")
+        return 0
+    _out(f"{'Name':20} |   ID | Access Key")
+    for a in sorted(apps.get_all(), key=lambda a: a.name):
+        for k in keys.get_by_app_id(a.id) or [None]:
+            allowed = ",".join(k.events) if k and k.events else "(all)"
+            _out(f"{a.name:20} | {a.id:4} | {k.key if k else ''} | "
+                 f"{allowed}")
+    _out(f"Finished listing {len(apps.get_all())} app(s).")
+    return 0
+
+
+def cmd_accesskey(args, storage: Storage) -> int:
+    keys, apps = storage.access_keys(), storage.apps()
+    if args.ak_command == "new":
+        a = apps.get_by_name(args.app)
+        if a is None:
+            _err(f"App {args.app} does not exist. Aborting.")
+            return 1
+        key = keys.insert(AccessKey(key=args.key or "", app_id=a.id,
+                                    events=tuple(args.events or ())))
+        if key is None:
+            _err("Unable to create access key (duplicate?). Aborting.")
+            return 1
+        _out(f"Created new access key: {key}")
+        return 0
+    rows = keys.get_all()
+    if args.app:
+        a = apps.get_by_name(args.app)
+        if a is None:
+            _err(f"App {args.app} does not exist. Aborting.")
+            return 1
+        rows = keys.get_by_app_id(a.id)
+    for k in rows:
+        allowed = ",".join(k.events) if k.events else "(all)"
+        _out(f"{k.key} | app {k.app_id} | {allowed}")
+    _out(f"Finished listing {len(rows)} access key(s).")
+    return 0
+
+
+def build_eventserver(args, storage: Storage) -> AppServer:
+    """The event server the eventserver command would serve, not yet
+    serving."""
+    from .server.eventserver import create_event_server
+
+    return create_event_server(storage, args.ip, args.port)
+
+
+def cmd_import(args, storage: Storage) -> int:
+    """JSON lines -> event store, committed in all-or-nothing chunks;
+    then the columnar sidecar is built, so the first train does not pay
+    it."""
+    a = (storage.apps().get_by_name(args.app) if args.app
+         else storage.apps().get(args.appid))
+    if a is None:
+        _err("App does not exist. Aborting.")
+        return 1
+    try:
+        total = storage.events().import_jsonl(args.input, a.id)
+    except JsonlImportError as err:
+        _err(f"Import failed near line {err.lineno}: {err.cause}")
+        _err(f"{err.committed_events} event(s) (input lines "
+             f"1-{err.committed_lines}) are already committed; importing "
+             f"the whole file again would duplicate them.")
+        return 1
+    _out(f"Imported {total} event(s).")
+    if storage.events().warm_columnar(a.id):
+        _out("Columnar sidecar ready.")
+    return 0
+
+
+def cmd_train(args, storage: Storage) -> int:
+    from .workflow.core import run_train
+
+    variant = load_variant(args.engine_json)
+    engine, engine_params = engine_from_variant(variant)
+    ctx = Context(device=args.device, _storage=storage,
+                  skip_sanity_check=args.skip_sanity_check,
+                  stop_after_read=args.stop_after_read,
+                  stop_after_prepare=args.stop_after_prepare)
+    instance_id = run_train(ctx, engine, engine_params,
+                            engine_factory=variant.get("engineFactory", ""),
+                            **_engine_key(args, variant))
+    if args.stop_after_read or args.stop_after_prepare:
+        stage = "read" if args.stop_after_read else "prepare"
+        _out(f"Workflow stopped after {stage} (instance {instance_id} "
+             f"left in INIT).")
+        return 0
+    _out(f"Train stages: {json.dumps(ctx.stage_timings)}")
+    _out(f"Training completed. Engine instance ID: {instance_id}")
+    return 0
+
+
+def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
+    """The engine server the deploy command would serve, not yet
+    serving: the latest COMPLETED instance from storage, or the
+    ``--model`` file."""
+    variant = load_variant(args.engine_json)
+    engine, engine_params = engine_from_variant(variant)
+    config = ServerConfig(batching=args.batching,
+                          serving_quant=args.serving_quant,
+                          device=args.device)
+    if args.model:
+        from .workflow.persistence import loads_models
+
+        with open(args.model, "rb") as f:
+            models = loads_models(f.read())
+        return deploy_models(engine, engine_params, models, config,
+                             args.ip, args.port)
+    ctx = Context(device=args.device,
+                  _storage=storage if storage is not None else get_storage())
+    return deploy(ctx, engine, engine_params, config=config, host=args.ip,
+                  port=args.port, **_engine_key(args, variant))
+
+
+def _serve(srv: AppServer, what: str, args) -> int:
+    _out(f"{what} is listening at http://{args.ip}:{srv.port}.")
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        _out("Shutting down.")
+    finally:
+        srv.close()
+    return 0
+
+
+# -- parser -----------------------------------------------------------------
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
-    d = sub.add_parser("deploy", help="serve a trained model over HTTP")
-    d.add_argument("--engine-json", required=True,
-                   help="engine variant (algorithms and their params)")
-    d.add_argument("--model", required=True,
-                   help="model file written by dumps_models")
-    d.add_argument("--ip", default="0.0.0.0")
-    d.add_argument("--port", type=int, default=8000)
-    d.add_argument("--device", default=None,
-                   help="serving device (default: the CUDA card)")
-    d.add_argument("--serving-quant", default="off",
-                   choices=("off", "bf16", "int8"))
-    d.add_argument("--batching", action="store_true",
-                   help="coalesce concurrent queries into batched launches")
+
+    sp = sub.add_parser("app", help="manage apps")
+    app_sub = sp.add_subparsers(dest="app_command", required=True)
+    s = app_sub.add_parser("new")
+    s.add_argument("name")
+    s.add_argument("--id", type=int, default=0)
+    s.add_argument("--description")
+    s.add_argument("--access-key", default="")
+    app_sub.add_parser("list")
+
+    sp = sub.add_parser("accesskey", help="manage access keys")
+    ak_sub = sp.add_subparsers(dest="ak_command", required=True)
+    s = ak_sub.add_parser("new")
+    s.add_argument("app")
+    s.add_argument("events", nargs="*")
+    s.add_argument("--key", default="")
+    s = ak_sub.add_parser("list")
+    s.add_argument("--app", default="")
+
+    s = sub.add_parser("eventserver", help="start the event server")
+    s.add_argument("--ip", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=7070)
+
+    s = sub.add_parser("import", help="import events from JSON lines")
+    s.add_argument("--appid", type=int, default=0)
+    s.add_argument("--app", default="")
+    s.add_argument("--input", required=True)
+
+    for name, help_ in (("train", "train an engine"),
+                        ("deploy", "serve the latest trained engine")):
+        s = sub.add_parser(name, help=help_)
+        s.add_argument("--engine-json", default="engine.json")
+        s.add_argument("--engine-id", default="")
+        s.add_argument("--engine-version", default="")
+        s.add_argument("--device", default=None,
+                       help="the device (default: the CUDA card)")
+        if name == "train":
+            s.add_argument("--skip-sanity-check", action="store_true")
+            s.add_argument("--stop-after-read", action="store_true")
+            s.add_argument("--stop-after-prepare", action="store_true")
+            continue
+        s.add_argument("--model", default="",
+                       help="serve this model file instead of the latest "
+                            "trained instance")
+        s.add_argument("--ip", default="0.0.0.0")
+        s.add_argument("--port", type=int, default=8000)
+        s.add_argument("--serving-quant", default="off",
+                       choices=("off", "bf16", "int8"))
+        s.add_argument("--batching", action="store_true",
+                       help="coalesce concurrent queries into batched "
+                            "launches")
     return p
 
 
-def build_deploy(args: argparse.Namespace) -> AppServer:
-    """The engine server the deploy command would serve, not yet serving."""
-    engine = recommendation_engine()
-    engine_params = engine.params_from_variant(load_variant(args.engine_json))
-    with open(args.model, "rb") as f:
-        models = loads_models(f.read())
-    config = ServerConfig(batching=args.batching,
-                          serving_quant=args.serving_quant,
-                          device=args.device)
-    return deploy(engine, engine_params, models, config, args.ip, args.port)
-
-
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None,
+         storage: Optional[Storage] = None) -> int:
     args = _parser().parse_args(argv)
-    if args.command == "deploy":
-        srv = build_deploy(args)
-        print(f"Engine server listening on {args.ip}:{srv.port} "
-              f"({srv.app.name})", flush=True)
-        try:
-            srv.serve_forever()
-        finally:
-            srv.close()
-    return 0
+    storage = storage if storage is not None else get_storage()
+    if args.command == "app":
+        return cmd_app(args, storage)
+    if args.command == "accesskey":
+        return cmd_accesskey(args, storage)
+    if args.command == "import":
+        return cmd_import(args, storage)
+    if args.command == "train":
+        return cmd_train(args, storage)
+    if args.command == "eventserver":
+        return _serve(build_eventserver(args, storage), "Event Server", args)
+    srv = build_deploy(args, storage)
+    return _serve(srv, f"Engine server ({srv.app.name})", args)
 
 
 if __name__ == "__main__":

@@ -2,15 +2,18 @@
 ``predictionio_tpu/controller/context.py``).
 
 A :class:`Context` names the device training runs on (the card unless
-the caller asks for the CPU), the seed and the workflow options. It has
-no mesh and no storage yet.
+the caller asks for the CPU), the seed, the storage the data source reads
+and the workflow writes, and the workflow options. It has no mesh: the
+port runs on one card.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Dict
+from dataclasses import dataclass, field, replace
+from typing import Dict, Optional
 
+from ..data.storage.registry import Storage, get_storage
+from ..data.store import EventStoreFacade
 from ..utils.device import DeviceLike
 
 
@@ -21,10 +24,26 @@ class Context:
     device: DeviceLike = None
     seed: int = 0
     app_name: str = ""
+    batch: str = ""
     stop_after_read: bool = False
     stop_after_prepare: bool = False
     skip_sanity_check: bool = False
-    #: wall-clock seconds per stage (read_s, prepare_s, algo_train_s),
-    #: filled as training runs (``ALSAlgorithm.train`` returns only once
-    #: its work on the card has finished, so algo_train_s covers it)
+    #: wall-clock seconds per stage (read_s, prepare_s, algo_train_s,
+    #: persist_s), filled as training runs (``ALSAlgorithm.train``
+    #: returns only once its work on the card has finished, so
+    #: algo_train_s covers it)
     stage_timings: Dict[str, float] = field(default_factory=dict)
+    _storage: Optional[Storage] = None
+
+    @property
+    def storage(self) -> Storage:
+        """The storage given at construction, else the process-wide one
+        (built from ``PIO_STORAGE_*`` / ``PIO_HOME``)."""
+        return self._storage if self._storage is not None else get_storage()
+
+    @property
+    def event_store(self) -> EventStoreFacade:
+        return EventStoreFacade(self._storage)
+
+    def copy(self, **changes) -> "Context":
+        return replace(self, **changes)

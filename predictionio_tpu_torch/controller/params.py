@@ -15,6 +15,18 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Type
 from ..utils.jsonutil import from_jsonable
 
 
+def params_to_json(params: Any) -> dict:
+    """A params object as a JSON dict (dataclass fields, or the dict
+    itself)."""
+    if params is None:
+        return {}
+    if dataclasses.is_dataclass(params) and not isinstance(params, type):
+        return dataclasses.asdict(params)
+    if isinstance(params, Mapping):
+        return dict(params)
+    raise TypeError(f"cannot serialize params of type {type(params)}")
+
+
 def params_from_json(params_cls: Optional[Type], obj: Mapping[str, Any]) -> Any:
     """Build a params object from a JSON dict. With no declared class the
     dict passes through. Dataclass params accept camelCase keys and their

@@ -1,0 +1,371 @@
+"""Storage contracts: the event-log DAO and the metadata DAOs (the port's
+own copy of ``predictionio_tpu/data/storage/base.py``).
+
+``EventStore`` is the event log: init/remove, all-or-nothing batch
+inserts, the columnar block insert, get/delete, filtered ``find`` and the
+bulk ``find_columnar`` training read. The metadata entities (``App``,
+``AccessKey``, ``Channel``, ``EngineInstance``, ``Model``) and their DAOs
+match the JAX package's field for field, so one SQLite file serves both.
+
+Left out (``ROADMAP.md`` queue 1): multi-host sharded reads
+(``find_columnar(shard=...)`` raises), property aggregation
+(``aggregate_properties``), the evaluation-instance DAO, the scan
+deadline of serving-time point reads and the bulk JSON-lines block
+reader of the SEGMENTFS lane.
+"""
+
+from __future__ import annotations
+
+import abc
+import base64
+import json
+import re
+import uuid
+from dataclasses import dataclass, field, replace
+from datetime import datetime
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
+
+from ..event import Event
+
+#: Sentinel for "no filter" on nullable fields, distinguishing "match any"
+#: from "match None".
+ANY: Any = ...
+
+#: the queue item that lists what this slice of the port leaves out
+LEFT_OUT = "not ported yet (ROADMAP.md queue 1, the storage leave-outs)"
+
+
+@dataclass(frozen=True)
+class EventFilter:
+    """The filter set of an event-log scan."""
+
+    start_time: Optional[datetime] = None
+    until_time: Optional[datetime] = None
+    entity_type: Optional[str] = None
+    entity_id: Optional[str] = None
+    event_names: Optional[Sequence[str]] = None
+    target_entity_type: Any = ANY  # ANY | None | str
+    target_entity_id: Any = ANY
+    limit: Optional[int] = None
+    reversed: bool = False
+
+    def apply(self, events: Iterable[Event]) -> Iterator[Event]:
+        return (e for e in events if self.matches(e))
+
+    def matches(self, e: Event) -> bool:
+        if self.start_time is not None and e.event_time < self.start_time:
+            return False
+        if self.until_time is not None and e.event_time >= self.until_time:
+            return False
+        if self.entity_type is not None and e.entity_type != self.entity_type:
+            return False
+        if self.entity_id is not None and e.entity_id != self.entity_id:
+            return False
+        if self.event_names is not None and e.event not in self.event_names:
+            return False
+        if self.target_entity_type is not ANY \
+                and e.target_entity_type != self.target_entity_type:
+            return False
+        if self.target_entity_id is not ANY \
+                and e.target_entity_id != self.target_entity_id:
+            return False
+        return True
+
+
+class StorageError(RuntimeError):
+    pass
+
+
+class JsonlImportError(Exception):
+    """A bulk JSON-lines import failed partway. ``lineno`` is where it
+    failed, ``committed_lines``/``committed_events`` how far the durable
+    prefix reaches (re-importing the whole file would duplicate it)."""
+
+    def __init__(self, lineno: int, committed_lines: int,
+                 committed_events: int, cause: BaseException):
+        super().__init__(f"import failed near line {lineno}: {cause}")
+        self.lineno = lineno
+        self.committed_lines = committed_lines
+        self.committed_events = committed_events
+        self.cause = cause
+
+
+class EventStore(abc.ABC):
+    """Append-only event log, partitioned by (app_id, channel_id)."""
+
+    @abc.abstractmethod
+    def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Initialize storage for an app/channel (create tables etc.)."""
+
+    @abc.abstractmethod
+    def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
+        """Remove all events of an app/channel."""
+
+    @abc.abstractmethod
+    def close(self) -> None:
+        """Release client resources."""
+
+    @abc.abstractmethod
+    def insert(self, event: Event, app_id: int,
+               channel_id: Optional[int] = None) -> str:
+        """Insert one event, returning its event id."""
+
+    def insert_batch(self, events: Sequence[Event], app_id: int,
+                     channel_id: Optional[int] = None) -> List[str]:
+        """Insert many events, **all or nothing**: the event server
+        retries per event after a failed batch, so a partial commit would
+        duplicate the committed prefix under fresh ids. This default
+        compensates before re-raising: fresh inserts are deleted, and an
+        insert that replaced an existing event (same explicit id) gets
+        its prior version back."""
+        done: list = []
+        priors: dict = {}
+        try:
+            for e in events:
+                if e.event_id and e.event_id not in priors:
+                    priors[e.event_id] = self.get(e.event_id, app_id,
+                                                  channel_id)
+                done.append(self.insert(e, app_id, channel_id))
+        except Exception:
+            for eid in reversed(done):
+                try:
+                    prior = priors.get(eid)
+                    if prior is not None:
+                        self.insert(prior, app_id, channel_id)
+                    else:
+                        self.delete(eid, app_id, channel_id)
+                except Exception:  # noqa: BLE001 — best-effort rollback
+                    pass
+            raise
+        return done
+
+    def insert_columnar(self, batch, app_id: int,
+                        channel_id: Optional[int] = None) -> int:
+        """Write a :class:`~predictionio_tpu_torch.data.columnar.
+        ColumnarBatch` block; all or nothing, fresh ids for every row.
+        Returns the rows written. This default decodes to events and
+        rides :meth:`insert_batch`; SQLite overrides it with one
+        transaction that builds no ``Event`` objects."""
+        events = list(batch.to_events())
+        self.insert_batch(events, app_id, channel_id)
+        return len(events)
+
+    def import_jsonl(self, source, app_id: int,
+                     channel_id: Optional[int] = None,
+                     chunk: int = 100_000) -> int:
+        """Load API-format JSON lines from a file path, committing every
+        ``chunk`` events through :meth:`insert_batch`. Returns the events
+        imported; on failure raises :class:`JsonlImportError` with how
+        far the durable prefix reaches."""
+        total = 0
+        lineno = 0
+        committed = 0  # last line number fully committed
+        events: List[Event] = []
+        f = open(source, "rb")
+        try:
+            with f:
+                for raw in f:
+                    lineno += 1
+                    line = raw.decode("utf-8").strip()
+                    if line:
+                        events.append(Event.from_json(json.loads(line)))
+                    if len(events) >= chunk:
+                        self.insert_batch(events, app_id, channel_id)
+                        total += len(events)
+                        committed = lineno
+                        events = []
+            if events:
+                self.insert_batch(events, app_id, channel_id)
+                total += len(events)
+        except Exception as e:  # noqa: BLE001 — report durable progress
+            raise JsonlImportError(lineno, committed, total, e) from e
+        return total
+
+    @abc.abstractmethod
+    def get(self, event_id: str, app_id: int,
+            channel_id: Optional[int] = None) -> Optional[Event]:
+        """Get an event by id."""
+
+    @abc.abstractmethod
+    def delete(self, event_id: str, app_id: int,
+               channel_id: Optional[int] = None) -> bool:
+        """Delete an event by id; True if it existed."""
+
+    @abc.abstractmethod
+    def find(self, app_id: int, channel_id: Optional[int] = None,
+             filter: EventFilter = EventFilter()) -> Iterator[Event]:
+        """Stream events matching the filter, in event-time order
+        (reversed when ``filter.reversed``)."""
+
+    def warm_columnar(self, app_id: int,
+                      channel_id: Optional[int] = None) -> bool:
+        """Build or refresh a persistent columnar sidecar now; False for
+        backends that have none."""
+        return False
+
+    def find_columnar(self, app_id: int, channel_id: Optional[int] = None,
+                      filter: EventFilter = EventFilter(),
+                      float_props: Sequence[str] = ("rating",),
+                      ordered: bool = True, with_props: bool = True,
+                      shard=None):
+        """The bulk training read: the matching log as dictionary-encoded
+        numpy columns. This default encodes from :meth:`find`; SQLite
+        overrides it with a persistent sidecar."""
+        if shard is not None:
+            raise NotImplementedError(f"sharded reads are {LEFT_OUT}")
+        from ..columnar import columnar_from_events
+        return columnar_from_events(self.find(app_id, channel_id, filter),
+                                    float_props=float_props)
+
+    def aggregate_properties(self, *args, **kwargs):
+        raise NotImplementedError(f"property aggregation is {LEFT_OUT}")
+
+
+# ---------------------------------------------------------------------------
+# Metadata entities
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class App:
+    id: int
+    name: str
+    description: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class AccessKey:
+    """An access key of one app; empty ``events`` allows every event
+    name."""
+    key: str
+    app_id: int
+    events: Sequence[str] = ()
+
+
+@dataclass(frozen=True)
+class Channel:
+    """A named event channel of an app: 1-16 alphanumerics and dashes."""
+    id: int
+    name: str
+    app_id: int
+
+    @staticmethod
+    def is_valid_name(s: str) -> bool:
+        return bool(re.fullmatch(r"[a-zA-Z0-9-]{1,16}", s))
+
+
+#: EngineInstance lifecycle states: INIT -> COMPLETED
+STATUS_INIT = "INIT"
+STATUS_COMPLETED = "COMPLETED"
+
+
+@dataclass(frozen=True)
+class EngineInstance:
+    """A training run."""
+    id: str
+    status: str
+    start_time: datetime
+    end_time: datetime
+    engine_id: str
+    engine_version: str
+    engine_variant: str
+    engine_factory: str
+    batch: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    spark_conf: Dict[str, str] = field(default_factory=dict)
+    data_source_params: str = ""
+    preparator_params: str = ""
+    algorithms_params: str = ""
+    serving_params: str = ""
+
+    def copy(self, **changes: Any) -> "EngineInstance":
+        return replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class Model:
+    """A persisted model blob keyed by engine-instance id."""
+    id: str
+    models: bytes
+
+
+# ---------------------------------------------------------------------------
+# Metadata DAO contracts
+# ---------------------------------------------------------------------------
+
+class AppsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, app: App) -> Optional[int]: ...
+    @abc.abstractmethod
+    def get(self, app_id: int) -> Optional[App]: ...
+    @abc.abstractmethod
+    def get_by_name(self, name: str) -> Optional[App]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[App]: ...
+    @abc.abstractmethod
+    def update(self, app: App) -> None: ...
+    @abc.abstractmethod
+    def delete(self, app_id: int) -> None: ...
+
+
+class AccessKeysDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, access_key: AccessKey) -> Optional[str]:
+        """Insert; an empty ``key`` gets a generated one."""
+    @abc.abstractmethod
+    def get(self, key: str) -> Optional[AccessKey]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[AccessKey]: ...
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[AccessKey]: ...
+    @abc.abstractmethod
+    def update(self, access_key: AccessKey) -> None: ...
+    @abc.abstractmethod
+    def delete(self, key: str) -> None: ...
+
+    @staticmethod
+    def generate_key() -> str:
+        return base64.urlsafe_b64encode(uuid.uuid4().bytes).decode().rstrip("=")
+
+
+class ChannelsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, channel: Channel) -> Optional[int]: ...
+    @abc.abstractmethod
+    def get(self, channel_id: int) -> Optional[Channel]: ...
+    @abc.abstractmethod
+    def get_by_app_id(self, app_id: int) -> List[Channel]: ...
+    @abc.abstractmethod
+    def delete(self, channel_id: int) -> None: ...
+
+
+class EngineInstancesDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EngineInstance) -> str: ...
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EngineInstance]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[EngineInstance]: ...
+    @abc.abstractmethod
+    def update(self, instance: EngineInstance) -> None: ...
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
+
+    @abc.abstractmethod
+    def get_completed(self, engine_id: str, engine_version: str,
+                      engine_variant: str) -> List[EngineInstance]:
+        """COMPLETED instances, latest start time first."""
+
+    def get_latest_completed(self, engine_id: str, engine_version: str,
+                             engine_variant: str) -> Optional[EngineInstance]:
+        completed = self.get_completed(engine_id, engine_version,
+                                       engine_variant)
+        return completed[0] if completed else None
+
+
+class ModelsDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, model: Model) -> None: ...
+    @abc.abstractmethod
+    def get(self, model_id: str) -> Optional[Model]: ...
+    @abc.abstractmethod
+    def delete(self, model_id: str) -> None: ...

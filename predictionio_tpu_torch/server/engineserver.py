@@ -9,6 +9,12 @@ With ``batching`` on, concurrent queries coalesce in a
 :class:`MicroBatcher` into one batched top-k launch. ``GET /status.json``
 names the card, the quantization in force and the kernel's launch
 count; ``POST /stop`` shuts the server down.
+
+:func:`deploy` is the ``pio deploy`` flow: it binds the latest COMPLETED
+engine instance of an engine id, version and variant from the context's
+storage. :func:`deploy_models` binds models the caller already holds.
+Left out (``ROADMAP.md`` queue 1): the release registry (pinned
+releases, promote, rollback, ``/reload``), so deploy never reads a pin.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ import time
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
+from ..controller.context import Context
 from ..controller.engine import Engine
 from ..controller.params import EngineParams
+from ..data.storage.base import EngineInstance
 from ..models.als import SERVING_QUANT_MODES, serving_quant_of
 from ..ops import fused_topk as _fused_topk
 from ..utils.device import card_info, resolve_device
@@ -56,8 +64,11 @@ class QueryServer:
     """One deployed engine: algorithms, bound models and serving."""
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
-                 models: List[Any], config: Optional[ServerConfig] = None):
+                 models: List[Any], config: Optional[ServerConfig] = None,
+                 instance: Optional[EngineInstance] = None):
         self.engine = engine
+        #: the engine instance the models came from (None: handed in)
+        self.instance = instance
         self.config = config or ServerConfig()
         if self.config.serving_quant not in SERVING_QUANT_MODES:
             raise ValueError(
@@ -162,6 +173,7 @@ class QueryServer:
             "kernels": {"fused_topk": {
                 "launches": _fused_topk.LAUNCHES}},
             "requestCount": self.request_count,
+            "engineInstanceId": self.instance.id if self.instance else None,
         }
 
     def close(self, timeout: float = 5.0) -> None:
@@ -306,11 +318,33 @@ def create_engine_server(server: QueryServer, host: str = "0.0.0.0",
     return srv
 
 
-def deploy(engine: Engine, engine_params: EngineParams, models: List[Any],
-           config: Optional[ServerConfig] = None, host: str = "0.0.0.0",
-           port: int = 8000) -> AppServer:
+def deploy_models(engine: Engine, engine_params: EngineParams,
+                  models: List[Any], config: Optional[ServerConfig] = None,
+                  host: str = "0.0.0.0", port: int = 8000) -> AppServer:
     """Bind ``models`` (quantize, place on the device) and return the
     engine server, not yet serving: call ``start_background()`` or
     ``serve_forever()`` on it."""
     server = QueryServer(engine, engine_params, models, config)
+    return create_engine_server(server, host, port)
+
+
+def deploy(ctx: Context, engine: Engine, engine_params: EngineParams,
+           engine_id: str = "default", engine_version: str = "1",
+           engine_variant: str = "engine.json",
+           config: Optional[ServerConfig] = None,
+           host: str = "0.0.0.0", port: int = 8000) -> AppServer:
+    """The ``pio deploy`` flow: bind the latest COMPLETED instance of
+    ``engine_id``/``engine_version``/``engine_variant`` from
+    ``ctx.storage`` and return the engine server, not yet serving. Runs
+    on the card unless ``config.device`` is "cpu"."""
+    from ..workflow import core as wf
+
+    instance = wf.get_latest_completed(ctx, engine_id, engine_version,
+                                       engine_variant)
+    if instance is None:
+        raise RuntimeError(
+            f"No COMPLETED engine instance for {engine_id} "
+            f"{engine_version} {engine_variant}; run train first.")
+    models = wf.load_models_for_deploy(ctx, engine, instance, engine_params)
+    server = QueryServer(engine, engine_params, models, config, instance)
     return create_engine_server(server, host, port)

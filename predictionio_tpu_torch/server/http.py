@@ -1,6 +1,8 @@
 """A small threaded HTTP app framework: the port's own copy of the core of
-``predictionio_tpu/server/http.py`` (routing, JSON responses, a server
-that starts in the background and closes cleanly).
+``predictionio_tpu/server/http.py`` (routing with named path groups,
+query strings and headers, JSON responses, a 503 with ``Retry-After``
+when the backing store is unavailable, a server that starts in the
+background and closes cleanly).
 """
 
 from __future__ import annotations
@@ -8,13 +10,18 @@ from __future__ import annotations
 import json
 import re
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, List, Optional, Tuple
-from urllib.parse import urlparse
+from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
+
+from ..data.storage.base import StorageError
 
 __all__ = ["Request", "Response", "HTTPError", "HTTPApp", "AppServer",
            "json_response"]
+
+#: what a 503 from an unavailable backing store asks the client to wait
+RETRY_AFTER_SECONDS = 1
 
 
 @dataclass
@@ -22,6 +29,11 @@ class Request:
     method: str
     path: str
     body: bytes
+    #: first value of each query parameter
+    query: Dict[str, str] = field(default_factory=dict)
+    headers: Dict[str, str] = field(default_factory=dict)
+    #: named groups of the matched route pattern
+    path_params: Dict[str, str] = field(default_factory=dict)
 
     def json(self) -> Any:
         if not self.body:
@@ -34,6 +46,7 @@ class Response:
     status: int = 200
     body: Any = None
     content_type: str = "application/json"
+    headers: Dict[str, str] = field(default_factory=dict)
 
     def encoded(self) -> bytes:
         if self.body is None:
@@ -79,15 +92,23 @@ class HTTPApp:
     def handle(self, req: Request) -> Response:
         path_matched = False
         for method, pattern, fn in self._routes:
-            if not pattern.match(req.path):
+            m = pattern.match(req.path)
+            if not m:
                 continue
             path_matched = True
             if method != req.method:
                 continue
+            req.path_params = m.groupdict()
             try:
                 return fn(req)
             except HTTPError as e:
                 return json_response({"message": e.message}, e.status)
+            except StorageError as e:
+                # an unavailable store is a retryable outage, not a bug
+                resp = json_response(
+                    {"message": f"backing store unavailable: {e}"}, 503)
+                resp.headers["Retry-After"] = str(RETRY_AFTER_SECONDS)
+                return resp
             except Exception as e:  # noqa: BLE001 — the server boundary
                 return json_response({"message": str(e)}, 500)
         if path_matched:
@@ -106,19 +127,24 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
     def _dispatch(self) -> None:
+        parsed = urlparse(self.path)
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""
-        req = Request(method=self.command, path=urlparse(self.path).path,
-                      body=body)
+        req = Request(method=self.command, path=parsed.path, body=body,
+                      query={k: v[0] for k, v in
+                             parse_qs(parsed.query).items()},
+                      headers=dict(self.headers.items()))
         resp = self.app.handle(req)
         payload = resp.encoded()
         self.send_response(resp.status)
         self.send_header("Content-Type", resp.content_type)
         self.send_header("Content-Length", str(len(payload)))
+        for k, v in resp.headers.items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(payload)
 
-    do_GET = do_POST = _dispatch
+    do_GET = do_POST = do_DELETE = _dispatch
 
 
 class _AppHTTPServer(ThreadingHTTPServer):

@@ -1,26 +1,31 @@
 """Recommendation engine template: the port of
 ``predictionio_tpu/templates/recommendation.py`` (training and serving).
 
-Training takes a :class:`TrainingData` of rating triples from the
-caller's own ``DataSource`` (the event-store data source waits for the
-storage slice), passes it through :class:`IdentityPreparator`, and trains
-an ALS model on the context's device. Queries and results use the JSON
-shapes of the JAX package's engine server::
+Training reads ``rate``/``buy`` events of an app from the event store
+(:class:`RecommendationDataSource`, the default) or takes a
+:class:`TrainingData` from the caller's own ``DataSource``, passes it
+through :class:`IdentityPreparator`, and trains an ALS model on the
+context's device. Queries and results use the JSON shapes of the JAX
+package's engine server::
 
     POST /queries.json  {"user": "1", "num": 4, "blackList": ["22"]}
     -> {"itemScores": [{"item": "7", "score": 4.07}, ...]}
+
+Left out (``ROADMAP.md`` queue 1): ``read_eval`` and the eval metrics,
+``ExcludeItemsPreparator`` and the file-blacklist serving.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..controller.base import (
     Algorithm,
+    DataSource,
     FirstServing,
     IdentityPreparator,
     SanityCheck,
@@ -38,6 +43,7 @@ from ..models.als import (
     recommend_products,
     train_als,
 )
+from ..models.data import ratings_from_columnar
 
 
 @dataclass(frozen=True)
@@ -79,6 +85,43 @@ class TrainingData(SanityCheck):
         if self.ratings.users.size == 0:
             raise ValueError("TrainingData has no ratings; check that "
                              "rate/buy events exist for the app")
+
+
+@dataclass(frozen=True)
+class DataSourceParams:
+    """Where the training events live and how they become ratings. The
+    eval fields are accepted, so a JAX package variant parses unchanged,
+    but eval is not ported."""
+    app_name: str = ""
+    channel_name: Optional[str] = None
+    eval_k: int = 0
+    eval_query_num: int = 10
+    eval_rating_threshold: float = 2.0
+    seed: int = 3
+    #: event name -> fixed rating (None: read the ``rating`` property);
+    #: None means ``{"rate": None, "buy": 4.0}``
+    event_weights: Optional[Dict[str, Optional[float]]] = None
+
+
+class RecommendationDataSource(DataSource):
+    """Reads an app's rating events from the event store as columns."""
+
+    def __init__(self, params: DataSourceParams = DataSourceParams()):
+        self.params = params
+
+    def read_training(self, ctx: Context) -> TrainingData:
+        weights = self.params.event_weights
+        batch = ctx.event_store.find_columnar(
+            self.params.app_name or ctx.app_name,
+            channel_name=self.params.channel_name,
+            entity_type="user", target_entity_type="item",
+            event_names=(list(weights) if weights is not None
+                         else ["rate", "buy"]),
+            # a bulk COO build needs neither time order nor raw JSON
+            ordered=False, with_props=False)
+        ratings, user_ids, item_ids = ratings_from_columnar(
+            batch, event_weights=weights)
+        return TrainingData(ratings, user_ids, item_ids)
 
 
 def query_from_json(obj: dict) -> Query:
@@ -182,13 +225,17 @@ class RecommendationServing(FirstServing):
 
 def recommendation_engine(datasource_classes: Optional[ClassMap] = None
                           ) -> Engine:
-    """Engine factory of the template. ``datasource_classes`` is the
-    caller's own data source (yielding :class:`TrainingData`); serving
-    alone needs none."""
+    """Engine factory of the template. The data source is
+    :class:`RecommendationDataSource` over the event store, unless
+    ``datasource_classes`` names the caller's own (yielding
+    :class:`TrainingData`; its params then pass through as a dict)."""
+    own = datasource_classes is not None
     return Engine(
         algorithm_classes={"als": ALSAlgorithm, "": ALSAlgorithm},
         serving_classes={"": RecommendationServing},
         algorithm_params_classes={"als": ALSParams, "": ALSParams},
-        datasource_classes=datasource_classes,
+        datasource_classes=(datasource_classes if own
+                            else RecommendationDataSource),
+        datasource_params_class=None if own else DataSourceParams,
         preparator_classes={"": IdentityPreparator},
     )

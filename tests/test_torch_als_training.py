@@ -9,7 +9,7 @@ Gramian in interpret mode. Tolerance: the factors agree within rtol
 2e-3, atol 2e-4 after 1 and 3 iterations (the tolerance
 ``tests/test_als.py`` holds the JAX package to against float64 numpy).
 Then a model trained by the port's ``Engine.train`` goes through the
-model file and ``deploy(device="cpu")``, and its ``/queries.json``
+model file and ``deploy_models(device="cpu")``, and its ``/queries.json``
 answers are held against the JAX package's for the JAX-trained model.
 """
 
@@ -29,7 +29,7 @@ from predictionio_tpu_torch.data.bimap import BiMap
 from predictionio_tpu_torch.models import als
 from predictionio_tpu_torch.models.convert import factors_to_numpy
 from predictionio_tpu_torch.ops import ragged
-from predictionio_tpu_torch.server.engineserver import ServerConfig, deploy
+from predictionio_tpu_torch.server.engineserver import ServerConfig, deploy_models
 from predictionio_tpu_torch.templates.recommendation import (
     TrainingData,
     recommendation_engine,
@@ -230,7 +230,7 @@ def test_engine_train_persist_deploy_matches_jax(monkeypatch):
 
     (loaded,) = loads_models(dumps_models(result.models))
     assert torch.equal(loaded.user_factors, model.user_factors)
-    srv = deploy(engine, ep, [loaded], ServerConfig(device="cpu"),
+    srv = deploy_models(engine, ep, [loaded], ServerConfig(device="cpu"),
                  host="127.0.0.1", port=0)
     srv.start_background()
     try:
@@ -278,4 +278,13 @@ def test_engine_train_stops_early_and_checks_sanity():
     with pytest.raises(ValueError, match="no ratings"):
         engine.train(Context(device="cpu"), ep)
     with pytest.raises(KeyError, match="datasource"):
-        recommendation_engine().train(Context(device="cpu"), ep)
+        recommendation_engine(datasource_classes={"other": Empty}).train(
+            Context(device="cpu"), ep)
+    # the default data source reads the event store: an app must exist
+    from predictionio_tpu_torch.data.storage.base import StorageError
+    from predictionio_tpu_torch.data.storage.registry import Storage
+
+    memory = Storage(env={"PIO_STORAGE_SOURCES_M_TYPE": "MEMORY"})
+    with pytest.raises(StorageError, match="does not exist"):
+        recommendation_engine().train(
+            Context(device="cpu", _storage=memory), ep)

@@ -24,7 +24,7 @@ from predictionio_tpu.templates.recommendation import (
 from predictionio_tpu.templates.recommendation import Query as JaxQuery
 from predictionio_tpu_torch import cli
 from predictionio_tpu_torch.models.convert import als_model_from_numpy
-from predictionio_tpu_torch.server.engineserver import ServerConfig, deploy
+from predictionio_tpu_torch.server.engineserver import ServerConfig, deploy_models
 from predictionio_tpu_torch.templates.recommendation import (
     recommendation_engine,
 )
@@ -80,7 +80,7 @@ def port_model(factors):
 def start(factors, **cfg):
     engine = recommendation_engine()
     ep = engine.params_from_variant(VARIANT)
-    srv = deploy(engine, ep, [port_model(factors)],
+    srv = deploy_models(engine, ep, [port_model(factors)],
                  ServerConfig(device="cpu", **cfg), "127.0.0.1", 0)
     return srv.start_background()
 
@@ -213,8 +213,8 @@ def test_default_device_is_the_card(factors, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     engine = recommendation_engine()
     with pytest.raises(RuntimeError, match="CUDA"):
-        deploy(engine, engine.params_from_variant(VARIANT),
-               [port_model(factors)], ServerConfig(), "127.0.0.1", 0)
+        deploy_models(engine, engine.params_from_variant(VARIANT),
+                      [port_model(factors)], ServerConfig(), "127.0.0.1", 0)
 
 
 def test_cli_deploy_of_a_persisted_model(factors, jax_model, tmp_path):

@@ -165,12 +165,14 @@ def test_kernel_source_agrees_with_wrapper():
     checks and binds; every output offset is 64-bit."""
     import re
 
-    src = (_build.CSRC / "fused_gram.cu").read_text()
+    src = "".join((_build.CSRC / name).read_text()
+                  for name in ("fused_gram.cu", "gram_tile.cuh"))
     tile = int(re.search(r"kMaxTile = (\d+)", src).group(1))
     grid = int(re.search(r"kGrid = (\d+)", src).group(1))
     assert tile * grid == fg.FUSED_GRAM_MAX_RANK
     for name in fg._ENTRY.values():
         assert f"FUSED_GRAM_ENTRY({name}," in src
+    assert '#include "gram_tile.cuh"' in src
     assert "row * (size_t)r * (size_t)r" in src
     assert "cublas" not in src.lower() and "#include <cu" in src
 

@@ -228,7 +228,7 @@ class TestWrapperContract:
             assert f"FUSED_TOPK_ENTRY({name}," in src
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
         assert _build.all_sources() == ["chol_solve", "fused_gram",
-                                        "fused_topk"]
+                                        "fused_topk", "gram_table"]
 
     def test_build_without_nvcc_raises(self, monkeypatch):
         monkeypatch.setattr(_build.shutil, "which", lambda _: None)

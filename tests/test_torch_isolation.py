@@ -51,7 +51,11 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.cli, predictionio_tpu_torch.models.als, "
             "predictionio_tpu_torch.ops.fused_gram, "
             "predictionio_tpu_torch.ops.solve, "
-            "predictionio_tpu_torch.controller.engine; "
+            "predictionio_tpu_torch.controller.engine, "
+            "predictionio_tpu_torch.server.eventserver, "
+            "predictionio_tpu_torch.workflow.core, "
+            "predictionio_tpu_torch.data.storage.registry, "
+            "predictionio_tpu_torch.ops.gram; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
             "assert not bad, bad")
@@ -108,3 +112,24 @@ def test_chip_smoke_needs_the_card(tmp_path):
             env={"PATH": "/usr/bin:/bin", "CUDA_VISIBLE_DEVICES": ""})
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_a_jax_package_factory_resolves_to_the_port():
+    """The shipped variants name ``predictionio_tpu...:factory``; the
+    port's CLI reads that as its own module and never imports the JAX
+    package, not even by name through ``importlib``."""
+    code = ("import sys, json; from predictionio_tpu_torch import cli; "
+            "spec = json.load(open('examples/recommendation/engine.json'))"
+            "['engineFactory']; "
+            "assert spec.startswith('predictionio_tpu.'), spec; "
+            "engine, ep = cli.engine_from_variant("
+            "json.load(open('examples/recommendation/engine.json'))); "
+            "assert type(engine).__module__.startswith("
+            "'predictionio_tpu_torch.'), type(engine).__module__; "
+            "assert ep.datasource[1].app_name == 'MyApp1'; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
+            "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
