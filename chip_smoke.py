@@ -12,9 +12,17 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             (one process per source, all started together) into
             ``build/torch_kernels/``.
 3. kernel — ``fused_topk`` on the f32, bf16 and int8 wires at ML-20M width
-            (138,493 users x 26,744 items, rank 64), B in {1, 37, 2048},
-            k in {16, 128}, one ``base != 0`` case and an integer-valued tie
-            case, each held against the plain version on the card. Scores
+            (138,493 users x 26,744 items, rank 64), B in {1, 8, 37, 64,
+            2048}, k in {16, 128}, the same tables cut to rank 10 (rows that
+            are no multiple of 16 bytes: the element-wise staging branch),
+            one ``base != 0`` case and an integer-valued tie case, each held
+            against the plain version on the card. Each line names the
+            catalogue splits, the queries a block takes and the staging
+            branch the launch chose, the event-timed call (``ms``: what a
+            caller waits, host launch work included), the device time with
+            the launch queue kept full (``queued_ms``) and, from a
+            ``torch.profiler`` trace, the device time of the scoring pass
+            and of the merge pass (``scan_ms``, ``merge_ms``). Scores
             agree within |d| <= rtol * (1 + |plain|), rtol 1e-5 on f32 and
             1e-4 on bf16/int8; every returned id's own score, recomputed in
             float64, agrees with the score returned beside it at the same
@@ -35,7 +43,12 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             wires) from the initial factors, each held against the plain
             version: |dA| <= 1e-5 * sum_l |wa| * max|f|^2 and |db| <=
             1e-5 * sum_l |wb| * max|f| per row (only the summation order
-            differs). ``chol_solve`` solves those 138,493 user systems at
+            differs). The named blocks print their L-split count and
+            staging branch; two runs on the item side's L = 131,072 block
+            must be bit-identical (the split sum has a fixed order); the
+            named blocks run again over rank-10 tables (the shipped
+            ``engine.json``'s rank: 40-byte rows, the element-wise
+            branch). ``chol_solve`` solves those 138,493 user systems at
             r = 64 (and the item systems) and synthetic SPD systems at r in
             {10, 96, 128}: the relative residual ||Ax - b|| / (||A||_F
             ||x|| + ||b||) <= 1e-5
@@ -149,6 +162,46 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` with the launch queue kept full: a long
+    matrix product runs first, so the ``reps`` calls queue behind it and
+    run back to back, whatever the host takes to launch one."""
+    fn()
+    big = torch.empty((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    torch.mm(big, big)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def kernel_ms(fn, reps: int, names: tuple) -> list:
+    """Mean device ms a call of ``fn`` spends in the kernels whose name
+    holds each of ``names``, from a ``torch.profiler`` trace of ``reps``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = [0.0] * len(names)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        for n, name in enumerate(names):
+            if name in e.key:
+                out[n] += us / 1e3 / reps
+    return out
+
+
 def bound(wire: str, B: int, k: int, n_items: int, r: int) -> tuple:
     """(least ms, what bounds it) for one fused_topk call: each input byte
     read once (the B gathered user rows, the item table, scales, ids),
@@ -220,8 +273,10 @@ def phase_kernel(rng, U, V, dev) -> dict:
     from predictionio_tpu_torch.ops.fused_topk import (
         fused_topk,
         fused_topk_reference,
+        topk_plan,
     )
 
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     Ud, Vd = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
     qU, qus = _quantize_rows(U, "int8")
     qV, qvs = _quantize_rows(V, "int8")
@@ -231,39 +286,61 @@ def phase_kernel(rng, U, V, dev) -> dict:
         "int8": (qU.to(dev), qV.to(dev), qus.to(dev), qvs.to(dev)),
     }
     row = {}
-    for wire, (ut, vt, us, vs) in wires.items():
-        U64 = ut.double() * (us.double() if us is not None else 1.0)
-        V64 = vt.double() * (vs.double() if vs is not None else 1.0)
-        for B in (1, 37, BATCH):
-            idx = torch.from_numpy(
-                rng.integers(0, N_USERS, B).astype(np.int32)).to(dev)
-            for k in (16, 128):
-                s, i = fused_topk(ut, idx, vt, us, vs, k=k, n_items=N_ITEMS)
-                torch.cuda.synchronize()
-                ps, pi = fused_topk_reference(ut, idx, vt, us, vs, k=k,
-                                              n_items=N_ITEMS)
-                err = verify_topk(f"{wire} B={B} k={k}", s, i, ps, U64, V64,
-                                  idx, RTOL[wire])
-                diff = int((i != pi).sum().item())
-                reps = 20 if B == BATCH else 5
-                ms = median_ms(lambda: fused_topk(
-                    ut, idx, vt, us, vs, k=k, n_items=N_ITEMS), reps)
-                plain_ms = median_ms(lambda: fused_topk_reference(
-                    ut, idx, vt, us, vs, k=k, n_items=N_ITEMS), 3)
-                uq, vq = U64[idx.long()].float(), V64.float()
-                lib_ms = median_ms(
-                    lambda: torch.topk(torch.matmul(uq, vq.T), k), 5)
-                b_ms, b_by = bound(wire, B, k, N_ITEMS, RANK)
-                print(f"phase kernel: fused_topk {wire} B={B} k={k} "
-                      f"max_abs_err={err:.3e} ids_differing={diff} "
-                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                      f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} "
-                      f"bound_by={b_by}", flush=True)
-                if (wire, B, k) == ("int8", BATCH, 16):
-                    # the shape the serving path's batch sweep gives it
-                    row = {"max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": b_ms,
-                           "bound_by": b_by, "library_ms": lib_ms}
+    for rank in (RANK, 10):
+        for wire, full in wires.items():
+            ut, vt = (t[:, :rank].contiguous() for t in full[:2])
+            us, vs = full[2:]
+            U64 = ut.double() * (us.double() if us is not None else 1.0)
+            V64 = vt.double() * (vs.double() if vs is not None else 1.0)
+            for B in (1, 8, 37, 64, BATCH) if rank == RANK else (8, BATCH):
+                idx = torch.from_numpy(
+                    rng.integers(0, N_USERS, B).astype(np.int32)).to(dev)
+                for k in (16, 128) if rank == RANK else (16,):
+                    def call():
+                        return fused_topk(ut, idx, vt, us, vs, k=k,
+                                          n_items=N_ITEMS)
+
+                    s, i = call()
+                    torch.cuda.synchronize()
+                    ps, pi = fused_topk_reference(ut, idx, vt, us, vs, k=k,
+                                                  n_items=N_ITEMS)
+                    tag = f"{wire} r={rank} B={B} k={k}"
+                    err = verify_topk(tag, s, i, ps, U64, V64, idx,
+                                      RTOL[wire])
+                    diff = int((i != pi).sum().item())
+                    plan = topk_plan(B, N_ITEMS, rank, vt.element_size(), k,
+                                     n_sm, vt.data_ptr() % 16 == 0)
+                    check(plan.vec16 == (rank * vt.element_size() % 16 == 0),
+                          f"{tag}: staging branch {plan.staging}")
+                    check(B > 64 or -(-B // plan.qb) * plan.splits >= n_sm,
+                          f"{tag}: {plan.splits} splits leave SMs idle")
+                    ms = median_ms(call, 10)
+                    dev_ms = queued_ms(call, 20)
+                    scan_ms, merge_ms = kernel_ms(
+                        call, 5, ("fused_topk_kernel", "merge_topk_kernel"))
+                    plain_ms = median_ms(lambda: fused_topk_reference(
+                        ut, idx, vt, us, vs, k=k, n_items=N_ITEMS), 3)
+                    uq, vq = U64[idx.long()].float(), V64.float()
+                    lib_ms = median_ms(
+                        lambda: torch.topk(torch.matmul(uq, vq.T), k), 5)
+                    b_ms, b_by = bound(wire, B, k, N_ITEMS, rank)
+                    print(f"phase kernel: fused_topk {tag} "
+                          f"splits={plan.splits} queries_per_block={plan.qb} "
+                          f"staging={plan.staging} "
+                          f"max_abs_err={err:.3e} ids_differing={diff} "
+                          f"ms={ms:.4f} queued_ms={dev_ms:.4f} "
+                          f"scan_ms={scan_ms:.4f} merge_ms={merge_ms:.4f} "
+                          f"plain_ms={plain_ms:.4f} "
+                          f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} "
+                          f"bound_by={b_by}", flush=True)
+                    if (wire, rank, B, k) == ("int8", RANK, BATCH, 16):
+                        # the shape the serving path's batch sweep gives it
+                        row = {"max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "library_ms": lib_ms}
+                    if (wire, rank, B, k) == ("int8", RANK, 1, 16):
+                        check(plan.splits >= n_sm, f"{tag}: {plan.splits} "
+                              f"splits at B = 1 on {n_sm} SMs")
 
     # base != 0: ids offset by base, items at or past n_items masked
     ut, vt = wires["f32"][:2]
@@ -585,7 +662,9 @@ def phase_train_kernel(packed, params, dev) -> tuple:
              for w in ("f32", "bf16")}
     systems = {}
     table_block = None  # the user L = 512 block, for the gram-table phase
-    named = {("user", 32), ("user", 512), ("item", 131072)}
+    named = {("user", 32), ("user", 512), ("item", 65536), ("item", 131072)}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = {}  # the first block of each named shape, for the rank-10 run
     for side, h, table in (("user", packed.user_h, V0),
                            ("item", packed.item_h, U0)):
         As, bs = [], []
@@ -617,7 +696,22 @@ def phase_train_kernel(packed, params, dev) -> tuple:
                         and table_block is None:  # the 8,192-row block
                     table_block = (tab, idx, wa, wb, rows)
                 if (side, L) in named:
-                    print(f"phase train-kernel: {tag} max_abs_err={err:.3e} "
+                    small.setdefault((side, L), (idx, wa, wb))
+                    plan = fg.gram_plan(B, L, r, tab.element_size(), n_sm,
+                                        tab.data_ptr() % 16 == 0)
+                    check(plan.vec16, f"{tag}: staging {plan.staging}")
+                    if L >= 65536:
+                        check(B * plan.splits >= n_sm, f"{tag}: "
+                              f"{plan.splits} L-splits leave SMs idle")
+                    if L == 131072:
+                        A2, b2 = fg.fused_gram(tab, idx, wa, wb)
+                        check(torch.equal(A, A2) and torch.equal(b, b2),
+                              f"{tag}: two runs differ in a bit")
+                        check(torch.equal(A, A.transpose(1, 2)),
+                              f"{tag}: A is not exactly symmetric")
+                        del A2, b2
+                    print(f"phase train-kernel: {tag} L_splits={plan.splits} "
+                          f"staging={plan.staging} max_abs_err={err:.3e} "
                           f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
                           f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} "
                           f"bound_by={b_by}", flush=True)
@@ -638,6 +732,27 @@ def phase_train_kernel(packed, params, dev) -> tuple:
               f"library_ms={t['library_ms']:.3f} bound_ms={t['bound_ms']:.4f} "
               f"(bytes-bound calls {t['by']['bytes']:.4f}, operations-bound "
               f"calls {t['by']['operations']:.4f})", flush=True)
+    # the shipped engine.json's rank: 40-byte f32 rows, 20-byte bf16 rows
+    rng10 = np.random.default_rng(10)
+    for (side, L), (idx, wa, wb) in sorted(small.items()):
+        m = (V0 if side == "user" else U0).shape[0]
+        t10 = torch.from_numpy(rng10.standard_normal(
+            (m, 10), dtype=np.float32)).to(dev)
+        for wire, tab in (("f32", t10), ("bf16", t10.bfloat16())):
+            plan = fg.gram_plan(idx.shape[0], L, 10, tab.element_size(), n_sm)
+            check(not plan.vec16, f"rank 10 {wire}: staging {plan.staging}")
+            A, b = fg.fused_gram(tab, idx, wa, wb)
+            torch.cuda.synchronize()
+            Ar, br = fg.fused_gram_reference(tab, idx, wa, wb)
+            tag = (f"fused_gram {side} {wire} rank 10 B={idx.shape[0]} "
+                   f"L={L}")
+            err = check_gram(tag, A, b, Ar, br, tab, wa, wb)
+            del Ar, br
+            ms = median_ms(lambda: fg.fused_gram(tab, idx, wa, wb), 5)
+            print(f"phase train-kernel: {tag} L_splits={plan.splits} "
+                  f"staging={plan.staging} max_abs_err={err:.3e} "
+                  f"ms={ms:.4f}", flush=True)
+    del small
     f32 = total["f32"]
     gram_row = {"max_abs_err": f32["err"], "ms": f32["ms"],
                 "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -898,12 +1013,14 @@ def profile_device(label: str, fn) -> tuple:
           f"busy_share={total / wall_ms:.5f} idle_share="
           f"{1 - total / wall_ms:.5f} | {top}", flush=True)
     out = {"wall_ms": wall_ms, "device_ms": total}
-    # each wrapper by its kernel's name in the trace (fused_gram launches
-    # gram_tile.cuh's gram_rows_kernel)
-    for key, kernel in (("fused_gram", "gram_rows_kernel"),
-                        ("chol_solve", "chol_solve_kernel"),
-                        ("fused_topk", "fused_topk_kernel")):
-        out[key] = sum(ms for ms, name in rows if kernel in name)
+    # each wrapper by its kernels' names in the trace (fused_gram launches
+    # gram_tile.cuh's gram_rows_kernel and, for split rows, sum_partials)
+    for key, kernels in (("fused_gram", ("gram_rows_kernel", "sum_partials")),
+                         ("chol_solve", ("chol_solve_kernel",)),
+                         ("fused_topk", ("fused_topk_kernel",
+                                         "merge_topk_kernel"))):
+        out[key] = sum(ms for ms, name in rows
+                       if any(k in name for k in kernels))
     return result, out
 
 

@@ -7,7 +7,7 @@
 //
 // What it computes, for each row i of a [B, L] history block:
 //   f_l   = table[idx[i, l]]              (f32, or the bf16 shadow upcast
-//                                          to f32 right after the load)
+//                                          to f32 after the load)
 //   A[i]  = sum_l wa[i, l] * f_l f_l^T    [r, r] f32
 //   b[i]  = sum_l wb[i, l] * f_l          [r]    f32
 // Padding slots carry w = 0 and a valid index; they are multiplied like
@@ -15,33 +15,39 @@
 // [0, m) reads nothing and counts as a zero row. The [B, L, r] gather
 // never exists in device memory: only A and b are written.
 //
-// What bounds it: the products, with the bytes close behind. Per slot it
-// does 2*r*r + 2*r operations (8.3 kFLOP at r = 64) and reads 12 B of
-// index and weights; the gathered rows come from a table read once (6.8
-// MB of items, 35 MB of users at r = 64: both fit the 50 MB L2), and each
-// row writes (r*r + r) * 4 B of A and b (16.6 KB). At the 67 TFLOP/s
-// f32 CUDA-core peak and 3.35 TB/s (~20 operations per byte) the
-// operations bound rows longer than ~40 slots and writing A bounds the
-// shorter ones. At ML-20M width one iteration is ~58 M slots, ~480
-// GFLOP: ~7 ms at peak, almost all of it operations.
+// What bounds it on this card: the products. Per slot the symmetric A
+// needs r(r+1)/2 multiply-adds, wa * f and b another 2r (r*r + 4r
+// operations, 4.4 k at r = 64) against 12 B of index and weights; the
+// gathered rows come from a table read once (6.8 MB of items, 35 MB of
+// users at r = 64: both fit the 50 MB L2), and each row writes (r*r + r)
+// * 4 B of A and b (16.6 KB). At the 67 TFLOP/s f32 CUDA-core peak and
+// 3.35 TB/s the operations bound rows longer than ~40 slots and writing A
+// the shorter ones. One ML-20M iteration is ~58 M slots: ~4 ms at peak.
+// wa * f must stay f32 (wa = alpha * rating for implicit feedback), so
+// tensor cores are out on both wires: bf16 x bf16 products are exact in
+// f32, but (wa * f) is no bf16 value.
 //
-// What the design does about it:
-// - One block owns one row i and loops over its history in chunks of
-//   kChunk slots staged in shared memory (the loop inside the block takes
-//   the place of the TPU kernel's sequential grid over history chunks).
-//   The row's tile (gram_tile.cuh, shared with gram_table.cu) keeps A in
-//   registers as a 16 x 16 grid of TT x TT tiles, TT = ceil(r / 16).
-// - The longest rows run on one SM each: the item side's top bucket at
-//   ML-20M is L = 131,072 (15 rows), ~1 GFLOP each, so that launch keeps
-//   15 of 132 SMs busy for 15.7 ms (chip_smoke.py on an H100 80GB HBM3 at
-//   700 W), over a quarter of the kernel's time in an iteration.
-//   Splitting L across blocks (partial Gramians and a second pass) is left
-//   for later.
+// What the design does about it (the tile and its pipeline are
+// gram_tile.cuh, shared with gram_table.cu):
+// - The grid is rows x L-splits. ops/fused_gram.py::gram_plan picks the
+//   split count from B and L: many short rows stay one block a row, a few
+//   long rows (the item side's L = 131,072 bucket is 15 rows) are cut
+//   into ranges of slots so that every SM has blocks. Partial A and b go
+//   to a scratch [B, splits, r*r + r] that the wrapper allocated and a
+//   second pass adds them in the order of the splits: no atomicAdd, so
+//   training gives the same factors run after run.
+// - Only the lower triangle of A is multiplied, 4 x 4 blocks in
+//   registers, two 16-byte shared-memory reads for 16 FMAs a slot; the
+//   mirror is written on the way out.
+// - Rows are gathered by 16-byte cp.async copies into two buffers, chunk
+//   c + 1 in flight while chunk c is multiplied; rows that are not whole
+//   16-byte pieces (rank 10) take the element-wise branch of the same
+//   loop.
 // - A at r = 128 over 138,493 rows is 2.27 G elements, past 2^31: every
 //   output offset is 64-bit.
-// Left for later: cp.async / TMA double-buffered row gathers, and the
-// products on tensor cores -- bf16 x bf16 products are exact in f32, so
-// the bf16 wire can take wgmma with f32 accumulation unchanged.
+// Still left: the Gramian fused with the solve that follows it (A would
+// never reach device memory), TMA gathers, and a tensor-core path for
+// explicit feedback alone (wa in {0, 1}).
 
 #include "gram_tile.cuh"
 
@@ -49,8 +55,8 @@ namespace {
 
 template <typename T>
 int launch(int device, const void* table, const void* idx, const void* wa,
-           const void* wb, int B, int L, int m, int r, void* A, void* b,
-           void* stream) {
+           const void* wb, int B, int L, int m, int r, int splits, int vec16,
+           void* scratch, void* A, void* b, void* stream) {
   if (B < 0 || L < 0 || m < 1 || r < 1 || r > gram_tile::kMaxRank) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -58,7 +64,7 @@ int launch(int device, const void* table, const void* idx, const void* wa,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(gram_tile::launch_rows<T>(
-      table, idx, wa, wb, B, L, m, r, A, b,
+      table, idx, wa, wb, B, L, m, r, splits, vec16, scratch, A, b,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -66,12 +72,17 @@ int launch(int device, const void* table, const void* idx, const void* wa,
 
 // C entry points, one per table type. table [m, r], idx/wa/wb [B, L]
 // (contiguous, int32 / f32 / f32), A [B, r, r] and b [B, r] f32 outputs.
-// Pointers and the stream are passed as addresses. Returns a cudaError_t.
+// splits (ranges a row's slots are cut into) and vec16 (16-byte
+// asynchronous gathers) are ops/fused_gram.py::gram_plan's; scratch [B,
+// splits, r*r + r] f32 is read and written only when splits > 1. Pointers
+// and the stream are passed as addresses. Returns a cudaError_t.
 #define FUSED_GRAM_ENTRY(NAME, T)                                           \
   extern "C" int NAME(int device, const void* table, const void* idx,       \
                       const void* wa, const void* wb, int B, int L, int m,  \
-                      int r, void* A, void* b, void* stream) {              \
-    return launch<T>(device, table, idx, wa, wb, B, L, m, r, A, b, stream); \
+                      int r, int splits, int vec16, void* scratch, void* A, \
+                      void* b, void* stream) {                              \
+    return launch<T>(device, table, idx, wa, wb, B, L, m, r, splits, vec16, \
+                     scratch, A, b, stream);                                \
   }
 
 FUSED_GRAM_ENTRY(fused_gram_f32, float)

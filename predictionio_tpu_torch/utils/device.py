@@ -7,12 +7,17 @@ asked for by name (the tests do, to run the kernels' plain versions).
 
 from __future__ import annotations
 
+import functools
 import subprocess
 from typing import Union
 
 import torch
 
 DeviceLike = Union[None, str, torch.device]
+
+#: SMs of an H100 SXM: what the kernels' launch plans assume where no
+#: card is at hand (the wrappers plan with the card's own count)
+H100_SMS = 132
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -31,6 +36,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: cuda or cpu")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index`` (what
+    the kernels' launch plans fill)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def card_info(device: DeviceLike = None) -> dict:

@@ -9,6 +9,8 @@ upcast before every product. The CUDA kernel itself is held against the
 plain version on the card by ``chip_smoke.py``.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -162,18 +164,23 @@ def test_rank_limit_routes_auto_and_refuses_fused():
 
 def test_kernel_source_agrees_with_wrapper():
     """The .cu rank limit and C entry points are the ones the wrapper
-    checks and binds; every output offset is 64-bit."""
-    import re
-
+    checks and binds; every output offset is 64-bit; gathers are
+    asynchronous 16-byte copies and no sum is atomic."""
     src = "".join((_build.CSRC / name).read_text()
                   for name in ("fused_gram.cu", "gram_tile.cuh"))
-    tile = int(re.search(r"kMaxTile = (\d+)", src).group(1))
-    grid = int(re.search(r"kGrid = (\d+)", src).group(1))
-    assert tile * grid == fg.FUSED_GRAM_MAX_RANK
+    tile = int(re.search(r"kTile = (\d+)", src).group(1))
+    side = int(re.search(r"kMaxSide = (\d+)", src).group(1))
+    assert tile * side == fg.FUSED_GRAM_MAX_RANK
+    assert int(re.search(r"kChunk = (\d+)", src).group(1)) == fg.GRAM_CHUNK
+    # a thread per lower-triangle block of A and per 4 entries of b
+    threads = int(re.search(r"kMaxThreads = (\d+)", src).group(1))
+    assert side * (side + 1) // 2 + side <= threads <= 1024
+    assert threads % 32 == 0
     for name in fg._ENTRY.values():
         assert f"FUSED_GRAM_ENTRY({name}," in src
     assert '#include "gram_tile.cuh"' in src
     assert "row * (size_t)r * (size_t)r" in src
+    assert "cp.async.cg.shared.global" in src and "atomicAdd(" not in src
     assert "cublas" not in src.lower() and "#include <cu" in src
 
 
@@ -183,3 +190,88 @@ def test_argument_checks():
         fg.fused_gram(tab, idx, wa[:, :5], wb)
     with pytest.raises(ValueError, match="\\[m, r\\]"):
         fg.fused_gram(tab[0], idx, wa, wb)
+
+
+# -- the launch's host-side cut: L-splits and the staging branch ------------
+
+SMS = fg.H100_SMS
+
+
+@pytest.mark.parametrize("B,L", [(15, 131072), (52, 65536), (136, 32768),
+                                 (1, 4096), (7, 20000), (100, 16384)])
+def test_plan_splits_long_rows_to_fill_the_card(B, L):
+    plan = fg.gram_plan(B, L, 64, 4, SMS)
+    n_chunks = -(-L // fg.GRAM_CHUNK)
+    assert plan.splits > 1
+    assert plan.splits <= min(fg.GRAM_MAX_SPLITS,
+                              n_chunks // fg.GRAM_MIN_CHUNKS)
+    # at least one block an SM whenever the work allows it
+    if B * min(fg.GRAM_MAX_SPLITS, n_chunks // fg.GRAM_MIN_CHUNKS) >= SMS:
+        assert B * plan.splits >= SMS
+    assert plan.scratch_bytes == B * plan.splits * (64 * 64 + 64) * 4
+    assert plan.scratch_bytes <= fg.GRAM_SCRATCH_CAP
+
+
+@pytest.mark.parametrize("B,L", [(8192, 512), (29002, 32), (528, 131072),
+                                 (138493, 64), (3, 100), (0, 64)])
+def test_plan_keeps_one_block_a_row(B, L):
+    """Many rows fill the card alone; short rows have nothing to split."""
+    plan = fg.gram_plan(B, L, 64, 4, SMS)
+    assert plan.splits == 1 and plan.scratch_bytes == 0
+
+
+def test_plan_scratch_cap_binds_at_high_rank():
+    plan = fg.gram_plan(500, 1 << 16, 128, 4, SMS)
+    assert 1 <= plan.splits < -(-fg.GRAM_BLOCKS_PER_SM * SMS // 500) + 1
+    assert plan.scratch_bytes <= fg.GRAM_SCRATCH_CAP
+
+
+@pytest.mark.parametrize("r,itemsize,aligned,vec16", [
+    (64, 4, True, True), (64, 2, True, True), (10, 4, True, False),
+    (10, 2, True, False), (12, 4, True, True), (12, 2, True, False),
+    (8, 2, True, True), (64, 4, False, False), (1, 4, True, False)])
+def test_plan_takes_16_byte_copies_only_for_aligned_rows(r, itemsize,
+                                                         aligned, vec16):
+    plan = fg.gram_plan(100, 64, r, itemsize, SMS, aligned)
+    assert plan.vec16 is vec16
+    assert plan.staging == ("cp.async-16B" if vec16 else "element-wise")
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16"])
+@pytest.mark.parametrize("L,splits", [(33, 1), (100, 2), (257, 3),
+                                      (64, 2), (1000, 7)])
+def test_split_sum_matches_the_plain_version(wire, L, splits):
+    """Cutting a row's slots into ranges of whole chunks and adding the
+    partial sums in order is the same function (f32 sums in another
+    order: rtol 1e-5 of the sum of magnitudes)."""
+    tab, idx, wa, wb = make_problem(m=40, r=10, B=6, L=L, seed=L)
+    pt, _ = tables(tab, wire)
+    args = (pt, torch.from_numpy(idx), torch.from_numpy(wa),
+            torch.from_numpy(wb))
+    A, b = fg.split_gram_reference(*args, splits=splits)
+    Ar, br = fg.fused_gram_reference(*args)
+    fmax = float(np.abs(tab).max())
+    tolA = 1e-5 * np.abs(wa).sum(1) * fmax * fmax + 1e-30
+    tolb = 1e-5 * np.abs(wb).sum(1) * fmax + 1e-30
+    assert ((A - Ar).abs().amax(dim=(1, 2)).numpy() <= tolA).all()
+    assert ((b - br).abs().amax(dim=1).numpy() <= tolb).all()
+    if splits == 1:
+        assert torch.equal(A, Ar) and torch.equal(b, br)
+    # deterministic: the same cut gives the same bits
+    A2, b2 = fg.split_gram_reference(*args, splits=splits)
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+
+
+def test_split_covers_every_slot_once():
+    """The kernel's cut (whole chunks, range s = [s n / S, (s + 1) n / S))
+    leaves no slot out and counts none twice, ragged last chunk and all."""
+    for L in (1, 31, 32, 33, 1000, 4097):
+        n = -(-L // fg.GRAM_CHUNK)
+        for S in (1, 2, 3, min(n, 7)):
+            S = max(1, min(S, n))
+            seen = np.zeros(L, int)
+            for s in range(S):
+                lo = (s * n // S) * fg.GRAM_CHUNK
+                hi = min(((s + 1) * n // S) * fg.GRAM_CHUNK, L)
+                seen[lo:hi] += 1
+            assert (seen == 1).all(), (L, S)

@@ -224,6 +224,18 @@ class TestWrapperContract:
             == ft.TOPK_MAX_K
         assert int(re.search(r"kMaxRank = (\d+)", src).group(1)) \
             == ft.TOPK_MAX_RANK
+        for const, want in (("kMaxQB", ft.TOPK_MAX_QB),
+                            ("kMaxChunk", ft.TOPK_MAX_CHUNK),
+                            ("kMinChunk", ft.TOPK_MIN_CHUNK)):
+            assert int(re.search(rf"{const} = (\d+)", src).group(1)) == want
+        assert int(re.search(r"kEmptyId = (0x[0-9a-f]+)", src).group(1),
+                   16) == ft.EMPTY_ID
+        # tensor cores on the int8 and bf16 wires, asynchronous 16-byte
+        # tile copies, and no library or device-memory atomic in the body
+        assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+        assert "cp.async.cg.shared.global" in src
+        assert "cublas" not in src.lower() and "cutlass" not in src.lower()
         for name in ft._ENTRY.values():
             assert f"FUSED_TOPK_ENTRY({name}," in src
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
@@ -239,3 +251,164 @@ class TestWrapperContract:
     def test_build_dir_is_inside_the_checkout(self):
         root = Path(__file__).resolve().parents[1]
         assert _build.BUILD_ROOT == root / "build" / "torch_kernels"
+
+
+# -- the launch's host-side cut: catalogue splits and the staging branch ----
+
+SMS = ft.H100_SMS
+ML20M_ITEMS = 26_744
+
+
+class TestPlan:
+    @pytest.mark.parametrize("itemsize", [1, 2, 4])
+    @pytest.mark.parametrize("k", [1, 16, 128])
+    @pytest.mark.parametrize("B", [1, 2, 8, 37, 64])
+    def test_small_batches_fill_the_card(self, B, k, itemsize):
+        plan = ft.topk_plan(B, ML20M_ITEMS, 64, itemsize, k, SMS)
+        n_qblocks = -(-B // plan.qb)
+        assert n_qblocks == 1 and plan.qb % 8 == 0 and plan.qb >= B
+        # at least one block an SM: the catalogue has the tiles for it
+        assert n_qblocks * plan.splits >= SMS
+        assert plan.splits <= -(-ML20M_ITEMS // plan.chunk)
+        assert plan.kp >= k and plan.kp & (plan.kp - 1) == 0
+        assert plan.scratch_bytes == B * plan.splits * plan.kp * 8
+        assert plan.scratch_bytes <= ft.TOPK_SCRATCH_CAP
+        assert plan.smem_bytes <= ft.SMEM_LIMIT
+
+    @pytest.mark.parametrize("itemsize", [1, 2, 4])
+    @pytest.mark.parametrize("B", [64 * SMS, 64 * SMS + 1, 20_000])
+    def test_one_split_where_the_batch_fills_the_card(self, B, itemsize):
+        plan = ft.topk_plan(B, ML20M_ITEMS, 64, itemsize, 16, SMS)
+        assert plan.qb == ft.TOPK_MAX_QB
+        assert plan.splits == 1 and plan.scratch_bytes == 0
+
+    @pytest.mark.parametrize("itemsize,k", [(1, 16), (2, 16), (4, 16),
+                                            (1, 128), (4, 128)])
+    def test_a_batch_sweep_stays_one_wave(self, itemsize, k):
+        """B = 2048 is 32 query blocks: split so that every SM has a
+        block, and no more blocks than are resident at once."""
+        plan = ft.topk_plan(2048, ML20M_ITEMS, 64, itemsize, k, SMS)
+        blocks = 32 * plan.splits
+        resident = SMS * (2 if 2 * (plan.smem_bytes + 1024)
+                          <= ft.SM_SMEM else 1)
+        assert SMS - 32 < blocks <= resident
+        assert plan.scratch_bytes <= ft.TOPK_SCRATCH_CAP
+
+    @pytest.mark.parametrize("r,itemsize,aligned,vec16", [
+        (64, 1, True, True), (64, 2, True, True), (64, 4, True, True),
+        (10, 1, True, False), (10, 2, True, False), (10, 4, True, False),
+        (48, 1, True, True), (24, 1, True, False), (8, 2, True, True),
+        (12, 4, True, True), (33, 4, True, False), (64, 1, False, False)])
+    def test_16_byte_copies_only_for_aligned_rows(self, r, itemsize,
+                                                  aligned, vec16):
+        plan = ft.topk_plan(8, 1000, r, itemsize, 16, SMS, aligned)
+        assert plan.vec16 is vec16
+        assert plan.staging == ("cp.async-16B" if vec16 else
+                                "element-wise")
+
+    @pytest.mark.parametrize("itemsize", [1, 2, 4])
+    def test_wide_ranks_shrink_the_tile_not_the_limit(self, itemsize):
+        plan = ft.topk_plan(64, ML20M_ITEMS, ft.TOPK_MAX_RANK, itemsize,
+                            ft.TOPK_MAX_K, SMS)
+        assert plan.smem_bytes <= ft.SMEM_LIMIT
+        assert plan.chunk in (32, 64, 128) and plan.qb in range(8, 65, 8)
+        assert plan.smem_bytes == ft.topk_smem_bytes(
+            ft.TOPK_MAX_RANK * itemsize, plan.qb, plan.chunk,
+            ft.TOPK_MAX_K)
+
+    def test_a_tiny_catalogue_has_few_ranges(self):
+        plan = ft.topk_plan(1, 100, 16, 4, 8, SMS)
+        assert plan.splits == 1 and plan.scratch_bytes == 0
+        plan = ft.topk_plan(1, 300, 16, 4, 8, SMS)
+        assert plan.splits == 3  # one range a tile at most
+
+    def test_scratch_cap_binds(self):
+        plan = ft.topk_plan(4000, 10_000_000, 64, 1, 128, SMS)
+        assert plan.splits >= 1
+        assert plan.scratch_bytes <= ft.TOPK_SCRATCH_CAP
+
+
+def partial_topk(user_table, idx, item_table, user_scale=None,
+                 item_scale=None, base=None, *, k, n_items, splits, chunk):
+    """The first pass as the kernel cuts it: the catalogue in ``splits``
+    ranges of whole ``chunk``-row tiles, each range's best list ``[kp]``
+    from the plain version, empty slots ``(-inf, EMPTY_ID)``."""
+    kp = 1 << (k - 1).bit_length()
+    n_rows = item_table.shape[0]
+    n_chunks = -(-n_rows // chunk)
+    base = int(base or 0)
+    out_s, out_i = [], []
+    for sx in range(splits):
+        lo = (sx * n_chunks // splits) * chunk
+        hi = min(((sx + 1) * n_chunks // splits) * chunk, n_rows)
+        s, i = ft.fused_topk_reference(
+            user_table, idx, item_table[lo:hi], user_scale,
+            None if item_scale is None else item_scale.reshape(-1)[lo:hi],
+            base + lo, k=min(kp, hi - lo), n_items=n_items)
+        pad = kp - s.shape[1]
+        out_s.append(torch.nn.functional.pad(s, (0, pad),
+                                             value=float("-inf")))
+        out_i.append(torch.nn.functional.pad(i, (0, pad),
+                                             value=ft.EMPTY_ID))
+    return torch.stack(out_s, 1), torch.stack(out_i, 1)
+
+
+class TestMergePartial:
+    """The second pass's plain version against one pass over the whole
+    catalogue: exact, because (score desc, id asc) is a total order."""
+
+    @pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("k,splits,chunk,base,n_items", [
+        (8, 4, 32, None, 200), (16, 7, 16, 1000, 1150),
+        (128, 3, 32, None, 200),    # k greater than a split's rows
+        (5, 13, 16, 7, 150),        # masked tail, one tile a split
+        (32, 1, 128, None, 200)])
+    def test_matches_one_pass(self, wire, k, splits, chunk, base, n_items):
+        U, V = make_tables(seed=k + splits)
+        _, (tu, tv, tus, tvs) = wire_inputs(U, V, wire)
+        idx = torch.arange(0, 60, 3, dtype=torch.int32)
+        ps, pi = partial_topk(
+            tu, idx, tv, tus, tvs, base, k=k, n_items=n_items,
+            splits=splits, chunk=chunk)
+        kp = 1 << (k - 1).bit_length()
+        assert ps.shape == pi.shape == (20, splits, kp)
+        s, i = ft.merge_partial_topk(ps, pi, k=k)
+        rs, ri = ft.fused_topk_reference(tu, idx, tv, tus, tvs, base, k=k,
+                                         n_items=n_items)
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+
+    @pytest.mark.parametrize("k", [4, 16, 128])
+    def test_ties_across_splits_go_to_the_lower_id(self, k):
+        rng = np.random.default_rng(5)
+        U = rng.integers(-1, 2, (30, 8)).astype(np.float32)
+        V = rng.integers(-1, 2, (200, 8)).astype(np.float32)
+        tu, tv = torch.from_numpy(U), torch.from_numpy(V)
+        idx = torch.arange(30, dtype=torch.int32)
+        ps, pi = partial_topk(tu, idx, tv, base=50, k=k,
+                                           n_items=240, splits=5, chunk=32)
+        s, i = ft.merge_partial_topk(ps, pi, k=k)
+        rs, ri = ft.fused_topk_reference(tu, idx, tv, base=50, k=k,
+                                         n_items=240)
+        assert torch.equal(i, ri) and torch.equal(s, rs)
+        same = s[:, 1:] == s[:, :-1]
+        assert same.any() and bool((i[:, 1:] > i[:, :-1])[same].all())
+
+    def test_empty_slots_come_out_as_minus_inf_and_zero(self):
+        ps = torch.tensor([[[3.0, 1.0], [2.0, float("-inf")]]])
+        pi = torch.tensor([[[4, 9], [7, ft.EMPTY_ID]]], dtype=torch.int32)
+        s, i = ft.merge_partial_topk(ps, pi, k=4)
+        assert s.tolist() == [[3.0, 2.0, 1.0, float("-inf")]]
+        assert i.tolist() == [[4, 7, 9, 0]] and i.dtype == torch.int32
+
+    def test_split_ranges_cover_the_catalogue_once(self):
+        for n_rows in (1, 127, 128, 129, 26_744):
+            for chunk in (32, 128):
+                n = -(-n_rows // chunk)
+                for S in {1, min(n, 2), min(n, 5), n}:
+                    seen = np.zeros(n_rows, int)
+                    for sx in range(S):
+                        lo = (sx * n // S) * chunk
+                        hi = min(((sx + 1) * n // S) * chunk, n_rows)
+                        assert hi > lo
+                        seen[lo:hi] += 1
+                    assert (seen == 1).all(), (n_rows, chunk, S)

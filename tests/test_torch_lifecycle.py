@@ -249,6 +249,32 @@ def test_train_and_deploy_default_to_the_card(store, tmp_path, monkeypatch):
         cli.build_deploy(args, store)
 
 
+def test_run_train_and_deploy_functions_default_to_the_card(
+        store, tmp_path, monkeypatch):
+    """The functions behind the CLI, called directly: a context or a
+    server config that names no device means the card, and raises where
+    there is none; the event server needs no device at all."""
+    from predictionio_tpu_torch.server import engineserver
+    from predictionio_tpu_torch.workflow import core as wf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ingest(store, rating_events()[:120])  # the event server runs card-less
+    with open(write_variant(tmp_path, iters=1)) as f:
+        engine, ep = cli.engine_from_variant(json.load(f))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        wf.run_train(Context(_storage=store), engine, ep)
+    inst = wf.run_train(Context(device="cpu", _storage=store), engine, ep)
+    assert store.engine_instances().get(inst).status == STATUS_COMPLETED
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engineserver.deploy(Context(device="cpu", _storage=store), engine,
+                            ep)
+    srv = engineserver.deploy(
+        Context(device="cpu", _storage=store), engine, ep,
+        config=engineserver.ServerConfig(device="cpu"), host="127.0.0.1",
+        port=0)
+    srv.close()
+
+
 def test_deploy_needs_a_completed_instance(store, tmp_path):
     variant = write_variant(tmp_path)
     args = cli._parser().parse_args(["deploy", "--engine-json", variant,
