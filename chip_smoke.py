@@ -49,12 +49,20 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             named blocks run again over rank-10 tables (the shipped
             ``engine.json``'s rank: 40-byte rows, the element-wise
             branch). ``chol_solve`` solves those 138,493 user systems at
-            r = 64 (and the item systems) and synthetic SPD systems at r in
-            {10, 96, 128}: the relative residual ||Ax - b|| / (||A||_F
-            ||x|| + ||b||) <= 1e-5
-            and ||x - x_plain|| <= 1e-3 ||x_plain|| per system (f32
-            Cholesky with another order of sums); r = 136 must take the
-            plain route and launch nothing.
+            r = 64 in one launch, the item systems in one launch, the same
+            systems as training launches them (30 launches, one a row
+            block, at their own n: their sum, slowest and fastest), and
+            synthetic SPD systems at r in {10, 96, 128}, each line with its
+            launch plan (``ops/solve.py::solve_plan``), ``ms`` (one
+            event-timed call) and ``queued_ms`` (device time with the launch
+            queue kept full): the relative
+            residual ||Ax - b|| / (||A||_F ||x|| + ||b||) <= 1e-5 and ||x -
+            x_plain|| <= 1e-3 ||x_plain|| per system (f32 Cholesky with
+            another order of sums); r = 136 must take the plain route and
+            launch nothing. The lower-triangle case: the item systems and
+            the r = 10 and 128 systems with random finite values written
+            above the diagonal must give the symmetric systems' x bit for
+            bit.
 6. train  — ``Engine.train`` of the recommendation template on the card
             through a data source over the surrogate: rank 64, 10
             iterations, default ``ALSParams``, launch counts zeroed just
@@ -661,6 +669,7 @@ def phase_train_kernel(packed, params, dev) -> tuple:
                      slots=0, err=0.0, by={"bytes": 0.0, "operations": 0.0})
              for w in ("f32", "bf16")}
     systems = {}
+    blocks = {}  # each side's row blocks, the solve's launches in training
     table_block = None  # the user L = 512 block, for the gram-table phase
     named = {("user", 32), ("user", 512), ("item", 65536), ("item", 131072)}
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -724,6 +733,7 @@ def phase_train_kernel(packed, params, dev) -> tuple:
                 else:
                     del A, b
         systems[side] = (torch.cat(As), torch.cat(bs))
+        blocks[side] = list(zip(As, bs))
         del As, bs
     for wire, t in total.items():
         print(f"phase train-kernel: fused_gram {wire} one iteration "
@@ -759,12 +769,9 @@ def phase_train_kernel(packed, params, dev) -> tuple:
                 "bound_by": max(f32["by"], key=f32["by"].get),
                 "library_ms": f32["library_ms"]}
 
-    def solve_case(tag, A, b):
-        n, rr = b.shape
-        before = sv.LAUNCHES
-        x = sv.solve_spd_batch(A, b)
-        torch.cuda.synchronize()
-        launched = sv.LAUNCHES - before
+    def solve_checks(tag, A, b, x):
+        """The residual, dx and finite checks; (residual, dx, max|dx|)."""
+        rr = b.shape[1]
         xp = sv.solve_spd_reference(A, b)
         Aj = A + 1e-6 * torch.eye(rr, device=dev)
         res = ((torch.einsum("nrs,ns->nr", Aj, x) - b).norm(dim=1)
@@ -776,25 +783,89 @@ def phase_train_kernel(packed, params, dev) -> tuple:
               f"{res.max().item():.3e} > 1e-5")
         check(dx.max().item() <= 1e-3, f"{tag}: x off the plain version by "
               f"{dx.max().item():.3e} (normwise relative)")
-        err = (x - xp).abs().max().item()
+        return res.max().item(), dx.max().item(), (x - xp).abs().max().item()
+
+    def plan_text(n, rr, A):
+        if not sv.kernel_takes(A):
+            return "plan=plain"
+        p = sv.solve_plan(rr, n, n_sm, A.data_ptr() % 16 == 0)
+        return (f"plan=({p.route} R={p.rank} systems/warp="
+                f"{p.systems_per_warp} warps/block={p.warps_per_block} "
+                f"blocks={p.blocks} smem={p.smem_bytes} vec16={p.vec16})")
+
+    def solve_case(tag, A, b):
+        n, rr = b.shape
+        before = sv.LAUNCHES
+        x = sv.solve_spd_batch(A, b)
+        torch.cuda.synchronize()
+        launched = sv.LAUNCHES - before
+        res, dx, err = solve_checks(tag, A, b, x)
+        Aj = A + 1e-6 * torch.eye(rr, device=dev)
         ms = median_ms(lambda: sv.solve_spd_batch(A, b), 5)
+        q_ms = queued_ms(lambda: sv.solve_spd_batch(A, b), 10)
         plain_ms = median_ms(lambda: sv.solve_spd_reference(A, b), 2)
         lib_ms = median_ms(lambda: torch.cholesky_solve(
             b[..., None], torch.linalg.cholesky(Aj))[..., 0], 5)
         b_ms, b_by = solve_bound(n, rr)
         print(f"phase train-kernel: chol_solve {tag} n={n} r={rr} "
-              f"launched={launched} residual={res.max().item():.3e} "
-              f"dx={dx.max().item():.3e} max_abs_err={err:.3e} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.5f} bound_by={b_by}", flush=True)
-        return launched, {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": lib_ms}
+              f"launched={launched} residual={res:.3e} dx={dx:.3e} "
+              f"max_abs_err={err:.3e} ms={ms:.4f} queued_ms={q_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f} bound_by={b_by} "
+              f"{plan_text(n, rr, A)}", flush=True)
+        return launched, x, {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "library_ms": lib_ms}
 
-    launched, solve_row = solve_case("user systems", *systems["user"])
+    def lower_triangle_case(tag, A, b, x):
+        """Random finite values above the diagonal: the same x, bit for
+        bit, as the symmetric A's (the kernel reads the lower triangle
+        only)."""
+        rr = b.shape[1]
+        Au = A.clone()
+        iu = torch.triu_indices(rr, rr, 1, device=dev)
+        Au[:, iu[0], iu[1]] = torch.randn(
+            (A.shape[0], iu.shape[1]), device=dev,
+            generator=torch.Generator(dev).manual_seed(7))
+        xu = sv.solve_spd_batch(Au, b)
+        torch.cuda.synchronize()
+        res, dx, _ = solve_checks(tag + " upper random", A, b, xu)
+        check(torch.equal(xu, x), f"{tag}: random values above the diagonal "
+              f"change x (max {(xu - x).abs().max().item():.3e})")
+        print(f"phase train-kernel: chol_solve lower triangle {tag} "
+              f"n={A.shape[0]} r={rr}: x bit-identical with random values "
+              f"above the diagonal, residual={res:.3e} dx={dx:.3e}",
+              flush=True)
+
+    launched, _, solve_row = solve_case("user systems", *systems["user"])
     check(launched == 1, "the user systems did not take the kernel")
-    item_launched, item_row = solve_case("item systems", *systems["item"])
-    del systems
+    item_launched, x_item, _ = solve_case("item systems", *systems["item"])
+    check(item_launched == 1, "the item systems did not take the kernel")
+    lower_triangle_case("item systems", *systems["item"], x_item)
+    del systems, x_item
+    # the solve as training launches it: one launch a row block
+    per_launch = []
+    for side in ("user", "item"):
+        for A, b in blocks[side]:
+            n = b.shape[0]
+            before = sv.LAUNCHES
+            x = sv.solve_spd_batch(A, b)
+            torch.cuda.synchronize()
+            check(sv.LAUNCHES - before == 1,
+                  f"{side} block n={n}: did not take the kernel")
+            solve_checks(f"chol_solve {side} block n={n}", A, b, x)
+            per_launch.append(
+                (median_ms(lambda: sv.solve_spd_batch(A, b), 5), side, n,
+                 queued_ms(lambda: sv.solve_spd_batch(A, b), 10)))
+    del blocks
+    train_ms = sum(p[0] for p in per_launch)
+    slow, fast = max(per_launch), min(per_launch)
+    print(f"phase train-kernel: chol_solve as training launches it: "
+          f"{len(per_launch)} launches (one a row block, both sides) "
+          f"ms={train_ms:.4f} queued_ms={sum(p[3] for p in per_launch):.4f} "
+          f"slowest={slow[0]:.4f} ({slow[1]} n={slow[2]}) "
+          f"fastest={fast[0]:.4f} ({fast[1]} n={fast[2]}) | every launch "
+          f"within the residual and dx limits", flush=True)
     rng = np.random.default_rng(5)
     for rr in (10, 96, 128, 136):
         n = 4096 if rr <= 128 else 256
@@ -804,11 +875,16 @@ def phase_train_kernel(packed, params, dev) -> tuple:
             + 0.1 * torch.eye(rr, device=dev)
         b = torch.from_numpy(rng.standard_normal((n, rr),
                                                  dtype=np.float32)).to(dev)
-        launched, _ = solve_case(f"synthetic r={rr}", A, b)
+        launched, x, row = solve_case(f"synthetic r={rr}", A, b)
         check(launched == (1 if rr <= 128 else 0),
               f"r={rr}: {launched} launches, routed wrong")
-    per_iter = {"gram_ms": gram_row["ms"],
-                "solve_ms": solve_row["ms"] + item_row["ms"]}
+        if rr == 128:
+            check(row["ms"] < row["library_ms"], f"r=128: the kernel "
+                  f"({row['ms']:.4f} ms) is not under the library "
+                  f"({row['library_ms']:.4f} ms)")
+        if rr in (10, 128):
+            lower_triangle_case(f"synthetic r={rr}", A, b, x)
+    per_iter = {"gram_ms": gram_row["ms"], "solve_ms": train_ms}
     return gram_row, solve_row, per_iter, table_block
 
 
@@ -1016,7 +1092,8 @@ def profile_device(label: str, fn) -> tuple:
     # each wrapper by its kernels' names in the trace (fused_gram launches
     # gram_tile.cuh's gram_rows_kernel and, for split rows, sum_partials)
     for key, kernels in (("fused_gram", ("gram_rows_kernel", "sum_partials")),
-                         ("chol_solve", ("chol_solve_kernel",)),
+                         ("chol_solve", ("chol_solve_regs",
+                                         "chol_solve_smem")),
                          ("fused_topk", ("fused_topk_kernel",
                                          "merge_topk_kernel"))):
         out[key] = sum(ms for ms, name in rows

@@ -15,19 +15,40 @@ the tensors, plus the JAX package's own route by dtype and rank
 The plain version does what the TPU kernel's ``_chol_body`` does,
 including both clamps (``rsqrt(max(piv, 1e-30))`` on the pivot,
 ``max(l_kk, 1e-30)`` in each division); it is not
-``torch.linalg.cholesky``.
+``torch.linalg.cholesky``. Both read only the lower triangle of ``A``.
+
+The kernel keeps each system's chain of column steps inside one warp.
+:func:`solve_plan` chooses, from the rank and the count alone, the padded
+rank, whether the rows live in registers (rank <= 64) or in shared
+memory, how many systems a warp and warps a block take, and the shared
+memory a block needs; :func:`lane_rows` is which rows each lane of a
+system owns, the map the kernel hard-codes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
+from typing import NamedTuple, Tuple
 
 import torch
 
-#: largest rank the kernel takes: its matrix sits in shared memory
-#: (``csrc/chol_solve.cu`` kMaxRank, 66 KB at r = 128)
+from ..utils.device import H100_SMS, sm_count
+
+#: largest rank the kernel takes (``csrc/chol_solve.cu`` kMaxRank)
 CHOL_MAX_RANK = 128
+
+#: largest rank whose rows live in registers (kRegMaxRank); past it the
+#: matrix sits in shared memory
+CHOL_REG_MAX_RANK = 64
+
+#: columns a chunk of a row; one phase of the factorization is this many
+#: column steps (kChunk)
+CHOL_CHUNK = 8
+
+#: the most warps a block takes (kWarpsPerBlock)
+CHOL_WARPS_PER_BLOCK = 4
 
 #: kernel launches since the last reset (a plain count; ``chip_smoke.py``
 #: zeroes it before driving the training path and reads it after)
@@ -44,11 +65,94 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = load_library("chol_solve")
         lib.chol_solve_f32.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                                       + [ctypes.c_int] * 2
-                                       + [ctypes.c_float, ctypes.c_void_p])
+                                       + [ctypes.c_int] * 5
+                                       + [ctypes.c_longlong, ctypes.c_float,
+                                          ctypes.c_void_p])
         lib.chol_solve_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def _tri_floats(R: int) -> int:
+    """Floats of L's ``R`` rows, row ``i`` rounded up to whole 16-byte
+    words (``csrc/chol_solve.cu`` tri_offset)."""
+    return sum(-(-(i + 1) // 4) * 4 for i in range(R))
+
+
+def padded_rank(r: int) -> int:
+    """The kernel's rank for ``r``: a multiple of 16 up to 64 (rows in
+    registers), 96 or 128 past it (rows in shared memory)."""
+    if not 1 <= r <= CHOL_MAX_RANK:
+        raise ValueError(f"the kernel takes rank 1..{CHOL_MAX_RANK}, got {r}")
+    if r <= CHOL_REG_MAX_RANK:
+        return -(-r // 16) * 16
+    return 96 if r <= 96 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def lane_rows(R: int) -> Tuple[Tuple[int, ...], ...]:
+    """The rows each lane of a system owns at padded rank ``R``, by lane.
+    Rows pair from both ends of the matrix (``t`` with ``R-1-t``), so a
+    lane's rows are about ``R+1`` entries long together and every lane
+    updates one row more than another at most in any column step. Up to
+    rank 64, ``R/2`` lanes own a pair each; past it, 32 lanes own
+    ``R/32`` rows: ``t, R-1-t, 32+t, R-33-t`` (``csrc/chol_solve.cu``
+    ``slot_row``)."""
+    if R <= CHOL_REG_MAX_RANK:
+        return tuple((t, R - 1 - t) for t in range(R // 2))
+    slots = (lambda t: t, lambda t: R - 1 - t, lambda t: 32 + t,
+             lambda t: R - 33 - t)[:R // 32]
+    return tuple(tuple(f(t) for f in slots) for t in range(32))
+
+
+class SolvePlan(NamedTuple):
+    """How one launch is cut (:func:`solve_plan`)."""
+    rank: int              # padded rank R
+    route: str             # "registers" (R <= 64) or "shared"
+    lanes: int             # lanes that own rows of a system
+    systems_per_warp: int
+    warps_per_block: int
+    blocks: int
+    smem_bytes: int        # dynamic shared memory a block
+    vec16: bool            # rows loaded as 16-byte words
+
+
+@functools.lru_cache(maxsize=4096)
+def solve_plan(r: int, n: int, n_sm: int = H100_SMS,
+               aligned: bool = True) -> SolvePlan:
+    """The cut of one ``chol_solve`` launch of ``n`` systems of rank
+    ``r`` on a card of ``n_sm`` SMs; ``aligned`` says ``A`` starts on a
+    16-byte boundary.
+
+    Rows in registers take ``R/2`` lanes a system, so a warp holds
+    ``32 / pow2(R/2)`` systems, and up to :data:`CHOL_WARPS_PER_BLOCK`
+    warps a block: fewer where the systems would not give every SM a
+    block. Each system keeps two multiplier vectors of ``R + CHOL_CHUNK``
+    floats and, for the backward sweep, the rows of L (row ``i`` rounded
+    up to whole 16-byte words) in shared memory. Past rank 64 a system's
+    matrix takes ``R x (R+4)`` floats of shared memory and two multiplier
+    vectors of ``R``: one warp a block. Rows load as 16-byte words where
+    every row starts on 16 bytes."""
+    R = padded_rank(r)
+    lanes = len(lane_rows(R))
+    if R <= CHOL_REG_MAX_RANK:
+        route = "registers"
+        per_warp = 32 // _pow2ceil(lanes)
+        warp_floats = per_warp * (2 * (R + CHOL_CHUNK) + _tri_floats(R))
+        warps = -(-n // per_warp)
+        wpb = max(1, min(CHOL_WARPS_PER_BLOCK, warps // n_sm))
+    else:
+        route = "shared"
+        per_warp = 1
+        warp_floats = R * (R + 4) + 2 * R
+        wpb = 1
+    return SolvePlan(R, route, lanes, per_warp, wpb,
+                     -(-n // (per_warp * wpb)), wpb * warp_floats * 4,
+                     aligned and r % 4 == 0)
 
 
 def _check_args(A, b):
@@ -94,9 +198,12 @@ def solve_spd_batch(A: torch.Tensor, b: torch.Tensor,
     x = torch.empty((n, r), dtype=torch.float32, device=dev)
     if n == 0:
         return x.reshape(*lead, r)
+    plan = solve_plan(r, n, sm_count(dev.index), A2.data_ptr() % 16 == 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_lib().chol_solve_f32(dev.index, A2.data_ptr(),
                                        b2.data_ptr(), x.data_ptr(), n, r,
+                                       plan.rank, plan.warps_per_block,
+                                       int(plan.vec16), plan.smem_bytes,
                                        float(jitter), stream)
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: CUDA error "
@@ -111,7 +218,10 @@ def solve_spd_reference(A: torch.Tensor, b: torch.Tensor,
     """The plain version, batched over every leading axis: the TPU
     kernel's in-place right-looking Cholesky (pivot clamped before the
     rsqrt), right-looking forward substitution and left-looking backward
-    substitution, each division clamped. Computes in f32 (the kernel's
+    substitution, each division clamped. Only the lower triangle of
+    ``A`` reaches ``x``: an entry above the diagonal is only ever
+    multiplied by an exact zero, so any finite values there leave ``x``
+    as it is. Computes in f32 (the kernel's
     scratch type), or f64 for f64 input, and returns ``b``'s dtype."""
     r = A.shape[-1]
     lead = A.shape[:-2]
