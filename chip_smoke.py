@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and ``pio`` lifecycle paths
-once on the CUDA card and check them.
+"""Drive the PyTorch port's serving, training, ``pio`` lifecycle and
+streaming fold-in paths once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -58,8 +58,10 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             queue kept full): the relative
             residual ||Ax - b|| / (||A||_F ||x|| + ||b||) <= 1e-5 and ||x -
             x_plain|| <= 1e-3 ||x_plain|| per system (f32 Cholesky with
-            another order of sums); r = 136 must take the plain route and
-            launch nothing. The lower-triangle case: the item systems and
+            another order of sums); r = 136 must take the library route
+            (``cholesky_ex`` + ``cholesky_solve``) and launch nothing, its
+            time printed beside the library call's and the plain loop's.
+            The lower-triangle case: the item systems and
             the r = 10 and 128 systems with random finite values written
             above the diagonal must give the symmetric systems' x bit for
             bit.
@@ -76,6 +78,16 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the ``Engine.train`` window (read, pack and 10 iterations,
             synchronized) per iteration beside the median of isolated,
             synchronized iterations from the initial factors.
+6b. stream-kernel — ``models.als.fold_in_rows`` on the card against phase
+            6's trained item table (f32, and its int8 serving table), B in
+            {64, 2048} touched rows with histories of L = 512 from
+            ``--seed``, explicit and implicit (with a cached
+            ``fixed_gramian``), each held against the same call on CPU
+            copies (the plain versions): |x - x_cpu| <= 1e-4 + 1e-3
+            |x_cpu|. Prints the event-timed call, the device time of
+            ``fused_gram`` and ``chol_solve`` from a ``torch.profiler``
+            trace beside their bounds, and each kernel's launches
+            (checked positive).
 7. gram-table — ``gram_table`` (no path of the system launches it) held
             against its plain version with phase 5's tolerance at two
             shapes: a 512 x 64 f32 table (in shared memory), B = 8,192,
@@ -102,9 +114,33 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             checked against the plain top-k (``fused_topk`` count
             positive). The whole phase runs under ``torch.profiler``,
             which gives the device's busy and idle share.
+9. stream — streaming fold-in on phase 8's store and model: the stream
+            cursor set where the trained log ends, ``cli deploy --batching
+            --stream --stream-app MyApp1 --stream-max-events 512
+            --stream-interval-ms 100``, and 3 bursts of 512 ``rate``
+            events (448 from 32 users of the store on new items, drawn by
+            the store's item popularity and rating histogram; 48 from 4
+            cold users, 12 of their real surrogate ratings each; 16 on 2
+            item ids new in the burst), each one npz column block through
+            the event server, each after the previous pass applied. One
+            line a pass: its events and rows, the trainer's pass time split
+            into history reads, ``fold_in_rows`` and apply (the fold-in's
+            own functions, wrapped here), event to servable (the block's
+            201 to the first ``/queries.json`` answer served from the new
+            rows) and the pass's launches. Checks: every touched user's
+            row against a float64 solve of its store history (the most
+            recent 512) on the bound item table within 1e-3 relative;
+            untouched rows and the model bound before the first pass bit
+            for bit; the cold users' answers against the plain top-k;
+            ``n_items`` grown by 6; ``/stream.json`` 3 applies, 0 canary
+            rejects, cursor lag 0; stop, then start with the same consumer
+            consuming 0; no trainer thread after ``close()``. The launch
+            counts are zeroed just before the bursts and read just after
+            (``fused_gram``, ``chol_solve``, ``fused_topk`` positive).
 
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
-launches) and, last, ``{"ok": true, "device": {...}}``.
+launches on the main path and on the stream path) and, last, ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -786,8 +822,9 @@ def phase_train_kernel(packed, params, dev) -> tuple:
         return res.max().item(), dx.max().item(), (x - xp).abs().max().item()
 
     def plan_text(n, rr, A):
-        if not sv.kernel_takes(A):
-            return "plan=plain"
+        route = sv.solve_route(A.dtype, rr, A.device.type)
+        if route != "kernel":
+            return f"route={route}"
         p = sv.solve_plan(rr, n, n_sm, A.data_ptr() % 16 == 0)
         return (f"plan=({p.route} R={p.rank} systems/warp="
                 f"{p.systems_per_warp} warps/block={p.warps_per_block} "
@@ -878,6 +915,13 @@ def phase_train_kernel(packed, params, dev) -> tuple:
         launched, x, row = solve_case(f"synthetic r={rr}", A, b)
         check(launched == (1 if rr <= 128 else 0),
               f"r={rr}: {launched} launches, routed wrong")
+        if rr > 128:
+            check(sv.solve_route(A.dtype, rr, "cuda") == "library",
+                  f"r={rr}: not the library route")
+            print(f"phase train-kernel: chol_solve r={rr} takes the library "
+                  f"route (cholesky_ex + cholesky_solve): route ms="
+                  f"{row['ms']:.4f} library_ms={row['library_ms']:.4f} "
+                  f"plain loop ms={row['plain_ms']:.4f}", flush=True)
         if rr == 128:
             check(row["ms"] < row["library_ms"], f"r=128: the kernel "
                   f"({row['ms']:.4f} ms) is not under the library "
@@ -1056,7 +1100,8 @@ def phase_train(data, dev) -> dict:
         srv.close()
     print(f"phase train deploy: {len(queries)} /queries.json answers "
           f"checked on the trained model, servingQuant={quant}", flush=True)
-    return {"launches": launches, "iter_s": iter_s, "breakdown": breakdown}
+    return {"launches": launches, "iter_s": iter_s, "breakdown": breakdown,
+            "item_factors": model.item_factors}
 
 
 def profile_device(label: str, fn) -> tuple:
@@ -1237,6 +1282,71 @@ def phase_gram_table(seed: int, table_block, dev) -> dict:
 
 
 #: the lifecycle's subset of the surrogate: every rating of 1 user in 10
+#: fold-in blocks of phase stream-kernel: touched rows, history width
+STREAM_BLOCKS = ((64, 512), (2048, 512))
+
+
+def phase_stream_kernel(item_factors, seed: int, dev) -> dict:
+    """``fold_in_rows`` on the card against the trained item table (f32,
+    and its int8 serving table), explicit and implicit with a cached
+    ``G``, each held against the same call on CPU copies (the plain
+    versions): |x - x_cpu| <= 1e-4 + 1e-3 |x_cpu|."""
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import solve as sv
+
+    V = item_factors.contiguous()
+    n_rows, r = V.shape
+    qd, qs = als._quantize_rows(V.cpu().numpy(), "int8")
+    tables = {"f32": V, "int8": als.QuantizedFactors(qd, qs, "int8").to(dev)}
+    rng = np.random.default_rng(seed + 6)
+    out = {"fused_gram": 0, "chol_solve": 0}
+    for B, L in STREAM_BLOCKS:
+        idx = rng.integers(0, n_rows, size=(B, L)).astype(np.int32)
+        val = (rng.integers(1, 11, size=(B, L)) / 2).astype(np.float32)
+        cnt = rng.integers(L // 2, L + 1, size=B).astype(np.int32)
+        cnt[0] = L
+        for kind in ("explicit", "implicit"):
+            params = als.ALSParams(rank=r, implicit_prefs=kind == "implicit")
+            for wire, table in tables.items():
+                cpu = table.to(torch.device("cpu")) \
+                    if isinstance(table, als.QuantizedFactors) else table.cpu()
+                G = als.fixed_gramian(table, params)
+                G_cpu = als.fixed_gramian(cpu, params)
+
+                def call():
+                    return als.fold_in_rows(table, idx, val, cnt, params, G=G)
+
+                before = (fg.LAUNCHES, sv.LAUNCHES)
+                x = call()
+                launched = (fg.LAUNCHES - before[0], sv.LAUNCHES - before[1])
+                check(launched[0] > 0 and launched[1] > 0,
+                      f"fold-in B={B}: launches fused_gram={launched[0]} "
+                      f"chol_solve={launched[1]}")
+                xp = als.fold_in_rows(cpu, idx, val, cnt, params, G=G_cpu)
+                err = np.abs(x - xp)
+                tag = f"fold_in_rows {kind} {wire} B={B} L={L}"
+                check(bool(np.isfinite(x).all()), f"{tag}: non-finite rows")
+                check(bool((err <= 1e-4 + 1e-3 * np.abs(xp)).all()),
+                      f"{tag}: rows off the CPU copies by {err.max():.3e}")
+                ms = median_ms(call, 5)
+                g_ms, p_ms, c_ms, s_ms = kernel_ms(
+                    call, 3, ("gram_rows_kernel", "sum_partials",
+                              "chol_solve_regs", "chol_solve_smem"))
+                gb, gby = gram_bound(B, L, min(n_rows, B * L), r, "f32")
+                sb, sby = solve_bound(B, r)
+                print(f"phase stream-kernel: {tag} launched fused_gram="
+                      f"{launched[0]} chol_solve={launched[1]} max_abs_err="
+                      f"{err.max():.3e} ms={ms:.4f} (event-timed call, host "
+                      f"packing and copies included) | device fused_gram_ms="
+                      f"{g_ms + p_ms:.4f} (bound {gb:.4f} by {gby}) "
+                      f"chol_solve_ms={c_ms + s_ms:.4f} (bound {sb:.5f} by "
+                      f"{sby})", flush=True)
+                out["fused_gram"] += launched[0]
+                out["chol_solve"] += launched[1]
+    return out
+
+
 PIO_USER_STRIDE = 10
 PIO_APP = "MyApp1"
 #: rows per npz column block of the bulk ingest route
@@ -1304,7 +1414,7 @@ def id_numbers(bimap, n: int) -> np.ndarray:
     return out
 
 
-def phase_pio(data, dev) -> dict:
+def phase_pio(data, dev, home: str) -> dict:
     from predictionio_tpu_torch import cli
     from predictionio_tpu_torch.controller.context import Context
     from predictionio_tpu_torch.data.storage.base import STATUS_COMPLETED
@@ -1326,9 +1436,6 @@ def phase_pio(data, dev) -> dict:
     users, items, stars = users[keep], items[keep], stars[keep]
     n = len(users)
     root = Path(__file__).resolve().parent
-    scratch = root / "build"
-    scratch.mkdir(exist_ok=True)
-    home = tempfile.mkdtemp(prefix="pio_home_", dir=scratch)
     storage = Storage(env={"PIO_HOME": home})
     try:
         check(cli.main(["app", "new", PIO_APP], storage=storage) == 0,
@@ -1505,10 +1612,338 @@ def phase_pio(data, dev) -> dict:
               f"{np.percentile(lat, 99):.3f} fused_topk launches="
               f"{dep_launches} | instance {inst.id} {inst.status}",
               flush=True)
-        return {"gram_table_launches": launches["gram_table"]}
+        return {"gram_table_launches": launches["gram_table"],
+                "engine_json": str(engine_json), "log_end_ms": t0_ms + n}
     finally:
         storage.close()
-        shutil.rmtree(home, ignore_errors=True)
+
+
+#: the stream phase: bursts, and the events of one burst by kind
+STREAM_BURSTS = 3
+STREAM_USERS, STREAM_USER_EVENTS = 32, 14      # 448 on existing users
+STREAM_COLD, STREAM_COLD_EVENTS = 4, 12        # 48 from cold users
+STREAM_NEW_ITEMS, STREAM_NEW_ITEM_RATERS = 2, 8  # 16 on new items
+
+
+def stream_bursts(data, seed: int) -> list:
+    """The stream phase's traffic, from the surrogate: each burst is 512
+    ``rate`` events as (users, items, stars) arrays. 448 come from 32
+    users in the store (96 distinct over the bursts) on items outside
+    their history, drawn by the store's item popularity, with stars from
+    its rating histogram; 48 from 4 cold users (surrogate users with id
+    % 10 == 1: 12 of their real ratings on items in the store); 16 on 2
+    item ids new in that burst, each rated by 8 of the burst's 32
+    users."""
+    users, items, stars, _, n_items = data
+    rng = np.random.default_rng(seed + 21)
+    store = users % PIO_USER_STRIDE == 0
+    s_users, s_items, s_stars = users[store], items[store], stars[store]
+    pop = np.bincount(s_items, minlength=n_items).astype(np.float64)
+    pop /= pop.sum()
+    star_vals, star_n = np.unique(s_stars, return_counts=True)
+    star_p = star_n / star_n.sum()
+    picked = rng.choice(np.unique(s_users), STREAM_BURSTS * STREAM_USERS,
+                        replace=False)
+    cold_pool = rng.permutation(np.unique(users[users % PIO_USER_STRIDE
+                                                == 1]))
+    bursts, cold_at = [], 0
+    for b in range(STREAM_BURSTS):
+        bu, bi, bs = [], [], []
+        mine = picked[b * STREAM_USERS:(b + 1) * STREAM_USERS]
+        for u in mine:
+            seen = set(s_items[s_users == u].tolist())
+            got = []
+            while len(got) < STREAM_USER_EVENTS:
+                for i in rng.choice(n_items, 4 * STREAM_USER_EVENTS,
+                                    p=pop).tolist():
+                    if i not in seen and len(got) < STREAM_USER_EVENTS:
+                        seen.add(i)
+                        got.append(i)
+            bu += [int(u)] * STREAM_USER_EVENTS
+            bi += got
+            bs += rng.choice(star_vals, STREAM_USER_EVENTS,
+                             p=star_p).tolist()
+        taken = 0
+        while taken < STREAM_COLD:  # real ratings, on items in the store
+            u = int(cold_pool[cold_at])
+            cold_at += 1
+            rows = np.flatnonzero(users == u)
+            rows = rows[pop[items[rows]] > 0]
+            if len(rows) < STREAM_COLD_EVENTS:
+                continue
+            rows = rng.choice(rows, STREAM_COLD_EVENTS, replace=False)
+            bu += [u] * STREAM_COLD_EVENTS
+            bi += items[rows].tolist()
+            bs += stars[rows].tolist()
+            taken += 1
+        for k in range(STREAM_NEW_ITEMS):
+            raters = mine[k * STREAM_NEW_ITEM_RATERS:
+                          (k + 1) * STREAM_NEW_ITEM_RATERS]
+            bu += raters.tolist()
+            bi += [n_items + STREAM_NEW_ITEMS * b + k] * len(raters)
+            bs += rng.choice(star_vals, len(raters), p=star_p).tolist()
+        bursts.append((np.array(bu, np.int64), np.array(bi, np.int64),
+                       np.array(bs, np.float32)))
+    return bursts
+
+
+def f64_fold_check(storage, app_id, model, user_keys) -> float:
+    """Each user's bound row against a float64 solve of its normal
+    equations, built from its deduplicated store history (the most
+    recent 512, read through the columnar path, not the fold-in's) and
+    the bound item table; returns the largest normwise relative
+    difference."""
+    from predictionio_tpu_torch.data.storage.base import EventFilter
+    from predictionio_tpu_torch.models.als import dequantize_table
+
+    batch = storage.events().find_columnar(
+        app_id, None, EventFilter(entity_type="user", event_names=["rate"],
+                                  target_entity_type="item"),
+        float_props=("rating",), ordered=True, with_props=False)
+    d = batch.dicts
+    V = dequantize_table(model.item_factors).double().cpu().numpy()
+    U = dequantize_table(model.user_factors).double().cpu().numpy()
+    p = model.params
+    worst = 0.0
+    for key in user_keys:
+        code = d.entity_ids.index[key]
+        rows = np.flatnonzero(batch.entity_id == code)
+        rows = rows[np.argsort(batch.event_time[rows], kind="stable")]
+        last = {}
+        for j in rows:  # last write wins, in time order
+            item = d.target_ids.values[int(batch.target_id[j])]
+            last.pop(item, None)
+            last[item] = float(batch.float_props["rating"][j])
+        hist = list(last.items())[-512:]
+        F = V[[model.item_ids[i] for i, _ in hist]]
+        r = np.array([v for _, v in hist])
+        reg = p.reg * max(len(hist), 1) if p.scale_reg_by_count else p.reg
+        A = F.T @ F + (reg + 1e-6) * np.eye(F.shape[1])
+        x = np.linalg.solve(A, F.T @ r)
+        got = U[model.user_ids[key]]
+        worst = max(worst, float(np.linalg.norm(got - x)
+                                 / np.linalg.norm(x)))
+    return worst
+
+
+def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
+    """Streaming fold-in on the ``pio`` phase's store and model: deploy
+    with the stream trainer through the CLI, post 3 bursts of 512
+    ``rate`` events as column blocks, each after the previous pass has
+    applied, and check what the server then holds."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.event import from_millis
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.als import _table_leaves
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.streaming import EventCursor
+    from predictionio_tpu_torch.streaming import foldin
+
+    bursts = stream_bursts(data, seed)
+    storage = Storage(env={"PIO_HOME": home})
+    wrapped = {}
+    try:
+        app = storage.apps().get_by_name(PIO_APP)
+        key = storage.access_keys().get_by_app_id(app.id)[0].key
+        # the trainer's cursor starts where the trained log ends
+        cur = EventCursor(storage, app.id, "stream-trainer")
+        cur.position = from_millis(pio["log_end_ms"])
+        cur.save()
+        evs = cli.build_eventserver(cli._parser().parse_args(
+            ["eventserver", "--ip", "127.0.0.1", "--port", "0"]),
+            storage).start_background()
+        args = cli._parser().parse_args([
+            "deploy", "--engine-json", pio["engine_json"], "--ip",
+            "127.0.0.1", "--port", "0", "--batching", "--stream",
+            "--stream-app", PIO_APP, "--stream-max-events", "512",
+            "--stream-interval-ms", "100"])
+        t = time.perf_counter()
+        srv = cli.build_deploy(args, storage).start_background()
+        deploy_s = time.perf_counter() - t
+        qs = srv.query_server
+        trainer = qs.stream
+        check(trainer is not None and trainer.running,
+              "deploy --stream started no trainer")
+        base = qs.models[0]
+        U0 = _table_leaves(base.user_factors)[0].clone()
+        V0 = _table_leaves(base.item_factors)[0].clone()
+        n_users0, n_items0 = base.n_users, base.n_items
+
+        # time the pass's stages by wrapping the fold-in's own calls
+        spent = {"reads": 0.0, "solve": 0.0, "apply": 0.0}
+
+        def timed(fn, stage, sync=False):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                spent[stage] += time.perf_counter() - t0
+                return out
+            return run
+
+        for name, stage, sync in (("_entity_history", "reads", False),
+                                  ("fold_in_rows", "solve", False),
+                                  ("apply_row_updates", "apply", True),
+                                  ("extend_factor_rows", "apply", True)):
+            wrapped[name] = getattr(foldin, name)
+            setattr(foldin, name, timed(wrapped[name], stage, sync))
+        qs.apply_stream_delta = timed(qs.apply_stream_delta, "apply")
+
+        q = f"?accessKey={key}"
+        touched, cold_users = [], []
+        # -- the stream path, counted -----------------------------------
+        fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
+        t_next = pio["log_end_ms"]
+        for b, (bu, bi, bs) in enumerate(bursts):
+            for k in spent:
+                spent[k] = 0.0
+            before = (fg.LAUNCHES, sv.LAUNCHES, ft.LAUNCHES)
+            # a burst's events end now; a cursor never reads an event
+            # stamped before the last one it consumed
+            t_first = max(int(time.time() * 1000) - len(bu) + 1, t_next)
+            t_next = t_first + len(bu)
+            raw = rating_block(bu, bi, bs, t_first)
+            status, body = _http(evs.port, "POST",
+                                 f"/columnar/events.npz{q}", raw=raw)
+            t_201 = time.perf_counter()
+            check(status == 201 and body["accepted"] == len(bu),
+                  f"burst {b}: {status} {body}")
+            cold = sorted({f"u{u}" for u in
+                           bu[STREAM_USERS * STREAM_USER_EVENTS:
+                              STREAM_USERS * STREAM_USER_EVENTS
+                              + STREAM_COLD * STREAM_COLD_EVENTS]})
+            polls = 0
+            while True:
+                answer, _ = _post(srv.port, {"user": cold[0], "num": 10})
+                polls += 1
+                if len(answer["itemScores"]) == 10:
+                    break
+                check(time.perf_counter() - t_201 < 300,
+                      f"burst {b}: never servable")
+                time.sleep(0.05)
+            servable_s = time.perf_counter() - t_201
+            deadline = time.perf_counter() + 60
+            while trainer.applies < b + 1 and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            check(trainer.applies == b + 1,
+                  f"burst {b}: {trainer.applies} applies")
+            last = dict(trainer.status()["lastBatch"])
+            launched = (fg.LAUNCHES - before[0], sv.LAUNCHES - before[1],
+                        ft.LAUNCHES - before[2])
+            fold_ms = last["foldinMs"]
+            staged = sum(spent.values()) * 1e3
+            print(f"phase stream: pass {b + 1}: events={last['events']} "
+                  f"relevant={last['relevant']} usersUpdated="
+                  f"{last['usersUpdated']} usersInserted="
+                  f"{last['usersInserted']} itemsInserted="
+                  f"{last['itemsInserted']} | foldinMs={fold_ms:.1f} = "
+                  f"history reads {spent['reads'] * 1e3:.1f} (share "
+                  f"{spent['reads'] * 1e3 / fold_ms:.3f}) + fold_in_rows "
+                  f"on the card {spent['solve'] * 1e3:.1f} + apply and swap "
+                  f"{spent['apply'] * 1e3:.1f} + the rest (canary, "
+                  f"residual, cursor save) {fold_ms - staged:.1f} | "
+                  f"event_to_servable_s={servable_s:.3f} ({polls} "
+                  f"/queries.json polls) | launches fused_gram="
+                  f"{launched[0]} chol_solve={launched[1]} fused_topk="
+                  f"{launched[2]} (canary probes and the polls)", flush=True)
+            check(last["events"] == len(bu) and last["relevant"] == len(bu),
+                  f"burst {b}: the pass took {last['events']} events")
+            check(last["usersUpdated"] == STREAM_USERS
+                  and last["usersInserted"] == STREAM_COLD
+                  and last["itemsInserted"] == STREAM_NEW_ITEMS,
+                  f"burst {b}: pass {last}")
+            touched += sorted({f"u{u}" for u in bu[:STREAM_USERS
+                                                   * STREAM_USER_EVENTS]})
+            cold_users += cold
+        stream_l = {"fused_gram": fg.LAUNCHES, "chol_solve": sv.LAUNCHES,
+                    "fused_topk": ft.LAUNCHES, "gram_table": gram.LAUNCHES}
+        # ----------------------------------------------------------------
+        for name in ("fused_gram", "chol_solve", "fused_topk"):
+            check(stream_l[name] > 0,
+                  f"the stream path launched {name} no time")
+
+        model = qs.models[0]
+        worst = f64_fold_check(storage, app.id, model, touched)
+        check(worst <= 1e-3, f"a folded row is off its float64 solve by "
+              f"{worst:.3e} (normwise relative)")
+        U1 = _table_leaves(model.user_factors)[0]
+        V1 = _table_leaves(model.item_factors)[0]
+        keep = torch.ones(n_users0, dtype=torch.bool, device=dev)
+        keep[[base.user_ids[u] for u in touched]] = False
+        check(torch.equal(U1[:n_users0][keep], U0[:n_users0][keep])
+              and torch.equal(V1[:n_items0], V0[:n_items0]),
+              "a row no event touched changed")
+        check(torch.equal(_table_leaves(base.user_factors)[0], U0)
+              and torch.equal(_table_leaves(base.item_factors)[0], V0)
+              and base.n_items == n_items0 and base.n_users == n_users0
+              and len(base.user_ids) == n_users0,
+              "the model bound before the first pass was written")
+        check(model.n_items == n_items0 + STREAM_BURSTS * STREAM_NEW_ITEMS,
+              f"n_items {n_items0} -> {model.n_items}")
+        ud, us = _table_leaves(model.user_factors)
+        vd, vs = _table_leaves(model.item_factors)
+        U64 = ud.double() * (us.double() if us is not None else 1.0)
+        V64 = vd.double() * (vs.double() if vs is not None else 1.0)
+        for u in cold_users:
+            query = {"user": u, "num": 10}
+            answer, _ = _post(srv.port, query)
+            check(len(answer["itemScores"]) == 10,
+                  f"cold user {u}: {len(answer['itemScores'])} items")
+            check_answer(query, answer, ud, us, vd, vs, U64, V64,
+                         model.n_items, dev, model.user_ids, model.item_ids)
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline:
+            _, st = _http(srv.port, "GET", "/stream.json")
+            if st["cursorLag"] == 0:
+                break
+            time.sleep(0.05)
+        check(st["applies"] == STREAM_BURSTS and st["canaryRejects"] == 0
+              and st["cursorLag"] == 0,
+              f"/stream.json: applies={st['applies']} canaryRejects="
+              f"{st['canaryRejects']} cursorLag={st['cursorLag']}")
+        lineage = st["lineage"]
+        check(_http(srv.port, "POST", "/stream/stop")[0] == 200,
+              "/stream/stop refused")
+        status, _ = _http(srv.port, "POST", "/stream/start",
+                          {"appName": PIO_APP, "consumer": "stream-trainer",
+                           "intervalMs": 100})
+        check(status == 200, f"/stream/start answered {status}")
+        time.sleep(0.5)
+        _, again = _http(srv.port, "GET", "/stream.json")
+        check(again["running"] and again["eventsConsumed"] == 0
+              and again["cursor"]["consumed"]
+              == STREAM_BURSTS * len(bursts[0][0]),
+              f"a restart with the same consumer consumed "
+              f"{again['eventsConsumed']} events")
+        srv.close()
+        evs.close()
+        alive = [th.name for th in threading.enumerate()
+                 if th.name == "stream-trainer" and th.is_alive()]
+        check(not alive, f"srv.close() left {alive}")
+        print(f"phase stream: {STREAM_BURSTS} bursts of {len(bursts[0][0])} "
+              f"rate events through /columnar/events.npz on the pio store "
+              f"| deploy --stream to serving {deploy_s:.3f}s | "
+              f"{len(touched)} folded users within {worst:.3e} of their "
+              f"float64 solves, untouched rows and the first bound model "
+              f"bit-identical, {len(cold_users)} cold users answer 10 items "
+              f"each, n_items {n_items0} -> {model.n_items} | /stream.json "
+              f"applies={st['applies']} canaryRejects={st['canaryRejects']} "
+              f"cursorLag={st['cursorLag']} lineage generation="
+              f"{lineage['incrementalGeneration']} rows="
+              f"{lineage['incrementalRows']} | stop then start with the "
+              f"same consumer consumed 0 | launches on the stream path "
+              f"fused_gram={stream_l['fused_gram']} chol_solve="
+              f"{stream_l['chol_solve']} fused_topk={stream_l['fused_topk']}"
+              f" gram_table={stream_l['gram_table']}", flush=True)
+        return stream_l
+    finally:
+        for name, fn in wrapped.items():
+            setattr(foldin, name, fn)
+        storage.close()
 
 
 
@@ -1544,6 +1979,9 @@ def main(argv=None) -> int:
         del packed
     with phase("train"):
         trained = phase_train(data, dev)
+    with phase("stream-kernel"):
+        stream_kernel_l = phase_stream_kernel(trained.pop("item_factors"),
+                                              args.seed, dev)
     bd = trained["breakdown"]
     other = bd["device_ms"] - bd["fused_gram"] - bd["chol_solve"]
     print(f"phase train where the time goes, one profiled iteration ms: "
@@ -1556,28 +1994,46 @@ def main(argv=None) -> int:
     with phase("gram-table"):
         table_row = phase_gram_table(args.seed, table_block, dev)
         del table_block
-    with phase("pio"):
-        # the whole phase traced: ingest and the store read launch nothing
-        pio, _ = profile_device("phase pio profile, the whole phase",
-                                lambda: phase_pio(data, dev))
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    home = tempfile.mkdtemp(prefix="pio_home_", dir=scratch)
+    try:
+        with phase("pio"):
+            # the whole phase traced: ingest and the store read launch
+            # nothing
+            pio, _ = profile_device("phase pio profile, the whole phase",
+                                    lambda: phase_pio(data, dev, home))
+        with phase("stream"):
+            stream_l = phase_stream(data, dev, home, pio, args.seed)
+    finally:
+        shutil.rmtree(home, ignore_errors=True)
+    # launches: each kernel's main path (serving for fused_topk,
+    # training for the others); stream_launches: the stream phase's path
     kernels = [
         dict(name="fused_topk", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_topk.cu",
              replaces="predictionio_tpu/ops/fused_topk.py:97",
-             launches=launches, **row),
+             launches=launches, stream_launches=stream_l["fused_topk"],
+             **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
-             launches=trained["launches"]["fused_gram"], **gram_row),
+             launches=trained["launches"]["fused_gram"],
+             stream_launches=stream_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
-             launches=trained["launches"]["chol_solve"], **solve_row),
+             launches=trained["launches"]["chol_solve"],
+             stream_launches=stream_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
-             launches=pio["gram_table_launches"], **table_row),
+             launches=pio["gram_table_launches"],
+             stream_launches=stream_l["gram_table"], **table_row),
     ]
+    print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
+          f"{stream_kernel_l['fused_gram']} chol_solve="
+          f"{stream_kernel_l['chol_solve']}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@
     python -m predictionio_tpu_torch.cli import --app MyApp1 --input ev.jsonl
     python -m predictionio_tpu_torch.cli train --engine-json engine.json
     python -m predictionio_tpu_torch.cli deploy --engine-json engine.json \\
-        --port 8000 [--serving-quant int8] [--batching] [--model FILE]
+        --port 8000 [--serving-quant int8] [--batching] [--model FILE] \\
+        [--stream --stream-app MyApp1]
+    python -m predictionio_tpu_torch.cli stream status|start|stop \\
+        [--port 8000] [--app MyApp1]
 
 Storage is the JAX package's: ``PIO_STORAGE_*`` variables, else one
 SQLite file at ``$PIO_HOME/pio.db``. ``train`` and ``deploy`` run on the
@@ -15,6 +18,10 @@ CUDA card unless ``--device cpu`` is given; without CUDA they raise.
 ``deploy`` binds the latest COMPLETED instance of the variant's engine,
 or, with ``--model``, a file written by
 ``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``.
+With ``--stream`` a stream trainer folds the app's new events into the
+served model (not with ``--model``: it needs the storage the instance
+came from). ``stream`` drives a running engine server's trainer over
+HTTP.
 
 An ``engineFactory`` under ``predictionio_tpu.`` is read as the same path
 under ``predictionio_tpu_torch.``, so the JAX package's shipped variants
@@ -30,6 +37,8 @@ import argparse
 import importlib
 import json
 import sys
+import urllib.error
+import urllib.request
 from typing import List, Optional
 
 from .controller.context import Context
@@ -219,7 +228,14 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
     engine, engine_params = engine_from_variant(variant)
     config = ServerConfig(batching=args.batching,
                           serving_quant=args.serving_quant,
-                          device=args.device)
+                          device=args.device,
+                          streaming=args.stream,
+                          stream_app_name=args.stream_app or None,
+                          stream_interval_ms=args.stream_interval_ms,
+                          stream_max_events=args.stream_max_events,
+                          stream_consumer=args.stream_consumer,
+                          stream_drift_threshold=args.stream_drift_threshold,
+                          stream_canary_probes=args.stream_canary_probes)
     if args.model:
         from .workflow.persistence import loads_models
 
@@ -231,6 +247,71 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                   _storage=storage if storage is not None else get_storage())
     return deploy(ctx, engine, engine_params, config=config, host=args.ip,
                   port=args.port, **_engine_key(args, variant))
+
+
+def _server_call(args, path: str, method: str = "GET",
+                 body: Optional[dict] = None):
+    """One JSON call to the engine server at ``args.ip``:``args.port``."""
+    data = json.dumps(body).encode() if body is not None else (
+        b"" if method == "POST" else None)
+    req = urllib.request.Request(f"http://{args.ip}:{args.port}{path}",
+                                 data=data, method=method)
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    with opener.open(req, timeout=30) as resp:
+        return json.loads(resp.read() or b"null")
+
+
+def _call_error(e: Exception) -> str:
+    if isinstance(e, urllib.error.HTTPError):
+        try:
+            return f"{e.code}: {json.loads(e.read()).get('message', '')}"
+        except ValueError:
+            return str(e.code)
+    return str(e)
+
+
+def cmd_stream(args) -> int:
+    """Attach, stop or inspect a running engine server's stream
+    trainer."""
+    sub = args.stream_command
+    try:
+        if sub == "status":
+            payload = _server_call(args, "/stream.json")
+        elif sub == "start":
+            body = {k: v for k, v in (
+                ("appName", args.app), ("channelName", args.channel),
+                ("consumer", args.consumer),
+                ("intervalMs", args.interval_ms),
+                ("maxEvents", args.max_events),
+                ("driftThreshold", args.drift_threshold),
+                ("canaryProbes", args.canary_probes))
+                if v not in (None, "")}
+            payload = _server_call(args, "/stream/start", "POST", body)
+        else:
+            payload = _server_call(args, "/stream/stop", "POST")
+    except (urllib.error.URLError, OSError) as e:
+        _err(f"stream {sub} failed: {_call_error(e)}")
+        return 1
+    if sub == "status":
+        _out(json.dumps(payload, indent=2))
+        lin = payload.get("lineage") or {}
+        _out(f"serving: base {lin.get('baseInstanceId', '?')} "
+             f"+{lin.get('incrementalGeneration', 0)} fold-ins "
+             f"({lin.get('incrementalRows', 0)} rows), staleness "
+             f"{lin.get('stalenessSec', '?')}s")
+        if not payload.get("running"):
+            _out("Streaming trainer is OFF (stream start --app <app>, or "
+                 "deploy with --stream).")
+    elif sub == "start":
+        st = payload.get("stream") or {}
+        _out(f"Streaming trainer started (app {st.get('appName', '?')}, "
+             f"consumer {st.get('consumer', '?')}, interval "
+             f"{st.get('intervalMs', '?')}ms).")
+    else:
+        _out(payload.get("message", "Stopped."))
+        _out("The durable cursor keeps its position; a later start with "
+             "the same consumer resumes there.")
+    return 0
 
 
 def _serve(srv: AppServer, what: str, args) -> int:
@@ -300,12 +381,50 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--batching", action="store_true",
                        help="coalesce concurrent queries into batched "
                             "launches")
+        s.add_argument("--stream", action="store_true",
+                       help="streaming fold-in: a trainer tails the event "
+                            "log and folds new events into the served "
+                            "model")
+        s.add_argument("--stream-app", default="",
+                       help="app whose event log the trainer tails")
+        s.add_argument("--stream-interval-ms", type=float, default=500.0,
+                       help="poll interval; in-process ingest wakes the "
+                            "trainer at once")
+        s.add_argument("--stream-max-events", type=int, default=2048,
+                       help="events consumed per fold-in pass")
+        s.add_argument("--stream-consumer", default="stream-trainer",
+                       help="durable cursor identity")
+        s.add_argument("--stream-drift-threshold", type=float, default=1.0,
+                       help="DriftMonitor score that flags a full retrain")
+        s.add_argument("--stream-canary-probes", type=int, default=8,
+                       help="touched-user probes gating each fold-in (0 "
+                            "disables the gate)")
+
+    s = sub.add_parser("stream", help="attach, stop or inspect a running "
+                                      "engine server's stream trainer")
+    stream_sub = s.add_subparsers(dest="stream_command", required=True)
+    for name, help_ in (("start", "attach the stream trainer"),
+                        ("status", "trainer state, cursor, drift, lineage"),
+                        ("stop", "stop the trainer (the cursor stays)")):
+        c = stream_sub.add_parser(name, help=help_)
+        c.add_argument("--ip", default="127.0.0.1")
+        c.add_argument("--port", type=int, default=8000)
+        if name == "start":
+            c.add_argument("--app", default="")
+            c.add_argument("--channel", default="")
+            c.add_argument("--consumer", default="")
+            c.add_argument("--interval-ms", type=float, default=None)
+            c.add_argument("--max-events", type=int, default=None)
+            c.add_argument("--drift-threshold", type=float, default=None)
+            c.add_argument("--canary-probes", type=int, default=None)
     return p
 
 
 def main(argv: Optional[List[str]] = None,
          storage: Optional[Storage] = None) -> int:
     args = _parser().parse_args(argv)
+    if args.command == "stream":
+        return cmd_stream(args)
     storage = storage if storage is not None else get_storage()
     if args.command == "app":
         return cmd_app(args, storage)

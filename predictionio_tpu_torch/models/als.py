@@ -24,8 +24,12 @@ Serving tables may be row-quantized at deploy time (int8 with per-row
 absmax scales, or bf16) behind an NDCG@10 parity probe against the f32
 ranking (:func:`quantize_serving_model`); products always accumulate f32.
 
+Streaming fold-in (:func:`fold_in_rows` and the functional row updates
+after it) re-solves touched rows through the same :func:`_update_block`
+as training, so it launches ``fused_gram`` and ``chol_solve`` too.
+
 Not in this module yet: the split history layout, checkpoint resume,
-fold-in, sharded and replicated placement and pinned rows.
+sharded and replicated placement and pinned rows.
 """
 
 from __future__ import annotations
@@ -773,3 +777,201 @@ def als_flops_per_iter(user_h, item_h, params: ALSParams) -> int:
     return (side(user_h, _rows_padded(item_h))
             + side(item_h, _rows_padded(user_h)))
 
+
+
+# -- streaming fold-in ------------------------------------------------------
+#
+# The primitives the stream trainer (``streaming/``) folds fresh events in
+# with: per-entity regularized least-squares solves against the FIXED
+# opposite factor table, one half-iteration of ALS restricted to the
+# touched rows. Each row is re-solved from its FULL history, so folding
+# the same events in twice lands on the same row: replay after a crash is
+# idempotent.
+
+def dequantize_table(t: Table) -> torch.Tensor:
+    """An f32 view of a factor table on its own device (identity for a
+    plain f32 table): what a fold-in solves against, the values the
+    table serves."""
+    if not isinstance(t, QuantizedFactors):
+        return t
+    if t.scale is None:
+        return t.data.float()
+    return t.data.float() * t.scale
+
+
+def dedupe_pairs(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Collapse repeated ``(row, col)`` pairs to the LAST value
+    (last-write-wins, in input order). A burst of identical events must
+    not multiply a pair's weight in the normal equations: the batch
+    trainer's input is one rating per (user, item)."""
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    if len(rows) == 0:
+        return rows, cols, vals
+    # np.unique keeps the FIRST occurrence per key; index from the back
+    # so "first of reversed" is the last write
+    key = np.stack([rows[::-1], cols[::-1]], axis=1)
+    _, first_of_rev = np.unique(key, axis=0, return_index=True)
+    keep = np.sort(len(rows) - 1 - first_of_rev)
+    return rows[keep], cols[keep], vals[keep]
+
+
+def fixed_gramian(fixed: Table, params: ALSParams) -> Optional[torch.Tensor]:
+    """The implicit path's Gramian ``F^T F`` of the fixed side, for
+    callers that reuse it across fold-in micro-batches (it depends only
+    on the fixed table). ``None`` for explicit models."""
+    if not params.implicit_prefs:
+        return None
+    return gramian(dequantize_table(fixed))
+
+
+def fold_in_rows(fixed: Table, indices: np.ndarray, values: np.ndarray,
+                 counts: np.ndarray, params: ALSParams,
+                 G: Optional[torch.Tensor] = None) -> np.ndarray:
+    """Solve ``B`` rows' normal equations against the fixed opposite
+    table, on the table's device: the streaming increment. Goes through
+    :func:`_update_block`, so the fold-in shares ``fused_gram`` and
+    ``chol_solve`` (or their plain versions for a CPU table), the bf16
+    gather shadow and the explicit/implicit weights with the batch
+    trainer.
+
+    ``indices`` / ``values`` are ``[B, L]`` host histories (padding
+    slots carry any index and are masked by ``counts``). The JAX package
+    pads B and L to powers of two to reuse compilations; nothing here is
+    compiled per shape, so the arrays go to the card as they are. ``G``
+    is a precomputed :func:`fixed_gramian` (implicit only). Returns host
+    ``[B, rank]`` f32 rows."""
+    table = dequantize_table(fixed)
+    if not isinstance(table, torch.Tensor):
+        raise TypeError(f"the fixed table must be a torch tensor or "
+                        f"QuantizedFactors, got {type(fixed).__name__}")
+    indices = np.asarray(indices, dtype=np.int32)
+    values = np.asarray(values, dtype=np.float32)
+    counts = np.asarray(counts, dtype=np.int32)
+    B, L = indices.shape
+    r = table.shape[-1]
+    if B == 0:
+        return np.zeros((0, r), np.float32)
+    if L == 0:  # every row empty: one masked slot keeps the shapes legal
+        indices = np.zeros((B, 1), np.int32)
+        values = np.zeros((B, 1), np.float32)
+    dev = table.device
+    idx = torch.from_numpy(np.ascontiguousarray(indices)).to(dev)
+    val = torch.from_numpy(np.ascontiguousarray(values)).to(dev)
+    cnt = torch.from_numpy(counts).to(dev)
+    implicit = params.implicit_prefs
+    if implicit and G is None:
+        G = gramian(table)
+    gsrc = table.bfloat16() if params.gather_dtype == "bfloat16" else table
+    new = _update_block(gsrc, G, idx, val, cnt, params.reg, params.alpha,
+                        implicit, params.scale_reg_by_count,
+                        bf16=params.matmul_dtype == "bfloat16",
+                        gram=params.gram_mode)
+    return new.cpu().numpy().astype(np.float32, copy=False)
+
+
+def _write_rows(table: torch.Tensor, row_idx: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+    """A copy of ``table`` with ``rows`` at ``row_idx``: never a write
+    into a tensor an in-flight batch may still read."""
+    new = table.clone()
+    new.index_copy_(0, row_idx, rows.to(new.device, new.dtype))
+    return new
+
+
+def apply_row_updates(model: ALSModel, side: str, row_idx: np.ndarray,
+                      rows: np.ndarray) -> ALSModel:
+    """A NEW model with ``side``'s factor rows at ``row_idx`` replaced
+    by ``rows``: the delta the stream trainer hot-swaps into the serving
+    binding. Functional: the input model, possibly still bound and
+    serving, is never written. A quantized table re-quantizes the f32
+    rows on the way in, and its data and per-row scales swap together,
+    so a swapped row serves with its own scale."""
+    if side not in ("user", "item"):
+        raise ValueError(f"side must be 'user' or 'item', got {side!r}")
+    name = "user_factors" if side == "user" else "item_factors"
+    table = getattr(model, name)
+    row_idx = np.asarray(row_idx, dtype=np.int64)
+    rows = np.asarray(rows, dtype=np.float32)
+    if len(row_idx) == 0:
+        return model
+    data, scale = _table_leaves(table)
+    idx = torch.from_numpy(row_idx).to(data.device)
+    if isinstance(table, QuantizedFactors):
+        qd, qs = _quantize_rows(rows, table.quant)
+        new = QuantizedFactors(
+            _write_rows(data, idx, qd),
+            None if scale is None else _write_rows(scale, idx, qs),
+            table.quant)
+    else:
+        new = _write_rows(data, idx, torch.from_numpy(rows))
+    return dataclasses.replace(model, **{name: new})
+
+
+#: cold-start growth floor: a side whose table has no free padding rows
+#: grows by at least this many zero rows at once, so per-entity appends
+#: do not re-allocate the table every time
+COLD_START_GROW_MIN = 64
+
+
+def _pow2_ceil(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _grow_rows(t: torch.Tensor, n: int, fill: float) -> torch.Tensor:
+    return torch.cat([t, torch.full((n,) + tuple(t.shape[1:]), fill,
+                                    dtype=t.dtype, device=t.device)])
+
+
+def extend_factor_rows(model: ALSModel, side: str, new_keys, rows: np.ndarray
+                       ) -> ALSModel:
+    """Cold-start rows: register ``new_keys`` as new entities on
+    ``side`` with the given factor rows. Padding rows past ``n_users`` /
+    ``n_items`` are claimed first; only a full table grows, by
+    pow2-rounded chunks of at least :data:`COLD_START_GROW_MIN` zero rows
+    (scale 1 in a quantized table). Returns a new model: extended id
+    map, raised count, rows written by :func:`apply_row_updates`."""
+    from ..data.bimap import BiMap
+
+    if side not in ("user", "item"):
+        raise ValueError(f"side must be 'user' or 'item', got {side!r}")
+    new_keys = list(new_keys)
+    if not new_keys:
+        return model
+    name = "user_factors" if side == "user" else "item_factors"
+    ids_name = "user_ids" if side == "user" else "item_ids"
+    count_name = "n_users" if side == "user" else "n_items"
+    table = getattr(model, name)
+    ids = getattr(model, ids_name)
+    n_real = getattr(model, count_name)
+    rows = np.asarray(rows, dtype=np.float32)
+    if rows.shape[0] != len(new_keys):
+        raise ValueError(f"{len(new_keys)} keys but {rows.shape[0]} rows")
+    for k in new_keys:
+        if ids is not None and k in ids:
+            raise ValueError(f"{side} {k!r} already indexed; fold in "
+                             f"through apply_row_updates instead")
+    n_after = n_real + len(new_keys)
+    data, scale = _table_leaves(table)
+    capacity = int(data.shape[0])
+    if n_after > capacity:
+        grow = _pow2_ceil(max(n_after - capacity, COLD_START_GROW_MIN))
+        if isinstance(table, QuantizedFactors):
+            table = QuantizedFactors(
+                _grow_rows(data, grow, 0),
+                None if scale is None else _grow_rows(scale, grow, 1.0),
+                table.quant)
+        else:
+            table = _grow_rows(data, grow, 0)
+    fwd = dict(ids.items()) if ids is not None else {}
+    for i, k in enumerate(new_keys):
+        fwd[k] = n_real + i
+    model = dataclasses.replace(
+        model, **{name: table, ids_name: BiMap(fwd), count_name: n_after})
+    return apply_row_updates(
+        model, side, np.arange(n_real, n_after, dtype=np.int64), rows)

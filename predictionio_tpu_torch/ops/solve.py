@@ -2,15 +2,20 @@
 ``predictionio_tpu/ops/solve.py``).
 
 ``solve_spd_batch(A, b, jitter)`` solves ``(A[i] + jitter * I) x = b[i]``
-for ``A [..., r, r]``, ``b [..., r]``. The one switch is the device of
-the tensors, plus the JAX package's own route by dtype and rank
-(``solve.py:277``: non-f32 input and padded rank past 128 go to XLA):
+for ``A [..., r, r]``, ``b [..., r]``. :func:`solve_route` picks the
+route from the dtype, the rank and the device type alone, as the JAX
+package routes by dtype and rank (``solve.py:277``: non-f32 input and
+padded rank past 128 go to XLA):
 
-- CPU tensors: :func:`solve_spd_reference`, the plain column loop;
+- CPU tensors: :func:`solve_spd_reference`, the plain column loop
+  ("plain");
 - CUDA f32 tensors with ``r <= 128``: the hand-written kernel in
-  ``csrc/chol_solve.cu`` (built at first use), or the call raises;
-- CUDA tensors that are not f32, or have ``r > 128``: the plain column
-  loop on the card, where the JAX package takes XLA's ``cho_factor``.
+  ``csrc/chol_solve.cu`` (built at first use), or the call raises
+  ("kernel");
+- CUDA tensors that are not f32, or have ``r > 128``:
+  ``torch.linalg.cholesky_ex`` and ``torch.cholesky_solve`` ("library"),
+  where the JAX package takes XLA's ``cho_factor`` / ``cho_solve``. No
+  TPU kernel takes these systems, so this route stands in for none.
 
 The plain version does what the TPU kernel's ``_chol_body`` does,
 including both clamps (``rsqrt(max(piv, 1e-30))`` on the pivot,
@@ -171,6 +176,21 @@ def kernel_takes(A: torch.Tensor) -> bool:
     return A.dtype == torch.float32 and A.shape[-1] <= CHOL_MAX_RANK
 
 
+def solve_route(dtype: torch.dtype, rank: int, device_type: str) -> str:
+    """Where :func:`solve_spd_batch` sends systems of ``dtype`` and
+    ``rank`` on a device of ``device_type``: "plain" on the CPU,
+    "kernel" for CUDA f32 up to :data:`CHOL_MAX_RANK`, "library" for
+    every other CUDA system."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"solve_spd_batch runs on cuda or cpu, got "
+                         f"{device_type}")
+    if dtype == torch.float32 and rank <= CHOL_MAX_RANK:
+        return "kernel"
+    return "library"
+
+
 def solve_spd_batch(A: torch.Tensor, b: torch.Tensor,
                     jitter: float = 1e-6) -> torch.Tensor:
     """``x`` with ``(A[i] + jitter * I) x[i] = b[i]`` (module docstring
@@ -178,14 +198,11 @@ def solve_spd_batch(A: torch.Tensor, b: torch.Tensor,
     global LAUNCHES
     _check_args(A, b)
     dev = A.device
-    if dev.type == "cpu":
+    route = solve_route(A.dtype, A.shape[-1], dev.type)
+    if route == "plain":
         return solve_spd_reference(A, b, jitter)
-    if dev.type != "cuda":
-        raise ValueError(f"solve_spd_batch runs on cuda or cpu, got {dev}")
-    if not kernel_takes(A):
-        # the JAX package's XLA route (solve.py:277), taken by dtype and
-        # rank only
-        return solve_spd_reference(A, b, jitter)
+    if route == "library":
+        return solve_spd_library(A, b, jitter)
     if b.dtype != torch.float32:
         raise TypeError(f"b must be f32 with an f32 A, got {b.dtype}")
     r = A.shape[-1]
@@ -211,6 +228,20 @@ def solve_spd_batch(A: torch.Tensor, b: torch.Tensor,
     with _launch_lock:
         LAUNCHES += 1
     return x.reshape(*lead, r)
+
+
+def solve_spd_library(A: torch.Tensor, b: torch.Tensor,
+                      jitter: float = 1e-6) -> torch.Tensor:
+    """The "library" route: ``torch.linalg.cholesky_ex`` of ``A +
+    jitter * I`` (the lower triangle only, as the kernel reads it) and
+    ``torch.cholesky_solve``, unclamped like XLA's ``cho_factor``.
+    Computes in f32, or f64 for f64 input, and returns ``b``'s dtype."""
+    r = A.shape[-1]
+    dt = torch.promote_types(A.dtype, torch.float32)
+    M = A.to(dt) + jitter * torch.eye(r, dtype=dt, device=A.device)
+    L, _ = torch.linalg.cholesky_ex(M)
+    x = torch.cholesky_solve(b.to(dt)[..., None], L)[..., 0]
+    return x.to(b.dtype)
 
 
 def solve_spd_reference(A: torch.Tensor, b: torch.Tensor,

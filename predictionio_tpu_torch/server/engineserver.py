@@ -13,8 +13,17 @@ count; ``POST /stop`` shuts the server down.
 :func:`deploy` is the ``pio deploy`` flow: it binds the latest COMPLETED
 engine instance of an engine id, version and variant from the context's
 storage. :func:`deploy_models` binds models the caller already holds.
+
+Streaming fold-in: with ``ServerConfig.streaming`` (or ``POST
+/stream/start``) a :class:`~predictionio_tpu_torch.streaming.StreamTrainer`
+tails an app's event log and hot-swaps folded models into the binding
+(:meth:`QueryServer.apply_stream_delta`); ``GET /stream.json`` shows it,
+``POST /stream/stop`` stops it. It needs the storage a :func:`deploy`
+binds from.
+
 Left out (``ROADMAP.md`` queue 1): the release registry (pinned
-releases, promote, rollback, ``/reload``), so deploy never reads a pin.
+releases, promote, rollback, ``/reload``), so deploy never reads a pin;
+the serving caches, so a fold-in invalidates no cached answer.
 """
 
 from __future__ import annotations
@@ -58,6 +67,23 @@ class ServerConfig:
     serving_quant: str = "off"
     #: serving device; None is the CUDA card, "cpu" the plain versions
     device: Optional[str] = None
+    #: start a streaming trainer with the deploy: it tails
+    #: ``stream_app_name``'s event log and folds fresh events into the
+    #: bound ALS model (``POST /stream/start`` attaches one later)
+    streaming: bool = False
+    #: app whose event log the trainer tails (required when streaming)
+    stream_app_name: Optional[str] = None
+    #: poll interval between fold-in passes; in-process ingest wakes the
+    #: trainer at once through the invalidation bus
+    stream_interval_ms: float = 500.0
+    #: events per fold-in micro-batch
+    stream_max_events: int = 2048
+    #: durable cursor identity
+    stream_consumer: str = "stream-trainer"
+    #: DriftMonitor retrain trigger
+    stream_drift_threshold: float = 1.0
+    #: touched-entity probes per fold-in canary check (0 disables)
+    stream_canary_probes: int = 8
 
 
 class QueryServer:
@@ -65,10 +91,14 @@ class QueryServer:
 
     def __init__(self, engine: Engine, engine_params: EngineParams,
                  models: List[Any], config: Optional[ServerConfig] = None,
-                 instance: Optional[EngineInstance] = None):
+                 instance: Optional[EngineInstance] = None,
+                 ctx: Optional[Context] = None):
         self.engine = engine
         #: the engine instance the models came from (None: handed in)
         self.instance = instance
+        #: the deploy's context: its storage is what a stream trainer
+        #: tails (None for models handed in)
+        self.ctx = ctx
         self.config = config or ServerConfig()
         if self.config.serving_quant not in SERVING_QUANT_MODES:
             raise ValueError(
@@ -78,11 +108,19 @@ class QueryServer:
         self.card = card_info(self.device)
         self._lock = threading.Lock()
         self.request_count = 0
+        self._binds = 0
+        self.stream = None
         self._bind(engine_params, models)
         self.batcher: Optional[MicroBatcher] = None
         if self.config.batching:
             self.batcher = MicroBatcher(self, self.config.batch_window_ms,
                                         self.config.max_batch)
+        if self.config.streaming:
+            try:
+                self.start_stream()
+            except BaseException:
+                self.close()
+                raise
 
     def _bind(self, engine_params: EngineParams, models: List[Any]) -> None:
         """Bind: quantize (if asked), then place every model on the
@@ -103,6 +141,17 @@ class QueryServer:
             self.engine_params = engine_params
             self.algorithms, self.models, self.serving = \
                 algorithms, models, serving
+            # what a fold-in in flight re-checks: the instance id, or a
+            # token of this bind where models were handed in, so that a
+            # second bind voids it either way
+            self._binds += 1
+            self.binding_id = (self.instance.id if self.instance
+                               else f"bind-{self._binds}")
+            # stream lineage: a bind starts a fresh base
+            self._stream_generation = 0
+            self._stream_rows = 0
+            self._stream_last_apply: Optional[float] = None
+            self._stream_base_bound_at = time.time()
 
     def _binding(self):
         with self._lock:
@@ -174,12 +223,149 @@ class QueryServer:
                 "launches": _fused_topk.LAUNCHES}},
             "requestCount": self.request_count,
             "engineInstanceId": self.instance.id if self.instance else None,
+            "lineage": self.stream_lineage(),
+            "stream": (self.stream.status() if self.stream is not None
+                       else {"running": False}),
         }
 
     def close(self, timeout: float = 5.0) -> None:
-        """Stop the batcher's threads (queued queries still serve)."""
+        """Stop the stream trainer and the batcher's threads (queued
+        queries still serve), joining each. Idempotent."""
+        self.stop_stream()
         if self.batcher is not None:
             self.batcher.close(timeout)
+
+    # -- streaming fold-in ---------------------------------------------------
+    @property
+    def storage(self):
+        """The storage the deploy bound from: what a stream trainer
+        tails. Models handed in (:func:`deploy_models`) have none."""
+        if self.ctx is None:
+            raise ValueError(
+                "streaming needs the storage the models came from: deploy "
+                "from storage (deploy / the deploy command), not "
+                "deploy_models")
+        return self.ctx.storage
+
+    def stream_snapshot(self, algo_index: int = 0):
+        """The stream trainer's read side: ``(binding_id, model)`` of the
+        current binding, taken together under the lock, or None where the
+        model is not foldable (no id maps: not an ALS factor model). The
+        apply re-checks the id."""
+        with self._lock:
+            if not 0 <= algo_index < len(self.models):
+                return None
+            model = self.models[algo_index]
+            binding_id = self.binding_id
+        if getattr(model, "user_ids", None) is None \
+                or getattr(model, "item_ids", None) is None:
+            return None
+        return binding_id, model
+
+    def apply_stream_delta(self, algo_index: int, new_model: Any,
+                           touched_entities: List[str],
+                           base_instance_id: str,
+                           rows_updated: int = 0,
+                           rows_inserted: int = 0) -> bool:
+        """Hot-swap a fold-in delta: rebind ``models[algo_index]`` to the
+        folded model, whose tables are new tensors (the old model keeps
+        serving any batch in flight). Under the lock the base binding id
+        is re-checked: a rebind that raced the fold-in wins and this
+        returns False (the trainer's unadvanced cursor re-folds against
+        the new base). ``touched_entities`` is what a serving cache
+        would invalidate; the port has none yet."""
+        with self._lock:
+            if self.binding_id != base_instance_id:
+                return False
+            if not 0 <= algo_index < len(self.models):
+                return False
+            self.models = list(self.models)
+            self.models[algo_index] = new_model
+            self._stream_generation += 1
+            self._stream_rows += int(rows_updated) + int(rows_inserted)
+            self._stream_last_apply = time.time()
+        return True
+
+    def start_stream(self, config=None):
+        """Attach and start the stream trainer. ``config`` is a
+        :class:`~predictionio_tpu_torch.streaming.StreamConfig`; None
+        builds one from the ``ServerConfig.stream_*`` knobs. Raises
+        ``ValueError`` on a missing app or storage (a streaming deploy
+        fails fast) and ``HTTPError`` 409 when one is already running."""
+        from ..streaming import StreamConfig, StreamTrainer
+
+        with self._lock:
+            if self.stream is not None and self.stream.running:
+                raise HTTPError(
+                    409, f"streaming trainer already running (consumer "
+                         f"{self.stream.config.consumer!r}); stop it "
+                         f"first")
+        cfg = config or StreamConfig(
+            interval_ms=self.config.stream_interval_ms,
+            max_events=self.config.stream_max_events,
+            consumer=self.config.stream_consumer,
+            drift_threshold=self.config.stream_drift_threshold,
+            canary_probes=self.config.stream_canary_probes)
+        if not cfg.app_name:
+            cfg.app_name = self.config.stream_app_name or ""
+        if not cfg.app_name:
+            raise ValueError(
+                "streaming requires an app name (ServerConfig."
+                "stream_app_name, --stream-app, or the request's "
+                "appName): the app whose event log the trainer tails")
+        trainer = StreamTrainer(self, cfg)
+        with self._lock:
+            self.stream = trainer
+        trainer.start()
+        log.info("streaming trainer started (app %s, consumer %s)",
+                 cfg.app_name, cfg.consumer)
+        return trainer
+
+    def stop_stream(self, timeout: float = 10.0) -> bool:
+        """Stop, join and detach the stream trainer; False when none is
+        attached. The durable cursor stays in the event store: a later
+        start with the same consumer resumes exactly where this one
+        stopped."""
+        with self._lock:
+            trainer = self.stream
+            self.stream = None
+        if trainer is None:
+            return False
+        trainer.stop(timeout=timeout)
+        return True
+
+    def stream_lineage(self) -> dict:
+        """What blend of batch and stream is serving: the base binding,
+        how many fold-in generations sit on top of it, and how stale the
+        serving model is (seconds since it last absorbed data: the last
+        fold-in, else the base instance's end time, else the bind)."""
+        with self._lock:
+            base_id = self.binding_id
+            gen = self._stream_generation
+            rows = self._stream_rows
+            last = self._stream_last_apply
+            bound = self._stream_base_bound_at
+            trainer = self.stream
+        now = time.time()
+        trained = getattr(self.instance, "end_time", None)
+        if last is not None:
+            staleness = now - last
+        elif trained is not None:
+            try:
+                staleness = max(0.0, now - trained.timestamp())
+            except (OSError, OverflowError, ValueError):
+                staleness = now - bound
+        else:
+            staleness = now - bound
+        return {
+            "baseInstanceId": base_id,
+            "incrementalGeneration": gen,
+            "incrementalRows": rows,
+            "lastFoldInSecAgo": (round(now - last, 3)
+                                 if last is not None else None),
+            "stalenessSec": round(staleness, 3),
+            "streaming": trainer is not None and trainer.running,
+        }
 
 
 class _Submit:
@@ -292,6 +478,59 @@ def build_app(server: QueryServer) -> HTTPApp:
     def status(req: Request) -> Response:
         return json_response(server.status())
 
+    @app.route("GET", "/stream.json")
+    def stream_json(req: Request) -> Response:
+        """The stream trainer's state and the model lineage."""
+        trainer = server.stream
+        if trainer is None:
+            return json_response({
+                "running": False,
+                "lineage": server.stream_lineage(),
+                "hint": "POST /stream/start {\"appName\": ...} (or "
+                        "deploy with --stream) to attach the "
+                        "incremental trainer"})
+        return json_response({**trainer.status(),
+                              "lineage": server.stream_lineage()})
+
+    @app.route("POST", "/stream/start")
+    def stream_start(req: Request) -> Response:
+        """Attach the stream trainer to this live server: ``{"appName",
+        "channelName", "intervalMs", "maxEvents", "consumer",
+        "driftThreshold", "canaryProbes"}``, every field optional where
+        the deploy's config names the app. 409 when one is running."""
+        from ..streaming import StreamConfig
+
+        cfg = server.config
+        try:
+            body = req.json() or {}
+        except (ValueError, UnicodeDecodeError):
+            body = {}
+        try:
+            scfg = StreamConfig(
+                app_name=str(body.get("appName")
+                             or cfg.stream_app_name or ""),
+                channel_name=body.get("channelName") or None,
+                consumer=str(body.get("consumer") or cfg.stream_consumer),
+                interval_ms=float(body.get("intervalMs",
+                                           cfg.stream_interval_ms)),
+                max_events=int(body.get("maxEvents",
+                                        cfg.stream_max_events)),
+                drift_threshold=float(body.get(
+                    "driftThreshold", cfg.stream_drift_threshold)),
+                canary_probes=int(body.get("canaryProbes",
+                                           cfg.stream_canary_probes)))
+            trainer = server.start_stream(scfg)
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, str(e))
+        return json_response({"message": "Streaming trainer started.",
+                              "stream": trainer.status()})
+
+    @app.route("POST", "/stream/stop")
+    def stream_stop(req: Request) -> Response:
+        if not server.stop_stream():
+            raise HTTPError(409, "no streaming trainer is running")
+        return json_response({"message": "Streaming trainer stopped."})
+
     @app.route("POST", "/stop")
     def stop(req: Request) -> Response:
         def delayed_shutdown():
@@ -336,7 +575,9 @@ def deploy(ctx: Context, engine: Engine, engine_params: EngineParams,
     """The ``pio deploy`` flow: bind the latest COMPLETED instance of
     ``engine_id``/``engine_version``/``engine_variant`` from
     ``ctx.storage`` and return the engine server, not yet serving. Runs
-    on the card unless ``config.device`` is "cpu"."""
+    on the card unless ``config.device`` is "cpu". With
+    ``config.streaming`` the stream trainer starts with it, tailing
+    ``ctx.storage``."""
     from ..workflow import core as wf
 
     instance = wf.get_latest_completed(ctx, engine_id, engine_version,
@@ -346,5 +587,6 @@ def deploy(ctx: Context, engine: Engine, engine_params: EngineParams,
             f"No COMPLETED engine instance for {engine_id} "
             f"{engine_version} {engine_variant}; run train first.")
     models = wf.load_models_for_deploy(ctx, engine, instance, engine_params)
-    server = QueryServer(engine, engine_params, models, config, instance)
+    server = QueryServer(engine, engine_params, models, config, instance,
+                         ctx)
     return create_engine_server(server, host, port)

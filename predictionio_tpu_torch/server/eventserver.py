@@ -17,25 +17,35 @@ status codes and JSON bodies are the JAX package's:
   nothing matches;
 - ``GET`` / ``DELETE /events/<id>.json``.
 
+Every accepted ingest is published to the invalidation bus
+(``cache/bus.py``; the process-wide one unless ``bus`` is given): a
+single event on its own, a batch or a column block coalesced through one
+``publish_many``. A stream trainer in the same process wakes on it. A
+failed publish is logged and never fails the ingest.
+
 Left out (``ROADMAP.md`` queue 1): event-server plugins, webhooks,
-``/stats.json``, ``/metrics`` and trace stamping, and the serving-cache
-invalidation bus; those routes answer 404, and ``stats=True`` raises.
+``/stats.json``, ``/metrics`` and trace stamping; those routes answer
+404, and ``stats=True`` raises.
 """
 
 from __future__ import annotations
 
 import base64
+import logging
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 
+from ..cache.bus import InvalidationBus, default_bus
 from ..data.event import Event, EventValidationError, parse_iso
 from ..data.storage.base import ANY, LEFT_OUT, EventFilter
 from ..data.storage.registry import Storage, get_storage
 from ..data.storage.wire import batch_from_npz
 from .http import AppServer, HTTPApp, HTTPError, Request, Response, \
     json_response
+
+log = logging.getLogger(__name__)
 
 MAX_EVENTS_PER_BATCH = 50
 
@@ -93,11 +103,24 @@ def _parse_event(load) -> Event:
 
 
 def build_app(storage: Optional[Storage] = None, *,
-              stats: bool = False) -> HTTPApp:
+              stats: bool = False,
+              bus: Optional[InvalidationBus] = None) -> HTTPApp:
     if stats:
         raise NotImplementedError(f"/stats.json is {LEFT_OUT}")
     st = storage if storage is not None else get_storage()
+    inval_bus = bus if bus is not None else default_bus()
     app = HTTPApp("eventserver")
+
+    def _publish(app_id: int, items: List[tuple]) -> None:
+        """Best-effort bus publish of ``(entity_type, entity_id,
+        event)`` items: ingest never fails because a subscriber did."""
+        try:
+            if len(items) == 1:
+                inval_bus.publish(app_id, *items[0])
+            else:
+                inval_bus.publish_many(app_id, items)
+        except Exception as e:  # noqa: BLE001 — ingest goes on
+            log.error("invalidation publish failed: %s", e)
 
     @app.route("GET", "/")
     def index(req: Request) -> Response:
@@ -110,6 +133,8 @@ def build_app(storage: Optional[Storage] = None, *,
         if not _allowed(auth, event.event):
             return json_response({"message": _not_allowed(event.event)}, 403)
         event_id = st.events().insert(event, auth.app_id, auth.channel_id)
+        _publish(auth.app_id, [(event.entity_type, event.entity_id,
+                                event.event)])
         return json_response({"eventId": event_id}, 201)
 
     @app.route("GET", "/events.json")
@@ -183,6 +208,11 @@ def build_app(storage: Optional[Storage] = None, *,
                     results[pos] = {"status": 201, "eventId": eid}
                 except Exception as e:  # noqa: BLE001
                     results[pos] = {"status": 500, "message": str(e)}
+            accepted = [event for pos, event in valid
+                        if results[pos]["status"] == 201]
+            if accepted:
+                _publish(auth.app_id, [(e.entity_type, e.entity_id, e.event)
+                                       for e in accepted])
         return json_response(results)
 
     @app.route("POST", "/columnar/events.npz")
@@ -201,6 +231,14 @@ def build_app(storage: Optional[Storage] = None, *,
             if bad:
                 return json_response({"message": _not_allowed(bad[0])}, 403)
         n = st.events().insert_columnar(batch, auth.app_id, auth.channel_id)
+        if n:
+            # one publish of the block's unique (type, id, event) triples
+            d = batch.dicts
+            uniq = np.unique(np.stack([batch.entity_type, batch.entity_id,
+                                       batch.event], axis=1), axis=0)
+            _publish(auth.app_id, [
+                (d.entity_types.values[int(a)], d.entity_ids.values[int(b)],
+                 d.event_names.values[int(c)]) for a, b, c in uniq])
         return json_response({"accepted": int(n)}, 201)
 
     @app.route("GET", r"/events/(?P<event_id>[^/]+)\.json")
@@ -225,7 +263,8 @@ def build_app(storage: Optional[Storage] = None, *,
 
 def create_event_server(storage: Optional[Storage] = None,
                         host: str = "0.0.0.0", port: int = 7070,
-                        stats: bool = False) -> AppServer:
+                        stats: bool = False,
+                        bus: Optional[InvalidationBus] = None) -> AppServer:
     """Bind the event server (default port 7070), not yet serving: call
     ``start_background()`` or ``serve_forever()`` on it."""
-    return AppServer(build_app(storage, stats=stats), host, port)
+    return AppServer(build_app(storage, stats=stats, bus=bus), host, port)

@@ -1,0 +1,373 @@
+"""StreamTrainer: the thread that closes the event -> model loop (the port
+of ``predictionio_tpu/streaming/trainer.py``).
+
+Consumes accepted ingests behind a durable :class:`~.cursor.EventCursor`
+(the correctness path: catch-up is a cursor read, so no event is lost
+across restarts), with the :class:`~predictionio_tpu_torch.cache.bus.
+InvalidationBus` as the low-latency wake signal (the event server
+publishes every accepted ingest there). Each pass folds the pending
+micro-batch into the bound ALS model through per-entity least-squares
+solves (:mod:`.foldin` -> ``fused_gram`` and ``chol_solve`` on the card),
+canaries the folded model against the serving one with a
+:class:`~predictionio_tpu_torch.rollout.policy.HealthPolicy` probe
+(``fused_topk``), and hot-swaps it into the live ``QueryServer``
+binding through :meth:`QueryServer.apply_stream_delta`.
+
+A :class:`~.drift.DriftMonitor` watches fold-in residuals and the
+rating distribution; past its threshold it flags ``retrain_due`` and
+fires the optional ``on_retrain`` hook once per base model.
+
+Threading: ONE loop thread owns consume -> fold -> apply -> advance; the
+bus callback only sets a wake event. The apply re-checks the binding
+under the server's lock, so a rebind racing a fold-in voids the apply
+and the unadvanced cursor retries against the new base.
+
+Left out (``ROADMAP.md`` queue 1): the ``pio_stream_*`` metric families
+and the pass traces (item 10), the ``stream-*`` / ``retrain-due``
+release-history records (item 5) and the cache invalidation of touched
+entities (item 8). The counts stay as attributes and in :meth:`status`.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from ..cache.bus import InvalidationBus, default_bus
+from ..data.storage.base import StorageError
+from ..faults import FaultError, declare, fire
+from ..models.als import fixed_gramian, recommend_products
+from ..rollout.policy import ArmWindow, HealthPolicy
+from ..utils.retrying import RetryPolicy, retry_call
+from .cursor import EventCursor
+from .drift import DriftMonitor
+from .foldin import DEFAULT_EVENT_WEIGHTS, fold_in_events
+
+log = logging.getLogger(__name__)
+
+__all__ = ["StreamConfig", "StreamTrainer"]
+
+F_PASS = declare("stream.pass",
+                 "entry of one consume->fold->canary->apply->advance pass")
+
+#: transient-storage retry budget for the cursor's log reads and writes:
+#: a blip in the event store costs one short stall, not a failed pass
+_STORAGE_RETRY = RetryPolicy(max_attempts=3, base_ms=25.0, cap_ms=500.0)
+_STORAGE_ERRORS = (StorageError, FaultError, ConnectionError, OSError)
+
+
+@dataclass
+class StreamConfig:
+    """Knobs of the incremental trainer (``deploy --stream*``)."""
+
+    #: app whose event log is tailed
+    app_name: str = ""
+    channel_name: Optional[str] = None
+    #: durable cursor identity: two trainers with the same consumer name
+    #: share (and fight over) one cursor
+    consumer: str = "stream-trainer"
+    #: poll interval when no bus wake arrives (in-process ingest wakes
+    #: the loop at once)
+    interval_ms: float = 500.0
+    #: events consumed per fold-in pass
+    max_events: int = 2048
+    #: per-entity history cap at fold-in assembly (most recent kept)
+    max_history: int = 512
+    #: event -> rating projection; None is the recommendation template's
+    #: default ({"rate": None, "buy": 4.0})
+    event_weights: Optional[Dict[str, Optional[float]]] = None
+    #: DriftMonitor trigger
+    drift_threshold: float = 1.0
+    #: touched-entity probes per canary check (0 disables the gate)
+    canary_probes: int = 8
+    #: which bound algorithm the deltas apply to
+    algo_index: int = 0
+
+
+class StreamTrainer:
+    def __init__(self, server, config: Optional[StreamConfig] = None,
+                 bus: Optional[InvalidationBus] = None,
+                 policy: Optional[HealthPolicy] = None,
+                 on_retrain: Optional[Callable[[dict], None]] = None):
+        self.server = server
+        self.config = config or StreamConfig()
+        storage = server.storage
+        app_name = self.config.app_name
+        if not app_name:
+            raise ValueError("StreamConfig.app_name required (the app "
+                             "whose event log the trainer tails)")
+        app = storage.apps().get_by_name(app_name)
+        if app is None:
+            raise ValueError(f"app {app_name!r} does not exist")
+        self.storage = storage
+        self.app_id = app.id
+        self.channel_id = None
+        if self.config.channel_name:
+            chans = storage.channels().get_by_app_id(app.id)
+            match = next((c for c in chans
+                          if c.name == self.config.channel_name), None)
+            if match is None:
+                raise ValueError(
+                    f"channel {self.config.channel_name!r} does not "
+                    f"exist in app {app_name!r}")
+            self.channel_id = match.id
+        self.weights = (dict(self.config.event_weights)
+                        if self.config.event_weights
+                        else dict(DEFAULT_EVENT_WEIGHTS))
+        self.cursor = EventCursor(storage, self.app_id,
+                                  self.config.consumer, self.channel_id)
+        self.drift = DriftMonitor(threshold=self.config.drift_threshold)
+        #: probe-scale gate: one window per fold-in, judged on the probe
+        #: set; min_queries=1 so small batches still get a verdict
+        self.policy = policy or HealthPolicy(min_queries=1)
+        self.on_retrain = on_retrain
+        self._retrain_fired = False
+        self._wake = threading.Event()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._G = None          # cached implicit fixed-side Gramian
+        self._base_seen = None  # the binding the cache is for
+        self._last_lag = 0
+        self._last_error: Optional[str] = None
+        self._last_batch: dict = {}
+        self.applies = 0
+        self.rejects = 0
+        self.events_consumed = 0
+        self.bus = bus if bus is not None else default_bus()
+        self.bus.subscribe(self, "on_ingest")
+
+    # -- lifecycle -----------------------------------------------------------
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def start(self) -> "StreamTrainer":
+        if self.running:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="stream-trainer")
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: float = 10.0) -> None:
+        """Stop the loop and join its thread (a pass in flight finishes
+        first)."""
+        self._stop.set()
+        self._wake.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=timeout)
+
+    def on_ingest(self, app_id, entity_type: str, entity_id: str,
+                  event_name: str = "") -> None:
+        """Bus subscriber: an accepted ingest for our app wakes the loop
+        NOW; anything else waits for the poll. Never does work on the
+        ingest thread."""
+        if app_id is not None and app_id != self.app_id:
+            return
+        if event_name and event_name not in self.weights:
+            return
+        self._wake.set()
+
+    def _run(self) -> None:
+        interval = max(self.config.interval_ms, 1.0) / 1000.0
+        error_streak = 0
+        while not self._stop.is_set():
+            self._wake.wait(timeout=interval)
+            if self._stop.is_set():
+                break
+            self._wake.clear()
+            try:
+                n = self.consume_once()
+                error_streak = 0
+                if n >= self.config.max_events:
+                    self._wake.set()  # backlog: keep draining
+            except Exception as e:  # noqa: BLE001 — the loop survives
+                self._last_error = str(e)
+                log.exception("stream fold-in pass failed: %s", e)
+                # bounded exponential backoff on consecutive failures: a
+                # failing dependency must not spin the loop hot
+                error_streak += 1
+                backoff = min(5.0, 0.05 * (2 ** min(error_streak, 7)))
+                self._stop.wait(backoff)
+
+    def _advance_durable(self, events) -> None:
+        """Advance and persist the cursor with the bounded storage retry:
+        a transient blip must not strand the cursor behind events the
+        model already absorbed."""
+        self.cursor.advance(events)
+        retry_call(self.cursor.save, policy=_STORAGE_RETRY,
+                   retry_on=_STORAGE_ERRORS)
+
+    # -- one pass ------------------------------------------------------------
+    def consume_once(self) -> int:
+        """One consume -> fold -> canary -> apply -> advance pass; returns
+        how many events were consumed (0: nothing pending, or the apply
+        lost a rebind race and will retry)."""
+        fire(F_PASS, consumer=self.config.consumer)
+        events = retry_call(
+            self.cursor.pending, event_names=list(self.weights),
+            entity_type="user", limit=self.config.max_events,
+            policy=_STORAGE_RETRY, retry_on=_STORAGE_ERRORS)
+        self._last_lag = len(events)
+        if not events:
+            return 0
+        t0 = time.monotonic()
+        snap = self.server.stream_snapshot(self.config.algo_index)
+        if snap is None:
+            return 0  # no foldable model bound (not an ALS model)
+        base_id, model = snap
+        if base_id != self._base_seen:
+            # a new binding is serving: its distribution is the new
+            # baseline and a cached Gramian is for dead factors
+            self._base_seen = base_id
+            self._G = None
+            self._retrain_fired = False
+            self.drift.reset()
+        new_model, report = fold_in_events(
+            model, events, self.storage, self.app_id,
+            channel_id=self.channel_id, weights=self.weights,
+            max_history=self.config.max_history, G=self._G)
+        if model.params.implicit_prefs and report.items_inserted == 0 \
+                and self._G is None:
+            # amortize the fixed-side Gramian across batches that leave
+            # the item table as it is
+            self._G = fixed_gramian(new_model.item_factors,
+                                    new_model.params)
+        elif report.items_inserted:
+            self._G = None
+        self.drift.observe(report.values, report.residual)
+        touched = sorted({e.entity_id for e in events
+                          if e.entity_type == "user"})
+        if report.events_relevant == 0:
+            # nothing projectable: just move the cursor past them
+            self._advance_durable(events)
+            return len(events)
+        verdict = self._canary_check(model, new_model, touched)
+        if verdict is not None and verdict.action == "rollback":
+            # refuse the delta and move on (re-solving gives the same
+            # rows); repeated refusals are what the drift lane is for
+            self.rejects += 1
+            log.warning("stream canary refused a fold-in delta: %s",
+                        verdict.reason)
+            self._advance_durable(events)
+            self._maybe_retrain()
+            return len(events)
+        applied = self.server.apply_stream_delta(
+            self.config.algo_index, new_model, touched,
+            base_instance_id=base_id,
+            rows_updated=report.users_updated,
+            rows_inserted=report.users_inserted + report.items_inserted)
+        if not applied:
+            # the binding moved under us: nothing consumed, the next
+            # pass re-folds against the new base
+            self._wake.set()
+            return 0
+        self._advance_durable(events)
+        dt = time.monotonic() - t0
+        self.events_consumed += len(events)
+        self.applies += 1
+        self._last_batch = {
+            "events": len(events),
+            "relevant": report.events_relevant,
+            "usersUpdated": report.users_updated,
+            "usersInserted": report.users_inserted,
+            "itemsInserted": report.items_inserted,
+            "residual": report.residual,
+            "foldinMs": round(dt * 1000, 3),
+        }
+        self._maybe_retrain()
+        return len(events)
+
+    def _maybe_retrain(self) -> None:
+        if not self.drift.retrain_due or self._retrain_fired:
+            return
+        self._retrain_fired = True  # once per base model
+        status = self.drift.status()
+        log.warning("stream drift %.3f passed threshold %.3f: full "
+                    "retrain due", status["score"], status["threshold"])
+        if self.on_retrain is not None:
+            try:
+                self.on_retrain(status)
+            except Exception as e:  # noqa: BLE001 — the hook is advisory
+                log.error("on_retrain hook failed: %s", e)
+
+    # -- canary gate ---------------------------------------------------------
+    def _canary_check(self, old_model, new_model, touched):
+        """Probe the folded model against the serving one on the touched
+        entities: per-probe latency and failure (exception, non-finite
+        scores, empty where the old model answered) build one
+        :class:`ArmWindow` per arm, judged by the HealthPolicy."""
+        n = self.config.canary_probes
+        if n <= 0:
+            return None
+        probe_keys = [u for u in touched
+                      if new_model.user_ids and u in new_model.user_ids]
+        probe_keys = probe_keys[:n]
+        if not probe_keys:
+            return None
+
+        def probe(model, key) -> tuple:
+            """(seconds, bad, answerable, n_results); ``answerable`` is
+            False when the model has no row for the key (a cold-start
+            user the OLD model cannot serve: not an error, and its
+            instant return must not enter the latency window)."""
+            t0 = time.monotonic()
+            try:
+                uidx = model.user_ids.get(key)
+                if uidx is None:
+                    return time.monotonic() - t0, False, False, 0
+                ids, scores = recommend_products(
+                    model, int(uidx), min(10, model.n_items))
+                bad = not np.all(np.isfinite(np.asarray(scores)))
+                return time.monotonic() - t0, bad, True, len(ids)
+            except Exception:  # noqa: BLE001 — counted as an error
+                return time.monotonic() - t0, True, True, 0
+
+        stable_lats, stable_q, stable_errs = [], 0, 0
+        cand_lats, cand_errs = [], 0
+        for key in probe_keys:
+            o_dt, o_bad, o_can, o_n = probe(old_model, key)
+            # probe the candidate twice and keep the faster sample: a
+            # grown table's first launch may pay one-off work that the
+            # steady serving path never sees
+            c_dt0, _, _, _ = probe(new_model, key)
+            c_dt, c_bad, c_can, c_n = probe(new_model, key)
+            cand_lats.append(min(c_dt0, c_dt))
+            if c_bad or (not c_can) or (o_can and o_n and not c_n):
+                cand_errs += 1
+            if o_can:
+                stable_q += 1
+                stable_lats.append(o_dt)
+                stable_errs += 1 if o_bad else 0
+        stable = ArmWindow(
+            queries=stable_q, errors=stable_errs,
+            p99=max(stable_lats) if stable_lats else None)
+        candidate = ArmWindow(
+            queries=len(probe_keys), errors=cand_errs,
+            p99=max(cand_lats) if cand_lats else None)
+        return self.policy.evaluate(stable, candidate)
+
+    # -- status --------------------------------------------------------------
+    def status(self) -> dict:
+        return {
+            "running": self.running,
+            "appName": self.config.app_name,
+            "consumer": self.config.consumer,
+            "intervalMs": self.config.interval_ms,
+            "cursor": self.cursor.status(),
+            "cursorLag": self._last_lag,
+            "eventsConsumed": self.events_consumed,
+            "applies": self.applies,
+            "canaryRejects": self.rejects,
+            "drift": self.drift.status(),
+            "lastBatch": self._last_batch,
+            "lastError": self._last_error,
+        }

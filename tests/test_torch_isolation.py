@@ -38,6 +38,19 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("sub", ["streaming", "faults", "rollout", "cache"])
+def test_the_copied_subpackages_are_scanned(sub):
+    """The stream slice's subpackages are the port's own copies: each is
+    in the scan above, and none reaches the JAX package's copy."""
+    scanned = {p.relative_to(PACKAGE).parts[0] for p in port_files()
+               if p.is_relative_to(PACKAGE)}
+    assert sub in scanned
+    files = sorted((PACKAGE / sub).rglob("*.py"))
+    assert files
+    for path in files:
+        assert not set(imported_roots(path)) & FORBIDDEN, path
+
+
 def test_every_module_imports():
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
@@ -55,7 +68,11 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.server.eventserver, "
             "predictionio_tpu_torch.workflow.core, "
             "predictionio_tpu_torch.data.storage.registry, "
-            "predictionio_tpu_torch.ops.gram; "
+            "predictionio_tpu_torch.ops.gram, "
+            "predictionio_tpu_torch.streaming, "
+            "predictionio_tpu_torch.faults, "
+            "predictionio_tpu_torch.rollout.policy, "
+            "predictionio_tpu_torch.cache.bus; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
             "assert not bad, bad")

@@ -52,6 +52,51 @@ def test_matches_jax_xla_route_past_rank_128():
     np.testing.assert_allclose(x.numpy(), want, rtol=2e-4, atol=1e-5)
 
 
+ROUTE_CASES = [(dt, r, dev) for dev in ("cpu", "cuda")
+               for dt in (torch.float32, torch.float64, torch.bfloat16,
+                          torch.float16)
+               for r in (1, 64, 128, 129, 136)]
+
+
+@pytest.mark.parametrize("dtype,rank,device_type", ROUTE_CASES,
+                         ids=[f"{dev}-{str(dt)[6:]}-r{r}"
+                              for dt, r, dev in ROUTE_CASES])
+def test_solve_route(dtype, rank, device_type):
+    """CPU systems take the plain loop; on the card f32 up to rank 128
+    takes the kernel and every other system the library's Cholesky,
+    never the plain loop."""
+    want = ("plain" if device_type == "cpu" else
+            "kernel" if dtype == torch.float32 and rank <= 128
+            else "library")
+    assert solve.solve_route(dtype, rank, device_type) == want
+
+
+def test_solve_route_refuses_other_devices():
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        solve.solve_route(torch.float32, 64, "mps")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_library_route_matches_jax_xla_route_past_rank_128(dtype):
+    """The route the card takes past rank 128 (and for non-f32 systems),
+    run on CPU tensors: XLA's ``cho_factor`` / ``cho_solve`` is the
+    reference's counterpart. It reads the lower triangle only."""
+    A, b = spd_batch(4, 136, seed=3)
+    At, bt = torch.from_numpy(A).to(dtype), torch.from_numpy(b).to(dtype)
+    x = solve.solve_spd_library(At, bt)
+    assert x.dtype == dtype and x.shape == (4, 136)
+    want = np.asarray(jsolve.solve_spd_batch(
+        jnp.asarray(At.float().numpy()), jnp.asarray(bt.float().numpy())))
+    tol = 2e-4 if dtype != torch.bfloat16 else 2e-2
+    np.testing.assert_allclose(x.float().numpy(), want, rtol=tol,
+                               atol=tol / 10)
+    upper = At.clone()
+    iu = torch.triu_indices(136, 136, 1)
+    upper[:, iu[0], iu[1]] = 7.0
+    assert torch.equal(solve.solve_spd_library(upper, bt), x)
+
+
 def test_float64_truth_and_leading_axes():
     A, b = spd_batch(12, 16, seed=2)
     x = solve.solve_spd_batch(torch.from_numpy(A).reshape(3, 4, 16, 16),
