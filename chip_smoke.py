@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, ``pio`` lifecycle and
-streaming fold-in paths once on the CUDA card and check them.
+"""Drive the PyTorch port's serving (both batch paths), training, ``pio``
+lifecycle, batch-predict and streaming fold-in paths once on the CUDA
+card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -30,12 +31,31 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             inside a near-tie); ids are exact in the tie case.
 4. slice  — an ML-20M-width model made from ``--seed`` is deployed through
             ``server.engineserver.deploy_models`` on the card with int8 serving
-            tables and batching, on a free port. Single queries and a
-            concurrent burst go over HTTP and every answer is checked
-            against the plain version on the same tables; one
-            ``recommend_batch`` of 2,048 users runs beside them. The kernel
-            launch counts are zeroed just before and read just after, and
-            must be positive.
+            tables and batching, on a free port. 64 single queries go over
+            HTTP; then a burst of 2,048 queries on 32 connections from
+            another process (``spawn``, standard library HTTP only), three
+            times on servers of their own over the same bound tables: the
+            staged pipeline, the serial drainers, the staged pipeline
+            again, then once more staged with this process's interpreter
+            switch interval cut from 5 ms to 0.5 ms (how much of a batch's
+            time under load is waiting for the interpreter lock). Every
+            answer is checked against the plain version on
+            the same tables (each burst also splits the wall time of the
+            batch's launch call, ``batch_predict_async``, into its
+            thread's CPU time and the rest); one ``recommend_batch`` of
+            2,048 users runs
+            beside them. The kernel launch count is zeroed just before and
+            read just after, and must be positive, as each burst's own
+            launches. Each burst prints its qps, p50 and p99, launches and
+            mean batch, ``/status.json``'s ``pipeline`` block (``depth``,
+            ``deadlineExceeded``, which must be 0, ``overlappedDispatches``,
+            which must be positive for a staged run, ``deviceIdleFraction``,
+            ``overlapFraction``) and the server's phase and stage times a
+            batch. Then the dispatch half of ``recommend_batch_async`` runs
+            under ``torch.cuda.set_sync_debug_mode("error")`` (it must not
+            wait on the card), and the readback of a launch with a second
+            queued behind it is timed both ways: copies queued at dispatch
+            (the port's) and copies made when resolving.
 5. train-kernel — the MovieLens-20M surrogate
             (``benchmarks/ml20m_surrogate.py``, 20,000,263 ratings from
             ``--seed``) is packed as training packs it; ``fused_gram`` runs
@@ -114,6 +134,14 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             checked against the plain top-k (``fused_topk`` count
             positive). The whole phase runs under ``torch.profiler``,
             which gives the device's busy and idle share.
+8b. batchpredict — ``cli batchpredict`` on the card from phase 8's store:
+            one query line ``{"user", "num": 10}`` for each of its 13,850
+            users (seed 0), the ``fused_topk`` count zeroed just before and
+            read just after (positive: flushes of 1,024). Every output line
+            must carry its own query and 10 items whose scores agree with
+            the plain top-k on the trained f32 tables within 1e-5 *
+            (1 + |plain|), each item scoring what was returned beside it
+            (float64). Prints the rows per second of the command.
 9. stream — streaming fold-in on phase 8's store and model: the stream
             cursor set where the trained log ends, ``cli deploy --batching
             --stream --stream-app MyApp1 --stream-max-events 512
@@ -139,8 +167,8 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             (``fused_gram``, ``chol_solve``, ``fused_topk`` positive).
 
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
-launches on the main path and on the stream path) and, last, ``{"ok":
-true, "device": {...}}``.
+launches on the main path, in the batch-predict job for ``fused_topk``,
+and on the stream path) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -479,10 +507,259 @@ def check_answer(query, answer, ud, us, vd, vs, U64, V64, n_items,
     check(not (set(ids.tolist()) & black), f"{query}: blacklisted item")
 
 
+#: the burst: queries, and the concurrent connections that send them
+BURST_QUERIES, BURST_CLIENTS = 2048, 32
+#: the batch path of each burst run, in order, on one bound model
+BURST_MODES = ("staged", "serial", "staged")
+#: a last staged burst with the server process's interpreter switch
+#: interval cut from Python's 5 ms to this: how much of a batch's time
+#: under load is waiting for the interpreter lock
+DIAG_SWITCH_INTERVAL_S = 0.0005
+
+
+def burst_clients(port: int, queries: list, n_clients: int, conn) -> None:
+    """The burst's load generator, run in a process of its own (started
+    with ``spawn``; standard library only, so it shares no interpreter
+    lock with the server): ``n_clients`` connections, each posting its
+    share of ``queries`` one after another. Sends back ``(wall_s,
+    [(status, body, seconds), ...] in query order, [errors])``."""
+    import http.client
+
+    results = [None] * len(queries)
+    errors = []
+    gate = threading.Barrier(n_clients + 1)
+
+    def client(w: int) -> None:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            gate.wait(timeout=60)
+            for j in range(w, len(queries), n_clients):
+                t0 = time.perf_counter()
+                c.request("POST", "/queries.json", json.dumps(queries[j]),
+                          {"Content-Type": "application/json"})
+                resp = c.getresponse()
+                body = resp.read().decode()
+                results[j] = (resp.status, body, time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 — reported to the parent
+            errors.append(f"client {w}: {e!r}")
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(w,))
+               for w in range(n_clients)]
+    for t in threads:
+        t.start()
+    gate.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    conn.send((time.perf_counter() - t0, results, errors))
+    conn.close()
+
+
+def run_burst(port: int, queries: list) -> tuple:
+    """The burst from another process; ``(wall_s, results)``."""
+    import multiprocessing
+
+    mp = multiprocessing.get_context("spawn")
+    parent, child = mp.Pipe(duplex=False)
+    proc = mp.Process(target=burst_clients,
+                      args=(port, queries, BURST_CLIENTS, child),
+                      daemon=True)
+    proc.start()
+    child.close()
+    try:
+        check(parent.poll(300), "the burst's client process sent nothing "
+              "in 300 s")
+        try:
+            wall, results, errors = parent.recv()
+        except EOFError:
+            fail(f"the burst's client process died (exit "
+                 f"{proc.exitcode})")
+        proc.join(timeout=60)
+        check(proc.exitcode == 0,
+              f"the burst's client process exited {proc.exitcode}")
+    finally:
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+    check(not errors, f"burst clients failed: {errors[:3]}")
+    check(all(r is not None for r in results), "a burst query got no answer")
+    bad = [r[:2] for r in results if r[0] != 200]
+    check(not bad, f"{len(bad)} burst queries failed: {bad[:3]}")
+    return wall, [(json.loads(r[1]), r[2]) for r in results]
+
+
+def check_burst(queries, answers, ud, us, vd, vs, U64, V64, dev) -> None:
+    """Every burst answer (num 10, no blacklist) against the plain top-k
+    of its own user on the bound tables, in one batch: the scores, each
+    returned item's own score in float64, no item twice. An answer meant
+    for another user, or lost, cannot pass."""
+    from predictionio_tpu_torch.ops.fused_topk import fused_topk_reference
+
+    users = np.array([int(q["user"][1:]) for q in queries])
+    check(all(len(a["itemScores"]) == 10 for a in answers),
+          "a burst answer has not 10 items")
+    idx = torch.from_numpy(users.astype(np.int32)).to(dev)
+    ps, _ = fused_topk_reference(ud, idx, vd, us, vs, k=16,
+                                 n_items=N_ITEMS)
+    want = ps[:, :10].double()
+    got_i = torch.tensor([[int(s["item"][1:]) for s in a["itemScores"]]
+                          for a in answers], device=dev)
+    got_s = torch.tensor([[s["score"] for s in a["itemScores"]]
+                          for a in answers], dtype=torch.float64,
+                         device=dev)
+    tol = RTOL["int8"] * (1 + want.abs())
+    check(bool(((got_s - want).abs() <= tol).all()),
+          "burst: scores off the plain version")
+    own = torch.einsum("br,bkr->bk", U64[idx.long()], V64[got_i])
+    check(bool(((own - got_s).abs() <= tol).all()),
+          "burst: an item does not score what was returned")
+    srt = torch.sort(got_i, dim=1).values
+    check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+          "burst: an item appears twice in one answer")
+
+
+def burst_run(mode, engine, ep, bound_model, burst, tables, dev,
+              switch_interval=None) -> dict:
+    """One burst on a server of its own over the same bound tables, its
+    batch path ``mode``; every answer checked. ``switch_interval`` sets
+    this process's interpreter switch interval for the burst."""
+    from predictionio_tpu_torch.models.als import _table_leaves
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy_models,
+    )
+
+    srv = deploy_models(engine, ep, [bound_model],
+                        ServerConfig(batching=True, serving_quant="int8",
+                                     serving_pipeline=mode),
+                        host="127.0.0.1", port=0).start_background()
+    try:
+        qs = srv.query_server
+        check(_table_leaves(qs.models[0].item_factors)[0].data_ptr()
+              == tables[2].data_ptr(),
+              "the burst server did not bind the same tables")
+        # the launch call of each batch, timed on its own thread: wall
+        # against the thread's CPU time (the rest is waiting: for the
+        # interpreter lock or inside a blocking call)
+        algo = qs.algorithms[0]
+        launch_call = algo.batch_predict_async
+        spent = {"wall": 0.0, "cpu": 0.0}
+        spent_lock = threading.Lock()
+
+        def timed_launch(*a, **k):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return launch_call(*a, **k)
+            finally:
+                dw = time.perf_counter() - w0
+                dc = time.thread_time() - c0
+                with spent_lock:
+                    spent["wall"] += dw
+                    spent["cpu"] += dc
+
+        algo.batch_predict_async = timed_launch
+        before = ft.LAUNCHES
+        default_interval = sys.getswitchinterval()
+        if switch_interval is not None:
+            sys.setswitchinterval(switch_interval)
+        try:
+            wall, results = run_burst(srv.port, burst)
+        finally:
+            sys.setswitchinterval(default_interval)
+        launches = ft.LAUNCHES - before
+        with _LOCAL.open(f"http://127.0.0.1:{srv.port}/status.json",
+                         timeout=30) as resp:
+            pipe = json.loads(resp.read())["pipeline"]
+        phases, stages = dict(qs.phase_seconds), dict(qs.stage_seconds)
+        batches, served = qs.batches_served, qs.queries_batched
+    finally:
+        srv.close()
+    check_burst(burst, [a for a, _ in results], *tables, dev)
+    check(pipe["mode"] == mode, f"/status.json pipeline mode {pipe['mode']}")
+    check(launches > 0, f"the {mode} burst launched fused_topk no time")
+    check(pipe["deadlineExceeded"] == 0,
+          f"{pipe['deadlineExceeded']} burst queries shed at the deadline")
+    ov = pipe["overlap"]
+    if mode == "staged":
+        check(ov["overlappedDispatches"] > 0,
+              "staged burst: no batch launched while another was in flight")
+    lat = np.array([t for _, t in results]) * 1e3
+    per = {k: v / max(batches, 1) * 1e3 for k, v in phases.items()}
+    st = {k: v / max(batches, 1) * 1e3 for k, v in stages.items()}
+    label = mode if switch_interval is None else (
+        f"{mode} switch_interval_ms={switch_interval * 1e3:g}")
+    print(f"phase slice burst {label}: {len(burst)} queries x "
+          f"{BURST_CLIENTS} connections from another process "
+          f"qps={len(burst) / wall:.1f} p50_ms={np.percentile(lat, 50):.3f} "
+          f"p99_ms={np.percentile(lat, 99):.3f} fused_topk launches="
+          f"{launches} mean_batch={len(burst) / max(launches, 1):.2f} "
+          f"(server: {served} queries in {batches} batches) | pipeline "
+          f"depth={pipe.get('depth')} deadlineExceeded="
+          f"{pipe['deadlineExceeded']} overlappedDispatches="
+          f"{ov['overlappedDispatches']} deviceIdleFraction="
+          f"{ov['deviceIdleFraction']} overlapFraction="
+          f"{ov['overlapFraction']} wallSec={ov['wallSec']} | phase ms a "
+          f"batch: " + " ".join(f"{k}={v:.4f}" for k, v in per.items())
+          + (" | stage ms a batch: " + " ".join(
+              f"{k}={v:.4f}" for k, v in st.items()) if st else "")
+          + f" | launch call ms a batch: wall="
+            f"{spent['wall'] / max(batches, 1) * 1e3:.4f} thread_cpu="
+            f"{spent['cpu'] / max(batches, 1) * 1e3:.4f}",
+          flush=True)
+    return {"launches": launches, "qps": len(burst) / wall}
+
+
+def readback_ms(bound_model, users, reps: int) -> tuple:
+    """Host ms from the second of two launches of ``len(users)`` queries
+    to the first one's results on the host, median of ``reps``: (the
+    port's resolver, which queued its copies behind its own launch; the
+    same launch read back by copies made when resolving, which queue
+    behind the second launch)."""
+    from predictionio_tpu_torch.models.als import (
+        _compiled_k,
+        _device_topk,
+        recommend_batch_async,
+    )
+
+    m = bound_model
+    k_dev = _compiled_k(10, m.n_items)
+    half = len(users) // 2
+
+    def at_resolve(u):
+        s, i = _device_topk(m.user_factors, m.item_factors, u, k_dev,
+                            m.n_items)
+        done = torch.cuda.Event()
+        done.record()
+
+        def resolve():
+            done.synchronize()
+            return i[:, :10].cpu().numpy(), s[:, :10].cpu().numpy()
+
+        return resolve
+
+    out = []
+    for dispatch in (lambda u: recommend_batch_async(m, u, 10), at_resolve):
+        times = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            first = dispatch(users[:half])
+            second = dispatch(users[half:])
+            t0 = time.perf_counter()
+            first()
+            times.append((time.perf_counter() - t0) * 1e3)
+            second()
+        out.append(float(np.median(times[1:])))
+    return tuple(out)
+
+
 def phase_slice(rng, U, V, dev) -> int:
     from predictionio_tpu_torch.models.als import (
         _table_leaves,
         recommend_batch,
+        recommend_batch_async,
     )
     from predictionio_tpu_torch.models.convert import als_model_from_numpy
     from predictionio_tpu_torch.ops import fused_topk as ft
@@ -516,6 +793,7 @@ def phase_slice(rng, U, V, dev) -> int:
           "deploy did not place int8 tables on the card")
     U64 = ud.double() * us.double()
     V64 = vd.double() * vs.double()
+    tables = (ud, us, vd, vs, U64, V64)
 
     def expect_ok(query, answer):
         check_answer(query, answer, ud, us, vd, vs, U64, V64, N_ITEMS, dev)
@@ -524,29 +802,16 @@ def phase_slice(rng, U, V, dev) -> int:
                for u in rng.integers(0, N_USERS, 64)]
     queries[0]["blackList"] = ["i1", "i2", "i3"]
     burst = [{"user": f"u{u}", "num": 10}
-             for u in rng.integers(0, N_USERS, 512)]
+             for u in rng.integers(0, N_USERS, BURST_QUERIES)]
     batch_users = rng.integers(0, N_USERS, BATCH)
 
     # -- the serving path, counted ------------------------------------
     ft.LAUNCHES = 0
     single = [_post(srv.port, q) for q in queries]
-    results = [None] * len(burst)
-
-    def client(w: int, n_workers: int) -> None:
-        for j in range(w, len(burst), n_workers):
-            results[j] = _post(srv.port, burst[j])
-
-    workers = [threading.Thread(target=client, args=(w, 32))
-               for w in range(32)]
-    launches_before_burst = ft.LAUNCHES
-    t_burst = time.perf_counter()
-    for t in workers:
-        t.start()
-    for t in workers:
-        t.join(timeout=300)
-    burst_s = time.perf_counter() - t_burst
-    burst_launches = ft.LAUNCHES - launches_before_burst
-    check(not any(t.is_alive() for t in workers), "burst clients hung")
+    runs = [burst_run(mode, engine, ep, bound_model, burst, tables, dev)
+            for mode in BURST_MODES]
+    diag = burst_run("staged", engine, ep, bound_model, burst, tables, dev,
+                     switch_interval=DIAG_SWITCH_INTERVAL_S)
     unknown, _ = _post(srv.port, {"user": "nobody", "num": 10})
     t_batch = time.perf_counter()
     ids, scores = recommend_batch(bound_model, batch_users, 10)
@@ -556,9 +821,6 @@ def phase_slice(rng, U, V, dev) -> int:
 
     check(launches > 0, "the serving path launched fused_topk no time")
     for q, (a, _) in zip(queries, single):
-        expect_ok(q, a)
-    check(all(r is not None for r in results), "a burst query got no answer")
-    for q, (a, _) in zip(burst, results):
         expect_ok(q, a)
     check(unknown == {"itemScores": []}, "unknown user got items")
     check(ids.shape == (BATCH, 10) and np.isfinite(scores).all(),
@@ -580,6 +842,19 @@ def phase_slice(rng, U, V, dev) -> int:
     check(status["kernels"]["fused_topk"]["launches"] >= launches,
           "/status.json launch count")
 
+    # the dispatch half never waits on the card: PyTorch raises on any
+    # synchronizing call made while the mode is "error"
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = recommend_batch_async(bound_model, batch_users, 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ids2, _ = handle()
+    check(np.array_equal(ids2, ids), "recommend_batch_async's resolver "
+          "disagrees with recommend_batch")
+    pinned_ms, at_resolve_ms = readback_ms(bound_model, batch_users, 20)
+
     # layers below HTTP, after the counted run: one query through the
     # bound QueryServer in-process (template, JSON, no HTTP or batcher),
     # and the model call alone (gather, kernel, readback)
@@ -599,16 +874,17 @@ def phase_slice(rng, U, V, dev) -> int:
     srv.close()
 
     lat1 = np.array([t for _, t in single]) * 1e3
-    latb = np.array([t for _, t in results]) * 1e3
     print(f"phase slice: bind_s={bind_s:.3f} single p50_ms="
           f"{np.percentile(lat1, 50):.3f} p99_ms={np.percentile(lat1, 99):.3f}"
-          f" | burst 512 queries x 32 clients qps={len(burst) / burst_s:.1f}"
-          f" p50_ms={np.percentile(latb, 50):.3f} p99_ms="
-          f"{np.percentile(latb, 99):.3f} launches={burst_launches} "
-          f"mean_batch={len(burst) / max(burst_launches, 1):.2f} "
-          f"| recommend_batch B={BATCH} "
-          f"s={batch_s:.4f} | fused_topk launches={launches} "
-          f"requests={status['requestCount']}", flush=True)
+          f" | bursts " + " ".join(f"{m}={r['qps']:.1f}qps"
+                                   for m, r in zip(BURST_MODES, runs))
+          + f" staged@switch_interval_ms="
+            f"{DIAG_SWITCH_INTERVAL_S * 1e3:g}={diag['qps']:.1f}qps"
+          + f" | recommend_batch B={BATCH} s={batch_s:.4f} | fused_topk "
+          f"launches={launches} | readback of a {BATCH // 2}-query launch "
+          f"with a second queued behind it: copies queued at dispatch "
+          f"{pinned_ms:.3f} ms, copies made at resolve {at_resolve_ms:.3f}"
+          f" ms (median of 20)", flush=True)
     print(f"phase slice layers: single query p50_ms over HTTP+batcher="
           f"{np.percentile(lat1, 50):.3f} in-process QueryServer.query="
           f"{inproc_ms:.3f} recommend_products={model_ms:.3f}", flush=True)
@@ -1618,6 +1894,87 @@ def phase_pio(data, dev, home: str) -> dict:
         storage.close()
 
 
+def phase_batchpredict(data, dev, home: str, pio: dict) -> int:
+    """``cli batchpredict`` on the card from the ``pio`` phase's store:
+    one query line ``{"user", "num": 10}`` for each of the store's users,
+    the ``fused_topk`` count zeroed just before and read just after, every
+    output line's query and answer checked against the plain top-k on
+    the trained f32 tables."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    users = data[0]
+    store_users = np.unique(users[users % PIO_USER_STRIDE == 0])
+    queries = [{"user": f"u{u}", "num": 10} for u in store_users]
+    qpath, opath = Path(home) / "queries.jsonl", Path(home) / "out.jsonl"
+    qpath.write_text("".join(json.dumps(q) + "\n" for q in queries))
+    storage = Storage(env={"PIO_HOME": home})
+    try:
+        # -- the batch-predict job, counted ------------------------------
+        ft.LAUNCHES = 0
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["batchpredict", "--engine-json",
+                           pio["engine_json"], "--input", str(qpath),
+                           "--output", str(opath)], storage=storage)
+        job_s = time.perf_counter() - t
+        launches = ft.LAUNCHES
+        # ----------------------------------------------------------------
+        (inst,) = storage.engine_instances().get_all()
+        (model,) = loads_models(storage.models().get(inst.id).models)
+    finally:
+        storage.close()
+    check(rc == 0, f"cli batchpredict returned {rc}: {out.getvalue()}")
+    check(f"Wrote {len(queries)} prediction(s)" in out.getvalue(),
+          f"cli batchpredict said {out.getvalue()!r}")
+    check(launches > 0, "cli batchpredict launched fused_topk no time")
+    lines = [json.loads(ln) for ln in opath.read_text().splitlines()]
+    check(len(lines) == len(queries),
+          f"batchpredict wrote {len(lines)} lines for {len(queries)}")
+    check(all(ln["query"] == q for ln, q in zip(lines, queries)),
+          "a batchpredict line carries another query")
+    check(all(len(ln["prediction"]["itemScores"]) == 10 for ln in lines),
+          "a batchpredict answer has not 10 items")
+    ud = model.user_factors.to(dev)
+    vd = model.item_factors.to(dev)
+    U64, V64 = ud.double(), vd.double()
+    rows = np.array([model.user_ids[q["user"]] for q in queries])
+    worst = 0.0
+    for s0 in range(0, len(rows), BATCH):
+        idx = torch.from_numpy(rows[s0:s0 + BATCH].astype(np.int32)).to(dev)
+        ps, _ = ft.fused_topk_reference(ud, idx, vd, k=16,
+                                        n_items=model.n_items)
+        part = lines[s0:s0 + BATCH]
+        got_i = torch.tensor([[model.item_ids[s["item"]]
+                               for s in ln["prediction"]["itemScores"]]
+                              for ln in part], device=dev)
+        got_s = torch.tensor([[s["score"]
+                               for s in ln["prediction"]["itemScores"]]
+                              for ln in part], dtype=torch.float64,
+                             device=dev)
+        want = ps[:, :10].double()
+        tol = RTOL["f32"] * (1 + want.abs())
+        err = (got_s - want).abs()
+        worst = max(worst, err.max().item())
+        check(bool((err <= tol).all()),
+              "batchpredict: scores off the plain version")
+        own = torch.einsum("br,bkr->bk", U64[idx.long()], V64[got_i])
+        check(bool(((own - got_s).abs() <= tol).all()),
+              "batchpredict: an item does not score what was returned")
+        srt = torch.sort(got_i, dim=1).values
+        check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+              "batchpredict: an item appears twice in one answer")
+    print(f"phase batchpredict: {len(lines)} lines (every store user, num "
+          f"10) in {job_s:.3f}s = {len(lines) / job_s:.1f} rows/s (the "
+          f"command: instance load, placing the tables, 1,024-query "
+          f"flushes, output) | fused_topk launches={launches} | scores "
+          f"within {worst:.3e} of the plain top-k", flush=True)
+    return launches
+
+
 #: the stream phase: bursts, and the events of one burst by kind
 STREAM_BURSTS = 3
 STREAM_USERS, STREAM_USER_EVENTS = 32, 14      # 448 on existing users
@@ -2003,18 +2360,21 @@ def main(argv=None) -> int:
             # nothing
             pio, _ = profile_device("phase pio profile, the whole phase",
                                     lambda: phase_pio(data, dev, home))
+        with phase("batchpredict"):
+            batch_launches = phase_batchpredict(data, dev, home, pio)
         with phase("stream"):
             stream_l = phase_stream(data, dev, home, pio, args.seed)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
-    # training for the others); stream_launches: the stream phase's path
+    # training for the others); batch_launches: the batchpredict job's;
+    # stream_launches: the stream phase's path
     kernels = [
         dict(name="fused_topk", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_topk.cu",
              replaces="predictionio_tpu/ops/fused_topk.py:97",
-             launches=launches, stream_launches=stream_l["fused_topk"],
-             **row),
+             launches=launches, batch_launches=batch_launches,
+             stream_launches=stream_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",

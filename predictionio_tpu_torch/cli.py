@@ -8,16 +8,24 @@
     python -m predictionio_tpu_torch.cli train --engine-json engine.json
     python -m predictionio_tpu_torch.cli deploy --engine-json engine.json \\
         --port 8000 [--serving-quant int8] [--batching] [--model FILE] \\
+        [--pipeline staged|serial] [--queue-deadline-ms 30000] \\
         [--stream --stream-app MyApp1]
+    python -m predictionio_tpu_torch.cli batchpredict \\
+        --engine-json engine.json --input q.jsonl --output out.jsonl
     python -m predictionio_tpu_torch.cli stream status|start|stop \\
         [--port 8000] [--app MyApp1]
 
 Storage is the JAX package's: ``PIO_STORAGE_*`` variables, else one
-SQLite file at ``$PIO_HOME/pio.db``. ``train`` and ``deploy`` run on the
-CUDA card unless ``--device cpu`` is given; without CUDA they raise.
-``deploy`` binds the latest COMPLETED instance of the variant's engine,
-or, with ``--model``, a file written by
+SQLite file at ``$PIO_HOME/pio.db``. ``train``, ``deploy`` and
+``batchpredict`` run on the CUDA card unless ``--device cpu`` is given;
+without CUDA they raise. ``deploy`` binds the latest COMPLETED instance
+of the variant's engine, or, with ``--model``, a file written by
 ``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``.
+With ``--batching`` concurrent queries coalesce through the staged
+pipeline (``--pipeline serial``: the drainer threads), each shed with a
+503 past ``--queue-deadline-ms``. ``batchpredict`` writes one
+``{"query", "prediction"}`` line for each query line of ``--input``,
+from the latest COMPLETED instance.
 With ``--stream`` a stream trainer folds the app's new events into the
 served model (not with ``--model``: it needs the storage the instance
 came from). ``stream`` drives a running engine server's trainer over
@@ -26,9 +34,9 @@ HTTP.
 An ``engineFactory`` under ``predictionio_tpu.`` is read as the same path
 under ``predictionio_tpu_torch.``, so the JAX package's shipped variants
 train and deploy on the port unchanged; the JAX package is never
-imported. Left out (``ROADMAP.md`` queue 1): eval, batchpredict, build,
-undeploy, status, export, channels and app deletion, TLS, fleets and the
-release commands.
+imported. Left out (``ROADMAP.md`` queue 1): eval, build, undeploy,
+status, export, channels and app deletion, TLS, fleets and the release
+commands.
 """
 
 from __future__ import annotations
@@ -227,6 +235,12 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
     variant = load_variant(args.engine_json)
     engine, engine_params = engine_from_variant(variant)
     config = ServerConfig(batching=args.batching,
+                          batch_pipeline=args.batch_pipeline,
+                          serving_pipeline=args.pipeline,
+                          queue_deadline_ms=args.queue_deadline_ms,
+                          assemble_workers=args.assemble_workers,
+                          readback_workers=args.readback_workers,
+                          pipeline_depth=args.pipeline_depth,
                           serving_quant=args.serving_quant,
                           device=args.device,
                           streaming=args.stream,
@@ -247,6 +261,21 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                   _storage=storage if storage is not None else get_storage())
     return deploy(ctx, engine, engine_params, config=config, host=args.ip,
                   port=args.port, **_engine_key(args, variant))
+
+
+def cmd_batchpredict(args, storage: Storage) -> int:
+    """Predict every query line of ``--input`` with the latest COMPLETED
+    instance, on the card unless ``--device cpu``."""
+    from .workflow.batch_predict import run_batch_predict
+
+    variant = load_variant(args.engine_json)
+    engine, engine_params = engine_from_variant(variant)
+    ctx = Context(device=args.device, _storage=storage)
+    n = run_batch_predict(ctx, engine, engine_params,
+                          input_path=args.input, output_path=args.output,
+                          **_engine_key(args, variant))
+    _out(f"Wrote {n} prediction(s) to {args.output}.")
+    return 0
 
 
 def _server_call(args, path: str, method: str = "GET",
@@ -359,7 +388,9 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--input", required=True)
 
     for name, help_ in (("train", "train an engine"),
-                        ("deploy", "serve the latest trained engine")):
+                        ("deploy", "serve the latest trained engine"),
+                        ("batchpredict", "predict JSON lines of queries "
+                                         "with the latest trained engine")):
         s = sub.add_parser(name, help=help_)
         s.add_argument("--engine-json", default="engine.json")
         s.add_argument("--engine-id", default="")
@@ -371,6 +402,10 @@ def _parser() -> argparse.ArgumentParser:
             s.add_argument("--stop-after-read", action="store_true")
             s.add_argument("--stop-after-prepare", action="store_true")
             continue
+        if name == "batchpredict":
+            s.add_argument("--input", required=True)
+            s.add_argument("--output", required=True)
+            continue
         s.add_argument("--model", default="",
                        help="serve this model file instead of the latest "
                             "trained instance")
@@ -381,6 +416,27 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--batching", action="store_true",
                        help="coalesce concurrent queries into batched "
                             "launches")
+        s.add_argument("--batch-pipeline", type=int, default=4,
+                       help="serial pipeline: drainer threads; staged: "
+                            "dispatch threads")
+        s.add_argument("--pipeline", default="staged",
+                       choices=("staged", "serial"),
+                       help="batch path: staged = assemble, dispatch and "
+                            "readback stages overlapping host work with "
+                            "the card; serial = drainer threads")
+        s.add_argument("--queue-deadline-ms", type=float, default=30000.0,
+                       help="per-query deadline from submit through "
+                            "readback; past it the query is shed with "
+                            "503. 0 disables")
+        s.add_argument("--assemble-workers", type=int, default=1,
+                       help="staged pipeline: threads parsing and "
+                            "supplementing the next batch")
+        s.add_argument("--readback-workers", type=int, default=4,
+                       help="staged pipeline: threads waiting on results "
+                            "and serving them")
+        s.add_argument("--pipeline-depth", type=int, default=0,
+                       help="staged pipeline: batches in flight; 0 = auto "
+                            "(2 on the CPU, 4 on the card)")
         s.add_argument("--stream", action="store_true",
                        help="streaming fold-in: a trainer tails the event "
                             "log and folds new events into the served "
@@ -434,6 +490,8 @@ def main(argv: Optional[List[str]] = None,
         return cmd_import(args, storage)
     if args.command == "train":
         return cmd_train(args, storage)
+    if args.command == "batchpredict":
+        return cmd_batchpredict(args, storage)
     if args.command == "eventserver":
         return _serve(build_eventserver(args, storage), "Event Server", args)
     srv = build_deploy(args, storage)

@@ -320,7 +320,11 @@ def _device_topk(user_table: Table, item_table: Table, idx: np.ndarray,
     (descending score, lowest id first). Returns ``(scores, ids)``."""
     ud, us = _table_leaves(user_table)
     vd, vs = _table_leaves(item_table)
-    idx_t = torch.from_numpy(np.asarray(idx, dtype=np.int32)).to(ud.device)
+    idx_t = torch.from_numpy(np.asarray(idx, dtype=np.int32))
+    if ud.is_cuda:
+        # through pinned memory: a copy from pageable memory may wait for
+        # the kernels already queued on the stream
+        idx_t = idx_t.pin_memory().to(ud.device, non_blocking=True)
     if 1 <= k_dev <= TOPK_MAX_K:
         return fused_topk(ud, idx_t, vd, us, vs, k=k_dev, n_items=n_items)
     return _serve_topk(user_table, item_table, idx_t, k=k_dev,
@@ -344,22 +348,29 @@ def _dispatch_topk_chunk(model: ALSModel, user_indices: np.ndarray, k: int
                          ) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
     """Launch ONE top-k dispatch (batch <= ``_TOPK_CHUNK``) and return a
     resolver that waits for it and hands back host ``([B, k] ids,
-    scores)``. On the card the resolver waits on a CUDA event recorded
-    right after the launch, so the caller may launch more work first."""
+    scores)``. On the card both device-to-host copies are queued right
+    behind the launch, into pinned host memory, and a CUDA event after
+    them: the resolver waits on that event alone, so launches queued
+    after this one (the next batches) never hold its readback."""
     kk = min(k, model.n_items)
     k_dev = _compiled_k(k, model.n_items)
     scores, ids = _device_topk(model.user_factors, model.item_factors,
                                user_indices, k_dev, model.n_items)
-    done = None
-    if scores.is_cuda:
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(scores.device))
+    if not scores.is_cuda:
+        return lambda: (ids[:, :kk].numpy().astype(np.int64),
+                        scores[:, :kk].numpy())
+    ids_h = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+    scores_h = torch.empty(scores.shape, dtype=scores.dtype,
+                           pin_memory=True)
+    ids_h.copy_(ids, non_blocking=True)
+    scores_h.copy_(scores, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(scores.device))
 
     def resolve() -> Tuple[np.ndarray, np.ndarray]:
-        if done is not None:
-            done.synchronize()
-        return (ids[:, :kk].cpu().numpy().astype(np.int64),
-                scores[:, :kk].cpu().numpy())
+        done.synchronize()
+        return (ids_h.numpy()[:, :kk].astype(np.int64),
+                scores_h.numpy()[:, :kk].copy())
 
     return resolve
 

@@ -1,14 +1,32 @@
-"""Engine server: deployed-model query serving on the card (the port of the
-serving core of ``predictionio_tpu/server/engineserver.py``).
+"""Engine server: deployed-model query serving on the card (the port of
+the serving core of ``predictionio_tpu/server/engineserver.py``).
 
 ``POST /queries.json`` parses the query into the template's query class,
 runs supplement, per-algorithm predict and serve, and returns the result
 as JSON. At bind a model is row-quantized if asked (behind the
 template's parity probe) and then placed on the serving device once.
-With ``batching`` on, concurrent queries coalesce in a
-:class:`MicroBatcher` into one batched top-k launch. ``GET /status.json``
-names the card, the quantization in force and the kernel's launch
-count; ``POST /stop`` shuts the server down.
+``GET /status.json`` names the card, the quantization in force, the
+kernel's launch count and the batch path's state (``pipeline``);
+``POST /stop`` shuts the server down.
+
+With ``batching`` on, concurrent queries coalesce into one batched top-k
+launch, through one of two architectures (``serving_pipeline``):
+
+- "staged" (the default), :class:`StagedPipeline`: an assemble stage
+  forms a batch, parses it (a malformed query gets its 400 there) and
+  supplements it; a dispatch stage launches it on the card without
+  waiting; a readback stage waits for its results, serves them and wakes
+  the callers. Batches in flight are bounded by ``pipeline_depth``, so
+  while the card is busy arrivals pool and the next pickup takes them
+  all;
+- "serial", :class:`MicroBatcher`: ``batch_pipeline`` drainer threads,
+  each doing everything for its own batch.
+
+Both shed a query unanswered after ``queue_deadline_ms`` with a counted
+503. Each batch is served wholly from the binding it was assembled
+against, whatever rebinds meanwhile. Both record the same overlap tracks
+(:class:`~predictionio_tpu_torch.obs.OverlapTracker`; the JAX package's
+serial drainers record none), so the two read on one scale.
 
 :func:`deploy` is the ``pio deploy`` flow: it binds the latest COMPLETED
 engine instance of an engine id, version and variant from the context's
@@ -23,7 +41,12 @@ binds from.
 
 Left out (``ROADMAP.md`` queue 1): the release registry (pinned
 releases, promote, rollback, ``/reload``), so deploy never reads a pin;
-the serving caches, so a fold-in invalidates no cached answer.
+the serving caches, so a fold-in invalidates no cached answer; feedback
+events, ``log_url``, output plugins, request traces and the metric
+registry (the pipeline's counters are attributes of
+:class:`QueryServer`); replicated lanes. ``warm_start`` and
+``transfer_guard`` are XLA mechanisms with nothing to port
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -33,23 +56,30 @@ import queue
 import threading
 import time
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from ..controller.context import Context
 from ..controller.engine import Engine
 from ..controller.params import EngineParams
 from ..data.storage.base import EngineInstance
 from ..models.als import SERVING_QUANT_MODES, serving_quant_of
+from ..obs import DEVICE_TRACK, OverlapTracker
 from ..ops import fused_topk as _fused_topk
 from ..utils.device import card_info, resolve_device
 from ..utils.jsonutil import from_jsonable, to_jsonable
+from ..workflow.batch_predict import (
+    PendingBatch,
+    dispatch_batch,
+    make_pool,
+    predict_serve_batch,
+    supplement_batch,
+)
 from .http import AppServer, HTTPApp, HTTPError, Request, Response, json_response
 
 log = logging.getLogger(__name__)
 
-#: batcher threads draining the query queue: while one waits for its
-#: batch's results, the next forms and launches a batch
-_DRAINERS = 2
+#: the batch-path architectures (``ServerConfig.serving_pipeline``)
+PIPELINE_MODES = ("staged", "serial")
 
 
 @dataclass
@@ -62,6 +92,25 @@ class ServerConfig:
     max_batch: int = 128
     #: how long a lone query waits for company before it serves alone
     batch_window_ms: float = 2.0
+    #: serial: the drainer threads; staged: the dispatch threads (the
+    #: batches in flight are bounded by ``pipeline_depth``, not this)
+    batch_pipeline: int = 4
+    #: the batch path's architecture: "staged" (assemble, dispatch and
+    #: readback stages with bounded hand-offs) or "serial" (drainers,
+    #: each doing everything for its own batch)
+    serving_pipeline: str = "staged"
+    #: per-query deadline from submit through readback: past it the
+    #: caller gets 503 and its queue entry is shed; 0 disables
+    queue_deadline_ms: float = 30_000.0
+    #: staged: threads forming, parsing and supplementing batches (more
+    #: split the arrivals into smaller batches)
+    assemble_workers: int = 1
+    #: staged: threads waiting on a batch's results and serving them
+    readback_workers: int = 4
+    #: staged: batches in flight (launched, not yet read back). 0 = auto:
+    #: 2 on the CPU, where the "device" shares the host's cores; 4 on the
+    #: card, where a readback waits on a device behind later launches
+    pipeline_depth: int = 0
     #: "int8" or "bf16" row-quantized serving tables, or "off" (f32);
     #: the template's parity probe may keep f32 (auto-off)
     serving_quant: str = "off"
@@ -104,17 +153,47 @@ class QueryServer:
             raise ValueError(
                 f"serving_quant must be one of {SERVING_QUANT_MODES}, "
                 f"got {self.config.serving_quant!r}")
+        if self.config.serving_pipeline not in PIPELINE_MODES:
+            raise ValueError(
+                f"serving_pipeline must be 'staged' or 'serial', got "
+                f"{self.config.serving_pipeline!r}")
         self.device = resolve_device(self.config.device)
         self.card = card_info(self.device)
         self._lock = threading.Lock()
         self.request_count = 0
+        # the batch path's counters (under _lock): queries shed at the
+        # deadline, error answers by status, batches and the queries they
+        # held, launches made while an earlier batch was on the device,
+        # wall seconds by phase and by staged-pipeline stage, summed over
+        # batches
+        self.deadline_exceeded = 0
+        self.query_errors: Dict[str, int] = {}
+        self.batches_served = 0
+        self.queries_batched = 0
+        self.overlapped_dispatches = 0
+        self.phase_seconds: Dict[str, float] = {}
+        self.stage_seconds: Dict[str, float] = {}
+        self.overlap = OverlapTracker()
+        # concurrent supplements and blocking predictions; shut down in
+        # close() (its threads start on first use)
+        self._pool = make_pool()
         self._binds = 0
         self.stream = None
         self._bind(engine_params, models)
-        self.batcher: Optional[MicroBatcher] = None
-        if self.config.batching:
-            self.batcher = MicroBatcher(self, self.config.batch_window_ms,
-                                        self.config.max_batch)
+        self.batcher = None
+        cfg = self.config
+        if cfg.batching and cfg.serving_pipeline == "staged":
+            self.batcher = StagedPipeline(
+                self, cfg.batch_window_ms, cfg.max_batch,
+                assemble_workers=cfg.assemble_workers,
+                readback_workers=cfg.readback_workers,
+                depth=cfg.pipeline_depth, deadline_ms=cfg.queue_deadline_ms,
+                dispatch_workers=cfg.batch_pipeline)
+        elif cfg.batching:
+            self.batcher = MicroBatcher(
+                self, cfg.batch_window_ms, cfg.max_batch,
+                pipeline=cfg.batch_pipeline,
+                deadline_ms=cfg.queue_deadline_ms)
         if self.config.streaming:
             try:
                 self.start_stream()
@@ -161,8 +240,45 @@ class QueryServer:
         with self._lock:
             self.request_count += n
 
+    def _count_shed(self) -> None:
+        """A query shed at its deadline: a 503."""
+        with self._lock:
+            self.deadline_exceeded += 1
+            self._add_error(503)
+
+    def _count_error(self, status: int) -> None:
+        with self._lock:
+            self._add_error(status)
+
+    def _add_error(self, status: int) -> None:
+        # called with _lock held
+        key = str(status)
+        self.query_errors[key] = self.query_errors.get(key, 0) + 1
+
+    def _count_overlapped(self) -> None:
+        with self._lock:
+            self.overlapped_dispatches += 1
+
+    def _record_stage(self, stage: str, seconds: float) -> None:
+        with self._lock:
+            self.stage_seconds[stage] = (self.stage_seconds.get(stage, 0.0)
+                                         + seconds)
+
+    def _record_batch(self, phases: Dict[str, float],
+                      results: List[Any]) -> None:
+        """One served batch: its phases, its size, its error answers."""
+        with self._lock:
+            for k, v in phases.items():
+                self.phase_seconds[k] = self.phase_seconds.get(k, 0.0) + v
+            self.batches_served += 1
+            self.queries_batched += len(results)
+            self.request_count += len(results)
+            for r in results:
+                if isinstance(r, HTTPError):
+                    self._add_error(r.status)
+
     def serve(self, query_json: Any) -> Any:
-        """The ``/queries.json`` entry: the micro-batcher when batching,
+        """The ``/queries.json`` entry: the batch path when batching,
         else the per-query path. Raises :class:`HTTPError`."""
         if self.batcher is not None:
             result = self.batcher.submit(query_json)
@@ -187,26 +303,102 @@ class QueryServer:
         return result
 
     def query_batch(self, query_jsons: List[Any]) -> List[Any]:
-        """Serve many queries with ONE batched launch per algorithm.
-        A query that fails to parse gets its own 400; the other slots
-        are unaffected."""
+        """Serve many queries with ONE batched launch per algorithm (the
+        serial drainers' work). A query that fails to parse gets its own
+        400 and one that fails to predict or serve its own 500; the
+        other slots are unaffected."""
+        t0 = time.monotonic()
         algorithms, models, serving = self._binding()
         out: List[Any] = [None] * len(query_jsons)
         parsed, rows = [], []
-        for i, qj in enumerate(query_jsons):
-            try:
-                parsed.append(from_jsonable(algorithms[0].query_class, qj))
-                rows.append(i)
-            except (TypeError, ValueError) as e:
-                out[i] = HTTPError(400, str(e))
+        self.overlap.enter("assemble")
+        try:
+            for i, qj in enumerate(query_jsons):
+                try:
+                    parsed.append(from_jsonable(algorithms[0].query_class,
+                                                qj))
+                    rows.append(i)
+                except (TypeError, ValueError) as e:
+                    out[i] = HTTPError(400, str(e))
+        finally:
+            self.overlap.exit("assemble")
+        phases: Dict[str, float] = {"assemble": time.monotonic() - t0}
         if parsed:
-            supplemented = [serving.supplement(q) for q in parsed]
-            per_algo = [a.batch_predict(m, supplemented)
-                        for a, m in zip(algorithms, models)]
-            for j, i in enumerate(rows):
-                out[i] = to_jsonable(serving.serve(
-                    parsed[j], [preds[j] for preds in per_algo]))
-        self._count(len(rows))
+            if self.overlap.enter(DEVICE_TRACK) > 0:
+                self._count_overlapped()
+            try:
+                served = predict_serve_batch(algorithms, models, serving,
+                                             parsed, timings=phases,
+                                             pool=self._pool)
+            finally:
+                self.overlap.exit(DEVICE_TRACK)
+            self.overlap.enter("readback")
+            try:
+                for j, i in enumerate(rows):
+                    out[i] = self._render(served[j], phases)
+            finally:
+                self.overlap.exit("readback")
+        self._record_batch(phases, out)
+        return out
+
+    @staticmethod
+    def _render(prediction: Any, phases: Dict[str, float]) -> Any:
+        """One served prediction as JSON, or the 500 it becomes. The
+        batch's ``readback`` phase is the slowest query's serialization,
+        not the sum over the batch."""
+        if isinstance(prediction, HTTPError):
+            return prediction
+        if isinstance(prediction, Exception):
+            return HTTPError(500, str(prediction))
+        t0 = time.monotonic()
+        try:
+            result = to_jsonable(prediction)
+        except Exception as e:  # noqa: BLE001 — isolate per query
+            return HTTPError(500, str(e))
+        phases["readback"] = max(phases.get("readback", 0.0),
+                                 time.monotonic() - t0)
+        return result
+
+    def _finish_pipeline_batch(self, ab: "_AssembledBatch",
+                               results: List[Any]) -> None:
+        """The readback stage's tail: render each resolved prediction,
+        record the batch, wake the callers."""
+        final = [self._render(r, ab.phases) for r in results]
+        self._record_batch(ab.phases, final)
+        for entry, result in zip(ab.entries, final):
+            entry.result = result
+            entry.done.set()
+
+    def pipeline_status(self) -> dict:
+        """The batch path for ``/status.json``: architecture, deadline
+        accounting, and the overlap of the device with the host stages
+        (the JAX package's keys)."""
+        b = self.batcher
+        mode = ("staged" if isinstance(b, StagedPipeline)
+                else "serial" if b is not None else "off")
+        with self._lock:
+            exceeded = self.deadline_exceeded
+            overlapped = self.overlapped_dispatches
+        out: dict = {
+            "mode": mode,
+            "deadlineMs": self.config.queue_deadline_ms,
+            "deadlineExceeded": exceeded,
+        }
+        if isinstance(b, StagedPipeline):
+            out["assembleWorkers"] = self.config.assemble_workers
+            out["readbackWorkers"] = self.config.readback_workers
+            out["depth"] = b.depth  # resolved (0 = auto in the config)
+            out["inFlight"] = self.overlap.active(DEVICE_TRACK)
+        snap = self.overlap.snapshot()
+        if snap["wall_sec"] > 0:
+            out["overlap"] = {
+                "wallSec": round(snap["wall_sec"], 3),
+                "deviceBusySec": round(snap["device_busy_sec"], 3),
+                "deviceIdleFraction": round(
+                    snap["device_idle_fraction"], 4),
+                "overlapFraction": round(snap["overlap_fraction"], 4),
+                "overlappedDispatches": overlapped,
+            }
         return out
 
     def status(self) -> dict:
@@ -219,6 +411,7 @@ class QueryServer:
             "servingQuant": serving_quant_of(models[0]) if models else "off",
             "servingQuantRequested": self.config.serving_quant,
             "batching": self.config.batching,
+            "pipeline": self.pipeline_status(),
             "kernels": {"fused_topk": {
                 "launches": _fused_topk.LAUNCHES}},
             "requestCount": self.request_count,
@@ -229,11 +422,12 @@ class QueryServer:
         }
 
     def close(self, timeout: float = 5.0) -> None:
-        """Stop the stream trainer and the batcher's threads (queued
-        queries still serve), joining each. Idempotent."""
+        """Stop the stream trainer, the batch path's threads (queued
+        queries still serve) and the pool, joining each. Idempotent."""
         self.stop_stream()
         if self.batcher is not None:
             self.batcher.close(timeout)
+        self._pool.shutdown(wait=True)
 
     # -- streaming fold-in ---------------------------------------------------
     @property
@@ -369,48 +563,116 @@ class QueryServer:
 
 
 class _Submit:
-    """One caller's queue entry: the query and its completion slot."""
+    """One caller's queue entry: the query, its completion slot and its
+    deadline. The caller blocks on ``done``; whichever stage finishes or
+    sheds the entry writes ``result`` and sets it. ``abandoned`` flips
+    when the caller's deadline passed: later stages skip the entry
+    instead of launching work nobody will read."""
 
-    __slots__ = ("query_json", "done", "result")
+    __slots__ = ("query_json", "done", "result", "t_enq", "deadline",
+                 "abandoned")
 
-    def __init__(self, query_json: Any):
+    def __init__(self, query_json: Any, deadline_sec: float = 0.0):
         self.query_json = query_json
         self.done = threading.Event()
         self.result: Any = None
+        self.t_enq = time.monotonic()
+        self.deadline = (self.t_enq + deadline_sec if deadline_sec > 0
+                         else None)
+        self.abandoned = False
 
 
-#: close sentinel: each drainer consumes exactly one and exits
+#: close sentinel of the batch paths' queues: each worker consumes
+#: exactly one and exits; :func:`_form_batch` hands back any it pulls on
+#: a sibling's behalf
 _CLOSE = object()
 
 
-class MicroBatcher:
-    """Coalesces concurrent queries into one batched launch.
+def _deadline_submit(batcher, server: QueryServer, query_json: Any) -> Any:
+    """Enqueue, wait at most the deadline, and on expiry shed: count it,
+    mark the entry abandoned so pickup skips it, and answer 503 rather
+    than hold the HTTP worker on a wedged launch."""
+    e = _Submit(query_json, batcher.deadline_sec)
+    batcher._q.put(e)
+    if e.deadline is None:
+        e.done.wait()
+        return e.result
+    if e.done.wait(timeout=batcher.deadline_sec):
+        return e.result
+    e.abandoned = True
+    server._count_shed()
+    return HTTPError(
+        503, f"query shed: not served within the "
+             f"{batcher.deadline_sec * 1000.0:.0f}ms queue deadline "
+             f"(server saturated or dispatch wedged)")
 
-    Each HTTP worker thread enqueues its query and blocks; drainer
-    threads take everything queued (up to ``max_batch``) and run
-    :meth:`QueryServer.query_batch`. A lone query waits ``window_ms``
-    once for company, so a burst coalesces while a single query is
-    delayed by at most the window."""
+
+def _form_batch(q: "queue.Queue", first: _Submit, max_batch: int,
+                window: float) -> List[_Submit]:
+    """Greedy batch formation, shared by both architectures: everything
+    already queued, up to ``max_batch``, with no timed wait, so the batch
+    size follows arrival rate times service time; a lone query waits the
+    window once for a concurrent arrival. An entry whose caller already
+    gave up completes as a 503 here and never joins the batch."""
+    batch: List[_Submit] = []
+
+    def admit(e: _Submit) -> None:
+        if e.abandoned or (e.deadline is not None
+                           and time.monotonic() > e.deadline):
+            # the caller has its (counted) 503 already: complete the
+            # entry so no stage spends device time on it
+            e.result = HTTPError(503, "query deadline exceeded while "
+                                      "queued")
+            e.done.set()
+            return
+        batch.append(e)
+
+    admit(first)
+    waited = False
+    while len(batch) < max_batch:
+        try:
+            nxt = q.get_nowait()
+        except queue.Empty:
+            if waited or len(batch) > 1 or window <= 0:
+                break
+            waited = True
+            try:
+                nxt = q.get(timeout=window)
+            except queue.Empty:
+                break
+        if nxt is _CLOSE:
+            q.put(nxt)  # a sibling's sentinel: hand it back
+            break
+        admit(nxt)
+    return batch
+
+
+class MicroBatcher:
+    """The SERIAL architecture (``serving_pipeline="serial"``): each HTTP
+    worker enqueues its query and blocks; ``pipeline`` drainer threads
+    each take a batch (:func:`_form_batch`) and run
+    :meth:`QueryServer.query_batch` on it (parse, supplement, launch,
+    wait, serve), then wake its callers."""
 
     def __init__(self, server: QueryServer, window_ms: float = 2.0,
-                 max_batch: int = 128):
+                 max_batch: int = 128, pipeline: int = 4,
+                 deadline_ms: float = 0.0):
         self.server = server
         self.window = max(window_ms, 0.0) / 1000.0
         self.max_batch = max(max_batch, 1)
-        # depth is bounded by the HTTP threads blocked on their entries
+        self.deadline_sec = max(deadline_ms, 0.0) / 1000.0
+        # depth is bounded by the HTTP threads blocked on their entries;
+        # past the deadline _deadline_submit sheds them
         self._q: "queue.Queue" = queue.Queue()
         self._threads = [
             threading.Thread(target=self._drain, daemon=True,
                              name=f"query-microbatcher-{i}")
-            for i in range(_DRAINERS)]
+            for i in range(max(pipeline, 1))]
         for t in self._threads:
             t.start()
 
     def submit(self, query_json: Any) -> Any:
-        e = _Submit(query_json)
-        self._q.put(e)
-        e.done.wait()
-        return e.result
+        return _deadline_submit(self, self.server, query_json)
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the drainers: one close sentinel per live drainer, then
@@ -423,34 +685,14 @@ class MicroBatcher:
         for t in live:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
 
-    def _form_batch(self, first: _Submit) -> List[_Submit]:
-        """Everything already queued, up to ``max_batch``; a lone query
-        waits the window once for a concurrent arrival."""
-        batch = [first]
-        waited = False
-        while len(batch) < self.max_batch:
-            try:
-                nxt = self._q.get_nowait()
-            except queue.Empty:
-                if waited or len(batch) > 1 or self.window <= 0:
-                    break
-                waited = True
-                try:
-                    nxt = self._q.get(timeout=self.window)
-                except queue.Empty:
-                    break
-            if nxt is _CLOSE:
-                self._q.put(nxt)  # a sibling's sentinel: hand it back
-                break
-            batch.append(nxt)
-        return batch
-
     def _drain(self) -> None:
         while True:
             first = self._q.get()
             if first is _CLOSE:
                 return
-            batch = self._form_batch(first)
+            batch = _form_batch(self._q, first, self.max_batch, self.window)
+            if not batch:
+                continue
             try:
                 results = self.server.query_batch(
                     [e.query_json for e in batch])
@@ -460,6 +702,235 @@ class MicroBatcher:
             for e, result in zip(batch, results):
                 e.result = result
                 e.done.set()
+
+
+class _AssembledBatch:
+    """A batch between the pipeline's stages: what the assemble stage
+    made of it, and the binding it was assembled against. Every stage
+    uses that binding, so a rebind mid-flight serves a batch wholly from
+    the old binding or wholly from the new one, never a mix."""
+
+    __slots__ = ("entries", "queries", "out", "live", "supplemented",
+                 "algorithms", "models", "serving", "binding_id", "phases",
+                 "pending")
+
+    def __init__(self, entries, queries, out, live, supplemented,
+                 algorithms, models, serving, binding_id, phases):
+        self.entries = entries
+        self.queries = queries
+        self.out = out
+        self.live = live
+        self.supplemented = supplemented
+        self.algorithms = algorithms
+        self.models = models
+        self.serving = serving
+        self.binding_id = binding_id
+        self.phases = phases
+        self.pending: Optional[PendingBatch] = None
+
+
+class StagedPipeline:
+    """The STAGED architecture (``serving_pipeline="staged"``, the
+    default): three stages with bounded hand-off queues.
+
+    - **assemble** (``assemble_workers`` threads): takes an in-flight
+      slot, then forms a batch (:func:`_form_batch`), parses it (a
+      malformed query completes with its 400 here, never riding a launch)
+      and supplements it, while the card runs earlier batches.
+    - **dispatch** (``dispatch_workers`` threads, all on the device's
+      current stream): launches the batch
+      (:func:`~predictionio_tpu_torch.workflow.batch_predict.dispatch_batch`:
+      for ALS one ``fused_topk`` launch with its readback copies queued
+      behind it) and returns at once, so batch k+1 launches before batch
+      k is read back.
+    - **readback** (``readback_workers`` threads): waits for a batch's
+      results, frees its slot, serves and renders them and wakes the
+      callers (:meth:`QueryServer._finish_pipeline_batch`).
+
+    The in-flight slots (``depth``) bound the batches between pickup and
+    readback: while they are taken nobody reads the submit queue, so
+    arrivals pool there (where the deadline sheds them) and the next
+    pickup takes them all as one batch."""
+
+    def __init__(self, server: QueryServer, window_ms: float = 2.0,
+                 max_batch: int = 128, assemble_workers: int = 1,
+                 readback_workers: int = 4, depth: int = 0,
+                 deadline_ms: float = 0.0, dispatch_workers: int = 1):
+        self.server = server
+        self.window = max(window_ms, 0.0) / 1000.0
+        self.max_batch = max(max_batch, 1)
+        self.deadline_sec = max(deadline_ms, 0.0) / 1000.0
+        if depth <= 0:
+            # auto: shallow where the "device" shares the host's cores
+            # (deep pipelines only shred the batches), deep on the card
+            depth = 2 if server.device.type == "cpu" else 4
+        self.depth = depth
+        # depth is bounded by the HTTP threads blocked on their entries;
+        # past the deadline _deadline_submit sheds them
+        self._q: "queue.Queue" = queue.Queue()
+        self._dispatch_q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._readback_q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._inflight = threading.BoundedSemaphore(depth)
+        self._assemble_threads = [
+            threading.Thread(target=self._assemble_loop, daemon=True,
+                             name=f"pipeline-assemble-{i}")
+            for i in range(max(assemble_workers, 1))]
+        self._dispatch_threads = [
+            threading.Thread(target=self._dispatch_loop, daemon=True,
+                             name=f"pipeline-dispatch-{i}")
+            for i in range(max(dispatch_workers, 1))]
+        self._readback_threads = [
+            threading.Thread(target=self._readback_loop, daemon=True,
+                             name=f"pipeline-readback-{i}")
+            for i in range(max(readback_workers, 1))]
+        self._threads: List[threading.Thread] = (
+            self._assemble_threads + self._dispatch_threads
+            + self._readback_threads)
+        for t in self._threads:
+            t.start()
+
+    def submit(self, query_json: Any) -> Any:
+        return _deadline_submit(self, self.server, query_json)
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Drain and stop stage by stage, upstream first: the assemble
+        workers get their sentinels and are joined (nothing new enters),
+        then dispatch, then readback. A stage is joined before the next
+        is signalled, so a sentinel never overtakes a batch in flight and
+        every queued query is still answered. Idempotent."""
+        deadline = time.monotonic() + timeout
+        for q, roster in ((self._q, self._assemble_threads),
+                          (self._dispatch_q, self._dispatch_threads),
+                          (self._readback_q, self._readback_threads)):
+            live = [t for t in roster if t.is_alive()]
+            for _ in live:
+                q.put(_CLOSE)
+            for t in live:
+                t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+    # -- stage 1: assemble ---------------------------------------------------
+    def _assemble_loop(self) -> None:
+        server = self.server
+        while True:
+            # the in-flight slot FIRST: while the pipeline is full,
+            # arrivals pool and the eventual pickup coalesces them
+            self._inflight.acquire()
+            handed_off = False
+            try:
+                first = self._q.get()
+                if first is _CLOSE:
+                    return  # the finally frees the slot
+                batch = _form_batch(self._q, first, self.max_batch,
+                                    self.window)
+                if not batch:
+                    continue
+                t0 = time.monotonic()
+                server.overlap.enter("assemble")
+                try:
+                    ab = self._assemble(batch)
+                except Exception as e:  # noqa: BLE001 — isolate the batch
+                    log.exception("assembling a batch failed")
+                    for entry in batch:
+                        entry.result = HTTPError(500, str(e))
+                        entry.done.set()
+                    ab = None
+                finally:
+                    server.overlap.exit("assemble")
+                    server._record_stage("assemble", time.monotonic() - t0)
+                if ab is not None and ab.entries:
+                    self._dispatch_q.put(ab)
+                    handed_off = True  # the readback stage frees the slot
+            finally:
+                if not handed_off:
+                    self._inflight.release()
+
+    def _assemble(self, batch: List[_Submit]) -> _AssembledBatch:
+        server = self.server
+        with server._lock:
+            algorithms, models = server.algorithms, server.models
+            serving, binding_id = server.serving, server.binding_id
+        query_cls = algorithms[0].query_class
+        entries: List[_Submit] = []
+        queries: List[Any] = []
+        t0 = time.monotonic()
+        for e in batch:
+            try:
+                queries.append(from_jsonable(query_cls, e.query_json))
+                entries.append(e)
+            except (TypeError, ValueError) as err:
+                # a malformed query completes HERE, off the device
+                server._count_error(400)
+                e.result = HTTPError(400, str(err))
+                e.done.set()
+        phases: Dict[str, float] = {"assemble": time.monotonic() - t0}
+        out: List[Any] = [None] * len(entries)
+        supplemented: List[Any] = []
+        live: List[int] = []
+        if entries:
+            supplemented, live = supplement_batch(
+                serving, queries, out, timings=phases, pool=server._pool)
+        return _AssembledBatch(entries, queries, out, live, supplemented,
+                               algorithms, models, serving, binding_id,
+                               phases)
+
+    # -- stage 2: dispatch ---------------------------------------------------
+    def _dispatch_loop(self) -> None:
+        server = self.server
+        while True:
+            ab = self._dispatch_q.get()
+            if ab is _CLOSE:
+                return
+            t0 = time.monotonic()
+            in_flight_before = server.overlap.enter(DEVICE_TRACK)
+            try:
+                resolvers = (dispatch_batch(ab.algorithms, ab.models,
+                                            ab.supplemented,
+                                            timings=ab.phases,
+                                            pool=server._pool)
+                             if ab.live else [])
+                ab.pending = PendingBatch(ab.queries, ab.serving, ab.out,
+                                          ab.live, resolvers)
+            except Exception as e:  # noqa: BLE001 — one launch, whole batch
+                for i in ab.live:
+                    ab.out[i] = e
+                ab.pending = PendingBatch(ab.queries, ab.serving, ab.out,
+                                          [], [])
+            if in_flight_before > 0:
+                # launched while an earlier batch was still on the
+                # device: the pipeline's overlap, counted
+                server._count_overlapped()
+            server._record_stage("dispatch", time.monotonic() - t0)
+            self._readback_q.put(ab)
+
+    # -- stage 3: readback ---------------------------------------------------
+    def _readback_loop(self) -> None:
+        server = self.server
+        while True:
+            ab = self._readback_q.get()
+            if ab is _CLOSE:
+                return
+            t0 = time.monotonic()
+            try:
+                results = ab.pending.resolve(ab.phases)
+            except Exception as e:  # noqa: BLE001 — resolve isolates
+                results = [e] * len(ab.entries)  # its own failures
+            finally:
+                server.overlap.exit(DEVICE_TRACK)
+                # off the device: free the slot, so assemble picks up the
+                # pooled arrivals while this thread renders
+                self._inflight.release()
+            server.overlap.enter("readback")
+            try:
+                server._finish_pipeline_batch(ab, results)
+            except Exception as e:  # noqa: BLE001 — isolate the batch
+                log.exception("finishing a batch failed")
+                for entry in ab.entries:
+                    if not entry.done.is_set():
+                        entry.result = HTTPError(500, str(e))
+                        entry.done.set()
+            finally:
+                server.overlap.exit("readback")
+                server._record_stage("readback", time.monotonic() - t0)
 
 
 def build_app(server: QueryServer) -> HTTPApp:

@@ -39,7 +39,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 @functools.lru_cache(maxsize=None)
-@functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of CUDA device ``device_index`` (what
     the kernels' launch plans fill)."""

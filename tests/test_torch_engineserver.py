@@ -24,6 +24,7 @@ from predictionio_tpu.templates.recommendation import (
 from predictionio_tpu.templates.recommendation import Query as JaxQuery
 from predictionio_tpu_torch import cli
 from predictionio_tpu_torch.models.convert import als_model_from_numpy
+from predictionio_tpu_torch.server import engineserver as es
 from predictionio_tpu_torch.server.engineserver import ServerConfig, deploy_models
 from predictionio_tpu_torch.templates.recommendation import (
     recommendation_engine,
@@ -143,13 +144,15 @@ def test_concurrent_queries_coalesce(factors, jax_model):
     srv = start(factors, batching=True, batch_window_ms=50.0)
     qs = srv.query_server
     sizes = []
-    inner = qs.query_batch
+    # the batched launch: where both batch paths pass
+    algo = qs.algorithms[0]
+    inner = algo.batch_predict_async
 
-    def spy(batch):
+    def spy(model, batch):
         sizes.append(len(batch))
-        return inner(batch)
+        return inner(model, batch)
 
-    qs.query_batch = spy
+    algo.batch_predict_async = spy
     queries = [{"user": f"u{i}", "num": 5 + i % 4} for i in range(16)]
     answers = [None] * 16
     gate = threading.Barrier(16)
@@ -237,31 +240,45 @@ def test_cli_deploy_of_a_persisted_model(factors, jax_model, tmp_path):
         srv.close()
 
 
-def test_close_serves_queued_queries_first(factors):
-    """MicroBatcher.close(): work queued ahead of the close sentinels
-    still serves, no caller is stranded, and every drainer exits."""
+@pytest.mark.parametrize("pipeline", ["serial", "staged"])
+def test_close_serves_queued_queries_first(factors, pipeline):
+    """The batch path's close(): work queued ahead of the close sentinels
+    still serves, no caller is stranded, and every thread exits. The
+    queries are held in the bound serving's ``serve``, which both paths
+    pass, until close() has begun."""
     base = wait_threads(threading.active_count())
-    srv = start(factors, batching=True, batch_window_ms=0.0)
+    srv = start(factors, batching=True, batch_window_ms=0.0,
+                serving_pipeline=pipeline)
     qs = srv.query_server
     release = threading.Event()
-    inner = qs.query_batch
+    inner = qs.serving.serve
     taken = []
 
-    def held(batch):
-        taken.append(len(batch))
+    def held(query, predictions):
+        taken.append(query)
         release.wait(timeout=10)
-        return inner(batch)
+        return inner(query, predictions)
 
-    qs.query_batch = held
+    qs.serving.serve = held
+    submitted = []
+    put = qs.batcher._q.put
+
+    def counting_put(item, *args, **kwargs):
+        if item is not es._CLOSE:
+            submitted.append(item)
+        return put(item, *args, **kwargs)
+
+    qs.batcher._q.put = counting_put
     answers = []
     callers = [threading.Thread(target=lambda i=i: answers.append(
         qs.serve({"user": f"u{i}", "num": 3}))) for i in range(5)]
     for t in callers:
         t.start()
     deadline = time.monotonic() + 10
-    while sum(taken) + qs.batcher._q.qsize() < 5 \
+    while (len(submitted) < 5 or not taken) \
             and time.monotonic() < deadline:
-        time.sleep(0.01)  # until every query is taken or queued
+        time.sleep(0.01)  # every query submitted, one held in serve
+    assert len(submitted) == 5 and taken
     closer = threading.Thread(target=qs.close)
     closer.start()
     release.set()

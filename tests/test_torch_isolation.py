@@ -38,10 +38,12 @@ def test_no_forbidden_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("sub", ["streaming", "faults", "rollout", "cache"])
+@pytest.mark.parametrize("sub", ["streaming", "faults", "rollout", "cache",
+                                 "obs", "workflow"])
 def test_the_copied_subpackages_are_scanned(sub):
-    """The stream slice's subpackages are the port's own copies: each is
-    in the scan above, and none reaches the JAX package's copy."""
+    """The stream and pipeline slices' subpackages are the port's own
+    copies: each is in the scan above, and none reaches the JAX
+    package's copy."""
     scanned = {p.relative_to(PACKAGE).parts[0] for p in port_files()
                if p.is_relative_to(PACKAGE)}
     assert sub in scanned
@@ -49,6 +51,13 @@ def test_the_copied_subpackages_are_scanned(sub):
     assert files
     for path in files:
         assert not set(imported_roots(path)) & FORBIDDEN, path
+
+
+def test_the_pipeline_modules_are_scanned():
+    scanned = set(port_files())
+    for rel in ("obs/overlap.py", "workflow/batch_predict.py",
+                "server/engineserver.py"):
+        assert PACKAGE / rel in scanned, rel
 
 
 def test_every_module_imports():
