@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
-lifecycle, batch-predict and streaming fold-in paths once on the CUDA
-card and check them.
+lifecycle, batch-predict, evaluation and streaming fold-in paths once on
+the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -33,7 +33,7 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``server.engineserver.deploy_models`` on the card with int8 serving
             tables and batching, on a free port. 64 single queries go over
             HTTP; then a burst of 2,048 queries on 32 connections from
-            another process (``spawn``, standard library HTTP only), three
+            another process (standard library HTTP only), three
             times on servers of their own over the same bound tables: the
             staged pipeline, the serial drainers, the staged pipeline
             again, then once more staged with this process's interpreter
@@ -142,6 +142,25 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the plain top-k on the trained f32 tables within 1e-5 *
             (1 + |plain|), each item scoring what was returned beside it
             (float64). Prints the rows per second of the command.
+8c. eval  — ``cli eval chip_smoke:EVALUATION chip_smoke:GRID`` on the
+            card from phase 8's store (the CLI loads both from this file:
+            the shipped example's metrics, Precision@10 at threshold 4.0
+            optimized; 3 folds x ALS rank 64 with 5 and 10 iterations),
+            then the same with ``--parallelism 2``. Each run: the launch
+            counts of all four kernels zeroed just before and read just
+            after (``fused_gram``, ``chol_solve``, ``fused_topk``
+            positive, ``gram_table`` 0); exactly 3 packings and 6
+            trainings (``models.als.pack_ratings`` and
+            ``ALSAlgorithm.train`` wrapped here); every held-out query's
+            10 items held against the plain top-k in float64 on the card
+            as ``verify_topk`` holds the kernel; Precision@10 recomputed
+            from those plain answers equal to the reported score, or
+            within the share of lists that differ inside a near-tie; the
+            instance EVALCOMPLETED with ``bestIndex`` the argmax of its
+            scores. The two runs give the same scores bit for bit and the
+            same launches. One line a run: the command's seconds,
+            ``read_eval``'s, each params set's ``trainS``/``evalS`` and
+            score, held-out queries scored a second, launches.
 9. stream — streaming fold-in on phase 8's store and model: the stream
             cursor set where the trained log ends, ``cli deploy --batching
             --stream --stream-app MyApp1 --stream-max-events 512
@@ -168,7 +187,8 @@ Phases, each printing one line of numbers, any failure exits non-zero:
 
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
 launches on the main path, in the batch-predict job for ``fused_topk``,
-and on the stream path) and, last, ``{"ok": true, "device": {...}}``.
+in the serial eval run, and on the stream path) and, last, ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -178,9 +198,12 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib.util
+import inspect
 import io
 import json
+import os
 import shutil
+import subprocess
 import sys
 import tempfile
 import threading
@@ -190,6 +213,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from predictionio_tpu_torch.controller.evaluation import EngineParamsGenerator
+from predictionio_tpu_torch.controller.params import EngineParams
+from predictionio_tpu_torch.examples import recommendation_evaluation
+from predictionio_tpu_torch.models.als import ALSParams
+from predictionio_tpu_torch.templates.recommendation import DataSourceParams
 
 # ML-20M at rank 64: the north-star serving width
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 64
@@ -517,12 +546,12 @@ BURST_MODES = ("staged", "serial", "staged")
 DIAG_SWITCH_INTERVAL_S = 0.0005
 
 
-def burst_clients(port: int, queries: list, n_clients: int, conn) -> None:
-    """The burst's load generator, run in a process of its own (started
-    with ``spawn``; standard library only, so it shares no interpreter
-    lock with the server): ``n_clients`` connections, each posting its
-    share of ``queries`` one after another. Sends back ``(wall_s,
-    [(status, body, seconds), ...] in query order, [errors])``."""
+def burst_clients(port: int, queries: list, n_clients: int) -> tuple:
+    """The burst's load generator, run in a process of its own (standard
+    library only, so it shares no interpreter lock with the server):
+    ``n_clients`` connections, each posting its share of ``queries`` one
+    after another. Returns ``(wall_s, [(status, body, seconds), ...] in
+    query order, [errors])``."""
     import http.client
 
     results = [None] * len(queries)
@@ -553,36 +582,39 @@ def burst_clients(port: int, queries: list, n_clients: int, conn) -> None:
     t0 = time.perf_counter()
     for t in threads:
         t.join()
-    conn.send((time.perf_counter() - t0, results, errors))
-    conn.close()
+    return time.perf_counter() - t0, results, errors
+
+
+#: the burst's client process: ``burst_clients`` alone, its arguments
+#: read as JSON from standard input and its result written as JSON to
+#: standard output (no torch, no multiprocessing helper process)
+BURST_MAIN = """\
+import json, sys, threading, time
+{source}
+json.dump(burst_clients(**json.load(sys.stdin)), sys.stdout)
+"""
 
 
 def run_burst(port: int, queries: list) -> tuple:
-    """The burst from another process; ``(wall_s, results)``."""
-    import multiprocessing
-
-    mp = multiprocessing.get_context("spawn")
-    parent, child = mp.Pipe(duplex=False)
-    proc = mp.Process(target=burst_clients,
-                      args=(port, queries, BURST_CLIENTS, child),
-                      daemon=True)
-    proc.start()
-    child.close()
+    """The burst from another process, waited for whatever happens;
+    ``(wall_s, results)``."""
+    src = BURST_MAIN.format(source=inspect.getsource(burst_clients))
+    proc = subprocess.Popen([sys.executable, "-c", src],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    args = dict(port=port, queries=queries, n_clients=BURST_CLIENTS)
     try:
-        check(parent.poll(300), "the burst's client process sent nothing "
-              "in 300 s")
-        try:
-            wall, results, errors = parent.recv()
-        except EOFError:
-            fail(f"the burst's client process died (exit "
-                 f"{proc.exitcode})")
-        proc.join(timeout=60)
-        check(proc.exitcode == 0,
-              f"the burst's client process exited {proc.exitcode}")
+        out, err = proc.communicate(json.dumps(args), timeout=300)
+    except subprocess.TimeoutExpired:
+        out, err = None, "no answer in 300 s"
     finally:
-        if proc.is_alive():
-            proc.terminate()
-            proc.join(timeout=10)
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(out is not None and proc.returncode == 0,
+          f"the burst's client process failed (exit {proc.returncode}): "
+          f"{err[-500:]}")
+    wall, results, errors = json.loads(out)
     check(not errors, f"burst clients failed: {errors[:3]}")
     check(all(r is not None for r in results), "a burst query got no answer")
     bad = [r[:2] for r in results if r[0] != 200]
@@ -1628,6 +1660,32 @@ PIO_APP = "MyApp1"
 #: rows per npz column block of the bulk ingest route
 PIO_BLOCK = 100_000
 
+#: the eval phase's folds, answer length and the grid's iteration counts
+EVAL_K, EVAL_QUERY_NUM, EVAL_ITERS = 3, 10, (5, 10)
+
+#: the evaluation ``cli eval chip_smoke:EVALUATION chip_smoke:GRID`` runs:
+#: the shipped example's (its metrics, Precision@10 at threshold 4.0 the
+#: one optimized), on the grid below
+EVALUATION = recommendation_evaluation.evaluation
+
+
+class _EvalGrid(EngineParamsGenerator):
+    """3 folds of the ``pio`` store x ALS at rank 64 with 5 and 10
+    iterations."""
+
+    engine_params_list = [
+        EngineParams(
+            datasource=("", DataSourceParams(
+                app_name=PIO_APP, eval_k=EVAL_K,
+                eval_query_num=EVAL_QUERY_NUM)),
+            algorithms=[("als", ALSParams(rank=RANK, num_iterations=it,
+                                          reg=0.01, seed=3))])
+        for it in EVAL_ITERS
+    ]
+
+
+GRID = _EvalGrid()
+
 
 def rating_block(users, items, stars, t0_ms: int):
     """One npz column block of ``rate`` events with their ``rating``
@@ -1975,6 +2033,240 @@ def phase_batchpredict(data, dev, home: str, pio: dict) -> int:
     return launches
 
 
+def eval_answers(seen: dict, dev, tag: str) -> tuple:
+    """Every answer of a ``cli eval`` run (``seen["predicts"]``: model,
+    queries, results of each ``batch_predict``) against the plain top-k
+    in float64 on the card, held as ``verify_topk`` holds the kernel.
+    Returns (largest score difference, queries, {id of a fold's first
+    result: the plain item lists})."""
+    worst, n_queries, plain_items = 0.0, 0, {}
+    for model, queries, results in seen["predicts"]:
+        U64 = model.user_factors.to(dev).double()
+        V64 = model.item_factors.to(dev).double()[:model.n_items]
+        inv = model.item_ids.inverse
+        rows = np.array([model.user_ids[q.user] for q in queries])
+        plain = []
+        for s0 in range(0, len(rows), BATCH):
+            idx = torch.from_numpy(rows[s0:s0 + BATCH].astype(np.int32)
+                                   ).to(dev)
+            ps, pi = torch.sort(U64[idx.long()] @ V64.T, dim=1,
+                                descending=True, stable=True)
+            ps, pi = ps[:, :EVAL_QUERY_NUM], pi[:, :EVAL_QUERY_NUM]
+            part = results[s0:s0 + BATCH]
+            check(all(len(r.item_scores) == EVAL_QUERY_NUM for r in part),
+                  f"{tag}: an answer has not {EVAL_QUERY_NUM} items")
+            got_i = torch.tensor([[model.item_ids[x.item]
+                                   for x in r.item_scores] for r in part],
+                                 device=dev)
+            got_s = torch.tensor([[x.score for x in r.item_scores]
+                                  for r in part], dtype=torch.float32,
+                                 device=dev)
+            worst = max(worst, verify_topk(tag, got_s, got_i, ps, U64, V64,
+                                           idx, RTOL["f32"]))
+            plain += [[inv[j] for j in row] for row in pi.tolist()]
+        plain_items[id(results[0])] = plain
+        n_queries += len(queries)
+    return worst, n_queries, plain_items
+
+
+def phase_eval(dev, home: str) -> dict:
+    """``cli eval chip_smoke:EVALUATION chip_smoke:GRID`` on the card
+    from the ``pio`` phase's store, then the same with ``--parallelism
+    2``. Each run: the launch counts of all four kernels zeroed just
+    before and read just after; packings and trainings counted by
+    wrapping ``models.als.pack_ratings`` and ``ALSAlgorithm.train``;
+    every answer held against the plain top-k in float64 on the card;
+    the optimized metric recomputed from the plain answers; the
+    EVALCOMPLETED instance and its ``bestIndex``. The two runs must give
+    the same scores bit for bit and the same launch counts."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.storage.base import STATUS_EVALCOMPLETED
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.templates import recommendation as prec
+
+    # the module the CLI loads the evaluation from (when this file runs
+    # as a script, a second copy of it beside ``__main__``)
+    evaluation = importlib.import_module("chip_smoke").EVALUATION
+    metric = evaluation.metric
+    originals = dict(pack=als.pack_ratings, train=prec.ALSAlgorithm.train,
+                     predict=prec.ALSAlgorithm.batch_predict,
+                     read=prec.RecommendationDataSource.read_eval)
+
+    def instrument() -> dict:
+        seen = {"packs": 0, "trains": 0, "predicts": [], "metric": [],
+                "read_s": 0.0, "predict_s": 0.0, "metrics_s": 0.0}
+        lock = threading.Lock()
+
+        def counted_pack(*a, **k):
+            with lock:
+                seen["packs"] += 1
+            return originals["pack"](*a, **k)
+
+        def counted_train(self, ctx, td):
+            with lock:
+                seen["trains"] += 1
+            return originals["train"](self, ctx, td)
+
+        def kept_predict(self, model, queries):
+            t0 = time.perf_counter()
+            out = originals["predict"](self, model, queries)
+            with lock:
+                seen["predict_s"] += time.perf_counter() - t0
+                seen["predicts"].append((model, queries, out))
+            return out
+
+        def timed_read(self, ctx):
+            t0 = time.perf_counter()
+            folds = originals["read"](self, ctx)
+            with lock:
+                seen["read_s"] += time.perf_counter() - t0
+            return folds
+
+        def timed_calculate(m):
+            def calculate(eval_data):
+                t0 = time.perf_counter()
+                score = type(m).calculate(m, eval_data)
+                with lock:
+                    seen["metrics_s"] += time.perf_counter() - t0
+                    if m is metric:
+                        seen["metric"].append((eval_data, score))
+                return score
+            return calculate
+
+        als.pack_ratings = counted_pack
+        prec.ALSAlgorithm.train = counted_train
+        prec.ALSAlgorithm.batch_predict = kept_predict
+        prec.RecommendationDataSource.read_eval = timed_read
+        for m in evaluation.metrics:
+            m.calculate = timed_calculate(m)
+        return seen
+
+    def restore() -> None:
+        als.pack_ratings = originals["pack"]
+        prec.ALSAlgorithm.train = originals["train"]
+        prec.ALSAlgorithm.batch_predict = originals["predict"]
+        prec.RecommendationDataSource.read_eval = originals["read"]
+        for m in evaluation.metrics:
+            m.__dict__.pop("calculate", None)
+
+    storage = Storage(env={"PIO_HOME": home})
+    runs = []
+    try:
+        for extra in ([], ["--parallelism", "2"]):
+            tag = "eval " + (" ".join(extra) or "serial")
+            before = {i.id for i in storage.evaluation_instances().get_all()}
+            seen = instrument()
+            try:
+                # -- the eval path, counted ------------------------------
+                fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
+                out = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(["eval", "chip_smoke:EVALUATION",
+                                   "chip_smoke:GRID", *extra],
+                                  storage=storage)
+                cmd_s = time.perf_counter() - t
+                launches = {"fused_gram": fg.LAUNCHES,
+                            "chol_solve": sv.LAUNCHES,
+                            "fused_topk": ft.LAUNCHES,
+                            "gram_table": gram.LAUNCHES}
+                # ------------------------------------------------------
+            finally:
+                restore()
+            check(rc == 0, f"{tag}: cli eval returned {rc}: "
+                  f"{out.getvalue()}")
+            for name in ("fused_gram", "chol_solve", "fused_topk"):
+                check(launches[name] > 0, f"{tag} launched {name} no time")
+            check(launches["gram_table"] == 0,
+                  f"{tag} launched gram_table {launches['gram_table']} "
+                  f"times")
+            n_sets = len(GRID.engine_params_list)
+            check(seen["packs"] == EVAL_K,
+                  f"{tag}: {seen['packs']} packings, not one a fold")
+            check(seen["trains"] == EVAL_K * n_sets,
+                  f"{tag}: {seen['trains']} trainings, not one a fold and "
+                  f"params set")
+            (inst,) = [i for i in storage.evaluation_instances().get_all()
+                       if i.id not in before]
+            check(inst.status == STATUS_EVALCOMPLETED,
+                  f"{tag}: evaluation instance {inst.id} is {inst.status}")
+            result = json.loads(inst.evaluator_results_json)
+            scores = result["metricScoresList"]
+            best = 0
+            for k in range(1, len(scores)):
+                if metric.compare(scores[k]["score"],
+                                  scores[best]["score"]) > 0:
+                    best = k
+            check(result["bestIndex"] == best and len(scores) == n_sets,
+                  f"{tag}: bestIndex {result['bestIndex']}, argmax {best}")
+            check(out.getvalue().strip().splitlines()[-1]
+                  == inst.evaluator_results,
+                  f"{tag}: printed {out.getvalue()!r}, recorded "
+                  f"{inst.evaluator_results!r}")
+
+            worst, n_queries, plain_items = eval_answers(seen, dev, tag)
+            n_diff = 0
+            for eval_data, score in seen["metric"]:
+                plain_data, diff = [], 0
+                for ei, qpas in eval_data:
+                    lists = plain_items[id(qpas[0][1])]
+                    diff += sum([x.item for x in p.item_scores] != items
+                                for (_, p, _), items in zip(qpas, lists))
+                    plain_data.append((ei, [
+                        (q, prec.PredictedResult(tuple(
+                            prec.ItemScore(item=it, score=0.0)
+                            for it in items)), a)
+                        for (q, _, a), items in zip(qpas, lists)]))
+                again = metric.calculate(plain_data)
+                counted = len(metric._scores(plain_data))
+                check(again == score or abs(again - score) <= diff / counted,
+                      f"{tag}: {metric.header} from the plain answers "
+                      f"{again!r}, reported {score!r} ({diff} lists differ "
+                      f"inside a near-tie)")
+                n_diff += diff
+            runs.append(dict(tag=tag, cmd_s=cmd_s, launches=launches,
+                             scores=scores, seen=seen, n_queries=n_queries,
+                             worst=worst, n_diff=n_diff, best=best))
+            per_set = " | ".join(
+                f"iters={it} trainS={s['trainS']:.3f} evalS="
+                f"{s['evalS']:.3f} score={s['score']!r}"
+                for it, s in zip(EVAL_ITERS, scores))
+            rank = GRID.engine_params_list[0].algorithms[0][1].rank
+            print(f"phase {tag}: cli eval {cmd_s:.3f}s ({EVAL_K} folds x "
+                  f"{n_sets} params sets at rank {rank}) | read_eval "
+                  f"{seen['read_s']:.3f}s | {per_set} | {n_queries} "
+                  f"held-out queries scored = {n_queries / cmd_s:.1f} "
+                  f"queries/s of the command ({seen['predict_s']:.3f}s in "
+                  f"batch_predict) | {len(evaluation.metrics)} metrics "
+                  f"{seen['metrics_s']:.3f}s | packings={seen['packs']} "
+                  f"trainings="
+                  f"{seen['trains']} | launches fused_gram="
+                  f"{launches['fused_gram']} chol_solve="
+                  f"{launches['chol_solve']} fused_topk="
+                  f"{launches['fused_topk']} gram_table="
+                  f"{launches['gram_table']} | best variant {best} | "
+                  f"answers within {worst:.3e} of the plain float64 top-"
+                  f"{EVAL_QUERY_NUM}, {n_diff} item lists differ inside a "
+                  f"near-tie | instance {inst.id} {inst.status}", flush=True)
+            seen.clear()
+    finally:
+        storage.close()
+    serial, parallel = runs
+    for key in ("score", "otherScores"):
+        check([s[key] for s in serial["scores"]]
+              == [s[key] for s in parallel["scores"]],
+              f"eval: the parallel run's {key} differ from the serial run's")
+    check(serial["launches"] == parallel["launches"],
+          f"eval: launches serial {serial['launches']} parallel "
+          f"{parallel['launches']}")
+    return serial["launches"]
+
+
 #: the stream phase: bursts, and the events of one burst by kind
 STREAM_BURSTS = 3
 STREAM_USERS, STREAM_USER_EVENTS = 32, 14      # 448 on existing users
@@ -2304,6 +2596,20 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
 
 
 
+def check_no_children() -> None:
+    """Every process this script started has ended: none has this
+    process as its parent."""
+    me, left = str(os.getpid()), []
+    for d in Path("/proc").iterdir():
+        try:
+            stat = (d / "stat").read_text()
+        except (OSError, ValueError):
+            continue
+        if d.name.isdigit() and stat.rsplit(")", 1)[1].split()[1] == me:
+            left.append(f"{d.name} {stat.split()[1]}")
+    check(not left, f"processes left running: {left}")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2362,39 +2668,47 @@ def main(argv=None) -> int:
                                     lambda: phase_pio(data, dev, home))
         with phase("batchpredict"):
             batch_launches = phase_batchpredict(data, dev, home, pio)
+        with phase("eval"):
+            eval_l = phase_eval(dev, home)
         with phase("stream"):
             stream_l = phase_stream(data, dev, home, pio, args.seed)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
     # training for the others); batch_launches: the batchpredict job's;
-    # stream_launches: the stream phase's path
+    # eval_launches: the serial cli eval's; stream_launches: the stream
+    # phase's path
     kernels = [
         dict(name="fused_topk", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_topk.cu",
              replaces="predictionio_tpu/ops/fused_topk.py:97",
              launches=launches, batch_launches=batch_launches,
+             eval_launches=eval_l["fused_topk"],
              stream_launches=stream_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
              launches=trained["launches"]["fused_gram"],
+             eval_launches=eval_l["fused_gram"],
              stream_launches=stream_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
              launches=trained["launches"]["chol_solve"],
+             eval_launches=eval_l["chol_solve"],
              stream_launches=stream_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
              launches=pio["gram_table_launches"],
+             eval_launches=eval_l["gram_table"],
              stream_launches=stream_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="
           f"{stream_kernel_l['chol_solve']}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    check_no_children()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

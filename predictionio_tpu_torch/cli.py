@@ -12,31 +12,36 @@
         [--stream --stream-app MyApp1]
     python -m predictionio_tpu_torch.cli batchpredict \\
         --engine-json engine.json --input q.jsonl --output out.jsonl
+    python -m predictionio_tpu_torch.cli eval module:evaluation \\
+        [module:params_generator] [--parallelism N]
     python -m predictionio_tpu_torch.cli stream status|start|stop \\
         [--port 8000] [--app MyApp1]
 
 Storage is the JAX package's: ``PIO_STORAGE_*`` variables, else one
-SQLite file at ``$PIO_HOME/pio.db``. ``train``, ``deploy`` and
-``batchpredict`` run on the CUDA card unless ``--device cpu`` is given;
-without CUDA they raise. ``deploy`` binds the latest COMPLETED instance
-of the variant's engine, or, with ``--model``, a file written by
+SQLite file at ``$PIO_HOME/pio.db``. ``train``, ``deploy``,
+``batchpredict`` and ``eval`` run on the CUDA card unless ``--device
+cpu`` is given; without CUDA they raise. ``deploy`` binds the latest
+COMPLETED instance of the variant's engine, or, with ``--model``, a file
+written by
 ``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``.
 With ``--batching`` concurrent queries coalesce through the staged
 pipeline (``--pipeline serial``: the drainer threads), each shed with a
 503 past ``--queue-deadline-ms``. ``batchpredict`` writes one
 ``{"query", "prediction"}`` line for each query line of ``--input``,
-from the latest COMPLETED instance.
+from the latest COMPLETED instance. ``eval`` walks the generator's params
+grid (or the evaluation's own ``engine_params_list``), prints the
+winner's one-liner and records an EVALCOMPLETED evaluation instance.
 With ``--stream`` a stream trainer folds the app's new events into the
 served model (not with ``--model``: it needs the storage the instance
 came from). ``stream`` drives a running engine server's trainer over
 HTTP.
 
-An ``engineFactory`` under ``predictionio_tpu.`` is read as the same path
-under ``predictionio_tpu_torch.``, so the JAX package's shipped variants
-train and deploy on the port unchanged; the JAX package is never
-imported. Left out (``ROADMAP.md`` queue 1): eval, build, undeploy,
-status, export, channels and app deletion, TLS, fleets and the release
-commands.
+An ``engineFactory``, evaluation or params generator under
+``predictionio_tpu.`` is read as the same path under
+``predictionio_tpu_torch.``, so the JAX package's shipped variants train
+and deploy on the port unchanged; the JAX package is never imported.
+Left out (``ROADMAP.md`` queue 1): build, undeploy, status, export,
+channels and app deletion, TLS, fleets and the release commands.
 """
 
 from __future__ import annotations
@@ -278,6 +283,36 @@ def cmd_batchpredict(args, storage: Storage) -> int:
     return 0
 
 
+def cmd_eval(args, storage: Storage) -> int:
+    """Evaluate a params grid on the card unless ``--device cpu``; print
+    the winner's one-liner."""
+    from .workflow.core import run_evaluation
+
+    evaluation = load_engine_factory(args.evaluation)
+    if callable(evaluation) and not hasattr(evaluation, "engine"):
+        evaluation = evaluation()
+    params_list = None
+    if args.engine_params_generator:
+        gen = load_engine_factory(args.engine_params_generator)
+        if callable(gen) and not hasattr(gen, "engine_params_list"):
+            gen = gen()
+        params_list = list(gen.engine_params_list)
+    elif getattr(evaluation, "engine_params_list", None):
+        params_list = list(evaluation.engine_params_list)
+    if not params_list:
+        _err("No engine params to evaluate; provide an engine params "
+             "generator.")
+        return 1
+    ctx = Context(device=args.device, _storage=storage)
+    result = run_evaluation(
+        ctx, evaluation, params_list,
+        evaluation_class=args.evaluation,
+        params_generator_class=args.engine_params_generator or "",
+        parallelism=max(1, args.parallelism))
+    _out(result.to_one_liner())
+    return 0
+
+
 def _server_call(args, path: str, method: str = "GET",
                  body: Optional[dict] = None):
     """One JSON call to the engine server at ``args.ip``:``args.port``."""
@@ -456,6 +491,17 @@ def _parser() -> argparse.ArgumentParser:
                        help="touched-user probes gating each fold-in (0 "
                             "disables the gate)")
 
+    s = sub.add_parser("eval", help="run an evaluation")
+    s.add_argument("evaluation", help="module.path:evaluation_object")
+    s.add_argument("engine_params_generator", nargs="?", default="",
+                   help="module.path:params_generator (optional)")
+    s.add_argument("--parallelism", type=int, default=1,
+                   help="grid-walk thread pool size (fold reads, packings "
+                        "and trainings are shared; >1 overlaps host work "
+                        "with the card's)")
+    s.add_argument("--device", default=None,
+                   help="the device (default: the CUDA card)")
+
     s = sub.add_parser("stream", help="attach, stop or inspect a running "
                                       "engine server's stream trainer")
     stream_sub = s.add_subparsers(dest="stream_command", required=True)
@@ -492,6 +538,8 @@ def main(argv: Optional[List[str]] = None,
         return cmd_train(args, storage)
     if args.command == "batchpredict":
         return cmd_batchpredict(args, storage)
+    if args.command == "eval":
+        return cmd_eval(args, storage)
     if args.command == "eventserver":
         return _serve(build_eventserver(args, storage), "Event Server", args)
     srv = build_deploy(args, storage)

@@ -1,0 +1,90 @@
+"""DASE controller API: what engine templates and evaluations import
+(the port's counterpart of ``predictionio_tpu.controller``'s exports).
+
+Left out (``ROADMAP.md`` queue 1): ``PersistentModel``,
+``LocalFileSystemPersistentModel`` and ``PersistentModelManifest``
+(item 6), ``SelfCleaningDataSource`` and ``EventWindow`` (item 12).
+"""
+
+from .base import (
+    Algorithm,
+    AverageServing,
+    DataSource,
+    FirstServing,
+    IdentityPreparator,
+    Preparator,
+    SanityCheck,
+    Serving,
+)
+from .context import Context, default_context
+from .engine import Engine, EngineFactory, SimpleEngine, TrainResult
+from .evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    MetricEvaluator,
+    MetricEvaluatorResult,
+    save_best_variant_json,
+)
+from .fast_eval import FastEvalEngine, FastEvalEngineWorkflow
+from .metric import (
+    AverageMetric,
+    Metric,
+    OptionAverageMetric,
+    OptionStdevMetric,
+    PointwiseMetric,
+    StdevMetric,
+    SumMetric,
+    ZeroMetric,
+    ndcg_at_k,
+    precision_at_k,
+)
+from .params import (
+    EmptyParams,
+    EngineParams,
+    Params,
+    engine_params_from_variant,
+    load_variant,
+    params_from_json,
+    params_to_json,
+)
+
+__all__ = [
+    "FastEvalEngineWorkflow",
+    "FastEvalEngine",
+    "Algorithm",
+    "AverageMetric",
+    "AverageServing",
+    "Context",
+    "DataSource",
+    "EmptyParams",
+    "Engine",
+    "EngineFactory",
+    "EngineParams",
+    "EngineParamsGenerator",
+    "Evaluation",
+    "FirstServing",
+    "IdentityPreparator",
+    "Metric",
+    "MetricEvaluator",
+    "MetricEvaluatorResult",
+    "OptionAverageMetric",
+    "OptionStdevMetric",
+    "Params",
+    "PointwiseMetric",
+    "Preparator",
+    "SanityCheck",
+    "Serving",
+    "SimpleEngine",
+    "StdevMetric",
+    "SumMetric",
+    "TrainResult",
+    "ZeroMetric",
+    "default_context",
+    "engine_params_from_variant",
+    "load_variant",
+    "ndcg_at_k",
+    "params_from_json",
+    "params_to_json",
+    "precision_at_k",
+    "save_best_variant_json",
+]

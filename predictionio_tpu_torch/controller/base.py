@@ -10,11 +10,14 @@ are plain objects holding torch tensors; there is no mesh.
 from __future__ import annotations
 
 import abc
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
 from .context import Context
+
+#: One evaluation fold: (training data, eval info, [(query, actual)]).
+EvalFold = Tuple[Any, Any, List[Tuple[Any, Any]]]
 
 
 class SanityCheck(abc.ABC):
@@ -27,11 +30,16 @@ class SanityCheck(abc.ABC):
 
 
 class DataSource(abc.ABC):
-    """Reads the training data."""
+    """Reads the training data, and the folds an evaluation scores."""
 
     @abc.abstractmethod
     def read_training(self, ctx: Context) -> Any:
         ...
+
+    def read_eval(self, ctx: Context) -> List[EvalFold]:
+        """Folds of (training data, eval info, [(query, actual)]) for
+        evaluation; default: none (the evaluator then raises)."""
+        return []
 
 
 class Preparator(abc.ABC):
@@ -97,3 +105,13 @@ class FirstServing(Serving):
 
     def serve(self, query, predictions):
         return predictions[0]
+
+
+class AverageServing(Serving):
+    """Average numeric predictions."""
+
+    def __init__(self, params: Any = None):
+        pass
+
+    def serve(self, query, predictions):
+        return sum(predictions) / len(predictions)

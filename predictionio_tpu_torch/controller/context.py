@@ -47,3 +47,7 @@ class Context:
 
     def copy(self, **changes) -> "Context":
         return replace(self, **changes)
+
+
+def default_context(**kw) -> Context:
+    return Context(**kw)

@@ -1,13 +1,14 @@
-"""Engine: binds named DASE component classes and trains (the port of
-``predictionio_tpu/controller/engine.py``: training and serving slots;
-eval and deploy-time re-materialization are not ported yet)."""
+"""Engine: binds named DASE component classes, trains and evaluates (the
+port of ``predictionio_tpu/controller/engine.py``; deploy-time
+re-materialization of persisted model flavours is not ported yet,
+``ROADMAP.md`` queue 1)."""
 
 from __future__ import annotations
 
 import logging
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple, Type, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Type, Union
 
 from .base import Algorithm, DataSource, Preparator, SanityCheck, Serving
 from .context import Context
@@ -125,3 +126,52 @@ class Engine:
             models.append(model)
         stages["algo_train_s"] = round(time.monotonic() - t0, 2)
         return TrainResult(models=models, engine_params=engine_params)
+
+    def eval(self, ctx: Context, engine_params: EngineParams
+             ) -> List[Tuple[Any, List[Tuple[Any, Any, Any]]]]:
+        """Per fold ``(eval_info, [(query, served prediction, actual)])``.
+        Trains every algorithm on every fold, predicts with
+        ``batch_predict`` and serves the aligned per-algorithm
+        predictions."""
+        datasource = self.make_datasource(engine_params)
+        folds = datasource.read_eval(ctx)
+        preparator = self.make_preparator(engine_params)
+        serving = self.make_serving(engine_params)
+        results = []
+        for fold_i, (td, eval_info, qa) in enumerate(folds):
+            pd = preparator.prepare(ctx, td)
+            queries = [serving.supplement(q) for q, _ in qa]
+            actuals = [a for _, a in qa]
+            per_algo: List[List[Any]] = []
+            for algo in self.make_algorithms(engine_params):
+                model = algo.train(ctx, pd)
+                per_algo.append(algo.batch_predict(model, queries))
+            served = [serving.serve(q, [preds[i] for preds in per_algo])
+                      for i, q in enumerate(queries)]
+            results.append((eval_info, list(zip(queries, served, actuals))))
+            log.info("eval fold %d: %d queries", fold_i, len(queries))
+        return results
+
+    def batch_eval(self, ctx: Context, params_list: Sequence[EngineParams]
+                   ) -> List[Tuple[EngineParams, list]]:
+        """:meth:`eval` of every params set."""
+        return [(ep, self.eval(ctx, ep)) for ep in params_list]
+
+
+class SimpleEngine(Engine):
+    """Single-class engine with the identity preparator and first
+    serving."""
+
+    def __init__(self, datasource_class: Type, algorithm_class: Type, **kw):
+        from .base import FirstServing, IdentityPreparator
+        super().__init__(algorithm_class, FirstServing,
+                         datasource_classes=datasource_class,
+                         preparator_classes=IdentityPreparator, **kw)
+
+
+class EngineFactory:
+    """Convention object templates export: subclass, or provide a
+    callable returning an :class:`Engine`."""
+
+    def apply(self) -> Engine:
+        raise NotImplementedError

@@ -15,6 +15,15 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Type
 from ..utils.jsonutil import from_jsonable
 
 
+class Params:
+    """Optional marker base for controller params; any dataclass works."""
+
+
+@dataclasses.dataclass(frozen=True)
+class EmptyParams(Params):
+    pass
+
+
 def params_to_json(params: Any) -> dict:
     """A params object as a JSON dict (dataclass fields, or the dict
     itself)."""
@@ -53,7 +62,7 @@ def instantiate(controller_cls: Type, params: Any):
                        inspect.Parameter.POSITIONAL_ONLY))
     if n_required >= 1:
         return controller_cls(params)
-    if params not in (None, {}) and len(sig.parameters) > 1:
+    if params not in (None, {}, EmptyParams()) and len(sig.parameters) > 1:
         return controller_cls(params)
     return controller_cls()
 
@@ -67,6 +76,23 @@ class EngineParams:
     preparator: Tuple[str, Any] = ("", None)
     algorithms: Sequence[Tuple[str, Any]] = (("", None),)
     serving: Tuple[str, Any] = ("", None)
+
+    def copy(self, **changes) -> "EngineParams":
+        return dataclasses.replace(self, **changes)
+
+    def to_json(self) -> dict:
+        """The engine.json variant shape of these params (the
+        evaluator's result JSON and its best-variant file)."""
+        def one(pair):
+            name, p = pair
+            return {"name": name, "params": params_to_json(p)}
+
+        return {
+            "dataSourceParams": one(self.datasource),
+            "preparatorParams": one(self.preparator),
+            "algorithmsParams": [one(a) for a in self.algorithms],
+            "servingParams": one(self.serving),
+        }
 
 
 def engine_params_from_variant(

@@ -4,12 +4,13 @@ own copy of ``predictionio_tpu/data/storage/base.py``).
 ``EventStore`` is the event log: init/remove, all-or-nothing batch
 inserts, the columnar block insert, get/delete, filtered ``find`` and the
 bulk ``find_columnar`` training read. The metadata entities (``App``,
-``AccessKey``, ``Channel``, ``EngineInstance``, ``Model``) and their DAOs
-match the JAX package's field for field, so one SQLite file serves both.
+``AccessKey``, ``Channel``, ``EngineInstance``, ``EvaluationInstance``,
+``Model``) and their DAOs match the JAX package's field for field, so one
+SQLite file serves both.
 
 Left out (``ROADMAP.md`` queue 1): multi-host sharded reads
 (``find_columnar(shard=...)`` raises), property aggregation
-(``aggregate_properties``), the evaluation-instance DAO, the scan
+(``aggregate_properties``), the scan
 deadline of serving-time point reads and the bulk JSON-lines block
 reader of the SEGMENTFS lane.
 """
@@ -253,9 +254,11 @@ class Channel:
         return bool(re.fullmatch(r"[a-zA-Z0-9-]{1,16}", s))
 
 
-#: EngineInstance lifecycle states: INIT -> COMPLETED
+#: EngineInstance lifecycle states: INIT -> COMPLETED; an
+#: EvaluationInstance goes INIT -> EVALCOMPLETED
 STATUS_INIT = "INIT"
 STATUS_COMPLETED = "COMPLETED"
+STATUS_EVALCOMPLETED = "EVALCOMPLETED"
 
 
 @dataclass(frozen=True)
@@ -278,6 +281,27 @@ class EngineInstance:
     serving_params: str = ""
 
     def copy(self, **changes: Any) -> "EngineInstance":
+        return replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class EvaluationInstance:
+    """An evaluation run: the grid's evaluation and params-generator
+    names, and the evaluator's one-liner, HTML and JSON results."""
+    id: str
+    status: str
+    start_time: datetime
+    end_time: datetime
+    evaluation_class: str = ""
+    engine_params_generator_class: str = ""
+    batch: str = ""
+    env: Dict[str, str] = field(default_factory=dict)
+    spark_conf: Dict[str, str] = field(default_factory=dict)
+    evaluator_results: str = ""
+    evaluator_results_html: str = ""
+    evaluator_results_json: str = ""
+
+    def copy(self, **changes: Any) -> "EvaluationInstance":
         return replace(self, **changes)
 
 
@@ -360,6 +384,22 @@ class EngineInstancesDAO(abc.ABC):
         completed = self.get_completed(engine_id, engine_version,
                                        engine_variant)
         return completed[0] if completed else None
+
+
+class EvaluationInstancesDAO(abc.ABC):
+    @abc.abstractmethod
+    def insert(self, instance: EvaluationInstance) -> str: ...
+    @abc.abstractmethod
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]: ...
+    @abc.abstractmethod
+    def get_all(self) -> List[EvaluationInstance]: ...
+    @abc.abstractmethod
+    def get_completed(self) -> List[EvaluationInstance]:
+        """EVALCOMPLETED instances, latest start time first."""
+    @abc.abstractmethod
+    def update(self, instance: EvaluationInstance) -> None: ...
+    @abc.abstractmethod
+    def delete(self, instance_id: str) -> None: ...
 
 
 class ModelsDAO(abc.ABC):

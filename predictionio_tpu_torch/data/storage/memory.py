@@ -3,8 +3,7 @@
 
 Implements the event-log and metadata DAO contracts; thread-safe, so the
 HTTP servers can call it from their worker threads. Left out: the
-fault-injection points and the evaluation-instance DAO (``ROADMAP.md``
-queue 1).
+fault-injection points (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations
@@ -22,11 +21,14 @@ from .base import (
     ChannelsDAO,
     EngineInstance,
     EngineInstancesDAO,
+    EvaluationInstance,
+    EvaluationInstancesDAO,
     EventFilter,
     EventStore,
     Model,
     ModelsDAO,
     STATUS_COMPLETED,
+    STATUS_EVALCOMPLETED,
 )
 
 _Key = Tuple[int, Optional[int]]
@@ -203,6 +205,39 @@ class MemoryEngineInstances(EngineInstancesDAO):
         return sorted(out, key=lambda i: i.start_time, reverse=True)
 
     def update(self, instance: EngineInstance) -> None:
+        with self._lock:
+            self._instances[instance.id] = instance
+
+    def delete(self, instance_id: str) -> None:
+        with self._lock:
+            self._instances.pop(instance_id, None)
+
+
+class MemoryEvaluationInstances(EvaluationInstancesDAO):
+    def __init__(self, config: Optional[dict] = None):
+        self._instances: Dict[str, EvaluationInstance] = {}
+        self._next = 1
+        self._lock = threading.RLock()
+
+    def insert(self, instance: EvaluationInstance) -> str:
+        with self._lock:
+            iid = instance.id or str(self._next)
+            self._next += 1
+            self._instances[iid] = instance.copy(id=iid)
+            return iid
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        return self._instances.get(instance_id)
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return list(self._instances.values())
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        out = [i for i in self._instances.values()
+               if i.status == STATUS_EVALCOMPLETED]
+        return sorted(out, key=lambda i: i.start_time, reverse=True)
+
+    def update(self, instance: EvaluationInstance) -> None:
         with self._lock:
             self._instances[instance.id] = instance
 

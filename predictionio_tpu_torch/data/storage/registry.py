@@ -26,6 +26,7 @@ from .base import (
     AppsDAO,
     ChannelsDAO,
     EngineInstancesDAO,
+    EvaluationInstancesDAO,
     EventStore,
     ModelsDAO,
     StorageError,
@@ -55,6 +56,8 @@ _BACKENDS: Dict[str, Backend] = {
             "access_keys": lambda c: memory.MemoryAccessKeys(),
             "channels": lambda c: memory.MemoryChannels(),
             "engine_instances": lambda c: memory.MemoryEngineInstances(),
+            "evaluation_instances":
+                lambda c: memory.MemoryEvaluationInstances(),
             "models": lambda c: memory.MemoryModels(),
         }),
     "SQLITE": Backend(
@@ -65,6 +68,8 @@ _BACKENDS: Dict[str, Backend] = {
             "access_keys": lambda c: sqlite.SQLiteAccessKeys(c),
             "channels": lambda c: sqlite.SQLiteChannels(c),
             "engine_instances": lambda c: sqlite.SQLiteEngineInstances(c),
+            "evaluation_instances":
+                lambda c: sqlite.SQLiteEvaluationInstances(c),
             "models": lambda c: sqlite.SQLiteModels(c),
         },
         close=lambda c: c.close()),
@@ -163,6 +168,9 @@ class Storage:
 
     def engine_instances(self) -> EngineInstancesDAO:
         return self._dao("METADATA", "engine_instances")
+
+    def evaluation_instances(self) -> EvaluationInstancesDAO:
+        return self._dao("METADATA", "evaluation_instances")
 
     def models(self) -> ModelsDAO:
         return self._dao("MODELDATA", "models")

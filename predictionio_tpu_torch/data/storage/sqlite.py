@@ -12,9 +12,8 @@ package's format too.
 
 Left out (``ROADMAP.md`` queue 1): the fault-injection points, the
 rebuild of tables from before the ``seq`` column, the forked worker
-processes of the first columnar encode (the port encodes in-process),
-property aggregation over the sidecar and the evaluation-instance DAO
-(its table is still created, so the schema stays the same).
+processes of the first columnar encode (the port encodes in-process)
+and property aggregation over the sidecar.
 """
 
 from __future__ import annotations
@@ -54,11 +53,14 @@ from .base import (
     ChannelsDAO,
     EngineInstance,
     EngineInstancesDAO,
+    EvaluationInstance,
+    EvaluationInstancesDAO,
     EventFilter,
     EventStore,
     Model,
     ModelsDAO,
     STATUS_COMPLETED,
+    STATUS_EVALCOMPLETED,
 )
 
 
@@ -824,6 +826,67 @@ class SQLiteEngineInstances(_SQLiteMeta, EngineInstancesDAO):
 
     def delete(self, instance_id: str) -> None:
         self._exec("DELETE FROM engine_instances WHERE id=?", (instance_id,))
+
+
+_EV_COLS = ("id,status,start_time,end_time,evaluation_class,"
+            "engine_params_generator_class,batch,env,spark_conf,"
+            "evaluator_results,evaluator_results_html,evaluator_results_json")
+
+
+def _ev_from_row(r) -> EvaluationInstance:
+    return EvaluationInstance(
+        id=str(r[0]), status=r[1], start_time=from_millis(r[2]),
+        end_time=from_millis(r[3]), evaluation_class=r[4],
+        engine_params_generator_class=r[5], batch=r[6],
+        env=json.loads(r[7] or "{}"), spark_conf=json.loads(r[8] or "{}"),
+        evaluator_results=r[9], evaluator_results_html=r[10],
+        evaluator_results_json=r[11])
+
+
+class SQLiteEvaluationInstances(_SQLiteMeta, EvaluationInstancesDAO):
+    def insert(self, i: EvaluationInstance) -> str:
+        iid = i.id or new_event_id()
+        self._exec(
+            f"INSERT INTO evaluation_instances ({_EV_COLS}) "
+            "VALUES (?,?,?,?,?,?,?,?,?,?,?,?)",
+            (iid, i.status, to_millis(i.start_time), to_millis(i.end_time),
+             i.evaluation_class, i.engine_params_generator_class, i.batch,
+             json.dumps(i.env), json.dumps(i.spark_conf),
+             i.evaluator_results, i.evaluator_results_html,
+             i.evaluator_results_json))
+        return iid
+
+    def get(self, instance_id: str) -> Optional[EvaluationInstance]:
+        rows = self._query(
+            f"SELECT {_EV_COLS} FROM evaluation_instances WHERE id=?",
+            (instance_id,))
+        return _ev_from_row(rows[0]) if rows else None
+
+    def get_all(self) -> List[EvaluationInstance]:
+        return [_ev_from_row(r) for r in
+                self._query(f"SELECT {_EV_COLS} FROM evaluation_instances")]
+
+    def get_completed(self) -> List[EvaluationInstance]:
+        rows = self._query(
+            f"SELECT {_EV_COLS} FROM evaluation_instances WHERE status=? "
+            "ORDER BY start_time DESC", (STATUS_EVALCOMPLETED,))
+        return [_ev_from_row(r) for r in rows]
+
+    def update(self, i: EvaluationInstance) -> None:
+        self._exec(
+            "UPDATE evaluation_instances SET status=?, start_time=?, "
+            "end_time=?, evaluation_class=?, engine_params_generator_class=?, "
+            "batch=?, env=?, spark_conf=?, evaluator_results=?, "
+            "evaluator_results_html=?, evaluator_results_json=? WHERE id=?",
+            (i.status, to_millis(i.start_time), to_millis(i.end_time),
+             i.evaluation_class, i.engine_params_generator_class, i.batch,
+             json.dumps(i.env), json.dumps(i.spark_conf),
+             i.evaluator_results, i.evaluator_results_html,
+             i.evaluator_results_json, i.id))
+
+    def delete(self, instance_id: str) -> None:
+        self._exec("DELETE FROM evaluation_instances WHERE id=?",
+                   (instance_id,))
 
 
 class SQLiteModels(_SQLiteMeta, ModelsDAO):

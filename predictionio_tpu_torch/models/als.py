@@ -58,6 +58,7 @@ from ..ops.ragged import (
 )
 from ..ops.solve import gramian, solve_spd_batch
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.memo import ComputeOnce
 
 log = logging.getLogger(__name__)
 
@@ -664,7 +665,8 @@ def pack_ratings(ratings: RatingsCOO, params: ALSParams,
         n_users=ratings.n_users, n_items=ratings.n_items)
 
 
-#: id(ratings) -> (weakref to the ratings, {packing key: PackedRatings})
+#: id(ratings) -> (weakref to the ratings, its ComputeOnce over packing
+#: keys)
 _pack_cache: dict = {}
 _pack_cache_lock = threading.Lock()
 
@@ -673,22 +675,19 @@ def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
                         device: DeviceLike = None) -> PackedRatings:
     """Memoizing :func:`pack_ratings`, keyed by the ratings object and
     the knobs the packing reads (``history_mode``, ``max_history``, the
-    device); entries die with the ratings object."""
+    device). Compute-once across threads: the workers of a parallel
+    eval grid walk that miss together wait for one packing (a failed
+    one is retried). Entries die with the ratings object."""
     dev = resolve_device(device)
-    key = (params.history_mode, params.max_history, str(dev))
     with _pack_cache_lock:
         ent = _pack_cache.get(id(ratings))
         if ent is None or ent[0]() is not ratings:
             rid = id(ratings)
             ent = _pack_cache[rid] = (
                 weakref.ref(ratings, lambda _, i=rid: _pack_cache.pop(i, None)),
-                {})
-        packed = ent[1].get(key)
-    if packed is None:
-        packed = pack_ratings(ratings, params, dev)
-        with _pack_cache_lock:
-            ent[1].setdefault(key, packed)
-    return packed
+                ComputeOnce(retry_on_failure=True))
+    key = (params.history_mode, params.max_history, str(dev))
+    return ent[1].get(key, lambda: pack_ratings(ratings, params, dev))
 
 
 def _rows_padded(h) -> int:

@@ -2,9 +2,9 @@
 half of ``predictionio_tpu/models/data.py``.
 
 String-keyed events become dense integer COO ratings and the two id
-``BiMap``s, element for element as the JAX package makes them. Left out
-(``ROADMAP.md`` queue 1): ``kfold_split`` (eval) and the sharded
-multi-host rating sources.
+``BiMap``s, element for element as the JAX package makes them, and
+:func:`kfold_split` cuts them into the evaluation's folds. Left out
+(``ROADMAP.md`` queue 1): the sharded multi-host rating sources.
 """
 
 from __future__ import annotations
@@ -128,6 +128,16 @@ def ratings_from_columnar(
     return (RatingsCOO(u.astype(np.int32), i.astype(np.int32), v,
                        len(user_ids), len(item_ids)),
             user_ids, item_ids)
+
+
+def kfold_split(n: int, k: int, seed: int = 0) -> list:
+    """Index masks ``[(train, test)]`` for k-fold cross-validation over
+    ``n`` COO entries: entry ``j`` is held out of fold
+    ``default_rng(seed).integers(0, k, size=n)[j]``, the JAX package's
+    draw, so both packages make the same folds bit for bit."""
+    rng = np.random.default_rng(seed)
+    fold_of = rng.integers(0, k, size=n)
+    return [(fold_of != f, fold_of == f) for f in range(k)]
 
 
 def rating_selection(event_col, target_col, rating_col,

@@ -28,12 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..utils.device import H100_SMS, sm_count
+from .launches import count_launch
 
 #: largest rank the kernel's register tile holds (``csrc/gram_tile.cuh``
 #: kMaxRank: 32 x 32 blocks of 4 x 4, a thread per lower-triangle block)
@@ -54,10 +54,10 @@ GRAM_SCRATCH_CAP = 32 << 20
 #: kernel's 160-thread blocks fit an SM at rank 64)
 GRAM_BLOCKS_PER_SM = 4
 
-#: kernel launches since the last reset (a plain count; ``chip_smoke.py``
-#: zeroes it before driving the training path and reads it after)
+#: kernel launches since the last reset (counted by
+#: ``launches.count_launch``; ``chip_smoke.py`` zeroes it before driving
+#: the training path and reads it after)
 LAUNCHES = 0
-_launch_lock = threading.Lock()
 
 _ENTRY = {torch.float32: "fused_gram_f32", torch.bfloat16: "fused_gram_bf16"}
 
@@ -156,7 +156,6 @@ def fused_gram(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
     """``(A, b)`` of the fused gather and weighted Gramian (module
     docstring). CPU tensors run the plain version; CUDA tensors launch
     the kernel on the current stream and raise if it is refused."""
-    global LAUNCHES
     _check_args(table, idx, wa, wb)
     dev = table.device
     if dev.type == "cpu":
@@ -186,8 +185,7 @@ def fused_gram(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_gram kernel launch failed: CUDA error "
                            f"{err}")
-    with _launch_lock:
-        LAUNCHES += 1
+    count_launch(__name__)
     return A, b
 
 

@@ -24,12 +24,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..utils.device import H100_SMS, sm_count
+from .launches import count_launch
 
 #: largest k the kernel's running top-k list holds (``csrc/fused_topk.cu``
 #: kMaxK); larger k goes to ``models/als.py::_serve_topk``
@@ -59,10 +59,10 @@ TOPK_SCRATCH_CAP = 32 << 20
 EMPTY_ID = 0x7FFFFFFF
 
 #: wrapper calls that launched the kernel since the last reset, one a call
-#: whatever the number of passes (a plain count; ``chip_smoke.py``
-#: zeroes it before driving the serving path and reads it after)
+#: whatever the number of passes (counted by ``launches.count_launch``;
+#: ``chip_smoke.py`` zeroes it before driving the serving path and reads
+#: it after)
 LAUNCHES = 0
-_launch_lock = threading.Lock()
 
 _ENTRY = {torch.float32: "fused_topk_f32",
           torch.bfloat16: "fused_topk_bf16",
@@ -220,7 +220,6 @@ def fused_topk(user_table: torch.Tensor, idx: torch.Tensor,
     """Top-k of the fused gather and score (module docstring). CPU
     tensors run the plain version; CUDA tensors launch the kernel on the
     current stream and raise if it is refused."""
-    global LAUNCHES
     _check_args(user_table, idx, item_table, user_scale, item_scale, k)
     dev = user_table.device
     if dev.type == "cpu":
@@ -258,8 +257,7 @@ def fused_topk(user_table: torch.Tensor, idx: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_topk kernel launch failed: CUDA error "
                            f"{err}")
-    with _launch_lock:
-        LAUNCHES += 1
+    count_launch(__name__)
     return out_s, out_i
 
 

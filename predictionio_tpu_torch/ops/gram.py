@@ -22,12 +22,12 @@ lowering; the kernel here builds with the other sources) and
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Tuple
 
 import torch
 
 from .fused_gram import _check_args, _check_cuda
+from .launches import count_launch
 
 GRAM_MODES = ("auto", "einsum", "pair", "fused")
 
@@ -60,13 +60,13 @@ def gram_dispatch(F: torch.Tensor, w: torch.Tensor, mode: str,
     return gram_weighted(F, w, bf16=bf16)
 
 
-#: kernel launches since the last reset (``chip_smoke.py`` zeroes it
-#: before driving a path and reads it after)
+#: kernel launches since the last reset (counted by
+#: ``launches.count_launch``; ``chip_smoke.py`` zeroes it before driving a
+#: path and reads it after)
 LAUNCHES = 0
 #: which branch the last launch took: 1 the table in shared memory, 2
 #: rows gathered through L2
 LAST_PATH = 0
-_launch_lock = threading.Lock()
 
 _ENTRY = {torch.float32: "gram_table_f32", torch.bfloat16: "gram_table_bf16"}
 
@@ -97,7 +97,6 @@ def gram_table(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
     int32 and the weights f32, all [B, L]; padding slots carry w = 0.
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream and raise if it is refused."""
-    global LAUNCHES, LAST_PATH
     _check_args(table, idx, wa, wb)
     dev = table.device
     if dev.type == "cpu":
@@ -120,9 +119,7 @@ def gram_table(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gram_table kernel launch failed: CUDA error "
                            f"{err}")
-    with _launch_lock:
-        LAUNCHES += 1
-        LAST_PATH = path.value
+    count_launch(__name__, LAST_PATH=path.value)
     return A, b
 
 

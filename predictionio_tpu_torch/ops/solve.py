@@ -34,12 +34,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple, Tuple
 
 import torch
 
 from ..utils.device import H100_SMS, sm_count
+from .launches import count_launch
 
 #: largest rank the kernel takes (``csrc/chol_solve.cu`` kMaxRank)
 CHOL_MAX_RANK = 128
@@ -55,10 +55,10 @@ CHOL_CHUNK = 8
 #: the most warps a block takes (kWarpsPerBlock)
 CHOL_WARPS_PER_BLOCK = 4
 
-#: kernel launches since the last reset (a plain count; ``chip_smoke.py``
-#: zeroes it before driving the training path and reads it after)
+#: kernel launches since the last reset (counted by
+#: ``launches.count_launch``; ``chip_smoke.py`` zeroes it before driving
+#: the training path and reads it after)
 LAUNCHES = 0
-_launch_lock = threading.Lock()
 
 _lib = None
 
@@ -195,7 +195,6 @@ def solve_spd_batch(A: torch.Tensor, b: torch.Tensor,
                     jitter: float = 1e-6) -> torch.Tensor:
     """``x`` with ``(A[i] + jitter * I) x[i] = b[i]`` (module docstring
     for the routes). ``A`` is not modified."""
-    global LAUNCHES
     _check_args(A, b)
     dev = A.device
     route = solve_route(A.dtype, A.shape[-1], dev.type)
@@ -225,8 +224,7 @@ def solve_spd_batch(A: torch.Tensor, b: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"chol_solve kernel launch failed: CUDA error "
                            f"{err}")
-    with _launch_lock:
-        LAUNCHES += 1
+    count_launch(__name__)
     return x.reshape(*lead, r)
 
 

@@ -1,18 +1,21 @@
 """Recommendation engine template: the port of
-``predictionio_tpu/templates/recommendation.py`` (training and serving).
+``predictionio_tpu/templates/recommendation.py``.
 
 Training reads ``rate``/``buy`` events of an app from the event store
 (:class:`RecommendationDataSource`, the default) or takes a
 :class:`TrainingData` from the caller's own ``DataSource``, passes it
-through :class:`IdentityPreparator`, and trains an ALS model on the
-context's device. Queries and results use the JSON shapes of the JAX
-package's engine server::
+through a preparator (identity, or :class:`ExcludeItemsPreparator`),
+and trains an ALS model on the context's device. Queries and results use
+the JSON shapes of the JAX package's engine server::
 
     POST /queries.json  {"user": "1", "num": 4, "blackList": ["22"]}
     -> {"itemScores": [{"item": "7", "score": 4.07}, ...]}
 
-Left out (``ROADMAP.md`` queue 1): ``read_eval`` and the eval metrics,
-``ExcludeItemsPreparator`` and the file-blacklist serving.
+Evaluation: :meth:`RecommendationDataSource.read_eval` cuts the ratings
+into k folds (:func:`~..models.data.kfold_split`); each fold asks the
+top ``eval_query_num`` items of every user it holds out, and the user's
+held-out ratings are the actuals that :class:`PrecisionAtK`,
+:class:`NDCGAtK` and :class:`PositiveCount` score.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ from ..controller.base import (
 )
 from ..controller.context import Context
 from ..controller.engine import ClassMap, Engine
+from ..controller.metric import AverageMetric, ndcg_at_k, precision_at_k
+from ..controller.params import EngineParams
+from ..data.bimap import BiMap
 from ..models.als import (
     ALSModel,
     ALSParams,
@@ -43,7 +49,7 @@ from ..models.als import (
     recommend_products,
     train_als,
 )
-from ..models.data import ratings_from_columnar
+from ..models.data import kfold_split, ratings_from_columnar
 
 
 @dataclass(frozen=True)
@@ -89,18 +95,29 @@ class TrainingData(SanityCheck):
 
 @dataclass(frozen=True)
 class DataSourceParams:
-    """Where the training events live and how they become ratings. The
-    eval fields are accepted, so a JAX package variant parses unchanged,
-    but eval is not ported."""
+    """Where the training events live and how they become ratings, and
+    how :meth:`RecommendationDataSource.read_eval` folds them."""
     app_name: str = ""
     channel_name: Optional[str] = None
-    eval_k: int = 0
-    eval_query_num: int = 10
-    eval_rating_threshold: float = 2.0
+    eval_k: int = 0              # folds for read_eval (0 = no eval data)
+    eval_query_num: int = 10     # N per eval query
+    eval_rating_threshold: float = 2.0  # "relevant" cutoff for actuals
     seed: int = 3
     #: event name -> fixed rating (None: read the ``rating`` property);
     #: None means ``{"rate": None, "buy": 4.0}``
     event_weights: Optional[Dict[str, Optional[float]]] = None
+
+
+@dataclass(frozen=True)
+class EvalInfo:
+    fold: int
+    rating_threshold: float
+
+
+@dataclass(frozen=True)
+class ActualResult:
+    """Ground truth for one eval query: the user's held-out rated items."""
+    ratings: Tuple[Tuple[str, float], ...]  # (item, rating)
 
 
 class RecommendationDataSource(DataSource):
@@ -109,7 +126,7 @@ class RecommendationDataSource(DataSource):
     def __init__(self, params: DataSourceParams = DataSourceParams()):
         self.params = params
 
-    def read_training(self, ctx: Context) -> TrainingData:
+    def _read_ratings(self, ctx: Context):
         weights = self.params.event_weights
         batch = ctx.event_store.find_columnar(
             self.params.app_name or ctx.app_name,
@@ -119,9 +136,59 @@ class RecommendationDataSource(DataSource):
                          else ["rate", "buy"]),
             # a bulk COO build needs neither time order nor raw JSON
             ordered=False, with_props=False)
-        ratings, user_ids, item_ids = ratings_from_columnar(
-            batch, event_weights=weights)
+        return ratings_from_columnar(batch, event_weights=weights)
+
+    def read_training(self, ctx: Context) -> TrainingData:
+        ratings, user_ids, item_ids = self._read_ratings(ctx)
         return TrainingData(ratings, user_ids, item_ids)
+
+    def read_eval(self, ctx: Context):
+        """K-fold split over rating entries: each fold trains on the
+        other k-1 folds' entries; its queries ask the top
+        ``eval_query_num`` items of each user it holds out (in user row
+        order), and the actuals are that user's held-out ratings (in
+        entry order)."""
+        p = self.params
+        if p.eval_k <= 1:
+            raise ValueError("eval_k must be >= 2 for read_eval")
+        ratings, user_ids, item_ids = self._read_ratings(ctx)
+        # dense inverse-lookup arrays and a numpy lexsort grouping: a
+        # large fold holds millions of test entries, which per-entry
+        # dict lookups in a Python loop would take minutes over
+        inv_u_arr = np.empty(ratings.n_users, dtype=object)
+        for key, j in user_ids.items():
+            inv_u_arr[j] = key
+        inv_i_arr = np.empty(ratings.n_items, dtype=object)
+        for key, j in item_ids.items():
+            inv_i_arr[j] = key
+        folds = []
+        for f, (train_mask, test_mask) in enumerate(
+                kfold_split(len(ratings.users), p.eval_k, p.seed)):
+            td = TrainingData(
+                RatingsCOO(ratings.users[train_mask],
+                           ratings.items[train_mask],
+                           ratings.ratings[train_mask],
+                           ratings.n_users, ratings.n_items),
+                user_ids, item_ids)
+            te_u = ratings.users[test_mask]
+            order = np.lexsort((np.arange(len(te_u)), te_u))
+            u_s = te_u[order]
+            i_names = inv_i_arr[ratings.items[test_mask][order]]
+            r_s = ratings.ratings[test_mask][order].astype(float)
+            starts = np.flatnonzero(
+                np.r_[True, u_s[1:] != u_s[:-1]]) if len(u_s) else \
+                np.empty(0, np.int64)
+            bounds = np.r_[starts, len(u_s)]
+            qa = []
+            for b in range(len(starts)):
+                lo, hi = bounds[b], bounds[b + 1]
+                qa.append((
+                    Query(user=inv_u_arr[u_s[lo]], num=p.eval_query_num),
+                    ActualResult(tuple(zip(i_names[lo:hi].tolist(),
+                                           r_s[lo:hi].tolist())))))
+            folds.append((td, EvalInfo(
+                fold=f, rating_threshold=p.eval_rating_threshold), qa))
+        return folds
 
 
 def query_from_json(obj: dict) -> Query:
@@ -223,19 +290,154 @@ class RecommendationServing(FirstServing):
     pass
 
 
+@dataclass(frozen=True)
+class FileBlacklistServingParams:
+    """The file of items to drop from every answer."""
+    filepath: str = ""
+
+
+class FileBlacklistServing(RecommendationServing):
+    """Drop the items listed (one per line) in a file re-read for every
+    request."""
+
+    def __init__(self, params: FileBlacklistServingParams
+                 = FileBlacklistServingParams()):
+        self.params = params
+
+    def serve(self, query: Query, predictions) -> PredictedResult:
+        disabled = set()
+        if self.params.filepath:
+            with open(self.params.filepath, "r", encoding="utf-8") as f:
+                disabled = {line.strip() for line in f if line.strip()}
+        first = predictions[0]
+        return PredictedResult(tuple(
+            s for s in first.item_scores if s.item not in disabled))
+
+
+@dataclass(frozen=True)
+class ExcludeItemsPreparatorParams:
+    """Items dropped before training: read from a file (one per line)
+    and given inline."""
+    filepath: str = ""
+    items: Tuple[str, ...] = ()
+
+
+class ExcludeItemsPreparator(IdentityPreparator):
+    """Drops the excluded items' ratings and re-indexes the remaining
+    items densely (``BiMap.string_int`` over the kept ids in their old
+    order), so an excluded item has no factor row and is never
+    recommended."""
+
+    def __init__(self, params: ExcludeItemsPreparatorParams
+                 = ExcludeItemsPreparatorParams()):
+        self.params = params
+
+    def prepare(self, ctx: Context, td: TrainingData) -> TrainingData:
+        excluded = set(self.params.items)
+        if self.params.filepath:
+            with open(self.params.filepath, "r", encoding="utf-8") as f:
+                excluded |= {line.strip() for line in f if line.strip()}
+        bad_idx = {td.item_ids[i] for i in excluded if i in td.item_ids}
+        if not bad_idx:
+            return td
+        new_item_ids = BiMap.string_int(
+            k for k in td.item_ids.keys() if k not in excluded)
+        remap = np.full(td.ratings.n_items, -1, dtype=np.int64)
+        for old_key, new_i in new_item_ids.items():
+            remap[td.item_ids[old_key]] = new_i
+        keep = ~np.isin(td.ratings.items, list(bad_idx))
+        return TrainingData(
+            RatingsCOO(td.ratings.users[keep],
+                       remap[td.ratings.items[keep]].astype(
+                           td.ratings.items.dtype),
+                       td.ratings.ratings[keep], td.ratings.n_users,
+                       len(new_item_ids)),
+            td.user_ids, new_item_ids)
+
+
 def recommendation_engine(datasource_classes: Optional[ClassMap] = None
                           ) -> Engine:
     """Engine factory of the template. The data source is
     :class:`RecommendationDataSource` over the event store, unless
     ``datasource_classes`` names the caller's own (yielding
-    :class:`TrainingData`; its params then pass through as a dict)."""
+    :class:`TrainingData`; its params then pass through as a dict). The
+    preparator slot ``exclude`` and the serving slot ``fileblacklist``
+    are the customize-data-prep and customize-serving variants."""
     own = datasource_classes is not None
     return Engine(
         algorithm_classes={"als": ALSAlgorithm, "": ALSAlgorithm},
-        serving_classes={"": RecommendationServing},
+        serving_classes={"": RecommendationServing,
+                         "fileblacklist": FileBlacklistServing},
         algorithm_params_classes={"als": ALSParams, "": ALSParams},
+        serving_params_class={
+            "fileblacklist": FileBlacklistServingParams},
         datasource_classes=(datasource_classes if own
                             else RecommendationDataSource),
         datasource_params_class=None if own else DataSourceParams,
-        preparator_classes={"": IdentityPreparator},
+        preparator_classes={"": IdentityPreparator,
+                            "exclude": ExcludeItemsPreparator},
+        preparator_params_class={"exclude": ExcludeItemsPreparatorParams},
     )
+
+
+# -- evaluation metrics ---------------------------------------------------------
+
+class PrecisionAtK(AverageMetric):
+    """Precision@K with a relevance threshold."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 2.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    @property
+    def header(self) -> str:
+        return f"Precision@{self.k} (threshold={self.rating_threshold})"
+
+    def calculate_point(self, ei, q: Query, p: PredictedResult,
+                        a: ActualResult):
+        relevant = {item for item, r in a.ratings
+                    if r >= self.rating_threshold}
+        return precision_at_k([s.item for s in p.item_scores], relevant,
+                              self.k)
+
+
+class NDCGAtK(AverageMetric):
+    """Binary NDCG@K with a relevance threshold."""
+
+    def __init__(self, k: int = 10, rating_threshold: float = 2.0):
+        self.k = k
+        self.rating_threshold = rating_threshold
+
+    @property
+    def header(self) -> str:
+        return f"NDCG@{self.k} (threshold={self.rating_threshold})"
+
+    def calculate_point(self, ei, q: Query, p: PredictedResult,
+                        a: ActualResult):
+        relevant = {item for item, r in a.ratings
+                    if r >= self.rating_threshold}
+        return ndcg_at_k([s.item for s in p.item_scores], relevant, self.k)
+
+
+class PositiveCount(AverageMetric):
+    """Average number of relevant actuals per query: a sanity
+    diagnostic, not a target."""
+
+    def __init__(self, rating_threshold: float = 2.0):
+        self.rating_threshold = rating_threshold
+
+    @property
+    def header(self) -> str:
+        return f"PositiveCount (threshold={self.rating_threshold})"
+
+    def calculate_point(self, ei, q, p, a: ActualResult):
+        return float(sum(1 for _, r in a.ratings
+                         if r >= self.rating_threshold))
+
+
+def default_engine_params(app_name: str, **als_kw) -> EngineParams:
+    return EngineParams(
+        datasource=("", DataSourceParams(app_name=app_name)),
+        preparator=("", None),
+        algorithms=(("als", ALSParams(**als_kw)),),
+        serving=("", None))

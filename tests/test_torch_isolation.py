@@ -60,6 +60,18 @@ def test_the_pipeline_modules_are_scanned():
         assert PACKAGE / rel in scanned, rel
 
 
+@pytest.mark.parametrize("rel", [
+    "utils/memo.py", "controller/metric.py", "controller/evaluation.py",
+    "controller/fast_eval.py", "controller/__init__.py",
+    "examples/recommendation_evaluation.py", "ops/launches.py",
+    "workflow/core.py", "templates/recommendation.py", "models/data.py"])
+def test_the_eval_modules_are_scanned(rel):
+    """The eval slice's modules, the port's own copies of JAX-package
+    modules that load no JAX among them, are in the scan above."""
+    assert PACKAGE / rel in set(port_files()), rel
+    assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
+
+
 def test_every_module_imports():
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
@@ -81,7 +93,12 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.streaming, "
             "predictionio_tpu_torch.faults, "
             "predictionio_tpu_torch.rollout.policy, "
-            "predictionio_tpu_torch.cache.bus; "
+            "predictionio_tpu_torch.cache.bus, "
+            "predictionio_tpu_torch.controller, "
+            "predictionio_tpu_torch.controller.evaluation, "
+            "predictionio_tpu_torch.controller.fast_eval, "
+            "predictionio_tpu_torch.utils.memo, "
+            "predictionio_tpu_torch.examples.recommendation_evaluation; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
             "assert not bad, bad")
