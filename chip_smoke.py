@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
-lifecycle, batch-predict, evaluation and streaming fold-in paths once on
-the CUDA card and check them.
+lifecycle, batch-predict, evaluation, streaming fold-in and e-commerce and
+similar-product template paths once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -98,6 +98,14 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the ``Engine.train`` window (read, pack and 10 iterations,
             synchronized) per iteration beside the median of isolated,
             synchronized iterations from the initial factors.
+6a. implicit — one implicit ALS iteration (``implicit_prefs=True``,
+            alpha 1.0, the surrogate's stars as counts) at ML-20M width and
+            rank 64 on the card, launch counts zeroed just before and read
+            just after (both positive), held against the same half-steps
+            with the plain ``fused_gram`` and solve to phase 6's limits;
+            then one iteration profiled: ``fused_gram``, ``chol_solve``,
+            the fixed side's Gramian G (the library's matrix product),
+            other kernels and device idle.
 6b. stream-kernel — ``models.als.fold_in_rows`` on the card against phase
             6's trained item table (f32, and its int8 serving table), B in
             {64, 2048} touched rows with histories of L = 512 from
@@ -185,10 +193,37 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             counts are zeroed just before the bursts and read just after
             (``fused_gram``, ``chol_solve``, ``fused_topk`` positive).
 
+10. templates — the shipped e-commerce and similar-product variants
+            (``examples/{ecommerce,similarproduct}/engine.json``, only the
+            app name changed) in phase 8's ``PIO_HOME``, in an app of their
+            own: every 200th surrogate user's ratings of the 8,000
+            most-rated items become ``view`` events (a second where s >= 4),
+            ``buy`` (s >= 4.5), ``like`` (s >= 4) and ``dislike`` (s <= 2),
+            with ``$set`` for every user, every item (1-3 of 20
+            categories) and the ``unavailableItems`` and ``weightedItems``
+            constraints, loaded by ``cli import``. ``cli train`` of each
+            variant on the card (rank 10, 20 iterations, as shipped;
+            ``fused_gram`` and ``chol_solve`` counted for each training and
+            each ALS algorithm, all positive), the co-occurrence model's
+            indices and counts equal bit for bit to a numpy count of the
+            stored pairs; views of 8 users unknown to the model posted
+            after training; ``cli deploy`` of each and 32 ``/queries.json``
+            each (known users with ``unseenOnly``, a category filter, a
+            white list, unknown users with recent views and without; 1-3
+            items with categories and black lists), every answer held to a
+            float64 recomputation on the host from the persisted model and
+            the store read without a deadline (ids equal outside
+            near-ties, scores within 1e-5 * (1 + |plain|) for e-commerce,
+            1e-4 for the z-scored similar-product sums). Every
+            serving-time point read (``EventStoreFacade.find_by_entity``,
+            wrapped here) is timed, and none may raise. Prints the HTTP
+            and point-read p50/p99.
+
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
 launches on the main path, in the batch-predict job for ``fused_topk``,
-in the serial eval run, and on the stream path) and, last, ``{"ok":
-true, "device": {...}}``.
+in the serial eval run, on the stream path, in the implicit iteration
+and in the templates phase) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1412,6 +1447,86 @@ def phase_train(data, dev) -> dict:
             "item_factors": model.item_factors}
 
 
+def phase_implicit(data, dev) -> dict:
+    """One implicit ALS iteration (Hu-Koren-Volinsky, alpha 1.0, the
+    stars as counts) at ML-20M width and rank 64 on the card, launches
+    counted, held against the same half-steps with the plain
+    ``fused_gram`` and solve to phase ``train``'s limits, then profiled:
+    ``fused_gram``, ``chol_solve``, the fixed side's Gramian G and the
+    rest."""
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+
+    users, items, stars, n_users, n_items = data
+    ratings = als.RatingsCOO(users, items, stars, n_users, n_items)
+    params = als.ALSParams(rank=RANK, num_iterations=1, implicit_prefs=True,
+                           alpha=1.0)
+    packed = als.pack_ratings(ratings, params, device=dev)
+    torch.cuda.synchronize()
+
+    # -- one implicit iteration, counted -------------------------------
+    fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
+    t0 = time.perf_counter()
+    U1, V1 = als.train_als(ratings, params, device=dev, packed=packed)
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t0
+    launches = {"fused_gram": fg.LAUNCHES, "chol_solve": sv.LAUNCHES,
+                "fused_topk": ft.LAUNCHES, "gram_table": gram.LAUNCHES}
+    # ------------------------------------------------------------------
+    check(launches["fused_gram"] > 0 and launches["chol_solve"] > 0,
+          f"the implicit iteration launched {launches}")
+    check(launches["fused_topk"] == 0 and launches["gram_table"] == 0,
+          f"a training iteration launched a serving or table kernel: "
+          f"{launches}")
+    check(bool(torch.isfinite(U1).all()) and bool(torch.isfinite(V1).all()),
+          "the implicit iteration gave non-finite factors")
+    with plain_kernels(als):
+        U1p, V1p = als.train_als(ratings, params, device=dev, packed=packed)
+    torch.cuda.synchronize()
+    check((fg.LAUNCHES, sv.LAUNCHES, ft.LAUNCHES, gram.LAUNCHES)
+          == tuple(launches.values()), "the plain half-steps launched a kernel")
+    for name, got, want in (("U", U1, U1p), ("V", V1, V1p)):
+        bad = (got - want).abs() > 2e-4 + 2e-3 * want.abs()
+        check(not bool(bad.any()),
+              f"implicit iteration: {name} off the plain half-steps at "
+              f"{int(bad.sum())} entries (max "
+              f"{(got - want).abs().max().item():.3e})")
+    dU = (U1 - U1p).abs().max().item()
+    dV = (V1 - V1p).abs().max().item()
+    del U1p, V1p
+
+    U0, V0 = (t.to(dev) for t in als.draw_initial_factors(
+        params.seed, n_users, als._rows_padded(packed.user_h), n_items,
+        als._rows_padded(packed.item_h), RANK))
+
+    def iteration():
+        U = als._update_side(V0, packed.user_h, params)
+        return U, als._update_side(U, packed.item_h, params)
+
+    iteration()
+    _, bd = profile_device("phase implicit profile, one iteration",
+                           iteration)
+    g_alone = median_ms(lambda: (sv.gramian(V0), sv.gramian(U0)), 5)
+    other = bd["device_ms"] - bd["fused_gram"] - bd["chol_solve"] - bd["G"]
+    print(f"phase implicit: one iteration rank {RANK} alpha 1.0 over "
+          f"{len(users)} ratings (stars as counts) in {iter_s:.3f}s "
+          f"(first call, synchronized) | launches fused_gram="
+          f"{launches['fused_gram']} chol_solve={launches['chol_solve']} "
+          f"(an explicit train iteration: 30 each) fused_topk="
+          f"{launches['fused_topk']} gram_table={launches['gram_table']} | "
+          f"kernel vs plain: max "
+          f"|dU|={dU:.3e} |dV|={dV:.3e} | profiled iteration ms: wall="
+          f"{bd['wall_ms']:.3f} fused_gram={bd['fused_gram']:.3f} "
+          f"chol_solve={bd['chol_solve']:.3f} G={bd['G']:.3f} "
+          f"other_kernels={other:.3f} device_idle="
+          f"{bd['wall_ms'] - bd['device_ms']:.3f} | G alone (both sides' "
+          f"tables, event-timed) {g_alone:.3f} ms", flush=True)
+    return {"launches": launches, "breakdown": bd}
+
+
 def profile_device(label: str, fn) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` and print its device time
     by kernel; the busy share is the summed kernel and copy time over the
@@ -1448,7 +1563,10 @@ def profile_device(label: str, fn) -> tuple:
                          ("chol_solve", ("chol_solve_regs",
                                          "chol_solve_smem")),
                          ("fused_topk", ("fused_topk_kernel",
-                                         "merge_topk_kernel"))):
+                                         "merge_topk_kernel")),
+                         # the implicit half-step's G = F^T F: the
+                         # library's matrix product (and its split-K sum)
+                         ("G", ("gemm", "splitK"))):
         out[key] = sum(ms for ms, name in rows
                        if any(k in name for k in kernels))
     return result, out
@@ -2596,6 +2714,561 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
 
 
 
+# -- the e-commerce and similar-product templates -----------------------------
+
+TEMPLATES_APP = "TemplatesApp"
+#: every TEMPLATES_USER_STRIDE-th surrogate user, on the most-rated
+#: TEMPLATES_ITEMS items (the dense co-occurrence path holds up to
+#: sqrt(64 M) = 8,192 items). The e-commerce point reads scan the app's
+#: whole table (the shared schema indexes only event_time) against a
+#: 200 ms deadline: at every 100th user (463,198 events) they ran past it,
+#: so the store is cut to every 200th
+TEMPLATES_USER_STRIDE = 200
+TEMPLATES_ITEMS = 8_000
+TEMPLATES_CATEGORIES = 20
+#: |d| <= TEMPLATES_RTOL * (1 + |plain|): an e-commerce answer's scores
+#: (sums of f32 products in numpy) against the float64 recomputation, and
+#: how close two plain scores must be to be a near-tie that either may
+#: order its own way
+TEMPLATES_RTOL = 1e-5
+#: the relative error allowed an f32 cosine sum of the similar-product
+#: ALS lists (f32 rounding is ~6e-8 of it); a z-score divides it by the
+#: list's spread, so each ALS list adds 2 * SP_COSINE_RTOL * (1 + max|s|)
+#: / std to the tolerance of the summed z-scores (the co-occurrence
+#: counts are exact)
+SP_COSINE_RTOL = 1e-6
+
+
+def template_event_lines(data, seed: int, t0_ms: int) -> tuple:
+    """The templates' store as API JSON lines: ``$set`` for every user and
+    for every item (1-3 of 20 categories), then, for each rating of s
+    stars, a ``view``, a second ``view`` where s >= 4, a ``buy`` where
+    s >= 4.5, a ``like`` where s >= 4 and a ``dislike`` where s <= 2,
+    then the ``unavailableItems`` (50 items) and ``weightedItems`` (2
+    groups) constraints. Each event has its own millisecond."""
+    from predictionio_tpu_torch.data.event import from_millis, isoformat_millis
+
+    users, items, stars, _, n_items = data
+    top = np.argsort(-np.bincount(items, minlength=n_items),
+                     kind="stable")[:TEMPLATES_ITEMS]
+    keep = (users % TEMPLATES_USER_STRIDE == 0) & np.isin(items, top)
+    u, i, s = users[keep], items[keep], stars[keep]
+    rng = np.random.default_rng(seed + 9)
+    cats = {int(x): sorted(rng.choice(TEMPLATES_CATEGORIES,
+                                      int(rng.integers(1, 4)),
+                                      replace=False).tolist())
+            for x in np.sort(top)}
+    lines = []
+    t = [t0_ms]
+
+    def add(event: dict) -> None:
+        event["eventTime"] = isoformat_millis(from_millis(t[0]))
+        t[0] += 1
+        lines.append(json.dumps(event))
+
+    for x in np.unique(u).tolist():
+        add({"event": "$set", "entityType": "user", "entityId": f"u{x}"})
+    for x, c in cats.items():
+        add({"event": "$set", "entityType": "item", "entityId": f"i{x}",
+             "properties": {"categories": [f"c{k}" for k in c]}})
+    names = [("view", s >= 0), ("view", s >= 4), ("buy", s >= 4.5),
+             ("like", s >= 4), ("dislike", s <= 2)]
+    for k, (uu, ii) in enumerate(zip(u.tolist(), i.tolist())):
+        for name, mask in names:
+            if mask[k]:
+                add({"event": name, "entityType": "user",
+                     "entityId": f"u{uu}", "targetEntityType": "item",
+                     "targetEntityId": f"i{ii}"})
+    pick = rng.choice(top, 130, replace=False)
+    add({"event": "$set", "entityType": "constraint",
+         "entityId": "unavailableItems",
+         "properties": {"items": [f"i{x}" for x in pick[:50]]}})
+    add({"event": "$set", "entityType": "constraint",
+         "entityId": "weightedItems", "properties": {"weights": [
+             {"items": [f"i{x}" for x in pick[50:90]], "weight": 2.0},
+             {"items": [f"i{x}" for x in pick[90:]], "weight": 0.5}]}})
+    return lines, u, i, np.sort(top), t[0]
+
+
+def plain_top(scores, mask, num: int, positive_only: bool) -> list:
+    """(index, score) of the ``num`` best candidates, descending: the
+    templates' selection rule, recomputed here in numpy."""
+    s = np.where(mask, scores, -np.inf)
+    if positive_only:
+        s = np.where(s > 0, s, -np.inf)
+    k = min(num, len(s))
+    if k <= 0:
+        return []
+    idx = np.argpartition(-s, k - 1)[:k] if k < len(s) else np.argsort(-s)
+    idx = idx[np.argsort(-s[idx], kind="stable")]
+    return [(int(j), float(s[j])) for j in idx if np.isfinite(s[j])]
+
+
+def plain_mask(n: int, item_ids, item_cats: list, q: dict,
+               black=(), exclude=()) -> np.ndarray:
+    """The candidate filter: white list, black list and the query's own
+    items out, then the categories and the category black list."""
+    mask = np.ones(n, bool)
+    if q.get("whiteList") is not None:
+        white = np.zeros(n, bool)
+        white[[item_ids[x] for x in q["whiteList"] if x in item_ids]] = True
+        mask &= white
+    for x in list(black) + list(q.get("blackList") or ()):
+        if x in item_ids:
+            mask[item_ids[x]] = False
+    mask[list(exclude)] = False
+    if q.get("categories") is not None:
+        want = set(q["categories"])
+        mask &= np.array([bool(c) and bool(set(c) & want)
+                          for c in item_cats])
+    if q.get("categoryBlackList") is not None:
+        bad = set(q["categoryBlackList"])
+        mask &= np.array([not (set(c or ()) & bad) for c in item_cats])
+    return mask
+
+
+def near(a: float, b: float, rtol: float = TEMPLATES_RTOL,
+         atol: float = 0.0) -> bool:
+    return abs(a - b) <= rtol * (1 + abs(b)) + atol
+
+
+def held_to(answer: list, ref: list, score_of, tag: str,
+            atol: float = 0.0) -> bool:
+    """An answer's (item, score) list against the plain one: equal ids
+    but inside a near-tie (the answered item's plain score within the
+    tolerance of the plain list's at that place), each score near its
+    item's plain score; ``atol`` widens the tolerance. Returns whether a
+    near-tie reordered it."""
+    check(len(answer) == len(ref),
+          f"{tag}: {len(answer)} items, the plain recomputation "
+          f"{len(ref)}: {answer} vs {ref}")
+    tied = False
+    for (item, score), (ritem, rscore) in zip(answer, ref):
+        plain = score_of(item)
+        check(plain is not None and near(score, plain, atol=atol),
+              f"{tag}: {item} scored {score}, plain {plain}")
+        if item != ritem:
+            check(near(plain, rscore, atol=atol),
+                  f"{tag}: {item} ({plain}) where the plain list has "
+                  f"{ritem} ({rscore})")
+            tied = True
+    return tied
+
+
+def ecomm_plain(model, q: dict, reads: dict, params: dict) -> tuple:
+    """The e-commerce answer recomputed in float64 on the host from the
+    persisted model and the store's reads: ``(list, score_of)``."""
+    n = len(model.item_ids)
+    w = np.ones(n)
+    for items, weight in reads["weights"]:
+        w[[model.item_ids[x] for x in items if x in model.item_ids]] = weight
+    black = set(reads["unavailable"])
+    if params["unseen_only"]:
+        black |= reads["seen"]
+    cats = [model.items[j].categories for j in range(n)]
+    mask = plain_mask(n, model.item_ids, cats, q, black=black)
+    U = model.user_factors.astype(np.float64)
+    V = model.item_factors.astype(np.float64)
+    u = model.user_ids.get(q["user"])
+    positive = True
+    if u is not None and model.has_user[u]:
+        scores = V @ U[u] * w
+    else:
+        recent = sorted({model.item_ids[x] for x in reads["recent"]
+                         if x in model.item_ids})
+        recent = [j for j in recent if model.has_item[j]]
+        if recent:
+            Vn = V / np.maximum(np.linalg.norm(V, axis=1, keepdims=True),
+                                1e-12)
+            scores = Vn[recent].sum(0) @ Vn.T * w
+        else:
+            scores = model.popular_count.astype(np.float64) * w
+            positive = False
+    if positive:
+        scores = np.where(model.has_item, scores, 0.0)
+    ok = mask & (scores > 0 if positive else True)
+    inv = model.item_ids.inverse
+    ref = [(inv[j], s) for j, s in plain_top(scores, mask, q["num"],
+                                              positive)]
+
+    def score_of(item):
+        j = model.item_ids.get(item)
+        return float(scores[j]) if j is not None and ok[j] else None
+
+    return ref, score_of
+
+
+def sp_plain(models: list, q: dict) -> tuple:
+    """The similar-product answer recomputed in float64: both ALS
+    variants' summed cosine, the co-occurrence counts, each list's
+    z-scores (none at num == 1) summed per item. Returns ``(list,
+    score_of, atol, cut_tied)``: ``atol`` is what the ALS lists' f32
+    rounding may add to a summed score; ``cut_tied`` is True where an
+    ALS list's last place and the next candidate are a near-tie (which
+    changes the members and so every z-score)."""
+    lists, cut_tied, errs = [], False, []
+    for m in models:
+        if isinstance(m, tuple):
+            cooc, ids, items = m
+            n = cooc.n_items
+            qidx = sorted({ids[x] for x in q["items"] if x in ids})
+            scores = np.zeros(n)
+            for a in qidx:
+                keep = cooc.indices[a] >= 0
+                np.add.at(scores, cooc.indices[a][keep],
+                          cooc.counts[a][keep].astype(np.float64))
+        else:
+            ids, items, n = m.item_ids, m.items, len(m.item_ids)
+            qidx = sorted({ids[x] for x in q["items"] if x in ids})
+            V = m.item_factors.astype(np.float64)
+            Vn = V / np.maximum(np.linalg.norm(V, axis=1, keepdims=True),
+                                1e-12)
+            qf = [j for j in qidx if m.has_factors[j]]
+            if not qf:
+                lists.append([])
+                continue
+            scores = np.where(m.has_factors, Vn[qf].sum(0) @ Vn.T, 0.0)
+        cats = [items[j].categories for j in range(n)]
+        mask = plain_mask(n, ids, cats, q, exclude=qidx)
+        if isinstance(m, tuple):
+            # integer counts tie exactly: the template's selection on the
+            # same array picks the same members
+            top = plain_top(scores, mask, q["num"], True)
+        else:
+            top = plain_top(scores, mask, q["num"] + 1, True)
+            if len(top) > q["num"]:
+                cut_tied |= near(top[q["num"]][1], top[q["num"] - 1][1],
+                                 SP_COSINE_RTOL)
+        inv = ids.inverse
+        lists.append([(inv[j], s) for j, s in top[:q["num"]]])
+        errs.append(0.0 if isinstance(m, tuple) else SP_COSINE_RTOL * (
+            1 + max((abs(s) for _, s in top), default=0.0)))
+    if q["num"] != 1:
+        std_lists = []
+        for k, lst in enumerate(lists):
+            vals = np.array([s for _, s in lst])
+            if vals.size and vals.std() > 0:
+                mean, std = vals.mean(), vals.std(ddof=1)
+                errs[k] *= 2 / std
+            else:
+                mean, std = 0.0, 0.0
+            std_lists.append([(x, 0.0 if std == 0 else (s - mean) / std)
+                              for x, s in lst])
+        lists = std_lists
+    combined: dict = {}
+    for lst in lists:
+        for x, s in lst:
+            combined[x] = combined.get(x, 0.0) + s
+    ref = sorted(combined.items(), key=lambda kv: -kv[1])[:q["num"]]
+    return ref, combined.get, sum(errs), cut_tied
+
+
+def store_reads(storage, app_id: int, user: str, params: dict) -> dict:
+    """What the e-commerce serving reads, read from the store with no
+    deadline."""
+    from predictionio_tpu_torch.data.storage.base import EventFilter
+
+    def find(**kw):
+        return list(storage.events().find(app_id, filter=EventFilter(**kw)))
+
+    latest = {}
+    for name, key in (("unavailableItems", "items"),
+                      ("weightedItems", "weights")):
+        evs = find(entity_type="constraint", entity_id=name,
+                   event_names=["$set"], limit=1, reversed=True)
+        latest[name] = (evs[0].properties.get(key) or ()) if evs else ()
+    return {
+        "seen": {e.target_entity_id for e in find(
+            entity_type="user", entity_id=user,
+            event_names=list(params["seen_events"]),
+            target_entity_type="item") if e.target_entity_id},
+        "recent": {e.target_entity_id for e in find(
+            entity_type="user", entity_id=user,
+            event_names=list(params["similar_events"]),
+            target_entity_type="item", limit=10, reversed=True)
+            if e.target_entity_id},
+        "unavailable": set(latest["unavailableItems"]),
+        "weights": [(set(g["items"]), float(g["weight"]))
+                    for g in latest["weightedItems"]],
+    }
+
+
+def cooc_plain(storage, app_id: int, model, user_ids) -> tuple:
+    """The co-occurrence top-N from a numpy count of the stored views'
+    distinct (user, item) pairs: every ordered pair of distinct items in
+    a user's basket counted with ``np.bincount``, each item's top N by
+    (-count, index), pads -1 with count 0."""
+    from predictionio_tpu_torch.data.storage.base import EventFilter
+
+    cooc, item_ids, _ = model
+    n = cooc.n_items
+    baskets: dict = {}
+    for e in storage.events().find(app_id, filter=EventFilter(
+            entity_type="user", event_names=["view"],
+            target_entity_type="item")):
+        if e.entity_id in user_ids and e.target_entity_id in item_ids:
+            baskets.setdefault(e.entity_id, set()).add(
+                item_ids[e.target_entity_id])
+    pairs = []
+    for b in baskets.values():
+        b = np.array(sorted(b), np.int64)
+        pairs.append((b[:, None] * n + b[None, :]).ravel())
+    C = np.bincount(np.concatenate(pairs), minlength=n * n).reshape(n, n)
+    np.fill_diagonal(C, 0)
+    k = cooc.indices.shape[1]
+    key = C * n + (n - 1 - np.arange(n))
+    part = np.argpartition(-key, k - 1, axis=1)[:, :k]
+    top = -np.sort(-np.take_along_axis(key, part, 1), axis=1)
+    counts = (top // n).astype(np.float32)
+    idx = np.where(counts > 0, n - 1 - top % n, -1).astype(np.int32)
+    return idx, np.where(counts > 0, counts, 0).astype(np.float32)
+
+
+def phase_templates(data, dev, home: str, seed: int) -> dict:
+    """The shipped e-commerce and similar-product variants end to end in
+    an app of their own: ``cli import``, ``cli train`` (launches counted),
+    ``cli deploy`` and 32 HTTP queries each, every answer held against
+    its float64 recomputation, the co-occurrence model against a numpy
+    count. Every serving-time point read is timed and none may raise."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data import store as pstore
+    from predictionio_tpu_torch.data.bimap import BiMap
+    from predictionio_tpu_torch.data.event import Event, from_millis
+    from predictionio_tpu_torch.data.storage.base import STATUS_COMPLETED
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.templates import similarproduct as psp
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    root = Path(__file__).resolve().parent
+    t0_ms = 1_750_000_000_000
+    t = time.perf_counter()
+    lines, u, i, top, t_end = template_event_lines(data, seed, t0_ms)
+    events_path = Path(home) / "templates_events.jsonl"
+    events_path.write_text("\n".join(lines) + "\n")
+    build_s = time.perf_counter() - t
+    storage = Storage(env={"PIO_HOME": home})
+    reads = {"s": [], "errors": []}
+    plain_find = pstore.EventStoreFacade.find_by_entity
+
+    def timed_find(self, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return plain_find(self, *args, **kwargs)
+        except Exception as e:  # counted, then the template's handling
+            reads["errors"].append(repr(e))
+            raise
+        finally:
+            reads["s"].append(time.perf_counter() - t)
+
+    fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
+    per_algo = []
+    plain_sp_train = psp.SPALSAlgorithm.train
+
+    def counted_sp_train(self, ctx, td):
+        before = (fg.LAUNCHES, sv.LAUNCHES)
+        model = plain_sp_train(self, ctx, td)
+        per_algo.append((type(self).__name__, fg.LAUNCHES - before[0],
+                         sv.LAUNCHES - before[1]))
+        return model
+
+    pstore.EventStoreFacade.find_by_entity = timed_find
+    psp.SPALSAlgorithm.train = counted_sp_train
+    try:
+        check(cli.main(["app", "new", TEMPLATES_APP], storage=storage) == 0,
+              "app new failed")
+        app_id = storage.apps().get_by_name(TEMPLATES_APP).id
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["import", "--app", TEMPLATES_APP, "--input",
+                           str(events_path)], storage=storage)
+        import_s = time.perf_counter() - t
+        check(rc == 0 and f"Imported {len(lines)} event(s)." in
+              out.getvalue(), f"cli import: {rc} {out.getvalue()}")
+
+        trained = {}
+        for name in ("ecommerce", "similarproduct"):
+            variant = json.loads((root / "examples" / name /
+                                  "engine.json").read_text())
+            variant["datasource"]["params"]["app_name"] = TEMPLATES_APP
+            for algo in variant["algorithms"]:
+                if "app_name" in algo["params"]:
+                    algo["params"]["app_name"] = TEMPLATES_APP
+            path = Path(home) / f"{name}.json"
+            path.write_text(json.dumps(variant))
+            before = (fg.LAUNCHES, sv.LAUNCHES)
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["train", "--engine-json", str(path)],
+                              storage=storage)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+            check(rc == 0, f"cli train {name}: {rc} {out.getvalue()}")
+            launched = (fg.LAUNCHES - before[0], sv.LAUNCHES - before[1])
+            check(launched[0] > 0 and launched[1] > 0,
+                  f"cli train {name} launched fused_gram {launched[0]} and "
+                  f"chol_solve {launched[1]} times")
+            stages = json.loads(next(
+                ln for ln in out.getvalue().splitlines()
+                if ln.startswith("Train stages: "))[len("Train stages: "):])
+            (inst,) = [x for x in storage.engine_instances().get_all()
+                       if x.engine_id == variant["id"]]
+            check(inst.status == STATUS_COMPLETED,
+                  f"{name}: instance {inst.id} is {inst.status}")
+            models = loads_models(storage.models().get(inst.id).models)
+            trained[name] = (path, variant, models)
+            print(f"phase templates: cli train {name} {train_s:.3f}s stages "
+                  f"{stages} | launches fused_gram={launched[0]} "
+                  f"chol_solve={launched[1]}", flush=True)
+        for algo, g, c in per_algo:
+            print(f"phase templates: similarproduct {algo} launches "
+                  f"fused_gram={g} chol_solve={c}", flush=True)
+            check(g > 0 and c > 0, f"{algo} trained without the kernels")
+        train_launches = {"fused_gram": fg.LAUNCHES,
+                          "chol_solve": sv.LAUNCHES}
+
+        (ecm,) = trained["ecommerce"][2]
+        sp_models = trained["similarproduct"][2]
+        for m in [ecm] + [m for m in sp_models if not isinstance(m, tuple)]:
+            check(bool(np.isfinite(m.item_factors).all()),
+                  "a template model has non-finite item factors")
+        user_ids = BiMap.string_int(
+            storage.events().aggregate_properties(
+                app_id, entity_type="user"))
+        t = time.perf_counter()
+        idx, counts = cooc_plain(storage, app_id, sp_models[1], user_ids)
+        cooc = sp_models[1][0]
+        check(np.array_equal(idx, cooc.indices)
+              and np.array_equal(counts, cooc.counts),
+              f"co-occurrence: {int((idx != cooc.indices).sum())} indices "
+              f"and {int((counts != cooc.counts).sum())} counts off the "
+              f"numpy count")
+        print(f"phase templates: co-occurrence {cooc.n_items} items x top "
+              f"{cooc.indices.shape[1]} equal to the numpy count bit for "
+              f"bit ({int((cooc.indices >= 0).sum())} neighbours, checked "
+              f"in {time.perf_counter() - t:.2f}s)", flush=True)
+
+        # views of users unknown to the model, posted after training
+        rng = np.random.default_rng(seed + 10)
+        t_ms = t_end + 1000
+        fresh = []
+        for k in range(8):
+            for x in rng.choice(top, 5, replace=False).tolist():
+                fresh.append(Event(
+                    event="view", entity_type="user", entity_id=f"nu{k}",
+                    target_entity_type="item", target_entity_id=f"i{x}",
+                    event_time=from_millis(t_ms)))
+                t_ms += 1
+        storage.events().insert_batch(fresh, app_id)
+
+        ec_params = trained["ecommerce"][1]["algorithms"][0]["params"]
+        known = [x for x, j in ecm.user_ids.items() if ecm.has_user[j]]
+        picks = rng.choice(known, 18, replace=False).tolist()
+        ec_queries = [{"user": x, "num": 10} for x in picks[:12]]
+        ec_queries += [{"user": x, "num": 10, "categories": [
+            f"c{k}" for k in rng.choice(TEMPLATES_CATEGORIES, 2,
+                                        replace=False).tolist()]}
+            for x in picks[12:15]]
+        ec_queries += [{"user": x, "num": 10, "whiteList": [
+            f"i{y}" for y in rng.choice(top, len(top) // 20,
+                                        replace=False).tolist()]}
+            for x in picks[15:]]
+        ec_queries += [{"user": f"nu{k}", "num": 10} for k in range(8)]
+        ec_queries += [{"user": f"stranger{k}", "num": 10} for k in range(6)]
+        ec_queries[1]["blackList"] = [f"i{y}" for y in top[:5].tolist()]
+        sp_queries = []
+        for k in range(32):
+            q = {"items": [f"i{y}" for y in rng.choice(
+                top, 1 + k % 3, replace=False).tolist()], "num": 10}
+            if k % 4 == 1:
+                q["categories"] = [f"c{k % TEMPLATES_CATEGORIES}"]
+            if k % 3 == 2:
+                q["blackList"] = [f"i{y}" for y in rng.choice(
+                    top, 5, replace=False).tolist()]
+            if k == 5:
+                q["num"] = 1
+            sp_queries.append(q)
+
+        http, answered = {}, {}
+        for name, queries in (("ecommerce", ec_queries),
+                              ("similarproduct", sp_queries)):
+            args = cli._parser().parse_args([
+                "deploy", "--engine-json", str(trained[name][0]), "--ip",
+                "127.0.0.1", "--port", "0"])
+            srv = cli.build_deploy(args, storage).start_background()
+            try:
+                answered[name] = [_post(srv.port, q) for q in queries]
+            finally:
+                srv.close()
+            http[name] = np.array([s for _, s in answered[name]]) * 1e3
+        read_ms = np.array(reads["s"]) * 1e3
+        # seen items, unavailableItems and weightedItems for every query
+        check(len(read_ms) >= 3 * len(ec_queries),
+              f"{len(read_ms)} point reads for {len(ec_queries)} e-commerce "
+              f"queries")
+        print(f"phase templates: {len(read_ms)} serving-time point reads ms "
+              f"p50/p99 {np.percentile(read_ms, 50):.3f}/"
+              f"{np.percentile(read_ms, 99):.3f} max {read_ms.max():.3f}, "
+              f"{len(reads['errors'])} raised", flush=True)
+        check(not reads["errors"],
+              f"{len(reads['errors'])} serving-time reads raised: "
+              f"{reads['errors'][:3]}")
+        tied = {}
+        for name, queries in (("ecommerce", ec_queries),
+                              ("similarproduct", sp_queries)):
+            tied[name] = 0
+            for q, (a, _) in zip(queries, answered[name]):
+                got = [(x["item"], x["score"]) for x in a["itemScores"]]
+                tag = f"{name} {q}"
+                if name == "ecommerce":
+                    ref, score_of = ecomm_plain(
+                        ecm, q, store_reads(storage, app_id, q["user"],
+                                            ec_params), ec_params)
+                    check(bool(got) or not ref, f"{tag}: empty answer")
+                    tied[name] += held_to(got, ref, score_of, tag)
+                    continue
+                ref, score_of, atol, cut_tied = sp_plain(sp_models, q)
+                if cut_tied and [x for x, _ in got] != [x for x, _ in ref]:
+                    tied[name] += 1  # an ALS list's members differ at a tie
+                    continue
+                tied[name] += held_to(got, ref, score_of, tag, atol)
+        check(ft.LAUNCHES == 0 and gram.LAUNCHES == 0,
+              f"the templates launched fused_topk {ft.LAUNCHES} and "
+              f"gram_table {gram.LAUNCHES} times")
+        print(f"phase templates: {len(lines)} events ({len(np.unique(u))} "
+              f"users x {len(np.unique(i))} items, 1 user in "
+              f"{TEMPLATES_USER_STRIDE}, the {TEMPLATES_ITEMS} most-rated "
+              f"items) built in {build_s:.2f}s, cli import {import_s:.3f}s "
+              f"= {len(lines) / import_s:.1f} events/s | HTTP ms p50/p99: "
+              f"ecommerce {np.percentile(http['ecommerce'], 50):.3f}/"
+              f"{np.percentile(http['ecommerce'], 99):.3f} similarproduct "
+              f"{np.percentile(http['similarproduct'], 50):.3f}/"
+              f"{np.percentile(http['similarproduct'], 99):.3f} | "
+              f"{len(read_ms)} point reads ms p50/p99 "
+              f"{np.percentile(read_ms, 50):.3f}/"
+              f"{np.percentile(read_ms, 99):.3f} max {read_ms.max():.3f}, "
+              f"errors {len(reads['errors'])} | {len(ec_queries)} + "
+              f"{len(sp_queries)} answers held to the float64 "
+              f"recomputation, {tied['ecommerce']} + "
+              f"{tied['similarproduct']} reordered inside a near-tie | "
+              f"launches fused_gram={train_launches['fused_gram']} "
+              f"chol_solve={train_launches['chol_solve']} fused_topk="
+              f"{ft.LAUNCHES} (these templates score on the host) "
+              f"gram_table={gram.LAUNCHES}", flush=True)
+        return {"fused_gram": train_launches["fused_gram"],
+                "chol_solve": train_launches["chol_solve"],
+                "fused_topk": ft.LAUNCHES, "gram_table": gram.LAUNCHES}
+    finally:
+        pstore.EventStoreFacade.find_by_entity = plain_find
+        psp.SPALSAlgorithm.train = plain_sp_train
+        storage.close()
+
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -2642,6 +3315,8 @@ def main(argv=None) -> int:
         del packed
     with phase("train"):
         trained = phase_train(data, dev)
+    with phase("implicit"):
+        implicit = phase_implicit(data, dev)
     with phase("stream-kernel"):
         stream_kernel_l = phase_stream_kernel(trained.pop("item_factors"),
                                               args.seed, dev)
@@ -2672,37 +3347,50 @@ def main(argv=None) -> int:
             eval_l = phase_eval(dev, home)
         with phase("stream"):
             stream_l = phase_stream(data, dev, home, pio, args.seed)
+        with phase("templates"):
+            templates_l = phase_templates(data, dev, home, args.seed)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
     # training for the others); batch_launches: the batchpredict job's;
     # eval_launches: the serial cli eval's; stream_launches: the stream
-    # phase's path
+    # phase's path; implicit_launches: the implicit ML-20M iteration's;
+    # templates_launches: the two templates' cli train and deploy (the
+    # templates score on the host: fused_topk 0)
+    implicit_l = implicit["launches"]
     kernels = [
         dict(name="fused_topk", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_topk.cu",
              replaces="predictionio_tpu/ops/fused_topk.py:97",
              launches=launches, batch_launches=batch_launches,
              eval_launches=eval_l["fused_topk"],
-             stream_launches=stream_l["fused_topk"], **row),
+             stream_launches=stream_l["fused_topk"],
+             implicit_launches=implicit_l["fused_topk"],
+             templates_launches=templates_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
              launches=trained["launches"]["fused_gram"],
              eval_launches=eval_l["fused_gram"],
-             stream_launches=stream_l["fused_gram"], **gram_row),
+             stream_launches=stream_l["fused_gram"],
+             implicit_launches=implicit_l["fused_gram"],
+             templates_launches=templates_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
              launches=trained["launches"]["chol_solve"],
              eval_launches=eval_l["chol_solve"],
-             stream_launches=stream_l["chol_solve"], **solve_row),
+             stream_launches=stream_l["chol_solve"],
+             implicit_launches=implicit_l["chol_solve"],
+             templates_launches=templates_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
              launches=pio["gram_table_launches"],
              eval_launches=eval_l["gram_table"],
-             stream_launches=stream_l["gram_table"], **table_row),
+             stream_launches=stream_l["gram_table"],
+             implicit_launches=implicit_l["gram_table"],
+             templates_launches=templates_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

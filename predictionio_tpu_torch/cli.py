@@ -62,8 +62,9 @@ from .server.engineserver import ServerConfig, deploy, deploy_models
 from .server.http import AppServer
 
 JAX_PACKAGE = "predictionio_tpu"
-#: the engine of a variant that names no ``engineFactory`` (the port has
-#: one template)
+#: the engine of a variant that names no ``engineFactory``: the
+#: recommendation template's, as in the JAX package (the e-commerce and
+#: similar-product variants name theirs)
 DEFAULT_FACTORY = ("predictionio_tpu_torch.templates.recommendation:"
                    "recommendation_engine")
 

@@ -79,6 +79,13 @@ class Algorithm(abc.ABC):
         """Predictions for many queries; a host loop unless overridden."""
         return [self.predict(model, q) for q in queries]
 
+    def bind_serving(self, ctx: Context) -> None:
+        """Called on the instances that will serve queries (the engine
+        server's bind, the batch-predict job) with the serving context.
+        Override to capture serving-time resources: the e-commerce
+        template keeps ``ctx.event_store`` so its filter reads hit the
+        deployed storage, not the process-wide one. A no-op here."""
+
     def prepare_serving_model(self, model: Any, device: torch.device) -> Any:
         """Called once per model when it binds to a serving surface: fix
         its placement on ``device``. Identity here."""

@@ -8,10 +8,13 @@ bulk ``find_columnar`` training read. The metadata entities (``App``,
 ``Model``) and their DAOs match the JAX package's field for field, so one
 SQLite file serves both.
 
+``aggregate_properties`` replays ``$set/$unset/$delete`` into each
+entity's current properties; ``EventFilter.deadline`` bounds a scan's
+wall clock for serving-time point reads (every backend checks it inside
+its scan loop).
+
 Left out (``ROADMAP.md`` queue 1): multi-host sharded reads
-(``find_columnar(shard=...)`` raises), property aggregation
-(``aggregate_properties``), the scan
-deadline of serving-time point reads and the bulk JSON-lines block
+(``find_columnar(shard=...)`` raises) and the bulk JSON-lines block
 reader of the SEGMENTFS lane.
 """
 
@@ -21,11 +24,13 @@ import abc
 import base64
 import json
 import re
+import time
 import uuid
 from dataclasses import dataclass, field, replace
 from datetime import datetime
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
 
+from ..datamap import PropertyMap
 from ..event import Event
 
 #: Sentinel for "no filter" on nullable fields, distinguishing "match any"
@@ -49,9 +54,23 @@ class EventFilter:
     target_entity_id: Any = ANY
     limit: Optional[int] = None
     reversed: bool = False
+    #: optional ``time.monotonic()`` deadline: backends check it inside
+    #: their scan loops and raise :class:`TimeoutError`, so a serving-time
+    #: read fails within its budget instead of after a heavy scan
+    deadline: Optional[float] = None
+
+    def check_deadline(self) -> None:
+        if self.deadline is not None and time.monotonic() > self.deadline:
+            raise TimeoutError("event scan exceeded its deadline")
 
     def apply(self, events: Iterable[Event]) -> Iterator[Event]:
-        return (e for e in events if self.matches(e))
+        """Yield the matching events, checking the deadline every 4,096:
+        the scan loop every in-process backend shares."""
+        for i, e in enumerate(events):
+            if i % 4096 == 0:
+                self.check_deadline()
+            if self.matches(e):
+                yield e
 
     def matches(self, e: Event) -> bool:
         if self.start_time is not None and e.event_time < self.start_time:
@@ -218,8 +237,32 @@ class EventStore(abc.ABC):
         return columnar_from_events(self.find(app_id, channel_id, filter),
                                     float_props=float_props)
 
-    def aggregate_properties(self, *args, **kwargs):
-        raise NotImplementedError(f"property aggregation is {LEFT_OUT}")
+    def aggregate_properties(
+            self, app_id: int, channel_id: Optional[int] = None,
+            *, entity_type: str, start_time: Optional[datetime] = None,
+            until_time: Optional[datetime] = None,
+            required: Optional[Sequence[str]] = None,
+    ) -> Dict[str, PropertyMap]:
+        """Replay ``$set/$unset/$delete`` into each entity's current
+        properties; ``required`` keeps only entities holding every one of
+        those fields. This default replays :meth:`find`; SQLite overrides
+        it over its sidecar."""
+        from ..aggregation import AGGREGATION_EVENTS, aggregate_properties
+        events = self.find(app_id, channel_id, EventFilter(
+            start_time=start_time, until_time=until_time,
+            entity_type=entity_type, event_names=list(AGGREGATION_EVENTS)))
+        return keep_required(aggregate_properties(events), required)
+
+
+def keep_required(result: Dict[str, PropertyMap],
+                  required: Optional[Sequence[str]]
+                  ) -> Dict[str, PropertyMap]:
+    """The entities of an aggregation that hold every ``required``
+    field (all of them when none is required)."""
+    if not required:
+        return result
+    req = set(required)
+    return {k: v for k, v in result.items() if req <= set(v.keys())}
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,7 @@ package's format too.
 
 Left out (``ROADMAP.md`` queue 1): the fault-injection points, the
 rebuild of tables from before the ``seq`` column, the forked worker
-processes of the first columnar encode (the port encodes in-process)
-and property aggregation over the sidecar.
+processes of the first columnar encode (the port encodes in-process).
 """
 
 from __future__ import annotations
@@ -61,6 +60,7 @@ from .base import (
     ModelsDAO,
     STATUS_COMPLETED,
     STATUS_EVALCOMPLETED,
+    keep_required,
 )
 
 
@@ -326,6 +326,29 @@ class SQLiteEventStore(EventStore):
                                     tuple(float_props),
                                     want_props=with_props)
         return batch.select(filter, ordered=ordered, with_props=with_props)
+
+    def aggregate_properties(self, app_id: int,
+                             channel_id: Optional[int] = None, *,
+                             entity_type: str, start_time=None,
+                             until_time=None, required=None):
+        """Aggregation over the sidecar: the filters run as numpy masks
+        and only the surviving ``$set/$unset/$delete`` rows pay a JSON
+        parse. A ``:memory:`` database has no sidecar and replays
+        :meth:`find`."""
+        d = self._columnar_dir(app_id, channel_id)
+        if d is None:
+            return super().aggregate_properties(
+                app_id, channel_id, entity_type=entity_type,
+                start_time=start_time, until_time=until_time,
+                required=required)
+        from ..aggregation import AGGREGATION_EVENTS, aggregate_from_columnar
+        batch = self._sync_columnar(d, app_id, channel_id, ("rating",),
+                                    want_props=True)
+        sub = batch.select(EventFilter(
+            entity_type=entity_type, start_time=start_time,
+            until_time=until_time,
+            event_names=list(AGGREGATION_EVENTS)), ordered=False)
+        return keep_required(aggregate_from_columnar(sub), required)
 
     def _change_stamp(self) -> tuple:
         """(data_version, total_changes): moves whenever this connection —
@@ -605,7 +628,16 @@ class SQLiteEventStore(EventStore):
                f"{_table(app_id, channel_id)}{where}{order}{lim}")
         with self.client.lock:
             try:
-                rows = self._conn.execute(sql, params).fetchall()
+                cur = self._conn.execute(sql, params)
+                rows: list = []
+                while True:
+                    # fetched in chunks, so a heavy scan honours
+                    # filter.deadline instead of materializing it all
+                    filter.check_deadline()
+                    chunk = cur.fetchmany(4096)
+                    if not chunk:
+                        break
+                    rows.extend(chunk)
             except sqlite3.OperationalError as e:
                 if "no such table" in str(e):
                     return iter(())

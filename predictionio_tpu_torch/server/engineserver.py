@@ -3,7 +3,9 @@ the serving core of ``predictionio_tpu/server/engineserver.py``).
 
 ``POST /queries.json`` parses the query into the template's query class,
 runs supplement, per-algorithm predict and serve, and returns the result
-as JSON. At bind a model is row-quantized if asked (behind the
+as JSON. At bind each algorithm gets the deploy's context
+(``bind_serving``: a template's serving-time store reads go to the
+deploy's storage), and a model is row-quantized if asked (behind the
 template's parity probe) and then placed on the serving device once.
 ``GET /status.json`` names the card, the quantization in force, the
 kernel's launch count and the batch path's state (``pipeline``);
@@ -208,6 +210,12 @@ class QueryServer:
         if len(models) != len(algorithms):
             raise ValueError(f"{len(models)} models for "
                              f"{len(algorithms)} algorithms")
+        # serving-time reads go to the deploy's storage (the process-wide
+        # one where models were handed in)
+        serving_ctx = self.ctx if self.ctx is not None \
+            else Context(device=self.device)
+        for a in algorithms:
+            a.bind_serving(serving_ctx)
         quant = self.config.serving_quant
         if quant != "off":
             models = [a.quantize_serving_model(m, quant)

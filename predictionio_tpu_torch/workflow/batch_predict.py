@@ -20,10 +20,8 @@ supplement never goes to the pool: it would pay a hand-off for nothing.
 
 Batch prediction reads JSON lines of queries and writes one
 ``{"query": ..., "prediction": ...}`` line each, flushing the queries in
-batches of ``batch_size`` through the same path.
-
-Left out (``ROADMAP.md`` queue 1): ``Algorithm.bind_serving``, which
-waits for the templates that define it.
+batches of ``batch_size`` through the same path, after
+``Algorithm.bind_serving`` has given each algorithm the job's context.
 """
 
 from __future__ import annotations
@@ -203,12 +201,17 @@ def predict_serve_batch(algorithms: List[Any], models: List[Any],
 def batch_predict_lines(engine: Engine, engine_params: EngineParams,
                         models: List[Any], query_lines: Iterable[str],
                         batch_size: int = 1024,
-                        device: DeviceLike = None) -> Iterator[str]:
+                        device: DeviceLike = None,
+                        ctx: Optional[Context] = None) -> Iterator[str]:
     """One JSON result line per non-empty query line. The models are
     placed on ``device`` (the card by default) once; a query that fails
-    fails the job."""
+    fails the job. With ``ctx``, each algorithm is bound to it for its
+    serving-time reads."""
     dev = resolve_device(device)
     algorithms = engine.make_algorithms(engine_params)
+    if ctx is not None:
+        for a in algorithms:
+            a.bind_serving(ctx)
     models = [a.prepare_serving_model(m, dev)
               for a, m in zip(algorithms, models)]
     serving = engine.make_serving(engine_params)
@@ -263,7 +266,7 @@ def run_batch_predict(ctx: Context, engine: Engine,
             open(output_path, "w", encoding="utf-8") as fout:
         for line in batch_predict_lines(engine, engine_params, models, fin,
                                         batch_size=batch_size,
-                                        device=ctx.device):
+                                        device=ctx.device, ctx=ctx):
             fout.write(line + "\n")
             n += 1
     return n

@@ -72,6 +72,19 @@ def test_the_eval_modules_are_scanned(rel):
     assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
 
 
+@pytest.mark.parametrize("rel", [
+    "data/aggregation.py", "data/store.py", "data/storage/base.py",
+    "data/storage/sqlite.py", "controller/base.py",
+    "templates/__init__.py", "templates/_common.py",
+    "templates/ecommerce.py", "templates/similarproduct.py",
+    "models/cooccurrence.py", "workflow/persistence.py", "cli.py"])
+def test_the_template_modules_are_scanned(rel):
+    """The e-commerce and similar-product slice's modules, the port's own
+    copies of JAX-package modules, are in the scan above."""
+    assert PACKAGE / rel in set(port_files()), rel
+    assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
+
+
 def test_every_module_imports():
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")

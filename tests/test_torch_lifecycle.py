@@ -307,10 +307,11 @@ def test_a_jax_written_model_blob_is_refused(store, tmp_path):
 
 def test_a_factory_the_port_lacks_raises_the_jax_cli_error(tmp_path, store):
     variant = write_variant(
-        tmp_path, factory="predictionio_tpu.templates.ecommerce:"
-                          "ecommerce_engine")
+        tmp_path, factory="predictionio_tpu.templates.classification:"
+                          "classification_engine")
     with pytest.raises(SystemExit, match="Cannot import engine factory "
-                       "module 'predictionio_tpu_torch.templates.ecommerce'"):
+                       "module 'predictionio_tpu_torch.templates."
+                       "classification'"):
         cli.main(["train", "--engine-json", variant, "--device", "cpu"],
                  storage=store)
     assert cli.port_module_name("predictionio_tpu") == "predictionio_tpu_torch"
