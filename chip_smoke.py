@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
-lifecycle, batch-predict, evaluation, streaming fold-in and e-commerce and
-similar-product template paths once on the CUDA card and check them.
+lifecycle, batch-predict, evaluation, streaming fold-in, e-commerce,
+similar-product, sequential and classification template paths once on
+the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -106,7 +107,26 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             then one iteration profiled: ``fused_gram``, ``chol_solve``,
             the fixed side's Gramian G (the library's matrix product),
             other kernels and device idle.
-6b. stream-kernel — ``models.als.fold_in_rows`` on the card against phase
+6b. sequential — the shipped sequential variant
+            (``examples/sequential/engine.json``: dim 64, 2 heads, 2
+            blocks, window 50, batch 256, 64 negatives) at ML-20M width:
+            every surrogate user's ratings ordered by their timestamps
+            into 138,493 windows over 26,744 items
+            (``sequences_from_ratings``, timed: a host loop a user), then
+            ``train_seqrec`` on the card for 2 epochs (20 shipped), the
+            launch counts zeroed just before and read just after (no TPU
+            kernel is on this path: all read 0). Epoch 2's loss must be
+            below epoch 1's; one step of the trained model on the card
+            against the same step in float64 on the host (same weights,
+            batch and negatives): the loss within 1e-5 relative, each
+            gradient within 5e-3 normwise, the Adam update within 1e-6
+            (2 * lr where |g64| < 1e-5). One step profiled (device busy
+            and idle share; forward, backward and Adam by CUDA events);
+            ``recommend_next_batch`` p50/p99 at B = 1 and 256, and every
+            served list of 256 histories held to its float64
+            recomputation (ids equal outside near-ties, scores within
+            1e-4 * (1 + |s|)). Prints steps/s and sequences/s.
+6c. stream-kernel — ``models.als.fold_in_rows`` on the card against phase
             6's trained item table (f32, and its int8 serving table), B in
             {64, 2048} touched rows with histories of L = 512 from
             ``--seed``, explicit and implicit (with a cached
@@ -192,6 +212,13 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             consuming 0; no trainer thread after ``close()``. The launch
             counts are zeroed just before the bursts and read just after
             (``fused_gram``, ``chol_solve``, ``fused_topk`` positive).
+            Each canary check prints a line of its own (the trainer's gate
+            unchanged; ``CanaryProbeLog``): its verdict, each arm's probe
+            times, and for the candidate's slowest key whether a probe
+            overlapped a garbage-collector pause, a served
+            ``/queries.json`` or the first launch on the candidate, and
+            the device and pinned-host allocator growth. A refused delta
+            fails the phase at once.
 
 10. templates — the shipped e-commerce and similar-product variants
             (``examples/{ecommerce,similarproduct}/engine.json``, only the
@@ -219,11 +246,39 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             wrapped here) is timed, and none may raise. Prints the HTTP
             and point-read p50/p99.
 
+11. sequential-pio — the shipped sequential variant through the CLI in
+            phase 8's ``PIO_HOME``, in an app of its own (only the app name
+            changed): every 200th surrogate user's ratings as timed
+            ``view`` events by ``cli import``, ``cli train`` (20 epochs, as
+            shipped), ``cli deploy``, 32 user queries (each history read at
+            serving time through ``find_by_entity`` with its 200 ms
+            deadline, timed; none may raise and no answer may be empty,
+            as a late read leaves it) and 32 item queries over HTTP, every
+            answer held to its float64 recomputation as in phase 6b; then
+            ``cli eval`` of the port's shipped sequential evaluation
+            (``predictionio_tpu_torch.examples.sequential_evaluation``: 4
+            params sets), the instance EVALCOMPLETED with ``bestIndex``
+            the argmax of its HitRate@10 scores.
+12. classification — the shipped classification variant
+            (``examples/classification/engine.json`` unchanged: naive
+            Bayes in app MyApp2) and a random-forest variant (the JAX
+            package's default ``RandomForestParams``) through the CLI:
+            100,000 users ``$set`` with ``plan`` (0 or 1) and Poisson
+            attr0..2 of class-dependent means from ``--seed`` by ``cli
+            import``, ``cli train`` and ``cli deploy --batching`` of each
+            and 64 queries over HTTP; naive-Bayes labels held to the host
+            float64 ``predict`` (a different label only within 1e-4 of a
+            tie), the forest's labels to the argmax of a numpy traversal;
+            every point scored on the card in one call and held the same
+            way (the forest's votes equal exactly).
+
+Phases 6b, 11 and 12 print the four kernels' launch counts (each 0: no
+TPU kernel is on their paths) beside the card's name and power limit.
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
 launches on the main path, in the batch-predict job for ``fused_topk``,
-in the serial eval run, on the stream path, in the implicit iteration
-and in the templates phase) and, last, ``{"ok": true, "device":
-{...}}``.
+in the serial eval run, on the stream path, in the implicit iteration,
+in the templates phase and in phases 6b, 11 and 12) and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -962,19 +1017,22 @@ def phase_slice(rng, U, V, dev) -> int:
 TRAIN_ITERS = 10
 
 
-def load_surrogate(seed: int):
-    """The MovieLens-20M surrogate (pure numpy), loaded by file path."""
+def load_surrogate(seed: int, with_times: bool = False):
+    """The MovieLens-20M surrogate (pure numpy), loaded by file path:
+    (users, items, stars, n_users, n_items), and with ``with_times`` the
+    ratings' timestamps (seconds) beside it."""
     path = Path(__file__).resolve().parent / "benchmarks" / "ml20m_surrogate.py"
     spec = importlib.util.spec_from_file_location("ml20m_surrogate", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     t0 = time.perf_counter()
-    users, items, stars, _, n_users, n_items = mod.generate(scale=1.0,
-                                                            seed=seed)
+    users, items, stars, ts, n_users, n_items = mod.generate(scale=1.0,
+                                                             seed=seed)
     print(f"phase train-data: {len(users)} ratings, {n_users} users x "
           f"{n_items} items (seed {seed}) in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
-    return users, items, stars, n_users, n_items
+    data = users, items, stars, n_users, n_items
+    return (data, ts) if with_times else data
 
 
 def gram_bound(B: int, L: int, rows: int, r: int, wire: str) -> tuple:
@@ -2493,6 +2551,130 @@ def f64_fold_check(storage, app_id, model, user_keys) -> float:
     return worst
 
 
+class CanaryProbeLog:
+    """What each stream canary probe paid, recorded beside the trainer's
+    own gate (which it leaves as it is): every ``recommend_products`` the
+    canary calls is timed, every garbage-collector pause and every
+    ``/queries.json`` the server answered is kept as a time span, and
+    each canary check notes its verdict and the device and pinned-host
+    allocator growth over it. A slow probe that overlaps a collection, a
+    served query or one of this script's own polls (whose threads hold
+    the interpreter lock in turn) shows which; the first launch on the
+    candidate is marked. (The
+    thread CPU clock is not used: on the card's host it ticks in 10 ms.)"""
+
+    def __init__(self, trainer, qs, trainer_mod):
+        self.trainer, self.qs, self.mod = trainer, qs, trainer_mod
+        self.calls, self.probes, self.gc_spans, self.served = [], [], [], []
+        #: this script's own /queries.json polls, client side (the whole
+        #: request: its HTTP work in this process, and the server's)
+        self.polls = []
+        self._gc_t0 = None
+        self._orig = (trainer_mod.recommend_products,
+                      trainer._canary_check, qs.serve)
+
+    def _gc(self, what, info) -> None:
+        if what == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.gc_spans.append((self._gc_t0, time.perf_counter(),
+                                  info.get("generation")))
+
+    @staticmethod
+    def _alloc_counts() -> tuple:
+        dev = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        host = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+        return dev, host.get("num_host_alloc", -1)
+
+    def install(self) -> None:
+        import gc
+
+        rp, check_fn, serve = self._orig
+
+        def probed(model, uidx, k):
+            t0 = time.perf_counter()
+            out = rp(model, uidx, k)
+            self.probes.append((id(model), t0, time.perf_counter()))
+            return out
+
+        def canary(old, new, touched):
+            start, a0 = len(self.probes), self._alloc_counts()
+            verdict = check_fn(old, new, touched)
+            a1 = self._alloc_counts()
+            self.calls.append((id(old), id(new), start, len(self.probes),
+                               verdict, a1[0] - a0[0], a1[1] - a0[1]))
+            return verdict
+
+        def timed_serve(body):
+            t0 = time.perf_counter()
+            try:
+                return serve(body)
+            finally:
+                self.served.append((t0, time.perf_counter()))
+
+        self.mod.recommend_products = probed
+        self.trainer._canary_check = canary
+        self.qs.serve = timed_serve
+        gc.callbacks.append(self._gc)
+
+    def remove(self) -> None:
+        import gc
+
+        self.mod.recommend_products = self._orig[0]
+        self.trainer.__dict__.pop("_canary_check", None)
+        self.qs.__dict__.pop("serve", None)
+        if self._gc in gc.callbacks:
+            gc.callbacks.remove(self._gc)
+
+    def _overlaps(self, spans, t0, t1) -> float:
+        return sum(max(0.0, min(t1, b) - max(t0, a)) for a, b, *_ in spans)
+
+    def describe(self, n: int) -> str:
+        """The ``n``-th canary check: verdict, the stable arm's samples,
+        the candidate's (min of two a key), and what its slowest key's
+        two samples overlapped."""
+        old_id, new_id, lo, hi, verdict, dseg, dhost = self.calls[n]
+        keys, first_new = [], None
+        for mid, t0, t1 in self.probes[lo:hi]:
+            if first_new is None and mid == new_id:
+                first_new = t0
+            if mid == old_id or not keys or len(keys[-1]["cand"]) == 2:
+                keys.append({"stable": None, "cand": []})
+            if mid == old_id:
+                keys[-1]["stable"] = (t0, t1)
+            else:
+                keys[-1]["cand"].append((t0, t1))
+        stable = [k["stable"][1] - k["stable"][0] for k in keys
+                  if k["stable"] is not None]
+        cands = [min(c[1] - c[0] for c in k["cand"]) for k in keys
+                 if k["cand"]]
+        if not cands:
+            return f"canary check {n + 1}: no probes ({verdict})"
+        worst = keys[int(np.argmax([min(c[1] - c[0] for c in k["cand"])
+                                    if k["cand"] else -1 for k in keys]))]
+
+        def sample(c) -> str:
+            t0, t1 = c
+            return (f"{(t1 - t0) * 1e3:.3f}ms (gc "
+                    f"{self._overlaps(self.gc_spans, t0, t1) * 1e3:.3f}, "
+                    f"a served query {self._overlaps(self.served, t0, t1) * 1e3:.3f}, "
+                    f"a poll in flight {self._overlaps(self.polls, t0, t1) * 1e3:.3f}"
+                    f"{', the first launch on the candidate' if t0 == first_new else ''})")
+
+        action = "none" if verdict is None else verdict.action
+        reason = "" if verdict is None else f" ({verdict.reason})"
+        return (f"canary check {n + 1}: verdict={action}{reason} | stable "
+                f"max {max(stable) * 1e3 if stable else float('nan'):.3f}ms "
+                f"over {len(stable)} key(s), samples "
+                f"{[round(s * 1e3, 3) for s in stable]} | candidate (min of "
+                f"two) max {max(cands) * 1e3:.3f}ms over {len(cands)}, "
+                f"samples {[round(c * 1e3, 3) for c in cands]} | slowest "
+                f"candidate key: "
+                + " / ".join(sample(c) for c in worst["cand"])
+                + f" | device segments allocated +{dseg}, pinned host "
+                f"blocks allocated +{dhost}")
+
+
 def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
     """Streaming fold-in on the ``pio`` phase's store and model: deploy
     with the stream trainer through the CLI, post 3 bursts of 512
@@ -2508,10 +2690,11 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
     from predictionio_tpu_torch.ops import solve as sv
     from predictionio_tpu_torch.streaming import EventCursor
     from predictionio_tpu_torch.streaming import foldin
+    from predictionio_tpu_torch.streaming import trainer as trainer_mod
 
     bursts = stream_bursts(data, seed)
     storage = Storage(env={"PIO_HOME": home})
-    wrapped = {}
+    wrapped, canary_log, servers = {}, None, []
     try:
         app = storage.apps().get_by_name(PIO_APP)
         key = storage.access_keys().get_by_app_id(app.id)[0].key
@@ -2522,6 +2705,7 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
         evs = cli.build_eventserver(cli._parser().parse_args(
             ["eventserver", "--ip", "127.0.0.1", "--port", "0"]),
             storage).start_background()
+        servers.append(evs)
         args = cli._parser().parse_args([
             "deploy", "--engine-json", pio["engine_json"], "--ip",
             "127.0.0.1", "--port", "0", "--batching", "--stream",
@@ -2529,6 +2713,7 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
             "--stream-interval-ms", "100"])
         t = time.perf_counter()
         srv = cli.build_deploy(args, storage).start_background()
+        servers.append(srv)
         deploy_s = time.perf_counter() - t
         qs = srv.query_server
         trainer = qs.stream
@@ -2559,9 +2744,11 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
             wrapped[name] = getattr(foldin, name)
             setattr(foldin, name, timed(wrapped[name], stage, sync))
         qs.apply_stream_delta = timed(qs.apply_stream_delta, "apply")
+        canary_log = CanaryProbeLog(trainer, qs, trainer_mod)
+        canary_log.install()
 
         q = f"?accessKey={key}"
-        touched, cold_users = [], []
+        touched, cold_users, canary_printed = [], [], 0
         # -- the stream path, counted -----------------------------------
         fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
         t_next = pio["log_end_ms"]
@@ -2584,11 +2771,25 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
                               STREAM_USERS * STREAM_USER_EVENTS
                               + STREAM_COLD * STREAM_COLD_EVENTS]})
             polls = 0
+
+            def report_canary():
+                nonlocal canary_printed
+                while canary_printed < len(canary_log.calls):
+                    print(f"phase stream: pass {b + 1}: "
+                          + canary_log.describe(canary_printed), flush=True)
+                    canary_printed += 1
+
             while True:
+                t_poll = time.perf_counter()
                 answer, _ = _post(srv.port, {"user": cold[0], "num": 10})
+                canary_log.polls.append((t_poll, time.perf_counter()))
                 polls += 1
+                report_canary()
                 if len(answer["itemScores"]) == 10:
                     break
+                # a refused delta never serves: fail now, not at 300 s
+                check(trainer.rejects == 0,
+                      f"burst {b}: the stream canary refused the fold-in")
                 check(time.perf_counter() - t_201 < 300,
                       f"burst {b}: never servable")
                 time.sleep(0.05)
@@ -2596,6 +2797,7 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
             deadline = time.perf_counter() + 60
             while trainer.applies < b + 1 and time.perf_counter() < deadline:
                 time.sleep(0.01)
+            report_canary()
             check(trainer.applies == b + 1,
                   f"burst {b}: {trainer.applies} applies")
             last = dict(trainer.status()["lastBatch"])
@@ -2710,6 +2912,10 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
     finally:
         for name, fn in wrapped.items():
             setattr(foldin, name, fn)
+        if canary_log is not None:
+            canary_log.remove()
+        for server in reversed(servers):  # a failed check left them up
+            server.close()
         storage.close()
 
 
@@ -3269,6 +3475,598 @@ def phase_templates(data, dev, home: str, seed: int) -> dict:
         storage.close()
 
 
+# -- the sequential and classification templates ------------------------------
+
+#: the shipped sequential variant's epochs cut to 2 (20 shipped)
+SEQ_EPOCHS = 2
+#: one card step against the float64 CPU step: |d loss| <= SEQ_STEP_RTOL
+#: * (1 + |loss|); each gradient's ||g - g64|| <= SEQ_GRAD_RTOL * ||g64||
+#: (a gradient is a sum of B * (L - 1) = 12,544 per-position terms that
+#: largely cancel on the surrogate's windows of popular items: the host's
+#: own f32 step sits 2e-4 to 5e-4 off float64 there, normwise, and the
+#: card is held to 10x that); after the Adam update each weight within
+#: 1e-6 of the float64 update, or within 2 * lr where |g64| <
+#: SEQ_GRAD_FLOOR (there Adam's m / sqrt(v) is about +-1 whatever the
+#: gradient's size, so the f32 gradient's rounding may flip it)
+SEQ_STEP_RTOL = 1e-5
+SEQ_GRAD_RTOL = 5e-3
+SEQ_GRAD_FLOOR = 1e-5
+#: a served score against its float64 recomputation (two f32 attention
+#: blocks and three layer norms deep): |d| <= SEQ_RTOL * (1 + |s64|), and
+#: how close two float64 scores must be for either order to pass
+SEQ_RTOL = 1e-4
+SEQ_APP = "SeqApp"
+SEQ_USER_STRIDE = 200
+CLS_USERS = 100_000
+#: class-dependent Poisson means of attr0..attr2 for plan 0 and plan 1
+CLS_MEANS = ((6.0, 2.0, 1.0), (1.0, 2.0, 6.0))
+#: a naive-Bayes label served from the card's f32 scores may differ from
+#: the host float64 ``predict`` only where the two classes' float64
+#: scores lie within this of each other
+CLS_TIE_ATOL = 1e-4
+
+
+def launch_counts() -> dict:
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+
+    return {"fused_topk": ft.LAUNCHES, "fused_gram": fg.LAUNCHES,
+            "chol_solve": sv.LAUNCHES, "gram_table": gram.LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+
+    fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
+
+
+def card_tag(card: dict) -> str:
+    return f"card={card['name']} power_limit={card['power_limit']}"
+
+
+def seq_f64_scores(model, histories) -> torch.Tensor:
+    """[B, I] float64 scores of ``histories`` recomputed on the host from
+    the model's weights."""
+    from predictionio_tpu_torch.models import seqrec
+
+    w64 = {k: v.detach().double().cpu() for k, v in model.weights.items()}
+    seq = torch.from_numpy(seqrec.window(histories, model.params.max_len))
+    ctx = seqrec._encode(w64, seq, model.params)[:, -1]
+    return ctx @ w64["item_emb"][:-1].T
+
+
+def seq_held(tag: str, answer: list, scores64, known=()) -> bool:
+    """A served (item index, score) list against the float64 top of
+    ``scores64`` (one row, ``known`` indices out): the templates'
+    ``held_to`` with the sequential tolerance."""
+    s = scores64.numpy().copy()
+    s[list(known)] = -np.inf
+    order = np.argsort(-s, kind="stable")[:len(answer)]
+    ref = [(int(j), float(s[j])) for j in order]
+    score_of = lambda j: float(s[j]) if np.isfinite(s[j]) else None
+    return held_to(answer, ref, score_of, tag,
+                   atol=SEQ_RTOL * (1 + float(np.abs(s[order]).max())))
+
+
+def seq_step_check(model, seqs, seed: int, dev) -> dict:
+    """One step of the trained model on the card against the float64
+    step on the host: the same weights, batch and negatives."""
+    from predictionio_tpu_torch.models import seqrec
+
+    p = model.params
+    rows = np.random.default_rng(seed + 31).choice(len(seqs), p.batch_size,
+                                                   replace=False)
+    xb = torch.from_numpy(seqs[rows].astype(np.int64))
+    negs = torch.randint(0, model.n_items, (p.batch_size, p.max_len - 1,
+                                            p.n_negatives),
+                         generator=torch.Generator().manual_seed(seed))
+    w = {k: v.detach().clone() for k, v in model.weights.items()}
+    w64 = {k: v.double().cpu() for k, v in w.items()}
+    loss, grads = seqrec.loss_and_grads(w, xb.to(dev), negs.to(dev), p)
+    t = time.perf_counter()
+    loss64, grads64 = seqrec.loss_and_grads(w64, xb, negs, p)
+    host_s = time.perf_counter() - t
+    check(abs(float(loss) - float(loss64))
+          <= SEQ_STEP_RTOL * (1 + abs(float(loss64))),
+          f"sequential: card loss {float(loss)} vs float64 {float(loss64)}")
+    worst_g = 0.0
+    for k, g in grads.items():
+        g64 = grads64[k]
+        rel = float((g.double().cpu() - g64).norm()
+                    / g64.norm().clamp_min(1e-30))
+        worst_g = max(worst_g, rel)
+        check(rel <= SEQ_GRAD_RTOL, f"sequential: gradient {k} off the "
+              f"float64 step by {rel:.3e} (normwise)")
+    zeros = lambda ws: {k: torch.zeros_like(v) for k, v in ws.items()}
+    seqrec.adam_update(w, zeros(w), zeros(w), grads, 1, p.learning_rate)
+    seqrec.adam_update(w64, zeros(w64), zeros(w64), grads64, 1,
+                       p.learning_rate)
+    worst_w, flips = 0.0, 0
+    for k, x in w.items():
+        err = (x.double().cpu() - w64[k]).abs()
+        small = grads64[k].abs() < SEQ_GRAD_FLOOR
+        tol = 1e-6 + 2 * p.learning_rate * small.double()
+        check(bool((err <= tol).all()), f"sequential: weight {k} off the "
+              f"float64 Adam step by {err.max().item():.3e}")
+        worst_w = max(worst_w, float(err[~small].max()) if (~small).any()
+                      else 0.0)
+        flips += int((err[small] > 1e-6).sum())
+    return {"loss": float(loss), "loss64": float(loss64), "grad_rel": worst_g,
+            "w_err": worst_w, "flips": flips, "host_s": host_s}
+
+
+def phase_sequential(data, times, dev, card: dict) -> dict:
+    """The shipped sequential variant at ML-20M width on the card: every
+    user's 50 latest ratings as a window, ``train_seqrec`` for 2 epochs,
+    one step held against the float64 host step, one step profiled,
+    ``recommend_next_batch`` timed at B = 1 and 256 and every served list
+    held against its float64 recomputation."""
+    from predictionio_tpu_torch.models import seqrec
+
+    users, items, _, n_users, n_items = data
+    root = Path(__file__).resolve().parent
+    variant = json.loads((root / "examples" / "sequential" /
+                          "engine.json").read_text())
+    params = seqrec.SeqRecParams(**{**variant["algorithms"][0]["params"],
+                                    "num_epochs": SEQ_EPOCHS})
+    t = time.perf_counter()
+    seqs = seqrec.sequences_from_ratings(users, items, times, n_users,
+                                         params.max_len)
+    seq_s = time.perf_counter() - t
+    seqs = seqs[(seqs >= 0).sum(axis=1) >= 2]
+    steps = SEQ_EPOCHS * max(len(seqs) // params.batch_size, 1)
+    # -- the main path, counted --------------------------------------------
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model, losses = seqrec.train_seqrec(seqs, n_items, params, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = launch_counts()
+    # ----------------------------------------------------------------------
+    check(all(bool(torch.isfinite(v).all()) for v in model.weights.values()),
+          "sequential: a trained weight is not finite")
+    check(losses[-1] < losses[0], f"sequential: epoch losses {losses} do "
+          f"not fall")
+    check(not any(launches.values()),
+          f"sequential: the attention path launched a kernel: {launches}")
+    step = seq_step_check(model, seqs, 11, dev)
+
+    # one step profiled: forward, backward and Adam by CUDA events
+    w = {k: v.detach().clone() for k, v in model.weights.items()}
+    m = {k: torch.zeros_like(v) for k, v in w.items()}
+    v_ = {k: torch.zeros_like(v) for k, v in w.items()}
+    xb = torch.from_numpy(seqs[:params.batch_size].astype(np.int64)).to(dev)
+    negs = torch.randint(0, n_items, (params.batch_size, params.max_len - 1,
+                                      params.n_negatives), device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def one_step():
+        ev[0].record()
+        leaves = {k: x.detach().requires_grad_(True) for k, x in w.items()}
+        loss = seqrec.sampled_softmax_loss(leaves, xb, negs, params)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        ev[2].record()
+        seqrec.adam_update(w, m, v_, dict(zip(leaves, grads)), 1,
+                           params.learning_rate)
+        ev[3].record()
+
+    one_step()  # warm
+    _, bd = profile_device("phase sequential profile, one train step",
+                           one_step)
+    split = [ev[n].elapsed_time(ev[n + 1]) for n in range(3)]
+
+    # serving
+    rng = np.random.default_rng(13)
+    hist = [r[r >= 0].tolist() for r in seqs[rng.choice(len(seqs), 256,
+                                                        replace=False)]]
+    lat = {}
+    for B, reps in ((1, 200), (256, 40)):
+        seqrec.recommend_next_batch(model, hist[:B], 10)
+        times_ms = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            seqrec.recommend_next_batch(model, hist[:B], 10)
+            times_ms.append((time.perf_counter() - t) * 1e3)
+        lat[B] = (np.percentile(times_ms, 50), np.percentile(times_ms, 99))
+    ids, scores = seqrec.recommend_next_batch(model, hist, 10)
+    s64 = seq_f64_scores(model, hist)
+    tied = sum(seq_held(f"sequential row {b}",
+                        list(zip(ids[b].tolist(), scores[b].tolist())),
+                        s64[b]) for b in range(len(hist)))
+    i1, sc1 = seqrec.recommend_next(model, hist[0], 10)
+    tied += seq_held("sequential B = 1", list(zip(i1.tolist(),
+                                                  sc1.tolist())), s64[0])
+    print(f"phase sequential: {len(seqs)} windows of {params.max_len} over "
+          f"{n_items} items (sequences_from_ratings {seq_s:.3f}s, host) | "
+          f"dim {params.dim} heads {params.heads} blocks "
+          f"{params.num_blocks} batch {params.batch_size} negatives "
+          f"{params.n_negatives}, {SEQ_EPOCHS} epochs = {steps} steps in "
+          f"{train_s:.3f}s = {steps / train_s:.1f} steps/s "
+          f"{steps * params.batch_size / train_s:.1f} sequences/s | epoch "
+          f"losses {[round(x, 6) for x in losses]} | one card step vs the "
+          f"float64 host step ({step['host_s']:.2f}s): loss "
+          f"{step['loss']:.6f}/{step['loss64']:.6f}, gradients within "
+          f"{step['grad_rel']:.3e} normwise, Adam within {step['w_err']:.3e} "
+          f"({step['flips']} sign flips below |g| {SEQ_GRAD_FLOOR}) | "
+          f"profiled step ms: wall {bd['wall_ms']:.3f} device "
+          f"{bd['device_ms']:.3f} idle_share "
+          f"{1 - bd['device_ms'] / bd['wall_ms']:.5f}; event spans forward "
+          f"{split[0]:.3f} backward {split[1]:.3f} adam {split[2]:.3f} | "
+          f"recommend_next_batch ms p50/p99: B=1 {lat[1][0]:.3f}/"
+          f"{lat[1][1]:.3f} B=256 {lat[256][0]:.3f}/{lat[256][1]:.3f}; "
+          f"{len(hist) + 1} lists held to float64 ({tied} reordered inside "
+          f"a near-tie) | launches {launches} | {card_tag(card)}", flush=True)
+    return launches
+
+
+def seq_event_lines(data, times, t_shift_ms: int = 0) -> tuple:
+    """Every ``SEQ_USER_STRIDE``-th surrogate user's ratings as timed
+    ``view`` events (its k-th rating k ms after its surrogate second, so
+    no two of a user's events share a time)."""
+    from predictionio_tpu_torch.data.event import from_millis, isoformat_millis
+
+    users, items = data[0], data[1]
+    keep = np.flatnonzero(users % SEQ_USER_STRIDE == 0)
+    u, i, ts = users[keep], items[keep], times[keep]
+    order = np.lexsort((ts, u))
+    u, i, ts = u[order], i[order], ts[order]
+    first = np.r_[0, np.flatnonzero(np.diff(u)) + 1]
+    rank = np.arange(len(u)) - np.repeat(first, np.diff(np.r_[first,
+                                                              len(u)]))
+    ms = ts * 1000 + rank + t_shift_ms
+    lines = [json.dumps({"event": "view", "entityType": "user",
+                         "entityId": f"u{a}", "targetEntityType": "item",
+                         "targetEntityId": f"i{b}",
+                         "eventTime": isoformat_millis(from_millis(int(c)))})
+             for a, b, c in zip(u.tolist(), i.tolist(), ms.tolist())]
+    return lines, u, i
+
+
+def phase_sequential_pio(data, times, dev, home: str, card: dict) -> dict:
+    """The shipped sequential variant through the CLI on SQLite: ``cli
+    import``, ``cli train``, ``cli deploy``, 32 user and 32 item queries
+    over HTTP (the users' histories read at serving time, timed), each
+    answer held to its float64 recomputation; then ``cli eval`` of the
+    port's shipped sequential evaluation."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data import store as pstore
+    from predictionio_tpu_torch.data.storage.base import (
+        STATUS_COMPLETED, STATUS_EVALCOMPLETED)
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    root = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    lines, u, i = seq_event_lines(data, times)
+    events_path = Path(home) / "sequential_events.jsonl"
+    events_path.write_text("\n".join(lines) + "\n")
+    build_s = time.perf_counter() - t
+    storage = Storage(env={"PIO_HOME": home})
+    reads = {"s": [], "errors": []}
+    plain_find = pstore.EventStoreFacade.find_by_entity
+
+    def timed_find(self, *args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return plain_find(self, *args, **kwargs)
+        except Exception as e:  # counted, then the template's handling
+            reads["errors"].append(repr(e))
+            raise
+        finally:
+            reads["s"].append(time.perf_counter() - t)
+
+    eval_mod = "predictionio_tpu_torch.examples.sequential_evaluation"
+    env_app = os.environ.get("PTPU_EVAL_APP")
+    try:
+        check(cli.main(["app", "new", SEQ_APP], storage=storage) == 0,
+              "app new failed")
+        app_id = storage.apps().get_by_name(SEQ_APP).id
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["import", "--app", SEQ_APP, "--input",
+                           str(events_path)], storage=storage)
+        import_s = time.perf_counter() - t
+        check(rc == 0 and f"Imported {len(lines)} event(s)." in
+              out.getvalue(), f"cli import: {rc} {out.getvalue()}")
+        variant = json.loads((root / "examples" / "sequential" /
+                              "engine.json").read_text())
+        variant["datasource"]["params"]["app_name"] = SEQ_APP
+        path = Path(home) / "sequential.json"
+        path.write_text(json.dumps(variant))
+        # -- the main path, counted ----------------------------------------
+        zero_launch_counts()
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--engine-json", str(path)],
+                          storage=storage)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        check(rc == 0, f"cli train sequential: {rc} {out.getvalue()}")
+        stages = json.loads(next(
+            ln for ln in out.getvalue().splitlines()
+            if ln.startswith("Train stages: "))[len("Train stages: "):])
+        (inst,) = [x for x in storage.engine_instances().get_all()
+                   if x.engine_id == variant["id"]]
+        check(inst.status == STATUS_COMPLETED,
+              f"sequential: instance {inst.id} is {inst.status}")
+        (model,) = loads_models(storage.models().get(inst.id).models)
+        check(all(bool(torch.isfinite(v).all())
+                  for v in model.weights.values()),
+              "sequential: a persisted weight is not finite")
+        params = model.params
+        check(params.num_epochs == 20 and params.dim == 64
+              and params.num_blocks == 2, f"sequential: params {params}")
+
+        rng = np.random.default_rng(17)
+        app_users = np.unique(u)
+        picks = rng.choice(app_users, 64, replace=False)
+        user_q = [{"user": f"u{x}", "num": 10} for x in picks[:32].tolist()]
+        item_q = []
+        for x in picks[32:].tolist():
+            mine = i[u == x]
+            n = int(rng.integers(3, 11))
+            item_q.append({"items": [f"i{y}" for y in mine[-n:].tolist()],
+                           "num": 10})
+        pstore.EventStoreFacade.find_by_entity = timed_find
+        args = cli._parser().parse_args([
+            "deploy", "--engine-json", str(path), "--ip", "127.0.0.1",
+            "--port", "0"])
+        srv = cli.build_deploy(args, storage).start_background()
+        try:
+            answered = [_post(srv.port, q) for q in user_q + item_q]
+        finally:
+            srv.close()
+            pstore.EventStoreFacade.find_by_entity = plain_find
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        check(not any(launches.values()),
+              f"sequential-pio launched a kernel: {launches}")
+        facade = pstore.EventStoreFacade(storage)
+        ids = model.item_ids
+        late, tied, hists = 0, 0, []
+        for q in user_q + item_q:
+            if "user" in q:
+                evs = facade.find_by_entity(
+                    SEQ_APP, "user", q["user"], target_entity_type="item",
+                    event_names=list(model.events),
+                    limit=params.max_len, latest=True)
+                hists.append([ids[e.target_entity_id] for e in reversed(evs)
+                              if e.target_entity_id in ids])
+            else:
+                hists.append([ids[x] for x in q["items"] if x in ids])
+        s64 = seq_f64_scores(model, hists)
+        for n, (q, (a, _)) in enumerate(zip(user_q + item_q, answered)):
+            got = [(ids[x["item"]], x["score"]) for x in a["itemScores"]]
+            if not got and hists[n]:
+                late += 1  # a read past its deadline: an empty 200
+                continue
+            tied += seq_held(f"sequential-pio {q}", got, s64[n],
+                             known=set(hists[n]))
+        http = np.array([s for _, s in answered]) * 1e3
+        read_ms = np.array(reads["s"]) * 1e3
+        check(len(read_ms) == len(user_q),
+              f"{len(read_ms)} history reads for {len(user_q)} user queries")
+        check(not reads["errors"] and late == 0,
+              f"sequential-pio: {len(reads['errors'])} history reads raised "
+              f"{reads['errors'][:3]}, {late} answers empty")
+
+        # cli eval of the port's shipped sequential evaluation
+        os.environ["PTPU_EVAL_APP"] = SEQ_APP
+        sys.modules.pop(eval_mod, None)
+        before = {x.id for x in storage.evaluation_instances().get_all()}
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["eval", f"{eval_mod}:evaluation",
+                           f"{eval_mod}:engine_params_generator"],
+                          storage=storage)
+        eval_s = time.perf_counter() - t
+        check(rc == 0, f"cli eval sequential: {rc} {out.getvalue()}")
+        (ev_inst,) = [x for x in storage.evaluation_instances().get_all()
+                      if x.id not in before]
+        check(ev_inst.status == STATUS_EVALCOMPLETED,
+              f"sequential eval: instance {ev_inst.id} is {ev_inst.status}")
+        result = json.loads(ev_inst.evaluator_results_json)
+        scores = [x["score"] for x in result["metricScoresList"]]
+        check(len(scores) == 4 and all(0.0 <= x <= 1.0 for x in scores)
+              and result["bestIndex"] == int(np.argmax(scores)),
+              f"sequential eval: scores {scores}, best "
+              f"{result['bestIndex']}")
+        print(f"phase sequential-pio: {len(lines)} view events (1 user in "
+              f"{SEQ_USER_STRIDE}: {len(app_users)} users, "
+              f"{len(np.unique(i))} items) built in {build_s:.2f}s, cli "
+              f"import {import_s:.3f}s = {len(lines) / import_s:.1f} "
+              f"events/s | cli train (dim 64, 2 blocks, 20 epochs as "
+              f"shipped) {train_s:.3f}s stages {stages} | HTTP ms p50/p99: "
+              f"user {np.percentile(http[:32], 50):.3f}/"
+              f"{np.percentile(http[:32], 99):.3f} items "
+              f"{np.percentile(http[32:], 50):.3f}/"
+              f"{np.percentile(http[32:], 99):.3f} | {len(read_ms)} history "
+              f"reads ms p50/p99 {np.percentile(read_ms, 50):.3f}/"
+              f"{np.percentile(read_ms, 99):.3f} max {read_ms.max():.3f}, "
+              f"{len(reads['errors'])} raised, {late} empty answers | "
+              f"{len(answered)} answers held to float64 ({tied} reordered "
+              f"inside a near-tie) | cli eval {eval_s:.3f}s HitRate@10 "
+              f"{[round(x, 6) for x in scores]} best {result['bestIndex']} "
+              f"| launches {launches} | {card_tag(card)}", flush=True)
+        return launches
+    finally:
+        pstore.EventStoreFacade.find_by_entity = plain_find
+        if env_app is None:
+            os.environ.pop("PTPU_EVAL_APP", None)
+        else:
+            os.environ["PTPU_EVAL_APP"] = env_app
+        storage.close()
+
+
+def forest_votes_numpy(m, X) -> np.ndarray:
+    """[B, C] votes of a forest traversed in numpy from its per-node
+    arrays (the plain version of ``RandomForestModel.votes``)."""
+    X = np.asarray(X, np.float32)
+    B, T = len(X), m.feature.shape[0]
+    trees = np.broadcast_to(np.arange(T), (B, T))
+    node = np.zeros((B, T), np.int64)
+    for _ in range(m.max_depth + 1):
+        f = m.feature[trees, node]
+        xv = np.take_along_axis(X, np.maximum(f, 0), axis=1)
+        nxt = np.where(xv <= m.threshold[trees, node], m.left[trees, node],
+                       m.right[trees, node])
+        node = np.where(f < 0, node, nxt)
+    votes = np.zeros((B, len(m.classes)), np.float32)
+    np.add.at(votes, (np.arange(B)[:, None], m.leaf[trees, node]), 1.0)
+    return votes
+
+
+def phase_classification(dev, home: str, seed: int, card: dict) -> dict:
+    """The shipped classification variant (naive Bayes, as shipped) and a
+    random-forest variant (the JAX package's default params) through the
+    CLI on SQLite: 100,000 users ``$set`` with ``plan`` and attr0..2,
+    ``cli train`` and ``cli deploy`` of each, 64 queries over HTTP held to
+    the host float64 ``predict`` (naive Bayes) and to a numpy traversal
+    (the forest); every user's point scored on the card in one call and
+    held the same way."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.event import from_millis, isoformat_millis
+    from predictionio_tpu_torch.data.storage.base import STATUS_COMPLETED
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    root = Path(__file__).resolve().parent
+    rng = np.random.default_rng(seed + 41)
+    plan = rng.integers(0, 2, CLS_USERS)
+    attrs = rng.poisson(np.asarray(CLS_MEANS)[plan]).astype(np.float64)
+    t0 = 1_760_000_000_000
+    lines = [json.dumps({"event": "$set", "entityType": "user",
+                         "entityId": f"u{k}", "properties": {
+                             "plan": float(plan[k]), "attr0": a[0],
+                             "attr1": a[1], "attr2": a[2]},
+                         "eventTime": isoformat_millis(from_millis(t0 + k))})
+             for k, a in enumerate(attrs.tolist())]
+    events_path = Path(home) / "classification_events.jsonl"
+    events_path.write_text("\n".join(lines) + "\n")
+    shipped = root / "examples" / "classification" / "engine.json"
+    variant = json.loads(shipped.read_text())
+    app = variant["datasource"]["params"]["app_name"]
+    rf_variant = dict(variant, id="classification-rf", algorithms=[
+        {"name": "randomforest", "params": {}}])
+    rf_path = Path(home) / "classification_rf.json"
+    rf_path.write_text(json.dumps(rf_variant))
+    # the points in the data source's order: sorted by entity id
+    order = sorted(range(CLS_USERS), key=lambda k: f"u{k}")
+    X = attrs[order]
+    storage = Storage(env={"PIO_HOME": home})
+    try:
+        check(cli.main(["app", "new", app], storage=storage) == 0,
+              "app new failed")
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["import", "--app", app, "--input",
+                           str(events_path)], storage=storage)
+        import_s = time.perf_counter() - t
+        check(rc == 0, f"cli import: {rc} {out.getvalue()}")
+        queries = [{"attr0": float(a[0]), "attr1": float(a[1]),
+                    "attr2": float(a[2])}
+                   for a in rng.poisson(np.asarray(CLS_MEANS)[
+                       rng.integers(0, 2, 64)]).tolist()]
+        report, launches = [], None
+        # -- the main path, counted ----------------------------------------
+        zero_launch_counts()
+        for name, path, vid in (("naive", shipped, variant["id"]),
+                                ("randomforest", rf_path, rf_variant["id"])):
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["train", "--engine-json", str(path)],
+                              storage=storage)
+            train_s = time.perf_counter() - t
+            check(rc == 0, f"cli train {name}: {rc} {out.getvalue()}")
+            stages = json.loads(next(
+                ln for ln in out.getvalue().splitlines()
+                if ln.startswith("Train stages: "))[len("Train stages: "):])
+            (inst,) = [x for x in storage.engine_instances().get_all()
+                       if x.engine_id == vid]
+            check(inst.status == STATUS_COMPLETED,
+                  f"{name}: instance {inst.id} is {inst.status}")
+            (model,) = loads_models(storage.models().get(inst.id).models)
+            args = cli._parser().parse_args([
+                "deploy", "--engine-json", str(path), "--ip", "127.0.0.1",
+                "--port", "0", "--batching"])
+            srv = cli.build_deploy(args, storage).start_background()
+            try:
+                answered = [_post(srv.port, q) for q in queries]
+            finally:
+                srv.close()
+            Q = np.array([[q["attr0"], q["attr1"], q["attr2"]]
+                          for q in queries])
+            got = np.array([a["label"] for a, _ in answered])
+            model.predict_batch(X[:64], device=dev)  # places the arrays
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "naive":
+                bulk = model.predict_batch(X, device=dev)
+                bulk_s = time.perf_counter() - t
+                s64 = model.log_priors + X @ model.log_likelihoods.T
+                q64 = model.log_priors + Q @ model.log_likelihoods.T
+                ties = 0
+                for tag, labels, want, s in (
+                        ("HTTP", got, np.array([model.predict(q)
+                                                for q in Q]), q64),
+                        ("bulk", bulk, model.classes[np.argmax(s64, 1)],
+                         s64)):
+                    for r in np.flatnonzero(labels != want):
+                        ties += 1
+                        pick = int(np.flatnonzero(model.classes
+                                                  == labels[r])[0])
+                        check(s[r].max() - s[r, pick] <= CLS_TIE_ATOL,
+                              f"naive {tag} point {r}: label {labels[r]} "
+                              f"where the float64 predict gives {want[r]}")
+                held = (f"labels equal to the float64 predict but {ties} "
+                        f"near-tie(s)")
+            else:
+                votes = model.votes(X, device=dev).cpu().numpy()
+                bulk_s = time.perf_counter() - t
+                plain = forest_votes_numpy(model, X)
+                check(np.array_equal(votes, plain),
+                      f"forest votes off the numpy traversal at "
+                      f"{int((votes != plain).any(axis=1).sum())} points")
+                qv = forest_votes_numpy(model, Q)
+                check(np.array_equal(got, model.classes[np.argmax(qv, 1)]),
+                      "forest: an HTTP label is not its votes' argmax")
+                bulk = model.classes[np.argmax(votes, axis=1)]
+                T, N = model.feature.shape
+                held = (f"votes equal to the numpy traversal, {T} trees x "
+                        f"{N} nodes")
+            acc = float(np.mean(bulk == plan[order]))
+            http = np.array([s for _, s in answered]) * 1e3
+            report.append(
+                f"{name}: cli train {train_s:.3f}s stages {stages}, HTTP ms "
+                f"p50/p99 {np.percentile(http, 50):.3f}/"
+                f"{np.percentile(http, 99):.3f}, {CLS_USERS} points on the "
+                f"card in {bulk_s * 1e3:.3f} ms (training accuracy "
+                f"{acc:.4f}), {held}")
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        check(not any(launches.values()),
+              f"classification launched a kernel: {launches}")
+        print(f"phase classification: {CLS_USERS} users $set (plan, "
+              f"attr0..2) by cli import in {import_s:.3f}s = "
+              f"{CLS_USERS / import_s:.1f} events/s | " + " | ".join(report)
+              + f" | launches {launches} | {card_tag(card)}", flush=True)
+        return launches
+    finally:
+        storage.close()
+
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -3289,7 +4087,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     with phase("card"):
-        phase_card()
+        card = phase_card()
     with phase("build"):
         phase_build()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -3301,7 +4099,7 @@ def main(argv=None) -> int:
     del U, V
     from predictionio_tpu_torch.models import als
 
-    data = load_surrogate(args.seed)
+    data, times = load_surrogate(args.seed, with_times=True)
     params = als.ALSParams(rank=RANK, num_iterations=TRAIN_ITERS)
     with phase("train-kernel"):
         t0 = time.perf_counter()
@@ -3317,6 +4115,8 @@ def main(argv=None) -> int:
         trained = phase_train(data, dev)
     with phase("implicit"):
         implicit = phase_implicit(data, dev)
+    with phase("sequential"):
+        seq_l = phase_sequential(data, times, dev, card)
     with phase("stream-kernel"):
         stream_kernel_l = phase_stream_kernel(trained.pop("item_factors"),
                                               args.seed, dev)
@@ -3349,6 +4149,10 @@ def main(argv=None) -> int:
             stream_l = phase_stream(data, dev, home, pio, args.seed)
         with phase("templates"):
             templates_l = phase_templates(data, dev, home, args.seed)
+        with phase("sequential-pio"):
+            seq_pio_l = phase_sequential_pio(data, times, dev, home, card)
+        with phase("classification"):
+            cls_l = phase_classification(dev, home, args.seed, card)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
@@ -3356,7 +4160,9 @@ def main(argv=None) -> int:
     # eval_launches: the serial cli eval's; stream_launches: the stream
     # phase's path; implicit_launches: the implicit ML-20M iteration's;
     # templates_launches: the two templates' cli train and deploy (the
-    # templates score on the host: fused_topk 0)
+    # templates score on the host: fused_topk 0); sequential_launches,
+    # sequential_pio_launches, classification_launches: the new phases'
+    # (no TPU kernel is on their paths: each reads 0)
     implicit_l = implicit["launches"]
     kernels = [
         dict(name="fused_topk", route="cuda",
@@ -3366,7 +4172,10 @@ def main(argv=None) -> int:
              eval_launches=eval_l["fused_topk"],
              stream_launches=stream_l["fused_topk"],
              implicit_launches=implicit_l["fused_topk"],
-             templates_launches=templates_l["fused_topk"], **row),
+             templates_launches=templates_l["fused_topk"],
+             sequential_launches=seq_l["fused_topk"],
+             sequential_pio_launches=seq_pio_l["fused_topk"],
+             classification_launches=cls_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -3374,7 +4183,10 @@ def main(argv=None) -> int:
              eval_launches=eval_l["fused_gram"],
              stream_launches=stream_l["fused_gram"],
              implicit_launches=implicit_l["fused_gram"],
-             templates_launches=templates_l["fused_gram"], **gram_row),
+             templates_launches=templates_l["fused_gram"],
+             sequential_launches=seq_l["fused_gram"],
+             sequential_pio_launches=seq_pio_l["fused_gram"],
+             classification_launches=cls_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -3382,7 +4194,10 @@ def main(argv=None) -> int:
              eval_launches=eval_l["chol_solve"],
              stream_launches=stream_l["chol_solve"],
              implicit_launches=implicit_l["chol_solve"],
-             templates_launches=templates_l["chol_solve"], **solve_row),
+             templates_launches=templates_l["chol_solve"],
+             sequential_launches=seq_l["chol_solve"],
+             sequential_pio_launches=seq_pio_l["chol_solve"],
+             classification_launches=cls_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -3390,7 +4205,10 @@ def main(argv=None) -> int:
              eval_launches=eval_l["gram_table"],
              stream_launches=stream_l["gram_table"],
              implicit_launches=implicit_l["gram_table"],
-             templates_launches=templates_l["gram_table"], **table_row),
+             templates_launches=templates_l["gram_table"],
+             sequential_launches=seq_l["gram_table"],
+             sequential_pio_launches=seq_pio_l["gram_table"],
+             classification_launches=cls_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

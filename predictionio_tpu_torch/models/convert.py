@@ -1,16 +1,20 @@
-"""Carry a trained ALS model's weights (or initial factors) into the port.
+"""Carry a trained model's weights (or an ALS model's initial factors)
+into the port.
 
 :func:`factors_to_numpy` takes a factor pair as host f32 arrays, for
 ``train_als(init=...)``; :func:`als_model_from_numpy` takes what a JAX-package ``ALSModel`` holds,
 as plain host data: ``np.asarray`` of each factor table (or of a
 quantized table's data and scale), ``dict(bimap)`` of each id map and
-``dataclasses.asdict(params)``. Nothing of the JAX package is imported,
-so both packages can compute on the same numbers.
+``dataclasses.asdict(params)``. :func:`seqrec_model_from_numpy`,
+:func:`naive_bayes_model_from_numpy` and
+:func:`random_forest_model_from_numpy` do the same for the sequential
+and classification models. Nothing of the JAX package is imported, so
+both packages can compute on the same numbers.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +22,8 @@ import torch
 from ..data.bimap import BiMap
 from ..utils.device import DeviceLike, resolve_device
 from .als import ALSModel, ALSParams, QuantizedFactors, SERVING_QUANT_MODES
+from .classify import NaiveBayesModel, RandomForestModel
+from .seqrec import SeqRecModel, SeqRecParams
 
 
 def _bf16_tensor(arr) -> torch.Tensor:
@@ -85,3 +91,48 @@ def als_model_from_numpy(user_factors, item_factors, n_users: int,
         user_ids=None if user_ids is None else BiMap(dict(user_ids)),
         item_ids=None if item_ids is None else BiMap(dict(item_ids)),
         params=params)
+
+
+def seqrec_model_from_numpy(weights: Mapping[str, np.ndarray], n_items: int,
+                            item_ids: Optional[Mapping], params,
+                            events: Optional[Sequence[str]] = None,
+                            app_name: str = "",
+                            device: DeviceLike = None) -> SeqRecModel:
+    """The port's :class:`SeqRecModel` from a JAX-package model's weights
+    as host arrays (``{k: np.asarray(v)}``), its id map as a dict and
+    its params as a dict, placed on ``device`` (the card by default)."""
+    if not isinstance(params, SeqRecParams):
+        params = SeqRecParams(**dict(params or {}))
+    dev = resolve_device(device)
+    w = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+         for k, v in weights.items()}
+    return SeqRecModel(
+        weights=w, n_items=int(n_items),
+        item_ids=None if item_ids is None else BiMap(dict(item_ids)),
+        params=params, events=None if events is None else tuple(events),
+        app_name=app_name)
+
+
+def naive_bayes_model_from_numpy(log_priors, log_likelihoods, classes,
+                                 device: DeviceLike = None
+                                 ) -> NaiveBayesModel:
+    """The port's :class:`NaiveBayesModel` from a JAX-package one's
+    arrays (host numpy already: a copy), scoring batches on ``device``
+    (the card by default)."""
+    return NaiveBayesModel(
+        np.array(log_priors, copy=True), np.array(log_likelihoods, copy=True),
+        np.array(classes, copy=True),
+        device=str(resolve_device(device)))
+
+
+def random_forest_model_from_numpy(feature, threshold, left, right, leaf,
+                                   classes, max_depth: int,
+                                   device: DeviceLike = None
+                                   ) -> RandomForestModel:
+    """The port's :class:`RandomForestModel` from a JAX-package one's
+    per-node arrays (a copy), traversing on ``device`` (the card by
+    default)."""
+    return RandomForestModel(
+        *(np.array(a, copy=True)
+          for a in (feature, threshold, left, right, leaf, classes)),
+        max_depth=int(max_depth), device=str(resolve_device(device)))

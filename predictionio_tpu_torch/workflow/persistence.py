@@ -83,6 +83,8 @@ class ModelKind:
     cls: type
     encode: Callable[[Any], Tuple[Dict[str, np.ndarray], dict]]
     decode: Callable[[Dict[str, np.ndarray], dict], Any]
+    #: the module that registers the kind, which a reader imports
+    module: str
 
 
 #: kind name -> ModelKind; ``ALSModel`` is built in, and a template's
@@ -90,10 +92,14 @@ class ModelKind:
 _KINDS: Dict[str, ModelKind] = {}
 
 
-def register_kind(name: str, cls: type, encode, decode) -> None:
+def register_kind(name: str, cls: type, encode, decode,
+                  module: Optional[str] = None) -> None:
     """Let :func:`dumps_models` store models of ``cls`` as kind ``name``
-    and :func:`loads_models` read them back."""
-    _KINDS[name] = ModelKind(name, cls, encode, decode)
+    and :func:`loads_models` read them back. ``module`` is the module
+    that makes this call (``cls``'s own by default): a reader imports it
+    to register the kind."""
+    _KINDS[name] = ModelKind(name, cls, encode, decode,
+                             module or cls.__module__)
 
 
 def _encode_als(m: ALSModel) -> Tuple[Dict[str, np.ndarray], dict]:
@@ -125,8 +131,7 @@ def _dump_one(arrays: Dict[str, np.ndarray], i: int, m: Any) -> dict:
             named, meta = kind.encode(m)
             for name, arr in named.items():
                 arrays[f"{i}.{name}"] = np.ascontiguousarray(arr)
-            return {"kind": kind.name, "module": kind.cls.__module__,
-                    **meta}
+            return {"kind": kind.name, "module": kind.module, **meta}
     raise TypeError(f"model {i} is a {type(m).__name__}; no model kind is "
                     f"registered for it (registered: {', '.join(_KINDS)})")
 

@@ -39,7 +39,7 @@ def test_no_forbidden_import(path):
 
 
 @pytest.mark.parametrize("sub", ["streaming", "faults", "rollout", "cache",
-                                 "obs", "workflow"])
+                                 "obs", "workflow", "e2"])
 def test_the_copied_subpackages_are_scanned(sub):
     """The stream and pipeline slices' subpackages are the port's own
     copies: each is in the scan above, and none reaches the JAX
@@ -77,10 +77,16 @@ def test_the_eval_modules_are_scanned(rel):
     "data/storage/sqlite.py", "controller/base.py",
     "templates/__init__.py", "templates/_common.py",
     "templates/ecommerce.py", "templates/similarproduct.py",
-    "models/cooccurrence.py", "workflow/persistence.py", "cli.py"])
+    "models/cooccurrence.py", "workflow/persistence.py", "cli.py",
+    "templates/classification.py", "templates/sequential.py",
+    "models/classify.py", "models/seqrec.py", "models/convert.py",
+    "ops/ring_attention.py", "e2/__init__.py", "e2/naive_bayes.py",
+    "e2/markov_chain.py", "e2/vectorizer.py", "e2/cross_validation.py",
+    "examples/sequential_evaluation.py"])
 def test_the_template_modules_are_scanned(rel):
-    """The e-commerce and similar-product slice's modules, the port's own
-    copies of JAX-package modules, are in the scan above."""
+    """The template slices' modules (e-commerce and similar-product;
+    classification, sequential and ``e2/``), the port's own copies of
+    JAX-package modules, are in the scan above."""
     assert PACKAGE / rel in set(port_files()), rel
     assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
 
@@ -111,7 +117,10 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.controller.evaluation, "
             "predictionio_tpu_torch.controller.fast_eval, "
             "predictionio_tpu_torch.utils.memo, "
-            "predictionio_tpu_torch.examples.recommendation_evaluation; "
+            "predictionio_tpu_torch.examples.recommendation_evaluation, "
+            "predictionio_tpu_torch.examples.sequential_evaluation, "
+            "predictionio_tpu_torch.templates, "
+            "predictionio_tpu_torch.e2; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
             "assert not bad, bad")
