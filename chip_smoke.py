@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
 lifecycle, batch-predict, evaluation, streaming fold-in, e-commerce,
-similar-product, sequential and classification template paths once on
-the CUDA card and check them.
+similar-product, sequential and classification template paths and the
+release lifecycle once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -272,12 +272,43 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             every point scored on the card in one call and held the same
             way (the forest's votes equal exactly).
 
+13. release — releases on phase 8's store: the items the surrogate
+            rates but no 10th user did (4,251 at seed 0) get up to 3 of
+            their surrogate ratings each by ``cli import``, then two COMPLETED
+            releases of one engine triple (engine id ``release`` over
+            MyApp1's events, rank 64, every rated item: 25,385 of the
+            26,744 catalogue ids at seed 0, the algorithm's seed 1 then
+            2) by ``cli train``, ``fused_gram`` and
+            ``chol_solve`` counted; ``cli deploy --batching`` binds the newer; ``cli
+            release pin`` of the older, ``POST /reload`` (timed to the
+            first answer from the pinned release) and ``/status.json``
+            naming it; a fresh ``cli deploy`` on the pinned store binds
+            the pin too. A canary of the newer (``POST /release/canary``,
+            a 1 s gate window, the JAX package's thresholds) driven until
+            the gate concludes: ``promoted``, 0 errors on either arm, the
+            history ``canary ... promote``. Each query's user comes from
+            a cohort below the first ramp step (always the candidate) or
+            at or past 25% (the stable arm until the last step), read
+            with ``cohort_bucket``, and each answer is held to the float64
+            top-k of the factors of the release that served it
+            (``check_answer``). ``fused_topk`` launches are attributed to
+            the arm that made them (``ArmLaunches``: the sum must equal
+            the wrapper's count) and the candidate's B = 1 launches are
+            event-timed. Then a shadow rollout of the older (answers from
+            stable, ``pio_release_shadow_mirrors_total`` positive on
+            ``/metrics``) ended by ``POST /release/rollback``, and ``POST
+            /release/rollback`` with no candidate, which rebinds the older
+            (answers held to it). Prints the reload and fresh-deploy
+            times, the time of ``bind_candidate``, the launches and the
+            ``/release.json`` p50/p99 of each arm, beside the card's name
+            and power limit.
+
 Phases 6b, 11 and 12 print the four kernels' launch counts (each 0: no
 TPU kernel is on their paths) beside the card's name and power limit.
 Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
 launches on the main path, in the batch-predict job for ``fused_topk``,
 in the serial eval run, on the stream path, in the implicit iteration,
-in the templates phase and in phases 6b, 11 and 12) and, last,
+in the templates phase and in phases 6b, 11, 12 and 13) and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -4067,6 +4098,423 @@ def phase_classification(dev, home: str, seed: int, card: dict) -> dict:
         storage.close()
 
 
+#: phase release: the engine id of its two releases (over PIO_APP's
+#: events, so no earlier phase's instance list sees them), the rollout
+#: gate's window (the JAX package's thresholds otherwise), the users a
+#: canary round sends from each cohort group, and how long the canary may
+#: take to conclude
+RELEASE_ENGINE_ID = "release"
+#: the most ratings each rated catalogue item that no 10th user rated
+#: gets from the surrogate before the releases train, so they span every item
+#: the surrogate rates
+RELEASE_FILL = 3
+RELEASE_WINDOW_S = 1.0
+RELEASE_ROUND = 24
+RELEASE_TIMEOUT_S = 120.0
+
+
+class ArmLaunches:
+    """Attributes each ``fused_topk`` launch of the serving path to the
+    release arm whose query made it: ``models.als.fused_topk`` (the
+    wrapper the serving dispatch calls) is wrapped to count a launch on
+    the arm of the calling thread, which is the candidate while a wrapped
+    ``QueryServer.query_candidate`` runs (canary answers and shadow
+    mirrors) and the stable arm otherwise; each candidate launch is
+    bracketed by CUDA events (its device time at B = 1 under HTTP load).
+    The wrapper's own count is untouched: the sum over arms must equal
+    its delta."""
+
+    def __init__(self, qs):
+        from predictionio_tpu_torch.models import als
+
+        self._als, self._qs = als, qs
+        self._real_topk, self._real_qc = als.fused_topk, qs.query_candidate
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self.counts = {"stable": 0, "candidate": 0}
+        self.events: list = []
+
+    def __enter__(self):
+        local, real_topk, real_qc = (self._local, self._real_topk,
+                                     self._real_qc)
+
+        def topk(*a, **kw):
+            cand = getattr(local, "candidate", False)
+            if cand:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = real_topk(*a, **kw)
+                e1.record()
+            else:
+                out = real_topk(*a, **kw)
+            with self._lock:
+                self.counts["candidate" if cand else "stable"] += 1
+                if cand:
+                    self.events.append((e0, e1))
+            return out
+
+        def query_candidate(query_json):
+            local.candidate = True
+            try:
+                return real_qc(query_json)
+            finally:
+                local.candidate = False
+
+        self._als.fused_topk = topk
+        self._qs.query_candidate = query_candidate
+        return self
+
+    def __exit__(self, *exc):
+        self._als.fused_topk = self._real_topk
+        del self._qs.query_candidate  # the bound method again
+
+    def take(self) -> tuple:
+        """The counts and the candidate launches' device ms since the
+        last take, and a reset."""
+        torch.cuda.synchronize()
+        with self._lock:
+            counts, events = dict(self.counts), self.events
+            self.counts = {"stable": 0, "candidate": 0}
+            self.events = []
+        return counts, [e0.elapsed_time(e1) for e0, e1 in events]
+
+
+def phase_release(data, dev, home: str, pio: dict, card: dict) -> dict:
+    """Releases on the ``pio`` store: the items the surrogate rates but no
+    10th user did get up to ``RELEASE_FILL`` of their surrogate ratings
+    each by ``cli import``, then two COMPLETED releases of one engine triple
+    (engine id ``release`` over ``PIO_APP``'s events, rank 64, every rated
+    item of the catalogue, the algorithm's seed 1 then 2) by ``cli
+    train``; ``cli deploy --batching``
+    binds the newer; ``cli release pin`` of the older and ``POST
+    /reload``; a fresh ``cli deploy`` on the pinned store; a canary of
+    the newer through ``POST /release/canary`` (gate window
+    ``RELEASE_WINDOW_S``, the JAX package's thresholds) driven until the
+    controller concludes, which must be ``promoted`` with 0 errors on
+    either arm; a shadow rollout of the older (answers from stable,
+    mirrors counted on ``/metrics``), ended by ``POST /release/rollback``;
+    then ``POST /release/rollback`` with no candidate, which rebinds the
+    older. Every answer is held to the float64 top-k of the factors of
+    the release that served it (``check_answer``), the arm read from
+    ``cohort_bucket``: the canary's queries come from users whose bucket
+    is below the first ramp step (always the candidate) or at or past
+    25% (the stable arm until the last step)."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.event import from_millis, isoformat_millis
+    from predictionio_tpu_torch.data.storage.base import STATUS_COMPLETED
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.als import _table_leaves
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.rollout import cohort_bucket
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    users, items, stars, _, n_catalogue = data
+    # the surrogate's popularity draw leaves some catalogue ids unrated:
+    # those no store can hold
+    rated = np.bincount(items, minlength=n_catalogue) > 0
+    in_store = np.zeros(n_catalogue, bool)
+    in_store[items[users % PIO_USER_STRIDE == 0]] = True
+    missing = np.flatnonzero(rated & ~in_store)
+    order = np.argsort(items, kind="stable")
+    starts = np.searchsorted(items[order], missing)
+    fill = [int(order[f + j]) for f, it in zip(starts, missing)
+            for j in range(RELEASE_FILL)
+            if f + j < len(order) and items[order[f + j]] == it]
+    t_fill = pio["log_end_ms"] + 86_400_000
+    fill_path = Path(home) / "release_fill.jsonl"
+    fill_path.write_text("".join(json.dumps({
+        "event": "rate", "entityType": "user", "entityId": f"u{users[k]}",
+        "targetEntityType": "item", "targetEntityId": f"i{items[k]}",
+        "properties": {"rating": float(stars[k])},
+        "eventTime": isoformat_millis(from_millis(t_fill + n))}) + "\n"
+        for n, k in enumerate(fill)))
+    variant = json.loads(Path(pio["engine_json"]).read_text())
+    variant["id"] = RELEASE_ENGINE_ID
+    path = Path(home) / "release.json"
+    release_args = ["--engine-id", RELEASE_ENGINE_ID, "--engine-json",
+                    str(path)]
+    storage = Storage(env={"PIO_HOME": home})
+    srv = None
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["import", "--app", PIO_APP, "--input",
+                           str(fill_path)], storage=storage)
+        check(rc == 0, f"cli import of the fill: {rc} {out.getvalue()}")
+        # -- the phase's path, counted -------------------------------------
+        zero_launch_counts()
+        train_s = []
+        for seed in (1, 2):
+            variant["algorithms"][0]["params"]["seed"] = seed
+            path.write_text(json.dumps(variant))
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["train", "--engine-json", str(path)],
+                              storage=storage)
+            torch.cuda.synchronize()
+            train_s.append(time.perf_counter() - t)
+            check(rc == 0, f"cli train seed {seed}: {rc} {out.getvalue()}")
+        train_l = launch_counts()
+        check(train_l["fused_gram"] > 0 and train_l["chol_solve"] > 0,
+              f"the two trainings' launches: {train_l}")
+        old, new = sorted((x for x in storage.engine_instances().get_all()
+                           if x.engine_id == RELEASE_ENGINE_ID),
+                          key=lambda x: x.start_time)
+        for inst in (old, new):
+            check(inst.status == STATUS_COMPLETED,
+                  f"release {inst.id} is {inst.status}")
+        refs = {}
+        for inst in (old, new):
+            (m,) = loads_models(storage.models().get(inst.id).models)
+            ud, us = _table_leaves(m.user_factors.to(dev))
+            vd, vs = _table_leaves(m.item_factors.to(dev))
+            check(us is None and vs is None, "a stored table is quantized")
+            refs[inst.id] = (ud, us, vd, vs, ud.double(), vd.double(),
+                             m.n_items, dev, m.user_ids, m.item_ids)
+        check(not torch.equal(refs[old.id][0], refs[new.id][0]),
+              "the two seeds trained the same factors")
+        n_items, rank = refs[new.id][6], refs[new.id][0].shape[1]
+        known = refs[new.id][9]
+        covered = sum(f"i{j}" in known for j in np.flatnonzero(rated))
+        check(covered == int(rated.sum()),
+              f"the releases know {covered} of the {int(rated.sum())} "
+              f"rated catalogue items")
+
+        def held(q, a, iid) -> None:
+            check_answer(q, a, *refs[iid])
+
+        def held_either(q, a, first, second) -> None:
+            try:
+                check_answer(q, a, *refs[first])
+            except SystemExit:
+                check_answer(q, a, *refs[second])
+
+        def status(port):
+            return _http(port, "GET", "/status.json")[1]
+
+        def rollout(port):
+            return _http(port, "GET", "/release.json")[1]["rollout"]
+
+        # the cohort groups, over users both releases know
+        rng = np.random.default_rng(23)
+        keys = sorted(set(refs[old.id][8].keys())
+                      & set(refs[new.id][8].keys()))
+        bucket = {u: cohort_bucket(f"user={u}") for u in keys}
+        always_cand = [u for u in keys if bucket[u] < 0.01]
+        until_last = [u for u in keys if bucket[u] >= 0.25]
+        check(bool(always_cand) and bool(until_last),
+              f"cohort groups of {len(always_cand)} and "
+              f"{len(until_last)} users")
+        qn = lambda u: {"user": u, "num": 10}  # noqa: E731
+
+        args = cli._parser().parse_args(
+            ["deploy", "--engine-json", str(path), "--ip", "127.0.0.1",
+             "--port", "0", "--batching"])
+        srv = cli.build_deploy(args, storage).start_background()
+        qs = srv.query_server
+        check(status(srv.port)["engineInstanceId"] == new.id,
+              "deploy did not bind the newer release")
+        for u in rng.choice(keys, 8, replace=False):
+            held(qn(u), _post(srv.port, qn(u))[0], new.id)
+
+        # pin the older and reload
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["release", "pin", old.id, *release_args],
+                          storage=storage)
+        check(rc == 0, f"cli release pin: {rc} {out.getvalue()}")
+        u = str(rng.choice(keys))
+        t = time.perf_counter()
+        code, body = _http(srv.port, "POST", "/reload")
+        first, _ = _post(srv.port, qn(u))
+        reload_s = time.perf_counter() - t
+        check(code == 200 and body["engineInstanceId"] == old.id,
+              f"/reload: {code} {body}")
+        held(qn(u), first, old.id)
+        st = status(srv.port)
+        check(st["engineInstanceId"] == old.id
+              and st["release"]["pinned"] == old.id,
+              f"/status.json after the reload: {st['release']}")
+
+        # the cold case: a fresh deploy on the pinned store
+        t = time.perf_counter()
+        cold = cli.build_deploy(args, storage).start_background()
+        try:
+            cold_first, _ = _post(cold.port, qn(u))
+            cold_s = time.perf_counter() - t
+            check(status(cold.port)["engineInstanceId"] == old.id,
+                  "a fresh deploy on the pinned store bound another "
+                  "release")
+            held(qn(u), cold_first, old.id)
+        finally:
+            cold.close()
+
+        with ArmLaunches(qs) as arms:
+            # -- canary ----------------------------------------------------
+            real_bind = qs.bind_candidate
+            bind_s = []
+
+            def timed_bind(*a, **kw):
+                t0 = time.perf_counter()
+                real_bind(*a, **kw)
+                torch.cuda.synchronize()
+                bind_s.append(time.perf_counter() - t0)
+
+            qs.bind_candidate = timed_bind
+            try:
+                ft0 = ft.LAUNCHES
+                code, body = _http(srv.port, "POST", "/release/canary", {
+                    "instanceId": new.id, "windowSec": RELEASE_WINDOW_S,
+                    "reason": "chip_smoke canary"})
+                check(code == 200 and body["rollout"]["fraction"] == 0.01,
+                      f"/release/canary: {code} {body}")
+            finally:
+                del qs.bind_candidate
+            t_canary = time.perf_counter()
+            lat = {"stable": [], "candidate": []}
+            rounds = ambiguous = 0
+            while True:
+                before = rollout(srv.port)
+                if not before["active"]:
+                    break
+                check(time.perf_counter() - t_canary < RELEASE_TIMEOUT_S,
+                      f"the canary did not conclude: {before}")
+                sent = []
+                for c, s in zip(rng.choice(always_cand, RELEASE_ROUND),
+                                rng.choice(until_last, RELEASE_ROUND)):
+                    for u, group in ((str(c), "cand"), (str(s), "late")):
+                        a, dt = _post(srv.port, qn(u))
+                        sent.append((u, group, a, dt))
+                after = rollout(srv.port)
+                for u, group, a, dt in sent:
+                    if group == "cand":
+                        held(qn(u), a, new.id)
+                        lat["candidate"].append(dt)
+                    elif after["active"] and after["fraction"] < 1.0:
+                        held(qn(u), a, old.id)
+                        lat["stable"].append(dt)
+                    else:  # the last ramp step or the promotion
+                        ambiguous += 1
+                        held_either(qn(u), a, new.id, old.id)
+                rounds += 1
+            canary_s = time.perf_counter() - t_canary
+            canary_arms, cand_ms = arms.take()
+            canary_ft = ft.LAUNCHES - ft0
+            rel = _http(srv.port, "GET", "/release.json")[1]
+            ro = rel["rollout"]
+            check(ro["outcome"] == "promoted",
+                  f"the healthy canary ended {ro['outcome']!r}: "
+                  f"{ro['lastDecision']}")
+            errors = {a: rel["arms"][a]["errors"] for a in rel["arms"]}
+            check(not any(errors.values()),
+                  f"errors on the arms: {errors}")
+            actions = [e["action"] for e in rel["history"]]
+            check("canary" in actions and "promote"
+                  in actions[actions.index("canary"):],
+                  f"history {actions}")
+            check(rel["state"]["stable"] == new.id
+                  and rel["state"]["pinned"] == new.id,
+                  f"state after promote: {rel['state']}")
+            check(status(srv.port)["engineInstanceId"] == new.id,
+                  "the promoted release does not serve")
+            check(canary_arms["candidate"] > 0 and canary_arms["stable"] > 0
+                  and sum(canary_arms.values()) == canary_ft,
+                  f"fused_topk launches by arm {canary_arms}, "
+                  f"{canary_ft} counted by the wrapper")
+            pct = {a: (rel["arms"][a]["latency"]["p50"] * 1e3,
+                       rel["arms"][a]["latency"]["p99"] * 1e3)
+                   for a in ("stable", "candidate")}
+
+            # -- shadow ----------------------------------------------------
+            ft0 = ft.LAUNCHES
+            code, body = _http(srv.port, "POST", "/release/canary", {
+                "instanceId": old.id, "shadow": True,
+                "windowSec": RELEASE_WINDOW_S})
+            check(code == 200, f"shadow start: {code} {body}")
+            t = time.perf_counter()
+            shadow_q = 0
+            while rollout(srv.port)["windowsEvaluated"] < 2:
+                check(time.perf_counter() - t < RELEASE_TIMEOUT_S,
+                      "the shadow gate evaluated no window")
+                for u in rng.choice(keys, RELEASE_ROUND):
+                    held(qn(str(u)), _post(srv.port, qn(str(u)))[0], new.id)
+                    shadow_q += 1
+            with _LOCAL.open(f"http://127.0.0.1:{srv.port}/metrics",
+                             timeout=30) as resp:
+                text = resp.read().decode()
+            mirrors = float(next(
+                ln.split()[1] for ln in text.splitlines()
+                if ln.startswith("pio_release_shadow_mirrors_total ")))
+            check(mirrors > 0, "no shadow mirror on /metrics")
+            code, body = _http(srv.port, "POST", "/release/rollback")
+            check(code == 200 and body["engineInstanceId"] == new.id,
+                  f"shadow rollback: {code} {body}")
+            # let the mirrors in flight finish before they are counted
+            # (the next mirror would start a new pool)
+            qs._mirror_pool.shutdown(wait=True)
+            qs._mirror_pool = None
+            shadow_arms, mirror_ms = arms.take()
+            shadow_ft = ft.LAUNCHES - ft0
+            check(shadow_arms["candidate"] > 0
+                  and sum(shadow_arms.values()) == shadow_ft,
+                  f"shadow launches by arm {shadow_arms}, {shadow_ft} "
+                  f"counted by the wrapper")
+            rel = _http(srv.port, "GET", "/release.json")[1]
+            check(rel["rollout"]["outcome"] == "rolled_back"
+                  and rel["state"]["candidate"] == "",
+                  f"after the shadow: {rel['rollout']['outcome']}")
+
+        # -- rollback with no candidate: the previous release --------------
+        code, body = _http(srv.port, "POST", "/release/rollback")
+        check(code == 200 and body["engineInstanceId"] == old.id,
+              f"/release/rollback: {code} {body}")
+        check(status(srv.port)["engineInstanceId"] == old.id,
+              "rollback did not rebind the previous release")
+        for u in rng.choice(keys, 16, replace=False):
+            held(qn(str(u)), _post(srv.port, qn(str(u)))[0], old.id)
+        srv.close()
+        srv = None
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        check(launches["fused_topk"] > 0, "the release path launched "
+              "fused_topk no time")
+        cms = np.array(cand_ms)
+        print(f"phase release: {len(fill)} fill ratings of "
+              f"{len(missing)} items no 10th user rated | 2 releases of "
+              f"({RELEASE_ENGINE_ID}, {variant.get('version', '1')}, "
+              f"{path.name}) at rank {rank} x {n_items} items (every "
+              f"rated item: {covered} of the catalogue's {n_catalogue} "
+              f"ids), cli train {train_s[0]:.3f}s and "
+              f"{train_s[1]:.3f}s (launches fused_gram="
+              f"{train_l['fused_gram']} chol_solve={train_l['chol_solve']})"
+              f" | POST /reload to the first answer from the pinned "
+              f"release {reload_s * 1e3:.3f} ms; a fresh deploy to its "
+              f"first answer {cold_s:.3f}s | bind_candidate "
+              f"{bind_s[0] * 1e3:.3f} ms | canary promoted in "
+              f"{canary_s:.3f}s, {rounds} rounds, "
+              f"{len(lat['candidate']) + len(lat['stable']) + ambiguous} "
+              f"queries ({ambiguous} across the last step), 0 errors | "
+              f"fused_topk launches by arm: stable="
+              f"{canary_arms['stable']} candidate="
+              f"{canary_arms['candidate']} | /release.json latency ms "
+              f"p50/p99: stable {pct['stable'][0]:.3f}/"
+              f"{pct['stable'][1]:.3f} candidate "
+              f"{pct['candidate'][0]:.3f}/{pct['candidate'][1]:.3f} | "
+              f"candidate fused_topk at B = 1 under HTTP load, device ms "
+              f"p50/p99 {np.percentile(cms, 50):.4f}/"
+              f"{np.percentile(cms, 99):.4f} over {len(cms)} | shadow "
+              f"{shadow_q} queries, {int(mirrors)} mirrors, launches "
+              f"stable={shadow_arms['stable']} mirrored="
+              f"{shadow_arms['candidate']} | rollback rebound {old.id} | "
+              f"launches {launches} | {card_tag(card)}", flush=True)
+        return launches
+    finally:
+        if srv is not None:
+            srv.close()
+        storage.close()
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -4153,6 +4601,8 @@ def main(argv=None) -> int:
             seq_pio_l = phase_sequential_pio(data, times, dev, home, card)
         with phase("classification"):
             cls_l = phase_classification(dev, home, args.seed, card)
+        with phase("release"):
+            rel_l = phase_release(data, dev, home, pio, card)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
@@ -4162,7 +4612,8 @@ def main(argv=None) -> int:
     # templates_launches: the two templates' cli train and deploy (the
     # templates score on the host: fused_topk 0); sequential_launches,
     # sequential_pio_launches, classification_launches: the new phases'
-    # (no TPU kernel is on their paths: each reads 0)
+    # (no TPU kernel is on their paths: each reads 0); release_launches:
+    # the release phase's (two trainings, then both arms' serving)
     implicit_l = implicit["launches"]
     kernels = [
         dict(name="fused_topk", route="cuda",
@@ -4175,7 +4626,8 @@ def main(argv=None) -> int:
              templates_launches=templates_l["fused_topk"],
              sequential_launches=seq_l["fused_topk"],
              sequential_pio_launches=seq_pio_l["fused_topk"],
-             classification_launches=cls_l["fused_topk"], **row),
+             classification_launches=cls_l["fused_topk"],
+             release_launches=rel_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -4186,7 +4638,8 @@ def main(argv=None) -> int:
              templates_launches=templates_l["fused_gram"],
              sequential_launches=seq_l["fused_gram"],
              sequential_pio_launches=seq_pio_l["fused_gram"],
-             classification_launches=cls_l["fused_gram"], **gram_row),
+             classification_launches=cls_l["fused_gram"],
+             release_launches=rel_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -4197,7 +4650,8 @@ def main(argv=None) -> int:
              templates_launches=templates_l["chol_solve"],
              sequential_launches=seq_l["chol_solve"],
              sequential_pio_launches=seq_pio_l["chol_solve"],
-             classification_launches=cls_l["chol_solve"], **solve_row),
+             classification_launches=cls_l["chol_solve"],
+             release_launches=rel_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -4208,7 +4662,8 @@ def main(argv=None) -> int:
              templates_launches=templates_l["gram_table"],
              sequential_launches=seq_l["gram_table"],
              sequential_pio_launches=seq_pio_l["gram_table"],
-             classification_launches=cls_l["gram_table"], **table_row),
+             classification_launches=cls_l["gram_table"],
+             release_launches=rel_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

@@ -16,14 +16,19 @@
         [module:params_generator] [--parallelism N]
     python -m predictionio_tpu_torch.cli stream status|start|stop \\
         [--port 8000] [--app MyApp1]
+    python -m predictionio_tpu_torch.cli undeploy [--port 8000]
+    python -m predictionio_tpu_torch.cli release list
+    python -m predictionio_tpu_torch.cli release show|pin|status|canary|\\
+        promote|rollback --engine-id ID --engine-json engine.json ...
 
 Storage is the JAX package's: ``PIO_STORAGE_*`` variables, else one
 SQLite file at ``$PIO_HOME/pio.db``. ``train``, ``deploy``,
 ``batchpredict`` and ``eval`` run on the CUDA card unless ``--device
-cpu`` is given; without CUDA they raise. ``deploy`` binds the latest
-COMPLETED instance of the variant's engine, or, with ``--model``, a file
-written by
-``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``.
+cpu`` is given; without CUDA they raise. ``deploy`` binds the pinned
+release of the variant's engine, else its latest COMPLETED instance, or,
+with ``--model``, a file written by
+``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``
+(``undeploy``, which records the undeploy in the release history).
 With ``--batching`` concurrent queries coalesce through the staged
 pipeline (``--pipeline serial``: the drainer threads), each shed with a
 503 past ``--queue-deadline-ms``. ``batchpredict`` writes one
@@ -34,14 +39,19 @@ winner's one-liner and records an EVALCOMPLETED evaluation instance.
 With ``--stream`` a stream trainer folds the app's new events into the
 served model (not with ``--model``: it needs the storage the instance
 came from). ``stream`` drives a running engine server's trainer over
-HTTP.
+HTTP. ``release`` lists, shows and pins releases in the storage (the JAX
+package's release blobs: a pin either package writes binds in both) and
+drives a running engine server's canary, promote and rollback (``status``
+falls back to the storage when the server is unreachable); as in the JAX
+package its engine triple is ``--engine-id`` (default "default"),
+``--engine-version`` (default "1") and the ``--engine-json`` path.
 
 An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
-Left out (``ROADMAP.md`` queue 1): build, undeploy, status, export,
-channels and app deletion, TLS, fleets and the release commands.
+Left out (``ROADMAP.md`` queue 1): build, status, export, channels and
+app deletion, TLS and fleets.
 """
 
 from __future__ import annotations
@@ -379,6 +389,123 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def cmd_undeploy(args, storage: Storage) -> int:
+    """Stop the engine server at ``args.ip``:``args.port``, recording the
+    undeploy in the history of the release it was serving."""
+    from .rollout import ReleaseRegistry
+
+    # which release goes off traffic, learnt BEFORE stopping it
+    info = None
+    try:
+        info = _server_call(args, "/status.json")
+    except (OSError, ValueError):
+        pass  # liveness is checked by /stop below
+    try:
+        _server_call(args, "/stop", "POST")
+    except OSError as e:
+        _err(f"Cannot undeploy {args.ip}:{args.port}: {_call_error(e)}")
+        return 1
+    if not (info and info.get("engineId")):
+        _out(f"Undeployed engine server at {args.ip}:{args.port}.")
+        return 0
+    _out(f"Undeployed engine server at {args.ip}:{args.port} (engine "
+         f"{info['engineId']}, release instance "
+         f"{info.get('engineInstanceId', '?')}).")
+    try:
+        ReleaseRegistry(storage, info["engineId"],
+                        info.get("engineVersion") or "1",
+                        info.get("engineVariant") or "engine.json").record(
+            "undeploy", instance_id=info.get("engineInstanceId") or "",
+            actor="pio undeploy", reason=f"stopped {args.ip}:{args.port}")
+    except Exception as e:  # noqa: BLE001 — history is best-effort
+        _err(f"release history write failed: {e}")
+    return 0
+
+
+def cmd_release(args, storage: Storage) -> int:
+    """List, show and pin releases in the storage; drive a running engine
+    server's canary, promote, rollback and status over its routes."""
+    from .rollout import ReleaseRegistry
+    from .rollout.splitter import parse_fraction
+
+    sub = args.release_command
+    if sub == "list":
+        tracked = ReleaseRegistry.list_tracked(storage)
+        if not tracked:
+            _out("No releases recorded yet (deploy to create one).")
+            return 0
+        for engine_id, engine_version, engine_variant in sorted(tracked):
+            st = ReleaseRegistry(storage, engine_id, engine_version,
+                                 engine_variant).state()
+            _out(f"{engine_id} v{engine_version} ({engine_variant}): "
+                 f"stable={st.get('stable') or '(none)'} "
+                 f"pinned={st.get('pinned') or '-'} "
+                 f"candidate={st.get('candidate') or '-'}")
+        return 0
+
+    reg = ReleaseRegistry(storage, args.engine_id or "default",
+                          args.engine_version or "1", args.engine_json)
+    if sub == "show":
+        _out(json.dumps(reg.to_json(history_limit=args.limit), indent=2))
+        return 0
+    if sub == "pin":
+        if args.clear:
+            reg.unpin(actor="pio release", reason=args.reason)
+            _out("Unpinned; deploy/reload bind the latest COMPLETED "
+                 "instance again.")
+            return 0
+        if not args.instance_id:
+            _err("instance_id required (or --clear).")
+            return 1
+        try:
+            reg.pin(args.instance_id, actor="pio release",
+                    reason=args.reason)
+        except ValueError as e:
+            _err(str(e))
+            return 1
+        _out(f"Pinned release {args.instance_id}; deploy/reload now bind "
+             f"it (POST /reload to apply on a live server).")
+        return 0
+    if sub == "status":
+        try:
+            payload = _server_call(args, "/release.json")
+        except (OSError, ValueError) as e:
+            _err(f"engine server at {args.ip}:{args.port} unreachable "
+                 f"({_call_error(e)}); showing storage state")
+            payload = reg.to_json(history_limit=10)
+        _out(json.dumps(payload, indent=2))
+        return 0
+    if sub == "canary":
+        body = {"instanceId": args.instance_id, "shadow": args.shadow,
+                "actor": "pio release", "reason": args.reason}
+        try:
+            if args.fraction:
+                body["fraction"] = parse_fraction(args.fraction)
+        except ValueError as e:
+            _err(str(e))
+            return 1
+        try:
+            resp = _server_call(args, "/release/canary", "POST", body)
+        except OSError as e:
+            _err(f"canary start failed: {_call_error(e)}")
+            return 1
+        ro = (resp or {}).get("rollout") or {}
+        _out(f"{'Shadow' if args.shadow else 'Canary'} rollout of "
+             f"{args.instance_id} started at "
+             f"{float(ro.get('fraction') or 0) * 100:.0f}% "
+             f"(watch: release status).")
+        return 0
+    try:  # promote, rollback
+        resp = _server_call(args, f"/release/{sub}", "POST",
+                            {"reason": args.reason})
+    except OSError as e:
+        _err(f"{sub} failed: {_call_error(e)}")
+        return 1
+    _out(f"{resp.get('message', 'OK')} Serving instance: "
+         f"{resp.get('engineInstanceId', '?')}")
+    return 0
+
+
 def _serve(srv: AppServer, what: str, args) -> int:
     _out(f"{what} is listening at http://{args.ip}:{srv.port}.")
     try:
@@ -520,6 +647,53 @@ def _parser() -> argparse.ArgumentParser:
             c.add_argument("--max-events", type=int, default=None)
             c.add_argument("--drift-threshold", type=float, default=None)
             c.add_argument("--canary-probes", type=int, default=None)
+
+    s = sub.add_parser("undeploy", help="stop a deployed engine server")
+    s.add_argument("--ip", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+
+    s = sub.add_parser("release", help="list, show and pin releases; drive "
+                                       "a server's canary, promote and "
+                                       "rollback")
+    rel_sub = s.add_subparsers(dest="release_command", required=True)
+
+    def release_flags(sp, server: bool = False):
+        sp.add_argument("--engine-json", default="engine.json")
+        sp.add_argument("--engine-id", default="")
+        sp.add_argument("--engine-version", default="")
+        sp.add_argument("--reason", default="",
+                        help="recorded in the release history")
+        if server:
+            sp.add_argument("--ip", default="127.0.0.1")
+            sp.add_argument("--port", type=int, default=8000)
+
+    rel_sub.add_parser("list", help="every engine with release state")
+    r = rel_sub.add_parser("show", help="state and history (JSON)")
+    release_flags(r)
+    r.add_argument("--limit", type=int, default=50,
+                   help="history entries to include")
+    r = rel_sub.add_parser("pin", help="pin deploy/reload to an instance")
+    release_flags(r)
+    r.add_argument("instance_id", nargs="?", default="")
+    r.add_argument("--clear", action="store_true",
+                   help="unpin (bind the latest COMPLETED again)")
+    r = rel_sub.add_parser("canary", help="start a health-gated canary of "
+                                          "an instance on the server")
+    release_flags(r, server=True)
+    r.add_argument("instance_id")
+    r.add_argument("--fraction", default="",
+                   help="initial candidate traffic fraction (0.05 or 5%%; "
+                        "default: the first ramp step)")
+    r.add_argument("--shadow", action="store_true",
+                   help="mirror queries to the candidate without "
+                        "returning its answers (never auto-promotes)")
+    for name, help_ in (("promote", "promote the live candidate to the "
+                                    "pinned stable"),
+                        ("rollback", "abort the live candidate (or revert "
+                                     "stable to the previous release)"),
+                        ("status", "the server's /release.json (the "
+                                   "storage's state when unreachable)")):
+        release_flags(rel_sub.add_parser(name, help=help_), server=True)
     return p
 
 
@@ -541,6 +715,10 @@ def main(argv: Optional[List[str]] = None,
         return cmd_batchpredict(args, storage)
     if args.command == "eval":
         return cmd_eval(args, storage)
+    if args.command == "undeploy":
+        return cmd_undeploy(args, storage)
+    if args.command == "release":
+        return cmd_release(args, storage)
     if args.command == "eventserver":
         return _serve(build_eventserver(args, storage), "Event Server", args)
     srv = build_deploy(args, storage)

@@ -348,6 +348,15 @@ class EvaluationInstance:
         return replace(self, **changes)
 
 
+#: Model-blob ids starting with this prefix are RESERVED for framework
+#: metadata riding the MODELDATA repository: the release registry's state
+#: documents (:mod:`predictionio_tpu_torch.rollout.registry`), the same
+#: keys the JAX package writes. Engine-instance ids never collide with it,
+#: and tooling that enumerates or garbage-collects model blobs must skip
+#: reserved keys.
+RESERVED_MODEL_KEY_PREFIX = "__release__"
+
+
 @dataclass(frozen=True)
 class Model:
     """A persisted model blob keyed by engine-instance id."""

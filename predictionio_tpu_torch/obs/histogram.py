@@ -1,0 +1,203 @@
+"""Streaming fixed-bucket histograms: O(1) record, bounded memory (the
+port's own copy of ``predictionio_tpu/obs/histogram.py``).
+
+``record`` is one bisect plus one increment, memory is ``len(bounds) + 1``
+integers forever, and p50/p90/p99/max are derived at read time by linear
+interpolation inside the target bucket (the estimator Prometheus'
+``histogram_quantile`` applies to the scraped cumulative buckets).
+
+Left out (``ROADMAP.md`` queue 1 items 10 and 14): exemplars, and the
+fleet's ``from_buckets`` / ``merge``.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from bisect import bisect_left
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+def exponential_bounds(start: float, factor: float,
+                       count: int) -> List[float]:
+    """``count`` log-spaced bucket upper bounds from ``start``."""
+    if start <= 0 or factor <= 1 or count < 1:
+        raise ValueError("need start > 0, factor > 1, count >= 1")
+    return [start * factor ** i for i in range(count)]
+
+
+def linear_bounds(start: float, width: float, count: int) -> List[float]:
+    """``count`` evenly spaced bucket upper bounds from ``start``."""
+    if width <= 0 or count < 1:
+        raise ValueError("need width > 0, count >= 1")
+    return [start + width * i for i in range(count)]
+
+
+#: Default latency buckets: 100 us to ~105 s, x2 per bucket (21 buckets).
+DEFAULT_LATENCY_BOUNDS: Tuple[float, ...] = tuple(
+    exponential_bounds(0.0001, 2.0, 21))
+
+
+class StreamingHistogram:
+    """Thread-safe fixed-bucket histogram.
+
+    ``bounds`` are strictly increasing *inclusive* upper bounds
+    (Prometheus ``le`` semantics); one overflow bucket is implicit.
+    """
+
+    __slots__ = ("bounds", "_counts", "_count", "_sum", "_min", "_max",
+                 "_lock")
+
+    def __init__(self,
+                 bounds: Optional[Sequence[float]] = None) -> None:
+        bs = tuple(float(b) for b in
+                   (bounds if bounds is not None
+                    else DEFAULT_LATENCY_BOUNDS))
+        if not bs or any(b2 <= b1 for b1, b2 in zip(bs, bs[1:])):
+            raise ValueError("bounds must be non-empty and strictly "
+                             "increasing")
+        self.bounds = bs
+        self._counts = [0] * (len(bs) + 1)
+        self._count = 0
+        self._sum = 0.0
+        self._min = math.inf
+        self._max = -math.inf
+        self._lock = threading.Lock()
+
+    def record(self, value: float) -> None:
+        """O(1): one bisect over the fixed bounds + one increment."""
+        v = float(value)
+        i = bisect_left(self.bounds, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._count += 1
+            self._sum += v
+            if v < self._min:
+                self._min = v
+            if v > self._max:
+                self._max = v
+
+    # Prometheus naming
+    observe = record
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    @property
+    def max(self) -> float:
+        with self._lock:
+            return self._max if self._count else 0.0
+
+    @property
+    def min(self) -> float:
+        with self._lock:
+            return self._min if self._count else 0.0
+
+    def bucket_counts(self) -> List[Tuple[float, int]]:
+        """Cumulative ``(le, count)`` pairs, ending with ``(inf, n)``: the
+        Prometheus exposition shape."""
+        with self._lock:
+            counts = list(self._counts)
+        out: List[Tuple[float, int]] = []
+        cum = 0
+        for b, c in zip(self.bounds, counts):
+            cum += c
+            out.append((b, cum))
+        out.append((math.inf, cum + counts[-1]))
+        return out
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Estimate the ``q``-quantile (``q`` in [0, 1]) by linear
+        interpolation inside the target bucket; None when empty."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError("q must be in [0, 1]")
+        with self._lock:
+            counts = list(self._counts)
+            n = self._count
+            lo_seen, hi_seen = self._min, self._max
+        if n == 0:
+            return None
+        target = q * n
+        cum = 0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= target:
+                lo = self.bounds[i - 1] if i > 0 else min(
+                    lo_seen, self.bounds[0])
+                hi = (self.bounds[i] if i < len(self.bounds)
+                      else hi_seen)
+                hi = max(hi, lo)
+                v = lo + (hi - lo) * ((target - cum) / c)
+                # never report outside the observed range
+                return min(max(v, lo_seen), hi_seen)
+            cum += c
+        return hi_seen
+
+    def snapshot(self) -> Dict[str, float]:
+        """count/sum/mean/min/max plus the standard percentile trio."""
+        with self._lock:
+            n, s = self._count, self._sum
+        if n == 0:
+            return {"count": 0}
+        return {
+            "count": n,
+            "sum": s,
+            "mean": s / n,
+            "min": self.min,
+            "max": self.max,
+            "p50": self.quantile(0.50),
+            "p90": self.quantile(0.90),
+            "p99": self.quantile(0.99),
+        }
+
+
+def window_quantile(start: List[Tuple[float, int]],
+                    now: List[Tuple[float, int]],
+                    q: float) -> Optional[float]:
+    """Quantile of the observations that landed BETWEEN two cumulative
+    :meth:`StreamingHistogram.bucket_counts` snapshots of one histogram
+    (the per-bucket deltas are the window's own histogram; the rollout
+    health gate windows candidate-vs-stable p99 this way). Interpolates
+    inside the target bucket like :meth:`StreamingHistogram.quantile`;
+    None on an empty window, mismatched snapshots, or a *wrapped* window
+    (a negative per-bucket delta: the histogram was reset or swapped
+    between the snapshots, so the delta is not a histogram of
+    anything)."""
+    if not 0.0 <= q <= 1.0:
+        raise ValueError("q must be in [0, 1]")
+    if len(start) != len(now):
+        # the bounds changed between snapshots: no sample rather than a
+        # mix of the two shapes
+        return None
+    deltas: List[Tuple[float, int]] = []
+    prev_s = prev_n = 0
+    for (le_s, cum_s), (le_n, cum_n) in zip(start, now):
+        if le_s != le_n:
+            return None
+        d = (cum_n - prev_n) - (cum_s - prev_s)
+        if d < 0:
+            return None
+        deltas.append((le_n, d))
+        prev_s, prev_n = cum_s, cum_n
+    total = sum(c for _, c in deltas)
+    if total <= 0:
+        return None
+    target = q * total
+    cum = 0
+    lo = 0.0
+    for le, c in deltas:
+        if c > 0 and cum + c >= target:
+            hi = lo * 2 if math.isinf(le) else le
+            return lo + (max(hi, lo) - lo) * ((target - cum) / c)
+        cum += c
+        if not math.isinf(le):
+            lo = le
+    return lo

@@ -1,22 +1,28 @@
-"""The health gate: candidate vs. stable over one window (the port's
-own copy of ``ArmWindow``, ``Decision`` and ``HealthPolicy.evaluate``
-from ``predictionio_tpu/rollout/policy.py``).
+"""The release health gate: candidate vs. stable over a sliding window
+(the port's own copy of ``predictionio_tpu/rollout/policy.py``).
 
-The caller builds one :class:`ArmWindow` per arm and
-:meth:`HealthPolicy.evaluate` answers ``advance`` / ``hold`` /
-``rollback``. In the port the stream trainer's canary is the caller: it
-probes the folded model against the serving one. The release
-controller, with its ramp schedule, windows and ``window_quantile``,
-waits for ``rollout/`` and ``obs/`` (``ROADMAP.md`` queue 1 items 5 and
-10).
+The caller feeds :meth:`HealthPolicy.evaluate` one :class:`ArmWindow` per
+arm and the policy answers ``advance`` / ``hold`` / ``rollback``. Two
+callers: the :class:`~.controller.RolloutController`, whose windows are
+deltas of the engine server's per-arm release series (p99 through
+:func:`window_quantile`), and the stream trainer's fold-in canary, which
+probes the folded model against the serving one. The ramp schedule and
+the window length live here, so the controller, the ``release`` CLI and
+the tests share one definition.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
-__all__ = ["ArmWindow", "Decision", "HealthPolicy"]
+from ..obs.histogram import window_quantile
+
+__all__ = ["ArmWindow", "Decision", "HealthPolicy", "DEFAULT_RAMP",
+           "window_quantile"]
+
+#: The default promotion ladder: 1% -> 5% -> 25% -> 100%.
+DEFAULT_RAMP: Tuple[float, ...] = (0.01, 0.05, 0.25, 1.0)
 
 
 @dataclass(frozen=True)
@@ -31,6 +37,11 @@ class ArmWindow:
     def error_rate(self) -> float:
         return self.errors / self.queries if self.queries else 0.0
 
+    def to_json(self) -> dict:
+        return {"queries": self.queries, "errors": self.errors,
+                "errorRate": round(self.error_rate, 4),
+                "p99Sec": self.p99}
+
 
 @dataclass(frozen=True)
 class Decision:
@@ -39,11 +50,19 @@ class Decision:
     action: str  # "advance" | "hold" | "rollback"
     reason: str
 
+    def to_json(self) -> dict:
+        return {"action": self.action, "reason": self.reason}
+
 
 @dataclass(frozen=True)
 class HealthPolicy:
-    """Gate thresholds."""
+    """Gate thresholds and ramp schedule (windows are wall-clock)."""
 
+    #: Candidate traffic fractions walked on consecutive healthy
+    #: windows; reaching the final step promotes.
+    ramp: Sequence[float] = DEFAULT_RAMP
+    #: Seconds per evaluation window.
+    window_sec: float = 30.0
     #: Candidate queries required before the gate judges (an idle
     #: canary holds, it neither promotes nor rolls back).
     min_queries: int = 20
@@ -55,6 +74,14 @@ class HealthPolicy:
     #: Candidate p99 must stay under stable p99 × this multiple
     #: (only judged when both arms have a full sample).
     p99_regression: float = 2.0
+
+    def next_fraction(self, fraction: float) -> Optional[float]:
+        """The ramp step after ``fraction``; None when the ladder is
+        exhausted (the next healthy window promotes)."""
+        for step in self.ramp:
+            if step > fraction + 1e-9:
+                return step
+        return None
 
     def evaluate(self, stable: ArmWindow,
                  candidate: ArmWindow) -> Decision:
@@ -90,3 +117,10 @@ class HealthPolicy:
             "advance",
             f"healthy window: {candidate.queries} queries, error rate "
             f"{candidate.error_rate:.3f}")
+
+    def to_json(self) -> dict:
+        return {"ramp": list(self.ramp), "windowSec": self.window_sec,
+                "minQueries": self.min_queries,
+                "maxErrorRate": self.max_error_rate,
+                "errorRateSlack": self.error_rate_slack,
+                "p99Regression": self.p99_regression}

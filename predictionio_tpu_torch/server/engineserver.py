@@ -30,9 +30,22 @@ against, whatever rebinds meanwhile. Both record the same overlap tracks
 (:class:`~predictionio_tpu_torch.obs.OverlapTracker`; the JAX package's
 serial drainers record none), so the two read on one scale.
 
-:func:`deploy` is the ``pio deploy`` flow: it binds the latest COMPLETED
-engine instance of an engine id, version and variant from the context's
-storage. :func:`deploy_models` binds models the caller already holds.
+Releases: :func:`deploy` is the ``pio deploy`` flow through the release
+registry (:mod:`predictionio_tpu_torch.rollout`): it binds the PINNED
+release of an engine id, version and variant when one is set, else the
+latest COMPLETED engine instance, and records the deploy; ``POST
+/reload`` rebinds the same way. ``POST /release/canary`` binds a
+candidate release beside the stable one and starts the health-gated
+rollout: a cohort of queries (hash of the user) goes to the candidate,
+which serves each at B = 1, while the stable arm keeps its batch path;
+the gate ramps a healthy candidate to a promoted, pinned stable or rolls
+an unhealthy one back. ``shadow`` mirrors queries to the candidate and
+answers from stable. ``POST /release/{promote,rollback}`` are the
+operator's overrides, ``GET /release.json`` the state, history and
+per-arm series, ``GET /metrics`` the ``pio_release_*`` families. The
+registry is the JAX package's blob in the shared MODELDATA repo, so a
+pin either package writes binds in both. :func:`deploy_models` binds
+models the caller already holds, with no registry.
 
 Streaming fold-in: with ``ServerConfig.streaming`` (or ``POST
 /stream/start``) a :class:`~predictionio_tpu_torch.streaming.StreamTrainer`
@@ -41,14 +54,14 @@ tails an app's event log and hot-swaps folded models into the binding
 ``POST /stream/stop`` stops it. It needs the storage a :func:`deploy`
 binds from.
 
-Left out (``ROADMAP.md`` queue 1): the release registry (pinned
-releases, promote, rollback, ``/reload``), so deploy never reads a pin;
-the serving caches, so a fold-in invalidates no cached answer; feedback
-events, ``log_url``, output plugins, request traces and the metric
-registry (the pipeline's counters are attributes of
-:class:`QueryServer`); replicated lanes. ``warm_start`` and
-``transfer_guard`` are XLA mechanisms with nothing to port
-(``ROADMAP.md``).
+Left out (``ROADMAP.md`` queue 1): the serving caches, so a fold-in
+invalidates no cached answer and the candidate arm has no cache; feedback
+events, ``log_url``, output plugins, request traces and every metric
+family but the ``pio_release_*`` ones (the pipeline's counters are
+attributes of :class:`QueryServer`); replicated lanes. ``warm_start``,
+``warm_serving`` and ``transfer_guard`` are XLA mechanisms with nothing
+to port (``ROADMAP.md``): a candidate is ready once its tables are on the
+card.
 """
 
 from __future__ import annotations
@@ -57,16 +70,20 @@ import logging
 import queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
 
 from ..controller.context import Context
 from ..controller.engine import Engine
 from ..controller.params import EngineParams
-from ..data.storage.base import EngineInstance
+from ..data.storage.base import STATUS_COMPLETED, EngineInstance
 from ..models.als import SERVING_QUANT_MODES, serving_quant_of
-from ..obs import DEVICE_TRACK, OverlapTracker
+from ..obs import DEVICE_TRACK, MetricsRegistry, OverlapTracker
+from ..obs.histogram import DEFAULT_LATENCY_BOUNDS
 from ..ops import fused_topk as _fused_topk
+from ..rollout.registry import ReleaseRegistry
+from ..rollout.splitter import ARM_CANDIDATE, ARM_STABLE
 from ..utils.device import card_info, resolve_device
 from ..utils.jsonutil import from_jsonable, to_jsonable
 from ..workflow.batch_predict import (
@@ -137,6 +154,24 @@ class ServerConfig:
     stream_canary_probes: int = 8
 
 
+@dataclass
+class CandidateBinding:
+    """A candidate release bound BESIDE the stable one: its own
+    algorithms, models and serving, so the two arms share no mutable
+    state. ``raw_models`` are the blobs as loaded: promotion rebinds them
+    through the normal :meth:`QueryServer._bind`. The port compiles
+    nothing per shape, so the binding is ready (``warm_done`` set) once
+    its tables are on the card."""
+
+    engine_params: EngineParams
+    algorithms: List[Any]
+    models: List[Any]
+    raw_models: List[Any]
+    serving: Any
+    instance: EngineInstance
+    warm_done: threading.Event
+
+
 class QueryServer:
     """One deployed engine: algorithms, bound models and serving."""
 
@@ -181,7 +216,38 @@ class QueryServer:
         self._pool = make_pool()
         self._binds = 0
         self.stream = None
-        self._bind(engine_params, models)
+        # releases: the per-arm series the rollout gate windows, the
+        # registry this server's deploy, reload, promote and rollback are
+        # recorded in (None without storage: models handed in), and the
+        # (at most one) live candidate binding and controller
+        self.metrics = MetricsRegistry()
+        self._release_queries = self.metrics.counter(
+            "pio_release_queries_total",
+            "Queries served per release arm while a rollout is live")
+        self._release_errors = self.metrics.counter(
+            "pio_release_query_errors_total",
+            "Server-side (5xx) query failures per release arm while a "
+            "rollout is live")
+        self._release_latency = self.metrics.histogram(
+            "pio_release_latency_seconds",
+            "End-to-end serving wall time per release arm while a "
+            "rollout is live",
+            bounds=DEFAULT_LATENCY_BOUNDS)
+        self._shadow_mirrors = self.metrics.counter(
+            "pio_release_shadow_mirrors_total",
+            "Queries mirrored to a shadow candidate")
+        self.releases = (ReleaseRegistry(
+            ctx.storage, instance.engine_id, instance.engine_version,
+            instance.engine_variant)
+            if ctx is not None and instance is not None else None)
+        self.rollout = None  # the live RolloutController, if any
+        self._candidate: Optional[CandidateBinding] = None
+        # shadow mirrors, on a pool of their own (started on first use,
+        # shut down in close())
+        self._mirror_pool: Optional[ThreadPoolExecutor] = None
+        # one canary start at a time (check-then-bind)
+        self._release_lock = threading.Lock()
+        self._bind(engine_params, models, instance)
         self.batcher = None
         cfg = self.config
         if cfg.batching and cfg.serving_pipeline == "staged":
@@ -203,9 +269,13 @@ class QueryServer:
                 self.close()
                 raise
 
-    def _bind(self, engine_params: EngineParams, models: List[Any]) -> None:
-        """Bind: quantize (if asked), then place every model on the
-        serving device once — no query moves a table."""
+    def _serving_algorithms(self, engine_params: EngineParams,
+                            models: List[Any]) -> tuple:
+        """The algorithms of ``engine_params`` bound to the deploy's
+        context, and ``models`` quantized (if asked, behind the
+        template's parity probe) and placed on the serving device once —
+        no query moves a table. Shared by both arms: a candidate serves
+        under the stable arm's quantization."""
         algorithms = self.engine.make_algorithms(engine_params)
         if len(models) != len(algorithms):
             raise ValueError(f"{len(models)} models for "
@@ -223,16 +293,29 @@ class QueryServer:
                       for a, m in zip(algorithms, models)]
         models = [a.prepare_serving_model(m, self.device)
                   for a, m in zip(algorithms, models)]
+        return algorithms, models
+
+    def _bind(self, engine_params: EngineParams, models: List[Any],
+              instance: Optional[EngineInstance] = None) -> None:
+        """Bind the stable arm: prepare the models, then swap them in
+        together with ``instance`` (None keeps the serving one) under the
+        one lock, so the binding id, ``/status.json`` and a fold-in's
+        re-check all move with the models. A batch assembled before the
+        swap finishes on the binding it took."""
+        algorithms, models = self._serving_algorithms(engine_params, models)
         serving = self.engine.make_serving(engine_params)
         with self._lock:
+            if instance is None:
+                instance = self.instance
             self.engine_params = engine_params
+            self.instance = instance
             self.algorithms, self.models, self.serving = \
                 algorithms, models, serving
             # what a fold-in in flight re-checks: the instance id, or a
             # token of this bind where models were handed in, so that a
             # second bind voids it either way
             self._binds += 1
-            self.binding_id = (self.instance.id if self.instance
+            self.binding_id = (instance.id if instance is not None
                                else f"bind-{self._binds}")
             # stream lineage: a bind starts a fresh base
             self._stream_generation = 0
@@ -298,15 +381,23 @@ class QueryServer:
     def query(self, query_json: Any) -> Any:
         """One query: parse, supplement, predict with every algorithm,
         serve, and render JSON."""
+        t0 = time.monotonic()
         algorithms, models, serving = self._binding()
         try:
             query = from_jsonable(algorithms[0].query_class, query_json)
         except (TypeError, ValueError) as e:
             raise HTTPError(400, str(e)) from e
-        supplemented = serving.supplement(query)
-        predictions = [a.predict(m, supplemented)
-                       for a, m in zip(algorithms, models)]
-        result = to_jsonable(serving.serve(query, predictions))
+        try:
+            supplemented = serving.supplement(query)
+            predictions = [a.predict(m, supplemented)
+                           for a, m in zip(algorithms, models)]
+            result = to_jsonable(serving.serve(query, predictions))
+        except Exception:
+            self._observe_release(ARM_STABLE, time.monotonic() - t0,
+                                  error=True)
+            raise
+        self._observe_release(ARM_STABLE, time.monotonic() - t0,
+                              error=False)
         self._count(1)
         return result
 
@@ -347,6 +438,10 @@ class QueryServer:
             finally:
                 self.overlap.exit("readback")
         self._record_batch(phases, out)
+        # each coalesced query experienced the batch's wall time
+        dt = time.monotonic() - t0
+        for r in out:
+            self._observe_release(ARM_STABLE, dt, error=_is_5xx(r))
         return out
 
     @staticmethod
@@ -373,7 +468,11 @@ class QueryServer:
         record the batch, wake the callers."""
         final = [self._render(r, ab.phases) for r in results]
         self._record_batch(ab.phases, final)
+        now = time.monotonic()
         for entry, result in zip(ab.entries, final):
+            # end to end per query, its queue wait included
+            self._observe_release(ARM_STABLE, now - entry.t_enq,
+                                  error=_is_5xx(result))
             entry.result = result
             entry.done.set()
 
@@ -410,9 +509,15 @@ class QueryServer:
         return out
 
     def status(self) -> dict:
-        _, models, _ = self._binding()
+        with self._lock:
+            models, inst = self.models, self.instance
         return {
             "status": "alive",
+            "engineId": inst.engine_id if inst else None,
+            "engineVersion": inst.engine_version if inst else None,
+            "engineVariant": inst.engine_variant if inst else None,
+            "engineInstanceId": inst.id if inst else None,
+            "release": self.release_summary(),
             "device": str(self.device),
             "card": self.card["name"],
             "powerLimit": self.card["power_limit"],
@@ -423,18 +528,25 @@ class QueryServer:
             "kernels": {"fused_topk": {
                 "launches": _fused_topk.LAUNCHES}},
             "requestCount": self.request_count,
-            "engineInstanceId": self.instance.id if self.instance else None,
             "lineage": self.stream_lineage(),
             "stream": (self.stream.status() if self.stream is not None
                        else {"running": False}),
         }
 
     def close(self, timeout: float = 5.0) -> None:
-        """Stop the stream trainer, the batch path's threads (queued
-        queries still serve) and the pool, joining each. Idempotent."""
+        """Stop the rollout's gate thread, the stream trainer, the batch
+        path's threads (queued queries still serve), the shadow mirrors
+        and the pool, joining each. Idempotent."""
+        rollout = self.rollout
+        if rollout is not None:
+            rollout.stop()
         self.stop_stream()
         if self.batcher is not None:
             self.batcher.close(timeout)
+        with self._lock:
+            mirrors = self._mirror_pool
+        if mirrors is not None:
+            mirrors.shutdown(wait=True)
         self._pool.shutdown(wait=True)
 
     # -- streaming fold-in ---------------------------------------------------
@@ -518,7 +630,13 @@ class QueryServer:
         trainer = StreamTrainer(self, cfg)
         with self._lock:
             self.stream = trainer
+            instance_id = self.binding_id
         trainer.start()
+        self._record_release(
+            "stream-start", instance_id=instance_id,
+            actor=f"stream-trainer:{cfg.consumer}",
+            reason=f"tailing app {cfg.app_name!r} every "
+                   f"{cfg.interval_ms:g}ms")
         log.info("streaming trainer started (app %s, consumer %s)",
                  cfg.app_name, cfg.consumer)
         return trainer
@@ -531,9 +649,15 @@ class QueryServer:
         with self._lock:
             trainer = self.stream
             self.stream = None
+            instance_id = self.binding_id
         if trainer is None:
             return False
         trainer.stop(timeout=timeout)
+        self._record_release(
+            "stream-stop", instance_id=instance_id,
+            actor=f"stream-trainer:{trainer.config.consumer}",
+            reason=f"{trainer.applies} deltas applied, "
+                   f"{trainer.events_consumed} events consumed")
         return True
 
     def stream_lineage(self) -> dict:
@@ -569,6 +693,289 @@ class QueryServer:
             "streaming": trainer is not None and trainer.running,
         }
 
+    # -- releases ------------------------------------------------------------
+    def _record_release(self, action: str, **kw) -> None:
+        """A history event without a state change; best-effort (a failed
+        write is logged, never raised into serving), and nothing where
+        the server has no registry."""
+        if self.releases is None:
+            return
+        try:
+            self.releases.record(action, **kw)
+        except Exception as e:  # noqa: BLE001 — history is best-effort
+            log.error("release history write failed on %s: %s", action, e)
+
+    def _require_releases(self) -> ReleaseRegistry:
+        if self.releases is None:
+            raise HTTPError(
+                409, "releases need the storage the models came from: "
+                     "deploy from storage (deploy / the deploy command), "
+                     "not deploy_models")
+        return self.releases
+
+    def _observe_release(self, arm: str, seconds: float,
+                         error: bool) -> None:
+        """Per-arm health series, recorded only while a rollout is live
+        (the controller windows these; a client's 4xx never counts
+        against an arm)."""
+        rollout = self.rollout
+        if rollout is None or not rollout.active:
+            return
+        self._release_queries.labels(arm=arm).inc()
+        if error:
+            self._release_errors.labels(arm=arm).inc()
+        self._release_latency.labels(arm=arm).observe(seconds)
+
+    def release_arm_snapshot(self, arm: str):
+        """Cumulative ``(queries, errors, latency buckets)`` of one
+        release arm: the rollout controller diffs successive snapshots
+        into windows."""
+        return (self._release_queries.labels(arm=arm).value,
+                self._release_errors.labels(arm=arm).value,
+                self._release_latency.labels(arm=arm).bucket_counts())
+
+    def release_arms(self) -> dict:
+        """Per-arm queries, errors and latency for ``/release.json``."""
+        out = {}
+        for arm in (ARM_STABLE, ARM_CANDIDATE):
+            queries, errors, _ = self.release_arm_snapshot(arm)
+            out[arm] = {
+                "queries": int(queries), "errors": int(errors),
+                "latency": self._release_latency.labels(
+                    arm=arm).snapshot()}
+        return out
+
+    def release_summary(self) -> dict:
+        """The compact release state of ``/status.json``."""
+        rollout = self.rollout
+        active = rollout is not None and rollout.active
+        state: dict = {}
+        if self.releases is not None:
+            try:
+                state = self.releases.state()
+            except Exception as e:  # noqa: BLE001 — status must render
+                log.error("release registry read failed: %s", e)
+        with self._lock:
+            stable = self.instance.id if self.instance else None
+        return {
+            "stable": stable,
+            "pinned": state.get("pinned", ""),
+            "candidate": self.candidate_instance_id or "",
+            "mode": (("shadow" if rollout.shadow else "canary")
+                     if active else ""),
+            "fraction": rollout.splitter.fraction if active else 0.0,
+        }
+
+    def reload(self) -> str:
+        """Rebind through the release registry: the PINNED release when
+        one is set (409 when it is missing or not COMPLETED), else the
+        latest COMPLETED instance of the serving triple (404 when there
+        is none). Every reload is a recorded release action."""
+        from ..workflow import core as wf
+
+        releases = self._require_releases()
+        instances = self.ctx.storage.engine_instances()
+        pinned = None
+        try:
+            pinned = releases.pinned_instance()
+        except Exception as e:  # noqa: BLE001 — the registry must never
+            log.error(          # make a model unreloadable
+                "release registry read failed; reloading latest: %s", e)
+        with self._lock:
+            serving_instance = self.instance
+            engine_params = self.engine_params
+        if pinned:
+            latest = instances.get(pinned)
+            if latest is None or latest.status != STATUS_COMPLETED:
+                raise HTTPError(
+                    409, f"pinned release {pinned!r} is not a "
+                         f"COMPLETED engine instance (unpin or re-pin)")
+        else:
+            latest = instances.get_latest_completed(
+                serving_instance.engine_id,
+                serving_instance.engine_version,
+                serving_instance.engine_variant)
+            if latest is None:
+                raise HTTPError(
+                    404, "no COMPLETED engine instance to reload")
+        models = wf.load_models_for_deploy(self.ctx, self.engine, latest,
+                                           engine_params)
+        self._bind(engine_params, models, latest)
+        try:
+            releases.record_deploy(
+                latest.id, actor="/reload",
+                reason=("pinned release" if pinned
+                        else "latest COMPLETED instance"))
+        except Exception as e:  # noqa: BLE001 — history is best-effort
+            log.error("release history write failed on reload: %s", e)
+        log.info("reloaded engine instance %s%s", latest.id,
+                 " (pinned)" if pinned else "")
+        return latest.id
+
+    def bind_candidate(self, instance: EngineInstance,
+                       engine_params: Optional[EngineParams] = None,
+                       models: Optional[List[Any]] = None) -> None:
+        """Bind a candidate release BESIDE the stable one (stable serving
+        is untouched): the stable arm's quantization behind the same
+        parity probe, its tables placed on the serving device once, here.
+        The candidate serves each query alone (B = 1): at canary
+        fractions there is nothing to coalesce."""
+        from ..workflow import core as wf
+
+        with self._lock:
+            stable_params = self.engine_params
+        ep = engine_params or stable_params
+        if models is None:
+            models = wf.load_models_for_deploy(self.ctx, self.engine,
+                                               instance, ep)
+        algorithms, prepared = self._serving_algorithms(ep, list(models))
+        binding = CandidateBinding(
+            engine_params=ep, algorithms=algorithms, models=prepared,
+            raw_models=list(models), serving=self.engine.make_serving(ep),
+            instance=instance, warm_done=threading.Event())
+        binding.warm_done.set()
+        with self._lock:
+            self._candidate = binding
+            stable_id = self.binding_id
+        log.info("candidate release %s bound beside stable %s",
+                 instance.id, stable_id)
+
+    def drop_candidate(self) -> None:
+        with self._lock:
+            self._candidate = None
+
+    @property
+    def candidate_instance_id(self) -> Optional[str]:
+        with self._lock:
+            cand = self._candidate
+        return cand.instance.id if cand is not None else None
+
+    def promote_candidate(self) -> str:
+        """Swap the candidate in as the stable release through the same
+        single-lock :meth:`_bind` every deploy and reload takes: a query
+        sees the old binding or the new one in full, never a mix. 409
+        when none is bound."""
+        with self._lock:
+            cand = self._candidate
+            self._candidate = None
+        if cand is None:
+            raise HTTPError(409, "no candidate release bound")
+        self._bind(cand.engine_params, cand.raw_models, cand.instance)
+        log.info("candidate %s promoted to serving stable",
+                 cand.instance.id)
+        return cand.instance.id
+
+    def start_canary(self, instance_id: str,
+                     fraction: Optional[float] = None,
+                     shadow: bool = False, actor: str = "",
+                     reason: str = "", policy=None,
+                     models: Optional[List[Any]] = None):
+        """Bind ``instance_id`` as the candidate and start the
+        health-gated rollout (canary split or shadow mirror). Returns
+        the live :class:`~predictionio_tpu_torch.rollout.RolloutController`.
+        409 while one is live, 404 for an unknown instance, 400 for one
+        not COMPLETED or already the stable."""
+        from ..rollout import HealthPolicy, RolloutController
+
+        releases = self._require_releases()
+        with self._release_lock:
+            previous = self.rollout
+            if previous is not None and previous.active:
+                raise HTTPError(409, "a rollout is already in progress "
+                                f"(candidate {previous.instance_id})")
+            inst = self.ctx.storage.engine_instances().get(instance_id)
+            if inst is None:
+                raise HTTPError(
+                    404, f"engine instance {instance_id!r} not found")
+            if inst.status != STATUS_COMPLETED:
+                raise HTTPError(
+                    400, f"instance {instance_id!r} is {inst.status}, "
+                         f"not {STATUS_COMPLETED}")
+            with self._lock:
+                stable_id = self.instance.id if self.instance else None
+            if inst.id == stable_id:
+                raise HTTPError(
+                    400, f"instance {instance_id!r} is already the "
+                         f"serving stable")
+            if previous is not None:
+                previous.stop()  # concluded: join its gate thread
+            self.bind_candidate(inst, models=models)
+            pol = policy or HealthPolicy()
+            mode = "shadow" if shadow else "canary"
+            start_fraction = (fraction if fraction is not None
+                              else (1.0 if shadow else pol.ramp[0]))
+            try:
+                releases.start_candidate(
+                    inst.id, start_fraction, mode=mode, actor=actor,
+                    reason=reason)
+            except Exception as e:  # noqa: BLE001 — history is best-effort
+                log.error("release history write failed on %s: %s",
+                          mode, e)
+            controller = RolloutController(
+                self, releases, inst.id, policy=pol,
+                fraction=start_fraction, shadow=shadow,
+                actor=actor or "engine-server")
+            self.rollout = controller
+            controller.start()
+        return controller
+
+    def serve_candidate(self, query_json: Any) -> Any:
+        """The candidate arm's serving entry (the serving caches, queue 1
+        item 8, would sit here, under the candidate's own namespace).
+        Raises like :meth:`query_candidate`."""
+        return self.query_candidate(query_json)
+
+    def query_candidate(self, query_json: Any) -> Any:
+        """Serve one query off the CANDIDATE binding (canary route or
+        shadow mirror), alone: no micro-batching. 503 when no candidate
+        is bound, 400 for a malformed query (not counted against the
+        arm); a failure past parsing is counted and raised."""
+        t0 = time.monotonic()
+        with self._lock:
+            cand = self._candidate
+        if cand is None:
+            raise HTTPError(503, "no candidate release bound")
+        try:
+            query = from_jsonable(cand.algorithms[0].query_class,
+                                  query_json)
+        except (TypeError, ValueError) as e:
+            self._count_error(400)
+            raise HTTPError(400, str(e)) from e
+        try:
+            supplemented = cand.serving.supplement(query)
+            predictions = [a.predict(m, supplemented)
+                           for a, m in zip(cand.algorithms, cand.models)]
+            result = to_jsonable(cand.serving.serve(query, predictions))
+        except Exception:
+            self._count_error(500)
+            self._observe_release(ARM_CANDIDATE, time.monotonic() - t0,
+                                  error=True)
+            raise
+        self._observe_release(ARM_CANDIDATE, time.monotonic() - t0,
+                              error=False)
+        self._count(1)
+        return result
+
+    def mirror_to_candidate(self, query_json: Any) -> None:
+        """Shadow mode: replay the query against the candidate on a
+        mirror thread. The answer is discarded (the arm's series keep the
+        outcome); errors are counted and swallowed, so mirroring never
+        slows or fails stable traffic."""
+        with self._lock:
+            if self._mirror_pool is None:
+                self._mirror_pool = ThreadPoolExecutor(
+                    max_workers=4, thread_name_prefix="shadow-mirror")
+            pool = self._mirror_pool
+
+        def _mirror():
+            try:
+                self.query_candidate(query_json)
+            except Exception:  # noqa: BLE001 — counted in the arm's series
+                pass
+
+        self._shadow_mirrors.inc()
+        pool.submit(_mirror)
+
 
 class _Submit:
     """One caller's queue entry: the query, its completion slot and its
@@ -588,6 +995,11 @@ class _Submit:
         self.deadline = (self.t_enq + deadline_sec if deadline_sec > 0
                          else None)
         self.abandoned = False
+
+
+def _is_5xx(result: Any) -> bool:
+    """A server-side error answer: what counts against a release arm."""
+    return isinstance(result, HTTPError) and result.status >= 500
 
 
 #: close sentinel of the batch paths' queues: each worker consumes
@@ -951,7 +1363,135 @@ def build_app(server: QueryServer) -> HTTPApp:
             query_json = req.json()
         except (ValueError, UnicodeDecodeError) as e:
             raise HTTPError(400, str(e)) from e
+        # a live rollout routes a cohort of queries to the candidate
+        # (canary) or mirrors them to it (shadow); the stable arm serves
+        # everyone else
+        rollout = server.rollout
+        if rollout is not None and rollout.active \
+                and rollout.splitter.routes_candidate(query_json):
+            if rollout.shadow:
+                server.mirror_to_candidate(query_json)
+            else:
+                try:
+                    return json_response(server.serve_candidate(query_json))
+                except HTTPError as e:
+                    if e.status != 503:
+                        raise
+                    # the candidate was unbound mid-flight (a rollback
+                    # won the race): the stable arm serves below
         return json_response(server.serve(query_json))
+
+    def _body(req: Request) -> dict:
+        try:
+            return req.json() or {}
+        except (ValueError, UnicodeDecodeError):
+            return {}
+
+    @app.route("POST", "/reload")
+    def reload(req: Request) -> Response:
+        instance_id = server.reload()
+        return json_response({"message": "Reloading...",
+                              "engineInstanceId": instance_id})
+
+    @app.route("GET", "/release.json")
+    def release_json(req: Request) -> Response:
+        payload = server._require_releases().to_json()
+        rollout = server.rollout
+        with server._lock:
+            stable_id = server.instance.id
+        payload["serving"] = {
+            "stableInstanceId": stable_id,
+            "candidateInstanceId": server.candidate_instance_id,
+        }
+        payload["rollout"] = (rollout.status()
+                              if rollout is not None else None)
+        payload["arms"] = server.release_arms()
+        return json_response(payload)
+
+    @app.route("POST", "/release/canary")
+    def release_canary(req: Request) -> Response:
+        """Start a canary (or shadow) rollout of a COMPLETED instance:
+        ``{"instanceId": ..., "fraction": 0.05, "shadow": false,
+        "reason": ..., "windowSec": 30}``; ``windowSec`` (the gate's
+        window, the other thresholds at their defaults) is the port's
+        addition to the JAX package's body. The gate ramps or rolls back
+        from here; ``/release.json`` tracks it."""
+        from ..rollout import HealthPolicy
+        from ..rollout.splitter import parse_fraction
+
+        try:
+            body = req.json() or {}
+        except (ValueError, UnicodeDecodeError) as e:
+            raise HTTPError(400, str(e)) from e
+        instance_id = body.get("instanceId") or ""
+        if not instance_id:
+            raise HTTPError(400, "instanceId required")
+        fraction = policy = None
+        try:
+            if body.get("fraction") is not None:
+                fraction = parse_fraction(body["fraction"])
+            if body.get("windowSec") is not None:
+                window = float(body["windowSec"])
+                if not window > 0:
+                    raise ValueError(f"windowSec must be > 0, got "
+                                     f"{body['windowSec']!r}")
+                policy = HealthPolicy(window_sec=window)
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, str(e)) from e
+        controller = server.start_canary(
+            instance_id, fraction=fraction,
+            shadow=bool(body.get("shadow")),
+            actor=body.get("actor") or "http",
+            reason=body.get("reason") or "", policy=policy)
+        return json_response({"message": "Rollout started.",
+                              "rollout": controller.status()})
+
+    @app.route("POST", "/release/promote")
+    def release_promote(req: Request) -> Response:
+        """Force-promote the live candidate to stable (skips the rest of
+        the ramp; the operator's override for shadow rollouts)."""
+        releases = server._require_releases()
+        reason = _body(req).get("reason") or "operator promote"
+        rollout = server.rollout
+        if rollout is not None and rollout.active:
+            rollout.promote(reason)
+            return json_response({"message": "Promoted.",
+                                  "engineInstanceId":
+                                      rollout.instance_id})
+        instance_id = server.promote_candidate()  # 409 when none bound
+        try:
+            releases.promote(instance_id, actor="http", reason=reason)
+        except Exception as e:  # noqa: BLE001 — serving already moved
+            log.error("release history write failed on promote: %s", e)
+        return json_response({"message": "Promoted.",
+                              "engineInstanceId": instance_id})
+
+    @app.route("POST", "/release/rollback")
+    def release_rollback(req: Request) -> Response:
+        """Roll back: abort the live candidate, or, with none bound,
+        revert stable to the previous release and rebind it."""
+        releases = server._require_releases()
+        reason = _body(req).get("reason") or "operator rollback"
+        rollout = server.rollout
+        if rollout is not None and rollout.active:
+            rollout.rollback(reason)
+            with server._lock:
+                stable_id = server.instance.id
+            return json_response({"message": "Rolled back.",
+                                  "engineInstanceId": stable_id})
+        try:
+            releases.rollback(actor="http", reason=reason)
+        except ValueError as e:
+            raise HTTPError(409, str(e)) from e
+        instance_id = server.reload()  # binds the re-pinned previous
+        return json_response({"message": "Rolled back.",
+                              "engineInstanceId": instance_id})
+
+    @app.route("GET", "/metrics")
+    def metrics(req: Request) -> Response:
+        return Response(body=server.metrics.render(),
+                        content_type="text/plain; version=0.0.4; "
+                                     "charset=utf-8")
 
     @app.route("GET", "/status.json")
     def status(req: Request) -> Response:
@@ -1051,21 +1591,45 @@ def deploy(ctx: Context, engine: Engine, engine_params: EngineParams,
            engine_variant: str = "engine.json",
            config: Optional[ServerConfig] = None,
            host: str = "0.0.0.0", port: int = 8000) -> AppServer:
-    """The ``pio deploy`` flow: bind the latest COMPLETED instance of
-    ``engine_id``/``engine_version``/``engine_variant`` from
-    ``ctx.storage`` and return the engine server, not yet serving. Runs
-    on the card unless ``config.device`` is "cpu". With
+    """The ``pio deploy`` flow through the release registry: bind the
+    PINNED release of ``engine_id``/``engine_version``/``engine_variant``
+    when one is set (``RuntimeError`` when it is not a COMPLETED
+    instance), else the latest COMPLETED instance, from ``ctx.storage``;
+    record the deploy; return the engine server, not yet serving. Runs on
+    the card unless ``config.device`` is "cpu". With
     ``config.streaming`` the stream trainer starts with it, tailing
     ``ctx.storage``."""
     from ..workflow import core as wf
 
-    instance = wf.get_latest_completed(ctx, engine_id, engine_version,
-                                       engine_variant)
-    if instance is None:
-        raise RuntimeError(
-            f"No COMPLETED engine instance for {engine_id} "
-            f"{engine_version} {engine_variant}; run train first.")
+    releases = ReleaseRegistry(ctx.storage, engine_id, engine_version,
+                               engine_variant)
+    pinned = None
+    try:
+        pinned = releases.pinned_instance()
+    except Exception as e:  # noqa: BLE001 — the registry must never make
+        log.error(          # a model undeployable
+            "release registry read failed; deploying latest: %s", e)
+    if pinned:
+        instance = ctx.storage.engine_instances().get(pinned)
+        if instance is None or instance.status != STATUS_COMPLETED:
+            raise RuntimeError(
+                f"Pinned release {pinned!r} is not a COMPLETED engine "
+                f"instance; `release pin --clear` or re-pin.")
+    else:
+        instance = wf.get_latest_completed(ctx, engine_id, engine_version,
+                                           engine_variant)
+        if instance is None:
+            raise RuntimeError(
+                f"No COMPLETED engine instance for {engine_id} "
+                f"{engine_version} {engine_variant}; run train first.")
     models = wf.load_models_for_deploy(ctx, engine, instance, engine_params)
     server = QueryServer(engine, engine_params, models, config, instance,
                          ctx)
+    try:
+        releases.record_deploy(
+            instance.id, actor="pio deploy",
+            reason=("pinned release" if pinned
+                    else "latest COMPLETED instance"))
+    except Exception as e:  # noqa: BLE001 — history is best-effort
+        log.error("release history write failed on deploy: %s", e)
     return create_engine_server(server, host, port)

@@ -14,8 +14,11 @@ canaries the folded model against the serving one with a
 binding through :meth:`QueryServer.apply_stream_delta`.
 
 A :class:`~.drift.DriftMonitor` watches fold-in residuals and the
-rating distribution; past its threshold it flags ``retrain_due`` and
-fires the optional ``on_retrain`` hook once per base model.
+rating distribution; past its threshold it flags ``retrain_due``, records
+``retrain-due`` in the release history and fires the optional
+``on_retrain`` hook once per base model. A refused delta is recorded as
+``stream-reject`` (the server records ``stream-start`` and
+``stream-stop``).
 
 Threading: ONE loop thread owns consume -> fold -> apply -> advance; the
 bus callback only sets a wake event. The apply re-checks the binding
@@ -23,8 +26,7 @@ under the server's lock, so a rebind racing a fold-in voids the apply
 and the unadvanced cursor retries against the new base.
 
 Left out (``ROADMAP.md`` queue 1): the ``pio_stream_*`` metric families
-and the pass traces (item 10), the ``stream-*`` / ``retrain-due``
-release-history records (item 5) and the cache invalidation of touched
+and the pass traces (item 10) and the cache invalidation of touched
 entities (item 8). The counts stay as attributes and in :meth:`status`.
 """
 
@@ -257,6 +259,7 @@ class StreamTrainer:
             self.rejects += 1
             log.warning("stream canary refused a fold-in delta: %s",
                         verdict.reason)
+            self._record_release("stream-reject", base_id, verdict.reason)
             self._advance_durable(events)
             self._maybe_retrain()
             return len(events)
@@ -293,11 +296,21 @@ class StreamTrainer:
         status = self.drift.status()
         log.warning("stream drift %.3f passed threshold %.3f: full "
                     "retrain due", status["score"], status["threshold"])
+        self._record_release(
+            "retrain-due", self._base_seen or "",
+            f"drift score {status['score']} >= {status['threshold']}")
         if self.on_retrain is not None:
             try:
                 self.on_retrain(status)
             except Exception as e:  # noqa: BLE001 — the hook is advisory
                 log.error("on_retrain hook failed: %s", e)
+
+    def _record_release(self, action: str, instance_id: str,
+                        reason: str) -> None:
+        self.server._record_release(
+            action, instance_id=instance_id,
+            actor=f"stream-trainer:{self.config.consumer}",
+            reason=reason[:500])
 
     # -- canary gate ---------------------------------------------------------
     def _canary_check(self, old_model, new_model, touched):

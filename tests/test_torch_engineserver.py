@@ -193,10 +193,54 @@ def test_status_and_bad_query(factors):
         srv.close()
 
 
-@pytest.mark.parametrize("how", ["stop", "close"])
+def start_with_shadow_rollout(factors):
+    """A storage-backed deploy of one release with a shadow rollout of a
+    second live: its gate thread running and every query mirrored."""
+    from datetime import datetime, timezone
+
+    from predictionio_tpu_torch.controller.context import Context
+    from predictionio_tpu_torch.data.storage.base import (
+        STATUS_COMPLETED,
+        EngineInstance,
+        Model,
+    )
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.rollout import HealthPolicy
+
+    storage = Storage(env={"PIO_STORAGE_SOURCES_M_TYPE": "MEMORY"})
+    for n, iid in enumerate(("r1", "r2")):
+        t = datetime(2026, 1, 1, 0, n, tzinfo=timezone.utc)
+        storage.engine_instances().insert(EngineInstance(
+            id=iid, status=STATUS_COMPLETED, start_time=t, end_time=t,
+            engine_id="default", engine_version="1",
+            engine_variant="engine.json", engine_factory="f"))
+        storage.models().insert(Model(iid, dumps_models(
+            [port_model(factors)])))
+    engine = recommendation_engine()
+    srv = es.deploy(Context(device="cpu", _storage=storage), engine,
+                    engine.params_from_variant(VARIANT),
+                    config=ServerConfig(device="cpu", batching=True),
+                    host="127.0.0.1", port=0).start_background()
+    srv.query_server.start_canary(
+        "r1", shadow=True, policy=HealthPolicy(window_sec=0.05))
+    return srv
+
+
+@pytest.mark.parametrize("how", ["stop", "close", "close-shadow-rollout"])
 def test_shutdown_leaves_no_threads(factors, how):
     base = wait_threads(threading.active_count())
-    srv = start(factors, batching=True)
+    if how == "close-shadow-rollout":
+        srv = start_with_shadow_rollout(factors)
+        for u in range(8):
+            post(srv, "/queries.json", {"user": f"u{u}", "num": 3})
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and \
+                srv.query_server.rollout.windows < 2:
+            time.sleep(0.02)
+        names = {t.name.split("_")[0] for t in threading.enumerate()}
+        assert {"rollout-controller", "shadow-mirror"} <= names
+    else:
+        srv = start(factors, batching=True)
     post(srv, "/queries.json", {"user": "u1", "num": 3})
     assert threading.active_count() > base  # drainers and listener live
     if how == "stop":
