@@ -303,13 +303,41 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``/release.json`` p50/p99 of each arm, beside the card's name
             and power limit.
 
+14. console — the console on phase 8's store, every command a ``python
+            -m predictionio_tpu_torch.cli`` process where a fresh process
+            is the point. ``cli build --artifact-dir A`` into a new, empty
+            ``A`` (the command's seconds and each library's ``nvcc``
+            seconds), then again (no ``nvcc`` may run). Phase 8's variant
+            deployed with ``--batching`` twice, from ``A`` (built) and
+            from a new, empty ``B`` (cold): the seconds from the process's
+            start to ``servingWarm`` and to the first correct answer, and
+            ``warmReport``; built must report ``artifactWarm`` and a
+            ``compile`` phase of 0, cold a ``compile`` phase above 0; the
+            ``fused_topk`` counter on ``/status.json`` must count at least
+            the ladder's calls once warm; 32 answers are held to the
+            float64 top-k of the bound tables. On the built deploy: ``cli
+            status --ip --port`` names the card and its power limit, ``GET
+            /`` names the instance, ``POST /drain`` reads ``draining`` and
+            16 answers after it are still correct, the counter growing;
+            ``cli undeploy`` ends each deploy, which is then waited for.
+            ``start-all`` on free ports: the admin API lists, creates,
+            empties and deletes an app; the dashboard lists phase 8c's
+            EVALCOMPLETED instances and serves their HTML and JSON;
+            ``stop-all``, after which no pid from the pidfiles is alive.
+            ``cli export`` of phase 10's app and ``cli import`` of the
+            file into a new app: equal counts, and each one's rows/s.
+            Every time stands beside the card's name and power limit.
+
 Phases 6b, 11 and 12 print the four kernels' launch counts (each 0: no
 TPU kernel is on their paths) beside the card's name and power limit.
-Then a ``{"kernels": [...]}`` line (time, bound, plain and library times,
-launches on the main path, in the batch-predict job for ``fused_topk``,
-in the serial eval run, on the stream path, in the implicit iteration,
-in the templates phase and in phases 6b, 11, 12 and 13) and, last,
-``{"ok": true, "device": {...}}``.
+The in-process engine servers of the earlier phases warm at bind (their
+serving ladder launches ``fused_topk``); each phase waits for that
+before it counts or times its own work. Then a ``{"kernels": [...]}``
+line (time, bound, plain and library times, launches on the main path,
+in the batch-predict job for ``fused_topk``, in the serial eval run, on
+the stream path, in the implicit iteration, in the templates phase, in
+phases 6b, 11, 12 and 13 and, for ``fused_topk``, in phase 14's two
+deploys) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -324,6 +352,7 @@ import io
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -358,6 +387,23 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+#: the longest a bind-time warm-up may take (a cold one runs nvcc)
+WARM_TIMEOUT_S = 300.0
+
+
+def warmed(srv) -> dict:
+    """Wait for an in-process engine server's bind-time warm-up (kernels
+    loaded, serving ladder run) and return its report; fails on an
+    error in it."""
+    qs = srv.query_server
+    check(qs.warm_done.wait(WARM_TIMEOUT_S),
+          "the serving warm-up did not finish")
+    report = qs.status()["warmReport"]
+    check("error" not in report,
+          f"the serving warm-up failed: {report.get('error')}")
+    return report
 
 
 @contextlib.contextmanager
@@ -790,6 +836,7 @@ def burst_run(mode, engine, ep, bound_model, burst, tables, dev,
                                      serving_pipeline=mode),
                         host="127.0.0.1", port=0).start_background()
     try:
+        warmed(srv)
         qs = srv.query_server
         check(_table_leaves(qs.models[0].item_factors)[0].data_ptr()
               == tables[2].data_ptr(),
@@ -939,6 +986,7 @@ def phase_slice(rng, U, V, dev) -> int:
                  host="127.0.0.1", port=0)
     srv.start_background()
     bind_s = time.perf_counter() - t0
+    warmed(srv)
     bound_model = srv.query_server.models[0]
     ud, us = _table_leaves(bound_model.user_factors)
     vd, vs = _table_leaves(bound_model.item_factors)
@@ -2546,9 +2594,12 @@ def stream_bursts(data, seed: int) -> list:
 def f64_fold_check(storage, app_id, model, user_keys) -> float:
     """Each user's bound row against a float64 solve of its normal
     equations, built from its deduplicated store history (the most
-    recent 512, read through the columnar path, not the fold-in's) and
-    the bound item table; returns the largest normwise relative
-    difference."""
+    recent 512 of the items the bound model knows, read through the
+    columnar path, not the fold-in's) and the bound item table; returns
+    the largest normwise relative difference. An item the store holds
+    but the model does not (one an earlier stream session inserted into
+    another binding of the same instance) is left out, as the fold-in
+    leaves it out."""
     from predictionio_tpu_torch.data.storage.base import EventFilter
     from predictionio_tpu_torch.models.als import dequantize_table
 
@@ -2570,7 +2621,8 @@ def f64_fold_check(storage, app_id, model, user_keys) -> float:
             item = d.target_ids.values[int(batch.target_id[j])]
             last.pop(item, None)
             last[item] = float(batch.float_props["rating"][j])
-        hist = list(last.items())[-512:]
+        hist = [(i, v) for i, v in last.items()
+                if i in model.item_ids][-512:]
         F = V[[model.item_ids[i] for i, _ in hist]]
         r = np.array([v for _, v in hist])
         reg = p.reg * max(len(hist), 1) if p.scale_reg_by_count else p.reg
@@ -2746,6 +2798,7 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
         srv = cli.build_deploy(args, storage).start_background()
         servers.append(srv)
         deploy_s = time.perf_counter() - t
+        warmed(srv)
         qs = srv.query_server
         trainer = qs.stream
         check(trainer is not None and trainer.running,
@@ -4350,6 +4403,7 @@ def phase_release(data, dev, home: str, pio: dict, card: dict) -> dict:
             held(qn(u), cold_first, old.id)
         finally:
             cold.close()
+        warmed(srv)  # the reload's re-warm, before the arms are counted
 
         with ArmLaunches(qs) as arms:
             # -- canary ----------------------------------------------------
@@ -4515,6 +4569,370 @@ def phase_release(data, dev, home: str, pio: dict, card: dict) -> dict:
             srv.close()
         storage.close()
 
+CONSOLE_QUERIES = 32
+CONSOLE_DRAIN_QUERIES = 16
+#: the longest a console command or a deploy's start may take
+CONSOLE_TIMEOUT_S = 300.0
+CONSOLE_APP = "ConsoleApp"
+
+
+def ladder_calls(n_items: int, max_batch: int) -> int:
+    """The serving ladder's calls (``ALSAlgorithm.warm_serving``): one
+    ``recommend_products`` a k, then one ``recommend_batch`` a k a batch
+    size, k = 8, 16, ... up to min(128, n_items), the batch sizes the
+    powers of two up to the power-of-two ceiling of ``max_batch``."""
+    ks = len([k for k in (8, 16, 32, 64, 128) if k <= min(128, n_items)]) \
+        or 1
+    bs = 1
+    while 1 << (bs - 1) < max_batch:
+        bs += 1
+    return ks + ks * bs
+
+
+def cli_process(args: list, env: dict, log: Path) -> subprocess.Popen:
+    """``python -m predictionio_tpu_torch.cli ARGS`` with its output in
+    ``log``."""
+    root = Path(__file__).resolve().parent
+    with open(log, "w") as f:
+        return subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", *args],
+            stdout=f, stderr=subprocess.STDOUT, cwd=root, env=env)
+
+
+def end_process(proc: subprocess.Popen, timeout: float = 60.0) -> int:
+    """Wait for ``proc``, killing it past ``timeout``; its exit code."""
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30)
+        return -9
+
+
+def run_cli(args: list, env: dict, log: Path) -> tuple:
+    """One console command to its end: (exit code, output, seconds)."""
+    t = time.perf_counter()
+    proc = cli_process(args, env, log)
+    rc = end_process(proc, CONSOLE_TIMEOUT_S)
+    return rc, log.read_text(), time.perf_counter() - t
+
+
+def console_deploy(tag: str, engine_json: str, artifact_dir: str, env: dict,
+                   logs: Path, storage, dev) -> dict:
+    """``cli deploy --batching --artifact-dir`` as a fresh process: the
+    seconds from its start to the first correct answer (asked as soon as
+    the port answers) and to ``servingWarm`` (polled beside it), then
+    ``CONSOLE_QUERIES`` answers held to the float64 top-k of the bound
+    tables. Returns the server's port, process and numbers; the caller
+    undeploys it."""
+    from predictionio_tpu_torch.models.als import _table_leaves
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    log = logs / f"deploy_{tag}.log"
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    t0 = time.perf_counter()
+    proc = cli_process(["deploy", "--engine-json", engine_json, "--ip",
+                        "127.0.0.1", "--port", "0", "--batching",
+                        "--artifact-dir", artifact_dir, *device], env, log)
+    out = {"proc": proc}
+    port = None
+    while port is None:
+        check(proc.poll() is None and time.perf_counter() - t0
+              < CONSOLE_TIMEOUT_S,
+              f"deploy {tag} did not start: {log.read_text()[-2000:]}")
+        for line in log.read_text().splitlines():
+            if " is listening at http://" in line:
+                port = int(line.rsplit(":", 1)[1].rstrip("."))
+        time.sleep(0.01)
+    out["port"] = port
+    warm_at = []
+
+    def poll_warm():
+        while time.perf_counter() - t0 < CONSOLE_TIMEOUT_S:
+            try:
+                if _http(port, "GET", "/status.json")[1]["servingWarm"]:
+                    warm_at.append(time.perf_counter() - t0)
+                    return
+            except OSError:
+                pass
+            time.sleep(0.005)
+
+    poller = threading.Thread(target=poll_warm, name="warm-poll")
+    poller.start()
+    # user 0 rated (the surrogate's every user does) and is a 10th user
+    first_q = {"user": "u0", "num": 10}
+    first, _ = _post(port, first_q)
+    out["first_s"] = time.perf_counter() - t0
+    poller.join(CONSOLE_TIMEOUT_S)
+    check(bool(warm_at), f"deploy {tag} never read servingWarm")
+    out["warm_s"] = warm_at[0]
+    status = _http(port, "GET", "/status.json")[1]
+    out["status"] = status
+    (model,) = loads_models(storage.models().get(
+        status["engineInstanceId"]).models)
+    ud, us = _table_leaves(model.user_factors.to(dev))
+    vd, vs = _table_leaves(model.item_factors.to(dev))
+    ref = (ud, us, vd, vs, ud.double(), vd.double(), model.n_items, dev,
+           model.user_ids, model.item_ids)
+    out["ref"], out["n_items"] = ref, model.n_items
+    check("u0" in model.user_ids, "the bound model does not know u0")
+    check_answer(first_q, first, *ref)
+    rng = np.random.default_rng(len(tag))
+    keys = [k for k, _ in model.user_ids.items()]
+    for u in rng.choice(len(keys), CONSOLE_QUERIES, replace=False):
+        q = {"user": keys[u], "num": 10}
+        check_answer(q, _post(port, q)[0], *ref)
+    return out
+
+
+def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
+    """The console on phase 8's store (see the module's docstring, phase
+    14). Returns ``fused_topk``'s launches in the two deploys, read from
+    their ``/status.json``."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.ops import _build
+
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="console_", dir=Path(home)))
+    env = dict(os.environ, PIO_HOME=home, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    env.pop("PTPU_ARTIFACT_DIR", None)
+    built_dir, cold_dir = work / "built", work / "cold"
+    storage = Storage(env={"PIO_HOME": home})
+    procs, pids = [], {}
+    start_all = False
+    try:
+        # -- build, cold then built ----------------------------------------
+        rc, log, build_s = run_cli(
+            ["build", "--engine-json", pio["engine_json"], "--artifact-dir",
+             str(built_dir)], env, work / "build1.log")
+        check(rc == 0, f"cli build: {rc} {log[-2000:]}")
+        nvcc = {}
+        for name in _build.all_sources():
+            line = next((ln for ln in log.splitlines()
+                         if ln.startswith(f"  {name}: ")), "")
+            check("compiled (" in line, f"cli build into an empty dir did "
+                  f"not compile {name}: {line!r}")
+            nvcc[name] = float(line.rsplit("(", 1)[1].rstrip("s)"))
+        rc, log2, rebuild_s = run_cli(
+            ["build", "--engine-json", pio["engine_json"], "--artifact-dir",
+             str(built_dir)], env, work / "build2.log")
+        check(rc == 0 and "compiled (" not in log2
+              and log2.count("already built (") == len(nvcc),
+              f"the second cli build ran nvcc: {log2[-2000:]}")
+
+        # -- deploy, built then cold ---------------------------------------
+        deploys = {}
+        for tag, art in (("built", built_dir), ("cold", cold_dir)):
+            d = console_deploy(tag, pio["engine_json"], str(art), env, work,
+                               storage, dev)
+            procs.append(d["proc"])
+            deploys[tag] = d
+            st = d["status"]
+            rep = st["warmReport"]
+            check("error" not in rep, f"deploy {tag}: {rep.get('error')}")
+            check(st["lifecycle"] == "ready", f"deploy {tag}: lifecycle "
+                  f"{st['lifecycle']}")
+            need = ladder_calls(d["n_items"], 128)
+            check(rep["probeCalls"] == need,
+                  f"deploy {tag}: {rep['probeCalls']} ladder calls, "
+                  f"{need} expected")
+            d["launches"] = st["kernels"]["fused_topk"]["launches"]
+            check(dev.type != "cuda" or (
+                d["launches"] >= need
+                and rep["launches"]["fused_topk"] >= need),
+                  f"deploy {tag}: fused_topk counted {d['launches']} "
+                  f"(warm-up {rep['launches']}), the ladder makes {need}")
+            if tag == "built":
+                check(st["artifactWarm"] and rep["seconds"]["compile"] == 0,
+                      f"the built deploy compiled: {rep}")
+            else:
+                check(rep["seconds"]["compile"] > 0
+                      and not st["artifactWarm"],
+                      f"the cold deploy compiled nothing: {rep}")
+            if tag == "built":
+                d.update(console_status_page_drain(d, env, work, card))
+            # every launch the process made: warm-up, first answer and
+            # the answers held to float64 (and, built, the drain's)
+            d["total_launches"] = _http(d["port"], "GET", "/status.json")[
+                1]["kernels"]["fused_topk"]["launches"]
+            rc = cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                           str(d["port"])], storage=storage)
+            check(rc == 0, f"cli undeploy of the {tag} deploy: {rc}")
+            check(end_process(d["proc"]) == 0,
+                  f"the {tag} deploy did not exit cleanly: "
+                  f"{(work / f'deploy_{tag}.log').read_text()[-2000:]}")
+
+        # -- start-all: the admin API and the dashboard --------------------
+        pid_dir = work / "pids"
+        ports = {}
+        for name in ("eventserver", "adminserver", "dashboard"):
+            with contextlib.closing(socket.socket()) as sk:
+                sk.bind(("127.0.0.1", 0))
+                ports[name] = sk.getsockname()[1]
+        saved = {k: os.environ.get(k) for k in ("PIO_HOME", "PYTHONPATH")}
+        os.environ.update(PIO_HOME=home, PYTHONPATH=env["PYTHONPATH"])
+        try:
+            start_all = True
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([
+                    "start-all", "--ip", "127.0.0.1", "--pid-dir",
+                    str(pid_dir), "--eventserver-port",
+                    str(ports["eventserver"]), "--adminserver-port",
+                    str(ports["adminserver"]), "--dashboard-port",
+                    str(ports["dashboard"]), "--start-timeout", "120"],
+                    storage=storage)
+            start_s = time.perf_counter() - t
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        pids = {p.stem: int(p.read_text()) for p in pid_dir.glob("*.pid")}
+        check(rc == 0 and len(pids) == 3,
+              f"cli start-all: {rc} {out.getvalue()} pids {pids}")
+        admin = ports["adminserver"]
+        code, body = _http(admin, "GET", "/cmd/app")
+        listed = {a["name"] for a in body["apps"]}
+        check(code == 200 and PIO_APP in listed, f"admin list: {code}")
+        code, body = _http(admin, "POST", "/cmd/app",
+                           {"name": CONSOLE_APP})
+        check(code == 200 and body["status"] == 1 and body["key"],
+              f"admin create: {code} {body}")
+        for path in (f"/cmd/app/{CONSOLE_APP}/data",
+                     f"/cmd/app/{CONSOLE_APP}"):
+            code, body = _http(admin, "DELETE", path)
+            check(code == 200 and body["status"] == 1,
+                  f"admin DELETE {path}: {code} {body}")
+        check(storage.apps().get_by_name(CONSOLE_APP) is None,
+              "the admin API did not delete the app")
+        evals = storage.evaluation_instances().get_completed()
+        check(bool(evals), "no EVALCOMPLETED instance to list")
+        with _LOCAL.open(f"http://127.0.0.1:{ports['dashboard']}/",
+                         timeout=60) as resp:
+            page = resp.read().decode()
+        check(all(e.id in page for e in evals),
+              "the dashboard does not list the eval phase's instances")
+        for suffix in ("html", "json"):
+            with _LOCAL.open(
+                    f"http://127.0.0.1:{ports['dashboard']}/engine_instances"
+                    f"/{evals[0].id}/evaluator_results.{suffix}",
+                    timeout=60) as resp:
+                body = resp.read()
+            check(resp.status == 200 and body, f"dashboard .{suffix}")
+            if suffix == "json":
+                json.loads(body)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["stop-all", "--pid-dir", str(pid_dir)],
+                          storage=storage)
+        start_all = False
+        left = [n for n, pid in pids.items() if cli._pid_alive(pid)]
+        check(rc == 0 and not left, f"stop-all: {rc} left {left}")
+
+        # -- export and import ---------------------------------------------
+        exported = work / "export.jsonl"
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["export", "--app", TEMPLATES_APP, "--output",
+                           str(exported)], storage=storage)
+        export_s = time.perf_counter() - t
+        check(rc == 0, f"cli export: {rc} {out.getvalue()}")
+        n_out = int(out.getvalue().split()[1])
+        app_id = storage.apps().get_by_name(TEMPLATES_APP).id
+        n_store = sum(1 for _ in storage.events().find(app_id))
+        check(n_out == n_store == sum(1 for _ in open(exported)),
+              f"exported {n_out} of {n_store} events")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["app", "new", CONSOLE_APP], storage=storage)
+            t = time.perf_counter()
+            rc2 = cli.main(["import", "--app", CONSOLE_APP, "--input",
+                            str(exported)], storage=storage)
+            import_s = time.perf_counter() - t
+        check(rc == 0 and rc2 == 0, f"cli import: {out.getvalue()}")
+        new_id = storage.apps().get_by_name(CONSOLE_APP).id
+        n_in = sum(1 for _ in storage.events().find(new_id))
+        check(n_in == n_out, f"imported {n_in} of {n_out} events")
+        b, c = deploys["built"], deploys["cold"]
+        launches = b["total_launches"] + c["total_launches"]
+        print(f"phase console: cli build into an empty dir "
+              f"{build_s:.3f}s (nvcc " + " ".join(
+                  f"{k}={v:.2f}s" for k, v in sorted(nvcc.items()))
+              + f"), again {rebuild_s:.3f}s (no nvcc) | deploy built: "
+              f"servingWarm at {b['warm_s']:.3f}s, first answer at "
+              f"{b['first_s']:.3f}s, warmReport "
+              f"{json.dumps(b['status']['warmReport']['seconds'])} "
+              f"artifactWarm={b['status']['artifactWarm']} | deploy cold: "
+              f"servingWarm at {c['warm_s']:.3f}s, first answer at "
+              f"{c['first_s']:.3f}s, warmReport "
+              f"{json.dumps(c['status']['warmReport']['seconds'])} "
+              f"artifactWarm={c['status']['artifactWarm']} | ladder "
+              f"{ladder_calls(b['n_items'], 128)} calls, fused_topk "
+              f"counted once warm built={b['launches']} cold="
+              f"{c['launches']}, in all built={b['total_launches']} cold="
+              f"{c['total_launches']} | "
+              f"{CONSOLE_QUERIES} answers each held to float64 | status "
+              f"{b['status_s']:.3f}s, drain: {CONSOLE_DRAIN_QUERIES} "
+              f"answers, +{b['drain_launches']} launches | start-all "
+              f"{start_s:.3f}s, admin and dashboard checked, stop-all left "
+              f"none | export {n_out} events in {export_s:.3f}s = "
+              f"{n_out / export_s:.1f} rows/s, import {import_s:.3f}s = "
+              f"{n_in / import_s:.1f} rows/s | {card_tag(card)}",
+              flush=True)
+        return {"fused_topk": launches}
+    finally:
+        if start_all:
+            with contextlib.redirect_stdout(io.StringIO()):
+                cli.main(["stop-all", "--pid-dir", str(work / "pids")],
+                         storage=storage)
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                end_process(proc, 30)
+        storage.close()
+
+
+def console_status_page_drain(d: dict, env: dict, work: Path,
+                              card: dict) -> dict:
+    """On a live deploy: ``cli status --ip --port`` names the card and its
+    power limit, ``GET /`` names the instance, ``POST /drain`` flips the
+    lifecycle and the answers after it stay correct."""
+    port, inst = d["port"], d["status"]["engineInstanceId"]
+    device = [] if card["name"] != "cpu" else ["--device", "cpu"]
+    rc, log, status_s = run_cli(["status", "--ip", "127.0.0.1", "--port",
+                                 str(port), *device], env,
+                                work / "status.log")
+    check(rc == 0 and f"card: {card['name']}" in log
+          and f"power limit {card['power_limit'] or 'n/a'}" in log
+          and f"base {inst}" in log,
+          f"cli status: {rc} {log[-2000:]}")
+    with _LOCAL.open(f"http://127.0.0.1:{port}/", timeout=60) as resp:
+        page = resp.read().decode()
+    check(resp.status == 200 and inst in page, "GET / lacks the instance")
+    code, body = _http(port, "POST", "/drain")
+    check(code == 200 and body == {"lifecycle": "draining"},
+          f"POST /drain: {code} {body}")
+    before = _http(port, "GET", "/status.json")[1]
+    rng = np.random.default_rng(99)
+    keys = [k for k, _ in d["ref"][8].items()]
+    for u in rng.choice(len(keys), CONSOLE_DRAIN_QUERIES, replace=False):
+        q = {"user": keys[u], "num": 10}
+        check_answer(q, _post(port, q)[0], *d["ref"])
+    after = _http(port, "GET", "/status.json")[1]
+    grown = (after["kernels"]["fused_topk"]["launches"]
+             - before["kernels"]["fused_topk"]["launches"])
+    check(after["lifecycle"] == "draining"
+          and (card["name"] == "cpu" or grown > 0),
+          f"after the drain: {after['lifecycle']}, +{grown} launches")
+    return {"status_s": status_s, "drain_launches": grown}
+
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -4603,6 +5021,8 @@ def main(argv=None) -> int:
             cls_l = phase_classification(dev, home, args.seed, card)
         with phase("release"):
             rel_l = phase_release(data, dev, home, pio, card)
+        with phase("console"):
+            console_l = phase_console(dev, home, pio, card)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
@@ -4627,7 +5047,8 @@ def main(argv=None) -> int:
              sequential_launches=seq_l["fused_topk"],
              sequential_pio_launches=seq_pio_l["fused_topk"],
              classification_launches=cls_l["fused_topk"],
-             release_launches=rel_l["fused_topk"], **row),
+             release_launches=rel_l["fused_topk"],
+             console_launches=console_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",

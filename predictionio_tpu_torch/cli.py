@@ -1,15 +1,22 @@
-"""Command line of the port (the lifecycle commands of
+"""Command line of the port (the ``pio`` console of
 ``predictionio_tpu.cli``)::
 
-    python -m predictionio_tpu_torch.cli app new MyApp1
-    python -m predictionio_tpu_torch.cli accesskey new MyApp1 [EVENT ...]
-    python -m predictionio_tpu_torch.cli eventserver --port 7070
-    python -m predictionio_tpu_torch.cli import --app MyApp1 --input ev.jsonl
+    python -m predictionio_tpu_torch.cli app new|list|show|delete|\\
+        data-delete|channel-new|channel-delete MyApp1 [...] [-f]
+    python -m predictionio_tpu_torch.cli accesskey new|list|delete ...
+    python -m predictionio_tpu_torch.cli eventserver|adminserver|dashboard \\
+        [--ip IP] [--port N] [--cert PEM --key PEM]
+    python -m predictionio_tpu_torch.cli start-all|stop-all [--pid-dir D]
+    python -m predictionio_tpu_torch.cli import|export --app MyApp1 \\
+        --input|--output ev.jsonl [--channel C]
+    python -m predictionio_tpu_torch.cli build --engine-json engine.json \\
+        [--artifact-dir D]
     python -m predictionio_tpu_torch.cli train --engine-json engine.json
     python -m predictionio_tpu_torch.cli deploy --engine-json engine.json \\
-        --port 8000 [--serving-quant int8] [--batching] [--model FILE] \\
-        [--pipeline staged|serial] [--queue-deadline-ms 30000] \\
-        [--stream --stream-app MyApp1]
+        --port 8000 [--artifact-dir D] [--serving-quant int8] [--batching] \\
+        [--max-batch 128] [--model FILE] [--pipeline staged|serial] \\
+        [--queue-deadline-ms 30000] [--stream --stream-app MyApp1] \\
+        [--cert PEM --key PEM]
     python -m predictionio_tpu_torch.cli batchpredict \\
         --engine-json engine.json --input q.jsonl --output out.jsonl
     python -m predictionio_tpu_torch.cli eval module:evaluation \\
@@ -20,13 +27,22 @@
     python -m predictionio_tpu_torch.cli release list
     python -m predictionio_tpu_torch.cli release show|pin|status|canary|\\
         promote|rollback --engine-id ID --engine-json engine.json ...
+    python -m predictionio_tpu_torch.cli status [--ip IP --port N]
+    python -m predictionio_tpu_torch.cli version|template|shell
+    python -m predictionio_tpu_torch.cli run module:callable [ARG ...]
 
 Storage is the JAX package's: ``PIO_STORAGE_*`` variables, else one
 SQLite file at ``$PIO_HOME/pio.db``. ``train``, ``deploy``,
-``batchpredict`` and ``eval`` run on the CUDA card unless ``--device
-cpu`` is given; without CUDA they raise. ``deploy`` binds the pinned
-release of the variant's engine, else its latest COMPLETED instance, or,
-with ``--model``, a file written by
+``batchpredict``, ``eval`` and ``status`` run on the CUDA card unless
+``--device cpu`` is given; without CUDA they fail. ``build`` checks that
+the variant loads and compiles every kernel library into the kernel root
+(``--artifact-dir D`` gives ``D/torch_kernels``, else
+``$PTPU_ARTIFACT_DIR``, else ``build/torch_kernels``; without ``nvcc``
+it fails, ``--device cpu`` checks the variant only); ``deploy`` with the
+same ``--artifact-dir`` loads them at bind and runs the serving ladder
+before it reports ``servingWarm``, so the first query pays no build.
+``deploy`` binds the pinned release of the variant's engine, else its
+latest COMPLETED instance, or, with ``--model``, a file written by
 ``workflow/persistence.py::dumps_models``; it serves until ``POST /stop``
 (``undeploy``, which records the undeploy in the release history).
 With ``--batching`` concurrent queries coalesce through the staged
@@ -35,23 +51,28 @@ pipeline (``--pipeline serial``: the drainer threads), each shed with a
 ``{"query", "prediction"}`` line for each query line of ``--input``,
 from the latest COMPLETED instance. ``eval`` walks the generator's params
 grid (or the evaluation's own ``engine_params_list``), prints the
-winner's one-liner and records an EVALCOMPLETED evaluation instance.
-With ``--stream`` a stream trainer folds the app's new events into the
-served model (not with ``--model``: it needs the storage the instance
-came from). ``stream`` drives a running engine server's trainer over
-HTTP. ``release`` lists, shows and pins releases in the storage (the JAX
-package's release blobs: a pin either package writes binds in both) and
-drives a running engine server's canary, promote and rollback (``status``
-falls back to the storage when the server is unreachable); as in the JAX
-package its engine triple is ``--engine-id`` (default "default"),
-``--engine-version`` (default "1") and the ``--engine-json`` path.
+winner's one-liner and records an EVALCOMPLETED evaluation instance,
+which the ``dashboard`` lists. With ``--stream`` a stream trainer folds
+the app's new events into the served model (not with ``--model``: it
+needs the storage the instance came from). ``stream`` drives a running
+engine server's trainer over HTTP. ``release`` lists, shows and pins
+releases in the storage (the JAX package's release blobs: a pin either
+package writes binds in both) and drives a running engine server's
+canary, promote and rollback (``status`` falls back to the storage when
+the server is unreachable); as in the JAX package its engine triple is
+``--engine-id`` (default "default"), ``--engine-version`` (default "1")
+and the ``--engine-json`` path. ``start-all`` runs the event server, the
+admin server and the dashboard as daemons with pidfiles; ``stop-all``
+stops them. ``--https`` (and ``--insecure``) reach a server deployed
+with ``--cert``/``--key``.
 
 An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
-Left out (``ROADMAP.md`` queue 1): build, status, export, channels and
-app deletion, TLS and fleets.
+Left out (``ROADMAP.md`` queue 1): ``storageserver`` (item 12),
+``cache`` (item 8), ``slo`` and fleets (item 14), ``trace`` (item 10),
+``check`` and ``audit-*`` (item 15).
 """
 
 from __future__ import annotations
@@ -59,17 +80,27 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import os
+import ssl
 import sys
+import time
 import urllib.error
 import urllib.request
 from typing import List, Optional
 
+from . import __version__
 from .controller.context import Context
 from .controller.params import load_variant
-from .data.storage.base import AccessKey, App, JsonlImportError
+from .data.storage.base import (
+    AccessKey,
+    App,
+    Channel,
+    EventFilter,
+    JsonlImportError,
+)
 from .data.storage.registry import Storage, get_storage
 from .server.engineserver import ServerConfig, deploy, deploy_models
-from .server.http import AppServer
+from .server.http import AppServer, ssl_context_from
 
 JAX_PACKAGE = "predictionio_tpu"
 #: the engine of a variant that names no ``engineFactory``: the
@@ -129,9 +160,24 @@ def _engine_key(args, variant: dict) -> dict:
 
 # -- commands ---------------------------------------------------------------
 
+def _find_channel(storage: Storage, app: App, name: str):
+    """The channel ``name`` of ``app``; None when absent."""
+    return next((c for c in storage.channels().get_by_app_id(app.id)
+                 if c.name == name), None)
+
+
+def _confirm(prompt: str) -> bool:
+    try:
+        return input(f"{prompt} (y/N) ").strip().lower() == "y"
+    except EOFError:
+        return False
+
+
 def cmd_app(args, storage: Storage) -> int:
-    apps, keys = storage.apps(), storage.access_keys()
-    if args.app_command == "new":
+    apps, keys, chans = (storage.apps(), storage.access_keys(),
+                         storage.channels())
+    sub = args.app_command
+    if sub == "new":
         if apps.get_by_name(args.name) is not None:
             _err(f"App {args.name} already exists. Aborting.")
             return 1
@@ -153,13 +199,81 @@ def cmd_app(args, storage: Storage) -> int:
         _out(f"        ID: {app_id}")
         _out(f"Access Key: {key}")
         return 0
-    _out(f"{'Name':20} |   ID | Access Key")
-    for a in sorted(apps.get_all(), key=lambda a: a.name):
-        for k in keys.get_by_app_id(a.id) or [None]:
-            allowed = ",".join(k.events) if k and k.events else "(all)"
-            _out(f"{a.name:20} | {a.id:4} | {k.key if k else ''} | "
-                 f"{allowed}")
-    _out(f"Finished listing {len(apps.get_all())} app(s).")
+    if sub == "list":
+        _out(f"{'Name':20} |   ID | Access Key")
+        for a in sorted(apps.get_all(), key=lambda a: a.name):
+            for k in keys.get_by_app_id(a.id) or [None]:
+                allowed = ",".join(k.events) if k and k.events else "(all)"
+                _out(f"{a.name:20} | {a.id:4} | {k.key if k else ''} | "
+                     f"{allowed}")
+        _out(f"Finished listing {len(apps.get_all())} app(s).")
+        return 0
+    a = apps.get_by_name(args.name)
+    if a is None:
+        _err(f"App {args.name} does not exist. Aborting.")
+        return 1
+    if sub == "show":
+        _out(f"    App Name: {a.name}")
+        _out(f"      App ID: {a.id}")
+        _out(f" Description: {a.description or ''}")
+        for k in keys.get_by_app_id(a.id):
+            allowed = ",".join(k.events) if k.events else "(all)"
+            _out(f"  Access Key: {k.key} | {allowed}")
+        for c in chans.get_by_app_id(a.id):
+            _out(f"     Channel: {c.name} (ID {c.id})")
+        return 0
+    if sub == "delete":
+        if not args.force and not _confirm(
+                f"Delete app {args.name} and ALL its data?"):
+            return 1
+        for c in chans.get_by_app_id(a.id):
+            storage.events().remove(a.id, c.id)
+            chans.delete(c.id)
+        storage.events().remove(a.id)
+        for k in keys.get_by_app_id(a.id):
+            keys.delete(k.key)
+        apps.delete(a.id)
+        _out(f"Deleted app {args.name}.")
+        return 0
+    if sub == "data-delete":
+        if not args.force and not _confirm(
+                f"Delete ALL data of app {args.name}?"):
+            return 1
+        channel_id = None
+        if args.channel:
+            ch = _find_channel(storage, a, args.channel)
+            if ch is None:
+                _err(f"Channel {args.channel} does not exist. Aborting.")
+                return 1
+            channel_id = ch.id
+        storage.events().remove(a.id, channel_id)
+        storage.events().init(a.id, channel_id)
+        _out(f"Removed Event Store for the app ID: {a.id}")
+        return 0
+    if sub == "channel-new":
+        if not Channel.is_valid_name(args.channel):
+            _err(f"Channel name {args.channel} is invalid (1-16 "
+                 f"alphanumeric/dash characters). Aborting.")
+            return 1
+        if _find_channel(storage, a, args.channel) is not None:
+            _err(f"Channel {args.channel} already exists. Aborting.")
+            return 1
+        cid = chans.insert(Channel(id=0, name=args.channel, app_id=a.id))
+        storage.events().init(a.id, cid)
+        _out(f"Created channel {args.channel} (ID {cid}) for app "
+             f"{args.name}.")
+        return 0
+    # channel-delete
+    ch = _find_channel(storage, a, args.channel)
+    if ch is None:
+        _err(f"Channel {args.channel} does not exist. Aborting.")
+        return 1
+    if not args.force and not _confirm(
+            f"Delete channel {args.channel} and its data?"):
+        return 1
+    storage.events().remove(a.id, ch.id)
+    chans.delete(ch.id)
+    _out(f"Deleted channel {args.channel}.")
     return 0
 
 
@@ -177,6 +291,10 @@ def cmd_accesskey(args, storage: Storage) -> int:
             return 1
         _out(f"Created new access key: {key}")
         return 0
+    if args.ak_command == "delete":
+        keys.delete(args.key)
+        _out(f"Deleted access key {args.key}.")
+        return 0
     rows = keys.get_all()
     if args.app:
         a = apps.get_by_name(args.app)
@@ -191,25 +309,63 @@ def cmd_accesskey(args, storage: Storage) -> int:
     return 0
 
 
+def _ssl(args):
+    """The server TLS context of ``--cert``/``--key`` (or
+    ``PIO_SSL_CERT``/``PIO_SSL_KEY``); None for plain HTTP."""
+    return ssl_context_from(args.cert or None, args.key or None)
+
+
 def build_eventserver(args, storage: Storage) -> AppServer:
     """The event server the eventserver command would serve, not yet
     serving."""
-    from .server.eventserver import create_event_server
+    from .server.eventserver import build_app
 
-    return create_event_server(storage, args.ip, args.port)
+    return AppServer(build_app(storage), args.ip, args.port,
+                     ssl_context=_ssl(args))
+
+
+def build_adminserver(args, storage: Storage) -> AppServer:
+    from .server.adminserver import create_admin_server
+
+    return create_admin_server(storage, host=args.ip, port=args.port,
+                               accesskey=args.accesskey or None,
+                               ssl_context=_ssl(args))
+
+
+def build_dashboard(args, storage: Storage) -> AppServer:
+    from .server.dashboard import create_dashboard
+
+    return create_dashboard(storage, host=args.ip, port=args.port,
+                            accesskey=args.accesskey or None,
+                            ssl_context=_ssl(args))
+
+
+def _app_and_channel(args, storage: Storage):
+    """The app of ``--app``/``--appid`` and the id of ``--channel``;
+    ``(None, None)`` after an error message."""
+    a = (storage.apps().get_by_name(args.app) if args.app
+         else storage.apps().get(args.appid))
+    if a is None:
+        _err("App does not exist. Aborting.")
+        return None, None
+    if not args.channel:
+        return a, None
+    ch = _find_channel(storage, a, args.channel)
+    if ch is None:
+        _err(f"Channel {args.channel} does not exist. Aborting.")
+        return None, None
+    return a, ch.id
 
 
 def cmd_import(args, storage: Storage) -> int:
     """JSON lines -> event store, committed in all-or-nothing chunks;
     then the columnar sidecar is built, so the first train does not pay
     it."""
-    a = (storage.apps().get_by_name(args.app) if args.app
-         else storage.apps().get(args.appid))
+    a, channel_id = _app_and_channel(args, storage)
     if a is None:
-        _err("App does not exist. Aborting.")
         return 1
     try:
-        total = storage.events().import_jsonl(args.input, a.id)
+        total = storage.events().import_jsonl(args.input, a.id, channel_id)
     except JsonlImportError as err:
         _err(f"Import failed near line {err.lineno}: {err.cause}")
         _err(f"{err.committed_events} event(s) (input lines "
@@ -217,8 +373,53 @@ def cmd_import(args, storage: Storage) -> int:
              f"the whole file again would duplicate them.")
         return 1
     _out(f"Imported {total} event(s).")
-    if storage.events().warm_columnar(a.id):
+    if storage.events().warm_columnar(a.id, channel_id):
         _out("Columnar sidecar ready.")
+    return 0
+
+
+def cmd_export(args, storage: Storage) -> int:
+    """Event store -> JSON lines, in the JAX package's format (one event
+    a line, the REST API's JSON); ``import`` reads it back."""
+    a, channel_id = _app_and_channel(args, storage)
+    if a is None:
+        return 1
+    n = 0
+    with open(args.output, "w", encoding="utf-8") as f:
+        for e in storage.events().find(a.id, channel_id, EventFilter()):
+            f.write(json.dumps(e.to_json()) + "\n")
+            n += 1
+    _out(f"Exported {n} event(s) to {args.output}.")
+    return 0
+
+
+def cmd_build(args, storage: Storage) -> int:
+    """Check that the variant loads, then build every kernel library into
+    the kernel root (``--artifact-dir``, ``$PTPU_ARTIFACT_DIR`` or
+    ``build/torch_kernels``), where a deploy with the same root loads
+    them at bind. ``--device cpu`` checks the variant only. A machine
+    without ``nvcc`` fails here."""
+    from .ops import _build
+
+    variant = load_variant(args.engine_json)
+    _, engine_params = engine_from_variant(variant)
+    _out(f"Engine factory {variant.get('engineFactory')} loads OK "
+         f"({len(engine_params.algorithms)} algorithm(s) configured).")
+    if args.device != "cpu":
+        try:
+            _build.set_root(args.artifact_dir)
+            result = _build.build_all()
+        except RuntimeError as e:
+            _err(f"Kernel build failed: {e}")
+            return 1
+        _out(f"Kernel root: {result['root']}")
+        for name, lib in sorted(result["libraries"].items()):
+            what = "compiled" if lib["compiled"] else "already built"
+            _out(f"  {name}: {what} ({lib['seconds']:.2f}s)")
+        _out(f"Kernels built in {result['seconds']:.2f}s. Deploy with "
+             f"--artifact-dir {args.artifact_dir or '(the same root)'} to "
+             f"load them at bind.")
+    _out("Build finished successfully.")
     return 0
 
 
@@ -251,6 +452,7 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
     variant = load_variant(args.engine_json)
     engine, engine_params = engine_from_variant(variant)
     config = ServerConfig(batching=args.batching,
+                          max_batch=args.max_batch,
                           batch_pipeline=args.batch_pipeline,
                           serving_pipeline=args.pipeline,
                           queue_deadline_ms=args.queue_deadline_ms,
@@ -265,18 +467,21 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                           stream_max_events=args.stream_max_events,
                           stream_consumer=args.stream_consumer,
                           stream_drift_threshold=args.stream_drift_threshold,
-                          stream_canary_probes=args.stream_canary_probes)
+                          stream_canary_probes=args.stream_canary_probes,
+                          artifact_dir=args.artifact_dir or None)
+    ssl_ctx = _ssl(args)
     if args.model:
         from .workflow.persistence import loads_models
 
         with open(args.model, "rb") as f:
             models = loads_models(f.read())
         return deploy_models(engine, engine_params, models, config,
-                             args.ip, args.port)
+                             args.ip, args.port, ssl_context=ssl_ctx)
     ctx = Context(device=args.device,
                   _storage=storage if storage is not None else get_storage())
     return deploy(ctx, engine, engine_params, config=config, host=args.ip,
-                  port=args.port, **_engine_key(args, variant))
+                  port=args.port, ssl_context=ssl_ctx,
+                  **_engine_key(args, variant))
 
 
 def cmd_batchpredict(args, storage: Storage) -> int:
@@ -326,12 +531,23 @@ def cmd_eval(args, storage: Storage) -> int:
 
 def _server_call(args, path: str, method: str = "GET",
                  body: Optional[dict] = None):
-    """One JSON call to the engine server at ``args.ip``:``args.port``."""
+    """One JSON call to the engine server at ``args.ip``:``args.port``;
+    over HTTPS with ``--https`` (certificates verified unless
+    ``--insecure``, for a self-signed local certificate)."""
+    https = getattr(args, "https", False)
     data = json.dumps(body).encode() if body is not None else (
         b"" if method == "POST" else None)
-    req = urllib.request.Request(f"http://{args.ip}:{args.port}{path}",
-                                 data=data, method=method)
-    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    req = urllib.request.Request(
+        f"{'https' if https else 'http'}://{args.ip}:{args.port}{path}",
+        data=data, method=method)
+    handlers: list = [urllib.request.ProxyHandler({})]
+    if https:
+        ctx = ssl.create_default_context()
+        if getattr(args, "insecure", False):
+            ctx.check_hostname = False
+            ctx.verify_mode = ssl.CERT_NONE
+        handlers.append(urllib.request.HTTPSHandler(context=ctx))
+    opener = urllib.request.build_opener(*handlers)
     with opener.open(req, timeout=30) as resp:
         return json.loads(resp.read() or b"null")
 
@@ -506,8 +722,280 @@ def cmd_release(args, storage: Storage) -> int:
     return 0
 
 
+def cmd_status(args, storage: Storage) -> int:
+    """Versions, the card (name and power limit), the kernel root and
+    what is built there, a storage check, the release of each tracked
+    engine and, with ``--ip``, the serving lineage of a live engine
+    server. Without CUDA it fails unless ``--device cpu``."""
+    import subprocess
+
+    import torch
+
+    from .ops import _build
+    from .rollout import ReleaseRegistry
+    from .utils.device import card_info
+
+    _out(f"PredictionIO on PyTorch {__version__}")
+    try:
+        card = card_info(args.device)
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+        _err(f"Device check failed: {e}")
+        return 1
+    _out(f"torch {torch.__version__} (CUDA {torch.version.cuda}); card: "
+         f"{card['name']}, power limit {card['power_limit'] or 'n/a'}")
+    built = _build.built()
+    _out(f"Kernel root: {_build.root()}; built: "
+         f"{', '.join(built) if built else '(none)'} of "
+         f"{', '.join(_build.all_sources())}")
+    try:
+        storage.verify_all_data_objects()
+    except Exception as e:  # noqa: BLE001 — report, don't traceback
+        _err(f"Storage check failed: {e}")
+        return 1
+    _out("Storage: all data objects verified.")
+    for engine_id, engine_version, engine_variant in sorted(
+            ReleaseRegistry.list_tracked(storage)):
+        st = ReleaseRegistry(storage, engine_id, engine_version,
+                             engine_variant).state()
+        line = (f"Release [{engine_id} v{engine_version}]: "
+                f"stable={st.get('stable') or '(none)'}")
+        if st.get("pinned"):
+            line += f" pinned={st['pinned']}"
+        if st.get("candidate"):
+            line += (f" candidate={st['candidate']} "
+                     f"({st.get('candidateMode')} at "
+                     f"{float(st.get('fraction') or 0) * 100:.0f}%)")
+        _out(line)
+    if args.ip:
+        try:
+            payload = _server_call(args, "/status.json")
+        except (OSError, ValueError) as e:
+            _err(f"engine server at {args.ip}:{args.port} unreachable "
+                 f"({_call_error(e)}); skipping lineage")
+            payload = None
+        lin = (payload or {}).get("lineage") or {}
+        if lin:
+            _out(f"Serving [{payload.get('engineId', '?')}]: "
+                 f"base {lin.get('baseInstanceId', '?')} "
+                 f"+{lin.get('incrementalGeneration', 0)} fold-ins "
+                 f"({lin.get('incrementalRows', 0)} rows), staleness "
+                 f"{lin.get('stalenessSec', '?')}s"
+                 + (", stream live" if lin.get("streaming") else "")
+                 + f"; lifecycle {payload.get('lifecycle', '?')}")
+    _out("(sleeping 0 seconds) Your system is all ready to go.")
+    return 0
+
+
+def cmd_template(args, storage: Storage) -> int:
+    _out("Bundled engine templates (predictionio_tpu_torch.templates):")
+    _out("  recommendation  — ALS top-N (module: predictionio_tpu_torch."
+         "templates.recommendation:recommendation_engine)")
+    _out("  classification  — naive Bayes / random forest (…"
+         "classification:classification_engine)")
+    _out("  similarproduct  — ALS cosine / cooccurrence / like (…"
+         "similarproduct:similarproduct_engine)")
+    _out("  ecommerce       — ALS + popularity + filters (…"
+         "ecommerce:ecommerce_engine)")
+    _out("  sequential      — self-attention next item (…"
+         "sequential:sequential_engine)")
+    return 0
+
+
+def cmd_run(args, storage: Storage) -> int:
+    """Call ``module.path:callable`` with the positional arguments and the
+    storage installed as the process-wide one; print what it returns."""
+    from .data.storage import registry
+
+    fn = load_engine_factory(args.target)
+    if not callable(fn):
+        raise SystemExit(f"{args.target!r} is not callable")
+    prior = registry._global
+    registry.set_storage(storage)
+    try:
+        result = fn(*args.args)
+        if result is not None:
+            _out(str(result))
+        return 0
+    finally:
+        registry.set_storage(prior)
+
+
+def cmd_shell(args, storage: Storage) -> int:
+    """An interactive Python shell with ``storage``, ``event_store``,
+    ``p_event_store`` and ``Context`` preloaded (reads stdin)."""
+    import code
+
+    from .data.store import EventStoreFacade
+    from .pypio import PEventStore
+
+    facade = EventStoreFacade(storage)
+    ns = {"storage": storage, "event_store": facade,
+          "p_event_store": PEventStore(facade), "Context": Context}
+    code.interact(banner="PredictionIO on PyTorch shell. Preloaded: "
+                         "storage, event_store, p_event_store, Context.",
+                  local=ns, exitmsg="")
+    return 0
+
+
+#: the servers ``start-all`` runs, with their default ports
+START_ALL = {"eventserver": 7070, "adminserver": 7071, "dashboard": 9000}
+
+
+def _pid_dir(args) -> str:
+    d = os.path.expanduser(args.pid_dir or os.environ.get("PIO_PID_DIR",
+                                                          "~/.ptpu"))
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _pid_alive(pid: int) -> bool:
+    # reap the pid first if it is this process's child: kill(pid, 0)
+    # succeeds on a zombie, which would read as alive forever when
+    # start-all and stop-all share a process
+    try:
+        os.waitpid(pid, os.WNOHANG)
+    except ChildProcessError:
+        pass
+    try:
+        os.kill(pid, 0)
+        return True
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+
+
+def cmd_start_all(args, storage: Storage) -> int:
+    """Start the event server, the admin server and the dashboard as
+    daemons (``python -m predictionio_tpu_torch.cli <name>`` in a session
+    of their own, so they outlive this command), each with a pidfile
+    and a log under ``--pid-dir``; wait until each answers its port."""
+    import socket
+    import subprocess
+
+    d = _pid_dir(args)
+    ports = {"eventserver": args.event_port, "adminserver": args.admin_port,
+             "dashboard": args.dash_port}
+    started, failed = [], []
+    for name, default_port in START_ALL.items():
+        port = ports[name] or default_port
+        pidfile = os.path.join(d, f"{name}.pid")
+        if os.path.exists(pidfile):
+            try:
+                with open(pidfile) as f:
+                    old = int(f.read().strip())
+            except ValueError:
+                old = -1
+            if old > 0 and _pid_alive(old):
+                _err(f"{name} already running (pid {old}, {pidfile}); "
+                     f"run stop-all first")
+                failed.append(name)
+                continue
+            os.unlink(pidfile)  # a dead process's pidfile
+        cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli", name,
+               "--ip", args.ip, "--port", str(port)]
+        log_path = os.path.join(d, f"{name}.log")
+        with open(log_path, "ab") as log_f:
+            proc = subprocess.Popen(cmd, stdout=log_f,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+        with open(pidfile, "w") as f:
+            f.write(str(proc.pid))
+        host = "127.0.0.1" if args.ip == "0.0.0.0" else args.ip
+        deadline = time.monotonic() + args.start_timeout
+        up = False
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                with socket.create_connection((host, port), timeout=1.0):
+                    up = True
+                    break
+            except OSError:
+                time.sleep(0.1)
+        if up:
+            # a foreign listener on the port answers too, while the child
+            # dies on its bind a moment later
+            time.sleep(0.3)
+            up = proc.poll() is None
+        if up:
+            _out(f"{name}: up on port {port} (pid {proc.pid}, log "
+                 f"{log_path})")
+            started.append(name)
+            continue
+        _err(f"{name}: failed to come up on port {port} within "
+             f"{args.start_timeout}s — see {log_path}")
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=5)
+        os.unlink(pidfile)
+        failed.append(name)
+    if failed:
+        return 1
+    _out(f"All servers up ({', '.join(started)}). `stop-all` stops them.")
+    return 0
+
+
+def cmd_stop_all(args, storage: Storage) -> int:
+    """SIGTERM every server with a pidfile under ``--pid-dir``, SIGKILL
+    one still alive after ``--stop-timeout``, and remove the pidfiles."""
+    import signal
+
+    d = _pid_dir(args)
+    stopped = 0
+    for name in START_ALL:
+        pidfile = os.path.join(d, f"{name}.pid")
+        if not os.path.exists(pidfile):
+            continue
+        try:
+            with open(pidfile) as f:
+                pid = int(f.read().strip())
+        except ValueError:
+            os.unlink(pidfile)
+            continue
+        if not _pid_alive(pid):
+            _out(f"{name}: not running (stale pidfile)")
+            os.unlink(pidfile)
+            continue
+        try:
+            os.kill(pid, signal.SIGTERM)
+        except ProcessLookupError:
+            pass  # exited meanwhile
+        except PermissionError:
+            # we started our servers as this user: a pid we cannot signal
+            # was recycled by another user's process
+            _out(f"{name}: pid {pid} now belongs to a foreign process; "
+                 f"dropping the stale pidfile")
+            os.unlink(pidfile)
+            continue
+        deadline = time.monotonic() + args.stop_timeout
+        while time.monotonic() < deadline and _pid_alive(pid):
+            time.sleep(0.1)
+        if _pid_alive(pid):
+            _err(f"{name} (pid {pid}) ignored SIGTERM; killing")
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            deadline = time.monotonic() + 10.0
+            while _pid_alive(pid) and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if _pid_alive(pid):
+                _err(f"{name} (pid {pid}) survived SIGKILL; leaving its "
+                     f"pidfile")
+                continue
+        _out(f"{name}: stopped (pid {pid})")
+        stopped += 1
+        os.unlink(pidfile)
+    if stopped == 0:
+        _out("Nothing to stop.")
+    return 0
+
+
 def _serve(srv: AppServer, what: str, args) -> int:
-    _out(f"{what} is listening at http://{args.ip}:{srv.port}.")
+    _out(f"{what} is listening at {srv.scheme}://{args.ip}:{srv.port}.")
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -531,6 +1019,22 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--description")
     s.add_argument("--access-key", default="")
     app_sub.add_parser("list")
+    s = app_sub.add_parser("show")
+    s.add_argument("name")
+    s = app_sub.add_parser("delete")
+    s.add_argument("name")
+    s.add_argument("-f", "--force", action="store_true")
+    s = app_sub.add_parser("data-delete")
+    s.add_argument("name")
+    s.add_argument("--channel", default="")
+    s.add_argument("-f", "--force", action="store_true")
+    s = app_sub.add_parser("channel-new")
+    s.add_argument("name")
+    s.add_argument("channel")
+    s = app_sub.add_parser("channel-delete")
+    s.add_argument("name")
+    s.add_argument("channel")
+    s.add_argument("-f", "--force", action="store_true")
 
     sp = sub.add_parser("accesskey", help="manage access keys")
     ak_sub = sp.add_subparsers(dest="ak_command", required=True)
@@ -540,15 +1044,107 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--key", default="")
     s = ak_sub.add_parser("list")
     s.add_argument("--app", default="")
+    s = ak_sub.add_parser("delete")
+    s.add_argument("key")
 
-    s = sub.add_parser("eventserver", help="start the event server")
+    def tls_flags(sp):
+        sp.add_argument("--cert", default="", help="PEM cert to serve HTTPS")
+        sp.add_argument("--key", default="", help="PEM private key")
+
+    def client_tls_flags(sp):
+        sp.add_argument("--https", action="store_true",
+                        help="the server was deployed with --cert/--key")
+        sp.add_argument("--insecure", action="store_true",
+                        help="skip TLS certificate verification (self-"
+                             "signed local certificates only)")
+
+    for name, port, ip, help_ in (
+            ("eventserver", 7070, "0.0.0.0", "start the event server"),
+            ("adminserver", 7071, "127.0.0.1", "start the admin API"),
+            ("dashboard", 9000, "127.0.0.1",
+             "start the evaluation dashboard")):
+        s = sub.add_parser(name, help=help_)
+        s.add_argument("--ip", default=ip)
+        s.add_argument("--port", type=int, default=port)
+        if name != "eventserver":
+            s.add_argument("--accesskey", default="")
+        tls_flags(s)
+
+    s = sub.add_parser("start-all", help="start the event server, admin "
+                                         "server and dashboard as daemons "
+                                         "with pidfiles")
     s.add_argument("--ip", default="0.0.0.0")
-    s.add_argument("--port", type=int, default=7070)
+    s.add_argument("--pid-dir", default="",
+                   help="pidfile and log dir (default $PIO_PID_DIR or "
+                        "~/.ptpu)")
+    s.add_argument("--eventserver-port", dest="event_port", type=int,
+                   default=0)
+    s.add_argument("--adminserver-port", dest="admin_port", type=int,
+                   default=0)
+    s.add_argument("--dashboard-port", dest="dash_port", type=int,
+                   default=0)
+    s.add_argument("--start-timeout", type=float, default=30.0)
 
-    s = sub.add_parser("import", help="import events from JSON lines")
-    s.add_argument("--appid", type=int, default=0)
-    s.add_argument("--app", default="")
-    s.add_argument("--input", required=True)
+    s = sub.add_parser("stop-all", help="stop every start-all daemon")
+    s.add_argument("--pid-dir", default="")
+    s.add_argument("--stop-timeout", type=float, default=10.0)
+
+    s = sub.add_parser("status", help="check the card, the kernels, the "
+                                      "storage and the releases")
+    s.add_argument("--ip", default="",
+                   help="also read a live engine server's /status.json "
+                        "for the serving lineage")
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--device", default=None,
+                   help="the device (default: the CUDA card)")
+    client_tls_flags(s)
+
+    for name, help_ in (("import", "import events from JSON lines"),
+                        ("export", "export events to JSON lines")):
+        s = sub.add_parser(name, help=help_)
+        s.add_argument("--appid", type=int, default=0)
+        s.add_argument("--app", default="")
+        s.add_argument("--channel", default="")
+        if name == "import":
+            s.add_argument("--input", required=True)
+        else:
+            s.add_argument("--output", required=True)
+
+    s = sub.add_parser("build", help="check the engine variant loads and "
+                                     "build the kernel libraries")
+    s.add_argument("--engine-json", default="engine.json")
+    s.add_argument("--engine-id", default="")
+    s.add_argument("--engine-version", default="")
+    s.add_argument("--device", default=None,
+                   help="cpu: check the variant only (the CPU runs no "
+                        "kernel)")
+    s.add_argument("--aot", action="store_true",
+                   help="accepted for the JAX package's command line: the "
+                        "port's kernels take any shape, so --aot builds "
+                        "the same libraries")
+    s.add_argument("--artifact-dir", default="",
+                   help="kernel root is ARTIFACT_DIR/torch_kernels "
+                        "(default $PTPU_ARTIFACT_DIR/torch_kernels, else "
+                        "build/torch_kernels); deploy --artifact-dir with "
+                        "the same dir loads from it")
+    s.add_argument("--batching", action="store_true",
+                   help="accepted for the JAX package's command line; the "
+                        "libraries serve every batch size")
+    s.add_argument("--max-batch", type=int, default=128,
+                   help="accepted for the JAX package's command line; the "
+                        "libraries serve every batch size")
+    s.add_argument("--serving-mode", default="single",
+                   choices=("auto", "single", "replicated", "sharded"),
+                   help="accepted for the JAX package's command line; one "
+                        "card serves")
+    s.add_argument("--serving-quant", default="off",
+                   choices=("off", "bf16", "int8"),
+                   help="accepted for the JAX package's command line; "
+                        "fused_topk serves every table type")
+    s.add_argument("--serving-topk", default="auto",
+                   choices=("auto", "einsum", "fused"),
+                   help="accepted for the JAX package's command line; the "
+                        "card serves k <= 128 through fused_topk")
 
     for name, help_ in (("train", "train an engine"),
                         ("deploy", "serve the latest trained engine"),
@@ -574,11 +1170,19 @@ def _parser() -> argparse.ArgumentParser:
                             "trained instance")
         s.add_argument("--ip", default="0.0.0.0")
         s.add_argument("--port", type=int, default=8000)
+        tls_flags(s)
+        s.add_argument("--artifact-dir", default="",
+                       help="load the kernels `build --artifact-dir` built "
+                            "there (ARTIFACT_DIR/torch_kernels); a library "
+                            "missing there is compiled at bind")
         s.add_argument("--serving-quant", default="off",
                        choices=("off", "bf16", "int8"))
         s.add_argument("--batching", action="store_true",
                        help="coalesce concurrent queries into batched "
                             "launches")
+        s.add_argument("--max-batch", type=int, default=128,
+                       help="max queries per coalesced launch (the warm "
+                            "ladder runs every power of two up to it)")
         s.add_argument("--batch-pipeline", type=int, default=4,
                        help="serial pipeline: drainer threads; staged: "
                             "dispatch threads")
@@ -639,6 +1243,7 @@ def _parser() -> argparse.ArgumentParser:
         c = stream_sub.add_parser(name, help=help_)
         c.add_argument("--ip", default="127.0.0.1")
         c.add_argument("--port", type=int, default=8000)
+        client_tls_flags(c)
         if name == "start":
             c.add_argument("--app", default="")
             c.add_argument("--channel", default="")
@@ -651,6 +1256,7 @@ def _parser() -> argparse.ArgumentParser:
     s = sub.add_parser("undeploy", help="stop a deployed engine server")
     s.add_argument("--ip", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
+    client_tls_flags(s)
 
     s = sub.add_parser("release", help="list, show and pin releases; drive "
                                        "a server's canary, promote and "
@@ -666,6 +1272,7 @@ def _parser() -> argparse.ArgumentParser:
         if server:
             sp.add_argument("--ip", default="127.0.0.1")
             sp.add_argument("--port", type=int, default=8000)
+            client_tls_flags(sp)
 
     rel_sub.add_parser("list", help="every engine with release state")
     r = rel_sub.add_parser("show", help="state and history (JSON)")
@@ -694,33 +1301,59 @@ def _parser() -> argparse.ArgumentParser:
                         ("status", "the server's /release.json (the "
                                    "storage's state when unreachable)")):
         release_flags(rel_sub.add_parser(name, help=help_), server=True)
+
+    sub.add_parser("template", help="list the bundled engine templates")
+    sub.add_parser("shell", help="interactive shell with the storage "
+                                 "preloaded")
+    s = sub.add_parser("run", help="run module.path:callable with the "
+                                   "storage configured")
+    s.add_argument("target")
+    s.add_argument("args", nargs="*")
+    sub.add_parser("version", help="print the version")
     return p
+
+
+COMMANDS = {
+    "app": cmd_app,
+    "accesskey": cmd_accesskey,
+    "build": cmd_build,
+    "import": cmd_import,
+    "export": cmd_export,
+    "train": cmd_train,
+    "batchpredict": cmd_batchpredict,
+    "eval": cmd_eval,
+    "undeploy": cmd_undeploy,
+    "release": cmd_release,
+    "status": cmd_status,
+    "template": cmd_template,
+    "run": cmd_run,
+    "shell": cmd_shell,
+    "start-all": cmd_start_all,
+    "stop-all": cmd_stop_all,
+}
+
+#: the long-running servers: what builds each, and its banner name
+SERVERS = {
+    "eventserver": (build_eventserver, "Event Server"),
+    "adminserver": (build_adminserver, "Admin server"),
+    "dashboard": (build_dashboard, "Dashboard"),
+}
 
 
 def main(argv: Optional[List[str]] = None,
          storage: Optional[Storage] = None) -> int:
     args = _parser().parse_args(argv)
+    if args.command == "version":
+        _out(__version__)
+        return 0
     if args.command == "stream":
         return cmd_stream(args)
     storage = storage if storage is not None else get_storage()
-    if args.command == "app":
-        return cmd_app(args, storage)
-    if args.command == "accesskey":
-        return cmd_accesskey(args, storage)
-    if args.command == "import":
-        return cmd_import(args, storage)
-    if args.command == "train":
-        return cmd_train(args, storage)
-    if args.command == "batchpredict":
-        return cmd_batchpredict(args, storage)
-    if args.command == "eval":
-        return cmd_eval(args, storage)
-    if args.command == "undeploy":
-        return cmd_undeploy(args, storage)
-    if args.command == "release":
-        return cmd_release(args, storage)
-    if args.command == "eventserver":
-        return _serve(build_eventserver(args, storage), "Event Server", args)
+    if args.command in COMMANDS:
+        return COMMANDS[args.command](args, storage)
+    if args.command in SERVERS:
+        build, what = SERVERS[args.command]
+        return _serve(build(args, storage), what, args)
     srv = build_deploy(args, storage)
     return _serve(srv, f"Engine server ({srv.app.name})", args)
 

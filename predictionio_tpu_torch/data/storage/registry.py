@@ -175,6 +175,18 @@ class Storage:
     def models(self) -> ModelsDAO:
         return self._dao("MODELDATA", "models")
 
+    def verify_all_data_objects(self) -> None:
+        """Instantiate every repository DAO and smoke-test the event
+        store (the JAX package's check, ``pio status``)."""
+        for dao in ("events", "apps", "access_keys", "channels",
+                    "engine_instances", "evaluation_instances", "models"):
+            repo = ("EVENTDATA" if dao == "events"
+                    else "MODELDATA" if dao == "models" else "METADATA")
+            self._dao(repo, dao)
+        ev = self.events()
+        ev.init(0)
+        ev.remove(0)
+
     def close(self) -> None:
         with self._lock:
             for name, client in self._clients.items():
@@ -195,3 +207,10 @@ def get_storage(refresh: bool = False) -> Storage:
         if _global is None or refresh:
             _global = Storage()
         return _global
+
+
+def set_storage(storage: Optional[Storage]) -> None:
+    """Override the process-wide storage (``pio run``, embedded use)."""
+    global _global
+    with _global_lock:
+        _global = storage

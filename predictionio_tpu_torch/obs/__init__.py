@@ -6,7 +6,8 @@ stages; :class:`MetricsRegistry`, the families behind ``GET /metrics``;
 series the rollout health gate windows.
 
 Left out (``ROADMAP.md`` queue 1 item 10): traces, hot keys, runtime
-gauges, and every metric family but the ``pio_release_*`` ones.
+gauges, and every metric family but the ``pio_release_*``,
+``pio_serving_warm`` and ``pio_warmup_seconds`` ones.
 """
 
 from .histogram import StreamingHistogram, window_quantile

@@ -54,24 +54,41 @@ tails an app's event log and hot-swaps folded models into the binding
 ``POST /stream/stop`` stops it. It needs the storage a :func:`deploy`
 binds from.
 
+Warm-up and lifecycle: with ``ServerConfig.warm_start`` (the default)
+a background thread loads, at bind and after every reload or promotion,
+the kernel libraries the bound algorithms launch (``fused_topk``, and
+``fused_gram`` and ``chol_solve`` when streaming) from the kernel root
+(``ServerConfig.artifact_dir``, see :mod:`..ops._build`; a library
+``pio build`` did not build is compiled there, and a query that needs it
+meanwhile waits for it), then runs each algorithm's ``warm_serving``
+ladder. ``/status.json`` shows ``servingWarm``, ``artifactWarm`` (no
+``nvcc`` ran at this bind), ``warmReport`` (the phases' seconds, and
+``error`` where the warm-up raised: it is logged and reported, never
+hidden, and the queries that follow raise the same way) and
+``lifecycle``: ``warming``, ``ready``, or ``draining`` after ``POST
+/drain``, which keeps the server answering. ``GET /`` is the status
+page.
+
 Left out (``ROADMAP.md`` queue 1): the serving caches, so a fold-in
 invalidates no cached answer and the candidate arm has no cache; feedback
 events, ``log_url``, output plugins, request traces and every metric
-family but the ``pio_release_*`` ones (the pipeline's counters are
-attributes of :class:`QueryServer`); replicated lanes. ``warm_start``,
-``warm_serving`` and ``transfer_guard`` are XLA mechanisms with nothing
-to port (``ROADMAP.md``): a candidate is ready once its tables are on the
-card.
+family but the ``pio_release_*``, ``pio_serving_warm`` and
+``pio_warmup_seconds`` ones (the pipeline's counters are attributes of
+:class:`QueryServer`); replicated lanes. ``transfer_guard`` and the XLA
+recompile sentinel are XLA mechanisms with nothing to port
+(``ROADMAP.md``); a candidate is ready once its tables are on the card.
 """
 
 from __future__ import annotations
 
+import html
 import logging
 import queue
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional
 
 from ..controller.context import Context
@@ -81,6 +98,7 @@ from ..data.storage.base import STATUS_COMPLETED, EngineInstance
 from ..models.als import SERVING_QUANT_MODES, serving_quant_of
 from ..obs import DEVICE_TRACK, MetricsRegistry, OverlapTracker
 from ..obs.histogram import DEFAULT_LATENCY_BOUNDS
+from ..ops import _build
 from ..ops import fused_topk as _fused_topk
 from ..rollout.registry import ReleaseRegistry
 from ..rollout.splitter import ARM_CANDIDATE, ARM_STABLE
@@ -152,6 +170,15 @@ class ServerConfig:
     stream_drift_threshold: float = 1.0
     #: touched-entity probes per fold-in canary check (0 disables)
     stream_canary_probes: int = 8
+    #: load the kernel libraries and run each algorithm's serving ladder
+    #: on a background thread at bind (``servingWarm`` on
+    #: ``/status.json``); off, the first query that needs a library
+    #: builds or loads it
+    warm_start: bool = True
+    #: the kernel root ``pio build --artifact-dir`` built into (see
+    #: ``ops/_build.py``); None keeps ``$PTPU_ARTIFACT_DIR`` or the
+    #: default ``build/torch_kernels``
+    artifact_dir: Optional[str] = None
 
 
 @dataclass
@@ -198,6 +225,10 @@ class QueryServer:
         self.card = card_info(self.device)
         self._lock = threading.Lock()
         self.request_count = 0
+        self.start_time = datetime.now(timezone.utc)
+        # mean and last serving wall time a query (under _lock)
+        self.avg_serving_sec = 0.0
+        self.last_serving_sec = 0.0
         # the batch path's counters (under _lock): queries shed at the
         # deadline, error answers by status, batches and the queries they
         # held, launches made while an earlier batch was on the device,
@@ -236,6 +267,26 @@ class QueryServer:
         self._shadow_mirrors = self.metrics.counter(
             "pio_release_shadow_mirrors_total",
             "Queries mirrored to a shadow candidate")
+        # warm-up and lifecycle: warm_done is set by the warm thread of
+        # the newest generation (a reload bumps it, so a stale thread
+        # never reports warm), drain_started by POST /drain
+        self.warm_done = threading.Event()
+        self.drain_started = threading.Event()
+        self._warm_gen = 0
+        self._warm_report: dict = {}
+        self._warm_threads: List[threading.Thread] = []
+        self.metrics.gauge(
+            "pio_serving_warm",
+            "1 once the kernels are loaded and the serving ladder ran",
+            fn=lambda: 1.0 if self.warm_done.is_set() else 0.0)
+        self._warmup_seconds = self.metrics.histogram(
+            "pio_warmup_seconds",
+            "Serving warm-up wall time by phase (phase=load|compile|"
+            "replicate|probe); a warm from built libraries puts nothing "
+            "in compile",
+            bounds=[0.01, 0.05, 0.25, 1.0, 2.0, 5.0, 15.0, 30.0, 60.0])
+        if self.config.artifact_dir:
+            _build.set_root(self.config.artifact_dir)
         self.releases = (ReleaseRegistry(
             ctx.storage, instance.engine_id, instance.engine_version,
             instance.engine_variant)
@@ -262,6 +313,10 @@ class QueryServer:
                 self, cfg.batch_window_ms, cfg.max_batch,
                 pipeline=cfg.batch_pipeline,
                 deadline_ms=cfg.queue_deadline_ms)
+        if cfg.warm_start:
+            self._start_warm(0)
+        else:
+            self.warm_done.set()
         if self.config.streaming:
             try:
                 self.start_stream()
@@ -327,9 +382,22 @@ class QueryServer:
         with self._lock:
             return self.algorithms, self.models, self.serving
 
-    def _count(self, n: int) -> None:
+    def _count(self, n: int, seconds: float) -> None:
+        """``n`` queries answered in ``seconds`` of serving wall time
+        between them."""
         with self._lock:
-            self.request_count += n
+            self._add_served(n, seconds)
+
+    def _add_served(self, n: int, seconds: float) -> None:
+        # called with _lock held: the count, and the mean and last
+        # serving time a query
+        if n <= 0:
+            return
+        total = self.request_count
+        self.avg_serving_sec = ((self.avg_serving_sec * total + seconds)
+                                / (total + n))
+        self.last_serving_sec = seconds / n
+        self.request_count += n
 
     def _count_shed(self) -> None:
         """A query shed at its deadline: a 503."""
@@ -355,15 +423,16 @@ class QueryServer:
             self.stage_seconds[stage] = (self.stage_seconds.get(stage, 0.0)
                                          + seconds)
 
-    def _record_batch(self, phases: Dict[str, float],
-                      results: List[Any]) -> None:
-        """One served batch: its phases, its size, its error answers."""
+    def _record_batch(self, phases: Dict[str, float], results: List[Any],
+                      seconds: float) -> None:
+        """One served batch: its phases, its size, its error answers, and
+        ``seconds``, its queries' serving wall time summed."""
         with self._lock:
             for k, v in phases.items():
                 self.phase_seconds[k] = self.phase_seconds.get(k, 0.0) + v
             self.batches_served += 1
             self.queries_batched += len(results)
-            self.request_count += len(results)
+            self._add_served(len(results), seconds)
             for r in results:
                 if isinstance(r, HTTPError):
                     self._add_error(r.status)
@@ -396,9 +465,9 @@ class QueryServer:
             self._observe_release(ARM_STABLE, time.monotonic() - t0,
                                   error=True)
             raise
-        self._observe_release(ARM_STABLE, time.monotonic() - t0,
-                              error=False)
-        self._count(1)
+        dt = time.monotonic() - t0
+        self._observe_release(ARM_STABLE, dt, error=False)
+        self._count(1, dt)
         return result
 
     def query_batch(self, query_jsons: List[Any]) -> List[Any]:
@@ -437,9 +506,9 @@ class QueryServer:
                     out[i] = self._render(served[j], phases)
             finally:
                 self.overlap.exit("readback")
-        self._record_batch(phases, out)
         # each coalesced query experienced the batch's wall time
         dt = time.monotonic() - t0
+        self._record_batch(phases, out, dt * len(out))
         for r in out:
             self._observe_release(ARM_STABLE, dt, error=_is_5xx(r))
         return out
@@ -467,8 +536,9 @@ class QueryServer:
         """The readback stage's tail: render each resolved prediction,
         record the batch, wake the callers."""
         final = [self._render(r, ab.phases) for r in results]
-        self._record_batch(ab.phases, final)
         now = time.monotonic()
+        self._record_batch(ab.phases, final,
+                           sum(now - e.t_enq for e in ab.entries))
         for entry, result in zip(ab.entries, final):
             # end to end per query, its queue wait included
             self._observe_release(ARM_STABLE, now - entry.t_enq,
@@ -508,9 +578,125 @@ class QueryServer:
             }
         return out
 
+    # -- warm-up and lifecycle -----------------------------------------------
+    @property
+    def lifecycle(self) -> str:
+        """``warming`` | ``ready`` | ``draining``: what ``/status.json``
+        advertises. Draining means "finish what is in flight, send
+        nothing new"; the server keeps answering."""
+        if self.drain_started.is_set():
+            return "draining"
+        return "ready" if self.warm_done.is_set() else "warming"
+
+    def enter_drain(self) -> None:
+        """Irreversible: announce the drain (``POST /drain``). Queries are
+        still answered; every surface reports ``draining``."""
+        self.drain_started.set()
+
+    def _serving_kernels(self, algorithms: List[Any]) -> List[str]:
+        """The kernel libraries this binding launches on the card: each
+        algorithm's ``serving_kernels``, and the fold-in's when
+        streaming. None on the CPU, where the plain versions serve."""
+        if self.device.type != "cuda":
+            return []
+        names = [n for a in algorithms
+                 for n in getattr(a, "serving_kernels", ())]
+        if self.config.streaming:
+            names += ["fused_gram", "chol_solve"]
+        return list(dict.fromkeys(names))
+
+    def _start_warm(self, gen: int) -> None:
+        t = threading.Thread(target=self._warm_serving,
+                             args=(gen, time.monotonic()), daemon=True,
+                             name=f"serving-warmup-{gen}")
+        with self._lock:
+            self._warm_threads = [w for w in self._warm_threads
+                                  if w.is_alive()] + [t]
+        t.start()
+
+    def _rewarm(self) -> None:
+        """Re-warm after a rebind (reload, promotion) under a new
+        generation, so ``/status.json`` reads ``warming`` until the new
+        binding's ladder ran."""
+        if not self.config.warm_start:
+            return
+        with self._lock:  # pairs with _warm_serving's check-and-set
+            self._warm_gen += 1
+            gen = self._warm_gen
+            self.warm_done.clear()
+        self._start_warm(gen)
+
+    def _warm_serving(self, gen: int, since: Optional[float] = None
+                      ) -> None:
+        """Warm the binding of generation ``gen``, in three phases:
+        ``load`` (the kernel libraries it launches, :func:`_build.
+        load_all`), ``compile`` (the seconds ``nvcc`` ran for the ones not
+        on disk; 0 when ``pio build`` built them all) and ``probe``
+        (each algorithm's ``warm_serving(model, max_batch)``, which on
+        the card launches the kernels at every batch and k of the
+        ladder). ``replicate`` is 0: one card serves. A failure is logged
+        and its text kept in the report's ``error``; the queries that
+        follow take the same path and raise the same way. Only the
+        newest generation sets ``warm_done``. ``since`` is when the
+        binding was made: a library a query compiled after it (before
+        the load took the lock) counts as compiled at this bind."""
+        with self._lock:
+            algorithms, models = self.algorithms, self.models
+        max_b = self.config.max_batch if self.config.batching else 1
+        phases = {"load": 0.0, "compile": 0.0, "replicate": 0.0,
+                  "probe": 0.0}
+        errors: List[str] = []
+        libraries: dict = {}
+        compiled = False
+        launches0 = _fused_topk.LAUNCHES
+        calls = 0
+        try:
+            loaded = _build.load_all(self._serving_kernels(algorithms),
+                                     since=since)
+            libraries = loaded["libraries"]
+            compiled = any(r["compiled"] for r in libraries.values())
+            phases["compile"] = loaded["compileSeconds"]
+            phases["load"] = loaded["seconds"] - loaded["compileSeconds"]
+        except Exception as e:  # noqa: BLE001 — reported, never hidden
+            log.exception("loading the serving kernels failed")
+            errors.append(str(e))
+        if not errors:
+            t0 = time.perf_counter()
+            for algo, model in zip(algorithms, models):
+                warm = getattr(algo, "warm_serving", None)
+                if warm is None:
+                    continue
+                try:
+                    calls += warm(model, max_b) or 0
+                except Exception as e:  # noqa: BLE001 — warm the rest
+                    log.exception("serving warm-up failed for %s",
+                                  type(algo).__name__)
+                    errors.append(str(e))
+            phases["probe"] = time.perf_counter() - t0
+        for phase, sec in phases.items():
+            self._warmup_seconds.labels(phase=phase).observe(sec)
+        report = {
+            # no nvcc ran at this bind: every library was on disk
+            "artifact": not errors and not compiled,
+            "root": str(_build.root()),
+            "libraries": libraries,
+            "probeCalls": calls,
+            "launches": {"fused_topk": _fused_topk.LAUNCHES - launches0},
+            "seconds": {k: round(v, 4) for k, v in phases.items()},
+            "totalSeconds": round(sum(phases.values()), 4),
+        }
+        if errors:
+            report["error"] = "; ".join(errors)
+        with self._lock:
+            if gen == self._warm_gen:
+                self._warm_report = report
+                self.warm_done.set()
+
     def status(self) -> dict:
         with self._lock:
             models, inst = self.models, self.instance
+            report = self._warm_report
+            avg, last = self.avg_serving_sec, self.last_serving_sec
         return {
             "status": "alive",
             "engineId": inst.engine_id if inst else None,
@@ -528,6 +714,12 @@ class QueryServer:
             "kernels": {"fused_topk": {
                 "launches": _fused_topk.LAUNCHES}},
             "requestCount": self.request_count,
+            "avgServingSec": avg,
+            "lastServingSec": last,
+            "servingWarm": self.warm_done.is_set(),
+            "artifactWarm": bool(report.get("artifact")),
+            "warmReport": report,
+            "lifecycle": self.lifecycle,
             "lineage": self.stream_lineage(),
             "stream": (self.stream.status() if self.stream is not None
                        else {"running": False}),
@@ -536,7 +728,8 @@ class QueryServer:
     def close(self, timeout: float = 5.0) -> None:
         """Stop the rollout's gate thread, the stream trainer, the batch
         path's threads (queued queries still serve), the shadow mirrors
-        and the pool, joining each. Idempotent."""
+        and the pool, and join the warm-up threads, each within
+        ``timeout``. Idempotent."""
         rollout = self.rollout
         if rollout is not None:
             rollout.stop()
@@ -548,6 +741,10 @@ class QueryServer:
         if mirrors is not None:
             mirrors.shutdown(wait=True)
         self._pool.shutdown(wait=True)
+        with self._lock:
+            warm_threads = list(self._warm_threads)
+        for t in warm_threads:
+            t.join(timeout)
 
     # -- streaming fold-in ---------------------------------------------------
     @property
@@ -801,6 +998,7 @@ class QueryServer:
         models = wf.load_models_for_deploy(self.ctx, self.engine, latest,
                                            engine_params)
         self._bind(engine_params, models, latest)
+        self._rewarm()
         try:
             releases.record_deploy(
                 latest.id, actor="/reload",
@@ -861,6 +1059,7 @@ class QueryServer:
         if cand is None:
             raise HTTPError(409, "no candidate release bound")
         self._bind(cand.engine_params, cand.raw_models, cand.instance)
+        self._rewarm()
         log.info("candidate %s promoted to serving stable",
                  cand.instance.id)
         return cand.instance.id
@@ -951,9 +1150,9 @@ class QueryServer:
             self._observe_release(ARM_CANDIDATE, time.monotonic() - t0,
                                   error=True)
             raise
-        self._observe_release(ARM_CANDIDATE, time.monotonic() - t0,
-                              error=False)
-        self._count(1)
+        dt = time.monotonic() - t0
+        self._observe_release(ARM_CANDIDATE, dt, error=False)
+        self._count(1, dt)
         return result
 
     def mirror_to_candidate(self, query_json: Any) -> None:
@@ -1497,6 +1696,107 @@ def build_app(server: QueryServer) -> HTTPApp:
     def status(req: Request) -> Response:
         return json_response(server.status())
 
+    def _pipeline_line() -> str:
+        """The batch path: mode, device idle share, overlap, sheds."""
+        p = server.pipeline_status()
+        if p["mode"] == "off":
+            return ""
+        parts = [f"serving pipeline: {p['mode']}"]
+        ov = p.get("overlap")
+        if ov:
+            parts.append(
+                f"device idle {ov['deviceIdleFraction'] * 100:.0f}%")
+            parts.append(f"overlap {ov['overlapFraction'] * 100:.0f}%")
+        if p.get("deadlineExceeded"):
+            parts.append(f"deadline sheds {p['deadlineExceeded']}")
+        return "<li>" + html.escape(" · ".join(parts)) + "</li>"
+
+    def _stream_line() -> str:
+        """The batch and stream blend serving now: base, fold-in
+        generations, staleness."""
+        lin = server.stream_lineage()
+        parts = [f"model lineage: base {lin['baseInstanceId']}"]
+        if lin["incrementalGeneration"]:
+            parts.append(f"+{lin['incrementalGeneration']} fold-ins "
+                         f"({lin['incrementalRows']} rows)")
+        parts.append(f"staleness {lin['stalenessSec']:.1f}s")
+        if lin["streaming"]:
+            parts.append("stream live")
+        return ("<li>" + html.escape(" · ".join(parts))
+                + " (<a href='/stream.json'>stream.json</a>)</li>")
+
+    def _release_panel() -> str:
+        """Which release serves, what is canarying at what fraction,
+        and the last 5 history rows."""
+        rel = server.release_summary()
+        rows = [f"<li>stable release: {html.escape(str(rel['stable']))}"
+                f"</li>"]
+        if rel["pinned"]:
+            rows.append(f"<li>pinned: {html.escape(rel['pinned'])}</li>")
+        if rel["candidate"]:
+            rows.append(f"<li>candidate: {html.escape(rel['candidate'])} "
+                        f"({html.escape(rel['mode'])} at "
+                        f"{rel['fraction'] * 100:.0f}%)</li>")
+        hist = []
+        if server.releases is not None:
+            try:
+                events = server.releases.history(limit=5)
+            except Exception as e:  # noqa: BLE001 — the page must render
+                log.error("release history read failed: %s", e)
+                events = []
+            hist = [f"<tr><td>{html.escape(ev.time[:19])}</td>"
+                    f"<td>{html.escape(ev.action)}</td>"
+                    f"<td>{html.escape(ev.instance_id)}</td>"
+                    f"<td>{html.escape(ev.actor)}</td>"
+                    f"<td>{html.escape(ev.reason)}</td></tr>"
+                    for ev in events]
+        return ("<h2>Release</h2><ul>" + "".join(rows) + "</ul>"
+                + ("<table border='1'><tr><th>time</th><th>action</th>"
+                   "<th>instance</th><th>actor</th><th>reason</th></tr>"
+                   + "".join(hist) + "</table>" if hist else "")
+                + "<p><a href='/release.json'>release.json</a></p>")
+
+    @app.route("GET", "/")
+    def index(req: Request) -> Response:
+        """The status page. Left out until their data is ported
+        (``ROADMAP.md`` queue 1): the span percentile table and the
+        trace line (item 10), the cache line (item 8), the SLO line
+        (item 14), the mesh panel and the sharding line (item 13); the
+        JAX package's "compiles since warm" counts XLA compiles."""
+        inst = server.instance
+        esc = html.escape
+        engine_id = inst.engine_id if inst else "(models handed in)"
+        with server._lock:
+            served = server.request_count
+            avg, last = server.avg_serving_sec, server.last_serving_sec
+        body = (
+            f"<html><head><title>{esc(engine_id)} - predictionio_tpu_torch "
+            f"engine server</title></head><body>"
+            f"<h1>Engine: {esc(engine_id)}"
+            + (f" v{esc(inst.engine_version)}" if inst else "") + "</h1>"
+            f"<ul><li>engine instance: "
+            f"{esc(inst.id) if inst else '-'}</li>"
+            f"<li>variant: {esc(inst.engine_variant) if inst else '-'}</li>"
+            f"<li>started: {server.start_time.isoformat()}</li>"
+            f"<li>lifecycle: {server.lifecycle}</li>"
+            f"<li>device: {esc(str(server.device))} "
+            f"({esc(str(server.card['name']))})</li>"
+            f"<li>requests served: {served}</li>"
+            f"<li>average serving: {avg * 1000:.3f} ms</li>"
+            f"<li>last serving: {last * 1000:.3f} ms</li>"
+            f"{_pipeline_line()}{_stream_line()}</ul>{_release_panel()}"
+            "<p><a href='/metrics'>Prometheus metrics</a> · "
+            "<a href='/status.json'>status.json</a></p></body></html>")
+        return Response(body=body, content_type="text/html")
+
+    @app.route("POST", "/drain")
+    def drain(req: Request) -> Response:
+        """Flip this server to ``lifecycle`` draining: it keeps serving
+        what arrives, but advertises that nothing new should. Idempotent;
+        it does not stop the server (``/stop`` does)."""
+        server.enter_drain()
+        return json_response({"lifecycle": server.lifecycle})
+
     @app.route("GET", "/stream.json")
     def stream_json(req: Request) -> Response:
         """The stream trainer's state and the model lineage."""
@@ -1566,10 +1866,11 @@ def build_app(server: QueryServer) -> HTTPApp:
 
 
 def create_engine_server(server: QueryServer, host: str = "0.0.0.0",
-                         port: int = 8000) -> AppServer:
-    """Bind the engine server's HTTP app; closing it closes the server."""
+                         port: int = 8000, ssl_context=None) -> AppServer:
+    """Bind the engine server's HTTP app (HTTPS with ``ssl_context``);
+    closing it closes the server."""
     app = build_app(server)
-    srv = AppServer(app, host, port)
+    srv = AppServer(app, host, port, ssl_context=ssl_context)
     srv.query_server = server  # the binding behind the routes
     srv.on_close(server.close)
     app._server_ref.append(srv)  # type: ignore[attr-defined]
@@ -1578,19 +1879,21 @@ def create_engine_server(server: QueryServer, host: str = "0.0.0.0",
 
 def deploy_models(engine: Engine, engine_params: EngineParams,
                   models: List[Any], config: Optional[ServerConfig] = None,
-                  host: str = "0.0.0.0", port: int = 8000) -> AppServer:
+                  host: str = "0.0.0.0", port: int = 8000,
+                  ssl_context=None) -> AppServer:
     """Bind ``models`` (quantize, place on the device) and return the
     engine server, not yet serving: call ``start_background()`` or
     ``serve_forever()`` on it."""
     server = QueryServer(engine, engine_params, models, config)
-    return create_engine_server(server, host, port)
+    return create_engine_server(server, host, port, ssl_context)
 
 
 def deploy(ctx: Context, engine: Engine, engine_params: EngineParams,
            engine_id: str = "default", engine_version: str = "1",
            engine_variant: str = "engine.json",
            config: Optional[ServerConfig] = None,
-           host: str = "0.0.0.0", port: int = 8000) -> AppServer:
+           host: str = "0.0.0.0", port: int = 8000,
+           ssl_context=None) -> AppServer:
     """The ``pio deploy`` flow through the release registry: bind the
     PINNED release of ``engine_id``/``engine_version``/``engine_variant``
     when one is set (``RuntimeError`` when it is not a COMPLETED
@@ -1632,4 +1935,4 @@ def deploy(ctx: Context, engine: Engine, engine_params: EngineParams,
                     else "latest COMPLETED instance"))
     except Exception as e:  # noqa: BLE001 — history is best-effort
         log.error("release history write failed on deploy: %s", e)
-    return create_engine_server(server, host, port)
+    return create_engine_server(server, host, port, ssl_context)

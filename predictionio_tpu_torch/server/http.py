@@ -2,14 +2,20 @@
 ``predictionio_tpu/server/http.py`` (routing with named path groups,
 query strings and headers, JSON responses, a 503 with ``Retry-After``
 when the backing store is unavailable, a server that starts in the
-background and closes cleanly).
+background and closes cleanly, HTTPS from PEM files, the ``accessKey``
+guard and the dashboard's cookie session).
 """
 
 from __future__ import annotations
 
+import hmac
 import json
+import os
 import re
+import secrets
+import ssl
 import threading
+import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -18,7 +24,8 @@ from urllib.parse import parse_qs, urlparse
 from ..data.storage.base import StorageError
 
 __all__ = ["Request", "Response", "HTTPError", "HTTPApp", "AppServer",
-           "json_response"]
+           "SessionAuth", "json_response", "make_key_auth",
+           "ssl_context_from"]
 
 #: what a 503 from an unavailable backing store asks the client to wait
 RETRY_AFTER_SECONDS = 1
@@ -69,6 +76,98 @@ class HTTPError(Exception):
         super().__init__(message)
         self.status = status
         self.message = message
+
+
+def make_key_auth(accesskey: Optional[str]) -> Callable[[Request], None]:
+    """The ``?accessKey=`` guard: a no-op where no key is configured, a
+    constant-time comparison otherwise (401 on a mismatch)."""
+
+    def _auth(req: Request) -> None:
+        if accesskey and not hmac.compare_digest(
+                req.query.get("accessKey") or "", accesskey):
+            raise HTTPError(401, "Invalid accessKey.")
+
+    return _auth
+
+
+class SessionAuth:
+    """Cookie-session guard for a browser-facing server (the dashboard):
+    the accessKey is accepted once, as ``?accessKey=`` or an
+    ``Authorization: Bearer`` header, and mints an HttpOnly session
+    cookie, so generated links never carry the key. Calling the instance
+    authorizes a request and returns a ``Set-Cookie`` value when it
+    minted a session (else None); raises :class:`HTTPError` 401."""
+
+    MAX_SESSIONS = 4096
+    #: a session expires after a day
+    TTL_SECONDS = 24 * 3600.0
+
+    def __init__(self, accesskey: Optional[str],
+                 cookie_name: str = "pio_dashboard_session",
+                 secure: bool = False):
+        self.accesskey = accesskey
+        self.cookie_name = cookie_name
+        self.secure = secure
+        #: token -> monotonic expiry, insertion-ordered so overflow
+        #: evicts the oldest session only
+        self._tokens: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def _cookie_token(self, req: Request) -> Optional[str]:
+        for part in (req.headers.get("Cookie") or "").split(";"):
+            name, _, value = part.strip().partition("=")
+            if name == self.cookie_name and value:
+                return value
+        return None
+
+    def __call__(self, req: Request) -> Optional[str]:
+        if not self.accesskey:
+            return None
+        now = time.monotonic()
+        tok = self._cookie_token(req)
+        if tok is not None:
+            with self._lock:
+                for t, expiry in self._tokens.items():
+                    if hmac.compare_digest(tok, t):
+                        if now <= expiry:
+                            return None
+                        break  # expired: fall through to the key
+        supplied = req.query.get("accessKey") or ""
+        if not supplied:
+            auth = req.headers.get("Authorization") or ""
+            if auth.startswith("Bearer "):
+                supplied = auth[len("Bearer "):]
+        if supplied and hmac.compare_digest(supplied, self.accesskey):
+            tok = secrets.token_urlsafe(32)
+            with self._lock:
+                for t in [t for t, exp in self._tokens.items()
+                          if now > exp]:
+                    del self._tokens[t]
+                while len(self._tokens) >= self.MAX_SESSIONS:
+                    self._tokens.pop(next(iter(self._tokens)))
+                self._tokens[tok] = now + self.TTL_SECONDS
+            attrs = "; HttpOnly; SameSite=Strict; Path=/"
+            if self.secure:
+                attrs += "; Secure"
+            return f"{self.cookie_name}={tok}{attrs}"
+        raise HTTPError(401, "Invalid accessKey.")
+
+
+def ssl_context_from(cert_path: Optional[str] = None,
+                     key_path: Optional[str] = None
+                     ) -> Optional[ssl.SSLContext]:
+    """A server TLS context from PEM files, else from ``PIO_SSL_CERT``
+    and ``PIO_SSL_KEY``; None where neither names a certificate."""
+    cert = cert_path or os.environ.get("PIO_SSL_CERT")
+    key = key_path or os.environ.get("PIO_SSL_KEY")
+    if not cert:
+        if key:
+            raise ValueError("SSL key configured without a certificate; "
+                             "set both or neither")
+        return None
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.load_cert_chain(cert, key or None)
+    return ctx
 
 
 Handler = Callable[[Request], Response]
@@ -158,11 +257,17 @@ class AppServer:
     """Owns a ``ThreadingHTTPServer`` for one :class:`HTTPApp`: serve in a
     background thread (``start_background``, tests and embedding) or on
     the calling thread (``serve_forever``, the CLI). ``port=0`` picks a
-    free port; read it back from :attr:`port`."""
+    free port; read it back from :attr:`port`. With ``ssl_context``
+    (:func:`ssl_context_from`) it serves HTTPS."""
 
-    def __init__(self, app: HTTPApp, host: str = "0.0.0.0", port: int = 0):
+    def __init__(self, app: HTTPApp, host: str = "0.0.0.0", port: int = 0,
+                 ssl_context: Optional[ssl.SSLContext] = None):
         handler = type("BoundHandler", (_Handler,), {"app": app})
         self.httpd = _AppHTTPServer((host, port), handler)
+        if ssl_context is not None:
+            self.httpd.socket = ssl_context.wrap_socket(
+                self.httpd.socket, server_side=True)
+        self.scheme = "https" if ssl_context is not None else "http"
         self.app = app
         self._thread: Optional[threading.Thread] = None
         self._on_close: List[Callable[[], None]] = []

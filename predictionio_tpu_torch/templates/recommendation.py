@@ -45,6 +45,7 @@ from ..models.als import (
     pack_ratings_cached,
     place_model,
     quantize_serving_model,
+    recommend_batch,
     recommend_batch_async,
     recommend_products,
     train_als,
@@ -215,6 +216,9 @@ class ALSAlgorithm(Algorithm):
     """Serves a trained explicit- or implicit-feedback ALS model."""
 
     query_class = Query
+    #: the kernel libraries serving launches on the card: a deploy loads
+    #: them at bind (``csrc/fused_topk.cu``)
+    serving_kernels = ("fused_topk",)
 
     def __init__(self, params: ALSParams = ALSParams()):
         self.params = params
@@ -254,6 +258,36 @@ class ALSAlgorithm(Algorithm):
         """Row-quantize the serving tables behind the NDCG@10 parity
         probe (auto-off keeps f32 where the ranking would suffer)."""
         return quantize_serving_model(model, quant)
+
+    def warm_serving(self, model: ALSModel, max_batch: int = 1) -> int:
+        """Run the serving ladder once before traffic, on the model's own
+        device: :func:`recommend_products` at each power-of-two k from 8
+        up to min(128, n_items), then :func:`recommend_batch` at each
+        power-of-two batch up to the power-of-two ceiling of
+        ``max_batch``, for each such k (the JAX package's ladder). On the
+        card every call launches ``fused_topk`` (k never passes its
+        limit of 128). Returns the number of calls."""
+        if model.user_ids is None or len(model.user_ids) == 0:
+            return 0
+        ks = []
+        k = 8
+        while k <= min(128, model.n_items):
+            ks.append(k)
+            k *= 2
+        ks = ks or [min(8, model.n_items)]
+        for k in ks:
+            recommend_products(model, 0, k)
+        calls = len(ks)
+        b = 1
+        top = max(max_batch, 1)
+        while True:
+            for k in ks:
+                recommend_batch(model, np.zeros(b, dtype=np.int64), k)
+            calls += len(ks)
+            if b >= top:  # b is the pow2 ceiling of max_batch
+                break
+            b *= 2
+        return calls
 
     def batch_predict_async(self, model: ALSModel, queries: Sequence[Query]
                             ) -> Callable[[], List[PredictedResult]]:

@@ -10,10 +10,10 @@ in the history are excluded from the results.
 Training runs ``models/seqrec.py::train_seqrec`` on the context's device
 (the card unless it names the CPU); serving scores a batch of histories
 with one ``recommend_next_batch`` on the bound model's device. The
-``SeqRecModel`` kind is registered with the model file. The JAX
-package's ``warm_serving`` (XLA compiles of the batch ladder) is not
-ported: nothing compiles here, and the port's engine server never calls
-it.
+``SeqRecModel`` kind is registered with the model file.
+:meth:`SeqRecAlgorithm.warm_serving` runs the batch ladder once at bind,
+as the JAX package's does, so the first query finds the card's
+allocator and the host's code paths warm.
 """
 
 from __future__ import annotations
@@ -263,6 +263,24 @@ class SeqRecAlgorithm(Algorithm):
             history = [ids[e.target_entity_id] for e in reversed(evs)
                        if e.target_entity_id in ids]
         return history
+
+    def warm_serving(self, model: SeqRecModel, max_batch: int = 1) -> int:
+        """Run :func:`recommend_next_batch` at each power-of-two batch up
+        to the power-of-two ceiling of ``max_batch``, on the weights'
+        device, before traffic (the JAX package's ladder; plain torch:
+        seqrec has no kernel of its own). Returns the number of calls."""
+        if model.n_items <= 0:
+            return 0
+        calls = 0
+        b = 1
+        top = max(max_batch, 1)
+        while True:
+            recommend_next_batch(model, [[0]] * b, k=10)
+            calls += 1
+            if b >= top:  # pow2 ceiling: the padded largest batch too
+                break
+            b *= 2
+        return calls
 
     def _results(self, model: SeqRecModel, query: Query, history,
                  idx, scores) -> PredictedResult:

@@ -441,6 +441,39 @@ def test_fold_in_events_matches_jax(shared_db, quant, implicit):
                                   host(pm.user_factors)[untouched])
 
 
+def test_two_stream_sessions_on_one_store_match_jax(shared_db):
+    """Two stream sessions on one store, each on a fresh bind of the same
+    instance: an item the first session inserted is unknown to the
+    second session's model, so both packages fold a later rating of its
+    user from the KNOWN items of the history alone, alike. A float64
+    check of that row must look up only the items the bound model knows
+    (``chip_smoke.py::f64_fold_check``); looking up every history item
+    raised KeyError on the new one."""
+    import chip_smoke
+
+    st, jst, app_id, t = shared_db
+    first = [_rate("u0", "i_new", 5.0, t),
+             _rate("u1", "i_new", 4.0, t + timedelta(seconds=1))]
+    second = [_rate("u0", "i3", 2.0, t + timedelta(seconds=2))]
+    outs = {}
+    for name, batch in (("first", first), ("second", second)):
+        st.events().insert_batch(batch, app_id)
+        jm, pm = both_models(n_users=30, n_items=30)  # a fresh bind
+        jout, jrep = jstream.fold_in_events(jm, _to_jax_events(batch),
+                                            jst, app_id)
+        pout, prep = fold_in_events(pm, batch, st, app_id)
+        assert (prep.items_inserted, prep.users_updated) \
+            == (jrep.items_inserted, jrep.users_updated)
+        np.testing.assert_allclose(host(pout.user_factors),
+                                   jhost(jout.user_factors), rtol=RTOL,
+                                   atol=ATOL)
+        outs[name] = pout
+    assert "i_new" in outs["first"].item_ids
+    assert "i_new" not in outs["second"].item_ids
+    worst = chip_smoke.f64_fold_check(st, app_id, outs["second"], ["u0"])
+    assert worst <= 1e-5
+
+
 def test_fold_in_events_idempotent_under_replay(shared_db):
     st, _, app_id, t = shared_db
     _, pm = both_models(n_users=30, n_items=30)
