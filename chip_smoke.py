@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
 lifecycle, batch-predict, evaluation, streaming fold-in, e-commerce,
-similar-product, sequential and classification template paths and the
-release lifecycle once on the CUDA card and check them.
+similar-product, sequential and classification template paths, the
+release lifecycle, the console and the telemetry once on the CUDA card and
+check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -57,6 +58,36 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             wait on the card), and the readback of a launch with a second
             queued behind it is timed both ways: copies queued at dispatch
             (the port's) and copies made when resolving.
+4b. telemetry — phase 4's tables behind a server with the JAX package's
+            telemetry defaults (tracing, hot keys 128) and the NaN/Inf
+            sentinel armed (``debug_numerics``): a burst of 2,048 queries
+            on 32 connections, every other one with a ``traceparent``,
+            every answer held to the plain top-k as in phase 4. Then
+            ``/metrics`` in text and OpenMetrics must parse line by line;
+            ``pio_query_latency_seconds_count`` and
+            ``pio_batch_occupancy_sum`` equal the answers; the burst's
+            ``pio_numerics_checks_total{entry="serve_topk"}`` equals its
+            ``fused_topk`` launches, with no nonfinite;
+            ``pio_device_hbm_bytes{stat="used"}`` is at least the bound
+            tables' bytes and within 64 MiB of
+            ``torch.cuda.memory_allocated()`` read beside it, ``limit`` the
+            card's total memory; every exemplar's trace resolves on
+            ``/trace.json?id=`` (or the ring evicted it); each query sent
+            with a ``traceparent`` kept its trace id; the slowest retained
+            queries' traces hold ``dispatch``, ``device_wait`` and
+            ``readback`` under their ``batch``. ``POST /profile``
+            (``durationMs`` 2000; a second one answers 409) during a second
+            burst: its ``trace.json`` must name the ``fused_topk`` scan and
+            merge kernels with device time. The first burst again, in
+            turns on that server and one with tracing, hot keys and the
+            sentinel off (on, off, on, off): the qps, p50 and p99 of each
+            run. Last, ``cli eventserver --stats`` as a
+            process: a segment.io webhook and a block of events counted by
+            ``/stats.json`` and by route on ``/metrics``, the process's pid
+            absent from ``nvidia-smi --query-compute-apps=pid`` after the
+            scrape and the count of listed contexts unchanged, exit 0 on
+            SIGINT. The launch counts are zeroed before
+            the first burst and read after the second.
 5. train-kernel — the MovieLens-20M surrogate
             (``benchmarks/ml20m_surrogate.py``, 20,000,263 ratings from
             ``--seed``) is packed as training packs it; ``fused_gram`` runs
@@ -218,7 +249,13 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             overlapped a garbage-collector pause, a served
             ``/queries.json`` or the first launch on the candidate, and
             the device and pinned-host allocator growth. A refused delta
-            fails the phase at once.
+            fails the phase at once. ``/metrics``' ``pio_stream_*`` samples
+            must equal the trainer's own counts. After the restart one
+            more burst of 48 events goes through ``/batch/events.json``
+            with a ``traceparent``: the event server stamps it into each
+            event, and the restarted trainer's pass over them must be
+            retained as that trace's ``stream.foldin`` (the caller's span
+            its parent) and launch ``fused_gram`` and ``chol_solve``.
 
 10. templates — the shipped e-commerce and similar-product variants
             (``examples/{ecommerce,similarproduct}/engine.json``, only the
@@ -336,8 +373,9 @@ before it counts or times its own work. Then a ``{"kernels": [...]}``
 line (time, bound, plain and library times, launches on the main path,
 in the batch-predict job for ``fused_topk``, in the serial eval run, on
 the stream path, in the implicit iteration, in the templates phase, in
-phases 6b, 11, 12 and 13 and, for ``fused_topk``, in phase 14's two
-deploys) and, last, ``{"ok": true, "device": {...}}``.
+phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
+and in phase 4b's counted bursts) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -351,13 +389,16 @@ import inspect
 import io
 import json
 import os
+import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -454,9 +495,11 @@ def kernel_ms(fn, reps: int, names: tuple) -> list:
     calls."""
     from torch.profiler import ProfilerActivity, profile
 
+    from predictionio_tpu_torch.obs.trace import profiler_held
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiler_held(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -713,11 +756,14 @@ BURST_MODES = ("staged", "serial", "staged")
 DIAG_SWITCH_INTERVAL_S = 0.0005
 
 
-def burst_clients(port: int, queries: list, n_clients: int) -> tuple:
+def burst_clients(port: int, queries: list, n_clients: int,
+                  traceparents=None) -> tuple:
     """The burst's load generator, run in a process of its own (standard
     library only, so it shares no interpreter lock with the server):
     ``n_clients`` connections, each posting its share of ``queries`` one
-    after another. Returns ``(wall_s, [(status, body, seconds), ...] in
+    after another, query ``j`` with the ``traceparent`` header
+    ``traceparents[j]`` where that is given and not None. Returns
+    ``(wall_s, [(status, body, seconds, response traceparent), ...] in
     query order, [errors])``."""
     import http.client
 
@@ -730,12 +776,16 @@ def burst_clients(port: int, queries: list, n_clients: int) -> tuple:
         try:
             gate.wait(timeout=60)
             for j in range(w, len(queries), n_clients):
+                headers = {"Content-Type": "application/json"}
+                if traceparents and traceparents[j]:
+                    headers["traceparent"] = traceparents[j]
                 t0 = time.perf_counter()
                 c.request("POST", "/queries.json", json.dumps(queries[j]),
-                          {"Content-Type": "application/json"})
+                          headers)
                 resp = c.getresponse()
                 body = resp.read().decode()
-                results[j] = (resp.status, body, time.perf_counter() - t0)
+                results[j] = (resp.status, body, time.perf_counter() - t0,
+                              resp.getheader("traceparent"))
         except Exception as e:  # noqa: BLE001 — reported to the parent
             errors.append(f"client {w}: {e!r}")
         finally:
@@ -762,14 +812,16 @@ json.dump(burst_clients(**json.load(sys.stdin)), sys.stdout)
 """
 
 
-def run_burst(port: int, queries: list) -> tuple:
+def run_burst(port: int, queries: list, traceparents=None) -> tuple:
     """The burst from another process, waited for whatever happens;
-    ``(wall_s, results)``."""
+    ``(wall_s, [(answer, seconds)])``, and with ``traceparents`` (one
+    header or None a query) also each answer's ``traceparent``."""
     src = BURST_MAIN.format(source=inspect.getsource(burst_clients))
     proc = subprocess.Popen([sys.executable, "-c", src],
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    args = dict(port=port, queries=queries, n_clients=BURST_CLIENTS)
+    args = dict(port=port, queries=queries, n_clients=BURST_CLIENTS,
+                traceparents=traceparents)
     try:
         out, err = proc.communicate(json.dumps(args), timeout=300)
     except subprocess.TimeoutExpired:
@@ -786,7 +838,10 @@ def run_burst(port: int, queries: list) -> tuple:
     check(all(r is not None for r in results), "a burst query got no answer")
     bad = [r[:2] for r in results if r[0] != 200]
     check(not bad, f"{len(bad)} burst queries failed: {bad[:3]}")
-    return wall, [(json.loads(r[1]), r[2]) for r in results]
+    answers = [(json.loads(r[1]), r[2]) for r in results]
+    if traceparents is None:
+        return wall, answers
+    return wall, answers, [r[3] for r in results]
 
 
 def check_burst(queries, answers, ud, us, vd, vs, U64, V64, dev) -> None:
@@ -1090,6 +1145,412 @@ def phase_slice(rng, U, V, dev) -> int:
           f"{np.percentile(lat1, 50):.3f} in-process QueryServer.query="
           f"{inproc_ms:.3f} recommend_products={model_ms:.3f}", flush=True)
     return launches
+
+# -- telemetry --------------------------------------------------------------
+
+#: the profiler window of the telemetry phase, and how far the card-memory
+#: gauge may read from ``torch.cuda.memory_allocated()`` beside it
+TELEMETRY_PROFILE_MS = 2000.0
+HBM_SLACK_BYTES = 64 << 20
+#: events of the traced event-server ingest (one webhook, one batch)
+TELEMETRY_BATCH_EVENTS = 40
+
+#: one exposition sample: name, {labels} (quoted values may hold any
+#: escaped character), value, and an OpenMetrics exemplar's trace id
+_SAMPLE_RE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+    r'(\{(?:[^"}]|"(?:[^"\\]|\\.)*")*\})? (\S+)'
+    r'(?: # \{trace_id="([0-9a-f]+)"\} \S+ \S+)?$')
+
+
+def scrape(port: int, openmetrics: bool = False) -> str:
+    headers = ({"Accept": "application/openmetrics-text"} if openmetrics
+               else {})
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/metrics",
+                                 headers=headers)
+    with _LOCAL.open(req, timeout=60) as resp:
+        return resp.read().decode()
+
+
+def parse_exposition(text: str, openmetrics: bool = False) -> tuple:
+    """A ``/metrics`` body as ``{name: {labels: value}}`` and the trace
+    ids of its exemplars; fails on a line the format does not allow."""
+    lines = text.splitlines()
+    if openmetrics:
+        check(bool(lines) and lines[-1] == "# EOF",
+              "the OpenMetrics exposition does not end with # EOF")
+        lines = lines[:-1]
+    samples, exemplars = {}, []
+    for ln in lines:
+        if ln.startswith(("# HELP ", "# TYPE ")):
+            continue
+        m = _SAMPLE_RE.match(ln)
+        check(m is not None, f"a /metrics line does not parse: {ln!r}")
+        name, labels, value, trace_id = m.groups()
+        check(openmetrics or trace_id is None,
+              f"an exemplar in the text format: {ln!r}")
+        samples.setdefault(name, {})[labels or ""] = float(value)
+        if trace_id:
+            exemplars.append(trace_id)
+    return samples, exemplars
+
+
+def http_status(port: int, method: str, path: str, body=None,
+                headers=None) -> tuple:
+    """``(status, JSON body, response headers)``, error statuses too."""
+    data = json.dumps(body).encode() if body is not None else (
+        b"" if method == "POST" else None)
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, method=method,
+                                 headers=headers or {})
+    try:
+        resp = _LOCAL.open(req, timeout=60)
+    except urllib.error.HTTPError as e:
+        resp = e
+    with resp:
+        return resp.status, json.loads(resp.read() or b"null"), \
+            dict(resp.headers)
+
+
+def burst_latency(results) -> tuple:
+    lat = np.array([t for _, t in results]) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def compute_pids() -> list:
+    """The pids ``nvidia-smi`` lists as holding a CUDA context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi: {out.stderr[-500:]}")
+    return [int(t) for t in out.stdout.split() if t.strip().isdigit()]
+
+
+def profiled_kernels(trace_path: Path) -> dict:
+    """``{kernel name: [launches, device ms]}`` from a capture's
+    ``trace.json`` (the chrome trace's ``kernel`` events)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            row = out.setdefault(ev["name"], [0, 0.0])
+            row[0] += 1
+            row[1] += float(ev.get("dur", 0.0)) / 1e3
+    return out
+
+
+def telemetry_eventserver(work: Path, card: dict) -> None:
+    """``cli eventserver --stats`` as a process of its own: a segment.io
+    webhook and a block of events, counted on ``/stats.json`` and by
+    route on ``/metrics``; after the scrape the process holds no CUDA
+    context (``nvidia-smi``); SIGINT ends it with exit 0."""
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+
+    root = Path(__file__).resolve().parent
+    home = work / "eventserver"
+    home.mkdir()
+    storage = Storage(env={"PIO_HOME": str(home)})
+    app_id = storage.apps().insert(App(0, "TeleApp", None))
+    storage.events().init(app_id)
+    storage.access_keys().insert(AccessKey("TELEKEY", app_id, ()))
+    storage.close()
+    env = dict(os.environ, PIO_HOME=str(home), PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    log = work / "eventserver.log"
+    # nvidia-smi may list pids of another namespace than this script's:
+    # the count of contexts must not grow either
+    contexts = compute_pids()
+    t0 = time.perf_counter()
+    proc = cli_process(["eventserver", "--stats", "--ip", "127.0.0.1",
+                        "--port", "0"], env, log)
+    try:
+        port = None
+        while port is None:
+            check(proc.poll() is None and time.perf_counter() - t0 < 120,
+                  f"cli eventserver did not start: {log.read_text()[-2000:]}")
+            for line in log.read_text().splitlines():
+                if " is listening at http://" in line:
+                    port = int(line.rsplit(":", 1)[1].rstrip("."))
+            time.sleep(0.01)
+        start_s = time.perf_counter() - t0
+        k = "?accessKey=TELEKEY"
+        status, body, _ = http_status(port, "POST",
+                                      f"/webhooks/segmentio.json{k}", {
+                                          "type": "track", "version": "2",
+                                          "user_id": "u1", "event": "signup",
+                                          "properties": {"plan": "pro"}})
+        check(status == 201, f"segment.io webhook: {status} {body}")
+        # no target entity, as the webhook's event: /stats.json (in both
+        # packages) fails on an app whose counts mix a target type and
+        # none (ROADMAP.md queue 3)
+        block = [{"event": "signup" if n % 2 else "visit",
+                  "entityType": "user", "entityId": f"u{n % 7}",
+                  "properties": {"plan": "pro"}}
+                 for n in range(TELEMETRY_BATCH_EVENTS)]
+        status, body, _ = http_status(port, "POST",
+                                      f"/batch/events.json{k}", block)
+        check(status == 200 and all(r["status"] == 201 for r in body),
+              f"batch ingest: {status} {body[:3]}")
+        _, stats, _ = http_status(port, "GET", f"/stats.json{k}")
+        n = TELEMETRY_BATCH_EVENTS + 1
+        check(sum(b["value"] for b in stats["basic"]) == n
+              and stats["statusCode"] == [{"key": 201, "value": n}],
+              f"/stats.json: {stats}")
+        t_scrape = time.perf_counter()
+        samples, _ = parse_exposition(scrape(port))
+        scrape_ms = (time.perf_counter() - t_scrape) * 1e3
+        ingested = samples.get("pio_events_ingested_total", {})
+        check(ingested == {'{route="batch"}': TELEMETRY_BATCH_EVENTS,
+                           '{route="webhook"}': 1.0},
+              f"pio_events_ingested_total: {ingested}")
+        check(samples["pio_stats_enabled"][""] == 1.0, "pio_stats_enabled")
+        check("pio_device_hbm_bytes" not in samples,
+              "the event server reports the card's memory")
+        pids = compute_pids()
+        check(proc.pid not in pids and len(pids) == len(contexts),
+              f"the event server (pid {proc.pid}) holds a CUDA context "
+              f"after a scrape: {contexts} -> {pids}")
+        proc.send_signal(signal.SIGINT)
+        rc = end_process(proc, 60)
+        check(rc == 0, f"cli eventserver exited {rc}: "
+              f"{log.read_text()[-1000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    print(f"phase telemetry eventserver: cli eventserver --stats up in "
+          f"{start_s:.3f}s, 1 segment.io webhook + {TELEMETRY_BATCH_EVENTS} "
+          f"batch events counted on /stats.json and pio_events_ingested_total"
+          f" by route, /metrics scrape {scrape_ms:.3f} ms | compute pids "
+          f"before the process {contexts}, after its scrape {pids} (this "
+          f"script {os.getpid()}"
+          f"{' listed' if os.getpid() in pids else ' not listed'}), the "
+          f"event server {proc.pid} not listed | exit on SIGINT 0 | "
+          f"{card_tag(card)}", flush=True)
+
+
+def phase_telemetry(rng, U, V, dev, card) -> dict:
+    """Observability on the card, over phase 4's tables (see the module's
+    docstring, phase 4b). Returns each kernel's launches in the counted
+    bursts."""
+    from predictionio_tpu_torch.models.als import _table_leaves
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.obs import numerics
+    from predictionio_tpu_torch.obs.trace import parse_traceparent
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy_models,
+    )
+    from predictionio_tpu_torch.templates.recommendation import (
+        recommendation_engine,
+    )
+
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="telemetry_", dir=scratch))
+    model = als_model_from_numpy(
+        U, V, N_USERS, N_ITEMS, {f"u{n}": n for n in range(N_USERS)},
+        {f"i{n}": n for n in range(N_ITEMS)}, {"rank": RANK}, device="cpu")
+    engine = recommendation_engine()
+    ep = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    burst = [{"user": f"u{u}", "num": 10}
+             for u in rng.integers(0, N_USERS, BURST_QUERIES)]
+    burst2 = [{"user": f"u{u}", "num": 10}
+              for u in rng.integers(0, N_USERS, BURST_QUERIES)]
+    sent = [f"00-{rng.bytes(16).hex()}-{rng.bytes(8).hex()}-01"
+            if j % 2 else None for j in range(len(burst))]
+    srv = deploy_models(engine, ep, [model], ServerConfig(
+        batching=True, serving_quant="int8", debug_numerics=True,
+        profile_dir=str(work / "profiles")),
+        host="127.0.0.1", port=0).start_background()
+    try:
+        warmed(srv)
+        port = srv.port
+        bound = srv.query_server.models[0]
+        ud, us = _table_leaves(bound.user_factors)
+        vd, vs = _table_leaves(bound.item_factors)
+        tables = (ud, us, vd, vs, ud.double() * us.double(),
+                  vd.double() * vs.double())
+        table_bytes = sum(t.numel() * t.element_size()
+                          for t in (ud, us, vd, vs))
+        before, _ = parse_exposition(scrape(port))
+        key = '{entry="serve_topk"}'
+        checks0 = before["pio_numerics_checks_total"].get(key, 0.0)
+
+        # -- the main path, counted --------------------------------------
+        zero_launch_counts()
+        wall, results, got = run_burst(port, burst, sent)
+        burst_launches = ft.LAUNCHES
+        text = scrape(port)
+        allocated = torch.cuda.memory_allocated(dev)
+        om = scrape(port, openmetrics=True)
+        status, info, _ = http_status(port, "POST", "/profile",
+                                      {"durationMs": TELEMETRY_PROFILE_MS})
+        check(status == 202, f"POST /profile: {status} {info}")
+        busy, _, _ = http_status(port, "POST", "/profile",
+                                 {"durationMs": 100})
+        check(busy == 409, f"a second POST /profile answered {busy}")
+        wall2, results2 = run_burst(port, burst2)
+        counted = launch_counts()
+        # ------------------------------------------------------------------
+
+        check_burst(burst, [a for a, _ in results], *tables, dev)
+        check_burst(burst2, [a for a, _ in results2], *tables, dev)
+        check(counted["fused_topk"] > burst_launches > 0,
+              f"the bursts launched fused_topk {counted['fused_topk']} "
+              f"times ({burst_launches} in the first)")
+        samples, _ = parse_exposition(text)
+        om_samples, exemplars = parse_exposition(om, openmetrics=True)
+        n = len(burst)
+        check(samples["pio_query_latency_seconds_count"][""] == n,
+              f"pio_query_latency_seconds_count "
+              f"{samples['pio_query_latency_seconds_count']} for {n} answers")
+        check(samples["pio_batch_occupancy_sum"][""] == n,
+              f"pio_batch_occupancy_sum {samples['pio_batch_occupancy_sum']}")
+        checks = samples["pio_numerics_checks_total"][key] - checks0
+        check(checks == burst_launches,
+              f"{checks} serve_topk checks for {burst_launches} fused_topk "
+              f"launches")
+        check(not any(samples.get("pio_numerics_nonfinite_total",
+                                  {}).values()), "a nonfinite score")
+        hbm = {lab: v for lab, v in samples["pio_device_hbm_bytes"].items()
+               if f'device="cuda:{dev.index}"' in lab}
+        used = next(v for lab, v in hbm.items() if 'stat="used"' in lab)
+        limit = next(v for lab, v in hbm.items() if 'stat="limit"' in lab)
+        total = torch.cuda.get_device_properties(dev).total_memory
+        check(used >= table_bytes, f"pio_device_hbm_bytes used {used:.0f} "
+              f"below the bound tables' {table_bytes} bytes")
+        check(abs(used - allocated) <= HBM_SLACK_BYTES,
+              f"pio_device_hbm_bytes used {used:.0f} against "
+              f"memory_allocated {allocated}")
+        check(limit == total, f"pio_device_hbm_bytes limit {limit:.0f} "
+              f"against total_memory {total}")
+        check(set(om_samples) == set(samples) and bool(exemplars),
+              f"the OpenMetrics exposition: samples "
+              f"{sorted(set(om_samples) ^ set(samples))} differ, "
+              f"{len(exemplars)} exemplars")
+        resolved = [http_status(port, "GET", f"/trace.json?id={t}")[0]
+                    for t in sorted(set(exemplars))]
+        _, rec, _ = http_status(port, "GET", "/trace.json")
+        missing = sum(s != 200 for s in resolved)
+        check(missing <= rec["evicted"],
+              f"{missing} exemplars name traces the ring never evicted")
+        kept = [parse_traceparent(g)[0] == s.split("-")[1]
+                for s, g in zip(sent, got) if s]
+        check(all(kept), f"{kept.count(False)} queries sent with a "
+              f"traceparent lost their trace id")
+        _, slow, _ = http_status(port, "GET", "/trace.json?slowest=8")
+        spans_seen = []
+        for t in slow["traces"]:
+            if t["name"] != "POST /queries.json":
+                continue
+            _, tr, _ = http_status(port, "GET",
+                                   f"/trace.json?id={t['traceId']}")
+            spans = {e["name"]: e["args"] for e in tr["traceEvents"][1:]}
+            batch = spans.get("batch")
+            check(batch is not None and all(
+                spans.get(name, {}).get("parentId") == batch["spanId"]
+                for name in ("dispatch", "device_wait", "readback")),
+                f"trace {t['traceId']}: spans {sorted(spans)}")
+            spans_seen.append(t["durationMs"])
+        check(bool(spans_seen), "no /queries.json trace among the slowest")
+
+        # the capture: wait for the window to end, then read its kernels
+        deadline = time.perf_counter() + 120
+        while True:
+            _, prof, _ = http_status(port, "GET", "/profile.json")
+            done = [h for h in prof["history"] if h["dir"] == info["dir"]]
+            if done:
+                break
+            check(time.perf_counter() < deadline, "the capture never ended")
+            time.sleep(0.05)
+        check("error" not in done[0], f"the capture failed: {done[0]}")
+        trace_path = Path(info["dir"]) / "trace.json"
+        kernels = profiled_kernels(trace_path)
+        scan = [v for k, v in kernels.items() if "fused_topk_kernel" in k]
+        merge = [v for k, v in kernels.items() if "merge_topk_kernel" in k]
+        check(bool(scan) and bool(merge) and all(
+            c > 0 and ms > 0 for c, ms in scan + merge),
+            f"the capture names no fused_topk scan and merge kernels with "
+            f"device time: {sorted(kernels)[:12]}")
+        # the scrapes before the burst's: their mean render time
+        render_ms = (samples["pio_metrics_render_seconds_sum"][
+            '{format="text"}'] / samples["pio_metrics_render_seconds_count"][
+            '{format="text"}'] * 1e3)
+        status_json = _http(port, "GET", "/status.json")[1]
+        # what the telemetry costs: the first burst again, on a server
+        # with tracing, hot keys and the sentinel off, in turns with this
+        # one (off, on, off). The sentinel is process-wide: it is armed
+        # for this server's bursts only
+        numerics.disable()
+        off = deploy_models(engine, ep, [model], ServerConfig(
+            batching=True, serving_quant="int8", tracing=False,
+            hot_keys_k=0), host="127.0.0.1", port=0).start_background()
+        runs = {"on": [(wall, results)], "off": []}
+        try:
+            warmed(off)
+            for arm in ("off", "on", "off"):
+                if arm == "on":
+                    numerics.enable()
+                runs[arm].append(run_burst(
+                    port if arm == "on" else off.port, burst, sent)[:2])
+                numerics.disable()
+        finally:
+            off.close()
+    finally:
+        srv.close()
+        numerics.disable()  # later phases run as they did without it
+    for arm_runs in runs.values():
+        for _, res in arm_runs:
+            check_burst(burst, [a for a, _ in res], *tables, dev)
+    telemetry_eventserver(work, card)
+    shutil.rmtree(work, ignore_errors=True)
+
+    def arm_line(arm: str) -> str:
+        return " ".join(
+            f"run {k + 1} qps={n / w:.1f} p50_ms={burst_latency(r)[0]:.3f} "
+            f"p99_ms={burst_latency(r)[1]:.3f}"
+            for k, (w, r) in enumerate(runs[arm]))
+
+    qps = {arm: float(np.median([n / w for w, _ in runs[arm]]))
+           for arm in runs}
+    scan_n, scan_ms = (sum(c for c, _ in scan), sum(m for _, m in scan))
+    merge_n, merge_ms = (sum(c for c, _ in merge), sum(m for _, m in merge))
+    print(f"phase telemetry: burst of {n} queries x {BURST_CLIENTS} "
+          f"connections, every other one with a traceparent, in turns on "
+          f"two servers (on, off, on, off) | on (JAX defaults: tracing, "
+          f"hot keys 128; debug_numerics): {arm_line('on')} | off "
+          f"(tracing, hot keys and the sentinel off): {arm_line('off')} | "
+          f"median qps on/off {qps['on'] / qps['off']:.4f} | "
+          f"{card_tag(card)}", flush=True)
+    print(f"phase telemetry metrics: pio_query_latency_seconds_count={n:.0f}"
+          f" pio_batch_occupancy_sum={n:.0f} serve_topk checks={checks:.0f}"
+          f" = fused_topk launches={burst_launches} | "
+          f"pio_device_hbm_bytes used={used:.0f} (memory_allocated "
+          f"{allocated}, bound tables {table_bytes}) limit={limit:.0f} | "
+          f"{len(set(exemplars))} exemplars, {len(resolved) - missing} "
+          f"resolve on /trace.json (ring {rec['retained']}/"
+          f"{rec['ringCapacity']}, evicted {rec['evicted']}, slow threshold "
+          f"{rec['slowThresholdMs']} ms) | {len(spans_seen)} of the 8 "
+          f"slowest are queries with batch > dispatch, device_wait, "
+          f"readback spans ({spans_seen[0]} ms the slowest) | "
+          f"{sum(kept)} traceparents kept | /metrics text render "
+          f"{render_ms:.4f} ms mean | hotKeys top "
+          f"{status_json['hotKeys']['top'][:1]}", flush=True)
+    print(f"phase telemetry profile: POST /profile durationMs="
+          f"{TELEMETRY_PROFILE_MS:.0f} during a second burst "
+          f"(qps={len(burst2) / wall2:.1f}), a second POST 409 | "
+          f"trace.json {trace_path.name} "
+          f"fused_topk_kernel launches={scan_n} device_ms={scan_ms:.3f} "
+          f"merge_topk_kernel launches={merge_n} device_ms={merge_ms:.3f} | "
+          f"{len(kernels)} kernel names in the window | {card_tag(card)}",
+          flush=True)
+    return counted
+
 
 # -- training ---------------------------------------------------------------
 
@@ -1670,9 +2131,12 @@ def profile_device(label: str, fn) -> tuple:
     wall time. Returns ``fn``'s result and the breakdown."""
     from torch.profiler import ProfilerActivity, profile
 
+    from predictionio_tpu_torch.obs.trace import profiler_held
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # held for the window: a server's POST /profile meanwhile answers 409
+    with profiler_held(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -2688,10 +3152,10 @@ class CanaryProbeLog:
                                verdict, a1[0] - a0[0], a1[1] - a0[1]))
             return verdict
 
-        def timed_serve(body):
+        def timed_serve(body, **kw):
             t0 = time.perf_counter()
             try:
-                return serve(body)
+                return serve(body, **kw)
             finally:
                 self.served.append((t0, time.perf_counter()))
 
@@ -2756,6 +3220,68 @@ class CanaryProbeLog:
                 + " / ".join(sample(c) for c in worst["cand"])
                 + f" | device segments allocated +{dseg}, pinned host "
                 f"blocks allocated +{dhost}")
+
+
+#: events of the stream phase's traced burst (one /batch/events.json)
+STREAM_TRACED_EVENTS = 48
+
+
+def stream_traced_burst(ev_port: int, srv, q: str, users: list) -> str:
+    """One burst through ``/batch/events.json`` with a ``traceparent``:
+    the event server stamps the caller's context into each event, and the
+    restarted trainer's pass over them must be retained as that trace's
+    ``stream.foldin`` (parent: the caller's span) and launch
+    ``fused_gram`` and ``chol_solve``. The stamp is the ingest request's
+    own context (the caller's trace id, the request's span), so the pass's
+    parent is the ingest request's span. Returns the line's summary."""
+    from predictionio_tpu_torch.data.event import from_millis, isoformat_millis
+    from predictionio_tpu_torch.obs.trace import parse_traceparent
+
+    rng = np.random.default_rng(len(users))
+    tp = f"00-{rng.bytes(16).hex()}-{rng.bytes(8).hex()}-01"
+    trace_id = parse_traceparent(tp)[0]
+    qs = srv.query_server
+    model = qs.models[0]
+    items = [k for k, _ in model.item_ids.items()]
+    now_ms = int(time.time() * 1000)  # after every event consumed so far
+    block = [{"event": "rate", "entityType": "user",
+              "entityId": users[n % 4], "targetEntityType": "item",
+              "targetEntityId": items[int(rng.integers(0, len(items)))],
+              "properties": {"rating": float(rng.integers(1, 6))},
+              "eventTime": isoformat_millis(from_millis(now_ms + n))}
+             for n in range(STREAM_TRACED_EVENTS)]
+    trainer = qs.stream
+    applies0 = trainer.applies + trainer.rejects
+    before = launch_counts()
+    status, body, headers = http_status(
+        ev_port, "POST", f"/batch/events.json{q}", block,
+        {"traceparent": tp})
+    check(status == 200 and all(r["status"] == 201 for r in body),
+          f"the traced burst: {status} {body[:3]}")
+    ingest_trace, parent = parse_traceparent(headers["traceparent"])
+    check(ingest_trace == trace_id, "the ingest did not join the trace")
+    deadline = time.perf_counter() + 120
+    while trainer.applies + trainer.rejects == applies0:
+        check(time.perf_counter() < deadline,
+              "the traced burst was never folded")
+        time.sleep(0.02)
+    after = launch_counts()
+    trace = qs.tracer.recorder.get(trace_id)
+    check(trace is not None and trace.name == "stream.foldin"
+          and trace.parent_span_id == parent
+          and trace.retained_reason == "stream",
+          f"the traced burst's pass was not retained as {trace_id}'s "
+          f"stream.foldin: {trace and trace.summary()}")
+    launched = {k: after[k] - before[k] for k in after}
+    check(launched["fused_gram"] > 0 and launched["chol_solve"] > 0,
+          f"the traced pass launched {launched}")
+    return (f"traced burst of {STREAM_TRACED_EVENTS} through "
+            f"/batch/events.json: stream.foldin {trace_id} retained "
+            f"(parent {parent}, outcome {trace.attrs.get('outcome')}, "
+            f"{trace.summary()['durationMs']} ms, spans "
+            f"{[s.name for s in trace.spans]}), its pass launched "
+            f"fused_gram={launched['fused_gram']} chol_solve="
+            f"{launched['chol_solve']}")
 
 
 def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
@@ -2959,6 +3485,26 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
               f"/stream.json: applies={st['applies']} canaryRejects="
               f"{st['canaryRejects']} cursorLag={st['cursorLag']}")
         lineage = st["lineage"]
+        # the pio_stream_* families hold the trainer's own counts
+        fam, _ = parse_exposition(scrape(srv.port))
+        want = {
+            "pio_stream_applies_total": {"": trainer.applies},
+            "pio_stream_events_consumed_total": {
+                "": trainer.events_consumed},
+            "pio_stream_rows_updated_total": {
+                '{kind="updated"}': STREAM_BURSTS * STREAM_USERS,
+                '{kind="user_cold"}': STREAM_BURSTS * STREAM_COLD,
+                '{kind="item_cold"}': STREAM_BURSTS * STREAM_NEW_ITEMS},
+            "pio_stream_cursor_lag": {"": st["cursorLag"]},
+            "pio_stream_running": {"": 1.0},
+            "pio_stream_foldin_seconds_count": {"": trainer.applies},
+            "pio_stream_freshness_seconds_count": {
+                "": trainer.events_consumed}}
+        for name, value in want.items():
+            check(fam.get(name) == value,
+                  f"{name} {fam.get(name)} against the trainer's {value}")
+        check(not any(fam.get("pio_stream_canary_rejects_total",
+                              {}).values()), "pio_stream_canary_rejects")
         check(_http(srv.port, "POST", "/stream/stop")[0] == 200,
               "/stream/stop refused")
         status, _ = _http(srv.port, "POST", "/stream/start",
@@ -2972,6 +3518,7 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
               == STREAM_BURSTS * len(bursts[0][0]),
               f"a restart with the same consumer consumed "
               f"{again['eventsConsumed']} events")
+        traced = stream_traced_burst(evs.port, srv, q, touched)
         srv.close()
         evs.close()
         alive = [th.name for th in threading.enumerate()
@@ -2991,7 +3538,8 @@ def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
               f"same consumer consumed 0 | launches on the stream path "
               f"fused_gram={stream_l['fused_gram']} chol_solve="
               f"{stream_l['chol_solve']} fused_topk={stream_l['fused_topk']}"
-              f" gram_table={stream_l['gram_table']}", flush=True)
+              f" gram_table={stream_l['gram_table']} | pio_stream_* equal "
+              f"to the trainer's counts | {traced}", flush=True)
         return stream_l
     finally:
         for name, fn in wrapped.items():
@@ -4207,10 +4755,10 @@ class ArmLaunches:
                     self.events.append((e0, e1))
             return out
 
-        def query_candidate(query_json):
+        def query_candidate(query_json, **kw):
             local.candidate = True
             try:
-                return real_qc(query_json)
+                return real_qc(query_json, **kw)
             finally:
                 local.candidate = False
 
@@ -4962,6 +5510,8 @@ def main(argv=None) -> int:
         row = phase_kernel(rng, U, V, dev)
     with phase("slice"):
         launches = phase_slice(rng, U, V, dev)
+    with phase("telemetry"):
+        telemetry_l = phase_telemetry(rng, U, V, dev, card)
     del U, V
     from predictionio_tpu_torch.models import als
 
@@ -5033,7 +5583,8 @@ def main(argv=None) -> int:
     # templates score on the host: fused_topk 0); sequential_launches,
     # sequential_pio_launches, classification_launches: the new phases'
     # (no TPU kernel is on their paths: each reads 0); release_launches:
-    # the release phase's (two trainings, then both arms' serving)
+    # the release phase's (two trainings, then both arms' serving);
+    # telemetry_launches: the telemetry phase's two counted bursts
     implicit_l = implicit["launches"]
     kernels = [
         dict(name="fused_topk", route="cuda",
@@ -5048,7 +5599,8 @@ def main(argv=None) -> int:
              sequential_pio_launches=seq_pio_l["fused_topk"],
              classification_launches=cls_l["fused_topk"],
              release_launches=rel_l["fused_topk"],
-             console_launches=console_l["fused_topk"], **row),
+             console_launches=console_l["fused_topk"],
+             telemetry_launches=telemetry_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -5060,7 +5612,8 @@ def main(argv=None) -> int:
              sequential_launches=seq_l["fused_gram"],
              sequential_pio_launches=seq_pio_l["fused_gram"],
              classification_launches=cls_l["fused_gram"],
-             release_launches=rel_l["fused_gram"], **gram_row),
+             release_launches=rel_l["fused_gram"],
+             telemetry_launches=telemetry_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -5072,7 +5625,8 @@ def main(argv=None) -> int:
              sequential_launches=seq_l["chol_solve"],
              sequential_pio_launches=seq_pio_l["chol_solve"],
              classification_launches=cls_l["chol_solve"],
-             release_launches=rel_l["chol_solve"], **solve_row),
+             release_launches=rel_l["chol_solve"],
+             telemetry_launches=telemetry_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -5084,7 +5638,8 @@ def main(argv=None) -> int:
              sequential_launches=seq_l["gram_table"],
              sequential_pio_launches=seq_pio_l["gram_table"],
              classification_launches=cls_l["gram_table"],
-             release_launches=rel_l["gram_table"], **table_row),
+             release_launches=rel_l["gram_table"],
+             telemetry_launches=telemetry_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

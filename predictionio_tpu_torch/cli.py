@@ -5,7 +5,7 @@
         data-delete|channel-new|channel-delete MyApp1 [...] [-f]
     python -m predictionio_tpu_torch.cli accesskey new|list|delete ...
     python -m predictionio_tpu_torch.cli eventserver|adminserver|dashboard \\
-        [--ip IP] [--port N] [--cert PEM --key PEM]
+        [--ip IP] [--port N] [--cert PEM --key PEM] [--stats]
     python -m predictionio_tpu_torch.cli start-all|stop-all [--pid-dir D]
     python -m predictionio_tpu_torch.cli import|export --app MyApp1 \\
         --input|--output ev.jsonl [--channel C]
@@ -16,6 +16,8 @@
         --port 8000 [--artifact-dir D] [--serving-quant int8] [--batching] \\
         [--max-batch 128] [--model FILE] [--pipeline staged|serial] \\
         [--queue-deadline-ms 30000] [--stream --stream-app MyApp1] \\
+        [--no-trace] [--trace-ring 512] [--trace-slow-ms 0] \\
+        [--access-log-sample 1.0] [--profile-dir D] [--hot-keys-k 128] \\
         [--cert PEM --key PEM]
     python -m predictionio_tpu_torch.cli batchpredict \\
         --engine-json engine.json --input q.jsonl --output out.jsonl
@@ -24,6 +26,8 @@
     python -m predictionio_tpu_torch.cli stream status|start|stop \\
         [--port 8000] [--app MyApp1]
     python -m predictionio_tpu_torch.cli undeploy [--port 8000]
+    python -m predictionio_tpu_torch.cli trace [--port 8000] \\
+        [--id TRACE_ID [-o FILE] | --slowest N]
     python -m predictionio_tpu_torch.cli release list
     python -m predictionio_tpu_torch.cli release show|pin|status|canary|\\
         promote|rollback --engine-id ID --engine-json engine.json ...
@@ -64,14 +68,23 @@ the server is unreachable); as in the JAX package its engine triple is
 and the ``--engine-json`` path. ``start-all`` runs the event server, the
 admin server and the dashboard as daemons with pidfiles; ``stop-all``
 stops them. ``--https`` (and ``--insecure``) reach a server deployed
-with ``--cert``/``--key``.
+with ``--cert``/``--key``. ``trace`` reads a running engine server's
+flight recorder: its status, the N slowest retained traces, or one trace
+written as Chrome/Perfetto trace-event JSON. ``eventserver --stats``
+keeps the per-app ``/stats.json`` counts. A deployed server traces every
+request (``--no-trace`` turns that off; ``--trace-ring``,
+``--trace-slow-ms`` size and tune the recorder), writes
+``--access-log-sample`` of its successful requests to the access log,
+keeps ``POST /profile`` captures under ``--profile-dir`` and tracks the
+``--hot-keys-k`` hottest users; ``PTPU_DEBUG_NUMERICS=1`` arms the NaN/Inf
+sentinels.
 
 An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
 Left out (``ROADMAP.md`` queue 1): ``storageserver`` (item 12),
-``cache`` (item 8), ``slo`` and fleets (item 14), ``trace`` (item 10),
+``cache`` (item 8), ``slo``, fleets and ``deploy --slo-*`` (item 14),
 ``check`` and ``audit-*`` (item 15).
 """
 
@@ -318,10 +331,10 @@ def _ssl(args):
 def build_eventserver(args, storage: Storage) -> AppServer:
     """The event server the eventserver command would serve, not yet
     serving."""
-    from .server.eventserver import build_app
+    from .server.eventserver import create_event_server
 
-    return AppServer(build_app(storage), args.ip, args.port,
-                     ssl_context=_ssl(args))
+    return create_event_server(storage, args.ip, args.port,
+                               stats=args.stats, ssl_context=_ssl(args))
 
 
 def build_adminserver(args, storage: Storage) -> AppServer:
@@ -468,7 +481,13 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                           stream_consumer=args.stream_consumer,
                           stream_drift_threshold=args.stream_drift_threshold,
                           stream_canary_probes=args.stream_canary_probes,
-                          artifact_dir=args.artifact_dir or None)
+                          artifact_dir=args.artifact_dir or None,
+                          tracing=not args.no_trace,
+                          trace_ring=args.trace_ring,
+                          trace_slow_ms=args.trace_slow_ms,
+                          access_log_sample=args.access_log_sample,
+                          profile_dir=args.profile_dir or None,
+                          hot_keys_k=args.hot_keys_k)
     ssl_ctx = _ssl(args)
     if args.model:
         from .workflow.persistence import loads_models
@@ -602,6 +621,51 @@ def cmd_stream(args) -> int:
         _out(payload.get("message", "Stopped."))
         _out("The durable cursor keeps its position; a later start with "
              "the same consumer resumes there.")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Read a running engine server's flight recorder: its status, the N
+    slowest retained traces, or one trace written as Chrome/Perfetto
+    trace-event JSON (load the file at ui.perfetto.dev)."""
+    if args.id:
+        path = f"/trace.json?id={args.id}"
+    elif args.slowest is not None:
+        path = f"/trace.json?slowest={args.slowest}"
+    else:
+        path = "/trace.json"
+    try:
+        payload = _server_call(args, path) or {}
+    except (OSError, ValueError) as e:
+        _err(f"server at {args.ip}:{args.port} unreachable: "
+             f"{_call_error(e)}")
+        return 1
+    if args.id:
+        out_path = args.output or f"trace-{args.id[:12]}.json"
+        with open(out_path, "w", encoding="utf-8") as f:
+            json.dump(payload, f)
+        n = len(payload.get("traceEvents") or [])
+        _out(f"Wrote {n} trace events to {out_path}; load it at "
+             f"https://ui.perfetto.dev (or chrome://tracing).")
+        return 0
+    if args.slowest is not None:
+        traces = payload.get("traces") or []
+        if not traces:
+            _out("No retained traces yet (only slow, failed, shed and "
+                 "stream traces are kept).")
+            return 0
+        for t in traces:
+            _out(f"{t.get('traceId')}  {t.get('durationMs', '?')}ms  "
+                 f"status={t.get('status')}  reason={t.get('reason')}  "
+                 f"{t.get('name', '')}")
+        _out(f"Export one: trace --id {traces[0]['traceId']}")
+        return 0
+    _out(json.dumps(payload, indent=2))
+    _out(f"flight recorder: {payload.get('retained', 0)}/"
+         f"{payload.get('ringCapacity', '?')} retained of "
+         f"{payload.get('requests', 0)} traced requests"
+         + (f", slow ≥ {payload['slowThresholdMs']}ms"
+            if payload.get("slowThresholdMs") is not None else ""))
     return 0
 
 
@@ -994,8 +1058,10 @@ def cmd_stop_all(args, storage: Storage) -> int:
     return 0
 
 
-def _serve(srv: AppServer, what: str, args) -> int:
+def _serve(srv: AppServer, what: str, args, note: str = "") -> int:
     _out(f"{what} is listening at {srv.scheme}://{args.ip}:{srv.port}.")
+    if note:
+        _out(note)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:
@@ -1068,6 +1134,10 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--port", type=int, default=port)
         if name != "eventserver":
             s.add_argument("--accesskey", default="")
+        else:
+            s.add_argument("--stats", action="store_true",
+                           help="keep per-app ingest counts on "
+                                "/stats.json")
         tls_flags(s)
 
     s = sub.add_parser("start-all", help="start the event server, admin "
@@ -1222,6 +1292,27 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--stream-canary-probes", type=int, default=8,
                        help="touched-user probes gating each fold-in (0 "
                             "disables the gate)")
+        s.add_argument("--no-trace", action="store_true",
+                       help="trace no request (every request is traced "
+                            "by default; only slow, failed and shed "
+                            "traces are kept)")
+        s.add_argument("--trace-ring", type=int, default=512,
+                       help="retained traces the flight recorder holds "
+                            "(oldest evicted)")
+        s.add_argument("--trace-slow-ms", type=float, default=0.0,
+                       help="fixed slow-retention threshold in ms; 0 = "
+                            "adaptive (the live p99 of traced requests)")
+        s.add_argument("--access-log-sample", type=float, default=1.0,
+                       help="share of successful requests written to the "
+                            "JSON access log (errors and 503s always)")
+        s.add_argument("--profile-dir", default="",
+                       help="where POST /profile writes its captures "
+                            "(default $PTPU_PROFILE_DIR or "
+                            "<tmp>/ptpu-profiles)")
+        s.add_argument("--hot-keys-k", type=int, default=128,
+                       help="Space-Saving hot-key sketch capacity "
+                            "(pio_hot_keys, /status.json hotKeys); 0 "
+                            "disables it")
 
     s = sub.add_parser("eval", help="run an evaluation")
     s.add_argument("evaluation", help="module.path:evaluation_object")
@@ -1257,6 +1348,22 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--ip", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
     client_tls_flags(s)
+
+    s = sub.add_parser("trace", help="a running engine server's flight "
+                                     "recorder: status, the slowest "
+                                     "retained traces, or one as Perfetto "
+                                     "JSON")
+    s.add_argument("--ip", default="127.0.0.1")
+    s.add_argument("--port", type=int, default=8000)
+    client_tls_flags(s)
+    s.add_argument("--id", default="",
+                   help="write this retained trace as Chrome/Perfetto "
+                        "trace-event JSON")
+    s.add_argument("--slowest", type=int, default=None,
+                   help="list the N slowest retained traces")
+    s.add_argument("-o", "--output", default="",
+                   help="output file for --id (default "
+                        "trace-<id>.json)")
 
     s = sub.add_parser("release", help="list, show and pin releases; drive "
                                        "a server's canary, promote and "
@@ -1348,12 +1455,18 @@ def main(argv: Optional[List[str]] = None,
         return 0
     if args.command == "stream":
         return cmd_stream(args)
+    if args.command == "trace":
+        return cmd_trace(args)
     storage = storage if storage is not None else get_storage()
     if args.command in COMMANDS:
         return COMMANDS[args.command](args, storage)
     if args.command in SERVERS:
         build, what = SERVERS[args.command]
-        return _serve(build(args, storage), what, args)
+        note = ("Per-app /stats.json is OFF (enable with --stats); "
+                "aggregate telemetry is always on at /metrics."
+                if args.command == "eventserver" and not args.stats
+                else "")
+        return _serve(build(args, storage), what, args, note)
     srv = build_deploy(args, storage)
     return _serve(srv, f"Engine server ({srv.app.name})", args)
 

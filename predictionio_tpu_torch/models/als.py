@@ -45,6 +45,7 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..obs import numerics as _numerics
 from ..ops.fused_gram import FUSED_GRAM_MAX_RANK, fused_gram
 from ..ops.fused_topk import TOPK_MAX_K, fused_topk, fused_topk_reference
 from ..ops.gram import gram_dispatch
@@ -358,20 +359,28 @@ def _dispatch_topk_chunk(model: ALSModel, user_indices: np.ndarray, k: int
     scores, ids = _device_topk(model.user_factors, model.item_factors,
                                user_indices, k_dev, model.n_items)
     if not scores.is_cuda:
-        return lambda: (ids[:, :kk].numpy().astype(np.int64),
-                        scores[:, :kk].numpy())
-    ids_h = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-    scores_h = torch.empty(scores.shape, dtype=scores.dtype,
-                           pin_memory=True)
-    ids_h.copy_(ids, non_blocking=True)
-    scores_h.copy_(scores, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(scores.device))
+        ids_h, scores_h, done = ids, scores, None
+    else:
+        ids_h = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+        scores_h = torch.empty(scores.shape, dtype=scores.dtype,
+                               pin_memory=True)
+        ids_h.copy_(ids, non_blocking=True)
+        scores_h.copy_(scores, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(scores.device))
 
     def resolve() -> Tuple[np.ndarray, np.ndarray]:
-        done.synchronize()
+        if done is not None:
+            done.synchronize()
+        s_h = scores_h.numpy()
+        if _numerics.active():
+            # debug_numerics: a NaN probe of the served scores' host copy
+            # (the JAX package's "serve_topk" seam); nan_only because
+            # padded slots legitimately score -inf. Here, never in the
+            # dispatch half, which must not wait on the card
+            _numerics.check_array("serve_topk", s_h, nan_only=True)
         return (ids_h.numpy()[:, :kk].astype(np.int64),
-                scores_h.numpy()[:, :kk].copy())
+                s_h[:, :kk].copy())
 
     return resolve
 
@@ -875,10 +884,13 @@ def fold_in_rows(fixed: Table, indices: np.ndarray, values: np.ndarray,
     if implicit and G is None:
         G = gramian(table)
     gsrc = table.bfloat16() if params.gather_dtype == "bfloat16" else table
-    new = _update_block(gsrc, G, idx, val, cnt, params.reg, params.alpha,
-                        implicit, params.scale_reg_by_count,
-                        bf16=params.matmul_dtype == "bfloat16",
-                        gram=params.gram_mode)
+    # debug_numerics sweeps the solved rows on their device (a NaN is
+    # attributed HERE, before a hot-swap can poison the serving table); a
+    # pass-through one bool check when off
+    new = _numerics.checked_call(
+        "fold_in_rows", _update_block, gsrc, G, idx, val, cnt, params.reg,
+        params.alpha, implicit, params.scale_reg_by_count,
+        bf16=params.matmul_dtype == "bfloat16", gram=params.gram_mode)
     return new.cpu().numpy().astype(np.float32, copy=False)
 
 

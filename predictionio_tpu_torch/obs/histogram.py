@@ -4,16 +4,19 @@ port's own copy of ``predictionio_tpu/obs/histogram.py``).
 ``record`` is one bisect plus one increment, memory is ``len(bounds) + 1``
 integers forever, and p50/p90/p99/max are derived at read time by linear
 interpolation inside the target bucket (the estimator Prometheus'
-``histogram_quantile`` applies to the scraped cumulative buckets).
+``histogram_quantile`` applies to the scraped cumulative buckets). A
+bucket may carry an OpenMetrics exemplar: the trace id, value and time of
+the last retained trace that landed in it.
 
-Left out (``ROADMAP.md`` queue 1 items 10 and 14): exemplars, and the
-fleet's ``from_buckets`` / ``merge``.
+Left out (``ROADMAP.md`` queue 1 item 14): the fleet's ``from_buckets``
+and ``merge``.
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import time
 from bisect import bisect_left
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,6 +40,11 @@ def linear_bounds(start: float, width: float, count: int) -> List[float]:
 DEFAULT_LATENCY_BOUNDS: Tuple[float, ...] = tuple(
     exponential_bounds(0.0001, 2.0, 21))
 
+#: Small-integer buckets (batch occupancy, queue depth): the pow2 ladder
+#: 1..1024 of the micro-batcher's batch sizes.
+POW2_COUNT_BOUNDS: Tuple[float, ...] = tuple(
+    float(1 << i) for i in range(11))
+
 
 class StreamingHistogram:
     """Thread-safe fixed-bucket histogram.
@@ -46,7 +54,7 @@ class StreamingHistogram:
     """
 
     __slots__ = ("bounds", "_counts", "_count", "_sum", "_min", "_max",
-                 "_lock")
+                 "_lock", "_exemplars")
 
     def __init__(self,
                  bounds: Optional[Sequence[float]] = None) -> None:
@@ -63,6 +71,10 @@ class StreamingHistogram:
         self._min = math.inf
         self._max = -math.inf
         self._lock = threading.Lock()
+        # OpenMetrics exemplars, allocated on first use: {bucket index ->
+        # (trace_id, value, unix time)}
+        self._exemplars: Optional[Dict[int, Tuple[str, float,
+                                                  float]]] = None
 
     def record(self, value: float) -> None:
         """O(1): one bisect over the fixed bounds + one increment."""
@@ -79,6 +91,26 @@ class StreamingHistogram:
 
     # Prometheus naming
     observe = record
+
+    def record_exemplar(self, value: float, trace_id: str,
+                        ts: Optional[float] = None) -> None:
+        """Attach (or replace) the exemplar of the bucket ``value`` falls
+        in: the last retained trace id a bucket, so a ``/metrics`` p99
+        bucket links to a ``/trace.json?id=`` lookup (rendered only in
+        the OpenMetrics exposition)."""
+        v = float(value)
+        i = bisect_left(self.bounds, v)
+        with self._lock:
+            if self._exemplars is None:
+                self._exemplars = {}
+            self._exemplars[i] = (str(trace_id), v,
+                                  ts if ts is not None else time.time())
+
+    def exemplars(self) -> Dict[int, Tuple[str, float, float]]:
+        """``{bucket index -> (trace_id, value, ts)}``; index
+        ``len(bounds)`` is the overflow (+Inf) bucket."""
+        with self._lock:
+            return dict(self._exemplars) if self._exemplars else {}
 
     @property
     def count(self) -> int:
@@ -157,6 +189,15 @@ class StreamingHistogram:
             "p90": self.quantile(0.90),
             "p99": self.quantile(0.99),
         }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * len(self._counts)
+            self._count = 0
+            self._sum = 0.0
+            self._min = math.inf
+            self._max = -math.inf
+            self._exemplars = None
 
 
 def window_quantile(start: List[Tuple[float, int]],

@@ -1,15 +1,17 @@
-"""Metric registry and Prometheus text exposition (the port's own copy of
+"""Metric registry and Prometheus exposition (the port's own copy of
 ``predictionio_tpu/obs/registry.py``).
 
-One :class:`MetricsRegistry` per engine server backs ``GET /metrics``
-(Prometheus text format 0.0.4). Counters, gauges (static or backed by a
-callable) and histogram families with labels; everything is thread-safe
-and O(1) per observation (histograms are the fixed-bucket kind of
+One :class:`MetricsRegistry` per server process backs ``GET /metrics``
+(Prometheus text format 0.0.4, or OpenMetrics 1.0 with bucket exemplars),
+``GET /metrics.json`` (:meth:`MetricsRegistry.export`) and the JSON
+blocks of ``/status.json`` (:meth:`MetricsRegistry.snapshot`). Counters,
+gauges (static or backed by a callable) and histogram families with
+labels, plus render-time collectors; everything is thread-safe and O(1)
+per observation (histograms are the fixed-bucket kind of
 :mod:`.histogram`).
 
-Left out (``ROADMAP.md`` queue 1 items 10 and 14): the OpenMetrics
-rendering with exemplars, render-time collectors, the JSON snapshot, and
-the fleet's ``export`` and ``remove_matching``.
+Left out (``ROADMAP.md`` queue 1 item 14): the fleet's
+``remove_matching``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,17 @@ from __future__ import annotations
 import math
 import re
 import threading
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+import time
+from typing import (
+    Any,
+    Callable,
+    Dict,
+    Iterable,
+    List,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 from .histogram import StreamingHistogram
 
@@ -38,8 +50,7 @@ def _escape_help(v: str) -> str:
 
 
 def format_value(v: float) -> str:
-    """Exposition value formatting (``+Inf``, integers bare, floats
-    repr)."""
+    """Exposition value formatting (`+Inf`, integers bare, floats repr)."""
     if v == math.inf:
         return "+Inf"
     if v == -math.inf:
@@ -54,7 +65,8 @@ def format_value(v: float) -> str:
     return repr(f)
 
 
-def _label_str(items: LabelItems, extra: Optional[str] = None) -> str:
+def _label_str(items: LabelItems,
+               extra: Optional[str] = None) -> str:
     parts = [f'{k}="{escape_label_value(v)}"' for k, v in items]
     if extra:
         parts.append(extra)
@@ -62,13 +74,25 @@ def _label_str(items: LabelItems, extra: Optional[str] = None) -> str:
 
 
 def render_histogram_lines(name: str, items: LabelItems,
-                           hist: StreamingHistogram) -> List[str]:
-    """One labeled histogram child -> its ``_bucket``/``_sum``/``_count``
-    exposition lines."""
+                           hist: StreamingHistogram,
+                           openmetrics: bool = False) -> List[str]:
+    """One labeled histogram child → its ``_bucket``/``_sum``/``_count``
+    exposition lines (shared by the registry and the span collector).
+    Under OpenMetrics, buckets carrying an exemplar (last retained
+    trace id per bucket) render it as ``# {trace_id="…"} value ts`` —
+    the grammar Prometheus scrapes exemplars from (exemplars are
+    OpenMetrics-only; the 0.0.4 text format has no syntax for them)."""
+    exemplars = hist.exemplars() if openmetrics else {}
     lines = []
-    for le, cum in hist.bucket_counts():
+    for i, (le, cum) in enumerate(hist.bucket_counts()):
         le_item = 'le="' + format_value(le) + '"'
-        lines.append(f"{name}_bucket{_label_str(items, le_item)} {cum}")
+        line = f"{name}_bucket{_label_str(items, le_item)} {cum}"
+        ex = exemplars.get(i)
+        if ex is not None:
+            trace_id, value, ts = ex
+            line += (f' # {{trace_id="{escape_label_value(trace_id)}"}}'
+                     f" {format_value(value)} {ts:.3f}")
+        lines.append(line)
     lines.append(f"{name}_sum{_label_str(items)} "
                  f"{format_value(hist.sum)}")
     lines.append(f"{name}_count{_label_str(items)} {hist.count}")
@@ -158,7 +182,7 @@ class _Family:
                 self._children[key] = child
         return child
 
-    # unlabeled convenience: the family acts as its own sole child
+    # Unlabeled convenience: family acts as its own sole child.
     def inc(self, amount: float = 1.0) -> None:
         self.labels().inc(amount)
 
@@ -175,25 +199,77 @@ class _Family:
         with self._lock:
             return list(self._children.items())
 
-    def render(self) -> List[str]:
-        lines = [f"# HELP {self.name} {_escape_help(self.help)}",
-                 f"# TYPE {self.name} {self.kind}"]
-        for items, child in sorted(self.children(), key=lambda c: c[0]):
+    def render(self, openmetrics: bool = False) -> List[str]:
+        # OpenMetrics names a counter family WITHOUT the _total suffix
+        # (samples keep it); the 0.0.4 format uses the suffixed name
+        # everywhere. Rendering both from one registry is why the
+        # family keeps the suffixed name internally.
+        meta_name = self.name
+        if openmetrics and self.kind == "counter" \
+                and meta_name.endswith("_total"):
+            meta_name = meta_name[:-len("_total")]
+        lines = [f"# HELP {meta_name} {_escape_help(self.help)}",
+                 f"# TYPE {meta_name} {self.kind}"]
+        for items, child in sorted(self.children()):
             if self.kind == "histogram":
-                lines.extend(render_histogram_lines(self.name, items,
-                                                    child))
+                lines.extend(render_histogram_lines(
+                    self.name, items, child, openmetrics=openmetrics))
             else:
                 lines.append(f"{self.name}{_label_str(items)} "
                              f"{format_value(child.value)}")
         return lines
 
+    def export(self) -> Dict[str, Any]:
+        """Full-fidelity JSON view of the family — unlike
+        :meth:`snapshot` (which reduces histograms to percentile
+        summaries), this carries the raw cumulative buckets, so a
+        fleet aggregator can rebuild and LOSSLESSLY merge the
+        histogram (``StreamingHistogram.from_buckets``). ``inf``
+        upper bounds render as the string ``"+Inf"`` (JSON has no
+        Infinity literal)."""
+        children: List[Dict[str, Any]] = []
+        for items, child in sorted(self.children()):
+            labels = {k: v for k, v in items}
+            if self.kind == "histogram":
+                buckets = [["+Inf" if math.isinf(le) else le, cum]
+                           for le, cum in child.bucket_counts()]
+                children.append({
+                    "labels": labels,
+                    "buckets": buckets,
+                    "count": child.count,
+                    "sum": child.sum,
+                    "min": child.min,
+                    "max": child.max,
+                })
+            else:
+                children.append({"labels": labels,
+                                 "value": child.value})
+        return {"kind": self.kind, "help": self.help,
+                "children": children}
+
+    def snapshot(self) -> Any:
+        """JSON-friendly view: scalar for the unlabeled child, else a
+        ``{"label=value,...": sample}`` map."""
+        def one(child: Any) -> Any:
+            if self.kind == "histogram":
+                return child.snapshot()
+            return child.value
+
+        children = self.children()
+        if len(children) == 1 and children[0][0] == ():
+            return one(children[0][1])
+        return {",".join(f"{k}={v}" for k, v in items): one(child)
+                for items, child in sorted(children)}
+
 
 class MetricsRegistry:
-    """Ordered family registry; renders the 0.0.4 text exposition."""
+    """Ordered family registry; renders 0.0.4 text exposition."""
 
     def __init__(self) -> None:
         self._families: Dict[str, _Family] = {}
+        self._collectors: List[Callable[[], Iterable[str]]] = []
         self._lock = threading.Lock()
+        self.start_time = time.time()
 
     def _family(self, name: str, help: str, kind: str,
                 bounds: Optional[Sequence[float]] = None) -> _Family:
@@ -212,6 +288,13 @@ class MetricsRegistry:
         with self._lock:
             return list(self._families.values())
 
+    def get(self, name: str) -> Optional[_Family]:
+        """The registered family called ``name`` (None when absent):
+        ``family.kind`` says how to read it, ``family.children()`` yields
+        ``(label items, child)`` pairs."""
+        with self._lock:
+            return self._families.get(name)
+
     def counter(self, name: str, help: str = "") -> _Family:
         return self._family(name, help, "counter")
 
@@ -226,9 +309,47 @@ class MetricsRegistry:
                   bounds: Optional[Sequence[float]] = None) -> _Family:
         return self._family(name, help, "histogram", bounds)
 
-    def render(self) -> str:
-        """Text exposition, Prometheus format 0.0.4."""
+    def register_collector(
+            self, fn: Callable[[], Iterable[str]]) -> None:
+        """Append raw (already escaped) exposition lines at render time —
+        the hook the span-registry bridge uses."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def render(self, openmetrics: bool = False) -> str:
+        """Text exposition: Prometheus 0.0.4 by default; OpenMetrics
+        1.0 (exemplars on histogram buckets, ``# EOF`` terminator,
+        suffix-aware counter metadata) when ``openmetrics`` — the
+        format ``Accept: application/openmetrics-text`` negotiates."""
+        with self._lock:
+            families = list(self._families.values())
+            collectors = list(self._collectors)
         lines: List[str] = []
-        for fam in self.families():
-            lines.extend(fam.render())
+        for fam in families:
+            lines.extend(fam.render(openmetrics=openmetrics))
+        for fn in collectors:
+            try:
+                lines.extend(fn())
+            except Exception:  # noqa: BLE001 — one bad collector must
+                continue       # not take down the whole scrape
+        if openmetrics:
+            lines.append("# EOF")
         return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            families = list(self._families.values())
+        return {fam.name: fam.snapshot() for fam in families}
+
+    def export(self) -> Dict[str, Any]:
+        """Full-fidelity JSON exposition (``GET /metrics.json``): every
+        family with kind/help and per-child labels, values, and — for
+        histograms — the raw cumulative buckets plus exact
+        sum/min/max. This is the fleet-scrape lane: the aggregator
+        merges these exactly (counters sum, histogram buckets add),
+        which the percentile-summary :meth:`snapshot` cannot support.
+        Render-time collectors (build info, HBM) are exposition-only
+        and deliberately absent here."""
+        with self._lock:
+            families = list(self._families.values())
+        return {fam.name: fam.export() for fam in families}

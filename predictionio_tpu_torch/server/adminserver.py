@@ -5,9 +5,9 @@ creates one (the app, a generated access key, the event store's init);
 ``DELETE /cmd/app/{name}`` deletes an app with its channels, events and
 keys; ``DELETE /cmd/app/{name}/data`` wipes its events. Responses carry
 the ``{status, message}`` shape of the JAX package's; with an
-``accesskey`` every route but ``/`` needs ``?accessKey=``. Left out
-(``ROADMAP.md`` queue 1 item 10): the ``/metrics`` and ``/status.json``
-telemetry mount.
+``accesskey`` every route but ``/`` needs ``?accessKey=``. Every server's
+telemetry mount (``server/http.py::mount_metrics``) adds ``GET
+/metrics``, ``/metrics.json``, ``/trace.json`` and ``/status.json``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Optional
 
 from ..data.storage.base import AccessKey, App
 from ..data.storage.registry import Storage, get_storage
+from ..obs import MetricsRegistry
 from .http import (
     AppServer,
     HTTPApp,
@@ -23,12 +24,17 @@ from .http import (
     Response,
     json_response,
     make_key_auth,
+    mount_metrics,
 )
 
 
 def build_app(storage: Optional[Storage] = None,
               accesskey: Optional[str] = None) -> HTTPApp:
     app = HTTPApp("adminserver")
+    registry = MetricsRegistry()
+    mount_metrics(app, registry, server_name="adminserver",
+                  status=lambda: {"status": "alive"})
+    app.metrics_registry = registry  # type: ignore[attr-defined]
 
     def st() -> Storage:
         return storage if storage is not None else get_storage()

@@ -7,9 +7,11 @@ with links to each one's
 one-liner, HTML and JSON that ``pio eval`` recorded); the JSON is also
 served CORS-enabled as ``local_evaluator_results.json``. With an
 ``accesskey`` the first request authenticates with it and gets an
-HttpOnly session cookie, so the page's links never carry the key. Left
-out (``ROADMAP.md`` queue 1 item 10): the ``/metrics`` mount and the
-page's request-latency table.
+HttpOnly session cookie, so the page's links never carry the key. The
+page ends with the request-latency percentiles of this server's own
+``pio_http_request_duration_seconds``; the telemetry mount
+(``server/http.py::mount_metrics``) adds ``GET /metrics``,
+``/metrics.json``, ``/trace.json`` and ``/status.json``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,15 @@ from typing import Optional
 
 from ..data.event import utcnow
 from ..data.storage.registry import Storage, get_storage
-from .http import AppServer, HTTPApp, Request, Response, SessionAuth
+from ..obs import MetricsRegistry
+from .http import (
+    AppServer,
+    HTTPApp,
+    Request,
+    Response,
+    SessionAuth,
+    mount_metrics,
+)
 
 
 def build_app(storage: Optional[Storage] = None,
@@ -27,6 +37,10 @@ def build_app(storage: Optional[Storage] = None,
               secure: bool = False) -> HTTPApp:
     app = HTTPApp("dashboard")
     start_time = utcnow()
+    registry = MetricsRegistry()
+    mount_metrics(app, registry, server_name="dashboard",
+                  status=lambda: {"status": "alive"})
+    app.metrics_registry = registry  # type: ignore[attr-defined]
 
     def st() -> Storage:
         return storage if storage is not None else get_storage()
@@ -38,6 +52,28 @@ def build_app(storage: Optional[Storage] = None,
         key-authenticated request) every outcome carries, 404s too."""
         set_cookie = _session(req)
         return {"Set-Cookie": set_cookie} if set_cookie else {}
+
+    def _latency_table() -> str:
+        """Request-latency percentiles by route, from this server's own
+        registry."""
+        hist = registry.snapshot().get(
+            "pio_http_request_duration_seconds") or {}
+        if isinstance(hist, dict) and "count" in hist:
+            hist = {"(all)": hist}
+        rows = [f"<tr><td>{_html.escape(str(route))}</td>"
+                f"<td>{s['count']}</td>"
+                f"<td>{s['p50'] * 1000:.3f}</td>"
+                f"<td>{s['p90'] * 1000:.3f}</td>"
+                f"<td>{s['p99'] * 1000:.3f}</td></tr>"
+                for route, s in sorted(hist.items())
+                if isinstance(s, dict) and s.get("count")]
+        if not rows:
+            return ""
+        return ("<h2>Request latency percentiles</h2>"
+                "<table border='1'><tr><th>route</th><th>count</th>"
+                "<th>p50 (ms)</th><th>p90 (ms)</th><th>p99 (ms)</th></tr>"
+                + "".join(rows) + "</table>"
+                "<p><a href='/metrics'>Prometheus metrics</a></p>")
 
     @app.route("GET", "/")
     def index(req: Request) -> Response:
@@ -63,7 +99,8 @@ def build_app(storage: Optional[Storage] = None,
             f"<p>Dashboard up since {start_time}</p>"
             "<table border='1'><tr><th>ID</th><th>Start</th><th>End</th>"
             "<th>Evaluation</th><th>Result</th><th>Details</th></tr>"
-            + "".join(rows) + "</table></body></html>")
+            + "".join(rows) + "</table>" + _latency_table()
+            + "</body></html>")
         return Response(status=200, body=body,
                         content_type="text/html; charset=utf-8",
                         headers=headers)

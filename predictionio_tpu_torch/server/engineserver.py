@@ -69,14 +69,34 @@ hidden, and the queries that follow raise the same way) and
 /drain``, which keeps the server answering. ``GET /`` is the status
 page.
 
-Left out (``ROADMAP.md`` queue 1): the serving caches, so a fold-in
-invalidates no cached answer and the candidate arm has no cache; feedback
-events, ``log_url``, output plugins, request traces and every metric
-family but the ``pio_release_*``, ``pio_serving_warm`` and
-``pio_warmup_seconds`` ones (the pipeline's counters are attributes of
-:class:`QueryServer`); replicated lanes. ``transfer_guard`` and the XLA
-recompile sentinel are XLA mechanisms with nothing to port
-(``ROADMAP.md``); a candidate is ready once its tables are on the card.
+Telemetry (:mod:`predictionio_tpu_torch.obs`): every request carries a
+trace (``ServerConfig.tracing``, on by default) through whichever path
+serves it: the single query's phases, the serial drainers' ``batch`` and
+its stages, the staged pipeline's ``batch`` with ``queue_wait`` from the
+enqueue, the host stages from the pickup and the device stages from the
+real dispatch time, the candidate arm's ``candidate_serve``; the tail
+sampler keeps the slow, failed and shed ones for ``GET /trace.json``.
+``GET /metrics`` (and ``/metrics.json``) carries the query, batch,
+pipeline, numerics, trace, hot-key, HTTP, runtime (the card's memory
+among them) and release families; ``POST /profile`` captures a bounded
+``torch.profiler`` window into ``ServerConfig.profile_dir`` and ``GET
+/profile.json`` lists the captures; output plugins
+(:class:`~predictionio_tpu_torch.server.plugins.EngineServerPlugins`)
+see every served result. ``ServerConfig.debug_numerics`` (or
+``PTPU_DEBUG_NUMERICS=1``) arms the NaN/Inf sentinels of the served
+scores and the fold-in solve. With ``ServerConfig.accesskey`` the
+control routes need ``?accessKey=``.
+
+Left out (``ROADMAP.md`` queue 1): the serving caches and their families
+(item 8), so a fold-in invalidates no cached answer and the candidate arm
+has no cache; replicated lanes and the ``pio_lane_*``,
+``pio_serving_lanes`` and ``pio_serving_degraded`` families (item 13);
+the SLO engine (item 14); the fault families (item 11); feedback events
+and ``log_url``. ``transfer_guard``, the XLA recompile sentinel
+(``pio_compiles_since_warm``, the per-executable compile table of
+``/profile.json``) and ``pio_sharding_findings`` are XLA mechanisms with
+nothing to port (``ROADMAP.md``); a candidate is ready once its tables
+are on the card.
 """
 
 from __future__ import annotations
@@ -95,9 +115,24 @@ from ..controller.context import Context
 from ..controller.engine import Engine
 from ..controller.params import EngineParams
 from ..data.storage.base import STATUS_COMPLETED, EngineInstance
-from ..models.als import SERVING_QUANT_MODES, serving_quant_of
-from ..obs import DEVICE_TRACK, MetricsRegistry, OverlapTracker
-from ..obs.histogram import DEFAULT_LATENCY_BOUNDS
+from ..models.als import (
+    SERVING_QUANT_MODES,
+    resolved_gram_mode,
+    serving_quant_of,
+)
+from ..obs import (
+    DEFAULT_LATENCY_BOUNDS,
+    DEVICE_TRACK,
+    POW2_COUNT_BOUNDS,
+    DeviceProfiler,
+    MetricsRegistry,
+    OverlapTracker,
+    SpaceSaving,
+    Tracer,
+    add_stage_spans,
+    mount_hot_key_metrics,
+)
+from ..obs import hbm_stats, numerics
 from ..ops import _build
 from ..ops import fused_topk as _fused_topk
 from ..rollout.registry import ReleaseRegistry
@@ -111,7 +146,17 @@ from ..workflow.batch_predict import (
     predict_serve_batch,
     supplement_batch,
 )
-from .http import AppServer, HTTPApp, HTTPError, Request, Response, json_response
+from .http import (
+    AppServer,
+    HTTPApp,
+    HTTPError,
+    Request,
+    Response,
+    json_response,
+    make_key_auth,
+    mount_metrics,
+)
+from .plugins import EngineServerPlugins, resolve_plugin
 
 log = logging.getLogger(__name__)
 
@@ -179,6 +224,30 @@ class ServerConfig:
     #: ``ops/_build.py``); None keeps ``$PTPU_ARTIFACT_DIR`` or the
     #: default ``build/torch_kernels``
     artifact_dir: Optional[str] = None
+    #: require ``?accessKey=`` on the control routes (reload, releases,
+    #: stream start and stop, drain, stop, plugins, profile)
+    accesskey: Optional[str] = None
+    #: trace every request into the tail-sampled flight recorder: only
+    #: slow (adaptive p99), failed and shed traces are kept, served on
+    #: ``GET /trace.json``; off for A/B runs of its cost
+    tracing: bool = True
+    #: retained traces the flight recorder's ring holds (oldest evicted)
+    trace_ring: int = 512
+    #: a fixed slow-retention threshold in ms; 0 = adaptive (the live
+    #: p99 of traced request durations)
+    trace_slow_ms: float = 0.0
+    #: the share of successful requests the JSON access log writes
+    #: (errors and 503s always)
+    access_log_sample: float = 1.0
+    #: where ``POST /profile`` writes its captures (None:
+    #: ``$PTPU_PROFILE_DIR``, else ``<tmp>/ptpu-profiles``)
+    profile_dir: Optional[str] = None
+    #: capacity of the Space-Saving sketch of the queries' entity ids
+    #: (``pio_hot_keys``, the ``hotKeys`` block); 0 disables it
+    hot_keys_k: int = 128
+    #: arm the NaN/Inf sentinels of the served scores and the fold-in
+    #: solve (process-wide; ``PTPU_DEBUG_NUMERICS=1`` does the same)
+    debug_numerics: bool = False
 
 
 @dataclass
@@ -223,25 +292,100 @@ class QueryServer:
                 f"{self.config.serving_pipeline!r}")
         self.device = resolve_device(self.config.device)
         self.card = card_info(self.device)
+        self.plugins = EngineServerPlugins()
+        if self.config.debug_numerics or numerics.debug_env():
+            # arm the NaN/Inf sentinels BEFORE the bind, so the warm-up
+            # is covered too
+            numerics.enable()
         self._lock = threading.Lock()
         self.request_count = 0
         self.start_time = datetime.now(timezone.utc)
         # mean and last serving wall time a query (under _lock)
         self.avg_serving_sec = 0.0
         self.last_serving_sec = 0.0
-        # the batch path's counters (under _lock): queries shed at the
-        # deadline, error answers by status, batches and the queries they
-        # held, launches made while an earlier batch was on the device,
-        # wall seconds by phase and by staged-pipeline stage, summed over
-        # batches
-        self.deadline_exceeded = 0
-        self.query_errors: Dict[str, int] = {}
-        self.batches_served = 0
-        self.queries_batched = 0
-        self.overlapped_dispatches = 0
-        self.phase_seconds: Dict[str, float] = {}
-        self.stage_seconds: Dict[str, float] = {}
+        # the server's metric registry: the query path's phases and
+        # latency, the batch paths' occupancy, queue depths, stages,
+        # sheds and overlap; build_app mounts it on /metrics
+        self.metrics = MetricsRegistry()
+        self._phase_hist = self.metrics.histogram(
+            "pio_query_phase_seconds",
+            "Per-phase query-path wall time (queue_wait, assemble, "
+            "supplement, dispatch, serve, readback, feedback)",
+            bounds=DEFAULT_LATENCY_BOUNDS)
+        self._latency_hist = self.metrics.histogram(
+            "pio_query_latency_seconds",
+            "End-to-end serving wall time per query",
+            bounds=DEFAULT_LATENCY_BOUNDS)
+        self._batch_occupancy = self.metrics.histogram(
+            "pio_batch_occupancy",
+            "Queries coalesced per micro-batch dispatch",
+            bounds=POW2_COUNT_BOUNDS)
+        self._queue_depth = self.metrics.histogram(
+            "pio_queue_depth",
+            "Batcher queue depth observed at each batch pickup",
+            bounds=POW2_COUNT_BOUNDS)
+        self._query_errors = self.metrics.counter(
+            "pio_query_errors_total", "Failed queries by status class")
+        self._pipeline_stage_hist = self.metrics.histogram(
+            "pio_pipeline_stage_seconds",
+            "Per-batch wall time of each staged-pipeline stage "
+            "(assemble = parse+supplement, dispatch = device enqueue, "
+            "readback = device wait + serve + serialize + feedback)",
+            bounds=DEFAULT_LATENCY_BOUNDS)
+        self._pipeline_qdepth = self.metrics.histogram(
+            "pio_pipeline_queue_depth",
+            "Queue depth observed at each pipeline stage pickup "
+            "(queue=submit|dispatch|readback)",
+            bounds=POW2_COUNT_BOUNDS)
+        self._deadline_exceeded = self.metrics.counter(
+            "pio_query_deadline_exceeded_total",
+            "Queries shed with 503 after exceeding "
+            "ServerConfig.queue_deadline_ms — load shedding under a "
+            "wedged or saturated dispatch, never silent hangs")
+        self._pipeline_overlapped = self.metrics.counter(
+            "pio_pipeline_overlapped_dispatches_total",
+            "Batch launches that found an earlier batch still in "
+            "flight on the device — direct evidence of stage overlap")
         self.overlap = OverlapTracker()
+        self.metrics.gauge(
+            "pio_pipeline_device_idle_fraction",
+            "Fraction of wall time (since first batch) with NO batch "
+            "in flight on the device; the staged pipeline under load "
+            "should drive this toward 0",
+            fn=self.overlap.device_idle_fraction)
+        self.metrics.gauge(
+            "pio_pipeline_overlap_fraction",
+            "Fraction of wall time where the device was busy WHILE an "
+            "assemble/readback host stage ran — the overlap the staged "
+            "pipeline exists to create (a serial drainer reads ~0)",
+            fn=self.overlap.overlap_fraction)
+        # request traces (the server owns the tracer, so direct query()
+        # callers trace as HTTP traffic does; build_app mounts it on the
+        # request path and /trace.json) and the bounded profiler capture
+        # behind POST /profile
+        cfg = self.config
+        self.tracer = (Tracer(ring=cfg.trace_ring, slow_ms=cfg.trace_slow_ms)
+                       if cfg.tracing else None)
+        self.profiler = DeviceProfiler(cfg.profile_dir)
+        # hot keys: a Space-Saving sketch of the queries' entity ids
+        self.hotkeys: Optional[SpaceSaving] = None
+        if cfg.hot_keys_k > 0:
+            self.hotkeys = SpaceSaving(capacity=cfg.hot_keys_k)
+            mount_hot_key_metrics(self.metrics, self.hotkeys)
+        # the NaN/Inf sentinels' checks, wherever in the process they ran,
+        # by entry; a nonfinite one flags degraded.nonfinite
+        self._numerics_checks = self.metrics.counter(
+            "pio_numerics_checks_total",
+            "Numeric-sentinel NaN/Inf checks delivered, by entry "
+            "point (debug_numerics only; absent in production)")
+        self._numerics_nonfinite = self.metrics.counter(
+            "pio_numerics_nonfinite_total",
+            "Numeric-sentinel checks that observed NaN/Inf, by entry "
+            "point — nonzero flags nonfinite in /status.json")
+        self._numerics_listener = None
+        if numerics.active():
+            self._numerics_listener = self._on_numerics
+            numerics.add_listener(self._on_numerics)
         # concurrent supplements and blocking predictions; shut down in
         # close() (its threads start on first use)
         self._pool = make_pool()
@@ -251,7 +395,6 @@ class QueryServer:
         # registry this server's deploy, reload, promote and rollback are
         # recorded in (None without storage: models handed in), and the
         # (at most one) live candidate binding and controller
-        self.metrics = MetricsRegistry()
         self._release_queries = self.metrics.counter(
             "pio_release_queries_total",
             "Queries served per release arm while a rollout is live")
@@ -300,7 +443,6 @@ class QueryServer:
         self._release_lock = threading.Lock()
         self._bind(engine_params, models, instance)
         self.batcher = None
-        cfg = self.config
         if cfg.batching and cfg.serving_pipeline == "staged":
             self.batcher = StagedPipeline(
                 self, cfg.batch_window_ms, cfg.max_batch,
@@ -377,106 +519,211 @@ class QueryServer:
             self._stream_rows = 0
             self._stream_last_apply: Optional[float] = None
             self._stream_base_bound_at = time.time()
+            self._record_gram_mode()
+            self._record_serving_kernel()
 
     def _binding(self):
         with self._lock:
             return self.algorithms, self.models, self.serving
 
+    def _record_gram_mode(self) -> None:
+        """The ``pio_gram_mode`` info gauge: 1 at the gram realization the
+        bound ALS params resolve to (``models/als.py::
+        resolved_gram_mode``), 0 at a label a rebind left behind."""
+        for algo in self.algorithms:
+            p = getattr(algo, "params", None)
+            if p is not None and hasattr(p, "gram_mode"):
+                fam = self.metrics.gauge(
+                    "pio_gram_mode",
+                    "Resolved ALS gram realization of the bound engine "
+                    "params (info gauge: 1 at the active mode label)")
+                for _, child in fam.children():
+                    child.set(0.0)
+                fam.labels(mode=resolved_gram_mode(p)).set(1.0)
+                return
+
+    def _record_serving_kernel(self) -> None:
+        """The ``pio_serving_kernel`` info gauge: 1 at the serving top-k
+        realization (the port serves through ``fused_topk``) and the quant
+        wire the bound ALS model serves, 0 at labels a rebind left
+        behind."""
+        for algo, model in zip(self.algorithms, self.models):
+            p = getattr(algo, "params", None)
+            if p is not None and hasattr(p, "rank"):
+                fam = self.metrics.gauge(
+                    "pio_serving_kernel",
+                    "Resolved serving top-k realization x quant dtype of "
+                    "the bound engine (info gauge: 1 at the active "
+                    "labels)")
+                for _, child in fam.children():
+                    child.set(0.0)
+                fam.labels(mode="fused",
+                           quant=serving_quant_of(model)).set(1.0)
+                return
+
+    def _on_numerics(self, entry: str, bad: bool) -> None:
+        self._numerics_checks.labels(entry=entry).inc()
+        if bad:
+            self._numerics_nonfinite.labels(entry=entry).inc()
+
+    # -- the batch path's counters, read off the metric families -------------
+    @property
+    def deadline_exceeded(self) -> int:
+        """Queries shed at their deadline."""
+        return int(self._deadline_exceeded.labels().value)
+
+    @property
+    def query_errors(self) -> Dict[str, int]:
+        """Error answers by status."""
+        return {dict(items)["status"]: int(c.value)
+                for items, c in self._query_errors.children()}
+
+    @property
+    def batches_served(self) -> int:
+        return self._batch_occupancy.labels().count
+
+    @property
+    def queries_batched(self) -> int:
+        """Queries the batches held (mean batch = this over
+        :attr:`batches_served`)."""
+        return int(self._batch_occupancy.labels().sum)
+
+    @property
+    def overlapped_dispatches(self) -> int:
+        """Launches made while an earlier batch was on the device."""
+        return int(self._pipeline_overlapped.labels().value)
+
+    @property
+    def phase_seconds(self) -> Dict[str, float]:
+        """Wall seconds by query phase, summed (a batch's phases once a
+        batch, ``queue_wait`` once a query)."""
+        return {dict(items)["phase"]: h.sum
+                for items, h in self._phase_hist.children()}
+
+    @property
+    def stage_seconds(self) -> Dict[str, float]:
+        """Wall seconds by staged-pipeline stage, summed over batches."""
+        return {dict(items)["stage"]: h.sum
+                for items, h in self._pipeline_stage_hist.children()}
+
     def _count(self, n: int, seconds: float) -> None:
         """``n`` queries answered in ``seconds`` of serving wall time
-        between them."""
-        with self._lock:
-            self._add_served(n, seconds)
-
-    def _add_served(self, n: int, seconds: float) -> None:
-        # called with _lock held: the count, and the mean and last
-        # serving time a query
+        between them: the mean and last serving time a query."""
         if n <= 0:
             return
-        total = self.request_count
-        self.avg_serving_sec = ((self.avg_serving_sec * total + seconds)
-                                / (total + n))
-        self.last_serving_sec = seconds / n
-        self.request_count += n
-
-    def _count_shed(self) -> None:
-        """A query shed at its deadline: a 503."""
         with self._lock:
-            self.deadline_exceeded += 1
-            self._add_error(503)
+            total = self.request_count
+            self.avg_serving_sec = ((self.avg_serving_sec * total + seconds)
+                                    / (total + n))
+            self.last_serving_sec = seconds / n
+            self.request_count += n
 
-    def _count_error(self, status: int) -> None:
-        with self._lock:
-            self._add_error(status)
+    def _record_phases(self, phases: Dict[str, float]) -> None:
+        for phase, sec in phases.items():
+            self._phase_hist.labels(phase=phase).observe(sec)
 
-    def _add_error(self, status: int) -> None:
-        # called with _lock held
-        key = str(status)
-        self.query_errors[key] = self.query_errors.get(key, 0) + 1
+    def _trace_of(self, obs: Optional[dict]):
+        """The live request trace riding the obs dict (None when the
+        caller is untraced or tracing is off)."""
+        if obs is None or self.tracer is None:
+            return None
+        return obs.get("_trace")
 
-    def _count_overlapped(self) -> None:
-        with self._lock:
-            self.overlapped_dispatches += 1
+    @staticmethod
+    def _entity_of(query_json: Any) -> Optional[str]:
+        """The query's entity (``user``), the hot-key sketch's key."""
+        if isinstance(query_json, dict):
+            entity = query_json.get("user")
+            if entity is not None:
+                return str(entity)
+        return None
 
-    def _record_stage(self, stage: str, seconds: float) -> None:
-        with self._lock:
-            self.stage_seconds[stage] = (self.stage_seconds.get(stage, 0.0)
-                                         + seconds)
-
-    def _record_batch(self, phases: Dict[str, float], results: List[Any],
-                      seconds: float) -> None:
-        """One served batch: its phases, its size, its error answers, and
-        ``seconds``, its queries' serving wall time summed."""
-        with self._lock:
-            for k, v in phases.items():
-                self.phase_seconds[k] = self.phase_seconds.get(k, 0.0) + v
-            self.batches_served += 1
-            self.queries_batched += len(results)
-            self._add_served(len(results), seconds)
-            for r in results:
-                if isinstance(r, HTTPError):
-                    self._add_error(r.status)
-
-    def serve(self, query_json: Any) -> Any:
+    def serve(self, query_json: Any, obs: Optional[dict] = None) -> Any:
         """The ``/queries.json`` entry: the batch path when batching,
         else the per-query path. Raises :class:`HTTPError`."""
+        if self.hotkeys is not None:
+            self.hotkeys.record(self._entity_of(query_json))
         if self.batcher is not None:
-            result = self.batcher.submit(query_json)
+            result = self.batcher.submit(query_json, obs=obs)
             if isinstance(result, HTTPError):
                 raise result
             return result
-        return self.query(query_json)
+        return self.query(query_json, obs=obs)
 
-    def query(self, query_json: Any) -> Any:
+    def query(self, query_json: Any, obs: Optional[dict] = None) -> Any:
         """One query: parse, supplement, predict with every algorithm,
-        serve, and render JSON."""
+        serve, render JSON and run the output plugins, each phase timed
+        and, with a trace in ``obs``, laid out as its spans."""
         t0 = time.monotonic()
-        algorithms, models, serving = self._binding()
+        phases: Dict[str, float] = {}
+        trace = self._trace_of(obs)
+        with self._lock:
+            algorithms, models, serving = \
+                self.algorithms, self.models, self.serving
+            binding_id = self.binding_id
+        if trace is not None:
+            trace.set_attr("engineInstanceId", binding_id)
+            trace.set_attr("arm", ARM_STABLE)
         try:
             query = from_jsonable(algorithms[0].query_class, query_json)
         except (TypeError, ValueError) as e:
+            self._query_errors.labels(status="400").inc()
             raise HTTPError(400, str(e)) from e
+        t1 = time.monotonic()
+        phases["assemble"] = t1 - t0
         try:
             supplemented = serving.supplement(query)
+            t2 = time.monotonic()
+            phases["supplement"] = t2 - t1
             predictions = [a.predict(m, supplemented)
                            for a, m in zip(algorithms, models)]
-            result = to_jsonable(serving.serve(query, predictions))
+            t3 = time.monotonic()
+            phases["dispatch"] = t3 - t2
+            prediction = serving.serve(query, predictions)
+            t4 = time.monotonic()
+            phases["serve"] = t4 - t3
+            result = to_jsonable(prediction)
+            phases["readback"] = time.monotonic() - t4
+            result = self.plugins.process_output(query_json, result)
         except Exception:
+            self._query_errors.labels(status="500").inc()
             self._observe_release(ARM_STABLE, time.monotonic() - t0,
                                   error=True)
+            self._record_phases(phases)
+            add_stage_spans(trace, t0, phases)
             raise
         dt = time.monotonic() - t0
+        self._record_phases(phases)
+        self._latency_hist.observe(dt)
         self._observe_release(ARM_STABLE, dt, error=False)
+        if trace is not None:
+            # the phases ran back to back on this thread: the sequential
+            # layout from t0 is the real timeline
+            add_stage_spans(trace, t0, phases)
+            trace.exemplar(self._latency_hist.labels(), dt)
+        if obs is not None:
+            obs.update({f"{k}Ms": round(v * 1000, 3)
+                        for k, v in phases.items()})
         self._count(1, dt)
         return result
 
-    def query_batch(self, query_jsons: List[Any]) -> List[Any]:
+    def query_batch(self, query_jsons: List[Any],
+                    obs_list: Optional[List[Optional[dict]]] = None
+                    ) -> List[Any]:
         """Serve many queries with ONE batched launch per algorithm (the
         serial drainers' work). A query that fails to parse gets its own
         400 and one that fails to predict or serve its own 500; the
-        other slots are unaffected."""
+        other slots are unaffected. ``obs_list`` (one dict a query, from
+        the batcher) gets each query's access-log fields, and its trace a
+        ``batch`` span with the stages laid out from the batch's start
+        (this path really is sequential)."""
         t0 = time.monotonic()
-        algorithms, models, serving = self._binding()
+        with self._lock:
+            algorithms, models, serving = \
+                self.algorithms, self.models, self.serving
+            binding_id = self.binding_id
+        traces = [self._trace_of(o) for o in (obs_list or [])]
+        traces += [None] * (len(query_jsons) - len(traces))
         out: List[Any] = [None] * len(query_jsons)
         parsed, rows = [], []
         self.overlap.enter("assemble")
@@ -493,7 +740,7 @@ class QueryServer:
         phases: Dict[str, float] = {"assemble": time.monotonic() - t0}
         if parsed:
             if self.overlap.enter(DEVICE_TRACK) > 0:
-                self._count_overlapped()
+                self._pipeline_overlapped.inc()
             try:
                 served = predict_serve_batch(algorithms, models, serving,
                                              parsed, timings=phases,
@@ -503,21 +750,41 @@ class QueryServer:
             self.overlap.enter("readback")
             try:
                 for j, i in enumerate(rows):
-                    out[i] = self._render(served[j], phases)
+                    out[i] = self._render(served[j], phases, query_jsons[i])
             finally:
                 self.overlap.exit("readback")
-        # each coalesced query experienced the batch's wall time
         dt = time.monotonic() - t0
-        self._record_batch(phases, out, dt * len(out))
-        for r in out:
-            self._observe_release(ARM_STABLE, dt, error=_is_5xx(r))
+        self._record_phases(phases)
+        self._batch_occupancy.observe(len(query_jsons))
+        batch_obs = {"batchSize": len(query_jsons)}
+        batch_obs.update({f"{k}Ms": round(v * 1000, 3)
+                          for k, v in phases.items()})
+        for i, result in enumerate(out):
+            # each coalesced query experienced the batch's wall time
+            self._latency_hist.observe(dt)
+            self._observe_release(ARM_STABLE, dt, error=_is_5xx(result))
+            if isinstance(result, HTTPError):
+                self._query_errors.labels(status=str(result.status)).inc()
+            tr = traces[i]
+            if tr is not None:
+                tr.set_attr("engineInstanceId", binding_id)
+                tr.set_attr("arm", ARM_STABLE)
+                parent = tr.add_span("batch", t0, t0 + dt,
+                                     batchSize=len(query_jsons))
+                add_stage_spans(tr, t0, phases, parent_id=parent.span_id,
+                                skip=("queue_wait",))
+                tr.exemplar(self._latency_hist.labels(), dt)
+            if obs_list is not None and i < len(obs_list) \
+                    and obs_list[i] is not None:
+                obs_list[i].update(batch_obs)
+        self._count(len(query_jsons), dt * len(query_jsons))
         return out
 
-    @staticmethod
-    def _render(prediction: Any, phases: Dict[str, float]) -> Any:
-        """One served prediction as JSON, or the 500 it becomes. The
-        batch's ``readback`` phase is the slowest query's serialization,
-        not the sum over the batch."""
+    def _render(self, prediction: Any, phases: Dict[str, float],
+                query_json: Any) -> Any:
+        """One served prediction as JSON through the output plugins, or
+        the 500 it becomes. The batch's ``readback`` phase is the slowest
+        query's serialization, not the sum over the batch."""
         if isinstance(prediction, HTTPError):
             return prediction
         if isinstance(prediction, Exception):
@@ -525,26 +792,78 @@ class QueryServer:
         t0 = time.monotonic()
         try:
             result = to_jsonable(prediction)
+            phases["readback"] = max(phases.get("readback", 0.0),
+                                     time.monotonic() - t0)
+            return self.plugins.process_output(query_json, result)
         except Exception as e:  # noqa: BLE001 — isolate per query
             return HTTPError(500, str(e))
-        phases["readback"] = max(phases.get("readback", 0.0),
-                                 time.monotonic() - t0)
-        return result
 
     def _finish_pipeline_batch(self, ab: "_AssembledBatch",
                                results: List[Any]) -> None:
         """The readback stage's tail: render each resolved prediction,
-        record the batch, wake the callers."""
-        final = [self._render(r, ab.phases) for r in results]
+        record the batch and its traces, wake the callers."""
+        final = [self._render(r, ab.phases, e.query_json)
+                 for r, e in zip(results, ab.entries)]
         now = time.monotonic()
-        self._record_batch(ab.phases, final,
-                           sum(now - e.t_enq for e in ab.entries))
+        self._record_phases(ab.phases)
+        self._batch_occupancy.observe(len(ab.entries))
+        self._trace_pipeline_batch(ab, now)
+        batch_obs = {"batchSize": len(ab.entries), "pipeline": "staged"}
+        batch_obs.update({f"{k}Ms": round(v * 1000, 3)
+                          for k, v in ab.phases.items()})
+        total = 0.0
         for entry, result in zip(ab.entries, final):
             # end to end per query, its queue wait included
-            self._observe_release(ARM_STABLE, now - entry.t_enq,
-                                  error=_is_5xx(result))
+            dt = now - entry.t_enq
+            total += dt
+            self._latency_hist.observe(dt)
+            self._observe_release(ARM_STABLE, dt, error=_is_5xx(result))
+            if isinstance(result, HTTPError):
+                self._query_errors.labels(status=str(result.status)).inc()
+            if entry.obs is not None:
+                entry.obs.update(batch_obs)
             entry.result = result
             entry.done.set()
+        self._count(len(ab.entries), total)
+
+    def _trace_pipeline_batch(self, ab: "_AssembledBatch",
+                              now: float) -> None:
+        """The staged timeline on every traced query of the batch: a
+        ``batch`` span, ``queue_wait`` from the query's own enqueue, the
+        host stages (assemble, supplement) from the pickup, and the device
+        stages (dispatch, device_wait, serve, readback) from the REAL
+        dispatch time, so the hops between stage threads show as gaps."""
+        if self.tracer is None:
+            return
+        phases = ab.phases
+        host = {k: phases[k] for k in ("assemble", "supplement")
+                if k in phases}
+        device = {k: phases[k]
+                  for k in ("dispatch", "device_wait", "serve", "readback")
+                  if k in phases}
+        for entry in ab.entries:
+            tr = self._trace_of(entry.obs)
+            if tr is None:
+                continue
+            tr.set_attr("engineInstanceId", ab.binding_id)
+            tr.set_attr("arm", ARM_STABLE)
+            tr.set_attr("pipeline", "staged")
+            wait = (entry.obs or {}).get("queueWaitMs", 0.0) / 1000.0
+            t_pick = entry.t_enq + wait
+            parent = tr.add_span("batch", t_pick, now,
+                                 batchSize=len(ab.entries))
+            if wait > 0:
+                tr.add_span("queue_wait", entry.t_enq, t_pick,
+                            parent_id=parent.span_id)
+            add_stage_spans(tr, t_pick, host,
+                            order=("assemble", "supplement"),
+                            parent_id=parent.span_id)
+            add_stage_spans(
+                tr, ab.t_dispatched if ab.t_dispatched is not None
+                else t_pick, device,
+                order=("dispatch", "device_wait", "serve", "readback"),
+                parent_id=parent.span_id)
+            tr.exemplar(self._latency_hist.labels(), now - entry.t_enq)
 
     def pipeline_status(self) -> dict:
         """The batch path for ``/status.json``: architecture, deadline
@@ -553,9 +872,8 @@ class QueryServer:
         b = self.batcher
         mode = ("staged" if isinstance(b, StagedPipeline)
                 else "serial" if b is not None else "off")
-        with self._lock:
-            exceeded = self.deadline_exceeded
-            overlapped = self.overlapped_dispatches
+        exceeded = self.deadline_exceeded
+        overlapped = self.overlapped_dispatches
         out: dict = {
             "mode": mode,
             "deadlineMs": self.config.queue_deadline_ms,
@@ -723,28 +1041,96 @@ class QueryServer:
             "lineage": self.stream_lineage(),
             "stream": (self.stream.status() if self.stream is not None
                        else {"running": False}),
+            "trace": (self.tracer.status() if self.tracer is not None
+                      else {"enabled": False}),
+            "hotKeys": (self.hotkeys.snapshot() if self.hotkeys is not None
+                        else {"enabled": False}),
+            "profile": self.profile_summary(),
+            "degraded": self.degraded_status(),
+            "hbm": hbm_stats(),
+            **self.phase_table(),
         }
+
+    def profile_summary(self) -> dict:
+        """The ``profile`` block of ``/status.json``: whether a capture
+        runs, and the last one finished (``GET /profile.json`` has
+        them all)."""
+        st = self.profiler.status()
+        return {"active": st["active"] is not None,
+                "baseDir": st["baseDir"],
+                "captures": len(st["history"]),
+                "last": st["history"][-1] if st["history"] else None}
+
+    def degraded_status(self) -> dict:
+        """The ``degraded`` block of ``/status.json``: ``nonfinite`` once
+        a NaN/Inf sentinel saw a nonfinite value. (The JAX package's
+        lane keys are queue 1 item 13's, its fault flag item 11's.)"""
+        nonfinite = numerics.active() and numerics.nonfinite_seen()
+        return {"active": nonfinite, "nonfinite": nonfinite}
+
+    def phase_table(self) -> dict:
+        """Percentile summaries of the phase, latency, occupancy and
+        queue-depth families, for ``/status.json``."""
+        snap = self.metrics.snapshot()
+        out = {}
+        for key, label in (("pio_query_phase_seconds", "phases"),
+                           ("pio_query_latency_seconds", "latency"),
+                           ("pio_batch_occupancy", "batchOccupancy"),
+                           ("pio_queue_depth", "queueDepth")):
+            v = snap.get(key)
+            if v:
+                out[label] = v
+        return out
+
+    def spans_summary(self) -> dict:
+        """Percentile rows for the status page: each query phase and the
+        end-to-end latency, from the live histograms."""
+        out: dict = {}
+
+        def row(hist) -> Optional[dict]:
+            s = hist.snapshot()
+            if not s.get("count"):
+                return None
+            return {"count": s["count"], "p50": s["p50"],
+                    "p90": s["p90"], "p99": s["p99"],
+                    "max_sec": s["max"]}
+
+        for items, child in self._phase_hist.children():
+            r = row(child)
+            if r is not None:
+                out["phase:" + dict(items).get("phase", "?")] = r
+        for _, child in self._latency_hist.children():
+            r = row(child)
+            if r is not None:
+                out["query (end-to-end)"] = r
+        return out
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the rollout's gate thread, the stream trainer, the batch
-        path's threads (queued queries still serve), the shadow mirrors
-        and the pool, and join the warm-up threads, each within
-        ``timeout``. Idempotent."""
+        path's threads (queued queries still serve), a profiler capture,
+        the shadow mirrors, the plugins' sniffer thread and the pool, and
+        join the warm-up threads, each within ``timeout``; detach the
+        numerics listener. Idempotent."""
         rollout = self.rollout
         if rollout is not None:
             rollout.stop()
         self.stop_stream()
         if self.batcher is not None:
             self.batcher.close(timeout)
+        self.profiler.close(timeout)
         with self._lock:
             mirrors = self._mirror_pool
         if mirrors is not None:
             mirrors.shutdown(wait=True)
+        self.plugins.close()
         self._pool.shutdown(wait=True)
         with self._lock:
             warm_threads = list(self._warm_threads)
         for t in warm_threads:
             t.join(timeout)
+        if self._numerics_listener is not None:
+            numerics.remove_listener(self._numerics_listener)
+            self._numerics_listener = None
 
     # -- streaming fold-in ---------------------------------------------------
     @property
@@ -1118,17 +1504,22 @@ class QueryServer:
             controller.start()
         return controller
 
-    def serve_candidate(self, query_json: Any) -> Any:
+    def serve_candidate(self, query_json: Any,
+                        obs: Optional[dict] = None) -> Any:
         """The candidate arm's serving entry (the serving caches, queue 1
         item 8, would sit here, under the candidate's own namespace).
         Raises like :meth:`query_candidate`."""
-        return self.query_candidate(query_json)
+        if self.hotkeys is not None:
+            self.hotkeys.record(self._entity_of(query_json))
+        return self.query_candidate(query_json, obs=obs)
 
-    def query_candidate(self, query_json: Any) -> Any:
+    def query_candidate(self, query_json: Any,
+                        obs: Optional[dict] = None) -> Any:
         """Serve one query off the CANDIDATE binding (canary route or
         shadow mirror), alone: no micro-batching. 503 when no candidate
         is bound, 400 for a malformed query (not counted against the
-        arm); a failure past parsing is counted and raised."""
+        arm); a failure past parsing is counted and raised. A traced
+        query gets one ``candidate_serve`` span."""
         t0 = time.monotonic()
         with self._lock:
             cand = self._candidate
@@ -1138,20 +1529,28 @@ class QueryServer:
             query = from_jsonable(cand.algorithms[0].query_class,
                                   query_json)
         except (TypeError, ValueError) as e:
-            self._count_error(400)
+            self._query_errors.labels(status="400").inc()
             raise HTTPError(400, str(e)) from e
         try:
             supplemented = cand.serving.supplement(query)
             predictions = [a.predict(m, supplemented)
                            for a, m in zip(cand.algorithms, cand.models)]
             result = to_jsonable(cand.serving.serve(query, predictions))
+            result = self.plugins.process_output(query_json, result)
         except Exception:
-            self._count_error(500)
+            self._query_errors.labels(status="500").inc()
             self._observe_release(ARM_CANDIDATE, time.monotonic() - t0,
                                   error=True)
             raise
         dt = time.monotonic() - t0
         self._observe_release(ARM_CANDIDATE, dt, error=False)
+        if obs is not None:
+            obs["releaseArm"] = ARM_CANDIDATE
+            tr = self._trace_of(obs)
+            if tr is not None:
+                tr.set_attr("arm", ARM_CANDIDATE)
+                tr.set_attr("engineInstanceId", cand.instance.id)
+                tr.add_span("candidate_serve", t0, t0 + dt)
         self._count(1, dt)
         return result
 
@@ -1177,16 +1576,18 @@ class QueryServer:
 
 
 class _Submit:
-    """One caller's queue entry: the query, its completion slot and its
-    deadline. The caller blocks on ``done``; whichever stage finishes or
-    sheds the entry writes ``result`` and sets it. ``abandoned`` flips
+    """One caller's queue entry: the query, its completion slot, its
+    deadline and its request's obs dict (the access-log fields and the
+    live trace). The caller blocks on ``done``; whichever stage finishes
+    or sheds the entry writes ``result`` and sets it. ``abandoned`` flips
     when the caller's deadline passed: later stages skip the entry
     instead of launching work nobody will read."""
 
     __slots__ = ("query_json", "done", "result", "t_enq", "deadline",
-                 "abandoned")
+                 "abandoned", "obs")
 
-    def __init__(self, query_json: Any, deadline_sec: float = 0.0):
+    def __init__(self, query_json: Any, deadline_sec: float = 0.0,
+                 obs: Optional[dict] = None):
         self.query_json = query_json
         self.done = threading.Event()
         self.result: Any = None
@@ -1194,6 +1595,7 @@ class _Submit:
         self.deadline = (self.t_enq + deadline_sec if deadline_sec > 0
                          else None)
         self.abandoned = False
+        self.obs = obs
 
 
 def _is_5xx(result: Any) -> bool:
@@ -1207,11 +1609,12 @@ def _is_5xx(result: Any) -> bool:
 _CLOSE = object()
 
 
-def _deadline_submit(batcher, server: QueryServer, query_json: Any) -> Any:
+def _deadline_submit(batcher, server: QueryServer, query_json: Any,
+                     obs: Optional[dict] = None) -> Any:
     """Enqueue, wait at most the deadline, and on expiry shed: count it,
     mark the entry abandoned so pickup skips it, and answer 503 rather
     than hold the HTTP worker on a wedged launch."""
-    e = _Submit(query_json, batcher.deadline_sec)
+    e = _Submit(query_json, batcher.deadline_sec, obs)
     batcher._q.put(e)
     if e.deadline is None:
         e.done.wait()
@@ -1219,7 +1622,8 @@ def _deadline_submit(batcher, server: QueryServer, query_json: Any) -> Any:
     if e.done.wait(timeout=batcher.deadline_sec):
         return e.result
     e.abandoned = True
-    server._count_shed()
+    server._deadline_exceeded.inc()
+    server._query_errors.labels(status="503").inc()
     return HTTPError(
         503, f"query shed: not served within the "
              f"{batcher.deadline_sec * 1000.0:.0f}ms queue deadline "
@@ -1290,8 +1694,8 @@ class MicroBatcher:
         for t in self._threads:
             t.start()
 
-    def submit(self, query_json: Any) -> Any:
-        return _deadline_submit(self, self.server, query_json)
+    def submit(self, query_json: Any, obs: Optional[dict] = None) -> Any:
+        return _deadline_submit(self, self.server, query_json, obs)
 
     def close(self, timeout: float = 5.0) -> None:
         """Stop the drainers: one close sentinel per live drainer, then
@@ -1305,16 +1709,30 @@ class MicroBatcher:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
 
     def _drain(self) -> None:
+        server = self.server
         while True:
             first = self._q.get()
             if first is _CLOSE:
                 return
+            # the backlog this batch found at pickup
+            server._queue_depth.observe(self._q.qsize() + 1)
             batch = _form_batch(self._q, first, self.max_batch, self.window)
             if not batch:
                 continue
+            t_pick = time.monotonic()
+            qwait = server._phase_hist.labels(phase="queue_wait")
+            for e in batch:
+                wait = t_pick - e.t_enq
+                qwait.observe(wait)
+                if e.obs is not None:
+                    e.obs["queueWaitMs"] = round(wait * 1000, 3)
+                    tr = server._trace_of(e.obs)
+                    if tr is not None:
+                        tr.add_span("queue_wait", e.t_enq, t_pick)
             try:
-                results = self.server.query_batch(
-                    [e.query_json for e in batch])
+                results = server.query_batch(
+                    [e.query_json for e in batch],
+                    obs_list=[e.obs for e in batch])
             except Exception as exc:  # noqa: BLE001 — fail the batch, keep draining
                 log.exception("batched query failed")
                 results = [HTTPError(500, str(exc))] * len(batch)
@@ -1331,7 +1749,7 @@ class _AssembledBatch:
 
     __slots__ = ("entries", "queries", "out", "live", "supplemented",
                  "algorithms", "models", "serving", "binding_id", "phases",
-                 "pending")
+                 "pending", "t_dispatched")
 
     def __init__(self, entries, queries, out, live, supplemented,
                  algorithms, models, serving, binding_id, phases):
@@ -1346,6 +1764,9 @@ class _AssembledBatch:
         self.binding_id = binding_id
         self.phases = phases
         self.pending: Optional[PendingBatch] = None
+        #: when the dispatch stage picked the batch up: the anchor of the
+        #: device stages' spans
+        self.t_dispatched: Optional[float] = None
 
 
 class StagedPipeline:
@@ -1408,8 +1829,8 @@ class StagedPipeline:
         for t in self._threads:
             t.start()
 
-    def submit(self, query_json: Any) -> Any:
-        return _deadline_submit(self, self.server, query_json)
+    def submit(self, query_json: Any, obs: Optional[dict] = None) -> Any:
+        return _deadline_submit(self, self.server, query_json, obs)
 
     def close(self, timeout: float = 5.0) -> None:
         """Drain and stop stage by stage, upstream first: the assemble
@@ -1439,6 +1860,10 @@ class StagedPipeline:
                 first = self._q.get()
                 if first is _CLOSE:
                     return  # the finally frees the slot
+                depth = self._q.qsize() + 1
+                server._queue_depth.observe(depth)
+                server._pipeline_qdepth.labels(queue="submit").observe(
+                    depth)
                 batch = _form_batch(self._q, first, self.max_batch,
                                     self.window)
                 if not batch:
@@ -1455,7 +1880,8 @@ class StagedPipeline:
                     ab = None
                 finally:
                     server.overlap.exit("assemble")
-                    server._record_stage("assemble", time.monotonic() - t0)
+                    server._pipeline_stage_hist.labels(
+                        stage="assemble").observe(time.monotonic() - t0)
                 if ab is not None and ab.entries:
                     self._dispatch_q.put(ab)
                     handed_off = True  # the readback stage frees the slot
@@ -1468,6 +1894,13 @@ class StagedPipeline:
         with server._lock:
             algorithms, models = server.algorithms, server.models
             serving, binding_id = server.serving, server.binding_id
+        t_pick = time.monotonic()
+        qwait = server._phase_hist.labels(phase="queue_wait")
+        for e in batch:
+            wait = t_pick - e.t_enq
+            qwait.observe(wait)
+            if e.obs is not None:
+                e.obs["queueWaitMs"] = round(wait * 1000, 3)
         query_cls = algorithms[0].query_class
         entries: List[_Submit] = []
         queries: List[Any] = []
@@ -1478,7 +1911,8 @@ class StagedPipeline:
                 entries.append(e)
             except (TypeError, ValueError) as err:
                 # a malformed query completes HERE, off the device
-                server._count_error(400)
+                server._query_errors.labels(status="400").inc()
+                server._latency_hist.observe(time.monotonic() - e.t_enq)
                 e.result = HTTPError(400, str(err))
                 e.done.set()
         phases: Dict[str, float] = {"assemble": time.monotonic() - t0}
@@ -1499,9 +1933,14 @@ class StagedPipeline:
             ab = self._dispatch_q.get()
             if ab is _CLOSE:
                 return
+            server._pipeline_qdepth.labels(queue="dispatch").observe(
+                self._dispatch_q.qsize() + 1)
             t0 = time.monotonic()
             in_flight_before = server.overlap.enter(DEVICE_TRACK)
             try:
+                # the dispatch half: nothing here may wait on the card;
+                # the traces' spans are laid out at readback from these
+                # host times
                 resolvers = (dispatch_batch(ab.algorithms, ab.models,
                                             ab.supplemented,
                                             timings=ab.phases,
@@ -1517,8 +1956,10 @@ class StagedPipeline:
             if in_flight_before > 0:
                 # launched while an earlier batch was still on the
                 # device: the pipeline's overlap, counted
-                server._count_overlapped()
-            server._record_stage("dispatch", time.monotonic() - t0)
+                server._pipeline_overlapped.inc()
+            ab.t_dispatched = t0
+            server._pipeline_stage_hist.labels(stage="dispatch").observe(
+                time.monotonic() - t0)
             self._readback_q.put(ab)
 
     # -- stage 3: readback ---------------------------------------------------
@@ -1528,6 +1969,8 @@ class StagedPipeline:
             ab = self._readback_q.get()
             if ab is _CLOSE:
                 return
+            server._pipeline_qdepth.labels(queue="readback").observe(
+                self._readback_q.qsize() + 1)
             t0 = time.monotonic()
             try:
                 results = ab.pending.resolve(ab.phases)
@@ -1549,12 +1992,15 @@ class StagedPipeline:
                         entry.done.set()
             finally:
                 server.overlap.exit("readback")
-                server._record_stage("readback", time.monotonic() - t0)
+                server._pipeline_stage_hist.labels(
+                    stage="readback").observe(time.monotonic() - t0)
 
 
 def build_app(server: QueryServer) -> HTTPApp:
     app = HTTPApp("engineserver")
     app_server_ref: List[AppServer] = []
+    cfg = server.config
+    _auth = make_key_auth(cfg.accesskey)
 
     @app.route("POST", "/queries.json")
     def queries(req: Request) -> Response:
@@ -1572,13 +2018,14 @@ def build_app(server: QueryServer) -> HTTPApp:
                 server.mirror_to_candidate(query_json)
             else:
                 try:
-                    return json_response(server.serve_candidate(query_json))
+                    return json_response(server.serve_candidate(
+                        query_json, obs=req.obs))
                 except HTTPError as e:
                     if e.status != 503:
                         raise
                     # the candidate was unbound mid-flight (a rollback
                     # won the race): the stable arm serves below
-        return json_response(server.serve(query_json))
+        return json_response(server.serve(query_json, obs=req.obs))
 
     def _body(req: Request) -> dict:
         try:
@@ -1588,6 +2035,7 @@ def build_app(server: QueryServer) -> HTTPApp:
 
     @app.route("POST", "/reload")
     def reload(req: Request) -> Response:
+        _auth(req)
         instance_id = server.reload()
         return json_response({"message": "Reloading...",
                               "engineInstanceId": instance_id})
@@ -1618,6 +2066,7 @@ def build_app(server: QueryServer) -> HTTPApp:
         from ..rollout import HealthPolicy
         from ..rollout.splitter import parse_fraction
 
+        _auth(req)
         try:
             body = req.json() or {}
         except (ValueError, UnicodeDecodeError) as e:
@@ -1649,6 +2098,7 @@ def build_app(server: QueryServer) -> HTTPApp:
     def release_promote(req: Request) -> Response:
         """Force-promote the live candidate to stable (skips the rest of
         the ramp; the operator's override for shadow rollouts)."""
+        _auth(req)
         releases = server._require_releases()
         reason = _body(req).get("reason") or "operator promote"
         rollout = server.rollout
@@ -1669,6 +2119,7 @@ def build_app(server: QueryServer) -> HTTPApp:
     def release_rollback(req: Request) -> Response:
         """Roll back: abort the live candidate, or, with none bound,
         revert stable to the previous release and rebind it."""
+        _auth(req)
         releases = server._require_releases()
         reason = _body(req).get("reason") or "operator rollback"
         rollout = server.rollout
@@ -1685,12 +2136,6 @@ def build_app(server: QueryServer) -> HTTPApp:
         instance_id = server.reload()  # binds the re-pinned previous
         return json_response({"message": "Rolled back.",
                               "engineInstanceId": instance_id})
-
-    @app.route("GET", "/metrics")
-    def metrics(req: Request) -> Response:
-        return Response(body=server.metrics.render(),
-                        content_type="text/plain; version=0.0.4; "
-                                     "charset=utf-8")
 
     @app.route("GET", "/status.json")
     def status(req: Request) -> Response:
@@ -1710,6 +2155,36 @@ def build_app(server: QueryServer) -> HTTPApp:
         if p.get("deadlineExceeded"):
             parts.append(f"deadline sheds {p['deadlineExceeded']}")
         return "<li>" + html.escape(" · ".join(parts)) + "</li>"
+
+    def _trace_line() -> str:
+        """The flight recorder: retained of the ring, the live slow
+        threshold, a profiler capture running."""
+        if server.tracer is None:
+            return ""
+        t = server.tracer.status()
+        parts = [f"flight recorder: {t['retained']}/"
+                 f"{t['ringCapacity']} retained"]
+        if t.get("slowThresholdMs") is not None:
+            parts.append(f"slow ≥ {t['slowThresholdMs']:.1f}ms")
+        if server.profiler.active:
+            parts.append("device profile capturing")
+        return ("<li>" + html.escape(" · ".join(parts))
+                + " (<a href='/trace.json'>trace.json</a>)</li>")
+
+    def _span_table() -> str:
+        """Percentiles of each query phase and the end-to-end latency."""
+        rows = [f"<tr><td>{html.escape(name)}</td><td>{s['count']}</td>"
+                f"<td>{s['p50'] * 1000:.3f}</td>"
+                f"<td>{s['p90'] * 1000:.3f}</td>"
+                f"<td>{s['p99'] * 1000:.3f}</td>"
+                f"<td>{s['max_sec'] * 1000:.3f}</td></tr>"
+                for name, s in sorted(server.spans_summary().items())]
+        if not rows:
+            return ""
+        return ("<h2>Latency percentiles</h2>"
+                "<table border='1'><tr><th>series</th><th>count</th>"
+                "<th>p50 (ms)</th><th>p90 (ms)</th><th>p99 (ms)</th>"
+                "<th>max (ms)</th></tr>" + "".join(rows) + "</table>")
 
     def _stream_line() -> str:
         """The batch and stream blend serving now: base, fold-in
@@ -1759,8 +2234,7 @@ def build_app(server: QueryServer) -> HTTPApp:
     @app.route("GET", "/")
     def index(req: Request) -> Response:
         """The status page. Left out until their data is ported
-        (``ROADMAP.md`` queue 1): the span percentile table and the
-        trace line (item 10), the cache line (item 8), the SLO line
+        (``ROADMAP.md`` queue 1): the cache line (item 8), the SLO line
         (item 14), the mesh panel and the sharding line (item 13); the
         JAX package's "compiles since warm" counts XLA compiles."""
         inst = server.instance
@@ -1784,7 +2258,8 @@ def build_app(server: QueryServer) -> HTTPApp:
             f"<li>requests served: {served}</li>"
             f"<li>average serving: {avg * 1000:.3f} ms</li>"
             f"<li>last serving: {last * 1000:.3f} ms</li>"
-            f"{_pipeline_line()}{_stream_line()}</ul>{_release_panel()}"
+            f"{_pipeline_line()}{_stream_line()}{_trace_line()}</ul>"
+            f"{_release_panel()}{_span_table()}"
             "<p><a href='/metrics'>Prometheus metrics</a> · "
             "<a href='/status.json'>status.json</a></p></body></html>")
         return Response(body=body, content_type="text/html")
@@ -1794,6 +2269,7 @@ def build_app(server: QueryServer) -> HTTPApp:
         """Flip this server to ``lifecycle`` draining: it keeps serving
         what arrives, but advertises that nothing new should. Idempotent;
         it does not stop the server (``/stop`` does)."""
+        _auth(req)
         server.enter_drain()
         return json_response({"lifecycle": server.lifecycle})
 
@@ -1819,7 +2295,7 @@ def build_app(server: QueryServer) -> HTTPApp:
         the deploy's config names the app. 409 when one is running."""
         from ..streaming import StreamConfig
 
-        cfg = server.config
+        _auth(req)
         try:
             body = req.json() or {}
         except (ValueError, UnicodeDecodeError):
@@ -1846,12 +2322,15 @@ def build_app(server: QueryServer) -> HTTPApp:
 
     @app.route("POST", "/stream/stop")
     def stream_stop(req: Request) -> Response:
+        _auth(req)
         if not server.stop_stream():
             raise HTTPError(409, "no streaming trainer is running")
         return json_response({"message": "Streaming trainer stopped."})
 
     @app.route("POST", "/stop")
     def stop(req: Request) -> Response:
+        _auth(req)
+
         def delayed_shutdown():
             # let THIS response flush before the listener goes down
             time.sleep(0.25)
@@ -1860,6 +2339,65 @@ def build_app(server: QueryServer) -> HTTPApp:
         threading.Thread(target=delayed_shutdown, daemon=True,
                          name="engineserver-stop").start()
         return json_response({"message": "Shutting down..."})
+
+    @app.route("GET", "/plugins.json")
+    def plugins_json(req: Request) -> Response:
+        return json_response({"plugins": server.plugins.describe()})
+
+    @app.route("GET", r"/plugins/(?P<ptype>[^/]+)/(?P<pname>[^/]+)"
+                      r"(?P<rest>(/[^/]+)*)")
+    def plugin_rest(req: Request) -> Response:
+        """A plugin's own REST surface
+        (``/plugins/<outputblockers|outputsniffers>/<name>/<args...>``),
+        key-guarded like the other control routes."""
+        _auth(req)
+        plugin, args = resolve_plugin(
+            {"outputblockers": server.plugins.output_blockers,
+             "outputsniffers": server.plugins.output_sniffers},
+            req.path_params["ptype"], req.path_params["pname"],
+            req.path_params["rest"])
+        return json_response(plugin.handle_rest(args))
+
+    @app.route("POST", "/profile")
+    def profile_start(req: Request) -> Response:
+        """Capture a ``torch.profiler`` window (CPU, and CUDA on the card)
+        into the artifact dir: ``{"durationMs": 1000}``. 202 once the
+        capture runs, 400 for a window out of range, 409 while another
+        capture holds the profiler. Key-guarded: a profile exposes
+        internals and costs overhead while it runs."""
+        _auth(req)
+        try:
+            body = req.json() or {}
+        except (ValueError, UnicodeDecodeError):
+            body = {}
+        try:
+            info = server.profiler.start(
+                float(body.get("durationMs", 1000.0)))
+        except (TypeError, ValueError) as e:
+            raise HTTPError(400, str(e))
+        except RuntimeError as e:
+            raise HTTPError(409, str(e))
+        return json_response({
+            "message": "Profiling.", **info,
+            "hint": "poll GET /profile.json; each capture's dir holds a "
+                    "trace.json for ui.perfetto.dev or chrome://tracing"},
+            202)
+
+    @app.route("GET", "/profile.json")
+    def profile_json(req: Request) -> Response:
+        """The running capture, the last 20 finished, and the artifact
+        dirs under the base dir. (The JAX package's per-executable
+        compile-time table counts XLA compiles: not ported.)"""
+        return json_response(server.profiler.status())
+
+    # /metrics, /metrics.json and the request instrumentation through the
+    # server's own registry (the engine server keeps its own
+    # /status.json); the tracer adds traceparent propagation and GET
+    # /trace.json
+    mount_metrics(app, server.metrics, server_name="engineserver",
+                  tracer=(server.tracer if server.tracer is not None
+                          else False))
+    app.access_log_sample = cfg.access_log_sample
 
     app._server_ref = app_server_ref  # type: ignore[attr-defined]
     return app

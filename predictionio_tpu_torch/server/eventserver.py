@@ -15,17 +15,30 @@ status codes and JSON bodies are the JAX package's:
   ``{"accepted": n}``;
 - ``GET /events.json``: a filtered query (default limit 20), 404 when
   nothing matches;
-- ``GET`` / ``DELETE /events/<id>.json``.
+- ``GET`` / ``DELETE /events/<id>.json``;
+- ``GET`` / ``POST /webhooks/<name>.json`` and ``.form``: a provider's
+  payload through its connector (``data/webhooks/``: segment.io JSON,
+  MailChimp forms) into one event -> 201 ``{"eventId"}``;
+- ``GET /stats.json``: the app's per-hour counts where the server was
+  built with ``stats=True`` (``eventserver --stats``), else a 404 that
+  says how to turn them on;
+- ``GET /plugins.json`` and ``/plugins/<type>/<name>/...``: the input
+  blockers and sniffers (``server/plugins.py``), which see every event
+  the JSON routes accept;
+- ``GET /metrics``, ``/metrics.json``, ``/status.json`` and
+  ``/trace.json`` (``server/http.py::mount_metrics``), with
+  ``pio_events_ingested_total{route}`` and ``pio_stats_enabled``.
+
+An event posted with a ``traceparent`` header is stored with that
+request's trace context as its ``pio_traceparent`` property, so the
+stream trainer's fold-in pass joins the ingest's trace; an event from a
+caller that sent none is stored as it was posted.
 
 Every accepted ingest is published to the invalidation bus
 (``cache/bus.py``; the process-wide one unless ``bus`` is given): a
 single event on its own, a batch or a column block coalesced through one
 ``publish_many``. A stream trainer in the same process wakes on it. A
 failed publish is logged and never fails the ingest.
-
-Left out (``ROADMAP.md`` queue 1): event-server plugins, webhooks,
-``/stats.json``, ``/metrics`` and trace stamping; those routes answer
-404, and ``stats=True`` raises.
 """
 
 from __future__ import annotations
@@ -38,12 +51,29 @@ from typing import List, Optional
 import numpy as np
 
 from ..cache.bus import InvalidationBus, default_bus
+from ..data.datamap import DataMap
 from ..data.event import Event, EventValidationError, parse_iso
-from ..data.storage.base import ANY, LEFT_OUT, EventFilter
+from ..data.storage.base import ANY, EventFilter
 from ..data.storage.registry import Storage, get_storage
 from ..data.storage.wire import batch_from_npz
-from .http import AppServer, HTTPApp, HTTPError, Request, Response, \
-    json_response
+from ..data.webhooks import (
+    ConnectorException,
+    form_connectors,
+    json_connectors,
+    to_event,
+)
+from ..obs import MetricsRegistry
+from .http import (
+    AppServer,
+    HTTPApp,
+    HTTPError,
+    Request,
+    Response,
+    json_response,
+    mount_metrics,
+)
+from .plugins import EventServerPlugins, resolve_plugin
+from .stats import StatsCollector
 
 log = logging.getLogger(__name__)
 
@@ -104,27 +134,82 @@ def _parse_event(load) -> Event:
 
 def build_app(storage: Optional[Storage] = None, *,
               stats: bool = False,
+              plugins: Optional[EventServerPlugins] = None,
               bus: Optional[InvalidationBus] = None) -> HTTPApp:
-    if stats:
-        raise NotImplementedError(f"/stats.json is {LEFT_OUT}")
     st = storage if storage is not None else get_storage()
+    collector = StatsCollector() if stats else None
+    plug = plugins or EventServerPlugins()
     inval_bus = bus if bus is not None else default_bus()
     app = HTTPApp("eventserver")
+    app.plugins = plug  # type: ignore[attr-defined]  # closed with the server
 
-    def _publish(app_id: int, items: List[tuple]) -> None:
-        """Best-effort bus publish of ``(entity_type, entity_id,
-        event)`` items: ingest never fails because a subscriber did."""
+    registry = MetricsRegistry()
+    registry.gauge("pio_stats_enabled",
+                   "1 when the --stats per-app collector is on"
+                   ).set(1.0 if stats else 0.0)
+    ingested = registry.counter(
+        "pio_events_ingested_total",
+        "Events accepted into the store, by ingest route")
+    published = registry.counter(
+        "pio_cache_bus_published_total",
+        "Ingested events published to the serving-cache invalidation "
+        "bus (deliveries = publishes × live subscribers)")
+    mount_metrics(app, registry, server_name="eventserver",
+                  status=lambda: {"status": "alive",
+                                  "statsEnabled": bool(collector)})
+    app.metrics_registry = registry  # type: ignore[attr-defined]
+
+    def _publish(app_id: int, items: List[tuple], n: int) -> None:
+        """Best-effort bus publish of ``(entity_type, entity_id, event)``
+        items standing for ``n`` accepted events: ingest never fails
+        because a subscriber did."""
         try:
             if len(items) == 1:
                 inval_bus.publish(app_id, *items[0])
             else:
                 inval_bus.publish_many(app_id, items)
+            published.inc(n)
         except Exception as e:  # noqa: BLE001 — ingest goes on
             log.error("invalidation publish failed: %s", e)
+
+    def _stamp_trace(req: Request, event: Event) -> Event:
+        """The ingest request's trace context as the event's
+        ``pio_traceparent`` property, only where the CALLER sent a
+        ``traceparent`` (a request joins a trace; the server never
+        imposes one) and no relay stamped it already."""
+        if req.trace is None or req.trace.parent_span_id is None \
+                or "pio_traceparent" in event.properties:
+            return event
+        return event.copy(properties=DataMap(
+            {**event.properties, "pio_traceparent":
+             req.trace.traceparent()}))
+
+    def _book(app_id: int, event: Event) -> None:
+        if collector:
+            collector.bookkeeping(app_id, 201, event)
 
     @app.route("GET", "/")
     def index(req: Request) -> Response:
         return json_response({"status": "alive"})
+
+    @app.route("GET", "/plugins.json")
+    def plugins_json(req: Request) -> Response:
+        return json_response({"plugins": plug.describe()})
+
+    @app.route("GET", r"/plugins/(?P<ptype>[^/]+)/(?P<pname>[^/]+)"
+                      r"(?P<rest>(/[^/]+)*)")
+    def plugin_rest(req: Request) -> Response:
+        """A plugin's own REST surface, behind the access key: its
+        ``handle_rest`` gets the caller's app and channel and the
+        remaining path segments."""
+        auth = authenticate(st, req)
+        plugin, args = resolve_plugin(
+            {"inputblockers": plug.input_blockers,
+             "inputsniffers": plug.input_sniffers},
+            req.path_params["ptype"], req.path_params["pname"],
+            req.path_params["rest"])
+        return json_response(
+            plugin.handle_rest(auth.app_id, auth.channel_id, args))
 
     @app.route("POST", "/events.json")
     def post_event(req: Request) -> Response:
@@ -132,9 +217,13 @@ def build_app(storage: Optional[Storage] = None, *,
         event = _parse_event(req.json)
         if not _allowed(auth, event.event):
             return json_response({"message": _not_allowed(event.event)}, 403)
+        event = _stamp_trace(req, event)
+        plug.process_input(auth.app_id, auth.channel_id, event)
         event_id = st.events().insert(event, auth.app_id, auth.channel_id)
+        ingested.labels(route="events").inc()
         _publish(auth.app_id, [(event.entity_type, event.entity_id,
-                                event.event)])
+                                event.event)], 1)
+        _book(auth.app_id, event)
         return json_response({"eventId": event_id}, 201)
 
     @app.route("GET", "/events.json")
@@ -179,13 +268,18 @@ def build_app(storage: Optional[Storage] = None, *,
         valid: list = []  # (position in results, event)
         for obj in payload:
             try:
-                event = _parse_event(lambda: obj)
+                event = _stamp_trace(req, _parse_event(lambda: obj))
             except HTTPError as e:
                 results.append({"status": 400, "message": e.message})
                 continue
             if not _allowed(auth, event.event):
                 results.append({"status": 403,
                                 "message": _not_allowed(event.event)})
+                continue
+            try:
+                plug.process_input(auth.app_id, auth.channel_id, event)
+            except Exception as e:  # noqa: BLE001 — per-event isolation
+                results.append({"status": 500, "message": str(e)})
                 continue
             results.append(None)  # filled below
             valid.append((len(results) - 1, event))
@@ -211,8 +305,11 @@ def build_app(storage: Optional[Storage] = None, *,
             accepted = [event for pos, event in valid
                         if results[pos]["status"] == 201]
             if accepted:
+                ingested.labels(route="batch").inc(len(accepted))
+                for e in accepted:
+                    _book(auth.app_id, e)
                 _publish(auth.app_id, [(e.entity_type, e.entity_id, e.event)
-                                       for e in accepted])
+                                       for e in accepted], len(accepted))
         return json_response(results)
 
     @app.route("POST", "/columnar/events.npz")
@@ -231,6 +328,7 @@ def build_app(storage: Optional[Storage] = None, *,
             if bad:
                 return json_response({"message": _not_allowed(bad[0])}, 403)
         n = st.events().insert_columnar(batch, auth.app_id, auth.channel_id)
+        ingested.labels(route="columnar").inc(n)
         if n:
             # one publish of the block's unique (type, id, event) triples
             d = batch.dicts
@@ -238,8 +336,24 @@ def build_app(storage: Optional[Storage] = None, *,
                                        batch.event], axis=1), axis=0)
             _publish(auth.app_id, [
                 (d.entity_types.values[int(a)], d.entity_ids.values[int(b)],
-                 d.event_names.values[int(c)]) for a, b, c in uniq])
+                 d.event_names.values[int(c)]) for a, b, c in uniq], n)
+        if collector:
+            collector.bookkeeping_bulk(auth.app_id, 201, batch)
         return json_response({"accepted": int(n)}, 201)
+
+    @app.route("GET", "/stats.json")
+    def get_stats(req: Request) -> Response:
+        auth = authenticate(st, req)
+        if collector is None:
+            return json_response(
+                {"message": "To see stats, launch Event Server with --stats "
+                            "argument.",
+                 "statsEnabled": False,
+                 "hint": "Restart with `ptpu eventserver --stats` — the "
+                         "collector only exists when enabled at boot. "
+                         "Aggregate counters are always available at "
+                         "/metrics and /status.json."}, 404)
+        return json_response(collector.get(auth.app_id))
 
     @app.route("GET", r"/events/(?P<event_id>[^/]+)\.json")
     def get_event(req: Request) -> Response:
@@ -258,13 +372,56 @@ def build_app(storage: Optional[Storage] = None, *,
             return json_response({"message": "Found"})
         return json_response({"message": "Not Found"}, 404)
 
+    def _webhook_post(req: Request, name: str, is_form: bool) -> Response:
+        auth = authenticate(st, req)
+        connector = (form_connectors if is_form
+                     else json_connectors).get(name)
+        if connector is None:
+            return json_response(
+                {"message": f"webhooks connection for {name} is not "
+                            "supported."}, 404)
+        try:
+            data = req.form() if is_form else req.json()
+            event = _stamp_trace(req, to_event(connector, data))
+        except (ConnectorException, EventValidationError, ValueError) as e:
+            raise HTTPError(400, str(e))
+        event_id = st.events().insert(event, auth.app_id, auth.channel_id)
+        ingested.labels(route="webhook").inc()
+        _publish(auth.app_id, [(event.entity_type, event.entity_id,
+                                event.event)], 1)
+        _book(auth.app_id, event)
+        return json_response({"eventId": event_id}, 201)
+
+    def _webhook_get(req: Request, name: str, is_form: bool) -> Response:
+        authenticate(st, req)
+        if name in (form_connectors if is_form else json_connectors):
+            return json_response({"message": "Ok"})
+        return json_response(
+            {"message": f"webhooks connection for {name} is not supported."},
+            404)
+
+    for suffix, is_form in ((r"\.json", False), (r"\.form", True)):
+        pattern = r"/webhooks/(?P<name>[^/]+)" + suffix
+        app.route("POST", pattern)(
+            lambda req, f=is_form: _webhook_post(
+                req, req.path_params["name"], f))
+        app.route("GET", pattern)(
+            lambda req, f=is_form: _webhook_get(
+                req, req.path_params["name"], f))
+
     return app
 
 
 def create_event_server(storage: Optional[Storage] = None,
                         host: str = "0.0.0.0", port: int = 7070,
                         stats: bool = False,
-                        bus: Optional[InvalidationBus] = None) -> AppServer:
+                        bus: Optional[InvalidationBus] = None,
+                        plugins: Optional[EventServerPlugins] = None,
+                        ssl_context=None) -> AppServer:
     """Bind the event server (default port 7070), not yet serving: call
-    ``start_background()`` or ``serve_forever()`` on it."""
-    return AppServer(build_app(storage, stats=stats, bus=bus), host, port)
+    ``start_background()`` or ``serve_forever()`` on it. ``close()``
+    also stops the plugins' sniffer thread."""
+    app = build_app(storage, stats=stats, plugins=plugins, bus=bus)
+    srv = AppServer(app, host, port, ssl_context=ssl_context)
+    srv.on_close(app.plugins.close)
+    return srv

@@ -25,9 +25,16 @@ bus callback only sets a wake event. The apply re-checks the binding
 under the server's lock, so a rebind racing a fold-in voids the apply
 and the unadvanced cursor retries against the new base.
 
-Left out (``ROADMAP.md`` queue 1): the ``pio_stream_*`` metric families
-and the pass traces (item 10) and the cache invalidation of touched
-entities (item 8). The counts stay as attributes and in :meth:`status`.
+Telemetry: the ``pio_stream_*`` families on the server's registry, and a
+``stream.foldin`` trace a pass on the server's tracer (spans ``consume``,
+``fold_in``, ``canary``, ``hot_swap``, ``advance``). The pass trace
+adopts the trace context the event server stamped into the first traced
+event (``pio_traceparent``), so the ingest request and the fold-in that
+made it servable are one trace; the other events' trace ids ride in the
+``links`` attribute. An applied or refused pass is always retained.
+
+Left out (``ROADMAP.md`` queue 1 item 8): the cache invalidation of the
+touched entities.
 """
 
 from __future__ import annotations
@@ -41,9 +48,12 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from ..cache.bus import InvalidationBus, default_bus
+from ..data.event import to_millis
 from ..data.storage.base import StorageError
 from ..faults import FaultError, declare, fire
 from ..models.als import fixed_gramian, recommend_products
+from ..obs import DEFAULT_LATENCY_BOUNDS
+from ..obs.trace import parse_traceparent
 from ..rollout.policy import ArmWindow, HealthPolicy
 from ..utils.retrying import RetryPolicy, retry_call
 from .cursor import EventCursor
@@ -140,8 +150,48 @@ class StreamTrainer:
         self.applies = 0
         self.rejects = 0
         self.events_consumed = 0
+        self._register_metrics(server.metrics)
         self.bus = bus if bus is not None else default_bus()
         self.bus.subscribe(self, "on_ingest")
+
+    # -- metrics -------------------------------------------------------------
+    def _register_metrics(self, registry) -> None:
+        self._m_consumed = registry.counter(
+            "pio_stream_events_consumed_total",
+            "Events consumed from the log by the streaming trainer")
+        self._m_foldin = registry.histogram(
+            "pio_stream_foldin_seconds",
+            "Wall time of one fold-in pass (assembly + device solves "
+            "+ delta apply)", bounds=DEFAULT_LATENCY_BOUNDS)
+        self._m_freshness = registry.histogram(
+            "pio_stream_freshness_seconds",
+            "Event→servable freshness: ingest creation time to the "
+            "moment the folded rows were serving",
+            bounds=DEFAULT_LATENCY_BOUNDS)
+        self._m_applies = registry.counter(
+            "pio_stream_applies_total",
+            "Fold-in deltas hot-swapped into the serving binding")
+        self._m_rows = registry.counter(
+            "pio_stream_rows_updated_total",
+            "Factor rows written by fold-in, by kind "
+            "(updated / user_cold / item_cold)")
+        self._m_rejects = registry.counter(
+            "pio_stream_canary_rejects_total",
+            "Fold-in deltas the HealthPolicy probe gate refused to "
+            "swap in")
+        registry.gauge(
+            "pio_stream_cursor_lag",
+            "Unconsumed relevant events behind the durable cursor at "
+            "the last pass (scan-capped)",
+            fn=lambda: float(self._last_lag))
+        registry.gauge(
+            "pio_stream_drift_score",
+            "DriftMonitor score (>= threshold flags a full retrain)",
+            fn=lambda: self.drift.score())
+        registry.gauge(
+            "pio_stream_running",
+            "1 while the streaming trainer loop is alive",
+            fn=lambda: 1.0 if self.running else 0.0)
 
     # -- lifecycle -----------------------------------------------------------
     @property
@@ -208,12 +258,49 @@ class StreamTrainer:
         retry_call(self.cursor.save, policy=_STORAGE_RETRY,
                    retry_on=_STORAGE_ERRORS)
 
+    def _begin_pass_trace(self, events):
+        """Open the pass's ``stream.foldin`` trace on the server's tracer
+        (None without one), adopting the first traced event's
+        ``pio_traceparent``; the other events' trace ids go in
+        ``links``."""
+        tracer = getattr(self.server, "tracer", None)
+        if tracer is None:
+            return None
+        parents = [str(tp) for tp in
+                   (e.properties.get("pio_traceparent", default=None)
+                    for e in events) if tp]
+        trace = tracer.begin(
+            "stream.foldin", traceparent=parents[0] if parents else None,
+            consumer=self.config.consumer, events=len(events))
+        links = set()
+        for tp in parents[1:]:
+            parsed = parse_traceparent(tp)
+            if parsed and parsed[0] != trace.trace_id:
+                links.add(parsed[0])
+        if links:
+            trace.set_attr("links", sorted(links)[:32])
+        return trace
+
+    def _finish_pass_trace(self, trace, outcome: str, **attrs) -> None:
+        tracer = getattr(self.server, "tracer", None)
+        if trace is None or tracer is None:
+            return
+        trace.set_attr("outcome", outcome)
+        for k, v in attrs.items():
+            trace.set_attr(k, v)
+        # an applied or refused pass is ALWAYS retained ("stream"): each
+        # is the serving half of some ingest's trace; the other outcomes
+        # go through the normal policy
+        force = "stream" if outcome in ("applied", "rejected") else None
+        tracer.finish(trace, force_reason=force)
+
     # -- one pass ------------------------------------------------------------
     def consume_once(self) -> int:
         """One consume -> fold -> canary -> apply -> advance pass; returns
         how many events were consumed (0: nothing pending, or the apply
         lost a rebind race and will retry)."""
         fire(F_PASS, consumer=self.config.consumer)
+        t_consume0 = time.monotonic()
         events = retry_call(
             self.cursor.pending, event_names=list(self.weights),
             entity_type="user", limit=self.config.max_events,
@@ -222,8 +309,12 @@ class StreamTrainer:
         if not events:
             return 0
         t0 = time.monotonic()
+        trace = self._begin_pass_trace(events)
+        if trace is not None:
+            trace.add_span("consume", t_consume0, t0, events=len(events))
         snap = self.server.stream_snapshot(self.config.algo_index)
         if snap is None:
+            self._finish_pass_trace(trace, "no-foldable-model")
             return 0  # no foldable model bound (not an ALS model)
         base_id, model = snap
         if base_id != self._base_seen:
@@ -233,10 +324,17 @@ class StreamTrainer:
             self._G = None
             self._retrain_fired = False
             self.drift.reset()
+        t_fold0 = time.monotonic()
         new_model, report = fold_in_events(
             model, events, self.storage, self.app_id,
             channel_id=self.channel_id, weights=self.weights,
             max_history=self.config.max_history, G=self._G)
+        if trace is not None:
+            trace.set_attr("baseInstanceId", base_id)
+            trace.add_span("fold_in", t_fold0, time.monotonic(),
+                           usersUpdated=report.users_updated,
+                           usersInserted=report.users_inserted,
+                           itemsInserted=report.items_inserted)
         if model.params.implicit_prefs and report.items_inserted == 0 \
                 and self._G is None:
             # amortize the fixed-side Gramian across batches that leave
@@ -251,32 +349,63 @@ class StreamTrainer:
         if report.events_relevant == 0:
             # nothing projectable: just move the cursor past them
             self._advance_durable(events)
+            self._finish_pass_trace(trace, "no-relevant-events")
             return len(events)
+        t_canary0 = time.monotonic()
         verdict = self._canary_check(model, new_model, touched)
+        if trace is not None:
+            trace.add_span("canary", t_canary0, time.monotonic(),
+                           probes=min(len(touched),
+                                      self.config.canary_probes),
+                           action=(verdict.action if verdict is not None
+                                   else "skipped"))
         if verdict is not None and verdict.action == "rollback":
             # refuse the delta and move on (re-solving gives the same
             # rows); repeated refusals are what the drift lane is for
             self.rejects += 1
+            self._m_rejects.inc()
             log.warning("stream canary refused a fold-in delta: %s",
                         verdict.reason)
             self._record_release("stream-reject", base_id, verdict.reason)
             self._advance_durable(events)
             self._maybe_retrain()
+            self._finish_pass_trace(trace, "rejected",
+                                    reason=verdict.reason)
             return len(events)
+        t_swap0 = time.monotonic()
         applied = self.server.apply_stream_delta(
             self.config.algo_index, new_model, touched,
             base_instance_id=base_id,
             rows_updated=report.users_updated,
             rows_inserted=report.users_inserted + report.items_inserted)
+        if trace is not None:
+            trace.add_span("hot_swap", t_swap0, time.monotonic(),
+                           applied=applied, touchedEntities=len(touched))
         if not applied:
             # the binding moved under us: nothing consumed, the next
             # pass re-folds against the new base
             self._wake.set()
+            self._finish_pass_trace(trace, "rebind-race")
             return 0
+        t_adv0 = time.monotonic()
         self._advance_durable(events)
+        if trace is not None:
+            trace.add_span("advance", t_adv0, time.monotonic())
         dt = time.monotonic() - t0
+        now_ms = time.time() * 1000.0
+        for e in events:
+            self._m_freshness.observe(
+                max(0.0, (now_ms - to_millis(e.creation_time)) / 1000.0))
         self.events_consumed += len(events)
         self.applies += 1
+        self._m_consumed.inc(len(events))
+        self._m_applies.inc()
+        self._m_foldin.observe(dt)
+        self._m_rows.labels(kind="updated").inc(report.users_updated)
+        if report.users_inserted:
+            self._m_rows.labels(kind="user_cold").inc(report.users_inserted)
+        if report.items_inserted:
+            self._m_rows.labels(kind="item_cold").inc(report.items_inserted)
         self._last_batch = {
             "events": len(events),
             "relevant": report.events_relevant,
@@ -286,6 +415,9 @@ class StreamTrainer:
             "residual": report.residual,
             "foldinMs": round(dt * 1000, 3),
         }
+        self._finish_pass_trace(trace, "applied",
+                                foldinMs=round(dt * 1000, 3),
+                                generation=self.applies)
         self._maybe_retrain()
         return len(events)
 

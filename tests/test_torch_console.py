@@ -55,6 +55,7 @@ from predictionio_tpu_torch.data.storage.base import (
     EventFilter,
 )
 from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.obs.trace import parse_traceparent
 from predictionio_tpu_torch.data.store import EventStoreFacade
 from predictionio_tpu_torch.models.convert import als_model_from_numpy
 from predictionio_tpu_torch.pypio import PEventStore, events_to_columns
@@ -329,9 +330,14 @@ def test_dashboard_routes_answer_like_jax(tmp_path):
         want, got = get("jax", path), get("port", path)
         assert (got.status, got.encoded(), got.content_type) \
             == (want.status, want.encoded(), want.content_type), suffix
-        # the JAX package's request-id and trace headers are item 10's
-        assert got.headers == {k: v for k, v in want.headers.items()
-                               if k not in ("X-Request-ID", "traceparent")}
+        # the request id and the trace context are per request: the same
+        # keys, a well-formed traceparent, every other header equal
+        assert got.headers.keys() == want.headers.keys()
+        assert parse_traceparent(got.headers["traceparent"]) is not None
+        assert {k: v for k, v in got.headers.items()
+                if k not in ("X-Request-ID", "traceparent")} \
+            == {k: v for k, v in want.headers.items()
+                if k not in ("X-Request-ID", "traceparent")}
     assert get("port", "/engine_instances/nope/evaluator_results.txt") \
         .status == get("jax", "/engine_instances/nope/"
                               "evaluator_results.txt").status == 404

@@ -180,11 +180,6 @@ def test_same_answer_as_the_jax_server(servers, step):
     assert blank(pb) == blank(jb)
 
 
-def test_stats_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        create_event_server(PStorage(env=MEMORY), "127.0.0.1", 0, stats=True)
-
-
 def test_columnar_block_lands_as_events():
     st = seed(PStorage(env=MEMORY), pbase)
     srv = create_event_server(st, "127.0.0.1", 0).start_background()

@@ -91,6 +91,23 @@ def test_the_template_modules_are_scanned(rel):
     assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
 
 
+@pytest.mark.parametrize("rel", [
+    "obs/histogram.py", "obs/registry.py", "utils/tracing.py",
+    "obs/runtime.py", "obs/trace.py", "obs/hotkeys.py", "obs/numerics.py",
+    "obs/__init__.py", "server/http.py", "server/plugins.py",
+    "server/stats.py", "data/webhooks/__init__.py",
+    "data/webhooks/segmentio.py", "data/webhooks/mailchimp.py",
+    "server/eventserver.py", "server/engineserver.py",
+    "streaming/trainer.py", "server/adminserver.py",
+    "server/dashboard.py", "cli.py"])
+def test_the_observability_modules_are_scanned(rel):
+    """The observability slice's modules, the port's own copies of
+    JAX-package modules that load no JAX among them, are in the scan
+    above."""
+    assert PACKAGE / rel in set(port_files()), rel
+    assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
+
+
 def test_every_module_imports():
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
@@ -120,6 +137,12 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.examples.recommendation_evaluation, "
             "predictionio_tpu_torch.examples.sequential_evaluation, "
             "predictionio_tpu_torch.templates, "
+            "predictionio_tpu_torch.obs, "
+            "predictionio_tpu_torch.obs.numerics, "
+            "predictionio_tpu_torch.server.plugins, "
+            "predictionio_tpu_torch.server.stats, "
+            "predictionio_tpu_torch.data.webhooks, "
+            "predictionio_tpu_torch.utils.tracing, "
             "predictionio_tpu_torch.e2; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
