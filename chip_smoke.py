@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
 lifecycle, batch-predict, evaluation, streaming fold-in, e-commerce,
 similar-product, sequential and classification template paths, the
-release lifecycle, the console and the telemetry once on the CUDA card and
-check them.
+release lifecycle, the console, the telemetry and the serving caches once
+on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -88,6 +88,44 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             scrape and the count of listed contexts unchanged, exit 0 on
             SIGINT. The launch counts are zeroed before
             the first burst and read after the second.
+4c. cache — the serving caches and the pinned hot-user tier over phase
+            4's tables: a burst of 2,048 queries (num 10) on 32
+            connections whose users are drawn Zipf(1.5) over the 138,493
+            users (the JAX package's load generator's skew; a few hundred
+            distinct users, all inside the hot tier's capacity of 512),
+            sent in turns to (a) a server with the cache off on the
+            per-query path, (b) ``serving_cache=True`` on the per-query
+            path (query tier, singleflight, hot tier at 512 entities,
+            re-pinned every 256 serves) twice: from a cold cache, then
+            after a refresh of the hot tier and with the query tier
+            emptied, and (c) ``serving_cache=True`` behind the staged
+            pipeline. Every answer is held to the plain top-k of the
+            bound int8 tables as in phase 4. Each burst prints its qps,
+            p50 and p99, each tier's hits, misses, hit ratio, entries and
+            bytes, the coalesced followers, the pinned serves, the hot
+            tier's refreshes, ``pinnedStale`` and ``refreshErrors`` (0,
+            or the phase fails), and the ``fused_topk`` launches split
+            into pinned serves, the pin's k-ladder and the full table
+            (``CacheLaunches``: the three sum to the wrapper's count). In
+            (b)'s second burst every query-tier miss must find its user
+            pinned, the pinned serves (positive) must equal those misses
+            less the coalesced followers, and the pinned launches the
+            pinned serves. Then on (b): one ``rate`` event for each of 8
+            cached hot users through an in-process event server grows the
+            query tier's invalidations by 8 and makes each one's next
+            answer a miss; ``apply_stream_delta`` with new rows for 4
+            pinned users (``apply_row_updates``) drops their handles and
+            starts a re-pin whose rows are the folded rows bit for bit,
+            and their next answers (and an untouched pinned user's) are
+            pinned serves held to the folded tables; ``POST
+            /cache/flush`` and a rebind (a candidate promoted) each empty
+            every tier. No thread is left after ``close()``. Last,
+            ``fused_topk`` at the pinned shapes on the f32, bf16 and int8
+            wires: a ``[512, 64]`` table from ``pin_user_rows`` (its rows
+            the source rows bit for bit), B = 1, k in {8, ..., 128} at
+            four slots, held to the plain version as phase 3 holds it and
+            to the full-table launch for the same user bit for bit, and
+            the pinned and full-table B = 1 launches event-timed in turns.
 5. train-kernel — the MovieLens-20M surrogate
             (``benchmarks/ml20m_surrogate.py``, 20,000,263 ratings from
             ``--seed``) is packed as training packs it; ``fused_gram`` runs
@@ -374,8 +412,8 @@ line (time, bound, plain and library times, launches on the main path,
 in the batch-predict job for ``fused_topk``, in the serial eval run, on
 the stream path, in the implicit iteration, in the templates phase, in
 phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
-and in phase 4b's counted bursts) and, last, ``{"ok": true, "device":
-{...}}``.
+in phase 4b's counted bursts and in phase 4c's counted part) and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -400,6 +438,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from datetime import datetime, timezone
 from pathlib import Path
 
 import numpy as np
@@ -1549,6 +1588,500 @@ def phase_telemetry(rng, U, V, dev, card) -> dict:
           f"merge_topk_kernel launches={merge_n} device_ms={merge_ms:.3f} | "
           f"{len(kernels)} kernel names in the window | {card_tag(card)}",
           flush=True)
+    return counted
+
+
+# -- the serving caches ------------------------------------------------------
+
+#: phase cache: the skew of the burst's users (the JAX package's load
+#: generator's Zipf, ``benchmarks/_loadgen.py::sample_entities``), the hot
+#: tier's capacity and re-pin cadence (``ServerConfig``'s defaults), the
+#: users the ingest and the fold-in touch, the pinned table of the kernel
+#: check, and the re-pin a fold-in starts: how long it may take to land
+CACHE_ZIPF = 1.5
+CACHE_HOT, CACHE_REFRESH = 512, 256
+CACHE_INGEST_USERS, CACHE_FOLD_USERS = 8, 4
+CACHE_PIN_ROWS = 512
+CACHE_KS = (8, 16, 32, 64, 128)
+CACHE_SLOTS = (0, 1, 255, 511)
+CACHE_REPIN_TIMEOUT_S = 60.0
+
+
+class CacheLaunches:
+    """Attributes each ``fused_topk`` launch of the cache phase to where it
+    came from: ``models.als.fused_topk`` (the wrapper every serving
+    dispatch calls) is wrapped to count a launch as a pinned serve while a
+    wrapped ``ALSAlgorithm.predict_pinned`` runs on the calling thread,
+    as the pin's k-ladder while a wrapped ``pin_hot_entities`` runs
+    there (the hot tier's refresh thread), and as a full-table launch
+    otherwise. The wrapper's own count is untouched: the three must sum
+    to its delta. ``pinned_calls`` counts the pinned serves themselves."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.models import als
+        from predictionio_tpu_torch.templates import recommendation as rec
+
+        self._als, self._algo = als, rec.ALSAlgorithm
+        self._real_topk = als.fused_topk
+        self._real_pin = rec.ALSAlgorithm.pin_hot_entities
+        self._real_pinned = rec.ALSAlgorithm.predict_pinned
+        self._local = threading.local()
+        self._lock = threading.Lock()
+        self.counts = {"pinned": 0, "ladder": 0, "full": 0}
+        self.pinned_calls = 0
+
+    def __enter__(self):
+        local, lock = self._local, self._lock
+        real_topk, real_pin, real_pinned = (self._real_topk, self._real_pin,
+                                            self._real_pinned)
+
+        def topk(*a, **kw):
+            out = real_topk(*a, **kw)
+            with lock:
+                self.counts[getattr(local, "kind", "full")] += 1
+            return out
+
+        def tagged(kind, fn):
+            def run(*a, **kw):
+                local.kind = kind
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    local.kind = "full"
+            return run
+
+        pinned = tagged("pinned", real_pinned)
+
+        def predict_pinned(*a, **kw):
+            with lock:
+                self.pinned_calls += 1
+            return pinned(*a, **kw)
+
+        self._als.fused_topk = topk
+        self._algo.pin_hot_entities = tagged("ladder", real_pin)
+        self._algo.predict_pinned = predict_pinned
+        return self
+
+    def __exit__(self, *exc):
+        self._als.fused_topk = self._real_topk
+        self._algo.pin_hot_entities = self._real_pin
+        self._algo.predict_pinned = self._real_pinned
+
+    def take(self) -> dict:
+        """The counts since the last take, and a reset."""
+        with self._lock:
+            out = dict(self.counts, calls=self.pinned_calls)
+            self.counts = {"pinned": 0, "ladder": 0, "full": 0}
+            self.pinned_calls = 0
+        return out
+
+
+def bound_tables(srv) -> tuple:
+    """(ud, us, vd, vs, U64, V64) of an in-process server's bound int8
+    model: what ``check_burst`` and ``check_answer`` hold answers to."""
+    from predictionio_tpu_torch.models.als import _table_leaves
+
+    bound = srv.query_server.models[0]
+    ud, us = _table_leaves(bound.user_factors)
+    vd, vs = _table_leaves(bound.item_factors)
+    check(vd.is_cuda and vd.dtype == torch.int8,
+          "the cache phase's deploy did not place int8 tables on the card")
+    return ud, us, vd, vs, ud.double() * us.double(), vd.double() * vs.double()
+
+
+def tier_delta(before: dict, after: dict, tier: str) -> dict:
+    """A tier's counters over a window, with its live size after it."""
+    b, a = before["tiers"][tier], after["tiers"][tier]
+    out = {k: a[k] - b[k] for k in ("hits", "misses", "invalidations")}
+    looked = out["hits"] + out["misses"]
+    out["hit_ratio"] = out["hits"] / looked if looked else 0.0
+    out["entries"], out["bytes"] = a["entries"], a["bytes"]
+    return out
+
+
+def cache_kernel_check(U, V, users, dev, card) -> None:
+    """``fused_topk`` at the hot tier's shapes on each wire: a pinned
+    ``[CACHE_PIN_ROWS, RANK]`` user table gathered by ``pin_user_rows``
+    (its rows the source rows bit for bit), B = 1, every k of the pin's
+    ladder; each launch held to the plain version as phase ``kernel``
+    holds it and to the full-table launch for the same user, ids and
+    scores bit for bit (the launch plan depends on the item table, B, r
+    and k alone). Then the pinned B = 1 launch and the full-table one,
+    event-timed in turns."""
+    from predictionio_tpu_torch.models.als import (
+        ALSModel,
+        QuantizedFactors,
+        _quantize_rows,
+        _table_leaves,
+        pin_user_rows,
+    )
+    from predictionio_tpu_torch.ops.fused_topk import (
+        fused_topk,
+        fused_topk_reference,
+    )
+
+    Ud, Vd = torch.from_numpy(U).to(dev), torch.from_numpy(V).to(dev)
+    qU, qus = _quantize_rows(U, "int8")
+    qV, qvs = _quantize_rows(V, "int8")
+    wires = {
+        "f32": (Ud, Vd),
+        "bf16": (QuantizedFactors(Ud.bfloat16(), None, "bf16"),
+                 QuantizedFactors(Vd.bfloat16(), None, "bf16")),
+        "int8": (QuantizedFactors(qU.to(dev), qus.to(dev), "int8"),
+                 QuantizedFactors(qV.to(dev), qvs.to(dev), "int8")),
+    }
+    rows = torch.tensor(users, dtype=torch.long, device=dev)
+    for wire, (ut, vt) in wires.items():
+        model = ALSModel(ut, vt, N_USERS, N_ITEMS)
+        pinned, nbytes = pin_user_rows(model, users, CACHE_PIN_ROWS)
+        ud, us = _table_leaves(ut)
+        vd, vs = _table_leaves(vt)
+        pd, ps = _table_leaves(pinned)
+        check(tuple(pd.shape) == (CACHE_PIN_ROWS, RANK)
+              and torch.equal(pd, ud[rows])
+              and (us is None or torch.equal(ps, us[rows])),
+              f"pinned {wire} rows are not the source rows bit for bit")
+        P64 = pd.double() * (ps.double() if ps is not None else 1.0)
+        V64 = vd.double() * (vs.double() if vs is not None else 1.0)
+        worst = 0.0
+        for k in CACHE_KS:
+            for slot in CACHE_SLOTS:
+                idx = torch.tensor([slot], dtype=torch.int32, device=dev)
+                full = torch.tensor([users[slot]], dtype=torch.int32,
+                                    device=dev)
+                s, i = fused_topk(pd, idx, vd, ps, vs, k=k, n_items=N_ITEMS)
+                fs, fi = fused_topk(ud, full, vd, us, vs, k=k,
+                                    n_items=N_ITEMS)
+                rs, _ = fused_topk_reference(pd, idx, vd, ps, vs, k=k,
+                                             n_items=N_ITEMS)
+                torch.cuda.synchronize()
+                tag = f"pinned {wire} k={k} slot={slot}"
+                worst = max(worst, verify_topk(tag, s, i, rs, P64, V64, idx,
+                                               RTOL[wire]))
+                check(torch.equal(i, fi) and torch.equal(s, fs),
+                      f"{tag}: not bit-equal to the full-table launch")
+        k, slot = 16, CACHE_SLOTS[2]
+        idx = torch.tensor([slot], dtype=torch.int32, device=dev)
+        full = torch.tensor([users[slot]], dtype=torch.int32, device=dev)
+        times = {"pinned": [], "full": []}
+        for arm in ("pinned", "full", "full", "pinned"):
+            if arm == "pinned":
+                times[arm].append(median_ms(lambda: fused_topk(
+                    pd, idx, vd, ps, vs, k=k, n_items=N_ITEMS), 20))
+            else:
+                times[arm].append(median_ms(lambda: fused_topk(
+                    ud, full, vd, us, vs, k=k, n_items=N_ITEMS), 20))
+        print(f"phase cache kernel: fused_topk {wire} on a pinned "
+              f"[{CACHE_PIN_ROWS}, {RANK}] table ({nbytes} bytes) B=1 k in "
+              f"{CACHE_KS} x slots {CACHE_SLOTS}: max_abs_err={worst:.3e} "
+              f"vs the plain version, ids and scores bit-equal to the "
+              f"full-table launch, rows bit-equal to the source | k=16 "
+              f"event-timed ms (pinned, full, full, pinned): "
+              f"pinned={times['pinned'][0]:.4f},{times['pinned'][1]:.4f} "
+              f"full={times['full'][0]:.4f},{times['full'][1]:.4f} | "
+              f"{card_tag(card)}", flush=True)
+
+
+def phase_cache(rng, U, V, dev, card) -> dict:
+    """The serving caches and the pinned hot tier on the card, over phase
+    4's tables (see the module's docstring, phase 4c). Returns each
+    kernel's launches in the counted part."""
+    from predictionio_tpu_torch.data.storage.base import (
+        STATUS_COMPLETED,
+        AccessKey,
+        App,
+        EngineInstance,
+    )
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.als import (
+        _table_leaves,
+        apply_row_updates,
+    )
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy_models,
+    )
+    from predictionio_tpu_torch.server.eventserver import (
+        create_event_server,
+    )
+    from predictionio_tpu_torch.templates.recommendation import (
+        recommendation_engine,
+    )
+
+    users = (rng.zipf(CACHE_ZIPF, BURST_QUERIES) - 1) % N_USERS
+    burst = [{"user": f"u{u}", "num": 10} for u in users]
+    distinct, freq = np.unique(users, return_counts=True)
+    check(len(distinct) <= CACHE_HOT,
+          f"{len(distinct)} distinct users past the hot capacity")
+    hottest = [f"u{u}" for u in distinct[np.argsort(-freq, kind="stable")]]
+    model = als_model_from_numpy(
+        U, V, N_USERS, N_ITEMS, {f"u{n}": n for n in range(N_USERS)},
+        {f"i{n}": n for n in range(N_ITEMS)}, {"rank": RANK}, device="cpu")
+    engine = recommendation_engine()
+    ep = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    hot = dict(hot_entities=CACHE_HOT, hot_refresh_every=CACHE_REFRESH)
+    configs = {"a": ServerConfig(serving_quant="int8"),
+               "b": ServerConfig(serving_quant="int8", serving_cache=True,
+                                 **hot),
+               "c": ServerConfig(serving_quant="int8", serving_cache=True,
+                                 batching=True, **hot)}
+    threads0 = threading.active_count()
+    counter = CacheLaunches()
+    servers: dict = {}
+    lines, totals = [], {"pinned": 0, "ladder": 0, "full": 0, "calls": 0}
+
+    def take() -> dict:
+        got = counter.take()
+        for key in totals:
+            totals[key] += got[key]
+        return got
+
+    def burst_on(name: str, label: str) -> dict:
+        srv = servers[name]
+        qs = srv.query_server
+        before = qs.cache.stats() if qs.cache is not None else None
+        take()
+        wall, results = run_burst(srv.port, burst)
+        split = take()
+        after = qs.cache.stats() if qs.cache is not None else None
+        check_burst(burst, [a for a, _ in results], *tables[name], dev)
+        lat = np.array([t for _, t in results]) * 1e3
+        out = {"qps": len(burst) / wall, "split": split}
+        text = (f"phase cache burst {label}: {len(burst)} queries x "
+                f"{BURST_CLIENTS} connections from another process, "
+                f"{len(distinct)} users (Zipf {CACHE_ZIPF}) "
+                f"qps={out['qps']:.1f} p50_ms={np.percentile(lat, 50):.3f} "
+                f"p99_ms={np.percentile(lat, 99):.3f}")
+        if after is not None:
+            for tier in ("query", "feature", "hot"):
+                d = out[tier] = tier_delta(before, after, tier)
+                text += (f" | {tier} hits={d['hits']} misses={d['misses']} "
+                         f"hit_ratio={d['hit_ratio']:.4f} entries="
+                         f"{d['entries']} bytes={d['bytes']}")
+            h0, h1 = before["tiers"]["hot"], after["tiers"]["hot"]
+            out["coalesced"] = (after["singleflightCoalesced"]
+                                - before["singleflightCoalesced"])
+            out["stale"] = h1["pinnedStale"] - h0["pinnedStale"]
+            out["pinned"] = out["hot"]["hits"] - out["stale"]
+            text += (f" | coalesced={out['coalesced']} | pinned_serves="
+                     f"{out['pinned']} refreshes={h1['refreshes']} "
+                     f"pinnedStale={h1['pinnedStale']} refreshErrors="
+                     f"{h1['refreshErrors']}")
+            check(h1["refreshErrors"] == 0,
+                  f"{label}: a hot-tier refresh failed: {h1['lastError']}")
+        text += (f" | fused_topk launches pinned={split['pinned']} "
+                 f"ladder={split['ladder']} full={split['full']} | "
+                 f"{card_tag(card)}")
+        print(text, flush=True)
+        lines.append(out)
+        return out
+
+    with counter:
+        try:
+            for name, cfg in configs.items():
+                servers[name] = deploy_models(
+                    engine, ep, [model], cfg, "127.0.0.1",
+                    0).start_background()
+            for srv in servers.values():
+                warmed(srv)
+            tables = {n: bound_tables(srv) for n, srv in servers.items()}
+            qs = servers["b"].query_server
+            hot_tier = qs.cache.hot
+
+            # -- the main path, counted ----------------------------------
+            zero_launch_counts()
+            counter.take()
+            a = burst_on("a", "(a) cache off, per-query path")
+            b1 = burst_on("b", "(b) cache on, per-query path, first "
+                               "burst from a cold cache")
+            hot_tier.refresh(wait=True)
+            qs.cache.query.flush()
+            check(all(hot_tier.peek(u) is not None for u in hottest),
+                  "a burst user is not pinned after the refresh")
+            b2 = burst_on("b", "(b) cache on, per-query path, second "
+                               "burst (query tier emptied, hot tier "
+                               "refreshed)")
+            c = burst_on("c", "(c) cache on behind the staged pipeline")
+            check(b2["pinned"] > 0, "the second burst served no query "
+                                    "from the pinned table")
+            check(b2["hot"]["misses"] == 0,
+                  f"{b2['hot']['misses']} query-tier misses of the second "
+                  f"burst found their user unpinned")
+            check(b2["pinned"] == b2["query"]["misses"] - b2["coalesced"],
+                  f"second burst: {b2['pinned']} pinned serves for "
+                  f"{b2['query']['misses']} query-tier misses of pinned "
+                  f"users ({b2['coalesced']} coalesced)")
+            for out in (b1, b2, c):
+                check(out["split"]["pinned"] == out["pinned"]
+                      == out["split"]["calls"],
+                      f"{out['split']['pinned']} pinned fused_topk launches "
+                      f"for {out['pinned']} pinned serves")
+
+            # invalidation by ingest: one rate event for each of 8 cached
+            # hot users through an in-process event server (the bus)
+            ud, us, vd, vs, U64, V64 = tables["b"]
+            ingest = hottest[:CACHE_INGEST_USERS]
+            store = Storage(env={"PIO_STORAGE_SOURCES_M_TYPE": "MEMORY"})
+            app_id = store.apps().insert(App(0, "CacheApp"))
+            store.access_keys().insert(AccessKey("CK", app_id, ()))
+            ev = create_event_server(store, "127.0.0.1",
+                                     0).start_background()
+            try:
+                st0 = qs.cache.stats()
+                for u in ingest:
+                    status, _ = _http(ev.port, "POST",
+                                      "/events.json?accessKey=CK",
+                                      {"event": "rate", "entityType": "user",
+                                       "entityId": u,
+                                       "targetEntityType": "item",
+                                       "targetEntityId": "i1",
+                                       "properties": {"rating": 4.0}})
+                    check(status == 201, f"ingest for {u}: {status}")
+            finally:
+                ev.close()
+            st1 = qs.cache.stats()
+            inval = (st1["tiers"]["query"]["invalidations"]
+                     - st0["tiers"]["query"]["invalidations"])
+            check(inval >= CACHE_INGEST_USERS,
+                  f"{CACHE_INGEST_USERS} ingests invalidated {inval} "
+                  f"query-tier entries")
+            for u in ingest:
+                obs: dict = {}
+                q = {"user": u, "num": 10}
+                ans = qs.serve(q, obs=obs)
+                check("cache" not in obs,
+                      f"{u}'s answer after its ingest: {obs.get('cache')}")
+                check_answer(q, ans, ud, us, vd, vs, U64, V64, N_ITEMS, dev)
+            st2 = qs.cache.stats()
+            check(st2["tiers"]["query"]["misses"]
+                  - st1["tiers"]["query"]["misses"] == CACHE_INGEST_USERS,
+                  "the ingested users' answers were not all misses")
+
+            # invalidation by fold-in: new rows for 4 pinned users
+            fold = hottest[CACHE_INGEST_USERS:
+                           CACHE_INGEST_USERS + CACHE_FOLD_USERS]
+            untouched = hottest[CACHE_INGEST_USERS + CACHE_FOLD_USERS]
+            old = {u: hot_tier.peek(u) for u in fold}
+            bound = qs.models[0]
+            rows = np.random.default_rng(CACHE_FOLD_USERS).standard_normal(
+                (len(fold), RANK)).astype(np.float32)
+            row_idx = np.array([int(u[1:]) for u in fold])
+            new_model = apply_row_updates(bound, "user", row_idx, rows)
+            refreshes = hot_tier.stats()["refreshes"]
+            take()
+            check(qs.apply_stream_delta(0, new_model, fold, qs.binding_id),
+                  "apply_stream_delta refused the delta")
+            deadline = time.perf_counter() + CACHE_REPIN_TIMEOUT_S
+            while hot_tier.stats()["refreshes"] == refreshes:
+                check(time.perf_counter() < deadline,
+                      "the fold-in started no re-pin")
+                time.sleep(0.01)
+            hot_tier.refresh(wait=True)  # the re-pin in flight, if any
+            nd, ns = _table_leaves(new_model.user_factors)
+            N64 = nd.double() * ns.double()
+            for u in fold:
+                h = hot_tier.peek(u)
+                check(h is not None and h[1][0] is not old[u][1][0],
+                      f"{u}'s pinned handle survived its fold-in")
+                table, slot = h[1]
+                check(torch.equal(table.data[slot], nd[int(u[1:])])
+                      and torch.equal(table.scale[slot], ns[int(u[1:])]),
+                      f"{u}'s re-pinned row is not its folded row")
+            h0 = hot_tier.stats()["hits"]
+            take()
+            for u in fold + [untouched]:
+                obs = {}
+                q = {"user": u, "num": 10 if u != untouched else 12}
+                ans = qs.serve(q, obs=obs)
+                check("cache" not in obs, f"{u}: {obs.get('cache')}")
+                check_answer(q, ans, nd, ns, vd, vs, N64, V64, N_ITEMS, dev)
+            split = take()
+            check(hot_tier.stats()["hits"] - h0 == len(fold) + 1
+                  and split["pinned"] == len(fold) + 1,
+                  f"after the fold-in {split['pinned']} pinned launches for "
+                  f"{len(fold) + 1} pinned users' queries")
+
+            # the operator's flush, then a rebind
+            status, body = _http(servers["b"].port, "POST", "/cache/flush")
+            check(status == 200, f"POST /cache/flush: {status} {body}")
+            _, cj = _http(servers["b"].port, "GET", "/cache.json")
+            check(all(t["entries"] == 0 for t in cj["tiers"].values()),
+                  f"/cache/flush left entries: {cj['tiers']}")
+            for u in hottest[:16]:
+                qs.serve({"user": u, "num": 10})
+            hot_tier.refresh(wait=True)
+            flushes = qs.cache.stats()["flushes"]
+            when = datetime.now(timezone.utc)
+            qs.bind_candidate(EngineInstance(
+                id="cache-rebind", status=STATUS_COMPLETED,
+                start_time=when, end_time=when, engine_id="cache",
+                engine_version="1", engine_variant="engine.json",
+                engine_factory="chip_smoke"), models=[model])
+            qs.promote_candidate()
+            st = qs.cache.stats()
+            check(st["flushes"] == flushes + 1 and all(
+                t["entries"] == 0 for t in st["tiers"].values()),
+                f"the rebind did not flush every tier: {st['tiers']}")
+            warmed(servers["b"])
+            tables["b"] = bound_tables(servers["b"])
+            q = {"user": hottest[0], "num": 10}
+            check_answer(q, _post(servers["b"].port, q)[0],
+                         *tables["b"], N_ITEMS, dev)
+            take()
+            counted = launch_counts()
+            # ----------------------------------------------------------------
+            final = {n: srv.query_server.cache.stats()
+                     for n, srv in servers.items()
+                     if srv.query_server.cache is not None}
+        finally:
+            for srv in servers.values():
+                srv.close()
+    for n, st in final.items():
+        hot_st = st["tiers"]["hot"]
+        check(hot_st["refreshErrors"] == 0,
+              f"server ({n}): a hot-tier refresh failed: "
+              f"{hot_st['lastError']}")
+    check(counted["fused_topk"] == sum(totals[k] for k in
+                                       ("pinned", "ladder", "full")),
+          f"the launch split {totals} does not sum to the wrapper's "
+          f"{counted['fused_topk']}")
+    pinned_serves = sum(st["tiers"]["hot"]["hits"]
+                        - st["tiers"]["hot"]["pinnedStale"]
+                        for st in final.values())
+    check(totals["pinned"] == pinned_serves == totals["calls"],
+          f"{totals['pinned']} pinned fused_topk launches for "
+          f"{pinned_serves} pinned serves")
+    deadline = time.perf_counter() + 10
+    while threading.active_count() > threads0 \
+            and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    left = [t.name for t in threading.enumerate()
+            if t.name.startswith("hot-tier-refresh")]
+    check(threading.active_count() <= threads0 and not left,
+          f"threads left after close(): {threading.active_count()} of "
+          f"{threads0} before the phase ({left})")
+    check_no_children()
+    print(f"phase cache: qps (a) cache off={a['qps']:.1f} (b) first="
+          f"{b1['qps']:.1f} second={b2['qps']:.1f} (c) staged="
+          f"{c['qps']:.1f} | query hit ratio (b) first="
+          f"{b1['query']['hit_ratio']:.4f} (c)="
+          f"{c['query']['hit_ratio']:.4f} | pinned serves (b) second="
+          f"{b2['pinned']} = query misses {b2['query']['misses']} - "
+          f"coalesced {b2['coalesced']} | ingest invalidated {inval} | "
+          f"fold-in: {len(fold)} users re-pinned and answered from their "
+          f"folded rows, 1 untouched pinned | flush and rebind emptied "
+          f"every tier | fused_topk launches {counted['fused_topk']}: "
+          f"pinned={totals['pinned']} ladder={totals['ladder']} "
+          f"full={totals['full']} | {card_tag(card)}", flush=True)
+    # the kernel at the pinned shapes: the burst's users first, then the
+    # lowest other ids, CACHE_PIN_ROWS distinct rows
+    pin = [int(u[1:]) for u in hottest]
+    taken = set(pin)
+    pin += [u for u in range(N_USERS) if u not in taken][
+        :CACHE_PIN_ROWS - len(pin)]
+    cache_kernel_check(U, V, pin, dev, card)
     return counted
 
 
@@ -5512,6 +6045,8 @@ def main(argv=None) -> int:
         launches = phase_slice(rng, U, V, dev)
     with phase("telemetry"):
         telemetry_l = phase_telemetry(rng, U, V, dev, card)
+    with phase("cache"):
+        cache_l = phase_cache(rng, U, V, dev, card)
     del U, V
     from predictionio_tpu_torch.models import als
 
@@ -5600,7 +6135,8 @@ def main(argv=None) -> int:
              classification_launches=cls_l["fused_topk"],
              release_launches=rel_l["fused_topk"],
              console_launches=console_l["fused_topk"],
-             telemetry_launches=telemetry_l["fused_topk"], **row),
+             telemetry_launches=telemetry_l["fused_topk"],
+             cache_launches=cache_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -5613,7 +6149,8 @@ def main(argv=None) -> int:
              sequential_pio_launches=seq_pio_l["fused_gram"],
              classification_launches=cls_l["fused_gram"],
              release_launches=rel_l["fused_gram"],
-             telemetry_launches=telemetry_l["fused_gram"], **gram_row),
+             telemetry_launches=telemetry_l["fused_gram"],
+             cache_launches=cache_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -5626,7 +6163,8 @@ def main(argv=None) -> int:
              sequential_pio_launches=seq_pio_l["chol_solve"],
              classification_launches=cls_l["chol_solve"],
              release_launches=rel_l["chol_solve"],
-             telemetry_launches=telemetry_l["chol_solve"], **solve_row),
+             telemetry_launches=telemetry_l["chol_solve"],
+             cache_launches=cache_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -5639,7 +6177,8 @@ def main(argv=None) -> int:
              sequential_pio_launches=seq_pio_l["gram_table"],
              classification_launches=cls_l["gram_table"],
              release_launches=rel_l["gram_table"],
-             telemetry_launches=telemetry_l["gram_table"], **table_row),
+             telemetry_launches=telemetry_l["gram_table"],
+             cache_launches=cache_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

@@ -2,14 +2,15 @@
 changed (the port's own copy of ``predictionio_tpu/cache/bus.py``).
 
 On every accepted ingest the event server publishes
-``(app_id, entity_type, entity_id, event_name)``. In the port the
-subscriber is the stream trainer, which an ingest for its app wakes at
-once instead of at its next poll; the serving caches that also subscribe
-in the JAX package are not ported yet (``ROADMAP.md`` queue 1).
+``(app_id, entity_type, entity_id, event_name)``. The subscribers are
+the serving caches (:class:`~.hierarchy.ServingCache`), which drop the
+entries whose tags cover that entity, and the stream trainer, which an
+ingest for its app wakes at once instead of at its next poll.
 
 Delivery is **synchronous and in-process**: by the time the ingest HTTP
-response is written, every subscriber has been called. An event server
-in another process reaches the trainer through its poll instead.
+response is written, every subscriber has been called, so no later query
+serves the pre-ingest cached result. An event server in another process
+reaches a cache through its TTL bound, and the trainer through its poll.
 
 Subscribers are held by **weakref**: a test that drops its subscriber
 must not leave it wired into the process-global bus forever.
@@ -44,6 +45,13 @@ class InvalidationBus:
         ref = weakref.WeakMethod(getattr(owner, method_name))
         with self._lock:
             self._subs.append(ref)
+
+    def unsubscribe(self, owner: Any,
+                    method_name: str = "on_event") -> None:
+        target = getattr(owner, method_name, None)
+        with self._lock:
+            self._subs = [r for r in self._subs
+                          if r() is not None and r() != target]
 
     def publish(self, app_id: Optional[int], entity_type: str,
                 entity_id: str, event_name: str = "") -> int:

@@ -18,7 +18,8 @@
         [--queue-deadline-ms 30000] [--stream --stream-app MyApp1] \\
         [--no-trace] [--trace-ring 512] [--trace-slow-ms 0] \\
         [--access-log-sample 1.0] [--profile-dir D] [--hot-keys-k 128] \\
-        [--cert PEM --key PEM]
+        [--cache [--cache-entries 8192] [--cache-ttl 30] [--feature-ttl 5] \\
+        [--hot-entities 512]] [--cert PEM --key PEM]
     python -m predictionio_tpu_torch.cli batchpredict \\
         --engine-json engine.json --input q.jsonl --output out.jsonl
     python -m predictionio_tpu_torch.cli eval module:evaluation \\
@@ -26,6 +27,8 @@
     python -m predictionio_tpu_torch.cli stream status|start|stop \\
         [--port 8000] [--app MyApp1]
     python -m predictionio_tpu_torch.cli undeploy [--port 8000]
+    python -m predictionio_tpu_torch.cli cache stats|flush [--port 8000] \\
+        [--accesskey K]
     python -m predictionio_tpu_torch.cli trace [--port 8000] \\
         [--id TRACE_ID [-o FILE] | --slowest N]
     python -m predictionio_tpu_torch.cli release list
@@ -77,15 +80,20 @@ request (``--no-trace`` turns that off; ``--trace-ring``,
 ``--access-log-sample`` of its successful requests to the access log,
 keeps ``POST /profile`` captures under ``--profile-dir`` and tracks the
 ``--hot-keys-k`` hottest users; ``PTPU_DEBUG_NUMERICS=1`` arms the NaN/Inf
-sentinels.
+sentinels. ``deploy --cache`` serves through the serving cache hierarchy
+(the query tier of ``--cache-entries`` answers kept ``--cache-ttl``
+seconds at most, singleflight, the feature tier of ``--feature-ttl``,
+and the ``--hot-entities`` hottest users ranked from a table pinned on
+the card); ``cache stats`` prints a running engine server's tiers and
+``cache flush`` empties them.
 
 An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
-Left out (``ROADMAP.md`` queue 1): ``storageserver`` (item 12),
-``cache`` (item 8), ``slo``, fleets and ``deploy --slo-*`` (item 14),
-``check`` and ``audit-*`` (item 15).
+Left out (``ROADMAP.md`` queue 1): ``storageserver`` (item 12), ``slo``,
+fleets and ``deploy --slo-*`` (item 14), ``check`` and ``audit-*``
+(item 15).
 """
 
 from __future__ import annotations
@@ -487,7 +495,12 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                           trace_slow_ms=args.trace_slow_ms,
                           access_log_sample=args.access_log_sample,
                           profile_dir=args.profile_dir or None,
-                          hot_keys_k=args.hot_keys_k)
+                          hot_keys_k=args.hot_keys_k,
+                          serving_cache=args.cache,
+                          cache_entries=args.cache_entries,
+                          cache_ttl_sec=args.cache_ttl,
+                          feature_ttl_sec=args.feature_ttl,
+                          hot_entities=args.hot_entities)
     ssl_ctx = _ssl(args)
     if args.model:
         from .workflow.persistence import loads_models
@@ -552,13 +565,15 @@ def _server_call(args, path: str, method: str = "GET",
                  body: Optional[dict] = None):
     """One JSON call to the engine server at ``args.ip``:``args.port``;
     over HTTPS with ``--https`` (certificates verified unless
-    ``--insecure``, for a self-signed local certificate)."""
+    ``--insecure``, for a self-signed local certificate), with
+    ``?accessKey=`` where the command takes ``--accesskey``."""
     https = getattr(args, "https", False)
     data = json.dumps(body).encode() if body is not None else (
         b"" if method == "POST" else None)
-    req = urllib.request.Request(
-        f"{'https' if https else 'http'}://{args.ip}:{args.port}{path}",
-        data=data, method=method)
+    url = f"{'https' if https else 'http'}://{args.ip}:{args.port}{path}"
+    if getattr(args, "accesskey", ""):
+        url += f"{'&' if '?' in url else '?'}accessKey={args.accesskey}"
+    req = urllib.request.Request(url, data=data, method=method)
     handlers: list = [urllib.request.ProxyHandler({})]
     if https:
         ctx = ssl.create_default_context()
@@ -621,6 +636,39 @@ def cmd_stream(args) -> int:
         _out(payload.get("message", "Stopped."))
         _out("The durable cursor keeps its position; a later start with "
              "the same consumer resumes there.")
+    return 0
+
+
+def cmd_cache(args) -> int:
+    """Operate a running engine server's serving cache: each tier's
+    stats, or the operator's flush of every tier."""
+    sub = args.cache_command
+    if sub == "stats":
+        try:
+            payload = _server_call(args, "/cache.json")
+        except (urllib.error.URLError, OSError, ValueError) as e:
+            _err(f"engine server at {args.ip}:{args.port} unreachable: "
+                 f"{_call_error(e)}")
+            return 1
+        if not (payload or {}).get("enabled"):
+            _out("Serving cache is OFF on this server "
+                 "(deploy with --cache).")
+            return 0
+        _out(json.dumps(payload, indent=2))
+        for name, t in (payload.get("tiers") or {}).items():
+            total = t.get("hits", 0) + t.get("misses", 0)
+            _out(f"{name}: {t.get('entries', 0)} entries, "
+                 f"{t.get('hitRatio', 0) * 100:.1f}% hit ratio over "
+                 f"{total} lookups, {t.get('invalidations', 0)} "
+                 f"invalidations")
+        return 0
+    try:
+        payload = _server_call(args, "/cache/flush", "POST")
+    except (urllib.error.URLError, OSError, ValueError) as e:
+        _err(f"cache flush failed: {_call_error(e)}")
+        return 1
+    removed = (payload or {}).get("removed") or {}
+    _out("Flushed: " + ", ".join(f"{k}={v}" for k, v in removed.items()))
     return 0
 
 
@@ -1313,6 +1361,20 @@ def _parser() -> argparse.ArgumentParser:
                        help="Space-Saving hot-key sketch capacity "
                             "(pio_hot_keys, /status.json hotKeys); 0 "
                             "disables it")
+        s.add_argument("--cache", action="store_true",
+                       help="serving cache hierarchy: query-result and "
+                            "feature caches and the hot-entity tier "
+                            "pinned on the card")
+        s.add_argument("--cache-entries", type=int, default=8192,
+                       help="query-result cache capacity (entries)")
+        s.add_argument("--cache-ttl", type=float, default=30.0,
+                       help="query-result staleness bound (seconds)")
+        s.add_argument("--feature-ttl", type=float, default=5.0,
+                       help="serving-time event-store read staleness "
+                            "bound (seconds)")
+        s.add_argument("--hot-entities", type=int, default=512,
+                       help="hottest users whose rows stay pinned on the "
+                            "card (0 off)")
 
     s = sub.add_parser("eval", help="run an evaluation")
     s.add_argument("evaluation", help="module.path:evaluation_object")
@@ -1343,6 +1405,18 @@ def _parser() -> argparse.ArgumentParser:
             c.add_argument("--max-events", type=int, default=None)
             c.add_argument("--drift-threshold", type=float, default=None)
             c.add_argument("--canary-probes", type=int, default=None)
+
+    s = sub.add_parser("cache", help="a running engine server's serving "
+                                     "cache: per-tier stats, flush")
+    cache_sub = s.add_subparsers(dest="cache_command", required=True)
+    for name, help_ in (("stats", "per-tier hit/miss/eviction/"
+                                  "invalidation stats"),
+                        ("flush", "flush every cache tier")):
+        c = cache_sub.add_parser(name, help=help_)
+        c.add_argument("--ip", default="127.0.0.1")
+        c.add_argument("--port", type=int, default=8000)
+        c.add_argument("--accesskey", default="")
+        client_tls_flags(c)
 
     s = sub.add_parser("undeploy", help="stop a deployed engine server")
     s.add_argument("--ip", default="127.0.0.1")
@@ -1457,6 +1531,8 @@ def main(argv: Optional[List[str]] = None,
         return cmd_stream(args)
     if args.command == "trace":
         return cmd_trace(args)
+    if args.command == "cache":
+        return cmd_cache(args)
     storage = storage if storage is not None else get_storage()
     if args.command in COMMANDS:
         return COMMANDS[args.command](args, storage)

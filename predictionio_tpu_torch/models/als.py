@@ -28,8 +28,12 @@ Streaming fold-in (:func:`fold_in_rows` and the functional row updates
 after it) re-solves touched rows through the same :func:`_update_block`
 as training, so it launches ``fused_gram`` and ``chol_solve`` too.
 
+The hot-entity tier's pinned table (:func:`pin_user_rows`) is a row
+gather on the card; :func:`recommend_pinned` ranks a pinned user through
+the same top-k dispatch with that table as the user table.
+
 Not in this module yet: the split history layout, checkpoint resume,
-sharded and replicated placement and pinned rows.
+sharded and replicated placement.
 """
 
 from __future__ import annotations
@@ -346,18 +350,18 @@ def recommend_products(model: ALSModel, user_index: int, k: int
 _TOPK_CHUNK = 2048
 
 
-def _dispatch_topk_chunk(model: ALSModel, user_indices: np.ndarray, k: int
-                         ) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
-    """Launch ONE top-k dispatch (batch <= ``_TOPK_CHUNK``) and return a
+def _dispatch_topk_rows(user_table: Table, item_table: Table, n_items: int,
+                       rows: np.ndarray, k: int
+                       ) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
+    """Launch ONE top-k dispatch of the user-table ``rows`` and return a
     resolver that waits for it and hands back host ``([B, k] ids,
     scores)``. On the card both device-to-host copies are queued right
     behind the launch, into pinned host memory, and a CUDA event after
     them: the resolver waits on that event alone, so launches queued
     after this one (the next batches) never hold its readback."""
-    kk = min(k, model.n_items)
-    k_dev = _compiled_k(k, model.n_items)
-    scores, ids = _device_topk(model.user_factors, model.item_factors,
-                               user_indices, k_dev, model.n_items)
+    kk = min(k, n_items)
+    k_dev = _compiled_k(k, n_items)
+    scores, ids = _device_topk(user_table, item_table, rows, k_dev, n_items)
     if not scores.is_cuda:
         ids_h, scores_h, done = ids, scores, None
     else:
@@ -399,7 +403,8 @@ def recommend_batch_async(model: ALSModel, user_indices: np.ndarray,
         empty = (np.empty((0, kk), np.int64), np.empty((0, kk), np.float32))
         return lambda: empty
     resolvers = [
-        _dispatch_topk_chunk(model, user_indices[s:s + _TOPK_CHUNK], k)
+        _dispatch_topk_rows(model.user_factors, model.item_factors,
+                            model.n_items, user_indices[s:s + _TOPK_CHUNK], k)
         for s in range(0, B, _TOPK_CHUNK)]
     if len(resolvers) == 1:
         return resolvers[0]
@@ -433,6 +438,69 @@ def predict_rating(model: ALSModel, user_index: int, item_index: int
     u = _host_row_f32(model.user_factors, user_index)
     v = _host_row_f32(model.item_factors, item_index)
     return float(u @ v)
+
+
+# -- the hot-entity tier's pinned rows ----------------------------------------
+
+def pin_user_rows(model: ALSModel, user_indices, capacity: int
+                  ) -> Tuple[Optional[Table], int]:
+    """Gather the given users' factor rows into ONE ``[capacity, rank]``
+    table on the model's own device (the hot-entity tier's pinned table):
+    ``index_select`` on the device's tables, for a quantized table on its
+    data and its scales, so the rows are the source rows bit for bit and
+    no table crosses to the host. The slots past ``len(user_indices)``
+    hold row 0 (the JAX package's padding). On the card the function
+    returns only once the copy has run (an event after it, waited for),
+    so a serving thread handed the table never reads it half written.
+
+    Returns ``(pinned_table, nbytes)``; ``(None, 0)`` for no users."""
+    if not len(user_indices):
+        return None, 0
+    cap = max(int(capacity), 1)
+    idx = np.zeros(cap, dtype=np.int64)
+    n = min(len(user_indices), cap)
+    idx[:n] = np.asarray(list(user_indices)[:n], dtype=np.int64)
+    ud, us = _table_leaves(model.user_factors)
+    rows = torch.from_numpy(idx).to(ud.device)
+    data = ud.index_select(0, rows)
+    scale = us.index_select(0, rows) if us is not None else None
+    nbytes = data.numel() * data.element_size()
+    if scale is not None:
+        nbytes += scale.numel() * scale.element_size()
+    if data.is_cuda:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(data.device))
+        done.synchronize()
+    if isinstance(model.user_factors, QuantizedFactors):
+        return QuantizedFactors(data, scale, model.user_factors.quant), nbytes
+    return data, nbytes
+
+
+def pin_user_rows_lanes(model: ALSModel, user_indices, capacity: int,
+                        devices) -> Tuple[Optional[tuple], int]:
+    """The replicated lanes' per-device pinned tables: not ported (the
+    port serves from one card; ``ROADMAP.md`` queue 1 item 13)."""
+    raise NotImplementedError(
+        "pinned rows per lane device need replicated lanes (ROADMAP.md "
+        "queue 1 item 13): the port serves from one card")
+
+
+def recommend_pinned(model: ALSModel, pinned: Table, slot: int, k: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Top-k (item_index, score) for one PINNED hot user: the row is
+    gathered from the small pinned table (:func:`pin_user_rows`) instead
+    of the full ``[U, rank]`` table and scored against the model's item
+    table. On the card that is one ``fused_topk`` launch with the pinned
+    table as its user table and ``idx = [slot]``; k past the kernel's
+    limit takes :func:`_serve_topk`, as every serve does."""
+    if isinstance(pinned, tuple):
+        raise NotImplementedError(
+            "per-lane pinned tables need replicated lanes (ROADMAP.md "
+            "queue 1 item 13)")
+    ids, scores = _dispatch_topk_rows(
+        pinned, model.item_factors, model.n_items,
+        np.asarray([slot], dtype=np.int64), k)()
+    return ids[0], scores[0]
 
 
 # -- training ---------------------------------------------------------------

@@ -69,6 +69,25 @@ hidden, and the queries that follow raise the same way) and
 /drain``, which keeps the server answering. ``GET /`` is the status
 page.
 
+Serving caches (:mod:`predictionio_tpu_torch.cache`), with
+``ServerConfig.serving_cache``: ``serve`` looks a query up in the query
+tier (key: the serving binding and the canonical query JSON) before the
+batch paths, and a miss computes once however many identical queries
+arrive meanwhile (singleflight), then fills under an epoch token, so an
+invalidation that ran during the compute drops the fill. The candidate
+arm caches under its own instance id. The per-query path ranks a user
+the hot tier pinned from the pinned table (``predict_pinned``: on the
+card a ``fused_topk`` launch with that table as its user table); a handle
+pinned against another binding than the query's (a pin that raced a
+rebind) is served through the full table and counted (``pinnedStale``),
+and any other error of a pinned serve is the query's 500, never a silent
+fallback. The feature tier goes to every algorithm with
+``bind_feature_cache``. An ingest in this process invalidates through the
+bus, a fold-in per touched user (and re-pins when a pinned user was
+touched), a rebind flushes every tier and a rollback the candidate's
+namespace. ``GET /cache.json`` and ``POST /cache/flush`` operate it; the
+``pio_cache_*`` families are on ``/metrics``.
+
 Telemetry (:mod:`predictionio_tpu_torch.obs`): every request carries a
 trace (``ServerConfig.tracing``, on by default) through whichever path
 serves it: the single query's phases, the serial drainers' ``batch`` and
@@ -87,9 +106,7 @@ see every served result. ``ServerConfig.debug_numerics`` (or
 scores and the fold-in solve. With ``ServerConfig.accesskey`` the
 control routes need ``?accessKey=``.
 
-Left out (``ROADMAP.md`` queue 1): the serving caches and their families
-(item 8), so a fold-in invalidates no cached answer and the candidate arm
-has no cache; replicated lanes and the ``pio_lane_*``,
+Left out (``ROADMAP.md`` queue 1): replicated lanes and the ``pio_lane_*``,
 ``pio_serving_lanes`` and ``pio_serving_degraded`` families (item 13);
 the SLO engine (item 14); the fault families (item 11); feedback events
 and ``log_url``. ``transfer_guard``, the XLA recompile sentinel
@@ -225,7 +242,7 @@ class ServerConfig:
     #: default ``build/torch_kernels``
     artifact_dir: Optional[str] = None
     #: require ``?accessKey=`` on the control routes (reload, releases,
-    #: stream start and stop, drain, stop, plugins, profile)
+    #: stream start and stop, drain, stop, plugins, profile, cache flush)
     accesskey: Optional[str] = None
     #: trace every request into the tail-sampled flight recorder: only
     #: slow (adaptive p99), failed and shed traces are kept, served on
@@ -248,6 +265,27 @@ class ServerConfig:
     #: arm the NaN/Inf sentinels of the served scores and the fold-in
     #: solve (process-wide; ``PTPU_DEBUG_NUMERICS=1`` does the same)
     debug_numerics: bool = False
+    #: the serving cache hierarchy: an exact-key query-result cache
+    #: consulted before the batch paths (singleflight dedups concurrent
+    #: identical misses), a feature cache for serving-time event-store
+    #: reads and the pinned hot-entity tier, all invalidated by the
+    #: event server's ingest bus and flushed on every rebind. Off by
+    #: default: caching results is a staleness decision of the operator
+    serving_cache: bool = False
+    #: query-tier LRU capacity (entries)
+    cache_entries: int = 8192
+    #: query-result staleness BOUND: the bus usually invalidates far
+    #: sooner; this TTL is the ceiling when ingest happens in another
+    #: process (no in-process bus delivery)
+    cache_ttl_sec: float = 30.0
+    feature_cache_entries: int = 8192
+    #: event-store read staleness bound
+    feature_ttl_sec: float = 5.0
+    #: hottest entities whose factor rows stay pinned on the serving
+    #: device (0 disables the tier)
+    hot_entities: int = 512
+    #: serves between re-ranks and re-pins of the hot tier
+    hot_refresh_every: int = 256
 
 
 @dataclass
@@ -441,6 +479,11 @@ class QueryServer:
         self._mirror_pool: Optional[ThreadPoolExecutor] = None
         # one canary start at a time (check-then-bind)
         self._release_lock = threading.Lock()
+        # the serving caches: built before the first bind, which flushes
+        # them and hands the feature tier to the algorithms
+        self.cache = self._make_cache()
+        if self.cache is not None:
+            self.cache.register_metrics(self.metrics)
         self._bind(engine_params, models, instance)
         self.batcher = None
         if cfg.batching and cfg.serving_pipeline == "staged":
@@ -483,6 +526,7 @@ class QueryServer:
             else Context(device=self.device)
         for a in algorithms:
             a.bind_serving(serving_ctx)
+            self._bind_feature_cache(a)
         quant = self.config.serving_quant
         if quant != "off":
             models = [a.quantize_serving_model(m, quant)
@@ -493,17 +537,28 @@ class QueryServer:
         return algorithms, models
 
     def _bind(self, engine_params: EngineParams, models: List[Any],
-              instance: Optional[EngineInstance] = None) -> None:
+              instance: Optional[EngineInstance] = None,
+              promoted: Optional[CandidateBinding] = None) -> None:
         """Bind the stable arm: prepare the models, then swap them in
         together with ``instance`` (None keeps the serving one) under the
         one lock, so the binding id, ``/status.json`` and a fold-in's
         re-check all move with the models. A batch assembled before the
-        swap finishes on the binding it took."""
+        swap finishes on the binding it took. ``promoted`` is the
+        candidate being promoted: it stays bound, and serves its cohort,
+        until this same swap unbinds it, so no query of its cohort meets
+        the old stable meanwhile."""
         algorithms, models = self._serving_algorithms(engine_params, models)
         serving = self.engine.make_serving(engine_params)
         with self._lock:
+            if self.cache is not None:
+                # a FULL flush on every rebind (deploy, reload, promote):
+                # a new model must never serve answers, or pinned rows,
+                # of the old one
+                self.cache.flush_all()
             if instance is None:
                 instance = self.instance
+            if promoted is not None and self._candidate is promoted:
+                self._candidate = None
             self.engine_params = engine_params
             self.instance = instance
             self.algorithms, self.models, self.serving = \
@@ -525,6 +580,72 @@ class QueryServer:
     def _binding(self):
         with self._lock:
             return self.algorithms, self.models, self.serving
+
+    # -- the serving caches --------------------------------------------------
+    def _make_cache(self):
+        cfg = self.config
+        if not cfg.serving_cache:
+            return None
+        from ..cache import ServingCache
+
+        return ServingCache(
+            query_entries=cfg.cache_entries,
+            query_ttl_sec=cfg.cache_ttl_sec,
+            feature_entries=cfg.feature_cache_entries,
+            feature_ttl_sec=cfg.feature_ttl_sec,
+            hot_capacity=cfg.hot_entities,
+            hot_refresh_every=cfg.hot_refresh_every,
+            pin_fn=self._pin_hot)
+
+    def _bind_feature_cache(self, algo: Any) -> None:
+        """Hand the feature tier to algorithms that cache serving-time
+        event-store reads (the e-commerce template's seen, unavailable,
+        weighted and recent lookups)."""
+        if self.cache is None:
+            return
+        bind = getattr(algo, "bind_feature_cache", None)
+        if bind is not None:
+            bind(self.cache.features)
+
+    def _pin_hot(self, entity_keys: List[str]):
+        """The hot tier's pin: the (single) algorithm's
+        ``pin_hot_entities`` against the binding of this moment. Each
+        handle is ``(binding_id, handle)``: the per-query path serves it
+        only under the binding it was pinned against."""
+        with self._lock:
+            algorithms, models = self.algorithms, self.models
+            binding_id = self.binding_id
+        if len(algorithms) != 1:
+            return {}, 0  # several algorithms blend; one pin would skew
+        pin = getattr(algorithms[0], "pin_hot_entities", None)
+        if pin is None:
+            return {}, 0
+        handles, nbytes = pin(models[0], entity_keys)
+        return {e: (binding_id, h) for e, h in handles.items()}, nbytes
+
+    def _dispatch_predictions(self, algorithms: List[Any],
+                              models: List[Any], binding_id: str,
+                              supplemented: Any) -> List[Any]:
+        """The per-query path's predictions: a user the hot tier pinned
+        under ``binding_id`` is ranked from the pinned table
+        (``predict_pinned``), every other query by each algorithm's
+        ``predict``. A handle pinned under another binding (a pin that
+        raced a rebind) is counted and served through the full table; a
+        pinned serve that raises fails the query like any serve."""
+        cache = self.cache
+        if (cache is not None and cache.hot is not None
+                and len(algorithms) == 1):
+            entity = getattr(supplemented, "user", None)
+            handle = (cache.hot.lookup(str(entity))
+                      if entity is not None else None)
+            pinned = getattr(algorithms[0], "predict_pinned", None)
+            if handle is not None and pinned is not None:
+                pinned_binding, h = handle
+                if pinned_binding == binding_id:
+                    return [pinned(models[0], supplemented, h)]
+                cache.hot.note_stale()
+        return [a.predict(m, supplemented)
+                for a, m in zip(algorithms, models)]
 
     def _record_gram_mode(self) -> None:
         """The ``pio_gram_mode`` info gauge: 1 at the gram realization the
@@ -638,17 +759,87 @@ class QueryServer:
                 return str(entity)
         return None
 
-    def serve(self, query_json: Any, obs: Optional[dict] = None) -> Any:
-        """The ``/queries.json`` entry: the batch path when batching,
-        else the per-query path. Raises :class:`HTTPError`."""
-        if self.hotkeys is not None:
-            self.hotkeys.record(self._entity_of(query_json))
+    def _compute_stable(self, query_json: Any,
+                        obs: Optional[dict]) -> Any:
+        """The uncached stable arm: the batch path when batching, else
+        the per-query path. Raises :class:`HTTPError`."""
         if self.batcher is not None:
             result = self.batcher.submit(query_json, obs=obs)
             if isinstance(result, HTTPError):
                 raise result
             return result
         return self.query(query_json, obs=obs)
+
+    def _record_cache_hit(self, arm: str, t0: float,
+                          obs: Optional[dict]) -> None:
+        """A query-tier hit's bookkeeping: the latency histogram (with the
+        trace's exemplar), the arm's series, the served count, and on the
+        trace the ``cacheTier`` attribute and one ``cache_hit`` span: a
+        hit never reaches the card."""
+        dt = time.monotonic() - t0
+        self._latency_hist.observe(dt)
+        self._observe_release(arm, dt, error=False)
+        if obs is not None:
+            obs["cache"] = "hit"
+            tr = self._trace_of(obs)
+            if tr is not None:
+                tr.set_attr("arm", arm)
+                tr.set_attr("cacheTier", "query")
+                tr.add_span("cache_hit", t0, t0 + dt, tier="query")
+                tr.exemplar(self._latency_hist.labels(), dt)
+        self._count(1, dt)
+
+    def _serve_cached(self, namespace: str, query_json: Any,
+                      obs: Optional[dict], arm: str, compute) -> Any:
+        """The query tier around ``compute``: a hit returns the cached
+        answer; a miss computes once for every identical query in flight
+        (singleflight; a follower's ``obs["cache"]`` is "coalesced") and
+        fills the tier under an epoch token taken before the compute, so
+        an invalidation that ran meanwhile drops the fill. Errors raise
+        and are never cached."""
+        from ..cache import canonical_key, entity_tag
+
+        cache = self.cache
+        t0 = time.monotonic()
+        key = (namespace, canonical_key(query_json))
+        found, value = cache.query.lookup(key)
+        if found:
+            self._record_cache_hit(arm, t0, obs)
+            return value
+        entity = self._entity_of(query_json)
+        tag = entity_tag("user", entity) if entity is not None else None
+
+        def fill() -> Any:
+            token = cache.epoch_token(tag)
+            result = compute()
+            cache.put_query_fresh(key, result, (tag,) if tag else (), token)
+            return result
+
+        result, leader = cache.flight.do(key, fill)
+        if obs is not None and not leader:
+            obs["cache"] = "coalesced"
+        return result
+
+    def serve(self, query_json: Any, obs: Optional[dict] = None) -> Any:
+        """The ``/queries.json`` entry of the stable arm: with the serving
+        cache, the query tier, singleflight, then the batch path when
+        batching, else the per-query path; without it, straight to
+        those. Raises :class:`HTTPError`."""
+        if self.hotkeys is not None:
+            # recorded before the cache: a key hot because it keeps
+            # hitting the cache is still a hot key
+            self.hotkeys.record(self._entity_of(query_json))
+        cache = self.cache
+        if cache is None:
+            return self._compute_stable(query_json, obs)
+        entity = self._entity_of(query_json)
+        if entity is not None and cache.hot is not None:
+            cache.hot.record(entity)
+        with self._lock:
+            binding_id = self.binding_id
+        return self._serve_cached(
+            binding_id, query_json, obs, ARM_STABLE,
+            lambda: self._compute_stable(query_json, obs))
 
     def query(self, query_json: Any, obs: Optional[dict] = None) -> Any:
         """One query: parse, supplement, predict with every algorithm,
@@ -675,8 +866,8 @@ class QueryServer:
             supplemented = serving.supplement(query)
             t2 = time.monotonic()
             phases["supplement"] = t2 - t1
-            predictions = [a.predict(m, supplemented)
-                           for a, m in zip(algorithms, models)]
+            predictions = self._dispatch_predictions(
+                algorithms, models, binding_id, supplemented)
             t3 = time.monotonic()
             phases["dispatch"] = t3 - t2
             prediction = serving.serve(query, predictions)
@@ -1048,6 +1239,8 @@ class QueryServer:
             "profile": self.profile_summary(),
             "degraded": self.degraded_status(),
             "hbm": hbm_stats(),
+            "cache": (self.cache.stats() if self.cache is not None
+                      else {"enabled": False}),
             **self.phase_table(),
         }
 
@@ -1109,8 +1302,8 @@ class QueryServer:
         """Stop the rollout's gate thread, the stream trainer, the batch
         path's threads (queued queries still serve), a profiler capture,
         the shadow mirrors, the plugins' sniffer thread and the pool, and
-        join the warm-up threads, each within ``timeout``; detach the
-        numerics listener. Idempotent."""
+        join the warm-up threads and the hot tier's refresh thread, each
+        within ``timeout``; detach the numerics listener. Idempotent."""
         rollout = self.rollout
         if rollout is not None:
             rollout.stop()
@@ -1128,6 +1321,8 @@ class QueryServer:
             warm_threads = list(self._warm_threads)
         for t in warm_threads:
             t.join(timeout)
+        if self.cache is not None:
+            self.cache.close()
         if self._numerics_listener is not None:
             numerics.remove_listener(self._numerics_listener)
             self._numerics_listener = None
@@ -1169,8 +1364,9 @@ class QueryServer:
         serving any batch in flight). Under the lock the base binding id
         is re-checked: a rebind that raced the fold-in wins and this
         returns False (the trainer's unadvanced cursor re-folds against
-        the new base). ``touched_entities`` is what a serving cache
-        would invalidate; the port has none yet."""
+        the new base). After the swap the serving cache drops the cached
+        answers of exactly the ``touched_entities`` and their pinned
+        rows, and re-pins when a pinned entry dropped."""
         with self._lock:
             if self.binding_id != base_instance_id:
                 return False
@@ -1181,6 +1377,16 @@ class QueryServer:
             self._stream_generation += 1
             self._stream_rows += int(rows_updated) + int(rows_inserted)
             self._stream_last_apply = time.time()
+            cache = self.cache
+        if cache is not None and touched_entities:
+            # per entity, not a flush: the untouched entities' answers
+            # are still exactly right
+            cache.invalidate_entities("user", touched_entities)
+            # re-pin only when the swap dropped a pinned entry: the
+            # untouched pinned rows did not change
+            if cache.hot is not None \
+                    and cache.hot.invalidate(touched_entities):
+                cache.hot.refresh(wait=False)
         return True
 
     def start_stream(self, config=None):
@@ -1426,7 +1632,12 @@ class QueryServer:
 
     def drop_candidate(self) -> None:
         with self._lock:
+            cand = self._candidate
             self._candidate = None
+        if cand is not None and self.cache is not None:
+            # a rollback: the dead arm's cached answers die with it; the
+            # stable arm's namespace, still serving, stays
+            self.cache.flush_namespace(cand.instance.id)
 
     @property
     def candidate_instance_id(self) -> Optional[str]:
@@ -1441,10 +1652,10 @@ class QueryServer:
         when none is bound."""
         with self._lock:
             cand = self._candidate
-            self._candidate = None
         if cand is None:
             raise HTTPError(409, "no candidate release bound")
-        self._bind(cand.engine_params, cand.raw_models, cand.instance)
+        self._bind(cand.engine_params, cand.raw_models, cand.instance,
+                   promoted=cand)
         self._rewarm()
         log.info("candidate %s promoted to serving stable",
                  cand.instance.id)
@@ -1506,12 +1717,19 @@ class QueryServer:
 
     def serve_candidate(self, query_json: Any,
                         obs: Optional[dict] = None) -> Any:
-        """The candidate arm's serving entry (the serving caches, queue 1
-        item 8, would sit here, under the candidate's own namespace).
-        Raises like :meth:`query_candidate`."""
+        """The candidate arm's serving entry: the cache discipline of
+        :meth:`serve` under the CANDIDATE instance's namespace, so the two
+        arms never serve each other's cached answers. Raises like
+        :meth:`query_candidate`."""
         if self.hotkeys is not None:
             self.hotkeys.record(self._entity_of(query_json))
-        return self.query_candidate(query_json, obs=obs)
+        with self._lock:
+            cand = self._candidate
+        if self.cache is None or cand is None:
+            return self.query_candidate(query_json, obs=obs)
+        return self._serve_cached(
+            cand.instance.id, query_json, obs, ARM_CANDIDATE,
+            lambda: self.query_candidate(query_json, obs=obs))
 
     def query_candidate(self, query_json: Any,
                         obs: Optional[dict] = None) -> Any:
@@ -2186,6 +2404,17 @@ def build_app(server: QueryServer) -> HTTPApp:
                 "<th>p50 (ms)</th><th>p90 (ms)</th><th>p99 (ms)</th>"
                 "<th>max (ms)</th></tr>" + "".join(rows) + "</table>")
 
+    def _cache_line() -> str:
+        """Each serving-cache tier's hit ratio over its lookups."""
+        if server.cache is None:
+            return ""
+        tiers = server.cache.stats()["tiers"]
+        parts = [f"{name} {t['hitRatio'] * 100:.0f}% of "
+                 f"{t['hits'] + t['misses']}"
+                 for name, t in tiers.items()]
+        return ("<li>cache hit ratio: " + html.escape(", ".join(parts))
+                + " (<a href='/cache.json'>cache.json</a>)</li>")
+
     def _stream_line() -> str:
         """The batch and stream blend serving now: base, fold-in
         generations, staleness."""
@@ -2234,9 +2463,9 @@ def build_app(server: QueryServer) -> HTTPApp:
     @app.route("GET", "/")
     def index(req: Request) -> Response:
         """The status page. Left out until their data is ported
-        (``ROADMAP.md`` queue 1): the cache line (item 8), the SLO line
-        (item 14), the mesh panel and the sharding line (item 13); the
-        JAX package's "compiles since warm" counts XLA compiles."""
+        (``ROADMAP.md`` queue 1): the SLO line (item 14), the mesh panel
+        and the sharding line (item 13); the JAX package's "compiles
+        since warm" counts XLA compiles."""
         inst = server.instance
         esc = html.escape
         engine_id = inst.engine_id if inst else "(models handed in)"
@@ -2258,11 +2487,35 @@ def build_app(server: QueryServer) -> HTTPApp:
             f"<li>requests served: {served}</li>"
             f"<li>average serving: {avg * 1000:.3f} ms</li>"
             f"<li>last serving: {last * 1000:.3f} ms</li>"
-            f"{_pipeline_line()}{_stream_line()}{_trace_line()}</ul>"
+            f"{_pipeline_line()}{_stream_line()}{_cache_line()}"
+            f"{_trace_line()}</ul>"
             f"{_release_panel()}{_span_table()}"
             "<p><a href='/metrics'>Prometheus metrics</a> · "
             "<a href='/status.json'>status.json</a></p></body></html>")
         return Response(body=body, content_type="text/html")
+
+    @app.route("GET", "/cache.json")
+    def cache_json(req: Request) -> Response:
+        """Each tier's hits, misses, evictions and invalidations (what
+        ``cli cache stats`` prints)."""
+        if server.cache is None:
+            return json_response({"enabled": False,
+                                  "hint": "deploy with --cache (or "
+                                          "ServerConfig(serving_cache="
+                                          "True)) to enable the "
+                                          "serving cache hierarchy"})
+        return json_response(server.cache.stats())
+
+    @app.route("POST", "/cache/flush")
+    def cache_flush(req: Request) -> Response:
+        """The operator's flush of every tier (``cli cache flush``);
+        key-guarded like the other control routes. 409 when the cache is
+        off."""
+        _auth(req)
+        if server.cache is None:
+            raise HTTPError(409, "serving cache is not enabled")
+        return json_response({"message": "Flushed.",
+                              "removed": server.cache.flush_all()})
 
     @app.route("POST", "/drain")
     def drain(req: Request) -> Response:

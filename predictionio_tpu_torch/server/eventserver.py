@@ -37,7 +37,8 @@ caller that sent none is stored as it was posted.
 Every accepted ingest is published to the invalidation bus
 (``cache/bus.py``; the process-wide one unless ``bus`` is given): a
 single event on its own, a batch or a column block coalesced through one
-``publish_many``. A stream trainer in the same process wakes on it. A
+``publish_many``. An engine server's serving cache in the same process
+drops the answers it contradicts, and a stream trainer wakes on it. A
 failed publish is logged and never fails the ingest.
 """
 

@@ -33,8 +33,9 @@ event (``pio_traceparent``), so the ingest request and the fold-in that
 made it servable are one trace; the other events' trace ids ride in the
 ``links`` attribute. An applied or refused pass is always retained.
 
-Left out (``ROADMAP.md`` queue 1 item 8): the cache invalidation of the
-touched entities.
+The touched entities' cached answers and pinned hot-tier rows are
+invalidated by the server's :meth:`QueryServer.apply_stream_delta`, after
+the swap, as in the JAX package.
 """
 
 from __future__ import annotations

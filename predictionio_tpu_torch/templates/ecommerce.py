@@ -248,9 +248,9 @@ class ECommAlgorithm(Algorithm):
         a hot user's seen and recent sets and the app-wide constraint
         reads stop hitting storage once a query. Entries are tagged with
         the entity they derive from, so an invalidation can clear them
-        when a contradicting event arrives. The port's engine server has
-        no feature cache yet and never calls this; reads then go
-        through."""
+        when a contradicting event arrives. The engine server hands its
+        feature tier here at every bind when deployed with the serving
+        cache; without one, reads go through."""
         self._feature_cache = cache
 
     def _ctx_store(self):

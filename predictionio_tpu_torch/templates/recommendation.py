@@ -43,10 +43,12 @@ from ..models.als import (
     ALSParams,
     RatingsCOO,
     pack_ratings_cached,
+    pin_user_rows,
     place_model,
     quantize_serving_model,
     recommend_batch,
     recommend_batch_async,
+    recommend_pinned,
     recommend_products,
     train_als,
 )
@@ -212,6 +214,16 @@ def _pick(model: ALSModel, query: Query, ids, scores) -> PredictedResult:
                                  for i, s in picked))
 
 
+def _k_ladder(n_items: int) -> List[int]:
+    """The serving ladder's k: each power of two from 8 up to
+    min(128, n_items), or min(8, n_items) alone for a smaller catalog."""
+    ks, k = [], 8
+    while k <= min(128, n_items):
+        ks.append(k)
+        k *= 2
+    return ks or [min(8, n_items)]
+
+
 class ALSAlgorithm(Algorithm):
     """Serves a trained explicit- or implicit-feedback ALS model."""
 
@@ -240,13 +252,57 @@ class ALSAlgorithm(Algorithm):
                         params=self.params)
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
+        return self._predict_impl(model, query, pinned=None)
+
+    def _predict_impl(self, model: ALSModel, query: Query,
+                      pinned) -> PredictedResult:
+        """One query, ranked from the full user table, or with ``pinned``
+        (a ``(table, slot)`` handle of :meth:`pin_hot_entities`) from the
+        pinned table's row."""
         uidx = model.user_ids.get(query.user) if model.user_ids else None
         if uidx is None:
             return PredictedResult()  # unknown user: empty result
         # over-fetch by the blacklist size, then filter
-        ids, scores = recommend_products(
-            model, int(uidx), query.num + len(_black_ids(model, query)))
+        num = query.num + len(_black_ids(model, query))
+        if pinned is not None:
+            table, slot = pinned
+            ids, scores = recommend_pinned(model, table, slot, num)
+        else:
+            ids, scores = recommend_products(model, int(uidx), num)
         return _pick(model, query, ids, scores)
+
+    # -- the hot-entity tier's hooks -----------------------------------------
+    def pin_hot_entities(self, model: ALSModel,
+                         entity_keys: Sequence[str], devices=None):
+        """Pin the hottest users' factor rows as ONE table on the model's
+        device (:func:`~..models.als.pin_user_rows`, padded to a
+        power-of-two capacity); returns ``({user: (table, slot)},
+        nbytes)``. The pinned table's k-ladder (8 ... min(128, n_items))
+        runs here, on the refresh thread, so the first pinned serve after
+        a refresh meets a warm path. Per-lane tables (``devices``) are
+        queue 1 item 13's and raise."""
+        if devices:
+            raise NotImplementedError(
+                "pinning on lane devices needs replicated lanes "
+                "(ROADMAP.md queue 1 item 13)")
+        known = [(e, int(model.user_ids[e])) for e in entity_keys
+                 if model.user_ids and e in model.user_ids]
+        if not known:
+            return {}, 0
+        cap = 1
+        while cap < len(known):
+            cap *= 2
+        table, nbytes = pin_user_rows(model, [u for _, u in known], cap)
+        for k in _k_ladder(model.n_items):
+            recommend_pinned(model, table, 0, k)
+        return {e: (table, slot)
+                for slot, (e, _) in enumerate(known)}, nbytes
+
+    def predict_pinned(self, model: ALSModel, query: Query,
+                       handle) -> PredictedResult:
+        """Serve one query off a pinned hot-user row (the hot tier's
+        path)."""
+        return self._predict_impl(model, query, pinned=handle)
 
     def prepare_serving_model(self, model: ALSModel,
                               device: torch.device) -> ALSModel:
@@ -269,12 +325,7 @@ class ALSAlgorithm(Algorithm):
         limit of 128). Returns the number of calls."""
         if model.user_ids is None or len(model.user_ids) == 0:
             return 0
-        ks = []
-        k = 8
-        while k <= min(128, model.n_items):
-            ks.append(k)
-            k *= 2
-        ks = ks or [min(8, model.n_items)]
+        ks = _k_ladder(model.n_items)
         for k in ks:
             recommend_products(model, 0, k)
         calls = len(ks)

@@ -108,6 +108,16 @@ def test_the_observability_modules_are_scanned(rel):
     assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
 
 
+@pytest.mark.parametrize("rel", [
+    "cache/__init__.py", "cache/bus.py", "cache/lru.py",
+    "cache/singleflight.py", "cache/hot.py", "cache/hierarchy.py"])
+def test_the_cache_modules_are_scanned(rel):
+    """The serving caches, the port's own copies of the JAX package's
+    ``cache/`` modules, are in the scan above."""
+    assert PACKAGE / rel in set(port_files()), rel
+    assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
+
+
 def test_every_module_imports():
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
@@ -130,6 +140,11 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.faults, "
             "predictionio_tpu_torch.rollout.policy, "
             "predictionio_tpu_torch.cache.bus, "
+            "predictionio_tpu_torch.cache, "
+            "predictionio_tpu_torch.cache.lru, "
+            "predictionio_tpu_torch.cache.singleflight, "
+            "predictionio_tpu_torch.cache.hot, "
+            "predictionio_tpu_torch.cache.hierarchy, "
             "predictionio_tpu_torch.controller, "
             "predictionio_tpu_torch.controller.evaluation, "
             "predictionio_tpu_torch.controller.fast_eval, "

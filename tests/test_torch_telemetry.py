@@ -44,6 +44,7 @@ from predictionio_tpu.templates.recommendation import (
 from predictionio_tpu.templates.recommendation import (
     recommendation_engine as jax_engine,
 )
+from predictionio_tpu.utils import tracing as jtracing
 from predictionio_tpu_torch import cli
 from predictionio_tpu_torch.cache.bus import InvalidationBus
 from predictionio_tpu_torch.controller.context import Context
@@ -64,6 +65,7 @@ from predictionio_tpu_torch.streaming import StreamConfig, StreamTrainer
 from predictionio_tpu_torch.templates.recommendation import (
     recommendation_engine,
 )
+from predictionio_tpu_torch.utils import tracing as ptracing
 
 N_USERS, N_ITEMS, RANK = 64, 40, 8
 APP = "teleapp"
@@ -210,6 +212,11 @@ def served(request, factors):
     the odd ones with a traceparent."""
     cfg = dict(batching=True, serving_pipeline=request.param, max_batch=8,
                batch_window_ms=1.0, trace_slow_ms=1e-6)
+    # the process-wide ``timed`` spans (``pio_span_seconds``) hold what
+    # earlier tests of this worker recorded: clear both packages', so
+    # each server renders only its own families
+    jtracing.spans.reset()
+    ptracing.spans.reset()
     jqs = jax_server(factors, **cfg)
     jsrv = jes.create_engine_server(jqs, "127.0.0.1", 0).start_background()
     psrv = es.create_engine_server(port_server(factors, **cfg), "127.0.0.1",
