@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
-lifecycle, batch-predict, evaluation, streaming fold-in, e-commerce,
-similar-product, sequential and classification template paths, the
-release lifecycle, the console, the telemetry and the serving caches once
-on the CUDA card and check them.
+lifecycle, the pod storage layout, batch-predict, evaluation, streaming
+fold-in, e-commerce, similar-product, sequential and classification
+template paths, the release lifecycle, the console, the telemetry and the
+serving caches once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -231,6 +231,38 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             checked against the plain top-k (``fused_topk`` count
             positive). The whole phase runs under ``torch.profiler``,
             which gives the device's busy and idle share.
+8a. storage — the pod storage layout over phase 8's events, in
+            directories of its own. ``cli export`` of the ``pio`` app's
+            2,010,817 events to JSON lines; ``cli import`` of the file
+            into a new SEGMENTFS store through the native codec's bulk
+            lane (the import's events/s, the lanes' block counts: any
+            Python-lane block fails the phase) and its cold columnar
+            sidecar encode split into parse, hash, timestamps,
+            dictionaries and write; ``find_columnar`` from a fresh
+            client and warm; the data source's ``RatingsCOO`` equal to
+            the SQLite store's (id maps and triples). ``cli
+            storageserver --secret`` as a process in front of the
+            SEGMENTFS store and a ``FakeObjectStoreServer`` bucket in
+            this one; metadata and events through a REMOTE source, models
+            through an S3 source. ``cli train`` of phase 8's variant in a
+            fresh process over that storage (stages, its ``.npz`` pull;
+            ``fused_gram`` and ``chol_solve`` launches positive), its
+            factors against phase 8's model (exact when the ratings come
+            in the same order), the bucket's blob byte for byte
+            ``ModelsDAO.get``'s; a second REMOTE ``find_columnar`` must
+            be a 304 with no bytes re-sent (the server's ``/metrics``).
+            ``cli deploy`` from that storage in a fresh process: deploy
+            to ``servingWarm`` and to the first answer, 64 answers held to
+            the float64 top-k of the model read back from the bucket,
+            ``fused_topk`` launches positive. ``cli train`` of a copy of
+            the SQLite file without its sidecar in a fresh process, whose
+            single thread forks the first encode (its ``read_s``), and the
+            same read of a second copy in this process, which runs
+            threads and so encodes in-process. LOCALFS, every 20th user
+            (cut), in a process beside the SEGMENTFS steps and the SQLite
+            copies: ``cli import`` and ``find_columnar`` giving the cut's
+            triples. Last the server stops on SIGINT with exit 0, and no
+            thread the phase started is left.
 8b. batchpredict — ``cli batchpredict`` on the card from phase 8's store:
             one query line ``{"user", "num": 10}`` for each of its 13,850
             users (seed 0), the ``fused_topk`` count zeroed just before and
@@ -381,8 +413,9 @@ Phases, each printing one line of numbers, any failure exits non-zero:
 14. console — the console on phase 8's store, every command a ``python
             -m predictionio_tpu_torch.cli`` process where a fresh process
             is the point. ``cli build --artifact-dir A`` into a new, empty
-            ``A`` (the command's seconds and each library's ``nvcc``
-            seconds), then again (no ``nvcc`` may run). Phase 8's variant
+            ``A`` (the command's seconds, each library's ``nvcc``
+            seconds and the host codec's ``g++`` seconds), then again (no
+            ``nvcc`` or ``g++`` may run). Phase 8's variant
             deployed with ``--batching`` twice, from ``A`` (built) and
             from a new, empty ``B`` (cold): the seconds from the process's
             start to ``servingWarm`` and to the first correct answer, and
@@ -412,8 +445,9 @@ line (time, bound, plain and library times, launches on the main path,
 in the batch-predict job for ``fused_topk``, in the serial eval run, on
 the stream path, in the implicit iteration, in the templates phase, in
 phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
-in phase 4b's counted bursts and in phase 4c's counted part) and, last,
-``{"ok": true, "device": {...}}``.
+in phase 4b's counted bursts, in phase 4c's counted part and in phase
+8a's REMOTE training and deploy) and, last, ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -422,6 +456,7 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib.util
 import inspect
 import io
@@ -3199,9 +3234,564 @@ def phase_pio(data, dev, home: str) -> dict:
               f"{dep_launches} | instance {inst.id} {inst.status}",
               flush=True)
         return {"gram_table_launches": launches["gram_table"],
-                "engine_json": str(engine_json), "log_end_ms": t0_ms + n}
+                "engine_json": str(engine_json), "log_end_ms": t0_ms + n,
+                "find_cold_s": find_cold_s}
     finally:
         storage.close()
+
+
+#: the storage phase's LOCALFS step: every 20th user (the cut of depth)
+STORAGE_LOCALFS_STRIDE = 20
+#: answers the storage phase's deploy holds to float64
+STORAGE_QUERIES = 64
+STORAGE_SECRET = "chip-smoke-pod"
+#: the longest one command of the storage phase may take
+STORAGE_TIMEOUT_S = 600.0
+
+#: ``cli`` in a fresh process, then its kernel launches, the event
+#: store's last sidecar encode (SQLite), its last columnar pull (REMOTE)
+#: and the process's seconds on one line
+CLI_COUNTED_MAIN = """\
+import json, sys, time
+t0 = time.perf_counter()
+from predictionio_tpu_torch import cli
+from predictionio_tpu_torch.data.storage.registry import get_storage
+from predictionio_tpu_torch.ops import fused_gram, fused_topk, gram, solve
+rc = cli.main(sys.argv[1:])
+ev = get_storage().events()
+print("COUNTED " + json.dumps({
+    "fused_gram": fused_gram.LAUNCHES, "chol_solve": solve.LAUNCHES,
+    "gram_table": gram.LAUNCHES, "fused_topk": fused_topk.LAUNCHES,
+    "encode": getattr(ev, "last_encode", None),
+    "pull": getattr(getattr(ev, "c", None), "last_columnar", None),
+    "seconds": time.perf_counter() - t0}), flush=True)
+sys.exit(rc)
+"""
+
+#: phase ``storage``'s LOCALFS step in a process of its own (it runs
+#: beside the SEGMENTFS steps): ``cli import`` of a JSON-lines file into
+#: a new LOCALFS store, then ``find_columnar`` from a fresh client; the
+#: (user, item, rating) numbers go to an npz, the seconds to stdout
+LOCALFS_MAIN = """\
+import contextlib, io, json, sys, time
+import numpy as np
+from predictionio_tpu_torch import cli
+from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.models.data import ratings_from_columnar
+root, src, out, app = sys.argv[1:5]
+env = {"PIO_STORAGE_SOURCES_L_TYPE": "LOCALFS",
+       "PIO_STORAGE_SOURCES_L_PATH": root}
+st = Storage(env=env)
+log = io.StringIO()
+with contextlib.redirect_stdout(log):
+    assert cli.main(["app", "new", app], storage=st) == 0
+    t = time.perf_counter()
+    assert cli.main(["import", "--app", app, "--input", src],
+                    storage=st) == 0
+    import_s = time.perf_counter() - t
+app_id = st.apps().get_by_name(app).id
+st.close()
+st = Storage(env=env)
+t = time.perf_counter()
+batch = st.events().find_columnar(app_id, ordered=False, with_props=False)
+find_s = time.perf_counter() - t
+r, uids, iids = ratings_from_columnar(batch)
+num = lambda bm, n: np.array([int(k[1:]) for k, _ in
+                              sorted(bm.items(), key=lambda kv: kv[1])],
+                             np.int64).reshape(n)
+np.savez(out, users=num(uids, r.n_users)[r.users],
+         items=num(iids, r.n_items)[r.items], ratings=r.ratings)
+print(json.dumps({"import_s": import_s, "find_s": find_s, "n": batch.n}),
+      flush=True)
+"""
+
+
+class GCPauses:
+    """Seconds the cyclic garbage collector held this process, summed
+    while installed (``gc.callbacks``)."""
+
+    def __init__(self):
+        self.s = 0.0
+        self._t0 = None
+        gc.callbacks.append(self._cb)
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self._t0 = None
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._cb)
+
+
+class EncodeSplit:
+    """Seconds of the SEGMENTFS sidecar encode by part, summed while
+    installed: parse (the codec's ``parse_segment`` blocks), hash (the
+    event ids' blake2b), timestamps (ISO strings to millis), dictionaries
+    (``columnar_from_columns``) and write (segments, dictionaries,
+    manifest, id hashes)."""
+
+    def __init__(self):
+        from predictionio_tpu_torch.data import columnar
+        from predictionio_tpu_torch.data.storage import segmentfs
+
+        self.s = dict.fromkeys(("parse", "hash", "timestamps",
+                                "dictionaries", "write"), 0.0)
+        store = segmentfs.SegmentFSEventStore
+        self._undo = []
+        for owner, name, part in (
+                (segmentfs, "bulk_hash64", "hash"),
+                (segmentfs, "bulk_iso_to_millis", "timestamps"),
+                (segmentfs, "columnar_from_columns", "dictionaries"),
+                (columnar.SegmentLog, "append", "write"),
+                (store, "_write_id_hashes", "write")):
+            self._wrap(owner, name, part)
+        real_iter = store._iter_segment_columns
+
+        def timed_iter(es, path, float_props):
+            it = real_iter(es, path, float_props)
+            while True:
+                t = time.perf_counter()
+                try:
+                    block = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    self.s["parse"] += time.perf_counter() - t
+                yield block
+
+        self._undo.append((store, "_iter_segment_columns", real_iter))
+        store._iter_segment_columns = timed_iter
+        self.gc = GCPauses()
+
+    def _wrap(self, owner, name, part):
+        real = owner.__dict__[name]
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.s[part] += time.perf_counter() - t
+
+        self._undo.append((owner, name, real))
+        setattr(owner, name, timed)
+
+    def close(self) -> None:
+        for owner, name, real in reversed(self._undo):
+            setattr(owner, name, real)
+        self.gc.close()
+
+    def line(self, total: float) -> str:
+        """The parts, what of ``total`` none of them holds, and the
+        garbage collector's pauses (inside the parts and the rest)."""
+        return " ".join(f"{k}={v:.3f}s" for k, v in self.s.items()) + \
+            f" other={total - sum(self.s.values()):.3f}s; gc pauses " \
+            f"{self.gc.s:.3f}s"
+
+
+def counted_cli(args: list, env: dict, log: Path) -> tuple:
+    """``cli ARGS`` as a fresh process through :data:`CLI_COUNTED_MAIN`:
+    (exit code, output, seconds, its ``COUNTED`` report)."""
+    root = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", CLI_COUNTED_MAIN,
+                                 *args], stdout=f, stderr=subprocess.STDOUT,
+                                cwd=root, env=env)
+    rc = end_process(proc, STORAGE_TIMEOUT_S)
+    out = log.read_text()
+    counted = next((json.loads(ln[len("COUNTED "):])
+                    for ln in out.splitlines() if ln.startswith("COUNTED ")),
+                   None)
+    return rc, out, time.perf_counter() - t, counted
+
+
+def train_stages(out: str) -> dict:
+    return json.loads(next(
+        ln for ln in out.splitlines()
+        if ln.startswith("Train stages: "))[len("Train stages: "):])
+
+
+def scrape_counter(port: int, name: str, labels: str = "") -> float:
+    with _LOCAL.open(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    m = re.search(rf"^{re.escape(name + labels)} (\S+)$", text, re.M)
+    return float(m.group(1)) if m else 0.0
+
+
+def ratings_triples(td) -> np.ndarray:
+    r = td.ratings
+    return triples(id_numbers(td.user_ids, r.n_users)[r.users],
+                   id_numbers(td.item_ids, r.n_items)[r.items], r.ratings)
+
+
+def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
+    """The pod storage layout over phase 8's events (see the module's
+    docstring, phase 8a). Returns the kernels' launches in the phase's
+    counted processes: the REMOTE training and the deploy (and the forked
+    SQLite training, counted apart)."""
+    from predictionio_tpu_torch import cli, native
+    from predictionio_tpu_torch.controller.context import Context
+    from predictionio_tpu_torch.data.storage.objectstore import (
+        FakeObjectStoreServer,
+    )
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.data.storage.segmentfs import (
+        SegmentFSEventStore,
+    )
+    from predictionio_tpu_torch.data.storage.sqlite import SQLiteEventStore
+    from predictionio_tpu_torch.templates.recommendation import (
+        RecommendationDataSource,
+    )
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+    from urllib.parse import quote
+
+    threads_before = {t.ident for t in threading.enumerate()}
+    root = Path(__file__).resolve().parent
+    work = Path(tempfile.mkdtemp(prefix="storage_", dir=Path(home)))
+    base_env = {k: v for k, v in os.environ.items()
+                if not k.startswith("PIO_")}
+    base_env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p)
+    seg_env = {"PIO_STORAGE_SOURCES_SEG_TYPE": "SEGMENTFS",
+               "PIO_STORAGE_SOURCES_SEG_PATH": str(work / "segmentfs")}
+    users, items, stars = (a[data[0] % PIO_USER_STRIDE == 0]
+                           for a in data[:3])
+    sqlite_st = Storage(env={"PIO_HOME": home})
+    seg = Storage(env=seg_env)
+    server = bucket = localfs = pod = None
+    deploy = None
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    try:
+        # -- 1. export ------------------------------------------------------
+        exported = work / "export.jsonl"
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["export", "--app", PIO_APP, "--output",
+                           str(exported)], storage=sqlite_st)
+        export_s = time.perf_counter() - t
+        n_out = int(out.getvalue().split()[1])
+        check(rc == 0 and n_out == len(users),
+              f"cli export: {rc} {out.getvalue()} ({len(users)} stored)")
+
+        # -- 7. LOCALFS, every 20th user, in a process beside 2-6 --------
+        keep = users % STORAGE_LOCALFS_STRIDE == 0
+        t = time.perf_counter()
+        pattern = re.compile(rb'"entityId": "u(\d+)"')
+        with open(exported, "rb") as src, \
+                open(work / "localfs.jsonl", "wb") as dst:
+            for line in src:
+                if int(pattern.search(line).group(1)) \
+                        % STORAGE_LOCALFS_STRIDE == 0:
+                    dst.write(line)
+        cut_s = time.perf_counter() - t
+        lf_log = work / "localfs.log"
+        with open(lf_log, "w") as f:
+            localfs = subprocess.Popen(
+                [sys.executable, "-c", LOCALFS_MAIN, str(work / "localfs"),
+                 str(work / "localfs.jsonl"), str(work / "localfs.npz"),
+                 PIO_APP], stdout=f, stderr=subprocess.STDOUT, cwd=root,
+                env=base_env)
+
+        # -- 2. import into SEGMENTFS through the native lane ---------------
+        out = io.StringIO()
+        native.reset_lane_counts()
+        split = EncodeSplit()
+        seconds = {}
+        real_import = SegmentFSEventStore.import_jsonl
+        real_warm = SegmentFSEventStore.warm_columnar
+
+        def timed(fn, key):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    seconds[key] = time.perf_counter() - t0
+            return run
+
+        SegmentFSEventStore.import_jsonl = timed(real_import, "import")
+        SegmentFSEventStore.warm_columnar = timed(real_warm, "encode")
+        try:
+            with contextlib.redirect_stdout(out):
+                check(cli.main(["app", "new", PIO_APP], storage=seg) == 0,
+                      "app new on SEGMENTFS failed")
+                t = time.perf_counter()
+                rc = cli.main(["import", "--app", PIO_APP, "--input",
+                               str(exported)], storage=seg)
+                cli_import_s = time.perf_counter() - t
+        finally:
+            SegmentFSEventStore.import_jsonl = real_import
+            SegmentFSEventStore.warm_columnar = real_warm
+            split.close()
+        lanes = native.lane_counts()
+        check(rc == 0 and f"Imported {n_out} event(s)." in out.getvalue(),
+              f"cli import into SEGMENTFS: {rc} {out.getvalue()}")
+        check(lanes.get("import_jsonl", {}).get("python", 0) == 0
+              and lanes["import_jsonl"]["native"] > 0
+              and lanes.get("parse_segment", {}).get("python", 0) == 0,
+              f"the Python lane carried codec work: {lanes}")
+
+        # -- 3. the columnar reads ------------------------------------------
+        app_id = seg.apps().get_by_name(PIO_APP).id
+        fresh = Storage(env=seg_env)
+        t = time.perf_counter()
+        fresh.events().find_columnar(app_id, ordered=False,
+                                     with_props=False)
+        built_s = time.perf_counter() - t
+        t = time.perf_counter()
+        fresh.events().find_columnar(app_id, ordered=False,
+                                     with_props=False)
+        warm_s = time.perf_counter() - t
+        fresh.close()
+        params = DataSourceParams(app_name=PIO_APP)
+        td_seg = RecommendationDataSource(params).read_training(
+            Context(device=dev, _storage=seg))
+        td_sql = RecommendationDataSource(params).read_training(
+            Context(device=dev, _storage=sqlite_st))
+        check(td_seg.user_ids.to_dict() == td_sql.user_ids.to_dict()
+              and td_seg.item_ids.to_dict() == td_sql.item_ids.to_dict(),
+              "SEGMENTFS and SQLite number the users or items apart")
+        check(np.array_equal(ratings_triples(td_seg),
+                             ratings_triples(td_sql)),
+              "SEGMENTFS does not read back the SQLite store's ratings")
+        same_order = all(np.array_equal(getattr(td_seg.ratings, f),
+                                        getattr(td_sql.ratings, f))
+                         for f in ("users", "items", "ratings"))
+        del td_seg
+
+        # -- 4. the storage server and the bucket ---------------------------
+        srv_log = work / "storageserver.log"
+        server = cli_process(["storageserver", "--ip", "127.0.0.1",
+                              "--port", "0", "--secret", STORAGE_SECRET],
+                             dict(base_env, **seg_env), srv_log)
+        srv_port = None
+        t0 = time.perf_counter()
+        while srv_port is None:
+            check(server.poll() is None
+                  and time.perf_counter() - t0 < STORAGE_TIMEOUT_S,
+                  f"cli storageserver did not start: {srv_log.read_text()}")
+            for ln in srv_log.read_text().splitlines():
+                if " is listening at http://" in ln:
+                    srv_port = int(ln.rsplit(":", 1)[1].rstrip("."))
+            time.sleep(0.01)
+        bucket = FakeObjectStoreServer(str(work / "bucket"))
+        bucket.start_background()
+        pod_env = {
+            "PIO_STORAGE_SOURCES_NET_TYPE": "REMOTE",
+            "PIO_STORAGE_SOURCES_NET_URL": f"http://127.0.0.1:{srv_port}",
+            "PIO_STORAGE_SOURCES_NET_SECRET": STORAGE_SECRET,
+            "PIO_STORAGE_SOURCES_OBJ_TYPE": "S3",
+            "PIO_STORAGE_SOURCES_OBJ_ENDPOINT":
+                f"http://127.0.0.1:{bucket.port}/models",
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "NET",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NET",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "OBJ"}
+        pod = Storage(env=pod_env)
+
+        # -- 5. train through REMOTE, the blob to the bucket ----------------
+        rc, out, train_s, train_c = counted_cli(
+            ["train", "--engine-json", pio["engine_json"], *device],
+            dict(base_env, **pod_env), work / "train.log")
+        check(rc == 0 and train_c is not None,
+              f"cli train over REMOTE: {rc} {out[-3000:]}")
+        stages = train_stages(out)
+        check(dev.type != "cuda" or (train_c["fused_gram"] > 0
+                                     and train_c["chol_solve"] > 0),
+              f"cli train over REMOTE launched fused_gram "
+              f"{train_c['fused_gram']}, chol_solve "
+              f"{train_c['chol_solve']} times")
+        check(train_c["pull"]["status"] == 200,
+              f"the training read pulled {train_c['pull']}")
+        (inst,) = pod.engine_instances().get_all()
+        check(inst.status == "COMPLETED", f"instance {inst.status}")
+        blob = pod.models().get(inst.id).models
+        on_disk = (work / "bucket" / quote(f"models/{inst.id}",
+                                            safe="")).read_bytes()
+        check(blob == on_disk, "the bucket's blob differs from "
+              "ModelsDAO.get's")
+        (model,) = loads_models(blob)
+        (sql_inst,) = sqlite_st.engine_instances().get_all()
+        (ref,) = loads_models(sqlite_st.models().get(sql_inst.id).models)
+        check(model.user_ids.to_dict() == ref.user_ids.to_dict()
+              and model.item_ids.to_dict() == ref.item_ids.to_dict(),
+              "the REMOTE model numbers its ids apart from phase 8's")
+        du = (model.user_factors - ref.user_factors).abs().max().item()
+        dv = (model.item_factors - ref.item_factors).abs().max().item()
+        exact = du == 0.0 and dv == 0.0
+        check(exact or not same_order,
+              f"the ratings came in phase 8's order, yet the factors "
+              f"differ (users {du:.3e}, items {dv:.3e})")
+        check(np.isfinite(du) and np.isfinite(dv) and max(du, dv) < 2e-3,
+              f"the REMOTE model is off phase 8's by {max(du, dv):.3e}")
+
+        # the REMOTE read again: an ETag round trip, no npz re-sent
+        ev = pod.events()
+        ev.find_columnar(app_id, ordered=False, with_props=False)
+        first_pull = dict(ev.c.last_columnar)
+        hits = scrape_counter(srv_port, "pio_columnar_requests_total",
+                              '{outcome="hit"}')
+        sent = scrape_counter(srv_port, "pio_columnar_bytes_total")
+        t = time.perf_counter()
+        ev.find_columnar(app_id, ordered=False, with_props=False)
+        again_s = time.perf_counter() - t
+        second_pull = dict(ev.c.last_columnar)
+        check(second_pull == {"status": 304, "bytes": 0}
+              and scrape_counter(srv_port, "pio_columnar_requests_total",
+                                 '{outcome="hit"}') == hits + 1
+              and scrape_counter(srv_port, "pio_columnar_bytes_total")
+              == sent, f"the second REMOTE read re-sent the npz: "
+                       f"{second_pull}")
+
+        # -- 6. deploy from the bucket and answer ---------------------------
+        deploy = console_deploy("storage", pio["engine_json"], None,
+                                dict(base_env, **pod_env), work, pod, dev,
+                                queries=STORAGE_QUERIES)
+        st = _http(deploy["port"], "GET", "/status.json")[1]
+        topk = st["kernels"]["fused_topk"]["launches"]
+        check(st["engineInstanceId"] == inst.id, "deploy bound another "
+              "instance")
+        check(dev.type != "cuda" or topk > 0,
+              "the deploy launched fused_topk no time")
+        rc = cli.main(["undeploy", "--ip", "127.0.0.1", "--port",
+                       str(deploy["port"])], storage=pod)
+        check(rc == 0 and end_process(deploy["proc"]) == 0,
+              f"the storage deploy did not end cleanly: {rc}")
+        warm_at, first_at = deploy["warm_s"], deploy["first_s"]
+        deploy = None
+
+        # -- 8. a copy of the SQLite file without its sidecar, trained in a
+        # fresh process whose single thread forks the first encode; the
+        # same encode in this process (threads: in-process) on a second
+        # copy beside it, both while LOCALFS runs --------------------------
+        copies = {}
+        for tag in ("fork", "inproc"):
+            copies[tag] = work / tag
+            copies[tag].mkdir()
+            shutil.copy(Path(home) / "pio.db", copies[tag] / "pio.db")
+            check(not (copies[tag] / "pio.db.columnar").exists(),
+                  "the SQLite copy has a sidecar")
+        rc, out, _, fork_c = counted_cli(
+            ["train", "--engine-json", pio["engine_json"], *device],
+            dict(base_env, PIO_HOME=str(copies["fork"])), work / "fork.log")
+        check(rc == 0 and fork_c is not None,
+              f"cli train of the SQLite copy: {rc} {out[-3000:]}")
+        fork_s = fork_c["seconds"]
+        fork_stages = train_stages(out)
+        # the store forks its first encode from this many rows up
+        check(fork_c["encode"]["path"] == "forked"
+              or n_out < SQLiteEventStore.ENCODE_PARALLEL_MIN,
+              f"the first encode did not fork: {fork_c['encode']}")
+        check(dev.type != "cuda" or (fork_c["fused_gram"] > 0
+                                     and fork_c["chol_solve"] > 0),
+              f"the SQLite copy's training launched {fork_c}")
+        inproc = Storage(env={"PIO_HOME": str(copies["inproc"])})
+        pauses = GCPauses()
+        t = time.perf_counter()
+        try:
+            RecommendationDataSource(params).read_training(
+                Context(device=dev, _storage=inproc))
+        finally:
+            pauses.close()
+        inproc_s = time.perf_counter() - t
+        inproc_path = inproc.events().last_encode
+        inproc.close()
+        check(inproc_path["path"] == "in-process",
+              f"this process forked its encode: {inproc_path}")
+
+        # -- 7, its end ------------------------------------------------------
+        check(end_process(localfs, STORAGE_TIMEOUT_S) == 0,
+              f"the LOCALFS step failed: {lf_log.read_text()[-3000:]}")
+        lf = json.loads(lf_log.read_text().strip().splitlines()[-1])
+        got = np.load(work / "localfs.npz")
+        check(lf["n"] == int(keep.sum()) and np.array_equal(
+            triples(got["users"], got["items"], got["ratings"]),
+            triples(users[keep], items[keep], stars[keep])),
+              "LOCALFS did not read back the cut's ratings")
+        localfs = None
+
+        launches = {"fused_topk": topk,
+                    "fused_gram": train_c["fused_gram"],
+                    "chol_solve": train_c["chol_solve"],
+                    "gram_table": train_c["gram_table"]}
+        check(launches["gram_table"] == 0 and fork_c["gram_table"] == 0,
+              "the storage phase launched gram_table")
+
+        # -- 9. teardown ------------------------------------------------------
+        server.send_signal(signal.SIGINT)
+        check(end_process(server, 60) == 0,
+              f"cli storageserver did not exit cleanly: "
+              f"{srv_log.read_text()[-2000:]}")
+        server = None
+        pod.close()
+        bucket.shutdown()
+        bucket = None
+        left = storage_threads_left(threads_before)
+        check(not left, f"the storage phase left threads: {left}")
+        print(
+            f"phase storage: export {n_out} events in {export_s:.3f}s = "
+            f"{n_out / export_s:.1f} rows/s | SEGMENTFS cli import "
+            f"{cli_import_s:.3f}s: import_jsonl {seconds['import']:.3f}s = "
+            f"{n_out / seconds['import']:.1f} events/s, lanes "
+            f"{json.dumps(lanes)}, cold sidecar encode (warm_columnar) "
+            f"{seconds['encode']:.3f}s ({split.line(seconds['encode'])}) | "
+            f"find_columnar "
+            f"from a fresh client {built_s:.3f}s, warm {warm_s:.3f}s | "
+            f"RatingsCOO equal to SQLite's (id maps, triples; same order "
+            f"{same_order}) | cli train over REMOTE {train_s:.3f}s stages "
+            f"{json.dumps(stages)} (npz pull {train_c['pull']['bytes']} "
+            f"bytes) launches fused_gram={train_c['fused_gram']} "
+            f"chol_solve={train_c['chol_solve']} gram_table="
+            f"{train_c['gram_table']} | factors against phase 8's: "
+            f"max |d| users {du:.3e} items {dv:.3e} "
+            f"({'exact' if exact else 'within 2e-3'}) | REMOTE read again "
+            f"{again_s * 1e3:.3f} ms: {second_pull['status']}, "
+            f"{second_pull['bytes']} bytes (first {first_pull}) | deploy "
+            f"from the bucket: servingWarm at {warm_at:.3f}s, first answer "
+            f"at {first_at:.3f}s, {STORAGE_QUERIES} answers held to "
+            f"float64, "
+            f"fused_topk launches={topk} | forked SQLite encode: cli train "
+            f"{fork_s:.3f}s read_s {fork_stages['read_s']:.3f}s "
+            f"{json.dumps(fork_c['encode'])}, the same read in this "
+            f"process (in-process encode) {inproc_s:.3f}s, gc pauses "
+            f"{pauses.s:.3f}s (phase pio's in-process cold find_columnar "
+            f"{pio['find_cold_s']:.3f}s) "
+            f"fused_gram={fork_c['fused_gram']} chol_solve="
+            f"{fork_c['chol_solve']} | LOCALFS 1 user in "
+            f"{STORAGE_LOCALFS_STRIDE} ({lf['n']} events, cut {cut_s:.3f}s, "
+            f"beside steps 2-6): cli import {lf['import_s']:.3f}s = "
+            f"{lf['n'] / lf['import_s']:.1f} events/s, find_columnar "
+            f"{lf['find_s']:.3f}s, triples equal | {card_tag(card)}",
+            flush=True)
+        return {"launches": launches, "fork": fork_c}
+    finally:
+        for proc in (deploy and deploy["proc"], localfs, server):
+            if proc is not None and proc.poll() is None:
+                proc.terminate()
+                end_process(proc, 30)
+        for st_ in (pod, seg, sqlite_st):
+            if st_ is not None:
+                st_.close()
+        if bucket is not None:
+            bucket.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def storage_threads_left(before: set, wait_s: float = 10.0) -> list:
+    """Threads started since ``before`` (a set of idents) that are still
+    alive after up to ``wait_s``: a server's connection threads end once
+    their clients have closed."""
+    deadline = time.perf_counter() + wait_s
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in before]
+        if not left or time.perf_counter() > deadline:
+            return left
+        time.sleep(0.05)
 
 
 def phase_batchpredict(data, dev, home: str, pio: dict) -> int:
@@ -5698,23 +6288,26 @@ def run_cli(args: list, env: dict, log: Path) -> tuple:
     return rc, log.read_text(), time.perf_counter() - t
 
 
-def console_deploy(tag: str, engine_json: str, artifact_dir: str, env: dict,
-                   logs: Path, storage, dev) -> dict:
-    """``cli deploy --batching --artifact-dir`` as a fresh process: the
-    seconds from its start to the first correct answer (asked as soon as
-    the port answers) and to ``servingWarm`` (polled beside it), then
-    ``CONSOLE_QUERIES`` answers held to the float64 top-k of the bound
-    tables. Returns the server's port, process and numbers; the caller
-    undeploys it."""
+def console_deploy(tag: str, engine_json: str, artifact_dir, env: dict,
+                   logs: Path, storage, dev,
+                   queries: int = CONSOLE_QUERIES) -> dict:
+    """``cli deploy --batching --artifact-dir`` as a fresh process (no
+    ``--artifact-dir`` when it is None): the seconds from its start to
+    the first correct answer (asked as soon as the port answers) and to
+    ``servingWarm`` (polled beside it), then ``queries`` answers held to
+    the float64 top-k of the bound tables, whose model is read back from
+    ``storage``. Returns the server's port, process and numbers; the
+    caller undeploys it."""
     from predictionio_tpu_torch.models.als import _table_leaves
     from predictionio_tpu_torch.workflow.persistence import loads_models
 
     log = logs / f"deploy_{tag}.log"
     device = [] if dev.type == "cuda" else ["--device", "cpu"]
     t0 = time.perf_counter()
+    art = [] if artifact_dir is None else ["--artifact-dir", artifact_dir]
     proc = cli_process(["deploy", "--engine-json", engine_json, "--ip",
-                        "127.0.0.1", "--port", "0", "--batching",
-                        "--artifact-dir", artifact_dir, *device], env, log)
+                        "127.0.0.1", "--port", "0", "--batching", *art,
+                        *device], env, log)
     out = {"proc": proc}
     port = None
     while port is None:
@@ -5760,7 +6353,7 @@ def console_deploy(tag: str, engine_json: str, artifact_dir: str, env: dict,
     check_answer(first_q, first, *ref)
     rng = np.random.default_rng(len(tag))
     keys = [k for k, _ in model.user_ids.items()]
-    for u in rng.choice(len(keys), CONSOLE_QUERIES, replace=False):
+    for u in rng.choice(len(keys), queries, replace=False):
         q = {"user": keys[u], "num": 10}
         check_answer(q, _post(port, q)[0], *ref)
     return out
@@ -5796,12 +6389,18 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
             check("compiled (" in line, f"cli build into an empty dir did "
                   f"not compile {name}: {line!r}")
             nvcc[name] = float(line.rsplit("(", 1)[1].rstrip("s)"))
+        # the host codec builds beside the kernels (g++, not nvcc)
+        codec = next((ln for ln in log.splitlines()
+                      if ln.startswith("  native codec ")), "")
+        check("compiled (" in codec, f"cli build into an empty dir did not "
+              f"compile the native codec: {codec!r}")
+        gxx_s = float(codec.rsplit("(", 1)[1].rstrip("s)"))
         rc, log2, rebuild_s = run_cli(
             ["build", "--engine-json", pio["engine_json"], "--artifact-dir",
              str(built_dir)], env, work / "build2.log")
         check(rc == 0 and "compiled (" not in log2
-              and log2.count("already built (") == len(nvcc),
-              f"the second cli build ran nvcc: {log2[-2000:]}")
+              and log2.count("already built (") == len(nvcc) + 1,
+              f"the second cli build ran nvcc or g++: {log2[-2000:]}")
 
         # -- deploy, built then cold ---------------------------------------
         deploys = {}
@@ -5945,7 +6544,8 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
         print(f"phase console: cli build into an empty dir "
               f"{build_s:.3f}s (nvcc " + " ".join(
                   f"{k}={v:.2f}s" for k, v in sorted(nvcc.items()))
-              + f"), again {rebuild_s:.3f}s (no nvcc) | deploy built: "
+              + f", native codec g++ {gxx_s:.2f}s), again "
+              f"{rebuild_s:.3f}s (no nvcc, no g++) | deploy built: "
               f"servingWarm at {b['warm_s']:.3f}s, first answer at "
               f"{b['first_s']:.3f}s, warmReport "
               f"{json.dumps(b['status']['warmReport']['seconds'])} "
@@ -6092,6 +6692,8 @@ def main(argv=None) -> int:
             # nothing
             pio, _ = profile_device("phase pio profile, the whole phase",
                                     lambda: phase_pio(data, dev, home))
+        with phase("storage"):
+            storage_l = phase_storage(data, dev, home, pio, card)
         with phase("batchpredict"):
             batch_launches = phase_batchpredict(data, dev, home, pio)
         with phase("eval"):
@@ -6119,8 +6721,10 @@ def main(argv=None) -> int:
     # sequential_pio_launches, classification_launches: the new phases'
     # (no TPU kernel is on their paths: each reads 0); release_launches:
     # the release phase's (two trainings, then both arms' serving);
-    # telemetry_launches: the telemetry phase's two counted bursts
+    # telemetry_launches: the telemetry phase's two counted bursts;
+    # storage_launches: the storage phase's REMOTE training and its deploy
     implicit_l = implicit["launches"]
+    store_l = storage_l["launches"]
     kernels = [
         dict(name="fused_topk", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_topk.cu",
@@ -6136,7 +6740,8 @@ def main(argv=None) -> int:
              release_launches=rel_l["fused_topk"],
              console_launches=console_l["fused_topk"],
              telemetry_launches=telemetry_l["fused_topk"],
-             cache_launches=cache_l["fused_topk"], **row),
+             cache_launches=cache_l["fused_topk"],
+             storage_launches=store_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -6150,7 +6755,8 @@ def main(argv=None) -> int:
              classification_launches=cls_l["fused_gram"],
              release_launches=rel_l["fused_gram"],
              telemetry_launches=telemetry_l["fused_gram"],
-             cache_launches=cache_l["fused_gram"], **gram_row),
+             cache_launches=cache_l["fused_gram"],
+             storage_launches=store_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -6164,7 +6770,8 @@ def main(argv=None) -> int:
              classification_launches=cls_l["chol_solve"],
              release_launches=rel_l["chol_solve"],
              telemetry_launches=telemetry_l["chol_solve"],
-             cache_launches=cache_l["chol_solve"], **solve_row),
+             cache_launches=cache_l["chol_solve"],
+             storage_launches=store_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -6178,7 +6785,8 @@ def main(argv=None) -> int:
              classification_launches=cls_l["gram_table"],
              release_launches=rel_l["gram_table"],
              telemetry_launches=telemetry_l["gram_table"],
-             cache_launches=cache_l["gram_table"], **table_row),
+             cache_launches=cache_l["gram_table"],
+             storage_launches=store_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

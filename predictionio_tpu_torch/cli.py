@@ -6,7 +6,11 @@
     python -m predictionio_tpu_torch.cli accesskey new|list|delete ...
     python -m predictionio_tpu_torch.cli eventserver|adminserver|dashboard \\
         [--ip IP] [--port N] [--cert PEM --key PEM] [--stats]
-    python -m predictionio_tpu_torch.cli start-all|stop-all [--pid-dir D]
+    python -m predictionio_tpu_torch.cli storageserver [--ip IP] \\
+        [--port 7077] [--secret S] [--cert PEM --key PEM]
+    python -m predictionio_tpu_torch.cli start-all|stop-all [--pid-dir D] \\
+        [--with-storageserver [--storageserver-port 7077] \\
+        [--storage-secret S]]
     python -m predictionio_tpu_torch.cli import|export --app MyApp1 \\
         --input|--output ev.jsonl [--channel C]
     python -m predictionio_tpu_torch.cli build --engine-json engine.json \\
@@ -68,9 +72,14 @@ package writes binds in both) and drives a running engine server's
 canary, promote and rollback (``status`` falls back to the storage when
 the server is unreachable); as in the JAX package its engine triple is
 ``--engine-id`` (default "default"), ``--engine-version`` (default "1")
-and the ``--engine-json`` path. ``start-all`` runs the event server, the
-admin server and the dashboard as daemons with pidfiles; ``stop-all``
-stops them. ``--https`` (and ``--insecure``) reach a server deployed
+and the ``--engine-json`` path. ``storageserver`` serves this host's
+storage to REMOTE-backend clients (hosts of a pod with no shared mount)
+over the JAX package's protocol, ``--secret`` guarding every route.
+``start-all`` runs the event server, the admin server and the dashboard
+(with ``--with-storageserver``, the storage server first) as daemons with
+pidfiles; ``stop-all`` stops them. ``import`` loads through the event
+store's own bulk lane (SEGMENTFS: the native codec), then builds the
+columnar sidecar. ``--https`` (and ``--insecure``) reach a server deployed
 with ``--cert``/``--key``. ``trace`` reads a running engine server's
 flight recorder: its status, the N slowest retained traces, or one trace
 written as Chrome/Perfetto trace-event JSON. ``eventserver --stats``
@@ -91,9 +100,8 @@ An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
-Left out (``ROADMAP.md`` queue 1): ``storageserver`` (item 12), ``slo``,
-fleets and ``deploy --slo-*`` (item 14), ``check`` and ``audit-*``
-(item 15).
+Left out (``ROADMAP.md`` queue 1): ``slo``, fleets and ``deploy
+--slo-*`` (item 14), ``check`` and ``audit-*`` (item 15).
 """
 
 from __future__ import annotations
@@ -361,6 +369,16 @@ def build_dashboard(args, storage: Storage) -> AppServer:
                             ssl_context=_ssl(args))
 
 
+def build_storageserver(args, storage: Storage) -> AppServer:
+    """The storage server the storageserver command would serve, not yet
+    serving."""
+    from .server.storageserver import create_storage_server
+
+    return create_storage_server(storage, host=args.ip, port=args.port,
+                                 secret=args.secret or None,
+                                 ssl_context=_ssl(args))
+
+
 def _app_and_channel(args, storage: Storage):
     """The app of ``--app``/``--appid`` and the id of ``--channel``;
     ``(None, None)`` after an error message."""
@@ -418,8 +436,12 @@ def cmd_build(args, storage: Storage) -> int:
     """Check that the variant loads, then build every kernel library into
     the kernel root (``--artifact-dir``, ``$PTPU_ARTIFACT_DIR`` or
     ``build/torch_kernels``), where a deploy with the same root loads
-    them at bind. ``--device cpu`` checks the variant only. A machine
-    without ``nvcc`` fails here."""
+    them at bind, and the host's native codec beside them. ``--device
+    cpu`` checks the variant only. A machine without ``nvcc`` fails
+    here."""
+    import subprocess
+
+    from . import native
     from .ops import _build
 
     variant = load_variant(args.engine_json)
@@ -433,10 +455,18 @@ def cmd_build(args, storage: Storage) -> int:
         except RuntimeError as e:
             _err(f"Kernel build failed: {e}")
             return 1
+        try:
+            codec = native.build()
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            _err(f"Native codec build failed: {e}")
+            return 1
         _out(f"Kernel root: {result['root']}")
         for name, lib in sorted(result["libraries"].items()):
             what = "compiled" if lib["compiled"] else "already built"
             _out(f"  {name}: {what} ({lib['seconds']:.2f}s)")
+        what = "compiled" if codec["compiled"] else "already built"
+        _out(f"  native codec (host, g++): {what} "
+             f"({codec['seconds']:.2f}s)")
         _out(f"Kernels built in {result['seconds']:.2f}s. Deploy with "
              f"--artifact-dir {args.artifact_dir or '(the same root)'} to "
              f"load them at bind.")
@@ -949,8 +979,10 @@ def cmd_shell(args, storage: Storage) -> int:
     return 0
 
 
-#: the servers ``start-all`` runs, with their default ports
-START_ALL = {"eventserver": 7070, "adminserver": 7071, "dashboard": 9000}
+#: the servers ``start-all`` runs, with their default ports, in order (the
+#: storage server only with ``--with-storageserver``)
+START_ALL = {"storageserver": 7077, "eventserver": 7070, "adminserver": 7071,
+             "dashboard": 9000}
 
 
 def _pid_dir(args) -> str:
@@ -978,18 +1010,22 @@ def _pid_alive(pid: int) -> bool:
 
 
 def cmd_start_all(args, storage: Storage) -> int:
-    """Start the event server, the admin server and the dashboard as
-    daemons (``python -m predictionio_tpu_torch.cli <name>`` in a session
-    of their own, so they outlive this command), each with a pidfile
-    and a log under ``--pid-dir``; wait until each answers its port."""
+    """Start the event server, the admin server and the dashboard (with
+    ``--with-storageserver``, the storage server first) as daemons
+    (``python -m predictionio_tpu_torch.cli <name>`` in a session of
+    their own, so they outlive this command), each with a pidfile and a
+    log under ``--pid-dir``; wait until each answers its port."""
     import socket
     import subprocess
 
     d = _pid_dir(args)
     ports = {"eventserver": args.event_port, "adminserver": args.admin_port,
-             "dashboard": args.dash_port}
+             "dashboard": args.dash_port,
+             "storageserver": args.storage_port}
     started, failed = [], []
     for name, default_port in START_ALL.items():
+        if name == "storageserver" and not args.with_storageserver:
+            continue
         port = ports[name] or default_port
         pidfile = os.path.join(d, f"{name}.pid")
         if os.path.exists(pidfile):
@@ -1006,6 +1042,8 @@ def cmd_start_all(args, storage: Storage) -> int:
             os.unlink(pidfile)  # a dead process's pidfile
         cmd = [sys.executable, "-m", "predictionio_tpu_torch.cli", name,
                "--ip", args.ip, "--port", str(port)]
+        if name == "storageserver" and args.storage_secret:
+            cmd += ["--secret", args.storage_secret]
         log_path = os.path.join(d, f"{name}.log")
         with open(log_path, "ab") as log_f:
             proc = subprocess.Popen(cmd, stdout=log_f,
@@ -1188,9 +1226,18 @@ def _parser() -> argparse.ArgumentParser:
                                 "/stats.json")
         tls_flags(s)
 
+    s = sub.add_parser("storageserver",
+                       help="serve storage to REMOTE-backend clients")
+    s.add_argument("--ip", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=7077)
+    s.add_argument("--secret", default="",
+                   help="shared secret clients must send")
+    tls_flags(s)
+
     s = sub.add_parser("start-all", help="start the event server, admin "
-                                         "server and dashboard as daemons "
-                                         "with pidfiles")
+                                         "server and dashboard (and "
+                                         "optionally the storage server) "
+                                         "as daemons with pidfiles")
     s.add_argument("--ip", default="0.0.0.0")
     s.add_argument("--pid-dir", default="",
                    help="pidfile and log dir (default $PIO_PID_DIR or "
@@ -1201,6 +1248,11 @@ def _parser() -> argparse.ArgumentParser:
                    default=0)
     s.add_argument("--dashboard-port", dest="dash_port", type=int,
                    default=0)
+    s.add_argument("--with-storageserver", action="store_true",
+                   help="also start the storage server of REMOTE clients")
+    s.add_argument("--storageserver-port", dest="storage_port", type=int,
+                   default=0)
+    s.add_argument("--storage-secret", default="")
     s.add_argument("--start-timeout", type=float, default=30.0)
 
     s = sub.add_parser("stop-all", help="stop every start-all daemon")
@@ -1518,6 +1570,7 @@ SERVERS = {
     "eventserver": (build_eventserver, "Event Server"),
     "adminserver": (build_adminserver, "Admin server"),
     "dashboard": (build_dashboard, "Dashboard"),
+    "storageserver": (build_storageserver, "Storage Server"),
 }
 
 

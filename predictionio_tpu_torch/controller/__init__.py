@@ -1,9 +1,8 @@
 """DASE controller API: what engine templates and evaluations import
 (the port's counterpart of ``predictionio_tpu.controller``'s exports).
 
-Left out (``ROADMAP.md`` queue 1): ``PersistentModel``,
-``LocalFileSystemPersistentModel`` and ``PersistentModelManifest``
-(item 6), ``SelfCleaningDataSource`` and ``EventWindow`` (item 12).
+Left out (``ROADMAP.md`` queue 1, item 6): ``PersistentModel``,
+``LocalFileSystemPersistentModel`` and ``PersistentModelManifest``.
 """
 
 from .base import (
@@ -16,6 +15,7 @@ from .base import (
     SanityCheck,
     Serving,
 )
+from .cleaning import EventWindow, SelfCleaningDataSource
 from .context import Context, default_context
 from .engine import Engine, EngineFactory, SimpleEngine, TrainResult
 from .evaluation import (
@@ -62,6 +62,7 @@ __all__ = [
     "EngineParams",
     "EngineParamsGenerator",
     "Evaluation",
+    "EventWindow",
     "FirstServing",
     "IdentityPreparator",
     "Metric",
@@ -73,6 +74,7 @@ __all__ = [
     "PointwiseMetric",
     "Preparator",
     "SanityCheck",
+    "SelfCleaningDataSource",
     "Serving",
     "SimpleEngine",
     "StdevMetric",

@@ -13,12 +13,15 @@ the other.
 
 The port imports no pandas: every bulk helper is the numpy and standard
 library path, with the JAX package's semantics (codes in first-seen
-order, None -> -1, only real JSON numbers become floats).
+order, None -> -1, only real JSON numbers become floats). So the id-hash
+helper of the SEGMENTFS backend is always blake2b (:func:`hash_impl`),
+and a sidecar the JAX package hashed with pandas is rebuilt, not
+dup-checked. Segments retire with a grace period
+(``invalidate(grace_s)``, :meth:`SegmentLog.sweep`), since another host
+of a shared mount may still map them.
 
-Left out (``ROADMAP.md`` queue 1): host sharding (``shard``,
-``slice_rows``, ``shard_bounds``), segment retirement with a grace period
-(``invalidate(grace_s)``, ``sweep``) and the id-hash helpers of the
-SEGMENTFS backend.
+Left out (``ROADMAP.md`` queue 1, item 13): host sharding (``shard``,
+``slice_rows``, ``shard_bounds``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import os
 import queue
 import shutil
 import threading
+import time
 import uuid
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -51,6 +55,9 @@ __all__ = [
     "SegmentLog",
     "columnar_from_events",
     "columnar_from_columns",
+    "bulk_hash64",
+    "bulk_iso_to_millis",
+    "hash_impl",
 ]
 
 
@@ -83,6 +90,38 @@ def bulk_to_float64(values, assume_numeric: bool = False) -> np.ndarray:
     return np.array([v if isinstance(v, (int, float))
                      and not isinstance(v, bool) else np.nan
                      for v in values], dtype=np.float64)
+
+
+def hash_impl() -> str:
+    """Which :func:`bulk_hash64` this process uses. The JAX package's is
+    pandas' siphash where pandas is installed ("pd"); the port's is
+    always blake2b. The two never match, so a SEGMENTFS sidecar records
+    its writer's implementation and a reader of the other rebuilds it
+    instead of running a duplicate check that can never fire."""
+    return "blake2b"
+
+
+def bulk_hash64(strings) -> np.ndarray:
+    """Deterministic 64-bit blake2b hashes of strings (uint64), the same
+    on every host and in every process."""
+    return np.fromiter(
+        (int.from_bytes(hashlib.blake2b(
+            s.encode("utf-8"), digest_size=8).digest(), "little")
+         for s in strings), dtype=np.uint64, count=len(strings))
+
+
+def bulk_iso_to_millis(strings) -> np.ndarray:
+    """ISO-8601 timestamps -> epoch millis int64. ``timedelta`` floor
+    division floors exactly, as pandas' millisecond truncation does for
+    sub-millisecond times before the epoch."""
+    from datetime import datetime, timedelta, timezone
+
+    from .event import parse_iso
+
+    epoch = datetime(1970, 1, 1, tzinfo=timezone.utc)
+    one_ms = timedelta(milliseconds=1)
+    return np.fromiter(((parse_iso(s) - epoch) // one_ms for s in strings),
+                       dtype=np.int64, count=len(strings))
 
 
 class StringDict:
@@ -330,10 +369,12 @@ def columnar_from_columns(
         event_time_ms: np.ndarray,
         props_json: Optional[Sequence[Optional[str]]] = None,
         float_props: Sequence[str] = ("rating",),
+        float_prop_values: Optional[Dict[str, np.ndarray]] = None,
 ) -> ColumnarBatch:
     """Encode host data that is already columnar: one bulk dictionary
-    encode per column, no per-event objects; the ``float_props`` columns
-    are parsed from ``props_json``."""
+    encode per column, no per-event objects. ``float_prop_values`` gives
+    numeric property columns extracted already; the other
+    ``float_props`` columns are parsed from ``props_json``."""
     n = len(event)
     if props_json is None:
         offsets = np.zeros(n + 1, dtype=np.int64)
@@ -355,7 +396,10 @@ def columnar_from_columns(
         target_id=dicts.target_ids.encode(target_id),
         event_time=np.ascontiguousarray(event_time_ms, dtype=np.int64),
         props_offsets=offsets, props_blob=blob,
-        float_props={}, dicts=dicts)
+        float_props={k: np.ascontiguousarray(v, dtype=np.float64)
+                     for k, v in (float_prop_values or {}).items()
+                     if k in float_props},
+        dicts=dicts)
     for name in float_props:
         batch.float_prop(name)  # parse from the blob once, cached
     return batch
@@ -491,11 +535,13 @@ class SegmentLog:
     def append(self, batch: ColumnarBatch, watermark,
                prev_dict_counts: Dict[str, int],
                seq_range: Optional[Tuple[int, int]] = None,
-               has_props: bool = True) -> None:
+               has_props: bool = True,
+               hash_impl: Optional[str] = None) -> None:
         """Write ``batch`` as a new segment and commit the manifest.
         ``has_props=False`` defers the property-byte columns;
         :meth:`ensure_props` adds them later from the recorded source
-        range ``seq_range`` (half-open ``(lo, hi]``)."""
+        range ``seq_range`` (half-open ``(lo, hi]``). A writer that keeps
+        id-hash columns beside its segments names its ``hash_impl``."""
         os.makedirs(self.path, exist_ok=True)
         manifest = self.read_manifest() or {
             "count": 0, "segments": [], "float_props": [],
@@ -525,6 +571,8 @@ class SegmentLog:
             .encode()).hexdigest()[:32]
         manifest["float_props"] = sorted(
             set(manifest["float_props"]) | set(batch.float_props))
+        if hash_impl is not None:
+            manifest["hash_impl"] = hash_impl
         self._write_manifest(manifest)
 
     def ensure_props(self, fetch) -> None:
@@ -662,17 +710,47 @@ class SegmentLog:
             props_offsets=props_offsets, props_blob=props_blob,
             float_props=fp, dicts=dicts)
 
-    def invalidate(self) -> None:
+    def invalidate(self, grace_s: float = 0.0) -> None:
         """Drop the sidecar's contents (deletes changed history): the
         manifest, the commit point, goes first; the ``.lock`` file stays
-        so waiters keep a valid inode."""
+        so waiters keep a valid inode. With ``grace_s > 0`` segment
+        directories are retired, not deleted: another host of a shared
+        mount may still map them, so :meth:`sweep` removes them once
+        idle that long."""
         if not os.path.isdir(self.path):
             return
         with contextlib.suppress(OSError):
             os.remove(self._manifest_path())
+        now = time.time()
         for name in os.listdir(self.path):
             if name == ".lock":
                 continue
             p = os.path.join(self.path, name)
+            if grace_s > 0 and name.startswith("seg-") and os.path.isdir(p):
+                # the grace clock runs from retirement, not creation
+                with contextlib.suppress(OSError):
+                    os.utime(p, (now, now))
+                continue
             with contextlib.suppress(OSError):
                 shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
+
+    def sweep(self, grace_s: float) -> int:
+        """Delete the retired (unreferenced) segment directories idle for
+        ``grace_s`` seconds; the count removed. Call under :meth:`lock`."""
+        if not os.path.isdir(self.path):
+            return 0
+        referenced = {s["name"] for s in
+                      (self.read_manifest() or {}).get("segments", ())}
+        n = 0
+        now = time.time()
+        for name in os.listdir(self.path):
+            if not name.startswith("seg-") or name in referenced:
+                continue
+            p = os.path.join(self.path, name)
+            try:
+                if os.path.isdir(p) and now - os.path.getmtime(p) >= grace_s:
+                    shutil.rmtree(p)
+                    n += 1
+            except OSError:
+                pass
+        return n

@@ -13,9 +13,11 @@ entity's current properties; ``EventFilter.deadline`` bounds a scan's
 wall clock for serving-time point reads (every backend checks it inside
 its scan loop).
 
-Left out (``ROADMAP.md`` queue 1): multi-host sharded reads
-(``find_columnar(shard=...)`` raises) and the bulk JSON-lines block
-reader of the SEGMENTFS lane.
+:func:`iter_jsonl_blocks` cuts a JSON-lines stream into blocks of whole
+lines, the unit the bulk import lanes of SEGMENTFS and REMOTE commit.
+
+Left out (``ROADMAP.md`` queue 1, item 13): multi-host sharded reads
+(``find_columnar(shard=...)`` raises).
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import time
 import uuid
 from dataclasses import dataclass, field, replace
 from datetime import datetime
-from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterable, Iterator, List, Optional, \
+    Sequence, Tuple
 
 from ..datamap import PropertyMap
 from ..event import Event
@@ -38,7 +41,7 @@ from ..event import Event
 ANY: Any = ...
 
 #: the queue item that lists what this slice of the port leaves out
-LEFT_OUT = "not ported yet (ROADMAP.md queue 1, the storage leave-outs)"
+LEFT_OUT = "not ported yet (ROADMAP.md queue 1, item 13)"
 
 
 @dataclass(frozen=True)
@@ -94,6 +97,39 @@ class EventFilter:
 
 class StorageError(RuntimeError):
     pass
+
+
+def _open_jsonl(source) -> Any:
+    """An ``import_jsonl`` source as a binary stream: a path opens (a
+    missing file raises OSError before anything is written), bytes (the
+    storage server's forwarded blocks) become an in-memory stream."""
+    import io
+    if isinstance(source, (bytes, bytearray)):
+        return io.BytesIO(bytes(source))
+    return open(source, "rb")
+
+
+def iter_jsonl_blocks(f, block_size: int) -> Iterator[Tuple[bytes, int]]:
+    """Cut a binary stream into blocks of whole lines: ``(buf, nlines)``,
+    ``buf`` ending at a line boundary and ``nlines`` the lines it holds,
+    blank ones included, so a durable prefix counts as the file does. A
+    line longer than ``block_size`` is carried until its newline; a last
+    line without one still counts as one."""
+    carry = b""
+    while True:
+        block = f.read(block_size)
+        if not block and not carry:
+            return
+        buf = carry + block
+        if block:
+            cut = buf.rfind(b"\n")
+            if cut < 0:  # a line longer than the block
+                carry = buf
+                continue
+            buf, carry = buf[:cut + 1], buf[cut + 1:]
+        else:
+            carry = b""
+        yield buf, (buf.count(b"\n") or 1)
 
 
 class JsonlImportError(Exception):
@@ -173,15 +209,16 @@ class EventStore(abc.ABC):
     def import_jsonl(self, source, app_id: int,
                      channel_id: Optional[int] = None,
                      chunk: int = 100_000) -> int:
-        """Load API-format JSON lines from a file path, committing every
-        ``chunk`` events through :meth:`insert_batch`. Returns the events
-        imported; on failure raises :class:`JsonlImportError` with how
-        far the durable prefix reaches."""
+        """Load API-format JSON lines from a file path (or a bytes block),
+        committing every ``chunk`` events through :meth:`insert_batch`.
+        Returns the events imported; on failure raises
+        :class:`JsonlImportError` with how far the durable prefix
+        reaches."""
         total = 0
         lineno = 0
         committed = 0  # last line number fully committed
         events: List[Event] = []
-        f = open(source, "rb")
+        f = _open_jsonl(source)
         try:
             with f:
                 for raw in f:

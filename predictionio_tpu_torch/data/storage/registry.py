@@ -7,9 +7,12 @@ keys such as ``..._PATH``) and repositories from
 no such variable set, all three repositories are one SQLite file at
 ``$PIO_HOME/pio.db`` (or ``$PIO_SQLITE_PATH``), as in the JAX package.
 
-Only the MEMORY and SQLITE types are registered; any other type (LOCALFS,
-SEGMENTFS, REMOTE, S3, GCS) raises :class:`StorageError` naming the
-queue item that lists it.
+Every type the JAX package registers is registered: MEMORY, SQLITE,
+LOCALFS (``..._PATH``), SEGMENTFS (``..._PATH``, a shared mount), REMOTE
+(``..._URL`` of a storage server, ``..._SECRET``) and S3, GCS or
+OBJECTSTORE (``..._ENDPOINT`` ``http://host:port/bucket``,
+``..._HEADERS``), each reading and writing the JAX package's formats. An
+unknown type raises :class:`StorageError`.
 """
 
 from __future__ import annotations
@@ -19,9 +22,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Mapping, Optional
 
-from . import memory, sqlite
+from . import localfs, memory, objectstore, remote, segmentfs, sqlite
 from .base import (
-    LEFT_OUT,
     AccessKeysDAO,
     AppsDAO,
     ChannelsDAO,
@@ -34,8 +36,8 @@ from .base import (
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
-#: the JAX package's other backends, not in the port yet
-_NOT_PORTED = ("LOCALFS", "SEGMENTFS", "REMOTE", "S3", "GCS", "OBJECTSTORE")
+_DAO_NAMES = ("events", "apps", "access_keys", "channels",
+              "engine_instances", "evaluation_instances", "models")
 
 
 @dataclass
@@ -73,7 +75,66 @@ _BACKENDS: Dict[str, Backend] = {
             "models": lambda c: sqlite.SQLiteModels(c),
         },
         close=lambda c: c.close()),
+    "LOCALFS": Backend(
+        make_client=lambda cfg: localfs.LocalFSClient.from_config(cfg),
+        daos={
+            "events": lambda c: localfs.LocalFSEventStore(c),
+            "apps": lambda c: localfs.LocalFSApps(c),
+            "access_keys": lambda c: localfs.LocalFSAccessKeys(c),
+            "channels": lambda c: localfs.LocalFSChannels(c),
+            "engine_instances": lambda c: localfs.LocalFSEngineInstances(c),
+            "evaluation_instances":
+                lambda c: localfs.LocalFSEvaluationInstances(c),
+            "models": lambda c: localfs.LocalFSModels(c),
+        },
+        close=lambda c: c.close()),
+    "SEGMENTFS": Backend(
+        make_client=lambda cfg: segmentfs.SegmentFSClient.from_config(cfg),
+        daos={
+            "events": lambda c: segmentfs.SegmentFSEventStore(c),
+            "apps": lambda c: segmentfs.SegmentFSApps(c),
+            "access_keys": lambda c: segmentfs.SegmentFSAccessKeys(c),
+            "channels": lambda c: segmentfs.SegmentFSChannels(c),
+            "engine_instances":
+                lambda c: segmentfs.SegmentFSEngineInstances(c),
+            "evaluation_instances":
+                lambda c: segmentfs.SegmentFSEvaluationInstances(c),
+            "models": lambda c: segmentfs.SegmentFSModels(c),
+        },
+        close=lambda c: c.close()),
+    "REMOTE": Backend(
+        make_client=lambda cfg: remote.RemoteClient.from_config(cfg),
+        daos={
+            "events": lambda c: remote.RemoteEventStore(c),
+            "apps": lambda c: remote.RemoteApps(c),
+            "access_keys": lambda c: remote.RemoteAccessKeys(c),
+            "channels": lambda c: remote.RemoteChannels(c),
+            "engine_instances": lambda c: remote.RemoteEngineInstances(c),
+            "evaluation_instances":
+                lambda c: remote.RemoteEvaluationInstances(c),
+            "models": lambda c: remote.RemoteModels(c),
+        },
+        close=lambda c: c.close()),
 }
+
+# S3 and GCS are one backend: both stores speak the same REST subset (the
+# GCS XML API is S3-compatible)
+for _name in ("S3", "GCS", "OBJECTSTORE"):
+    _BACKENDS[_name] = Backend(
+        make_client=lambda cfg: objectstore.ObjectStoreClient.from_config(
+            cfg),
+        daos={
+            "events": lambda c: objectstore.ObjectStoreEventStore(c),
+            "apps": lambda c: objectstore.ObjectStoreApps(c),
+            "access_keys": lambda c: objectstore.ObjectStoreAccessKeys(c),
+            "channels": lambda c: objectstore.ObjectStoreChannels(c),
+            "engine_instances":
+                lambda c: objectstore.ObjectStoreEngineInstances(c),
+            "evaluation_instances":
+                lambda c: objectstore.ObjectStoreEvaluationInstances(c),
+            "models": lambda c: objectstore.ObjectStoreModels(c),
+        },
+        close=lambda c: c.close())
 
 
 @dataclass
@@ -129,9 +190,6 @@ class Storage:
     def _backend(self, cfg: SourceConfig) -> Backend:
         backend = _BACKENDS.get(cfg.type)
         if backend is None:
-            if cfg.type in _NOT_PORTED:
-                raise StorageError(f"storage type {cfg.type!r} is "
-                                   f"{LEFT_OUT}")
             raise StorageError(f"unknown storage type {cfg.type!r} "
                                f"(registered: {sorted(_BACKENDS)})")
         return backend
@@ -176,10 +234,10 @@ class Storage:
         return self._dao("MODELDATA", "models")
 
     def verify_all_data_objects(self) -> None:
-        """Instantiate every repository DAO and smoke-test the event
-        store (the JAX package's check, ``pio status``)."""
-        for dao in ("events", "apps", "access_keys", "channels",
-                    "engine_instances", "evaluation_instances", "models"):
+        """Instantiate every repository DAO of whatever backend and
+        smoke-test the event store (the JAX package's check, ``pio
+        status``)."""
+        for dao in _DAO_NAMES:
             repo = ("EVENTDATA" if dao == "events"
                     else "MODELDATA" if dao == "models" else "METADATA")
             self._dao(repo, dao)

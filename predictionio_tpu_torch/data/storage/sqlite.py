@@ -10,9 +10,15 @@ SQLite's 2 MB default), which holds the random-id index of a bulk
 ingest. The columnar sidecar ``<db>.columnar/<table>/`` has the JAX
 package's format too.
 
-Left out (``ROADMAP.md`` queue 1): the fault-injection points, the
-rebuild of tables from before the ``seq`` column, the forked worker
-processes of the first columnar encode (the port encodes in-process).
+A table from before the ``seq`` column (SQLite reuses the implicit rowid
+after deletes, which would falsify the sidecar's watermark) is rebuilt
+around ``seq`` the first time it is opened (:meth:`SQLiteEventStore.
+_migrate_legacy`). A large first encode of the sidecar runs its seq
+ranges in forked worker processes, which touch only ``sqlite3`` and
+numpy, never torch or the card; it forks only while the process runs a
+single thread, and encodes in-process otherwise.
+
+Left out (``ROADMAP.md`` queue 1, item 11): the fault-injection points.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import json
 import os
 import sqlite3
 import threading
+from collections import deque
+from concurrent.futures import ProcessPoolExecutor
 from itertools import repeat
 from typing import Iterator, List, Optional
 
@@ -109,13 +117,27 @@ def _table(app_id: int, channel_id: Optional[int]) -> str:
                                  if channel_id is not None else "")
 
 
+def _fork_context():
+    """The fork multiprocessing context, or None where there is none.
+    Fork, not spawn: a worker skips re-importing numpy and touches only
+    its own sqlite connection and numpy, so the parent's state (torch, a
+    CUDA context) is inert in it."""
+    import multiprocessing
+
+    try:
+        return multiprocessing.get_context("fork")
+    except ValueError:  # pragma: no cover — non-POSIX
+        return None
+
+
 def _encode_range(path: str, sql: str, rng: tuple,
-                         n_props: int) -> Optional[dict]:
-    """One seq range of the columnar encode: fetch (bytes
-    ``text_factory``, so only dictionary uniques are decoded), factorize
-    each column locally and build the numeric property columns. The raw
-    property JSON is not fetched (props-deferred segments). The caller
-    remaps the local codes onto the persistent dictionaries."""
+                  n_props: int) -> Optional[dict]:
+    """One seq range of the columnar encode, self-contained so that a
+    worker process can run it: fetch (bytes ``text_factory``, so only
+    dictionary uniques are decoded), factorize each column locally and
+    build the numeric property columns. The raw property JSON is not
+    fetched (props-deferred segments). The caller remaps the local codes
+    onto the persistent dictionaries."""
     conn = sqlite3.connect(path)
     conn.text_factory = bytes
     try:
@@ -145,6 +167,9 @@ def _encode_range(path: str, sql: str, rng: tuple,
 class SQLiteEventStore(EventStore):
     def __init__(self, client: SQLiteClient):
         self.client = client
+        #: the last sidecar encode: {"path": "forked" or "in-process",
+        #: "workers", "ranges"}
+        self.last_encode: dict = {}
 
     @property
     def _conn(self) -> sqlite3.Connection:
@@ -159,6 +184,7 @@ class SQLiteEventStore(EventStore):
     def init(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self.client.lock:
             table = _table(app_id, channel_id)
+            self._migrate_legacy(table)
             self._conn.execute(f"""
                 CREATE TABLE IF NOT EXISTS {table} (
                     seq INTEGER PRIMARY KEY AUTOINCREMENT,
@@ -179,6 +205,57 @@ class SQLiteEventStore(EventStore):
                 f"ON {table} (event_time)")
             self._conn.commit()
         return True
+
+    def _migrate_legacy(self, table: str) -> None:
+        """Rebuild a table from before the ``seq`` column around an
+        AUTOINCREMENT ``seq``, which is never reused (the implicit rowid
+        is, after deletes, and a reused rowid can make a changed prefix
+        look unchanged to the sidecar's watermark). One explicit
+        transaction: a crash mid-migration never strands events in the
+        ``_legacy`` table, and a ``_legacy`` table left by an older,
+        non-atomic migration is finished."""
+        tmp = f"{table}_legacy"
+        names = {r[0] for r in self._conn.execute(
+            "SELECT name FROM sqlite_master WHERE type='table' "
+            "AND name IN (?, ?)", (table, tmp))}
+        if not names:
+            return
+        cols = [r[1] for r in
+                self._conn.execute(f"PRAGMA table_info({table})")] \
+            if table in names else []
+        if "seq" in cols and tmp not in names:
+            return  # already migrated
+        self._conn.commit()
+        self._conn.execute("BEGIN IMMEDIATE")
+        try:
+            if table in names and "seq" not in cols:
+                self._conn.execute(f"ALTER TABLE {table} RENAME TO {tmp}")
+            self._conn.execute(f"""
+                CREATE TABLE IF NOT EXISTS {table} (
+                    seq INTEGER PRIMARY KEY AUTOINCREMENT,
+                    id TEXT UNIQUE NOT NULL,
+                    event TEXT NOT NULL,
+                    entity_type TEXT NOT NULL,
+                    entity_id TEXT NOT NULL,
+                    target_entity_type TEXT,
+                    target_entity_id TEXT,
+                    properties TEXT,
+                    event_time INTEGER NOT NULL,
+                    tags TEXT,
+                    pr_id TEXT,
+                    creation_time INTEGER NOT NULL
+                )""")
+            self._conn.execute(
+                f"INSERT OR IGNORE INTO {table} ({self.EVENT_COLS}) "
+                f"SELECT {self.EVENT_COLS} FROM {tmp} ORDER BY rowid")
+            self._conn.execute(f"DROP TABLE {tmp}")
+            self._conn.execute(
+                f"CREATE INDEX IF NOT EXISTS idx_{table}_t "
+                f"ON {table} (event_time)")
+            self._conn.commit()
+        except BaseException:
+            self._conn.rollback()
+            raise
 
     def remove(self, app_id: int, channel_id: Optional[int] = None) -> bool:
         with self.client.lock:
@@ -368,6 +445,8 @@ class SQLiteEventStore(EventStore):
         cached = self.client.columnar_cache.get(ck)
         if cached is not None and cached[2] == stamp:
             return cached[1]
+        with self.client.lock:
+            self._migrate_legacy(table)  # the watermark needs seq
         log = SegmentLog(sidecar_dir)
         with log.lock():
             manifest = log.read_manifest()
@@ -456,6 +535,11 @@ class SQLiteEventStore(EventStore):
 
     #: rows per fetch unit (several make up one segment)
     ENCODE_SUBCHUNK = 250_000
+    #: worker processes of a forked first encode
+    ENCODE_PROCS = 4
+    #: deltas below this many (estimated) rows encode in-process: the
+    #: pool's start would cost more
+    ENCODE_PARALLEL_MIN = 600_000
 
     def _chunk_bounds(self, table: str, watermark: int,
                       step: int) -> List[int]:
@@ -478,9 +562,16 @@ class SQLiteEventStore(EventStore):
     def _encode_delta(self, log, table: str, watermark: int,
                       float_props: tuple) -> None:
         """Encode the rows above ``watermark`` into new segments, numeric
-        property extraction pushed into SQL (``json_extract``). Each
-        ``ENCODE_SUBCHUNK``-row range is fetched and factorized in turn;
-        only its uniques are remapped onto the persistent dictionaries."""
+        property extraction pushed into SQL (``json_extract``). A large
+        delta is split into ``ENCODE_SUBCHUNK``-row seq ranges run by
+        ``ENCODE_PROCS`` forked worker processes, each fetching its range
+        on its own connection and doing the per-row work (threads would
+        serialize on the interpreter lock for exactly that work); the
+        parent remaps only each range's uniques onto the persistent
+        dictionaries and stitches segments in order. A small delta, one
+        core or a process running more than one thread encodes the
+        ranges in-process. ``last_encode`` records the last call's
+        path, workers and ranges."""
         safe_props = [p for p in float_props
                       if p.replace("_", "").isalnum()]
         # json_type gate: only real JSON numbers become ratings — a string
@@ -554,12 +645,44 @@ class SQLiteEventStore(EventStore):
                        has_props=False)
             prev_counts = dicts.counts()
 
-        for seg_start in range(0, len(ranges), per_seg):
-            parts = [p for rng in ranges[seg_start:seg_start + per_seg]
-                     if (p := _encode_range(
-                         path, sql, rng, n_props)) is not None]
-            if parts:
-                emit(parts)
+        est_rows = len(ranges) * self.ENCODE_SUBCHUNK
+        n_cpu = os.cpu_count() or 1
+        # fork only while single-threaded: a child forked from a process
+        # with other threads can inherit a held lock and deadlock (the
+        # servers' worker threads call this path too)
+        ctx = _fork_context() if threading.active_count() == 1 else None
+        if len(ranges) == 1 or est_rows < self.ENCODE_PARALLEL_MIN \
+                or n_cpu == 1 or ctx is None:
+            self.last_encode = {"path": "in-process", "workers": 0,
+                                "ranges": len(ranges)}
+            for seg_start in range(0, len(ranges), per_seg):
+                parts = [p for rng in ranges[seg_start:seg_start + per_seg]
+                         if (p := _encode_range(
+                             path, sql, rng, n_props)) is not None]
+                if parts:
+                    emit(parts)
+            return
+        workers = max(1, min(self.ENCODE_PROCS, n_cpu, len(ranges)))
+        self.last_encode = {"path": "forked", "workers": workers,
+                            "ranges": len(ranges)}
+        with ProcessPoolExecutor(max_workers=workers,
+                                 mp_context=ctx) as pool:
+            futs: deque = deque()
+            ri = 0
+            pending: list = []
+            while ri < len(ranges) or futs:
+                while ri < len(ranges) and len(futs) < workers + 2:
+                    futs.append(pool.submit(_encode_range, path, sql,
+                                            ranges[ri], n_props))
+                    ri += 1
+                p = futs.popleft().result()
+                if p is not None:
+                    pending.append(p)
+                if len(pending) >= per_seg or (not futs
+                                               and ri >= len(ranges)):
+                    if pending:
+                        emit(pending)
+                        pending = []
 
     def get(self, event_id: str, app_id: int,
             channel_id: Optional[int] = None) -> Optional[Event]:

@@ -4,7 +4,8 @@ registry in ``predictionio_tpu/faults/``).
 A process-wide registry of *named injection points*: an instrumented
 site calls :func:`fire`, a single global-bool check until something is
 injected. The port instruments the stream trainer's pass
-(``stream.pass``); the other points of the JAX package wait for their
+(``stream.pass``) and the REMOTE storage client's requests
+(``storage.remote``); the other points of the JAX package wait for their
 subsystems (``ROADMAP.md`` queue 1 item 11).
 """
 

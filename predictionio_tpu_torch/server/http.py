@@ -472,7 +472,7 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(payload)
 
-    do_GET = do_POST = do_DELETE = _dispatch
+    do_GET = do_POST = do_DELETE = do_PUT = _dispatch
 
 
 class _AppHTTPServer(ThreadingHTTPServer):

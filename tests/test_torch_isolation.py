@@ -118,6 +118,21 @@ def test_the_cache_modules_are_scanned(rel):
     assert not set(imported_roots(PACKAGE / rel)) & FORBIDDEN, rel
 
 
+@pytest.mark.parametrize("rel", [
+    "data/storage/localfs.py", "data/storage/segmentfs.py",
+    "data/storage/objectstore.py", "data/storage/remote.py",
+    "data/storage/wire.py", "data/storage/registry.py",
+    "data/storage/sqlite.py", "data/columnar.py",
+    "server/storageserver.py", "native/__init__.py",
+    "data/entitymap.py", "data/view.py", "controller/cleaning.py"])
+def test_the_storage_backend_modules_are_scanned(rel):
+    """The storage backends' modules, the port's own copies of the JAX
+    package's, are in the scan above and import no pandas (the card's
+    machine has none)."""
+    assert PACKAGE / rel in set(port_files()), rel
+    assert not set(imported_roots(PACKAGE / rel)) & (FORBIDDEN | {"pandas"})
+
+
 def test_every_module_imports():
     for path in sorted(PACKAGE.rglob("*.py")):
         rel = path.relative_to(ROOT).with_suffix("")
@@ -158,9 +173,19 @@ def test_server_import_loads_no_jax():
             "predictionio_tpu_torch.server.stats, "
             "predictionio_tpu_torch.data.webhooks, "
             "predictionio_tpu_torch.utils.tracing, "
-            "predictionio_tpu_torch.e2; "
+            "predictionio_tpu_torch.e2, "
+            "predictionio_tpu_torch.data.storage.localfs, "
+            "predictionio_tpu_torch.data.storage.segmentfs, "
+            "predictionio_tpu_torch.data.storage.objectstore, "
+            "predictionio_tpu_torch.data.storage.remote, "
+            "predictionio_tpu_torch.server.storageserver, "
+            "predictionio_tpu_torch.native, "
+            "predictionio_tpu_torch.data.entitymap, "
+            "predictionio_tpu_torch.data.view, "
+            "predictionio_tpu_torch.controller.cleaning; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]; "
+            "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu', "
+            "'pandas')]; "
             "assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -551,6 +551,29 @@ def test_cli_build_reports_each_library(fresh_root, fake_nvcc, tmp_path,
     assert "  fused_topk: already built (" in capsys.readouterr().out
 
 
+def test_cli_build_builds_the_native_codec_beside_the_kernels(
+        fresh_root, fake_nvcc, tmp_path, capsys):
+    """``cli build`` compiles the host codec (g++) into the same kernel
+    root, and a second build compiles neither."""
+    from predictionio_tpu_torch import native
+
+    ej = tmp_path / "engine.json"
+    ej.write_text(json.dumps(VARIANT))
+    argv = ["build", "--engine-json", str(ej), "--artifact-dir",
+            str(tmp_path / "art")]
+    st = Storage(env={"PIO_STORAGE_SOURCES_M_TYPE": "MEMORY"})
+    assert cli.main(argv, storage=st) == 0
+    assert "  native codec (host, g++): compiled (" in \
+        capsys.readouterr().out
+    so = native.target()
+    assert so.exists() and so.parent.parent == \
+        tmp_path / "art" / "torch_kernels"
+    assert cli.main(argv, storage=st) == 0
+    out = capsys.readouterr().out
+    assert "compiled (" not in out
+    assert "  native codec (host, g++): already built (" in out
+
+
 def test_cli_build_without_nvcc_fails_with_find_nvcc_message(
         fresh_root, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
