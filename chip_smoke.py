@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving (both batch paths), training, ``pio``
 lifecycle, the pod storage layout, batch-predict, evaluation, streaming
 fold-in, e-commerce, similar-product, sequential and classification
-template paths, the release lifecycle, the console, the telemetry and the
-serving caches once on the CUDA card and check them.
+template paths, the release lifecycle, the console, the telemetry, the
+serving caches, checkpoint resume, the split layout and the deploy of a
+JAX-written model blob once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -435,6 +436,45 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``cli export`` of phase 10's app and ``cli import`` of the
             file into a new app: equal counts, and each one's rows/s.
             Every time stands beside the card's name and power limit.
+15. resume — runs right after phase 6a, on the surrogate at rank 64 x
+            10 iterations (packed once): ``train_als`` without
+            checkpoints; with ``checkpoint_dir`` (a save every iteration,
+            each save's seconds and bytes recorded); a second directory
+            armed with ``checkpoint.commit=error,after=5,times=1`` (the
+            run dies as step 6 commits, steps up to 5 on disk) where a torn
+            ``step_6.npz`` is then written and a fresh call resumes: it
+            must skip the torn step, start at 5, give U and V bitwise equal
+            to both earlier runs and launch ``fused_gram`` and
+            ``chol_solve`` exactly half a whole run's times (counted just
+            before and after). A run of other params on the first
+            directory is refused. Then ``history_mode="split"`` at
+            ``auto_split_len``: 10 iterations twice from the same initial
+            factors (bitwise equal), one iteration held to the bucket
+            layout's from the same factors (atol 2e-4, rtol 2e-3: the same
+            normal equations summed in another order), the 10-iteration
+            RMSEs within 1e-3 relative; prints L, the virtual rows, one
+            iteration's median ms, a profiled iteration's split into
+            ``fused_gram``, ``chol_solve``, other kernels and device idle,
+            and the launches.
+16. jaxblob — runs last, in phase 8's ``PIO_HOME``: phase 6's trained
+            factors and the surrogate's id maps as a blob in the JAX
+            package's layout (``pickle`` protocol 4 of an ``ALSModel``,
+            written by :class:`JaxLayoutPickler` from stand-in classes,
+            which a CPU test loads through the JAX package's own
+            ``loads_models``), stored under an engine instance whose
+            factory is the JAX package's; ``cli deploy --batching`` of
+            that variant answers 64 queries (``fused_topk`` counted just
+            before and after, positive), their top-k ids equal to the same
+            factors served from the port's own blob and their scores
+            within 1e-5 * (1 + |s|). Prints the blob's write and decode
+            times, ``servingWarm`` and the first answer. A blob naming
+            ``builtins.open`` (its reduce would create a marker file) is
+            refused and the marker never exists.
+
+Phase 4b arms ``serving.dispatch=latency,delay_ms=400,times=1`` for its
+first burst (as ``benchmarks/trace_smoke.py`` does), so the delayed
+batch's traces are kept and the exemplar check does not depend on the
+adaptive p99; ``pio_fault_injections_total`` must read 1.
 
 Phases 6b, 11 and 12 print the four kernels' launch counts (each 0: no
 TPU kernel is on their paths) beside the card's name and power limit.
@@ -446,7 +486,8 @@ in the batch-predict job for ``fused_topk``, in the serial eval run, on
 the stream path, in the implicit iteration, in the templates phase, in
 phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
 in phase 4b's counted bursts, in phase 4c's counted part and in phase
-8a's REMOTE training and deploy) and, last, ``{"ok": true, "device":
+8a's REMOTE training and deploy, phase 15's resumed and split
+trainings and phase 16's deploy) and, last, ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -462,6 +503,7 @@ import inspect
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -1225,6 +1267,9 @@ def phase_slice(rng, U, V, dev) -> int:
 #: the profiler window of the telemetry phase, and how far the card-memory
 #: gauge may read from ``torch.cuda.memory_allocated()`` beside it
 TELEMETRY_PROFILE_MS = 2000.0
+#: armed for phase 4b's first burst (``benchmarks/trace_smoke.py``'s
+#: spec): one dispatch delayed, so its traces are kept as exemplars
+TELEMETRY_FAULT = "serving.dispatch=latency,delay_ms=400,times=1"
 HBM_SLACK_BYTES = 64 << 20
 #: events of the traced event-server ingest (one webhook, one batch)
 TELEMETRY_BATCH_EVENTS = 40
@@ -1411,6 +1456,8 @@ def phase_telemetry(rng, U, V, dev, card) -> dict:
     bursts."""
     from predictionio_tpu_torch.models.als import _table_leaves
     from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.faults import inject_spec
+    from predictionio_tpu_torch.faults import registry as fault_registry
     from predictionio_tpu_torch.obs import numerics
     from predictionio_tpu_torch.obs.trace import parse_traceparent
     from predictionio_tpu_torch.ops import fused_topk as ft
@@ -1457,7 +1504,15 @@ def phase_telemetry(rng, U, V, dev, card) -> dict:
 
         # -- the main path, counted --------------------------------------
         zero_launch_counts()
-        wall, results, got = run_burst(port, burst, sent)
+        # one dispatch delayed 400 ms, as benchmarks/trace_smoke.py
+        # does: the fault marks the traces of its batch, which the tail
+        # sampler then keeps, so the burst has exemplars whatever the
+        # adaptive p99 has seen
+        inject_spec(TELEMETRY_FAULT)
+        try:
+            wall, results, got = run_burst(port, burst, sent)
+        finally:
+            fault_registry().clear("serving.dispatch")
         burst_launches = ft.LAUNCHES
         text = scrape(port)
         allocated = torch.cuda.memory_allocated(dev)
@@ -1479,6 +1534,16 @@ def phase_telemetry(rng, U, V, dev, card) -> dict:
               f"times ({burst_launches} in the first)")
         samples, _ = parse_exposition(text)
         om_samples, exemplars = parse_exposition(om, openmetrics=True)
+        injected = sum(
+            v for lab, v in samples.get("pio_fault_injections_total",
+                                        {}).items()
+            if 'point="serving.dispatch"' in lab and 'mode="latency"' in lab)
+        check(injected == 1.0,
+              f"pio_fault_injections_total reads {injected} for the one "
+              f"serving.dispatch injection")
+        print(f"phase telemetry: serving.dispatch fault "
+              f"({TELEMETRY_FAULT}) injections on /metrics={injected:.0f}, "
+              f"{len(exemplars)} exemplars after the burst", flush=True)
         n = len(burst)
         check(samples["pio_query_latency_seconds_count"][""] == n,
               f"pio_query_latency_seconds_count "
@@ -2610,7 +2675,9 @@ def phase_train(data, dev) -> dict:
     print(f"phase train deploy: {len(queries)} /queries.json answers "
           f"checked on the trained model, servingQuant={quant}", flush=True)
     return {"launches": launches, "iter_s": iter_s, "breakdown": breakdown,
-            "item_factors": model.item_factors}
+            "item_factors": model.item_factors,
+            "host_factors": (model.user_factors.cpu().numpy(),
+                             model.item_factors.cpu().numpy())}
 
 
 def phase_implicit(data, dev) -> dict:
@@ -6614,6 +6681,436 @@ def console_status_page_drain(d: dict, env: dict, work: Path,
     return {"status_s": status_s, "drain_launches": grown}
 
 
+# -- phase 15: checkpoint resume and the split layout -------------------------
+
+#: phase 15's crash: the commit of step 6 fails, so steps up to 5 are
+#: committed when the run dies
+RESUME_FAULT = "checkpoint.commit=error,after=5,times=1"
+RESUME_STEP = 5
+#: one split iteration held to one bucket iteration from the same
+#: factors (the same normal equations summed in another order): phase
+#: 6's kernel-against-plain limits
+SPLIT_ATOL, SPLIT_RTOL = 2e-4, 2e-3
+
+
+def timed_saves(ckpt_mod):
+    """Wrap ``Checkpointer.save`` to record each save's seconds and bytes
+    (the host copy of the factors included); returns the record list and
+    the undo."""
+    orig = ckpt_mod.Checkpointer.save
+    record = []
+
+    def save(self, step, state):
+        t0 = time.perf_counter()
+        n = orig(self, step, state)
+        record.append((time.perf_counter() - t0, n))
+        return n
+
+    ckpt_mod.Checkpointer.save = save
+    return record, lambda: setattr(ckpt_mod.Checkpointer, "save", orig)
+
+
+def phase_resume(data, dev, work: Path, card: dict) -> dict:
+    """``train_als(checkpoint_dir=...)`` at ML-20M width: an uninterrupted
+    run, a run killed after step 5 and resumed past a torn step 6 (its
+    factors bitwise those of the uninterrupted run and of a run without
+    checkpoints, its kernels launched only for the iterations left), a
+    foreign run refused, and the split layout trained twice (bitwise
+    equal) and held to the bucket layout. Returns the counted launches of
+    the resumed run."""
+    import warnings
+
+    from predictionio_tpu_torch.faults import FaultError, inject_spec
+    from predictionio_tpu_torch.faults import registry as fault_registry
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.ops.ragged import SplitHistories
+    from predictionio_tpu_torch.workflow import checkpoint as ckpt_mod
+
+    users, items, stars, n_users, n_items = data
+    ratings = als.RatingsCOO(users, items, stars, n_users, n_items)
+    params = als.ALSParams(rank=RANK, num_iterations=TRAIN_ITERS)
+    packed = als.pack_ratings(ratings, params, device=dev)
+
+    def train(**kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U, V = als.train_als(ratings, params, device=dev, packed=packed, **kw)
+        torch.cuda.synchronize()
+        return U, V, time.perf_counter() - t0
+
+    U0, V0, plain_s = train()
+    saves, undo = timed_saves(ckpt_mod)
+    try:
+        # (a) uninterrupted, saving every iteration
+        Ua, Va, ckpt_s = train(checkpoint_dir=str(work / "a"))
+        a_saves = list(saves)
+        # (b) the same run dies as step 6 commits, a torn step 6 is left
+        # beside the committed ones, and a fresh call resumes
+        inject_spec(RESUME_FAULT)
+        try:
+            train(checkpoint_dir=str(work / "b"))
+            fail("the checkpoint.commit fault did not stop the run")
+        except FaultError:
+            pass
+        finally:
+            fault_registry().clear("checkpoint.commit")
+        kept = ckpt_mod.Checkpointer(str(work / "b")).all_steps()
+        check(kept[-1] == RESUME_STEP,
+              f"after the crash the steps on disk are {kept}")
+        (work / "b" / f"step_{RESUME_STEP + 1}.npz").write_bytes(
+            b"PK\x03\x04torn")
+        zero_launch_counts()
+        Ub, Vb, resume_s = train(checkpoint_dir=str(work / "b"))
+        counted = launch_counts()
+    finally:
+        undo()
+    per_iter = {k: counted[k] // (TRAIN_ITERS - RESUME_STEP)
+                for k in ("fused_gram", "chol_solve")}
+    zero_launch_counts()
+    train()
+    full = launch_counts()
+    for k in ("fused_gram", "chol_solve"):
+        check(counted[k] > 0 and full[k] == counted[k] * TRAIN_ITERS
+              // (TRAIN_ITERS - RESUME_STEP),
+              f"the resumed run launched {k} {counted[k]} times, a whole "
+              f"run {full[k]}: not the {TRAIN_ITERS - RESUME_STEP} "
+              f"iterations left")
+    for tag, (U, V) in (("uninterrupted", (Ua, Va)),
+                        ("without checkpoints", (U0, V0))):
+        check(torch.equal(Ub, U) and torch.equal(Vb, V),
+              f"the resumed factors differ from the {tag} run's "
+              f"(max |dU| {(Ub - U).abs().max().item():.3e})")
+    # (c) a run of other params is refused, before any iteration
+    try:
+        als.train_als(ratings, dataclasses.replace(params, seed=4),
+                      device=dev, packed=packed,
+                      checkpoint_dir=str(work / "a"))
+        fail("a foreign checkpoint directory was not refused")
+    except ValueError as e:
+        check("different ALS run" in str(e), f"the refusal said: {e}")
+    save_s = np.array([t for t, _ in a_saves])
+    save_bytes = a_saves[0][1]
+
+    # (d) the split layout
+    split_params = dataclasses.replace(params, history_mode="split")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t0 = time.perf_counter()
+        sp = als.pack_ratings(ratings, split_params, device=dev)
+        torch.cuda.synchronize()
+        split_pack_s = time.perf_counter() - t0
+    check(isinstance(sp.user_h, SplitHistories)
+          and isinstance(sp.item_h, SplitHistories),
+          "history_mode='split' did not pack the split layout")
+    init = als.draw_initial_factors(
+        params.seed, n_users, als._rows_padded(sp.user_h), n_items,
+        als._rows_padded(sp.item_h), RANK)
+    init = tuple(t.numpy() for t in init)
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Us1, Vs1 = als.train_als(ratings, split_params, device=dev, packed=sp,
+                             init=init)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    split_l = launch_counts()
+    Us2, Vs2 = als.train_als(ratings, split_params, device=dev, packed=sp,
+                             init=init)
+    check(torch.equal(Us1, Us2) and torch.equal(Vs1, Vs2),
+          "two split trainings differ: the accumulation is not "
+          "deterministic")
+    check(split_l["fused_gram"] > 0 and split_l["chol_solve"] > 0,
+          f"split training launched {split_l}")
+    # one iteration of each layout from the same factors
+    one = dataclasses.replace(params, num_iterations=1)
+    Ub1, Vb1 = als.train_als(ratings, one, device=dev, packed=packed,
+                             init=init)
+    Us_1, Vs_1 = als.train_als(ratings, dataclasses.replace(
+        split_params, num_iterations=1), device=dev, packed=sp, init=init)
+    for name, got, want in (("U", Us_1, Ub1), ("V", Vs_1, Vb1)):
+        bad = (got - want).abs() > SPLIT_ATOL + SPLIT_RTOL * want.abs()
+        check(not bool(bad.any()),
+              f"one split iteration: {name} off the bucket layout's at "
+              f"{int(bad.sum())} entries (max "
+              f"{(got - want).abs().max().item():.3e})")
+    u_t = torch.from_numpy(users.astype(np.int64)).to(dev)
+    i_t = torch.from_numpy(items.astype(np.int64)).to(dev)
+    s_t = torch.from_numpy(stars).to(dev)
+    rmse_split = rmse(Us1, Vs1, u_t, i_t, s_t)
+    rmse_bucket = rmse(U0, V0, u_t, i_t, s_t)
+    check(abs(rmse_split - rmse_bucket) <= 1e-3 * rmse_bucket,
+          f"split RMSE {rmse_split:.5f} against the bucket layout's "
+          f"{rmse_bucket:.5f}")
+
+    def split_iteration():
+        U = als._update_side_split(torch.from_numpy(init[1]).to(dev),
+                                   sp.user_h, split_params)
+        return U, als._update_side_split(U, sp.item_h, split_params)
+
+    split_iteration()
+    iter_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split_iteration()
+        torch.cuda.synchronize()
+        iter_times.append(time.perf_counter() - t0)
+    _, bd = profile_device("phase resume split profile, one iteration",
+                           split_iteration)
+    print(f"phase resume: train_als rank {RANK} x {TRAIN_ITERS} at ML-20M "
+          f"width: without checkpoints {plain_s:.3f}s, saving every "
+          f"iteration {ckpt_s:.3f}s | a save: {save_bytes} bytes, median "
+          f"{np.median(save_s) * 1e3:.3f} ms (min {save_s.min() * 1e3:.3f} "
+          f"max {save_s.max() * 1e3:.3f}) | killed at step "
+          f"{RESUME_STEP + 1}'s commit ({RESUME_FAULT}), torn step_"
+          f"{RESUME_STEP + 1}.npz skipped, resumed from {RESUME_STEP} in "
+          f"{resume_s:.3f}s: U and V bitwise equal to the uninterrupted "
+          f"run's and the checkpoint-free run's | resumed launches "
+          f"fused_gram={counted['fused_gram']} chol_solve="
+          f"{counted['chol_solve']} ({per_iter} an iteration, a whole run "
+          f"{full['fused_gram']}/{full['chol_solve']}) | a foreign run "
+          f"refused | {card_tag(card)}", flush=True)
+    print(f"phase resume split: L user={sp.user_h.max_len} "
+          f"item={sp.item_h.max_len}, virtual rows user="
+          f"{sp.user_h.n_virtual} item={sp.item_h.n_virtual} (real "
+          f"{n_users} / {n_items}), pack {split_pack_s:.3f}s | "
+          f"{TRAIN_ITERS} iterations {split_s:.3f}s, one iteration median "
+          f"{np.median(iter_times) * 1e3:.3f} ms (runs "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in iter_times)}); profiled: "
+          f"fused_gram={bd['fused_gram']:.3f} chol_solve="
+          f"{bd['chol_solve']:.3f} other_kernels="
+          f"{bd['device_ms'] - bd['fused_gram'] - bd['chol_solve']:.3f} "
+          f"device_idle={bd['wall_ms'] - bd['device_ms']:.3f} | launches "
+          f"fused_gram={split_l['fused_gram']} chol_solve="
+          f"{split_l['chol_solve']} | two trainings bitwise equal | one "
+          f"iteration held to the bucket layout's (atol {SPLIT_ATOL}, rtol "
+          f"{SPLIT_RTOL}), RMSE after {TRAIN_ITERS} split={rmse_split:.5f} "
+          f"bucket={rmse_bucket:.5f} | {card_tag(card)}", flush=True)
+    return {"fused_gram": counted["fused_gram"],
+            "chol_solve": counted["chol_solve"],
+            "fused_topk": counted["fused_topk"],
+            "gram_table": counted["gram_table"],
+            "split_fused_gram": split_l["fused_gram"],
+            "split_chol_solve": split_l["chol_solve"]}
+
+
+# -- phase 16: a model blob the JAX package wrote -------------------------------
+
+JAX_FACTORY = "predictionio_tpu.templates.recommendation:recommendation_engine"
+JAXBLOB_QUERIES = 64
+
+
+@dataclasses.dataclass
+class JaxALSParams:
+    """Stand-in for the JAX package's ``ALSParams``: its fields, pickled
+    under its module path (:class:`JaxLayoutPickler`)."""
+
+    JAX_NAME = ("predictionio_tpu.models.als", "ALSParams")
+    rank: int = 10
+    num_iterations: int = 10
+    reg: float = 0.01
+    alpha: float = 1.0
+    implicit_prefs: bool = False
+    seed: int = 3
+    max_history: object = None
+    scale_reg_by_count: bool = True
+    block_rows: object = None
+    matmul_dtype: str = "float32"
+    gather_dtype: str = "float32"
+    gram_mode: str = "auto"
+    history_mode: str = "auto"
+
+
+class JaxBiMap:
+    """Stand-in for the JAX package's ``BiMap``: its ``_fwd``/``_rev``
+    state."""
+
+    JAX_NAME = ("predictionio_tpu.data.bimap", "BiMap")
+
+    def __init__(self, forward: dict):
+        self._fwd = dict(forward)
+        self._rev = {v: k for k, v in self._fwd.items()}
+
+
+@dataclasses.dataclass
+class JaxALSModel:
+    """Stand-in for the JAX package's host ``ALSModel`` as its blob holds
+    it (numpy factors, no mesh)."""
+
+    JAX_NAME = ("predictionio_tpu.models.als", "ALSModel")
+    user_factors: np.ndarray
+    item_factors: np.ndarray
+    n_users: int
+    n_items: int
+    user_ids: object = None
+    item_ids: object = None
+    params: object = dataclasses.field(default_factory=JaxALSParams)
+    mesh: object = None
+
+
+class JaxLayoutPickler(pickle._Pickler):
+    """The pure-Python pickler, writing each stand-in class under the JAX
+    package's module path and name: the bytes the JAX package's
+    ``dumps_models`` writes, without the JAX package."""
+
+    def save_global(self, obj, name=None):
+        jax_name = getattr(obj, "JAX_NAME", None) \
+            if isinstance(obj, type) else None
+        if jax_name is None:
+            return super().save_global(obj, name)
+        module, qualname = jax_name
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+def jax_layout_blob(models: list) -> bytes:
+    """``pickle.dump(models, protocol=4)`` as the JAX package writes its
+    MODELDATA blob, stand-ins under the JAX package's names."""
+    buf = io.BytesIO()
+    JaxLayoutPickler(buf, protocol=4).dump(models)
+    return buf.getvalue()
+
+
+class _WritesAMarker:
+    """Pickles as a call that would create ``path``: what the reader must
+    refuse before anything runs."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __reduce__(self):
+        return (open, (self.path, "w"))
+
+
+def phase_jaxblob(uv, dev, home: str, card: dict) -> dict:
+    """A full-width model blob in the JAX package's layout, stored under
+    an engine instance with the JAX package's factory name, deployed by
+    ``cli deploy`` and held to the same factors served from the port's
+    own blob; a blob naming another global refused with nothing run."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.event import utcnow
+    from predictionio_tpu_torch.data.storage.base import (
+        STATUS_COMPLETED,
+        EngineInstance,
+        Model,
+    )
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy_models,
+    )
+    from predictionio_tpu_torch.workflow.persistence import (
+        dumps_models,
+        loads_models,
+    )
+
+    U, V = uv
+    user_ids = {f"u{n}": n for n in range(N_USERS)}
+    item_ids = {f"i{n}": n for n in range(N_ITEMS)}
+    t0 = time.perf_counter()
+    blob = jax_layout_blob([JaxALSModel(
+        U, V, N_USERS, N_ITEMS, JaxBiMap(user_ids), JaxBiMap(item_ids),
+        JaxALSParams(rank=RANK, num_iterations=TRAIN_ITERS))])
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (decoded,) = loads_models(blob)
+    decode_s = time.perf_counter() - t0
+    check(torch.equal(decoded.user_factors, torch.from_numpy(U))
+          and torch.equal(decoded.item_factors, torch.from_numpy(V))
+          and decoded.user_ids.to_dict() == user_ids,
+          "the JAX-layout blob decoded to other factors or ids")
+
+    work = Path(home) / "jaxblob"
+    work.mkdir()
+    marker = work / "marker"
+    bad = pickle.dumps([_WritesAMarker(str(marker))], protocol=4)
+    try:
+        loads_models(bad)
+        fail("a blob naming builtins.open was not refused")
+    except ValueError as e:
+        check("refused" in str(e), f"the refusal said: {e}")
+    check(not marker.exists(), "the refused blob ran its reduce")
+
+    variant = {
+        "id": "jaxblob", "version": "1", "engineFactory": JAX_FACTORY,
+        "datasource": {"params": {"app_name": PIO_APP}},
+        "algorithms": [{"name": "als", "params": {
+            "rank": RANK, "num_iterations": TRAIN_ITERS}}]}
+    engine_json = work / "engine.json"
+    engine_json.write_text(json.dumps(variant))
+    storage = Storage(env={"PIO_HOME": home})
+    try:
+        iid = storage.engine_instances().insert(EngineInstance(
+            id="", status=STATUS_COMPLETED, start_time=utcnow(),
+            end_time=utcnow(), engine_id="jaxblob", engine_version="1",
+            engine_variant=str(engine_json), engine_factory=JAX_FACTORY))
+        storage.models().insert(Model(iid, blob))
+        rng = np.random.default_rng(23)
+        queries = [{"user": f"u{u}", "num": 10}
+                   for u in rng.integers(0, N_USERS, JAXBLOB_QUERIES)]
+        queries[0]["blackList"] = ["i1", "i2", "i3"]
+
+        # -- the JAX blob's deploy, counted ------------------------------
+        ft.LAUNCHES = 0
+        args = cli._parser().parse_args([
+            "deploy", "--engine-json", str(engine_json), "--ip",
+            "127.0.0.1", "--port", "0", "--batching"])
+        t0 = time.perf_counter()
+        srv = cli.build_deploy(args, storage).start_background()
+        try:
+            check(srv.query_server.warm_done.wait(WARM_TIMEOUT_S),
+                  "the JAX-blob deploy never warmed")
+            warm_s = time.perf_counter() - t0
+            answers = [_post(srv.port, queries[0])[0]]
+            first_s = time.perf_counter() - t0
+            answers += [_post(srv.port, q)[0] for q in queries[1:]]
+            status = _http(srv.port, "GET", "/status.json")[1]
+        finally:
+            srv.close()
+        launches = ft.LAUNCHES
+        # ------------------------------------------------------------------
+        check(launches > 0, "the JAX-blob deploy launched fused_topk no "
+              "time")
+        check(status["engineInstanceId"] == iid,
+              f"deploy bound {status['engineInstanceId']}, not {iid}")
+    finally:
+        storage.close()
+    engine, ep = cli.engine_from_variant(variant)
+    (own,) = loads_models(dumps_models([als_model_from_numpy(
+        U, V, N_USERS, N_ITEMS, user_ids, item_ids,
+        {"rank": RANK, "num_iterations": TRAIN_ITERS}, device="cpu")]))
+    ref_srv = deploy_models(engine, ep, [own], ServerConfig(batching=True),
+                            host="127.0.0.1", port=0).start_background()
+    try:
+        warmed(ref_srv)
+        refs = [_post(ref_srv.port, q)[0] for q in queries]
+    finally:
+        ref_srv.close()
+    rtol = RTOL["f32"]
+    for q, got, want in zip(queries, answers, refs):
+        g = got["itemScores"]
+        w = want["itemScores"]
+        check([x["item"] for x in g] == [x["item"] for x in w] and all(
+            abs(a["score"] - b["score"]) <= rtol * (1 + abs(b["score"]))
+            for a, b in zip(g, w)),
+            f"user {q['user']}: the JAX blob answered {g[:3]}..., the "
+            f"port's blob {w[:3]}...")
+    print(f"phase jaxblob: a {len(blob)}-byte JAX-layout ALSModel blob "
+          f"({N_USERS} x {N_ITEMS}, rank {RANK}) written in {write_s:.3f}s "
+          f"by the stand-in pickler, decoded by the port's reader in "
+          f"{decode_s:.3f}s | cli deploy (factory {JAX_FACTORY}): "
+          f"servingWarm at {warm_s:.3f}s, first answer at {first_s:.3f}s | "
+          f"{len(queries)} answers, top-k ids equal to the port's own "
+          f"blob's and scores within {rtol} | fused_topk launches="
+          f"{launches} | a blob naming builtins.open refused, its marker "
+          f"never written | {card_tag(card)}", flush=True)
+    return {"fused_topk": launches}
+
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -6666,6 +7163,14 @@ def main(argv=None) -> int:
         trained = phase_train(data, dev)
     with phase("implicit"):
         implicit = phase_implicit(data, dev)
+    scratch = Path(__file__).resolve().parent / "build"
+    scratch.mkdir(exist_ok=True)
+    with phase("resume"):
+        resume_work = Path(tempfile.mkdtemp(prefix="resume_", dir=scratch))
+        try:
+            resume_l = phase_resume(data, dev, resume_work, card)
+        finally:
+            shutil.rmtree(resume_work, ignore_errors=True)
     with phase("sequential"):
         seq_l = phase_sequential(data, times, dev, card)
     with phase("stream-kernel"):
@@ -6683,8 +7188,6 @@ def main(argv=None) -> int:
     with phase("gram-table"):
         table_row = phase_gram_table(args.seed, table_block, dev)
         del table_block
-    scratch = Path(__file__).resolve().parent / "build"
-    scratch.mkdir(exist_ok=True)
     home = tempfile.mkdtemp(prefix="pio_home_", dir=scratch)
     try:
         with phase("pio"):
@@ -6710,6 +7213,9 @@ def main(argv=None) -> int:
             rel_l = phase_release(data, dev, home, pio, card)
         with phase("console"):
             console_l = phase_console(dev, home, pio, card)
+        with phase("jaxblob"):
+            jaxblob_l = phase_jaxblob(trained.pop("host_factors"), dev, home,
+                                      card)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
@@ -6722,7 +7228,10 @@ def main(argv=None) -> int:
     # (no TPU kernel is on their paths: each reads 0); release_launches:
     # the release phase's (two trainings, then both arms' serving);
     # telemetry_launches: the telemetry phase's two counted bursts;
-    # storage_launches: the storage phase's REMOTE training and its deploy
+    # storage_launches: the storage phase's REMOTE training and its deploy;
+    # resume_launches: the resumed training's (iterations 6-10);
+    # split_launches: one split-layout training's; jaxblob_launches: the
+    # deploy of the JAX-written blob
     implicit_l = implicit["launches"]
     store_l = storage_l["launches"]
     kernels = [
@@ -6741,7 +7250,9 @@ def main(argv=None) -> int:
              console_launches=console_l["fused_topk"],
              telemetry_launches=telemetry_l["fused_topk"],
              cache_launches=cache_l["fused_topk"],
-             storage_launches=store_l["fused_topk"], **row),
+             storage_launches=store_l["fused_topk"],
+             resume_launches=resume_l["fused_topk"],
+             jaxblob_launches=jaxblob_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -6756,7 +7267,9 @@ def main(argv=None) -> int:
              release_launches=rel_l["fused_gram"],
              telemetry_launches=telemetry_l["fused_gram"],
              cache_launches=cache_l["fused_gram"],
-             storage_launches=store_l["fused_gram"], **gram_row),
+             storage_launches=store_l["fused_gram"],
+             resume_launches=resume_l["fused_gram"],
+             split_launches=resume_l["split_fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -6771,7 +7284,9 @@ def main(argv=None) -> int:
              release_launches=rel_l["chol_solve"],
              telemetry_launches=telemetry_l["chol_solve"],
              cache_launches=cache_l["chol_solve"],
-             storage_launches=store_l["chol_solve"], **solve_row),
+             storage_launches=store_l["chol_solve"],
+             resume_launches=resume_l["chol_solve"],
+             split_launches=resume_l["split_chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -6786,7 +7301,8 @@ def main(argv=None) -> int:
              release_launches=rel_l["gram_table"],
              telemetry_launches=telemetry_l["gram_table"],
              cache_launches=cache_l["gram_table"],
-             storage_launches=store_l["gram_table"], **table_row),
+             storage_launches=store_l["gram_table"],
+             resume_launches=resume_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

@@ -16,3 +16,9 @@ caller passes ``device="cpu"``.
 """
 
 __version__ = "0.1.0"
+
+from .data.bimap import BiMap
+from .data.datamap import DataMap, PropertyMap
+from .data.event import Event
+
+__all__ = ["DataMap", "PropertyMap", "Event", "BiMap", "__version__"]

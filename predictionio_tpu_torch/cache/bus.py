@@ -23,6 +23,8 @@ import threading
 import weakref
 from typing import Any, Callable, List, Optional
 
+from ..concurrency import new_lock
+
 log = logging.getLogger(__name__)
 
 __all__ = ["InvalidationBus", "default_bus"]
@@ -33,7 +35,7 @@ Subscriber = Callable[[Optional[int], str, str, str], Any]
 
 class InvalidationBus:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = new_lock("InvalidationBus._lock")
         self._subs: List[weakref.ref] = []
         self._published = 0
         self._delivered = 0

@@ -27,9 +27,9 @@ the whole query tier — every cached result may now be wrong.
 from __future__ import annotations
 
 import json
-import threading
 from typing import Any, Dict, Iterable, Optional, Tuple
 
+from ..concurrency import new_lock
 from .bus import InvalidationBus, default_bus
 from .hot import HotEntityTier, PinFn
 from .lru import ShardedTTLCache
@@ -76,7 +76,7 @@ class ServingCache:
         #: guards the flat counters below — bus deliveries arrive on
         #: whatever thread accepted the ingest, so even `x += 1` is a
         #: read-modify-write race without it
-        self._counter_lock = threading.Lock()
+        self._counter_lock = new_lock("ServingCache._counter_lock")
         self._flushes = 0
         self._bus_events = 0
         # invalidation epochs: a query computed CONCURRENTLY with an
@@ -86,7 +86,7 @@ class ServingCache:
         # global one) BEFORE removing entries; fill paths snapshot the
         # epoch pre-compute and drop their put if it moved (see
         # put_query_fresh).
-        self._epoch_lock = threading.Lock()
+        self._epoch_lock = new_lock("ServingCache._epoch_lock")
         self._global_epoch = 0
         self._tag_epochs: Dict[str, int] = {}
         self._stale_put_drops = 0

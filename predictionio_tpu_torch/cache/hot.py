@@ -32,6 +32,8 @@ import logging
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
 
+from ..concurrency import new_lock
+
 log = logging.getLogger(__name__)
 
 __all__ = ["HotEntityTier"]
@@ -49,7 +51,7 @@ class HotEntityTier:
         self.pin_fn = pin_fn
         self.capacity = max(capacity, 1)
         self.refresh_every = max(refresh_every, 1)
-        self._lock = threading.Lock()
+        self._lock = new_lock("HotEntityTier._lock")
         self._counts: Dict[str, int] = {}
         self._pinned: Dict[str, Any] = {}
         self._bytes = 0

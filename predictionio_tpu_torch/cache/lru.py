@@ -19,10 +19,11 @@ other.
 from __future__ import annotations
 
 import sys
-import threading
 import time
 from collections import OrderedDict
 from typing import Any, Dict, Hashable, Iterable, Optional, Tuple
+
+from ..concurrency import new_lock
 
 __all__ = ["ShardedTTLCache", "approx_bytes"]
 
@@ -47,7 +48,7 @@ class _Shard:
     __slots__ = ("lock", "entries", "tags", "bytes")
 
     def __init__(self) -> None:
-        self.lock = threading.Lock()
+        self.lock = new_lock("ShardedTTLCache.shard.lock")
         #: key → (value, expires_at, tags, cost_bytes); insertion order
         #: is recency order (move_to_end on hit)
         self.entries: "OrderedDict[Hashable, Tuple]" = OrderedDict()
@@ -71,7 +72,7 @@ class ShardedTTLCache:
         #: per-shard capacity; ceil so shards*cap >= max_entries
         self._shard_cap = max(
             1, -(-max_entries // len(self._shards)))
-        self._stats_lock = threading.Lock()
+        self._stats_lock = new_lock("ShardedTTLCache._stats_lock")
         self._hits = 0
         self._misses = 0
         self._evictions = 0

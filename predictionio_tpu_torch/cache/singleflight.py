@@ -15,16 +15,17 @@ cost one supplement + one dispatch, not N.
 
 from __future__ import annotations
 
-import threading
 from concurrent.futures import Future
 from typing import Any, Callable, Dict, Hashable, Tuple
+
+from ..concurrency import new_lock
 
 __all__ = ["SingleFlight"]
 
 
 class SingleFlight:
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = new_lock("SingleFlight._lock")
         self._flights: Dict[Hashable, Future] = {}
         self._coalesced = 0  # followers served by a leader's flight
 

@@ -23,7 +23,8 @@
         [--no-trace] [--trace-ring 512] [--trace-slow-ms 0] \\
         [--access-log-sample 1.0] [--profile-dir D] [--hot-keys-k 128] \\
         [--cache [--cache-entries 8192] [--cache-ttl 30] [--feature-ttl 5] \\
-        [--hot-entities 512]] [--cert PEM --key PEM]
+        [--hot-entities 512]] [--faults SPEC] [--debug-locks] \\
+        [--cert PEM --key PEM]
     python -m predictionio_tpu_torch.cli batchpredict \\
         --engine-json engine.json --input q.jsonl --output out.jsonl
     python -m predictionio_tpu_torch.cli eval module:evaluation \\
@@ -530,7 +531,9 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                           cache_entries=args.cache_entries,
                           cache_ttl_sec=args.cache_ttl,
                           feature_ttl_sec=args.feature_ttl,
-                          hot_entities=args.hot_entities)
+                          hot_entities=args.hot_entities,
+                          faults=args.faults or None,
+                          debug_locks=args.debug_locks)
     ssl_ctx = _ssl(args)
     if args.model:
         from .workflow.persistence import loads_models
@@ -1427,6 +1430,16 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--hot-entities", type=int, default=512,
                        help="hottest users whose rows stay pinned on the "
                             "card (0 off)")
+        s.add_argument("--faults", default="",
+                       help="fault-injection spec armed at start, for "
+                            "failure drills, e.g. 'serving.dispatch="
+                            "latency,delay_ms=400,times=1'; the "
+                            "PTPU_FAULTS variable works on every server")
+        s.add_argument("--debug-locks", action="store_true",
+                       help="instrument every serving-stack lock: live "
+                            "lock-order and re-entry detection, pio_lock_* "
+                            "families, the deadlock watchdog "
+                            "(PTPU_DEBUG_LOCKS=1 works too)")
 
     s = sub.add_parser("eval", help="run an evaluation")
     s.add_argument("evaluation", help="module.path:evaluation_object")

@@ -1,8 +1,6 @@
 """DASE controller API: what engine templates and evaluations import
-(the port's counterpart of ``predictionio_tpu.controller``'s exports).
-
-Left out (``ROADMAP.md`` queue 1, item 6): ``PersistentModel``,
-``LocalFileSystemPersistentModel`` and ``PersistentModelManifest``.
+(the port's counterpart of ``predictionio_tpu.controller``'s exports,
+custom persistence included: :mod:`.persistent`).
 """
 
 from .base import (
@@ -11,6 +9,7 @@ from .base import (
     DataSource,
     FirstServing,
     IdentityPreparator,
+    PersistentModelManifest,
     Preparator,
     SanityCheck,
     Serving,
@@ -26,6 +25,7 @@ from .evaluation import (
     save_best_variant_json,
 )
 from .fast_eval import FastEvalEngine, FastEvalEngineWorkflow
+from .persistent import LocalFileSystemPersistentModel, PersistentModel
 from .metric import (
     AverageMetric,
     Metric,
@@ -49,6 +49,8 @@ from .params import (
 )
 
 __all__ = [
+    "PersistentModel",
+    "LocalFileSystemPersistentModel",
     "FastEvalEngineWorkflow",
     "FastEvalEngine",
     "Algorithm",
@@ -71,6 +73,7 @@ __all__ = [
     "OptionAverageMetric",
     "OptionStdevMetric",
     "Params",
+    "PersistentModelManifest",
     "PointwiseMetric",
     "Preparator",
     "SanityCheck",

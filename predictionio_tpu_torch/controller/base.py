@@ -86,6 +86,26 @@ class Algorithm(abc.ABC):
         template keeps ``ctx.event_store`` so its filter reads hit the
         deployed storage, not the process-wide one. A no-op here."""
 
+    def make_persistent_model(self, model: Any, engine_instance_id: str,
+                              algo_index: int) -> Any:
+        """What the engine instance stores for ``model``: a
+        :class:`~.persistent.PersistentModel` saves itself and is stored
+        as its :class:`PersistentModelManifest`; any other model is
+        stored in the blob as it is."""
+        from .persistent import PersistentModel, manifest_for
+        if isinstance(model, PersistentModel):
+            manifest = manifest_for(model, engine_instance_id, algo_index)
+            if manifest is not None:
+                return manifest
+        return model
+
+    def load_persistent_model(self, ctx: Context, stored: Any) -> Any:
+        """Invert :meth:`make_persistent_model` at deploy time."""
+        from .persistent import load_from_manifest
+        if isinstance(stored, PersistentModelManifest) and stored.class_name:
+            return load_from_manifest(stored)
+        return stored
+
     def prepare_serving_model(self, model: Any, device: torch.device) -> Any:
         """Called once per model when it binds to a serving surface: fix
         its placement on ``device``. Identity here."""
@@ -122,3 +142,25 @@ class AverageServing(Serving):
 
     def serve(self, query, predictions):
         return sum(predictions) / len(predictions)
+
+
+class PersistentModelManifest:
+    """Stored in place of a model whose algorithm persisted it itself;
+    records how to find it again. ``class_name`` (``module:QualName``)
+    names a :class:`~.persistent.PersistentModel` whose ``load`` inverts
+    the save; ``location`` and ``extra`` serve a custom
+    ``load_persistent_model``."""
+
+    def __init__(self, class_name: str = "", engine_instance_id: str = "",
+                 algo_index: int = 0, location: str = "",
+                 extra: Optional[dict] = None):
+        self.class_name = class_name
+        self.engine_instance_id = engine_instance_id
+        self.algo_index = algo_index
+        self.location = location
+        self.extra = extra or {}
+
+    def __repr__(self):
+        return (f"PersistentModelManifest({self.class_name!r}, "
+                f"{self.engine_instance_id!r}, {self.algo_index}, "
+                f"{self.location!r})")

@@ -1,7 +1,8 @@
 """Engine: binds named DASE component classes, trains and evaluates (the
-port of ``predictionio_tpu/controller/engine.py``; deploy-time
-re-materialization of persisted model flavours is not ported yet,
-``ROADMAP.md`` queue 1)."""
+port of ``predictionio_tpu/controller/engine.py``). A persisted model's
+re-materialization at deploy is ``Algorithm.load_persistent_model``'s,
+called by ``workflow.core.load_models_for_deploy``; a model stored as
+nothing (retrain at deploy) is not ported."""
 
 from __future__ import annotations
 

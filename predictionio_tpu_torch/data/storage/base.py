@@ -290,6 +290,19 @@ class EventStore(abc.ABC):
             entity_type=entity_type, event_names=list(AGGREGATION_EVENTS)))
         return keep_required(aggregate_properties(events), required)
 
+    def write(self, events: Iterable[Event], app_id: int,
+              channel_id: Optional[int] = None) -> None:
+        """Bulk write: ``events`` in batches of 1,000 through
+        :meth:`insert_batch`, each batch all or nothing."""
+        batch: List[Event] = []
+        for e in events:
+            batch.append(e)
+            if len(batch) >= 1000:
+                self.insert_batch(batch, app_id, channel_id)
+                batch = []
+        if batch:
+            self.insert_batch(batch, app_id, channel_id)
+
 
 def keep_required(result: Dict[str, PropertyMap],
                   required: Optional[Sequence[str]]

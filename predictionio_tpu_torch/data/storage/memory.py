@@ -11,6 +11,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
+from ...faults import declare, fire
 from ..event import Event, new_event_id
 from .base import (
     AccessKey,
@@ -32,6 +33,14 @@ from .base import (
 )
 
 _Key = Tuple[int, Optional[int]]
+
+
+#: fired by the in-process backends on the event-log reads and writes the
+#: servers depend on; an injection simulates a failing storage backend
+F_STORAGE_IO = declare("storage.io",
+                       "an event-log read or write of the MEMORY or SQLite "
+                       "backend (op=insert|insert_columnar|find, "
+                       "backend=memory|sqlite)")
 
 
 class MemoryEventStore(EventStore):
@@ -56,6 +65,7 @@ class MemoryEventStore(EventStore):
 
     def insert(self, event: Event, app_id: int,
                channel_id: Optional[int] = None) -> str:
+        fire(F_STORAGE_IO, op="insert", backend="memory")
         with self._lock:
             eid = event.event_id or new_event_id()
             self._bucket(app_id, channel_id)[eid] = event.copy(event_id=eid)
@@ -73,6 +83,7 @@ class MemoryEventStore(EventStore):
 
     def find(self, app_id: int, channel_id: Optional[int] = None,
              filter: EventFilter = EventFilter()) -> Iterator[Event]:
+        fire(F_STORAGE_IO, op="find", backend="memory")
         with self._lock:
             events = list(self._bucket(app_id, channel_id).values())
         events = list(filter.apply(events))

@@ -12,7 +12,8 @@ LOCALFS (``..._PATH``), SEGMENTFS (``..._PATH``, a shared mount), REMOTE
 (``..._URL`` of a storage server, ``..._SECRET``) and S3, GCS or
 OBJECTSTORE (``..._ENDPOINT`` ``http://host:port/bucket``,
 ``..._HEADERS``), each reading and writing the JAX package's formats. An
-unknown type raises :class:`StorageError`.
+unknown type raises :class:`StorageError`; :func:`register_backend` adds
+a type of the caller's own.
 """
 
 from __future__ import annotations
@@ -49,6 +50,14 @@ class Backend:
     close: Callable[[object], None] = lambda c: None
 
 
+def register_backend(type_name: str, backend: Backend) -> None:
+    """Make ``PIO_STORAGE_SOURCES_<NAME>_TYPE=<type_name>`` open
+    ``backend`` (case-insensitive; a later call replaces an earlier
+    one)."""
+    _BACKENDS[type_name.upper()] = backend
+
+
+#: source type -> its backend; :func:`register_backend` adds to it
 _BACKENDS: Dict[str, Backend] = {
     "MEMORY": Backend(
         make_client=lambda cfg: None,
@@ -120,7 +129,7 @@ _BACKENDS: Dict[str, Backend] = {
 # S3 and GCS are one backend: both stores speak the same REST subset (the
 # GCS XML API is S3-compatible)
 for _name in ("S3", "GCS", "OBJECTSTORE"):
-    _BACKENDS[_name] = Backend(
+    register_backend(_name, Backend(
         make_client=lambda cfg: objectstore.ObjectStoreClient.from_config(
             cfg),
         daos={
@@ -134,7 +143,7 @@ for _name in ("S3", "GCS", "OBJECTSTORE"):
                 lambda c: objectstore.ObjectStoreEvaluationInstances(c),
             "models": lambda c: objectstore.ObjectStoreModels(c),
         },
-        close=lambda c: c.close())
+        close=lambda c: c.close()))
 
 
 @dataclass

@@ -18,7 +18,8 @@ ranges in forked worker processes, which touch only ``sqlite3`` and
 numpy, never torch or the card; it forks only while the process runs a
 single thread, and encodes in-process otherwise.
 
-Left out (``ROADMAP.md`` queue 1, item 11): the fault-injection points.
+Inserts, column-block writes and finds fire the ``storage.io`` fault
+point (``memory.F_STORAGE_IO``), as MEMORY's do.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from ...faults import fire
 from ..columnar import (
     ColumnarBatch,
     SegmentLog,
@@ -70,6 +72,7 @@ from .base import (
     STATUS_EVALCOMPLETED,
     keep_required,
 )
+from .memory import F_STORAGE_IO
 
 
 #: page cache of the shared connection, in KiB (SQLite's default is 2 MB)
@@ -281,6 +284,7 @@ class SQLiteEventStore(EventStore):
 
     def insert_batch(self, events, app_id: int,
                      channel_id: Optional[int] = None) -> List[str]:
+        fire(F_STORAGE_IO, op="insert", backend="sqlite")
         rows, ids = [], []
         for e in events:
             eid = e.event_id or new_event_id()
@@ -318,6 +322,7 @@ class SQLiteEventStore(EventStore):
         once, the event ids are drawn in one call, and the rows go down in
         a single ``executemany`` transaction: no per-event ``Event``
         object and no per-event system call."""
+        fire(F_STORAGE_IO, op="insert_columnar", backend="sqlite")
         n = batch.n
         if n == 0:
             return 0
@@ -715,6 +720,7 @@ class SQLiteEventStore(EventStore):
 
     def find(self, app_id: int, channel_id: Optional[int] = None,
              filter: EventFilter = EventFilter()) -> Iterator[Event]:
+        fire(F_STORAGE_IO, op="find", backend="sqlite")
         clauses, params = [], []
         if filter.start_time is not None:
             clauses.append("event_time >= ?")

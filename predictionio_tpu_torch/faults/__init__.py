@@ -3,10 +3,13 @@ registry in ``predictionio_tpu/faults/``).
 
 A process-wide registry of *named injection points*: an instrumented
 site calls :func:`fire`, a single global-bool check until something is
-injected. The port instruments the stream trainer's pass
-(``stream.pass``) and the REMOTE storage client's requests
-(``storage.remote``); the other points of the JAX package wait for their
-subsystems (``ROADMAP.md`` queue 1 item 11).
+injected. The port's points: ``serving.dispatch`` (the engine server's
+batch dispatch), ``storage.io`` (MEMORY and SQLite reads and writes),
+``storage.remote`` (the REMOTE client's requests), ``stream.pass`` (the
+stream trainer's pass) and ``checkpoint.save`` / ``checkpoint.commit`` /
+``checkpoint.restore`` (``workflow/checkpoint.py``). Armed from
+``PTPU_FAULTS``, ``ServerConfig.faults``, ``deploy --faults`` or
+:func:`inject_spec`; :func:`status` reports what is armed and what fired.
 """
 
 from .registry import (
@@ -15,9 +18,13 @@ from .registry import (
     POINTS,
     clear,
     declare,
+    enabled,
     fire,
     inject,
+    inject_spec,
     parse_specs,
+    registry,
+    status,
 )
 
 __all__ = [
@@ -26,7 +33,11 @@ __all__ = [
     "POINTS",
     "clear",
     "declare",
+    "enabled",
     "fire",
     "inject",
+    "inject_spec",
     "parse_specs",
+    "registry",
+    "status",
 ]

@@ -6,7 +6,8 @@ port's own copy of ``predictionio_tpu/faults/registry.py``).
 - **Deterministic.** Every spec owns a ``random.Random(seed)``: a
   ``rate=0.3,seed=7`` schedule injects the *same* sequence of fires on
   every run.
-- **Scriptable from outside.** ``PTPU_FAULTS`` carries a spec grammar so
+- **Scriptable from outside.** ``PTPU_FAULTS`` (and
+  ``ServerConfig.faults`` / ``deploy --faults``) carries a spec grammar so
   a drill can arm a child process it is about to start::
 
       PTPU_FAULTS="stream.pass=error,after=2;stream.pass=latency,delay_ms=50"
@@ -29,7 +30,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from fnmatch import fnmatchcase
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 log = logging.getLogger(__name__)
 
@@ -112,6 +113,9 @@ class FaultRegistry:
         self._lock = threading.Lock()
         self._armed: List[_Armed] = []
         self._env_loaded = False
+        self._fired: Dict[str, int] = {}       # point -> fires observed
+        self._injections: Dict[str, int] = {}  # "point|mode" -> count
+        self._listeners: List[Callable[[str, str], None]] = []
 
     # -- arming ------------------------------------------------------------
     def inject(self, spec: FaultSpec) -> FaultSpec:
@@ -153,7 +157,18 @@ class FaultRegistry:
     # -- firing ------------------------------------------------------------
     def fire(self, point: str, **labels) -> None:
         with self._lock:
+            self._fired[point] = self._fired.get(point, 0) + 1
             hits = [a for a in self._armed if a.decide(point, labels)]
+            for a in hits:
+                key = f"{point}|{a.spec.mode}"
+                self._injections[key] = self._injections.get(key, 0) + 1
+            listeners = list(self._listeners) if hits else []
+        for a in hits:
+            for cb in listeners:
+                try:
+                    cb(point, a.spec.mode)
+                except Exception:  # noqa: BLE001 — telemetry only
+                    log.exception("fault listener failed")
         for a in hits:
             mode = a.spec.mode
             if mode == "latency":
@@ -166,6 +181,36 @@ class FaultRegistry:
                 os._exit(CRASH_EXIT_CODE)
             else:
                 raise FaultError(point, a.spec.message)
+
+
+    # -- observability -----------------------------------------------------
+    def add_listener(self, cb: Callable[[str, str], None]) -> None:
+        """``cb(point, mode)`` on every delivered injection (metrics)."""
+        with self._lock:
+            self._listeners.append(cb)
+
+    def remove_listener(self, cb: Callable[[str, str], None]) -> None:
+        with self._lock:
+            if cb in self._listeners:
+                self._listeners.remove(cb)
+
+    def enabled(self) -> bool:
+        with self._lock:
+            return bool(self._armed)
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "enabled": bool(self._armed),
+                "armed": [{
+                    "point": a.spec.point, "mode": a.spec.mode,
+                    "rate": a.spec.rate, "times": a.spec.times,
+                    "after": a.spec.after, "match": dict(a.spec.match),
+                    "seen": a.seen, "injected": a.injected,
+                } for a in self._armed],
+                "fired": dict(self._fired),
+                "injections": dict(self._injections),
+            }
 
 
 def parse_specs(raw: str) -> List[FaultSpec]:
@@ -208,6 +253,10 @@ _REGISTRY = FaultRegistry()
 _REGISTRY.load_env()
 
 
+def registry() -> FaultRegistry:
+    return _REGISTRY
+
+
 def fire(point: str, **labels) -> None:
     """The instrumented-site entry: no-op unless something is armed."""
     if not _ACTIVE:
@@ -221,3 +270,16 @@ def inject(point: str, mode: str = "error", **kwargs) -> FaultSpec:
 
 def clear(point: Optional[str] = None) -> int:
     return _REGISTRY.clear(point)
+
+
+def inject_spec(raw: str) -> List[FaultSpec]:
+    """Arm every spec in a ``PTPU_FAULTS``-grammar string."""
+    return [_REGISTRY.inject(s) for s in parse_specs(raw)]
+
+
+def enabled() -> bool:
+    return _REGISTRY.enabled()
+
+
+def status() -> dict:
+    return _REGISTRY.status()

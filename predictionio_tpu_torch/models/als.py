@@ -32,16 +32,26 @@ The hot-entity tier's pinned table (:func:`pin_user_rows`) is a row
 gather on the card; :func:`recommend_pinned` ranks a pinned user through
 the same top-k dispatch with that table as the user table.
 
-Not in this module yet: the split history layout, checkpoint resume,
-sharded and replicated placement.
+Training packs one of three layouts: pad, bucket (the drop-free default
+past the pad layout's size) or split (``history_mode="split"``: long
+rows become several virtual rows whose ``fused_gram`` partials are summed
+onto their real row in a fixed order before one ``chol_solve`` a real
+row). With ``checkpoint_dir`` it saves the factors every
+``checkpoint_every`` iterations (``workflow/checkpoint.py``) and resumes
+a restarted run from the newest restorable step.
+
+Not in this module yet: sharded and replicated placement.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 import logging
 import math
 import threading
+import warnings
 import weakref
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Tuple, Union
@@ -57,8 +67,10 @@ from ..ops.ragged import (
     AUTO_CAP_ENTRIES,
     BucketedHistories,
     PaddedHistories,
+    SplitHistories,
     pack_histories_bucketed_device,
     pack_histories_device,
+    pack_histories_split_device,
     resolve_max_len,
 )
 from ..ops.solve import gramian, solve_spd_batch
@@ -675,18 +687,149 @@ def _update_side(fixed: torch.Tensor, h, params: ALSParams
     return out[:n]
 
 
+# -- the split layout ----------------------------------------------------------
+
+def _partials_block(fixed: torch.Tensor, indices: torch.Tensor,
+                    values: torch.Tensor, counts: torch.Tensor,
+                    alpha: float, implicit: bool, bf16: bool, gram: str
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-VIRTUAL-row partials ``sum w f f^T`` and ``sum w f`` of one
+    block of a :class:`SplitHistories`: one :func:`_lhs_fn` call, so one
+    ``fused_gram`` launch on the card. Padding virtual rows have count 0
+    and give exactly zero."""
+    wa, wb = _weights(values, counts, alpha, implicit)
+    return _lhs_fn(fixed, indices, wa, wb, gram=gram, bf16=bf16)
+
+
+def _segment_sum(parts: torch.Tensor, owners: np.ndarray
+                 ) -> Tuple[np.ndarray, torch.Tensor]:
+    """Sum consecutive rows of ``parts`` that share an owner (``owners``,
+    host, non-decreasing): ``(unique owners, sums)``. Deterministic by
+    construction: no atomics, one fixed reduction a segment length class.
+    A one-row segment is its row; longer ones are gathered into
+    ``[n, m, ...]`` by power-of-two length class (padding at most 2x,
+    pointing at a zero row) and summed over ``m``."""
+    n = len(owners)
+    starts = np.flatnonzero(np.r_[True, owners[1:] != owners[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    out = parts.new_empty((len(starts),) + tuple(parts.shape[1:]))
+    dev = parts.device
+    single = np.flatnonzero(lens == 1)
+    if len(single):
+        out[torch.from_numpy(single).to(dev)] = \
+            parts[torch.from_numpy(starts[single]).to(dev)]
+    multi = np.flatnonzero(lens > 1)
+    if len(multi):
+        padded = torch.cat([parts, parts.new_zeros((1,) + parts.shape[1:])])
+        cls = np.ceil(np.log2(lens[multi])).astype(np.int64)
+        for c in np.unique(cls):
+            segs = multi[cls == c]
+            m = 1 << int(c)
+            pos = starts[segs, None] + np.arange(m)[None, :]
+            pos = np.where(np.arange(m)[None, :] < lens[segs, None], pos, n)
+            gathered = padded[torch.from_numpy(pos.reshape(-1)).to(dev)]
+            out[torch.from_numpy(segs).to(dev)] = gathered.reshape(
+                (len(segs), m) + tuple(parts.shape[1:])).sum(dim=1)
+    return owners[starts], out
+
+
+def _split_blocks(h: SplitHistories, rank: int,
+                  block_rows: Optional[int] = None):
+    """The virtual-row slices one split half-step hands to
+    :func:`_partials_block`, in order (the pad layout's block budget)."""
+    block = block_rows or _auto_block_rows(h.n_virtual, h.max_len, rank)
+    for s in range(0, h.n_virtual, block):
+        yield slice(s, min(s + block, h.n_virtual))
+
+
+def _solve_accumulated(A_acc: torch.Tensor, b_acc: torch.Tensor,
+                       G: Optional[torch.Tensor], real_counts: torch.Tensor,
+                       reg: float, scale_reg: bool) -> torch.Tensor:
+    """Finish a split half-step: the implicit baseline Gramian ``G`` once
+    a real row, after accumulation; ALS-WR regularization from the TRUE
+    row totals; one batched SPD solve (``chol_solve`` on the card). Rows
+    with no ratings keep b = 0 and solve to exactly 0, as the pad
+    layout's padding does. ``A_acc`` is updated in place."""
+    if G is not None:
+        A_acc += G
+    reg_n = reg * torch.clamp(real_counts.float(), min=1.0) if scale_reg \
+        else torch.full(real_counts.shape, reg, dtype=torch.float32,
+                        device=real_counts.device)
+    A_acc.diagonal(dim1=-2, dim2=-1).add_(reg_n[:, None])
+    return solve_spd_batch(A_acc, b_acc)
+
+
+def _update_side_split(fixed: torch.Tensor, h: SplitHistories,
+                       params: ALSParams) -> torch.Tensor:
+    """One half-iteration over the split layout: each virtual-row block's
+    partials (one ``fused_gram`` launch) summed onto the owning real rows
+    in ``[n_pad, r, r]`` / ``[n_pad, r]`` accumulators, in a fixed order
+    (:func:`_segment_sum` within a block, blocks in turn), then one solve
+    of every real row. Padding virtual rows (owner ``n_rows``) are cut
+    off before the sum."""
+    r = fixed.shape[-1]
+    G = gramian(fixed) if params.implicit_prefs else None
+    gsrc = fixed.bfloat16() if params.gather_dtype == "bfloat16" else fixed
+    n_pad = h.n_rows_padded
+    A_acc = torch.zeros((n_pad, r, r), dtype=torch.float32,
+                        device=fixed.device)
+    b_acc = torch.zeros((n_pad, r), dtype=torch.float32, device=fixed.device)
+    owners_all = h.row_ids.cpu().numpy()
+    for sl in _split_blocks(h, r, params.block_rows):
+        A_v, b_v = _partials_block(
+            gsrc, h.indices[sl], h.values[sl], h.counts[sl], params.alpha,
+            params.implicit_prefs, params.matmul_dtype == "bfloat16",
+            params.gram_mode)
+        owners = owners_all[sl]
+        live = int(np.searchsorted(owners, h.n_rows))  # padding is last
+        if live:
+            rows, A_s = _segment_sum(A_v[:live], owners[:live])
+            _, b_s = _segment_sum(b_v[:live], owners[:live])
+            dst = torch.from_numpy(rows.astype(np.int64)).to(fixed.device)
+            A_acc[dst] += A_s
+            b_acc[dst] += b_s
+    return _solve_accumulated(A_acc, b_acc, G, h.real_counts, params.reg,
+                              params.scale_reg_by_count)
+
+
+def auto_split_len(counts: np.ndarray) -> int:
+    """The split layout's padded length: the power of two L in [32, 8192]
+    minimizing the padded entries ``sum ceil(c / L) * L`` (ties to the
+    larger L: fewer virtual rows to sum)."""
+    best_L, best_total = 32, None
+    c = counts[counts > 0]
+    if c.size == 0:
+        return 32
+    for p in range(5, 14):  # 32 .. 8192
+        L = 1 << p
+        total = int((-(-c // L) * L).sum())
+        if best_total is None or total <= best_total:
+            best_L, best_total = L, total
+    return best_L
+
+
 def _pack(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
           n_rows: int, params: ALSParams, device: DeviceLike):
     """History packing for one side (``history_mode``): "pad" keeps
-    round-1 semantics (entries past the length drop), "bucket" is
-    drop-free, "auto" pads when that is dense enough and drops nothing
-    (or when ``max_history`` explicitly caps), buckets otherwise."""
+    round-1 semantics (entries past the length drop), "bucket" and
+    "split" are drop-free, "auto" pads when that is dense enough and
+    drops nothing (or when ``max_history`` explicitly caps), buckets
+    otherwise."""
     max_history = params.max_history
     mode = params.history_mode
     counts = None
     if mode == "split":
-        raise ValueError("history_mode='split' is not ported yet; use "
-                         "'bucket' (drop-free) or 'auto'")
+        warnings.warn(
+            "history_mode='split' sums each real row's virtual-row "
+            "partials before its solve; 'bucket' is the drop-free layout "
+            "of choice, 'split' is kept for comparison runs.",
+            UserWarning, stacklevel=3)
+        counts = np.bincount(rows, minlength=n_rows)
+        L = int(max_history) if max_history is not None \
+            else auto_split_len(counts)
+        return pack_histories_split_device(rows, cols, vals, n_rows,
+                                           max(L, 1), counts=counts,
+                                           device=device)
     if mode == "auto":
         if max_history is not None:
             mode = "pad"
@@ -768,7 +911,8 @@ def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
 
 
 def _rows_padded(h) -> int:
-    return h.n_rows_padded if isinstance(h, BucketedHistories) else h.n_rows
+    return h.n_rows_padded if isinstance(h, (BucketedHistories,
+                                             SplitHistories)) else h.n_rows
 
 
 def draw_initial_factors(seed: int, n_users: int, n_users_padded: int,
@@ -800,10 +944,75 @@ def _init_table(arr, n_real: int, n_padded: int, rank: int,
     return f
 
 
+def checkpoint_fingerprints(ratings: RatingsCOO, params: ALSParams,
+                            pad_layout: bool) -> Tuple[str, ...]:
+    """The fingerprints a checkpoint directory of this run may carry, the
+    JAX package's bit for bit: the first is this run's (the params and
+    problem dims that set the factor trajectory, ``history_mode``, the
+    bf16 shadow when on, and a digest of the ratings: their first and
+    last 1,024 triples in their own dtypes plus float64 sums); a run
+    whose both sides pad also accepts the older pad-only fingerprint."""
+    k = 1024
+    content = hashlib.sha256()
+    for arr in (np.asarray(ratings.users), np.asarray(ratings.items),
+                np.asarray(ratings.ratings)):
+        content.update(np.ascontiguousarray(arr[:k]).tobytes())
+        content.update(np.ascontiguousarray(arr[-k:]).tobytes())
+        content.update(np.float64(arr.sum(dtype=np.float64)).tobytes())
+    legacy_base = [
+        params.rank, params.reg, params.alpha, params.implicit_prefs,
+        params.seed, params.scale_reg_by_count, params.matmul_dtype,
+        params.max_history, ratings.n_users, ratings.n_items,
+        len(ratings.users),
+    ]
+    base = legacy_base + [params.history_mode]
+    if params.gather_dtype != "float32":
+        base = base + [params.gather_dtype]
+    out = (hashlib.sha256(json.dumps(
+        base + [content.hexdigest()]).encode()).hexdigest()[:16],)
+    if pad_layout:
+        out += (hashlib.sha256(
+            json.dumps(legacy_base).encode()).hexdigest()[:16],)
+    return out
+
+
+def _open_checkpoint(checkpoint_dir: str, ratings: Optional[RatingsCOO],
+                     params: ALSParams, user_h, item_h):
+    """The run's checkpointer: refuses a directory another run (params,
+    data or history layout) wrote, then records this run's
+    fingerprint."""
+    from ..workflow.checkpoint import make_checkpointer
+
+    if ratings is None:
+        raise ValueError("checkpointing fingerprints the ratings content; "
+                         "pass the ratings with packed= when using "
+                         "checkpoint_dir")
+    accepted = checkpoint_fingerprints(
+        ratings, params, isinstance(user_h, PaddedHistories)
+        and isinstance(item_h, PaddedHistories))
+    ckpt = make_checkpointer(checkpoint_dir)
+    meta = ckpt.get_metadata()
+    if meta is not None and meta.get("fingerprint") not in accepted:
+        raise ValueError(
+            f"checkpoint dir {checkpoint_dir} belongs to a different ALS "
+            f"run (params/dataset/history-layout mismatch); use a fresh "
+            f"dir")
+    ckpt.set_metadata({"fingerprint": accepted[0]})
+    return ckpt
+
+
+def _half_step(h) -> Callable:
+    """The half-step function of a packed side's layout."""
+    return _update_side_split if isinstance(h, SplitHistories) \
+        else _update_side
+
+
 def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
               device: DeviceLike = None,
               init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
-              packed: Optional[PackedRatings] = None
+              packed: Optional[PackedRatings] = None,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run ALS on ``device`` (the card by default; ``"cpu"`` runs every
     kernel's plain version); returns ``(user_factors, item_factors)`` f32
@@ -815,8 +1024,16 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
     package draws with ``jax.random``, which torch cannot reproduce, so a
     parity run passes the JAX package's own draw in here. ``packed``
     (from :func:`pack_ratings` with the same params and device) skips
-    the packing. There is no mesh and no checkpointing; each iteration
-    is a user half-step then an item half-step, as Python loops."""
+    the packing. Each iteration is a user half-step then an item
+    half-step, as Python loops; there is no mesh.
+
+    With ``checkpoint_dir`` the factors are saved every
+    ``checkpoint_every`` iterations (a directory implies 1) and a
+    restarted call resumes from the newest restorable step no later than
+    ``num_iterations``: a torn step is skipped, and a directory another
+    run wrote (:func:`checkpoint_fingerprints`) is refused. The kernels
+    add in a fixed order, so a resumed run's factors are bitwise those
+    of an uninterrupted one."""
     dev = resolve_device(device)
     if packed is None:
         if ratings is None or len(ratings.users) == 0 \
@@ -834,9 +1051,27 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
         U = _init_table(init[0], n_u, u_pad, params.rank, "user")
         V = _init_table(init[1], n_i, i_pad, params.rank, "item")
     U, V = U.to(dev), V.to(dev)
-    for _ in range(params.num_iterations):
-        U = _update_side(V, user_h, params)
-        V = _update_side(U, item_h, params)
+    step_u, step_i = _half_step(user_h), _half_step(item_h)
+    ckpt, start = None, 0
+    if checkpoint_dir:
+        ckpt = _open_checkpoint(checkpoint_dir, ratings, params, user_h,
+                                item_h)
+        checkpoint_every = checkpoint_every if checkpoint_every > 0 else 1
+    try:
+        if ckpt is not None:
+            start, state = ckpt.restore_latest(
+                like={"U": U, "V": V}, max_step=params.num_iterations)
+            if state is not None:
+                U, V = state["U"], state["V"]
+        for it in range(start, params.num_iterations):
+            U = step_u(V, user_h, params)
+            V = step_i(U, item_h, params)
+            if ckpt is not None:
+                ckpt.maybe_save(it + 1, {"U": U, "V": V},
+                                every=checkpoint_every)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
     return U, V
 
 
@@ -852,6 +1087,9 @@ def als_flops_per_iter(user_h, item_h, params: ALSParams) -> int:
         if isinstance(h, BucketedHistories):
             padded = h.padded_entries
             n_solve = sum(b.n_rows for b in h.buckets)
+        elif isinstance(h, SplitHistories):
+            padded = h.n_virtual * h.max_len
+            n_solve = h.n_rows_padded
         else:
             padded = h.n_rows * h.max_len
             n_solve = h.n_rows

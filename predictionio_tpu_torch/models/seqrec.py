@@ -142,6 +142,21 @@ def _layer_norm(x, g, b):
     return (x - mu) * torch.rsqrt(var + 1e-6) * g + b
 
 
+def _compat_model(model: SeqRecModel) -> SeqRecModel:
+    """Models persisted by the JAX package's first single-block revision
+    used unsuffixed weight keys (``qkv``, ``ln1``, ...) and params without
+    ``num_blocks``: map both forward so such a blob serves. Other models
+    come back as they are."""
+    w = model.weights
+    if "qkv" not in w or "qkv0" in w:
+        return model
+    ren = {"qkv": "qkv0", "attn_out": "attn_out0", "ff1": "ff10",
+           "ff2": "ff20", "ln1": "ln10", "ln1b": "ln1b0", "ln2": "ln20",
+           "ln2b": "ln2b0"}
+    return replace(model, weights={ren.get(k, k): v for k, v in w.items()},
+                   params=replace(model.params, num_blocks=1))
+
+
 def p_pad_id(w) -> int:
     return w["item_emb"].shape[0] - 1
 
@@ -355,6 +370,7 @@ def recommend_next_batch(model: SeqRecModel,
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k next items for many histories in one pass on the weights'
     device: (ids [B, k], scores [B, k])."""
+    model = _compat_model(model)
     p = model.params
     B = len(histories)
     if B > MAX_BATCH:

@@ -1,5 +1,6 @@
 """Ragged rating histories packed into dense per-row layouts (the port's
-copy of ``predictionio_tpu/ops/ragged.py``: pad and bucket layouts).
+copy of ``predictionio_tpu/ops/ragged.py``: pad, bucket and split
+layouts).
 
 Each row's history (the counterpart ids and ratings of one user or item)
 becomes a fixed-length slice of an index matrix and a value matrix;
@@ -241,3 +242,126 @@ def pack_histories_bucketed_device(rows: np.ndarray, cols: np.ndarray,
             row_ids=torch.from_numpy(row_ids).to(dev)))
     return BucketedHistories(buckets=tuple(buckets), n_rows=n_rows,
                              n_rows_padded=n_rows_pad)
+
+
+@dataclass(frozen=True)
+class SplitHistories:
+    """Drop-free row-split layout: every real row becomes ``ceil(count /
+    L)`` *virtual rows* of up to L entries, in order, so no entry is ever
+    dropped whatever the skew. Training computes each virtual row's
+    normal-equation partials and sums them onto the owning real row
+    before one solve a real row.
+
+    ``indices``/``values`` are ``[n_virtual_pad, L]``; ``counts`` holds
+    the entries of each virtual row; ``row_ids[v]`` is the real row that
+    owns virtual row v (``n_rows`` on padding rows). A real row's virtual
+    rows are contiguous and real rows ascend, so every segment of
+    ``row_ids`` is one real row. ``real_counts`` are the real rows' true
+    totals (the regularization's scale)."""
+
+    indices: torch.Tensor      # [n_virtual_pad, L] int32
+    values: torch.Tensor       # [n_virtual_pad, L] float32
+    counts: torch.Tensor       # [n_virtual_pad] int32 (a virtual row's)
+    row_ids: torch.Tensor      # [n_virtual_pad] int32 -> real row or n_rows
+    real_counts: torch.Tensor  # [n_rows_pad] int32
+    n_rows: int                # real rows (unpadded)
+
+    @property
+    def n_virtual(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def n_rows_padded(self) -> int:
+        return self.real_counts.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.indices.shape[1]
+
+
+def split_layout(counts: np.ndarray, max_len: int,
+                 pad_rows_to: int = 1):
+    """Host-side split bookkeeping: per-real-row virtual-row counts, the
+    total virtual rows and the padded virtual-row count."""
+    groups = -(-counts // max_len)  # ceil; 0-count rows get 0 virtual rows
+    n_virtual = int(groups.sum())
+    n_vpad = max(((n_virtual + pad_rows_to - 1) // pad_rows_to)
+                 * pad_rows_to, pad_rows_to)
+    return groups.astype(np.int64), n_virtual, n_vpad
+
+
+def _split_meta(counts: np.ndarray, groups: np.ndarray, n_rows: int,
+                L: int, n_virtual: int, n_vpad: int, pad_rows_to: int):
+    """``(row_ids, vcounts, real_counts)`` of a split layout, host numpy."""
+    gstarts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(groups, out=gstarts[1:])
+    row_ids = np.full(n_vpad, n_rows, dtype=np.int32)
+    row_ids[:n_virtual] = np.repeat(np.arange(n_rows, dtype=np.int32),
+                                    groups)
+    vcounts = np.zeros(n_vpad, dtype=np.int32)
+    # entries in virtual row v of row r: min(L, count_r - k * L)
+    k_within = np.arange(n_virtual) - gstarts[row_ids[:n_virtual]]
+    vcounts[:n_virtual] = np.minimum(
+        counts[row_ids[:n_virtual]] - k_within * L, L).astype(np.int32)
+    n_rows_pad = max(((n_rows + pad_rows_to - 1) // pad_rows_to)
+                     * pad_rows_to, pad_rows_to)
+    real_counts = np.zeros(n_rows_pad, dtype=np.int32)
+    real_counts[:n_rows] = counts
+    return gstarts, row_ids, vcounts, real_counts
+
+
+def pack_histories_split(rows: np.ndarray, cols: np.ndarray,
+                         vals: np.ndarray, n_rows: int, max_len: int,
+                         pad_rows_to: int = 1) -> SplitHistories:
+    """Host-numpy split packing (:class:`SplitHistories`), CPU tensors."""
+    L = max(int(max_len), 1)
+    rows = np.asarray(rows)
+    order = np.argsort(rows, kind="stable")
+    rs, cs, vs = rows[order], np.asarray(cols)[order], \
+        np.asarray(vals)[order]
+    counts = np.bincount(rs, minlength=n_rows).astype(np.int64)
+    groups, n_virtual, n_vpad = split_layout(counts, L, pad_rows_to)
+    gstarts, row_ids, vcounts, real_counts = _split_meta(
+        counts, groups, n_rows, L, n_virtual, n_vpad, pad_rows_to)
+    starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    pos = np.arange(len(rs)) - starts[rs]
+    vrow = gstarts[rs] + pos // L
+    vpos = pos % L
+    indices = np.zeros((n_vpad, L), dtype=np.int32)
+    values = np.zeros((n_vpad, L), dtype=np.float32)
+    indices[vrow, vpos] = cs
+    values[vrow, vpos] = vs
+    return SplitHistories(
+        indices=torch.from_numpy(indices), values=torch.from_numpy(values),
+        counts=torch.from_numpy(vcounts), row_ids=torch.from_numpy(row_ids),
+        real_counts=torch.from_numpy(real_counts), n_rows=n_rows)
+
+
+def pack_histories_split_device(rows: np.ndarray, cols: np.ndarray,
+                                vals: np.ndarray, n_rows: int,
+                                max_len: int, pad_rows_to: int = 1,
+                                counts: Optional[np.ndarray] = None,
+                                device: DeviceLike = None
+                                ) -> SplitHistories:
+    """The split layout packed on ``device`` (the card by default): the
+    host plans it from the per-row counts, and one sort and scatter on
+    the device fill it. A real row's virtual rows are contiguous, so its
+    entries land at ``gstarts[row] * L + position``: the bucket packer's
+    flat scatter with that base."""
+    dev = resolve_device(device)
+    L = max(int(max_len), 1)
+    rows = np.asarray(rows)
+    if counts is None:
+        counts = np.bincount(rows, minlength=n_rows)
+    counts = np.asarray(counts, dtype=np.int64)
+    groups, n_virtual, n_vpad = split_layout(counts, L, pad_rows_to)
+    gstarts, row_ids, vcounts, real_counts = _split_meta(
+        counts, groups, n_rows, L, n_virtual, n_vpad, pad_rows_to)
+    idx, val = _pack_flat(rows, cols, vals, gstarts[:n_rows] * L, counts,
+                          n_rows, n_vpad * L, dev)
+    return SplitHistories(
+        indices=idx.reshape(n_vpad, L), values=val.reshape(n_vpad, L),
+        counts=torch.from_numpy(vcounts).to(dev),
+        row_ids=torch.from_numpy(row_ids).to(dev),
+        real_counts=torch.from_numpy(real_counts).to(dev), n_rows=n_rows)

@@ -30,6 +30,7 @@ import logging
 import threading
 from typing import Any, Dict, Optional
 
+from ..concurrency import new_lock
 from .policy import ArmWindow, Decision, HealthPolicy, window_quantile
 from .registry import ReleaseRegistry
 from .splitter import ARM_CANDIDATE, ARM_STABLE, TrafficSplitter
@@ -55,7 +56,7 @@ class RolloutController:
                           else (1.0 if shadow else self.policy.ramp[0]))
         self.splitter = TrafficSplitter(start_fraction, shadow=shadow)
         self._stop = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = new_lock("RolloutController._lock")
         self.active = True
         self.outcome = ""      # "" while live; "promoted" | "rolled_back"
         self.windows = 0

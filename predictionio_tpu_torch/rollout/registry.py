@@ -20,11 +20,11 @@ from __future__ import annotations
 
 import hashlib
 import json
-import threading
 from dataclasses import asdict, dataclass, field
 from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..concurrency import new_rlock
 from ..data.storage.base import (
     RESERVED_MODEL_KEY_PREFIX as RESERVED_PREFIX,
     STATUS_COMPLETED,
@@ -95,7 +95,7 @@ class ReleaseRegistry:
         self.engine_variant = engine_variant
         # held across load + mutate + save: the read-modify-write
         # boundary of the blob (admin-plane calls, never the query path)
-        self._lock = threading.RLock()
+        self._lock = new_rlock("ReleaseRegistry._lock")
 
     # -- persistence --------------------------------------------------------
     @property

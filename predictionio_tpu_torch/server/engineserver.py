@@ -106,9 +106,20 @@ see every served result. ``ServerConfig.debug_numerics`` (or
 scores and the fold-in solve. With ``ServerConfig.accesskey`` the
 control routes need ``?accessKey=``.
 
+Failure drills: ``ServerConfig.faults`` (``deploy --faults``) arms a
+``PTPU_FAULTS`` spec at start; every dispatch route (the per-query
+path, the serial drainers' batch and the staged pipeline's dispatch
+stage) fires the ``serving.dispatch`` point inside the batch's traces,
+so an injected delay lands in the traces it slows and they are kept
+(reason ``fault``). ``pio_fault_injections_total`` and
+``pio_fault_enabled`` are on ``/metrics``, ``faultInjection`` in
+``/status.json``'s degraded block. ``ServerConfig.debug_locks`` (``deploy
+--debug-locks``, ``PTPU_DEBUG_LOCKS=1``) builds the serving stack's locks
+as ``concurrency.DebugLock``s and adds the ``pio_lock_*`` families.
+
 Left out (``ROADMAP.md`` queue 1): replicated lanes and the ``pio_lane_*``,
 ``pio_serving_lanes`` and ``pio_serving_degraded`` families (item 13);
-the SLO engine (item 14); the fault families (item 11); feedback events
+the SLO engine (item 14); feedback events
 and ``log_url``. ``transfer_guard``, the XLA recompile sentinel
 (``pio_compiles_since_warm``, the per-executable compile table of
 ``/profile.json``) and ``pio_sharding_findings`` are XLA mechanisms with
@@ -128,6 +139,12 @@ from dataclasses import dataclass
 from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional
 
+from ..concurrency import (
+    instrument_locks,
+    locks_instrumented,
+    new_lock,
+    register_lock_metrics,
+)
 from ..controller.context import Context
 from ..controller.engine import Engine
 from ..controller.params import EngineParams
@@ -146,10 +163,14 @@ from ..obs import (
     OverlapTracker,
     SpaceSaving,
     Tracer,
+    activate_traces,
     add_stage_spans,
     mount_hot_key_metrics,
 )
-from ..obs import hbm_stats, numerics
+from ..faults import declare, fire
+from ..faults import inject_spec as arm_faults
+from ..faults import registry as fault_registry
+from ..obs import hbm_stats, mark_active_traces, numerics
 from ..ops import _build
 from ..ops import fused_topk as _fused_topk
 from ..rollout.registry import ReleaseRegistry
@@ -176,6 +197,9 @@ from .http import (
 from .plugins import EngineServerPlugins, resolve_plugin
 
 log = logging.getLogger(__name__)
+
+F_DISPATCH = declare("serving.dispatch",
+                     "one batched device dispatch (any serving mode)")
 
 #: the batch-path architectures (``ServerConfig.serving_pipeline``)
 PIPELINE_MODES = ("staged", "serial")
@@ -286,6 +310,15 @@ class ServerConfig:
     hot_entities: int = 512
     #: serves between re-ranks and re-pins of the hot tier
     hot_refresh_every: int = 256
+    #: a ``PTPU_FAULTS``-grammar spec armed in the process's fault
+    #: registry when the server is built (``deploy --faults``), for
+    #: failure drills; None arms nothing (the variable still works)
+    faults: Optional[str] = None
+    #: build the serving stack's locks as ``DebugLock``s (``deploy
+    #: --debug-locks``; ``PTPU_DEBUG_LOCKS=1`` does the same): live
+    #: lock-order-inversion and re-entry detection, the ``pio_lock_*``
+    #: families and the deadlock watchdog. Off: the stdlib locks
+    debug_locks: bool = False
 
 
 @dataclass
@@ -331,11 +364,18 @@ class QueryServer:
         self.device = resolve_device(self.config.device)
         self.card = card_info(self.device)
         self.plugins = EngineServerPlugins()
+        if self.config.faults:
+            # armed before anything that might be their target exists
+            arm_faults(self.config.faults)
+        if self.config.debug_locks and not locks_instrumented():
+            # before any serving-stack lock exists, so the cache, rollout
+            # and batcher locks built below all feed one order graph
+            instrument_locks(True)
         if self.config.debug_numerics or numerics.debug_env():
             # arm the NaN/Inf sentinels BEFORE the bind, so the warm-up
             # is covered too
             numerics.enable()
-        self._lock = threading.Lock()
+        self._lock = new_lock("QueryServer._lock")
         self.request_count = 0
         self.start_time = datetime.now(timezone.utc)
         # mean and last serving wall time a query (under _lock)
@@ -424,6 +464,20 @@ class QueryServer:
         if numerics.active():
             self._numerics_listener = self._on_numerics
             numerics.add_listener(self._on_numerics)
+        # fault injections delivered anywhere in the process, by point
+        # and mode, each flagged onto the traces its thread works on, so
+        # a fault-injected request is retained by the flight recorder
+        self._fault_injections = self.metrics.counter(
+            "pio_fault_injections_total",
+            "Fault-registry injections delivered, by point and mode "
+            "(drills only; 0 in production)")
+        fault_registry().add_listener(self._on_fault)
+        self.metrics.gauge(
+            "pio_fault_enabled",
+            "1 while any fault-injection spec is armed in this process",
+            fn=lambda: 1.0 if fault_registry().enabled() else 0.0)
+        if locks_instrumented():
+            register_lock_metrics(self.metrics)
         # concurrent supplements and blocking predictions; shut down in
         # close() (its threads start on first use)
         self._pool = make_pool()
@@ -478,7 +532,7 @@ class QueryServer:
         # shut down in close())
         self._mirror_pool: Optional[ThreadPoolExecutor] = None
         # one canary start at a time (check-then-bind)
-        self._release_lock = threading.Lock()
+        self._release_lock = new_lock("QueryServer._release_lock")
         # the serving caches: built before the first bind, which flushes
         # them and hands the feature tier to the algorithms
         self.cache = self._make_cache()
@@ -625,13 +679,17 @@ class QueryServer:
 
     def _dispatch_predictions(self, algorithms: List[Any],
                               models: List[Any], binding_id: str,
-                              supplemented: Any) -> List[Any]:
+                              supplemented: Any, trace=None) -> List[Any]:
         """The per-query path's predictions: a user the hot tier pinned
         under ``binding_id`` is ranked from the pinned table
         (``predict_pinned``), every other query by each algorithm's
         ``predict``. A handle pinned under another binding (a pin that
         raced a rebind) is counted and served through the full table; a
-        pinned serve that raises fails the query like any serve."""
+        pinned serve that raises fails the query like any serve. The
+        ``serving.dispatch`` fault point fires first, flagging
+        ``trace``."""
+        with activate_traces([trace]):
+            fire(F_DISPATCH)
         cache = self.cache
         if (cache is not None and cache.hot is not None
                 and len(algorithms) == 1):
@@ -681,6 +739,10 @@ class QueryServer:
                 fam.labels(mode="fused",
                            quant=serving_quant_of(model)).set(1.0)
                 return
+
+    def _on_fault(self, point: str, mode: str) -> None:
+        self._fault_injections.labels(point=point, mode=mode).inc()
+        mark_active_traces("fault", faultPoint=point, faultMode=mode)
 
     def _on_numerics(self, entry: str, bad: bool) -> None:
         self._numerics_checks.labels(entry=entry).inc()
@@ -867,7 +929,7 @@ class QueryServer:
             t2 = time.monotonic()
             phases["supplement"] = t2 - t1
             predictions = self._dispatch_predictions(
-                algorithms, models, binding_id, supplemented)
+                algorithms, models, binding_id, supplemented, trace)
             t3 = time.monotonic()
             phases["dispatch"] = t3 - t2
             prediction = serving.serve(query, predictions)
@@ -933,6 +995,8 @@ class QueryServer:
             if self.overlap.enter(DEVICE_TRACK) > 0:
                 self._pipeline_overlapped.inc()
             try:
+                with activate_traces(traces):
+                    fire(F_DISPATCH)
                 served = predict_serve_batch(algorithms, models, serving,
                                              parsed, timings=phases,
                                              pool=self._pool)
@@ -1256,10 +1320,12 @@ class QueryServer:
 
     def degraded_status(self) -> dict:
         """The ``degraded`` block of ``/status.json``: ``nonfinite`` once
-        a NaN/Inf sentinel saw a nonfinite value. (The JAX package's
-        lane keys are queue 1 item 13's, its fault flag item 11's.)"""
+        a NaN/Inf sentinel saw a nonfinite value, ``faultInjection``
+        while a fault spec is armed in the process. (The JAX package's
+        lane keys are queue 1 item 13's.)"""
         nonfinite = numerics.active() and numerics.nonfinite_seen()
-        return {"active": nonfinite, "nonfinite": nonfinite}
+        return {"active": nonfinite, "nonfinite": nonfinite,
+                "faultInjection": fault_registry().enabled()}
 
     def phase_table(self) -> dict:
         """Percentile summaries of the phase, latency, occupancy and
@@ -1326,6 +1392,7 @@ class QueryServer:
         if self._numerics_listener is not None:
             numerics.remove_listener(self._numerics_listener)
             self._numerics_listener = None
+        fault_registry().remove_listener(self._on_fault)
 
     # -- streaming fold-in ---------------------------------------------------
     @property
@@ -2159,6 +2226,9 @@ class StagedPipeline:
                 # the dispatch half: nothing here may wait on the card;
                 # the traces' spans are laid out at readback from these
                 # host times
+                with activate_traces([server._trace_of(e.obs)
+                                      for e in ab.entries]):
+                    fire(F_DISPATCH)
                 resolvers = (dispatch_batch(ab.algorithms, ab.models,
                                             ab.supplemented,
                                             timings=ab.phases,

@@ -31,6 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
+from ..concurrency import new_lock
 from ..data.storage.base import StorageError
 
 __all__ = ["Request", "Response", "HTTPError", "HTTPApp", "AppServer",
@@ -156,7 +157,7 @@ class SessionAuth:
         #: token -> monotonic expiry, insertion-ordered so overflow
         #: evicts the oldest session only
         self._tokens: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        self._lock = new_lock("SessionAuth._lock")
 
     def _cookie_token(self, req: Request) -> Optional[str]:
         for part in (req.headers.get("Cookie") or "").split(";"):

@@ -10,10 +10,10 @@ which counts XLA compiles.
 
 from __future__ import annotations
 
-import threading
 from datetime import datetime, timezone
 from typing import Dict, Optional, Tuple
 
+from ..concurrency import new_lock
 from ..data.event import Event, isoformat_millis
 
 EteKey = Tuple[str, Optional[str], str]  # (entityType, targetEntityType, event)
@@ -63,7 +63,7 @@ class StatsCollector:
     """Thread-safe hourly-rolling pair of windows (``StatsActor`` role)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = new_lock("StatsCollector._lock")
         now = datetime.now(timezone.utc)
         self._current = Stats(_hour_floor(now))
         self._previous: Optional[Stats] = None

@@ -1,0 +1,3 @@
+"""Host-side utilities."""
+
+from .jsonutil import from_jsonable, to_jsonable  # noqa: F401

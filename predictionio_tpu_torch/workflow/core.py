@@ -3,9 +3,11 @@
 
 :func:`run_train` inserts an INIT ``EngineInstance``, runs
 ``Engine.train`` on the context's device, stores the models in MODELDATA
-in the port's own format (``workflow/persistence.py``) and marks the
-instance COMPLETED. :func:`load_models_for_deploy` and
-:func:`get_latest_completed` are deploy's side of it.
+in the port's own format (``workflow/persistence.py``; a
+``PersistentModel`` saves itself and is stored as its manifest) and marks
+the instance COMPLETED. :func:`load_models_for_deploy` (which also reads
+a blob the JAX package wrote) and :func:`get_latest_completed` are
+deploy's side of it.
 :func:`run_evaluation` walks a params grid with the ``MetricEvaluator``
 and records an ``EvaluationInstance`` INIT -> EVALCOMPLETED with the
 one-liner, HTML and JSON results.
@@ -81,8 +83,11 @@ def run_train(ctx: Context, engine: Engine, engine_params: EngineParams,
         return instance_id
 
     t0 = time.monotonic()
+    stored = [algo.make_persistent_model(model, instance_id, i)
+              for i, (algo, model) in enumerate(
+                  zip(engine.make_algorithms(engine_params), result.models))]
     ctx.storage.models().insert(
-        Model(id=instance_id, models=persistence.dumps_models(result.models)))
+        Model(id=instance_id, models=persistence.dumps_models(stored)))
     done = instances.get(instance_id)
     instances.update(done.copy(status=STATUS_COMPLETED, end_time=_now()))
     ctx.stage_timings["persist_s"] = round(time.monotonic() - t0, 2)
@@ -100,11 +105,12 @@ def load_models_for_deploy(ctx: Context, engine: Engine,
     if blob is None:
         raise RuntimeError(f"no persisted models for instance {instance.id}")
     models = persistence.loads_models(blob.models)
-    n_algos = len(engine.make_algorithms(engine_params))
-    if len(models) != n_algos:
-        raise ValueError(f"{len(models)} stored models for {n_algos} "
+    algos = engine.make_algorithms(engine_params)
+    if len(models) != len(algos):
+        raise ValueError(f"{len(models)} stored models for {len(algos)} "
                          f"algorithms")
-    return models
+    return [algo.load_persistent_model(ctx, stored)
+            for algo, stored in zip(algos, models)]
 
 
 def run_evaluation(ctx: Context, evaluation: Evaluation,

@@ -283,26 +283,73 @@ def test_deploy_needs_a_completed_instance(store, tmp_path):
         cli.build_deploy(args, store)
 
 
-def test_a_jax_written_model_blob_is_refused(store, tmp_path):
-    """The MODELDATA blob is each package's own format; the JAX
-    package's pickle never reaches ``pickle.loads`` in the port."""
+class _WritesAMarker:
+    def __init__(self, path):
+        self.path = path
+
+    def __reduce__(self):
+        return (open, (self.path, "w"))
+
+
+def _jax_instance(store, tmp_path, blob):
+    from predictionio_tpu_torch.data.event import utcnow
     from predictionio_tpu_torch.data.storage.base import (
         EngineInstance,
         Model,
     )
-    from predictionio_tpu_torch.data.event import utcnow
 
     store.engine_instances().insert(EngineInstance(
         id="j1", status=STATUS_COMPLETED, start_time=utcnow(),
         end_time=utcnow(), engine_id="recommendation", engine_version="1",
         engine_variant=write_variant(tmp_path), engine_factory=JAX_FACTORY))
-    store.models().insert(Model("j1", pickle.dumps([{"U": np.zeros(3)}],
-                                                   protocol=4)))
-    args = cli._parser().parse_args([
+    store.models().insert(Model("j1", blob))
+    return cli._parser().parse_args([
         "deploy", "--engine-json", str(tmp_path / "engine.json"),
-        "--device", "cpu", "--port", "0"])
-    with pytest.raises(ValueError):
+        "--device", "cpu", "--port", "0", "--ip", "127.0.0.1"])
+
+
+def test_a_jax_written_model_blob_is_refused(store, tmp_path):
+    """A blob in the JAX package's pickle format that names a global
+    outside its model classes is refused before anything of it runs:
+    the reduce that would create the marker file never runs."""
+    marker = tmp_path / "marker"
+    args = _jax_instance(store, tmp_path, pickle.dumps(
+        [_WritesAMarker(str(marker))], protocol=4))
+    with pytest.raises(ValueError, match="refused"):
         cli.build_deploy(args, store)
+    assert not marker.exists()
+
+
+def test_a_jax_written_model_blob_deploys(store, tmp_path):
+    """The MODELDATA blob the JAX package writes (a pickle of its host
+    ALSModel) deploys through the port's CLI, and answers as the
+    JAX package's model does."""
+    import predictionio_tpu.workflow.persistence as jpersistence
+
+    rng = np.random.default_rng(5)
+    U = rng.standard_normal((N_USERS, RANK)).astype(np.float32)
+    V = rng.standard_normal((N_ITEMS, RANK)).astype(np.float32)
+    from predictionio_tpu.data.bimap import BiMap as JBiMap
+
+    jmodel = jals.ALSModel(
+        U, V, N_USERS, N_ITEMS,
+        JBiMap({f"u{i}": i for i in range(N_USERS)}),
+        JBiMap({f"i{i}": i for i in range(N_ITEMS)}),
+        params=jals.ALSParams(rank=RANK))
+    args = _jax_instance(store, tmp_path,
+                         jpersistence.dumps_models([jmodel]))
+    srv = cli.build_deploy(args, store).start_background()
+    try:
+        query = {"user": "u3", "num": 5, "blackList": ["i2"]}
+        code, body = call(srv.port, "POST", "/queries.json", query)
+        assert code == 200
+        (model,) = srv.query_server.models
+        assert [s["item"] for s in body["itemScores"]] == [
+            item for item, _ in plain_answer(model, query)]
+        assert call(srv.port, "GET", "/status.json")[1][
+            "engineInstanceId"] == "j1"
+    finally:
+        srv.close()
 
 
 def test_a_factory_the_port_lacks_raises_the_jax_cli_error(tmp_path, store):

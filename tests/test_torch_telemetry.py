@@ -82,8 +82,6 @@ LEFT_OUT = {
     "pio_lane_failures_total": "item 13",
     "pio_serving_lanes": "item 13",
     "pio_serving_degraded": "item 13",
-    "pio_fault_injections_total": "item 11 (fault points past stream.pass)",
-    "pio_fault_enabled": "item 11",
     "pio_compiles_since_warm": "decided not to port: XLA sentinels",
     "pio_xla_compiles_total": "decided not to port: XLA sentinels",
     "pio_transfer_guard_violations_total":
