@@ -3,8 +3,10 @@
 lifecycle, the pod storage layout, batch-predict, evaluation, streaming
 fold-in, e-commerce, similar-product, sequential and classification
 template paths, the release lifecycle, the console, the telemetry, the
-serving caches, checkpoint resume, the split layout and the deploy of a
-JAX-written model blob once on the CUDA card and check them.
+serving caches, checkpoint resume, the split layout, the deploy of a
+JAX-written model blob and a fleet of replicas behind the query router,
+the fleet aggregator and the autoscaler once on the CUDA card and check
+them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -456,7 +458,7 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             iteration's median ms, a profiled iteration's split into
             ``fused_gram``, ``chol_solve``, other kernels and device idle,
             and the launches.
-16. jaxblob — runs last, in phase 8's ``PIO_HOME``: phase 6's trained
+16. jaxblob — runs after phase 14, in phase 8's ``PIO_HOME``: phase 6's trained
             factors and the surrogate's id maps as a blob in the JAX
             package's layout (``pickle`` protocol 4 of an ``ALSModel``,
             written by :class:`JaxLayoutPickler` from stand-in classes,
@@ -470,6 +472,51 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             times, ``servingWarm`` and the first answer. A blob naming
             ``builtins.open`` (its reduce would create a marker file) is
             refused and the marker never exists.
+17. fleet — runs last, on phase 16's store and model. (a) ``python -m
+            predictionio_tpu_torch.cli deploy --fleet-of 3 --autoscale
+            --min-replicas 2 --max-replicas 4 --slo-specs
+            slo/specs/ci.json --batching`` in a process of its own, with
+            ``PTPU_FAULTS="router.forward=error,times=1"`` and no
+            capacity model (the knee must read absent: no capacity floor
+            measured elsewhere applies to the card); once ``/fleet.json``
+            shows 3 warm replicas, ``cli fleet scale --to 4``: the new
+            replica joins the ring warm, its ladder having launched
+            ``fused_topk`` (``warmReport``), before it served anything
+            (at the autoscaler's ceiling the ring then holds still
+            through the bursts: the spec file's 150 ms latency spec can
+            burn under them, and below the ceiling the autoscaler adds a
+            replica in the middle of one). Then a burst of 2,048
+            queries on 32 connections through the router with users
+            uniform over the 138,493, then one with users Zipf(1.5).
+            Every answer is held
+            to the float64 top-10 of the model's factors. For each burst
+            (the ring unchanged through it): each replica's served count
+            (``/status.json`` through ``/fleet.json``) equals the answers
+            naming it (``X-Routed-To``) and the users ``HashRing.assign``
+            gives it less those placed elsewhere plus those placed on it,
+            every off-ring placement being the retried query (the next
+            replica in ring order) or a hot key inside its spill set, the
+            router's spill count at least those; the merged query-latency
+            count and 5xx equal the sum of the replicas' own
+            ``/metrics.json``; ``pio_router_retries_total`` is exactly 1
+            (the injected fault), each replica's
+            ``pio_fault_injections_total`` counted it, and no 5xx; the
+            ``fused_topk`` counter on ``/status.json`` grew. The same
+            uniform burst to one replica alone. ``cli fleet scale --to 2``
+            during a burst: two replicas drain and stop, every answer
+            correct, no error. ``POST /stop`` to the aggregator: exit 0.
+            (b) In process, ``cli.build_fleet_deploy`` of 2 replicas with
+            the autoscaler and the spec file's 150 ms latency spec under
+            steady traffic: a 400 ms ``serving.dispatch`` latency lights
+            the fleet's fast burn, the autoscaler scales out to 3 (the
+            decision logged and its trace kept under reason
+            ``autoscale``); the fault cleared, the burn goes out. Prints
+            each burst's qps, p50 and p99 (through the router against one
+            replica alone), the scale-out and drain times, the merge's
+            scrape ms, the times from injection to breach to a ready third
+            replica, and, last, the SLO engine's cost: the uniform burst
+            on one engine server with its default 1 s tick and with
+            ``slo_interval_ms=0``, in turns.
 
 Phase 4b arms ``serving.dispatch=latency,delay_ms=400,times=1`` for its
 first burst (as ``benchmarks/trace_smoke.py`` does), so the delayed
@@ -487,7 +534,8 @@ the stream path, in the implicit iteration, in the templates phase, in
 phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
 in phase 4b's counted bursts, in phase 4c's counted part and in phase
 8a's REMOTE training and deploy, phase 15's resumed and split
-trainings and phase 16's deploy) and, last, ``{"ok": true, "device":
+trainings, phase 16's deploy and phase 17's fleet process and
+autoscaled fleet) and, last, ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -873,14 +921,14 @@ DIAG_SWITCH_INTERVAL_S = 0.0005
 
 
 def burst_clients(port: int, queries: list, n_clients: int,
-                  traceparents=None) -> tuple:
+                  traceparents=None, keep=()) -> tuple:
     """The burst's load generator, run in a process of its own (standard
     library only, so it shares no interpreter lock with the server):
     ``n_clients`` connections, each posting its share of ``queries`` one
     after another, query ``j`` with the ``traceparent`` header
     ``traceparents[j]`` where that is given and not None. Returns
-    ``(wall_s, [(status, body, seconds, response traceparent), ...] in
-    query order, [errors])``."""
+    ``(wall_s, [(status, body, seconds, response traceparent, *the
+    response headers named in keep), ...] in query order, [errors])``."""
     import http.client
 
     results = [None] * len(queries)
@@ -901,7 +949,8 @@ def burst_clients(port: int, queries: list, n_clients: int,
                 resp = c.getresponse()
                 body = resp.read().decode()
                 results[j] = (resp.status, body, time.perf_counter() - t0,
-                              resp.getheader("traceparent"))
+                              resp.getheader("traceparent"),
+                              *[resp.getheader(h) for h in keep])
         except Exception as e:  # noqa: BLE001 — reported to the parent
             errors.append(f"client {w}: {e!r}")
         finally:
@@ -928,18 +977,25 @@ json.dump(burst_clients(**json.load(sys.stdin)), sys.stdout)
 """
 
 
-def run_burst(port: int, queries: list, traceparents=None) -> tuple:
-    """The burst from another process, waited for whatever happens;
-    ``(wall_s, [(answer, seconds)])``, and with ``traceparents`` (one
-    header or None a query) also each answer's ``traceparent``."""
+def start_burst(port: int, queries: list, traceparents=None,
+                keep=()) -> subprocess.Popen:
+    """``burst_clients`` in a process of its own, not waited for."""
     src = BURST_MAIN.format(source=inspect.getsource(burst_clients))
-    proc = subprocess.Popen([sys.executable, "-c", src],
-                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-    args = dict(port=port, queries=queries, n_clients=BURST_CLIENTS,
-                traceparents=traceparents)
+    with tempfile.TemporaryFile("w+") as args:
+        json.dump(dict(port=port, queries=queries, n_clients=BURST_CLIENTS,
+                       traceparents=traceparents, keep=keep), args)
+        args.seek(0)
+        return subprocess.Popen([sys.executable, "-c", src], stdin=args,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+
+def finish_burst(proc: subprocess.Popen, tag: str = "burst") -> tuple:
+    """Wait for a burst started by :func:`start_burst`, whatever happens:
+    ``(wall_s, [(answer, seconds, traceparent, *kept headers)])``; fails
+    on any client error or non-200 answer."""
     try:
-        out, err = proc.communicate(json.dumps(args), timeout=300)
+        out, err = proc.communicate(timeout=300)
     except subprocess.TimeoutExpired:
         out, err = None, "no answer in 300 s"
     finally:
@@ -947,17 +1003,26 @@ def run_burst(port: int, queries: list, traceparents=None) -> tuple:
             proc.kill()
             proc.communicate()
     check(out is not None and proc.returncode == 0,
-          f"the burst's client process failed (exit {proc.returncode}): "
-          f"{err[-500:]}")
+          f"{tag}: the client process failed (exit {proc.returncode}): "
+          f"{(err or '')[-500:]}")
     wall, results, errors = json.loads(out)
-    check(not errors, f"burst clients failed: {errors[:3]}")
-    check(all(r is not None for r in results), "a burst query got no answer")
+    check(not errors, f"{tag}: clients failed: {errors[:3]}")
+    check(all(r is not None for r in results), f"{tag}: a query got no "
+          f"answer")
     bad = [r[:2] for r in results if r[0] != 200]
-    check(not bad, f"{len(bad)} burst queries failed: {bad[:3]}")
-    answers = [(json.loads(r[1]), r[2]) for r in results]
+    check(not bad, f"{tag}: {len(bad)} queries failed: {bad[:3]}")
+    return wall, [(json.loads(r[1]), r[2], *r[3:]) for r in results]
+
+
+def run_burst(port: int, queries: list, traceparents=None) -> tuple:
+    """The burst from another process, waited for whatever happens;
+    ``(wall_s, [(answer, seconds)])``, and with ``traceparents`` (one
+    header or None a query) also each answer's ``traceparent``."""
+    wall, res = finish_burst(start_burst(port, queries, traceparents))
+    answers = [(r[0], r[1]) for r in res]
     if traceparents is None:
         return wall, answers
-    return wall, answers, [r[3] for r in results]
+    return wall, answers, [r[2] for r in res]
 
 
 def check_burst(queries, answers, ud, us, vd, vs, U64, V64, dev) -> None:
@@ -7111,6 +7176,587 @@ def phase_jaxblob(uv, dev, home: str, card: dict) -> dict:
     return {"fused_topk": launches}
 
 
+ROOT = Path(__file__).resolve().parent
+#: phase fleet: the fresh process's replicas, the autoscaler's bounds, the
+#: one-shot router fault, the spec file (its 150 ms latency spec), the
+#: in-process latency fault and the longest wait for a fleet state
+FLEET_REPLICAS, FLEET_MIN, FLEET_MAX = 3, 2, 4
+FLEET_FAULT = "router.forward=error,times=1"
+FLEET_SPECS = str(ROOT / "slo" / "specs" / "ci.json")
+FLEET_BURN_DELAY_MS = 400.0
+FLEET_TIMEOUT_S = 300.0
+
+
+def fleet_f64_check(tag: str, queries, answers, U64, V64, dev) -> None:
+    """Every answer (num 10) against the float64 top-10 of its user over
+    the model's factors: each returned item's own float64 score is the
+    score returned beside it, and the ten are the top ten (scores within
+    1e-5 * (1 + |s|), so an id may differ only inside a near-tie)."""
+    check(all(len(a["itemScores"]) == 10 for a in answers),
+          f"{tag}: an answer has not 10 items")
+    for lo in range(0, len(queries), 512):
+        qs, ans = queries[lo:lo + 512], answers[lo:lo + 512]
+        users = torch.tensor([int(q["user"][1:]) for q in qs], device=dev)
+        scores = U64[users] @ V64.T
+        want = torch.topk(scores, 10, dim=1).values
+        got_i = torch.tensor([[int(s["item"][1:]) for s in a["itemScores"]]
+                              for a in ans], device=dev)
+        got_s = torch.tensor([[s["score"] for s in a["itemScores"]]
+                              for a in ans], dtype=torch.float64,
+                             device=dev)
+        own = scores.gather(1, got_i)
+        tol = RTOL["f32"] * (1 + want.abs())
+        check(bool(((own - got_s).abs() <= tol).all()),
+              f"{tag}: an item does not score what was returned")
+        check(bool(((own - want).abs() <= tol).all()),
+              f"{tag}: an answer is not its user's float64 top-10")
+        srt = torch.sort(got_i, dim=1).values
+        check(bool((srt[:, 1:] != srt[:, :-1]).all()),
+              f"{tag}: an item appears twice in one answer")
+
+
+def burst_stats(wall: float, results) -> tuple:
+    """``(qps, p50 ms, p99 ms)`` of a burst."""
+    lat = np.array([r[1] for r in results]) * 1000.0
+    return (len(results) / wall, float(np.percentile(lat, 50)),
+            float(np.percentile(lat, 99)))
+
+
+def _children(metrics: dict, family: str) -> list:
+    return (metrics.get(family) or {}).get("children") or []
+
+
+def queries_served(metrics: dict) -> tuple:
+    """``(/queries.json requests, of which 5xx, query-latency
+    observations)`` of a ``/metrics.json`` body."""
+    reqs = [c for c in _children(metrics, "pio_http_requests_total")
+            if c["labels"].get("route") == "/queries.json"]
+    total = sum(c["value"] for c in reqs)
+    failed = sum(c["value"] for c in reqs
+                 if int(c["labels"].get("status", "0")) >= 500)
+    observed = sum(c["count"] for c in
+                   _children(metrics, "pio_query_latency_seconds"))
+    return total, failed, observed
+
+
+def fleet_snapshot(agg: int) -> dict:
+    """One quiescent view of the fleet: a synchronous scrape, then
+    ``/fleet.json``, ``/route.json``, the merged ``/metrics.json``, and
+    each serving replica's own ``/metrics.json`` and ``/status.json``."""
+    t0 = time.perf_counter()
+    _http(agg, "POST", "/scrape")
+    scrape_ms = (time.perf_counter() - t0) * 1000.0
+    fleet = _http(agg, "GET", "/fleet.json")[1]
+    route = _http(agg, "GET", "/route.json")[1]
+    merged = _http(agg, "GET", "/metrics.json")[1]
+    own = {}
+    for r in fleet["replicas"]:
+        port = int(r["url"].rsplit(":", 1)[1])
+        own[r["replica"]] = (_http(port, "GET", "/metrics.json")[1],
+                             _http(port, "GET", "/status.json")[1])
+    counter = {}
+    for fam in ("pio_router_retries_total", "pio_router_spill_total",
+                "pio_router_requests_total"):
+        for c in _children(merged, fam):
+            key = (fam, c["labels"].get("replica"),
+                   c["labels"].get("outcome"))
+            counter[key] = counter.get(key, 0.0) + c["value"]
+    return dict(fleet=fleet, route=route, merged=merged, own=own,
+                counter=counter, scrape_ms=scrape_ms,
+                members=sorted(b["replica"] for b in route["replicas"]
+                               if b["state"] == "ready"),
+                count={r["replica"]: r["requestCount"]
+                       for r in fleet["replicas"]},
+                launches=max(st["kernels"]["fused_topk"]["launches"]
+                             for _, st in own.values()))
+
+
+def counter_sum(snap: dict, fam: str, outcome=None) -> float:
+    return sum(v for (f, _, o), v in snap["counter"].items()
+               if f == fam and (outcome is None or o == outcome))
+
+
+def fleet_routed_burst(tag, agg, router, queries, U64, V64, dev,
+                       card) -> dict:
+    """One burst through the router with the membership held still:
+    every answer held to float64; each replica's count (its
+    ``/status.json`` through ``/fleet.json``) equal to the answers routed
+    to it, and to the users ``HashRing.assign`` gives it less the ones
+    placed elsewhere (spilled hot keys, the retried query) plus the ones
+    placed on it; the merged query counters equal the sum over the
+    replicas' own; no 5xx; the fused_topk counter grew."""
+    from predictionio_tpu_torch.router import HashRing, RouterConfig
+
+    fanout = RouterConfig().spill_fanout  # what deploy --fleet-of runs
+    before = fleet_snapshot(agg)
+    wall, res = finish_burst(start_burst(
+        router, queries, keep=("X-Routed-To", "X-Routed-Retry")), tag)
+    after = fleet_snapshot(agg)
+    check(before["members"] == after["members"],
+          f"{tag}: the ring changed during the burst "
+          f"({before['members']} -> {after['members']}; decisions "
+          f"{after['fleet']['autoscale'].get('decisions')})")
+    fleet_f64_check(tag, queries, [r[0] for r in res], U64, V64, dev)
+    ring = HashRing(before["members"])
+    routed = [r[3] for r in res]
+    retried = [r[4] is not None for r in res]
+    users = [q["user"] for q in queries]
+    assigned = {m: 0 for m in ring.members()}
+    moved_in = {m: 0 for m in ring.members()}
+    moved_out = {m: 0 for m in ring.members()}
+    spilled = 0
+    for user, to, retry in zip(users, routed, retried):
+        home = ring.assign(user)
+        assigned[home] += 1
+        if to != home:
+            moved_out[home] += 1
+            moved_in[to] += 1
+            if retry:
+                check(to == ring.preference(user, 2)[1],
+                      f"{tag}: user {user} retried off the ring order")
+            else:
+                spilled += 1
+                check(to in ring.preference(user, fanout),
+                      f"{tag}: user {user} placed on {to}, outside its "
+                      f"spill set")
+    spill_d = (counter_sum(after, "pio_router_spill_total")
+               - counter_sum(before, "pio_router_spill_total"))
+    retries_d = (counter_sum(after, "pio_router_retries_total")
+                 - counter_sum(before, "pio_router_retries_total"))
+    check(spilled <= spill_d, f"{tag}: {spilled} queries off their "
+          f"replica but the router counted {spill_d} spills")
+    check(retries_d == sum(retried), f"{tag}: {sum(retried)} answers "
+          f"say retried, the router counted {retries_d} retries")
+    for m in ring.members():
+        got = after["count"][m] - before["count"][m]
+        check(got == routed.count(m) == assigned[m] - moved_out[m]
+              + moved_in[m], f"{tag}: replica {m} served {got}, "
+              f"{routed.count(m)} answers name it, the ring gives it "
+              f"{assigned[m]} -{moved_out[m]} +{moved_in[m]}")
+    merged = [a - b for a, b in zip(queries_served(after["merged"]),
+                                    queries_served(before["merged"]))]
+    own = [sum(queries_served(after["own"][m][0])[i]
+               - queries_served(before["own"][m][0])[i]
+               for m in ring.members()) for i in range(3)]
+    # the router's own HTTP series share the aggregator's registry and
+    # the merged series' names: each routed query is counted once by its
+    # replica and once by the router in pio_http_requests_total
+    check(own == [len(queries), 0, len(queries)]
+          and merged == [2 * len(queries), 0, len(queries)],
+          f"{tag}: merged (requests, 5xx, latency count) {merged}, the "
+          f"replicas' own sum {own}, {len(queries)} queries")
+    launches = after["launches"] - before["launches"]
+    check(launches > 0, f"{tag}: fused_topk launched no time")
+    qps, p50, p99 = burst_stats(wall, res)
+    print(f"phase fleet {tag}: {len(queries)} queries on {BURST_CLIENTS} "
+          f"connections through the router to {len(ring)} replicas: "
+          f"qps={qps:.1f} p50_ms={p50:.3f} p99_ms={p99:.3f} | per replica "
+          f"(served / ring-assigned): "
+          + ", ".join(f"{m}={after['count'][m] - before['count'][m]}/"
+                      f"{assigned[m]}" for m in ring.members())
+          + f" | spilled={spilled} (router spill count {spill_d:.0f}) "
+          f"retries={retries_d:.0f} | merged latency count="
+          f"{merged[2]:.0f} and 5xx={merged[1]:.0f} = the replicas' sum, "
+          f"merged requests={merged[0]:.0f} = the replicas' "
+          f"{own[0]:.0f} + the router's own | fused_topk launches="
+          f"{launches} | all answers "
+          f"held to float64 | scrape_ms={after['scrape_ms']:.3f} | "
+          f"{card_tag(card)}", flush=True)
+    return dict(qps=qps, p50=p50, p99=p99, launches=launches, after=after)
+
+
+def fleet_cli(args: list, env: dict) -> str:
+    """One ``python -m predictionio_tpu_torch.cli`` command; its stdout."""
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cli {' '.join(args)} exit "
+          f"{out.returncode}: {out.stderr[-500:]}")
+    return out.stdout
+
+
+def wait_until(cond, what: str, timeout: float = FLEET_TIMEOUT_S,
+               every: float = 0.05):
+    """Poll ``cond`` until it returns something true; fails after
+    ``timeout`` seconds naming ``what``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(every)
+
+
+def fleet_process_phase(U64, V64, dev, home: str, engine_json: Path,
+                        card: dict) -> dict:
+    """(a): ``cli deploy --fleet-of 3 --autoscale`` in a fresh process,
+    as a user runs it, with a one-shot router fault armed. ``fleet scale
+    --to 4`` comes before the bursts: at the autoscaler's ceiling the
+    ring holds still through them (on a 32-connection burst the spec
+    file's 150 ms latency spec can burn, and below the ceiling the
+    autoscaler would add a replica in the middle of a burst)."""
+    work = Path(home) / "fleet"
+    work.mkdir(exist_ok=True)
+    env = dict(os.environ, PIO_HOME=home, PTPU_FAULTS=FLEET_FAULT)
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    out_log, err_log = work / "deploy.out", work / "deploy.err"
+    rng = np.random.default_rng(29)
+    uniform = [{"user": f"u{u}", "num": 10}
+               for u in rng.integers(0, N_USERS, BURST_QUERIES)]
+    zipf = [{"user": f"u{u}", "num": 10}
+            for u in (rng.zipf(CACHE_ZIPF, BURST_QUERIES) - 1) % N_USERS]
+    drain_q = [{"user": f"u{u}", "num": 10}
+               for u in rng.integers(0, N_USERS, BURST_QUERIES)]
+    t0 = time.perf_counter()
+    with open(out_log, "w") as out, open(err_log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.cli", "deploy",
+             "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+             "--port", "0", "--fleet-of", str(FLEET_REPLICAS),
+             "--fleet-port", "0", "--router-port", "0", "--batching",
+             "--autoscale", "--min-replicas", str(FLEET_MIN),
+             "--max-replicas", str(FLEET_MAX), "--slo-specs", FLEET_SPECS,
+             *device],
+            cwd=ROOT, env=env, stdout=out, stderr=err)
+    try:
+        def ports():
+            check(proc.poll() is None, f"the fleet deploy exited "
+                  f"{proc.returncode}: {err_log.read_text()[-1500:]}")
+            found = dict(re.findall(r"(Query router|Fleet aggregator) "
+                                    r"live at http://127\.0\.0\.1:(\d+)",
+                                    out_log.read_text()))
+            return found if len(found) == 2 else None
+
+        found = wait_until(ports, "the fleet's router and aggregator")
+        router = int(found["Query router"])
+        agg = int(found["Fleet aggregator"])
+
+        def warm():
+            _http(agg, "POST", "/scrape")
+            fj = _http(agg, "GET", "/fleet.json")[1]
+            return fj if fj["replicasUp"] == FLEET_REPLICAS and all(
+                r["servingWarm"] for r in fj["replicas"]) else None
+
+        fj = wait_until(warm, "3 warm replicas", every=0.2)
+        ready_s = time.perf_counter() - t0
+        check(fj["kneeQps"] is None and fj["capacityHeadroom"] == -1.0,
+              "the fleet found a capacity knee: none may apply on the card")
+        check("knee model ABSENT" in out_log.read_text(),
+              "the deploy did not report the knee model absent")
+
+        # scale out: the new replica warms (its ladder launches
+        # fused_topk) before it joins the ring and before its first query
+        before = fleet_snapshot(agg)
+        check(len(before["members"]) == FLEET_REPLICAS,
+              f"the ring before any traffic: {before['members']}")
+        t1 = time.perf_counter()
+        fleet_cli(["fleet", "scale", "--to", str(FLEET_MAX), "--port",
+                   str(agg), "--reason", "chip smoke scale-out"], env)
+
+        def joined():
+            route = _http(agg, "GET", "/route.json")[1]
+            names = [b["replica"] for b in route["replicas"]
+                     if b["state"] == "ready"]
+            return names if len(names) == FLEET_MAX else None
+
+        names = wait_until(joined, "the 4th replica in the ring")
+        scale_out_s = time.perf_counter() - t1
+        (new,) = set(names) - set(before["members"])
+        st = _http(int(new.rsplit(":", 1)[1]), "GET", "/status.json")[1]
+        ladder = st["warmReport"]["launches"]["fused_topk"]
+        grew = st["kernels"]["fused_topk"]["launches"] - before["launches"]
+        check(st["servingWarm"] and st["requestCount"] == 0,
+              f"the new replica joined unwarmed or already served "
+              f"({st['servingWarm']}, {st['requestCount']})")
+        check(0 < ladder <= grew, f"the new replica's warm-up launched "
+              f"fused_topk {ladder} times ({grew} in the process) before "
+              f"it joined the ring")
+        print(f"phase fleet scale-out: fleet scale --to {FLEET_MAX} put "
+              f"{new} in the ring in {scale_out_s:.3f}s; its warm-up "
+              f"(seconds {json.dumps(st['warmReport']['seconds'])}, "
+              f"artifactWarm={st['artifactWarm']}) launched fused_topk "
+              f"{ladder} times before it joined, and it had served 0 "
+              f"queries | {card_tag(card)}", flush=True)
+
+        rows = {}
+        rows["uniform"] = fleet_routed_burst(
+            "uniform burst", agg, router, uniform, U64, V64, dev, card)
+        first = rows["uniform"]["after"]
+        check(first["count"][new] > 0, "the new replica served nothing")
+        check(counter_sum(first, "pio_router_retries_total") == 1.0
+              and counter_sum(first, "pio_router_requests_total",
+                              "transport_error") == 1.0,
+              "the armed router.forward fault did not make exactly one "
+              "retry")
+        injected = sum(
+            c["value"] for c in _children(first["merged"],
+                                          "pio_fault_injections_total")
+            if c["labels"].get("point") == "router.forward")
+        check(injected == FLEET_REPLICAS + 1, f"the replicas' fault "
+              f"families counted {injected} router.forward injections, "
+              f"not one each")
+        rows["zipf"] = fleet_routed_burst(
+            f"zipf({CACHE_ZIPF}) burst", agg, router, zipf, U64, V64, dev,
+            card)
+        second = rows["zipf"]["after"]
+        check(counter_sum(second, "pio_router_spill_total") > 0,
+              "the Zipf burst spilled no hot key")
+        check(counter_sum(second, "pio_router_retries_total") == 1.0,
+              "a retry beyond the one fault: a replica failed")
+        # one replica alone, the same uniform burst without the router
+        alone = first["fleet"]["replicas"][0]
+        wall, res = finish_burst(start_burst(
+            int(alone["url"].rsplit(":", 1)[1]), uniform), "one replica")
+        fleet_f64_check("one replica", uniform, [r[0] for r in res], U64,
+                        V64, dev)
+        a_qps, a_p50, a_p99 = burst_stats(wall, res)
+        u = rows["uniform"]
+        print(f"phase fleet router vs one replica (uniform burst, "
+              f"{BURST_CLIENTS} connections): router to {FLEET_MAX} "
+              f"replicas qps={u['qps']:.1f} p50_ms={u['p50']:.3f} "
+              f"p99_ms={u['p99']:.3f} | replica {alone['replica']} alone "
+              f"qps={a_qps:.1f} p50_ms={a_p50:.3f} p99_ms={a_p99:.3f} | "
+              f"{card_tag(card)}", flush=True)
+
+        # scale in during a burst: the drained replicas finish what they
+        # hold; no query is lost or fails
+        before = fleet_snapshot(agg)
+        proc_b = start_burst(router, drain_q)
+        time.sleep(0.3)
+        t2 = time.perf_counter()
+        fleet_cli(["fleet", "scale", "--to", str(FLEET_MIN), "--port",
+                   str(agg), "--reason", "chip smoke scale-in"], env)
+
+        def drained():
+            fj = _http(agg, "GET", "/fleet.json")[1]
+            lc = fj["autoscale"]["lifecycle"]
+            return fj if lc["ready"] == FLEET_MIN and not lc["draining"] \
+                else None
+
+        fj = wait_until(drained, "the drain to 2 replicas")
+        drain_s = time.perf_counter() - t2
+        wall, res = finish_burst(proc_b, "burst during the drain")
+        fleet_f64_check("burst during the drain", drain_q,
+                        [r[0] for r in res], U64, V64, dev)
+        after = fleet_snapshot(agg)
+        # a replica leaves the scrape set when it stops, so what it served
+        # after its last scrape never reaches the merged series (as in the
+        # JAX package): the router's own count is the whole burst's
+        merged = [a - b for a, b in zip(queries_served(after["merged"]),
+                                        queries_served(before["merged"]))]
+        routed_ok = (counter_sum(after, "pio_router_requests_total", "ok")
+                     - counter_sum(before, "pio_router_requests_total",
+                                   "ok"))
+        check(routed_ok == len(drain_q) and merged[1] == 0,
+              f"the drain burst: the router answered {routed_ok} of "
+              f"{len(drain_q)}, merged 5xx {merged[1]}")
+        removed = fj["autoscale"]["removed"]
+        check(len(removed) == FLEET_MAX - FLEET_MIN,
+              f"removed {removed}, not {FLEET_MAX - FLEET_MIN} replicas")
+        d_qps, d_p50, d_p99 = burst_stats(wall, res)
+        decisions = [(d["action"], d["reason"])
+                     for d in fj["autoscale"]["decisions"]]
+        print(f"phase fleet drain: fleet scale --to {FLEET_MIN} during a "
+              f"burst of {len(drain_q)}: {len(removed)} replicas drained "
+              f"and stopped in {drain_s:.3f}s, 0 errors, every answer held "
+              f"to float64, the merged latency count grew by "
+              f"{merged[2]:.0f} of {len(drain_q)} (the departed replicas' "
+              f"last interval is never scraped) (burst qps={d_qps:.1f} "
+              f"p50_ms={d_p50:.3f} "
+              f"p99_ms={d_p99:.3f}) | decisions {decisions} | "
+              f"{card_tag(card)}", flush=True)
+        slo = _http(agg, "GET", "/slo.json")[1]
+        launches = after["launches"]
+        scrape = _children(after["merged"], "pio_fleet_scrape_seconds")
+        scrape_ms = (1000.0 * sum(c["sum"] for c in scrape)
+                     / max(1, sum(c["count"] for c in scrape)))
+        check(_http(agg, "POST", "/stop")[1] == {"stopping": True},
+              "POST /stop refused")
+        try:
+            rc = proc.wait(120)
+        except subprocess.TimeoutExpired:
+            rc = None
+        check(rc == 0, f"the fleet deploy exited {rc} after POST /stop: "
+              f"{err_log.read_text()[-1500:]}")
+        print(f"phase fleet process: deploy --fleet-of {FLEET_REPLICAS} "
+              f"warm in {ready_s:.3f}s, exit 0 after POST /stop | fleet "
+              f"SLO {[(s['name'], s['state'], s['violations']) for s in slo['specs']]} "
+              f"| one replica scrape + merge mean ms={scrape_ms:.3f}, a "
+              f"synchronous POST /scrape of {FLEET_MIN} replicas "
+              f"ms={after['scrape_ms']:.3f} | fused_topk launches in the "
+              f"process={launches} | {card_tag(card)}", flush=True)
+        return dict(launches=launches, rows=rows)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def fleet_autoscale_phase(U64, V64, dev, home: str, engine_json: Path,
+                          card: dict) -> int:
+    """(b): an in-process fleet of 2 with the autoscaler and the spec
+    file's 150 ms latency spec; a 400 ms dispatch latency lights the
+    fast burn, the autoscaler adds a third replica (the decision logged
+    and traced); the fault cleared, the burn goes out."""
+    from predictionio_tpu_torch import cli, faults
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.obs import Tracer
+    from predictionio_tpu_torch.ops import fused_topk as ft
+
+    storage = Storage(env={"PIO_HOME": home})
+    args = cli._parser().parse_args([
+        "deploy", "--engine-json", str(engine_json), "--ip", "127.0.0.1",
+        "--port", "0", "--fleet-of", "2", "--fleet-port", "0",
+        "--router-port", "0", "--fleet-scrape-interval-ms", "500",
+        "--batching", "--autoscale", "--min-replicas", "2",
+        "--max-replicas", "3", "--slo-specs", FLEET_SPECS,
+        *([] if dev.type == "cuda" else ["--device", "cpu"])])
+    tracer = Tracer(ring=64)
+    ft.LAUNCHES = 0
+    fleet = cli.build_fleet_deploy(args, storage, tracer=tracer)
+    stop, codes, sent = threading.Event(), [], []
+    rng = np.random.default_rng(31)
+    users = [int(u) for u in rng.integers(0, N_USERS, 4096)]
+
+    def client(k: int) -> None:
+        i = k
+        while not stop.is_set():
+            q = {"user": f"u{users[i % len(users)]}", "num": 10}
+            try:
+                ans, _ = _post(fleet.router_server.port, q)
+                codes.append(200)
+                sent.append((q, ans))
+            except Exception as e:  # noqa: BLE001 — counted, checked below
+                codes.append(repr(e))
+            i += 4
+
+    clients = [threading.Thread(target=client, args=(k,), name=f"fc{k}")
+               for k in range(4)]
+    try:
+        fleet.server.start_background()
+        for srv in fleet.replicas:
+            warmed(srv)
+        for t in clients:
+            t.start()
+        time.sleep(4.0)  # the spec's windows see healthy traffic first
+        t0 = time.perf_counter()
+        faults.inject("serving.dispatch", mode="latency",
+                      delay_ms=FLEET_BURN_DELAY_MS)
+        wait_until(lambda: fleet.agg.slo.fast_burning(),
+                   "the fleet's fast burn", timeout=120)
+        breach_s = time.perf_counter() - t0
+
+        def decided():
+            return [d for d in fleet.autoscaler.status()["decisions"]
+                    if d["action"] == "scale_out"]
+
+        (decision, *_) = wait_until(decided, "a scale-out decision",
+                                    timeout=120)
+        decided_s = time.perf_counter() - t0
+        wait_until(lambda: fleet.lifecycle.count("ready") == 3,
+                   "a third ready replica", timeout=FLEET_TIMEOUT_S)
+        ready_s = time.perf_counter() - t0
+        check("fast burn" in decision["reason"],
+              f"the scale-out's reason: {decision['reason']}")
+        kept = tracer.recorder.get(decision.get("traceId") or "")
+        check(kept is not None and kept.retained_reason == "autoscale",
+              "the scale-out decision's trace was not kept under "
+              "reason autoscale")
+        faults.clear()
+        t1 = time.perf_counter()
+        wait_until(lambda: not fleet.agg.slo.fast_burning(),
+                   "the burn to go out", timeout=120)
+        out_s = time.perf_counter() - t1
+        time.sleep(0.5)
+    finally:
+        faults.clear()
+        stop.set()
+        for t in clients:
+            t.join(60)
+        fleet.close()
+        storage.close()
+    launches = ft.LAUNCHES
+    bad = [c for c in codes if c != 200]
+    check(not bad, f"{len(bad)} queries failed during the autoscale: "
+          f"{bad[:3]}")
+    check(len(sent) > 0, "no query went through the router")
+    fleet_f64_check("autoscale traffic", [q for q, _ in sent],
+                    [a for _, a in sent], U64, V64, dev)
+    check(launches > 0, "the autoscaled fleet launched fused_topk no time")
+    print(f"phase fleet autoscale: serving.dispatch latency "
+          f"{FLEET_BURN_DELAY_MS:.0f} ms injected -> fleet fast burn at "
+          f"{breach_s:.3f}s -> scale_out decision at {decided_s:.3f}s "
+          f"(reason '{decision['reason']}', traced under autoscale) -> a "
+          f"third replica ready at {ready_s:.3f}s; the fault cleared, the "
+          f"burn out after {out_s:.3f}s | {len(sent)} queries, 0 "
+          f"errors, held to float64 | fused_topk launches={launches} | "
+          f"{card_tag(card)}", flush=True)
+    return launches
+
+
+def fleet_slo_cost(uv, U64, V64, dev, card: dict) -> None:
+    """The SLO engine's cost: the uniform burst on one engine server
+    with the default engine (a 1 s tick) and with ``slo_interval_ms=0``,
+    in turns (on, off, on, off)."""
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy_models,
+    )
+    from predictionio_tpu_torch.templates.recommendation import (
+        recommendation_engine,
+    )
+
+    U, V = uv
+    engine = recommendation_engine()
+    ep = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    model = als_model_from_numpy(
+        U, V, N_USERS, N_ITEMS, {f"u{n}": n for n in range(N_USERS)},
+        {f"i{n}": n for n in range(N_ITEMS)}, {"rank": RANK}, device=dev)
+    rng = np.random.default_rng(37)
+    queries = [{"user": f"u{u}", "num": 10}
+               for u in rng.integers(0, N_USERS, BURST_QUERIES)]
+    rows = []
+    for slo_ms in (1000.0, 0.0, 1000.0, 0.0):
+        srv = deploy_models(engine, ep, [model], ServerConfig(
+            batching=True, slo_interval_ms=slo_ms), "127.0.0.1",
+            0).start_background()
+        try:
+            warmed(srv)
+            check((srv.query_server.slo is None) == (slo_ms == 0),
+                  "slo_interval_ms did not switch the engine")
+            wall, res = finish_burst(start_burst(srv.port, queries),
+                                     "slo cost burst")
+        finally:
+            srv.close()
+        fleet_f64_check("slo cost burst", queries, [r[0] for r in res],
+                        U64, V64, dev)
+        rows.append((slo_ms, *burst_stats(wall, res)))
+    print("phase fleet SLO tick cost, staged burst of "
+          f"{BURST_QUERIES} on {BURST_CLIENTS} connections, in turns: "
+          + ", ".join(f"slo_interval_ms={ms:.0f} qps={q:.1f} "
+                      f"p50_ms={p50:.3f} p99_ms={p99:.3f}"
+                      for ms, q, p50, p99 in rows)
+          + f" | {card_tag(card)}", flush=True)
+
+
+def phase_fleet(uv, dev, home: str, card: dict) -> dict:
+    """``deploy --fleet-of N`` on phase 16's store and model: (a) a fresh
+    process behind its router and aggregator, (b) the autoscaler in
+    process, and the SLO engine's cost."""
+    U, V = uv
+    U64 = torch.from_numpy(U).to(dev, torch.float64)
+    V64 = torch.from_numpy(V).to(dev, torch.float64)
+    engine_json = Path(home) / "jaxblob" / "engine.json"
+    check(engine_json.is_file(), "phase jaxblob's variant is missing")
+    a = fleet_process_phase(U64, V64, dev, home, engine_json, card)
+    b = fleet_autoscale_phase(U64, V64, dev, home, engine_json, card)
+    fleet_slo_cost(uv, U64, V64, dev, card)
+    return {"fused_topk": a["launches"] + b}
+
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -7213,9 +7859,11 @@ def main(argv=None) -> int:
             rel_l = phase_release(data, dev, home, pio, card)
         with phase("console"):
             console_l = phase_console(dev, home, pio, card)
+        uv = trained.pop("host_factors")
         with phase("jaxblob"):
-            jaxblob_l = phase_jaxblob(trained.pop("host_factors"), dev, home,
-                                      card)
+            jaxblob_l = phase_jaxblob(uv, dev, home, card)
+        with phase("fleet"):
+            fleet_l = phase_fleet(uv, dev, home, card)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
@@ -7231,7 +7879,9 @@ def main(argv=None) -> int:
     # storage_launches: the storage phase's REMOTE training and its deploy;
     # resume_launches: the resumed training's (iterations 6-10);
     # split_launches: one split-layout training's; jaxblob_launches: the
-    # deploy of the JAX-written blob
+    # deploy of the JAX-written blob; fleet_launches: the fleet process's
+    # (its replicas' serving and warm-up ladders) and the in-process
+    # autoscaled fleet's
     implicit_l = implicit["launches"]
     store_l = storage_l["launches"]
     kernels = [
@@ -7252,7 +7902,8 @@ def main(argv=None) -> int:
              cache_launches=cache_l["fused_topk"],
              storage_launches=store_l["fused_topk"],
              resume_launches=resume_l["fused_topk"],
-             jaxblob_launches=jaxblob_l["fused_topk"], **row),
+             jaxblob_launches=jaxblob_l["fused_topk"],
+             fleet_launches=fleet_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",

@@ -24,7 +24,10 @@
         [--access-log-sample 1.0] [--profile-dir D] [--hot-keys-k 128] \\
         [--cache [--cache-entries 8192] [--cache-ttl 30] [--feature-ttl 5] \\
         [--hot-entities 512]] [--faults SPEC] [--debug-locks] \\
-        [--cert PEM --key PEM]
+        [--slo-specs FILE] [--slo-interval-ms 1000] [--cert PEM --key PEM] \\
+        [--fleet-of N [--fleet-port 8200] [--router-port 8100] \\
+        [--fleet-scrape-interval-ms 5000] [--autoscale [--min-replicas 1] \\
+        [--max-replicas 8]] [--capacity CAPACITY.json]]
     python -m predictionio_tpu_torch.cli batchpredict \\
         --engine-json engine.json --input q.jsonl --output out.jsonl
     python -m predictionio_tpu_torch.cli eval module:evaluation \\
@@ -36,6 +39,13 @@
         [--accesskey K]
     python -m predictionio_tpu_torch.cli trace [--port 8000] \\
         [--id TRACE_ID [-o FILE] | --slowest N]
+    python -m predictionio_tpu_torch.cli slo status [--port 8000]
+    python -m predictionio_tpu_torch.cli slo check [--capacity C.json] \\
+        [--specs slo/specs/ci.json] [--update]
+    python -m predictionio_tpu_torch.cli fleet serve --replicas H:P,H:P \\
+        [--port 8200] [--slo-specs FILE] [--capacity C.json]
+    python -m predictionio_tpu_torch.cli fleet status|slo|hotkeys|route|\\
+        scale|trace [--port 8200] [--key K] [--to N] [--id T|--slowest N]
     python -m predictionio_tpu_torch.cli release list
     python -m predictionio_tpu_torch.cli release show|pin|status|canary|\\
         promote|rollback --engine-id ID --engine-json engine.json ...
@@ -90,7 +100,19 @@ request (``--no-trace`` turns that off; ``--trace-ring``,
 ``--access-log-sample`` of its successful requests to the access log,
 keeps ``POST /profile`` captures under ``--profile-dir`` and tracks the
 ``--hot-keys-k`` hottest users; ``PTPU_DEBUG_NUMERICS=1`` arms the NaN/Inf
-sentinels. ``deploy --cache`` serves through the serving cache hierarchy
+sentinels. Every deployed server runs the SLO engine (``--slo-specs``, the
+built-in objectives by default; ``--slo-interval-ms 0`` turns it off);
+``slo status`` prints its burn rates, ``slo check`` gates a capacity
+model against the committed spec file. ``deploy --fleet-of N`` boots N
+engine servers in one process (each with its own tables on the card and
+its own warm-up) behind the entity-affinity query router
+(``--router-port``) and the fleet aggregator (``--fleet-port``, merged
+``/metrics`` and ``/fleet.json``), with ``--autoscale`` the autoscaler
+between ``--min-replicas`` and ``--max-replicas``; it serves until ``POST
+/stop`` to the aggregator. ``fleet`` reads a running aggregator, and
+``fleet scale --to N`` drives the autoscaler (a new replica joins the
+ring once warm, a removed one drains first). Without ``--capacity`` the
+fleet has no capacity knee: the headroom branches never fire. ``deploy --cache`` serves through the serving cache hierarchy
 (the query tier of ``--cache-entries`` answers kept ``--cache-ttl``
 seconds at most, singleflight, the feature tier of ``--feature-ttl``,
 and the ``--hot-entities`` hottest users ranked from a table pinned on
@@ -101,8 +123,7 @@ An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
-Left out (``ROADMAP.md`` queue 1): ``slo``, fleets and ``deploy
---slo-*`` (item 14), ``check`` and ``audit-*`` (item 15).
+Left out (``ROADMAP.md`` queue 1): ``check`` and ``audit-*`` (item 15).
 """
 
 from __future__ import annotations
@@ -115,6 +136,7 @@ import ssl
 import sys
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from typing import List, Optional
 
@@ -497,10 +519,12 @@ def cmd_train(args, storage: Storage) -> int:
     return 0
 
 
-def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
+def build_deploy(args, storage: Optional[Storage] = None,
+                 port: Optional[int] = None) -> AppServer:
     """The engine server the deploy command would serve, not yet
     serving: the latest COMPLETED instance from storage, or the
-    ``--model`` file."""
+    ``--model`` file; on ``port`` when given, else ``--port``."""
+    port = args.port if port is None else port
     variant = load_variant(args.engine_json)
     engine, engine_params = engine_from_variant(variant)
     config = ServerConfig(batching=args.batching,
@@ -533,7 +557,9 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
                           feature_ttl_sec=args.feature_ttl,
                           hot_entities=args.hot_entities,
                           faults=args.faults or None,
-                          debug_locks=args.debug_locks)
+                          debug_locks=args.debug_locks,
+                          slo_specs=args.slo_specs or None,
+                          slo_interval_ms=args.slo_interval_ms)
     ssl_ctx = _ssl(args)
     if args.model:
         from .workflow.persistence import loads_models
@@ -541,12 +567,148 @@ def build_deploy(args, storage: Optional[Storage] = None) -> AppServer:
         with open(args.model, "rb") as f:
             models = loads_models(f.read())
         return deploy_models(engine, engine_params, models, config,
-                             args.ip, args.port, ssl_context=ssl_ctx)
+                             args.ip, port, ssl_context=ssl_ctx)
     ctx = Context(device=args.device,
                   _storage=storage if storage is not None else get_storage())
     return deploy(ctx, engine, engine_params, config=config, host=args.ip,
-                  port=args.port, ssl_context=ssl_ctx,
+                  port=port, ssl_context=ssl_ctx,
                   **_engine_key(args, variant))
+
+
+class FleetDeploy:
+    """What ``deploy --fleet-of N`` runs in one process: N engine-server
+    replicas, the fleet aggregator (:attr:`server`, not yet serving), the
+    entity-affinity query router (:attr:`router_server`, serving), the
+    replica lifecycle and, with ``--autoscale``, the autoscaler.
+    :meth:`close` stops all of it and joins every thread it started."""
+
+    def __init__(self, replicas, agg, server, router, router_server,
+                 lifecycle, autoscaler) -> None:
+        self.replicas = replicas
+        self.agg = agg
+        self.server = server
+        self.router = router
+        self.router_server = router_server
+        self.lifecycle = lifecycle
+        self.autoscaler = autoscaler
+
+    def close(self) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.stop()
+        self.lifecycle.close(stop_replicas=True)
+        self.router_server.close()
+        self.server.close()
+
+
+def build_fleet_deploy(args, storage: Optional[Storage] = None,
+                       tracer=None) -> FleetDeploy:
+    """Boot ``--fleet-of`` engine servers on consecutive ports from
+    ``--port`` (each its own ``QueryServer``, its own tables on the card
+    and its own warm-up), adopt them into the lifecycle, and front them
+    with the router (``--router-port``) and the aggregator
+    (``--fleet-port``); the aggregator's liveness view vetoes routing
+    candidates. A spawned replica (autoscaler or ``fleet scale``) takes a
+    free port and joins the ring once ``servingWarm``. ``tracer`` keeps
+    the autoscaler's decisions (reason ``autoscale``)."""
+    from .fleet import FleetConfig, create_fleet_server
+    from .router import (
+        Autoscaler,
+        AutoscalePolicy,
+        QueryRouter,
+        ReplicaLifecycle,
+        RouterConfig,
+        create_router_server,
+    )
+
+    storage = storage if storage is not None else get_storage()
+    ssl_ctx = _ssl(args)
+    scheme = "https" if ssl_ctx else "http"
+    accesskey = getattr(args, "accesskey", "") or None
+
+    def boot(port: int) -> AppServer:
+        return build_deploy(args, storage, port=port).start_background()
+
+    def url(srv: AppServer) -> str:
+        return f"{scheme}://127.0.0.1:{srv.port}"
+
+    servers: List[AppServer] = []
+    try:
+        for i in range(args.fleet_of):
+            servers.append(boot(args.port + i if args.port else 0))
+    except BaseException:
+        for srv in servers:
+            srv.close()
+        raise
+    fleet_cfg = FleetConfig(
+        replicas=[url(srv) for srv in servers],
+        scrape_interval_sec=args.fleet_scrape_interval_ms / 1000.0,
+        slo_specs=args.slo_specs or None,
+        slo_interval_sec=args.slo_interval_ms / 1000.0,
+        capacity_path=args.capacity or None,
+        accesskey=accesskey)
+    agg, fleet_srv = create_fleet_server(fleet_cfg, host=args.ip,
+                                         port=args.fleet_port,
+                                         ssl_context=ssl_ctx)
+    # the pio_router_* families ride the fleet's /metrics beside the
+    # merged replica series and pio_autoscale_*
+    router = QueryRouter(RouterConfig(accesskey=accesskey),
+                         registry=agg.registry)
+    router_srv = create_router_server(router, host=args.ip,
+                                      port=args.router_port,
+                                      ssl_context=ssl_ctx)
+    router_srv.start_background()
+    agg.attach_router(router)
+    # "unknown"/"absent" (not scraped yet) is no opinion: a fresh replica
+    # is not vetoed during its first scrape window
+    router.set_health(lambda name: {"up": True, "down": False}.get(
+        agg.replica_health(name)))
+
+    def spawn():
+        srv = boot(0)
+        return url(srv), srv.close
+
+    lifecycle = ReplicaLifecycle(spawn=spawn, router=router,
+                                 aggregator=agg, registry=agg.registry,
+                                 accesskey=accesskey)
+    for srv in servers:
+        lifecycle.adopt(url(srv), stop_fn=srv.close)
+    autoscaler = None
+    if args.autoscale:
+        autoscaler = Autoscaler(
+            agg, lifecycle,
+            AutoscalePolicy(min_replicas=args.min_replicas,
+                            max_replicas=args.max_replicas),
+            registry=agg.registry, tracer=tracer).start()
+        agg.attach_autoscaler(autoscaler)
+    return FleetDeploy(servers, agg, fleet_srv, router, router_srv,
+                       lifecycle, autoscaler)
+
+
+def cmd_deploy_fleet(args, storage: Storage) -> int:
+    """``deploy --fleet-of N``: serve the fleet until ``POST /stop`` to
+    the aggregator (or SIGINT), then stop every replica and thread."""
+    fleet = build_fleet_deploy(args, storage)
+    scheme = fleet.server.scheme
+    try:
+        for srv in fleet.replicas:
+            _out(f"Replica live at {scheme}://{args.ip}:{srv.port}.")
+        if fleet.autoscaler is not None:
+            knee = fleet.agg.capacity_signals()["kneeQps"]
+            _out(f"Autoscaler running: {args.min_replicas}-"
+                 f"{args.max_replicas} replicas, knee model "
+                 f"{'loaded' if knee else 'ABSENT'}.")
+        _out(f"Query router live at {scheme}://{args.ip}:"
+             f"{fleet.router_server.port}; send /queries.json here "
+             f"(entity affinity, retry, spill).")
+        _out(f"Fleet aggregator live at {scheme}://{args.ip}:"
+             f"{fleet.server.port}; merged /metrics, /fleet.json, "
+             f"/route.json, /trace.json, /hotkeys.json.")
+        fleet.server.serve_forever()
+    except KeyboardInterrupt:
+        _out("Shutting down.")
+    finally:
+        fleet.close()
+    return 0
 
 
 def cmd_batchpredict(args, storage: Storage) -> int:
@@ -747,6 +909,251 @@ def cmd_trace(args) -> int:
          f"{payload.get('requests', 0)} traced requests"
          + (f", slow ≥ {payload['slowThresholdMs']}ms"
             if payload.get("slowThresholdMs") is not None else ""))
+    return 0
+
+
+def _print_slo_payload(payload: Optional[dict]) -> int:
+    """One line per spec of a ``/slo.json`` body (``slo status`` and
+    ``fleet slo``); exit 1 while a spec burns."""
+    p = payload or {}
+    if not p.get("enabled", False):
+        _out("SLO engine is disabled on this server "
+             f"({p.get('hint', '')})")
+        return 0
+    burning = p.get("burning") or []
+    for sp in p.get("specs") or []:
+        budget = sp.get("budgetRemaining")
+        bits = [f"{sp['name']:<28} {sp['state']:<18}"]
+        for key, label in (("burnFast", "fast"), ("burnSlow", "slow")):
+            v = sp.get(key)
+            bits.append(f"burn[{label}] "
+                        + (f"{v:6.2f}x" if v is not None else "     ?"))
+        bits.append("budget " + (f"{budget * 100:6.1f}%"
+                                 if budget is not None else "     ?"))
+        bits.append(f"violations {sp.get('violations', 0)}")
+        _out("  ".join(bits))
+    _out(f"{len(p.get('specs') or [])} spec(s), "
+         + (f"BURNING: {', '.join(burning)}" if burning
+            else "none burning")
+         + f" ({p.get('ticks', 0)} evaluation ticks)")
+    return 1 if burning else 0
+
+
+def cmd_slo(args) -> int:
+    """``slo status``: a running server's live burn rates and budgets
+    (``GET /slo.json``), one line per spec. ``slo check``: the capacity
+    gate: a capacity model (``CAPACITY.json``) against the committed spec
+    file's ``capacity`` section, with ratchet semantics (``--update``
+    tightens the committed gates toward a better run, never loosens
+    them)."""
+    if args.slo_command == "status":
+        try:
+            payload = _server_call(args, "/slo.json")
+        except (OSError, ValueError) as e:
+            _err(f"server at {args.ip}:{args.port} unreachable: "
+                 f"{_call_error(e)}")
+            return 1
+        return _print_slo_payload(payload)
+    from .slo import gate_capacity, load_specs, ratchet_gates, write_gates
+
+    try:
+        with open(args.capacity, encoding="utf-8") as f:
+            capacity = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        _err(f"cannot read capacity model {args.capacity}: {e}")
+        return 1
+    try:
+        _specs, gates = load_specs(args.specs)
+    except (OSError, ValueError) as e:
+        _err(f"cannot read SLO spec file {args.specs}: {e}")
+        return 1
+    if not gates:
+        _err(f"{args.specs} commits no capacity gates; add a 'capacity' "
+             f"section")
+        return 1
+    failures = gate_capacity(capacity, gates)
+    for line in failures:
+        _err(f"FAIL {line}")
+    if failures:
+        _err(f"{len(failures)} capacity regression(s) vs {args.specs} "
+             f"— fix the regression or, for an accepted trade-off, "
+             f"loosen the committed gate in an explicit commit")
+        return 1
+    n_checked = sum(len(g) for g in gates.values())
+    _out(f"capacity gate PASS: {n_checked} committed limit(s) over "
+         f"{len(gates)} config(s) hold for {args.capacity}")
+    if args.update:
+        new_gates, changes = ratchet_gates(capacity, gates)
+        if changes:
+            write_gates(args.specs, new_gates)
+            for c in changes:
+                _out(f"ratchet {c}")
+            _out(f"tightened {len(changes)} gate(s) in {args.specs} — "
+                 f"commit the file")
+        else:
+            _out("no gate beat its committed value; nothing to ratchet")
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    """The fleet plane. ``serve`` runs the aggregator over
+    ``--replicas``; ``status`` prints each replica's liveness, lag and
+    flags and the fleet's headroom (exit 1 while a replica is down or a
+    fleet SLO burns; one the autoscaler removed on purpose is not down);
+    ``slo`` the fleet SLO engine's burn rates; ``trace`` looks a trace up
+    on every replica (``--id``) or merges the slowest; ``hotkeys`` the
+    fleet-wide top-K; ``route`` the router's ring and backends (and where
+    a ``--key`` lands); ``scale`` hands the autoscaler a replica-count
+    target. Needs no storage."""
+    if args.fleet_command == "serve":
+        from .fleet import FleetConfig, create_fleet_server
+
+        cfg = FleetConfig(
+            replicas=[r.strip() for r in args.replicas.split(",")
+                      if r.strip()],
+            scrape_interval_sec=args.scrape_interval_ms / 1000.0,
+            stale_after_sec=(args.stale_after_ms / 1000.0
+                             if args.stale_after_ms else None),
+            slo_specs=args.slo_specs or None,
+            slo_interval_sec=args.slo_interval_ms / 1000.0,
+            capacity_path=args.capacity or None,
+            hot_keys_k=args.hot_keys_k,
+            timeout_sec=args.timeout_sec,
+            accesskey=args.accesskey or None)
+        _agg, server = create_fleet_server(cfg, host=args.ip,
+                                           port=args.port,
+                                           ssl_context=_ssl(args))
+        return _serve(server, "Fleet aggregator", args,
+                      f"Merging {len(cfg.replicas)} replica(s): /metrics, "
+                      f"/fleet.json, /slo.json, /trace.json, "
+                      f"/hotkeys.json.")
+    sub = args.fleet_command
+    try:
+        if sub == "status":
+            payload = _server_call(args, "/fleet.json") or {}
+        elif sub == "slo":
+            return _print_slo_payload(_server_call(args, "/slo.json"))
+        elif sub == "hotkeys":
+            payload = _server_call(args,
+                                   f"/hotkeys.json?n={args.top}") or {}
+        elif sub == "route":
+            path = "/route.json"
+            if args.key:
+                path += "?key=" + urllib.parse.quote(args.key)
+            payload = _server_call(args, path) or {}
+        elif sub == "scale":
+            path = f"/scale?to={int(args.to)}"
+            if args.reason:
+                path += "&reason=" + urllib.parse.quote(args.reason)
+            payload = _server_call(args, path, "POST") or {}
+        elif args.id:
+            payload = _server_call(args, f"/trace.json?id={args.id}")
+        elif args.slowest is not None:
+            payload = _server_call(args,
+                                   f"/trace.json?slowest={args.slowest}")
+        else:
+            payload = _server_call(args, "/trace.json")
+    except (OSError, ValueError) as e:
+        _err(f"fleet aggregator at {args.ip}:{args.port} unreachable: "
+             f"{_call_error(e)}")
+        return 1
+    if sub == "status":
+        # the decision log tells an intentional exit (scale-in) from a
+        # corpse: a replica removed on purpose, or draining, is no outage
+        autoscale = payload.get("autoscale") or {}
+        removed = set(autoscale.get("removed") or [])
+        down = 0
+        for r in payload.get("replicas") or []:
+            lifecycle = r.get("lifecycle")
+            if r.get("up"):
+                state = "draining" if lifecycle == "draining" else "up"
+            elif r.get("replica") in removed or lifecycle == "draining":
+                state = "removed"
+            else:
+                state = "DOWN"
+                down += 1
+            flags = []
+            if r.get("degraded"):
+                flags.append("DEGRADED")
+            if r.get("nonfinite"):
+                flags.append("NONFINITE")
+            if r.get("sloBurning"):
+                flags.append("burning:" + ",".join(r["sloBurning"]))
+            age = r.get("lastScrapeAgeSec")
+            _out(f"{r.get('replica', '?'):<24} {state:<9} "
+                 f"age {age if age is not None else '?':>7}s  "
+                 f"requests {r.get('requestCount') or 0:>8}  "
+                 f"{' '.join(flags)}")
+        headroom = payload.get("capacityHeadroom")
+        burning = (payload.get("slo") or {}).get("burning") or []
+        _out(f"{payload.get('replicasUp', 0)}/"
+             f"{payload.get('replicasConfigured', 0)} replicas up, "
+             f"qps {payload.get('qps', 0.0):.2f}, headroom "
+             + (f"{headroom:.3f}" if headroom is not None else "?")
+             + (f", fleet SLO BURNING: {', '.join(burning)}"
+                if burning else ", fleet SLO ok")
+             + f" ({payload.get('cycles', 0)} scrape cycles)")
+        if autoscale.get("enabled"):
+            decisions = autoscale.get("decisions") or []
+            last = decisions[-1] if decisions else {}
+            _out(f"autoscale: target {autoscale.get('target')}, "
+                 f"{len(removed)} scaled-in, last decision "
+                 f"{last.get('action', 'none')}"
+                 + (f" ({last.get('reason')})" if last.get("reason")
+                    else ""))
+        return 1 if (down or burning) else 0
+    if sub == "hotkeys":
+        for k in payload.get("fleet") or []:
+            _out(f"{k['key']:<32} {k['count']:>12.0f} "
+                 f"(±{k['error']:.0f})")
+        if not payload.get("fleet"):
+            _out("No hot keys observed yet (the sketch fills from "
+                 "query-path entity ids).")
+        return 0
+    if sub == "route":
+        for b in payload.get("replicas") or []:
+            _out(f"{b.get('replica', '?'):<24} {b.get('state', '?'):<9} "
+                 f"inflight {b.get('inflight', 0):>4}  "
+                 f"requests {b.get('requests', 0):>8}  "
+                 f"failures {b.get('consecutiveFailures', 0)}")
+        if args.key:
+            _out(f"key {args.key!r} → {payload.get('affinity')} "
+                 f"(preference: "
+                 f"{', '.join(payload.get('preference') or [])})")
+        ring = payload.get("ring") or {}
+        _out(f"{len(payload.get('replicas') or [])} backend(s), "
+             f"{ring.get('vnodes', '?')} vnodes each; retries "
+             f"{payload.get('retries')}; spill "
+             f"{(payload.get('spill') or {}).get('share')}")
+        return 0
+    if sub == "scale":
+        _out(f"requested {payload.get('requested')} → target "
+             f"{payload.get('target')} (clamped to policy bounds); the "
+             f"control loop converges on its next tick.")
+        return 0
+    if args.id:
+        trace = (payload or {}).get("trace")
+        out_path = args.output or f"trace-{args.id[:12]}.json"
+        with open(out_path, "w", encoding="utf-8") as f:
+            json.dump(trace, f)
+        n = len((trace or {}).get("traceEvents") or [])
+        _out(f"Trace found on replica {(payload or {}).get('replica', '?')}"
+             f"; wrote {n} trace events to {out_path}; load it at "
+             f"https://ui.perfetto.dev.")
+        return 0
+    if args.slowest is not None:
+        traces = (payload or {}).get("traces") or []
+        if not traces:
+            _out("No retained traces anywhere in the fleet yet.")
+            return 0
+        for t in traces:
+            _out(f"{t.get('traceId')}  {t.get('durationMs', '?')}ms  "
+                 f"replica={t.get('replica')}  status={t.get('status')}  "
+                 f"reason={t.get('reason')}  {t.get('name', '')}")
+        _out(f"Export one: fleet trace --id {traces[0]['traceId']} "
+             f"--port {args.port}")
+        return 0
+    _out(json.dumps(payload, indent=2))
     return 0
 
 
@@ -1440,6 +1847,40 @@ def _parser() -> argparse.ArgumentParser:
                             "lock-order and re-entry detection, pio_lock_* "
                             "families, the deadlock watchdog "
                             "(PTPU_DEBUG_LOCKS=1 works too)")
+        s.add_argument("--slo-specs", default="",
+                       help="SLO spec file evaluated continuously against "
+                            "the server's metrics (and, with --fleet-of, "
+                            "the fleet's merged series); default: the "
+                            "built-in availability, latency and freshness "
+                            "objectives")
+        s.add_argument("--slo-interval-ms", type=float, default=1000.0,
+                       help="SLO evaluation tick; 0 turns the engine off")
+        s.add_argument("--fleet-of", type=int, default=1,
+                       help="deploy N replicas on consecutive ports from "
+                            "--port (free ports with --port 0) behind the "
+                            "query router and the fleet aggregator")
+        s.add_argument("--fleet-port", type=int, default=8200,
+                       help="port of the fleet aggregator (--fleet-of > 1)")
+        s.add_argument("--fleet-scrape-interval-ms", type=float,
+                       default=5000.0,
+                       help="the aggregator's scrape cadence")
+        s.add_argument("--router-port", type=int, default=8100,
+                       help="port of the entity-affinity query router "
+                            "(--fleet-of > 1): clients send /queries.json "
+                            "there")
+        s.add_argument("--autoscale", action="store_true",
+                       help="run the SLO-driven autoscaler: out on a "
+                            "fast-window burn or low capacity headroom, in "
+                            "against the capacity model's knee")
+        s.add_argument("--min-replicas", type=int, default=1,
+                       help="autoscaler floor (--autoscale)")
+        s.add_argument("--max-replicas", type=int, default=8,
+                       help="autoscaler ceiling (--autoscale)")
+        s.add_argument("--capacity", default="",
+                       help="a measured capacity model (CAPACITY.json) "
+                            "whose knee feeds the fleet headroom gauge and "
+                            "the autoscaler; without one there is no "
+                            "headroom")
 
     s = sub.add_parser("eval", help="run an evaluation")
     s.add_argument("evaluation", help="module.path:evaluation_object")
@@ -1503,6 +1944,99 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("-o", "--output", default="",
                    help="output file for --id (default "
                         "trace-<id>.json)")
+
+    s = sub.add_parser("slo", help="service-level objectives: a running "
+                                   "server's burn rates, or gate a "
+                                   "capacity model against the committed "
+                                   "specs")
+    slo_sub = s.add_subparsers(dest="slo_command", required=True)
+    c = slo_sub.add_parser("status", help="per-spec burn rates, budgets "
+                                          "and breach state from GET "
+                                          "/slo.json (exit 1 while "
+                                          "burning)")
+    c.add_argument("--ip", default="127.0.0.1")
+    c.add_argument("--port", type=int, default=8000)
+    c.add_argument("--accesskey", default="")
+    client_tls_flags(c)
+    c = slo_sub.add_parser("check", help="gate a CAPACITY.json against the "
+                                         "committed spec file's capacity "
+                                         "section")
+    c.add_argument("--capacity", default="CAPACITY.json",
+                   help="the measured capacity model")
+    c.add_argument("--specs", default="slo/specs/ci.json",
+                   help="committed SLO spec file with the capacity gates")
+    c.add_argument("--update", action="store_true",
+                   help="ratchet: tighten the committed gates toward a "
+                        "better measurement (never loosens)")
+
+    s = sub.add_parser("fleet", help="the fleet plane: run the aggregator "
+                                     "that merges N replicas' metrics "
+                                     "exactly, or query a running one")
+    fleet_sub = s.add_subparsers(dest="fleet_command", required=True)
+    c = fleet_sub.add_parser("serve", help="run the aggregator over "
+                                           "--replicas")
+    c.add_argument("--replicas", required=True,
+                   help="comma-separated replica addresses (host:port or "
+                        "URLs)")
+    c.add_argument("--ip", default="0.0.0.0")
+    c.add_argument("--port", type=int, default=8200)
+    c.add_argument("--scrape-interval-ms", type=float, default=5000.0,
+                   help="how often each replica's /metrics.json and "
+                        "/status.json are pulled and merged")
+    c.add_argument("--stale-after-ms", type=float, default=0.0,
+                   help="a replica unscraped this long is DOWN (default: "
+                        "3x the scrape interval)")
+    c.add_argument("--slo-specs", default="",
+                   help="SLO spec file evaluated against the MERGED "
+                        "series; default: the built-in objectives")
+    c.add_argument("--slo-interval-ms", type=float, default=1000.0,
+                   help="fleet SLO evaluation tick; 0 turns it off")
+    c.add_argument("--capacity", default="",
+                   help="CAPACITY.json whose knee qps feeds "
+                        "pio_fleet_capacity_headroom")
+    c.add_argument("--hot-keys-k", type=int, default=128,
+                   help="fleet-wide merged hot-key sketch capacity")
+    c.add_argument("--timeout-sec", type=float, default=5.0,
+                   help="per-replica scrape and fan-out timeout")
+    c.add_argument("--accesskey", default="",
+                   help="require ?accessKey= on POST /scrape, /scale and "
+                        "/stop")
+    tls_flags(c)
+    for name, help_ in (
+            ("status", "per-replica liveness, lag and flags and the "
+                       "fleet's headroom (exit 1 on a down replica or a "
+                       "burning fleet SLO)"),
+            ("slo", "fleet SLO burn rates over the merged series"),
+            ("trace", "cross-replica flight-recorder lookup"),
+            ("hotkeys", "fleet-wide hot-key top-K"),
+            ("route", "the query router: ring, backends, where --key "
+                      "lands"),
+            ("scale", "ask the autoscaler for a replica count (clamped "
+                      "to --min/--max-replicas)")):
+        c = fleet_sub.add_parser(name, help=help_)
+        c.add_argument("--ip", default="127.0.0.1")
+        c.add_argument("--port", type=int, default=8200)
+        c.add_argument("--accesskey", default="")
+        client_tls_flags(c)
+        if name == "trace":
+            c.add_argument("--id", default="",
+                           help="find this trace on any replica and write "
+                                "it as Perfetto JSON")
+            c.add_argument("--slowest", type=int, default=None,
+                           help="the fleet's N slowest retained traces")
+            c.add_argument("-o", "--output", default="",
+                           help="output file for --id")
+        if name == "hotkeys":
+            c.add_argument("--top", type=int, default=16,
+                           help="keys to list")
+        if name == "route":
+            c.add_argument("--key", default="",
+                           help="show where this entity id routes")
+        if name == "scale":
+            c.add_argument("--to", type=int, required=True,
+                           help="desired replica count")
+            c.add_argument("--reason", default="",
+                           help="recorded in the decision log")
 
     s = sub.add_parser("release", help="list, show and pin releases; drive "
                                        "a server's canary, promote and "
@@ -1599,6 +2133,10 @@ def main(argv: Optional[List[str]] = None,
         return cmd_trace(args)
     if args.command == "cache":
         return cmd_cache(args)
+    if args.command == "slo":
+        return cmd_slo(args)
+    if args.command == "fleet":
+        return cmd_fleet(args)
     storage = storage if storage is not None else get_storage()
     if args.command in COMMANDS:
         return COMMANDS[args.command](args, storage)
@@ -1609,6 +2147,8 @@ def main(argv: Optional[List[str]] = None,
                 if args.command == "eventserver" and not args.stats
                 else "")
         return _serve(build(args, storage), what, args, note)
+    if args.fleet_of > 1:
+        return cmd_deploy_fleet(args, storage)
     srv = build_deploy(args, storage)
     return _serve(srv, f"Engine server ({srv.app.name})", args)
 

@@ -6,10 +6,9 @@ integers forever, and p50/p90/p99/max are derived at read time by linear
 interpolation inside the target bucket (the estimator Prometheus'
 ``histogram_quantile`` applies to the scraped cumulative buckets). A
 bucket may carry an OpenMetrics exemplar: the trace id, value and time of
-the last retained trace that landed in it.
-
-Left out (``ROADMAP.md`` queue 1 item 14): the fleet's ``from_buckets``
-and ``merge``.
+the last retained trace that landed in it. ``from_buckets`` rebuilds a
+histogram from its cumulative buckets and ``merge`` adds another one
+bucket by bucket: the fleet aggregator's exact merge.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import math
 import threading
 import time
 from bisect import bisect_left
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 def exponential_bounds(start: float, factor: float,
@@ -75,6 +74,98 @@ class StreamingHistogram:
         # (trace_id, value, unix time)}
         self._exemplars: Optional[Dict[int, Tuple[str, float,
                                                   float]]] = None
+
+    @classmethod
+    def from_buckets(cls, buckets: Sequence[Tuple[Any, float]],
+                     sum: Optional[float] = None,
+                     minimum: Optional[float] = None,
+                     maximum: Optional[float] = None
+                     ) -> "StreamingHistogram":
+        """Rebuild a histogram from cumulative ``(le, count)`` pairs, the
+        :meth:`bucket_counts` shape, the last ``le`` ``inf`` (or the
+        JSON-safe string ``"+Inf"`` of ``/metrics.json``): the inverse of
+        a scrape. ``sum``/``minimum``/``maximum`` carry the exact moments
+        when known; absent, they are estimated from the bucket edges."""
+        if len(buckets) < 2:
+            raise ValueError("need at least one finite bucket + +Inf")
+        les: List[float] = []
+        cums: List[float] = []
+        for le, cum in buckets:
+            if isinstance(le, str):
+                le = math.inf if le in ("+Inf", "inf", "Inf") \
+                    else float(le)
+            les.append(float(le))
+            cums.append(float(cum))
+        if not math.isinf(les[-1]):
+            raise ValueError("last bucket upper bound must be +Inf")
+        hist = cls(bounds=les[:-1])
+        prev = 0.0
+        counts: List[int] = []
+        for cum in cums:
+            d = cum - prev
+            if d < 0:
+                raise ValueError("cumulative bucket counts must be "
+                                 "non-decreasing")
+            counts.append(int(d))
+            prev = cum
+        hist._counts = counts
+        n = 0
+        for c in counts:
+            n += c
+        hist._count = n
+        if n:
+            # missing moments from the bucket edges: the lowest occupied
+            # bucket's lower edge, the highest one's upper bound (the
+            # overflow bucket falls back to the last bound)
+            lo_i = next(i for i, c in enumerate(counts) if c)
+            hi_i = next(i for i in range(len(counts) - 1, -1, -1)
+                        if counts[i])
+            est_min = hist.bounds[lo_i - 1] if lo_i > 0 \
+                else hist.bounds[0]
+            est_max = hist.bounds[min(hi_i, len(hist.bounds) - 1)]
+            hist._min = float(minimum) if minimum is not None \
+                else est_min
+            hist._max = float(maximum) if maximum is not None \
+                else est_max
+            if sum is not None:
+                hist._sum = float(sum)
+            else:
+                s = 0.0
+                for i, c in enumerate(counts):
+                    if c:
+                        s += c * hist.bounds[min(i, len(hist.bounds)
+                                                 - 1)]
+                hist._sum = s
+        elif sum is not None:
+            hist._sum = float(sum)
+        return hist
+
+    def merge(self, other: "StreamingHistogram") -> None:
+        """Add ``other``'s observations into this histogram, bucket by
+        bucket: lossless at bucket resolution, so a quantile of the
+        result is the pooled population's, never an average of
+        percentiles. The bounds must match exactly. The two locks are
+        taken one after the other, never nested."""
+        if other.bounds != self.bounds:
+            raise ValueError(
+                "cannot merge histograms with different bounds "
+                f"({len(other.bounds)} vs {len(self.bounds)} buckets)")
+        with other._lock:
+            counts = list(other._counts)
+            n = other._count
+            s = other._sum
+            lo, hi = other._min, other._max
+        if n == 0:
+            return
+        with self._lock:
+            for i, c in enumerate(counts):
+                self._counts[i] += c
+            self._count += n
+            self._sum += s
+            if lo < self._min:
+                self._min = lo
+            if hi > self._max:
+                self._max = hi
 
     def record(self, value: float) -> None:
         """O(1): one bisect over the fixed bounds + one increment."""

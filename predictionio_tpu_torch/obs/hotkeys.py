@@ -8,16 +8,14 @@ and, on a miss, EVICTS the current minimum and adopts its count as the
 newcomer's floor, so every key whose true frequency exceeds ``N/k`` is
 monitored, with a per-key overestimate bound (``error``) beside it.
 ``record`` is O(k): a linear min-scan over ``k`` entries (128 by
-default), far below one JSON parse on the query path.
-
-Left out (``ROADMAP.md`` queue 1 item 14): ``merge_items``, the fleet's
-merge of per-replica sketches.
+default), far below one JSON parse on the query path. ``merge_items`` folds
+another sketch's export in: the fleet's merge of per-replica sketches.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 __all__ = ["SpaceSaving", "mount_hot_key_metrics"]
 
@@ -83,8 +81,25 @@ class SpaceSaving:
         return [{"key": k, "count": c, "error": errors.get(k, 0.0)}
                 for k, c in items]
 
+    def merge_items(self, items: Iterable[Dict[str, Any]],
+                    total: float = 0.0) -> None:
+        """Fold another sketch's :meth:`top` export into this one: shared
+        keys sum counts AND errors (both bounds stay valid); a new key
+        goes in through the usual evict-the-minimum path, its incoming
+        error on top of the eviction floor."""
+        with self._lock:
+            self._total += float(total)
+            for item in items:
+                k = str(item.get("key") or "")
+                if not k:
+                    continue
+                self._insert_locked(k,
+                                    float(item.get("count", 0.0)),
+                                    float(item.get("error", 0.0)))
+
     def snapshot(self, n: int = 16) -> Dict[str, Any]:
-        """The ``hotKeys`` block of ``/status.json``."""
+        """The ``hotKeys`` block of ``/status.json`` (and of the fleet
+        scrape)."""
         return {"capacity": self.capacity, "total": self.total,
                 "top": self.top(n)}
 

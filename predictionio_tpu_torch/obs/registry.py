@@ -8,10 +8,8 @@ blocks of ``/status.json`` (:meth:`MetricsRegistry.snapshot`). Counters,
 gauges (static or backed by a callable) and histogram families with
 labels, plus render-time collectors; everything is thread-safe and O(1)
 per observation (histograms are the fixed-bucket kind of
-:mod:`.histogram`).
-
-Left out (``ROADMAP.md`` queue 1 item 14): the fleet's
-``remove_matching``.
+:mod:`.histogram`). :meth:`_Family.remove_matching` drops a departed
+fleet replica's children.
 """
 
 from __future__ import annotations
@@ -198,6 +196,20 @@ class _Family:
     def children(self) -> List[Tuple[LabelItems, Any]]:
         with self._lock:
             return list(self._children.items())
+
+    def remove_matching(self, **labels: str) -> int:
+        """Drop every child whose label set CONTAINS the given items
+        (``remove_matching(replica="h:p")`` removes that replica's
+        children whatever other labels they carry): the fleet aggregator
+        calls it when a replica leaves, so membership churn never grows
+        the gauges' cardinality. Returns how many went."""
+        items = set(labels.items())
+        with self._lock:
+            doomed = [key for key in self._children
+                      if items <= set(key)]
+            for key in doomed:
+                del self._children[key]
+        return len(doomed)
 
     def render(self, openmetrics: bool = False) -> List[str]:
         # OpenMetrics names a counter family WITHOUT the _total suffix

@@ -117,9 +117,20 @@ so an injected delay lands in the traces it slows and they are kept
 --debug-locks``, ``PTPU_DEBUG_LOCKS=1``) builds the serving stack's locks
 as ``concurrency.DebugLock``s and adds the ``pio_lock_*`` families.
 
+Service-level objectives (:mod:`predictionio_tpu_torch.slo`): every
+server runs an SLO engine by default (``ServerConfig.slo_interval_ms``,
+1,000; 0 turns it off) over the built-in specs or
+``ServerConfig.slo_specs``: the ``pio_slo_burn_rate``,
+``pio_slo_budget_remaining``, ``pio_slo_breach`` and
+``pio_slo_violations_total`` families, the ``slo`` block of
+``/status.json`` and ``GET /slo.json``. While a spec burns, the flight
+recorder keeps every trace under reason ``slo``. ``lifecycle``,
+``servingWarm`` and ``POST /drain`` are what the fleet's router and
+replica lifecycle read (:mod:`predictionio_tpu_torch.router`).
+
 Left out (``ROADMAP.md`` queue 1): replicated lanes and the ``pio_lane_*``,
 ``pio_serving_lanes`` and ``pio_serving_degraded`` families (item 13);
-the SLO engine (item 14); feedback events
+feedback events
 and ``log_url``. ``transfer_guard``, the XLA recompile sentinel
 (``pio_compiles_since_warm``, the per-executable compile table of
 ``/profile.json``) and ``pio_sharding_findings`` are XLA mechanisms with
@@ -319,6 +330,16 @@ class ServerConfig:
     #: lock-order-inversion and re-entry detection, the ``pio_lock_*``
     #: families and the deadlock watchdog. Off: the stdlib locks
     debug_locks: bool = False
+    #: the SLO engine's objectives, evaluated continuously against this
+    #: server's registry with multi-window error-budget burn rates (the
+    #: ``pio_slo_*`` families, ``GET /slo.json``, the ``slo`` block of
+    #: ``/status.json``). None = the built-in defaults (availability and
+    #: latency of ``/queries.json``, freshness while streaming); a path
+    #: loads a spec file (``slo/specs/*.json``). While a spec burns, the
+    #: flight recorder keeps every trace (reason ``slo``)
+    slo_specs: Optional[str] = None
+    #: the SLO engine's evaluation tick; 0 turns the engine off
+    slo_interval_ms: float = 1000.0
 
 
 @dataclass
@@ -445,6 +466,7 @@ class QueryServer:
         self.tracer = (Tracer(ring=cfg.trace_ring, slow_ms=cfg.trace_slow_ms)
                        if cfg.tracing else None)
         self.profiler = DeviceProfiler(cfg.profile_dir)
+        self.slo = None  # the SLO engine, started last (see below)
         # hot keys: a Space-Saving sketch of the queries' entity ids
         self.hotkeys: Optional[SpaceSaving] = None
         if cfg.hot_keys_k > 0:
@@ -562,6 +584,52 @@ class QueryServer:
             except BaseException:
                 self.close()
                 raise
+        if cfg.slo_interval_ms > 0:
+            try:
+                self._start_slo()
+            except BaseException:
+                self.close()
+                raise
+
+    # -- service-level objectives --------------------------------------------
+    def _start_slo(self) -> None:
+        """Account every objective against this server's registry on a
+        background tick (``slo-engine``); a spec file that does not load
+        fails the deploy."""
+        from ..slo import SLOEngine, default_specs, load_specs
+
+        if self.config.slo_specs:
+            specs, _ = load_specs(self.config.slo_specs)
+        else:
+            specs = default_specs(streaming=self.config.streaming)
+        engine = SLOEngine(self.metrics, specs,
+                           on_transition=self._on_slo_transition)
+        engine.register_metrics(self.metrics)
+        self.slo = engine
+        engine.start(self.config.slo_interval_ms / 1000.0)
+
+    def _on_slo_transition(self, spec, breached: bool, info) -> None:
+        """ok<->breach edge hook: while ANY spec burns, the tail sampler
+        keeps every trace (reason ``slo``), so a violation always comes
+        with flight-recorder evidence."""
+        tracer = self.tracer
+        if tracer is None or self.slo is None:
+            return
+        tracer.force_retention("slo" if self.slo.burning() else None)
+
+    def slo_status(self) -> dict:
+        """The ``slo`` block of ``/status.json`` (and ``/slo.json``)."""
+        if self.slo is None:
+            return {"enabled": False,
+                    "hint": "deploy with --slo-specs FILE (or leave "
+                            "slo_interval_ms at its default) to "
+                            "evaluate service objectives"}
+        return self.slo.status()
+
+    def stop_slo(self) -> None:
+        """Join the SLO engine's tick thread; its series stay readable."""
+        if self.slo is not None:
+            self.slo.stop()
 
     def _serving_algorithms(self, engine_params: EngineParams,
                             models: List[Any]) -> tuple:
@@ -1300,6 +1368,7 @@ class QueryServer:
                       else {"enabled": False}),
             "hotKeys": (self.hotkeys.snapshot() if self.hotkeys is not None
                         else {"enabled": False}),
+            "slo": self.slo_status(),
             "profile": self.profile_summary(),
             "degraded": self.degraded_status(),
             "hbm": hbm_stats(),
@@ -1365,15 +1434,17 @@ class QueryServer:
         return out
 
     def close(self, timeout: float = 5.0) -> None:
-        """Stop the rollout's gate thread, the stream trainer, the batch
-        path's threads (queued queries still serve), a profiler capture,
-        the shadow mirrors, the plugins' sniffer thread and the pool, and
-        join the warm-up threads and the hot tier's refresh thread, each
-        within ``timeout``; detach the numerics listener. Idempotent."""
+        """Stop the rollout's gate thread, the stream trainer, the SLO
+        engine, the batch path's threads (queued queries still serve), a
+        profiler capture, the shadow mirrors, the plugins' sniffer thread
+        and the pool, and join the warm-up threads and the hot tier's
+        refresh thread, each within ``timeout``; detach the numerics
+        listener. Idempotent."""
         rollout = self.rollout
         if rollout is not None:
             rollout.stop()
         self.stop_stream()
+        self.stop_slo()
         if self.batcher is not None:
             self.batcher.close(timeout)
         self.profiler.close(timeout)
@@ -2474,6 +2545,26 @@ def build_app(server: QueryServer) -> HTTPApp:
                 "<th>p50 (ms)</th><th>p90 (ms)</th><th>p99 (ms)</th>"
                 "<th>max (ms)</th></tr>" + "".join(rows) + "</table>")
 
+    def _slo_line() -> str:
+        """The SLO engine: specs watched, anything burning, the thinnest
+        remaining budget."""
+        s = server.slo_status()
+        if not s.get("enabled", False) or not s.get("specs"):
+            return ""
+        parts = [f"SLOs: {len(s['specs'])} watched"]
+        burning = s.get("burning") or []
+        if burning:
+            parts.append("BURNING: " + ", ".join(burning))
+        budgets = [(sp["budgetRemaining"], sp["name"])
+                   for sp in s["specs"]
+                   if sp.get("budgetRemaining") is not None]
+        if budgets:
+            worst, name = min(budgets)
+            parts.append(f"thinnest budget {worst * 100:.1f}% "
+                         f"({name})")
+        return ("<li>" + html.escape(" · ".join(parts))
+                + " (<a href='/slo.json'>slo.json</a>)</li>")
+
     def _cache_line() -> str:
         """Each serving-cache tier's hit ratio over its lookups."""
         if server.cache is None:
@@ -2533,9 +2624,9 @@ def build_app(server: QueryServer) -> HTTPApp:
     @app.route("GET", "/")
     def index(req: Request) -> Response:
         """The status page. Left out until their data is ported
-        (``ROADMAP.md`` queue 1): the SLO line (item 14), the mesh panel
-        and the sharding line (item 13); the JAX package's "compiles
-        since warm" counts XLA compiles."""
+        (``ROADMAP.md`` queue 1): the mesh panel and the sharding line
+        (item 13); the JAX package's "compiles since warm" counts XLA
+        compiles."""
         inst = server.instance
         esc = html.escape
         engine_id = inst.engine_id if inst else "(models handed in)"
@@ -2558,11 +2649,18 @@ def build_app(server: QueryServer) -> HTTPApp:
             f"<li>average serving: {avg * 1000:.3f} ms</li>"
             f"<li>last serving: {last * 1000:.3f} ms</li>"
             f"{_pipeline_line()}{_stream_line()}{_cache_line()}"
-            f"{_trace_line()}</ul>"
+            f"{_slo_line()}{_trace_line()}</ul>"
             f"{_release_panel()}{_span_table()}"
             "<p><a href='/metrics'>Prometheus metrics</a> · "
             "<a href='/status.json'>status.json</a></p></body></html>")
         return Response(body=body, content_type="text/html")
+
+    @app.route("GET", "/slo.json")
+    def slo_json(req: Request) -> Response:
+        """Live SLO state: per-spec burn rates (fast and slow window),
+        error budget remaining, breach and violation accounting (what
+        ``slo status`` prints)."""
+        return json_response(server.slo_status())
 
     @app.route("GET", "/cache.json")
     def cache_json(req: Request) -> Response:

@@ -179,13 +179,14 @@ def test_global_inject_spec_status_and_env(monkeypatch):
 
 
 def test_points_catalog_holds_the_ported_points():
+    import predictionio_tpu_torch.router.router  # noqa: F401
     import predictionio_tpu_torch.server.engineserver  # noqa: F401
     import predictionio_tpu_torch.streaming.trainer  # noqa: F401
     import predictionio_tpu_torch.workflow.checkpoint  # noqa: F401
 
     for point in ("storage.io", "storage.remote", "serving.dispatch",
                   "stream.pass", "checkpoint.save", "checkpoint.commit",
-                  "checkpoint.restore"):
+                  "checkpoint.restore", "router.forward"):
         assert point in pfaults.POINTS, point
 
 

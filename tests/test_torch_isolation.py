@@ -39,7 +39,8 @@ def test_no_forbidden_import(path):
 
 
 @pytest.mark.parametrize("sub", ["streaming", "faults", "rollout", "cache",
-                                 "obs", "workflow", "e2", "concurrency"])
+                                 "obs", "workflow", "e2", "concurrency",
+                                 "slo", "router", "fleet"])
 def test_the_copied_subpackages_are_scanned(sub):
     """The stream and pipeline slices' subpackages are the port's own
     copies: each is in the scan above, and none reaches the JAX

@@ -39,7 +39,8 @@ EXCEPTIONS = {
 #: the JAX ``__init__`` files whose exports the port re-exports
 PACKAGES = ["", ".data", ".data.storage", ".models", ".workflow",
             ".server", ".utils", ".faults", ".controller", ".obs",
-            ".concurrency", ".cache", ".rollout", ".streaming"]
+            ".concurrency", ".cache", ".rollout", ".streaming", ".slo",
+            ".fleet", ".router"]
 
 
 def public_names(mod):
@@ -75,7 +76,8 @@ def test_importing_the_packages_loads_no_jax_builds_nothing():
         " predictionio_tpu_torch.workflow, predictionio_tpu_torch.server,"
         " predictionio_tpu_torch.utils, predictionio_tpu_torch.faults,"
         " predictionio_tpu_torch.controller,"
-        " predictionio_tpu_torch.concurrency\n"
+        " predictionio_tpu_torch.concurrency, predictionio_tpu_torch.slo,"
+        " predictionio_tpu_torch.fleet, predictionio_tpu_torch.router\n"
         "from predictionio_tpu_torch.ops import _build\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'predictionio_tpu')]\n"

@@ -87,10 +87,6 @@ LEFT_OUT = {
     "pio_transfer_guard_violations_total":
         "decided not to port: XLA transfer guard",
     "pio_sharding_findings": "decided not to port: JAX program analysis",
-    "pio_slo_burn_rate": "item 14 (the SLO engine)",
-    "pio_slo_budget_remaining": "item 14",
-    "pio_slo_breach": "item 14",
-    "pio_slo_violations_total": "item 14",
 }
 
 #: loopback only: no proxy from the environment may carry these requests
