@@ -261,10 +261,11 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the SQLite file without its sidecar in a fresh process, whose
             single thread forks the first encode (its ``read_s``), and the
             same read of a second copy in this process, which runs
-            threads and so encodes in-process. LOCALFS, every 20th user
+            threads and so encodes in-process. LOCALFS, every 40th user
             (cut), in a process beside the SEGMENTFS steps and the SQLite
             copies: ``cli import`` and ``find_columnar`` giving the cut's
-            triples. Last the server stops on SIGINT with exit 0, and no
+            triples, and how long the phase waited for it after those
+            steps. Last the server stops on SIGINT with exit 0, and no
             thread the phase started is left.
 8b. batchpredict — ``cli batchpredict`` on the card from phase 8's store:
             one query line ``{"user", "num": 10}`` for each of its 13,850
@@ -277,11 +278,11 @@ Phases, each printing one line of numbers, any failure exits non-zero:
 8c. eval  — ``cli eval chip_smoke:EVALUATION chip_smoke:GRID`` on the
             card from phase 8's store (the CLI loads both from this file:
             the shipped example's metrics, Precision@10 at threshold 4.0
-            optimized; 3 folds x ALS rank 64 with 5 and 10 iterations),
+            optimized; 2 folds x ALS rank 64 with 5 and 10 iterations),
             then the same with ``--parallelism 2``. Each run: the launch
             counts of all four kernels zeroed just before and read just
             after (``fused_gram``, ``chol_solve``, ``fused_topk``
-            positive, ``gram_table`` 0); exactly 3 packings and 6
+            positive, ``gram_table`` 0); exactly 2 packings and 4
             trainings (``models.als.pack_ratings`` and
             ``ALSAlgorithm.train`` wrapped here); every held-out query's
             10 items held against the plain top-k in float64 on the card
@@ -419,9 +420,11 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``A`` (the command's seconds, each library's ``nvcc``
             seconds and the host codec's ``g++`` seconds), then again (no
             ``nvcc`` or ``g++`` may run). Phase 8's variant
-            deployed with ``--batching`` twice, from ``A`` (built) and
-            from a new, empty ``B`` (cold): the seconds from the process's
-            start to ``servingWarm`` and to the first correct answer, and
+            deployed with ``--batching`` twice side by side, from ``A``
+            (built) and from a new, empty ``B`` (cold), each process's
+            whole sequence below in a thread of its own: the seconds from
+            the process's start to ``servingWarm`` and to the first
+            correct answer (each under the other's load), and
             ``warmReport``; built must report ``artifactWarm`` and a
             ``compile`` phase of 0, cold a ``compile`` phase above 0; the
             ``fused_topk`` counter on ``/status.json`` must count at least
@@ -435,8 +438,9 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             empties and deletes an app; the dashboard lists phase 8c's
             EVALCOMPLETED instances and serves their HTML and JSON;
             ``stop-all``, after which no pid from the pidfiles is alive.
-            ``cli export`` of phase 10's app and ``cli import`` of the
-            file into a new app: equal counts, and each one's rows/s.
+            ``cli export`` of phase 11's app (91,546 events) and ``cli
+            import`` of the file into a new app: equal counts, and each
+            one's rows/s.
             Every time stands beside the card's name and power limit.
 15. resume — runs right after phase 6a, on the surrogate at rank 64 x
             10 iterations (packed once): ``train_als`` without
@@ -472,7 +476,7 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             times, ``servingWarm`` and the first answer. A blob naming
             ``builtins.open`` (its reduce would create a marker file) is
             refused and the marker never exists.
-17. fleet — runs last, on phase 16's store and model. (a) ``python -m
+17. fleet — runs after phase 16, on its store and model. (a) ``python -m
             predictionio_tpu_torch.cli deploy --fleet-of 3 --autoscale
             --min-replicas 2 --max-replicas 4 --slo-specs
             slo/specs/ci.json --batching`` in a process of its own, with
@@ -517,6 +521,42 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             replica, and, last, the SLO engine's cost: the uniform burst
             on one engine server with its default 1 s tick and with
             ``slo_interval_ms=0``, in turns.
+18. audit — runs after phase 17, on the stores of phases 8 and 16. (a)
+            ``python -m predictionio_tpu_torch.cli audit-lifecycle`` in a
+            process of its own on the card: the six entries (event,
+            storage and engine servers, the stream trainer, the fleet
+            aggregator, the router's lifecycle and autoscaler) must each
+            release every thread, fd and socket over 3 start→stop cycles
+            against the committed all-zero baseline. (b) In this process
+            ``analysis.lifecycle_audit.run_audit`` (one warm-up cycle,
+            then 3) over two full-width entries: ``engine_server``, a
+            ``cli deploy --batching`` of phase 16's variant (138,493 x
+            26,744, rank 64, 42.3 MB f32) answering 64 HTTP queries held
+            to the float64 top-10 and closed, each cycle; and
+            ``stream_trainer``, a ``cli deploy`` of phase 8's variant and a
+            stream trainer of its own (consumer ``chip-audit``, its cursor
+            set where the log ends) folding in one burst of 16 users' 256
+            ``rate`` events through ``fused_gram`` and ``chol_solve``, then
+            stopped and closed, each cycle. Each entry's census must be
+            zero, ``torch.cuda.memory_allocated()`` after the measured
+            cycles must exceed the reading after the warm-up cycle by
+            less than one cycle's tables (42.3 MB), and every cycle must
+            launch its kernels. (c) The gate bites: a poller that starts a
+            thread it never joins and keeps a 42.3 MB tensor on the card
+            each cycle is flagged by the static ``leaked-thread`` rule,
+            and its run fails both the census (threads) and the memory
+            gate.
+
+Phase 2b (check), after phase 2: ``python -m predictionio_tpu_torch.cli
+check`` in a process of its own must print ``clean`` and exit 0 (its
+seconds printed); each kernel's shared-memory formula in
+``ops/smem.py`` must equal its library's ``<name>_smem_bytes`` export at
+every point its launcher accepts (for ``fused_topk`` every point
+``csrc/fused_topk.cu`` validates, planned or not), and the largest
+accepted point plus the kernel's static shared memory
+(``cudaFuncGetAttributes``, through ``<name>_static_smem``) must fit the
+card's opt-in limit, read from the card and printed beside its name and
+power limit.
 
 Phase 4b arms ``serving.dispatch=latency,delay_ms=400,times=1`` for its
 first burst (as ``benchmarks/trace_smoke.py`` does), so the delayed
@@ -534,14 +574,15 @@ the stream path, in the implicit iteration, in the templates phase, in
 phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
 in phase 4b's counted bursts, in phase 4c's counted part and in phase
 8a's REMOTE training and deploy, phase 15's resumed and split
-trainings, phase 16's deploy and phase 17's fleet process and
-autoscaled fleet) and, last, ``{"ok": true, "device":
-{...}}``.
+trainings, phase 16's deploy, phase 17's fleet process and autoscaled
+fleet and phase 18's full-width cycles) and, last, ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -3080,7 +3121,7 @@ PIO_APP = "MyApp1"
 PIO_BLOCK = 100_000
 
 #: the eval phase's folds, answer length and the grid's iteration counts
-EVAL_K, EVAL_QUERY_NUM, EVAL_ITERS = 3, 10, (5, 10)
+EVAL_K, EVAL_QUERY_NUM, EVAL_ITERS = 2, 10, (5, 10)
 
 #: the evaluation ``cli eval chip_smoke:EVALUATION chip_smoke:GRID`` runs:
 #: the shipped example's (its metrics, Precision@10 at threshold 4.0 the
@@ -3089,7 +3130,7 @@ EVALUATION = recommendation_evaluation.evaluation
 
 
 class _EvalGrid(EngineParamsGenerator):
-    """3 folds of the ``pio`` store x ALS at rank 64 with 5 and 10
+    """2 folds of the ``pio`` store x ALS at rank 64 with 5 and 10
     iterations."""
 
     engine_params_list = [
@@ -3372,8 +3413,8 @@ def phase_pio(data, dev, home: str) -> dict:
         storage.close()
 
 
-#: the storage phase's LOCALFS step: every 20th user (the cut of depth)
-STORAGE_LOCALFS_STRIDE = 20
+#: the storage phase's LOCALFS step: every 40th user (the cut of depth)
+STORAGE_LOCALFS_STRIDE = 40
 #: answers the storage phase's deploy holds to float64
 STORAGE_QUERIES = 64
 STORAGE_SECRET = "chip-smoke-pod"
@@ -3610,7 +3651,7 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
         check(rc == 0 and n_out == len(users),
               f"cli export: {rc} {out.getvalue()} ({len(users)} stored)")
 
-        # -- 7. LOCALFS, every 20th user, in a process beside 2-6 --------
+        # -- 7. LOCALFS, every 40th user, in a process beside 2-6 --------
         keep = users % STORAGE_LOCALFS_STRIDE == 0
         t = time.perf_counter()
         pattern = re.compile(rb'"entityId": "u(\d+)"')
@@ -3836,8 +3877,10 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
               f"this process forked its encode: {inproc_path}")
 
         # -- 7, its end ------------------------------------------------------
+        t = time.perf_counter()
         check(end_process(localfs, STORAGE_TIMEOUT_S) == 0,
               f"the LOCALFS step failed: {lf_log.read_text()[-3000:]}")
+        lf_wait_s = time.perf_counter() - t
         lf = json.loads(lf_log.read_text().strip().splitlines()[-1])
         got = np.load(work / "localfs.npz")
         check(lf["n"] == int(keep.sum()) and np.array_equal(
@@ -3895,7 +3938,8 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
             f"fused_gram={fork_c['fused_gram']} chol_solve="
             f"{fork_c['chol_solve']} | LOCALFS 1 user in "
             f"{STORAGE_LOCALFS_STRIDE} ({lf['n']} events, cut {cut_s:.3f}s, "
-            f"beside steps 2-6): cli import {lf['import_s']:.3f}s = "
+            f"beside steps 2-6, waited for {lf_wait_s:.3f}s after them): "
+            f"cli import {lf['import_s']:.3f}s = "
             f"{lf['n'] / lf['import_s']:.1f} events/s, find_columnar "
             f"{lf['find_s']:.3f}s, triples equal | {card_tag(card)}",
             flush=True)
@@ -4251,7 +4295,7 @@ STREAM_NEW_ITEMS, STREAM_NEW_ITEM_RATERS = 2, 8  # 16 on new items
 def stream_bursts(data, seed: int) -> list:
     """The stream phase's traffic, from the surrogate: each burst is 512
     ``rate`` events as (users, items, stars) arrays. 448 come from 32
-    users in the store (96 distinct over the bursts) on items outside
+    users in the store (64 distinct over the bursts) on items outside
     their history, drawn by the store's item popularity, with stars from
     its rating histogram; 48 from 4 cold users (surrogate users with id
     % 10 == 1: 12 of their real ratings on items in the store); 16 on 2
@@ -6139,7 +6183,20 @@ def phase_release(data, dev, home: str, pio: dict, card: dict) -> dict:
               f"rated catalogue items")
 
         def held(q, a, iid) -> None:
-            check_answer(q, a, *refs[iid])
+            try:
+                check_answer(q, a, *refs[iid])
+            except SystemExit as e:
+                # name the release the answer was held to and where the
+                # rollout stood, to tell a rollback from a mis-route
+                try:
+                    rel = _http(srv.port, "GET", "/release.json")[1]
+                    where = (f"rollout {rel['rollout']}, state "
+                             f"{rel['state']}")
+                except (OSError, KeyError, NameError) as why:
+                    where = f"unread: {why!r}"
+                which = "newer" if iid == new.id else "older"
+                raise SystemExit(f"{e} (held to the {which} release; "
+                                 f"/release.json: {where})") from None
 
         def held_either(q, a, first, second) -> None:
             try:
@@ -6422,14 +6479,16 @@ def run_cli(args: list, env: dict, log: Path) -> tuple:
 
 def console_deploy(tag: str, engine_json: str, artifact_dir, env: dict,
                    logs: Path, storage, dev,
-                   queries: int = CONSOLE_QUERIES) -> dict:
+                   queries: int = CONSOLE_QUERIES,
+                   procs: list = None) -> dict:
     """``cli deploy --batching --artifact-dir`` as a fresh process (no
     ``--artifact-dir`` when it is None): the seconds from its start to
     the first correct answer (asked as soon as the port answers) and to
     ``servingWarm`` (polled beside it), then ``queries`` answers held to
     the float64 top-k of the bound tables, whose model is read back from
     ``storage``. Returns the server's port, process and numbers; the
-    caller undeploys it."""
+    caller undeploys it. The process joins ``procs`` as it starts, so
+    that the caller ends it should this fail."""
     from predictionio_tpu_torch.models.als import _table_leaves
     from predictionio_tpu_torch.workflow.persistence import loads_models
 
@@ -6440,6 +6499,8 @@ def console_deploy(tag: str, engine_json: str, artifact_dir, env: dict,
     proc = cli_process(["deploy", "--engine-json", engine_json, "--ip",
                         "127.0.0.1", "--port", "0", "--batching", *art,
                         *device], env, log)
+    if procs is not None:
+        procs.append(proc)
     out = {"proc": proc}
     port = None
     while port is None:
@@ -6534,13 +6595,11 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
               and log2.count("already built (") == len(nvcc) + 1,
               f"the second cli build ran nvcc or g++: {log2[-2000:]}")
 
-        # -- deploy, built then cold ---------------------------------------
-        deploys = {}
-        for tag, art in (("built", built_dir), ("cold", cold_dir)):
+        # -- deploy, built and cold, side by side (to shorten the phase:
+        # each measures its own start-up with the other's beside it) -----
+        def deploy_one(tag: str, art: Path) -> dict:
             d = console_deploy(tag, pio["engine_json"], str(art), env, work,
-                               storage, dev)
-            procs.append(d["proc"])
-            deploys[tag] = d
+                               storage, dev, procs=procs)
             st = d["status"]
             rep = st["warmReport"]
             check("error" not in rep, f"deploy {tag}: {rep.get('error')}")
@@ -6559,12 +6618,11 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
             if tag == "built":
                 check(st["artifactWarm"] and rep["seconds"]["compile"] == 0,
                       f"the built deploy compiled: {rep}")
+                d.update(console_status_page_drain(d, env, work, card))
             else:
                 check(rep["seconds"]["compile"] > 0
                       and not st["artifactWarm"],
                       f"the cold deploy compiled nothing: {rep}")
-            if tag == "built":
-                d.update(console_status_page_drain(d, env, work, card))
             # every launch the process made: warm-up, first answer and
             # the answers held to float64 (and, built, the drain's)
             d["total_launches"] = _http(d["port"], "GET", "/status.json")[
@@ -6575,6 +6633,14 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
             check(end_process(d["proc"]) == 0,
                   f"the {tag} deploy did not exit cleanly: "
                   f"{(work / f'deploy_{tag}.log').read_text()[-2000:]}")
+            return d
+
+        t_deploys = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            running = {tag: pool.submit(deploy_one, tag, art) for tag, art
+                       in (("built", built_dir), ("cold", cold_dir))}
+        deploys = {tag: f.result() for tag, f in running.items()}
+        deploys_s = time.perf_counter() - t_deploys
 
         # -- start-all: the admin API and the dashboard --------------------
         pid_dir = work / "pids"
@@ -6651,12 +6717,12 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
         out = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = cli.main(["export", "--app", TEMPLATES_APP, "--output",
+            rc = cli.main(["export", "--app", SEQ_APP, "--output",
                            str(exported)], storage=storage)
         export_s = time.perf_counter() - t
         check(rc == 0, f"cli export: {rc} {out.getvalue()}")
         n_out = int(out.getvalue().split()[1])
-        app_id = storage.apps().get_by_name(TEMPLATES_APP).id
+        app_id = storage.apps().get_by_name(SEQ_APP).id
         n_store = sum(1 for _ in storage.events().find(app_id))
         check(n_out == n_store == sum(1 for _ in open(exported)),
               f"exported {n_out} of {n_store} events")
@@ -6685,7 +6751,8 @@ def phase_console(dev, home: str, pio: dict, card: dict) -> dict:
               f"servingWarm at {c['warm_s']:.3f}s, first answer at "
               f"{c['first_s']:.3f}s, warmReport "
               f"{json.dumps(c['status']['warmReport']['seconds'])} "
-              f"artifactWarm={c['status']['artifactWarm']} | ladder "
+              f"artifactWarm={c['status']['artifactWarm']} | both deploys "
+              f"side by side, start to exit {deploys_s:.3f}s | ladder "
               f"{ladder_calls(b['n_items'], 128)} calls, fused_topk "
               f"counted once warm built={b['launches']} cold="
               f"{c['launches']}, in all built={b['total_launches']} cold="
@@ -7757,6 +7824,433 @@ def phase_fleet(uv, dev, home: str, card: dict) -> dict:
     return {"fused_topk": a["launches"] + b}
 
 
+# ---------------------------------------------------------------------------
+# phase check: the port's static analysis, and the shared-memory formulas
+# held to the libraries
+# ---------------------------------------------------------------------------
+
+#: cudaDevAttrMaxSharedMemoryPerBlockOptin
+_ATTR_SMEM_OPTIN = 97
+
+
+def smem_optin(dev_index: int = 0) -> int:
+    """The card's opt-in limit of dynamic shared memory a block, from the
+    card (``torch``'s device properties, else the runtime)."""
+    props = torch.cuda.get_device_properties(dev_index)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    if optin:
+        return int(optin)
+    out = ctypes.c_int(0)
+    err = _cudart().cudaDeviceGetAttribute(ctypes.byref(out),
+                                           _ATTR_SMEM_OPTIN, dev_index)
+    check(err == 0, f"cudaDeviceGetAttribute failed: {err}")
+    return int(out.value)
+
+
+def _topk_c_grid():
+    """Every point ``csrc/fused_topk.cu``'s launch validates (rank, k's
+    list length, queries a block, tile rows, wire), planned or not."""
+    from predictionio_tpu_torch.ops import smem
+
+    for itemsize in smem.TOPK_WIRES:
+        for r in range(1, smem.TOPK_MAX_RANK + 1):
+            for k in (1, 32, 33, smem.TOPK_MAX_K):
+                for qb in range(8, smem.TOPK_MAX_QB + 1, 8):
+                    for chunk in smem.TOPK_CHUNKS:
+                        yield (r * itemsize, qb, chunk, k)
+
+
+def static_smem(lib, name: str, variant: int) -> int:
+    fn = getattr(lib, f"{name}_static_smem")
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_longlong(-1)
+    err = fn(variant, ctypes.byref(out))
+    check(err == 0, f"{name}_static_smem({variant}) failed: {err}")
+    return int(out.value)
+
+
+def phase_check(card: dict) -> dict:
+    """``cli check`` in a fresh process, then every kernel's shared-memory
+    formula against its library's export over every point its launcher
+    accepts, and the largest point against the card's opt-in limit."""
+    from predictionio_tpu_torch.analysis import kernels as akernels
+    from predictionio_tpu_torch.ops import _build, smem
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli", "check"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check_s = time.perf_counter() - t0
+    check(out.returncode == 0 and "clean" in out.stdout,
+          f"cli check exited {out.returncode}: {out.stdout[-3000:]} "
+          f"{out.stderr[-3000:]}")
+    optin = smem_optin()
+    report = akernels.smem_report(str(ROOT / "predictionio_tpu_torch"
+                                      / "ops" / "smem.py"))
+    t0 = time.perf_counter()
+    rows, points = {}, 0
+    for name, spec in smem.KERNELS.items():
+        lib = _build.load_library(name)
+        export = getattr(lib, spec["export"])
+        export.argtypes = [ctypes.c_int] * len(spec["args"])
+        export.restype = ctypes.c_longlong
+        grid = list(spec["grid"]())
+        if name == "fused_topk":
+            grid += list(_topk_c_grid())
+        for point in grid:
+            want = spec["bytes"](point)
+            got = export(*point)
+            check(got == want,
+                  f"{name}: {spec['export']}{point} = {got}, ops/smem.py "
+                  f"gives {want}")
+        points += len(grid)
+        top = report[name]
+        p = top["point"]
+        variant = {"fused_topk": None, "chol_solve": p.get("rp"),
+                   "fused_gram": p.get("itemsize"),
+                   "gram_table": p.get("itemsize")}[name]
+        if variant is None:  # the static part of each wire's kernel
+            stat = max(static_smem(lib, name, w) for w in smem.TOPK_WIRES)
+        else:
+            stat = static_smem(lib, name, variant)
+        check(top["bytes"] <= optin and top["bytes"] + stat <= optin,
+              f"{name}: {top['bytes']} dynamic + {stat} static bytes at "
+              f"{p} pass the card's opt-in limit of {optin}")
+        rows[name] = {"point": p, "dynamic": top["bytes"], "static": stat,
+                      "points": len(grid)}
+    cmp_s = time.perf_counter() - t0
+    print(f"phase check: cli check clean in {check_s:.3f}s (fresh "
+          f"process) | {points} grid points, ops/smem.py equal to the C "
+          f"exports at every one ({cmp_s:.3f}s) | opt-in limit {optin} "
+          f"bytes a block (the card's) | {card_tag(card)}", flush=True)
+    for name, r in rows.items():
+        print(f"phase check smem {name}: largest accepted point "
+              f"{r['point']} dynamic={r['dynamic']} static={r['static']} "
+              f"sum={r['dynamic'] + r['static']} of {optin} "
+              f"({r['points']} points)", flush=True)
+    return {"check_s": check_s, "optin": optin, "smem": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase audit: the leak census on the card
+# ---------------------------------------------------------------------------
+
+AUDIT_CYCLES = 3
+AUDIT_SETTLE_S = 2.0
+AUDIT_QUERIES = 64
+AUDIT_BURST_USERS = 16
+AUDIT_USER_EVENTS = 16
+AUDIT_CONSUMER = "chip-audit"
+AUDIT_TIMEOUT_S = 600.0
+#: one cycle's tables at the serving width: U and V in f32 (42.3 MB)
+AUDIT_TABLE_BYTES = (N_USERS + N_ITEMS) * RANK * 4
+
+#: the gate's own fixture: a poller whose stop() neither signals nor joins
+#: its thread (``gone`` lets the script end the threads once counted)
+AUDIT_LEAKY_SRC = """
+import threading
+import time
+
+gone = threading.Event()
+
+
+class LeakyPoller:
+    def start(self):
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        pass  # the bug: no stop event, no join
+
+    def _run(self):
+        while not gone.is_set():
+            time.sleep(0.05)
+"""
+
+
+class CycleLog:
+    """Each cycle's kernel launches and the card memory after it (after a
+    collection): the first row is ``run_audit``'s warm-up cycle.
+    ``gate`` is one cycle's tables, the growth the memory gate refuses:
+    a cycle that binds a model sets it from that model's U and V."""
+
+    def __init__(self, counters: dict, gate: int = 0):
+        self.counters = counters  # kernel name -> module with LAUNCHES
+        self.gate = gate
+        self.rows: list = []
+
+    def tables(self, model) -> None:
+        """Gate at the bytes of ``model``'s bound U and V (with their
+        scales on a quantized wire), as read from the card."""
+        from predictionio_tpu_torch.models.als import _table_leaves
+
+        self.gate = sum(t.numel() * t.element_size()
+                        for table in (model.user_factors, model.item_factors)
+                        for t in _table_leaves(table) if t is not None)
+
+    def wrap(self, cycle):
+        def run():
+            for mod in self.counters.values():
+                mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            cycle()
+            gc.collect()
+            torch.cuda.synchronize()
+            self.rows.append({
+                "launches": {k: m.LAUNCHES for k, m in self.counters.items()},
+                "allocated": torch.cuda.memory_allocated(),
+                "seconds": time.perf_counter() - t0})
+        return run
+
+    def growth(self) -> int:
+        """Allocated bytes after the last cycle less after the warm-up."""
+        return self.rows[-1]["allocated"] - self.rows[0]["allocated"]
+
+
+def memory_gate(log: CycleLog) -> str:
+    """Why the card memory grew too much over the measured cycles, or ''."""
+    grew = log.growth()
+    check(log.gate > 0, "no cycle set the memory gate")
+    if grew >= log.gate:
+        return (f"memory_allocated grew {grew} bytes over the measured "
+                f"cycles, at least one cycle's tables ({log.gate})")
+    return ""
+
+
+def audit_entry(name: str, build, desc: str, dev) -> dict:
+    """``run_audit`` of one in-process entry on the card, and its
+    census's violations against an all-zero baseline."""
+    from predictionio_tpu_torch.analysis import lifecycle_audit as la
+
+    t0 = time.perf_counter()
+    m = la.run_audit(entry_points={name: (build, desc)},
+                     cycles=AUDIT_CYCLES, settle_sec=AUDIT_SETTLE_S,
+                     device=dev)
+    seconds = time.perf_counter() - t0
+    return {"manifest": m, "seconds": seconds,
+            "violations": la.diff_manifests(m, {
+                "version": la.MANIFEST_VERSION, "cycles": AUDIT_CYCLES,
+                "entries": {name: {k: 0 for k in la.RESOURCES}}})[0]}
+
+
+def audit_line(name: str, log: CycleLog, res: dict, card: dict) -> None:
+    census = res["manifest"]["entries"][name]
+    per_cycle = [r["launches"] for r in log.rows]
+    print(f"phase audit {name}: census {census} over {AUDIT_CYCLES} cycles "
+          f"after 1 warm-up | memory_allocated after the warm-up "
+          f"{log.rows[0]['allocated']} after the measured cycles "
+          f"{log.rows[-1]['allocated']} (grew {log.growth()}, gate "
+          f"{log.gate}: one cycle's tables, read from the bound model) | "
+          f"launches a cycle {per_cycle} | cycle "
+          f"seconds {[round(r['seconds'], 3) for r in log.rows]} | "
+          f"{res['seconds']:.2f}s | {card_tag(card)}", flush=True)
+
+
+def phase_audit(uv, dev, home: str, pio: dict, data, card: dict) -> dict:
+    """(a) ``cli audit-lifecycle`` on the card; (b) the full-width engine
+    and stream entries in this process; (c) the leaky fixture caught by
+    both gates."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.analysis import check_source
+    from predictionio_tpu_torch.analysis import lifecycle_audit as la
+    from predictionio_tpu_torch.cache.bus import InvalidationBus
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event, from_millis
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.ops import fused_gram as fg
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.ops import gram
+    from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.streaming import (
+        EventCursor,
+        StreamConfig,
+        StreamTrainer,
+    )
+
+    # -- (a) the CLI's six entries on the card, in a fresh process ------
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli",
+         "audit-lifecycle", "--format", "json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=AUDIT_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"cli audit-lifecycle exited {out.returncode}: "
+          f"{out.stdout[-3000:]} {out.stderr[-3000:]}")
+    cli_manifest = json.loads(out.stdout)
+    check(set(cli_manifest["entries"]) == set(la.ENTRY_POINTS)
+          and all(v == 0 for rec in cli_manifest["entries"].values()
+                  for v in rec.values()),
+          f"cli audit-lifecycle census: {cli_manifest['entries']}")
+    print(f"phase audit cli: audit-lifecycle on the card, "
+          f"{len(cli_manifest['entries'])} entries x "
+          f"{cli_manifest['cycles']} cycles clean against the all-zero "
+          f"baseline in {cli_s:.2f}s (fresh process) | "
+          f"{out.stderr.strip().splitlines()[-1]}", flush=True)
+
+    U, V = uv
+    U64 = torch.from_numpy(U).to(dev, torch.float64)
+    V64 = torch.from_numpy(V).to(dev, torch.float64)
+    storage = Storage(env={"PIO_HOME": home})
+    # every kernel counted in every cycle of both entries
+    counters = {"fused_topk": ft, "fused_gram": fg, "chol_solve": sv,
+                "gram_table": gram}
+    try:
+        # -- (b1) engine_server at the serving width -------------------
+        rng = np.random.default_rng(29)
+        queries = [{"user": f"u{u}", "num": 10}
+                   for u in rng.integers(0, N_USERS, AUDIT_QUERIES)]
+        serve_args = cli._parser().parse_args([
+            "deploy", "--engine-json",
+            str(Path(home) / "jaxblob" / "engine.json"), "--ip",
+            "127.0.0.1", "--port", "0", "--batching"])
+        eng = CycleLog(counters)
+
+        def build_engine(device):
+            def cycle():
+                srv = cli.build_deploy(serve_args, storage)
+                srv.start_background()
+                try:
+                    warmed(srv)
+                    eng.tables(srv.query_server.models[0])
+                    answers = [_post(srv.port, q)[0] for q in queries]
+                finally:
+                    srv.close()
+                fleet_f64_check("phase audit engine_server", queries,
+                                answers, U64, V64, dev)
+            return eng.wrap(cycle)
+
+        res = audit_entry("engine_server", build_engine, "cli deploy of "
+                          "the serving width -> 64 queries -> close", dev)
+        audit_line("engine_server", eng, res, card)
+        check(not res["violations"], f"engine_server: {res['violations']}")
+        check(not memory_gate(eng), f"engine_server: {memory_gate(eng)}")
+        check(all(r["launches"]["fused_topk"] > 0 for r in eng.rows),
+              "engine_server: a cycle launched fused_topk no time")
+
+        # -- (b2) stream_trainer on phase 8's store --------------------
+        users, items = data[0], data[1]
+        store = users % PIO_USER_STRIDE == 0
+        pool_u = np.unique(users[store])
+        pool_i = np.unique(items[store])
+        app = storage.apps().get_by_name(PIO_APP)
+        cur = EventCursor(storage, app.id, AUDIT_CONSUMER)
+        t_next = [int(time.time() * 1000)]
+        cur.position = from_millis(t_next[0])
+        cur.save()
+        fold_args = cli._parser().parse_args([
+            "deploy", "--engine-json", pio["engine_json"], "--ip",
+            "127.0.0.1", "--port", "0"])
+        stream = CycleLog(counters)
+        consumed, refused = [], []
+
+        def build_stream(device):
+            def cycle():
+                who = rng.choice(pool_u, AUDIT_BURST_USERS, replace=False)
+                t_first = max(int(time.time() * 1000), t_next[0] + 1)
+                events = [Event(
+                    event="rate", entity_type="user", entity_id=f"u{u}",
+                    target_entity_type="item", target_entity_id=f"i{i}",
+                    properties=DataMap({"rating": float(
+                        rng.integers(1, 6))}),
+                    event_time=from_millis(t_first + n))
+                    for n, (u, i) in enumerate(
+                        (u, i) for u in who
+                        for i in rng.choice(pool_i, AUDIT_USER_EVENTS,
+                                            replace=False))]
+                t_next[0] = t_first + len(events)
+                storage.events().insert_batch(events, app.id)
+                srv = cli.build_deploy(fold_args, storage)
+                srv.start_background()
+                trainer = None
+                try:
+                    warmed(srv)
+                    stream.tables(srv.query_server.models[0])
+                    # the loop never wakes (no bus publisher, an hour's
+                    # poll): the pass is this call's, canary gate and all
+                    trainer = StreamTrainer(srv.query_server, StreamConfig(
+                        app_name=PIO_APP, consumer=AUDIT_CONSUMER,
+                        interval_ms=3_600_000.0), bus=InvalidationBus())
+                    trainer.start()
+                    consumed.append(trainer.consume_once())
+                    status = trainer.status()
+                finally:
+                    if trainer is not None:
+                        trainer.stop()
+                    srv.close()
+                # a refused delta is counted, as phase stream counts it:
+                # the pass still folded in, and the census still reads it
+                refused.append(status["canaryRejects"])
+                check(consumed[-1] == len(events)
+                      and status["applies"] + status["canaryRejects"] == 1
+                      and not status["lastError"],
+                      f"phase audit stream_trainer: consumed "
+                      f"{consumed[-1]} of {len(events)}, applies "
+                      f"{status['applies']}, canary refusals "
+                      f"{status['canaryRejects']}, error "
+                      f"{status['lastError']}")
+            return stream.wrap(cycle)
+
+        res = audit_entry("stream_trainer", build_stream, "cli deploy of "
+                          "the pio model -> one 16-user burst folded in -> "
+                          "stop + close", dev)
+        audit_line("stream_trainer", stream, res, card)
+        print(f"phase audit stream_trainer: canary refusals a cycle "
+              f"{refused} (8 probes a check; counted, as in phase stream)",
+              flush=True)
+        check(not res["violations"], f"stream_trainer: {res['violations']}")
+        check(not memory_gate(stream), f"stream_trainer: "
+              f"{memory_gate(stream)}")
+        check(all(r["launches"]["fused_gram"] > 0
+                  and r["launches"]["chol_solve"] > 0 for r in stream.rows),
+              "stream_trainer: a cycle launched fused_gram or chol_solve "
+              "no time")
+    finally:
+        storage.close()
+    # the measured cycles of both entries (not the warm-ups)
+    launched = {k: sum(r["launches"][k] for log in (eng, stream)
+                       for r in log.rows[1:]) for k in counters}
+
+    # -- (c) the gate bites: a leaky entry, both gates -----------------
+    findings = check_source(
+        AUDIT_LEAKY_SRC, path="predictionio_tpu_torch/server/leaky.py")
+    check([f.rule for f in findings] == ["leaked-thread"],
+          f"the static rule on the leaky poller: {findings}")
+    ns: dict = {}
+    exec(AUDIT_LEAKY_SRC, ns)  # noqa: S102 — the fixture above
+    kept = []
+    leaky = CycleLog({}, gate=AUDIT_TABLE_BYTES)
+
+    def build_leaky(device):
+        def cycle():
+            p = ns["LeakyPoller"]()
+            p.start()
+            p.stop()
+            kept.append(torch.empty(AUDIT_TABLE_BYTES // 4,
+                                    dtype=torch.float32, device=device))
+        return leaky.wrap(cycle)
+
+    try:
+        res = audit_entry("leaky", build_leaky,
+                          "leaks a thread and 42.3 MB a cycle", dev)
+    finally:
+        ns["gone"].set()
+    census = res["manifest"]["entries"]["leaky"]
+    mem_why = memory_gate(leaky)
+    check(census["threads"] >= AUDIT_CYCLES
+          and any("leaky" in v and "threads" in v
+                  for v in res["violations"]),
+          f"the census missed the leaked threads: {census}")
+    check(bool(mem_why), f"the memory gate missed {len(kept)} kept "
+          f"tensors: grew {leaky.growth()}")
+    print(f"phase audit leaky: leaked-thread flagged at "
+          f"{findings[0].path}:{findings[0].line} | census {census} | "
+          f"{mem_why} | both gates caught it", flush=True)
+    kept.clear()
+    return launched
+
+
 def check_no_children() -> None:
     """Every process this script started has ended: none has this
     process as its parent."""
@@ -7780,6 +8274,8 @@ def main(argv=None) -> int:
         card = phase_card()
     with phase("build"):
         phase_build()
+    with phase("check"):
+        phase_check(card)
     dev = torch.device("cuda", torch.cuda.current_device())
     rng, U, V = make_tables(args.seed)
     with phase("kernel"):
@@ -7864,6 +8360,8 @@ def main(argv=None) -> int:
             jaxblob_l = phase_jaxblob(uv, dev, home, card)
         with phase("fleet"):
             fleet_l = phase_fleet(uv, dev, home, card)
+        with phase("audit"):
+            audit_l = phase_audit(uv, dev, home, pio, data, card)
     finally:
         shutil.rmtree(home, ignore_errors=True)
     # launches: each kernel's main path (serving for fused_topk,
@@ -7881,7 +8379,8 @@ def main(argv=None) -> int:
     # split_launches: one split-layout training's; jaxblob_launches: the
     # deploy of the JAX-written blob; fleet_launches: the fleet process's
     # (its replicas' serving and warm-up ladders) and the in-process
-    # autoscaled fleet's
+    # autoscaled fleet's; audit_launches: phase audit's measured full-width
+    # cycles (serving for fused_topk, the fold-ins for the others)
     implicit_l = implicit["launches"]
     store_l = storage_l["launches"]
     kernels = [
@@ -7903,7 +8402,8 @@ def main(argv=None) -> int:
              storage_launches=store_l["fused_topk"],
              resume_launches=resume_l["fused_topk"],
              jaxblob_launches=jaxblob_l["fused_topk"],
-             fleet_launches=fleet_l["fused_topk"], **row),
+             fleet_launches=fleet_l["fused_topk"],
+             audit_launches=audit_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -7920,7 +8420,8 @@ def main(argv=None) -> int:
              cache_launches=cache_l["fused_gram"],
              storage_launches=store_l["fused_gram"],
              resume_launches=resume_l["fused_gram"],
-             split_launches=resume_l["split_fused_gram"], **gram_row),
+             split_launches=resume_l["split_fused_gram"],
+             audit_launches=audit_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -7937,7 +8438,8 @@ def main(argv=None) -> int:
              cache_launches=cache_l["chol_solve"],
              storage_launches=store_l["chol_solve"],
              resume_launches=resume_l["chol_solve"],
-             split_launches=resume_l["split_chol_solve"], **solve_row),
+             split_launches=resume_l["split_chol_solve"],
+             audit_launches=audit_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -7953,7 +8455,8 @@ def main(argv=None) -> int:
              telemetry_launches=telemetry_l["gram_table"],
              cache_launches=cache_l["gram_table"],
              storage_launches=store_l["gram_table"],
-             resume_launches=resume_l["gram_table"], **table_row),
+             resume_launches=resume_l["gram_table"],
+             audit_launches=audit_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

@@ -265,6 +265,7 @@ class ServingCache:
         registry.gauge(
             "pio_cache_flushes",
             "Full cache flushes (rebind or operator, monotonic)",
-            # a scrape-time read of a monotonic int: a torn read is
-            # impossible in CPython and an off-by-one scrape is harmless
+            # ptpu: guarded-by[_counter_lock] — a scrape-time read of a
+            # monotonic int: a torn read is impossible in CPython and an
+            # off-by-one scrape is harmless
             fn=lambda: self._flushes)

@@ -50,6 +50,12 @@
     python -m predictionio_tpu_torch.cli release show|pin|status|canary|\\
         promote|rollback --engine-id ID --engine-json engine.json ...
     python -m predictionio_tpu_torch.cli status [--ip IP --port N]
+    python -m predictionio_tpu_torch.cli check [PATH ...] [--rule R] \
+        [--list-rules] [--format text|json|sarif] [--baseline F \
+        [--write-baseline [--baseline-grow]]]
+    python -m predictionio_tpu_torch.cli audit-lifecycle [--entry E] \
+        [--list-entries] [--cycles 3] [--format text|json] [--out F] \
+        [--baseline F [--write-baseline [--baseline-grow]]] [--device cpu]
     python -m predictionio_tpu_torch.cli version|template|shell
     python -m predictionio_tpu_torch.cli run module:callable [ARG ...]
 
@@ -123,7 +129,17 @@ An ``engineFactory``, evaluation or params generator under
 ``predictionio_tpu.`` is read as the same path under
 ``predictionio_tpu_torch.``, so the JAX package's shipped variants train
 and deploy on the port unchanged; the JAX package is never imported.
-Left out (``ROADMAP.md`` queue 1): ``check`` and ``audit-*`` (item 15).
+
+``check`` runs the port's static analysis (``analysis/``: the
+concurrency and lifecycle rule families, host syncs with torch's sync
+calls, ``unbounded-retry``, the metric catalog and the shared-memory
+budget of ``csrc/``) over ``predictionio_tpu_torch`` or the given paths,
+loading neither torch nor the storage; ``audit-lifecycle`` cycles the
+port's servers start→serve→stop on ``--device`` (the card by default)
+and gates the thread/fd/socket leak census against
+``analysis/lifecycle_baseline.json``. Their flags, output and exit codes
+are the JAX package's ``ptpu check`` and ``ptpu audit-lifecycle``.
+``audit-hlo`` and ``audit-numerics`` are XLA's and are not ported.
 """
 
 from __future__ import annotations
@@ -138,21 +154,13 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 from . import __version__
-from .controller.context import Context
-from .controller.params import load_variant
-from .data.storage.base import (
-    AccessKey,
-    App,
-    Channel,
-    EventFilter,
-    JsonlImportError,
-)
-from .data.storage.registry import Storage, get_storage
-from .server.engineserver import ServerConfig, deploy, deploy_models
-from .server.http import AppServer, ssl_context_from
+
+if TYPE_CHECKING:
+    from .data.storage.registry import Storage
+    from .server.http import AppServer
 
 JAX_PACKAGE = "predictionio_tpu"
 #: the engine of a variant that names no ``engineFactory``: the
@@ -226,6 +234,8 @@ def _confirm(prompt: str) -> bool:
 
 
 def cmd_app(args, storage: Storage) -> int:
+    from .data.storage.base import AccessKey, App, Channel
+
     apps, keys, chans = (storage.apps(), storage.access_keys(),
                          storage.channels())
     sub = args.app_command
@@ -330,6 +340,8 @@ def cmd_app(args, storage: Storage) -> int:
 
 
 def cmd_accesskey(args, storage: Storage) -> int:
+    from .data.storage.base import AccessKey
+
     keys, apps = storage.access_keys(), storage.apps()
     if args.ak_command == "new":
         a = apps.get_by_name(args.app)
@@ -364,6 +376,8 @@ def cmd_accesskey(args, storage: Storage) -> int:
 def _ssl(args):
     """The server TLS context of ``--cert``/``--key`` (or
     ``PIO_SSL_CERT``/``PIO_SSL_KEY``); None for plain HTTP."""
+    from .server.http import ssl_context_from
+
     return ssl_context_from(args.cert or None, args.key or None)
 
 
@@ -423,6 +437,8 @@ def cmd_import(args, storage: Storage) -> int:
     """JSON lines -> event store, committed in all-or-nothing chunks;
     then the columnar sidecar is built, so the first train does not pay
     it."""
+    from .data.storage.base import JsonlImportError
+
     a, channel_id = _app_and_channel(args, storage)
     if a is None:
         return 1
@@ -443,6 +459,8 @@ def cmd_import(args, storage: Storage) -> int:
 def cmd_export(args, storage: Storage) -> int:
     """Event store -> JSON lines, in the JAX package's format (one event
     a line, the REST API's JSON); ``import`` reads it back."""
+    from .data.storage.base import EventFilter
+
     a, channel_id = _app_and_channel(args, storage)
     if a is None:
         return 1
@@ -465,6 +483,7 @@ def cmd_build(args, storage: Storage) -> int:
     import subprocess
 
     from . import native
+    from .controller.params import load_variant
     from .ops import _build
 
     variant = load_variant(args.engine_json)
@@ -498,6 +517,8 @@ def cmd_build(args, storage: Storage) -> int:
 
 
 def cmd_train(args, storage: Storage) -> int:
+    from .controller.context import Context
+    from .controller.params import load_variant
     from .workflow.core import run_train
 
     variant = load_variant(args.engine_json)
@@ -524,6 +545,11 @@ def build_deploy(args, storage: Optional[Storage] = None,
     """The engine server the deploy command would serve, not yet
     serving: the latest COMPLETED instance from storage, or the
     ``--model`` file; on ``port`` when given, else ``--port``."""
+    from .controller.context import Context
+    from .controller.params import load_variant
+    from .data.storage.registry import get_storage
+    from .server.engineserver import ServerConfig, deploy, deploy_models
+
     port = args.port if port is None else port
     variant = load_variant(args.engine_json)
     engine, engine_params = engine_from_variant(variant)
@@ -610,6 +636,7 @@ def build_fleet_deploy(args, storage: Optional[Storage] = None,
     candidates. A spawned replica (autoscaler or ``fleet scale``) takes a
     free port and joins the ring once ``servingWarm``. ``tracer`` keeps
     the autoscaler's decisions (reason ``autoscale``)."""
+    from .data.storage.registry import get_storage
     from .fleet import FleetConfig, create_fleet_server
     from .router import (
         Autoscaler,
@@ -619,6 +646,7 @@ def build_fleet_deploy(args, storage: Optional[Storage] = None,
         RouterConfig,
         create_router_server,
     )
+    from .server.http import AppServer
 
     storage = storage if storage is not None else get_storage()
     ssl_ctx = _ssl(args)
@@ -714,6 +742,8 @@ def cmd_deploy_fleet(args, storage: Storage) -> int:
 def cmd_batchpredict(args, storage: Storage) -> int:
     """Predict every query line of ``--input`` with the latest COMPLETED
     instance, on the card unless ``--device cpu``."""
+    from .controller.context import Context
+    from .controller.params import load_variant
     from .workflow.batch_predict import run_batch_predict
 
     variant = load_variant(args.engine_json)
@@ -729,6 +759,7 @@ def cmd_batchpredict(args, storage: Storage) -> int:
 def cmd_eval(args, storage: Storage) -> int:
     """Evaluate a params grid on the card unless ``--device cpu``; print
     the winner's one-liner."""
+    from .controller.context import Context
     from .workflow.core import run_evaluation
 
     evaluation = load_engine_factory(args.evaluation)
@@ -1377,6 +1408,7 @@ def cmd_shell(args, storage: Storage) -> int:
     ``p_event_store`` and ``Context`` preloaded (reads stdin)."""
     import code
 
+    from .controller.context import Context
     from .data.store import EventStoreFacade
     from .pypio import PEventStore
 
@@ -1568,6 +1600,195 @@ def _serve(srv: AppServer, what: str, args, note: str = "") -> int:
 
 
 # -- parser -----------------------------------------------------------------
+
+def cmd_check(args) -> int:
+    """``check`` — the concurrency, lifecycle, host-sync and
+    shared-memory static analysis of ``analysis/``, interprocedural over
+    the scanned set (pure AST, no torch/storage import, and nothing of
+    the scanned tree is executed: ``ops/smem.py``'s formulas are
+    interpreted by ``analysis/interp.py``). Non-zero exit on findings — or, with ``--baseline``, on
+    findings NOT in the baseline (which only ever ratchets down; see
+    --baseline-grow). ``--format json|sarif`` for machines. Flags,
+    output and exit codes are the JAX package's ``ptpu check``."""
+    from .analysis import (
+        RULES,
+        findings_to_json,
+        findings_to_sarif,
+        load_baseline,
+        new_findings,
+        run_check,
+        shrinkable_entries,
+        write_baseline,
+    )
+
+    if args.list_rules:
+        for name, rule in sorted(RULES.items()):
+            _out(f"{name}: {rule.description}")
+        return 0
+    try:
+        findings = run_check(args.paths or ["predictionio_tpu_torch"],
+                             rule_names=args.rule or None)
+    except ValueError as e:
+        _err(str(e))
+        return 2
+    if args.write_baseline:
+        if not args.baseline:
+            _err("--write-baseline requires --baseline FILE")
+            return 2
+        cap = None
+        if not args.baseline_grow and os.path.exists(args.baseline):
+            try:
+                cap = load_baseline(args.baseline)
+            except (OSError, ValueError, KeyError, TypeError) as e:
+                _err(f"ptpu check: cannot read baseline: {e}")
+                return 2
+        n = write_baseline(args.baseline, findings, cap=cap)
+        _err(f"ptpu check: wrote {n} baseline entr"
+             f"{'y' if n == 1 else 'ies'} "
+             f"({len(findings)} finding(s)) to {args.baseline}"
+             f"{' (ratchet: shrink-only)' if cap is not None else ''}.")
+        if cap is not None:
+            overflow = new_findings(findings, cap)
+            if overflow:
+                _err(f"ptpu check: {len(overflow)} finding(s) exceed "
+                     f"the recorded baseline and were NOT absorbed "
+                     f"(the baseline only ratchets down; fix them or "
+                     f"re-record deliberately with --baseline-grow):")
+                for f in overflow:
+                    _err(f"  {f.format()}")
+                return 1
+        return 0
+    gating = findings
+    baselined = 0
+    if args.baseline:
+        try:
+            baseline = load_baseline(args.baseline)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            _err(f"ptpu check: cannot read baseline: {e}")
+            return 2
+        gating = new_findings(findings, baseline)
+        baselined = len(findings) - len(gating)
+        shrinkable = shrinkable_entries(findings, baseline)
+        if shrinkable:
+            _err(f"ptpu check: {len(shrinkable)} baseline entr"
+                 f"{'y is' if len(shrinkable) == 1 else 'ies are'} "
+                 f"no longer fully reproduced — the baseline can "
+                 f"ratchet down (re-run with --write-baseline):")
+            for (path, rule, _msg), rec, act in shrinkable:
+                _err(f"  {path}: {rule}: recorded {rec}, found {act}")
+    if args.format == "json":
+        _out(findings_to_json(gating))
+    elif args.format == "sarif":
+        _out(findings_to_sarif(gating, RULES))
+    else:
+        for f in gating:
+            _out(f.format())
+    suffix = (f" ({baselined} baselined finding(s) not counted)"
+              if baselined else "")
+    if gating:
+        _err(f"ptpu check: {len(gating)} "
+             f"{'new ' if args.baseline else ''}finding(s){suffix}. "
+             f"Fix them or suppress with "
+             f"'# ptpu: allow[rule] — justification'.")
+        return 1
+    if args.format == "text":
+        _out(f"ptpu check: clean.{suffix}")
+    return 0
+
+
+def cmd_audit_lifecycle(args) -> int:
+    """``audit-lifecycle`` — boot each subsystem (event / storage /
+    engine servers, stream trainer, fleet aggregator, router autoscaler)
+    on ``--device`` (the card unless ``cpu``), drive start→serve→stop
+    cycles, snapshot ``/proc/self`` threads/fds/sockets around them and
+    gate the leak census against the committed golden manifest
+    (``analysis/lifecycle_baseline.json``) with shrink-only ratchet
+    semantics. The static lifecycle rules catch the leaks the AST can
+    see; this catches the ones only a running process shows. Non-zero
+    exit on any leak above the recorded allowance (see --baseline-grow);
+    exit 2 without the card unless ``--device cpu``. Flags, output and
+    exit codes are the JAX package's ``ptpu audit-lifecycle``."""
+    from .analysis import lifecycle_audit as la
+
+    if args.list_entries:
+        for name, (_b, desc) in la.ENTRY_POINTS.items():
+            _out(f"{name}: {desc}")
+        return 0
+    try:
+        manifest = la.run_audit(args.entry or None, cycles=args.cycles,
+                                device=args.device)
+    except la.AuditError as e:
+        _err(f"ptpu audit-lifecycle: {e}")
+        return 2
+    baseline_path = args.baseline or la.DEFAULT_BASELINE
+    if args.out:
+        from .analysis.baseline import atomic_write_text
+
+        atomic_write_text(
+            args.out, json.dumps(manifest, indent=2, sort_keys=True) + "\n")
+    if args.write_baseline:
+        cap = None
+        if not args.baseline_grow and os.path.exists(baseline_path):
+            try:
+                cap = la.load_manifest(baseline_path)
+            except (OSError, ValueError) as e:
+                _err(f"ptpu audit-lifecycle: cannot read baseline: {e}")
+                return 2
+        la.write_manifest(baseline_path, manifest, cap=cap)
+        _err(f"ptpu audit-lifecycle: wrote "
+             f"{len(manifest['entries'])} entry point(s) to "
+             f"{baseline_path}"
+             f"{' (ratchet: shrink-only)' if cap is not None else ''}.")
+        if cap is not None:
+            violations, _ = la.diff_manifests(manifest, cap)
+            if violations:
+                _err(f"ptpu audit-lifecycle: {len(violations)} "
+                     f"leak(s) were NOT absorbed (the baseline only "
+                     f"ratchets down; fix them or re-record "
+                     f"deliberately with --baseline-grow):")
+                for v in violations:
+                    _err(f"  {v}")
+                return 1
+        return 0
+    if args.format == "json":
+        _out(json.dumps(manifest, indent=2, sort_keys=True))
+    else:
+        _out(la.format_text(manifest))
+    if not os.path.exists(baseline_path):
+        _err(f"ptpu audit-lifecycle: no baseline at {baseline_path} — "
+             f"record one with --write-baseline (gate skipped).")
+        return 0
+    try:
+        baseline = la.load_manifest(baseline_path)
+    except (OSError, ValueError) as e:
+        _err(f"ptpu audit-lifecycle: cannot read baseline: {e}")
+        return 2
+    if args.entry:
+        # a subset run gates only the audited entries — the others
+        # were not cycled, not "no longer reproduced"
+        keep = set(args.entry)
+        baseline = {**baseline,
+                    "entries": {k: v
+                                for k, v in baseline["entries"].items()
+                                if k in keep}}
+    violations, shrinkable = la.diff_manifests(manifest, baseline)
+    if shrinkable:
+        _err(f"ptpu audit-lifecycle: {len(shrinkable)} baseline entr"
+             f"{'y is' if len(shrinkable) == 1 else 'ies are'} no "
+             f"longer fully reproduced — ratchet down with "
+             f"--write-baseline:")
+        for s in shrinkable:
+            _err(f"  {s}")
+    if violations:
+        _err(f"ptpu audit-lifecycle: {len(violations)} resource "
+             f"leak(s) vs {baseline_path}:")
+        for v in violations:
+            _err(f"  {v}")
+        return 1
+    _err("ptpu audit-lifecycle: every start->stop cycle released its "
+         "threads, fds and sockets.")
+    return 0
+
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
@@ -2090,6 +2311,70 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("target")
     s.add_argument("args", nargs="*")
     sub.add_parser("version", help="print the version")
+    s = sub.add_parser("check", help="concurrency, lifecycle, host-sync "
+                       "and shared-memory static analysis, "
+                       "interprocedural (lock-discipline, leaked-thread, "
+                       "timeout, persist, queue, spin, retry, metric "
+                       "catalog, smem-budget lints)")
+    s.add_argument("paths", nargs="*",
+                   help="files/dirs to check (default: "
+                        "predictionio_tpu_torch)")
+    s.add_argument("--rule", action="append", default=[],
+                   help="run only the named rule (repeatable)")
+    s.add_argument("--list-rules", action="store_true",
+                   help="print the rule catalogue and exit")
+    s.add_argument("--format", choices=("text", "json", "sarif"),
+                   default="text",
+                   help="output format (sarif for GitHub code-scanning "
+                        "PR annotations)")
+    s.add_argument("--baseline", default="",
+                   help="baseline file: exit 1 only on findings NOT "
+                        "recorded in it (legacy-debt burn-down)")
+    s.add_argument("--write-baseline", action="store_true",
+                   help="record current findings into --baseline FILE; "
+                        "against an existing baseline this only "
+                        "RATCHETS (removes/decrements entries) and "
+                        "fails on findings beyond the recorded debt")
+    s.add_argument("--baseline-grow", action="store_true",
+                   help="with --write-baseline: allow recording NEW "
+                        "debt (e.g. when enabling a rule) instead of "
+                        "the default shrink-only ratchet")
+
+    s = sub.add_parser("audit-lifecycle", help="boot each subsystem, "
+                       "drive start->serve->stop cycles, snapshot "
+                       "/proc threads/fds/sockets around them and "
+                       "gate the leak census against the committed "
+                       "golden manifest (the runtime complement of "
+                       "the ptpu check lifecycle rules)")
+    s.add_argument("--entry", action="append", default=[],
+                   help="audit only the named entry point (repeatable)")
+    s.add_argument("--list-entries", action="store_true",
+                   help="print the entry-point catalogue and exit")
+    s.add_argument("--cycles", type=int, default=3,
+                   help="measured start->stop cycles per entry "
+                        "(default 3; one extra warmup cycle always "
+                        "runs unmeasured)")
+    s.add_argument("--format", choices=("text", "json"), default="text",
+                   help="output format for the fresh manifest")
+    s.add_argument("--out", default="",
+                   help="also write the fresh manifest JSON to FILE "
+                        "(the CI artifact)")
+    s.add_argument("--baseline", default="",
+                   help="golden manifest to gate against (default: the "
+                        "committed analysis/lifecycle_baseline.json)")
+    s.add_argument("--write-baseline", action="store_true",
+                   help="record the fresh manifest as the baseline; "
+                        "against an existing one this only RATCHETS "
+                        "(shrinks the allowed leaks) and fails on "
+                        "growth")
+    s.add_argument("--baseline-grow", action="store_true",
+                   help="with --write-baseline: allow recording new "
+                        "entries / larger allowances (deliberate "
+                        "daemon changes) instead of the shrink-only "
+                        "ratchet")
+    s.add_argument("--device", default=None,
+                   help="the device the entries train, serve and fold in "
+                        "on (default: the CUDA card)")
     return p
 
 
@@ -2127,6 +2412,12 @@ def main(argv: Optional[List[str]] = None,
     if args.command == "version":
         _out(__version__)
         return 0
+    if args.command == "check":
+        # pure-AST lint: needs neither storage nor torch
+        return cmd_check(args)
+    if args.command == "audit-lifecycle":
+        # boots its own in-memory storages on the card (or the CPU)
+        return cmd_audit_lifecycle(args)
     if args.command == "stream":
         return cmd_stream(args)
     if args.command == "trace":
@@ -2137,6 +2428,8 @@ def main(argv: Optional[List[str]] = None,
         return cmd_slo(args)
     if args.command == "fleet":
         return cmd_fleet(args)
+    from .data.storage.registry import get_storage
+
     storage = storage if storage is not None else get_storage()
     if args.command in COMMANDS:
         return COMMANDS[args.command](args, storage)

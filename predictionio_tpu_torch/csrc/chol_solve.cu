@@ -612,3 +612,29 @@ extern "C" int chol_solve_f32(int device, const void* A, const void* b,
   }
   return static_cast<int>(err);
 }
+
+// Host queries for the shared-memory audit. chol_solve_smem_bytes is the
+// dynamic shared memory chol_solve_f32 requires of a block of `warps`
+// warps at padded rank rp (ops/smem.py::chol_smem_bytes is the same sum),
+// and chol_solve_static_smem writes the static shared memory of the
+// kernel that takes rp to *out. Returns a cudaError_t.
+extern "C" long long chol_solve_smem_bytes(int rp, int warps) {
+  return static_cast<long long>(rp <= kRegMaxRank ? reg_smem_bytes(rp, warps)
+                                                  : shm_smem_bytes(rp, warps));
+}
+
+extern "C" int chol_solve_static_smem(int rp, long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (rp) {
+    case 16: err = cudaFuncGetAttributes(&a, chol_solve_regs<16>); break;
+    case 32: err = cudaFuncGetAttributes(&a, chol_solve_regs<32>); break;
+    case 48: err = cudaFuncGetAttributes(&a, chol_solve_regs<48>); break;
+    case 64: err = cudaFuncGetAttributes(&a, chol_solve_regs<64>); break;
+    case 96: err = cudaFuncGetAttributes(&a, chol_solve_smem<96>); break;
+    case 128: err = cudaFuncGetAttributes(&a, chol_solve_smem<128>); break;
+    default: break;
+  }
+  if (err == cudaSuccess) *out = static_cast<long long>(a.sharedSizeBytes);
+  return static_cast<int>(err);
+}

@@ -87,3 +87,30 @@ int launch(int device, const void* table, const void* idx, const void* wa,
 
 FUSED_GRAM_ENTRY(fused_gram_f32, float)
 FUSED_GRAM_ENTRY(fused_gram_bf16, __nv_bfloat16)
+
+// Host queries for the shared-memory audit. fused_gram_smem_bytes is
+// gram_tile::stage_bytes<T>(r) for f32 (itemsize 4) or bf16 (2) tables
+// (ops/smem.py::gram_stage_bytes is the same sum), -1 for another
+// itemsize; fused_gram_static_smem writes the row kernel's static shared
+// memory to *out. Returns a cudaError_t.
+extern "C" long long fused_gram_smem_bytes(int r, int itemsize) {
+  if (itemsize == 4) return (long long)gram_tile::stage_bytes<float>(r);
+  if (itemsize == 2) {
+    return (long long)gram_tile::stage_bytes<__nv_bfloat16>(r);
+  }
+  return -1;
+}
+
+extern "C" int fused_gram_static_smem(int itemsize, long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (itemsize == 4) {
+    err = cudaFuncGetAttributes(&a, gram_tile::gram_rows_kernel<float>);
+  }
+  if (itemsize == 2) {
+    err = cudaFuncGetAttributes(&a,
+                                gram_tile::gram_rows_kernel<__nv_bfloat16>);
+  }
+  if (err == cudaSuccess) *out = static_cast<long long>(a.sharedSizeBytes);
+  return static_cast<int>(err);
+}

@@ -815,3 +815,24 @@ int launch(int device, const void* user, const void* idx, const void* item,
 FUSED_TOPK_ENTRY(fused_topk_f32, float)
 FUSED_TOPK_ENTRY(fused_topk_bf16, __nv_bfloat16)
 FUSED_TOPK_ENTRY(fused_topk_i8, int8_t)
+
+// Host queries for the shared-memory audit. fused_topk_smem_bytes is
+// smem_bytes above (ops/smem.py::topk_smem_bytes is the same sum), and
+// fused_topk_static_smem writes the kernel's static shared memory for the
+// f32 (wire 4), bf16 (2) or int8 (1) tables to *out. Returns a cudaError_t.
+extern "C" long long fused_topk_smem_bytes(int row_bytes, int qb, int chunk,
+                                           int k) {
+  return static_cast<long long>(smem_bytes(row_bytes, qb, chunk, k));
+}
+
+extern "C" int fused_topk_static_smem(int wire, long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (wire == 4) err = cudaFuncGetAttributes(&a, fused_topk_kernel<float>);
+  if (wire == 2) {
+    err = cudaFuncGetAttributes(&a, fused_topk_kernel<__nv_bfloat16>);
+  }
+  if (wire == 1) err = cudaFuncGetAttributes(&a, fused_topk_kernel<int8_t>);
+  if (err == cudaSuccess) *out = static_cast<long long>(a.sharedSizeBytes);
+  return static_cast<int>(err);
+}

@@ -171,3 +171,27 @@ int launch(int device, const void* table, const void* idx, const void* wa,
 
 GRAM_TABLE_ENTRY(gram_table_f32, float)
 GRAM_TABLE_ENTRY(gram_table_bf16, __nv_bfloat16)
+
+// Host queries for the shared-memory audit. gram_table_smem_bytes is path
+// 1's resident_smem<T>(m, r) for f32 (itemsize 4) or bf16 (2) tables
+// (ops/smem.py::gram_resident_bytes is the same sum), -1 for another
+// itemsize; gram_table_static_smem writes path 1's kernel's static shared
+// memory to *out. Returns a cudaError_t.
+extern "C" long long gram_table_smem_bytes(int m, int r, int itemsize) {
+  if (itemsize == 4) return (long long)resident_smem<float>(m, r);
+  if (itemsize == 2) return (long long)resident_smem<__nv_bfloat16>(m, r);
+  return -1;
+}
+
+extern "C" int gram_table_static_smem(int itemsize, long long* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (itemsize == 4) {
+    err = cudaFuncGetAttributes(&a, gram_table_resident<float>);
+  }
+  if (itemsize == 2) {
+    err = cudaFuncGetAttributes(&a, gram_table_resident<__nv_bfloat16>);
+  }
+  if (err == cudaSuccess) *out = static_cast<long long>(a.sharedSizeBytes);
+  return static_cast<int>(err);
+}

@@ -661,8 +661,9 @@ class FleetAggregator:
             "replicasDraining": n_draining,
             "staleAfterSec": stale,
             "scrapeIntervalSec": self.config.scrape_interval_sec,
-            # a display-only read of a monotone int: taking _cycle_lock
-            # here would park every status request behind a cycle
+            # ptpu: allow[unguarded-shared-state] — a display-only read
+            # of a monotone int: taking _cycle_lock here would park
+            # every status request behind a cycle
             "cycles": self._cycles,
             "qps": self._qps_gauge.labels().value,
             "kneeQps": self._knee_qps,

@@ -40,7 +40,8 @@ class OverlapTracker:
         self._t0 = None
         self._last = None
 
-    # called only with self._lock held (enter, exit, snapshot)
+    # ptpu: guarded-by[_lock] — called only with self._lock held
+    # (enter, exit, snapshot)
     def _accrue(self, now: float) -> None:
         if self._last is None:
             return

@@ -517,9 +517,9 @@ class Tracer:
             "pio_trace_requests_total",
             "Requests traced by the flight recorder (every request is; "
             "retention is the sampled part)",
-            # a scrape-time read of a monotonically increasing int
-            # (guarded by _count_lock when written); a torn read is at
-            # worst one request stale
+            # ptpu: guarded-by[_count_lock] — a scrape-time read of a
+            # monotonically increasing int (written under _count_lock);
+            # a torn read is at worst one request stale
             fn=lambda: float(self._started))
         retained_fam = registry.gauge(
             "pio_trace_retained_total",

@@ -30,22 +30,21 @@ import torch
 
 from ..utils.device import H100_SMS, sm_count
 from .launches import count_launch
-
-#: largest k the kernel's running top-k list holds (``csrc/fused_topk.cu``
-#: kMaxK); larger k goes to ``models/als.py::_serve_topk``
-TOPK_MAX_K = 128
-
-#: largest rank the kernel's shared-memory tile takes (kMaxRank)
-TOPK_MAX_RANK = 256
-
-#: queries a block takes at most, item rows a staged tile holds at most
-#: and at least (kMaxQB, kMaxChunk, kMinChunk)
-TOPK_MAX_QB = 64
-TOPK_MAX_CHUNK = 128
-TOPK_MIN_CHUNK = 32
-
-#: dynamic shared memory a block may ask for on Hopper (227 KB)
-SMEM_LIMIT = 232_448
+# the launch's bounds live with the shared-memory formula: the largest k
+# the kernel's running top-k list holds (``csrc/fused_topk.cu`` kMaxK;
+# larger k goes to ``models/als.py::_serve_topk``), the largest rank its
+# tile takes (kMaxRank), the most queries a block takes (kMaxQB), the
+# item rows a staged tile holds (kMinChunk..kMaxChunk), and the dynamic
+# shared memory a block may ask for on Hopper (227 KB)
+from .smem import (
+    SMEM_LIMIT,
+    TOPK_CHUNKS,
+    TOPK_MAX_K,
+    TOPK_MAX_QB,
+    TOPK_MAX_RANK,
+    topk_fit,
+    topk_smem_bytes,
+)
 
 #: shared memory of one SM (228 KB); each resident block also takes 1 KB
 SM_SMEM = 233_472
@@ -106,18 +105,6 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def topk_smem_bytes(row_bytes: int, qb: int, chunk: int, k: int) -> int:
-    """Dynamic shared memory of one block (``csrc/fused_topk.cu``
-    smem_bytes): two item tiles and the user rows at a stride of the row
-    padded to 32 bytes plus 16, per-query scales, thresholds and counts,
-    the running lists (32 entries for k <= 32, else 128) and the
-    candidate lists."""
-    sw = _ceil_div(row_bytes, 32) * 8 + 4
-    words = (2 * chunk * sw + qb * sw + 4 * qb
-             + 2 * qb * (32 if k <= 32 else 128) + 2 * qb * chunk)
-    return 4 * words
-
-
 @functools.lru_cache(maxsize=4096)
 def topk_plan(B: int, n_rows: int, r: int, itemsize: int, k: int,
               n_sm: int = H100_SMS, aligned: bool = True) -> TopkPlan:
@@ -139,15 +126,11 @@ def topk_plan(B: int, n_rows: int, r: int, itemsize: int, k: int,
     row_bytes = r * itemsize
     kp = 1 << (k - 1).bit_length()
     qb = min(TOPK_MAX_QB, 8 * _ceil_div(max(B, 1), 8))
-    chunk = TOPK_MAX_CHUNK
-    while topk_smem_bytes(row_bytes, qb, chunk, k) > SMEM_LIMIT:
-        if chunk > TOPK_MIN_CHUNK:
-            chunk //= 2
-        elif qb > 8:
-            qb = 8 * _ceil_div(qb // 2, 8)
-        else:
-            raise ValueError(f"rank {r} at {itemsize} bytes and k {k} do "
-                             f"not fit a block's shared memory")
+    try:
+        qb, chunk = topk_fit(row_bytes, qb, k, SMEM_LIMIT)
+    except ValueError:
+        raise ValueError(f"rank {r} at {itemsize} bytes and k {k} do "
+                         f"not fit a block's shared memory") from None
     n_qblocks = _ceil_div(max(B, 1), qb)
     n_chunks = _ceil_div(n_rows, chunk)
     smem = topk_smem_bytes(row_bytes, qb, chunk, k)

@@ -147,6 +147,9 @@ def bucket_layout(counts: np.ndarray, min_len: int = 8,
 def _host_tensor(arr, dtype) -> torch.Tensor:
     """A CPU tensor of ``arr`` as ``dtype`` (copied when numpy hands out
     a read-only view, which torch cannot wrap)."""
+    # ptpu: allow[host-sync-in-hot-path] — host numpy in, a CPU tensor
+    # out: no device value reaches np.asarray here. The caller's
+    # .to(device) then copies host to device from pageable memory.
     a = np.asarray(arr, dtype=dtype)
     return torch.from_numpy(a if a.flags.writeable else a.copy())
 
@@ -187,7 +190,7 @@ def pack_histories_device(rows: np.ndarray, cols: np.ndarray,
     dev = resolve_device(device)
     L = max(int(max_len), 1)
     n_pad = ((n_rows + pad_rows_to - 1) // pad_rows_to) * pad_rows_to
-    rows = np.asarray(rows)
+    rows = np.asarray(rows)  # ptpu: allow[host-sync-in-hot-path] — host COO
     base = np.arange(n_rows, dtype=np.int64) * L
     idx, val = _pack_flat(rows, cols, vals, base, np.full(n_rows, L),
                           n_rows, n_pad * L, dev)
@@ -211,7 +214,7 @@ def pack_histories_bucketed_device(rows: np.ndarray, cols: np.ndarray,
     ``max_len`` caps each row's history (truncating in input order);
     without it the layout is drop-free."""
     dev = resolve_device(device)
-    rows = np.asarray(rows)
+    rows = np.asarray(rows)  # ptpu: allow[host-sync-in-hot-path] — host COO
     if counts is None:
         counts = np.bincount(rows, minlength=n_rows)
     if max_len is not None:
@@ -315,10 +318,10 @@ def pack_histories_split(rows: np.ndarray, cols: np.ndarray,
                          pad_rows_to: int = 1) -> SplitHistories:
     """Host-numpy split packing (:class:`SplitHistories`), CPU tensors."""
     L = max(int(max_len), 1)
-    rows = np.asarray(rows)
+    # ptpu: allow[host-sync-in-hot-path] — the host COO columns
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
     order = np.argsort(rows, kind="stable")
-    rs, cs, vs = rows[order], np.asarray(cols)[order], \
-        np.asarray(vals)[order]
+    rs, cs, vs = rows[order], cols[order], vals[order]
     counts = np.bincount(rs, minlength=n_rows).astype(np.int64)
     groups, n_virtual, n_vpad = split_layout(counts, L, pad_rows_to)
     gstarts, row_ids, vcounts, real_counts = _split_meta(
@@ -351,9 +354,11 @@ def pack_histories_split_device(rows: np.ndarray, cols: np.ndarray,
     flat scatter with that base."""
     dev = resolve_device(device)
     L = max(int(max_len), 1)
-    rows = np.asarray(rows)
+    rows = np.asarray(rows)  # ptpu: allow[host-sync-in-hot-path] — host COO
     if counts is None:
         counts = np.bincount(rows, minlength=n_rows)
+    # ptpu: allow[host-sync-in-hot-path] — host counts (bincount's, or
+    # the caller's histogram)
     counts = np.asarray(counts, dtype=np.int64)
     groups, n_virtual, n_vpad = split_layout(counts, L, pad_rows_to)
     gstarts, row_ids, vcounts, real_counts = _split_meta(

@@ -40,20 +40,21 @@ import torch
 
 from ..utils.device import H100_SMS, sm_count
 from .launches import count_launch
-
-#: largest rank the kernel takes (``csrc/chol_solve.cu`` kMaxRank)
-CHOL_MAX_RANK = 128
-
-#: largest rank whose rows live in registers (kRegMaxRank); past it the
-#: matrix sits in shared memory
-CHOL_REG_MAX_RANK = 64
-
-#: columns a chunk of a row; one phase of the factorization is this many
-#: column steps (kChunk)
-CHOL_CHUNK = 8
-
-#: the most warps a block takes (kWarpsPerBlock)
-CHOL_WARPS_PER_BLOCK = 4
+# the launch's bounds live with the shared-memory formula: the largest
+# rank the kernel takes (``csrc/chol_solve.cu`` kMaxRank), the largest
+# whose rows live in registers (kRegMaxRank; past it the matrix sits in
+# shared memory), the columns of a chunk of a row, one phase of the
+# factorization (kChunk), and the most warps a block takes
+# (kWarpsPerBlock)
+from .smem import (
+    CHOL_CHUNK,
+    CHOL_MAX_RANK,
+    CHOL_REG_MAX_RANK,
+    CHOL_WARPS_PER_BLOCK,
+    chol_padded_rank,
+    chol_smem_bytes,
+    chol_systems_per_warp,
+)
 
 #: kernel launches since the last reset (counted by
 #: ``launches.count_launch``; ``chip_smoke.py`` zeroes it before driving
@@ -76,26 +77,6 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.chol_solve_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _pow2ceil(v: int) -> int:
-    return 1 << max(0, (v - 1).bit_length())
-
-
-def _tri_floats(R: int) -> int:
-    """Floats of L's ``R`` rows, row ``i`` rounded up to whole 16-byte
-    words (``csrc/chol_solve.cu`` tri_offset)."""
-    return sum(-(-(i + 1) // 4) * 4 for i in range(R))
-
-
-def padded_rank(r: int) -> int:
-    """The kernel's rank for ``r``: a multiple of 16 up to 64 (rows in
-    registers), 96 or 128 past it (rows in shared memory)."""
-    if not 1 <= r <= CHOL_MAX_RANK:
-        raise ValueError(f"the kernel takes rank 1..{CHOL_MAX_RANK}, got {r}")
-    if r <= CHOL_REG_MAX_RANK:
-        return -(-r // 16) * 16
-    return 96 if r <= 96 else 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,21 +123,18 @@ def solve_plan(r: int, n: int, n_sm: int = H100_SMS,
     matrix takes ``R x (R+4)`` floats of shared memory and two multiplier
     vectors of ``R``: one warp a block. Rows load as 16-byte words where
     every row starts on 16 bytes."""
-    R = padded_rank(r)
+    R = chol_padded_rank(r)
     lanes = len(lane_rows(R))
+    per_warp = chol_systems_per_warp(R)
     if R <= CHOL_REG_MAX_RANK:
         route = "registers"
-        per_warp = 32 // _pow2ceil(lanes)
-        warp_floats = per_warp * (2 * (R + CHOL_CHUNK) + _tri_floats(R))
         warps = -(-n // per_warp)
         wpb = max(1, min(CHOL_WARPS_PER_BLOCK, warps // n_sm))
     else:
         route = "shared"
-        per_warp = 1
-        warp_floats = R * (R + 4) + 2 * R
         wpb = 1
     return SolvePlan(R, route, lanes, per_warp, wpb,
-                     -(-n // (per_warp * wpb)), wpb * warp_floats * 4,
+                     -(-n // (per_warp * wpb)), chol_smem_bytes(R, wpb),
                      aligned and r % 4 == 0)
 
 

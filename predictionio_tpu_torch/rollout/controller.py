@@ -77,14 +77,19 @@ class RolloutController:
             "pio_release_canary_fraction",
             "Traffic fraction routed (canary) or mirrored (shadow) to "
             "the candidate release",
+            # ptpu: guarded-by[_lock] — a scrape-time read of a bool
+            # flag (written under _lock): atomic in CPython, at most one
+            # scrape interval stale
             fn=lambda: self.splitter.fraction if self.active else 0.0)
         reg.gauge(
             "pio_release_rollout_active",
             "1 while a candidate release is bound and health-gated",
+            # ptpu: guarded-by[_lock] — the same scrape-time read
             fn=lambda: 1.0 if self.active else 0.0)
         reg.gauge(
             "pio_release_shadow_mode",
             "1 when the live rollout mirrors instead of splitting",
+            # ptpu: guarded-by[_lock] — the same scrape-time read
             fn=lambda: 1.0 if (self.active and self.shadow) else 0.0)
         self._promotions = reg.counter(
             "pio_release_promotions_total",

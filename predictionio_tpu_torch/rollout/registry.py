@@ -108,6 +108,10 @@ class ReleaseRegistry:
         return f"{RESERVED_PREFIX}-{digest[:20]}"
 
     def _load(self) -> Dict[str, Any]:
+        # ptpu: allow[blocking-under-lock] — _lock (an RLock) is the
+        # read-modify-write boundary of the release blob: pin, deploy,
+        # undeploy, promote and rollback hold it across load, mutate and
+        # save. Release-admin calls and the bind's pin read, never a query.
         blob = self.storage.models().get(self.key)
         if blob is None:
             return _empty_state()
@@ -122,11 +126,15 @@ class ReleaseRegistry:
     def _save(self, state: Dict[str, Any]) -> None:
         state["history"] = state["history"][-MAX_HISTORY:]
         payload = json.dumps(state).encode("utf-8")
+        # ptpu: allow[blocking-under-lock] — the write half of _load's
+        # read-modify-write under _lock
         self.storage.models().insert(Model(id=self.key, models=payload))
         self._index_self()
 
     def _index_self(self) -> None:
         triple = [self.engine_id, self.engine_version, self.engine_variant]
+        # ptpu: allow[blocking-under-lock] — the engine index rides
+        # _save's read-modify-write under _lock (release-admin calls only)
         models = self.storage.models()
         blob = models.get(INDEX_KEY)
         entries: List[List[str]] = []

@@ -773,6 +773,8 @@ class QueryServer:
         return [a.predict(m, supplemented)
                 for a, m in zip(algorithms, models)]
 
+    # ptpu: guarded-by[_lock] — only ever called from _bind under the
+    # lock, inside the swap that installs the binding it describes
     def _record_gram_mode(self) -> None:
         """The ``pio_gram_mode`` info gauge: 1 at the gram realization the
         bound ALS params resolve to (``models/als.py::
@@ -789,6 +791,8 @@ class QueryServer:
                 fam.labels(mode=resolved_gram_mode(p)).set(1.0)
                 return
 
+    # ptpu: guarded-by[_lock] — only ever called from _bind under the
+    # lock, like _record_gram_mode
     def _record_serving_kernel(self) -> None:
         """The ``pio_serving_kernel`` info gauge: 1 at the serving top-k
         realization (the port serves through ``fused_topk``) and the quant
@@ -1338,6 +1342,7 @@ class QueryServer:
             models, inst = self.models, self.instance
             report = self._warm_report
             avg, last = self.avg_serving_sec, self.last_serving_sec
+            requests, stream = self.request_count, self.stream
         return {
             "status": "alive",
             "engineId": inst.engine_id if inst else None,
@@ -1354,7 +1359,7 @@ class QueryServer:
             "pipeline": self.pipeline_status(),
             "kernels": {"fused_topk": {
                 "launches": _fused_topk.LAUNCHES}},
-            "requestCount": self.request_count,
+            "requestCount": requests,
             "avgServingSec": avg,
             "lastServingSec": last,
             "servingWarm": self.warm_done.is_set(),
@@ -1362,7 +1367,7 @@ class QueryServer:
             "warmReport": report,
             "lifecycle": self.lifecycle,
             "lineage": self.stream_lineage(),
-            "stream": (self.stream.status() if self.stream is not None
+            "stream": (stream.status() if stream is not None
                        else {"running": False}),
             "trace": (self.tracer.status() if self.tracer is not None
                       else {"enabled": False}),
@@ -1440,6 +1445,8 @@ class QueryServer:
         and the pool, and join the warm-up threads and the hot tier's
         refresh thread, each within ``timeout``; detach the numerics
         listener. Idempotent."""
+        # ptpu: guarded-by[_release_lock] — one read of the reference
+        # start_canary swaps whole under _release_lock
         rollout = self.rollout
         if rollout is not None:
             rollout.stop()
@@ -1599,8 +1606,9 @@ class QueryServer:
             last = self._stream_last_apply
             bound = self._stream_base_bound_at
             trainer = self.stream
+            inst = self.instance
         now = time.time()
-        trained = getattr(self.instance, "end_time", None)
+        trained = getattr(inst, "end_time", None)
         if last is not None:
             staleness = now - last
         elif trained is not None:
@@ -1645,6 +1653,9 @@ class QueryServer:
         """Per-arm health series, recorded only while a rollout is live
         (the controller windows these; a client's 4xx never counts
         against an arm)."""
+        # ptpu: guarded-by[_release_lock] — one read of the reference
+        # start_canary swaps whole; a query must not wait on the lock a
+        # canary's bind holds
         rollout = self.rollout
         if rollout is None or not rollout.active:
             return
@@ -1674,6 +1685,8 @@ class QueryServer:
 
     def release_summary(self) -> dict:
         """The compact release state of ``/status.json``."""
+        # ptpu: guarded-by[_release_lock] — one read of the swapped
+        # reference, as in _observe_release
         rollout = self.rollout
         active = rollout is not None and rollout.active
         state: dict = {}
@@ -1817,6 +1830,11 @@ class QueryServer:
             if previous is not None and previous.active:
                 raise HTTPError(409, "a rollout is already in progress "
                                 f"(candidate {previous.instance_id})")
+            # ptpu: allow[blocking-under-lock] — _release_lock makes one
+            # canary at a time atomic: the live-rollout check, this read
+            # and the candidate's bind below happen under it (the JAX
+            # package checks and binds unlocked: ROADMAP.md queue 3).
+            # Release calls take it; no query does.
             inst = self.ctx.storage.engine_instances().get(instance_id)
             if inst is None:
                 raise HTTPError(
@@ -1833,6 +1851,8 @@ class QueryServer:
                          f"serving stable")
             if previous is not None:
                 previous.stop()  # concluded: join its gate thread
+            # ptpu: allow[blocking-under-lock] — the bind that the
+            # check-then-bind under _release_lock protects (see above)
             self.bind_candidate(inst, models=models)
             pol = policy or HealthPolicy()
             mode = "shadow" if shadow else "canary"
@@ -2040,8 +2060,10 @@ class MicroBatcher:
         self.window = max(window_ms, 0.0) / 1000.0
         self.max_batch = max(max_batch, 1)
         self.deadline_sec = max(deadline_ms, 0.0) / 1000.0
-        # depth is bounded by the HTTP threads blocked on their entries;
-        # past the deadline _deadline_submit sheds them
+        # ptpu: allow[unbounded-queue] — every entry has an HTTP worker
+        # thread blocked on it, so the depth is bounded by the server's
+        # connection concurrency; with a queue deadline, _deadline_submit
+        # sheds past it with a counted 503
         self._q: "queue.Queue" = queue.Queue()
         self._threads = [
             threading.Thread(target=self._drain, daemon=True,
@@ -2161,8 +2183,10 @@ class StagedPipeline:
             # (deep pipelines only shred the batches), deep on the card
             depth = 2 if server.device.type == "cpu" else 4
         self.depth = depth
-        # depth is bounded by the HTTP threads blocked on their entries;
-        # past the deadline _deadline_submit sheds them
+        # ptpu: allow[unbounded-queue] — every entry has an HTTP worker
+        # thread blocked on it, so the depth is bounded by the server's
+        # connection concurrency; with a queue deadline, _deadline_submit
+        # sheds past it with a counted 503
         self._q: "queue.Queue" = queue.Queue()
         self._dispatch_q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._readback_q: "queue.Queue" = queue.Queue(maxsize=depth)

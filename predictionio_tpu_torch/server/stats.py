@@ -102,8 +102,11 @@ class StatsCollector:
             sk = (app_id, status)
             cur.status_code_count[sk] = \
                 cur.status_code_count.get(sk, 0) + int(n)
-            # `keys` holds the block's DISTINCT triples (bounded by the
-            # app's event vocabulary), not its n rows
+            # ptpu: allow[host-sync-in-hot-path,blocking-under-lock] —
+            # numpy arrays of the block's host columns, not tensors: no
+            # card is waited on. `keys` holds the block's DISTINCT
+            # triples (bounded by the app's event vocabulary), not its
+            # n rows
             for (et, tt, ev), c in zip(keys.tolist(), counts.tolist()):
                 ek = (app_id, (
                     d.entity_types.values[et],

@@ -99,6 +99,8 @@ def _batch_version(batch, memo_key) -> str:
             batch.props_offsets, batch.props_blob]
     cols += [batch.float_props[k] for k in sorted(batch.float_props)]
     for arr in cols:
+        # ptpu: allow[host-sync-in-hot-path] — the batch's columns are
+        # host numpy: the storage server never holds a tensor
         a = np.asarray(arr, order="C")
         h.update(str(a.dtype).encode())
         h.update(a.tobytes())

@@ -32,8 +32,12 @@ def to_jsonable(obj: Any) -> Any:
     if isinstance(obj, (list, tuple, set, frozenset)):
         return [to_jsonable(x) for x in obj]
     if isinstance(obj, np.generic):
+        # ptpu: allow[host-sync-in-hot-path] — a numpy scalar, on the host
         return obj.item()
     if isinstance(obj, (np.ndarray, torch.Tensor)):
+        # ptpu: allow[host-sync-in-hot-path] — the wire-JSON boundary:
+        # an array or tensor becomes Python lists here, the one place
+        # the query path serializes one, after its serve span
         return obj.tolist()
     return str(obj)
 

@@ -225,8 +225,8 @@ class TestWrapperContract:
         assert int(re.search(r"kMaxRank = (\d+)", src).group(1)) \
             == ft.TOPK_MAX_RANK
         for const, want in (("kMaxQB", ft.TOPK_MAX_QB),
-                            ("kMaxChunk", ft.TOPK_MAX_CHUNK),
-                            ("kMinChunk", ft.TOPK_MIN_CHUNK)):
+                            ("kMaxChunk", ft.TOPK_CHUNKS[-1]),
+                            ("kMinChunk", ft.TOPK_CHUNKS[0])):
             assert int(re.search(rf"{const} = (\d+)", src).group(1)) == want
         assert int(re.search(r"kEmptyId = (0x[0-9a-f]+)", src).group(1),
                    16) == ft.EMPTY_ID

@@ -347,7 +347,16 @@ def test_duplicate_and_empty_specs_refused_as_the_jax_engine():
         assert str(perr.value) == str(jerr.value)
 
 
+def _slo_threads():
+    """The live ``slo-engine`` threads: a test holds its own to those it
+    found at its start (a server another test file left running in this
+    process is not its)."""
+    return {t for t in threading.enumerate()
+            if t.name == "slo-engine" and t.is_alive()}
+
+
 def test_the_tick_thread_starts_once_and_is_joined():
+    others = _slo_threads()
     reg = pobs.MetricsRegistry()
     reg.counter("pio_http_requests_total").labels(
         route="/q", status="200").inc()
@@ -364,8 +373,7 @@ def test_the_tick_thread_starts_once_and_is_joined():
     eng.stop()
     eng.stop()  # idempotent
     assert not eng.status()["running"]
-    assert not [t for t in threading.enumerate()
-                if t.name == "slo-engine" and t.is_alive()]
+    assert not _slo_threads() - others
 
 
 def retention_run(pkg):
@@ -563,6 +571,7 @@ def smoke_specs(tmp_path, **over):
 
 
 def test_the_default_server_serves_the_slo_surface():
+    others = _slo_threads()
     srv = port_server(slo_interval_ms=20.0)
     try:
         for i in range(6):
@@ -588,8 +597,7 @@ def test_the_default_server_serves_the_slo_surface():
         assert "SLOs: 2 watched" in page and "slo.json" in page
     finally:
         srv.close()
-    assert not [t for t in threading.enumerate()
-                if t.name == "slo-engine" and t.is_alive()]
+    assert not _slo_threads() - others
 
 
 def test_a_spec_file_is_loaded_and_a_bad_one_fails_the_deploy(tmp_path):
@@ -611,10 +619,11 @@ def test_a_spec_file_is_loaded_and_a_bad_one_fails_the_deploy(tmp_path):
 
 def test_slo_interval_zero_turns_the_engine_off():
     before = {t.name for t in threading.enumerate()}
+    others = _slo_threads()
     srv = port_server(slo_interval_ms=0)
     try:
         assert srv.query_server.slo is None
-        assert "slo-engine" not in {t.name for t in threading.enumerate()}
+        assert not _slo_threads() - others
         _, slo, _ = call(srv.port, "GET", "/slo.json")
         assert slo["enabled"] is False and "hint" in slo
         _, status, _ = call(srv.port, "GET", "/status.json")

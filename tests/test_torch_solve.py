@@ -205,7 +205,7 @@ def test_solve_plan_every_rank(n):
     for r in range(1, 129):
         p = solve.solve_plan(r, n)
         assert p.rank >= r and p.rank in PADDED and p.rank == \
-            solve.padded_rank(r)
+            solve.chol_padded_rank(r)
         assert p.route == ("registers" if r <= 64 else "shared")
         assert p.lanes == len(solve.lane_rows(p.rank)) <= 32
         assert p.systems_per_warp * p.lanes <= 32
@@ -228,7 +228,7 @@ def test_solve_plan_shapes_the_block_by_count():
     assert solve.solve_plan(33, 4096).systems_per_warp == 1
     assert solve.solve_plan(64, 1000, n_sm=8).warps_per_block == 4
     with pytest.raises(ValueError, match="rank"):
-        solve.padded_rank(129)
+        solve.chol_padded_rank(129)
 
 
 @pytest.mark.parametrize("R", PADDED)
@@ -293,7 +293,7 @@ def _register_route(A, b, r, jitter=1e-6):
     and a rotated one, the forward sweep rides along, and the backward
     sweep runs right-looking over the rows of L."""
     f32 = np.float32
-    R = solve.padded_rank(r)
+    R = solve.chol_padded_rank(r)
     W, lanes = solve.CHOL_CHUNK, solve.lane_rows(R)
     C, CL = R // W, R // W // 2
     M = np.eye(R, dtype=f32)

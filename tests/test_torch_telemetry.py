@@ -46,6 +46,7 @@ from predictionio_tpu.templates.recommendation import (
 )
 from predictionio_tpu.utils import tracing as jtracing
 from predictionio_tpu_torch import cli
+from predictionio_tpu_torch.analysis.metrics_catalog import LEFT_OUT
 from predictionio_tpu_torch.cache.bus import InvalidationBus
 from predictionio_tpu_torch.controller.context import Context
 from predictionio_tpu_torch.data.datamap import DataMap
@@ -71,23 +72,6 @@ N_USERS, N_ITEMS, RANK = 64, 40, 8
 APP = "teleapp"
 VARIANT = {"algorithms": [{"name": "als", "params": {"rank": RANK}}]}
 T0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
-
-#: JAX-package families the port leaves out, each with its queue 1 item
-#: or ``ROADMAP.md`` decision
-LEFT_OUT = {
-    "pio_lane_batch_seconds": "item 13 (replicated lanes)",
-    "pio_lane_queue_depth": "item 13",
-    "pio_lane_dispatches_total": "item 13",
-    "pio_lane_restarts_total": "item 13",
-    "pio_lane_failures_total": "item 13",
-    "pio_serving_lanes": "item 13",
-    "pio_serving_degraded": "item 13",
-    "pio_compiles_since_warm": "decided not to port: XLA sentinels",
-    "pio_xla_compiles_total": "decided not to port: XLA sentinels",
-    "pio_transfer_guard_violations_total":
-        "decided not to port: XLA transfer guard",
-    "pio_sharding_findings": "decided not to port: JAX program analysis",
-}
 
 #: loopback only: no proxy from the environment may carry these requests
 LOCAL = urllib.request.build_opener(urllib.request.ProxyHandler({}))
