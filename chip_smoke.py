@@ -4,9 +4,9 @@ lifecycle, the pod storage layout, batch-predict, evaluation, streaming
 fold-in, e-commerce, similar-product, sequential and classification
 template paths, the release lifecycle, the console, the telemetry, the
 serving caches, checkpoint resume, the split layout, the deploy of a
-JAX-written model blob and a fleet of replicas behind the query router,
-the fleet aggregator and the autoscaler once on the CUDA card and check
-them.
+JAX-written model blob, a fleet of replicas behind the query router,
+the fleet aggregator and the autoscaler, and sharded and replicated
+serving once on the CUDA card and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -521,6 +521,29 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             replica, and, last, the SLO engine's cost: the uniform burst
             on one engine server with its default 1 s tick and with
             ``slo_interval_ms=0``, in turns.
+17b. mesh — runs after phase 17, on its store and model, with 4 devices
+            on the one card (``PTPU_TORCH_FORCE_DEVICE_COUNT=4`` for its
+            own servers and meshes only). (a) ``shard_model`` over 4
+            shards for the f32, bf16 and int8 tables at B = 2,048 and
+            B = 1, k = 16: ids equal to the single table's, scores within
+            the wire's tolerance (bitwise printed when they are), 4
+            ``fused_topk`` launches a batch, 64 answers held to float64,
+            one shard's launch timed beside the whole table's. (b) ``cli
+            deploy --serving-mode replicated --batching`` (4 lanes) and a
+            ``single`` deploy in fresh processes, the Zipf(1.5) burst of
+            2,048 queries on 32 connections to each in turns (every
+            answer held to float64, every lane dispatching); then a third
+            replicated process with ``serving.lane=error,lane=1,times=3``
+            and ``serving.lane_restart=error,lane=1,times=3`` armed: the
+            burst fails no query, ``pio_serving_degraded`` reads 1 while
+            lane 1 is dead, then ``pio_lane_restarts_total{lane="1"}``
+            reads 1 and the lane serves again; every process exits 0 and
+            the drill's leaves no thread. (c) ``deploy --serving-mode
+            sharded --stream`` in process: one burst of 128 ``rate``
+            events (16 users) folds in through ``fused_gram`` and ``chol_solve``, and
+            the served rows equal a single-device fold-in of the same
+            events. (d) The hot tier under replicated lanes: pinned serves
+            on every lane bit-equal to the lane's full-table answer.
 18. audit — runs after phase 17, on the stores of phases 8 and 16. (a)
             ``python -m predictionio_tpu_torch.cli audit-lifecycle`` in a
             process of its own on the card: the six entries (event,
@@ -575,7 +598,8 @@ phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
 in phase 4b's counted bursts, in phase 4c's counted part and in phase
 8a's REMOTE training and deploy, phase 15's resumed and split
 trainings, phase 16's deploy, phase 17's fleet process and autoscaled
-fleet and phase 18's full-width cycles) and, last, ``{"ok": true,
+fleet, phase 17b's meshes, lanes and sharded stream and phase 18's
+full-width cycles) and, last, ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -7825,6 +7849,516 @@ def phase_fleet(uv, dev, home: str, card: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: sharded and replicated serving on the card
+# ---------------------------------------------------------------------------
+
+#: devices the phase's meshes and lane servers get on the one card
+#: (PTPU_TORCH_FORCE_DEVICE_COUNT), the k of its rankings, the answers
+#: held to float64, and the longest wait for a lane or stream state
+MESH_DEVICES, MESH_K, MESH_F64 = 4, 16, 64
+MESH_TIMEOUT_S = 300.0
+#: the drill: lane 1 fails 3 dispatches (the default lane_fail_threshold),
+#: then its first 3 restart probes, so it stays dead ~0.7 s before the
+#: 4th probe (~1.5 s after its death) brings it back
+MESH_LANE_FAULT = ("serving.lane=error,lane=1,times=3;"
+                   "serving.lane_restart=error,lane=1,times=3")
+#: the sharded stream's burst: users, their events, the consumer (16
+#: users: each one's history read scans the `pio` store, ~0.48 s a user
+#: on the card's host, PR 19 run C)
+MESH_STREAM_USERS, MESH_STREAM_EVENTS = 16, 8
+MESH_CONSUMER = "chip-mesh"
+#: the pinned-lanes check: hot users pinned, and the ks served
+MESH_PIN_USERS = 256
+#: a folded row against the single-device fold-in's (the same kernels
+#: on the same rows: expected bitwise)
+MESH_FOLD_RTOL, MESH_FOLD_ATOL = 1e-4, 1e-5
+#: the drill process: ``cli.main(["deploy", ...])``, then a census of
+#: the threads still alive after the server closed
+MESH_DEPLOY_MAIN = """\
+import sys, threading, time
+from predictionio_tpu_torch import cli
+rc = cli.main(sys.argv[1:])
+deadline = time.monotonic() + 10
+while time.monotonic() < deadline:
+    left = [t.name for t in threading.enumerate()
+            if t is not threading.main_thread()]
+    if not left:
+        break
+    time.sleep(0.05)
+print("THREADS LEFT", left, flush=True)
+sys.exit(rc if not left else 3)
+"""
+
+
+def mesh_sharded_ranking(uv, dev, card) -> int:
+    """``shard_model`` over 4 shards of one card for each table dtype, at
+    B = 2048 and B = 1: ids equal to the single-table answer, scores
+    within the wire's tolerance (bitwise expected), ``fused_topk``
+    launches = shards x batches, 64 answers held to float64, and each
+    shard's launch timed beside one whole-table launch."""
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.parallel import make_serving_mesh
+
+    U, V = uv
+    mesh = make_serving_mesh(devices=[dev] * MESH_DEVICES)
+    base = als_model_from_numpy(U, V, N_USERS, N_ITEMS, None, None,
+                                {"rank": RANK}, device="cpu")
+    rng = np.random.default_rng(41)
+    users = rng.integers(0, N_USERS, BATCH)
+    launches = 0
+    for wire, quant in (("f32", "off"), ("bf16", "bf16"), ("int8", "int8")):
+        # the quantization is forced (the NDCG gate refuses int8 for
+        # these factors): the phase exercises every table type
+        q = als.quantize_serving_model(base, quant, parity_floor=0) \
+            if quant != "off" else base
+        single = als.place_model(q, dev)
+        ms = als.shard_model(single, mesh)
+        n_local = ms.item_factors.n_local
+        for B in (BATCH, 1):
+            rows = users[:B]
+            want_i, want_s = als.recommend_batch(single, rows, MESH_K)
+            ft.LAUNCHES = 0
+            got_i, got_s = als.recommend_batch(ms, rows, MESH_K)
+            n = ft.LAUNCHES
+            launches += n
+            check(n == MESH_DEVICES,
+                  f"mesh {wire} B={B}: fused_topk launched {n} times, not "
+                  f"{MESH_DEVICES} shards x 1 batch")
+            check(np.array_equal(got_i, want_i),
+                  f"mesh {wire} B={B}: sharded ids differ from the single "
+                  f"table's")
+            err = float(np.abs(got_s - want_s).max())
+            tol = RTOL[wire] * (1 + np.abs(want_s))
+            check(bool((np.abs(got_s - want_s) <= tol).all()),
+                  f"mesh {wire} B={B}: sharded scores off by {err:.3e}")
+            print(f"phase mesh: sharded {wire} B={B} k={MESH_K}: ids equal "
+                  f"to the single table's, scores "
+                  f"{'bitwise' if err == 0 else f'max abs err {err:.3e}'}, "
+                  f"fused_topk launches={n} ({MESH_DEVICES} shards of "
+                  f"{n_local} rows)", flush=True)
+        # 64 answers against float64 over the dequantized tables
+        U64 = torch.from_numpy(als.table_host_f32(single.user_factors)).to(
+            dev, torch.float64)
+        V64 = torch.from_numpy(als.table_host_f32(single.item_factors)).to(
+            dev, torch.float64)
+        rows = users[:MESH_F64]
+        got_i, got_s = als.recommend_batch(ms, rows, MESH_K)
+        gi = torch.from_numpy(got_i).to(dev)
+        gs = torch.from_numpy(got_s).to(dev, torch.float64)
+        scores = U64[torch.from_numpy(rows).to(dev)] @ V64[:N_ITEMS].T
+        want = torch.topk(scores, MESH_K, dim=1).values
+        own = scores.gather(1, gi)
+        tol = RTOL[wire] * (1 + want.abs())
+        check(bool(((own - gs).abs() <= tol).all()),
+              f"mesh {wire}: a sharded id does not score what was returned")
+        check(bool(((own - want).abs() <= tol).all()),
+              f"mesh {wire}: a sharded answer is not its user's float64 "
+              f"top-{MESH_K}")
+        # one shard's launch beside the whole table's, at B = 2048
+        vecs, vsc = als._user_vecs(single.user_factors, users, dev)
+        ar = torch.arange(BATCH, dtype=torch.int32, device=dev)
+        sd, ss = als._table_leaves(ms.item_factors.shards[0])
+        wd, ws = als._table_leaves(single.item_factors)
+        shard_ms = median_ms(lambda: ft.fused_topk(
+            vecs, ar, sd, vsc, ss, 0, k=MESH_K, n_items=N_ITEMS), 20)
+        whole_ms = median_ms(lambda: ft.fused_topk(
+            vecs, ar, wd, vsc, ws, 0, k=MESH_K, n_items=N_ITEMS), 20)
+        sharded_ms = median_ms(lambda: als.recommend_batch(ms, users,
+                                                           MESH_K), 5)
+        print(f"phase mesh: {wire} fused_topk B={BATCH} k={MESH_K}: one "
+              f"shard ({n_local} rows) {shard_ms:.4f} ms, the whole table "
+              f"({N_ITEMS} rows) {whole_ms:.4f} ms, a sharded batch end to "
+              f"end (gather, {MESH_DEVICES} launches, merge, readback) "
+              f"{sharded_ms:.4f} ms; {MESH_F64} answers held to float64 | "
+              f"{card_tag(card)}", flush=True)
+    return launches
+
+
+def mesh_status(port: int) -> dict:
+    return _http(port, "GET", "/status.json")[1]
+
+
+def mesh_lane_gauges(port: int) -> tuple:
+    """``(pio_serving_degraded, pio_lane_restarts_total{lane="1"})`` of
+    one ``/metrics`` scrape."""
+    samples, _ = parse_exposition(scrape(port))
+    restarts = samples.get("pio_lane_restarts_total", {})
+    return (samples["pio_serving_degraded"][""],
+            restarts.get('{lane="1"}', 0.0))
+
+
+def mesh_deploy(tag: str, engine_json: Path, env: dict, work: Path,
+                extra: list, census: bool = False):
+    """A ``cli deploy`` process (with ``census``, run through
+    :data:`MESH_DEPLOY_MAIN`); returns ``(process, its stdout path)``."""
+    out_log = work / f"{tag}.out"
+    args = ["deploy", "--engine-json", str(engine_json), "--ip",
+            "127.0.0.1", "--port", "0", "--batching", *extra]
+    cmd = ([sys.executable, "-c", MESH_DEPLOY_MAIN, *args] if census
+           else [sys.executable, "-m", "predictionio_tpu_torch.cli", *args])
+    with open(out_log, "w") as out, open(work / f"{tag}.err", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=err)
+    return proc, out_log
+
+
+def mesh_port(tag: str, proc, out_log: Path) -> int:
+    def port():
+        check(proc.poll() is None, f"mesh {tag} deploy exited "
+              f"{proc.returncode}: "
+              f"{out_log.with_suffix('.err').read_text()[-1500:]}")
+        found = re.findall(r"is listening at http://127\.0\.0\.1:(\d+)",
+                           out_log.read_text())
+        return int(found[0]) if found else None
+
+    p = wait_until(port, f"mesh {tag} deploy", timeout=MESH_TIMEOUT_S)
+    wait_until(lambda: mesh_status(p)["servingWarm"], f"mesh {tag} warm",
+               timeout=MESH_TIMEOUT_S, every=0.1)
+    return p
+
+
+def mesh_stop(tag: str, port: int, proc) -> None:
+    try:
+        _http(port, "POST", "/stop")
+    except OSError:
+        pass
+    rc = end_process(proc)
+    check(rc == 0, f"mesh {tag} deploy exited {rc}")
+
+
+def mesh_lanes(uv, dev, home: str, card: dict) -> int:
+    """``cli deploy --serving-mode replicated --batching`` with 4 lanes in
+    a fresh process against a ``single`` deploy, a Zipf(1.5) burst of
+    2,048 queries on 32 connections to each in turns; then the lane drill
+    in a third process: lane 1 killed by ``serving.lane`` faults, failed
+    over with 0 failed queries, ``pio_serving_degraded`` 1 while it is
+    dead, restarted, and the process exits 0 with no thread left."""
+    U, V = uv
+    U64 = torch.from_numpy(U).to(dev, torch.float64)
+    V64 = torch.from_numpy(V).to(dev, torch.float64)
+    engine_json = Path(home) / "jaxblob" / "engine.json"
+    check(engine_json.is_file(), "phase jaxblob's variant is missing")
+    work = Path(home) / "mesh"
+    work.mkdir(exist_ok=True)
+    env = dict(os.environ, PIO_HOME=home,
+               PTPU_TORCH_FORCE_DEVICE_COUNT=str(MESH_DEVICES))
+    env.pop("PTPU_FAULTS", None)
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    rng = np.random.default_rng(43)
+    burst = [{"user": f"u{u}", "num": 10}
+             for u in (rng.zipf(CACHE_ZIPF, BURST_QUERIES) - 1) % N_USERS]
+    procs = {
+        "replicated": mesh_deploy("replicated", engine_json, env, work,
+                                  ["--serving-mode", "replicated",
+                                   *device]),
+        "single": mesh_deploy("single", engine_json, env, work,
+                              ["--serving-mode", "single", *device]),
+        "drill": mesh_deploy("drill", engine_json,
+                             dict(env, PTPU_FAULTS=MESH_LANE_FAULT), work,
+                             ["--serving-mode", "replicated", *device],
+                             census=True),
+    }
+    ports, launches = {}, 0
+    try:
+        for tag, (proc, out_log) in procs.items():
+            ports[tag] = mesh_port(tag, proc, out_log)
+        rep = mesh_status(ports["replicated"])
+        check(rep["mesh"]["mode"] == "replicated"
+              and len(rep["mesh"]["lanes"]) == MESH_DEVICES,
+              f"the replicated deploy's mesh block: {rep['mesh']}")
+        check(mesh_status(ports["single"])["mesh"] == {"mode": "single"},
+              "the single deploy is not single")
+        qps = {"replicated": [], "single": []}
+        for turn in ("replicated", "single", "replicated", "single"):
+            wall, res = run_burst(ports[turn], burst)
+            qps[turn].append(burst_stats(wall, res))
+            fleet_f64_check(f"mesh {turn} burst", burst,
+                            [r[0] for r in res], U64, V64, dev)
+        rep = mesh_status(ports["replicated"])
+        lanes = rep["mesh"]["lanes"]
+        check(all(lane["dispatches"] > 0 for lane in lanes),
+              f"a lane dispatched nothing: "
+              f"{[lane['dispatches'] for lane in lanes]}")
+        # the lane processes' launches (warm-up ladders and bursts); the
+        # single deploy is the comparison and does not count
+        launches += rep["kernels"]["fused_topk"]["launches"]
+        r_qps = [s[0] for s in qps["replicated"]]
+        s_qps = [s[0] for s in qps["single"]]
+        lat = {t: [(round(s[1], 3), round(s[2], 3)) for s in v]
+               for t, v in qps.items()}
+        print(f"phase mesh: lanes burst ({BURST_QUERIES} Zipf({CACHE_ZIPF}) "
+              f"queries, {BURST_CLIENTS} connections), in turns: "
+              f"{MESH_DEVICES} replicated lanes qps={r_qps} p50/p99 ms="
+              f"{lat['replicated']} | single qps={s_qps} p50/p99 ms="
+              f"{lat['single']} | lanes/single="
+              f"{np.mean(r_qps) / np.mean(s_qps):.3f}x | "
+              f"lane dispatches={[lane['dispatches'] for lane in lanes]} | "
+              f"every answer held to float64 | {card_tag(card)}",
+              flush=True)
+
+        # -- the drill: lane 1 killed, failed over, degraded, restarted --
+        port = ports["drill"]
+        proc = start_burst(port, burst)
+        seen_dead, t_dead, t_back = False, None, None
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while time.monotonic() < deadline:
+            degraded, restarts = mesh_lane_gauges(port)
+            if degraded == 1.0 and not seen_dead:
+                seen_dead, t_dead = True, time.monotonic()
+                st = mesh_status(port)["degraded"]
+                check([d["lane"] for d in st["deadLanes"]] == [1]
+                      or st["laneRestarts"] == 1,
+                      f"the drill's dead lanes: {st['deadLanes']}")
+            if seen_dead and restarts == 1.0 and degraded == 0.0:
+                t_back = time.monotonic()
+                break
+            if proc.poll() is not None and not seen_dead:
+                break
+            time.sleep(0.02)
+        wall, res = finish_burst(proc, "mesh drill burst")
+        check(seen_dead, "pio_serving_degraded never read 1 in the drill")
+        if t_back is None:
+            wait_until(lambda: mesh_lane_gauges(port) == (0.0, 1.0),
+                       "lane 1's restart", timeout=MESH_TIMEOUT_S)
+            t_back = time.monotonic()
+        fleet_f64_check("mesh drill burst", burst, [r[0] for r in res],
+                        U64, V64, dev)
+        st = mesh_status(port)
+        deg = st["degraded"]
+        check(deg["laneRestarts"] == 1 and deg["deadLanes"] == []
+              and deg["laneFailures"] == 3,
+              f"the drill's degraded block: {deg}")
+        # the rejoined lane serves again
+        before = st["mesh"]["lanes"][1]["dispatches"]
+        run_burst(port, burst[:512])
+        after = mesh_status(port)["mesh"]["lanes"][1]["dispatches"]
+        check(after > before, "lane 1 took no batch after its restart")
+        errors = st["pipeline"]["deadlineExceeded"]
+        launches += mesh_status(port)["kernels"]["fused_topk"]["launches"]
+        print(f"phase mesh: lane drill ({MESH_LANE_FAULT}): lane 1 dead "
+              f"~{(t_back - t_dead) * 1000:.0f} ms (pio_serving_degraded 1 "
+              f"read, traffic on the survivors), restarted once, "
+              f"laneFailures=3, 0 failed queries of {len(res)} (every "
+              f"answer held to float64; deadlineExceeded={errors}), lane 1 "
+              f"dispatches {before} -> {after} after rejoining", flush=True)
+    finally:
+        for tag, (proc, out_log) in procs.items():
+            if tag in ports and proc.poll() is None:
+                mesh_stop(tag, ports[tag], proc)
+            elif proc.poll() is None:
+                end_process(proc)
+    census = (work / "drill.out").read_text()
+    check(procs["drill"][0].returncode == 0
+          and "THREADS LEFT []" in census,
+          f"the drill deploy exited {procs['drill'][0].returncode} with "
+          f"threads left: {census[-500:]}")
+    print("phase mesh: every deploy process exited 0; the drill's left no "
+          "thread (its restarter joined by close())", flush=True)
+    return launches
+
+
+def mesh_sharded_stream(uv, dev, home: str, card: dict) -> dict:
+    """``deploy --serving-mode sharded --stream`` in process over 4
+    shards, one fold-in burst of known users' ``rate`` events: the pass
+    launches ``fused_gram`` and ``chol_solve``, and the served rows equal
+    a single-device fold-in of the same events."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.data.datamap import DataMap
+    from predictionio_tpu_torch.data.event import Event, from_millis
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.parallel import FORCE_DEVICE_COUNT_ENV
+    from predictionio_tpu_torch.streaming import EventCursor, fold_in_events
+
+    U, V = uv
+    engine_json = Path(home) / "jaxblob" / "engine.json"
+    storage = Storage(env={"PIO_HOME": home})
+    prior = os.environ.get(FORCE_DEVICE_COUNT_ENV)
+    os.environ[FORCE_DEVICE_COUNT_ENV] = str(MESH_DEVICES)
+    srv = None
+    try:
+        app = storage.apps().get_by_name(PIO_APP)
+        now_ms = int(time.time() * 1000)
+        cur = EventCursor(storage, app.id, MESH_CONSUMER)
+        cur.position = from_millis(now_ms)
+        cur.save()
+        args = cli._parser().parse_args([
+            "deploy", "--engine-json", str(engine_json), "--ip",
+            "127.0.0.1", "--port", "0", "--batching", "--serving-mode",
+            "sharded", "--stream", "--stream-app", PIO_APP,
+            "--stream-consumer", MESH_CONSUMER, "--stream-interval-ms",
+            "50", "--stream-canary-probes", "0",
+            *([] if dev.type == "cuda" else ["--device", "cpu"])])
+        srv = cli.build_deploy(args, storage).start_background()
+        warmed(srv)
+        qs = srv.query_server
+        check(qs.serving_mode_resolved == "sharded"
+              and qs.serving_mesh.size == MESH_DEVICES,
+              f"the stream deploy is {qs.serving_mode_resolved}")
+        trainer = qs.stream
+        base = qs.models[0]
+        check(isinstance(base.item_factors, als.RowShardedTable),
+              "the sharded deploy serves an unsharded table")
+        rng = np.random.default_rng(47)
+        users = rng.choice(N_USERS, MESH_STREAM_USERS, replace=False)
+        events = [Event(event="rate", entity_type="user",
+                        entity_id=f"u{u}", target_entity_type="item",
+                        target_entity_id=f"i{int(i)}",
+                        properties=DataMap({"rating": float(r)}),
+                        event_time=from_millis(now_ms + 1 + n))
+                  for n, (u, i, r) in enumerate(
+                      (u, i, r) for u in users
+                      for i, r in zip(rng.integers(0, N_ITEMS,
+                                                   MESH_STREAM_EVENTS),
+                                      rng.integers(1, 6,
+                                                   MESH_STREAM_EVENTS)))]
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        storage.events().insert_batch(events, app.id)
+        wait_until(lambda: trainer.events_consumed >= len(events)
+                   and trainer.applies >= 1, "the sharded fold-in pass",
+                   timeout=MESH_TIMEOUT_S, every=0.02)
+        pass_s = time.perf_counter() - t0
+        # the pass's launches; the reference fold-in below is a
+        # comparison and does not count
+        counts = launch_counts()
+        check(counts["fused_gram"] > 0 and counts["chol_solve"] > 0,
+              f"the sharded fold-in launched {counts}")
+        check(trainer.rejects == 0, "the sharded fold-in was refused")
+        served = qs.models[0]
+        check(isinstance(served.user_factors, als.RowShardedTable),
+              "the folded model is not sharded")
+        single = als_model_from_numpy(
+            U, V, N_USERS, N_ITEMS, {f"u{n}": n for n in range(N_USERS)},
+            {f"i{n}": n for n in range(N_ITEMS)}, {"rank": RANK},
+            device=dev)
+        want, _ = fold_in_events(single, events, storage, app.id,
+                                 weights=trainer.weights,
+                                 max_history=trainer.config.max_history)
+        got_rows = als.table_rows_f32(served.user_factors, users)
+        want_rows = als.table_rows_f32(want.user_factors, users)
+        err = float(np.abs(got_rows - want_rows).max())
+        check(np.allclose(got_rows, want_rows, rtol=MESH_FOLD_RTOL,
+                          atol=MESH_FOLD_ATOL),
+              f"sharded folded rows off the single-device fold-in by "
+              f"{err:.3e}")
+        check(not np.array_equal(got_rows, als.table_rows_f32(
+            base.user_factors, users)), "the fold-in changed no row")
+        # the folded rows serve through the shards
+        ans, _ = _post(srv.port, {"user": f"u{users[0]}", "num": 10})
+        want_i, _ = als.recommend_products(want, int(users[0]), 10)
+        check([s["item"] for s in ans["itemScores"]]
+              == [f"i{i}" for i in want_i],
+              "the sharded deploy does not serve the folded row")
+        print(f"phase mesh: sharded stream ({MESH_DEVICES} shards): "
+              f"{len(events)} events of {MESH_STREAM_USERS} users folded "
+              f"in {pass_s:.3f}s, fused_gram={counts['fused_gram']} "
+              f"chol_solve={counts['chol_solve']} "
+              f"fused_topk={counts['fused_topk']} launches, folded rows "
+              f"{'bitwise' if err == 0 else f'within {err:.3e}'} of a "
+              f"single-device fold-in of the same events | "
+              f"{card_tag(card)}", flush=True)
+    finally:
+        if srv is not None:
+            srv.close()
+        if prior is None:
+            os.environ.pop(FORCE_DEVICE_COUNT_ENV, None)
+        else:
+            os.environ[FORCE_DEVICE_COUNT_ENV] = prior
+        storage.close()
+    return counts
+
+
+def mesh_pinned_lanes(uv, dev, card: dict) -> int:
+    """The hot tier under replicated lanes, in process: the pin lands on
+    every lane device, and a pinned serve on every lane is bit-equal to
+    that lane's full-table answer."""
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.parallel import FORCE_DEVICE_COUNT_ENV
+    from predictionio_tpu_torch.server.engineserver import (
+        QueryServer,
+        ServerConfig,
+    )
+    from predictionio_tpu_torch.templates.recommendation import (
+        recommendation_engine,
+    )
+
+    U, V = uv
+    model = als_model_from_numpy(
+        U, V, N_USERS, N_ITEMS, {f"u{n}": n for n in range(N_USERS)},
+        {f"i{n}": n for n in range(N_ITEMS)}, {"rank": RANK}, device=dev)
+    engine = recommendation_engine()
+    ep = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": RANK}}]})
+    prior = os.environ.get(FORCE_DEVICE_COUNT_ENV)
+    os.environ[FORCE_DEVICE_COUNT_ENV] = str(MESH_DEVICES)
+    qs = None
+    try:
+        qs = QueryServer(engine, ep, [model], ServerConfig(
+            device=None if dev.type == "cuda" else "cpu",
+            serving_mode="replicated", serving_cache=True,
+            hot_entities=MESH_PIN_USERS, hot_refresh_every=1 << 30,
+            warm_start=False, slo_interval_ms=0))
+        check(len(qs.lane_models) == MESH_DEVICES,
+              "the pinned-lanes server has no lanes")
+        hot = [f"u{n}" for n in range(0, N_USERS, N_USERS // MESH_PIN_USERS)
+               ][:MESH_PIN_USERS]
+        for u in hot:
+            qs.cache.hot.record(u)
+        qs.cache.hot.refresh(wait=True)
+        algo = qs.algorithms[0]
+        n, served = 0, 0
+        for u in hot[:: max(1, len(hot) // 32)]:
+            handle = qs.cache.hot.peek(u)
+            check(handle is not None, f"{u} was not pinned")
+            _, (tables, slot) = handle
+            check(isinstance(tables, tuple)
+                  and len(tables) == MESH_DEVICES,
+                  "the pin did not land on every lane device")
+            q = algo.query_class(user=u, num=MESH_K)
+            for lane in qs.lane_models:
+                n0 = ft.LAUNCHES
+                got = algo.predict_pinned(lane[0], q, (tables, slot))
+                n += ft.LAUNCHES - n0
+                want = algo.predict(lane[0], q)
+                check(got == want, f"{u}: a pinned serve on a lane is not "
+                      f"its full-table answer")
+                served += 1
+        check(n == served, f"pinned lanes: {n} fused_topk launches for "
+              f"{served} pinned serves")
+        print(f"phase mesh: pinned lanes: {len(hot)} hot users pinned on "
+              f"each of {MESH_DEVICES} lane devices; {served} pinned serves "
+              f"(k={MESH_K}) bit-equal to the lanes' full-table answers, "
+              f"fused_topk launches={n} | {card_tag(card)}", flush=True)
+    finally:
+        if qs is not None:
+            qs.close()
+        if prior is None:
+            os.environ.pop(FORCE_DEVICE_COUNT_ENV, None)
+        else:
+            os.environ[FORCE_DEVICE_COUNT_ENV] = prior
+    return n
+
+
+def phase_mesh(uv, dev, home: str, card: dict) -> dict:
+    """Mesh-wide serving at full width on phase fleet's factors, with 4
+    devices on the one card: sharded ranking for every table type, 4
+    replicated lanes against 1 in burst qps and the lane drill (fresh
+    processes), a sharded deploy's stream fold-in, and pinned lanes."""
+    a = mesh_sharded_ranking(uv, dev, card)
+    b = mesh_lanes(uv, dev, home, card)
+    c = mesh_sharded_stream(uv, dev, home, card)
+    d = mesh_pinned_lanes(uv, dev, card)
+    return {"fused_topk": a + b + c["fused_topk"] + d,
+            "fused_gram": c["fused_gram"], "chol_solve": c["chol_solve"],
+            "gram_table": c["gram_table"]}
+
+
+# ---------------------------------------------------------------------------
 # phase check: the port's static analysis, and the shared-memory formulas
 # held to the libraries
 # ---------------------------------------------------------------------------
@@ -8360,6 +8894,8 @@ def main(argv=None) -> int:
             jaxblob_l = phase_jaxblob(uv, dev, home, card)
         with phase("fleet"):
             fleet_l = phase_fleet(uv, dev, home, card)
+        with phase("mesh"):
+            mesh_l = phase_mesh(uv, dev, home, card)
         with phase("audit"):
             audit_l = phase_audit(uv, dev, home, pio, data, card)
     finally:
@@ -8379,8 +8915,11 @@ def main(argv=None) -> int:
     # split_launches: one split-layout training's; jaxblob_launches: the
     # deploy of the JAX-written blob; fleet_launches: the fleet process's
     # (its replicas' serving and warm-up ladders) and the in-process
-    # autoscaled fleet's; audit_launches: phase audit's measured full-width
-    # cycles (serving for fused_topk, the fold-ins for the others)
+    # autoscaled fleet's; mesh_launches: phase mesh's (the sharded
+    # rankings, the lane processes' bursts and warm-ups, the sharded
+    # stream's fold-in and queries, the pinned lanes' serves);
+    # audit_launches: phase audit's measured full-width cycles (serving
+    # for fused_topk, the fold-ins for the others)
     implicit_l = implicit["launches"]
     store_l = storage_l["launches"]
     kernels = [
@@ -8403,6 +8942,7 @@ def main(argv=None) -> int:
              resume_launches=resume_l["fused_topk"],
              jaxblob_launches=jaxblob_l["fused_topk"],
              fleet_launches=fleet_l["fused_topk"],
+             mesh_launches=mesh_l["fused_topk"],
              audit_launches=audit_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
@@ -8421,6 +8961,7 @@ def main(argv=None) -> int:
              storage_launches=store_l["fused_gram"],
              resume_launches=resume_l["fused_gram"],
              split_launches=resume_l["split_fused_gram"],
+             mesh_launches=mesh_l["fused_gram"],
              audit_launches=audit_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
@@ -8439,6 +8980,7 @@ def main(argv=None) -> int:
              storage_launches=store_l["chol_solve"],
              resume_launches=resume_l["chol_solve"],
              split_launches=resume_l["split_chol_solve"],
+             mesh_launches=mesh_l["chol_solve"],
              audit_launches=audit_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
@@ -8456,6 +8998,7 @@ def main(argv=None) -> int:
              cache_launches=cache_l["gram_table"],
              storage_launches=store_l["gram_table"],
              resume_launches=resume_l["gram_table"],
+             mesh_launches=mesh_l["gram_table"],
              audit_launches=audit_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="

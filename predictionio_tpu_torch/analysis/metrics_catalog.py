@@ -12,7 +12,7 @@ the same, unchanged catalog).
   occur somewhere in the scanned sources — a documented family nothing
   emits is a dashboard that silently flatlines. The families the port
   leaves out on purpose are excused by :data:`LEFT_OUT`, each with its
-  ``ROADMAP.md`` queue 1 item or decision, and only by it.
+  ``ROADMAP.md`` decision, and only by it.
 
 Dynamically-named registrations (f-strings, variables) are skipped on
 the code side; the docs side only requires the name to *occur* in
@@ -47,22 +47,10 @@ _DOC_NAME_RE = re.compile(r"`(pio_[a-z0-9_]+)")
 _NON_METRIC = {"pio_pr", "pio_stream", "pio_traceparent", "pio_data",
                "pio_dashboard_session"}
 
-#: the replicated lanes' families are spelled from their prefix, so that
-#: no scanned source names them as if emitted: the catalog rules of both
-#: packages count any occurrence of a full name as an emitter
-_LANE = "pio_lane_"
-
-#: documented families the port does not emit, each with its queue 1
-#: item or ``ROADMAP.md`` decision (``tests/test_torch_telemetry.py``
-#: holds the port's ``/metrics`` to the JAX package's less these)
+#: documented families the port does not emit, each with its
+#: ``ROADMAP.md`` decision (``tests/test_torch_telemetry.py`` holds the
+#: port's ``/metrics`` to the JAX package's less these)
 LEFT_OUT = {
-    _LANE + "batch_seconds": "item 13 (replicated lanes)",
-    _LANE + "queue_depth": "item 13",
-    _LANE + "dispatches_total": "item 13",
-    _LANE + "restarts_total": "item 13",
-    _LANE + "failures_total": "item 13",
-    "pio_serving_lanes": "item 13",
-    "pio_serving_degraded": "item 13",
     "pio_compiles_since_warm": "decided not to port: XLA sentinels",
     "pio_xla_compiles_total": "decided not to port: XLA sentinels",
     "pio_transfer_guard_violations_total":

@@ -582,6 +582,7 @@ def build_deploy(args, storage: Optional[Storage] = None,
                           cache_ttl_sec=args.cache_ttl,
                           feature_ttl_sec=args.feature_ttl,
                           hot_entities=args.hot_entities,
+                          serving_mode=args.serving_mode,
                           faults=args.faults or None,
                           debug_locks=args.debug_locks,
                           slo_specs=args.slo_specs or None,
@@ -1356,6 +1357,19 @@ def cmd_status(args, storage: Storage) -> int:
             _err(f"engine server at {args.ip}:{args.port} unreachable "
                  f"({_call_error(e)}); skipping lineage")
             payload = None
+        mesh = (payload or {}).get("mesh") or {}
+        if mesh:
+            line = f"Mesh: mode {mesh.get('mode', '?')}"
+            if mesh.get("meshShape"):
+                line += ", mesh " + " x ".join(
+                    f"{k}={v}" for k, v in mesh["meshShape"].items())
+            if mesh.get("devices"):
+                line += f", {mesh['devices']} device(s)"
+            _out(line)
+            for lane in mesh.get("lanes", ()):
+                _out(f"  lane {lane['lane']} on {lane['device']}: "
+                     f"{lane['dispatches']} dispatches, batch p50 "
+                     f"{lane['batchP50Ms']} ms, p99 {lane['batchP99Ms']} ms")
         lin = (payload or {}).get("lineage") or {}
         if lin:
             _out(f"Serving [{payload.get('engineId', '?')}]: "
@@ -1936,8 +1950,9 @@ def _parser() -> argparse.ArgumentParser:
                         "libraries serve every batch size")
     s.add_argument("--serving-mode", default="single",
                    choices=("auto", "single", "replicated", "sharded"),
-                   help="accepted for the JAX package's command line; one "
-                        "card serves")
+                   help="serving placement the deploy will use (every "
+                        "mode serves through the same fused_topk "
+                        "library)")
     s.add_argument("--serving-quant", default="off",
                    choices=("off", "bf16", "int8"),
                    help="accepted for the JAX package's command line; "
@@ -2058,6 +2073,17 @@ def _parser() -> argparse.ArgumentParser:
         s.add_argument("--hot-entities", type=int, default=512,
                        help="hottest users whose rows stay pinned on the "
                             "card (0 off)")
+        s.add_argument("--serving-mode", default="single",
+                       choices=("auto", "single", "replicated", "sharded"),
+                       help="mesh-wide serving: replicated = full model "
+                            "copy per device, micro-batches fan out "
+                            "per-device (~Nx qps); sharded = factor "
+                            "tables row-sharded over the (batch, model) "
+                            "mesh (models > one card's memory); auto = "
+                            "sharded when the model exceeds the "
+                            "per-device memory headroom, else replicated "
+                            "(PTPU_TORCH_FORCE_DEVICE_COUNT=N serves N "
+                            "devices on one card)")
         s.add_argument("--faults", default="",
                        help="fault-injection spec armed at start, for "
                             "failure drills, e.g. 'serving.dispatch="

@@ -40,7 +40,19 @@ row). With ``checkpoint_dir`` it saves the factors every
 ``checkpoint_every`` iterations (``workflow/checkpoint.py``) and resumes
 a restarted run from the newest restorable step.
 
-Not in this module yet: sharded and replicated placement.
+Mesh-wide serving (:func:`shard_model`, :func:`replicate_model`): a
+sharded model's tables are split by rows over a serving mesh
+(:class:`RowShardedTable`, ``parallel/mesh.py``). A sharded batch
+gathers its user rows across the shards, in the table's own dtype with
+their scales, and launches ``fused_topk`` once per shard with ``base``
+at that shard's first global id; the per-shard candidates merge in the
+kernel's own total order (``parallel/collectives.py``), so a sharded
+answer is the single-table answer, ids exactly. A replicated lane's
+model is one full copy on the lane's device; :func:`pin_user_rows_lanes`
+pins the hot rows once per lane device. The fold-in against a sharded
+table gathers the fixed rows it names across the shards and solves them
+exactly as the single-table fold-in does; the solved rows scatter back
+into their owning shards.
 """
 
 from __future__ import annotations
@@ -74,6 +86,8 @@ from ..ops.ragged import (
     resolve_max_len,
 )
 from ..ops.solve import gramian, solve_spd_batch
+from ..parallel.collectives import merge_candidates
+from ..parallel.mesh import ServingMesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.memo import ComputeOnce
 
@@ -165,6 +179,40 @@ class ALSModel:
     user_ids: Optional[object] = None
     item_ids: Optional[object] = None
     params: ALSParams = field(default_factory=ALSParams)
+    #: the serving mesh when the tables are row-sharded
+    #: (:func:`shard_model`); None otherwise. Set at deploy only: a
+    #: persisted model never carries a mesh
+    mesh: Optional[ServingMesh] = None
+
+
+@dataclass
+class RowShardedTable:
+    """A factor table split by rows over a serving mesh
+    (:func:`shard_model`): ``shards[s]`` holds the global rows ``[s *
+    n_local, (s + 1) * n_local)`` on ``mesh.devices[s]``, each shard a
+    tensor of its own or a :class:`QuantizedFactors` with its own int8 or
+    bf16 data and f32 scales. The rows past the model's real count are
+    zero padding to a shard multiple."""
+
+    shards: Tuple[Table, ...]
+    mesh: ServingMesh
+
+    @property
+    def n_local(self) -> int:
+        return int(_table_leaves(self.shards[0])[0].shape[0])
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        data = _table_leaves(self.shards[0])[0]
+        return (int(data.shape[0]) * len(self.shards), int(data.shape[1]))
+
+    @property
+    def device(self) -> torch.device:
+        """The first shard's device: where gathers and merges land."""
+        return _table_leaves(self.shards[0])[0].device
+
+
+AnyTable = Union[torch.Tensor, QuantizedFactors, RowShardedTable]
 
 
 def _table_leaves(t: Table) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -174,8 +222,17 @@ def _table_leaves(t: Table) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     return t, None
 
 
-def table_quant(t: Table) -> str:
+def _table_device(t: AnyTable) -> torch.device:
+    """Where a table lives (a row-sharded one: its first shard)."""
+    if isinstance(t, RowShardedTable):
+        return t.device
+    return _table_leaves(t)[0].device
+
+
+def table_quant(t: AnyTable) -> str:
     """The quant dtype of a factor table ("off" for plain f32)."""
+    if isinstance(t, RowShardedTable):
+        t = t.shards[0]
     return t.quant if isinstance(t, QuantizedFactors) else "off"
 
 
@@ -204,8 +261,10 @@ def _quantize_rows(rows: np.ndarray, quant: str
 
 
 def table_host_f32(t) -> np.ndarray:
-    """Host f32 copy of a factor table (plain or quantized, card or host
-    resident) — the parity-probe view."""
+    """Host f32 copy of a factor table (plain, quantized or row-sharded,
+    card or host resident) — the parity-probe view."""
+    if isinstance(t, RowShardedTable):
+        return np.concatenate([table_host_f32(s) for s in t.shards])
     if isinstance(t, QuantizedFactors):
         data = t.data.float().cpu().numpy()
         if t.scale is not None:
@@ -294,16 +353,94 @@ def quantize_serving_model(model: ALSModel, quant: str, *,
                 "< %.2f vs f32); keeping full-precision serving "
                 "tables (auto-off)", quant, parity_k, ndcg, parity_floor)
             return model
-    return dataclasses.replace(model, user_factors=qU, item_factors=qV)
+    return dataclasses.replace(model, user_factors=qU, item_factors=qV,
+                               mesh=None)
 
 
 def place_model(model: ALSModel, device: DeviceLike = None) -> ALSModel:
     """The model with both tables on ``device`` (the card by default),
-    moved once at deploy so no query re-transfers them."""
+    moved once at deploy so no query re-transfers them. A sharded model
+    is returned as it is: its shards are placed already."""
+    if model.mesh is not None:
+        return model
     dev = resolve_device(device)
     return dataclasses.replace(model,
                                user_factors=model.user_factors.to(dev),
                                item_factors=model.item_factors.to(dev))
+
+
+# -- mesh-wide serving placement -------------------------------------------
+
+def _pad_rows(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """Zero-pad the row axis to a shard multiple (even shards)."""
+    n = int(t.shape[0])
+    n_pad = -(-n // multiple) * multiple
+    if n_pad == n:
+        return t
+    return torch.cat([t, t.new_zeros((n_pad - n,) + tuple(t.shape[1:]))])
+
+
+def unshard_table(t: AnyTable) -> Table:
+    """One table of a row-sharded one, on its first shard's device (its
+    padding rows kept); any other table as it is."""
+    if not isinstance(t, RowShardedTable):
+        return t
+    dev = t.device
+    datas = [_table_leaves(s)[0].to(dev) for s in t.shards]
+    if not isinstance(t.shards[0], QuantizedFactors):
+        return torch.cat(datas)
+    scales = None if t.shards[0].scale is None \
+        else torch.cat([s.scale.to(dev) for s in t.shards])
+    return QuantizedFactors(torch.cat(datas), scales, t.shards[0].quant)
+
+
+def _shard_table(t: AnyTable, mesh: ServingMesh) -> RowShardedTable:
+    """``t`` split by rows over every device of ``mesh``, zero-padded to a
+    shard multiple; a quantized table splits leaf by leaf, so each shard
+    holds its rows' data and scales. Every shard is a copy of its own."""
+    t = unshard_table(t)
+    data, scale = _table_leaves(t)
+    n_dev = mesh.size
+    data = _pad_rows(data, n_dev)
+    scale = None if scale is None else _pad_rows(scale, n_dev)
+    n_local = int(data.shape[0]) // n_dev
+    shards = []
+    for s, dev in enumerate(mesh.devices):
+        rows = slice(s * n_local, (s + 1) * n_local)
+        d = data[rows].to(dev, copy=True)
+        if isinstance(t, QuantizedFactors):
+            shards.append(QuantizedFactors(
+                d, None if scale is None else scale[rows].to(dev, copy=True),
+                t.quant))
+        else:
+            shards.append(d)
+    return RowShardedTable(tuple(shards), mesh)
+
+
+def shard_model(model: ALSModel, mesh: ServingMesh) -> ALSModel:
+    """SHARDED serving placement: both factor tables split by rows over
+    every device of the ``(batch, model)`` serving mesh
+    (:class:`RowShardedTable`), zero-padded to a shard multiple while
+    ``n_users`` / ``n_items`` keep the real counts, so padding is never
+    served."""
+    return dataclasses.replace(
+        model,
+        user_factors=_shard_table(model.user_factors, mesh),
+        item_factors=_shard_table(model.item_factors, mesh),
+        mesh=mesh)
+
+
+def replicate_model(model: ALSModel, device: DeviceLike) -> ALSModel:
+    """REPLICATED serving placement: one full copy of the factor tables
+    on ``device``, a replicated lane's own model. On a device the tables
+    already live on (several lanes on one card) the copy is the tables
+    themselves: a lane only reads them."""
+    dev = torch.device(device)
+    return dataclasses.replace(
+        model,
+        user_factors=unshard_table(model.user_factors).to(dev),
+        item_factors=unshard_table(model.item_factors).to(dev),
+        mesh=None)
 
 
 # -- serving ----------------------------------------------------------------
@@ -349,6 +486,137 @@ def _device_topk(user_table: Table, item_table: Table, idx: np.ndarray,
                        n_items=n_items)
 
 
+#: serializes SHARDED serving dispatches process-wide, as the JAX
+#: package does: there a sharded batch is one mesh program whose
+#: candidate all-gather deadlocks when two threads interleave their
+#: per-device launches. Here a sharded batch is its user-row gather, one
+#: ``fused_topk`` launch per shard and the merge; under the lock they
+#: enqueue as one unit, so a fold-in's scatter into the shards never lands
+#: between one batch's shard launches. Readbacks run outside it
+_mesh_dispatch_lock = threading.Lock()
+
+
+def _index_tensor(rows: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """Host row ids as an int64 tensor on ``dev``; to the card through
+    pinned memory, so the copy never waits for the work already queued."""
+    t = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.int64))
+    if dev.type == "cuda":
+        t = t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _user_vecs(user_factors: AnyTable, user_indices: np.ndarray,
+               dev: torch.device
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The ``[B, r]`` rows of ``user_indices`` in the table's OWN dtype,
+    and their ``[B, 1]`` f32 scales (None for a table without), on
+    ``dev``: what each shard's ``fused_topk`` launch takes as its user
+    table, with ``idx = arange(B)``. A row-sharded table is read shard by
+    shard (each row from its owner), so the table never exists whole on
+    one device."""
+    rows = np.asarray(user_indices, dtype=np.int64)
+    if not isinstance(user_factors, RowShardedTable):
+        data, scale = _table_leaves(user_factors)
+        idx = _index_tensor(rows, data.device)
+        return (data.index_select(0, idx).to(dev),
+                None if scale is None else scale.index_select(0, idx).to(dev))
+    n_local = user_factors.n_local
+    d0, s0 = _table_leaves(user_factors.shards[0])
+    out_d = torch.empty((len(rows), d0.shape[1]), dtype=d0.dtype, device=dev)
+    out_s = None if s0 is None else torch.empty(
+        (len(rows), 1), dtype=torch.float32, device=dev)
+    owner = rows // n_local
+    for s in np.unique(owner):
+        pos = np.flatnonzero(owner == s)
+        sd, ss = _table_leaves(user_factors.shards[int(s)])
+        local = _index_tensor(rows[pos] - int(s) * n_local, sd.device)
+        where = _index_tensor(pos, dev)
+        out_d[where] = sd.index_select(0, local).to(dev)
+        if out_s is not None:
+            out_s[where] = ss.index_select(0, local).to(dev)
+    return out_d, out_s
+
+
+def _rank_sharded(vecs: torch.Tensor, vscale: Optional[torch.Tensor],
+                  item_factors: RowShardedTable, k_dev: int, n_items: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank ``[B, r]`` query rows (and their scales) against a row-sharded
+    item table: one ``fused_topk`` launch per shard, with ``idx =
+    arange(B)``, ``base`` the shard's first global id, ``k_local =
+    min(k_dev, n_local)`` and the real ``n_items`` (so padding is never
+    served); then :func:`~..parallel.collectives.merge_candidates` of the
+    ``k_local * n_shards`` candidates, by (score descending, id
+    ascending): the kernel's own order, so the answer is the whole
+    table's. ``k_local`` past the kernel's limit takes the plain version
+    per shard. Returns ``(scores, ids)`` ``[B, k_dev]`` on the first
+    shard's device. Callers hold ``_mesh_dispatch_lock``."""
+    n_local = item_factors.n_local
+    k_local = min(k_dev, n_local)
+    B = int(vecs.shape[0])
+    parts_s, parts_i = [], []
+    arange = {}
+    for s, shard in enumerate(item_factors.shards):
+        vd, vs = _table_leaves(shard)
+        dev = vd.device
+        if dev not in arange:
+            arange[dev] = torch.arange(B, dtype=torch.int32, device=dev)
+        ud = vecs.to(dev)
+        us = None if vscale is None else vscale.to(dev)
+        if 1 <= k_local <= TOPK_MAX_K:
+            # ptpu: allow[blocking-under-lock] — the shard launches and
+            # their merge are one sharded dispatch (the JAX package's
+            # mesh program, whose launch is the lock's whole purpose);
+            # nothing here waits for the card
+            sc, gid = fused_topk(ud, arange[dev], vd, us, vs, s * n_local,
+                                 k=k_local, n_items=n_items)
+        else:
+            sc, gid = fused_topk_reference(ud, arange[dev], vd, us, vs,
+                                           s * n_local, k=k_local,
+                                           n_items=n_items)
+        parts_s.append(sc)
+        parts_i.append(gid)
+    return merge_candidates(parts_s, parts_i, k_dev)
+
+
+def _sharded_topk(user_table: AnyTable, item_table: RowShardedTable,
+                  rows: np.ndarray, k_dev: int, n_items: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sharded batched top-k: the user-row gather and
+    :func:`_rank_sharded`, under ``_mesh_dispatch_lock``."""
+    with _mesh_dispatch_lock:
+        vecs, vscale = _user_vecs(user_table, rows, item_table.device)
+        return _rank_sharded(vecs, vscale, item_table, k_dev, n_items)
+
+
+def recommend_batch_sharded(user_factors, item_factors,
+                            user_indices: np.ndarray, k: int,
+                            mesh: ServingMesh, n_items: int
+                            ) -> Tuple[np.ndarray, np.ndarray]:
+    """Serving top-k over a mesh: item rows split over every device of
+    ``mesh`` (a :class:`RowShardedTable`, or a whole table split here),
+    the user rows gathered across their shards, one ``fused_topk`` launch
+    a shard and the merge. The same answer as the single-table path, ids
+    exactly (both rank by score descending, then id ascending). Host
+    tables may come as numpy. Returns host ``(ids, scores)`` ``[B, k]``."""
+    def as_table(t):
+        return torch.from_numpy(np.ascontiguousarray(t)) \
+            if isinstance(t, np.ndarray) else t
+
+    if not isinstance(item_factors, RowShardedTable):
+        item_factors = as_table(item_factors)
+        n_pad = int(_table_leaves(item_factors)[0].shape[0])
+        if n_pad % mesh.size:
+            raise ValueError(
+                f"item rows {n_pad} not divisible by mesh size "
+                f"{mesh.size}; pad factors to a device multiple "
+                f"(shard_model does)")
+        item_factors = _shard_table(item_factors, mesh)
+    user_factors = as_table(user_factors)
+    ids, scores = _dispatch_topk_rows(user_factors, item_factors, n_items,
+                                      np.asarray(user_indices), k)()
+    return ids, scores
+
+
 def recommend_products(model: ALSModel, user_index: int, k: int
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k (item_index, score) for one user. Asking for more than the
@@ -362,18 +630,25 @@ def recommend_products(model: ALSModel, user_index: int, k: int
 _TOPK_CHUNK = 2048
 
 
-def _dispatch_topk_rows(user_table: Table, item_table: Table, n_items: int,
-                       rows: np.ndarray, k: int
-                       ) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
+def _dispatch_topk_rows(user_table: AnyTable, item_table: AnyTable,
+                        n_items: int, rows: np.ndarray, k: int
+                        ) -> Callable[[], Tuple[np.ndarray, np.ndarray]]:
     """Launch ONE top-k dispatch of the user-table ``rows`` and return a
     resolver that waits for it and hands back host ``([B, k] ids,
-    scores)``. On the card both device-to-host copies are queued right
-    behind the launch, into pinned host memory, and a CUDA event after
-    them: the resolver waits on that event alone, so launches queued
-    after this one (the next batches) never hold its readback."""
+    scores)``. A row-sharded item table takes :func:`_sharded_topk` (one
+    launch a shard and the merge). On the card both device-to-host copies
+    are queued right behind the launch, into pinned host memory, and a
+    CUDA event after them: the resolver waits on that event alone, so
+    launches queued after this one (the next batches) never hold its
+    readback."""
     kk = min(k, n_items)
     k_dev = _compiled_k(k, n_items)
-    scores, ids = _device_topk(user_table, item_table, rows, k_dev, n_items)
+    if isinstance(item_table, RowShardedTable):
+        scores, ids = _sharded_topk(user_table, item_table, rows, k_dev,
+                                    n_items)
+    else:
+        scores, ids = _device_topk(user_table, item_table, rows, k_dev,
+                                   n_items)
     if not scores.is_cuda:
         ids_h, scores_h, done = ids, scores, None
     else:
@@ -436,23 +711,50 @@ def recommend_batch(model: ALSModel, user_indices: np.ndarray, k: int
     return recommend_batch_async(model, user_indices, k)()
 
 
-def _host_row_f32(t: Table, i: int) -> np.ndarray:
-    """One factor row as host f32, dequantizing if needed."""
-    data, scale = _table_leaves(t)
-    row = data[i].float().cpu().numpy()
+def table_rows_f32(t: AnyTable, rows) -> np.ndarray:
+    """Host f32 copies of a table's ``rows``, dequantized (what the table
+    serves); a row-sharded table reads each row from its owner shard."""
+    rows = np.asarray(rows, dtype=np.int64).reshape(-1)
+    if isinstance(t, RowShardedTable):
+        data, scale = _user_vecs(t, rows, t.device)
+    else:
+        data, scale = _table_leaves(t)
+        idx = torch.from_numpy(rows).to(data.device)
+        data = data.index_select(0, idx)
+        scale = None if scale is None else scale.index_select(0, idx)
+    out = data.float()
     if scale is not None:
-        row = row * float(scale[i].reshape(()).item())
-    return row
+        out = out * scale.reshape(-1, 1)
+    return out.cpu().numpy()
 
 
 def predict_rating(model: ALSModel, user_index: int, item_index: int
                    ) -> float:
-    u = _host_row_f32(model.user_factors, user_index)
-    v = _host_row_f32(model.item_factors, item_index)
+    u = table_rows_f32(model.user_factors, [user_index])[0]
+    v = table_rows_f32(model.item_factors, [item_index])[0]
     return float(u @ v)
 
 
 # -- the hot-entity tier's pinned rows ----------------------------------------
+
+def _wait_copies(tables) -> None:
+    """On the card, return only once the copies that made ``tables`` have
+    run (an event after them on each device, waited for), so a serving
+    thread handed a table never reads it half written."""
+    for dev in {_table_leaves(t)[0].device for t in tables}:
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            done.synchronize()
+
+
+def _nbytes(t: Table) -> int:
+    data, scale = _table_leaves(t)
+    n = data.numel() * data.element_size()
+    if scale is not None:
+        n += scale.numel() * scale.element_size()
+    return n
+
 
 def pin_user_rows(model: ALSModel, user_indices, capacity: int
                   ) -> Tuple[Optional[Table], int]:
@@ -460,10 +762,11 @@ def pin_user_rows(model: ALSModel, user_indices, capacity: int
     table on the model's own device (the hot-entity tier's pinned table):
     ``index_select`` on the device's tables, for a quantized table on its
     data and its scales, so the rows are the source rows bit for bit and
-    no table crosses to the host. The slots past ``len(user_indices)``
+    no table crosses to the host. A sharded model's rows are gathered
+    from their owner shards onto the first shard's device (the JAX
+    package's mesh-replicated pin). The slots past ``len(user_indices)``
     hold row 0 (the JAX package's padding). On the card the function
-    returns only once the copy has run (an event after it, waited for),
-    so a serving thread handed the table never reads it half written.
+    returns only once the copy has run.
 
     Returns ``(pinned_table, nbytes)``; ``(None, 0)`` for no users."""
     if not len(user_indices):
@@ -472,43 +775,49 @@ def pin_user_rows(model: ALSModel, user_indices, capacity: int
     idx = np.zeros(cap, dtype=np.int64)
     n = min(len(user_indices), cap)
     idx[:n] = np.asarray(list(user_indices)[:n], dtype=np.int64)
-    ud, us = _table_leaves(model.user_factors)
-    rows = torch.from_numpy(idx).to(ud.device)
-    data = ud.index_select(0, rows)
-    scale = us.index_select(0, rows) if us is not None else None
-    nbytes = data.numel() * data.element_size()
-    if scale is not None:
-        nbytes += scale.numel() * scale.element_size()
-    if data.is_cuda:
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(data.device))
-        done.synchronize()
-    if isinstance(model.user_factors, QuantizedFactors):
-        return QuantizedFactors(data, scale, model.user_factors.quant), nbytes
-    return data, nbytes
+    uf = model.user_factors
+    if isinstance(uf, RowShardedTable):
+        with _mesh_dispatch_lock:
+            data, scale = _user_vecs(uf, idx, uf.device)
+    else:
+        data, scale = _user_vecs(uf, idx, _table_device(uf))
+    quant = table_quant(uf)
+    pinned = QuantizedFactors(data, scale, quant) if quant != "off" \
+        else data
+    _wait_copies([pinned])
+    return pinned, _nbytes(pinned)
 
 
 def pin_user_rows_lanes(model: ALSModel, user_indices, capacity: int,
                         devices) -> Tuple[Optional[tuple], int]:
-    """The replicated lanes' per-device pinned tables: not ported (the
-    port serves from one card; ``ROADMAP.md`` queue 1 item 13)."""
-    raise NotImplementedError(
-        "pinned rows per lane device need replicated lanes (ROADMAP.md "
-        "queue 1 item 13): the port serves from one card")
+    """The replicated lanes' hot tier: the SAME pinned ``[capacity,
+    rank]`` table (:func:`pin_user_rows`) once per lane device, so
+    whichever lane serves a hot query reads its own device's copy. Lanes
+    that share a device share its copy. Returns ``(tables_per_device,
+    total_nbytes)`` or ``(None, 0)``."""
+    if not len(user_indices) or not len(devices):
+        return None, 0
+    base, nbytes = pin_user_rows(model, user_indices, capacity)
+    tables = tuple(base.to(torch.device(d)) for d in devices)
+    _wait_copies(tables)
+    return tables, nbytes * len(tables)
 
 
-def recommend_pinned(model: ALSModel, pinned: Table, slot: int, k: int
+def recommend_pinned(model: ALSModel, pinned, slot: int, k: int
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k (item_index, score) for one PINNED hot user: the row is
     gathered from the small pinned table (:func:`pin_user_rows`) instead
     of the full ``[U, rank]`` table and scored against the model's item
     table. On the card that is one ``fused_topk`` launch with the pinned
-    table as its user table and ``idx = [slot]``; k past the kernel's
-    limit takes :func:`_serve_topk`, as every serve does."""
+    table as its user table and ``idx = [slot]`` (one a shard for a
+    sharded model); k past the kernel's limit takes :func:`_serve_topk`,
+    as every serve does. ``pinned`` may be the per-device tuple of
+    :func:`pin_user_rows_lanes`: the copy on the device of ``model``'s
+    item table serves, so a lane's hot serve stays on its device."""
     if isinstance(pinned, tuple):
-        raise NotImplementedError(
-            "per-lane pinned tables need replicated lanes (ROADMAP.md "
-            "queue 1 item 13)")
+        dev = _table_device(model.item_factors)
+        pinned = next((t for t in pinned if _table_device(t) == dev),
+                      pinned[0])
     ids, scores = _dispatch_topk_rows(
         pinned, model.item_factors, model.n_items,
         np.asarray([slot], dtype=np.int64), k)()
@@ -1113,10 +1422,14 @@ def als_flops_per_iter(user_h, item_h, params: ALSParams) -> int:
 # the same events in twice lands on the same row: replay after a crash is
 # idempotent.
 
-def dequantize_table(t: Table) -> torch.Tensor:
+def dequantize_table(t: AnyTable):
     """An f32 view of a factor table on its own device (identity for a
     plain f32 table): what a fold-in solves against, the values the
-    table serves."""
+    table serves. A row-sharded table dequantizes shard by shard and
+    stays sharded."""
+    if isinstance(t, RowShardedTable):
+        return RowShardedTable(tuple(dequantize_table(s) for s in t.shards),
+                               t.mesh)
     if not isinstance(t, QuantizedFactors):
         return t
     if t.scale is None:
@@ -1143,42 +1456,37 @@ def dedupe_pairs(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray
     return rows[keep], cols[keep], vals[keep]
 
 
-def fixed_gramian(fixed: Table, params: ALSParams) -> Optional[torch.Tensor]:
+def _sharded_gramian(fixed: RowShardedTable) -> torch.Tensor:
+    """``F^T F`` of a row-sharded table: each shard's Gramian (its zero
+    padding adds nothing), summed in shard order on the first shard's
+    device (the JAX package's all-reduce of per-shard partials)."""
+    dev = fixed.device
+    G = None
+    for shard in dequantize_table(fixed).shards:
+        part = gramian(shard).to(dev)
+        G = part if G is None else G + part
+    return G
+
+
+def fixed_gramian(fixed: AnyTable, params: ALSParams
+                  ) -> Optional[torch.Tensor]:
     """The implicit path's Gramian ``F^T F`` of the fixed side, for
     callers that reuse it across fold-in micro-batches (it depends only
     on the fixed table). ``None`` for explicit models."""
     if not params.implicit_prefs:
         return None
+    if isinstance(fixed, RowShardedTable):
+        with _mesh_dispatch_lock:
+            return _sharded_gramian(fixed)
     return gramian(dequantize_table(fixed))
 
 
-def fold_in_rows(fixed: Table, indices: np.ndarray, values: np.ndarray,
-                 counts: np.ndarray, params: ALSParams,
-                 G: Optional[torch.Tensor] = None) -> np.ndarray:
-    """Solve ``B`` rows' normal equations against the fixed opposite
-    table, on the table's device: the streaming increment. Goes through
-    :func:`_update_block`, so the fold-in shares ``fused_gram`` and
-    ``chol_solve`` (or their plain versions for a CPU table), the bf16
-    gather shadow and the explicit/implicit weights with the batch
-    trainer.
-
-    ``indices`` / ``values`` are ``[B, L]`` host histories (padding
-    slots carry any index and are masked by ``counts``). The JAX package
-    pads B and L to powers of two to reuse compilations; nothing here is
-    compiled per shape, so the arrays go to the card as they are. ``G``
-    is a precomputed :func:`fixed_gramian` (implicit only). Returns host
-    ``[B, rank]`` f32 rows."""
-    table = dequantize_table(fixed)
-    if not isinstance(table, torch.Tensor):
-        raise TypeError(f"the fixed table must be a torch tensor or "
-                        f"QuantizedFactors, got {type(fixed).__name__}")
-    indices = np.asarray(indices, dtype=np.int32)
-    values = np.asarray(values, dtype=np.float32)
-    counts = np.asarray(counts, dtype=np.int32)
+def _fold_in_solve(table: torch.Tensor, indices: np.ndarray,
+                   values: np.ndarray, counts: np.ndarray,
+                   params: ALSParams, G: Optional[torch.Tensor]
+                   ) -> np.ndarray:
+    """:func:`fold_in_rows`'s solve against one f32 table on its device."""
     B, L = indices.shape
-    r = table.shape[-1]
-    if B == 0:
-        return np.zeros((0, r), np.float32)
     if L == 0:  # every row empty: one masked slot keeps the shapes legal
         indices = np.zeros((B, 1), np.int32)
         values = np.zeros((B, 1), np.float32)
@@ -1200,6 +1508,58 @@ def fold_in_rows(fixed: Table, indices: np.ndarray, values: np.ndarray,
     return new.cpu().numpy().astype(np.float32, copy=False)
 
 
+def fold_in_rows(fixed: AnyTable, indices: np.ndarray, values: np.ndarray,
+                 counts: np.ndarray, params: ALSParams,
+                 G: Optional[torch.Tensor] = None) -> np.ndarray:
+    """Solve ``B`` rows' normal equations against the fixed opposite
+    table, on the table's device: the streaming increment. Goes through
+    :func:`_update_block`, so the fold-in shares ``fused_gram`` and
+    ``chol_solve`` (or their plain versions for a CPU table), the bf16
+    gather shadow and the explicit/implicit weights with the batch
+    trainer.
+
+    ``indices`` / ``values`` are ``[B, L]`` host histories (padding
+    slots carry any index and are masked by ``counts``). The JAX package
+    pads B and L to powers of two to reuse compilations; nothing here is
+    compiled per shape, so the arrays go to the card as they are. ``G``
+    is a precomputed :func:`fixed_gramian` (implicit only). Returns host
+    ``[B, rank]`` f32 rows.
+
+    Against a row-sharded table the rows the histories name are gathered
+    from their owner shards into one compact f32 table on the first
+    shard's device, the indices renumbered into it, and the same solve
+    runs there: the same rows in the same order, so the same answer as
+    against the whole table."""
+    indices = np.asarray(indices, dtype=np.int32)
+    values = np.asarray(values, dtype=np.float32)
+    counts = np.asarray(counts, dtype=np.int32)
+    B = indices.shape[0]
+    if isinstance(fixed, RowShardedTable):
+        r = fixed.shape[1]
+        if B == 0:
+            return np.zeros((0, r), np.float32)
+        if params.implicit_prefs and G is None:
+            G = fixed_gramian(fixed, params)
+        with _mesh_dispatch_lock:
+            uniq, local = np.unique(indices, return_inverse=True)
+            vecs, scale = _user_vecs(fixed, uniq, fixed.device)
+            compact = vecs.float() if scale is None \
+                else vecs.float() * scale
+            # ptpu: allow[blocking-under-lock] — the fold-in's gather and
+            # launches against the shards are one sharded dispatch, as the
+            # JAX package's is
+            return _fold_in_solve(
+                compact, local.reshape(indices.shape).astype(np.int32),
+                values, counts, params, G)
+    table = dequantize_table(fixed)
+    if not isinstance(table, torch.Tensor):
+        raise TypeError(f"the fixed table must be a torch tensor or "
+                        f"QuantizedFactors, got {type(fixed).__name__}")
+    if B == 0:
+        return np.zeros((0, table.shape[-1]), np.float32)
+    return _fold_in_solve(table, indices, values, counts, params, G)
+
+
 def _write_rows(table: torch.Tensor, row_idx: torch.Tensor,
                 rows: torch.Tensor) -> torch.Tensor:
     """A copy of ``table`` with ``rows`` at ``row_idx``: never a write
@@ -1209,6 +1569,35 @@ def _write_rows(table: torch.Tensor, row_idx: torch.Tensor,
     return new
 
 
+def _write_table_rows(table: Table, row_idx: np.ndarray, rows: np.ndarray
+                      ) -> Table:
+    """:func:`_write_rows` on a plain or quantized table: a quantized one
+    re-quantizes the f32 rows, and its data and scales swap together."""
+    data, scale = _table_leaves(table)
+    idx = torch.from_numpy(row_idx).to(data.device)
+    if isinstance(table, QuantizedFactors):
+        qd, qs = _quantize_rows(rows, table.quant)
+        return QuantizedFactors(
+            _write_rows(data, idx, qd),
+            None if scale is None else _write_rows(scale, idx, qs),
+            table.quant)
+    return _write_rows(data, idx, torch.from_numpy(rows))
+
+
+def _write_sharded_rows(table: RowShardedTable, row_idx: np.ndarray,
+                        rows: np.ndarray) -> RowShardedTable:
+    """A new row-sharded table with ``rows`` at ``row_idx``: each row
+    written into a copy of its owner shard; untouched shards are shared."""
+    n_local = table.n_local
+    shards = list(table.shards)
+    owner = row_idx // n_local
+    for s in np.unique(owner):
+        pos = np.flatnonzero(owner == s)
+        shards[int(s)] = _write_table_rows(
+            shards[int(s)], row_idx[pos] - int(s) * n_local, rows[pos])
+    return RowShardedTable(tuple(shards), table.mesh)
+
+
 def apply_row_updates(model: ALSModel, side: str, row_idx: np.ndarray,
                       rows: np.ndarray) -> ALSModel:
     """A NEW model with ``side``'s factor rows at ``row_idx`` replaced
@@ -1216,7 +1605,8 @@ def apply_row_updates(model: ALSModel, side: str, row_idx: np.ndarray,
     binding. Functional: the input model, possibly still bound and
     serving, is never written. A quantized table re-quantizes the f32
     rows on the way in, and its data and per-row scales swap together,
-    so a swapped row serves with its own scale."""
+    so a swapped row serves with its own scale. A row-sharded table
+    takes each row into its owner shard, under ``_mesh_dispatch_lock``."""
     if side not in ("user", "item"):
         raise ValueError(f"side must be 'user' or 'item', got {side!r}")
     name = "user_factors" if side == "user" else "item_factors"
@@ -1225,16 +1615,11 @@ def apply_row_updates(model: ALSModel, side: str, row_idx: np.ndarray,
     rows = np.asarray(rows, dtype=np.float32)
     if len(row_idx) == 0:
         return model
-    data, scale = _table_leaves(table)
-    idx = torch.from_numpy(row_idx).to(data.device)
-    if isinstance(table, QuantizedFactors):
-        qd, qs = _quantize_rows(rows, table.quant)
-        new = QuantizedFactors(
-            _write_rows(data, idx, qd),
-            None if scale is None else _write_rows(scale, idx, qs),
-            table.quant)
+    if isinstance(table, RowShardedTable):
+        with _mesh_dispatch_lock:
+            new = _write_sharded_rows(table, row_idx, rows)
     else:
-        new = _write_rows(data, idx, torch.from_numpy(rows))
+        new = _write_table_rows(table, row_idx, rows)
     return dataclasses.replace(model, **{name: new})
 
 
@@ -1285,10 +1670,15 @@ def extend_factor_rows(model: ALSModel, side: str, new_keys, rows: np.ndarray
             raise ValueError(f"{side} {k!r} already indexed; fold in "
                              f"through apply_row_updates instead")
     n_after = n_real + len(new_keys)
-    data, scale = _table_leaves(table)
-    capacity = int(data.shape[0])
+    capacity = int(table.shape[0]) if isinstance(table, RowShardedTable) \
+        else int(_table_leaves(table)[0].shape[0])
     if n_after > capacity:
         grow = _pow2_ceil(max(n_after - capacity, COLD_START_GROW_MIN))
+        # a row-sharded table grows whole and splits again over its mesh
+        # (to a shard multiple, as shard_model places it)
+        mesh = table.mesh if isinstance(table, RowShardedTable) else None
+        table = unshard_table(table)
+        data, scale = _table_leaves(table)
         if isinstance(table, QuantizedFactors):
             table = QuantizedFactors(
                 _grow_rows(data, grow, 0),
@@ -1296,6 +1686,8 @@ def extend_factor_rows(model: ALSModel, side: str, new_keys, rows: np.ndarray
                 table.quant)
         else:
             table = _grow_rows(data, grow, 0)
+        if mesh is not None:
+            table = _shard_table(table, mesh)
     fwd = dict(ids.items()) if ids is not None else {}
     for i, k in enumerate(new_keys):
         fwd[k] = n_real + i

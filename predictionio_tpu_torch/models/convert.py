@@ -5,7 +5,9 @@ into the port.
 ``train_als(init=...)``; :func:`als_model_from_numpy` takes what a JAX-package ``ALSModel`` holds,
 as plain host data: ``np.asarray`` of each factor table (or of a
 quantized table's data and scale), ``dict(bimap)`` of each id map and
-``dataclasses.asdict(params)``. :func:`seqrec_model_from_numpy`,
+``dataclasses.asdict(params)``; :func:`als_model_from_jax` reads those
+off the model itself, a row-sharded one (the JAX package's
+``shard_model``) included. :func:`seqrec_model_from_numpy`,
 :func:`naive_bayes_model_from_numpy` and
 :func:`random_forest_model_from_numpy` do the same for the sequential
 and classification models. Nothing of the JAX package is imported, so
@@ -14,14 +16,22 @@ both packages can compute on the same numbers.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..data.bimap import BiMap
+from ..parallel.mesh import ServingMesh
 from ..utils.device import DeviceLike, resolve_device
-from .als import ALSModel, ALSParams, QuantizedFactors, SERVING_QUANT_MODES
+from .als import (
+    ALSModel,
+    ALSParams,
+    QuantizedFactors,
+    SERVING_QUANT_MODES,
+    shard_model,
+)
 from .classify import NaiveBayesModel, RandomForestModel
 from .seqrec import SeqRecModel, SeqRecParams
 
@@ -91,6 +101,38 @@ def als_model_from_numpy(user_factors, item_factors, n_users: int,
         user_ids=None if user_ids is None else BiMap(dict(user_ids)),
         item_ids=None if item_ids is None else BiMap(dict(item_ids)),
         params=params)
+
+
+def als_model_from_jax(jmodel, device: DeviceLike = None,
+                       mesh: Optional[ServingMesh] = None) -> ALSModel:
+    """The port's :class:`ALSModel` from a JAX-package ``ALSModel``,
+    read by its fields (nothing of JAX is imported): ``np.asarray`` of
+    each factor table's leaves (for a table the JAX package's
+    ``shard_model`` spread over a mesh that is its ``jax.device_get``),
+    with the padding rows past ``n_users`` / ``n_items`` dropped, the id
+    maps and the params. With ``mesh`` the model is then split by the
+    port's :func:`~.als.shard_model`; the JAX model's own mesh is never
+    carried."""
+    def leaves(t, n):
+        data = getattr(t, "data", t)
+        scale = getattr(t, "scale", None)
+        quant = getattr(t, "quant", "off") if data is not t else "off"
+        data = np.asarray(data)[:n]
+        return (data, None if scale is None
+                else np.asarray(scale, dtype=np.float32)[:n], quant)
+
+    n_u, n_i = int(jmodel.n_users), int(jmodel.n_items)
+    ud, us, quant = leaves(jmodel.user_factors, n_u)
+    vd, vs, _ = leaves(jmodel.item_factors, n_i)
+    params = {f.name: getattr(jmodel.params, f.name)
+              for f in dataclasses.fields(ALSParams)
+              if hasattr(jmodel.params, f.name)}
+    model = als_model_from_numpy(
+        ud, vd, n_u, n_i,
+        None if jmodel.user_ids is None else dict(jmodel.user_ids.items()),
+        None if jmodel.item_ids is None else dict(jmodel.item_ids.items()),
+        params, user_scale=us, item_scale=vs, quant=quant, device=device)
+    return model if mesh is None else shard_model(model, mesh)
 
 
 def seqrec_model_from_numpy(weights: Mapping[str, np.ndarray], n_items: int,

@@ -1,0 +1,164 @@
+"""The serving mesh: which devices serve, and how a table's rows split
+over them (the serving part of ``predictionio_tpu/parallel/mesh.py``).
+
+A :class:`ServingMesh` is an explicit list of devices laid out as a
+``(batch, model)`` grid. A row-sharded factor table spreads its rows over
+EVERY device of the mesh, in the grid's row-major order
+(:func:`rows_spec`): shard ``s`` holds rows ``[s * n_local, (s + 1) *
+n_local)`` on ``mesh.devices[s]``.
+
+:func:`local_devices` is the port's ``jax.devices()``: every visible CUDA
+card, or the CPU when asked for. ``PTPU_TORCH_FORCE_DEVICE_COUNT=N`` (off
+by default, read only there) makes it list its first device N times, the
+counterpart of the JAX package's
+``--xla_force_host_platform_device_count``: N shards or N lanes on one
+card (or on the CPU in the tests). Unset, one H100 is one device, and
+:func:`resolve_serving_mode` resolves as the JAX package does on one chip.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..utils.device import DeviceLike, resolve_device
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+BATCH_AXIS = "batch"
+
+#: serving-mode names (``ServerConfig.serving_mode`` / ``deploy
+#: --serving-mode``): "single" is the one-device path, "replicated" holds
+#: a full model copy per device and fans micro-batches out across
+#: per-device lanes, "sharded" row-shards the factor tables over the
+#: whole mesh (tables bigger than one card's memory), "auto" picks by the
+#: card's memory
+SERVING_MODES = ("auto", "single", "replicated", "sharded")
+
+#: share of one device's memory a model may occupy before "auto" switches
+#: from replicated to sharded: factors are not the only resident bytes
+#: (serving temporaries, the pinned hot tier), so a full copy per device
+#: needs headroom
+AUTO_SHARD_HBM_FRACTION = 0.6
+
+#: the environment variable :func:`local_devices` reads (off by default)
+FORCE_DEVICE_COUNT_ENV = "PTPU_TORCH_FORCE_DEVICE_COUNT"
+
+
+def local_devices(device: DeviceLike = None) -> List[torch.device]:
+    """The devices this process serves on: every visible CUDA card (the
+    asked-for one first; the card by default), or ``[cpu]`` when the CPU
+    is asked for. With ``PTPU_TORCH_FORCE_DEVICE_COUNT=N`` the first
+    device N times instead."""
+    first = resolve_device(device)
+    devices = [first]
+    if first.type == "cuda":
+        devices += [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())
+                    if i != first.index]
+    forced = os.environ.get(FORCE_DEVICE_COUNT_ENV, "").strip()
+    if forced:
+        n = int(forced)
+        if n < 1:
+            raise ValueError(f"{FORCE_DEVICE_COUNT_ENV} must be >= 1, "
+                             f"got {forced!r}")
+        devices = [first] * n
+    return devices
+
+
+@dataclass(frozen=True)
+class ServingMesh:
+    """Devices laid out as a 2-D grid with named axes. ``devices`` is
+    the grid flattened row-major; a device may repeat (several shards or
+    lanes on one card)."""
+
+    devices: Tuple[torch.device, ...]
+    shape: Tuple[int, int]
+    axis_names: Tuple[str, str] = (BATCH_AXIS, MODEL_AXIS)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.axis_names.index(axis)]
+
+
+def make_serving_mesh(batch: Optional[int] = None, model: int = 1,
+                      devices: Optional[Sequence[torch.device]] = None
+                      ) -> ServingMesh:
+    """The 2-D ``(batch, model)`` SERVING mesh. Default: every device of
+    :func:`local_devices` on the batch axis. The row-sharded layout
+    (:func:`rows_spec`) spreads rows over both axes, so the split between
+    them matters only to code that addresses one axis."""
+    if devices is None:
+        devices = local_devices()
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    d0, d1 = batch, model
+    if d0 is None:
+        if n % d1 != 0:
+            raise ValueError(f"{n} devices not divisible by "
+                             f"{MODEL_AXIS}={d1}")
+        d0 = n // d1
+    if d0 * d1 > n:
+        raise ValueError(f"mesh {d0}x{d1} needs {d0 * d1} devices, "
+                         f"have {n}")
+    return ServingMesh(tuple(devices[: d0 * d1]), (d0, d1))
+
+
+def rows_spec(mesh: Optional[ServingMesh]) -> Tuple[str, ...]:
+    """The axes a table's rows split over: EVERY axis of ``mesh``, in
+    order (the JAX package's ``P(tuple(mesh.axis_names))``); ``()`` (one
+    whole table) without a mesh."""
+    if mesh is None:
+        return ()
+    return tuple(mesh.axis_names)
+
+
+def pad_to_multiple(n: int, k: int) -> int:
+    """Smallest multiple of ``k`` that is >= ``n`` (shard-even padding)."""
+    return ((n + k - 1) // k) * k
+
+
+def device_hbm_bytes(device: DeviceLike = None) -> Optional[int]:
+    """One device's memory in bytes (the card's ``total_memory``); None
+    for the CPU or where it cannot be read: callers treat None as "sizing
+    unknown", never as "infinite"."""
+    try:
+        dev = resolve_device(device)
+        if dev.type != "cuda":
+            return None
+        return int(torch.cuda.get_device_properties(dev).total_memory) \
+            or None
+    except Exception:  # noqa: BLE001 — sizing is advisory
+        return None
+
+
+def resolve_serving_mode(mode: str, model_bytes: Optional[int],
+                         n_devices: int,
+                         hbm_limit: Optional[int] = None,
+                         headroom: float = AUTO_SHARD_HBM_FRACTION) -> str:
+    """The concrete serving mode for ``ServerConfig.serving_mode``.
+
+    ``auto``: a model whose resident factor bytes exceed ``headroom`` x
+    one device's memory cannot keep a full copy per device beside the
+    serving temporaries -> ``sharded``; otherwise N devices each take a
+    full copy -> ``replicated``; one device stays ``single``, and an
+    unsized model or device never shards."""
+    if mode not in SERVING_MODES:
+        raise ValueError(f"serving_mode must be one of {SERVING_MODES}, "
+                         f"got {mode!r}")
+    if mode != "auto":
+        return mode
+    if n_devices <= 1:
+        return "single"
+    if hbm_limit is None:
+        hbm_limit = device_hbm_bytes()
+    if model_bytes is not None and hbm_limit is not None \
+            and model_bytes > headroom * hbm_limit:
+        return "sharded"
+    return "replicated"

@@ -128,10 +128,30 @@ recorder keeps every trace under reason ``slo``. ``lifecycle``,
 ``servingWarm`` and ``POST /drain`` are what the fleet's router and
 replica lifecycle read (:mod:`predictionio_tpu_torch.router`).
 
-Left out (``ROADMAP.md`` queue 1): replicated lanes and the ``pio_lane_*``,
-``pio_serving_lanes`` and ``pio_serving_degraded`` families (item 13);
-feedback events
-and ``log_url``. ``transfer_guard``, the XLA recompile sentinel
+Mesh-wide serving (``ServerConfig.serving_mode``, ``deploy
+--serving-mode``), resolved at every bind over the devices of
+``parallel.local_devices``: "single" serves one binding on the serving
+device; "sharded" splits both factor tables by rows over a ``(batch,
+model)`` mesh of every device (``fused_topk`` once per shard, the
+candidates merged); "replicated" gives each device a lane with a full
+model copy, and the batch path (implied, batching or not) fans batches
+out over the lanes: serial drainer ``i`` and staged dispatcher ``i``
+serve lane ``i % lanes``, each lane launching on a CUDA stream of its
+own, so lanes on one card overlap there as lanes on several cards do.
+"auto" shards a model past the card's memory headroom and replicates
+otherwise. On one card (no ``PTPU_TORCH_FORCE_DEVICE_COUNT``) "auto" and
+"replicated" resolve to "single" and "sharded" is a mesh of one, as in
+the JAX package. A lane's failed dispatch fails over to the other lanes
+(each tried at most once; ``serving.lane`` fires before every lane
+dispatch), ``lane_fail_threshold`` failures in a row declare the lane
+dead and its traffic goes to the survivors (``pio_serving_degraded`` 1),
+and a restarter thread probes it back (``serving.lane_restart``) with a
+bounded backoff; ``close()`` joins it. ``/status.json``'s ``mesh`` block
+and the ``pio_lane_*`` and ``pio_serving_lanes`` families show the
+lanes.
+
+Left out (``ROADMAP.md`` queue 1): feedback events and ``log_url``.
+``transfer_guard``, the XLA recompile sentinel
 (``pio_compiles_since_warm``, the per-executable compile table of
 ``/profile.json``) and ``pio_sharding_findings`` are XLA mechanisms with
 nothing to port (``ROADMAP.md``); a candidate is ready once its tables
@@ -140,6 +160,7 @@ are on the card.
 
 from __future__ import annotations
 
+import contextlib
 import html
 import logging
 import queue
@@ -149,6 +170,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from datetime import datetime, timezone
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from ..concurrency import (
     instrument_locks,
@@ -184,10 +207,17 @@ from ..faults import registry as fault_registry
 from ..obs import hbm_stats, mark_active_traces, numerics
 from ..ops import _build
 from ..ops import fused_topk as _fused_topk
+from ..parallel.mesh import (
+    SERVING_MODES,
+    local_devices,
+    make_serving_mesh,
+    resolve_serving_mode,
+)
 from ..rollout.registry import ReleaseRegistry
 from ..rollout.splitter import ARM_CANDIDATE, ARM_STABLE
 from ..utils.device import card_info, resolve_device
 from ..utils.jsonutil import from_jsonable, to_jsonable
+from ..utils.retrying import RetryPolicy, backoff_delays
 from ..workflow.batch_predict import (
     PendingBatch,
     dispatch_batch,
@@ -209,8 +239,28 @@ from .plugins import EngineServerPlugins, resolve_plugin
 
 log = logging.getLogger(__name__)
 
+F_LANE = declare("serving.lane",
+                 "one micro-batch dispatch on a replicated serving "
+                 "lane (lane= labels the device ordinal) — injecting "
+                 "here simulates a dead device/lane")
+F_LANE_RESTART = declare("serving.lane_restart",
+                         "a lane-restart probe (lane=): injecting here "
+                         "keeps a dead lane down")
 F_DISPATCH = declare("serving.dispatch",
                      "one batched device dispatch (any serving mode)")
+
+
+def pick_live_lane(lane: int, n_lanes: int, dead) -> int:
+    """Route traffic for ``lane`` to a surviving lane: identity while
+    healthy; a dead lane's batches go to the survivors round-robin by
+    ordinal. With every lane dead there is nothing better than the
+    original."""
+    if n_lanes <= 0 or lane not in dead:
+        return lane
+    alive = [i for i in range(n_lanes) if i not in dead]
+    if not alive:
+        return lane
+    return alive[lane % len(alive)]
 
 #: the batch-path architectures (``ServerConfig.serving_pipeline``)
 PIPELINE_MODES = ("staged", "serial")
@@ -340,6 +390,20 @@ class ServerConfig:
     slo_specs: Optional[str] = None
     #: the SLO engine's evaluation tick; 0 turns the engine off
     slo_interval_ms: float = 1000.0
+    #: mesh-wide serving over ``parallel.local_devices``: "single" (one
+    #: binding), "replicated" (a full model copy per device, batches fanned
+    #: out over per-device lanes), "sharded" (both factor tables split by
+    #: rows over the ``(batch, model)`` mesh), "auto" (sharded past the
+    #: card's memory headroom, else replicated on more than one device)
+    serving_mode: str = "single"
+    #: consecutive failed dispatches on one replicated lane before the
+    #: lane is declared dead and its traffic goes to the survivors
+    #: (``pio_serving_degraded``)
+    lane_fail_threshold: int = 3
+    #: the restarter's probes of a dead lane: bounded exponential backoff
+    #: from this base, capped at 32x, at most this many attempts
+    lane_restart_backoff_ms: float = 100.0
+    lane_restart_max_attempts: int = 8
 
 
 @dataclass
@@ -382,6 +446,10 @@ class QueryServer:
             raise ValueError(
                 f"serving_pipeline must be 'staged' or 'serial', got "
                 f"{self.config.serving_pipeline!r}")
+        if self.config.serving_mode not in SERVING_MODES:
+            raise ValueError(
+                f"serving_mode must be one of {SERVING_MODES}, got "
+                f"{self.config.serving_mode!r}")
         self.device = resolve_device(self.config.device)
         self.card = card_info(self.device)
         self.plugins = EngineServerPlugins()
@@ -458,6 +526,51 @@ class QueryServer:
             "assemble/readback host stage ran — the overlap the staged "
             "pipeline exists to create (a serial drainer reads ~0)",
             fn=self.overlap.overlap_fraction)
+        # mesh-wide serving: per-lane depth, latency and dispatch counts
+        # while replicated fan-out is active, and the lane count
+        self.serving_mode_resolved = "single"
+        self.serving_mesh = None
+        self.lane_devices: List[Any] = []
+        self.lane_models: List[List[Any]] = []
+        self.lane_streams: List[Any] = []
+        self._lane_latency = self.metrics.histogram(
+            "pio_lane_batch_seconds",
+            "Per-lane micro-batch wall time (replicated fan-out; lane "
+            "label = device ordinal)",
+            bounds=DEFAULT_LATENCY_BOUNDS)
+        self._lane_depth = self.metrics.histogram(
+            "pio_lane_queue_depth",
+            "Batcher queue depth observed at each lane's batch pickup",
+            bounds=POW2_COUNT_BOUNDS)
+        self._lane_dispatches = self.metrics.counter(
+            "pio_lane_dispatches_total",
+            "Micro-batches dispatched per serving lane")
+        self.metrics.gauge(
+            "pio_serving_lanes",
+            "Per-device serving lanes active (0 = single/sharded "
+            "binding)",
+            fn=lambda: float(len(self.lane_models)))
+        # lane supervision: the dead set and the failure streaks, under a
+        # lock of their own (a death is detected on the dispatch path,
+        # which must not wait on the binding lock); the restarter threads,
+        # joined by close()
+        self._lane_health = new_lock("QueryServer._lane_health")
+        self._dead_lanes: dict = {}        # lane -> {"since", "reason"}
+        self._lane_streaks: dict = {}      # lane -> consecutive failures
+        self._restarters: List[threading.Thread] = []
+        self._closing = threading.Event()
+        self._lane_restarts = self.metrics.counter(
+            "pio_lane_restarts_total",
+            "Successful restarts of a dead serving lane, by lane")
+        self._lane_failures = self.metrics.counter(
+            "pio_lane_failures_total",
+            "Failed micro-batch dispatches per serving lane (the "
+            "streak that crosses lane_fail_threshold kills the lane)")
+        self.metrics.gauge(
+            "pio_serving_degraded",
+            "1 while one or more replicated serving lanes are dead "
+            "and their traffic is redistributed across survivors",
+            fn=lambda: 1.0 if self._dead_lanes else 0.0)
         # request traces (the server owns the tracer, so direct query()
         # callers trace as HTTP traffic does; build_app mounts it on the
         # request path and /trace.json) and the bounded profiler capture
@@ -562,17 +675,21 @@ class QueryServer:
             self.cache.register_metrics(self.metrics)
         self._bind(engine_params, models, instance)
         self.batcher = None
-        if cfg.batching and cfg.serving_pipeline == "staged":
+        # replicated lanes imply the batch path: its dispatch threads ARE
+        # the lanes, so a replicated binding without batching still fans
+        # out over its lanes
+        lanes = len(self.lane_models) or 1
+        if (cfg.batching or lanes > 1) and cfg.serving_pipeline == "staged":
             self.batcher = StagedPipeline(
-                self, cfg.batch_window_ms, cfg.max_batch,
+                self, cfg.batch_window_ms, cfg.max_batch, lanes=lanes,
                 assemble_workers=cfg.assemble_workers,
                 readback_workers=cfg.readback_workers,
                 depth=cfg.pipeline_depth, deadline_ms=cfg.queue_deadline_ms,
                 dispatch_workers=cfg.batch_pipeline)
-        elif cfg.batching:
+        elif cfg.batching or lanes > 1:
             self.batcher = MicroBatcher(
                 self, cfg.batch_window_ms, cfg.max_batch,
-                pipeline=cfg.batch_pipeline,
+                pipeline=max(cfg.batch_pipeline, lanes), lanes=lanes,
                 deadline_ms=cfg.queue_deadline_ms)
         if cfg.warm_start:
             self._start_warm(0)
@@ -670,6 +787,7 @@ class QueryServer:
         until this same swap unbinds it, so no query of its cohort meets
         the old stable meanwhile."""
         algorithms, models = self._serving_algorithms(engine_params, models)
+        placement = self._place_binding(algorithms, models)
         serving = self.engine.make_serving(engine_params)
         with self._lock:
             if self.cache is not None:
@@ -683,8 +801,15 @@ class QueryServer:
                 self._candidate = None
             self.engine_params = engine_params
             self.instance = instance
-            self.algorithms, self.models, self.serving = \
-                algorithms, models, serving
+            self.algorithms, self.serving = algorithms, serving
+            (self.serving_mode_resolved, self.serving_mesh, self.models,
+             self.lane_devices, self.lane_models, self.lane_streams) = \
+                placement
+            # a rebind replicates every lane afresh: earlier deaths were
+            # about copies that no longer serve
+            with self._lane_health:
+                self._dead_lanes.clear()
+                self._lane_streaks.clear()
             # what a fold-in in flight re-checks: the instance id, or a
             # token of this bind where models were handed in, so that a
             # second bind voids it either way
@@ -702,6 +827,97 @@ class QueryServer:
     def _binding(self):
         with self._lock:
             return self.algorithms, self.models, self.serving
+
+    # -- mesh-wide placement -------------------------------------------------
+    @staticmethod
+    def _models_nbytes(models: List[Any]) -> Optional[int]:
+        """Resident factor bytes of the bound models (what "auto" sizes
+        against one device's memory); None when no model has tables."""
+        total, seen = 0, False
+        for m in models:
+            for name in ("user_factors", "item_factors"):
+                t = getattr(m, name, None)
+                if t is None:
+                    continue
+                for shard in getattr(t, "shards", (t,)):
+                    for leaf in (getattr(shard, "data", shard),
+                                 getattr(shard, "scale", None)):
+                        if hasattr(leaf, "element_size"):
+                            total += leaf.numel() * leaf.element_size()
+                            seen = True
+        return total if seen else None
+
+    def _place_binding(self, algorithms: List[Any], models: List[Any]
+                       ) -> tuple:
+        """Resolve ``ServerConfig.serving_mode`` over the serving devices
+        and place a binding's models accordingly: ``(mode, mesh, models,
+        lane_devices, lane_models, lane_streams)``. "sharded" row-shards
+        every model whose algorithm can (``shard_serving_model``) over a
+        mesh of every device; "replicated" gives each device a lane with
+        its own copy of every model (``replicate_serving_model``) and, on
+        the card, a CUDA stream of its own. One device resolves "auto"
+        and "replicated" to "single"."""
+        mode = self.config.serving_mode
+        if mode == "single":
+            return "single", None, models, [], [], []
+        devices = local_devices(self.device)
+        resolved = resolve_serving_mode(
+            mode, self._models_nbytes(models), len(devices))
+        if resolved != "sharded" and len(devices) <= 1:
+            resolved = "single"
+        if resolved == "sharded":
+            mesh = make_serving_mesh(devices=devices)
+            return ("sharded", mesh,
+                    self._shard_models(algorithms, models, mesh), [], [], [])
+        if resolved != "replicated":
+            return resolved, None, models, [], [], []
+        lane_models = [self._replicate_models(algorithms, models, dev)
+                       for dev in devices]
+        streams = [torch.cuda.Stream(device=dev) if dev.type == "cuda"
+                   else None for dev in devices]
+        self._order_lanes(streams)
+        return "replicated", None, models, list(devices), lane_models, \
+            streams
+
+    @staticmethod
+    def _shard_models(algorithms: List[Any], models: List[Any],
+                      mesh) -> List[Any]:
+        """Row-shard every model whose algorithm supports it; the others
+        keep their single-device placement (they serve, not mesh-wide)."""
+        out = []
+        for a, m in zip(algorithms, models):
+            hook = getattr(a, "shard_serving_model", None)
+            out.append(hook(m, mesh) if hook is not None else m)
+        return out
+
+    @staticmethod
+    def _replicate_models(algorithms: List[Any], models: List[Any],
+                          device) -> List[Any]:
+        """One lane's models: each algorithm's copy on ``device``
+        (``replicate_serving_model``), the model itself without the
+        hook. Pair with :meth:`_order_lanes` before a lane reads them."""
+        out = []
+        for a, m in zip(algorithms, models):
+            rep = getattr(a, "replicate_serving_model", None)
+            out.append(rep(m, device) if rep is not None else m)
+        return out
+
+    @staticmethod
+    def _order_lanes(streams: List[Any]) -> None:
+        """Order each lane stream behind the work queued so far on its
+        device's current stream (the copies and fold-in writes that made
+        the tables a lane is about to read), without waiting on the host:
+        a lane never reads a table half made."""
+        for st in streams:
+            if st is not None:
+                st.wait_stream(torch.cuda.current_stream(st.device))
+
+    def _lane_stream(self, streams: List[Any], lane: Optional[int]):
+        """The CUDA stream ``lane`` launches on (a context), or no stream
+        change on the CPU and without lanes."""
+        if lane is None or lane >= len(streams) or streams[lane] is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(streams[lane])
 
     # -- the serving caches --------------------------------------------------
     def _make_cache(self):
@@ -731,18 +947,23 @@ class QueryServer:
 
     def _pin_hot(self, entity_keys: List[str]):
         """The hot tier's pin: the (single) algorithm's
-        ``pin_hot_entities`` against the binding of this moment. Each
+        ``pin_hot_entities`` against the binding of this moment (on every
+        lane device under replicated lanes). Each
         handle is ``(binding_id, handle)``: the per-query path serves it
         only under the binding it was pinned against."""
         with self._lock:
             algorithms, models = self.algorithms, self.models
             binding_id = self.binding_id
+            devices = list(self.lane_devices)
         if len(algorithms) != 1:
             return {}, 0  # several algorithms blend; one pin would skew
         pin = getattr(algorithms[0], "pin_hot_entities", None)
         if pin is None:
             return {}, 0
-        handles, nbytes = pin(models[0], entity_keys)
+        # under replicated lanes the pin lands on EVERY lane device, so a
+        # hot serve stays on its lane's device
+        handles, nbytes = (pin(models[0], entity_keys, devices=devices)
+                           if devices else pin(models[0], entity_keys))
         return {e: (binding_id, h) for e, h in handles.items()}, nbytes
 
     def _dispatch_predictions(self, algorithms: List[Any],
@@ -1033,19 +1254,31 @@ class QueryServer:
         return result
 
     def query_batch(self, query_jsons: List[Any],
-                    obs_list: Optional[List[Optional[dict]]] = None
-                    ) -> List[Any]:
+                    obs_list: Optional[List[Optional[dict]]] = None,
+                    lane: Optional[int] = None) -> List[Any]:
         """Serve many queries with ONE batched launch per algorithm (the
         serial drainers' work). A query that fails to parse gets its own
         400 and one that fails to predict or serve its own 500; the
         other slots are unaffected. ``obs_list`` (one dict a query, from
         the batcher) gets each query's access-log fields, and its trace a
         ``batch`` span with the stages laid out from the batch's start
-        (this path really is sequential)."""
+        (this path really is sequential).
+
+        ``lane`` (replicated fan-out) serves the batch from that lane's
+        model copies, on its stream, after its ``serving.lane`` fault
+        point; an injected lane fault raises out of here, for the caller
+        to fail over. With no lanes bound the argument is ignored (a
+        stale drainer after a mode change serves the stable binding)."""
         t0 = time.monotonic()
         with self._lock:
-            algorithms, models, serving = \
-                self.algorithms, self.models, self.serving
+            algorithms, serving = self.algorithms, self.serving
+            if lane is not None and self.lane_models:
+                lane = lane % len(self.lane_models)
+                models = self.lane_models[lane]
+            else:
+                lane = None
+                models = self.models
+            streams = self.lane_streams
             binding_id = self.binding_id
         traces = [self._trace_of(o) for o in (obs_list or [])]
         traces += [None] * (len(query_jsons) - len(traces))
@@ -1068,10 +1301,13 @@ class QueryServer:
                 self._pipeline_overlapped.inc()
             try:
                 with activate_traces(traces):
+                    if lane is not None:
+                        fire(F_LANE, lane=str(lane))
                     fire(F_DISPATCH)
-                served = predict_serve_batch(algorithms, models, serving,
-                                             parsed, timings=phases,
-                                             pool=self._pool)
+                with self._lane_stream(streams, lane):
+                    served = predict_serve_batch(algorithms, models, serving,
+                                                 parsed, timings=phases,
+                                                 pool=self._pool)
             finally:
                 self.overlap.exit(DEVICE_TRACK)
             self.overlap.enter("readback")
@@ -1083,7 +1319,11 @@ class QueryServer:
         dt = time.monotonic() - t0
         self._record_phases(phases)
         self._batch_occupancy.observe(len(query_jsons))
-        batch_obs = {"batchSize": len(query_jsons)}
+        batch_obs: Dict[str, Any] = {"batchSize": len(query_jsons)}
+        if lane is not None:
+            self._lane_latency.labels(lane=str(lane)).observe(dt)
+            self._lane_dispatches.labels(lane=str(lane)).inc()
+            batch_obs["lane"] = lane
         batch_obs.update({f"{k}Ms": round(v * 1000, 3)
                           for k, v in phases.items()})
         for i, result in enumerate(out):
@@ -1096,8 +1336,11 @@ class QueryServer:
             if tr is not None:
                 tr.set_attr("engineInstanceId", binding_id)
                 tr.set_attr("arm", ARM_STABLE)
-                parent = tr.add_span("batch", t0, t0 + dt,
-                                     batchSize=len(query_jsons))
+                if lane is not None:
+                    tr.set_attr("lane", lane)
+                parent = tr.add_span(
+                    "batch", t0, t0 + dt, batchSize=len(query_jsons),
+                    **({"lane": lane} if lane is not None else {}))
                 add_stage_spans(tr, t0, phases, parent_id=parent.span_id,
                                 skip=("queue_wait",))
                 tr.exemplar(self._latency_hist.labels(), dt)
@@ -1134,8 +1377,15 @@ class QueryServer:
         now = time.monotonic()
         self._record_phases(ab.phases)
         self._batch_occupancy.observe(len(ab.entries))
+        if ab.lane is not None and ab.t_dispatched is not None:
+            self._lane_latency.labels(lane=str(ab.lane)).observe(
+                now - ab.t_dispatched)
+            self._lane_dispatches.labels(lane=str(ab.lane)).inc()
         self._trace_pipeline_batch(ab, now)
-        batch_obs = {"batchSize": len(ab.entries), "pipeline": "staged"}
+        batch_obs: Dict[str, Any] = {"batchSize": len(ab.entries),
+                                     "pipeline": "staged"}
+        if ab.lane is not None:
+            batch_obs["lane"] = ab.lane
         batch_obs.update({f"{k}Ms": round(v * 1000, 3)
                           for k, v in ab.phases.items()})
         total = 0.0
@@ -1175,10 +1425,13 @@ class QueryServer:
             tr.set_attr("engineInstanceId", ab.binding_id)
             tr.set_attr("arm", ARM_STABLE)
             tr.set_attr("pipeline", "staged")
+            if ab.lane is not None:
+                tr.set_attr("lane", ab.lane)
             wait = (entry.obs or {}).get("queueWaitMs", 0.0) / 1000.0
             t_pick = entry.t_enq + wait
-            parent = tr.add_span("batch", t_pick, now,
-                                 batchSize=len(ab.entries))
+            parent = tr.add_span(
+                "batch", t_pick, now, batchSize=len(ab.entries),
+                **({"lane": ab.lane} if ab.lane is not None else {}))
             if wait > 0:
                 tr.add_span("queue_wait", entry.t_enq, t_pick,
                             parent_id=parent.span_id)
@@ -1279,7 +1532,8 @@ class QueryServer:
         on disk; 0 when ``pio build`` built them all) and ``probe``
         (each algorithm's ``warm_serving(model, max_batch)``, which on
         the card launches the kernels at every batch and k of the
-        ladder). ``replicate`` is 0: one card serves. A failure is logged
+        ladder), then ``replicate`` (the same ladder on every other
+        replicated lane's copy, on its stream). A failure is logged
         and its text kept in the report's ``error``; the queries that
         follow take the same path and raise the same way. Only the
         newest generation sets ``warm_done``. ``since`` is when the
@@ -1287,7 +1541,10 @@ class QueryServer:
         the load took the lock) counts as compiled at this bind."""
         with self._lock:
             algorithms, models = self.algorithms, self.models
-        max_b = self.config.max_batch if self.config.batching else 1
+            lane_models = list(self.lane_models)
+            streams = list(self.lane_streams)
+        max_b = self.config.max_batch \
+            if (self.config.batching or lane_models) else 1
         phases = {"load": 0.0, "compile": 0.0, "replicate": 0.0,
                   "probe": 0.0}
         errors: List[str] = []
@@ -1305,19 +1562,31 @@ class QueryServer:
         except Exception as e:  # noqa: BLE001 — reported, never hidden
             log.exception("loading the serving kernels failed")
             errors.append(str(e))
-        if not errors:
-            t0 = time.perf_counter()
-            for algo, model in zip(algorithms, models):
+        def walk(models_i) -> int:
+            n = 0
+            for algo, model in zip(algorithms, models_i):
                 warm = getattr(algo, "warm_serving", None)
                 if warm is None:
                     continue
                 try:
-                    calls += warm(model, max_b) or 0
+                    n += warm(model, max_b) or 0
                 except Exception as e:  # noqa: BLE001 — warm the rest
                     log.exception("serving warm-up failed for %s",
                                   type(algo).__name__)
                     errors.append(str(e))
+            return n
+
+        if not errors:
+            all_lanes = lane_models or [models]
+            t0 = time.perf_counter()
+            with self._lane_stream(streams, 0):
+                calls += walk(all_lanes[0])
             phases["probe"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            for lane, models_i in enumerate(all_lanes[1:], start=1):
+                with self._lane_stream(streams, lane):
+                    calls += walk(models_i)
+            phases["replicate"] = time.perf_counter() - t1
         for phase, sec in phases.items():
             self._warmup_seconds.labels(phase=phase).observe(sec)
         report = {
@@ -1375,6 +1644,7 @@ class QueryServer:
                         else {"enabled": False}),
             "slo": self.slo_status(),
             "profile": self.profile_summary(),
+            "mesh": self.mesh_status(),
             "degraded": self.degraded_status(),
             "hbm": hbm_stats(),
             "cache": (self.cache.stats() if self.cache is not None
@@ -1393,13 +1663,166 @@ class QueryServer:
                 "last": st["history"][-1] if st["history"] else None}
 
     def degraded_status(self) -> dict:
-        """The ``degraded`` block of ``/status.json``: ``nonfinite`` once
-        a NaN/Inf sentinel saw a nonfinite value, ``faultInjection``
-        while a fault spec is armed in the process. (The JAX package's
-        lane keys are queue 1 item 13's.)"""
+        """The ``degraded`` block of ``/status.json``: the dead lanes,
+        lane restart and failure totals, ``nonfinite`` once a NaN/Inf
+        sentinel saw a nonfinite value, ``faultInjection`` while a fault
+        spec is armed in the process."""
+        with self._lane_health:
+            dead = [{"lane": int(k), "since": v["since"],
+                     "reason": v["reason"]}
+                    for k, v in sorted(self._dead_lanes.items())]
+
+        def _total(fam) -> int:
+            return int(sum(child.value for _, child in fam.children()))
+
         nonfinite = numerics.active() and numerics.nonfinite_seen()
-        return {"active": nonfinite, "nonfinite": nonfinite,
-                "faultInjection": fault_registry().enabled()}
+        return {"active": bool(dead) or nonfinite,
+                "deadLanes": dead,
+                "laneRestarts": _total(self._lane_restarts),
+                "laneFailures": _total(self._lane_failures),
+                "faultInjection": fault_registry().enabled(),
+                "nonfinite": nonfinite}
+
+    def mesh_status(self) -> dict:
+        """Mesh-wide serving for ``/status.json`` and the status page:
+        the resolved mode, the mesh's shape (sharded), and under
+        replicated fan-out one row a lane: its device, dispatches, batch
+        latency and queue depth at pickup."""
+        with self._lock:
+            mode = self.serving_mode_resolved
+            lane_devices = list(self.lane_devices)
+            mesh = self.serving_mesh
+        out: dict = {"mode": mode}
+        if mesh is not None:
+            out["meshShape"] = {str(ax): int(sz) for ax, sz
+                                in zip(mesh.axis_names, mesh.shape)}
+            out["devices"] = int(mesh.size)
+        if lane_devices:
+            out["devices"] = len(lane_devices)
+            lanes = []
+            for i, dev in enumerate(lane_devices):
+                lat = self._lane_latency.labels(lane=str(i)).snapshot()
+                depth = self._lane_depth.labels(lane=str(i)).snapshot()
+                lanes.append({
+                    "lane": i,
+                    "device": str(dev),
+                    "deviceId": int(dev.index or 0),
+                    "dispatches": int(self._lane_dispatches.labels(
+                        lane=str(i)).value),
+                    "batchP50Ms": (round(lat["p50"] * 1000, 3)
+                                   if lat.get("count") else None),
+                    "batchP99Ms": (round(lat["p99"] * 1000, 3)
+                                   if lat.get("count") else None),
+                    "queueDepthP50": (depth["p50"]
+                                      if depth.get("count") else None),
+                })
+            out["lanes"] = lanes
+        return out
+
+    # -- lane supervision ----------------------------------------------------
+    def live_lane(self, lane: int) -> int:
+        """Where a batch assigned to ``lane`` runs: ``lane`` while it is
+        healthy, a surviving lane while it is dead."""
+        with self._lock:
+            n = len(self.lane_models)
+        with self._lane_health:
+            return pick_live_lane(lane, n, self._dead_lanes)
+
+    def lane_attempt_order(self, lane: int) -> List[int]:
+        """The failover order of a batch assigned to ``lane``: its live
+        mapping first, then every other lane (healthy before dead, the
+        dead as a last resort), each tried at most once, so one batch can
+        never loop."""
+        with self._lock:
+            n = len(self.lane_models)
+        if n <= 0:
+            return [lane]
+        with self._lane_health:
+            dead = set(self._dead_lanes)
+        first = pick_live_lane(lane % n, n, dead)
+        rest = [i for i in range(n) if i != first]
+        rest.sort(key=lambda i: (i in dead, i))
+        return [first] + rest
+
+    def _lane_ok(self, lane: int) -> None:
+        with self._lane_health:
+            self._lane_streaks.pop(lane, None)
+
+    def _lane_error(self, lane: int, exc: Exception) -> None:
+        """A dispatch on ``lane`` failed: count the streak, and at
+        ``lane_fail_threshold`` failures in a row declare the lane dead
+        and start its restarter (joined by :meth:`close`)."""
+        self._lane_failures.labels(lane=str(lane)).inc()
+        threshold = max(self.config.lane_fail_threshold, 1)
+        with self._lane_health:
+            if lane in self._dead_lanes:
+                return
+            streak = self._lane_streaks.get(lane, 0) + 1
+            self._lane_streaks[lane] = streak
+            if streak < threshold:
+                return
+            self._dead_lanes[lane] = {
+                "since": time.time(),
+                "reason": f"{type(exc).__name__}: {exc}"[:300],
+                "failures": streak,
+            }
+        log.error("serving lane %d declared dead after %d consecutive "
+                  "dispatch failures (%s); redistributing its traffic "
+                  "and starting the restarter", lane, streak, exc)
+        t = threading.Thread(target=self._lane_restarter, args=(lane,),
+                             daemon=True, name=f"lane-restarter-{lane}")
+        with self._lock:
+            if self._closing.is_set():
+                return  # a closing server restarts nothing
+            self._restarters = [r for r in self._restarters
+                                if r.is_alive()] + [t]
+        t.start()
+
+    def _lane_restarter(self, lane: int) -> None:
+        """Probe a dead lane back: attempts on a bounded exponential
+        backoff, each firing the lane's fault points (an injection still
+        armed keeps it down) and copying the serving models onto the
+        lane's device afresh. Success rejoins the lane and counts
+        ``pio_lane_restarts_total``; a spent budget leaves it dead (the
+        degraded state persists on ``/status.json``). :meth:`close` cuts
+        the backoff short."""
+        cfg = self.config
+        policy = RetryPolicy(
+            max_attempts=max(cfg.lane_restart_max_attempts, 1),
+            base_ms=max(cfg.lane_restart_backoff_ms, 1.0),
+            cap_ms=max(cfg.lane_restart_backoff_ms, 1.0) * 32)
+        for delay in list(backoff_delays(policy)) + [0.0]:
+            if self._closing.wait(delay):
+                return
+            with self._lock:
+                if lane >= len(self.lane_devices):
+                    return  # a rebind changed the lane layout
+                dev = self.lane_devices[lane]
+                stream = self.lane_streams[lane]
+                algorithms, models = self.algorithms, self.models
+                binding_id = self.binding_id
+            try:
+                fire(F_LANE_RESTART, lane=str(lane))
+                fire(F_LANE, lane=str(lane))
+                fresh = self._replicate_models(algorithms, models, dev)
+                self._order_lanes([stream])
+            except Exception as e:  # noqa: BLE001 — still down
+                log.warning("lane %d restart probe failed: %s", lane, e)
+                continue
+            with self._lock:
+                if self.binding_id != binding_id \
+                        or lane >= len(self.lane_models):
+                    return  # a rebind rebuilt every lane and reset health
+                self.lane_models = list(self.lane_models)
+                self.lane_models[lane] = fresh
+            with self._lane_health:
+                self._dead_lanes.pop(lane, None)
+                self._lane_streaks.pop(lane, None)
+            self._lane_restarts.labels(lane=str(lane)).inc()
+            log.info("serving lane %d restarted and rejoined", lane)
+            return
+        log.error("serving lane %d restart budget exhausted (%d "
+                  "attempts); staying degraded", lane, policy.max_attempts)
 
     def phase_table(self) -> dict:
         """Percentile summaries of the phase, latency, occupancy and
@@ -1442,9 +1865,9 @@ class QueryServer:
         """Stop the rollout's gate thread, the stream trainer, the SLO
         engine, the batch path's threads (queued queries still serve), a
         profiler capture, the shadow mirrors, the plugins' sniffer thread
-        and the pool, and join the warm-up threads and the hot tier's
-        refresh thread, each within ``timeout``; detach the numerics
-        listener. Idempotent."""
+        and the pool, and join the warm-up threads, the lane restarters
+        (their backoff cut short) and the hot tier's refresh thread, each
+        within ``timeout``; detach the numerics listener. Idempotent."""
         # ptpu: guarded-by[_release_lock] — one read of the reference
         # start_canary swaps whole under _release_lock
         rollout = self.rollout
@@ -1461,9 +1884,11 @@ class QueryServer:
             mirrors.shutdown(wait=True)
         self.plugins.close()
         self._pool.shutdown(wait=True)
+        self._closing.set()
         with self._lock:
             warm_threads = list(self._warm_threads)
-        for t in warm_threads:
+            restarters = list(self._restarters)
+        for t in warm_threads + restarters:
             t.join(timeout)
         if self.cache is not None:
             self.cache.close()
@@ -1509,16 +1934,33 @@ class QueryServer:
         serving any batch in flight). Under the lock the base binding id
         is re-checked: a rebind that raced the fold-in wins and this
         returns False (the trainer's unadvanced cursor re-folds against
-        the new base). After the swap the serving cache drops the cached
-        answers of exactly the ``touched_entities`` and their pinned
-        rows, and re-pins when a pinned entry dropped."""
+        the new base). Replicated lanes take their copies of the folded
+        model, made outside the lock, so every lane serves the new rows.
+        After the swap the serving cache drops the cached answers of
+        exactly the ``touched_entities`` and their pinned rows, and
+        re-pins when a pinned entry dropped."""
         with self._lock:
             if self.binding_id != base_instance_id:
                 return False
             if not 0 <= algo_index < len(self.models):
                 return False
+            algo = self.algorithms[algo_index]
+            devices = list(self.lane_devices)
+        copies = [self._replicate_models([algo], [new_model], dev)[0]
+                  for dev in devices]
+        with self._lock:
+            if self.binding_id != base_instance_id:
+                return False
+            self._order_lanes(self.lane_streams)
             self.models = list(self.models)
             self.models[algo_index] = new_model
+            if self.lane_models and len(copies) == len(self.lane_models):
+                lanes = []
+                for lane, copy in zip(self.lane_models, copies):
+                    lane = list(lane)
+                    lane[algo_index] = copy
+                    lanes.append(lane)
+                self.lane_models = lanes
             self._stream_generation += 1
             self._stream_rows += int(rows_updated) + int(rows_inserted)
             self._stream_last_apply = time.time()
@@ -1770,6 +2212,13 @@ class QueryServer:
             models = wf.load_models_for_deploy(self.ctx, self.engine,
                                                instance, ep)
         algorithms, prepared = self._serving_algorithms(ep, list(models))
+        with self._lock:
+            mode, mesh = self.serving_mode_resolved, self.serving_mesh
+        if mode == "sharded" and mesh is not None:
+            # a candidate beside a sharded stable binds sharded too: one
+            # device may not hold it whole. A promotion re-places it
+            # through _bind, like any binding
+            prepared = self._shard_models(algorithms, prepared, mesh)
         binding = CandidateBinding(
             engine_params=ep, algorithms=algorithms, models=prepared,
             raw_models=list(models), serving=self.engine.make_serving(ep),
@@ -2051,14 +2500,22 @@ class MicroBatcher:
     worker enqueues its query and blocks; ``pipeline`` drainer threads
     each take a batch (:func:`_form_batch`) and run
     :meth:`QueryServer.query_batch` on it (parse, supplement, launch,
-    wait, serve), then wake its callers."""
+    wait, serve), then wake its callers.
+
+    With ``lanes`` > 1 (replicated fan-out) drainer ``i`` serves lane
+    ``i % lanes``: consecutive batches land on different lanes, each with
+    its own model copy and stream. A dead lane's batches go to a survivor
+    at pickup, and a failed dispatch fails over through
+    :meth:`QueryServer.lane_attempt_order`, each lane tried at most once,
+    before the batch fails."""
 
     def __init__(self, server: QueryServer, window_ms: float = 2.0,
                  max_batch: int = 128, pipeline: int = 4,
-                 deadline_ms: float = 0.0):
+                 lanes: int = 1, deadline_ms: float = 0.0):
         self.server = server
         self.window = max(window_ms, 0.0) / 1000.0
         self.max_batch = max(max_batch, 1)
+        self.lanes = max(lanes, 1)
         self.deadline_sec = max(deadline_ms, 0.0) / 1000.0
         # ptpu: allow[unbounded-queue] — every entry has an HTTP worker
         # thread blocked on it, so the depth is bounded by the server's
@@ -2067,6 +2524,8 @@ class MicroBatcher:
         self._q: "queue.Queue" = queue.Queue()
         self._threads = [
             threading.Thread(target=self._drain, daemon=True,
+                             args=(i % self.lanes
+                                   if self.lanes > 1 else None,),
                              name=f"query-microbatcher-{i}")
             for i in range(max(pipeline, 1))]
         for t in self._threads:
@@ -2086,14 +2545,17 @@ class MicroBatcher:
         for t in live:
             t.join(timeout=max(0.0, deadline - time.monotonic()))
 
-    def _drain(self) -> None:
+    def _drain(self, lane: Optional[int] = None) -> None:
         server = self.server
         while True:
             first = self._q.get()
             if first is _CLOSE:
                 return
             # the backlog this batch found at pickup
-            server._queue_depth.observe(self._q.qsize() + 1)
+            depth = self._q.qsize() + 1
+            server._queue_depth.observe(depth)
+            if lane is not None:
+                server._lane_depth.labels(lane=str(lane)).observe(depth)
             batch = _form_batch(self._q, first, self.max_batch, self.window)
             if not batch:
                 continue
@@ -2107,13 +2569,24 @@ class MicroBatcher:
                     tr = server._trace_of(e.obs)
                     if tr is not None:
                         tr.add_span("queue_wait", e.t_enq, t_pick)
-            try:
-                results = server.query_batch(
-                    [e.query_json for e in batch],
-                    obs_list=[e.obs for e in batch])
-            except Exception as exc:  # noqa: BLE001 — fail the batch, keep draining
-                log.exception("batched query failed")
-                results = [HTTPError(500, str(exc))] * len(batch)
+            attempts = ([None] if lane is None
+                        else server.lane_attempt_order(lane))
+            results = None
+            for n_try, eff in enumerate(attempts):
+                try:
+                    results = server.query_batch(
+                        [e.query_json for e in batch],
+                        obs_list=[e.obs for e in batch], lane=eff)
+                    if eff is not None:
+                        server._lane_ok(eff)
+                    break
+                except Exception as exc:  # noqa: BLE001 — fail over
+                    if eff is not None:
+                        server._lane_error(eff, exc)
+                    if n_try + 1 < len(attempts):
+                        continue
+                    log.exception("batched query failed")
+                    results = [HTTPError(500, str(exc))] * len(batch)
             for e, result in zip(batch, results):
                 e.result = result
                 e.done.set()
@@ -2126,11 +2599,13 @@ class _AssembledBatch:
     the old binding or wholly from the new one, never a mix."""
 
     __slots__ = ("entries", "queries", "out", "live", "supplemented",
-                 "algorithms", "models", "serving", "binding_id", "phases",
-                 "pending", "t_dispatched")
+                 "algorithms", "models", "lane_models", "lane_streams",
+                 "serving", "binding_id", "phases", "pending", "lane",
+                 "t_dispatched")
 
     def __init__(self, entries, queries, out, live, supplemented,
-                 algorithms, models, serving, binding_id, phases):
+                 algorithms, models, serving, binding_id, phases,
+                 lane_models=(), lane_streams=()):
         self.entries = entries
         self.queries = queries
         self.out = out
@@ -2138,10 +2613,15 @@ class _AssembledBatch:
         self.supplemented = supplemented
         self.algorithms = algorithms
         self.models = models
+        #: the binding's per-lane model copies and streams (replicated)
+        self.lane_models = list(lane_models)
+        self.lane_streams = list(lane_streams)
         self.serving = serving
         self.binding_id = binding_id
         self.phases = phases
         self.pending: Optional[PendingBatch] = None
+        #: the lane the dispatch stage served the batch on (replicated)
+        self.lane: Optional[int] = None
         #: when the dispatch stage picked the batch up: the anchor of the
         #: device stages' spans
         self.t_dispatched: Optional[float] = None
@@ -2168,15 +2648,24 @@ class StagedPipeline:
     The in-flight slots (``depth``) bound the batches between pickup and
     readback: while they are taken nobody reads the submit queue, so
     arrivals pool there (where the deadline sheds them) and the next
-    pickup takes them all as one batch."""
+    pickup takes them all as one batch.
+
+    With ``lanes`` > 1 (replicated fan-out) there is ONE dispatcher a
+    lane, launching on its lane's stream, and ``depth`` slots a lane.
+    Dispatcher ``i`` serves lane ``i``: a dead lane's batches go to a
+    survivor at pickup, and a failed dispatch fails over through
+    :meth:`QueryServer.lane_attempt_order`, each lane tried at most once,
+    before the batch fails."""
 
     def __init__(self, server: QueryServer, window_ms: float = 2.0,
                  max_batch: int = 128, assemble_workers: int = 1,
                  readback_workers: int = 4, depth: int = 0,
-                 deadline_ms: float = 0.0, dispatch_workers: int = 1):
+                 deadline_ms: float = 0.0, dispatch_workers: int = 1,
+                 lanes: int = 1):
         self.server = server
         self.window = max(window_ms, 0.0) / 1000.0
         self.max_batch = max(max_batch, 1)
+        self.lanes = max(lanes, 1)
         self.deadline_sec = max(deadline_ms, 0.0) / 1000.0
         if depth <= 0:
             # auto: shallow where the "device" shares the host's cores
@@ -2188,17 +2677,22 @@ class StagedPipeline:
         # connection concurrency; with a queue deadline, _deadline_submit
         # sheds past it with a counted 503
         self._q: "queue.Queue" = queue.Queue()
-        self._dispatch_q: "queue.Queue" = queue.Queue(maxsize=depth)
-        self._readback_q: "queue.Queue" = queue.Queue(maxsize=depth)
-        self._inflight = threading.BoundedSemaphore(depth)
+        slots = depth * self.lanes
+        self._dispatch_q: "queue.Queue" = queue.Queue(maxsize=slots)
+        self._readback_q: "queue.Queue" = queue.Queue(maxsize=slots)
+        self._inflight = threading.BoundedSemaphore(slots)
         self._assemble_threads = [
             threading.Thread(target=self._assemble_loop, daemon=True,
                              name=f"pipeline-assemble-{i}")
             for i in range(max(assemble_workers, 1))]
+        # replicated fan-out: one dispatcher a lane, so a lane's launches
+        # stay ordered on its own stream
         self._dispatch_threads = [
             threading.Thread(target=self._dispatch_loop, daemon=True,
+                             args=(i if self.lanes > 1 else None,),
                              name=f"pipeline-dispatch-{i}")
-            for i in range(max(dispatch_workers, 1))]
+            for i in range(self.lanes if self.lanes > 1
+                           else max(dispatch_workers, 1))]
         self._readback_threads = [
             threading.Thread(target=self._readback_loop, daemon=True,
                              name=f"pipeline-readback-{i}")
@@ -2274,6 +2768,8 @@ class StagedPipeline:
         with server._lock:
             algorithms, models = server.algorithms, server.models
             serving, binding_id = server.serving, server.binding_id
+            lane_models = list(server.lane_models)
+            lane_streams = list(server.lane_streams)
         t_pick = time.monotonic()
         qwait = server._phase_hist.labels(phase="queue_wait")
         for e in batch:
@@ -2304,38 +2800,56 @@ class StagedPipeline:
                 serving, queries, out, timings=phases, pool=server._pool)
         return _AssembledBatch(entries, queries, out, live, supplemented,
                                algorithms, models, serving, binding_id,
-                               phases)
+                               phases, lane_models, lane_streams)
 
     # -- stage 2: dispatch ---------------------------------------------------
-    def _dispatch_loop(self) -> None:
+    def _dispatch_loop(self, lane: Optional[int] = None) -> None:
         server = self.server
         while True:
             ab = self._dispatch_q.get()
             if ab is _CLOSE:
                 return
-            server._pipeline_qdepth.labels(queue="dispatch").observe(
-                self._dispatch_q.qsize() + 1)
+            depth = self._dispatch_q.qsize() + 1
+            server._pipeline_qdepth.labels(queue="dispatch").observe(depth)
+            attempts: List[Optional[int]] = [None]
+            if lane is not None and ab.lane_models:
+                # a dead lane's batches go to a survivor at pickup
+                attempts = server.lane_attempt_order(lane)
+                server._lane_depth.labels(lane=str(attempts[0])).observe(
+                    depth)
             t0 = time.monotonic()
             in_flight_before = server.overlap.enter(DEVICE_TRACK)
-            try:
-                # the dispatch half: nothing here may wait on the card;
-                # the traces' spans are laid out at readback from these
-                # host times
-                with activate_traces([server._trace_of(e.obs)
-                                      for e in ab.entries]):
-                    fire(F_DISPATCH)
-                resolvers = (dispatch_batch(ab.algorithms, ab.models,
-                                            ab.supplemented,
-                                            timings=ab.phases,
-                                            pool=server._pool)
-                             if ab.live else [])
-                ab.pending = PendingBatch(ab.queries, ab.serving, ab.out,
-                                          ab.live, resolvers)
-            except Exception as e:  # noqa: BLE001 — one launch, whole batch
-                for i in ab.live:
-                    ab.out[i] = e
-                ab.pending = PendingBatch(ab.queries, ab.serving, ab.out,
-                                          [], [])
+            batch_traces = [server._trace_of(e.obs) for e in ab.entries]
+            for n_try, eff in enumerate(attempts):
+                models = ab.models if eff is None else ab.lane_models[eff]
+                ab.lane = eff
+                try:
+                    # the dispatch half: nothing here may wait on the
+                    # card; the traces' spans are laid out at readback
+                    # from these host times
+                    with activate_traces(batch_traces):
+                        if eff is not None:
+                            fire(F_LANE, lane=str(eff))
+                        fire(F_DISPATCH)
+                    with server._lane_stream(ab.lane_streams, eff):
+                        resolvers = (dispatch_batch(
+                            ab.algorithms, models, ab.supplemented,
+                            timings=ab.phases, pool=server._pool)
+                            if ab.live else [])
+                    ab.pending = PendingBatch(ab.queries, ab.serving,
+                                              ab.out, ab.live, resolvers)
+                    if eff is not None:
+                        server._lane_ok(eff)
+                    break
+                except Exception as e:  # noqa: BLE001 — fail over
+                    if eff is not None:
+                        server._lane_error(eff, e)
+                    if n_try + 1 < len(attempts):
+                        continue
+                    for i in ab.live:  # one launch, whole batch
+                        ab.out[i] = e
+                    ab.pending = PendingBatch(ab.queries, ab.serving,
+                                              ab.out, [], [])
             if in_flight_before > 0:
                 # launched while an earlier batch was still on the
                 # device: the pipeline's overlap, counted
@@ -2645,12 +3159,46 @@ def build_app(server: QueryServer) -> HTTPApp:
                    + "".join(hist) + "</table>" if hist else "")
                 + "<p><a href='/release.json'>release.json</a></p>")
 
+    def _mesh_panel() -> str:
+        """Mesh-wide serving: the mode, the mesh and a row a replicated
+        lane with its device memory in use; empty in single mode."""
+        mesh = server.mesh_status()
+        if mesh.get("mode", "single") == "single":
+            return ""
+        hbm_by_dev = {str(e.get("device")): e for e in hbm_stats()}
+        parts = [f"<h2>Mesh serving</h2><ul><li>mode: "
+                 f"{html.escape(mesh['mode'])}</li>"]
+        if mesh.get("meshShape"):
+            shape = " × ".join(f"{k}={v}" for k, v
+                               in mesh["meshShape"].items())
+            parts.append(f"<li>mesh: {html.escape(shape)}</li>")
+        if mesh.get("devices"):
+            parts.append(f"<li>devices: {mesh['devices']}</li>")
+        parts.append("</ul>")
+        rows = []
+        for lane in mesh.get("lanes", ()):
+            used = hbm_by_dev.get(lane["device"], {}).get("bytesInUse")
+            p50, p99 = lane["batchP50Ms"], lane["batchP99Ms"]
+            rows.append(
+                f"<tr><td>{lane['lane']}</td>"
+                f"<td>{html.escape(lane['device'])}</td>"
+                f"<td>{lane['dispatches']}</td>"
+                f"<td>{p50 if p50 is not None else '-'}</td>"
+                f"<td>{p99 if p99 is not None else '-'}</td>"
+                f"<td>{used // (1 << 20) if used else '-'}</td></tr>")
+        if rows:
+            parts.append(
+                "<table border='1'><tr><th>lane</th><th>device</th>"
+                "<th>dispatches</th><th>batch p50 (ms)</th>"
+                "<th>batch p99 (ms)</th><th>memory used (MiB)</th></tr>"
+                + "".join(rows) + "</table>")
+        return "".join(parts)
+
     @app.route("GET", "/")
     def index(req: Request) -> Response:
-        """The status page. Left out until their data is ported
-        (``ROADMAP.md`` queue 1): the mesh panel and the sharding line
-        (item 13); the JAX package's "compiles since warm" counts XLA
-        compiles."""
+        """The status page. Left out: the sharding line (XLA program
+        analysis) and the JAX package's "compiles since warm", which
+        counts XLA compiles."""
         inst = server.instance
         esc = html.escape
         engine_id = inst.engine_id if inst else "(models handed in)"
@@ -2674,7 +3222,7 @@ def build_app(server: QueryServer) -> HTTPApp:
             f"<li>last serving: {last * 1000:.3f} ms</li>"
             f"{_pipeline_line()}{_stream_line()}{_cache_line()}"
             f"{_slo_line()}{_trace_line()}</ul>"
-            f"{_release_panel()}{_span_table()}"
+            f"{_mesh_panel()}{_release_panel()}{_span_table()}"
             "<p><a href='/metrics'>Prometheus metrics</a> · "
             "<a href='/status.json'>status.json</a></p></body></html>")
         return Response(body=body, content_type="text/html")

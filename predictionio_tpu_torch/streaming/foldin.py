@@ -30,7 +30,6 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..data.event import Event
 from ..data.storage.base import EventFilter
@@ -38,10 +37,10 @@ from ..models.als import (
     ALSModel,
     apply_row_updates,
     dedupe_pairs,
-    dequantize_table,
     extend_factor_rows,
     fixed_gramian,
     fold_in_rows,
+    table_rows_f32,
 )
 
 log = logging.getLogger(__name__)
@@ -242,10 +241,8 @@ def fold_in_events(model: ALSModel, events: Sequence[Event], storage,
 
 def _host_rows(table, rows: List[int]) -> np.ndarray:
     """Host f32 copies of a table's ``rows``, dequantized: what the table
-    serves."""
-    data = dequantize_table(table)
-    idx = torch.tensor(rows, dtype=torch.long, device=data.device)
-    return data.index_select(0, idx).cpu().numpy()
+    serves (a row-sharded table's from their owner shards)."""
+    return table_rows_f32(table, rows)
 
 
 def _batch_residual(model: ALSModel, triples) -> Optional[float]:

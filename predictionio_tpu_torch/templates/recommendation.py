@@ -44,12 +44,15 @@ from ..models.als import (
     RatingsCOO,
     pack_ratings_cached,
     pin_user_rows,
+    pin_user_rows_lanes,
     place_model,
     quantize_serving_model,
     recommend_batch,
     recommend_batch_async,
     recommend_pinned,
     recommend_products,
+    replicate_model,
+    shard_model,
     train_als,
 )
 from ..models.data import kfold_split, ratings_from_columnar
@@ -279,12 +282,11 @@ class ALSAlgorithm(Algorithm):
         power-of-two capacity); returns ``({user: (table, slot)},
         nbytes)``. The pinned table's k-ladder (8 ... min(128, n_items))
         runs here, on the refresh thread, so the first pinned serve after
-        a refresh meets a warm path. Per-lane tables (``devices``) are
-        queue 1 item 13's and raise."""
-        if devices:
-            raise NotImplementedError(
-                "pinning on lane devices needs replicated lanes "
-                "(ROADMAP.md queue 1 item 13)")
+        a refresh meets a warm path. With ``devices`` (replicated lanes)
+        the table goes to every lane device
+        (:func:`~..models.als.pin_user_rows_lanes`) and the handle carries
+        the per-device tuple, so a hot serve stays on its lane's device;
+        a sharded model pins one table gathered across its shards."""
         known = [(e, int(model.user_ids[e])) for e in entity_keys
                  if model.user_ids and e in model.user_ids]
         if not known:
@@ -292,7 +294,14 @@ class ALSAlgorithm(Algorithm):
         cap = 1
         while cap < len(known):
             cap *= 2
-        table, nbytes = pin_user_rows(model, [u for _, u in known], cap)
+        if devices and model.mesh is None:
+            table, nbytes = pin_user_rows_lanes(
+                model, [u for _, u in known], cap, devices)
+        else:
+            table, nbytes = pin_user_rows(model, [u for _, u in known],
+                                          cap)
+        if table is None:
+            return {}, 0
         for k in _k_ladder(model.n_items):
             recommend_pinned(model, table, 0, k)
         return {e: (table, slot)
@@ -314,6 +323,19 @@ class ALSAlgorithm(Algorithm):
         """Row-quantize the serving tables behind the NDCG@10 parity
         probe (auto-off keeps f32 where the ranking would suffer)."""
         return quantize_serving_model(model, quant)
+
+    # -- mesh-wide serving placement -----------------------------------------
+    def replicate_serving_model(self, model: ALSModel,
+                                device) -> ALSModel:
+        """One full factor-table copy on ``device``: a replicated lane's
+        model (:func:`~..models.als.replicate_model`)."""
+        return replicate_model(model, device)
+
+    def shard_serving_model(self, model: ALSModel, mesh) -> ALSModel:
+        """Both factor tables split by rows over the serving mesh
+        (:func:`~..models.als.shard_model`): a table bigger than one
+        card's memory; serving launches ``fused_topk`` once per shard."""
+        return shard_model(model, mesh)
 
     def warm_serving(self, model: ALSModel, max_batch: int = 1) -> int:
         """Run the serving ladder once before traffic, on the model's own

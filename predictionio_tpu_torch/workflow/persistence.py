@@ -36,7 +36,12 @@ import torch
 
 from ..controller.base import PersistentModelManifest
 from ..data.bimap import BiMap
-from ..models.als import ALSModel, ALSParams, QuantizedFactors
+from ..models.als import (
+    ALSModel,
+    ALSParams,
+    QuantizedFactors,
+    unshard_table,
+)
 
 FORMAT = "predictionio_tpu_torch.models/1"
 _PACKAGE = __name__.split(".")[0]
@@ -88,6 +93,9 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def _put_table(arrays: Dict[str, np.ndarray], prefix: str, table) -> dict:
+    # a row-sharded serving table is stored whole: a blob never carries
+    # a mesh
+    table = unshard_table(table)
     if isinstance(table, QuantizedFactors):
         data, scale, quant = table.data, table.scale, table.quant
     else:

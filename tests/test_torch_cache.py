@@ -516,10 +516,18 @@ def test_recommend_pinned_launches_fused_topk_on_the_pinned_table(
     (ut, idx, vt, us, k), = seen
     assert ut is pt.data and us is pt.scale and idx == [3]
     assert vt is pm.item_factors.data and k == 16
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pals.recommend_pinned(pm, (pt,), 0, 10)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pals.pin_user_rows_lanes(pm, PIN_USERS, 8, ["cuda:0"])
+    # the replicated lanes' per-device tables: the copy on the device of
+    # the model's item table serves, through the same one launch
+    tables, nbytes = pals.pin_user_rows_lanes(pm, PIN_USERS, 8,
+                                              ["cpu", "cpu"])
+    assert len(tables) == 2 and nbytes == 2 * (8 * RANK + 8 * 4)
+    seen.clear()
+    got = pals.recommend_pinned(pm, tables, 3, 10)
+    (ut, idx, vt, us, k), = seen
+    assert ut is tables[0].data and us is tables[0].scale and idx == [3]
+    want = pals.recommend_pinned(pm, pt, 3, 10)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
 
 
 def test_pin_hot_entities_and_its_ladder(monkeypatch):
@@ -548,8 +556,13 @@ def test_pin_hot_entities_and_its_ladder(monkeypatch):
                       {"user": "u1", "num": 5, "blackList": ["i3"]})
     assert algo.predict_pinned(pm, q, handles["u1"]) == algo.predict(pm, q)
     assert algo.pin_hot_entities(pm, ["nobody"]) == ({}, 0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        algo.pin_hot_entities(pm, ["u1"], devices=["cuda:0"])
+    # replicated lanes: one pinned table a lane device, the same answer
+    lanes, lane_bytes = algo.pin_hot_entities(pm, ["u3", "u1"],
+                                              devices=["cpu", "cpu"])
+    tables, slot = lanes["u1"]
+    assert isinstance(tables, tuple) and len(tables) == 2 and slot == 1
+    assert lane_bytes == 2 * 2 * RANK * 4
+    assert algo.predict_pinned(pm, q, lanes["u1"]) == algo.predict(pm, q)
 
 
 # ---------------------------------------------------------------------------

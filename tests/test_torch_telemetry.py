@@ -232,6 +232,23 @@ def test_metric_families_match_less_the_left_out(served):
     assert want - got == set(LEFT_OUT), sorted((want - got) ^ set(LEFT_OUT))
 
 
+#: the replicated lanes' families (queue 1 item 13): once left out, now
+#: emitted by every engine server with the JAX package's names
+LANE_FAMILIES = ("pio_lane_batch_seconds", "pio_lane_queue_depth",
+                 "pio_lane_dispatches_total", "pio_lane_restarts_total",
+                 "pio_lane_failures_total", "pio_serving_lanes",
+                 "pio_serving_degraded")
+
+
+@pytest.mark.parametrize("family", LANE_FAMILIES)
+def test_the_lane_families_are_present_not_left_out(served, family):
+    jsrv, psrv, _ = served
+    _, jtext, _ = call(jsrv.port, "GET", "/metrics")
+    _, ptext, _ = call(psrv.port, "GET", "/metrics")
+    assert family not in LEFT_OUT
+    assert family in families(ptext) and family in families(jtext)
+
+
 def test_query_counts_match(served):
     jsrv, psrv, _ = served
     _, jtext, _ = call(jsrv.port, "GET", "/metrics")
@@ -350,7 +367,9 @@ def test_server_config_defaults_match_jax():
     want, got = jes.ServerConfig(), ServerConfig()
     for knob in ("tracing", "trace_ring", "trace_slow_ms",
                  "access_log_sample", "profile_dir", "hot_keys_k",
-                 "debug_numerics", "accesskey"):
+                 "debug_numerics", "accesskey", "serving_mode",
+                 "lane_fail_threshold", "lane_restart_backoff_ms",
+                 "lane_restart_max_attempts"):
         assert getattr(got, knob) == getattr(want, knob), knob
 
 
