@@ -259,14 +259,51 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the float64 top-k of the model read back from the bucket,
             ``fused_topk`` launches positive. ``cli train`` of a copy of
             the SQLite file without its sidecar in a fresh process, whose
-            single thread forks the first encode (its ``read_s``), and the
-            same read of a second copy in this process, which runs
-            threads and so encodes in-process. LOCALFS, every 40th user
-            (cut), in a process beside the SEGMENTFS steps and the SQLite
-            copies: ``cli import`` and ``find_columnar`` giving the cut's
-            triples, and how long the phase waited for it after those
-            steps. Last the server stops on SIGINT with exit 0, and no
-            thread the phase started is left.
+            single thread forks the first encode (its ``read_s``). LOCALFS,
+            every 80th user (cut), in a process beside the SEGMENTFS steps
+            and the SQLite copy: the cut of the exported lines, ``cli
+            import`` and ``find_columnar`` giving the cut's triples, and
+            how long the phase waited for it after those steps. Last the
+            server stops on SIGINT with exit 0, and no thread the phase
+            started is left.
+8a'. train-mesh — ALS over a mesh and across processes, after phase 8a
+            (``PTPU_TORCH_FORCE_DEVICE_COUNT`` set for its own meshes
+            only). (a) ``train_als(mesh=make_mesh(data=4))``: 4 shards
+            on the one card, the surrogate at rank 64, 10 iterations
+            from phase 6's initial tables: the explicit factors must be
+            phase 6's bit for bit (each piece of a position is planned
+            as the one card's block it was cut from); the same pieces
+            planned as their own rows, timed in turns with the block
+            plan and trained 10 iterations by hand, their factors'
+            distance from phase 6's printed (a finding), with each
+            plan's launches that ``fused_gram`` splits into partial
+            sums; launches counted, one iteration timed
+            against the one card's, the all-gather's kernels from a
+            ``torch.profiler`` trace; 1 implicit iteration (alpha 1.0)
+            within |d| <= 1e-5 (1 + |one card's|). (b) Two ranks on the
+            one card over gloo (fresh processes), each a
+            ``ShardedColumnarRatingsSource`` over its half of the
+            surrogate's columnar batch (it must materialise 0.4–0.6 of
+            the triples before the shuffle) through
+            ``pack_ratings_multihost``, checkpointing every iteration
+            through the ``DistributedCheckpointer``, 4 iterations: both
+            exit 0, both launch both kernels, both count the device
+            collectives gloo staged through the host
+            (``multihost.HOST_STAGED``, printed with their bytes), the
+            factors within |d| <= 1e-5 + 1e-4 |in-process| of the
+            in-process 2 shards'; a
+            second launch of 6 iterations resumes from step 4, launches
+            for 2 iterations only and holds to the in-process 6. (c) One
+            rank over NCCL trains the JAX multihost test's problem
+            through the process-group code path: bitwise the in-process
+            one shard's. (d) ``cli storageserver`` over phase 8's store
+            and two ``cli train`` ranks (``PIO_COORDINATOR``,
+            ``PIO_NUM_PROCESSES=2``, ``PIO_DIST_BACKEND=gloo``) over
+            REMOTE with shard pushdown: both exit 0, each pulls 0.4–0.6
+            of phase 8a's single ``.npz`` pull, one COMPLETED instance
+            and one blob, its factors within the (b) tolerance of phase
+            8a's REMOTE model, no thread or process left; the instance
+            and its blob are then removed from phase 8's store.
 8b. batchpredict — ``cli batchpredict`` on the card from phase 8's store:
             one query line ``{"user", "num": 10}`` for each of its 13,850
             users (seed 0), the ``fused_topk`` count zeroed just before and
@@ -297,8 +334,8 @@ Phases, each printing one line of numbers, any failure exits non-zero:
 9. stream — streaming fold-in on phase 8's store and model: the stream
             cursor set where the trained log ends, ``cli deploy --batching
             --stream --stream-app MyApp1 --stream-max-events 512
-            --stream-interval-ms 100``, and 3 bursts of 512 ``rate``
-            events (448 from 32 users of the store on new items, drawn by
+            --stream-interval-ms 100``, and 3 bursts of 288 ``rate``
+            events (224 from 16 users of the store on new items, drawn by
             the store's item popularity and rating histogram; 48 from 4
             cold users, 12 of their real surrogate ratings each; 16 on 2
             item ids new in the burst), each one npz column block through
@@ -539,8 +576,9 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             lane 1 is dead, then ``pio_lane_restarts_total{lane="1"}``
             reads 1 and the lane serves again; every process exits 0 and
             the drill's leaves no thread. (c) ``deploy --serving-mode
-            sharded --stream`` in process: one burst of 128 ``rate``
-            events (16 users) folds in through ``fused_gram`` and ``chol_solve``, and
+            sharded --stream`` in process: one burst of 32 ``rate``
+            events (4 users) folds in through ``fused_gram`` and
+            ``chol_solve``, and
             the served rows equal a single-device fold-in of the same
             events. (d) The hot tier under replicated lanes: pinned serves
             on every lane bit-equal to the lane's full-table answer.
@@ -558,7 +596,7 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             to the float64 top-10 and closed, each cycle; and
             ``stream_trainer``, a ``cli deploy`` of phase 8's variant and a
             stream trainer of its own (consumer ``chip-audit``, its cursor
-            set where the log ends) folding in one burst of 16 users' 256
+            set where the log ends) folding in one burst of 4 users' 64
             ``rate`` events through ``fused_gram`` and ``chol_solve``, then
             stopped and closed, each cycle. Each entry's census must be
             zero, ``torch.cuda.memory_allocated()`` after the measured
@@ -3437,8 +3475,8 @@ def phase_pio(data, dev, home: str) -> dict:
         storage.close()
 
 
-#: the storage phase's LOCALFS step: every 40th user (the cut of depth)
-STORAGE_LOCALFS_STRIDE = 40
+#: the storage phase's LOCALFS step: every 80th user (the cut of depth)
+STORAGE_LOCALFS_STRIDE = 80
 #: answers the storage phase's deploy holds to float64
 STORAGE_QUERIES = 64
 STORAGE_SECRET = "chip-smoke-pod"
@@ -3466,16 +3504,24 @@ sys.exit(rc)
 """
 
 #: phase ``storage``'s LOCALFS step in a process of its own (it runs
-#: beside the SEGMENTFS steps): ``cli import`` of a JSON-lines file into
-#: a new LOCALFS store, then ``find_columnar`` from a fresh client; the
-#: (user, item, rating) numbers go to an npz, the seconds to stdout
+#: beside the SEGMENTFS steps): the exported lines of every STRIDE-th
+#: user cut into a file of their own, ``cli import`` of it into a new
+#: LOCALFS store, then ``find_columnar`` from a fresh client; the (user,
+#: item, rating) numbers go to an npz, the seconds to stdout
 LOCALFS_MAIN = """\
-import contextlib, io, json, sys, time
+import contextlib, io, json, re, sys, time
 import numpy as np
 from predictionio_tpu_torch import cli
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.models.data import ratings_from_columnar
-root, src, out, app = sys.argv[1:5]
+root, exported, src, out, app, stride = sys.argv[1:7]
+t = time.perf_counter()
+pattern = re.compile(rb'"entityId": "u(\\d+)"')
+with open(exported, "rb") as f_in, open(src, "wb") as f_out:
+    for line in f_in:
+        if int(pattern.search(line).group(1)) % int(stride) == 0:
+            f_out.write(line)
+cut_s = time.perf_counter() - t
 env = {"PIO_STORAGE_SOURCES_L_TYPE": "LOCALFS",
        "PIO_STORAGE_SOURCES_L_PATH": root}
 st = Storage(env=env)
@@ -3498,8 +3544,8 @@ num = lambda bm, n: np.array([int(k[1:]) for k, _ in
                              np.int64).reshape(n)
 np.savez(out, users=num(uids, r.n_users)[r.users],
          items=num(iids, r.n_items)[r.items], ratings=r.ratings)
-print(json.dumps({"import_s": import_s, "find_s": find_s, "n": batch.n}),
-      flush=True)
+print(json.dumps({"cut_s": cut_s, "import_s": import_s, "find_s": find_s,
+                  "n": batch.n}), flush=True)
 """
 
 
@@ -3675,24 +3721,16 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
         check(rc == 0 and n_out == len(users),
               f"cli export: {rc} {out.getvalue()} ({len(users)} stored)")
 
-        # -- 7. LOCALFS, every 40th user, in a process beside 2-6 --------
+        # -- 7. LOCALFS, every 80th user, in a process beside 2-6 --------
         keep = users % STORAGE_LOCALFS_STRIDE == 0
-        t = time.perf_counter()
-        pattern = re.compile(rb'"entityId": "u(\d+)"')
-        with open(exported, "rb") as src, \
-                open(work / "localfs.jsonl", "wb") as dst:
-            for line in src:
-                if int(pattern.search(line).group(1)) \
-                        % STORAGE_LOCALFS_STRIDE == 0:
-                    dst.write(line)
-        cut_s = time.perf_counter() - t
         lf_log = work / "localfs.log"
         with open(lf_log, "w") as f:
             localfs = subprocess.Popen(
                 [sys.executable, "-c", LOCALFS_MAIN, str(work / "localfs"),
-                 str(work / "localfs.jsonl"), str(work / "localfs.npz"),
-                 PIO_APP], stdout=f, stderr=subprocess.STDOUT, cwd=root,
-                env=base_env)
+                 str(exported), str(work / "localfs.jsonl"),
+                 str(work / "localfs.npz"), PIO_APP,
+                 str(STORAGE_LOCALFS_STRIDE)], stdout=f,
+                stderr=subprocess.STDOUT, cwd=root, env=base_env)
 
         # -- 2. import into SEGMENTFS through the native lane ---------------
         out = io.StringIO()
@@ -3862,19 +3900,16 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
         deploy = None
 
         # -- 8. a copy of the SQLite file without its sidecar, trained in a
-        # fresh process whose single thread forks the first encode; the
-        # same encode in this process (threads: in-process) on a second
-        # copy beside it, both while LOCALFS runs --------------------------
-        copies = {}
-        for tag in ("fork", "inproc"):
-            copies[tag] = work / tag
-            copies[tag].mkdir()
-            shutil.copy(Path(home) / "pio.db", copies[tag] / "pio.db")
-            check(not (copies[tag] / "pio.db.columnar").exists(),
-                  "the SQLite copy has a sidecar")
+        # fresh process whose single thread forks the first encode, while
+        # LOCALFS runs ---------------------------------------------------
+        fork_home = work / "fork"
+        fork_home.mkdir()
+        shutil.copy(Path(home) / "pio.db", fork_home / "pio.db")
+        check(not (fork_home / "pio.db.columnar").exists(),
+              "the SQLite copy has a sidecar")
         rc, out, _, fork_c = counted_cli(
             ["train", "--engine-json", pio["engine_json"], *device],
-            dict(base_env, PIO_HOME=str(copies["fork"])), work / "fork.log")
+            dict(base_env, PIO_HOME=str(fork_home)), work / "fork.log")
         check(rc == 0 and fork_c is not None,
               f"cli train of the SQLite copy: {rc} {out[-3000:]}")
         fork_s = fork_c["seconds"]
@@ -3886,19 +3921,6 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
         check(dev.type != "cuda" or (fork_c["fused_gram"] > 0
                                      and fork_c["chol_solve"] > 0),
               f"the SQLite copy's training launched {fork_c}")
-        inproc = Storage(env={"PIO_HOME": str(copies["inproc"])})
-        pauses = GCPauses()
-        t = time.perf_counter()
-        try:
-            RecommendationDataSource(params).read_training(
-                Context(device=dev, _storage=inproc))
-        finally:
-            pauses.close()
-        inproc_s = time.perf_counter() - t
-        inproc_path = inproc.events().last_encode
-        inproc.close()
-        check(inproc_path["path"] == "in-process",
-              f"this process forked its encode: {inproc_path}")
 
         # -- 7, its end ------------------------------------------------------
         t = time.perf_counter()
@@ -3955,19 +3977,22 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
             f"float64, "
             f"fused_topk launches={topk} | forked SQLite encode: cli train "
             f"{fork_s:.3f}s read_s {fork_stages['read_s']:.3f}s "
-            f"{json.dumps(fork_c['encode'])}, the same read in this "
-            f"process (in-process encode) {inproc_s:.3f}s, gc pauses "
-            f"{pauses.s:.3f}s (phase pio's in-process cold find_columnar "
-            f"{pio['find_cold_s']:.3f}s) "
+            f"{json.dumps(fork_c['encode'])} (phase pio's in-process cold "
+            f"find_columnar {pio['find_cold_s']:.3f}s) "
             f"fused_gram={fork_c['fused_gram']} chol_solve="
             f"{fork_c['chol_solve']} | LOCALFS 1 user in "
-            f"{STORAGE_LOCALFS_STRIDE} ({lf['n']} events, cut {cut_s:.3f}s, "
-            f"beside steps 2-6, waited for {lf_wait_s:.3f}s after them): "
+            f"{STORAGE_LOCALFS_STRIDE} ({lf['n']} events, cut "
+            f"{lf['cut_s']:.3f}s in its process, beside steps 2-6, waited "
+            f"for {lf_wait_s:.3f}s after them): "
             f"cli import {lf['import_s']:.3f}s = "
             f"{lf['n'] / lf['import_s']:.1f} events/s, find_columnar "
             f"{lf['find_s']:.3f}s, triples equal | {card_tag(card)}",
             flush=True)
-        return {"launches": launches, "fork": fork_c}
+        return {"launches": launches, "fork": fork_c, "remote": {
+            "pull_bytes": train_c["pull"]["bytes"],
+            "factors": (model.user_factors.cpu().numpy(),
+                        model.item_factors.cpu().numpy()),
+            "ids": (model.user_ids.to_dict(), model.item_ids.to_dict())}}
     finally:
         for proc in (deploy and deploy["proc"], localfs, server):
             if proc is not None and proc.poll() is None:
@@ -4311,19 +4336,21 @@ def phase_eval(dev, home: str) -> dict:
 
 #: the stream phase: bursts, and the events of one burst by kind
 STREAM_BURSTS = 3
-STREAM_USERS, STREAM_USER_EVENTS = 32, 14      # 448 on existing users
+#: 16 users a burst: each pass is its users' history reads (the 3
+#: bursts, each a canary check, are the phase's depth)
+STREAM_USERS, STREAM_USER_EVENTS = 16, 14      # 224 on existing users
 STREAM_COLD, STREAM_COLD_EVENTS = 4, 12        # 48 from cold users
 STREAM_NEW_ITEMS, STREAM_NEW_ITEM_RATERS = 2, 8  # 16 on new items
 
 
 def stream_bursts(data, seed: int) -> list:
-    """The stream phase's traffic, from the surrogate: each burst is 512
-    ``rate`` events as (users, items, stars) arrays. 448 come from 32
-    users in the store (64 distinct over the bursts) on items outside
+    """The stream phase's traffic, from the surrogate: each burst is 288
+    ``rate`` events as (users, items, stars) arrays. 224 come from 16
+    users in the store (48 distinct over the bursts) on items outside
     their history, drawn by the store's item popularity, with stars from
     its rating histogram; 48 from 4 cold users (surrogate users with id
     % 10 == 1: 12 of their real ratings on items in the store); 16 on 2
-    item ids new in that burst, each rated by 8 of the burst's 32
+    item ids new in that burst, each rated by 8 of the burst's 16
     users."""
     users, items, stars, _, n_items = data
     rng = np.random.default_rng(seed + 21)
@@ -4609,7 +4636,7 @@ def stream_traced_burst(ev_port: int, srv, q: str, users: list) -> str:
 
 def phase_stream(data, dev, home: str, pio: dict, seed: int) -> dict:
     """Streaming fold-in on the ``pio`` phase's store and model: deploy
-    with the stream trainer through the CLI, post 3 bursts of 512
+    with the stream trainer through the CLI, post 3 bursts of 288
     ``rate`` events as column blocks, each after the previous pass has
     applied, and check what the server then holds."""
     from predictionio_tpu_torch import cli
@@ -7865,7 +7892,9 @@ MESH_LANE_FAULT = ("serving.lane=error,lane=1,times=3;"
 #: the sharded stream's burst: users, their events, the consumer (16
 #: users: each one's history read scans the `pio` store, ~0.48 s a user
 #: on the card's host, PR 19 run C)
-MESH_STREAM_USERS, MESH_STREAM_EVENTS = 16, 8
+#: the sharded stream pass: 4 users of 8 events (the pass is its users'
+#: history reads)
+MESH_STREAM_USERS, MESH_STREAM_EVENTS = 4, 8
 MESH_CONSUMER = "chip-mesh"
 #: the pinned-lanes check: hot users pinned, and the ks served
 MESH_PIN_USERS = 256
@@ -8359,6 +8388,682 @@ def phase_mesh(uv, dev, home: str, card: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase train-mesh: ALS over a mesh of shards and across processes
+# ---------------------------------------------------------------------------
+
+#: the in-process mesh's shards on the one card
+MESH_TRAIN_SHARDS = 4
+#: implicit iterations of part (a), and their tolerance against the one
+#: card: |d| <= rtol * (1 + |one card's|)
+MESH_IMPLICIT_ITERS = 1
+MESH_IMPLICIT_RTOL = 1e-5
+#: part (b)'s first launch (the resume adds 2) and its tolerance against
+#: the in-process two-shard run: |d| <= atol + rtol * |in-process|
+MESH_PROC_ITERS = 4
+MESH_PROC_RTOL, MESH_PROC_ATOL = 1e-4, 1e-5
+MESH_PROC_TIMEOUT_S = 600.0
+
+#: part (b): one rank of a two-process ALS training on the one card over
+#: gloo. It maps the surrogate's arrays (written by the parent), checks
+#: that gloo takes CUDA tensors for the ``all_gather`` the port uses,
+#: counts the device collectives gloo staged through the host, and
+#: trains from a ``ShardedColumnarRatingsSource`` over its half of the
+#: surrogate's columnar batch, checkpointing every iteration through the
+#: ``DistributedCheckpointer``; rank 0 saves the factors. Prints one
+#: ``MESHPROC {...}`` line.
+MESH_TRAIN_MAIN = """\
+import json, sys, time
+t0 = time.perf_counter()
+import numpy as np
+import torch
+import torch.distributed as dist
+from predictionio_tpu_torch.parallel import multihost
+multihost.initialize_distributed()
+import chip_smoke
+from predictionio_tpu_torch.models import als
+from predictionio_tpu_torch.models.data import ShardedColumnarRatingsSource
+from predictionio_tpu_torch.ops import fused_gram, solve
+out, iters, ckdir = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+pid = multihost.process_index()
+x = torch.full((4,), float(pid + 1), device="cuda")
+parts = [torch.empty_like(x) for _ in range(2)]
+dist.all_gather(parts, x)
+gloo_cuda = torch.cat(parts).tolist() == [1.0] * 4 + [2.0] * 4
+users, items, stars = (np.load(f"{out}/{k}.npy", mmap_mode="r")
+                       for k in ("users", "items", "stars"))
+n_users, n_items = int(sys.argv[4]), int(sys.argv[5])
+shard = chip_smoke.surrogate_batch(users, items, stars, n_users,
+                                   n_items).shard(pid, 2, with_props=False)
+src = ShardedColumnarRatingsSource(shard)
+reads = []
+local_pass = src._read_filtered_pos
+def counted(side, pred):
+    got = local_pass(side, pred)
+    if pred is None:
+        reads.append(len(got[1]))
+    return got
+src._read_filtered_pos = counted
+mesh = multihost.global_mesh(data=2)
+params = als.ALSParams(rank=chip_smoke.RANK, num_iterations=iters)
+fused_gram.LAUNCHES = solve.LAUNCHES = 0
+multihost.HOST_STAGED.update(collectives=0, bytes=0)
+t = time.perf_counter()
+packed = als.pack_ratings_multihost(src, params, mesh)
+torch.cuda.synchronize()
+pack_s = time.perf_counter() - t
+# the checkpoint's fingerprint digests the surrogate's triples
+coo = als.RatingsCOO(users, items, stars, n_users, n_items)
+t = time.perf_counter()
+U, V = als.train_als(coo, params, mesh=mesh, packed=packed,
+                     checkpoint_dir=ckdir)
+torch.cuda.synchronize()
+train_s = time.perf_counter() - t
+if pid == 0:
+    np.save(out + "/U.npy",
+            als.unshard_table(U).cpu().numpy()[:src.n_users])
+    np.save(out + "/V.npy",
+            als.unshard_table(V).cpu().numpy()[:src.n_items])
+print("MESHPROC " + json.dumps({
+    "pid": pid, "backend": multihost.backend(), "ranks": list(mesh.ranks),
+    "gloo_cuda": gloo_cuda, "rows": [src.n_users, src.n_items],
+    "nnz": len(users), "local_reads": reads,
+    "fused_gram": fused_gram.LAUNCHES, "chol_solve": solve.LAUNCHES,
+    "host_staged": dict(multihost.HOST_STAGED), "pack_s": pack_s,
+    "train_s": train_s,
+    "seconds": time.perf_counter() - t0}), flush=True)
+multihost.shutdown()
+"""
+
+#: part (c): a process group of one rank over NCCL trains the JAX
+#: multihost test's problem through the process-group code path
+MESH_NCCL_MAIN = """\
+import json, sys
+import numpy as np
+import torch
+from predictionio_tpu_torch.parallel import multihost
+multihost.initialize_distributed()
+import chip_smoke
+from predictionio_tpu_torch.models import als
+from predictionio_tpu_torch.ops import fused_gram, solve
+ratings, params = chip_smoke.nccl_problem()
+mesh = multihost.global_mesh()
+fused_gram.LAUNCHES = solve.LAUNCHES = 0
+U, V = als.train_als(ratings, params, mesh=mesh)
+torch.cuda.synchronize()
+np.save(sys.argv[1] + "/U.npy", als.unshard_table(U).cpu().numpy())
+np.save(sys.argv[1] + "/V.npy", als.unshard_table(V).cpu().numpy())
+print("MESHNCCL " + json.dumps({
+    "backend": multihost.backend(), "world": multihost.process_count(),
+    "ranks": list(mesh.ranks),
+    "fused_gram": fused_gram.LAUNCHES, "chol_solve": solve.LAUNCHES}),
+    flush=True)
+multihost.shutdown()
+"""
+
+
+def surrogate_batch(users, items, stars, n_users: int, n_items: int):
+    """The surrogate as one ``rate`` log's columnar batch: dictionary
+    code = the surrogate's number (``u<n>``, ``i<n>``), storage order =
+    the surrogate's, the stars as the ``rating`` column. Its sources'
+    indexation is then the surrogate's own."""
+    from predictionio_tpu_torch.data.columnar import (
+        ColumnarBatch,
+        ColumnarDicts,
+        StringDict,
+    )
+
+    n = len(users)
+    z = np.zeros(n, np.int32)
+    return ColumnarBatch(
+        event=z, entity_type=z, entity_id=np.asarray(users, np.int32),
+        target_type=z, target_id=np.asarray(items, np.int32),
+        event_time=np.arange(n, dtype=np.int64),
+        props_offsets=np.zeros(n + 1, np.int64),
+        props_blob=np.empty(0, np.uint8),
+        float_props={"rating": np.asarray(stars, np.float64)},
+        dicts=ColumnarDicts(
+            StringDict(["rate"]), StringDict(["user"]),
+            StringDict([f"u{k}" for k in range(n_users)]),
+            StringDict(["item"]),
+            StringDict([f"i{k}" for k in range(n_items)])))
+
+
+def nccl_problem():
+    """The JAX multihost test's problem: 900 ratings, 64 users x 40
+    items, rank 4, 3 iterations."""
+    from predictionio_tpu_torch.models import als
+
+    rng = np.random.default_rng(7)
+    nnz, n_users, n_items = 900, 64, 40
+    ratings = als.RatingsCOO(
+        rng.integers(0, n_users, nnz).astype(np.int32),
+        rng.integers(0, n_items, nnz).astype(np.int32),
+        rng.random(nnz).astype(np.float32) * 4 + 1, n_users, n_items)
+    return ratings, als.ALSParams(rank=4, num_iterations=3, reg=0.05,
+                                  seed=5)
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def rank_env(n: int, pid: int, port: int, backend: str) -> dict:
+    """The environment of rank ``pid`` of an ``n``-process group."""
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PIO_", "PTPU_"))}
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p)
+    env.update(PIO_COORDINATOR=f"127.0.0.1:{port}",
+               PIO_NUM_PROCESSES=str(n), PIO_PROCESS_ID=str(pid),
+               PIO_DIST_BACKEND=backend)
+    return env
+
+
+def start_ranks(code: str, args: list, n: int, backend: str, work: Path,
+                tag: str, env_extra=None) -> list:
+    """``python -c CODE ARGS`` as ranks 0..n-1 of a process group, all
+    started together: each rank's (process, log path)."""
+    root = Path(__file__).resolve().parent
+    port = free_port()
+    started = []
+    for pid in range(n):
+        log = work / f"{tag}_{pid}.log"
+        env = dict(rank_env(n, pid, port, backend), **(env_extra or {}))
+        with open(log, "w") as f:
+            started.append((subprocess.Popen(
+                [sys.executable, "-c", code, *map(str, args)], stdout=f,
+                stderr=subprocess.STDOUT, cwd=root, env=env), log))
+    return started
+
+
+def finish_ranks(started: list) -> list:
+    """Each started rank's exit code and output, once all have ended."""
+    rcs = [end_process(p, MESH_PROC_TIMEOUT_S) for p, _ in started]
+    return [(rc, log.read_text()) for rc, (_, log) in zip(rcs, started)]
+
+
+def run_ranks(code: str, args: list, n: int, backend: str, work: Path,
+              tag: str, env_extra=None) -> list:
+    """:func:`start_ranks`, then :func:`finish_ranks`."""
+    return finish_ranks(start_ranks(code, args, n, backend, work, tag,
+                                    env_extra))
+
+
+def report(out: str, tag: str) -> dict:
+    return json.loads(next(ln for ln in out.splitlines()
+                           if ln.startswith(tag + " "))[len(tag) + 1:])
+
+
+def held(tag: str, got: np.ndarray, want: np.ndarray, rtol: float,
+         atol: float) -> tuple:
+    """(bitwise, max |d|): ``got`` within ``atol + rtol * |want|``."""
+    d = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    bad = d > atol + rtol * np.abs(want.astype(np.float64))
+    check(got.shape == want.shape and not bool(bad.any()),
+          f"{tag}: {int(bad.sum())} entries off (max |d| {d.max():.3e}, "
+          f"shapes {got.shape} {want.shape})")
+    return bool(np.array_equal(got, want)), float(d.max())
+
+
+def split_launch(B: int, L: int) -> bool:
+    """Whether ``fused_gram`` cuts a launch of ``B`` rows of ``L`` slots
+    at rank RANK (f32 table) into partial sums on this card."""
+    from predictionio_tpu_torch.ops import fused_gram
+
+    return fused_gram.gram_plan(B, L, RANK, 4,
+                                fused_gram.sm_count(0)).splits > 1
+
+
+def mesh_iteration_ms(fn, reps: int = 3) -> float:
+    """Median host ms of ``fn`` ending in a synchronize, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def all_gather_ms(fn) -> float:
+    """Device ms of the kernels inside ``fn``'s ``ptpu.all_gather``
+    ranges (the gather's copies and the scatter by row id), from one
+    ``torch.profiler`` trace; 0 where the trace shows none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from predictionio_tpu_torch.obs.trace import profiler_held
+
+    torch.cuda.synchronize()
+    with profiler_held(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.events():
+        if e.name == "ptpu.all_gather":
+            us += e.device_time_total if hasattr(e, "device_time_total") \
+                else e.cuda_time_total
+    return us / 1e3
+
+
+def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
+    """Part (a): ``train_als`` over 4 shards on the one card, explicit
+    (bitwise against phase train's factors) and implicit (against the
+    one card within MESH_IMPLICIT_RTOL); the pieces planned as their own
+    rows against the block plan (time in turns, and where 10 iterations
+    of it land); then the two- and one-shard in-process runs parts (b)
+    and (c) are held to."""
+    from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.parallel import local_devices, make_mesh
+    from predictionio_tpu_torch.parallel.mesh import FORCE_DEVICE_COUNT_ENV
+
+    users, items, stars, n_users, n_items = data
+    ratings = als.RatingsCOO(users, items, stars, n_users, n_items)
+    out = {}
+
+    def mesh_of(n):
+        saved = os.environ.get(FORCE_DEVICE_COUNT_ENV)
+        os.environ[FORCE_DEVICE_COUNT_ENV] = str(n)
+        try:
+            return make_mesh(data=n, devices=local_devices(dev))
+        finally:
+            if saved is None:
+                del os.environ[FORCE_DEVICE_COUNT_ENV]
+            else:
+                os.environ[FORCE_DEVICE_COUNT_ENV] = saved
+
+    mesh = mesh_of(MESH_TRAIN_SHARDS)
+    params = als.ALSParams(rank=RANK, num_iterations=TRAIN_ITERS)
+    t = time.perf_counter()
+    packed = als.pack_ratings(ratings, params, mesh=mesh)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t
+    zero_launch_counts()
+    U, V = als.train_als(ratings, params, mesh=mesh, packed=packed)
+    torch.cuda.synchronize()
+    l4 = launch_counts()
+    check(l4["fused_gram"] > 0 and l4["chol_solve"] > 0,
+          f"the 4-shard training launched {l4}")
+    U4 = als.unshard_table(U).cpu().numpy()[:n_users]
+    V4 = als.unshard_table(V).cpu().numpy()[:n_items]
+    U1, V1 = host_factors
+    check(U4.shape == U1[:n_users].shape and V4.shape == V1[:n_items].shape,
+          "the 4-shard factors' shapes differ from phase train's")
+    dU = float(np.abs(U4 - U1[:n_users]).max())
+    dV = float(np.abs(V4 - V1[:n_items]).max())
+    check(np.array_equal(U4, U1[:n_users]) and np.array_equal(V4,
+                                                              V1[:n_items]),
+          f"explicit: the 4 shards' factors are not phase train's bit for "
+          f"bit (max |dU| {dU:.3e}, |dV| {dV:.3e})")
+    us, its = packed.mesh_side("user", params), packed.mesh_side("item",
+                                                                   params)
+    per_iter = us.launches + its.launches
+    # the same pieces planned as their own rows, not as their block
+    us_own, its_own = (dataclasses.replace(side, pieces=tuple(
+        tuple(dataclasses.replace(pc, plan_rows=int(pc.indices.shape[0]))
+              for pc in pieces) for pieces in side.pieces))
+        for side in (us, its))
+
+    # one iteration each way, from the initial tables
+    one = dataclasses.replace(params, num_iterations=1)
+    p1 = als.pack_ratings_cached(ratings, one, device=dev)
+    # launches fused_gram cuts into partial sums, by each plan
+    card_split = sum(split_launch(int(b[0].shape[0]), int(b[0].shape[1]))
+                     for h in (p1.user_h, p1.item_h)
+                     for b in als.training_blocks(h, RANK, one.block_rows))
+    split = {plan: sum(split_launch(plan_of(pc), int(pc.indices.shape[1]))
+                       for side in (us, its) for pieces in side.pieces
+                       for pc in pieces)
+             for plan, plan_of in (
+                 ("block", lambda pc: pc.plan_rows),
+                 ("own", lambda pc: int(pc.indices.shape[0])))}
+    U0, V0 = (t.to(dev) for t in als.draw_initial_factors(
+        params.seed, n_users, als._rows_padded(p1.user_h), n_items,
+        als._rows_padded(p1.item_h), RANK))
+    single_ms = mesh_iteration_ms(lambda: als._update_side(
+        als._update_side(V0, p1.user_h, one), p1.item_h, one))
+    Vr = als._replicate(als._initial_tables(
+        one, None, n_users, us.n_rows_padded, n_items,
+        its.n_rows_padded)[1], mesh)
+
+    def mesh_iter(sides=(us, its), V=Vr):
+        Ur = als._mesh_half_step(V, sides[0], one, mesh)
+        return als._mesh_half_step(Ur, sides[1], one, mesh)
+
+    # the block plan and the own-rows plan in turns
+    turns = {"block": [], "own": []}
+    for _ in range(2):
+        turns["block"].append(mesh_iteration_ms(mesh_iter))
+        turns["own"].append(mesh_iteration_ms(
+            lambda: mesh_iter((us_own, its_own))))
+    mesh_ms = turns["block"][0]
+    gather_ms = all_gather_ms(mesh_iter)
+    # where TRAIN_ITERS iterations of each plan land (train_als's loop)
+    by_hand = {}
+    for plan, sides in (("block", (us, its)), ("own", (us_own, its_own))):
+        V = Vr
+        for _ in range(TRAIN_ITERS):
+            U = als._mesh_half_step(V, sides[0], one, mesh)
+            V = als._mesh_half_step(U, sides[1], one, mesh)
+        Uh = U[0].cpu().numpy()[:n_users]
+        Vh = V[0].cpu().numpy()[:n_items]
+        check(bool(np.isfinite(Uh).all() and np.isfinite(Vh).all()),
+              f"the {plan} plan's factors are not finite")
+        by_hand[plan] = (float(np.abs(Uh - U1[:n_users]).max()),
+                         float(np.abs(Vh - V1[:n_items]).max()))
+    check(by_hand["block"] == (0.0, 0.0),
+          f"the block plan by hand is not train_als's: {by_hand['block']}")
+
+    # implicit: the Gramian's shard-order sum rounds apart
+    imp = als.ALSParams(rank=RANK, num_iterations=MESH_IMPLICIT_ITERS,
+                        implicit_prefs=True, alpha=1.0)
+    Ui, Vi = als.train_als(ratings, imp, device=dev)
+    zero_launch_counts()
+    Uim, Vim = als.train_als(ratings, imp, mesh=mesh)
+    torch.cuda.synchronize()
+    li = launch_counts()
+    check(li["fused_gram"] > 0 and li["chol_solve"] > 0,
+          f"the implicit 4-shard training launched {li}")
+    bi = []
+    for name, got, want, n in (("U", Uim, Ui, n_users),
+                               ("V", Vim, Vi, n_items)):
+        g = als.unshard_table(got).cpu().numpy()[:n]
+        w = want.cpu().numpy()[:n]
+        bi.append(held(f"implicit 4 shards {name}", g, w, MESH_IMPLICIT_RTOL,
+                       MESH_IMPLICIT_RTOL))
+    print(f"phase train-mesh (a): {MESH_TRAIN_SHARDS} shards on one card, "
+          f"rank {RANK}, {TRAIN_ITERS} iterations, pack_ratings(mesh) "
+          f"{pack_s:.3f}s | explicit factors bitwise equal to phase "
+          f"train's | launches fused_gram={l4['fused_gram']} chol_solve="
+          f"{l4['chol_solve']} ({per_iter} an iteration against the one "
+          f"card's 30; split into partial sums: block plan "
+          f"{split['block']}, own rows {split['own']}, one card "
+          f"{card_split}) | an iteration ms in turns, block plan "
+          f"{' '.join(f'{t:.3f}' for t in turns['block'])}, own rows "
+          f"{' '.join(f'{t:.3f}' for t in turns['own'])}; {TRAIN_ITERS} "
+          f"iterations planned by own rows land max |d| U "
+          f"{by_hand['own'][0]:.3e} V {by_hand['own'][1]:.3e} from phase "
+          f"train's | one iteration ms: one card {single_ms:.3f}, "
+          f"{MESH_TRAIN_SHARDS} shards {mesh_ms:.3f} "
+          f"({mesh_ms / single_ms:.3f}x), the all-gather's kernels "
+          f"{gather_ms:.3f} (profiler) | implicit {MESH_IMPLICIT_ITERS} "
+          f"iteration(s) alpha 1.0: bitwise U {bi[0][0]} V {bi[1][0]}, max "
+          f"|d| U {bi[0][1]:.3e} V {bi[1][1]:.3e} (rtol "
+          f"{MESH_IMPLICIT_RTOL}), launches fused_gram={li['fused_gram']} "
+          f"chol_solve={li['chol_solve']} | {card_tag(card)}", flush=True)
+    out["shards4"] = l4
+    out["implicit"] = li
+
+    # the in-process counterpart of part (c)
+    out["mesh_of"] = mesh_of
+    r_c, p_c = nccl_problem()
+    Uc, Vc = als.train_als(r_c, p_c, mesh=mesh_of(1))
+    out["one_shard"] = (als.unshard_table(Uc).cpu().numpy(),
+                        als.unshard_table(Vc).cpu().numpy())
+    return out
+
+
+def train_mesh_procs(data, ref: dict, work: Path, card: dict) -> dict:
+    """Part (b): two ranks on the one card over gloo, their sources
+    sharded, checkpointed every iteration; then a resumed launch with 2
+    more iterations. Held to the in-process 2 shards trained on the
+    whole batch's COO (the sources' indexation: users and items that
+    have ratings, in surrogate order)."""
+    from predictionio_tpu_torch.models import als
+
+    users, items, stars, n_users, n_items = data
+    for k, a in (("users", users), ("items", items), ("stars", stars)):
+        np.save(work / f"{k}.npy", a)
+    # every triple, users and items renumbered in number order among the
+    # rated ones: the sources' indexation, found here by numpy alone
+    luts = []
+    for ids, n in ((users, n_users), (items, n_items)):
+        seen = np.zeros(n, bool)
+        seen[ids] = True
+        luts.append((np.cumsum(seen) - 1, int(seen.sum())))
+    coo = als.RatingsCOO(luts[0][0][users].astype(np.int32),
+                         luts[1][0][items].astype(np.int32),
+                         np.asarray(stars, np.float32), luts[0][1],
+                         luts[1][1])
+    mesh2 = ref["mesh_of"](2)
+    want = {}
+    for iters in (MESH_PROC_ITERS, MESH_PROC_ITERS + 2):
+        p = als.ALSParams(rank=RANK, num_iterations=iters)
+        Ux, Vx = als.train_als(coo, p, mesh=mesh2)
+        want[iters] = (als.unshard_table(Ux).cpu().numpy()[:coo.n_users],
+                       als.unshard_table(Vx).cpu().numpy()[:coo.n_items])
+    ckdir = work / "ckpt"
+    launches = {}
+    for tag, iters in (("procs", MESH_PROC_ITERS),
+                       ("resume", MESH_PROC_ITERS + 2)):
+        t = time.perf_counter()
+        ranks = run_ranks(MESH_TRAIN_MAIN,
+                          [work, iters, ckdir, n_users, n_items], 2,
+                          "gloo", work, f"mesh_{tag}")
+        wall = time.perf_counter() - t
+        for pid, (rc, log) in enumerate(ranks):
+            check(rc == 0, f"(b) {tag}: rank {pid} exited {rc}: "
+                           f"{log[-3000:]}")
+        reps = [report(log, "MESHPROC") for _, log in ranks]
+        for r in reps:
+            check(r["rows"] == [coo.n_users, coo.n_items],
+                  f"(b) the source's rows differ from the COO's: {r}")
+            check(r["gloo_cuda"], f"(b) gloo's CUDA collectives: {r}")
+            check(r["fused_gram"] > 0 and r["chol_solve"] > 0,
+                  f"(b) {tag}: rank {r['pid']} launched {r}")
+            check(r["host_staged"]["collectives"] > 0,
+                  f"(b) {tag}: gloo's CUDA collectives went uncounted: {r}")
+            check(r["backend"] == "gloo" and r["ranks"] == [0, 1],
+                  f"(b) {tag}: group {r['backend']} {r['ranks']}")
+            for n in r["local_reads"]:
+                check(0.4 <= n / r["nnz"] <= 0.6,
+                      f"(b) rank {r['pid']} materialised {n} of "
+                      f"{r['nnz']} triples before the shuffle")
+        launches[tag] = {k: sum(r[k] for r in reps)
+                         for k in ("fused_gram", "chol_solve")}
+        U = np.load(work / "U.npy")
+        V = np.load(work / "V.npy")
+        Uw, Vw = want[iters]
+        bu, du = held(f"(b) {tag} U", U, Uw, MESH_PROC_RTOL, MESH_PROC_ATOL)
+        bv, dv = held(f"(b) {tag} V", V, Vw, MESH_PROC_RTOL, MESH_PROC_ATOL)
+        print(f"phase train-mesh (b) {tag}: 2 ranks on one card over gloo, "
+              f"{iters} iterations, {wall:.3f}s wall (rank 0: "
+              f"{reps[0]['seconds']:.3f}s, pack {reps[0]['pack_s']:.3f}s, "
+              f"train {reps[0]['train_s']:.3f}s, checkpoints every "
+              f"iteration) | materialised before the shuffle "
+              f"{[r['local_reads'] for r in reps]} of {len(users)} | "
+              f"launches fused_gram={launches[tag]['fused_gram']} "
+              f"chol_solve={launches[tag]['chol_solve']} | gloo's "
+              f"all_gather takes CUDA tensors; staged through the host "
+              f"(rank 0): {reps[0]['host_staged']['collectives']} "
+              f"collectives, {reps[0]['host_staged']['bytes']} bytes | "
+              f"{coo.n_users} x {coo.n_items} rated | against the "
+              f"in-process 2 shards: "
+              f"bitwise U {bu} V {bv}, max |d| U {du:.3e} V {dv:.3e} | "
+              f"{card_tag(card)}", flush=True)
+    first, resumed = launches["procs"], launches["resume"]
+    for k in ("fused_gram", "chol_solve"):
+        check(resumed[k] * MESH_PROC_ITERS == first[k] * 2,
+              f"(b) the resumed launch ran {resumed[k]} {k} launches, not "
+              f"2 iterations' of {first[k]} over {MESH_PROC_ITERS}")
+    return launches
+
+
+def train_mesh_nccl(started: list, ref: dict, work: Path,
+                    card: dict) -> dict:
+    """Part (c): one rank over NCCL (started beside part (b): it is
+    small), bitwise against the in-process one shard."""
+    (rc, log), = finish_ranks(started)
+    check(rc == 0, f"(c) the NCCL rank exited {rc}: {log[-3000:]}")
+    r = report(log, "MESHNCCL")
+    check(r["backend"] == "nccl" and r["world"] == 1 and r["ranks"] == [0],
+          f"(c) the group was not one NCCL rank: {r}")
+    check(r["fused_gram"] > 0 and r["chol_solve"] > 0,
+          f"(c) the NCCL rank launched {r}")
+    U, V = np.load(work / "nccl" / "U.npy"), np.load(work / "nccl" / "V.npy")
+    Uw, Vw = ref["one_shard"]
+    check(np.array_equal(U, Uw) and np.array_equal(V, Vw),
+          f"(c) the NCCL rank's factors are not the in-process one "
+          f"shard's bit for bit (max |d| "
+          f"{np.abs(U - Uw).max():.3e}, {np.abs(V - Vw).max():.3e})")
+    print(f"phase train-mesh (c): 1 rank over NCCL, the JAX multihost "
+          f"test's problem (900 ratings, 64 x 40, rank 4, 3 iterations): "
+          f"factors bitwise the in-process one shard's | launches "
+          f"fused_gram={r['fused_gram']} chol_solve={r['chol_solve']} | "
+          f"{card_tag(card)}", flush=True)
+    return {"fused_gram": r["fused_gram"], "chol_solve": r["chol_solve"]}
+
+
+def pod_env_base() -> dict:
+    """This process's environment less ``PIO_*``, with the repo on the
+    path."""
+    base_env = {k: v for k, v in os.environ.items()
+                if not k.startswith("PIO_")}
+    root = Path(__file__).resolve().parent
+    base_env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p)
+    return base_env
+
+
+def train_mesh_pod(home: str, pio: dict, remote: dict, work: Path,
+                   server, srv_log: Path, threads_before: set,
+                   card: dict) -> dict:
+    """Part (d): ``server`` (a ``cli storageserver`` over the ``pio``
+    store, started with the phase) and two ``cli train`` ranks over
+    REMOTE with shard pushdown, held to phase storage's single REMOTE
+    training."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.workflow.persistence import loads_models
+
+    base_env = pod_env_base()
+    pod = None
+    try:
+        srv_port = None
+        t0 = time.perf_counter()
+        while srv_port is None:
+            check(server.poll() is None
+                  and time.perf_counter() - t0 < STORAGE_TIMEOUT_S,
+                  f"cli storageserver did not start: {srv_log.read_text()}")
+            for ln in srv_log.read_text().splitlines():
+                if " is listening at http://" in ln:
+                    srv_port = int(ln.rsplit(":", 1)[1].rstrip("."))
+            time.sleep(0.01)
+        pod_env = {
+            "PIO_STORAGE_SOURCES_NET_TYPE": "REMOTE",
+            "PIO_STORAGE_SOURCES_NET_URL": f"http://127.0.0.1:{srv_port}",
+            "PIO_STORAGE_SOURCES_NET_SECRET": STORAGE_SECRET,
+            "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "NET",
+            "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "NET",
+            "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "NET"}
+        variant = json.loads(Path(pio["engine_json"]).read_text())
+        variant["id"] = "pod-mesh"
+        engine_json = work / "pod_engine.json"
+        engine_json.write_text(json.dumps(variant))
+        t = time.perf_counter()
+        ranks = run_ranks(CLI_COUNTED_MAIN,
+                          ["train", "--engine-json", engine_json], 2,
+                          "gloo", work, "pod", env_extra=pod_env)
+        wall = time.perf_counter() - t
+        reps = []
+        for pid, (rc, log) in enumerate(ranks):
+            check(rc == 0, f"(d) cli train rank {pid} exited {rc}: "
+                           f"{log[-3000:]}")
+            reps.append(report(log, "COUNTED"))
+        shares = [r["pull"]["bytes"] / remote["pull_bytes"] for r in reps]
+        for pid, (r, share) in enumerate(zip(reps, shares)):
+            check(r["fused_gram"] > 0 and r["chol_solve"] > 0,
+                  f"(d) rank {pid} launched {r}")
+            check(0.4 <= share <= 0.6,
+                  f"(d) rank {pid} pulled {r['pull']['bytes']} bytes, "
+                  f"{share:.4f} of the single REMOTE training's "
+                  f"{remote['pull_bytes']}")
+        pod = Storage(env=pod_env)
+        insts = [i for i in pod.engine_instances().get_all()
+                 if i.engine_id == "pod-mesh"]
+        check(len(insts) == 1 and insts[0].status == "COMPLETED",
+              f"(d) instances {[(i.id, i.status) for i in insts]}")
+        (model,) = loads_models(pod.models().get(insts[0].id).models)
+        # the later phases read phase 8's store with its one instance
+        pod.models().delete(insts[0].id)
+        pod.engine_instances().delete(insts[0].id)
+        bits = []
+        for side, attr, ref_f, ref_ids in (
+                ("user_ids", "user_factors", remote["factors"][0],
+                 remote["ids"][0]),
+                ("item_ids", "item_factors", remote["factors"][1],
+                 remote["ids"][1])):
+            ids = getattr(model, side).to_dict()
+            check(set(ids) == set(ref_ids), f"(d) {side} differ")
+            keys = sorted(ids)
+            got = getattr(model, attr).cpu().numpy()[[ids[k] for k in keys]]
+            want = ref_f[[ref_ids[k] for k in keys]]
+            bits.append(held(f"(d) {attr}", got, want, MESH_PROC_RTOL,
+                             MESH_PROC_ATOL))
+        pod.close()
+        pod = None
+        server.send_signal(signal.SIGINT)
+        check(end_process(server, 60) == 0,
+              f"(d) cli storageserver did not exit cleanly: "
+              f"{srv_log.read_text()[-2000:]}")
+        server = None
+        left = storage_threads_left(threads_before)
+        check(not left, f"(d) threads left: {left}")
+        check_no_children()
+        print(f"phase train-mesh (d): cli storageserver over the pio store, "
+              f"2 cli train ranks over REMOTE with shard pushdown (gloo) in "
+              f"{wall:.3f}s | npz pulls {[r['pull']['bytes'] for r in reps]}"
+              f" bytes, {', '.join(f'{s:.4f}' for s in shares)} of phase "
+              f"storage's single pull ({remote['pull_bytes']}) | one "
+              f"COMPLETED instance, one blob | against phase storage's "
+              f"REMOTE model: bitwise users {bits[0][0]} items "
+              f"{bits[1][0]}, max |d| {bits[0][1]:.3e} {bits[1][1]:.3e} | "
+              f"launches fused_gram={[r['fused_gram'] for r in reps]} "
+              f"chol_solve={[r['chol_solve'] for r in reps]} | "
+              f"{card_tag(card)}", flush=True)
+        return {k: sum(r[k] for r in reps)
+                for k in ("fused_gram", "chol_solve")}
+    finally:
+        if pod is not None:
+            pod.close()
+
+
+def phase_train_mesh(data, dev, host_factors, home: str, pio: dict,
+                     remote: dict, card: dict) -> dict:
+    """ALS over a mesh and across processes (module docstring, phase
+    8a'). Part (d)'s storage server starts with the phase and part (c)'s
+    rank beside part (b)'s. Returns each part's kernel launches."""
+    work = Path(tempfile.mkdtemp(prefix="train_mesh_", dir=Path(home)))
+    threads_before = {t.ident for t in threading.enumerate()}
+    srv_log = work / "pod_storageserver.log"
+    server = cli_process(["storageserver", "--ip", "127.0.0.1", "--port",
+                          "0", "--secret", STORAGE_SECRET],
+                         dict(pod_env_base(), PIO_HOME=home), srv_log)
+    nccl = []
+    try:
+        ref = train_mesh_shards(data, dev, host_factors, card)
+        launches = {"shards4": ref["shards4"], "implicit": ref["implicit"]}
+        (work / "nccl").mkdir()
+        nccl = start_ranks(MESH_NCCL_MAIN, [work / "nccl"], 1, "nccl",
+                           work, "mesh_nccl")
+        launches.update(train_mesh_procs(data, ref, work, card))
+        launches["nccl"] = train_mesh_nccl(nccl, ref, work, card)
+        launches["pod"] = train_mesh_pod(home, pio, remote, work, server,
+                                         srv_log, threads_before, card)
+        return launches
+    finally:
+        for proc in [p for p, _ in nccl] + [server]:
+            if proc.poll() is None:
+                proc.terminate()
+                end_process(proc, 30)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # phase check: the port's static analysis, and the shared-memory formulas
 # held to the libraries
 # ---------------------------------------------------------------------------
@@ -8473,7 +9178,9 @@ def phase_check(card: dict) -> dict:
 AUDIT_CYCLES = 3
 AUDIT_SETTLE_S = 2.0
 AUDIT_QUERIES = 64
-AUDIT_BURST_USERS = 16
+#: users of a stream_trainer cycle's burst (a cycle is its users' history
+#: reads; the census counts threads, fds and sockets)
+AUDIT_BURST_USERS = 4
 AUDIT_USER_EVENTS = 16
 AUDIT_CONSUMER = "chip-audit"
 AUDIT_TIMEOUT_S = 600.0
@@ -8727,7 +9434,8 @@ def phase_audit(uv, dev, home: str, pio: dict, data, card: dict) -> dict:
             return stream.wrap(cycle)
 
         res = audit_entry("stream_trainer", build_stream, "cli deploy of "
-                          "the pio model -> one 16-user burst folded in -> "
+                          f"the pio model -> one {AUDIT_BURST_USERS}-user "
+                          "burst folded in -> "
                           "stop + close", dev)
         audit_line("stream_trainer", stream, res, card)
         print(f"phase audit stream_trainer: canary refusals a cycle "
@@ -8873,6 +9581,10 @@ def main(argv=None) -> int:
                                     lambda: phase_pio(data, dev, home))
         with phase("storage"):
             storage_l = phase_storage(data, dev, home, pio, card)
+        with phase("train-mesh"):
+            mesh_train_l = phase_train_mesh(
+                data, dev, trained["host_factors"], home, pio,
+                storage_l["remote"], card)
         with phase("batchpredict"):
             batch_launches = phase_batchpredict(data, dev, home, pio)
         with phase("eval"):
@@ -8962,6 +9674,8 @@ def main(argv=None) -> int:
              resume_launches=resume_l["fused_gram"],
              split_launches=resume_l["split_fused_gram"],
              mesh_launches=mesh_l["fused_gram"],
+             train_mesh_launches={k: v["fused_gram"]
+                                  for k, v in mesh_train_l.items()},
              audit_launches=audit_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
@@ -8981,6 +9695,8 @@ def main(argv=None) -> int:
              resume_launches=resume_l["chol_solve"],
              split_launches=resume_l["split_chol_solve"],
              mesh_launches=mesh_l["chol_solve"],
+             train_mesh_launches={k: v["chol_solve"]
+                                  for k, v in mesh_train_l.items()},
              audit_launches=audit_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",

@@ -2454,6 +2454,24 @@ def main(argv: Optional[List[str]] = None,
         return cmd_slo(args)
     if args.command == "fleet":
         return cmd_fleet(args)
+    if os.environ.get("PIO_COORDINATOR") \
+            or os.environ.get("PIO_NUM_PROCESSES"):
+        # join the process group before any device use; CPU tensors
+        # travel only over gloo, so --device cpu names it
+        from .parallel.multihost import initialize_distributed, shutdown
+
+        initialize_distributed(
+            backend="gloo" if getattr(args, "device", None) == "cpu"
+            and not os.environ.get("PIO_DIST_BACKEND") else None)
+        try:
+            return _run(args, storage)
+        finally:
+            shutdown()
+    return _run(args, storage)
+
+
+def _run(args, storage: Optional[Storage]) -> int:
+    """The commands that read storage (and maybe the device)."""
     from .data.storage.registry import get_storage
 
     storage = storage if storage is not None else get_storage()

@@ -2,9 +2,10 @@
 ``predictionio_tpu/controller/context.py``).
 
 A :class:`Context` names the device training runs on (the card unless
-the caller asks for the CPU), the seed, the storage the data source reads
-and the workflow writes, and the workflow options. It has no mesh: the
-port runs on one card.
+the caller asks for the CPU), or the mesh it lays out over
+(``parallel/mesh.py``; None: the device alone, or in a process group of
+several processes the global mesh), the seed, the storage the data
+source reads and the workflow writes, and the workflow options.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ class Context:
     #: algo_train_s covers it)
     stage_timings: Dict[str, float] = field(default_factory=dict)
     _storage: Optional[Storage] = None
+    #: the mesh ALS trains over (``parallel.make_mesh``); None: ``device``
+    mesh: Optional[object] = None
 
     @property
     def storage(self) -> Storage:

@@ -20,8 +20,12 @@ dup-checked. Segments retire with a grace period
 (``invalidate(grace_s)``, :meth:`SegmentLog.sweep`), since another host
 of a shared mount may still map them.
 
-Left out (``ROADMAP.md`` queue 1, item 13): host sharding (``shard``,
-``slice_rows``, ``shard_bounds``).
+Host sharding (the partitioned training read of several processes) is
+row slicing: :meth:`ColumnarBatch.shard` cuts the unfiltered storage
+order into :meth:`ColumnarBatch.shard_bounds`' contiguous ranges, zero
+copy (:meth:`ColumnarBatch.slice_rows`), and stamps the shard with its
+global first row (``shard_offset``) and the log's row count
+(``shard_total``).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Dict, Iterable, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 try:
     import fcntl
@@ -46,7 +51,9 @@ except ImportError:  # non-POSIX
 import numpy as np
 
 from .event import Event, from_millis, to_millis
-from .storage.base import ANY, EventFilter
+
+if TYPE_CHECKING:  # the storage package imports this module on its own
+    from .storage.base import EventFilter
 
 __all__ = [
     "StringDict",
@@ -170,6 +177,9 @@ class StringDict:
         vals = self.values
         return [vals[c] if c >= 0 else None for c in codes.tolist()]
 
+    def as_array(self) -> np.ndarray:
+        return np.asarray(self.values, dtype=object)
+
 
 @dataclass
 class ColumnarDicts:
@@ -235,7 +245,7 @@ class ColumnarBatch:
                  self.dicts.target_types),
                 ("target_entity_id", self.target_id, self.dicts.target_ids)):
             want = getattr(f, attr)
-            if want is ANY:
+            if want is ...:  # ``storage.base.ANY``: no filter
                 continue
             m &= col == (-1 if want is None else sd.index.get(want, -2))
         return m
@@ -340,6 +350,52 @@ class ColumnarBatch:
                 properties=self.props_json(i),
                 event_time=from_millis(int(self.event_time[i])))
 
+    def slice_rows(self, lo: int, hi: int,
+                   with_props: bool = True) -> "ColumnarBatch":
+        """The contiguous row range ``[lo, hi)`` by basic slicing: columns
+        over mapped files touch no pages outside it. The property bytes
+        stay a view (their offsets are rebased, an O(rows) copy)."""
+        if not 0 <= lo <= hi <= self.n:
+            raise ValueError(f"slice [{lo}, {hi}) of {self.n} rows")
+        if with_props:
+            offs = self.props_offsets[lo:hi + 1] - self.props_offsets[lo]
+            blob = self.props_blob[self.props_offsets[lo]:
+                                   self.props_offsets[hi]]
+        else:
+            offs = np.zeros(hi - lo + 1, dtype=np.int64)
+            blob = np.empty(0, dtype=np.uint8)
+        return ColumnarBatch(
+            event=self.event[lo:hi], entity_type=self.entity_type[lo:hi],
+            entity_id=self.entity_id[lo:hi],
+            target_type=self.target_type[lo:hi],
+            target_id=self.target_id[lo:hi],
+            event_time=self.event_time[lo:hi],
+            props_offsets=offs, props_blob=blob,
+            float_props={k: v[lo:hi]
+                         for k, v in self.float_props.items()},
+            dicts=self.dicts)
+
+    @staticmethod
+    def shard_bounds(n: int, count: int) -> np.ndarray:
+        """The ``count + 1`` split points every backend's ``shard=`` read
+        uses over ``n`` storage-order rows, so shards cut by different
+        backends or processes tile alike."""
+        return np.linspace(0, n, count + 1).astype(np.int64)
+
+    def shard(self, index: int, count: int,
+              with_props: bool = True) -> "ColumnarBatch":
+        """Contiguous host shard ``index`` of ``count``, zero copy
+        (:meth:`slice_rows`), stamped with ``shard_offset`` and
+        ``shard_total``."""
+        if not 0 <= index < count:
+            raise ValueError(f"shard {index} of {count}")
+        bounds = self.shard_bounds(self.n, count)
+        sub = self.slice_rows(int(bounds[index]), int(bounds[index + 1]),
+                              with_props=with_props)
+        sub.shard_offset = int(bounds[index])
+        sub.shard_total = self.n
+        return sub
+
     @staticmethod
     def empty(dicts: Optional[ColumnarDicts] = None,
               float_props: Sequence[str] = ()) -> "ColumnarBatch":
@@ -353,6 +409,36 @@ class ColumnarBatch:
             props_blob=np.empty(0, np.uint8),
             float_props={k: _empty_f64(0) for k in float_props},
             dicts=dicts or ColumnarDicts())
+
+    @staticmethod
+    def concat(batches: Sequence["ColumnarBatch"]) -> "ColumnarBatch":
+        """Concatenate batches of one log (one set of dictionaries)."""
+        batches = [b for b in batches if b.n > 0]
+        if not batches:
+            return ColumnarBatch.empty()
+        if len(batches) == 1:
+            return batches[0]
+        prop_names = set()
+        for b in batches:
+            prop_names |= set(b.float_props)
+        offs = [np.zeros(1, dtype=np.int64)]
+        total = 0
+        for b in batches:
+            offs.append(b.props_offsets[1:] + total)
+            total += int(b.props_offsets[-1])
+        return ColumnarBatch(
+            event=np.concatenate([b.event for b in batches]),
+            entity_type=np.concatenate([b.entity_type for b in batches]),
+            entity_id=np.concatenate([b.entity_id for b in batches]),
+            target_type=np.concatenate([b.target_type for b in batches]),
+            target_id=np.concatenate([b.target_id for b in batches]),
+            event_time=np.concatenate([b.event_time for b in batches]),
+            props_offsets=np.concatenate(offs),
+            props_blob=np.concatenate([b.props_blob for b in batches]),
+            float_props={k: np.concatenate([
+                b.float_props.get(k, _empty_f64(b.n)) for b in batches])
+                for k in sorted(prop_names)},
+            dicts=batches[0].dicts)
 
 
 # ---------------------------------------------------------------------------

@@ -16,8 +16,10 @@ its scan loop).
 :func:`iter_jsonl_blocks` cuts a JSON-lines stream into blocks of whole
 lines, the unit the bulk import lanes of SEGMENTFS and REMOTE commit.
 
-Left out (``ROADMAP.md`` queue 1, item 13): multi-host sharded reads
-(``find_columnar(shard=...)`` raises).
+``find_columnar(shard=(i, n))`` is the partitioned training read of
+several processes: shard ``i`` of the unfiltered storage order
+(``ColumnarBatch.shard_bounds``), the filter applied within it, so the
+union of the shards of a filtered read is the unsharded read.
 """
 
 from __future__ import annotations
@@ -39,10 +41,6 @@ from ..event import Event
 #: Sentinel for "no filter" on nullable fields, distinguishing "match any"
 #: from "match None".
 ANY: Any = ...
-
-#: the queue item that lists what this slice of the port leaves out
-LEFT_OUT = "not ported yet (ROADMAP.md queue 1, item 13)"
-
 
 @dataclass(frozen=True)
 class EventFilter:
@@ -264,15 +262,50 @@ class EventStore(abc.ABC):
                       filter: EventFilter = EventFilter(),
                       float_props: Sequence[str] = ("rating",),
                       ordered: bool = True, with_props: bool = True,
-                      shard=None):
+                      shard: Optional[Tuple[int, int]] = None):
         """The bulk training read: the matching log as dictionary-encoded
         numpy columns. This default encodes from :meth:`find`; SQLite
-        overrides it with a persistent sidecar."""
-        if shard is not None:
-            raise NotImplementedError(f"sharded reads are {LEFT_OUT}")
+        and SEGMENTFS override it with a persistent sidecar, REMOTE with
+        the server's.
+
+        ``shard=(i, n)``: the unfiltered storage-order projection cut
+        into ``n`` contiguous ranges by ``ColumnarBatch.shard_bounds``,
+        range ``i`` returned with the filter (and ordering) applied
+        within it and stamped with ``shard_offset`` (its first row's
+        global index) and ``shard_total`` (the log's rows). This default
+        slices after a whole encode: right everywhere, saving no reads;
+        the sidecar backends slice their mapped columns and REMOTE asks
+        the server for the range."""
         from ..columnar import columnar_from_events
-        return columnar_from_events(self.find(app_id, channel_id, filter),
-                                    float_props=float_props)
+        batch = columnar_from_events(
+            self.find(app_id, channel_id,
+                      EventFilter() if shard is not None else filter),
+            float_props=float_props)
+        if shard is None:
+            return batch
+        return self._shard_and_select(batch, shard, filter,
+                                      ordered=ordered,
+                                      with_props=with_props)
+
+    @staticmethod
+    def _shard_and_select(batch, shard: Tuple[int, int],
+                          filter: EventFilter, *,
+                          ordered: bool, with_props: bool):
+        """The shared tail of every backend's ``shard=`` read: shard
+        ``i`` of ``n`` sliced off the whole unfiltered projection (zero
+        copy), the filter applied within it, the shard stamped with
+        ``shard_offset`` / ``shard_total``."""
+        from ..columnar import ColumnarBatch
+        i, n = shard
+        if not 0 <= i < n:
+            raise ValueError(f"shard {i} of {n}")
+        bounds = ColumnarBatch.shard_bounds(batch.n, n)
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        sub = batch.slice_rows(lo, hi, with_props=with_props)
+        sub = sub.select(filter, ordered=ordered, with_props=with_props)
+        sub.shard_offset = lo
+        sub.shard_total = batch.n
+        return sub
 
     def aggregate_properties(
             self, app_id: int, channel_id: Optional[int] = None,

@@ -16,10 +16,9 @@ run locally over the cached columns. Every request passes the
 ``storage.remote`` fault point and retries transport errors (and a 503)
 with bounded backoff when it is idempotent. The client holds no
 connection between requests, so :meth:`RemoteClient.close` has nothing
-to join.
-
-Left out (``ROADMAP.md`` queue 1, item 13): sharded reads
-(``find_columnar(shard=...)`` raises).
+to join. A ``find_columnar(shard=(i, n))`` read is pushed down as an
+HTTP row-range request (``shard_i``/``shard_n``): the server ships only
+that shard's bytes, under an ETag of the shard's own.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ from ...utils.retrying import RetryPolicy, retry_call
 from ..datamap import PropertyMap
 from ..event import Event, new_event_id
 from .base import (
-    LEFT_OUT,
     AccessKeysDAO,
     AppsDAO,
     ChannelsDAO,
@@ -348,10 +346,13 @@ class RemoteEventStore(EventStore):
                       shard=None):
         """The training read: the server's sidecar as one ``.npz``,
         cached by its ETag (a read of an unchanged log is one 304 round
-        trip), then the filter runs here. ``last_columnar`` records the
-        last read's status and payload bytes."""
-        if shard is not None:
-            raise NotImplementedError(f"sharded reads are {LEFT_OUT}")
+        trip), then the filter runs here. ``shard=(i, n)`` asks the
+        server for that row range alone (``shard_i``/``shard_n``) and
+        stamps the batch with the ``X-Shard-Offset``/``X-Shard-Total``
+        it answers; a server that ignores the request (no
+        ``X-Shard-Total``) is an error, never the whole log read as one
+        shard. ``last_columnar`` records the last read's status and
+        payload bytes."""
         base, q = self._base(app_id, channel_id)
         sep = "&" if q else "?"
         # the wire is comma-separated, so ',' in a name cannot be sent;
@@ -360,7 +361,8 @@ class RemoteEventStore(EventStore):
             if "," in p:
                 raise ValueError(
                     f"float prop name may not contain ',': {p!r}")
-        key = (app_id, channel_id, with_props, tuple(float_props), None)
+        key = (app_id, channel_id, with_props, tuple(float_props),
+               None if shard is None else tuple(shard))
         with self.c.lock:
             etag, cached = self.c.columnar_cache.get(key, (None, None))
         headers = {"If-None-Match": etag} if etag else {}
@@ -369,6 +371,10 @@ class RemoteEventStore(EventStore):
         path = (f"{base}/columnar{q}{sep}props="
                 f"{'1' if with_props else '0'}"
                 f"&float_props={fp_q}")
+        if shard is not None:
+            if not 0 <= int(shard[0]) < int(shard[1]):
+                raise ValueError(f"shard {shard[0]} of {shard[1]}")
+            path += f"&shard_i={int(shard[0])}&shard_n={int(shard[1])}"
         status, resp_headers, body = self.c.request(
             "GET", path, headers=headers)
         lower = {k.lower(): v for k, v in resp_headers.items()}
@@ -376,10 +382,22 @@ class RemoteEventStore(EventStore):
             batch = cached
         else:
             batch = batch_from_npz(body)
+            if shard is not None:
+                if "x-shard-total" not in lower:
+                    raise StorageError(
+                        "the storage server ignored the shard request (no "
+                        "X-Shard-Total header): it serves no sharded reads;"
+                        " upgrade it or read unsharded")
+                batch.shard_offset = int(lower["x-shard-offset"])
+                batch.shard_total = int(lower["x-shard-total"])
             with self.c.lock:
                 self.c.columnar_cache[key] = (lower.get("etag"), batch)
         self.c.last_columnar = {"status": status, "bytes": len(body)}
-        return batch.select(filter, ordered=ordered, with_props=with_props)
+        out = batch.select(filter, ordered=ordered, with_props=with_props)
+        if shard is not None and out is not batch:
+            out.shard_offset = batch.shard_offset
+            out.shard_total = batch.shard_total
+        return out
 
     def aggregate_properties(self, app_id: int,
                              channel_id: Optional[int] = None, *,

@@ -28,10 +28,9 @@ format it keeps: either package reads what the other wrote).
 Metadata DAOs are the LOCALFS documents under the same cross-process
 lock; model blobs are plain files. ``flock`` across hosts needs a mount
 with POSIX locks (NFSv4 has them; most bucket mounts do not): without
-them, run one writer a (app, channel). Readers are always safe.
-
-Left out (``ROADMAP.md`` queue 1, item 13): sharded reads
-(``find_columnar(shard=...)`` raises).
+them, run one writer a (app, channel). Readers are always safe. A
+``find_columnar(shard=(i, n))`` read slices the mapped sidecar by row
+range, so each host's shard touches only its own segment pages.
 """
 
 from __future__ import annotations
@@ -62,7 +61,6 @@ from ..columnar import (
 from ..event import Event, isoformat_millis, utcnow
 from . import localfs
 from .base import (
-    LEFT_OUT,
     EventFilter,
     EventStore,
     JsonlImportError,
@@ -499,12 +497,15 @@ class SegmentFSEventStore(EventStore):
                       shard=None):
         """The training read over the shared sidecar (built or extended
         first when the log moved past it). A sidecar of one segment comes
-        back as read-only maps of its files."""
-        if shard is not None:
-            raise NotImplementedError(f"sharded reads are {LEFT_OUT}")
+        back as read-only maps of its files; a shard is a row range of
+        those maps."""
         batch = self._sync_columnar(app_id, channel_id,
                                     tuple(float_props),
                                     want_props=with_props)
+        if shard is not None:
+            return self._shard_and_select(batch, shard, filter,
+                                          ordered=ordered,
+                                          with_props=with_props)
         return batch.select(filter, ordered=ordered,
                             with_props=with_props)
 

@@ -53,7 +53,6 @@ from ..event import (
 )
 from .base import (
     ANY,
-    LEFT_OUT,
     AccessKey,
     AccessKeysDAO,
     App,
@@ -396,17 +395,20 @@ class SQLiteEventStore(EventStore):
         (``<db>.columnar/<table>/``): the row store stays authoritative;
         immutable numpy segments are synced forward by ``seq`` watermark
         and mmap-loaded, so a training-scale scan runs no per-row
-        Python."""
-        if shard is not None:
-            raise NotImplementedError(f"sharded reads are {LEFT_OUT}")
+        Python. ``shard=(i, n)`` slices the mapped projection by row
+        range: pages outside the shard stay untouched."""
         d = self._columnar_dir(app_id, channel_id)
         if d is None:  # :memory: database — encode per call
             return super().find_columnar(app_id, channel_id, filter,
                                          float_props, ordered=ordered,
-                                         with_props=with_props)
+                                         with_props=with_props, shard=shard)
         batch = self._sync_columnar(d, app_id, channel_id,
                                     tuple(float_props),
                                     want_props=with_props)
+        if shard is not None:
+            return self._shard_and_select(batch, shard, filter,
+                                          ordered=ordered,
+                                          with_props=with_props)
         return batch.select(filter, ordered=ordered, with_props=with_props)
 
     def aggregate_properties(self, app_id: int,

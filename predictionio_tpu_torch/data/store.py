@@ -77,8 +77,9 @@ class EventStoreFacade:
                       host_sharded: bool = False):
         """The training read: the matching events as a
         :class:`~predictionio_tpu_torch.data.columnar.ColumnarBatch`.
-        One process holds the whole log, so ``host_sharded`` changes
-        nothing."""
+        ``host_sharded=True`` in a process group of several processes
+        reads only this process's shard (``shard=(rank, world)``, pushed
+        down to the backend); alone it is the whole read."""
         app_id, channel_id = self.resolve(app_name, channel_name)
         filt = EventFilter(
             start_time=start_time, until_time=until_time,
@@ -86,9 +87,15 @@ class EventStoreFacade:
             event_names=event_names,
             target_entity_type=target_entity_type,
             target_entity_id=target_entity_id)
+        shard = None
+        if host_sharded:
+            from ..parallel.multihost import process_count, process_index
+
+            if process_count() > 1:
+                shard = (process_index(), process_count())
         return self.storage.events().find_columnar(
             app_id, channel_id, filt, float_props=float_props,
-            ordered=ordered, with_props=with_props)
+            ordered=ordered, with_props=with_props, shard=shard)
 
     def aggregate_properties(
             self, app_name: str, entity_type: str,

@@ -40,6 +40,15 @@ row). With ``checkpoint_dir`` it saves the factors every
 ``checkpoint_every`` iterations (``workflow/checkpoint.py``) and resumes
 a restarted run from the newest restorable step.
 
+Training over a mesh (``train_als(mesh=)``, section "training over a
+mesh"): every position of a ``(data, model)`` mesh updates its block of
+each side's rows from the whole fixed side, all-gathered once a
+half-step; each block is cut where the single card cuts its row blocks
+and launched as that block (``fused_gram``'s ``plan_rows``), so explicit
+factors are the single card's bit for bit. Across processes
+(``parallel/multihost.py``) each process packs only its own rows
+(:func:`pack_ratings_multihost`, from a COO or a sharded source).
+
 Mesh-wide serving (:func:`shard_model`, :func:`replicate_model`): a
 sharded model's tables are split by rows over a serving mesh
 (:class:`RowShardedTable`, ``parallel/mesh.py``). A sharded batch
@@ -66,7 +75,7 @@ import threading
 import warnings
 import weakref
 from dataclasses import dataclass, field
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,8 +95,12 @@ from ..ops.ragged import (
     resolve_max_len,
 )
 from ..ops.solve import gramian, solve_spd_batch
-from ..parallel.collectives import merge_candidates
-from ..parallel.mesh import ServingMesh
+from ..parallel.collectives import (
+    all_gather,
+    gramian_allreduce,
+    merge_candidates,
+)
+from ..parallel.mesh import DeviceMesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.memo import ComputeOnce
 
@@ -182,7 +195,7 @@ class ALSModel:
     #: the serving mesh when the tables are row-sharded
     #: (:func:`shard_model`); None otherwise. Set at deploy only: a
     #: persisted model never carries a mesh
-    mesh: Optional[ServingMesh] = None
+    mesh: Optional[DeviceMesh] = None
 
 
 @dataclass
@@ -195,7 +208,7 @@ class RowShardedTable:
     zero padding to a shard multiple."""
 
     shards: Tuple[Table, ...]
-    mesh: ServingMesh
+    mesh: DeviceMesh
 
     @property
     def n_local(self) -> int:
@@ -394,7 +407,7 @@ def unshard_table(t: AnyTable) -> Table:
     return QuantizedFactors(torch.cat(datas), scales, t.shards[0].quant)
 
 
-def _shard_table(t: AnyTable, mesh: ServingMesh) -> RowShardedTable:
+def _shard_table(t: AnyTable, mesh: DeviceMesh) -> RowShardedTable:
     """``t`` split by rows over every device of ``mesh``, zero-padded to a
     shard multiple; a quantized table splits leaf by leaf, so each shard
     holds its rows' data and scales. Every shard is a copy of its own."""
@@ -417,7 +430,7 @@ def _shard_table(t: AnyTable, mesh: ServingMesh) -> RowShardedTable:
     return RowShardedTable(tuple(shards), mesh)
 
 
-def shard_model(model: ALSModel, mesh: ServingMesh) -> ALSModel:
+def shard_model(model: ALSModel, mesh: DeviceMesh) -> ALSModel:
     """SHARDED serving placement: both factor tables split by rows over
     every device of the ``(batch, model)`` serving mesh
     (:class:`RowShardedTable`), zero-padded to a shard multiple while
@@ -590,7 +603,7 @@ def _sharded_topk(user_table: AnyTable, item_table: RowShardedTable,
 
 def recommend_batch_sharded(user_factors, item_factors,
                             user_indices: np.ndarray, k: int,
-                            mesh: ServingMesh, n_items: int
+                            mesh: DeviceMesh, n_items: int
                             ) -> Tuple[np.ndarray, np.ndarray]:
     """Serving top-k over a mesh: item rows split over every device of
     ``mesh`` (a :class:`RowShardedTable`, or a whole table split here),
@@ -858,7 +871,8 @@ def resolved_gram_mode(params: ALSParams) -> str:
 
 
 def _fused_lhs(table: torch.Tensor, indices: torch.Tensor,
-               wa: torch.Tensor, wb: torch.Tensor):
+               wa: torch.Tensor, wb: torch.Tensor,
+               plan_rows: Optional[int] = None):
     """The fused realization of :func:`_lhs_fn`: gather and Gramian in
     one kernel launch; the ``[..., L, r]`` gather never exists."""
     r = table.shape[-1]
@@ -866,12 +880,13 @@ def _fused_lhs(table: torch.Tensor, indices: torch.Tensor,
     lead = tuple(indices.shape[:-1])
     A, b = fused_gram(table, indices.reshape(-1, L).contiguous(),
                       wa.reshape(-1, L).contiguous(),
-                      wb.reshape(-1, L).contiguous())
+                      wb.reshape(-1, L).contiguous(), plan_rows=plan_rows)
     return A.reshape(lead + (r, r)), b.reshape(lead + (r,))
 
 
 def _lhs_fn(table: torch.Tensor, indices: torch.Tensor, wa: torch.Tensor,
-            wb: torch.Tensor, *, gram: str, bf16: bool):
+            wb: torch.Tensor, *, gram: str, bf16: bool,
+            plan_rows: Optional[int] = None):
     """Per-row normal equations, the one place the factor gather exists:
     ``A = sum_l wa * f f^T`` and ``b = sum_l wb * f`` over
     ``f = table[indices]``. ``table`` is the f32 factors or their bf16
@@ -879,7 +894,7 @@ def _lhs_fn(table: torch.Tensor, indices: torch.Tensor, wa: torch.Tensor,
     "fused" (and "auto" within the kernel's rank) goes to the fused
     kernel; every other mode gathers and takes ``ops/gram.py``."""
     if _resolves_fused(gram, table.shape[-1]):
-        return _fused_lhs(table, indices, wa, wb)
+        return _fused_lhs(table, indices, wa, wb, plan_rows)
     F = table[indices.long()]
     A = gram_dispatch(F, wa, mode=gram, bf16=bf16)
     # a bf16 shadow is upcast first: the right-hand side sums in f32 too
@@ -919,14 +934,18 @@ def _update_block(fixed: torch.Tensor, G: Optional[torch.Tensor],
                   indices: torch.Tensor, values: torch.Tensor,
                   counts: torch.Tensor, reg: float, alpha: float,
                   implicit: bool, scale_reg: bool, bf16: bool = False,
-                  gram: str = "auto") -> torch.Tensor:
+                  gram: str = "auto", plan_rows: Optional[int] = None
+                  ) -> torch.Tensor:
     """New factors ``[B, r]`` for one block of rows, holding ``fixed``
     constant: ``G`` is the fixed side's Gramian (implicit only),
     ``indices``/``values`` ``[B, L]``, ``counts`` ``[B]``. The
     regularization (and ``G``) go onto the fresh ``A`` in place: it is
-    this block's own buffer, and a copy would double its memory."""
+    this block's own buffer, and a copy would double its memory.
+    ``plan_rows`` plans the ``fused_gram`` launch as one of that many
+    rows (a shard of a mesh's block planned as the whole block)."""
     wa, wb = _weights(values, counts, alpha, implicit)
-    A, b = _lhs_fn(fixed, indices, wa, wb, gram=gram, bf16=bf16)
+    A, b = _lhs_fn(fixed, indices, wa, wb, gram=gram, bf16=bf16,
+                   plan_rows=plan_rows)
     if implicit:
         A += G
     reg_n = reg * torch.clamp(counts.float(), min=1.0) if scale_reg \
@@ -1117,8 +1136,20 @@ def auto_split_len(counts: np.ndarray) -> int:
     return best_L
 
 
+def _auto_layout(counts: np.ndarray, n_rows: int, nnz: int) -> str:
+    """"auto"'s layout for a side with these row counts: pad when the
+    padded matrix fits ``AUTO_CAP_ENTRIES`` and holds at most 4x the
+    entries (or 1M slots), else the drop-free bucketed layout. One rule
+    for one process and for several, so both pack a side alike (the JAX
+    package's multi-process packing leaves out the waste test)."""
+    slots = n_rows * int(counts.max(initial=1))
+    return "pad" if slots <= min(AUTO_CAP_ENTRIES,
+                                 max(4 * nnz, 1_000_000)) else "bucket"
+
+
 def _pack(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
-          n_rows: int, params: ALSParams, device: DeviceLike):
+          n_rows: int, params: ALSParams, device: DeviceLike,
+          pad_rows_to: int = 1):
     """History packing for one side (``history_mode``): "pad" keeps
     round-1 semantics (entries past the length drop), "bucket" and
     "split" are drop-free, "auto" pads when that is dense enough and
@@ -1138,19 +1169,17 @@ def _pack(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             else auto_split_len(counts)
         return pack_histories_split_device(rows, cols, vals, n_rows,
                                            max(L, 1), counts=counts,
+                                           pad_rows_to=pad_rows_to,
                                            device=device)
     if mode == "auto":
         if max_history is not None:
             mode = "pad"
         else:
             counts = np.bincount(rows, minlength=n_rows)
-            slots = n_rows * int(counts.max(initial=1))
-            dense_enough = slots <= max(4 * len(rows), 1_000_000)
-            mode = "pad" if (slots <= AUTO_CAP_ENTRIES
-                             and dense_enough) else "bucket"
+            mode = _auto_layout(counts, n_rows, len(rows))
     if mode == "bucket":
         return pack_histories_bucketed_device(
-            rows, cols, vals, n_rows,
+            rows, cols, vals, n_rows, pad_rows_to=pad_rows_to,
             max_len=None if max_history is None else int(max_history),
             counts=counts, device=device)
     if max_history is not None:
@@ -1160,18 +1189,27 @@ def _pack(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
             counts = np.bincount(rows, minlength=n_rows)
         L = resolve_max_len(counts, n_rows, None)
     return pack_histories_device(rows, cols, vals, n_rows, max(L, 1),
-                                 device=device)
+                                 pad_rows_to=pad_rows_to, device=device)
 
 
 @dataclass
 class PackedRatings:
     """Packed histories of both sides, on the training device, plus the
-    real problem dims. Iterates as ``(user_h, item_h)``."""
+    real problem dims. Iterates as ``(user_h, item_h)``. Packed for a
+    mesh (``mesh`` set), each side's rows are padded to a multiple of
+    the mesh's size, and :meth:`mesh_side` cuts it into the per-position
+    blocks the mesh trains (a process mesh's packing makes only this
+    process's blocks: ``user_h``/``item_h`` are then those
+    :class:`MeshSide`\\ s)."""
 
     user_h: object
     item_h: object
     n_users: int
     n_items: int
+    mesh: Optional[DeviceMesh] = None
+    _sides: dict = field(default_factory=dict, repr=False)
+    _lock: threading.Lock = field(default_factory=threading.Lock,
+                                  repr=False)
 
     def __iter__(self):
         return iter((self.user_h, self.item_h))
@@ -1179,19 +1217,44 @@ class PackedRatings:
     def __getitem__(self, i: int):
         return (self.user_h, self.item_h)[i]
 
+    def mesh_side(self, side: str, params: "ALSParams") -> "MeshSide":
+        """One side's per-position blocks over :attr:`mesh`, cut once
+        (and kept) for the given rank and ``block_rows``."""
+        key = (side, params.rank, params.block_rows)
+        with self._lock:
+            out = self._sides.get(key)
+            if out is None:
+                h = self.user_h if side == "user" else self.item_h
+                n = self.n_users if side == "user" else self.n_items
+                out = _mesh_side_of(h, n, self.mesh, params)
+                self._sides[key] = out
+        return out
+
 
 def pack_ratings(ratings: RatingsCOO, params: ALSParams,
-                 device: DeviceLike = None) -> PackedRatings:
+                 device: DeviceLike = None, *,
+                 mesh: Optional[DeviceMesh] = None) -> PackedRatings:
     """Pack both sides' histories on ``device`` (the card by default)
-    for :func:`train_als`; sweeps pack once and pass ``packed=``."""
-    dev = resolve_device(device)
+    for :func:`train_als`; sweeps pack once and pass ``packed=``. With a
+    ``mesh`` the rows are padded to its size and packed on its first
+    device; a process mesh packs through :func:`pack_ratings_multihost`
+    (each process only its own rows). A sharded source packs from its
+    whole COO."""
+    if mesh is not None and mesh.spans_processes:
+        return pack_ratings_multihost(ratings, params, mesh)
+    if hasattr(ratings, "to_coo"):
+        ratings = ratings.to_coo()
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
+    n_dev = 1 if mesh is None else mesh.size
     users = np.asarray(ratings.users)
     items = np.asarray(ratings.items)
     vals = np.asarray(ratings.ratings)
     return PackedRatings(
-        user_h=_pack(users, items, vals, ratings.n_users, params, dev),
-        item_h=_pack(items, users, vals, ratings.n_items, params, dev),
-        n_users=ratings.n_users, n_items=ratings.n_items)
+        user_h=_pack(users, items, vals, ratings.n_users, params, dev,
+                     n_dev),
+        item_h=_pack(items, users, vals, ratings.n_items, params, dev,
+                     n_dev),
+        n_users=ratings.n_users, n_items=ratings.n_items, mesh=mesh)
 
 
 #: id(ratings) -> (weakref to the ratings, its ComputeOnce over packing
@@ -1201,13 +1264,15 @@ _pack_cache_lock = threading.Lock()
 
 
 def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
-                        device: DeviceLike = None) -> PackedRatings:
+                        device: DeviceLike = None, *,
+                        mesh: Optional[DeviceMesh] = None
+                        ) -> PackedRatings:
     """Memoizing :func:`pack_ratings`, keyed by the ratings object and
     the knobs the packing reads (``history_mode``, ``max_history``, the
-    device). Compute-once across threads: the workers of a parallel
-    eval grid walk that miss together wait for one packing (a failed
-    one is retried). Entries die with the ratings object."""
-    dev = resolve_device(device)
+    device or mesh). Compute-once across threads: the workers of a
+    parallel eval grid walk that miss together wait for one packing (a
+    failed one is retried). Entries die with the ratings object."""
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     with _pack_cache_lock:
         ent = _pack_cache.get(id(ratings))
         if ent is None or ent[0]() is not ratings:
@@ -1215,8 +1280,382 @@ def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
             ent = _pack_cache[rid] = (
                 weakref.ref(ratings, lambda _, i=rid: _pack_cache.pop(i, None)),
                 ComputeOnce(retry_on_failure=True))
-    key = (params.history_mode, params.max_history, str(dev))
-    return ent[1].get(key, lambda: pack_ratings(ratings, params, dev))
+    if mesh is None:
+        key = (params.history_mode, params.max_history, str(dev))
+        return ent[1].get(key, lambda: pack_ratings(ratings, params, dev))
+    key = (params.history_mode, params.max_history,
+           tuple(str(d) for d in mesh.devices), mesh.ranks)
+    return ent[1].get(key, lambda: pack_ratings(ratings, params, mesh=mesh))
+
+
+# -- training over a mesh ------------------------------------------------------
+#
+# Each position of the mesh updates a block of rows of the side being
+# solved: the pad layout's rows [s * n_per, (s + 1) * n_per), and of every
+# bucket of the bucketed layout the s-th of its even cuts. A position's
+# rows are cut where the single card cuts its row blocks, and each piece
+# launches ``fused_gram`` planned as that whole block (``plan_rows``), so
+# every row's normal equations are summed as the single card sums them;
+# ``chol_solve`` solves each system alone whatever the launch. The fixed
+# side enters whole on every device: the updated blocks are all-gathered
+# once a half-step. The implicit Gramian is per-shard partials summed in
+# shard order (``gramian_allreduce``).
+
+
+@dataclass(frozen=True)
+class _Piece:
+    """One ``fused_gram`` + ``chol_solve`` launch of a position: its
+    rows' histories, where its solved rows go in the position's output
+    block, and the row count its launch is planned for."""
+
+    indices: torch.Tensor
+    values: torch.Tensor
+    counts: torch.Tensor
+    offset: int
+    plan_rows: int
+
+
+@dataclass(frozen=True)
+class MeshSide:
+    """One side's training blocks over a mesh. ``pieces[k]`` are local
+    position k's launches in order; every position's output block has
+    ``block_rows_out`` rows, and ``dst[k]`` (on position k's device) maps
+    the all-gathered output blocks, in position order, onto the
+    factor table's rows (padding to the trash row ``n_rows_padded``);
+    the pad layout needs no map (its blocks are the table in order)."""
+
+    kind: str
+    n_rows: int
+    n_rows_padded: int
+    block_rows_out: int
+    pieces: Tuple[Tuple[_Piece, ...], ...]
+    dst: Tuple[Optional[torch.Tensor], ...]
+
+    @property
+    def launches(self) -> int:
+        """``fused_gram`` (and ``chol_solve``) launches of a half-step on
+        this process."""
+        return sum(len(p) for p in self.pieces)
+
+
+def _cut_position(idx, val, cnt, start: int, n_live: int, block: int,
+                  offset: int) -> List[_Piece]:
+    """The pieces of one position's run of a segment (a pad layout or a
+    bucket): rows ``[start, start + len)`` of the segment, cut where the
+    single card's blocks of ``block`` rows end, each planned as its
+    block (the last block holds ``n_live`` rows' remainder). Runs of
+    padding past ``n_live`` launch nothing (their rows stay 0)."""
+    m = int(idx.shape[0])
+    out, s = [], 0
+    while s < m and start + s < n_live:
+        j = (start + s) // block
+        e = min(m, (j + 1) * block - start)
+        out.append(_Piece(idx[s:e], val[s:e], cnt[s:e], offset + s,
+                          min(block, n_live - j * block)))
+        s = e
+    return out
+
+
+def _mesh_dst(side_rows: List[torch.Tensor], mesh: DeviceMesh,
+              n_rows_padded: int) -> Tuple[torch.Tensor, ...]:
+    """The gathered output blocks' table rows (padding clamped to the
+    trash row), one index tensor a local position."""
+    gathered = all_gather(side_rows, axis=None, mesh=mesh)
+    return tuple(torch.clamp(g.long(), max=n_rows_padded)
+                 for g in gathered)
+
+
+def _block_of(n_live: int, L: int, params: ALSParams) -> int:
+    return params.block_rows or _auto_block_rows(n_live, L, params.rank)
+
+
+def _mesh_side_of(h, n_real: int, mesh: DeviceMesh,
+                  params: ALSParams) -> MeshSide:
+    """A one-process mesh's :class:`MeshSide` cut from a side packed
+    whole (rows padded to the mesh size) on the mesh's first device."""
+    if isinstance(h, MeshSide):
+        return h
+    if isinstance(h, SplitHistories):
+        raise NotImplementedError(
+            "history_mode='split' under a mesh is not ported (ROADMAP.md "
+            "queue 1); 'bucket' is the drop-free layout a mesh trains")
+    n_dev = mesh.size
+    local = mesh.local_positions()
+    pieces: List[List[_Piece]] = [[] for _ in local]
+    if isinstance(h, BucketedHistories):
+        rows_out: List[List[torch.Tensor]] = [[] for _ in local]
+        off = 0
+        for bk in h.buckets:
+            npb = bk.n_rows // n_dev
+            n_live = int((bk.row_ids < h.n_rows).sum().item())
+            block = _block_of(n_live, bk.length, params)
+            for k, p in enumerate(local):
+                dev = mesh.devices[p]
+                sl = slice(p * npb, (p + 1) * npb)
+                pieces[k] += _cut_position(
+                    bk.indices[sl].to(dev), bk.values[sl].to(dev),
+                    bk.counts[sl].to(dev), p * npb, n_live, block, off)
+                rows_out[k].append(bk.row_ids[sl].to(dev))
+            off += npb
+        n_pad = h.n_rows_padded
+        rows = [torch.cat(r) if r else torch.empty(0, dtype=torch.int32,
+                                                   device=mesh.devices[p])
+                for r, p in zip(rows_out, local)]
+        return MeshSide("bucket", h.n_rows, n_pad, off,
+                        tuple(tuple(x) for x in pieces),
+                        _mesh_dst(rows, mesh, n_pad))
+    n_pad = h.n_rows
+    n_per = n_pad // n_dev
+    block = _block_of(n_real, h.max_len, params)
+    for k, p in enumerate(local):
+        dev = mesh.devices[p]
+        sl = slice(p * n_per, (p + 1) * n_per)
+        pieces[k] = _cut_position(h.indices[sl].to(dev),
+                                  h.values[sl].to(dev),
+                                  h.counts[sl].to(dev), p * n_per, n_real,
+                                  block, 0)
+    return MeshSide("pad", n_real, n_pad, n_per,
+                    tuple(tuple(x) for x in pieces),
+                    tuple(None for _ in local))
+
+
+def _mesh_half_step(fixed: List[torch.Tensor], side: MeshSide,
+                    params: ALSParams, mesh: DeviceMesh
+                    ) -> List[torch.Tensor]:
+    """One half-iteration over a mesh: ``fixed`` is the whole fixed
+    table on each local position's device (one tensor a device); returns
+    the whole updated table the same way, after the all-gather."""
+    local = mesh.local_positions()
+    r = fixed[0].shape[-1]
+    G = [None] * len(local)
+    if params.implicit_prefs:
+        n_loc = fixed[0].shape[0] // mesh.size
+        G = gramian_allreduce([f[p * n_loc:(p + 1) * n_loc]
+                               for f, p in zip(fixed, local)], mesh=mesh)
+    shadows: dict = {}
+    outs = []
+    for k, f in enumerate(fixed):
+        src = f
+        if params.gather_dtype == "bfloat16":
+            if id(f) not in shadows:
+                shadows[id(f)] = f.bfloat16()
+            src = shadows[id(f)]
+        out = torch.zeros((side.block_rows_out, r), dtype=torch.float32,
+                          device=f.device)
+        for pc in side.pieces[k]:
+            out[pc.offset:pc.offset + pc.indices.shape[0]] = _update_block(
+                src, G[k], pc.indices, pc.values, pc.counts, params.reg,
+                params.alpha, params.implicit_prefs,
+                params.scale_reg_by_count,
+                bf16=params.matmul_dtype == "bfloat16",
+                gram=params.gram_mode, plan_rows=pc.plan_rows)
+        outs.append(out)
+    with torch.profiler.record_function("ptpu.all_gather"):
+        gathered = all_gather(outs, axis=None, mesh=mesh)
+        if side.kind == "pad":
+            return gathered
+        tables: dict = {}
+        for g, dst in zip(gathered, side.dst):
+            if id(g) not in tables:
+                t = torch.zeros((side.n_rows_padded + 1, r),
+                                dtype=torch.float32, device=g.device)
+                t.index_copy_(0, dst, g)
+                tables[id(g)] = t[:side.n_rows_padded]
+        return [tables[id(g)] for g in gathered]
+
+
+def pack_ratings_multihost(ratings, params: ALSParams, mesh: DeviceMesh,
+                           force: bool = False) -> PackedRatings:
+    """Packing for a process mesh: every process packs only the history
+    rows its own positions update, on its first local device, straight
+    into their :class:`MeshSide` blocks. A one-process mesh (unless
+    ``force``) goes to :func:`pack_ratings`.
+
+    ``ratings`` is a :class:`RatingsCOO` every process holds, or a
+    sharded source (``read_rows`` / ``read_row_mask`` / ``row_counts``,
+    ``models/data.py``) from which each process materializes only its
+    rows' triples. Layouts: "auto" resolves per side as one process's
+    packing does (:func:`_auto_layout`; the bucketed layout's buckets
+    split evenly over the positions); "split" maps to an uncapped
+    bucketed layout."""
+    if not mesh.spans_processes and not force:
+        return pack_ratings(ratings, params, mesh=mesh)
+    n_dev = mesh.size
+    mine = list(mesh.local_positions())
+    if not mine:
+        raise ValueError("this process owns no position of the mesh; "
+                         "build the mesh over every process's devices")
+    if mine != list(range(mine[0], mine[-1] + 1)):
+        raise ValueError("pack_ratings_multihost needs each process's "
+                         "positions contiguous in mesh order")
+    is_source = hasattr(ratings, "read_rows")
+    sides = {}
+    for side, n_rows in (("user", ratings.n_users),
+                         ("item", ratings.n_items)):
+        if is_source:
+            counts = np.asarray(ratings.row_counts(side))
+        else:
+            rows_g = ratings.users if side == "user" else ratings.items
+            counts = np.bincount(rows_g, minlength=n_rows)
+        mode = params.history_mode
+        cap = params.max_history and int(params.max_history)
+        if mode == "split":
+            mode, cap = "bucket", None
+        elif mode == "auto":
+            mode = "pad" if params.max_history is not None \
+                else _auto_layout(counts, n_rows, int(counts.sum()))
+
+        pack = _pack_side_bucket_multihost if mode == "bucket" \
+            else _pack_side_pad_multihost
+        sides[side] = pack(_SideReader(ratings, side), counts, n_rows,
+                           mesh, mine, cap, params)
+    return PackedRatings(user_h=sides["user"], item_h=sides["item"],
+                         n_users=ratings.n_users, n_items=ratings.n_items,
+                         mesh=mesh)
+
+
+class _SideReader:
+    """One side's triples, ``(rows, cols, values)`` in storage order, of
+    a row range or a row set: from a sharded source's reads, or by
+    selection from a COO every process holds."""
+
+    def __init__(self, ratings, side: str):
+        self.ratings, self.side = ratings, side
+
+    def _take(self, pick):
+        r = self.ratings
+        rows = r.users if self.side == "user" else r.items
+        cols = r.items if self.side == "user" else r.users
+        sel = pick(rows)
+        return rows[sel], cols[sel], np.asarray(r.ratings)[sel]
+
+    def rows(self, start: int, stop: int):
+        if hasattr(self.ratings, "read_rows"):
+            return self.ratings.read_rows(self.side, start, stop)
+        return self._take(lambda r: (r >= start) & (r < stop))
+
+    def row_set(self, mask: np.ndarray):
+        if hasattr(self.ratings, "read_row_mask"):
+            return self.ratings.read_row_mask(self.side, mask)
+        return self._take(lambda r: mask[r])
+
+
+def _pack_side_pad_multihost(reader: _SideReader, counts, n_rows, mesh,
+                             mine, cap, params) -> MeshSide:
+    """One side's pad layout, this process's rows only: rows ``[start,
+    stop)`` of this process's positions, read and packed locally."""
+    n_dev = mesh.size
+    L = resolve_max_len(counts, n_rows, cap)
+    n_pad = -(-n_rows // n_dev) * n_dev
+    n_per = n_pad // n_dev
+    start, stop = mine[0] * n_per, (mine[-1] + 1) * n_per
+    rows_l, cols_l, vals_l = reader.rows(start, min(stop, n_rows))
+    dev = mesh.devices[mine[0]]
+    local = pack_histories_device(np.asarray(rows_l) - start, cols_l,
+                                  vals_l, stop - start, L, device=dev)
+    block = _block_of(n_rows, L, params)
+    pieces = []
+    for k, p in enumerate(mine):
+        sl = slice(k * n_per, (k + 1) * n_per)
+        d = mesh.devices[p]
+        pieces.append(tuple(_cut_position(
+            local.indices[sl].to(d), local.values[sl].to(d),
+            local.counts[sl].to(d), p * n_per, n_rows, block, 0)))
+    return MeshSide("pad", n_rows, n_pad, n_per, tuple(pieces),
+                    tuple(None for _ in mine))
+
+
+def _pack_side_bucket_multihost(reader: _SideReader, counts, n_rows, mesh,
+                                mine, cap, params) -> MeshSide:
+    """One side of the drop-free bucketed layout, this process's rows
+    only: every process plans the same buckets from the same global
+    ``counts`` (each padded to the mesh size and cut evenly over the
+    positions), then reads and packs only the bucket rows its positions
+    own (a row set: bucket membership is by history length)."""
+    from ..ops.ragged import _pack_flat, bucket_layout
+
+    n_dev = mesh.size
+    if cap is not None:
+        counts = np.minimum(counts, int(cap))
+    plan, _, _ = bucket_layout(counts, min_len=8, pad_rows_to=n_dev)
+    n_rows_pad = max(-(-n_rows // n_dev) * n_dev, n_dev)
+    d_loc = len(mine)
+    local_base = np.zeros(n_rows, dtype=np.int64)
+    owned = np.zeros(n_rows, dtype=bool)
+    spans, off_loc = [], 0
+    for L, rows_k, n_bk_pad, _ in plan:
+        npb = n_bk_pad // n_dev
+        lo, hi = mine[0] * npb, (mine[-1] + 1) * npb
+        rows_local = rows_k[lo:min(hi, len(rows_k))]
+        local_base[rows_local] = off_loc + np.arange(
+            len(rows_local), dtype=np.int64) * int(L)
+        owned[rows_local] = True
+        rid = (n_rows_pad + np.arange(n_bk_pad, dtype=np.int64)
+               - len(rows_k)).astype(np.int32)
+        rid[:len(rows_k)] = rows_k
+        spans.append((int(L), rows_k, npb, off_loc, rid))
+        off_loc += d_loc * npb * int(L)
+    if off_loc >= 2 ** 31:
+        raise ValueError(f"the bucketed layout needs {off_loc} local slots "
+                         f"(past int32); use more processes or cap "
+                         f"max_history")
+    rows_l, cols_l, vals_l = reader.row_set(owned)
+    dev = mesh.devices[mine[0]]
+    flat_idx, flat_val = _pack_flat(np.asarray(rows_l), cols_l, vals_l,
+                                    local_base, counts, n_rows,
+                                    max(off_loc, 1), dev)
+    pieces = [[] for _ in mine]
+    rows_out = [[] for _ in mine]
+    off_out = 0
+    for L, rows_k, npb, off, rid in spans:
+        block = _block_of(len(rows_k), L, params)
+        for k, p in enumerate(mine):
+            d = mesh.devices[p]
+            base = off + k * npb * L
+            own = rows_k[p * npb:(p + 1) * npb]
+            cnt = np.zeros(npb, dtype=np.int32)
+            cnt[:len(own)] = counts[own]
+            pieces[k] += _cut_position(
+                flat_idx[base:base + npb * L].view(npb, L).to(d),
+                flat_val[base:base + npb * L].view(npb, L).to(d),
+                torch.from_numpy(cnt).to(d), p * npb, len(rows_k), block,
+                off_out)
+            rows_out[k].append(torch.from_numpy(
+                np.ascontiguousarray(rid[p * npb:(p + 1) * npb])).to(d))
+        off_out += npb
+    rows = [torch.cat(r) if r else torch.empty(0, dtype=torch.int32,
+                                               device=mesh.devices[p])
+            for r, p in zip(rows_out, mine)]
+    return MeshSide("bucket", n_rows, n_rows_pad, off_out,
+                    tuple(tuple(x) for x in pieces),
+                    _mesh_dst(rows, mesh, n_rows_pad))
+
+
+def _replicate(table: torch.Tensor, mesh: DeviceMesh) -> List[torch.Tensor]:
+    """A whole host table on every local position's device, one copy a
+    device."""
+    memo: dict = {}
+    for p in mesh.local_positions():
+        dev = mesh.devices[p]
+        if str(dev) not in memo:
+            memo[str(dev)] = table.to(dev)
+    return [memo[str(mesh.devices[p])] for p in mesh.local_positions()]
+
+
+def _row_sharded(tables: List[torch.Tensor], mesh: DeviceMesh
+                 ) -> RowShardedTable:
+    """The whole table every process holds after training, cut into the
+    mesh's row shards: a local position's shard on its device, another
+    process's on this process's first local device."""
+    local = mesh.local_positions()
+    whole = tables[0]
+    n_loc = whole.shape[0] // mesh.size
+    shards = []
+    for p in range(mesh.size):
+        dev = mesh.devices[p] if p in local else whole.device
+        src = tables[local.index(p)] if p in local else whole
+        shards.append(src[p * n_loc:(p + 1) * n_loc].to(dev, copy=True))
+    return RowShardedTable(tuple(shards), mesh)
 
 
 def _rows_padded(h) -> int:
@@ -1287,14 +1726,19 @@ def checkpoint_fingerprints(ratings: RatingsCOO, params: ALSParams,
 
 def _open_checkpoint(checkpoint_dir: str, ratings: Optional[RatingsCOO],
                      params: ALSParams, user_h, item_h):
-    """The run's checkpointer: refuses a directory another run (params,
-    data or history layout) wrote, then records this run's
+    """The run's checkpointer (``make_checkpointer``: the distributed one
+    in a process group of several): refuses a directory another run
+    (params, data or history layout) wrote, then records this run's
     fingerprint."""
     from ..workflow.checkpoint import make_checkpointer
 
     if ratings is None:
         raise ValueError("checkpointing fingerprints the ratings content; "
                          "pass the ratings with packed= when using "
+                         "checkpoint_dir")
+    if hasattr(ratings, "read_rows"):
+        raise ValueError("checkpointing fingerprints the ratings content; "
+                         "pass a RatingsCOO (source.to_coo()) when using "
                          "checkpoint_dir")
     accepted = checkpoint_fingerprints(
         ratings, params, isinstance(user_h, PaddedHistories)
@@ -1318,11 +1762,11 @@ def _half_step(h) -> Callable:
 
 def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
               device: DeviceLike = None,
+              mesh: Optional[DeviceMesh] = None,
               init: Optional[Tuple[np.ndarray, np.ndarray]] = None,
               packed: Optional[PackedRatings] = None,
               checkpoint_dir: Optional[str] = None,
-              checkpoint_every: int = 0
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              checkpoint_every: int = 0):
     """Run ALS on ``device`` (the card by default; ``"cpu"`` runs every
     kernel's plain version); returns ``(user_factors, item_factors)`` f32
     with padded rows.
@@ -1332,33 +1776,53 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
     drawn by :func:`draw_initial_factors` from ``params.seed``. The JAX
     package draws with ``jax.random``, which torch cannot reproduce, so a
     parity run passes the JAX package's own draw in here. ``packed``
-    (from :func:`pack_ratings` with the same params and device) skips
-    the packing. Each iteration is a user half-step then an item
-    half-step, as Python loops; there is no mesh.
+    (from :func:`pack_ratings` with the same params and device or mesh)
+    skips the packing; with it ``ratings`` may be None. ``ratings`` may
+    also be a sharded source (``models/data.py``). Each iteration is a
+    user half-step then an item half-step, as Python loops.
+
+    With a ``mesh`` (``parallel/mesh.py``: ``make_mesh``, or
+    ``multihost.global_mesh`` over several processes) each side's rows
+    are padded to the mesh's size and every position updates its block
+    of them, from the whole fixed side on its device, all-gathered once
+    a half-step (module section "training over a mesh"); the factors
+    come back as :class:`RowShardedTable`\\ s over the mesh. The draw
+    (or ``init``) is the single device's, cut into shards, so a mesh run
+    starts from the single device's tables; explicit feedback then gives
+    the single device's factors bit for bit on the card (the implicit
+    Gramian's shard-order sum rounds apart). The split layout does not
+    train over a mesh.
 
     With ``checkpoint_dir`` the factors are saved every
     ``checkpoint_every`` iterations (a directory implies 1) and a
     restarted call resumes from the newest restorable step no later than
     ``num_iterations``: a torn step is skipped, and a directory another
-    run wrote (:func:`checkpoint_fingerprints`) is refused. The kernels
-    add in a fixed order, so a resumed run's factors are bitwise those
-    of an uninterrupted one."""
+    run wrote (:func:`checkpoint_fingerprints`) is refused. Checkpointing
+    needs the ratings as a :class:`RatingsCOO` (the fingerprint digests
+    them). The kernels add in a fixed order, so a resumed run's factors
+    are bitwise those of an uninterrupted one."""
+    if ratings is None:
+        if packed is None:
+            raise ValueError("train_als(ratings=None) needs packed= (from "
+                             "pack_ratings or pack_ratings_multihost)")
+    elif hasattr(ratings, "read_rows"):
+        if ratings.n_users == 0 or ratings.n_items == 0:
+            raise ValueError("ALS requires a non-empty ratings matrix "
+                             "(0 users/items in the source)")
+    elif len(ratings.users) == 0 or ratings.n_users == 0 \
+            or ratings.n_items == 0:
+        raise ValueError("ALS requires a non-empty ratings matrix "
+                         "(0 entries/users/items given)")
+    if mesh is not None:
+        return _train_als_mesh(ratings, params, mesh, init, packed,
+                               checkpoint_dir, checkpoint_every)
     dev = resolve_device(device)
     if packed is None:
-        if ratings is None or len(ratings.users) == 0 \
-                or ratings.n_users == 0 or ratings.n_items == 0:
-            raise ValueError("ALS requires a non-empty ratings matrix "
-                             "(0 entries/users/items given)")
         packed = pack_ratings(ratings, params, dev)
     user_h, item_h = packed
     n_u, n_i = packed.n_users, packed.n_items
     u_pad, i_pad = _rows_padded(user_h), _rows_padded(item_h)
-    if init is None:
-        U, V = draw_initial_factors(params.seed, n_u, u_pad, n_i, i_pad,
-                                    params.rank)
-    else:
-        U = _init_table(init[0], n_u, u_pad, params.rank, "user")
-        V = _init_table(init[1], n_i, i_pad, params.rank, "item")
+    U, V = _initial_tables(params, init, n_u, u_pad, n_i, i_pad)
     U, V = U.to(dev), V.to(dev)
     step_u, step_i = _half_step(user_h), _half_step(item_h)
     ckpt, start = None, 0
@@ -1371,7 +1835,8 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
             start, state = ckpt.restore_latest(
                 like={"U": U, "V": V}, max_step=params.num_iterations)
             if state is not None:
-                U, V = state["U"], state["V"]
+                U = torch.as_tensor(state["U"]).to(dev)
+                V = torch.as_tensor(state["V"]).to(dev)
         for it in range(start, params.num_iterations):
             U = step_u(V, user_h, params)
             V = step_i(U, item_h, params)
@@ -1382,6 +1847,64 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
         if ckpt is not None:
             ckpt.close()
     return U, V
+
+
+def _initial_tables(params: ALSParams, init, n_u: int, u_pad: int,
+                    n_i: int, i_pad: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host tables a training starts from: ``init``, or the seeded
+    draw (its real rows depend only on the real row counts)."""
+    if init is None:
+        return draw_initial_factors(params.seed, n_u, u_pad, n_i, i_pad,
+                                    params.rank)
+    return (_init_table(init[0], n_u, u_pad, params.rank, "user"),
+            _init_table(init[1], n_i, i_pad, params.rank, "item"))
+
+
+def _train_als_mesh(ratings, params: ALSParams, mesh: DeviceMesh, init,
+                    packed: Optional[PackedRatings], checkpoint_dir,
+                    checkpoint_every: int):
+    """:func:`train_als` over a mesh (one process's or several's)."""
+    if packed is None:
+        packed = pack_ratings(ratings, params, mesh=mesh)
+    elif packed.mesh is None or packed.mesh.devices != mesh.devices \
+            or packed.mesh.ranks != mesh.ranks:
+        raise ValueError("packed= was packed for another mesh (or none); "
+                         "pack with pack_ratings(..., mesh=mesh)")
+    us = packed.mesh_side("user", params)
+    its = packed.mesh_side("item", params)
+    U0, V0 = _initial_tables(params, init, packed.n_users,
+                             us.n_rows_padded, packed.n_items,
+                             its.n_rows_padded)
+    ckpt, start = None, 0
+    if checkpoint_dir:
+        ckpt = _open_checkpoint(checkpoint_dir, ratings, params,
+                                packed.user_h, packed.item_h)
+        checkpoint_every = checkpoint_every if checkpoint_every > 0 else 1
+    from ..workflow.checkpoint import DistributedCheckpointer
+
+    sharded_state = isinstance(ckpt, DistributedCheckpointer)
+    try:
+        if ckpt is not None:
+            start, state = ckpt.restore_latest(
+                like={"U": U0, "V": V0}, max_step=params.num_iterations)
+            if state is not None:
+                U0 = torch.as_tensor(np.asarray(state["U"]))
+                V0 = torch.as_tensor(np.asarray(state["V"]))
+        U = _replicate(U0, mesh)
+        V = _replicate(V0, mesh)
+        for it in range(start, params.num_iterations):
+            U = _mesh_half_step(V, us, params, mesh)
+            V = _mesh_half_step(U, its, params, mesh)
+            if ckpt is not None:
+                state = ({"U": _row_sharded(U, mesh),
+                          "V": _row_sharded(V, mesh)} if sharded_state
+                         else {"U": U[0], "V": V[0]})
+                ckpt.maybe_save(it + 1, state, every=checkpoint_every)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    return _row_sharded(U, mesh), _row_sharded(V, mesh)
 
 
 def als_flops_per_iter(user_h, item_h, params: ALSParams) -> int:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..data.bimap import BiMap
-from ..parallel.mesh import ServingMesh
+from ..parallel.mesh import DeviceMesh
 from ..utils.device import DeviceLike, resolve_device
 from .als import (
     ALSModel,
@@ -104,7 +104,7 @@ def als_model_from_numpy(user_factors, item_factors, n_users: int,
 
 
 def als_model_from_jax(jmodel, device: DeviceLike = None,
-                       mesh: Optional[ServingMesh] = None) -> ALSModel:
+                       mesh: Optional[DeviceMesh] = None) -> ALSModel:
     """The port's :class:`ALSModel` from a JAX-package ``ALSModel``,
     read by its fields (nothing of JAX is imported): ``np.asarray`` of
     each factor table's leaves (for a table the JAX package's

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -152,10 +152,17 @@ def _check_cuda(table, idx, wa, wb):
 
 
 def fused_gram(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
-               wb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+               wb: torch.Tensor, plan_rows: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(A, b)`` of the fused gather and weighted Gramian (module
     docstring). CPU tensors run the plain version; CUDA tensors launch
-    the kernel on the current stream and raise if it is refused."""
+    the kernel on the current stream and raise if it is refused.
+
+    ``plan_rows`` cuts the launch as :func:`gram_plan` cuts one of that
+    many rows (default: the launch's own): each row's slots are summed
+    in the order a launch of ``plan_rows`` rows sums them, so a shard of
+    a row block planned as the whole block gives its rows bit for bit.
+    The plain version sums each row alike whatever the launch."""
     _check_args(table, idx, wa, wb)
     dev = table.device
     if dev.type == "cpu":
@@ -169,8 +176,8 @@ def fused_gram(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
     b = torch.empty((B, r), dtype=torch.float32, device=dev)
     if B == 0:
         return A, b
-    plan = gram_plan(B, L, r, table.element_size(), sm_count(dev.index),
-                     table.data_ptr() % 16 == 0)
+    plan = gram_plan(plan_rows or B, L, r, table.element_size(),
+                     sm_count(dev.index), table.data_ptr() % 16 == 0)
     scratch = None
     if plan.splits > 1:
         scratch = torch.empty((B, plan.splits, r * r + r),
@@ -190,11 +197,14 @@ def fused_gram(table: torch.Tensor, idx: torch.Tensor, wa: torch.Tensor,
 
 
 def fused_gram_reference(table: torch.Tensor, idx: torch.Tensor,
-                         wa: torch.Tensor, wb: torch.Tensor
+                         wa: torch.Tensor, wb: torch.Tensor,
+                         plan_rows: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: gather, upcast, f32 contractions. It
     materializes the ``[B, L, r]`` gather that the kernel exists to
-    avoid."""
+    avoid. It takes :func:`fused_gram`'s arguments so that it can stand
+    in for it (a plain training run swaps it in); ``plan_rows`` cuts no
+    launch here."""
     F = table[idx.long()].float()
     A = torch.einsum("blr,bls,bl->brs", F, F, wa.float())
     b = torch.einsum("blr,bl->br", F, wb.float())

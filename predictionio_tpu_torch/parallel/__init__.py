@@ -1,9 +1,24 @@
-"""Parallelism: the serving mesh and its one collective (the serving part
-of ``predictionio_tpu/parallel``). The training collectives, multi-host
-start-up and the training mesh are not in this package yet
-(``ROADMAP.md`` queue 1)."""
+"""Parallelism: device meshes, the collectives over them and several
+processes as one system (the port of ``predictionio_tpu/parallel``).
 
-from .collectives import merge_candidates, sharded_top_k
+A mesh is an explicit grid of devices; a sharding spec is the tuple of
+mesh axes a tensor's leading dimension splits over (``()`` replicated),
+the port's ``PartitionSpec``."""
+
+from typing import Optional, Tuple
+
+from .collectives import (
+    all_gather,
+    all_reduce_sum,
+    axis_index,
+    gramian_allreduce,
+    merge_candidates,
+    reduce_scatter,
+    ring_permute,
+    shard_map_compat,
+    sharded,
+    sharded_top_k,
+)
 from .mesh import (
     AUTO_SHARD_HBM_FRACTION,
     BATCH_AXIS,
@@ -11,29 +26,74 @@ from .mesh import (
     FORCE_DEVICE_COUNT_ENV,
     MODEL_AXIS,
     SERVING_MODES,
-    ServingMesh,
+    DeviceMesh,
     device_hbm_bytes,
     local_devices,
+    make_mesh,
     make_serving_mesh,
     pad_to_multiple,
     resolve_serving_mode,
     rows_spec,
 )
+from .multihost import (
+    from_process_local,
+    global_mesh,
+    host_shard,
+    initialize_distributed,
+)
+
+
+def single_device_mesh() -> DeviceMesh:
+    """A 1 x 1 training mesh over the first local device."""
+    return make_mesh(data=1, model=1, devices=local_devices()[:1])
+
+
+def data_sharding(mesh: DeviceMesh, ndim: int = 1) -> Tuple[str, ...]:
+    """The leading dimension split over the data axis, the rest whole."""
+    return (DATA_AXIS,)
+
+
+def model_sharding(mesh: DeviceMesh, ndim: int = 2) -> Tuple[str, ...]:
+    """The leading dimension split over the model axis (factor rows)."""
+    return (MODEL_AXIS,)
+
+
+def replicated(mesh: Optional[DeviceMesh]) -> Tuple[str, ...]:
+    """A whole copy on every position."""
+    return ()
+
 
 __all__ = [
+    "all_gather",
+    "all_reduce_sum",
+    "axis_index",
+    "gramian_allreduce",
+    "merge_candidates",
+    "reduce_scatter",
+    "ring_permute",
+    "sharded",
+    "sharded_top_k",
+    "from_process_local",
+    "global_mesh",
+    "host_shard",
+    "initialize_distributed",
     "AUTO_SHARD_HBM_FRACTION",
     "BATCH_AXIS",
     "DATA_AXIS",
     "FORCE_DEVICE_COUNT_ENV",
     "MODEL_AXIS",
     "SERVING_MODES",
-    "ServingMesh",
+    "DeviceMesh",
+    "data_sharding",
     "device_hbm_bytes",
     "local_devices",
+    "make_mesh",
     "make_serving_mesh",
-    "merge_candidates",
+    "model_sharding",
     "pad_to_multiple",
+    "replicated",
     "resolve_serving_mode",
     "rows_spec",
-    "sharded_top_k",
+    "shard_map_compat",
+    "single_device_mesh",
 ]

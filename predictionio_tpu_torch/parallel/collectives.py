@@ -1,22 +1,287 @@
-"""The serving collective: the global top-k of row-sharded candidates
-(``sharded_top_k`` of ``predictionio_tpu/parallel/collectives.py``).
+"""Collectives over a device mesh (the port of
+``predictionio_tpu/parallel/collectives.py``).
 
-The JAX package all-gathers each shard's local top-k inside a
-``shard_map`` and reduces the ``k * n_shards`` candidates to the global
-top-k. Here the shards are launches of one process, so the gather is a
-copy of each shard's ``[B, k]`` candidates onto the first shard's device
-and the reduction a sort there: :func:`merge_candidates`, in the
+The JAX package writes a collective inside a ``shard_map``: the body runs
+once per device and ``lax.psum`` / ``all_gather`` / ``ppermute`` join
+them. The port has no SPMD tracer, so a collective here takes the
+per-shard blocks themselves: a list with one tensor per position of the
+mesh that this process owns, in mesh order, and returns one tensor per
+position, each on that position's device.
+
+- Over a mesh of this process alone (``make_mesh``) every position is
+  local, and a collective is copies and sums over the device list: a sum
+  adds the shards in position order, so its rounding is fixed.
+- Over a process mesh (``multihost.global_mesh``) the list holds this
+  process's positions, and the blocks of the others come through
+  ``torch.distributed`` (:func:`gather_positions`): every position's
+  block reaches every process, which then reduces in position order, so
+  every process computes the same bits. Under NCCL the blocks travel
+  card to card. gloo accepts CUDA tensors for ``all_gather`` but is a
+  CPU library: it copies them through host memory inside the backend,
+  and each such collective and its gathered bytes are counted in
+  ``multihost.HOST_STAGED``.
+
+Results for positions that share a device are one tensor, made once:
+four shards on one card read one gathered table, not four copies.
+
+:func:`sharded_top_k` and :func:`merge_candidates` are the serving
+collective: the global top-k of row-sharded candidates, merged in the
 serving kernel's own total order (score descending, then id ascending).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..ops.fused_topk import merge_partial_topk
-from .mesh import MODEL_AXIS, ServingMesh
+from .mesh import MODEL_AXIS, DeviceMesh
+
+Axis = Union[str, Sequence[str]]
+
+
+def _axes(mesh: DeviceMesh, axis: Optional[Axis]) -> Tuple[int, ...]:
+    """Indices of the mesh axes ``axis`` names (every axis for None)."""
+    if axis is None:
+        return tuple(range(len(mesh.axis_names)))
+    names = (axis,) if isinstance(axis, str) else tuple(axis)
+    for a in names:
+        if a not in mesh.axis_names:
+            raise ValueError(f"axis {a!r} is not one of {mesh.axis_names}")
+    return tuple(mesh.axis_names.index(a) for a in names)
+
+
+def axis_index(mesh: DeviceMesh, position: int,
+               axis: Axis = MODEL_AXIS) -> int:
+    """Where ``position`` sits along ``axis`` (several axes: their
+    combined row-major index): ``lax.axis_index`` of the position's
+    body."""
+    c = mesh.coords(position)
+    idx = 0
+    for a in _axes(mesh, axis):
+        idx = idx * mesh.shape[a] + c[a]
+    return idx
+
+
+def axis_group(mesh: DeviceMesh, position: int,
+               axis: Axis = MODEL_AXIS) -> List[int]:
+    """The positions a collective over ``axis`` joins ``position``
+    with, in their order along the axis."""
+    keep = set(range(len(mesh.axis_names))) - set(_axes(mesh, axis))
+    c = mesh.coords(position)
+    group = [p for p in range(mesh.size)
+             if all(mesh.coords(p)[a] == c[a] for a in keep)]
+    return sorted(group, key=lambda p: axis_index(mesh, p, axis))
+
+
+def _check_local(shards: Sequence[torch.Tensor], mesh: DeviceMesh
+                 ) -> Tuple[int, ...]:
+    local = mesh.local_positions()
+    if len(shards) != len(local):
+        raise ValueError(f"{len(shards)} blocks for the {len(local)} "
+                         f"positions this process owns")
+    return local
+
+
+def gather_positions(shards: Sequence[torch.Tensor], mesh: DeviceMesh,
+                     op: str = "all_gather") -> List[torch.Tensor]:
+    """Every position's block, in position order, given this process's
+    (``shards``, one a local position). A one-process mesh hands the
+    list back. Over a process mesh every process contributes its blocks
+    stacked ([k, ...], the same shape on each) to one
+    ``torch.distributed.all_gather``; the others' blocks arrive on this
+    process's first local device (counted in ``multihost.HOST_STAGED``
+    when gloo moves CUDA blocks through the host)."""
+    local = _check_local(shards, mesh)
+    if not mesh.spans_processes:
+        return list(shards)
+    import torch.distributed as dist
+
+    from . import multihost
+
+    multihost.fire_collective(op)
+    dev = shards[0].device
+    mine = torch.stack([s.to(dev) for s in shards])
+    group = multihost.device_group()
+    parts = [torch.empty_like(mine)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
+    if dev.type == "cuda" and multihost.backend() == "gloo":
+        multihost.HOST_STAGED["collectives"] += 1
+        multihost.HOST_STAGED["bytes"] += sum(p.nbytes for p in parts)
+    blocks: Dict[int, torch.Tensor] = {}
+    for rank, part in enumerate(parts):
+        for k, p in enumerate(mesh.local_positions(rank)):
+            blocks[p] = part[k]
+    for k, p in enumerate(local):
+        blocks[p] = shards[k]  # this process's own, on their devices
+    return [blocks[p] for p in range(mesh.size)]
+
+
+def _group_sum(blocks: List[torch.Tensor], group: List[int],
+               dev: torch.device) -> torch.Tensor:
+    """The blocks of ``group`` added in the group's order on ``dev``."""
+    total = blocks[group[0]].to(dev, copy=True)
+    for p in group[1:]:
+        total += blocks[p].to(dev)
+    return total
+
+
+def _collect(mesh: DeviceMesh, axis: Optional[Axis], fn) -> List:
+    """``fn(group, device)`` once per (axis group, device) pair, one
+    result a local position."""
+    out, memo = [], {}
+    for p in mesh.local_positions():
+        group = axis_group(mesh, p, axis)
+        dev = mesh.devices[p]
+        key = (tuple(group), str(dev))
+        if key not in memo:
+            memo[key] = fn(group, dev, p)
+        out.append(memo[key])
+    return out
+
+
+def all_reduce_sum(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
+                   *, mesh: DeviceMesh) -> List[torch.Tensor]:
+    """``lax.psum``: each position's block summed over its ``axis``
+    group, in the group's order, on the position's device."""
+    blocks = gather_positions(shards, mesh, "all_reduce_sum")
+    return _collect(mesh, axis,
+                    lambda group, dev, p: _group_sum(blocks, group, dev))
+
+
+def gramian_allreduce(shards: Sequence[torch.Tensor], *,
+                      mesh: DeviceMesh) -> List[torch.Tensor]:
+    """``x^T x`` of a table row-sharded over every axis of ``mesh``: an
+    explicit per-shard partial (``torch.matmul`` in f32, as the JAX
+    package's ``dot_general`` outside any Pallas kernel), the partials
+    summed in position order, one result a local position (shared by the
+    positions of one device). A shard's zero padding adds nothing."""
+    parts = [torch.matmul(s.float().T, s.float()) for s in shards]
+    return all_reduce_sum(parts, axis=None, mesh=mesh)
+
+
+def all_gather(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
+               *, mesh: DeviceMesh, tiled: bool = True
+               ) -> List[torch.Tensor]:
+    """``lax.all_gather``: each position gets its ``axis`` group's blocks
+    in the group's order, concatenated along the leading dimension
+    (``tiled``) or stacked."""
+    blocks = gather_positions(shards, mesh, "all_gather")
+    join = torch.cat if tiled else torch.stack
+    return _collect(mesh, axis, lambda group, dev, p: join(
+        [blocks[q].to(dev) for q in group]))
+
+
+def reduce_scatter(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
+                   *, mesh: DeviceMesh) -> List[torch.Tensor]:
+    """``lax.psum_scatter(tiled=True)``: the blocks of an ``axis`` group
+    summed in the group's order, and each position keeps the slice of
+    the leading dimension at its index along the axis."""
+    blocks = gather_positions(shards, mesh, "reduce_scatter")
+    sums = _collect(mesh, axis,
+                    lambda group, dev, p: _group_sum(blocks, group, dev))
+    out = []
+    for total, p in zip(sums, mesh.local_positions()):
+        n = len(axis_group(mesh, p, axis))
+        if total.shape[0] % n:
+            raise ValueError(f"{total.shape[0]} rows do not scatter over "
+                             f"{n} positions")
+        k = total.shape[0] // n
+        i = axis_index(mesh, p, axis)
+        out.append(total[i * k:(i + 1) * k])
+    return out
+
+
+def ring_permute(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
+                 shift: int = 1, *, mesh: DeviceMesh) -> List[torch.Tensor]:
+    """``lax.ppermute`` around the ``axis`` ring: the block at index
+    ``i`` goes to index ``i + shift`` (mod the group), so each position
+    receives its ring neighbour's block."""
+    blocks = gather_positions(shards, mesh, "ring_permute")
+    out = []
+    for p in mesh.local_positions():
+        group = axis_group(mesh, p, axis)
+        i = axis_index(mesh, p, axis)
+        src = group[(i - shift) % len(group)]
+        out.append(blocks[src].to(mesh.devices[p], copy=True))
+    return out
+
+
+Spec = Union[None, str, Sequence[str]]
+
+
+def _split(x, mesh: DeviceMesh, spec: Spec) -> List[torch.Tensor]:
+    """This process's blocks of ``x`` under ``spec``: the leading
+    dimension split over the spec's axes (every position along the
+    other axes gets the same block), or the whole of ``x`` for a
+    replicated spec (``None`` or ``()``)."""
+    t = torch.as_tensor(x)
+    out = []
+    for p in mesh.local_positions():
+        dev = mesh.devices[p]
+        if not spec:
+            out.append(t.to(dev))
+            continue
+        n = 1
+        for a in _axes(mesh, spec):
+            n *= mesh.shape[a]
+        if t.shape[0] % n:
+            raise ValueError(f"{t.shape[0]} rows do not split over {n} "
+                             f"positions")
+        k = t.shape[0] // n
+        i = axis_index(mesh, p, spec)
+        out.append(t[i * k:(i + 1) * k].to(dev))
+    return out
+
+
+def _assemble(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
+              spec: Spec) -> torch.Tensor:
+    """The whole value of per-position outputs under ``spec``: the first
+    position's block for a replicated spec, else the blocks of the
+    spec's axes along the first position's row, in order."""
+    if not spec:
+        return blocks[0]
+    every = gather_positions(list(blocks), mesh, "sharded")
+    group = axis_group(mesh, 0, spec)
+    dev = blocks[0].device
+    return torch.cat([every[p].to(dev) for p in group])
+
+
+def sharded(mesh: DeviceMesh, in_specs, out_specs,
+            check_vma: bool = False) -> Callable:
+    """Decorator, the port of ``shard_map``: the function receives, for
+    each argument, the list of this process's blocks under its in-spec
+    (one a local position) and returns a list of per-position blocks (or
+    a tuple of such lists), joined under the out-specs. Collectives
+    inside take those lists::
+
+        @sharded(mesh, in_specs=MODEL_AXIS, out_specs=None)
+        def global_norm(shards):
+            return all_reduce_sum([(s ** 2).sum() for s in shards],
+                                  mesh=mesh)
+    """
+
+    def deco(fn):
+        def run(*args):
+            specs = in_specs if isinstance(in_specs, list) \
+                else [in_specs] * len(args)
+            outs = fn(*[_split(a, mesh, s) for a, s in zip(args, specs)])
+            if isinstance(out_specs, tuple) and isinstance(outs, tuple):
+                return tuple(_assemble(o, mesh, s)
+                             for o, s in zip(outs, out_specs))
+            return _assemble(outs, mesh, out_specs)
+        return run
+
+    return deco
+
+
+def shard_map_compat(fn: Callable, mesh: DeviceMesh, in_specs, out_specs,
+                     check: bool = False) -> Callable:
+    """``sharded(mesh, in_specs, out_specs)(fn)``: the JAX package's
+    version shim, one function here."""
+    return sharded(mesh, in_specs, out_specs)(fn)
 
 
 def merge_candidates(scores: Sequence[torch.Tensor],
@@ -34,7 +299,7 @@ def merge_candidates(scores: Sequence[torch.Tensor],
 
 
 def sharded_top_k(scores: Union[torch.Tensor, Sequence[torch.Tensor]],
-                  k: int, mesh: ServingMesh, axis: str = MODEL_AXIS
+                  k: int, mesh: DeviceMesh, axis: str = MODEL_AXIS
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global top-k over a score vector split evenly over ``mesh``'s
     ``axis``: a local top-k per shard (ids offset by the shard's origin),

@@ -1,11 +1,19 @@
-"""The serving mesh: which devices serve, and how a table's rows split
-over them (the serving part of ``predictionio_tpu/parallel/mesh.py``).
+"""Device meshes: which devices train and serve, and how a table's rows
+split over them (the port of ``predictionio_tpu/parallel/mesh.py``).
 
-A :class:`ServingMesh` is an explicit list of devices laid out as a
-``(batch, model)`` grid. A row-sharded factor table spreads its rows over
-EVERY device of the mesh, in the grid's row-major order
-(:func:`rows_spec`): shard ``s`` holds rows ``[s * n_local, (s + 1) *
-n_local)`` on ``mesh.devices[s]``.
+A :class:`DeviceMesh` is an explicit list of devices laid out as a 2-D
+grid with named axes: ``(data, model)`` for training (:func:`make_mesh`),
+``(batch, model)`` for serving (:func:`make_serving_mesh`). A row-sharded
+factor table spreads its rows over EVERY position of the mesh, in the
+grid's row-major order (:func:`rows_spec`): shard ``s`` holds rows ``[s *
+n_local, (s + 1) * n_local)`` on ``mesh.devices[s]``.
+
+A mesh may span processes (``parallel/multihost.py::global_mesh``):
+``ranks[s]`` is then the process that owns position ``s``, each process
+holding a contiguous run of positions; a mesh with no ``ranks`` lives in
+this process alone. Collectives over a one-process mesh are copies and
+sums over its device list; over a process mesh they go through
+``torch.distributed`` (``parallel/collectives.py``).
 
 :func:`local_devices` is the port's ``jax.devices()``: every visible CUDA
 card, or the CPU when asked for. ``PTPU_TORCH_FORCE_DEVICE_COUNT=N`` (off
@@ -70,14 +78,17 @@ def local_devices(device: DeviceLike = None) -> List[torch.device]:
 
 
 @dataclass(frozen=True)
-class ServingMesh:
+class DeviceMesh:
     """Devices laid out as a 2-D grid with named axes. ``devices`` is
     the grid flattened row-major; a device may repeat (several shards or
-    lanes on one card)."""
+    lanes on one card). ``ranks`` is empty for a mesh of this process
+    alone, else the owning process of each position (a position of
+    another process names that process's device)."""
 
     devices: Tuple[torch.device, ...]
     shape: Tuple[int, int]
     axis_names: Tuple[str, str] = (BATCH_AXIS, MODEL_AXIS)
+    ranks: Tuple[int, ...] = ()
 
     @property
     def size(self) -> int:
@@ -86,31 +97,65 @@ class ServingMesh:
     def axis_size(self, axis: str) -> int:
         return self.shape[self.axis_names.index(axis)]
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether collectives over this mesh go through
+        ``torch.distributed`` (a mesh from ``global_mesh``)."""
+        return bool(self.ranks)
 
-def make_serving_mesh(batch: Optional[int] = None, model: int = 1,
-                      devices: Optional[Sequence[torch.device]] = None
-                      ) -> ServingMesh:
-    """The 2-D ``(batch, model)`` SERVING mesh. Default: every device of
-    :func:`local_devices` on the batch axis. The row-sharded layout
-    (:func:`rows_spec`) spreads rows over both axes, so the split between
-    them matters only to code that addresses one axis."""
+    def local_positions(self, rank: Optional[int] = None) -> Tuple[int, ...]:
+        """The positions process ``rank`` owns (this process by default):
+        every position of a one-process mesh."""
+        if not self.ranks:
+            return tuple(range(self.size))
+        if rank is None:
+            from .multihost import process_index
+
+            rank = process_index()
+        return tuple(p for p, r in enumerate(self.ranks) if r == rank)
+
+    def coords(self, position: int) -> Tuple[int, int]:
+        """The grid coordinates of a flat position."""
+        return divmod(position, self.shape[1])
+
+
+def _build_mesh(shape, names, devices) -> DeviceMesh:
     if devices is None:
         devices = local_devices()
     devices = [torch.device(d) for d in devices]
     n = len(devices)
-    d0, d1 = batch, model
+    d0, d1 = shape
     if d0 is None:
         if n % d1 != 0:
             raise ValueError(f"{n} devices not divisible by "
-                             f"{MODEL_AXIS}={d1}")
+                             f"{names[1]}={d1}")
         d0 = n // d1
     if d0 * d1 > n:
         raise ValueError(f"mesh {d0}x{d1} needs {d0 * d1} devices, "
                          f"have {n}")
-    return ServingMesh(tuple(devices[: d0 * d1]), (d0, d1))
+    return DeviceMesh(tuple(devices[: d0 * d1]), (d0, d1), names)
 
 
-def rows_spec(mesh: Optional[ServingMesh]) -> Tuple[str, ...]:
+def make_mesh(data: Optional[int] = None, model: int = 1,
+              devices: Optional[Sequence[torch.device]] = None
+              ) -> DeviceMesh:
+    """The 2-D ``(data, model)`` TRAINING mesh over ``devices`` (every
+    device of :func:`local_devices` on the data axis by default). A mesh
+    of one device is the single-device path."""
+    return _build_mesh((data, model), (DATA_AXIS, MODEL_AXIS), devices)
+
+
+def make_serving_mesh(batch: Optional[int] = None, model: int = 1,
+                      devices: Optional[Sequence[torch.device]] = None
+                      ) -> DeviceMesh:
+    """The 2-D ``(batch, model)`` SERVING mesh. Default: every device of
+    :func:`local_devices` on the batch axis. The row-sharded layout
+    (:func:`rows_spec`) spreads rows over both axes, so the split between
+    them matters only to code that addresses one axis."""
+    return _build_mesh((batch, model), (BATCH_AXIS, MODEL_AXIS), devices)
+
+
+def rows_spec(mesh: Optional[DeviceMesh]) -> Tuple[str, ...]:
     """The axes a table's rows split over: EVERY axis of ``mesh``, in
     order (the JAX package's ``P(tuple(mesh.axis_names))``); ``()`` (one
     whole table) without a mesh."""

@@ -30,6 +30,7 @@ thread.
 
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
@@ -42,6 +43,9 @@ __all__ = ["ReplicaLifecycle", "STATES"]
 #: the full state vocabulary, in lifecycle order
 STATES = ("spawning", "warming", "ready", "draining", "terminated",
           "dead")
+
+#: numbers the placeholders of spawns in flight
+_SPAWN_SEQ = itertools.count()
 
 
 def _default_probe(base: str, timeout: float) -> Dict[str, Any]:
@@ -209,7 +213,9 @@ class ReplicaLifecycle:
         self._start_thread(self._spawn_one, reason)
 
     def _spawn_one(self, reason: str) -> None:
-        placeholder = _Managed(f"(spawning-{id(object()):x})", "",
+        # a name of its own: two spawns in flight must not share one
+        # entry (the id of a freed temporary repeats)
+        placeholder = _Managed(f"(spawning-{next(_SPAWN_SEQ):x})", "",
                                None, "spawning", self._clock())
         with self._lock:
             self._replicas[placeholder.name] = placeholder

@@ -22,8 +22,9 @@ unless noted; with a secret, every route wants it in the
 
 It mounts ``/metrics`` (``server/http.py::mount_metrics``): request ids,
 latency by route, and the columnar reads by outcome (hit = 304) and the
-bytes they served. Sharded reads (``shard_i``/``shard_n``) answer 501
-(``ROADMAP.md`` queue 1, item 13).
+bytes they served. A sharded read (``shard_i``/``shard_n``) ships that
+row range alone, under an ETag of its own, with ``X-Shard-Offset`` and
+``X-Shard-Total`` for the client's global row bookkeeping.
 """
 
 from __future__ import annotations
@@ -266,16 +267,28 @@ def build_app(storage: Storage, secret: Optional[str] = None) -> HTTPApp:
         fp = tuple(p for p in
                    (req.query.get("float_props") or "rating").split(",")
                    if p)
+        shard = None
         if req.query.get("shard_n"):
-            raise HTTPError(501, "sharded columnar reads are not ported "
-                                 "yet (ROADMAP.md queue 1, item 13)")
+            try:
+                shard = (int(req.query.get("shard_i", "0")),
+                         int(req.query["shard_n"]))
+            except ValueError:
+                raise HTTPError(400, "shard_i/shard_n must be integers")
+            if not 0 <= shard[0] < shard[1]:
+                raise HTTPError(400, f"shard {shard[0]} of {shard[1]}")
         batch = storage.events().find_columnar(
             int(req.path_params["app_id"]), chan(req), EventFilter(),
-            float_props=fp, ordered=False, with_props=with_props)
+            float_props=fp, ordered=False, with_props=with_props,
+            shard=shard)
         version = _batch_version(
             batch, (int(req.path_params["app_id"]), chan(req), with_props,
-                    fp))
+                    fp, shard))
         headers = {"ETag": version}
+        if shard is not None:
+            headers["X-Shard-Offset"] = str(
+                getattr(batch, "shard_offset", 0))
+            headers["X-Shard-Total"] = str(
+                getattr(batch, "shard_total", batch.n))
         if hdr(req, "if-none-match") == version:
             columnar_reqs.labels(outcome="hit").inc()
             return Response(status=304, body=b"", headers=headers)

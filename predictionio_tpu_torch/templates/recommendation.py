@@ -16,6 +16,12 @@ into k folds (:func:`~..models.data.kfold_split`); each fold asks the
 top ``eval_query_num`` items of every user it holds out, and the user's
 held-out ratings are the actuals that :class:`PrecisionAtK`,
 :class:`NDCGAtK` and :class:`PositiveCount` score.
+
+In a process group of several processes (``parallel/multihost.py``) the
+data source reads only this process's storage shard and hands training
+a :class:`~..models.data.ShardedColumnarRatingsSource`; the algorithm
+trains over the global mesh and returns whole tables (the persisted
+model). ``read_eval`` materializes the global COO there.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from ..models.als import (
     replicate_model,
     shard_model,
     train_als,
+    unshard_table,
 )
 from ..models.data import kfold_split, ratings_from_columnar
 
@@ -94,7 +101,10 @@ class TrainingData(SanityCheck):
     item_ids: object  # BiMap
 
     def sanity_check(self):
-        if self.ratings.users.size == 0:
+        r = self.ratings
+        nnz = (int(np.sum(r.row_counts("user")))
+               if hasattr(r, "row_counts") else r.users.size)
+        if nnz == 0:
             raise ValueError("TrainingData has no ratings; check that "
                              "rate/buy events exist for the app")
 
@@ -133,7 +143,10 @@ class RecommendationDataSource(DataSource):
         self.params = params
 
     def _read_ratings(self, ctx: Context):
+        from ..parallel.multihost import process_count
+
         weights = self.params.event_weights
+        multihost = process_count() > 1
         batch = ctx.event_store.find_columnar(
             self.params.app_name or ctx.app_name,
             channel_name=self.params.channel_name,
@@ -141,7 +154,16 @@ class RecommendationDataSource(DataSource):
             event_names=(list(weights) if weights is not None
                          else ["rate", "buy"]),
             # a bulk COO build needs neither time order nor raw JSON
-            ordered=False, with_props=False)
+            ordered=False, with_props=False,
+            # several processes: this process's storage shard only (a
+            # remote backend ships 1/N of the bytes); the sharded source
+            # gathers each factor row's triples over the host group
+            host_sharded=multihost)
+        if multihost:
+            from ..models.data import ShardedColumnarRatingsSource
+
+            src = ShardedColumnarRatingsSource(batch, event_weights=weights)
+            return src, src.user_ids, src.item_ids
         return ratings_from_columnar(batch, event_weights=weights)
 
     def read_training(self, ctx: Context) -> TrainingData:
@@ -158,6 +180,9 @@ class RecommendationDataSource(DataSource):
         if p.eval_k <= 1:
             raise ValueError("eval_k must be >= 2 for read_eval")
         ratings, user_ids, item_ids = self._read_ratings(ctx)
+        if hasattr(ratings, "to_coo"):
+            # folds slice entry arrays: the global COO (a collective)
+            ratings = ratings.to_coo()
         # dense inverse-lookup arrays and a numpy lexsort grouping: a
         # large fold holds millions of test entries, which per-entry
         # dict lookups in a Python loop would take minutes over
@@ -239,13 +264,27 @@ class ALSAlgorithm(Algorithm):
         self.params = params
 
     def train(self, ctx: Context, td: TrainingData) -> ALSModel:
-        """Pack once per ratings object and train on ``ctx.device``. On
+        """Pack once per ratings object and train on ``ctx.device``, or
+        over ``ctx.mesh`` (in a process group of several processes, the
+        global mesh): a mesh's factors are gathered to whole tables. On
         the card, returns only once the queued iterations have run, so
         the engine's stage clock covers them."""
-        packed = pack_ratings_cached(td.ratings, self.params,
-                                     device=ctx.device)
-        U, V = train_als(td.ratings, self.params, device=ctx.device,
-                         packed=packed)
+        from ..parallel.multihost import global_mesh, process_count
+
+        mesh = ctx.mesh
+        if mesh is None and process_count() > 1:
+            mesh = global_mesh(device=ctx.device)
+        if mesh is None:
+            packed = pack_ratings_cached(td.ratings, self.params,
+                                         device=ctx.device)
+            U, V = train_als(td.ratings, self.params, device=ctx.device,
+                             packed=packed)
+        else:
+            packed = pack_ratings_cached(td.ratings, self.params,
+                                         mesh=mesh)
+            U, V = train_als(td.ratings, self.params, mesh=mesh,
+                             packed=packed)
+            U, V = unshard_table(U), unshard_table(V)
         if U.is_cuda:
             torch.cuda.synchronize(U.device)
         return ALSModel(user_factors=U, item_factors=V,

@@ -21,10 +21,11 @@ H100_SMS = 132
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda:0`` by default; raises when CUDA is absent and the CPU was
-    not asked for."""
+    """The current CUDA device by default (``cuda:0``, unless a process
+    group's start-up gave this rank another card); raises when CUDA is
+    absent and the CPU was not asked for."""
     if device is None:
-        device = "cuda:0"
+        device = "cuda"
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

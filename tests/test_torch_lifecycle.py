@@ -353,13 +353,12 @@ def test_a_jax_written_model_blob_deploys(store, tmp_path):
 
 
 def test_a_factory_the_port_lacks_raises_the_jax_cli_error(tmp_path, store):
-    # every shipped template is ported: parallel/multihost is a
-    # JAX-package module the port still lacks (ROADMAP queue 1 item 13)
+    # every shipped template is ported: aot is a JAX-package module the
+    # port decides not to port (ROADMAP.md)
     variant = write_variant(
-        tmp_path,
-        factory="predictionio_tpu.parallel.multihost:parallel_engine")
+        tmp_path, factory="predictionio_tpu.aot:aot_engine")
     with pytest.raises(SystemExit, match="Cannot import engine factory "
-                       "module 'predictionio_tpu_torch.parallel.multihost'"):
+                       "module 'predictionio_tpu_torch.aot'"):
         cli.main(["train", "--engine-json", variant, "--device", "cpu"],
                  storage=store)
     assert cli.port_module_name("predictionio_tpu") == "predictionio_tpu_torch"

@@ -40,7 +40,7 @@ EXCEPTIONS = {
 PACKAGES = ["", ".data", ".data.storage", ".models", ".workflow",
             ".server", ".utils", ".faults", ".controller", ".obs",
             ".concurrency", ".cache", ".rollout", ".streaming", ".slo",
-            ".fleet", ".router"]
+            ".fleet", ".router", ".parallel"]
 
 
 def public_names(mod):

@@ -455,6 +455,31 @@ def test_lifecycle_state_sequences_equal():
         "warming", "ready", "draining", "terminated"]
 
 
+def test_concurrent_spawns_each_keep_their_placeholder():
+    # two scale-outs in flight at once: both placeholders are registered
+    # before either spawn returns, and each spawn replaces its own
+    gate = threading.Barrier(2)
+    ports = iter([9801, 9802])
+    taken = threading.Lock()
+
+    def spawn():
+        gate.wait(5.0)
+        with taken:
+            port = next(ports)
+        return f"127.0.0.1:{port}", lambda: None
+
+    lc = prouter.ReplicaLifecycle(
+        spawn, probe=lambda base, t: {"servingWarm": True},
+        poll_interval_sec=0.005, warm_timeout_sec=5.0)
+    try:
+        lc.scale_out("a")
+        lc.scale_out("b")
+        assert lc.await_ready(2, 5.0)
+        assert lc.count("spawning") == 0
+    finally:
+        lc.close()
+
+
 def test_lifecycle_close_joins_its_threads():
     before = set(threading.enumerate())
     lc = prouter.ReplicaLifecycle(

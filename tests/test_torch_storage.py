@@ -349,8 +349,35 @@ def test_columnar_read_of_the_port_alone(store):
         ev.find_columnar(1, ordered=False, with_props=False))
     # 20 rates with a rating and 10 buys; the 10 bare rates drop out
     assert ratings.users.size == 30
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ev.find_columnar(1, shard=(0, 2))
+    # a sharded read is the JAX package's shard of the same projection
+    # (row ranges of the unfiltered storage order, the filter within),
+    # row for row, and the shards together are the filtered read
+    jfull = jwire.batch_from_npz(pwire.batch_to_npz(
+        ev.find_columnar(1, ordered=False)))
+    rates = ev.find_columnar(
+        1, filter=pbase.EventFilter(event_names=["rate"]), ordered=False)
+    parts = []
+    for i in range(3):
+        got = ev.find_columnar(
+            1, filter=pbase.EventFilter(event_names=["rate"]),
+            ordered=False, shard=(i, 3))
+        want = jbase.EventStore._shard_and_select(
+            jfull, (i, 3), jbase.EventFilter(event_names=["rate"]),
+            ordered=False, with_props=True)
+        assert_same_batch(got, want)
+        assert (got.shard_offset, got.shard_total) == \
+            (want.shard_offset, want.shard_total)
+        parts.append(got)
+    def decoded(b):
+        d = b.dicts
+        return list(zip(d.event_names.decode(b.event),
+                        d.entity_ids.decode(b.entity_id),
+                        d.target_ids.decode(b.target_id),
+                        b.event_time.tolist()))
+
+    assert sum((decoded(b) for b in parts), []) == decoded(rates)
+    with pytest.raises(ValueError, match="shard 2 of 2"):
+        ev.find_columnar(1, shard=(2, 2))
 
 
 def test_an_unknown_backend_type_raises():

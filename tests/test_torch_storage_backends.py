@@ -442,8 +442,31 @@ class TestEventStoreConformance:
         rates = es.find_columnar(APP, filter=EventFilter(
             event_names=["rate"]), ordered=True)
         assert rates.n == 35 and np.all(np.diff(rates.event_time) >= 0)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            es.find_columnar(APP, shard=(0, 4))
+        # shards: the JAX package's cut of the same storage order, row
+        # for row, covering the filtered read together
+        jfull = jcol.ColumnarBatch(
+            **{f: getattr(full, f) for f in (
+                "event", "entity_type", "entity_id", "target_type",
+                "target_id", "event_time", "props_offsets", "props_blob",
+                "float_props")}, dicts=jcol.ColumnarDicts(**{
+                    k: jcol.StringDict(list(getattr(full.dicts, k).values))
+                    for k in full.dicts.counts()}))
+        total = 0
+        for i in range(4):
+            got = es.find_columnar(APP, filter=EventFilter(
+                event_names=["rate"]), ordered=False, shard=(i, 4))
+            want = jbase.EventStore._shard_and_select(
+                jfull, (i, 4), jbase.EventFilter(event_names=["rate"]),
+                ordered=False, with_props=True)
+            for col in ("event", "entity_id", "target_id", "event_time",
+                        "props_offsets", "props_blob"):
+                np.testing.assert_array_equal(getattr(got, col),
+                                              getattr(want, col), col)
+            assert (got.shard_offset, got.shard_total) == \
+                (want.shard_offset, want.shard_total) == \
+                (int(jcol.ColumnarBatch.shard_bounds(53, 4)[i]), 53)
+            total += got.n
+        assert total == rates.n
 
     def test_channel_isolation(self, backend):
         es = backend.events()
