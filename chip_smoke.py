@@ -232,7 +232,24 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             finite and below one iteration's), then the storage-backed
             ``deploy`` with batching and 64 ``/queries.json`` answers
             checked against the plain top-k (``fused_topk`` count
-            positive). The whole phase runs under ``torch.profiler``,
+            positive). The cold ``find_columnar`` of a process with
+            threads must encode in-process (never forked). Then the
+            feedback loop: the stored model deployed again with
+            ``feedback=True`` into an app of its own and ``log_url`` on a
+            collector here; 63 queries on it alone (``fused_topk``
+            counted, positive), then in turns with the deploy without
+            feedback (client p50 / p99 of each, the access log's
+            ``feedbackMs``): each of the 126 answers' ``prId`` names one
+            ``pio_pr``/``predict`` event whose ``prediction`` is the
+            answer without it, every answer held to float64; one 5xx
+            forced through ``serving.dispatch`` ships exactly one message
+            (prefixed, naming the instance) and ``close()`` leaves no
+            thread; the ratings app's event count unchanged. Last, an
+            instance of the same variant whose stored model is None: its
+            deploy retrains on the card before it binds (``fused_gram``
+            and ``chol_solve`` counted from zero to the bind, positive)
+            and 16 answers are held to the float64 top-k of the retrained
+            factors. The whole phase runs under ``torch.profiler``,
             which gives the device's busy and idle share.
 8a. storage — the pod storage layout over phase 8's events, in
             directories of its own. ``cli export`` of the ``pio`` app's
@@ -392,7 +409,12 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             1e-4 for the z-scored similar-product sums). Every
             serving-time point read (``EventStoreFacade.find_by_entity``,
             wrapped here) is timed, and none may raise. Prints the HTTP
-            and point-read p50/p99.
+            and point-read p50/p99. Before the deploys, both variants
+            again through ``Engine.train`` over a mesh of 4 positions on
+            the one card (the context's mesh): every ALS table within
+            1e-5 (1 + |x|) of the one-card training ``cli train`` stored,
+            ``fused_gram`` and ``chol_solve`` counted and positive, each
+            ALS iteration's time beside the one card's.
 
 11. sequential-pio — the shipped sequential variant through the CLI in
             phase 8's ``PIO_HOME``, in an app of its own (only the app name
@@ -631,8 +653,9 @@ serving ladder launches ``fused_topk``); each phase waits for that
 before it counts or times its own work. Then a ``{"kernels": [...]}``
 line (time, bound, plain and library times, launches on the main path,
 in the batch-predict job for ``fused_topk``, in the serial eval run, on
-the stream path, in the implicit iteration, in the templates phase, in
-phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
+the stream path, in the implicit iteration, in the templates phase and
+its trainings over a mesh, in phase 8's feedback deploy and its retrain
+on deploy, in phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
 in phase 4b's counted bursts, in phase 4c's counted part and in phase
 8a's REMOTE training and deploy, phase 15's resumed and split
 trainings, phase 16's deploy, phase 17's fleet process and autoscaled
@@ -653,6 +676,7 @@ import importlib.util
 import inspect
 import io
 import json
+import logging
 import os
 import pickle
 import re
@@ -668,6 +692,7 @@ import urllib.error
 import urllib.request
 from datetime import datetime, timezone
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -3270,6 +3295,277 @@ def id_numbers(bimap, n: int) -> np.ndarray:
     return out
 
 
+#: the app phase 8's feedback deploy records its answers in: an app of
+#: its own, since later phases read the ratings app
+PIO_FEEDBACK_APP = "FeedbackApp"
+#: what the feedback deploy's remote log puts before every message
+PIO_LOG_PREFIX = "chip-smoke: "
+#: the 5xx phase 8 forces on the feedback deploy (one failed dispatch)
+PIO_LOG_FAULT = "serving.dispatch=error,times=1"
+#: the engine id of phase 8's instance whose stored model is None, and the
+#: answers its deploy (a retrain) gives
+PIO_RETRAIN_ENGINE_ID = "retrain"
+PIO_RETRAIN_QUERIES = 16
+
+
+class LogCollector:
+    """A sink for ``ServerConfig.log_url`` on a free port: the body of
+    every POST, in order."""
+
+    def __init__(self) -> None:
+        from predictionio_tpu_torch.server.http import (
+            AppServer,
+            HTTPApp,
+            json_response,
+        )
+
+        self.received: list = []
+        app = HTTPApp("log-collector")
+
+        @app.route("POST", "/log")
+        def sink(req):
+            self.received.append(req.body.decode("utf-8"))
+            return json_response({"ok": True})
+
+        self.server = AppServer(app, "127.0.0.1", 0).start_background()
+        self.url = f"http://127.0.0.1:{self.server.port}/log"
+
+    def close(self) -> None:
+        self.server.close()
+
+
+class AccessLines(logging.Handler):
+    """The engine servers' JSON access-log lines while attached (the
+    logger's level raised to INFO, kept from the root's handlers)."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.lines: list = []
+        self.log = logging.getLogger("predictionio_tpu_torch.access")
+
+    def __enter__(self) -> "AccessLines":
+        self._saved = (self.log.level, self.log.propagate)
+        self.log.setLevel(logging.INFO)
+        self.log.propagate = False
+        self.log.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.log.removeHandler(self)
+        self.log.setLevel(self._saved[0])
+        self.log.propagate = self._saved[1]
+
+    def emit(self, record) -> None:
+        self.lines.append(json.loads(record.getMessage()))
+
+
+def bound_tables64(srv) -> tuple:
+    """(ud, us, vd, vs, U64, V64) of a deploy's bound ALS model."""
+    from predictionio_tpu_torch.models.als import _table_leaves
+
+    m = srv.query_server.models[0]
+    ud, us = _table_leaves(m.user_factors)
+    vd, vs = _table_leaves(m.item_factors)
+    U64 = ud.double() * (us.double() if us is not None else 1.0)
+    V64 = vd.double() * (vs.double() if vs is not None else 1.0)
+    return ud, us, vd, vs, U64, V64
+
+
+def pio_feedback(storage, engine_json: Path, inst, queries: list,
+                 off_port: int, app_id: int, n_events: int, dev) -> dict:
+    """Phase 8's stored model deployed with the feedback loop on, into an
+    app of its own, with the remote log pointed at a collector here. (a)
+    Counted: the queries on it alone, ``fused_topk`` launched; each
+    answer's ``prId`` names one ``pio_pr``/``predict`` event whose
+    ``prediction`` is the answer without it, every answer held to the
+    float64 top-k. (b) The same queries in turns with the deploy without
+    feedback (``off_port``): the client p50 / p99 of each and the
+    per-query ``feedbackMs`` of the access log. (c) One 5xx through the
+    ``serving.dispatch`` fault point: the collector receives exactly one
+    message, prefixed, naming the instance; ``close()`` leaves no
+    thread. The ratings app's event count stays ``n_events``; the
+    feedback app is deleted after."""
+    from predictionio_tpu_torch import cli, faults
+    from predictionio_tpu_torch.controller.context import Context
+    from predictionio_tpu_torch.ops import fused_topk as ft
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy,
+    )
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["app", "new", PIO_FEEDBACK_APP], storage=storage)
+              == 0, "app new of the feedback app failed")
+    fb_app = storage.apps().get_by_name(PIO_FEEDBACK_APP)
+    variant = json.loads(Path(engine_json).read_text())
+    engine, ep = cli.engine_from_variant(variant)
+    before = {t.ident for t in threading.enumerate()}
+    collector = LogCollector()
+    t = time.perf_counter()
+    srv = deploy(Context(device=dev, _storage=storage), engine, ep,
+                 engine_id=inst.engine_id,
+                 engine_version=inst.engine_version,
+                 engine_variant=inst.engine_variant,
+                 config=ServerConfig(batching=True, feedback=True,
+                                     feedback_app_name=PIO_FEEDBACK_APP,
+                                     log_url=collector.url,
+                                     log_prefix=PIO_LOG_PREFIX),
+                 host="127.0.0.1", port=0).start_background()
+    closed = False
+    try:
+        warmed(srv)
+        bind_s = time.perf_counter() - t
+        tables = bound_tables64(srv)
+        n_items = srv.query_server.models[0].n_items
+        model = srv.query_server.models[0]
+        # (a) counted, on its own
+        ft.LAUNCHES = 0
+        answered = [(q, _post(srv.port, q)[0]) for q in queries]
+        launches = ft.LAUNCHES
+        check(launches > 0, "the feedback deploy launched fused_topk no "
+              "time")
+        # (b) in turns with the deploy without feedback
+        lat = {"on": [], "off": []}
+        with AccessLines() as access:
+            for q in queries:
+                lat["off"].append(_post(off_port, q)[1])
+                a, s_on = _post(srv.port, q)
+                lat["on"].append(s_on)
+                answered.append((q, a))
+        fb_ms = np.array([ln["feedbackMs"] for ln in access.lines
+                          if "feedbackMs" in ln])
+        check(len(fb_ms) == len(queries),
+              f"{len(fb_ms)} access-log lines carry feedbackMs for "
+              f"{len(queries)} feedback answers")
+        events = {e.entity_id: e for e in storage.events().find(fb_app.id)}
+        check(len(events) == len(answered),
+              f"{len(events)} feedback events for {len(answered)} answers")
+        for q, a in answered:
+            pr_id = a.get("prId", "")
+            ev = events.get(pr_id)
+            check(ev is not None and len(pr_id) == 64,
+                  f"{q}: no feedback event for prId {pr_id!r}")
+            props = ev.properties.to_dict()
+            check((ev.event, ev.entity_type) == ("predict", "pio_pr")
+                  and props["engineInstanceId"] == inst.id
+                  and props["query"] == q
+                  and props["prediction"] == {k: v for k, v in a.items()
+                                              if k != "prId"},
+                  f"{q}: feedback event {ev.to_json()} does not record "
+                  f"the answer")
+            check_answer(q, a, *tables, n_items, dev, model.user_ids,
+                         model.item_ids)
+        # (c) one 5xx, shipped once
+        faults.inject_spec(PIO_LOG_FAULT)
+        try:
+            _post(srv.port, queries[0])
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        finally:
+            faults.clear()
+        check(code == 500, f"the injected dispatch fault answered {code}")
+        srv.close()  # joins the remote log's shipping thread
+        closed = True
+        msgs = collector.received
+        check(len(msgs) == 1 and msgs[0].startswith(PIO_LOG_PREFIX),
+              f"the collector received {msgs}")
+        body = json.loads(msgs[0][len(PIO_LOG_PREFIX):])
+        check(body["engineInstance"] == inst.id and body["message"],
+              f"the remote log message {body} does not name {inst.id}")
+    finally:
+        if not closed:
+            srv.close()
+        collector.close()
+    left = storage_threads_left(before)
+    check(not left, f"the feedback deploy left threads {left}")
+    n_after = storage.events().find_columnar(app_id, ordered=False,
+                                             with_props=False).n
+    check(n_after == n_events, f"the ratings app holds {n_after} events "
+          f"after the feedback deploy, {n_events} before")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(cli.main(["app", "delete", PIO_FEEDBACK_APP, "--force"],
+                       storage=storage) == 0, "app delete failed")
+    on, off = np.array(lat["on"]) * 1e3, np.array(lat["off"]) * 1e3
+    print(f"phase pio feedback: deploy with --feedback to warm "
+          f"{bind_s:.3f}s | {len(answered)} answers, each one "
+          f"pio_pr/predict event with its prId and prediction, held to "
+          f"float64 | fused_topk launches={launches} for {len(queries)} "
+          f"queries | in turns, {len(queries)} each: feedback on p50_ms="
+          f"{np.percentile(on, 50):.3f} p99_ms={np.percentile(on, 99):.3f}"
+          f" off p50_ms={np.percentile(off, 50):.3f} p99_ms="
+          f"{np.percentile(off, 99):.3f} | feedbackMs p50="
+          f"{np.percentile(fb_ms, 50):.3f} p99={np.percentile(fb_ms, 99):.3f}"
+          f" | remote log: 1 5xx, 1 message to the collector | ratings "
+          f"app events {n_after} unchanged | no thread left", flush=True)
+    return {"fused_topk": launches}
+
+
+def pio_retrain(storage, inst, model, queries: list, dev) -> dict:
+    """An instance of phase 8's variant whose stored model is None (an
+    algorithm that persists nothing): its deploy retrains on the card
+    before it binds. ``fused_gram`` and ``chol_solve`` counted from zero
+    to the bind (before the first answer), both positive; every answer
+    held to the float64 top-k of the retrained factors. The instance is
+    removed after, so later phases see phase 8's alone."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.controller.context import Context
+    from predictionio_tpu_torch.data.storage.base import Model
+    from predictionio_tpu_torch.server.engineserver import (
+        ServerConfig,
+        deploy,
+    )
+    from predictionio_tpu_torch.workflow.persistence import dumps_models
+
+    iid = storage.engine_instances().insert(inst.copy(
+        id="", engine_id=PIO_RETRAIN_ENGINE_ID))
+    storage.models().insert(Model(id=iid, models=dumps_models([None])))
+    try:
+        variant = json.loads(Path(inst.engine_variant).read_text())
+        engine, ep = cli.engine_from_variant(variant)
+        zero_launch_counts()
+        t = time.perf_counter()
+        srv = deploy(Context(device=dev, _storage=storage), engine, ep,
+                     engine_id=PIO_RETRAIN_ENGINE_ID,
+                     engine_version=inst.engine_version,
+                     engine_variant=inst.engine_variant,
+                     config=ServerConfig(batching=True), host="127.0.0.1",
+                     port=0)
+        bind_s = time.perf_counter() - t
+        launches = launch_counts()
+        try:
+            check(launches["fused_gram"] > 0 and launches["chol_solve"] > 0,
+                  f"the deploy of a None model launched {launches} before "
+                  f"its first answer")
+            srv.start_background()
+            answers = [_post(srv.port, q) for q in queries]
+            first_s = time.perf_counter() - t
+            bound = srv.query_server.models[0]
+            tables = bound_tables64(srv)
+            for q, (a, _) in zip(queries, answers):
+                check_answer(q, a, *tables, bound.n_items, dev,
+                             bound.user_ids, bound.item_ids)
+            nu, ni = bound.n_users, bound.n_items
+            dU = float((bound.user_factors[:nu].float().cpu()
+                        - model.user_factors[:nu].float()).abs().max())
+            dV = float((bound.item_factors[:ni].float().cpu()
+                        - model.item_factors[:ni].float()).abs().max())
+        finally:
+            srv.close()
+    finally:
+        storage.engine_instances().delete(iid)
+        storage.models().delete(iid)
+    print(f"phase pio retrain: the deploy of instance {iid} (stored model "
+          f"None) retrained before binding: deploy call {bind_s:.3f}s, "
+          f"first answer at {first_s:.3f}s | launches before the first "
+          f"answer fused_gram={launches['fused_gram']} chol_solve="
+          f"{launches['chol_solve']} | {len(answers)} answers held to the "
+          f"float64 top-k of the retrained factors | max |d| against cli "
+          f"train's factors U={dU:.3e} V={dV:.3e}", flush=True)
+    return {"fused_gram": launches["fused_gram"],
+            "chol_solve": launches["chol_solve"]}
+
+
 def phase_pio(data, dev, home: str) -> dict:
     from predictionio_tpu_torch import cli
     from predictionio_tpu_torch.controller.context import Context
@@ -3354,9 +3650,15 @@ def phase_pio(data, dev, home: str) -> dict:
             srv.close()
 
         t = time.perf_counter()
+        threads = threading.active_count()
         batch = storage.events().find_columnar(app.id, ordered=False,
                                                with_props=False)
         find_cold_s = time.perf_counter() - t
+        encode = dict(storage.events().last_encode)
+        # a process with threads never forks its encode: a child forked
+        # from it could inherit a held lock
+        check(threads == 1 or encode.get("path") == "in-process",
+              f"a process with {threads} threads encoded {encode}")
         ctx = Context(device=dev, _storage=storage)
         td = RecommendationDataSource(DataSourceParams(
             app_name=PIO_APP)).read_training(ctx)
@@ -3442,8 +3744,16 @@ def phase_pio(data, dev, home: str) -> dict:
             with _LOCAL.open(f"http://127.0.0.1:{srv.port}/status.json",
                              timeout=30) as resp:
                 status = json.loads(resp.read())
+            t = time.perf_counter()
+            feedback_l = pio_feedback(storage, engine_json, inst,
+                                      queries[1:], srv.port, app.id, n, dev)
+            feedback_s = time.perf_counter() - t
         finally:
             srv.close()
+        t = time.perf_counter()
+        retrain_l = pio_retrain(storage, inst, model,
+                                queries[:PIO_RETRAIN_QUERIES], dev)
+        retrain_s = time.perf_counter() - t
         check(dep_launches > 0, "the deploy launched fused_topk no time")
         check(status["engineInstanceId"] == inst.id,
               "deploy bound another instance")
@@ -3455,7 +3765,8 @@ def phase_pio(data, dev, home: str) -> dict:
               f"blocks in {ingest_s:.3f}s = {n / ingest_s:.1f} events/s "
               f"(a block's POST first {block_s[0]:.3f}s last "
               f"{block_s[-1]:.3f}s max {max(block_s):.3f}s) | "
-              f"find_columnar cold {find_cold_s:.3f}s | cli train "
+              f"find_columnar cold {find_cold_s:.3f}s (encode "
+              f"{encode.get('path')}, {threads} threads) | cli train "
               f"{train_s:.3f}s stages {stages} | Engine.train window "
               f"{sum(stages[k] for k in ('read_s', 'prepare_s', 'algo_train_s')) / TRAIN_ITERS * 1e3:.2f}"
               f" ms an iteration | launches fused_gram="
@@ -3466,9 +3777,12 @@ def phase_pio(data, dev, home: str) -> dict:
               f"{status['servingQuant']} | 63 queries p50_ms="
               f"{np.percentile(lat, 50):.3f} p99_ms="
               f"{np.percentile(lat, 99):.3f} fused_topk launches="
-              f"{dep_launches} | instance {inst.id} {inst.status}",
-              flush=True)
+              f"{dep_launches} | instance {inst.id} {inst.status} | "
+              f"feedback checks {feedback_s:.2f}s, retrain on deploy "
+              f"{retrain_s:.2f}s", flush=True)
         return {"gram_table_launches": launches["gram_table"],
+                "feedback": feedback_l, "retrain": retrain_l,
+                "encode": encode,
                 "engine_json": str(engine_json), "log_end_ms": t0_ms + n,
                 "find_cold_s": find_cold_s}
     finally:
@@ -3977,8 +4291,9 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
             f"float64, "
             f"fused_topk launches={topk} | forked SQLite encode: cli train "
             f"{fork_s:.3f}s read_s {fork_stages['read_s']:.3f}s "
-            f"{json.dumps(fork_c['encode'])} (phase pio's in-process cold "
-            f"find_columnar {pio['find_cold_s']:.3f}s) "
+            f"{json.dumps(fork_c['encode'])} (phase pio's cold "
+            f"find_columnar {pio['find_cold_s']:.3f}s, "
+            f"{pio['encode'].get('path')}) "
             f"fused_gram={fork_c['fused_gram']} chol_solve="
             f"{fork_c['chol_solve']} | LOCALFS 1 user in "
             f"{STORAGE_LOCALFS_STRIDE} ({lf['n']} events, cut "
@@ -5212,7 +5527,69 @@ def cooc_plain(storage, app_id: int, model, user_ids) -> tuple:
     return idx, np.where(counts > 0, counts, 0).astype(np.float32)
 
 
-def phase_templates(data, dev, home: str, seed: int) -> dict:
+def templates_over_mesh(trained: dict, storage, als_walls: dict,
+                        current: list, dev, card: dict) -> dict:
+    """Both shipped variants again through ``Engine.train``, over a mesh
+    of MESH_TRAIN_SHARDS positions on the one card (the context's mesh),
+    on the training data ``cli train`` read (kept by phase templates'
+    data sources): every ALS table within MESH_IMPLICIT_RTOL (1 +
+    |x|) of the one-card training ``cli train`` stored, ``fused_gram``
+    and ``chol_solve`` counted and positive, each ALS training's
+    iteration time (``als_walls``, from the timed ``train_als``) beside
+    the one card's."""
+    from predictionio_tpu_torch import cli
+    from predictionio_tpu_torch.controller.context import Context
+
+    mesh = forced_mesh(MESH_TRAIN_SHARDS, dev)
+    total = {"fused_gram": 0, "chol_solve": 0}
+    for name in ("ecommerce", "similarproduct"):
+        _, variant, one_card = trained[name]
+        engine, ep = cli.engine_from_variant(variant)
+        current[0] = name
+        zero_launch_counts()
+        models = engine.train(Context(device=dev, mesh=mesh,
+                                      _storage=storage), ep).models
+        torch.cuda.synchronize()
+        launched = launch_counts()
+        check(launched["fused_gram"] > 0 and launched["chol_solve"] > 0,
+              f"{name} over a mesh launched {launched}")
+        worst, tables = 0.0, 0
+        for got, want in zip(models, one_card):
+            for attr in ("user_factors", "item_factors"):
+                if not hasattr(want, attr):
+                    continue  # co-occurrence: no factor table
+                g = np.asarray(getattr(got, attr))
+                w = np.asarray(getattr(want, attr))
+                check(g.shape == w.shape, f"{name} {attr}: {g.shape} over "
+                      f"a mesh, {w.shape} on one card")
+                rel = np.abs(g - w) / (1 + np.abs(w))
+                check(bool((rel <= MESH_IMPLICIT_RTOL).all()),
+                      f"{name} {attr} over a mesh: {rel.max():.3e} (1 + "
+                      f"|x|) off the one card's")
+                worst = max(worst, float(rel.max()))
+                tables += 1
+        iters = [a["params"]["num_iterations"] for a in variant["algorithms"]
+                 if "num_iterations" in a["params"]]
+        one_ms = [w / n * 1e3 for w, n in zip(als_walls[(name, False)],
+                                               iters)]
+        mesh_ms = [w / n * 1e3 for w, n in zip(als_walls[(name, True)],
+                                                iters)]
+        print(f"phase templates over a mesh: {name} through Engine.train "
+              f"over {MESH_TRAIN_SHARDS} positions on the one card | "
+              f"{tables} factor tables within {worst:.3e} (1 + |x|) of the "
+              f"one card's (limit {MESH_IMPLICIT_RTOL:g}) | launches "
+              f"fused_gram={launched['fused_gram']} chol_solve="
+              f"{launched['chol_solve']} | ALS iteration ms, each ALS "
+              f"algorithm: mesh {[round(x, 3) for x in mesh_ms]} one card "
+              f"{[round(x, 3) for x in one_ms]} | {card_tag(card)}",
+              flush=True)
+        for k in total:
+            total[k] += launched[k]
+    return total
+
+
+def phase_templates(data, dev, home: str, seed: int,
+                    card: Optional[dict] = None) -> dict:
     """The shipped e-commerce and similar-product variants end to end in
     an app of their own: ``cli import``, ``cli train`` (launches counted),
     ``cli deploy`` and 32 HTTP queries each, every answer held against
@@ -5228,6 +5605,8 @@ def phase_templates(data, dev, home: str, seed: int) -> dict:
     from predictionio_tpu_torch.ops import fused_topk as ft
     from predictionio_tpu_torch.ops import gram
     from predictionio_tpu_torch.ops import solve as sv
+    from predictionio_tpu_torch.templates import _common
+    from predictionio_tpu_torch.templates import ecommerce as pec
     from predictionio_tpu_torch.templates import similarproduct as psp
     from predictionio_tpu_torch.workflow.persistence import loads_models
 
@@ -5263,8 +5642,38 @@ def phase_templates(data, dev, home: str, seed: int) -> dict:
                          sv.LAUNCHES - before[1]))
         return model
 
+    # each template ALS training's wall, by (template, over a mesh)
+    als_walls: dict = {}
+    current = [""]
+    plain_train_als = _common.train_als
+
+    def timed_train_als(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain_train_als(*args, **kwargs)
+        torch.cuda.synchronize()
+        als_walls.setdefault((current[0], kwargs.get("mesh") is not None),
+                             []).append(time.perf_counter() - t)
+        return out
+
+    # the trainings over a mesh read what cli train read (the store is
+    # untouched in between): each data source's first read is kept
+    sources = (pec.ECommerceDataSource, psp.SimilarProductDataSource)
+    plain_reads = {cls: cls.read_training for cls in sources}
+    kept_reads: dict = {}
+
+    def kept_read(cls):
+        def read_training(self, ctx):
+            if cls not in kept_reads:
+                kept_reads[cls] = plain_reads[cls](self, ctx)
+            return kept_reads[cls]
+        return read_training
+
     pstore.EventStoreFacade.find_by_entity = timed_find
     psp.SPALSAlgorithm.train = counted_sp_train
+    _common.train_als = timed_train_als
+    for cls in sources:
+        cls.read_training = kept_read(cls)
     try:
         check(cli.main(["app", "new", TEMPLATES_APP], storage=storage) == 0,
               "app new failed")
@@ -5290,6 +5699,7 @@ def phase_templates(data, dev, home: str, seed: int) -> dict:
             path.write_text(json.dumps(variant))
             before = (fg.LAUNCHES, sv.LAUNCHES)
             out = io.StringIO()
+            current[0] = name
             t = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 rc = cli.main(["train", "--engine-json", str(path)],
@@ -5319,6 +5729,11 @@ def phase_templates(data, dev, home: str, seed: int) -> dict:
             check(g > 0 and c > 0, f"{algo} trained without the kernels")
         train_launches = {"fused_gram": fg.LAUNCHES,
                           "chol_solve": sv.LAUNCHES}
+        t = time.perf_counter()
+        mesh_launches = templates_over_mesh(trained, storage, als_walls,
+                                            current, dev, card or {})
+        mesh_s = time.perf_counter() - t
+        fg.LAUNCHES = sv.LAUNCHES = ft.LAUNCHES = gram.LAUNCHES = 0
 
         (ecm,) = trained["ecommerce"][2]
         sp_models = trained["similarproduct"][2]
@@ -5447,13 +5862,18 @@ def phase_templates(data, dev, home: str, seed: int) -> dict:
               f"launches fused_gram={train_launches['fused_gram']} "
               f"chol_solve={train_launches['chol_solve']} fused_topk="
               f"{ft.LAUNCHES} (these templates score on the host) "
-              f"gram_table={gram.LAUNCHES}", flush=True)
+              f"gram_table={gram.LAUNCHES} | over a mesh {mesh_s:.2f}s",
+              flush=True)
         return {"fused_gram": train_launches["fused_gram"],
                 "chol_solve": train_launches["chol_solve"],
-                "fused_topk": ft.LAUNCHES, "gram_table": gram.LAUNCHES}
+                "fused_topk": ft.LAUNCHES, "gram_table": gram.LAUNCHES,
+                "mesh": mesh_launches}
     finally:
         pstore.EventStoreFacade.find_by_entity = plain_find
         psp.SPALSAlgorithm.train = plain_sp_train
+        _common.train_als = plain_train_als
+        for cls, read in plain_reads.items():
+            cls.read_training = read
         storage.close()
 
 
@@ -8651,6 +9071,23 @@ def all_gather_ms(fn) -> float:
     return us / 1e3
 
 
+def forced_mesh(n: int, dev):
+    """A training mesh of ``n`` positions, each the one card
+    (``PTPU_TORCH_FORCE_DEVICE_COUNT`` set only while it is laid out)."""
+    from predictionio_tpu_torch.parallel import local_devices, make_mesh
+    from predictionio_tpu_torch.parallel.mesh import FORCE_DEVICE_COUNT_ENV
+
+    saved = os.environ.get(FORCE_DEVICE_COUNT_ENV)
+    os.environ[FORCE_DEVICE_COUNT_ENV] = str(n)
+    try:
+        return make_mesh(data=n, devices=local_devices(dev))
+    finally:
+        if saved is None:
+            del os.environ[FORCE_DEVICE_COUNT_ENV]
+        else:
+            os.environ[FORCE_DEVICE_COUNT_ENV] = saved
+
+
 def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
     """Part (a): ``train_als`` over 4 shards on the one card, explicit
     (bitwise against phase train's factors) and implicit (against the
@@ -8659,23 +9096,13 @@ def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
     of it land); then the two- and one-shard in-process runs parts (b)
     and (c) are held to."""
     from predictionio_tpu_torch.models import als
-    from predictionio_tpu_torch.parallel import local_devices, make_mesh
-    from predictionio_tpu_torch.parallel.mesh import FORCE_DEVICE_COUNT_ENV
 
     users, items, stars, n_users, n_items = data
     ratings = als.RatingsCOO(users, items, stars, n_users, n_items)
     out = {}
 
     def mesh_of(n):
-        saved = os.environ.get(FORCE_DEVICE_COUNT_ENV)
-        os.environ[FORCE_DEVICE_COUNT_ENV] = str(n)
-        try:
-            return make_mesh(data=n, devices=local_devices(dev))
-        finally:
-            if saved is None:
-                del os.environ[FORCE_DEVICE_COUNT_ENV]
-            else:
-                os.environ[FORCE_DEVICE_COUNT_ENV] = saved
+        return forced_mesh(n, dev)
 
     mesh = mesh_of(MESH_TRAIN_SHARDS)
     params = als.ALSParams(rank=RANK, num_iterations=TRAIN_ITERS)
@@ -9592,7 +10019,7 @@ def main(argv=None) -> int:
         with phase("stream"):
             stream_l = phase_stream(data, dev, home, pio, args.seed)
         with phase("templates"):
-            templates_l = phase_templates(data, dev, home, args.seed)
+            templates_l = phase_templates(data, dev, home, args.seed, card)
         with phase("sequential-pio"):
             seq_pio_l = phase_sequential_pio(data, times, dev, home, card)
         with phase("classification"):
@@ -9651,6 +10078,7 @@ def main(argv=None) -> int:
              telemetry_launches=telemetry_l["fused_topk"],
              cache_launches=cache_l["fused_topk"],
              storage_launches=store_l["fused_topk"],
+             pio_feedback_launches=pio["feedback"]["fused_topk"],
              resume_launches=resume_l["fused_topk"],
              jaxblob_launches=jaxblob_l["fused_topk"],
              fleet_launches=fleet_l["fused_topk"],
@@ -9664,6 +10092,8 @@ def main(argv=None) -> int:
              stream_launches=stream_l["fused_gram"],
              implicit_launches=implicit_l["fused_gram"],
              templates_launches=templates_l["fused_gram"],
+             templates_mesh_launches=templates_l["mesh"]["fused_gram"],
+             pio_retrain_launches=pio["retrain"]["fused_gram"],
              sequential_launches=seq_l["fused_gram"],
              sequential_pio_launches=seq_pio_l["fused_gram"],
              classification_launches=cls_l["fused_gram"],
@@ -9685,6 +10115,8 @@ def main(argv=None) -> int:
              stream_launches=stream_l["chol_solve"],
              implicit_launches=implicit_l["chol_solve"],
              templates_launches=templates_l["chol_solve"],
+             templates_mesh_launches=templates_l["mesh"]["chol_solve"],
+             pio_retrain_launches=pio["retrain"]["chol_solve"],
              sequential_launches=seq_l["chol_solve"],
              sequential_pio_launches=seq_pio_l["chol_solve"],
              classification_launches=cls_l["chol_solve"],

@@ -117,6 +117,11 @@ class InvalidationBus:
             self._delivered += delivered
         return delivered
 
+    def subscriber_count(self) -> int:
+        """Subscribers still alive (the dead are dropped lazily)."""
+        with self._lock:
+            return sum(1 for r in self._subs if r() is not None)
+
     def stats(self) -> dict:
         with self._lock:
             return {"subscribers": sum(1 for r in self._subs

@@ -553,8 +553,11 @@ def build_deploy(args, storage: Optional[Storage] = None,
     port = args.port if port is None else port
     variant = load_variant(args.engine_json)
     engine, engine_params = engine_from_variant(variant)
-    config = ServerConfig(batching=args.batching,
+    config = ServerConfig(feedback=args.feedback,
+                          feedback_app_name=args.feedback_app_name or None,
+                          batching=args.batching,
                           max_batch=args.max_batch,
+                          batch_window_ms=args.batch_window_ms,
                           batch_pipeline=args.batch_pipeline,
                           serving_pipeline=args.pipeline,
                           queue_deadline_ms=args.queue_deadline_ms,
@@ -562,6 +565,7 @@ def build_deploy(args, storage: Optional[Storage] = None,
                           readback_workers=args.readback_workers,
                           pipeline_depth=args.pipeline_depth,
                           serving_quant=args.serving_quant,
+                          serving_topk=args.serving_topk,
                           device=args.device,
                           streaming=args.stream,
                           stream_app_name=args.stream_app or None,
@@ -1993,12 +1997,26 @@ def _parser() -> argparse.ArgumentParser:
                             "missing there is compiled at bind")
         s.add_argument("--serving-quant", default="off",
                        choices=("off", "bf16", "int8"))
+        s.add_argument("--serving-topk", default="auto",
+                       choices=("auto", "einsum", "fused"),
+                       help="accepted for the JAX package's command "
+                            "line; the card serves k <= 128 through "
+                            "fused_topk")
         s.add_argument("--batching", action="store_true",
                        help="coalesce concurrent queries into batched "
                             "launches")
         s.add_argument("--max-batch", type=int, default=128,
                        help="max queries per coalesced launch (the warm "
                             "ladder runs every power of two up to it)")
+        s.add_argument("--batch-window-ms", type=float, default=2.0,
+                       help="wait for a lone query before serving it "
+                            "solo")
+        s.add_argument("--feedback", action="store_true",
+                       help="record every answer as a predict event on "
+                            "entity type pio_pr in --feedback-app-name "
+                            "and put its prId into the answer")
+        s.add_argument("--feedback-app-name", default="",
+                       help="the app receiving feedback events")
         s.add_argument("--batch-pipeline", type=int, default=4,
                        help="serial pipeline: drainer threads; staged: "
                             "dispatch threads")
@@ -2025,7 +2043,8 @@ def _parser() -> argparse.ArgumentParser:
                             "log and folds new events into the served "
                             "model")
         s.add_argument("--stream-app", default="",
-                       help="app whose event log the trainer tails")
+                       help="app whose event log the trainer tails "
+                            "(defaults to --feedback-app-name)")
         s.add_argument("--stream-interval-ms", type=float, default=500.0,
                        help="poll interval; in-process ingest wakes the "
                             "trainer at once")

@@ -13,9 +13,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Dict, Optional
 
+import torch
+
 from ..data.storage.registry import Storage, get_storage
 from ..data.store import EventStoreFacade
-from ..utils.device import DeviceLike
+from ..utils.device import DeviceLike, resolve_device
 
 
 @dataclass
@@ -47,6 +49,23 @@ class Context:
     @property
     def event_store(self) -> EventStoreFacade:
         return EventStoreFacade(self._storage)
+
+    def rng(self) -> torch.Generator:
+        """An explicit generator on ``device`` (the card unless it names
+        the CPU), seeded by ``seed``: the same seed gives the same draws
+        (never those of the JAX package's ``jax.random.key``)."""
+        gen = torch.Generator(device=resolve_device(self.device))
+        gen.manual_seed(int(self.seed))
+        return gen
+
+    def with_mesh(self):
+        """The mesh, laid out by ``parallel.make_mesh()`` (every local
+        device on the data axis) when none is set."""
+        if self.mesh is None:
+            from ..parallel.mesh import local_devices, make_mesh
+
+            self.mesh = make_mesh(devices=local_devices(self.device))
+        return self.mesh
 
     def copy(self, **changes) -> "Context":
         return replace(self, **changes)

@@ -1,8 +1,9 @@
 """Engine: binds named DASE component classes, trains and evaluates (the
 port of ``predictionio_tpu/controller/engine.py``). A persisted model's
-re-materialization at deploy is ``Algorithm.load_persistent_model``'s,
-called by ``workflow.core.load_models_for_deploy``; a model stored as
-nothing (retrain at deploy) is not ported."""
+re-materialization at deploy is :meth:`Engine.prepare_deploy`, called by
+``workflow.core.load_models_for_deploy``: a model stored as ``None``
+retrains the engine once, every other goes through its algorithm's
+``load_persistent_model``."""
 
 from __future__ import annotations
 
@@ -157,6 +158,26 @@ class Engine:
                    ) -> List[Tuple[EngineParams, list]]:
         """:meth:`eval` of every params set."""
         return [(ep, self.eval(ctx, ep)) for ep in params_list]
+
+    def prepare_deploy(self, ctx: Context, engine_params: EngineParams,
+                       stored_models: List[Any],
+                       engine_instance_id: str) -> List[Any]:
+        """Turn persisted stand-ins back into live models: a ``None``
+        (an algorithm that persists nothing, the reference's Unit model)
+        retrains the engine once on the context's device; every other
+        goes through its algorithm's ``load_persistent_model``."""
+        algos = self.make_algorithms(engine_params)
+        if len(stored_models) != len(algos):
+            raise ValueError(f"{len(stored_models)} stored models for "
+                             f"{len(algos)} algorithms")
+        retrained: Optional[List[Any]] = None
+        if any(m is None for m in stored_models):
+            log.info("instance %s: ephemeral model(s) present; retraining "
+                     "for deploy", engine_instance_id)
+            retrained = self.train(ctx, engine_params).models
+        return [retrained[i] if stored is None
+                else algo.load_persistent_model(ctx, stored)
+                for i, (algo, stored) in enumerate(zip(algos, stored_models))]
 
 
 class SimpleEngine(Engine):

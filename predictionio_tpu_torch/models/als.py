@@ -95,11 +95,7 @@ from ..ops.ragged import (
     resolve_max_len,
 )
 from ..ops.solve import gramian, solve_spd_batch
-from ..parallel.collectives import (
-    all_gather,
-    gramian_allreduce,
-    merge_candidates,
-)
+from ..parallel.collectives import all_gather, merge_candidates
 from ..parallel.mesh import DeviceMesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.memo import ComputeOnce
@@ -174,6 +170,18 @@ class QuantizedFactors:
             self.data.to(device),
             None if self.scale is None else self.scale.to(device),
             self.quant)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    @property
+    def nbytes(self) -> int:
+        """The table's bytes on its device: data plus scale."""
+        nb = int(self.data.nbytes)
+        if self.scale is not None:
+            nb += int(self.scale.nbytes)
+        return nb
 
 
 Table = Union[torch.Tensor, QuantizedFactors]
@@ -380,6 +388,17 @@ def place_model(model: ALSModel, device: DeviceLike = None) -> ALSModel:
     return dataclasses.replace(model,
                                user_factors=model.user_factors.to(dev),
                                item_factors=model.item_factors.to(dev))
+
+
+def ensure_device_resident(model: ALSModel, max_batch: int = 1,
+                           device: DeviceLike = None) -> ALSModel:
+    """The JAX package's deploy-time placement: there, a catalog small
+    enough for its host route stays in host memory. The card has no host
+    route (``ROADMAP.md``, "Decided not to port"), so every model moves
+    to ``device`` once, as :func:`place_model` does; ``max_batch`` (the
+    largest batch a surface coalesces, which sized the JAX package's
+    host budget) is accepted for its signature."""
+    return place_model(model, device)
 
 
 # -- mesh-wide serving placement -------------------------------------------
@@ -985,19 +1004,31 @@ def training_blocks(h, rank: int, block_rows: Optional[int] = None):
         yield h.indices[s:e], h.values[s:e], h.counts[s:e], slice(s, e)
 
 
-def _update_side(fixed: torch.Tensor, h, params: ALSParams
-                 ) -> torch.Tensor:
+def _fixed_side_gramian(fixed: torch.Tensor,
+                        n_fixed: Optional[int]) -> torch.Tensor:
+    """The implicit half-step's Gramian of the fixed table over its first
+    ``n_fixed`` rows (all of them for None). Its padding rows are zero,
+    so cutting them changes no value, only the product's shape: cut to
+    the real rows, the single device and every mesh (whose tables are
+    padded to the mesh's size) run the same product on the same rows,
+    bit for bit."""
+    return gramian(fixed if n_fixed is None else fixed[:n_fixed])
+
+
+def _update_side(fixed: torch.Tensor, h, params: ALSParams,
+                 n_fixed: Optional[int] = None) -> torch.Tensor:
     """One half-iteration over either layout: the JAX package's
     ``_pad_half_impl``, ``_bucket_half_impl`` and ``_update_side*`` with
-    no mesh. The fixed side's Gramian (implicit; ``_fixed_gramian``
-    without a mesh is ``gramian``) and one bf16 shadow
+    no mesh. The fixed side's Gramian (implicit; over its ``n_fixed``
+    real rows, :func:`_fixed_side_gramian`) and one bf16 shadow
     (``gather_dtype="bfloat16"``) are made once, then every row block
     goes through :func:`_update_block`. Bucket rows are written back by
     row id: each real row sits in one bucket, so the writes are unique,
     and padding rows' sentinels land in one trash row past the table,
     cut off at the end. Rows with no history keep factor 0."""
     r = fixed.shape[-1]
-    G = gramian(fixed) if params.implicit_prefs else None
+    G = _fixed_side_gramian(fixed, n_fixed) if params.implicit_prefs \
+        else None
     gsrc = fixed.bfloat16() if params.gather_dtype == "bfloat16" else fixed
     bucketed = isinstance(h, BucketedHistories)
     n = h.n_rows_padded if bucketed else h.n_rows
@@ -1088,7 +1119,8 @@ def _solve_accumulated(A_acc: torch.Tensor, b_acc: torch.Tensor,
 
 
 def _update_side_split(fixed: torch.Tensor, h: SplitHistories,
-                       params: ALSParams) -> torch.Tensor:
+                       params: ALSParams,
+                       n_fixed: Optional[int] = None) -> torch.Tensor:
     """One half-iteration over the split layout: each virtual-row block's
     partials (one ``fused_gram`` launch) summed onto the owning real rows
     in ``[n_pad, r, r]`` / ``[n_pad, r]`` accumulators, in a fixed order
@@ -1096,7 +1128,8 @@ def _update_side_split(fixed: torch.Tensor, h: SplitHistories,
     of every real row. Padding virtual rows (owner ``n_rows``) are cut
     off before the sum."""
     r = fixed.shape[-1]
-    G = gramian(fixed) if params.implicit_prefs else None
+    G = _fixed_side_gramian(fixed, n_fixed) if params.implicit_prefs \
+        else None
     gsrc = fixed.bfloat16() if params.gather_dtype == "bfloat16" else fixed
     n_pad = h.n_rows_padded
     A_acc = torch.zeros((n_pad, r, r), dtype=torch.float32,
@@ -1298,8 +1331,10 @@ def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
 # every row's normal equations are summed as the single card sums them;
 # ``chol_solve`` solves each system alone whatever the launch. The fixed
 # side enters whole on every device: the updated blocks are all-gathered
-# once a half-step. The implicit Gramian is per-shard partials summed in
-# shard order (``gramian_allreduce``).
+# once a half-step. The implicit Gramian is taken on each device over the
+# whole fixed side's real rows, the single card's product (where the JAX
+# package sums per-shard partials), so implicit feedback too gives the
+# single card's factors bit for bit.
 
 
 @dataclass(frozen=True)
@@ -1420,18 +1455,21 @@ def _mesh_side_of(h, n_real: int, mesh: DeviceMesh,
 
 
 def _mesh_half_step(fixed: List[torch.Tensor], side: MeshSide,
-                    params: ALSParams, mesh: DeviceMesh
-                    ) -> List[torch.Tensor]:
+                    params: ALSParams, mesh: DeviceMesh,
+                    n_fixed: Optional[int] = None) -> List[torch.Tensor]:
     """One half-iteration over a mesh: ``fixed`` is the whole fixed
-    table on each local position's device (one tensor a device); returns
-    the whole updated table the same way, after the all-gather."""
-    local = mesh.local_positions()
+    table on each local position's device (one tensor a device), whose
+    first ``n_fixed`` rows are real; returns the whole updated table the
+    same way, after the all-gather. The implicit Gramian is made once a
+    device from its whole table (:func:`_fixed_side_gramian`)."""
     r = fixed[0].shape[-1]
-    G = [None] * len(local)
+    G: List[Optional[torch.Tensor]] = [None] * len(fixed)
     if params.implicit_prefs:
-        n_loc = fixed[0].shape[0] // mesh.size
-        G = gramian_allreduce([f[p * n_loc:(p + 1) * n_loc]
-                               for f, p in zip(fixed, local)], mesh=mesh)
+        grams: dict = {}
+        for k, f in enumerate(fixed):
+            if id(f) not in grams:
+                grams[id(f)] = _fixed_side_gramian(f, n_fixed)
+            G[k] = grams[id(f)]
     shadows: dict = {}
     outs = []
     for k, f in enumerate(fixed):
@@ -1788,10 +1826,10 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
     a half-step (module section "training over a mesh"); the factors
     come back as :class:`RowShardedTable`\\ s over the mesh. The draw
     (or ``init``) is the single device's, cut into shards, so a mesh run
-    starts from the single device's tables; explicit feedback then gives
-    the single device's factors bit for bit on the card (the implicit
-    Gramian's shard-order sum rounds apart). The split layout does not
-    train over a mesh.
+    starts from the single device's tables and gives the single device's
+    factors bit for bit on the card, explicit and implicit (each device
+    takes the implicit Gramian over the whole fixed side, as the single
+    device does). The split layout does not train over a mesh.
 
     With ``checkpoint_dir`` the factors are saved every
     ``checkpoint_every`` iterations (a directory implies 1) and a
@@ -1838,8 +1876,8 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
                 U = torch.as_tensor(state["U"]).to(dev)
                 V = torch.as_tensor(state["V"]).to(dev)
         for it in range(start, params.num_iterations):
-            U = step_u(V, user_h, params)
-            V = step_i(U, item_h, params)
+            U = step_u(V, user_h, params, n_i)
+            V = step_i(U, item_h, params, n_u)
             if ckpt is not None:
                 ckpt.maybe_save(it + 1, {"U": U, "V": V},
                                 every=checkpoint_every)
@@ -1894,8 +1932,8 @@ def _train_als_mesh(ratings, params: ALSParams, mesh: DeviceMesh, init,
         U = _replicate(U0, mesh)
         V = _replicate(V0, mesh)
         for it in range(start, params.num_iterations):
-            U = _mesh_half_step(V, us, params, mesh)
-            V = _mesh_half_step(U, its, params, mesh)
+            U = _mesh_half_step(V, us, params, mesh, packed.n_items)
+            V = _mesh_half_step(U, its, params, mesh, packed.n_users)
             if ckpt is not None:
                 state = ({"U": _row_sharded(U, mesh),
                           "V": _row_sharded(V, mesh)} if sharded_state

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -199,6 +199,26 @@ def pack_histories_device(rows: np.ndarray, cols: np.ndarray,
     return PaddedHistories(indices=idx.reshape(n_pad, L),
                            values=val.reshape(n_pad, L),
                            counts=torch.from_numpy(cnt).to(dev))
+
+
+def pack_histories(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                   n_rows: int, max_len: Optional[int] = None,
+                   pad_rows_to: int = 1) -> PaddedHistories:
+    """The JAX package's host packer: the pad layout packed on the CPU,
+    with ``max_len`` None resolved as :func:`resolve_max_len` does (the
+    longest row, auto-capped). Its arrays are element for element those
+    of :func:`pack_histories_device` at the resolved length."""
+    rows = np.asarray(rows)  # ptpu: allow[host-sync-in-hot-path] — host COO
+    counts = np.bincount(rows, minlength=n_rows)
+    L = resolve_max_len(counts, n_rows, max_len)
+    return pack_histories_device(rows, cols, vals, n_rows, L,
+                                 pad_rows_to=pad_rows_to, device="cpu")
+
+
+def transpose_coo(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray
+                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Swap the roles of rows and cols (users and items)."""
+    return cols, rows, vals
 
 
 def pack_histories_bucketed_device(rows: np.ndarray, cols: np.ndarray,

@@ -5,8 +5,6 @@ A mesh is an explicit grid of devices; a sharding spec is the tuple of
 mesh axes a tensor's leading dimension splits over (``()`` replicated),
 the port's ``PartitionSpec``."""
 
-from typing import Optional, Tuple
-
 from .collectives import (
     all_gather,
     all_reduce_sum,
@@ -27,13 +25,17 @@ from .mesh import (
     MODEL_AXIS,
     SERVING_MODES,
     DeviceMesh,
+    data_sharding,
     device_hbm_bytes,
     local_devices,
     make_mesh,
     make_serving_mesh,
+    model_sharding,
     pad_to_multiple,
+    replicated,
     resolve_serving_mode,
     rows_spec,
+    single_device_mesh,
 )
 from .multihost import (
     from_process_local,
@@ -41,26 +43,6 @@ from .multihost import (
     host_shard,
     initialize_distributed,
 )
-
-
-def single_device_mesh() -> DeviceMesh:
-    """A 1 x 1 training mesh over the first local device."""
-    return make_mesh(data=1, model=1, devices=local_devices()[:1])
-
-
-def data_sharding(mesh: DeviceMesh, ndim: int = 1) -> Tuple[str, ...]:
-    """The leading dimension split over the data axis, the rest whole."""
-    return (DATA_AXIS,)
-
-
-def model_sharding(mesh: DeviceMesh, ndim: int = 2) -> Tuple[str, ...]:
-    """The leading dimension split over the model axis (factor rows)."""
-    return (MODEL_AXIS,)
-
-
-def replicated(mesh: Optional[DeviceMesh]) -> Tuple[str, ...]:
-    """A whole copy on every position."""
-    return ()
 
 
 __all__ = [

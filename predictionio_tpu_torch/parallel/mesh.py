@@ -27,8 +27,9 @@ card (or on the CPU in the tests). Unset, one H100 is one device, and
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -162,6 +163,36 @@ def rows_spec(mesh: Optional[DeviceMesh]) -> Tuple[str, ...]:
     if mesh is None:
         return ()
     return tuple(mesh.axis_names)
+
+
+def single_device_mesh(device: DeviceLike = None) -> DeviceMesh:
+    """A 1 x 1 training mesh over the first local device (of
+    :func:`local_devices`, the card by default)."""
+    return make_mesh(data=1, model=1, devices=local_devices(device)[:1])
+
+
+def data_sharding(mesh: DeviceMesh, ndim: int = 1) -> Tuple[str, ...]:
+    """The leading dimension split over the data axis, the rest whole."""
+    return (DATA_AXIS,)
+
+
+def model_sharding(mesh: DeviceMesh, ndim: int = 2) -> Tuple[str, ...]:
+    """The leading dimension split over the model axis (factor rows)."""
+    return (MODEL_AXIS,)
+
+
+def replicated(mesh: Optional[DeviceMesh]) -> Tuple[str, ...]:
+    """A whole copy on every position."""
+    return ()
+
+
+@contextmanager
+def maybe_mesh(mesh: Optional[DeviceMesh]) -> Iterator[Optional[DeviceMesh]]:
+    """The JAX package enters ``mesh`` as the ambient sharding context
+    here. The port has no ambient mesh: every function that lays out
+    over one takes it as an argument, so this yields ``mesh`` (None for
+    the one device) and sets nothing."""
+    yield mesh
 
 
 def pad_to_multiple(n: int, k: int) -> int:

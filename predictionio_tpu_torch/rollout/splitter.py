@@ -81,6 +81,10 @@ class TrafficSplitter:
         return (ARM_CANDIDATE if not self.shadow
                 and self.routes_candidate(query_json) else ARM_STABLE)
 
+    def describe(self) -> dict:
+        """The split as ``{"fraction", "shadow"}``."""
+        return {"fraction": self.fraction, "shadow": self.shadow}
+
 
 def parse_fraction(value: Any, default: Optional[float] = None) -> float:
     """A traffic fraction from user input (CLI, HTTP): 0.05, "0.05" or

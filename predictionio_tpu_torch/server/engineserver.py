@@ -150,7 +150,17 @@ bounded backoff; ``close()`` joins it. ``/status.json``'s ``mesh`` block
 and the ``pio_lane_*`` and ``pio_serving_lanes`` families show the
 lanes.
 
-Left out (``ROADMAP.md`` queue 1): feedback events and ``log_url``.
+The feedback loop (``ServerConfig.feedback``, ``deploy --feedback``):
+every answer is recorded as a ``predict`` event on entity type
+``pio_pr`` in ``feedback_app_name``, with the instance id, the query
+and the prediction, and a dict answer carries its ``prId``; the insert
+runs on the readback stage of all three paths, under no server lock, and
+never fails the query (``phases["feedback"]``, per query
+``feedbackMs``). ``log_url`` receives every 5xx's message, prefixed by
+``log_prefix``, once per failed batch; each shipment runs on a thread
+that ``close()`` joins (bounded by the 5 s ``urlopen`` timeout), where
+the JAX package leaves a daemon thread.
+
 ``transfer_guard``, the XLA recompile sentinel
 (``pio_compiles_since_warm``, the per-executable compile table of
 ``/profile.json``) and ``pio_sharding_findings`` are XLA mechanisms with
@@ -162,8 +172,10 @@ from __future__ import annotations
 
 import contextlib
 import html
+import json
 import logging
 import queue
+import secrets
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -182,6 +194,7 @@ from ..concurrency import (
 from ..controller.context import Context
 from ..controller.engine import Engine
 from ..controller.params import EngineParams
+from ..data.event import Event
 from ..data.storage.base import STATUS_COMPLETED, EngineInstance
 from ..models.als import (
     SERVING_QUANT_MODES,
@@ -265,11 +278,31 @@ def pick_live_lane(lane: int, n_lanes: int, dead) -> int:
 #: the batch-path architectures (``ServerConfig.serving_pipeline``)
 PIPELINE_MODES = ("staged", "serial")
 
+#: the ``urlopen`` timeout of one shipment to ``ServerConfig.log_url``:
+#: what bounds :meth:`QueryServer.close`'s join of a shipping thread
+REMOTE_LOG_TIMEOUT_SEC = 5.0
+
+
+def _gen_pr_id() -> str:
+    """A 64-character prediction id (``CreateServer.scala:535``)."""
+    return secrets.token_hex(32)
+
 
 @dataclass
 class ServerConfig:
     """Serving knobs (a subset of the JAX package's ``ServerConfig``)."""
 
+    #: record each answer as a ``predict`` event on entity type
+    #: ``pio_pr`` in ``feedback_app_name`` and put its ``prId`` into a
+    #: dict answer
+    feedback: bool = False
+    #: the app receiving feedback events (required when ``feedback``;
+    #: also the stream trainer's app when ``stream_app_name`` is empty)
+    feedback_app_name: Optional[str] = None
+    #: POST each 5xx's message to this URL, never failing the query
+    log_url: Optional[str] = None
+    #: prepended to every message shipped to ``log_url``
+    log_prefix: str = ""
     #: coalesce concurrent queries into one batched launch
     batching: bool = False
     #: most queries one batch takes
@@ -298,13 +331,18 @@ class ServerConfig:
     #: "int8" or "bf16" row-quantized serving tables, or "off" (f32);
     #: the template's parity probe may keep f32 (auto-off)
     serving_quant: str = "off"
+    #: the JAX package's top-k realization knob ("auto", "einsum",
+    #: "fused"), kept for its command line and shown on ``/status.json``:
+    #: the card ranks k <= 128 through ``fused_topk`` whatever it says
+    serving_topk: str = "auto"
     #: serving device; None is the CUDA card, "cpu" the plain versions
     device: Optional[str] = None
     #: start a streaming trainer with the deploy: it tails
     #: ``stream_app_name``'s event log and folds fresh events into the
     #: bound ALS model (``POST /stream/start`` attaches one later)
     streaming: bool = False
-    #: app whose event log the trainer tails (required when streaming)
+    #: app whose event log the trainer tails (required when streaming,
+    #: unless ``feedback_app_name`` names one)
     stream_app_name: Optional[str] = None
     #: poll interval between fold-in passes; in-process ingest wakes the
     #: trainer at once through the invalidation bus
@@ -450,6 +488,17 @@ class QueryServer:
             raise ValueError(
                 f"serving_mode must be one of {SERVING_MODES}, got "
                 f"{self.config.serving_mode!r}")
+        if self.config.feedback:
+            # fail at deploy rather than log on every query
+            app_name = self.config.feedback_app_name
+            if not app_name:
+                raise ValueError("feedback=True requires feedback_app_name")
+            if ctx is None:
+                raise ValueError(
+                    "feedback needs the storage the models came from: "
+                    "deploy from storage, not deploy_models")
+            if ctx.storage.apps().get_by_name(app_name) is None:
+                raise ValueError(f"feedback app {app_name!r} does not exist")
         self.device = resolve_device(self.config.device)
         self.card = card_info(self.device)
         self.plugins = EngineServerPlugins()
@@ -558,6 +607,8 @@ class QueryServer:
         self._dead_lanes: dict = {}        # lane -> {"since", "reason"}
         self._lane_streaks: dict = {}      # lane -> consecutive failures
         self._restarters: List[threading.Thread] = []
+        # the remote log's shipping threads, joined by close()
+        self._remote_logs: List[threading.Thread] = []
         self._closing = threading.Event()
         self._lane_restarts = self.metrics.counter(
             "pio_lane_restarts_total",
@@ -617,6 +668,9 @@ class QueryServer:
         # close() (its threads start on first use)
         self._pool = make_pool()
         self._binds = 0
+        # the serving-kernel block of /status.json, set at every bind
+        self._serving_kernel: Dict[str, Optional[str]] = {
+            "mode": None, "kernel": None, "quant": None}
         self.stream = None
         # releases: the per-arm series the rollout gate windows, the
         # registry this server's deploy, reload, promote and rollback are
@@ -1029,9 +1083,22 @@ class QueryServer:
                     "labels)")
                 for _, child in fam.children():
                     child.set(0.0)
-                fam.labels(mode="fused",
-                           quant=serving_quant_of(model)).set(1.0)
+                quant = serving_quant_of(model)
+                fam.labels(mode="fused", quant=quant).set(1.0)
+                self._serving_kernel = {"mode": "fused",
+                                        "kernel": "fused_topk",
+                                        "quant": quant}
                 return
+
+    def serving_kernel_status(self) -> dict:
+        """The ``servingKernel`` block of ``/status.json``: the
+        configured knobs beside what serves (``fused_topk`` at the bound
+        table's wire dtype; the quant may differ from the configured one
+        where the parity gate kept f32)."""
+        with self._lock:
+            resolved = dict(self._serving_kernel)
+        return {"configuredQuant": self.config.serving_quant,
+                "configuredTopk": self.config.serving_topk, **resolved}
 
     def _on_fault(self, point: str, mode: str) -> None:
         self._fault_injections.labels(point=point, mode=mode).inc()
@@ -1229,7 +1296,11 @@ class QueryServer:
             t4 = time.monotonic()
             phases["serve"] = t4 - t3
             result = to_jsonable(prediction)
-            phases["readback"] = time.monotonic() - t4
+            t5 = time.monotonic()
+            phases["readback"] = t5 - t4
+            if self.config.feedback:
+                result = self._feedback(query_json, result, binding_id)
+                phases["feedback"] = time.monotonic() - t5
             result = self.plugins.process_output(query_json, result)
         except Exception:
             self._query_errors.labels(status="500").inc()
@@ -1283,6 +1354,7 @@ class QueryServer:
         traces = [self._trace_of(o) for o in (obs_list or [])]
         traces += [None] * (len(query_jsons) - len(traces))
         out: List[Any] = [None] * len(query_jsons)
+        per_query_ms: List[Dict[str, float]] = [{} for _ in query_jsons]
         parsed, rows = [], []
         self.overlap.enter("assemble")
         try:
@@ -1313,7 +1385,8 @@ class QueryServer:
             self.overlap.enter("readback")
             try:
                 for j, i in enumerate(rows):
-                    out[i] = self._render(served[j], phases, query_jsons[i])
+                    out[i] = self._render(served[j], phases, query_jsons[i],
+                                          binding_id, per_query_ms[i])
             finally:
                 self.overlap.exit("readback")
         dt = time.monotonic() - t0
@@ -1347,14 +1420,19 @@ class QueryServer:
             if obs_list is not None and i < len(obs_list) \
                     and obs_list[i] is not None:
                 obs_list[i].update(batch_obs)
+                obs_list[i].update(per_query_ms[i])
         self._count(len(query_jsons), dt * len(query_jsons))
         return out
 
     def _render(self, prediction: Any, phases: Dict[str, float],
-                query_json: Any) -> Any:
-        """One served prediction as JSON through the output plugins, or
-        the 500 it becomes. The batch's ``readback`` phase is the slowest
-        query's serialization, not the sum over the batch."""
+                query_json: Any, binding_id: str,
+                per_query: Dict[str, float]) -> Any:
+        """One served prediction as JSON, recorded as feedback when the
+        loop is on, through the output plugins; or the 500 it becomes.
+        The batch's ``readback`` phase is the slowest query's
+        serialization, not the sum over the batch; ``feedback`` is the
+        sum of its inserts. ``per_query`` gets the query's own
+        ``readbackMs`` and ``feedbackMs``."""
         if isinstance(prediction, HTTPError):
             return prediction
         if isinstance(prediction, Exception):
@@ -1362,8 +1440,14 @@ class QueryServer:
         t0 = time.monotonic()
         try:
             result = to_jsonable(prediction)
-            phases["readback"] = max(phases.get("readback", 0.0),
-                                     time.monotonic() - t0)
+            t1 = time.monotonic()
+            phases["readback"] = max(phases.get("readback", 0.0), t1 - t0)
+            per_query["readbackMs"] = round((t1 - t0) * 1000, 3)
+            if self.config.feedback:
+                result = self._feedback(query_json, result, binding_id)
+                tf = time.monotonic() - t1
+                phases["feedback"] = phases.get("feedback", 0.0) + tf
+                per_query["feedbackMs"] = round(tf * 1000, 3)
             return self.plugins.process_output(query_json, result)
         except Exception as e:  # noqa: BLE001 — isolate per query
             return HTTPError(500, str(e))
@@ -1372,8 +1456,9 @@ class QueryServer:
                                results: List[Any]) -> None:
         """The readback stage's tail: render each resolved prediction,
         record the batch and its traces, wake the callers."""
-        final = [self._render(r, ab.phases, e.query_json)
-                 for r, e in zip(results, ab.entries)]
+        per_query_ms: List[Dict[str, float]] = [{} for _ in ab.entries]
+        final = [self._render(r, ab.phases, e.query_json, ab.binding_id, pq)
+                 for r, e, pq in zip(results, ab.entries, per_query_ms)]
         now = time.monotonic()
         self._record_phases(ab.phases)
         self._batch_occupancy.observe(len(ab.entries))
@@ -1389,7 +1474,7 @@ class QueryServer:
         batch_obs.update({f"{k}Ms": round(v * 1000, 3)
                           for k, v in ab.phases.items()})
         total = 0.0
-        for entry, result in zip(ab.entries, final):
+        for entry, result, pq in zip(ab.entries, final, per_query_ms):
             # end to end per query, its queue wait included
             dt = now - entry.t_enq
             total += dt
@@ -1399,6 +1484,7 @@ class QueryServer:
                 self._query_errors.labels(status=str(result.status)).inc()
             if entry.obs is not None:
                 entry.obs.update(batch_obs)
+                entry.obs.update(pq)
             entry.result = result
             entry.done.set()
         self._count(len(ab.entries), total)
@@ -1628,6 +1714,7 @@ class QueryServer:
             "pipeline": self.pipeline_status(),
             "kernels": {"fused_topk": {
                 "launches": _fused_topk.LAUNCHES}},
+            "servingKernel": self.serving_kernel_status(),
             "requestCount": requests,
             "avgServingSec": avg,
             "lastServingSec": last,
@@ -1867,7 +1954,9 @@ class QueryServer:
         profiler capture, the shadow mirrors, the plugins' sniffer thread
         and the pool, and join the warm-up threads, the lane restarters
         (their backoff cut short) and the hot tier's refresh thread, each
-        within ``timeout``; detach the numerics listener. Idempotent."""
+        within ``timeout``, and the remote log's shipping threads, each
+        within its ``urlopen`` timeout; detach the numerics listener.
+        Idempotent."""
         # ptpu: guarded-by[_release_lock] — one read of the reference
         # start_canary swaps whole under _release_lock
         rollout = self.rollout
@@ -1888,14 +1977,90 @@ class QueryServer:
         with self._lock:
             warm_threads = list(self._warm_threads)
             restarters = list(self._restarters)
+            remote_logs = list(self._remote_logs)
         for t in warm_threads + restarters:
             t.join(timeout)
+        for t in remote_logs:
+            # each ends within its urlopen timeout
+            t.join(max(timeout, REMOTE_LOG_TIMEOUT_SEC + 1.0))
         if self.cache is not None:
             self.cache.close()
         if self._numerics_listener is not None:
             numerics.remove_listener(self._numerics_listener)
             self._numerics_listener = None
         fault_registry().remove_listener(self._on_fault)
+
+    def _feedback(self, query_json: Any, result: Any,
+                  instance_id: str) -> Any:
+        """Record the answer as a ``predict`` event on entity type
+        ``pio_pr`` in the feedback app (``CreateServer.scala:527-589``)
+        and put its ``prId`` into a dict answer. A failed insert is
+        logged and never fails the query. Called with no server lock
+        held: the insert is storage I/O."""
+        pr_id = _gen_pr_id()
+        if isinstance(result, dict) and result.get("prId"):
+            pr_id = result["prId"]
+        event = Event(
+            event="predict", entity_type="pio_pr", entity_id=pr_id,
+            properties={"engineInstanceId": instance_id,
+                        "query": to_jsonable(query_json),
+                        "prediction": result},
+            pr_id=(query_json.get("prId")
+                   if isinstance(query_json, dict) else None))
+        app_name = self.config.feedback_app_name
+        try:
+            storage = self.ctx.storage
+            app = storage.apps().get_by_name(app_name or "")
+            if app is None:
+                raise RuntimeError(f"feedback app {app_name!r} not found")
+            storage.events().insert(event, app.id)
+        except Exception as e:  # noqa: BLE001 — feedback never fails a query
+            log.error("feedback event failed: %s", e)
+        if isinstance(result, dict):
+            result = dict(result, prId=pr_id)
+        return result
+
+    def remote_log(self, message: str, wait: bool = False) -> None:
+        """Ship an error's message to ``log_url`` as ``log_prefix`` +
+        ``{"engineInstance", "message"}`` (``remoteLog``,
+        ``CreateServer.scala:435-446``); a failure to ship is logged and
+        swallowed. It ships on a ``remote-log`` thread, so a slow or dead
+        collector never delays the error's answer, and :meth:`close`
+        joins those threads. With ``wait``, or once the server closes, it
+        ships on the caller's thread."""
+        url = self.config.log_url
+        if not url:
+            return
+        import urllib.request
+
+        with self._lock:
+            instance_id = self.binding_id
+        payload = (self.config.log_prefix + json.dumps({
+            "engineInstance": instance_id,
+            "message": message})).encode("utf-8")
+
+        def ship() -> None:
+            try:
+                req = urllib.request.Request(url, data=payload,
+                                             method="POST")
+                with urllib.request.urlopen(
+                        req, timeout=REMOTE_LOG_TIMEOUT_SEC) as resp:
+                    resp.read()
+            except Exception as e:  # noqa: BLE001 — must not fail a query
+                log.error("Unable to send remote log: %s", e)
+
+        if not wait:
+            t = threading.Thread(target=ship, daemon=True,
+                                 name="remote-log")
+            with self._lock:
+                if not self._closing.is_set():
+                    # started under the lock, so close() never finds
+                    # a thread it cannot join yet
+                    self._remote_logs = [r for r in self._remote_logs
+                                         if r.is_alive()] + [t]
+                    t.start()
+                    return
+        ship()
 
     # -- streaming fold-in ---------------------------------------------------
     @property
@@ -1997,7 +2162,8 @@ class QueryServer:
             drift_threshold=self.config.stream_drift_threshold,
             canary_probes=self.config.stream_canary_probes)
         if not cfg.app_name:
-            cfg.app_name = self.config.stream_app_name or ""
+            cfg.app_name = (self.config.stream_app_name
+                            or self.config.feedback_app_name or "")
         if not cfg.app_name:
             raise ValueError(
                 "streaming requires an app name (ServerConfig."
@@ -2586,7 +2752,10 @@ class MicroBatcher:
                     if n_try + 1 < len(attempts):
                         continue
                     log.exception("batched query failed")
-                    results = [HTTPError(500, str(exc))] * len(batch)
+                    server.remote_log(str(exc))  # once per batch
+                    err = HTTPError(500, str(exc))
+                    err._remote_logged = True
+                    results = [err] * len(batch)
             for e, result in zip(batch, results):
                 e.result = result
                 e.done.set()
@@ -2748,8 +2917,11 @@ class StagedPipeline:
                     ab = self._assemble(batch)
                 except Exception as e:  # noqa: BLE001 — isolate the batch
                     log.exception("assembling a batch failed")
+                    server.remote_log(str(e))  # once per batch
+                    err = HTTPError(500, str(e))
+                    err._remote_logged = True
                     for entry in batch:
-                        entry.result = HTTPError(500, str(e))
+                        entry.result = err
                         entry.done.set()
                     ab = None
                 finally:
@@ -2883,9 +3055,12 @@ class StagedPipeline:
                 server._finish_pipeline_batch(ab, results)
             except Exception as e:  # noqa: BLE001 — isolate the batch
                 log.exception("finishing a batch failed")
+                server.remote_log(str(e))  # once per batch
+                err = HTTPError(500, str(e))
+                err._remote_logged = True
                 for entry in ab.entries:
                     if not entry.done.is_set():
-                        entry.result = HTTPError(500, str(e))
+                        entry.result = err
                         entry.done.set()
             finally:
                 server.overlap.exit("readback")
@@ -2905,24 +3080,34 @@ def build_app(server: QueryServer) -> HTTPApp:
             query_json = req.json()
         except (ValueError, UnicodeDecodeError) as e:
             raise HTTPError(400, str(e)) from e
-        # a live rollout routes a cohort of queries to the candidate
-        # (canary) or mirrors them to it (shadow); the stable arm serves
-        # everyone else
-        rollout = server.rollout
-        if rollout is not None and rollout.active \
-                and rollout.splitter.routes_candidate(query_json):
-            if rollout.shadow:
-                server.mirror_to_candidate(query_json)
-            else:
-                try:
-                    return json_response(server.serve_candidate(
-                        query_json, obs=req.obs))
-                except HTTPError as e:
-                    if e.status != 503:
-                        raise
-                    # the candidate was unbound mid-flight (a rollback
-                    # won the race): the stable arm serves below
-        return json_response(server.serve(query_json, obs=req.obs))
+        try:
+            # a live rollout routes a cohort of queries to the candidate
+            # (canary) or mirrors them to it (shadow); the stable arm
+            # serves everyone else
+            rollout = server.rollout
+            if rollout is not None and rollout.active \
+                    and rollout.splitter.routes_candidate(query_json):
+                if rollout.shadow:
+                    server.mirror_to_candidate(query_json)
+                else:
+                    try:
+                        return json_response(server.serve_candidate(
+                            query_json, obs=req.obs))
+                    except HTTPError as e:
+                        if e.status != 503:
+                            raise
+                        # the candidate was unbound mid-flight (a
+                        # rollback won the race): the stable arm serves
+            return json_response(server.serve(query_json, obs=req.obs))
+        except HTTPError as e:
+            # a batch-wide failure was shipped once by the batch path,
+            # not by each of its coalesced handler threads
+            if e.status >= 500 and not getattr(e, "_remote_logged", False):
+                server.remote_log(e.message)
+            raise
+        except Exception as e:  # noqa: BLE001 — shipped, then a 500
+            server.remote_log(str(e))
+            raise
 
     def _body(req: Request) -> dict:
         try:
@@ -3296,7 +3481,8 @@ def build_app(server: QueryServer) -> HTTPApp:
         try:
             scfg = StreamConfig(
                 app_name=str(body.get("appName")
-                             or cfg.stream_app_name or ""),
+                             or cfg.stream_app_name
+                             or cfg.feedback_app_name or ""),
                 channel_name=body.get("channelName") or None,
                 consumer=str(body.get("consumer") or cfg.stream_consumer),
                 interval_ms=float(body.get("intervalMs",

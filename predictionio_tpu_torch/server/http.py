@@ -540,3 +540,7 @@ class AppServer:
             self._thread.join(timeout=5)
         for fn in self._on_close:
             fn()
+
+    def shutdown(self) -> None:
+        """The JAX package's name for :meth:`close`."""
+        self.close()

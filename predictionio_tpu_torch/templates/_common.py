@@ -5,7 +5,9 @@ The similar-product and e-commerce templates share: the deduplicated
 view-count ratings, the candidate-item filter and the top-N selection.
 All three are host numpy, as in the JAX package: these templates score
 on the host. Their models store the item categories through
-:func:`items_json` and :func:`items_from_json`.
+:func:`items_json` and :func:`items_from_json`. All three ALS templates
+train through :func:`train_als_on`, which picks the context's device or
+its mesh.
 """
 
 from __future__ import annotations
@@ -14,8 +16,36 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch
+
+from ..controller.context import Context
 from ..data.bimap import BiMap
-from ..models.als import RatingsCOO
+from ..models.als import (
+    ALSParams,
+    RatingsCOO,
+    pack_ratings_cached,
+    train_als,
+    unshard_table,
+)
+
+
+def train_als_on(ctx: Context, ratings: RatingsCOO, params: ALSParams
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack once per ratings object and train on ``ctx.device``, or over
+    ``ctx.mesh`` (in a process group of several processes, the global
+    mesh); a mesh's factors are gathered to whole tables. Returns the
+    padded ``(U, V)`` on the device the training ran on."""
+    from ..parallel.multihost import global_mesh, process_count
+
+    mesh = ctx.mesh
+    if mesh is None and process_count() > 1:
+        mesh = global_mesh(device=ctx.device)
+    if mesh is None:
+        packed = pack_ratings_cached(ratings, params, device=ctx.device)
+        return train_als(ratings, params, device=ctx.device, packed=packed)
+    packed = pack_ratings_cached(ratings, params, mesh=mesh)
+    U, V = train_als(ratings, params, mesh=mesh, packed=packed)
+    return unshard_table(U), unshard_table(V)
 
 
 def dedup_view_ratings(events: Iterable, user_ids: BiMap,

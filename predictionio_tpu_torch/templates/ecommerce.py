@@ -4,7 +4,8 @@ deduplicated view counts, a buy-count popularity fallback, serving-time
 filters read from the event store, and weighted score adjustment.
 
 Training runs the port's ``train_als`` with implicit preferences on the
-context's device (the card unless it names the CPU): every half-step
+context's device (the card unless it names the CPU) or over its mesh,
+as the recommendation template does: every half-step
 goes through ``fused_gram`` with the implicit weights and the fixed
 side's Gramian, then ``chol_solve``. The factors come back to the host,
 and ``predict`` scores in host numpy, as the JAX package does: a known
@@ -35,7 +36,7 @@ from ..controller import (
     SanityCheck,
 )
 from ..data.bimap import BiMap
-from ..models.als import ALSParams, RatingsCOO, pack_ratings_cached, train_als
+from ..models.als import ALSParams, RatingsCOO
 from ..workflow.persistence import bimap_json, ids_json, register_kind
 from ._common import (
     candidate_mask,
@@ -43,6 +44,7 @@ from ._common import (
     items_from_json,
     items_json,
     top_scores,
+    train_als_on,
 )
 
 log = logging.getLogger(__name__)
@@ -219,8 +221,7 @@ class ECommAlgorithm(Algorithm):
         als = ALSParams(rank=p.rank, num_iterations=p.num_iterations,
                         reg=p.lambda_, implicit_prefs=True, alpha=1.0,
                         seed=p.seed if p.seed is not None else 0)
-        packed = pack_ratings_cached(ratings, als, device=ctx.device)
-        U, V = train_als(ratings, als, device=ctx.device, packed=packed)
+        U, V = train_als_on(ctx, ratings, als)
         U = U.cpu().numpy()[:len(user_ids)]
         V = V.cpu().numpy()[:len(item_ids)]
         has_user = np.zeros(len(user_ids), dtype=bool)

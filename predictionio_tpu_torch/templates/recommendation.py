@@ -48,7 +48,6 @@ from ..models.als import (
     ALSModel,
     ALSParams,
     RatingsCOO,
-    pack_ratings_cached,
     pin_user_rows,
     pin_user_rows_lanes,
     place_model,
@@ -59,10 +58,9 @@ from ..models.als import (
     recommend_products,
     replicate_model,
     shard_model,
-    train_als,
-    unshard_table,
 )
 from ..models.data import kfold_split, ratings_from_columnar
+from ._common import train_als_on
 
 
 @dataclass(frozen=True)
@@ -269,22 +267,7 @@ class ALSAlgorithm(Algorithm):
         global mesh): a mesh's factors are gathered to whole tables. On
         the card, returns only once the queued iterations have run, so
         the engine's stage clock covers them."""
-        from ..parallel.multihost import global_mesh, process_count
-
-        mesh = ctx.mesh
-        if mesh is None and process_count() > 1:
-            mesh = global_mesh(device=ctx.device)
-        if mesh is None:
-            packed = pack_ratings_cached(td.ratings, self.params,
-                                         device=ctx.device)
-            U, V = train_als(td.ratings, self.params, device=ctx.device,
-                             packed=packed)
-        else:
-            packed = pack_ratings_cached(td.ratings, self.params,
-                                         mesh=mesh)
-            U, V = train_als(td.ratings, self.params, mesh=mesh,
-                             packed=packed)
-            U, V = unshard_table(U), unshard_table(V)
+        U, V = train_als_on(ctx, td.ratings, self.params)
         if U.is_cuda:
             torch.cuda.synchronize(U.device)
         return ALSModel(user_factors=U, item_factors=V,

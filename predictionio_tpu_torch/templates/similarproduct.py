@@ -9,7 +9,8 @@ item). A z-score serving standardizes each algorithm's scores and sums
 them per item.
 
 Both ALS variants train through the port's ``train_als`` on the
-context's device (the card unless it names the CPU), so every half-step
+context's device (the card unless it names the CPU) or over its mesh,
+as the recommendation template does, so every half-step
 runs ``fused_gram`` and ``chol_solve``; co-occurrence runs ``AᵀA`` there
 (``models/cooccurrence.py``). ``predict`` scores in host numpy, as the
 JAX package does.
@@ -32,7 +33,7 @@ from ..controller import (
     Serving,
 )
 from ..data.bimap import BiMap
-from ..models.als import ALSParams, RatingsCOO, pack_ratings_cached, train_als
+from ..models.als import ALSParams, RatingsCOO
 from ..models.cooccurrence import CooccurrenceModel, train_cooccurrence
 from ..workflow.persistence import bimap_json, ids_json, register_kind
 from ._common import (
@@ -41,6 +42,7 @@ from ._common import (
     items_from_json,
     items_json,
     top_scores,
+    train_als_on,
 )
 
 
@@ -235,10 +237,7 @@ class SPALSAlgorithm(Algorithm):
         user_ids = BiMap.string_int(td.users.keys())
         item_ids = BiMap.string_int(td.items.keys())
         ratings = self._ratings(td, user_ids, item_ids)
-        packed = pack_ratings_cached(ratings, self.params,
-                                     device=ctx.device)
-        _, V = train_als(ratings, self.params, device=ctx.device,
-                         packed=packed)
+        _, V = train_als_on(ctx, ratings, self.params)
         V = V.cpu().numpy()[:len(item_ids)]
         has = np.zeros(len(item_ids), dtype=bool)
         has[np.unique(ratings.items)] = True

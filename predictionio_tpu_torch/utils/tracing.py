@@ -6,19 +6,57 @@ the ``torch.profiler`` timeline while a capture runs (``annotate``). The
 servers expose the registry as ``pio_span_seconds``
 (:func:`predictionio_tpu_torch.obs.mount_span_metrics`).
 
-Left out: the JAX package's ``trace(log_dir)``, a ``jax.profiler``
-capture; the port's bounded capture is
-:class:`predictionio_tpu_torch.obs.trace.DeviceProfiler`.
+``trace(log_dir)`` is the counterpart of the JAX package's
+``jax.profiler`` capture: a ``torch.profiler`` capture of the block (the
+card's kernels too where CUDA is up), written under ``log_dir`` as a
+Chrome trace (``ui.perfetto.dev``, ``chrome://tracing``). The server's
+bounded capture is :class:`predictionio_tpu_torch.obs.trace.DeviceProfiler`;
+both hold the process's one profiler.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import threading
 import time
 from typing import Dict, Iterator, Optional
 
 from ..obs.histogram import StreamingHistogram
+
+log = logging.getLogger(__name__)
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Capture the block with ``torch.profiler`` into
+    ``log_dir/trace-<pid>-<ns>.json`` (a Chrome trace); nothing when
+    ``log_dir`` is falsy. Raises ``RuntimeError`` while another capture
+    of this process runs."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..obs.trace import profiler_held
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir,
+                        f"trace-{os.getpid()}-{time.time_ns()}.json")
+    with profiler_held():
+        prof = profile(activities=activities)
+        prof.start()
+        try:
+            yield
+        finally:
+            prof.stop()
+            prof.export_chrome_trace(path)
+            log.info("torch.profiler trace written to %s", path)
 
 
 @contextlib.contextmanager

@@ -115,17 +115,14 @@ def load_models_for_deploy(ctx: Context, engine: Engine,
                            instance: EngineInstance,
                            engine_params: EngineParams) -> List[Any]:
     """The instance's persisted models (host tensors; deploy places them
-    on the card), one per algorithm of ``engine_params``."""
+    on the card), one per algorithm of ``engine_params``, through
+    ``Engine.prepare_deploy``: a model stored as ``None`` is retrained on
+    the context's device."""
     blob = ctx.storage.models().get(instance.id)
     if blob is None:
         raise RuntimeError(f"no persisted models for instance {instance.id}")
-    models = persistence.loads_models(blob.models)
-    algos = engine.make_algorithms(engine_params)
-    if len(models) != len(algos):
-        raise ValueError(f"{len(models)} stored models for {len(algos)} "
-                         f"algorithms")
-    return [algo.load_persistent_model(ctx, stored)
-            for algo, stored in zip(algos, models)]
+    stored = persistence.loads_models(blob.models)
+    return engine.prepare_deploy(ctx, engine_params, stored, instance.id)
 
 
 def run_evaluation(ctx: Context, evaluation: Evaluation,

@@ -10,7 +10,8 @@ Each model carries its kind. ``ALSModel`` (the recommendation
 template) is built in; a template's module registers its own kinds with
 :func:`register_kind` (their encoding lives beside the model), and the
 blob names that module, so a reader imports it to decode. One blob may
-mix kinds, one a model.
+mix kinds, one a model. A model stored as ``None`` (an algorithm that
+persists nothing) is kept as ``None``: deploy retrains it.
 
 :func:`loads_models` also reads the blob the JAX package writes (a
 protocol-4 pickle of its host models), told apart by its first bytes. A
@@ -192,7 +193,15 @@ register_kind("PersistentModelManifest", PersistentModelManifest,
                   m["algo_index"], m["location"], m["extra"]))
 
 
+#: the kind of a model stored as nothing (an algorithm whose persistent
+#: model is None, the reference's Unit model): deploy retrains it
+#: (``Engine.prepare_deploy``)
+_NONE_KIND = "None"
+
+
 def _dump_one(arrays: Dict[str, np.ndarray], i: int, m: Any) -> dict:
+    if m is None:
+        return {"kind": _NONE_KIND}
     for kind in _KINDS.values():
         if isinstance(m, kind.cls):
             named, meta = kind.encode(m)
@@ -216,6 +225,8 @@ def dumps_models(models: List[Any]) -> bytes:
 
 def _load_one(arrays, i: int, m: dict) -> Any:
     name = m.get("kind", "ALSModel")  # blobs before kinds held ALS only
+    if name == _NONE_KIND:
+        return None
     module = m.get("module", "")
     if name not in _KINDS and module.startswith(f"{_PACKAGE}."):
         importlib.import_module(module)  # registers the module's kinds

@@ -12,7 +12,13 @@ package rtol 2e-3, atol 2e-4 (the port's single-device parity tolerance,
 ``tests/test_torch_als_training.py``); against the port's single device,
 explicit feedback bit for bit (each row's system is built and solved
 alike whatever the shard) and implicit within 1e-5 (1 + |x|) (the
-Gramian's shard-order sum rounds apart)."""
+Gramian's shard-order sum rounds apart). The e-commerce and
+similar-product templates train through ``Engine.train`` over the
+context's mesh of 2 and 4 shards, held to their one-device training
+(from the JAX package's draw) within 1e-5 (1 + |x|) and bit for bit (the
+port takes the implicit Gramian over the whole fixed side on every
+device, as the single device does), and to the JAX package's templates
+over ``mesh8`` at rtol 2e-3, atol 2e-4."""
 
 import dataclasses
 
@@ -262,3 +268,102 @@ def test_multi_process_packing_picks_the_one_process_layout():
     U, V = pals.train_als(r, p, mesh=mesh, packed=multi)
     np.testing.assert_array_equal(whole(U, n_users), U1[:n_users].numpy())
     np.testing.assert_array_equal(whole(V, n_items), V1[:n_items].numpy())
+
+
+# -- the e-commerce and similar-product templates over the context's mesh ------
+
+
+def template_training(template, explicit=False):
+    """(port module, JAX module, app, events, port params, JAX params) of
+    a template: e-commerce's implicit ALS, or similar-product's (implicit,
+    or explicit for the bitwise variant)."""
+    from test_templates import ecommerce_events, similarproduct_events
+
+    import predictionio_tpu.templates.ecommerce as jec
+    import predictionio_tpu.templates.similarproduct as jsp
+    from predictionio_tpu.controller.params import EngineParams as JEP
+    from predictionio_tpu_torch.controller.params import EngineParams
+    from predictionio_tpu_torch.templates import ecommerce as pec
+    from predictionio_tpu_torch.templates import similarproduct as psp
+
+    if template == "ecommerce":
+        def ep(pkg):
+            return pkg.default_engine_params("ecapp", rank=8,
+                                             num_iterations=5, seed=9)
+        return pec, jec, "ecapp", ecommerce_events(), ep(pec), ep(jec)
+    als = dict(rank=8, num_iterations=5, implicit_prefs=not explicit,
+               alpha=1.0, seed=5)
+
+    def ep(pkg, ep_cls, params_cls):
+        return ep_cls(datasource=("", pkg.DataSourceParams(app_name="spapp")),
+                      algorithms=[("als", params_cls(**als))])
+    return (psp, jsp, "spapp", similarproduct_events(),
+            ep(psp, EngineParams, pals.ALSParams),
+            ep(jsp, JEP, jals.ALSParams))
+
+
+def engine_of(pkg):
+    return (pkg.ecommerce_engine() if hasattr(pkg, "ecommerce_engine")
+            else pkg.similarproduct_engine())
+
+
+def template_factors(model):
+    """Each factor table a template's model keeps, trimmed to its rows."""
+    tables = [model.item_factors]
+    if hasattr(model, "user_factors"):
+        tables.append(model.user_factors)
+    return [np.asarray(t) for t in tables]
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("template,explicit",
+                         [("ecommerce", False), ("similarproduct", False),
+                          ("similarproduct", True)],
+                         ids=["ecommerce", "similarproduct",
+                              "similarproduct-explicit"])
+def test_a_template_trains_over_the_contexts_mesh(template, explicit, shards,
+                                                  monkeypatch):
+    from test_torch_templates import Pair, _jax_draw
+
+    from predictionio_tpu_torch.templates import _common
+
+    monkeypatch.setattr(pals, "draw_initial_factors", _jax_draw)
+    meshes = []
+
+    def spy(*args, **kw):
+        meshes.append(kw.get("mesh"))
+        return pals.train_als(*args, **kw)
+
+    monkeypatch.setattr(_common, "train_als", spy)
+    pkg, _, app, events, ep, _ = template_training(template, explicit)
+    pair = Pair(app, events)
+    (one,) = engine_of(pkg).train(pair.ctx, ep).models
+    meshed_ctx = Context(device="cpu", app_name=app, _storage=pair.store,
+                         mesh=mesh_of(shards))
+    (meshed,) = engine_of(pkg).train(meshed_ctx, ep).models
+    assert meshes == [None, meshed_ctx.mesh]
+    for g, w in zip(template_factors(meshed), template_factors(one)):
+        assert g.shape == w.shape
+        # within 1e-5 (1 + |x|) is the bound; every device takes the
+        # implicit Gramian as the single device does, so it is exact
+        assert np.all(np.abs(g - w) <= 1e-5 * (1 + np.abs(w)))
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("template", ["ecommerce", "similarproduct"])
+def test_a_template_over_a_mesh_matches_the_jax_mesh_training(mesh8,
+                                                              template,
+                                                              monkeypatch):
+    from predictionio_tpu.controller.context import Context as JContext
+    from test_torch_templates import Pair, _jax_draw
+
+    monkeypatch.setattr(pals, "draw_initial_factors", _jax_draw)
+    pkg, jpkg, app, events, ep, jep = template_training(template)
+    pair = Pair(app, events)
+    (mine,) = engine_of(pkg).train(
+        Context(device="cpu", app_name=app, _storage=pair.store,
+                mesh=mesh_of(4)), ep).models
+    (theirs,) = engine_of(jpkg).train(
+        JContext(app_name=app, _storage=pair.jstore, mesh=mesh8), jep).models
+    for g, w in zip(template_factors(mine), template_factors(theirs)):
+        np.testing.assert_allclose(g, w, rtol=2e-3, atol=2e-4)

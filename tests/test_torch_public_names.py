@@ -160,3 +160,275 @@ def test_event_store_write_is_the_jax_packages(kind, n, tmp_path):
     finally:
         pst.close()
         jst.close()
+
+
+# -- the public methods of the port's classes (ROADMAP queue 1 item 18) --------
+
+#: (module, class) whose public methods, properties and static methods the
+#: port's class defines as the JAX package's does; None: the module's own
+#: public functions
+CLASS_SURFACES = [
+    ("cache.bus", "InvalidationBus"),
+    ("rollout.splitter", "TrafficSplitter"),
+    ("models.als", "QuantizedFactors"),
+    ("models.als", None),
+    ("server.http", "AppServer"),
+    ("server.engineserver", "QueryServer"),
+    ("controller.context", "Context"),
+    ("controller.engine", "Engine"),
+    ("ops.ragged", None),
+    ("utils.tracing", None),
+    ("parallel.mesh", None),
+]
+
+#: names of those surfaces the port leaves out, each by a decision under
+#: "Decided not to port" in ``ROADMAP.md``
+LEFT_OUT = {
+    # the XLA compile caches and the sharding rules' findings
+    ("server.engineserver", "QueryServer"): {"artifact_key",
+                                             "sharding_findings_status"},
+    # serving_topk: the card ranks k <= 128 through fused_topk
+    ("models.als", None): {"resolved_topk_mode", "set_serving_topk_mode"},
+}
+
+
+def surface(mod, cls_name):
+    import inspect
+
+    if cls_name is None:
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and inspect.isfunction(v)
+                and v.__module__ == mod.__name__}
+    return {n for n, v in vars(getattr(mod, cls_name)).items()
+            if not n.startswith("_") and (
+                inspect.isfunction(v)
+                or isinstance(v, (property, staticmethod, classmethod)))}
+
+
+@pytest.mark.parametrize("module,cls_name", CLASS_SURFACES,
+                         ids=lambda v: str(v))
+def test_the_jax_classes_methods_are_ported(module, cls_name):
+    jax_mod = importlib.import_module("predictionio_tpu." + module)
+    port_mod = importlib.import_module("predictionio_tpu_torch." + module)
+    want = surface(jax_mod, cls_name) - LEFT_OUT.get((module, cls_name),
+                                                     set())
+    owner = port_mod if cls_name is None else getattr(port_mod, cls_name)
+    missing = sorted(n for n in want if not hasattr(owner, n))
+    assert not missing, f"{module}.{cls_name or ''} lacks {missing}"
+
+
+def test_subscriber_count_follows_subscribe_and_unsubscribe():
+    import gc
+
+    from predictionio_tpu.cache.bus import InvalidationBus as JBus
+    from predictionio_tpu_torch.cache.bus import InvalidationBus
+
+    class Owner:
+        def on_event(self, *a):
+            pass
+
+    counts = {}
+    for name, bus in (("jax", JBus()), ("port", InvalidationBus())):
+        a, b, c = Owner(), Owner(), Owner()
+        seen = [bus.subscriber_count()]
+        for owner in (a, b, c):
+            bus.subscribe(owner)
+        del owner
+        seen.append(bus.subscriber_count())
+        bus.unsubscribe(b)
+        seen.append(bus.subscriber_count())
+        del c
+        gc.collect()
+        seen.append(bus.subscriber_count())
+        assert bus.stats()["subscribers"] == seen[-1]
+        counts[name] = seen
+    assert counts["port"] == counts["jax"] == [0, 3, 2, 1]
+
+
+@pytest.mark.parametrize("fraction,shadow", [(0.25, True), (1.0, False)])
+def test_describe_is_the_jax_splitters(fraction, shadow):
+    from predictionio_tpu.rollout.splitter import TrafficSplitter as JSplit
+    from predictionio_tpu_torch.rollout.splitter import TrafficSplitter
+
+    assert TrafficSplitter(fraction, shadow).describe() == \
+        JSplit(fraction, shadow).describe() == \
+        {"fraction": fraction, "shadow": shadow}
+
+
+@pytest.mark.parametrize("quant", ["int8", "bf16"])
+def test_quantized_factors_nbytes_and_shape_are_the_jax_packages(quant):
+    import numpy as np
+    import jax.numpy as jnp
+
+    import predictionio_tpu.models.als as jals
+    from predictionio_tpu_torch.models import als as pals
+
+    rows = np.random.default_rng(4).normal(size=(37, 12)).astype(np.float32)
+    jd, js = jals._quantize_rows(rows, quant)
+    pd, ps = pals._quantize_rows(rows, quant)
+    jq = jals.QuantizedFactors(jnp.asarray(jd),
+                               None if js is None else jnp.asarray(js), quant)
+    pq = pals.QuantizedFactors(pd, ps, quant)
+    assert pq.shape == jq.shape == (37, 12)
+    assert pq.nbytes == jq.nbytes == (37 * 12 + 37 * 4 if quant == "int8"
+                                      else 37 * 12 * 2)
+
+
+def test_ensure_device_resident_places_the_model():
+    import numpy as np
+
+    from predictionio_tpu_torch.models import als as pals
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+
+    rng = np.random.default_rng(5)
+    U = rng.normal(size=(6, 4)).astype(np.float32)
+    V = rng.normal(size=(9, 4)).astype(np.float32)
+    m = als_model_from_numpy(U, V, 6, 9, {f"u{i}": i for i in range(6)},
+                             {f"i{i}": i for i in range(9)}, {"rank": 4},
+                             device="cpu")
+    placed = pals.ensure_device_resident(m, max_batch=64, device="cpu")
+    assert placed.user_factors.device.type == "cpu"
+    assert np.array_equal(placed.user_factors.numpy(), U)
+    assert np.array_equal(placed.item_factors.numpy(), V)
+
+
+def test_app_server_shutdown_stops_serving_as_the_jax_packages():
+    import socket
+
+    from predictionio_tpu.server import http as jhttp
+    from predictionio_tpu_torch.server import http as phttp
+
+    for pkg in (jhttp, phttp):
+        srv = pkg.AppServer(pkg.HTTPApp("t"), "127.0.0.1", 0)
+        srv.start_background()
+        port = srv.port
+        socket.create_connection(("127.0.0.1", port), timeout=5).close()
+        srv.shutdown()
+        with pytest.raises(OSError):
+            socket.create_connection(("127.0.0.1", port), timeout=5)
+
+
+def test_serving_kernel_status_shows_the_knobs_and_what_serves():
+    import numpy as np
+
+    from predictionio_tpu.server.engineserver import ServerConfig as JCfg
+    from predictionio_tpu_torch.models.convert import als_model_from_numpy
+    from predictionio_tpu_torch.server import engineserver as es
+    from predictionio_tpu_torch.templates.recommendation import (
+        recommendation_engine,
+    )
+
+    rng = np.random.default_rng(6)
+    m = als_model_from_numpy(
+        rng.normal(size=(20, 8)).astype(np.float32),
+        rng.normal(size=(50, 8)).astype(np.float32), 20, 50,
+        {f"u{i}": i for i in range(20)}, {f"i{i}": i for i in range(50)},
+        {"rank": 8}, device="cpu")
+    engine = recommendation_engine()
+    ep = engine.params_from_variant(
+        {"algorithms": [{"name": "als", "params": {"rank": 8}}]})
+    qs = es.QueryServer(engine, ep, [m], es.ServerConfig(
+        device="cpu", warm_start=False, serving_quant="int8",
+        serving_topk="fused"))
+    try:
+        got = qs.status()["servingKernel"]
+        assert got == qs.serving_kernel_status()
+        assert {"configuredQuant", "configuredTopk", "mode", "quant"} <= \
+            set(got)
+        assert (got["configuredQuant"], got["configuredTopk"]) == \
+            ("int8", "fused")
+        assert (got["mode"], got["kernel"]) == ("fused", "fused_topk")
+        assert got["quant"] == es.serving_quant_of(qs.models[0])
+        assert es.ServerConfig().serving_topk == JCfg().serving_topk
+    finally:
+        qs.close()
+
+
+def test_context_rng_draws_alike_for_one_seed():
+    import torch
+
+    from predictionio_tpu_torch.controller.context import Context
+
+    def draws(seed):
+        return torch.rand(8, generator=Context(device="cpu",
+                                               seed=seed).rng())
+
+    assert torch.equal(draws(3), draws(3))
+    assert not torch.equal(draws(3), draws(4))
+    assert Context(device="cpu").rng().device.type == "cpu"
+
+
+def test_context_with_mesh_lays_out_the_local_devices(monkeypatch):
+    from predictionio_tpu_torch import parallel as ppar
+    from predictionio_tpu_torch.controller.context import Context
+
+    monkeypatch.setenv(ppar.FORCE_DEVICE_COUNT_ENV, "4")
+    ctx = Context(device="cpu")
+    mesh = ctx.with_mesh()
+    assert ctx.mesh is mesh and mesh.shape == (4, 1)
+    assert mesh.axis_names == (ppar.DATA_AXIS, ppar.MODEL_AXIS)
+    assert ctx.with_mesh() is mesh
+    given = ppar.make_mesh(data=2, devices=ppar.local_devices("cpu"))
+    assert Context(device="cpu", mesh=given).with_mesh() is given
+
+
+@pytest.mark.parametrize("max_len,pad_rows_to", [(None, 1), (3, 4)])
+def test_pack_histories_and_transpose_coo_are_the_jax_packages(max_len,
+                                                              pad_rows_to):
+    import numpy as np
+
+    import predictionio_tpu.ops.ragged as jrag
+    from predictionio_tpu_torch.ops import ragged as prag
+
+    rng = np.random.default_rng(8)
+    rows = rng.integers(0, 9, size=60).astype(np.int32)
+    cols = rng.integers(0, 13, size=60).astype(np.int32)
+    vals = rng.normal(size=60).astype(np.float32)
+    want = jrag.pack_histories(rows, cols, vals, 10, max_len, pad_rows_to)
+    got = prag.pack_histories(rows, cols, vals, 10, max_len, pad_rows_to)
+    for field in ("indices", "values", "counts"):
+        g = getattr(got, field)
+        assert g.device.type == "cpu"
+        np.testing.assert_array_equal(g.numpy(), getattr(want, field))
+    for g, w in zip(prag.transpose_coo(rows, cols, vals),
+                    jrag.transpose_coo(rows, cols, vals)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_trace_writes_a_chrome_trace_only_where_asked(tmp_path):
+    import json
+
+    import torch
+
+    from predictionio_tpu_torch.utils.tracing import trace
+
+    with trace(None):
+        torch.ones(4).sum()
+    with trace(""):
+        torch.ones(4).sum()
+    out = tmp_path / "traces"
+    with trace(str(out)):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    (path,) = out.iterdir()
+    assert path.suffix == ".json"
+    assert json.loads(path.read_text())["traceEvents"]
+
+
+def test_the_mesh_helpers_are_the_jax_packages(mesh8):
+    import predictionio_tpu.parallel.mesh as jmesh
+    from predictionio_tpu_torch import parallel as ppar
+    from predictionio_tpu_torch.parallel import mesh as pmesh
+
+    port = pmesh.make_mesh(data=4, model=2,
+                           devices=[pmesh.local_devices("cpu")[0]] * 8)
+    for name in ("data_sharding", "model_sharding", "replicated"):
+        want = tuple(a for a in getattr(jmesh, name)(mesh8).spec
+                     if a is not None)
+        assert getattr(pmesh, name)(port) == want, name
+        assert getattr(ppar, name) is getattr(pmesh, name)
+    assert pmesh.single_device_mesh("cpu").shape == \
+        tuple(jmesh.single_device_mesh().devices.shape) == (1, 1)
+    with pmesh.maybe_mesh(None) as m:
+        assert m is None
+    with pmesh.maybe_mesh(port) as m:
+        assert m is port

@@ -369,7 +369,9 @@ def test_server_config_defaults_match_jax():
                  "access_log_sample", "profile_dir", "hot_keys_k",
                  "debug_numerics", "accesskey", "serving_mode",
                  "lane_fail_threshold", "lane_restart_backoff_ms",
-                 "lane_restart_max_attempts"):
+                 "lane_restart_max_attempts", "feedback",
+                 "feedback_app_name", "log_url", "log_prefix",
+                 "batch_window_ms", "serving_topk"):
         assert getattr(got, knob) == getattr(want, knob), knob
 
 
