@@ -197,7 +197,17 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``recommend_next_batch`` p50/p99 at B = 1 and 256, and every
             served list of 256 histories held to its float64
             recomputation (ids equal outside near-ties, scores within
-            1e-4 * (1 + |s|)). Prints steps/s and sequences/s.
+            1e-4 * (1 + |s|)). Prints steps/s and sequences/s. Then
+            data-parallel ``train_seqrec(mesh=)`` over 4 positions on the
+            one card (``PTPU_TORCH_FORCE_DEVICE_COUNT=4``): 64 steps
+            (16,384 windows, one epoch) against the one card's 64 on the
+            same windows, initial weights and negatives. The first step
+            (same weights, batch and negatives) under the sign rule of
+            ``tests/test_torch_sequential.py`` (within 1e-5 where the one
+            card's |g| >= 1e-5, else 2 * lr); after 64 steps the epoch's
+            loss within rtol 1e-4, the weights whose one-card gradient
+            stayed >= 1e-5 at every step within 5e-4, and at least 0.995
+            of all weights within 1e-4; steps/s of each, launches 0.
 6c. stream-kernel — ``models.als.fold_in_rows`` on the card against phase
             6's trained item table (f32, and its int8 serving table), B in
             {64, 2048} touched rows with histories of L = 512 from
@@ -208,6 +218,14 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             ``fused_gram`` and ``chol_solve`` from a ``torch.profiler``
             trace beside their bounds, and each kernel's launches
             (checked positive).
+6d. ring  — ``ring_attention`` over 4 positions on the one card against
+            its one-card path (``mesh=None``) on the card, at the shipped
+            sequential variant's heads and head width (2 x 32), B = 4, S =
+            16,384, causal, left-padded ``key_valid`` (one row padded past
+            most of its window: rows that see no key give 0): f32 within
+            rtol 1e-5, atol 1e-6, bf16 within one bf16 step (2**-7 * (1 +
+            |x|)). Prints each path's ms (median of 3) and
+            ``max_memory_allocated``.
 7. gram-table — ``gram_table`` (no path of the system launches it) held
             against its plain version with phase 5's tolerance at two
             shapes: a 512 x 64 f32 table (in shared memory), B = 8,192,
@@ -520,7 +538,12 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             RMSEs within 1e-3 relative; prints L, the virtual rows, one
             iteration's median ms, a profiled iteration's split into
             ``fused_gram``, ``chol_solve``, other kernels and device idle,
-            and the launches.
+            and the launches. Then the split layout over 4 positions on
+            the one card: 2 explicit iterations and 1 implicit iteration
+            from the same factors, bitwise the one card's split training,
+            the ``fused_gram`` and ``chol_solve`` launches counted (zeroed
+            just before, read just after: each positive), and one
+            iteration's ms on each path (median of 3).
 16. jaxblob — runs after phase 14, in phase 8's ``PIO_HOME``: phase 6's trained
             factors and the surrogate's id maps as a blob in the JAX
             package's layout (``pickle`` protocol 4 of an ``ALSModel``,
@@ -639,7 +662,11 @@ every point its launcher accepts (for ``fused_topk`` every point
 accepted point plus the kernel's static shared memory
 (``cudaFuncGetAttributes``, through ``<name>_static_smem``) must fit the
 card's opt-in limit, read from the card and printed beside its name and
-power limit.
+power limit. The kernel-safety rules (``dma-unwaited``,
+``low-precision-accumulator``, ``missing-interpret-fallback``) are in
+the registry ``cli check`` ran with no baseline, and each finds its
+seeded fault in a scratch package (a ``cp.async`` never waited, a bf16
+shared accumulator, a launcher that returns before its launch).
 
 Phase 4b arms ``serving.dispatch=latency,delay_ms=400,times=1`` for its
 first burst (as ``benchmarks/trace_smoke.py`` does), so the delayed
@@ -658,8 +685,9 @@ its trainings over a mesh, in phase 8's feedback deploy and its retrain
 on deploy, in phases 6b, 11, 12 and 13, for ``fused_topk`` in phase 14's two deploys,
 in phase 4b's counted bursts, in phase 4c's counted part and in phase
 8a's REMOTE training and deploy, phase 15's resumed and split
-trainings, phase 16's deploy, phase 17's fleet process and autoscaled
-fleet, phase 17b's meshes, lanes and sharded stream and phase 18's
+trainings and its split training over 4 positions, phase 16's
+deploy, phase 17's fleet process and autoscaled fleet, phase 17b's
+meshes, lanes and sharded stream and phase 18's
 full-width cycles) and, last, ``{"ok": true,
 "device": {...}}``.
 """
@@ -6105,7 +6133,226 @@ def phase_sequential(data, times, dev, card: dict) -> dict:
           f"{lat[1][1]:.3f} B=256 {lat[256][0]:.3f}/{lat[256][1]:.3f}; "
           f"{len(hist) + 1} lists held to float64 ({tied} reordered inside "
           f"a near-tie) | launches {launches} | {card_tag(card)}", flush=True)
+    seq_over_mesh(seqs, n_items, params, dev, card)
     return launches
+
+
+#: data-parallel seqrec: positions on the one card, steps (one epoch of
+#: SEQ_MESH_STEPS batches), the losses' tolerance against the one card,
+#: and the weights' after SEQ_MESH_STEPS steps: those whose one-card
+#: gradient stayed at least SEQ_GRAD_FLOOR at every step within
+#: SEQ_MESH_SURE_ATOL, and at least SEQ_MESH_NEAR_SHARE of all within
+#: 1e-4 (measured on an H100: 1.236e-04 and 0.99966)
+SEQ_MESH_POSITIONS = 4
+SEQ_MESH_STEPS = 64
+SEQ_MESH_RTOL = 1e-4
+SEQ_MESH_SURE_ATOL = 5e-4
+SEQ_MESH_NEAR_SHARE = 0.995
+
+
+def seq_over_mesh(seqs, n_items, params, dev, card: dict) -> None:
+    """``train_seqrec`` over SEQ_MESH_POSITIONS positions on the one card
+    against the one card: SEQ_MESH_STEPS steps on the same windows, from
+    the same initial weights and negatives (both runs' defaults: the
+    params' seed, a generator on the card).
+
+    - The first step, from the same weights, batch and negatives, under
+      ``tests/test_torch_sequential.py``'s sign rule: every weight within
+      1e-5 of the one card's where the one card's gradient is at least
+      SEQ_GRAD_FLOOR, elsewhere within 2 * lr (Adam's m / sqrt(v) is about
+      +-1 where a gradient is tiny, so one rounding can flip the step).
+    - After SEQ_MESH_STEPS steps: the epoch's loss within SEQ_MESH_RTOL;
+      the sign rule over all the steps (the weights whose one-card
+      gradient stayed at least the floor at every step) within
+      SEQ_MESH_SURE_ATOL, and at least SEQ_MESH_NEAR_SHARE of every
+      weight within 1e-4. Rounding apart, two runs drift as the steps go
+      on, so these limits sit a few times past the drift measured on the
+      card; a wrong gradient scale or divisor moves the weights by about
+      lr a step, far past them.
+
+    The one card's gradients come from a replay of its steps
+    (``loss_and_grads`` and ``adam_update``, what ``train_step`` runs),
+    held bitwise to its ``train_seqrec``."""
+    from predictionio_tpu_torch.models import seqrec
+
+    p = dataclasses.replace(params, num_epochs=1)
+    rows = seqs[:SEQ_MESH_STEPS * p.batch_size]
+    mesh = forced_mesh(SEQ_MESH_POSITIONS, dev)
+    runs = {}
+    for tag, kw in (("one card", {"device": dev}), ("mesh", {"mesh": mesh})):
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model, losses = seqrec.train_seqrec(rows, n_items, p, **kw)
+        torch.cuda.synchronize()
+        runs[tag] = (model, losses, time.perf_counter() - t,
+                     launch_counts())
+    (m1, l1, s1, c1), (mm, lm, sm, cm) = runs["one card"], runs["mesh"]
+
+    def fresh():
+        w = {k: v.to(dev) for k, v in seqrec._init_weights(n_items,
+                                                            p).items()}
+        return (w, {k: torch.zeros_like(v) for k, v in w.items()},
+                {k: torch.zeros_like(v) for k, v in w.items()})
+
+    # the one card's steps again, keeping where each gradient stayed large
+    w, opt_m, opt_v = fresh()
+    sure = {k: torch.ones_like(v, dtype=torch.bool) for k, v in w.items()}
+    sample = seqrec.default_negatives(n_items, p.seed, dev)
+    order = torch.from_numpy(np.random.default_rng(p.seed).permutation(
+        len(rows))).to(dev)
+    xs = torch.from_numpy(rows.astype(np.int64)).to(dev)
+    shape = (p.batch_size, rows.shape[1] - 1, p.n_negatives)
+    for step in range(SEQ_MESH_STEPS):
+        xb = xs[order[step * p.batch_size:(step + 1) * p.batch_size]]
+        negs = sample(step, shape)
+        _, grads = seqrec.loss_and_grads(w, xb, negs, p)
+        for k, g in grads.items():
+            sure[k] &= g.abs() >= SEQ_GRAD_FLOOR
+        seqrec.adam_update(w, opt_m, opt_v, grads, step + 1,
+                           p.learning_rate)
+        if step == 0:
+            first = ({k: x.clone() for k, x in w.items()},
+                     {k: g.abs() >= SEQ_GRAD_FLOOR for k, g in grads.items()},
+                     xb, negs)
+    check(all(torch.equal(w[k], m1.weights[k]) for k in w),
+          "sequential over a mesh: the replayed steps are not the one "
+          "card's train_seqrec")
+    # the first step over the mesh, from the same weights and inputs
+    w1, big1, xb, negs = first
+    wm, mm1, vm1 = fresh()
+    seqrec._MeshStep(wm, mm1, vm1, mesh).step(0, xb, negs, p)
+    step1, step1_sure = 0.0, 0.0
+    for name, x in w1.items():
+        err = (wm[name] - x).abs()
+        e_big = float(err[big1[name]].max()) if big1[name].any() else 0.0
+        step1, step1_sure = max(step1, float(err.max())), max(step1_sure,
+                                                               e_big)
+        check(e_big <= 1e-5 and float(err.max()) <= 2 * p.learning_rate,
+              f"sequential over a mesh, first step: weight {name} off the "
+              f"one card's by {e_big:.3e} where |g| >= {SEQ_GRAD_FLOOR} "
+              f"(limit 1e-5), {float(err.max()):.3e} in all (limit "
+              f"{2 * p.learning_rate})")
+    check(all(bool(torch.isfinite(x).all()) for x in mm.weights.values()),
+          "sequential over a mesh: a trained weight is not finite")
+    check(bool(np.allclose(lm, l1, rtol=SEQ_MESH_RTOL, atol=0.0)),
+          f"sequential over a mesh: losses {lm} against the one card's "
+          f"{l1} (rtol {SEQ_MESH_RTOL})")
+    worst_sure, worst, n_sure, n_all, n_near = 0.0, 0.0, 0, 0, 0
+    for name, x in m1.weights.items():
+        err = (mm.weights[name] - x).abs()
+        if sure[name].any():
+            worst_sure = max(worst_sure, float(err[sure[name]].max()))
+        worst = max(worst, float(err.max()))
+        n_sure += int(sure[name].sum())
+        n_near += int((err <= 1e-4).sum())
+        n_all += err.numel()
+    check(n_sure > 0 and worst_sure <= SEQ_MESH_SURE_ATOL,
+          f"sequential over a mesh, after {SEQ_MESH_STEPS} steps: the "
+          f"{n_sure} weights whose gradient stayed >= {SEQ_GRAD_FLOOR} "
+          f"are off the one card's by {worst_sure:.3e} (limit "
+          f"{SEQ_MESH_SURE_ATOL})")
+    check(n_near >= SEQ_MESH_NEAR_SHARE * n_all,
+          f"sequential over a mesh, after {SEQ_MESH_STEPS} steps: "
+          f"{n_near / n_all:.5f} of the weights within 1e-4 of the one "
+          f"card's (limit {SEQ_MESH_NEAR_SHARE})")
+    check(not any(c1.values()) and not any(cm.values()),
+          f"sequential over a mesh: a kernel launched: {c1} {cm}")
+    print(f"phase sequential mesh: train_seqrec over "
+          f"{SEQ_MESH_POSITIONS} positions on one card, {SEQ_MESH_STEPS} "
+          f"steps of batch {p.batch_size} ({len(rows)} windows): one card "
+          f"{s1:.3f}s = {SEQ_MESH_STEPS / s1:.1f} steps/s, mesh {sm:.3f}s = "
+          f"{SEQ_MESH_STEPS / sm:.1f} steps/s | first step: within "
+          f"{step1_sure:.3e} where |g| >= {SEQ_GRAD_FLOOR} (limit 1e-5), "
+          f"{step1:.3e} in all (limit {2 * p.learning_rate}) | after "
+          f"{SEQ_MESH_STEPS} steps: epoch loss one card {l1[0]:.7f} mesh "
+          f"{lm[0]:.7f} (rtol {SEQ_MESH_RTOL}); {n_near / n_all:.5f} of "
+          f"{n_all} weights within 1e-4 (limit {SEQ_MESH_NEAR_SHARE}), the "
+          f"{n_sure} whose gradient stayed >= {SEQ_GRAD_FLOOR} at every "
+          f"step within {worst_sure:.3e} (limit {SEQ_MESH_SURE_ATOL}), all "
+          f"within {worst:.3e} | "
+          f"launches {cm} | {card_tag(card)}", flush=True)
+
+
+#: the ring: positions on the one card, the batch and sequence, the
+#: left padding of each row's keys, and the tolerances against the
+#: one-card path
+RING_POSITIONS = 4
+RING_B, RING_S = 4, 16384
+RING_PADS = (0, 1000, 5000, 12000)
+RING_RTOL, RING_ATOL = 1e-5, 1e-6
+RING_BF16_STEP = 2.0 ** -7
+
+
+def phase_ring(seed: int, dev, card: dict) -> dict:
+    """``ring_attention`` over RING_POSITIONS positions on the one card
+    against its ``mesh=None`` path on the card, at the shipped sequential
+    variant's heads and head width, causal, with left-padded keys: f32
+    and bf16, each path's ms (median of 3) and peak memory."""
+    from predictionio_tpu_torch.ops.ring_attention import ring_attention
+
+    root = Path(__file__).resolve().parent
+    variant = json.loads((root / "examples" / "sequential" /
+                          "engine.json").read_text())
+    ap = variant["algorithms"][0]["params"]
+    H, D = ap["heads"], ap["dim"] // ap["heads"]
+    g = torch.Generator(device=dev).manual_seed(seed + 71)
+    q, k, v = (torch.randn((RING_B, RING_S, H, D), generator=g, device=dev)
+               for _ in range(3))
+    pos = torch.arange(RING_S, device=dev)[None, :]
+    kv = pos >= torch.tensor(RING_PADS, device=dev)[:, None]
+    dead = ~kv  # causal + left padding: these query rows see no key
+    mesh = forced_mesh(RING_POSITIONS, dev)
+    out = {}
+    for wire, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        qq, kk, vv = (x.to(dt) for x in (q, k, v))
+        res = {}
+        for tag, m in (("one card", None), ("ring", mesh)):
+            def run(m=m):
+                return ring_attention(qq, kk, vv, mesh=m, causal=True,
+                                      key_valid=kv)
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            got = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev)
+            res[tag] = (got.float(), median_ms(run, 3), peak)
+            del got
+        want, got = res["one card"][0], res["ring"][0]
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              f"ring {wire}: a non-finite output")
+        d = (got - want).abs()
+        if wire == "f32":
+            bad = d > RING_ATOL + RING_RTOL * want.abs()
+            tol = f"rtol {RING_RTOL}, atol {RING_ATOL}"
+        else:
+            bad = d > RING_BF16_STEP * (1 + want.abs())
+            tol = f"one bf16 step, {RING_BF16_STEP} (1 + |x|)"
+        check(not bool(bad.any()),
+              f"ring {wire}: {int(bad.sum())} outputs off the one card's "
+              f"({tol}; max |d| {float(d.max()):.3e})")
+        check(bool((got[dead] == 0).all() and (want[dead] == 0).all()),
+              f"ring {wire}: a row that sees no key is not 0")
+        out[wire] = {"max_abs": float(d.max()), "tol": tol,
+                     "ms": {t: r[1] for t, r in res.items()},
+                     "peak": {t: r[2] for t, r in res.items()}}
+        del res, want, got, d, bad, qq, kk, vv
+    torch.cuda.empty_cache()
+    parts = []
+    for wire, o in out.items():
+        parts.append(
+            f"{wire}: max |d| {o['max_abs']:.3e} ({o['tol']}); ms one card "
+            f"{o['ms']['one card']:.3f} ring {o['ms']['ring']:.3f}; "
+            f"max_memory_allocated one card {o['peak']['one card']} ring "
+            f"{o['peak']['ring']} bytes")
+    print(f"phase ring: ring_attention over {RING_POSITIONS} positions on "
+          f"one card against mesh=None, B {RING_B} S {RING_S} heads {H} "
+          f"head width {D}, causal, key padding {list(RING_PADS)} "
+          f"({int(dead.sum())} query rows see no key: 0 on both) | "
+          + " | ".join(parts) + f" | {card_tag(card)}", flush=True)
+    return out
 
 
 def seq_event_lines(data, times, t_shift_ms: int = 0) -> tuple:
@@ -7460,6 +7707,8 @@ def phase_resume(data, dev, work: Path, card: dict) -> dict:
         iter_times.append(time.perf_counter() - t0)
     _, bd = profile_device("phase resume split profile, one iteration",
                            split_iteration)
+    sm = split_over_mesh(ratings, split_params, sp, init, split_iteration,
+                         dev, card)
     print(f"phase resume: train_als rank {RANK} x {TRAIN_ITERS} at ML-20M "
           f"width: without checkpoints {plain_s:.3f}s, saving every "
           f"iteration {ckpt_s:.3f}s | a save: {save_bytes} bytes, median "
@@ -7494,7 +7743,89 @@ def phase_resume(data, dev, work: Path, card: dict) -> dict:
             "fused_topk": counted["fused_topk"],
             "gram_table": counted["gram_table"],
             "split_fused_gram": split_l["fused_gram"],
-            "split_chol_solve": split_l["chol_solve"]}
+            "split_chol_solve": split_l["chol_solve"],
+            "split_mesh_fused_gram": sm["fused_gram"],
+            "split_mesh_chol_solve": sm["chol_solve"]}
+
+
+#: the split layout over a mesh: positions on the one card
+SPLIT_MESH_POSITIONS = 4
+
+
+def split_over_mesh(ratings, split_params, sp, init, split_iteration, dev,
+                    card: dict) -> dict:
+    """The split layout over SPLIT_MESH_POSITIONS positions on the one
+    card from phase resume's initial factors: 2 explicit iterations and 1
+    implicit, each bitwise the one card's split training (``sp``), the
+    ``fused_gram`` and ``chol_solve`` launches counted and held to the
+    pieces and the positions the mesh cut; then one iteration's ms on each
+    path."""
+    import warnings
+
+    from predictionio_tpu_torch.models import als
+
+    n_users, n_items = ratings.n_users, ratings.n_items
+    mesh = forced_mesh(SPLIT_MESH_POSITIONS, dev)
+    t_all = t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        spm = als.pack_ratings(ratings, split_params, mesh=mesh)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    us = spm.mesh_side("user", split_params)
+    its = spm.mesh_side("item", split_params)
+    init_real = (init[0][:n_users], init[1][:n_items])
+    counted = {"fused_gram": 0, "chol_solve": 0}
+    iters = 0
+    for tag, prm in (
+            ("explicit", dataclasses.replace(split_params, num_iterations=2)),
+            ("implicit", dataclasses.replace(
+                split_params, num_iterations=1, implicit_prefs=True,
+                alpha=1.0))):
+        U1, V1 = als.train_als(ratings, prm, device=dev, packed=sp,
+                               init=init)
+        zero_launch_counts()
+        Um, Vm = als.train_als(ratings, prm, mesh=mesh, packed=spm,
+                               init=init_real)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        iters += prm.num_iterations
+        for k in counted:
+            counted[k] += got[k]
+        for name, m, one, n in (("U", Um, U1, n_users),
+                                ("V", Vm, V1, n_items)):
+            whole = als.unshard_table(m)[:n]
+            check(torch.equal(whole, one[:n]),
+                  f"split over {SPLIT_MESH_POSITIONS} positions, {tag}: "
+                  f"{name} is not the one card's bit for bit (max |d| "
+                  f"{(whole - one[:n]).abs().max().item():.3e})")
+    want = {"fused_gram": (us.launches + its.launches) * iters,
+            "chol_solve": (us.solves + its.solves) * iters}
+    check(counted == want and all(counted.values()),
+          f"split over a mesh launched {counted}, its pieces and "
+          f"positions make {want}")
+    Vr = als._replicate(als._initial_tables(
+        split_params, init_real, n_users, us.n_rows_padded, n_items,
+        its.n_rows_padded)[1], mesh)
+
+    def mesh_iteration():
+        Ur = als._mesh_half_step(Vr, us, split_params, mesh, n_items)
+        return als._mesh_half_step(Ur, its, split_params, mesh, n_users)
+
+    one_ms = mesh_iteration_ms(split_iteration)
+    mesh_ms = mesh_iteration_ms(mesh_iteration)
+    print(f"phase resume split mesh: the split layout over "
+          f"{SPLIT_MESH_POSITIONS} positions on one card, pack_ratings(mesh) "
+          f"{pack_s:.3f}s | 2 explicit and 1 implicit iteration bitwise "
+          f"the one card's split training | launches fused_gram="
+          f"{counted['fused_gram']} chol_solve={counted['chol_solve']} "
+          f"({us.launches + its.launches} and {us.solves + its.solves} an "
+          f"iteration: pieces, and positions holding rows) | one iteration "
+          f"ms: one card {one_ms:.3f}, {SPLIT_MESH_POSITIONS} positions "
+          f"{mesh_ms:.3f} ({mesh_ms / one_ms:.3f}x) | this check "
+          f"{time.perf_counter() - t_all:.2f}s | {card_tag(card)}",
+          flush=True)
+    return counted
 
 
 # -- phase 16: a model blob the JAX package wrote -------------------------------
@@ -9586,16 +9917,88 @@ def phase_check(card: dict) -> dict:
         rows[name] = {"point": p, "dynamic": top["bytes"], "static": stat,
                       "points": len(grid)}
     cmp_s = time.perf_counter() - t0
+    caught = kernel_rules_caught()
     print(f"phase check: cli check clean in {check_s:.3f}s (fresh "
           f"process) | {points} grid points, ops/smem.py equal to the C "
           f"exports at every one ({cmp_s:.3f}s) | opt-in limit {optin} "
-          f"bytes a block (the card's) | {card_tag(card)}", flush=True)
+          f"bytes a block (the card's) | kernel-safety rules with no "
+          f"baseline, each catching its seeded fault: "
+          f"{', '.join(f'{r} at {at}' for r, at in caught.items())} | "
+          f"{card_tag(card)}", flush=True)
     for name, r in rows.items():
         print(f"phase check smem {name}: largest accepted point "
               f"{r['point']} dynamic={r['dynamic']} static={r['static']} "
               f"sum={r['dynamic'] + r['static']} of {optin} "
               f"({r['points']} points)", flush=True)
     return {"check_s": check_s, "optin": optin, "smem": rows}
+
+
+#: phase check: one seeded fault for each kernel-safety rule, in a
+#: scratch package (``ops/k.py`` beside ``csrc/k.cu``): a ``cp.async``
+#: never waited, a bf16 shared accumulator, and a launcher that returns
+#: before its launch
+KERNEL_RULE_FIXTURES = {
+    "csrc/k.cu": """\
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d),
+               "l"(src));
+}
+__global__ void unwaited(const float* x) {
+  __shared__ float4 buf[32];
+  cp_async16(&buf[threadIdx.x], x + 4 * threadIdx.x);
+}
+__global__ void narrow(const __nv_bfloat16* x, float* out) {
+  __shared__ __nv_bfloat16 acc[128];
+  acc[threadIdx.x] = acc[threadIdx.x] + x[threadIdx.x];
+  out[threadIdx.x] = __bfloat162float(acc[threadIdx.x]);
+}
+extern "C" int k_f32(const void* x, void* stream) { return 0; }
+""",
+    "ops/k.py": """\
+import ctypes
+
+
+def load_library(name):
+    return ctypes.CDLL(name)
+
+
+def _kernel_lib():
+    return load_library("k")
+
+
+def k(x):
+    if x.shape[0] < 64:
+        return x
+    return _kernel_lib().k_f32(x.data_ptr(), 0)
+""",
+}
+KERNEL_RULES = ("dma-unwaited", "low-precision-accumulator",
+                "missing-interpret-fallback")
+
+
+def kernel_rules_caught() -> dict:
+    """Each kernel-safety rule is registered, and finds exactly its one
+    seeded fault in KERNEL_RULE_FIXTURES: ``{rule: "path:line"}``."""
+    from predictionio_tpu_torch import analysis
+
+    missing = set(KERNEL_RULES) - set(analysis.RULES)
+    check(not missing, f"cli check's registry lacks {missing}")
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    caught = {}
+    with tempfile.TemporaryDirectory(prefix="rules_", dir=scratch) as d:
+        pkg = Path(d) / "pkg"
+        for rel, text in KERNEL_RULE_FIXTURES.items():
+            (pkg / rel).parent.mkdir(parents=True, exist_ok=True)
+            (pkg / rel).write_text(text)
+        for rule in KERNEL_RULES:
+            found = analysis.run_check([str(pkg)], rule_names=[rule])
+            check(len(found) == 1 and found[0].rule == rule,
+                  f"{rule} on its seeded fault found "
+                  f"{[f.format() for f in found]}")
+            caught[rule] = f"{Path(found[0].path).name}:{found[0].line}"
+    return caught
 
 
 # ---------------------------------------------------------------------------
@@ -9987,6 +10390,8 @@ def main(argv=None) -> int:
     with phase("stream-kernel"):
         stream_kernel_l = phase_stream_kernel(trained.pop("item_factors"),
                                               args.seed, dev)
+    with phase("ring"):
+        phase_ring(args.seed, dev, card)
     bd = trained["breakdown"]
     other = bd["device_ms"] - bd["fused_gram"] - bd["chol_solve"]
     print(f"phase train where the time goes, one profiled iteration ms: "
@@ -10051,7 +10456,9 @@ def main(argv=None) -> int:
     # telemetry_launches: the telemetry phase's two counted bursts;
     # storage_launches: the storage phase's REMOTE training and its deploy;
     # resume_launches: the resumed training's (iterations 6-10);
-    # split_launches: one split-layout training's; jaxblob_launches: the
+    # split_launches: one split-layout training's; split_mesh_launches:
+    # the split layout over 4 positions (2 explicit iterations and 1
+    # implicit); jaxblob_launches: the
     # deploy of the JAX-written blob; fleet_launches: the fleet process's
     # (its replicas' serving and warm-up ladders) and the in-process
     # autoscaled fleet's; mesh_launches: phase mesh's (the sharded
@@ -10103,6 +10510,7 @@ def main(argv=None) -> int:
              storage_launches=store_l["fused_gram"],
              resume_launches=resume_l["fused_gram"],
              split_launches=resume_l["split_fused_gram"],
+             split_mesh_launches=resume_l["split_mesh_fused_gram"],
              mesh_launches=mesh_l["fused_gram"],
              train_mesh_launches={k: v["fused_gram"]
                                   for k, v in mesh_train_l.items()},
@@ -10126,6 +10534,7 @@ def main(argv=None) -> int:
              storage_launches=store_l["chol_solve"],
              resume_launches=resume_l["chol_solve"],
              split_launches=resume_l["split_chol_solve"],
+             split_mesh_launches=resume_l["split_mesh_chol_solve"],
              mesh_launches=mesh_l["chol_solve"],
              train_mesh_launches={k: v["chol_solve"]
                                   for k, v in mesh_train_l.items()},

@@ -59,9 +59,11 @@ _C_PRAGMA_RE = re.compile(r"//.*?ptpu:\s*allow\[([^\]]*)\]")
 _NAMESPACE_RE = re.compile(r"\bnamespace\b[\w\s:]*$")
 
 
-def _strip_comments(text: str) -> str:
+def _strip_comments(text: str, strings: bool = True) -> str:
     """C source with comments and string literals blanked (same length,
-    newlines kept), so braces and calls inside them are not read."""
+    newlines kept), so braces and calls inside them are not read; with
+    ``strings=False`` the string literals stay (inline PTX is read
+    there)."""
     out = []
     i, n = 0, len(text)
     while i < n:
@@ -81,7 +83,8 @@ def _strip_comments(text: str) -> str:
             j = i + 1
             while j < n and text[j] != '"':
                 j += 2 if text[j] == "\\" else 1
-            out.append(" " * (min(j + 1, n) - i))
+            out.append(" " * (min(j + 1, n) - i) if strings
+                       else text[i:min(j + 1, n)])
             i = j + 1
         else:
             out.append(text[i])
@@ -153,7 +156,10 @@ def _const_eval(expr: str) -> Optional[int]:
         return None
 
 
-def _c_suppressed(lines: Sequence[str], line: int) -> bool:
+def _c_suppressed(lines: Sequence[str], line: int,
+                  rule: str = RULE) -> bool:
+    """Whether ``// ptpu: allow[rule]`` sits on ``line`` or in the
+    comment block directly above it."""
     candidates = [line]
     ln = line - 1
     while ln >= 1 and lines[ln - 1].strip().startswith("//"):
@@ -163,7 +169,7 @@ def _c_suppressed(lines: Sequence[str], line: int) -> bool:
         m = _C_PRAGMA_RE.search(lines[ln - 1]) if ln <= len(lines) else None
         if m:
             allowed = {r.strip() for r in m.group(1).split(",")}
-            if "*" in allowed or RULE in allowed:
+            if "*" in allowed or rule in allowed:
                 return True
     return False
 

@@ -7,9 +7,13 @@
 ``blocking-under-lock``, ``callback-under-lock``), the lifecycle family
 (:mod:`.lifecycle`: ``leaked-thread``, ``missing-timeout``,
 ``non-atomic-persist``, ``unbounded-queue``, ``hot-spin-loop``),
-``metric-catalog-drift`` (:mod:`.metrics_catalog`) and
+``metric-catalog-drift`` (:mod:`.metrics_catalog`),
 ``smem-overbudget`` (:mod:`.kernels`, the counterpart of the JAX
-package's ``vmem-overbudget`` over ``csrc/``).
+package's ``vmem-overbudget`` over ``csrc/``) and the kernel-safety
+rules (:mod:`.kernel_safety`: ``dma-unwaited``,
+``low-precision-accumulator`` and ``missing-interpret-fallback``, the
+JAX package's Pallas rules read against ``csrc/`` and the ``ops/``
+wrappers).
 
 - ``host-sync-in-hot-path`` — device→host landings inside functions of
   the hot packages (``server/``, ``ops/``), directly or through any
@@ -46,9 +50,7 @@ Not ported, as ``ROADMAP.md`` decided (rules about JAX programs):
 ``missing-donation-sharded``), ``materialized-gather`` and
 ``config-drift``; the numerics family (``low-precision-reduction``,
 ``dequant-outside-funnel``, ``quantize-without-parity-gate``,
-``unguarded-domain``, ``requant-torn-pair``). Still to port, against
-``csrc/`` (``ROADMAP.md`` queue 1): ``dma-unwaited``,
-``low-precision-accumulator`` and ``missing-interpret-fallback``.
+``unguarded-domain``, ``requant-torn-pair``).
 
 Every rule obeys the ``# ptpu: allow[rule] — justification`` pragma
 (see :mod:`.core`).
@@ -321,6 +323,11 @@ from .concurrency import (  # noqa: E402 — registry assembly
     rule_lock_order_inversion,
     rule_unguarded_shared_state,
 )
+from .kernel_safety import (  # noqa: E402 — registry assembly
+    rule_dma_unwaited,
+    rule_low_precision_accumulator,
+    rule_missing_interpret_fallback,
+)
 from .kernels import rule_smem_overbudget  # noqa: E402
 from .lifecycle import (  # noqa: E402 — registry assembly
     rule_hot_spin_loop,
@@ -350,6 +357,23 @@ RULES: Dict[str, Rule] = {r.name: r for r in (
          "unrefused, or a csrc/ launch past 48 KB with no "
          "cudaFuncAttributeMaxDynamicSharedMemorySize opt-in",
          rule_smem_overbudget, project=True),
+    Rule("dma-unwaited",
+         "a cp.async or TMA (cp.async.bulk) copy in a csrc/ kernel with "
+         "no cp.async.wait_group / wait_all or mbarrier wait after it "
+         "before the kernel ends, followed through helper calls",
+         rule_dma_unwaited, project=True),
+    Rule("low-precision-accumulator",
+         "a __half / __nv_bfloat16 variable or shared array accumulated "
+         "into (+=, read-modify-write, __hadd/__hfma chains), or an "
+         "mma.sync / wgmma / WMMA accumulator of f16 or bf16, in csrc/",
+         rule_low_precision_accumulator, project=True),
+    Rule("missing-interpret-fallback",
+         "an ops/ launcher whose CUDA branch can return before its "
+         "kernel launches (off the plain branch, or from an except "
+         "handler), or a csrc/ export taking a stream that no ops/ "
+         "wrapper names: a CUDA tensor reaching neither a kernel nor a "
+         "refusal",
+         rule_missing_interpret_fallback, project=True),
     Rule("unguarded-shared-state",
          "reads/writes of a class's lock-guarded attributes outside "
          "the lock (honors # ptpu: guarded-by[lock])",

@@ -37,7 +37,8 @@ class Context:
     #: algo_train_s covers it)
     stage_timings: Dict[str, float] = field(default_factory=dict)
     _storage: Optional[Storage] = None
-    #: the mesh ALS trains over (``parallel.make_mesh``); None: ``device``
+    #: the mesh ALS and seqrec train over (``parallel.make_mesh``); None:
+    #: ``device``
     mesh: Optional[object] = None
 
     @property

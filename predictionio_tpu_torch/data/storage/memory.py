@@ -2,8 +2,8 @@
 ``predictionio_tpu/data/storage/memory.py``, the tests' backend.
 
 Implements the event-log and metadata DAO contracts; thread-safe, so the
-HTTP servers can call it from their worker threads. Left out: the
-fault-injection points (``ROADMAP.md`` queue 1).
+HTTP servers can call it from their worker threads. Its event-log reads
+and writes fire the ``storage.io`` fault point, as the JAX package's do.
 """
 
 from __future__ import annotations

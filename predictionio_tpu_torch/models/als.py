@@ -66,6 +66,7 @@ into their owning shards.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import hashlib
 import json
@@ -75,7 +76,7 @@ import threading
 import warnings
 import weakref
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -1324,8 +1325,11 @@ def pack_ratings_cached(ratings: RatingsCOO, params: ALSParams,
 # -- training over a mesh ------------------------------------------------------
 #
 # Each position of the mesh updates a block of rows of the side being
-# solved: the pad layout's rows [s * n_per, (s + 1) * n_per), and of every
-# bucket of the bucketed layout the s-th of its even cuts. A position's
+# solved: the pad layout's rows [s * n_per, (s + 1) * n_per), of every
+# bucket of the bucketed layout the s-th of its even cuts, and of the split
+# layout a run of the single card's whole blocks of virtual rows (their
+# partials summed onto the real rows as the single card sums them, then
+# one solve a position: ``_mesh_side_split``). A position's
 # rows are cut where the single card cuts its row blocks, and each piece
 # launches ``fused_gram`` planned as that whole block (``plan_rows``), so
 # every row's normal equations are summed as the single card sums them;
@@ -1348,6 +1352,9 @@ class _Piece:
     counts: torch.Tensor
     offset: int
     plan_rows: int
+    #: the split layout's: each virtual row's real row (host,
+    #: non-decreasing); None for pad and bucket
+    owners: Optional[np.ndarray] = None
 
 
 @dataclass(frozen=True)
@@ -1357,7 +1364,11 @@ class MeshSide:
     ``block_rows_out`` rows, and ``dst[k]`` (on position k's device) maps
     the all-gathered output blocks, in position order, onto the
     factor table's rows (padding to the trash row ``n_rows_padded``);
-    the pad layout needs no map (its blocks are the table in order)."""
+    the pad layout needs no map (its blocks are the table in order).
+    The split layout (one process, so local position k is position k)
+    solves real rows: position k's are ``[row_cuts[k], row_cuts[k +
+    1])``, and ``real_counts[k]`` holds their true totals (one solve a
+    position)."""
 
     kind: str
     n_rows: int
@@ -1365,12 +1376,22 @@ class MeshSide:
     block_rows_out: int
     pieces: Tuple[Tuple[_Piece, ...], ...]
     dst: Tuple[Optional[torch.Tensor], ...]
+    real_counts: Tuple[torch.Tensor, ...] = ()
+    row_cuts: Tuple[int, ...] = ()
 
     @property
     def launches(self) -> int:
-        """``fused_gram`` (and ``chol_solve``) launches of a half-step on
-        this process."""
+        """``fused_gram`` launches of a half-step on this process (and
+        ``chol_solve``'s, but for the split layout: :attr:`solves`)."""
         return sum(len(p) for p in self.pieces)
+
+    @property
+    def solves(self) -> int:
+        """``chol_solve`` launches of a half-step on this process: one a
+        piece, or for the split layout one a position that holds rows."""
+        if self.kind == "split":
+            return sum(int(c.shape[0]) > 0 for c in self.real_counts)
+        return self.launches
 
 
 def _cut_position(idx, val, cnt, start: int, n_live: int, block: int,
@@ -1411,9 +1432,7 @@ def _mesh_side_of(h, n_real: int, mesh: DeviceMesh,
     if isinstance(h, MeshSide):
         return h
     if isinstance(h, SplitHistories):
-        raise NotImplementedError(
-            "history_mode='split' under a mesh is not ported (ROADMAP.md "
-            "queue 1); 'bucket' is the drop-free layout a mesh trains")
+        return _mesh_side_split(h, mesh, params)
     n_dev = mesh.size
     local = mesh.local_positions()
     pieces: List[List[_Piece]] = [[] for _ in local]
@@ -1454,6 +1473,109 @@ def _mesh_side_of(h, n_real: int, mesh: DeviceMesh,
                     tuple(None for _ in local))
 
 
+def _mesh_side_split(h: SplitHistories, mesh: DeviceMesh,
+                     params: ALSParams) -> MeshSide:
+    """The split layout's :class:`MeshSide` over a one-process mesh.
+
+    The single card's blocks (``block_rows``, or the auto size of the
+    unpadded virtual rows) are dealt out whole, an even share of blocks
+    a position in order, and each block is one piece: the single card's
+    ``fused_gram`` launch and :func:`_segment_sum` call on the same
+    rows. A position solves the real rows whose first virtual row it
+    holds (rows with no virtual row go with the rows before them), so a
+    real row whose virtual rows run on into a later position's blocks
+    takes that position's segment sum after its own, in block order
+    (:func:`_mesh_split_solve`): every real row's sum is added in the
+    single card's order. ``row_cuts[p]`` is position p's first real
+    row."""
+    n_dev = mesh.size
+    owners = h.row_ids.cpu().numpy().astype(np.int64)
+    n_live = int(np.searchsorted(owners, h.n_rows))  # padding is last
+    block = _block_of(max(n_live, 1), h.max_len, params)
+    starts = list(range(0, n_live, block))
+    first = [p * len(starts) // n_dev for p in range(n_dev + 1)]
+    n_pad = h.n_rows_padded
+    cuts = [0] + [int(owners[starts[first[p]] - 1]) + 1 if first[p] else 0
+                  for p in range(1, n_dev)] + [n_pad]
+    width = max(cuts[p + 1] - cuts[p] for p in range(n_dev))
+    local = mesh.local_positions()
+    pieces: List[List[_Piece]] = [[] for _ in local]
+    dst_rows, counts = [], []
+    for k, p in enumerate(local):
+        dev = mesh.devices[p]
+        for s in starts[first[p]:first[p + 1]]:
+            e = min(s + block, n_live)
+            pieces[k].append(_Piece(
+                h.indices[s:e].to(dev), h.values[s:e].to(dev),
+                h.counts[s:e].to(dev), 0, e - s, owners[s:e]))
+        r0, r1 = cuts[p], cuts[p + 1]
+        counts.append(h.real_counts[r0:r1].to(dev))
+        dst_rows.append(torch.arange(r0, r0 + width, dtype=torch.int64,
+                                     device=dev))
+        dst_rows[-1][r1 - r0:] = n_pad
+    return MeshSide("split", h.n_rows, n_pad, width,
+                    tuple(tuple(x) for x in pieces),
+                    _mesh_dst(dst_rows, mesh, n_pad), tuple(counts),
+                    tuple(cuts))
+
+
+def _split_accumulate(src: torch.Tensor, pieces: Sequence[_Piece],
+                      row0: int, n: int, params: ALSParams):
+    """One mesh position's split partials: each piece's partials (one
+    ``fused_gram`` launch) and segment sums, the single card's calls on
+    that block, added onto the position's real rows ``[row0, row0 +
+    n)`` in piece order. Returns ``(A_acc, b_acc, carries)``: a piece
+    whose first segment belongs to a real row an earlier position
+    solves hands that segment's sums back as ``(row, A, b)``, in
+    order."""
+    r = src.shape[-1]
+    A_acc = torch.zeros((n, r, r), dtype=torch.float32, device=src.device)
+    b_acc = torch.zeros((n, r), dtype=torch.float32, device=src.device)
+    carries = []
+    for pc in pieces:
+        A_v, b_v = _partials_block(
+            src, pc.indices, pc.values, pc.counts, params.alpha,
+            params.implicit_prefs, params.matmul_dtype == "bfloat16",
+            params.gram_mode)
+        rows, A_s = _segment_sum(A_v, pc.owners)
+        _, b_s = _segment_sum(b_v, pc.owners)
+        lo = int(rows[0] < row0)
+        if lo:
+            carries.append((int(rows[0]), A_s[0], b_s[0]))
+        dst = torch.from_numpy(rows[lo:] - row0).to(src.device)
+        A_acc[dst] += A_s[lo:]
+        b_acc[dst] += b_s[lo:]
+    return A_acc, b_acc, carries
+
+
+def _mesh_split_solve(accs: list, G: List[Optional[torch.Tensor]],
+                      side: MeshSide, params: ALSParams
+                      ) -> List[torch.Tensor]:
+    """Finish a split half-step over a mesh: every carried segment sum
+    added onto its real row's accumulator in position order (a
+    position's own in piece order), after the owner's own blocks, so a
+    row's blocks add in turn as on the single card; then one solve a
+    position that holds rows (one ``chol_solve`` launch). Returns each
+    position's ``[block_rows_out, r]`` output block."""
+    cuts = side.row_cuts
+    for _, _, carries in accs:
+        for row, A_c, b_c in carries:
+            q = bisect.bisect_right(cuts, row) - 1
+            A_q, b_q, _ = accs[q]
+            A_q[row - cuts[q]] += A_c.to(A_q.device)
+            b_q[row - cuts[q]] += b_c.to(b_q.device)
+    outs = []
+    for k, (A, b, _) in enumerate(accs):
+        out = torch.zeros((side.block_rows_out, b.shape[-1]),
+                          dtype=torch.float32, device=b.device)
+        if b.shape[0]:
+            out[:b.shape[0]] = _solve_accumulated(
+                A, b, G[k], side.real_counts[k], params.reg,
+                params.scale_reg_by_count)
+        outs.append(out)
+    return outs
+
+
 def _mesh_half_step(fixed: List[torch.Tensor], side: MeshSide,
                     params: ALSParams, mesh: DeviceMesh,
                     n_fixed: Optional[int] = None) -> List[torch.Tensor]:
@@ -1478,6 +1600,11 @@ def _mesh_half_step(fixed: List[torch.Tensor], side: MeshSide,
             if id(f) not in shadows:
                 shadows[id(f)] = f.bfloat16()
             src = shadows[id(f)]
+        if side.kind == "split":  # accumulators now, solved below
+            outs.append(_split_accumulate(
+                src, side.pieces[k], side.row_cuts[k],
+                int(side.real_counts[k].shape[0]), params))
+            continue
         out = torch.zeros((side.block_rows_out, r), dtype=torch.float32,
                           device=f.device)
         for pc in side.pieces[k]:
@@ -1488,6 +1615,8 @@ def _mesh_half_step(fixed: List[torch.Tensor], side: MeshSide,
                 bf16=params.matmul_dtype == "bfloat16",
                 gram=params.gram_mode, plan_rows=pc.plan_rows)
         outs.append(out)
+    if side.kind == "split":
+        outs = _mesh_split_solve(outs, G, side, params)
     with torch.profiler.record_function("ptpu.all_gather"):
         gathered = all_gather(outs, axis=None, mesh=mesh)
         if side.kind == "pad":
@@ -1829,7 +1958,10 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
     starts from the single device's tables and gives the single device's
     factors bit for bit on the card, explicit and implicit (each device
     takes the implicit Gramian over the whole fixed side, as the single
-    device does). The split layout does not train over a mesh.
+    device does). The split layout trains over a mesh of one process
+    (:func:`_mesh_side_split`), bitwise the single device's too; a
+    process mesh packs it as the bucketed layout, as the JAX package
+    does.
 
     With ``checkpoint_dir`` the factors are saved every
     ``checkpoint_every`` iterations (a directory implies 1) and a

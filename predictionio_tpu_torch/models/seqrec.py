@@ -8,7 +8,8 @@ a key-validity mask over the left-pad slots), a position-wise FFN and
 tied-embedding item scores, trained with sampled-softmax cross-entropy.
 
 Training runs on ``device`` (the card unless the caller asks for the
-CPU): gradients come from ``torch.autograd`` and Adam is inline with the
+CPU), or data parallel over a mesh (section "training over a mesh"):
+gradients come from ``torch.autograd`` and Adam is inline with the
 JAX package's clamps (bias corrections floored at 1e-9, ``sqrt(max(vh,
 0))``). The batch order is ``np.random.default_rng(seed).permutation``
 as in the JAX package, so batches match it row for row. The port cannot
@@ -188,12 +189,10 @@ def _encode(w: Mapping[str, torch.Tensor], seq: torch.Tensor,
     return _layer_norm(x, w["lnf"], w["lnfb"])
 
 
-def sampled_softmax_loss(w: Mapping[str, torch.Tensor], seq: torch.Tensor,
-                         negs: torch.Tensor, p: SeqRecParams
-                         ) -> torch.Tensor:
-    """Next-item loss of one batch: positions 0..L-2 predict 1..L-1, the
-    positive in slot 0 beside ``negs`` ([B, L-1, n_negatives]), averaged
-    over the valid positions (at least 1)."""
+def _loss_sum(w: Mapping[str, torch.Tensor], seq: torch.Tensor,
+              negs: torch.Tensor, p: SeqRecParams) -> torch.Tensor:
+    """``-sum(ll)`` over a batch's valid positions: the numerator of
+    :func:`sampled_softmax_loss`."""
     ctx = _encode(w, seq[:, :-1], p)                # [B, L-1, d]
     targets = seq[:, 1:]
     valid = (targets >= 0) & (seq[:, :-1] >= 0)
@@ -202,8 +201,17 @@ def sampled_softmax_loss(w: Mapping[str, torch.Tensor], seq: torch.Tensor,
     emb = w["item_emb"][cand]                        # [B, L-1, K+1, d]
     logits = torch.einsum("bld,blkd->blk", ctx, emb)
     ll = torch.log_softmax(logits, dim=-1)[..., 0]
-    n = valid.sum().clamp_min(1)
-    return -(torch.where(valid, ll, 0.0).sum()) / n
+    return -(torch.where(valid, ll, 0.0).sum())
+
+
+def sampled_softmax_loss(w: Mapping[str, torch.Tensor], seq: torch.Tensor,
+                         negs: torch.Tensor, p: SeqRecParams
+                         ) -> torch.Tensor:
+    """Next-item loss of one batch: positions 0..L-2 predict 1..L-1, the
+    positive in slot 0 beside ``negs`` ([B, L-1, n_negatives]), averaged
+    over the valid positions (at least 1)."""
+    valid = (seq[:, 1:] >= 0) & (seq[:, :-1] >= 0)
+    return _loss_sum(w, seq, negs, p) / valid.sum().clamp_min(1)
 
 
 def loss_and_grads(w: Dict[str, torch.Tensor], seq: torch.Tensor,
@@ -273,7 +281,7 @@ def default_negatives(n_items: int, seed: int,
 
 
 def train_seqrec(sequences: np.ndarray, n_items: int,
-                 params: SeqRecParams,
+                 params: SeqRecParams, mesh=None,
                  item_ids: Optional[object] = None,
                  events: Optional[Tuple[str, ...]] = None,
                  app_name: str = "", device: DeviceLike = None,
@@ -281,10 +289,16 @@ def train_seqrec(sequences: np.ndarray, n_items: int,
                  negatives: Optional[NegativeSampler] = None,
                  ) -> Tuple[SeqRecModel, List[float]]:
     """Train on ``[N, max_len]`` padded sequences (-1 = pad) on
-    ``device``. ``init`` (host arrays by weight name) replaces the
+    ``device``, or data parallel over ``mesh`` (module section "training
+    over a mesh"). ``init`` (host arrays by weight name) replaces the
     initial draw and ``negatives`` the sampler. Returns (model,
     per-epoch mean loss); one host sync an epoch."""
-    dev = resolve_device(device)
+    if mesh is not None:
+        dev = mesh.devices[mesh.local_positions()[0]]
+        n_dev = mesh.size
+    else:
+        dev = resolve_device(device)
+        n_dev = 1
     seqs = np.asarray(sequences, dtype=np.int32)
     # keep rows with at least one (context, target) pair
     seqs = seqs[(seqs >= 0).sum(axis=1) >= 2]
@@ -300,8 +314,16 @@ def train_seqrec(sequences: np.ndarray, n_items: int,
     opt_v = {k: torch.zeros_like(v) for k, v in w.items()}
     sample = negatives if negatives is not None else \
         default_negatives(n_items, params.seed, dev)
+    if mesh is None:
+        def step_fn(step, xb, negs):
+            return train_step(w, opt_m, opt_v, step, xb, negs, params)
+    else:
+        mesh_step = _MeshStep(w, opt_m, opt_v, mesh)
 
-    B = params.batch_size
+        def step_fn(step, xb, negs):
+            return mesh_step.step(step, xb, negs, params)
+
+    B = max(params.batch_size // n_dev, 1) * n_dev
     L = seqs.shape[1]
     shape = (B, L - 1, params.n_negatives)
     seqs_dev = torch.from_numpy(seqs.astype(np.int64)).to(dev)
@@ -313,19 +335,93 @@ def train_seqrec(sequences: np.ndarray, n_items: int,
         epoch_losses: list = []
         for s in range(0, len(seqs) - B + 1, B):
             xb = seqs_dev[order[s:s + B]]
-            epoch_losses.append(train_step(
-                w, opt_m, opt_v, step, xb, sample(step, shape), params))
+            epoch_losses.append(step_fn(step, xb, sample(step, shape)))
             step += 1
         if not epoch_losses:  # fewer rows than one batch: one partial run
             pad_rows = torch.from_numpy(np.resize(np.arange(len(seqs)), B))
             xb = seqs_dev[pad_rows.to(dev)]
-            epoch_losses.append(train_step(
-                w, opt_m, opt_v, step, xb, sample(step, shape), params))
+            epoch_losses.append(step_fn(step, xb, sample(step, shape)))
             step += 1
         losses.append(float(torch.stack(epoch_losses).mean()))
     return SeqRecModel(weights=w, n_items=n_items, item_ids=item_ids,
                        params=params, events=events,
                        app_name=app_name), losses
+
+
+# -- training over a mesh -----------------------------------------------------
+#
+# Data parallel, as the JAX package's ``train_seqrec(mesh=)``: the weights
+# and Adam's moments are whole on every device, the batch (``B`` rounded
+# to a multiple of the mesh's size) splits its rows over every position
+# (``rows_spec``), each position takes the gradient of its rows' share of
+# the loss, the gradients are summed with ``all_reduce_sum`` in position
+# order, and one Adam update follows on every device. The loss is the
+# whole batch's, ``-sum(ll) / max(valid, 1)``, so a position's share
+# divides by the GLOBAL valid count, taken from the whole batch's ids
+# before any forward pass (every process holds the whole batch, as the
+# JAX package's ``device_put`` of a host array needs): a mean of
+# per-position means would weigh rows wrongly wherever positions hold
+# windows with different padding. The negatives are drawn once for the
+# whole batch, as on one card, and each position takes its rows, so both
+# seams still apply and a mesh run is the one card's up to the order of
+# the gradient sum.
+
+
+class _MeshStep:
+    """One training step over a mesh: the weights and moments of the
+    first local device are the caller's, mirrored on every other device
+    of the process's positions."""
+
+    def __init__(self, w, opt_m, opt_v, mesh):
+        self.mesh = mesh
+        self.local = mesh.local_positions()
+        first = mesh.devices[self.local[0]]
+        self.names = list(w)
+        self.state: Dict[str, tuple] = {str(first): (w, opt_m, opt_v)}
+        for p in self.local:
+            dev = mesh.devices[p]
+            if str(dev) not in self.state:
+                self.state[str(dev)] = tuple(
+                    {k: x.to(dev, copy=True) for k, x in d.items()}
+                    for d in (w, opt_m, opt_v))
+
+    def step(self, step: int, seq: torch.Tensor, negs: torch.Tensor,
+             p: SeqRecParams) -> torch.Tensor:
+        """The step on the whole batch ``seq`` ([B, L]) with its
+        negatives; returns the whole batch's loss (no sync)."""
+        from ..parallel.collectives import all_reduce_sum
+
+        n = self.mesh.size
+        b = seq.shape[0] // n
+        valid = (seq[:, 1:] >= 0) & (seq[:, :-1] >= 0)
+        n_valid = valid.sum().clamp_min(1)
+        names = self.names
+        flats = []
+        for pos in self.local:
+            dev = self.mesh.devices[pos]
+            ws = self.state[str(dev)][0]
+            rows = slice(pos * b, (pos + 1) * b)
+            leaves = {k: v.detach().requires_grad_(True)
+                      for k, v in ws.items()}
+            part = _loss_sum(leaves, seq[rows].to(dev),
+                             negs[rows].to(dev), p) / n_valid.to(dev)
+            grads = torch.autograd.grad(part, [leaves[k] for k in names])
+            flats.append(torch.cat([part.detach().reshape(1)]
+                                   + [g.reshape(-1) for g in grads]))
+        sums = all_reduce_sum(flats, axis=None, mesh=self.mesh)
+        done = set()
+        for pos, total in zip(self.local, sums):
+            key = str(self.mesh.devices[pos])
+            if key in done:
+                continue
+            done.add(key)
+            ws, ms, vs = self.state[key]
+            grads, off = {}, 1
+            for k in names:
+                grads[k] = total[off:off + ws[k].numel()].view_as(ws[k])
+                off += ws[k].numel()
+            adam_update(ws, ms, vs, grads, step + 1, p.learning_rate)
+        return sums[0][0]
 
 
 def place(model: SeqRecModel, device: DeviceLike = None) -> SeqRecModel:

@@ -24,6 +24,14 @@ position, each on that position's device.
 Results for positions that share a device are one tensor, made once:
 four shards on one card read one gathered table, not four copies.
 
+:func:`ring_permute` is the exception to "every block reaches every
+process": over a process mesh each block goes to its ring neighbour
+alone, point to point (``torch.distributed.batch_isend_irecv``), so a
+ring holds one block a position, never all P. gloo sends CPU tensors
+only: a CUDA block is staged through host memory explicitly and counted
+in ``multihost.HOST_STAGED``; every block received from another process
+is counted in ``multihost.P2P_RECEIVED``.
+
 :func:`sharded_top_k` and :func:`merge_candidates` are the serving
 collective: the global top-k of row-sharded candidates, merged in the
 serving kernel's own total order (score descending, then id ascending).
@@ -198,25 +206,88 @@ def ring_permute(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
                  shift: int = 1, *, mesh: DeviceMesh) -> List[torch.Tensor]:
     """``lax.ppermute`` around the ``axis`` ring: the block at index
     ``i`` goes to index ``i + shift`` (mod the group), so each position
-    receives its ring neighbour's block."""
-    blocks = gather_positions(shards, mesh, "ring_permute")
-    out = []
-    for p in mesh.local_positions():
+    receives its ring neighbour's block. Blocks whose neighbour is in
+    this process are copied; over a process mesh the others travel point
+    to point, one block a message (module docstring)."""
+    local = _check_local(shards, mesh)
+    mine = {p: k for k, p in enumerate(local)}
+    out: List[Optional[torch.Tensor]] = [None] * len(local)
+    remote_src: List[Tuple[int, int]] = []   # (receiving position, source)
+    for k, p in enumerate(local):
         group = axis_group(mesh, p, axis)
-        i = axis_index(mesh, p, axis)
-        src = group[(i - shift) % len(group)]
-        out.append(blocks[src].to(mesh.devices[p], copy=True))
+        src = group[(axis_index(mesh, p, axis) - shift) % len(group)]
+        if src in mine:
+            out[k] = shards[mine[src]].to(mesh.devices[p], copy=True)
+        else:
+            remote_src.append((p, src))
+    sends: List[Tuple[int, int]] = []        # (receiving position, source)
+    if mesh.spans_processes:
+        for p in local:
+            group = axis_group(mesh, p, axis)
+            dst = group[(axis_index(mesh, p, axis) + shift) % len(group)]
+            if dst not in mine:
+                sends.append((dst, p))
+    if remote_src or sends:
+        _exchange_p2p(shards, mesh, mine, sends, remote_src, out)
     return out
+
+
+def _exchange_p2p(shards: Sequence[torch.Tensor], mesh: DeviceMesh,
+                  mine: Dict[int, int], sends: List[Tuple[int, int]],
+                  recvs: List[Tuple[int, int]],
+                  out: List[Optional[torch.Tensor]]) -> None:
+    """One ``batch_isend_irecv`` of the ring's cross-process blocks. Each
+    message is tagged with its receiving position, and both sides list
+    their messages in the order of that position, so NCCL (which matches
+    by order) and gloo (by tag) pair them alike."""
+    import torch.distributed as dist
+
+    from . import multihost
+
+    multihost.fire_collective("ring_permute")
+    staged = multihost.backend() == "gloo"
+    group = multihost.device_group()
+    ops, landed = [], []
+    for dst, p in sorted(sends):
+        block = shards[mine[p]].contiguous()
+        if staged and block.device.type == "cuda":
+            # ptpu: allow[host-sync-in-hot-path] — gloo sends CPU tensors
+            # only: this copy is the transport, counted in HOST_STAGED
+            block = block.cpu()
+            multihost.HOST_STAGED["collectives"] += 1
+            multihost.HOST_STAGED["bytes"] += block.nbytes
+        ops.append(dist.P2POp(dist.isend, block, mesh.ranks[dst], group,
+                              tag=dst))
+    for p, src in sorted(recvs):
+        like = shards[mine[p]]
+        dev = mesh.devices[p]
+        host = staged and dev.type == "cuda"
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if host else dev)
+        ops.append(dist.P2POp(dist.irecv, buf, mesh.ranks[src], group,
+                              tag=p))
+        landed.append((p, buf, host))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    for p, buf, host in landed:
+        multihost.P2P_RECEIVED["messages"] += 1
+        multihost.P2P_RECEIVED["bytes"] += buf.nbytes
+        if host:
+            multihost.HOST_STAGED["collectives"] += 1
+            multihost.HOST_STAGED["bytes"] += buf.nbytes
+            buf = buf.to(mesh.devices[p])
+        out[mine[p]] = buf
 
 
 Spec = Union[None, str, Sequence[str]]
 
 
-def _split(x, mesh: DeviceMesh, spec: Spec) -> List[torch.Tensor]:
-    """This process's blocks of ``x`` under ``spec``: the leading
-    dimension split over the spec's axes (every position along the
-    other axes gets the same block), or the whole of ``x`` for a
-    replicated spec (``None`` or ``()``)."""
+def _split(x, mesh: DeviceMesh, spec: Spec, dim: int = 0
+           ) -> List[torch.Tensor]:
+    """This process's blocks of ``x`` under ``spec``: dimension ``dim``
+    (the leading one by default) split over the spec's axes (every
+    position along the other axes gets the same block), or the whole of
+    ``x`` for a replicated spec (``None`` or ``()``)."""
     t = torch.as_tensor(x)
     out = []
     for p in mesh.local_positions():
@@ -227,26 +298,27 @@ def _split(x, mesh: DeviceMesh, spec: Spec) -> List[torch.Tensor]:
         n = 1
         for a in _axes(mesh, spec):
             n *= mesh.shape[a]
-        if t.shape[0] % n:
-            raise ValueError(f"{t.shape[0]} rows do not split over {n} "
-                             f"positions")
-        k = t.shape[0] // n
+        if t.shape[dim] % n:
+            raise ValueError(f"{t.shape[dim]} entries of dimension {dim} "
+                             f"do not split over {n} positions")
+        k = t.shape[dim] // n
         i = axis_index(mesh, p, spec)
-        out.append(t[i * k:(i + 1) * k].to(dev))
+        out.append(t.narrow(dim, i * k, k).to(dev))
     return out
 
 
 def _assemble(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
-              spec: Spec) -> torch.Tensor:
+              spec: Spec, dim: int = 0) -> torch.Tensor:
     """The whole value of per-position outputs under ``spec``: the first
     position's block for a replicated spec, else the blocks of the
-    spec's axes along the first position's row, in order."""
+    spec's axes along the first position's row, in order, joined along
+    dimension ``dim``."""
     if not spec:
         return blocks[0]
     every = gather_positions(list(blocks), mesh, "sharded")
     group = axis_group(mesh, 0, spec)
     dev = blocks[0].device
-    return torch.cat([every[p].to(dev) for p in group])
+    return torch.cat([every[p].to(dev) for p in group], dim=dim)
 
 
 def sharded(mesh: DeviceMesh, in_specs, out_specs,

@@ -57,8 +57,14 @@ _backend: Optional[str] = None
 #: device collectives that went through host memory, and the bytes they
 #: gathered: gloo is a CPU library, so a CUDA tensor handed to it is
 #: copied through the host inside the backend. ``collectives.
-#: gather_positions`` counts each one; NCCL's never are.
+#: gather_positions`` counts each one, and ``ring_permute`` each block it
+#: stages itself (gloo's send and receive take CPU tensors only); NCCL's
+#: never are.
 HOST_STAGED = {"collectives": 0, "bytes": 0}
+
+#: blocks ``collectives.ring_permute`` received point to point from
+#: another process, and their bytes
+P2P_RECEIVED = {"messages": 0, "bytes": 0}
 
 
 def fire_collective(op: str, **labels) -> None:

@@ -220,8 +220,9 @@ class SeqRecAlgorithm(Algorithm):
 
     def train(self, ctx: Context, td: TrainingData) -> SeqRecModel:
         model, _ = train_seqrec(td.sequences, td.n_items, self.params,
-                                item_ids=td.item_ids, events=td.events,
-                                app_name=td.app_name, device=ctx.device)
+                                mesh=ctx.mesh, item_ids=td.item_ids,
+                                events=td.events, app_name=td.app_name,
+                                device=ctx.device)
         return model
 
     def bind_serving(self, ctx: Context) -> None:

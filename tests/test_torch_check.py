@@ -822,8 +822,16 @@ def test_smem_module_imports_nothing():
 # the registry, the repo-wide gate and the cross-check
 # ---------------------------------------------------------------------------
 
+#: the port's rules over csrc/ and the ops/ wrappers: smem-overbudget
+#: (for vmem-overbudget) and the JAX package's three Pallas safety rules
+KERNEL_RULES = {"smem-overbudget", "dma-unwaited",
+                "low-precision-accumulator", "missing-interpret-fallback"}
+
+
 def test_rule_catalogue():
-    assert set(panalysis.RULES) == SHARED | {"smem-overbudget"}
+    assert set(panalysis.RULES) == SHARED | KERNEL_RULES
+    for name in KERNEL_RULES:
+        assert panalysis.RULES[name].project, name
     for name in SHARED - {"host-sync-in-hot-path"}:
         assert panalysis.RULES[name].description \
             == janalysis.RULES[name].description, name

@@ -192,13 +192,126 @@ def test_a_checkpointed_mesh_run_resumes_bitwise(tmp_path, monkeypatch,
     assert pckpt.make_checkpointer(ck).latest_step() == 4
 
 
-def test_the_split_layout_does_not_train_over_a_mesh():
-    r = port_ratings(_ratings(seed=4))
+def skewed_ratings(seed=4):
+    """``_ratings`` plus two heavy users and a heavy item, so that the
+    split layout's real rows run to many virtual rows."""
+    jr = _ratings(seed=seed)
+    rng = np.random.default_rng(seed)
+    heavy_u = np.repeat(np.array([3, 40], np.int32), 30)
+    heavy_i = rng.integers(0, jr.n_items, 60).astype(np.int32)
+    more_u = rng.integers(0, jr.n_users, 40).astype(np.int32)
+    users = np.concatenate([np.asarray(jr.users), heavy_u, more_u])
+    items = np.concatenate([np.asarray(jr.items), heavy_i,
+                            np.full(40, 5, np.int32)])
+    users, items = pals.dedupe_pairs(users, items,
+                                     np.ones(len(users), np.float32))[:2]
+    vals = (rng.random(len(users)) * 4 + 1).astype(np.float32)
+    return pals.RatingsCOO(users, items, vals, jr.n_users, jr.n_items)
+
+
+SPLIT = dict(rank=6, num_iterations=3, seed=3, alpha=2.0,
+             history_mode="split", max_history=4, block_rows=5)
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+@pytest.mark.parametrize("implicit", [False, True],
+                         ids=["explicit", "implicit"])
+def test_the_split_layout_trains_over_a_mesh(implicit, shards):
+    """Bitwise the single device's split training, with blocks of 5
+    virtual rows: real rows straddle the single device's blocks, and
+    positions (whole blocks each) begin inside real rows that an
+    earlier position solves, whose sums it hands back."""
+    r = skewed_ratings()
+    p = pals.ALSParams(**SPLIT, implicit_prefs=implicit)
     with pytest.warns(UserWarning, match="split"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            pals.train_als(r, pals.ALSParams(rank=4, num_iterations=1,
-                                             history_mode="split"),
-                           mesh=mesh_of(4))
+        U1, V1 = pals.train_als(r, p, device="cpu")
+    mesh = mesh_of(shards)
+    with pytest.warns(UserWarning, match="split"):
+        packed = pals.pack_ratings(r, p, mesh=mesh)
+    carried = 0
+    for side, h in (("user", packed.user_h), ("item", packed.item_h)):
+        owners = h.row_ids.numpy()
+        n_live = int(np.searchsorted(owners, h.n_rows))
+        edges = range(5, n_live, 5)
+        assert any(owners[e - 1] == owners[e] for e in edges), side
+        ms = packed.mesh_side(side, p)
+        assert ms.kind == "split" and len(ms.pieces) == shards
+        # every piece is one of the single device's blocks, in order
+        assert [int(pc.indices.shape[0]) for pcs in ms.pieces
+                for pc in pcs] == [min(5, n_live - s)
+                                   for s in range(0, n_live, 5)]
+        assert ms.solves == sum(int(c.shape[0]) > 0
+                                for c in ms.real_counts)
+        carried += sum(pc.owners[0] < ms.row_cuts[k]
+                       for k, pcs in enumerate(ms.pieces) for pc in pcs)
+    assert carried
+    U, V = pals.train_als(r, p, mesh=mesh, packed=packed)
+    np.testing.assert_array_equal(whole(U, r.n_users),
+                                  U1[:r.n_users].numpy())
+    np.testing.assert_array_equal(whole(V, r.n_items),
+                                  V1[:r.n_items].numpy())
+
+
+@pytest.mark.parametrize("implicit", [False, True],
+                         ids=["explicit", "implicit"])
+def test_a_real_row_across_split_positions_trains_bitwise(implicit):
+    """One user's 15 virtual rows run over blocks of 2 that six of 8
+    positions hold: four positions solve no row and hand all their sums
+    to the first, in block order; still the single device's factors bit
+    for bit."""
+    rng = np.random.default_rng(9)
+    users = np.r_[np.zeros(60, np.int32), np.repeat(np.arange(1, 10), 2)]
+    items = np.r_[np.arange(60), rng.integers(0, 60, 18)].astype(np.int32)
+    users, items = pals.dedupe_pairs(users, items,
+                                     np.ones(len(users), np.float32))[:2]
+    vals = (rng.random(len(users)) * 4 + 1).astype(np.float32)
+    r = pals.RatingsCOO(users, items, vals, 10, 60)
+    p = pals.ALSParams(rank=4, num_iterations=2, seed=3, alpha=2.0,
+                       history_mode="split", max_history=4, block_rows=2,
+                       implicit_prefs=implicit)
+    with pytest.warns(UserWarning, match="split"):
+        U1, V1 = pals.train_als(r, p, device="cpu")
+        packed = pals.pack_ratings(r, p, mesh=mesh_of(8))
+    ms = packed.mesh_side("user", p)
+    assert ms.row_cuts[:6] == (0, 1, 1, 1, 1, 1)
+    assert ms.pieces[5][0].owners[0] == 0
+    U, V = pals.train_als(r, p, mesh=mesh_of(8), packed=packed)
+    np.testing.assert_array_equal(whole(U, r.n_users),
+                                  U1[:r.n_users].numpy())
+    np.testing.assert_array_equal(whole(V, r.n_items),
+                                  V1[:r.n_items].numpy())
+
+
+@pytest.mark.parametrize("implicit", [False, True],
+                         ids=["explicit", "implicit"])
+def test_the_split_layout_over_a_mesh_matches_the_jax_mesh8(mesh8,
+                                                             implicit):
+    """``tests/test_als.py::test_split_sharded_matches_single_device``'s
+    limits (rtol 2e-3, atol 2e-4) against the JAX package's split
+    training over ``mesh8``, from its draw."""
+    r = skewed_ratings(seed=6)
+    jr = jals.RatingsCOO(r.users, r.items, r.ratings, r.n_users, r.n_items)
+    kw = dict(SPLIT, implicit_prefs=implicit, block_rows=None)
+    with pytest.warns(UserWarning, match="split"):
+        Uj, Vj = jals.train_als(jr, jals.ALSParams(**kw), mesh=mesh8)
+    with pytest.warns(UserWarning, match="split"):
+        U, V = pals.train_als(r, pals.ALSParams(**kw), mesh=mesh_of(4, 2),
+                              init=jax_draw(3, r.n_users, r.n_items, 6))
+    np.testing.assert_allclose(whole(U, r.n_users),
+                               np.asarray(Uj)[:r.n_users], rtol=2e-3,
+                               atol=2e-4)
+    np.testing.assert_allclose(whole(V, r.n_items),
+                               np.asarray(Vj)[:r.n_items], rtol=2e-3,
+                               atol=2e-4)
+
+
+def test_a_process_mesh_packs_the_split_layout_as_buckets():
+    """As the JAX package does (``pack_ratings_multihost``): the split
+    layout has no layout over processes."""
+    r = skewed_ratings()
+    p = pals.ALSParams(**SPLIT)
+    packed = pals.pack_ratings_multihost(r, p, mesh_of(4), force=True)
+    assert {packed.user_h.kind, packed.item_h.kind} == {"bucket"}
 
 
 def test_packed_for_another_mesh_is_refused():

@@ -138,10 +138,22 @@ def test_ring_attention_bf16_inputs():
                                atol=0.05)
 
 
-def test_ring_attention_over_a_mesh_names_its_queue_item():
-    q, k, v = (_port(x) for x in _qkv())
-    with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-        ring_attention(q, k, v, mesh=object())
+def test_ring_attention_over_a_mesh_is_the_jax_single_device_path(
+        monkeypatch):
+    """The ring over 4 positions (``tests/test_torch_sequence_parallel.py``
+    holds it to the JAX package's ring) gives the single-device answer."""
+    from predictionio_tpu_torch import parallel as ppar
+
+    monkeypatch.setenv(ppar.FORCE_DEVICE_COUNT_ENV, "4")
+    q, k, v = _qkv()
+    kv = _key_valid(2, 12, seed=5)
+    want = np.asarray(jring.ring_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mesh=None,
+        causal=True, key_valid=jnp.asarray(kv)))
+    mesh = ppar.make_mesh(data=4, devices=ppar.local_devices("cpu"))
+    got = ring_attention(_port(q), _port(k), _port(v), mesh=mesh,
+                         causal=True, key_valid=_port(kv))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 def test_the_gradient_through_fully_masked_rows_is_finite():
@@ -635,6 +647,45 @@ def test_learns_successor_structure_with_the_ports_own_draws(pair):
         assert pred.item_scores and f"i{s + 2}" not in top
         hits += f"i{(s + 3) % 24}" in top[:2]
     assert hits >= 2, "successor structure not learned"
+
+
+def test_the_template_trains_over_the_contexts_mesh(pair, mesh8,
+                                                   monkeypatch):
+    """``tests/test_sequential.py``'s ``mesh8`` case: the engine trains
+    over ``ctx.mesh``. With the JAX package's initial weights and
+    negatives the port's 8 positions land on the JAX package's
+    ``mesh8`` training within the seam test's limits, and answer."""
+    from predictionio_tpu_torch import parallel as ppar
+
+    monkeypatch.setenv(ppar.FORCE_DEVICE_COUNT_ENV, "8")
+    ep = _ep(jtpl, jseq.SeqRecParams)
+    jctx = JContext(app_name=APP, _storage=pair.jstore, mesh=mesh8)
+    jmodel = jtpl.sequential_engine().train(jctx, ep).models[0]
+    jp = ep.algorithms[0][1]
+    wn = {k: np.asarray(v) for k, v in jseq._init_weights(
+        jax.random.key(jp.seed), jmodel.n_items, jp).items()}
+    monkeypatch.setattr(seqrec, "_init_weights",
+                        lambda n, p: _torch_weights(wn))
+    monkeypatch.setattr(seqrec, "default_negatives",
+                        lambda n, seed, dev: _key_chain_sampler(seed, n))
+    mesh = ppar.make_mesh(data=4, model=2,
+                          devices=ppar.local_devices("cpu"))
+    ctx = Context(device="cpu", app_name=APP, _storage=pair.store,
+                  mesh=mesh)
+    engine = ptpl.sequential_engine()
+    pep = _ep(ptpl, seqrec.SeqRecParams)
+    model = engine.train(ctx, pep).models[0]
+    n_rows = len(ptpl.SequentialDataSource(ptpl.DataSourceParams(
+        app_name=APP, max_len=16)).read_training(pair.ctx).sequences)
+    steps = SEQ_PARAMS["num_epochs"] * max(
+        n_rows // SEQ_PARAMS["batch_size"], 1)
+    for name, x in model.weights.items():
+        err = np.abs(x.numpy() - np.asarray(jmodel.weights[name]))
+        assert np.mean(err <= 1e-4) >= 0.99, (name, err.max())
+        assert np.all(err <= 2 * steps * SEQ_PARAMS["learning_rate"]), name
+    pred = engine.make_algorithms(pep)[0].predict(
+        model, ptpl.Query(items=("i5", "i6"), num=3))
+    assert pred.item_scores
 
 
 def test_batch_predict_job_binds_the_context(pair, trained):

@@ -22,6 +22,7 @@ from predictionio_tpu.server import eventserver as jev
 from predictionio_tpu.server.http import Request as JRequest
 from predictionio_tpu.server.plugins import EventServerPlugin as JPlugin
 from predictionio_tpu.server.plugins import EventServerPlugins as JPlugins
+from predictionio_tpu.utils import tracing as jtracing
 from predictionio_tpu_torch.data.storage import base as pbase
 from predictionio_tpu_torch.data.storage.registry import Storage as PStorage
 from predictionio_tpu_torch.data.webhooks import (
@@ -34,6 +35,7 @@ from predictionio_tpu_torch.server import eventserver as pev
 from predictionio_tpu_torch.server.http import Request as PRequest
 from predictionio_tpu_torch.server.plugins import EventServerPlugin as PPlugin
 from predictionio_tpu_torch.server.plugins import EventServerPlugins as PPlugins
+from predictionio_tpu_torch.utils import tracing as ptracing
 
 MEMORY = {"PIO_STORAGE_SOURCES_MEM_TYPE": "MEMORY"}
 K = "?accessKey=KEY1"
@@ -53,6 +55,11 @@ def seed(storage, base):
 
 @pytest.fixture(params=[True, False], ids=["stats", "no-stats"])
 def servers(request):
+    # the process-wide ``timed`` spans (``pio_span_seconds``) hold what
+    # earlier tests of this worker recorded: clear both packages', so
+    # each server renders only its own families
+    jtracing.spans.reset()
+    ptracing.spans.reset()
     jst = seed(JStorage(env=MEMORY), jbase)
     pst = seed(PStorage(env=MEMORY), pbase)
     jsrv = jev.create_event_server(jst, host="127.0.0.1", port=0,
