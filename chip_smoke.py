@@ -270,8 +270,10 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             factors. The whole phase runs under ``torch.profiler``,
             which gives the device's busy and idle share.
 8a. storage — the pod storage layout over phase 8's events, in
-            directories of its own. ``cli export`` of the ``pio`` app's
-            2,010,817 events to JSON lines; ``cli import`` of the file
+            directories of its own. The ``pio`` app's 2,010,817 events
+            written as JSON lines in ``cli export``'s format from the
+            arrays phase 8 ingested (``cli export`` of the store is cut:
+            phase 14 times it on its app); ``cli import`` of the file
             into a new SEGMENTFS store through the native codec's bulk
             lane (the import's events/s, the lanes' block counts: any
             Python-lane block fails the phase) and its cold columnar
@@ -294,7 +296,10 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             the float64 top-k of the model read back from the bucket,
             ``fused_topk`` launches positive. ``cli train`` of a copy of
             the SQLite file without its sidecar in a fresh process, whose
-            single thread forks the first encode (its ``read_s``). LOCALFS,
+            single thread forks the first encode (its ``read_s``). A
+            process with a second thread alive reads another copy of that
+            file cold and must encode in-process (never forked), beside
+            the SEGMENTFS steps. LOCALFS,
             every 80th user (cut), in a process beside the SEGMENTFS steps
             and the SQLite copy: the cut of the exported lines, ``cli
             import`` and ``find_columnar`` giving the cut's triples, and
@@ -666,7 +671,19 @@ power limit. The kernel-safety rules (``dma-unwaited``,
 ``low-precision-accumulator``, ``missing-interpret-fallback``) are in
 the registry ``cli check`` ran with no baseline, and each finds its
 seeded fault in a scratch package (a ``cp.async`` never waited, a bf16
-shared accumulator, a launcher that returns before its launch).
+shared accumulator, a launcher that returns before its launch). Then
+``python -m predictionio_tpu_torch.cli audit-numerics`` in a process of
+its own on the card must exit 0 against the committed ``cuda`` section
+of ``analysis/numerics_baseline.json``, and its census must show: each
+serving wire (``device_topk_off``, ``_bf16``, ``_int8``) launching
+``fused_topk``; the bf16 and int8 wires' float32 results below the f32
+size of their item table (no f32 copy of a quantized table);
+``lhs_fused`` launching ``fused_gram`` and ``train_update_block``
+``chol_solve``; ``foldin_update_bf16`` with no reduction at bf16. Last
+a seeded regression, ``ops/gram.py``'s bf16 einsum with its upcast
+dropped, must be flagged by ``low-precision-reduction`` in a scratch
+package and, run on the card, fail the census diff against the
+einsum as shipped.
 
 Phase 4b arms ``serving.dispatch=latency,delay_ms=400,times=1`` for its
 first burst (as ``benchmarks/trace_smoke.py`` does), so the delayed
@@ -3234,6 +3251,43 @@ PIO_USER_STRIDE = 10
 PIO_APP = "MyApp1"
 #: rows per npz column block of the bulk ingest route
 PIO_BLOCK = 100_000
+#: phase pio's first event time (ms since the epoch), and its events sent
+#: one a POST and fifty a POST (at second resolution) before the blocks
+PIO_T0_MS = 1_700_000_000_000
+PIO_SINGLE, PIO_BATCHED = 50, 250
+
+
+def pio_event_times(n: int) -> np.ndarray:
+    """The event times (ms) phase pio's ingest gives its ``n`` events: the
+    single and batched POSTs' at second resolution, then ``t0 + k``."""
+    t = PIO_T0_MS + np.arange(n, dtype=np.int64)
+    head = PIO_SINGLE + PIO_BATCHED
+    t[:head] = t[:head] // 1000 * 1000
+    return t
+
+
+def write_rating_jsonl(path, users, items, stars,
+                       chunk: int = 100_000) -> int:
+    """Phase pio's ``rate`` events as JSON lines in ``cli export``'s
+    format (its keys, order and spacing; an event id and a creation time
+    a line), in the order phase pio ingested them: what phase storage
+    imports. Returns the lines written."""
+    n = len(users)
+    times = np.datetime_as_string(
+        pio_event_times(n).astype("datetime64[ms]"), unit="ms").tolist()
+    with open(path, "w", encoding="utf-8") as f:
+        for s in range(0, n, chunk):
+            e = min(s + chunk, n)
+            f.write("".join(
+                f'{{"event": "rate", "entityType": "user", "entityId": '
+                f'"u{u}", "eventId": "{k:032x}", "targetEntityType": '
+                f'"item", "targetEntityId": "i{i}", "properties": '
+                f'{{"rating": {r!r}}}, "eventTime": "{t}Z", '
+                f'"creationTime": "{t}Z"}}\n'
+                for k, u, i, r, t in zip(
+                    range(s, e), users[s:e].tolist(), items[s:e].tolist(),
+                    [float(x) for x in stars[s:e].tolist()], times[s:e])))
+    return n
 
 #: the eval phase's folds, answer length and the grid's iteration counts
 EVAL_K, EVAL_QUERY_NUM, EVAL_ITERS = 2, 10, (5, 10)
@@ -3626,7 +3680,7 @@ def phase_pio(data, dev, home: str) -> dict:
         args = cli._parser().parse_args(["eventserver", "--ip", "127.0.0.1",
                                          "--port", "0"])
         srv = cli.build_eventserver(args, storage).start_background()
-        t0_ms = 1_700_000_000_000
+        t0_ms = PIO_T0_MS
 
         def event(k: int) -> dict:
             return {"event": "rate", "entityType": "user",
@@ -3639,7 +3693,7 @@ def phase_pio(data, dev, home: str) -> dict:
 
         try:
             t_ingest = time.perf_counter()
-            n_single, n_batch = 50, 250
+            n_single, n_batch = PIO_SINGLE, PIO_BATCHED
             for k in range(n_single):
                 status, _ = _http(srv.port, "POST", f"/events.json{q}",
                                   event(k))
@@ -3684,7 +3738,8 @@ def phase_pio(data, dev, home: str) -> dict:
         find_cold_s = time.perf_counter() - t
         encode = dict(storage.events().last_encode)
         # a process with threads never forks its encode: a child forked
-        # from it could inherit a held lock
+        # from it could inherit a held lock (phase storage's threaded
+        # child reads the same store in-process)
         check(threads == 1 or encode.get("path") == "in-process",
               f"a process with {threads} threads encoded {encode}")
         ctx = Context(device=dev, _storage=storage)
@@ -3891,6 +3946,36 @@ print(json.dumps({"cut_s": cut_s, "import_s": import_s, "find_s": find_s,
 """
 
 
+#: phase ``storage``'s threaded reader in a process of its own (it runs
+#: beside the SEGMENTFS steps): a second thread alive, then the cold
+#: ``find_columnar`` of a copy of the ``pio`` store without its sidecar;
+#: the store must encode in-process (a process with threads never forks:
+#: a child forked from it could inherit a held lock)
+INPROC_MAIN = """\
+import json, sys, threading, time
+from predictionio_tpu_torch.data.storage.registry import Storage
+home, app = sys.argv[1:3]
+hold = threading.Event()
+other = threading.Thread(target=hold.wait, name="held-open")
+other.start()
+try:
+    st = Storage(env={"PIO_HOME": home})
+    app_id = st.apps().get_by_name(app).id
+    threads = threading.active_count()
+    t = time.perf_counter()
+    batch = st.events().find_columnar(app_id, ordered=False,
+                                      with_props=False)
+    read_s = time.perf_counter() - t
+    encode = dict(st.events().last_encode)
+    st.close()
+finally:
+    hold.set()
+    other.join()
+print(json.dumps({"threads": threads, "encode": encode, "n": batch.n,
+                  "read_s": read_s}), flush=True)
+"""
+
+
 class GCPauses:
     """Seconds the cyclic garbage collector held this process, summed
     while installed (``gc.callbacks``)."""
@@ -4047,21 +4132,18 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
                            for a in data[:3])
     sqlite_st = Storage(env={"PIO_HOME": home})
     seg = Storage(env=seg_env)
-    server = bucket = localfs = pod = None
+    server = bucket = localfs = inproc = pod = None
     deploy = None
     device = [] if dev.type == "cuda" else ["--device", "cpu"]
     try:
-        # -- 1. export ------------------------------------------------------
+        # -- 1. the JSON lines to import: phase pio's events, written from
+        # the arrays it ingested (a cli export of these 2 M events took
+        # 70-96 s beside the H100; phase console times cli export on its
+        # own app)
         exported = work / "export.jsonl"
-        out = io.StringIO()
         t = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["export", "--app", PIO_APP, "--output",
-                           str(exported)], storage=sqlite_st)
+        n_out = write_rating_jsonl(exported, users, items, stars)
         export_s = time.perf_counter() - t
-        n_out = int(out.getvalue().split()[1])
-        check(rc == 0 and n_out == len(users),
-              f"cli export: {rc} {out.getvalue()} ({len(users)} stored)")
 
         # -- 7. LOCALFS, every 80th user, in a process beside 2-6 --------
         keep = users % STORAGE_LOCALFS_STRIDE == 0
@@ -4073,6 +4155,18 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
                  str(work / "localfs.npz"), PIO_APP,
                  str(STORAGE_LOCALFS_STRIDE)], stdout=f,
                 stderr=subprocess.STDOUT, cwd=root, env=base_env)
+
+        # -- 7b. the threaded reader, on a copy of the SQLite file without
+        # its sidecar, beside 2-6 ------------------------------------------
+        inproc_home = work / "inproc"
+        inproc_home.mkdir()
+        shutil.copy(Path(home) / "pio.db", inproc_home / "pio.db")
+        inproc_log = work / "inproc.log"
+        with open(inproc_log, "w") as f:
+            inproc = subprocess.Popen(
+                [sys.executable, "-c", INPROC_MAIN, str(inproc_home),
+                 PIO_APP], stdout=f, stderr=subprocess.STDOUT, cwd=root,
+                env=base_env)
 
         # -- 2. import into SEGMENTFS through the native lane ---------------
         out = io.StringIO()
@@ -4270,6 +4364,16 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
               f"the LOCALFS step failed: {lf_log.read_text()[-3000:]}")
         lf_wait_s = time.perf_counter() - t
         lf = json.loads(lf_log.read_text().strip().splitlines()[-1])
+        t = time.perf_counter()
+        check(end_process(inproc, STORAGE_TIMEOUT_S) == 0,
+              f"the threaded reader failed: {inproc_log.read_text()[-3000:]}")
+        inproc_wait_s = time.perf_counter() - t
+        inproc = None
+        rd = json.loads(inproc_log.read_text().strip().splitlines()[-1])
+        check(rd["threads"] > 1 and rd["encode"].get("path") == "in-process"
+              and rd["n"] == n_out,
+              f"a process with {rd['threads']} threads read {rd['n']} of "
+              f"{n_out} events, encoded {rd['encode']}")
         got = np.load(work / "localfs.npz")
         check(lf["n"] == int(keep.sum()) and np.array_equal(
             triples(got["users"], got["items"], got["ratings"]),
@@ -4296,8 +4400,9 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
         left = storage_threads_left(threads_before)
         check(not left, f"the storage phase left threads: {left}")
         print(
-            f"phase storage: export {n_out} events in {export_s:.3f}s = "
-            f"{n_out / export_s:.1f} rows/s | SEGMENTFS cli import "
+            f"phase storage: {n_out} events written as JSON lines in "
+            f"{export_s:.3f}s (cli export of the store cut: phase console "
+            f"times it) | SEGMENTFS cli import "
             f"{cli_import_s:.3f}s: import_jsonl {seconds['import']:.3f}s = "
             f"{n_out / seconds['import']:.1f} events/s, lanes "
             f"{json.dumps(lanes)}, cold sidecar encode (warm_columnar) "
@@ -4323,7 +4428,10 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
             f"find_columnar {pio['find_cold_s']:.3f}s, "
             f"{pio['encode'].get('path')}) "
             f"fused_gram={fork_c['fused_gram']} chol_solve="
-            f"{fork_c['chol_solve']} | LOCALFS 1 user in "
+            f"{fork_c['chol_solve']} | a threaded process's cold read "
+            f"{rd['read_s']:.3f}s ({rd['threads']} threads, encode "
+            f"{rd['encode'].get('path')}; in its process beside steps 2-6, "
+            f"waited for {inproc_wait_s:.3f}s after them) | LOCALFS 1 user in "
             f"{STORAGE_LOCALFS_STRIDE} ({lf['n']} events, cut "
             f"{lf['cut_s']:.3f}s in its process, beside steps 2-6, waited "
             f"for {lf_wait_s:.3f}s after them): "
@@ -4337,7 +4445,7 @@ def phase_storage(data, dev, home: str, pio: dict, card: dict) -> dict:
                         model.item_factors.cpu().numpy()),
             "ids": (model.user_ids.to_dict(), model.item_ids.to_dict())}}
     finally:
-        for proc in (deploy and deploy["proc"], localfs, server):
+        for proc in (deploy and deploy["proc"], localfs, inproc, server):
             if proc is not None and proc.poll() is None:
                 proc.terminate()
                 end_process(proc, 30)
@@ -6995,6 +7103,7 @@ def phase_release(data, dev, home: str, pio: dict, card: dict) -> dict:
                 bind_s.append(time.perf_counter() - t0)
 
             qs.bind_candidate = timed_bind
+            gen0 = qs._warm_gen
             try:
                 ft0 = ft.LAUNCHES
                 code, body = _http(srv.port, "POST", "/release/canary", {
@@ -7032,6 +7141,15 @@ def phase_release(data, dev, home: str, pio: dict, card: dict) -> dict:
                         held_either(qn(u), a, new.id, old.id)
                 rounds += 1
             canary_s = time.perf_counter() - t_canary
+            # the promotion re-warms the new stable binding on a thread of
+            # its own (the controller marks the rollout done before it
+            # rebinds): its ladder's launches are the stable arm's, so
+            # they finish before the arms and the wrapper are read
+            while qs._warm_gen == gen0:
+                check(time.perf_counter() - t_canary < RELEASE_TIMEOUT_S,
+                      "the promotion did not re-warm the stable binding")
+                time.sleep(0.01)
+            warmed(srv)
             canary_arms, cand_ms = arms.take()
             canary_ft = ft.LAUNCHES - ft0
             rel = _http(srv.port, "GET", "/release.json")[1]
@@ -9930,7 +10048,134 @@ def phase_check(card: dict) -> dict:
               f"{r['point']} dynamic={r['dynamic']} static={r['static']} "
               f"sum={r['dynamic'] + r['static']} of {optin} "
               f"({r['points']} points)", flush=True)
-    return {"check_s": check_s, "optin": optin, "smem": rows}
+    numerics = numerics_on_card(
+        torch.device("cuda", torch.cuda.current_device()), card)
+    return {"check_s": check_s, "optin": optin, "smem": rows,
+            "numerics": numerics, "launches": numerics["launches"]}
+
+
+#: phase check: the serving wires and training entries of
+#: ``audit-numerics`` and the kernel each must launch on the card
+NUMERICS_KERNEL_GATES = {
+    "device_topk_off": "fused_topk",
+    "device_topk_bf16": "fused_topk",
+    "device_topk_int8": "fused_topk",
+    "lhs_fused": "fused_gram",
+    "train_update_block": "chol_solve",
+}
+
+#: phase check: ``ops/gram.py``'s bf16 einsum with its upcast dropped
+#: (the JAX package's TestSeededRegressionFailsBothGates, in torch)
+SEEDED_GRAM = """\
+import torch
+
+
+def gram_weighted(F, w, bf16=True):
+    lo = (F * w[..., None]).to(torch.bfloat16)
+    return torch.einsum("...lr,...ls->...rs", lo, F.to(torch.bfloat16))
+"""
+
+
+def numerics_on_card(dev, card: dict) -> dict:
+    """``cli audit-numerics`` on the card in a fresh process against the
+    committed ``cuda`` section, the five census gates, and the seeded
+    bf16 einsum caught by both gates (on the CPU, for a rehearsal: the
+    ``cpu`` section, and no launch is asked for)."""
+    from predictionio_tpu_torch.analysis import numerics_audit as na
+
+    platform = na.platform_of(dev)
+    doc = na.load_manifest(na.DEFAULT_BASELINE)
+    check(na.section(doc, platform) is not None,
+          f"{na.DEFAULT_BASELINE} records no {platform} section")
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    out_path = scratch / "numerics_census.json"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "predictionio_tpu_torch.cli",
+         "audit-numerics", "--out", str(out_path),
+         *(["--device", "cpu"] if platform == "cpu" else [])],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    audit_s = time.perf_counter() - t0
+    check(out.returncode == 0,
+          f"cli audit-numerics exited {out.returncode}: "
+          f"{out.stdout[-3000:]} {out.stderr[-3000:]}")
+    census = json.loads(out_path.read_text())
+    entries = census["entries"]
+    check(census["platform"] == platform
+          and set(entries) == set(na.ENTRY_POINTS),
+          f"the census ran on {census['platform']} over {list(entries)}")
+    for entry, kernel in NUMERICS_KERNEL_GATES.items():
+        check(platform == "cpu" or entries[entry]["kernels"][kernel] >= 1,
+              f"{entry} launched {kernel} "
+              f"{entries[entry]['kernels'][kernel]} times")
+    table_f32 = na.ITEM_ROWS * na.RANK * 4
+    f32 = {q: entries[f"device_topk_{q}"]["bytes"].get("float32", 0)
+           for q in ("bf16", "int8")}
+    check(platform == "cpu" or all(b < table_f32 for b in f32.values()),
+          f"a quantized wire made {f32} f32 result bytes, an item table "
+          f"in f32 is {table_f32}")
+    low = {op: by for op, by in
+           entries["foldin_update_bf16"]["reductions"].items()
+           if any(na.is_low(dt) for dt in by)}
+    check(not low, f"foldin_update_bf16 accumulates below f32: {low}")
+    static_at, violation = seeded_gram_caught(dev)
+    launches = {k: sum(e["kernels"][k] for e in entries.values())
+                for k in na.KERNEL_MODULES}
+    print(f"phase check numerics: cli audit-numerics on {platform} "
+          f"{audit_s:.3f}s (fresh process), {len(entries)} entries equal "
+          f"to the committed {platform} section | launches "
+          f"{ {e: entries[e]['kernels'][k] for e, k in NUMERICS_KERNEL_GATES.items()} } "
+          f"(all entries {launches}) | f32 result bytes bf16={f32['bf16']} "
+          f"int8={f32['int8']} against the f32 item table's {table_f32} | "
+          f"foldin_update_bf16 reductions "
+          f"{entries['foldin_update_bf16']['reductions']} | seeded bf16 "
+          f"einsum: low-precision-reduction at {static_at}, census "
+          f"'{violation}' | {card_tag(card)}", flush=True)
+    return {"audit_s": audit_s, "launches": launches, "f32": f32}
+
+
+def seeded_gram_caught(dev) -> tuple:
+    """The seeded bf16 einsum flagged by the static rule in a scratch
+    ``ops/gram.py``, and its census on the card failing the diff against
+    ``ops/gram.py::gram_weighted`` as shipped: ``(path:line, violation)``."""
+    import importlib.util
+
+    from predictionio_tpu_torch import analysis
+    from predictionio_tpu_torch.analysis import numerics_audit as na
+    from predictionio_tpu_torch.ops.gram import gram_weighted
+
+    with tempfile.TemporaryDirectory(prefix="numerics_",
+                                     dir=ROOT / "build") as d:
+        path = Path(d) / "pkg" / "ops" / "gram.py"
+        path.parent.mkdir(parents=True)
+        path.write_text(SEEDED_GRAM)
+        found = analysis.run_check([str(Path(d) / "pkg")],
+                                   rule_names=["low-precision-reduction"])
+        check(len(found) == 1, f"low-precision-reduction on the seeded "
+              f"einsum found {[f.format() for f in found]}")
+        spec = importlib.util.spec_from_file_location("seeded_gram", path)
+        seeded = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(seeded)
+    g = torch.Generator(device=dev).manual_seed(0)
+    F = torch.randn((64, 32, RANK), generator=g, device=dev)
+    w = torch.rand((64, 32), generator=g, device=dev)
+    shipped = na.census(lambda: gram_weighted(F, w, bf16=True))
+    bad = na.census(lambda: seeded.gram_weighted(F, w))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    golden = {"version": na.MANIFEST_VERSION, "devices": 1,
+              "entries": {"gram": shipped}}
+    clean, _ = na.diff_manifests(golden, golden)
+    check(not clean, f"the shipped einsum against itself: {clean}")
+    violations, _ = na.diff_manifests(
+        {**golden, "entries": {"gram": bad}}, golden)
+    hit = [v for v in violations if "bfloat16" in v
+           and "f32 accumulator" in v]
+    check(bool(hit), f"the seeded einsum's census passed the diff "
+          f"({bad['reductions']} against {shipped['reductions']})")
+    return f"{found[0].path.rsplit('/', 2)[-2]}/gram.py:{found[0].line}", \
+        hit[0].split(" — ")[0]
 
 
 #: phase check: one seeded fault for each kernel-safety rule, in a
@@ -10347,7 +10592,7 @@ def main(argv=None) -> int:
     with phase("build"):
         phase_build()
     with phase("check"):
-        phase_check(card)
+        check_l = phase_check(card)["launches"]
     dev = torch.device("cuda", torch.cuda.current_device())
     rng, U, V = make_tables(args.seed)
     with phase("kernel"):
@@ -10465,7 +10710,8 @@ def main(argv=None) -> int:
     # rankings, the lane processes' bursts and warm-ups, the sharded
     # stream's fold-in and queries, the pinned lanes' serves);
     # audit_launches: phase audit's measured full-width cycles (serving
-    # for fused_topk, the fold-ins for the others)
+    # for fused_topk, the fold-ins for the others); check_launches: phase
+    # check's audit-numerics census, its 13 entries summed
     implicit_l = implicit["launches"]
     store_l = storage_l["launches"]
     kernels = [
@@ -10490,7 +10736,8 @@ def main(argv=None) -> int:
              jaxblob_launches=jaxblob_l["fused_topk"],
              fleet_launches=fleet_l["fused_topk"],
              mesh_launches=mesh_l["fused_topk"],
-             audit_launches=audit_l["fused_topk"], **row),
+             audit_launches=audit_l["fused_topk"],
+             check_launches=check_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -10514,7 +10761,8 @@ def main(argv=None) -> int:
              mesh_launches=mesh_l["fused_gram"],
              train_mesh_launches={k: v["fused_gram"]
                                   for k, v in mesh_train_l.items()},
-             audit_launches=audit_l["fused_gram"], **gram_row),
+             audit_launches=audit_l["fused_gram"],
+             check_launches=check_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -10538,7 +10786,8 @@ def main(argv=None) -> int:
              mesh_launches=mesh_l["chol_solve"],
              train_mesh_launches={k: v["chol_solve"]
                                   for k, v in mesh_train_l.items()},
-             audit_launches=audit_l["chol_solve"], **solve_row),
+             audit_launches=audit_l["chol_solve"],
+             check_launches=check_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -10556,7 +10805,8 @@ def main(argv=None) -> int:
              storage_launches=store_l["gram_table"],
              resume_launches=resume_l["gram_table"],
              mesh_launches=mesh_l["gram_table"],
-             audit_launches=audit_l["gram_table"], **table_row),
+             audit_launches=audit_l["gram_table"],
+             check_launches=check_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

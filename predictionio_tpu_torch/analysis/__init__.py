@@ -1,6 +1,7 @@
 """``check`` — the port's static analysis (the port of
-``predictionio_tpu/analysis``), and ``audit-lifecycle``, its runtime
-complement (:mod:`.lifecycle_audit`).
+``predictionio_tpu/analysis``), and ``audit-lifecycle`` and
+``audit-numerics``, its runtime complements (:mod:`.lifecycle_audit`,
+:mod:`.numerics_audit`).
 
 Public surface:
 
@@ -12,10 +13,10 @@ Public surface:
   over the whole parsed set, against the :class:`~.core.ProjectIndex`
   call graph.
 - :data:`RULES` — the rule registry (name → :class:`Rule`): the
-  concurrency and lifecycle families, ``host-sync-in-hot-path`` with
-  torch's sync calls, ``unbounded-retry``, ``metric-catalog-drift`` and
-  ``smem-overbudget`` over ``csrc/`` (:mod:`.rules` names what was not
-  ported, and why).
+  concurrency, lifecycle, kernel-safety and numerics families,
+  ``host-sync-in-hot-path`` with torch's sync calls, ``unbounded-retry``,
+  ``metric-catalog-drift`` and ``smem-overbudget`` over ``csrc/``
+  (:mod:`.rules` names what was not ported, and why).
 - :func:`findings_to_json` / :func:`findings_to_sarif` — machine
   output (:mod:`.report`), byte for byte the JAX package's.
 - :func:`write_baseline` / :func:`load_baseline` /
@@ -29,7 +30,7 @@ Public surface:
   propagation (blessing the one named helper blesses its callers).
 
 Importing and running the checker loads neither torch nor numpy; only
-:mod:`.lifecycle_audit`'s entries do, inside their setup functions.
+the audits' entries do, inside their setup functions.
 """
 
 from .baseline import (

@@ -34,9 +34,11 @@ Pieces:
   rule never kills the run.
 
 Left out of the JAX package's core, as ``ROADMAP.md`` decided: the mesh
-axis extraction behind the sharding rules, and the gather, spec and
-low-precision sinks of ``materialized-gather``, ``implicit-reshard`` and
-``low-precision-reduction`` (rules about JAX programs).
+axis extraction behind the sharding rules, and the gather and spec sinks
+of ``materialized-gather`` and ``implicit-reshard`` (rules about JAX
+programs). The low-precision sinks of ``low-precision-reduction``
+(:mod:`.numerics`) are kept: a function that reduces a parameter at
+operand precision exports a sink on that position.
 
 The rule catalogue lives in :mod:`.rules`; ``docs/static-analysis.md``
 is the operator-facing reference.
@@ -367,6 +369,11 @@ class FunctionInfo:
         #: param position → Witness: the param is invoked as a
         #: callable (callback-under-lock)
         self.call_sinks: Dict[int, Witness] = {}
+        #: param position → Witness: the param is reduced (sum/matmul/
+        #: einsum/@) at operand precision — no f32 accumulator — so a
+        #: caller passing bf16/f16 inherits the loss
+        #: (low-precision-reduction; collected by analysis/numerics.py)
+        self.lowprec_sinks: Dict[int, Witness] = {}
 
     def hot(self, dir_parts: Set[str]) -> bool:
         return bool(set(self.mod.path.split("/")[:-1]) & dir_parts)
@@ -554,6 +561,11 @@ class ProjectIndex:
             fn.calls.append(CallSite(node.lineno, node.col_offset,
                                      callee, bound, arg_names,
                                      kwarg_names, lambda_args))
+        # numerics-flow direct sites: params this function reduces at
+        # operand precision (low-precision-reduction)
+        from .numerics import collect_lowprec_sinks
+        for pos, w in collect_lowprec_sinks(fn).items():
+            fn.lowprec_sinks[pos] = w
 
     # -- propagation --------------------------------------------------
 
@@ -629,6 +641,13 @@ class ProjectIndex:
                         "callback-under-lock", fn.mod.path, call.line,
                         call.col, "", via=f"{callee.qname}#{pos}")
                     changed = True
+                if pos in callee.lowprec_sinks \
+                        and my_pos not in fn.lowprec_sinks:
+                    fn.lowprec_sinks[my_pos] = Witness(
+                        "low-precision-reduction", fn.mod.path,
+                        call.line, call.col, "",
+                        via=f"{callee.qname}#{pos}")
+                    changed = True
         return changed
 
     # -- chain reconstruction ----------------------------------------
@@ -653,13 +672,14 @@ class ProjectIndex:
     def sink_chain(self, start: FunctionInfo, kind: str, pos: int
                    ) -> List[Tuple[str, Witness]]:
         """Like :meth:`chain` for a param-position sink (``kind`` is
-        ``call``: the only sink the port's rules read)."""
+        ``call`` or ``lowprec``)."""
         hops: List[Tuple[str, Witness]] = []
         fn: Optional[FunctionInfo] = start
         seen: Set[Tuple[str, int]] = set()
         while fn is not None and (fn.qname, pos) not in seen:
             seen.add((fn.qname, pos))
-            sinks = {"call": fn.call_sinks}[kind]
+            sinks = {"call": fn.call_sinks,
+                     "lowprec": fn.lowprec_sinks}[kind]
             w = sinks.get(pos)
             if w is None:
                 break

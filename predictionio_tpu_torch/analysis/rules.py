@@ -9,11 +9,15 @@
 ``non-atomic-persist``, ``unbounded-queue``, ``hot-spin-loop``),
 ``metric-catalog-drift`` (:mod:`.metrics_catalog`),
 ``smem-overbudget`` (:mod:`.kernels`, the counterpart of the JAX
-package's ``vmem-overbudget`` over ``csrc/``) and the kernel-safety
+package's ``vmem-overbudget`` over ``csrc/``), the kernel-safety
 rules (:mod:`.kernel_safety`: ``dma-unwaited``,
 ``low-precision-accumulator`` and ``missing-interpret-fallback``, the
 JAX package's Pallas rules read against ``csrc/`` and the ``ops/``
-wrappers).
+wrappers) and the numerics family (:mod:`.numerics`:
+``low-precision-reduction``, ``dequant-outside-funnel``,
+``quantize-without-parity-gate``, ``unguarded-domain``,
+``requant-torn-pair``, the JAX package's rules with torch's reductions,
+casts and domain ops in place of ``jnp``'s).
 
 - ``host-sync-in-hot-path`` — device→host landings inside functions of
   the hot packages (``server/``, ``ops/``), directly or through any
@@ -48,9 +52,10 @@ Not ported, as ``ROADMAP.md`` decided (rules about JAX programs):
 (``sharding-mismatch``, ``implicit-reshard``,
 ``shard-map-spec-mismatch``, ``unsharded-capture``,
 ``missing-donation-sharded``), ``materialized-gather`` and
-``config-drift``; the numerics family (``low-precision-reduction``,
-``dequant-outside-funnel``, ``quantize-without-parity-gate``,
-``unguarded-domain``, ``requant-torn-pair``).
+``config-drift``. The port places every tensor explicitly and calls
+its collectives by name (``parallel/collectives.py``), so there is no
+``PartitionSpec`` or compiled collective for the sharding family to
+read.
 
 Every rule obeys the ``# ptpu: allow[rule] — justification`` pragma
 (see :mod:`.core`).
@@ -339,6 +344,13 @@ from .lifecycle import (  # noqa: E402 — registry assembly
 from .metrics_catalog import (  # noqa: E402 — registry assembly
     rule_metric_catalog_drift,
 )
+from .numerics import (  # noqa: E402 — registry assembly
+    rule_dequant_outside_funnel,
+    rule_low_precision_reduction,
+    rule_quantize_without_parity_gate,
+    rule_requant_torn_pair,
+    rule_unguarded_domain,
+)
 
 RULES: Dict[str, Rule] = {r.name: r for r in (
     Rule("host-sync-in-hot-path",
@@ -423,4 +435,31 @@ RULES: Dict[str, Rule] = {r.name: r for r in (
          "check nor a pacing/blocking call — pins a core and ignores "
          "shutdown (complements unbounded-retry)",
          rule_hot_spin_loop),
+    Rule("low-precision-reduction",
+         "sum/mean/prod/matmul/mm/bmm/einsum/dot/@ over bf16/f16 "
+         "operands with no dtype=torch.float32 and no upcast first, in "
+         "models/, ops/, streaming/ — directly or through a helper "
+         "chain whose leaf reduction trusts its caller's dtype",
+         rule_low_precision_reduction, project=True),
+    Rule("dequant-outside-funnel",
+         "f32 upcast (.float()/.to(torch.float32)/.type(...)) of "
+         "int8/bf16 or QuantizedFactors.data values outside "
+         "dequantize_table / table_host_f32 / _host_row_f32 — a full-"
+         "precision table copy forfeits the quantized-serving HBM win",
+         rule_dequant_outside_funnel),
+    Rule("quantize-without-parity-gate",
+         "QuantizedFactors(...) / _quantize_rows(...) outside "
+         "quantize_serving_model's NDCG@10 parity probe (and the "
+         "apply_row_updates / extend_factor_rows requantize seams)",
+         rule_quantize_without_parity_gate),
+    Rule("unguarded-domain",
+         "log/sqrt/rsqrt/division on tensor or accumulated values with "
+         "no eps/clamp/maximum/where guard, branch test, or "
+         "bumped-counter proof",
+         rule_unguarded_domain),
+    Rule("requant-torn-pair",
+         "QuantizedFactors.data written (attribute or "
+         "dataclasses.replace) without the paired scale update — rows "
+         "dequantize through stale per-row scales",
+         rule_requant_torn_pair),
 )}

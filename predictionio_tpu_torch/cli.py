@@ -56,6 +56,9 @@
     python -m predictionio_tpu_torch.cli audit-lifecycle [--entry E] \
         [--list-entries] [--cycles 3] [--format text|json] [--out F] \
         [--baseline F [--write-baseline [--baseline-grow]]] [--device cpu]
+    python -m predictionio_tpu_torch.cli audit-numerics [--entry E] \
+        [--list-entries] [--format text|json] [--out F] \
+        [--baseline F] [--write-baseline [--baseline-grow]] [--device cpu]
     python -m predictionio_tpu_torch.cli version|template|shell
     python -m predictionio_tpu_torch.cli run module:callable [ARG ...]
 
@@ -131,15 +134,19 @@ An ``engineFactory``, evaluation or params generator under
 and deploy on the port unchanged; the JAX package is never imported.
 
 ``check`` runs the port's static analysis (``analysis/``: the
-concurrency and lifecycle rule families, host syncs with torch's sync
-calls, ``unbounded-retry``, the metric catalog and the shared-memory
-budget of ``csrc/``) over ``predictionio_tpu_torch`` or the given paths,
-loading neither torch nor the storage; ``audit-lifecycle`` cycles the
-port's servers start→serve→stop on ``--device`` (the card by default)
-and gates the thread/fd/socket leak census against
-``analysis/lifecycle_baseline.json``. Their flags, output and exit codes
-are the JAX package's ``ptpu check`` and ``ptpu audit-lifecycle``.
-``audit-hlo`` and ``audit-numerics`` are XLA's and are not ported.
+concurrency, lifecycle, kernel-safety and numerics rule families, host
+syncs with torch's sync calls, ``unbounded-retry``, the metric catalog
+and the shared-memory budget of ``csrc/``) over ``predictionio_tpu_torch``
+or the given paths, loading neither torch nor the storage;
+``audit-lifecycle`` cycles the port's servers start→serve→stop on
+``--device`` (the card by default) and gates the thread/fd/socket leak
+census against ``analysis/lifecycle_baseline.json``; ``audit-numerics``
+runs the 13 numeric entry points under a ``TorchDispatchMode`` on
+``--device`` and gates their dtype census against the platform's section
+of ``analysis/numerics_baseline.json``. Their flags, output and exit
+codes are the JAX package's ``ptpu check``, ``ptpu audit-lifecycle`` and
+``ptpu audit-numerics``. ``audit-hlo`` reads XLA's output and is not
+ported.
 """
 
 from __future__ import annotations
@@ -1808,6 +1815,100 @@ def cmd_audit_lifecycle(args) -> int:
     return 0
 
 
+def cmd_audit_numerics(args) -> int:
+    """``audit-numerics`` — run the port's numeric entry points at small
+    shapes on ``--device`` (the card unless ``cpu``; without CUDA it
+    raises) under a ``TorchDispatchMode``, extract each one's dtype
+    census (op counts, cast inventory, accumulation dtypes, bytes by
+    dtype, kernel launches) and gate it against the platform's section
+    of the committed golden manifest (``analysis/numerics_baseline.json``)
+    with shrink-only ratchet semantics. The static dtype-flow rules catch
+    the narrowings the AST can see; this catches the ones only a running
+    entry shows. Non-zero exit on new casts / narrowed accumulators /
+    grown bytes / kernels no longer launched (see --baseline-grow).
+    Flags, output and exit codes are the JAX package's ``ptpu
+    audit-numerics``, plus ``--device``."""
+    from .analysis import numerics_audit as na
+
+    if args.list_entries:
+        for name, (_b, desc) in na.ENTRY_POINTS.items():
+            _out(f"{name}: {desc}")
+        return 0
+    try:
+        manifest = na.run_audit(args.entry or None, device=args.device)
+    except na.AuditError as e:
+        _err(f"ptpu audit-numerics: {e}")
+        return 2
+    platform = manifest["platform"]
+    baseline_path = args.baseline or na.DEFAULT_BASELINE
+    if args.out:
+        from .analysis.baseline import atomic_write_text
+
+        atomic_write_text(
+            args.out, json.dumps(manifest, indent=2, sort_keys=True) + "\n")
+    doc = None
+    if os.path.exists(baseline_path):
+        try:
+            doc = na.load_manifest(baseline_path)
+        except (OSError, ValueError) as e:
+            _err(f"ptpu audit-numerics: cannot read baseline: {e}")
+            return 2
+    recorded = na.section(doc, platform) if doc is not None else None
+    if args.write_baseline:
+        cap = None if args.baseline_grow else recorded
+        na.write_manifest(baseline_path, manifest, cap=cap)
+        _err(f"ptpu audit-numerics: wrote "
+             f"{len(manifest['entries'])} entry point(s) to the "
+             f"{platform} section of {baseline_path}"
+             f"{' (ratchet: shrink-only)' if cap is not None else ''}.")
+        if cap is not None:
+            violations, _ = na.diff_manifests(manifest, cap)
+            if violations:
+                _err(f"ptpu audit-numerics: {len(violations)} "
+                     f"regression(s) were NOT absorbed (the baseline "
+                     f"only ratchets down; fix them or re-record "
+                     f"deliberately with --baseline-grow):")
+                for v in violations:
+                    _err(f"  {v}")
+                return 1
+        return 0
+    if args.format == "json":
+        _out(json.dumps(manifest, indent=2, sort_keys=True))
+    else:
+        _out(na.format_text(manifest))
+    if recorded is None:
+        _err(f"ptpu audit-numerics: no {platform} baseline at "
+             f"{baseline_path} — record one with --write-baseline (gate "
+             f"skipped).")
+        return 0
+    baseline = recorded
+    if args.entry:
+        # a subset run gates only the audited entries — the others
+        # were not run, not "no longer reproduced"
+        keep = set(args.entry)
+        baseline = {**baseline,
+                    "entries": {k: v
+                                for k, v in baseline["entries"].items()
+                                if k in keep}}
+    violations, shrinkable = na.diff_manifests(manifest, baseline)
+    if shrinkable:
+        _err(f"ptpu audit-numerics: {len(shrinkable)} baseline entr"
+             f"{'y is' if len(shrinkable) == 1 else 'ies are'} no "
+             f"longer fully reproduced — ratchet down with "
+             f"--write-baseline:")
+        for s in shrinkable:
+            _err(f"  {s}")
+    if violations:
+        _err(f"ptpu audit-numerics: {len(violations)} precision "
+             f"regression(s) vs {baseline_path} ({platform}):")
+        for v in violations:
+            _err(f"  {v}")
+        return 1
+    _err(f"ptpu audit-numerics: the {platform} dtype census matches the "
+         f"golden manifest.")
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -2420,6 +2521,39 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default=None,
                    help="the device the entries train, serve and fold in "
                         "on (default: the CUDA card)")
+
+    s = sub.add_parser("audit-numerics", help="run the numeric entry "
+                       "points at small shapes under a TorchDispatchMode "
+                       "and diff the dtype census (casts, accumulation "
+                       "dtypes, bytes, kernel launches) against the "
+                       "platform's section of the committed golden "
+                       "manifest (the runtime complement of the ptpu "
+                       "check dtype-flow rules)")
+    s.add_argument("--entry", action="append", default=[],
+                   help="audit only the named entry point (repeatable)")
+    s.add_argument("--list-entries", action="store_true",
+                   help="print the entry-point catalogue and exit")
+    s.add_argument("--format", choices=("text", "json"), default="text",
+                   help="output format for the fresh manifest")
+    s.add_argument("--out", default="",
+                   help="also write the fresh manifest JSON to FILE "
+                        "(the CI artifact)")
+    s.add_argument("--baseline", default="",
+                   help="golden manifest to gate against (default: the "
+                        "committed analysis/numerics_baseline.json)")
+    s.add_argument("--write-baseline", action="store_true",
+                   help="record the fresh manifest as its platform's "
+                        "section of the baseline; against an existing "
+                        "section this only RATCHETS (shrinks "
+                        "counts/bytes) and fails on growth")
+    s.add_argument("--baseline-grow", action="store_true",
+                   help="with --write-baseline: allow recording new "
+                        "casts/entries (deliberate precision changes) "
+                        "instead of the shrink-only ratchet")
+    s.add_argument("--device", default=None,
+                   help="the device the entries run on (default: the "
+                        "CUDA card; cpu runs the kernels' plain "
+                        "versions)")
     return p
 
 
@@ -2463,6 +2597,9 @@ def main(argv: Optional[List[str]] = None,
     if args.command == "audit-lifecycle":
         # boots its own in-memory storages on the card (or the CPU)
         return cmd_audit_lifecycle(args)
+    if args.command == "audit-numerics":
+        # small in-memory inputs on the card (or the CPU); no storage
+        return cmd_audit_numerics(args)
     if args.command == "stream":
         return cmd_stream(args)
     if args.command == "trace":

@@ -815,6 +815,9 @@ def pin_user_rows(model: ALSModel, user_indices, capacity: int
     else:
         data, scale = _user_vecs(uf, idx, _table_device(uf))
     quant = table_quant(uf)
+    # ptpu: allow[quantize-without-parity-gate] — a residency move: the
+    # bound table's own rows under its own quant (table_quant), gated
+    # where that table was quantized; nothing is quantized here
     pinned = QuantizedFactors(data, scale, quant) if quant != "off" \
         else data
     _wait_copies([pinned])
@@ -2269,6 +2272,10 @@ def _write_table_rows(table: Table, row_idx: np.ndarray, rows: np.ndarray
     data, scale = _table_leaves(table)
     idx = torch.from_numpy(row_idx).to(data.device)
     if isinstance(table, QuantizedFactors):
+        # ptpu: allow[quantize-without-parity-gate] — apply_row_updates'
+        # requantize seam (its only caller, also through
+        # _write_sharded_rows): the new rows take the quant the gate
+        # already chose for this table, and data and scale swap together
         qd, qs = _quantize_rows(rows, table.quant)
         return QuantizedFactors(
             _write_rows(data, idx, qd),

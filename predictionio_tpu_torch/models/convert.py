@@ -50,9 +50,14 @@ def _table(data, scale, quant: str):
     if quant == "off":
         return torch.from_numpy(np.ascontiguousarray(data, np.float32))
     if quant == "bf16":
+        # ptpu: allow[quantize-without-parity-gate] — decodes a table the
+        # JAX package quantized (and gated) when it wrote the blob;
+        # nothing is quantized here
         return QuantizedFactors(_bf16_tensor(data), None, "bf16")
     if scale is None:
         raise ValueError("an int8 table needs its per-row scales")
+    # ptpu: allow[quantize-without-parity-gate] — the same decode, int8
+    # data with its stored per-row scales
     return QuantizedFactors(
         torch.from_numpy(np.ascontiguousarray(data, np.int8)),
         torch.from_numpy(np.ascontiguousarray(scale, np.float32)

@@ -42,7 +42,11 @@ def gram_weighted(F: torch.Tensor, w: torch.Tensor,
     F = F.float()
     w = w.float()
     if bf16:
+        # ptpu: allow[dequant-outside-funnel] — a round trip through bf16
+        # of the gathered [..., L, r] block (not a table), so the
+        # operands carry the bf16 einsum's precision; the sum stays f32
         Fw = (F * w[..., None]).bfloat16().float()
+        # ptpu: allow[dequant-outside-funnel] — the same round trip of F
         Fc = F.bfloat16().float()
         return torch.einsum("...lr,...ls->...rs", Fw, Fc)
     return torch.einsum("...lr,...ls,...l->...rs", F, F, w)

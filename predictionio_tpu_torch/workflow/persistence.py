@@ -114,6 +114,9 @@ def _get_table(arrays, prefix: str, meta: dict):
         return data
     scale = (_from_numpy(arrays[f"{prefix}.scale"], "float32")
              if meta["scale"] else None)
+    # ptpu: allow[quantize-without-parity-gate] — loads a persisted
+    # table's stored data and scales as they were written; the gate ran
+    # when the table was quantized
     return QuantizedFactors(data, scale, meta["quant"])
 
 

@@ -826,12 +826,21 @@ def test_smem_module_imports_nothing():
 #: (for vmem-overbudget) and the JAX package's three Pallas safety rules
 KERNEL_RULES = {"smem-overbudget", "dma-unwaited",
                 "low-precision-accumulator", "missing-interpret-fallback"}
+#: the numerics family, read in torch's idiom (its descriptions name
+#: torch's spellings; tests/test_torch_numerics.py holds it to the JAX
+#: package's cases)
+NUMERICS_RULES = {"low-precision-reduction", "dequant-outside-funnel",
+                  "quantize-without-parity-gate", "unguarded-domain",
+                  "requant-torn-pair"}
 
 
 def test_rule_catalogue():
-    assert set(panalysis.RULES) == SHARED | KERNEL_RULES
+    assert set(panalysis.RULES) == SHARED | KERNEL_RULES | NUMERICS_RULES
     for name in KERNEL_RULES:
         assert panalysis.RULES[name].project, name
+    for name in NUMERICS_RULES:
+        assert panalysis.RULES[name].project \
+            == janalysis.RULES[name].project, name
     for name in SHARED - {"host-sync-in-hot-path"}:
         assert panalysis.RULES[name].description \
             == janalysis.RULES[name].description, name
