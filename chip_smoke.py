@@ -227,15 +227,16 @@ Phases, each printing one line of numbers, any failure exits non-zero:
             |x|)). Prints each path's ms (median of 3) and
             ``max_memory_allocated``.
 7. gram-table — ``gram_table`` (no path of the system launches it) held
-            against its plain version with phase 5's tolerance at two
-            shapes: a 512 x 64 f32 table (in shared memory), B = 8,192,
-            L = 512 from ``--seed``; and the ML-20M width, the 26,744 x 64
-            initial item table with the user side's L = 512 bucket
-            (8,192 rows), the block phase 5 reports for ``fused_gram``.
-            Each must take its path (1, the table in shared memory; 2,
-            rows gathered through L2). The ML-20M block is also timed
-            with a persisting L2 window over the table and without one,
-            in alternation on one stream.
+            against its plain version with phase 5's tolerance on both
+            wires: a 512 x 64 table from ``--seed``, B = 8,192, L = 512,
+            forced to each path (1, the table in shared memory; 2, rows
+            gathered through L2) and automatic; 512 x 10 and 512 x 128;
+            the ML-20M width, the 26,744 x 64 initial item table with
+            the user side's L = 512 bucket (8,192 rows), the block phase
+            5 reports for ``fused_gram``; B = 8,191, L = 500 with indices
+            outside the table; a split launch (40 rows of 2,048) run
+            twice, bit for bit. Each launch takes its plan's path, and A
+            is exactly symmetric.
 8. pio    — the lifecycle in a temporary ``PIO_HOME`` (SQLite): ``app
             new`` through the CLI, the event server on a free port, every
             rating of every 10th surrogate user (2,010,817 at seed 0) sent
@@ -3048,18 +3049,6 @@ def profile_device(label: str, fn) -> tuple:
 
 # -- the last kernel and the pio lifecycle ----------------------------------
 
-class _Window(ctypes.Structure):
-    """``cudaAccessPolicyWindow``."""
-    _fields_ = [("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t),
-                ("hitRatio", ctypes.c_float), ("hitProp", ctypes.c_int),
-                ("missProp", ctypes.c_int)]
-
-
-class _StreamAttr(ctypes.Union):
-    """``cudaStreamAttrValue`` (64 bytes)."""
-    _fields_ = [("window", _Window), ("pad", ctypes.c_char * 64)]
-
-
 def _cudart() -> ctypes.CDLL:
     """The CUDA runtime this process already loaded for torch, else the
     toolkit's."""
@@ -3070,115 +3059,143 @@ def _cudart() -> ctypes.CDLL:
                        else "/usr/local/cuda/lib64/libcudart.so")
 
 
-@contextlib.contextmanager
-def l2_window(stream, tensor):
-    """A persisting L2 access-policy window over ``tensor`` on ``stream``
-    (the persisting carve-out raised to its size) for the body; after it
-    the window is cleared, the persisting lines reset and the previous
-    carve-out restored."""
-    rt = _cudart()
-    handle = ctypes.c_void_p(stream.cuda_stream)
+#: the tensor cores' published dense TF32 peak (gram_table's products)
+TF32_PEAK_OPS = 495e12
 
-    def ok(err, what):
-        check(err == 0, f"{what} failed: CUDA error {err}")
 
-    limit_id = 6  # cudaLimitPersistingL2CacheSize
-    attr_id = 1   # cudaStreamAttributeAccessPolicyWindow
-    nbytes = tensor.numel() * tensor.element_size()
-    prev, got = ctypes.c_size_t(0), ctypes.c_size_t(0)
-    ok(rt.cudaDeviceGetLimit(ctypes.byref(prev), limit_id),
-       "cudaDeviceGetLimit")
-    ok(rt.cudaDeviceSetLimit(limit_id, ctypes.c_size_t(nbytes)),
-       "cudaDeviceSetLimit")
-    ok(rt.cudaDeviceGetLimit(ctypes.byref(got), limit_id),
-       "cudaDeviceGetLimit")
-    val = _StreamAttr()
-    val.window.base_ptr = tensor.data_ptr()
-    val.window.num_bytes = nbytes
-    val.window.hitRatio = min(1.0, got.value / nbytes)
-    val.window.hitProp = 2   # cudaAccessPropertyPersisting
-    val.window.missProp = 1  # cudaAccessPropertyStreaming
-    ok(rt.cudaStreamSetAttribute(handle, attr_id, ctypes.byref(val)),
-       "cudaStreamSetAttribute")
-    back = _StreamAttr()
-    ok(rt.cudaStreamGetAttribute(handle, attr_id, ctypes.byref(back)),
-       "cudaStreamGetAttribute")
-    check(back.window.num_bytes == nbytes, "the L2 window did not take")
-    try:
-        yield got.value
-    finally:
-        stream.synchronize()
-        val.window.num_bytes = 0
-        ok(rt.cudaStreamSetAttribute(handle, attr_id, ctypes.byref(val)),
-           "cudaStreamSetAttribute")
-        ok(rt.cudaCtxResetPersistingL2Cache(), "cudaCtxResetPersistingL2Cache")
-        ok(rt.cudaDeviceSetLimit(limit_id, prev), "cudaDeviceSetLimit")
+def table_bounds(B: int, L: int, rows: int, r: int, itemsize: int,
+                 passes: int) -> tuple:
+    """(ms, by, tensor-core ms, by) for one gram_table call: the
+    ``rows`` distinct table rows the indices name, the indices and both
+    weights read once, A and b written once; the r^2 + 4r operations a
+    slot of ``gram_bound`` at the f32 peak, and again ``passes`` times
+    at the TF32 peak (the split products: 3 on the f32 wire, 2 on the
+    bf16 wire, whose F is exact)."""
+    nbytes = rows * r * itemsize + B * L * 12 + B * (r * r + r) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    ops = B * L * (r * r + 4.0 * r)
+    out = ()
+    for t_ops in (ops / PEAK_OPS["f32"] * 1e3,
+                  ops * passes / TF32_PEAK_OPS * 1e3):
+        out += ((t_ops, "operations") if t_ops >= t_bytes
+                else (t_bytes, "bytes"))
+    return out
+
+
+def table_inputs(rng, m: int, r: int, B: int, L: int, dev, outside=False):
+    """An N(0, 1) [m, r] f32 table, uniform indices and weights in [0, 1)
+    on the card; with ``outside`` 3% of the indices below 0 and 3% past
+    the table."""
+    idx = rng.integers(0, m, (B, L)).astype(np.int32)
+    if outside:
+        hit = rng.random((B, L))
+        idx[hit < 0.03] = -1
+        idx[(hit >= 0.03) & (hit < 0.06)] = m + 7
+    return tuple(torch.from_numpy(x).to(dev) for x in (
+        rng.standard_normal((m, r), dtype=np.float32), idx,
+        rng.random((B, L), dtype=np.float32),
+        rng.random((B, L), dtype=np.float32)))
 
 
 def phase_gram_table(seed: int, table_block, dev) -> dict:
-    """``gram_table`` against its plain version at its two shapes; times
-    beside its bound (``gram_bound``: the same function as fused_gram),
-    the plain version's and the library's (gather, then ``torch.bmm``).
-    The ML-20M block is also timed with a persisting L2 window over the
-    table and without one, in alternation on one stream."""
+    """``gram_table`` against its plain version on both wires: the 512-row
+    table at r = 64 taking each path and the automatic one, at r = 10 and
+    r = 128 too; the ML-20M block (the 26,744 x 64 initial item table,
+    the user side's L = 512 bucket, its 0/1 weights); a B that is no
+    multiple of a block's workers and an L no multiple of 32 with
+    indices outside the table; a split launch, run twice and compared
+    bit for bit. Each case prints its plan, ``ms``, ``queued_ms``, its
+    bounds (f32 operations, and the split products at the TF32 peak), the
+    plain version's and the library's ms."""
     from predictionio_tpu_torch.ops import gram
 
     rng = np.random.default_rng(seed + 3)
-    m, r, B, L = 512, RANK, 8192, 512
-    small = (torch.from_numpy(rng.standard_normal((m, r), dtype=np.float32)
-                              ).to(dev),
-             torch.from_numpy(rng.integers(0, m, (B, L)).astype(np.int32)
-                              ).to(dev),
-             torch.from_numpy(rng.random((B, L), dtype=np.float32)).to(dev),
-             torch.from_numpy(rng.random((B, L), dtype=np.float32)).to(dev))
-    small_rows = int(torch.unique(small[1]).numel())
-    cases = (("table in shared memory", 1, small + (small_rows,)),
-             ("ML-20M width item table", 2, table_block))
-    row = {}
-    for tag, want_path, (tab, idx, wa, wb, rows) in cases:
-        A, b = gram.gram_table(tab, idx, wa, wb)
-        torch.cuda.synchronize()
-        path = gram.LAST_PATH
-        check(path == want_path, f"gram_table {tag} took path {path}, not "
-              f"{want_path}")
-        Ar, br = gram.gram_table_reference(tab, idx, wa, wb)
-        Bn, Ln = idx.shape
-        err = check_gram(f"gram_table {tag}", A, b, Ar, br, tab, wa, wb)
-        del A, b, Ar, br
-        ms = median_ms(lambda: gram.gram_table(tab, idx, wa, wb), 10)
-        plain_ms = median_ms(lambda: gram.gram_table_reference(
-            tab, idx, wa, wb), 3)
-        lib_ms = median_ms(lambda: library_gram(tab, idx, wa, wb), 3)
-        b_ms, b_by = gram_bound(Bn, Ln, rows, tab.shape[1], "f32")
-        print(f"phase gram-table: {tag} m={tab.shape[0]} r={tab.shape[1]} "
-              f"B={Bn} L={Ln} path={path} max_abs_err={err:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-              f"bound_ms={b_ms:.5f} bound_by={b_by}", flush=True)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-
-    # path 2 with the table pinned in L2 and without: does pinning pay?
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    plain_l2, pinned = [], []
-    with torch.cuda.stream(side):
-        for _ in range(4):
-            plain_l2.append(median_ms(
-                lambda: gram.gram_table(tab, idx, wa, wb), 10))
-            with l2_window(side, tab) as carve:
-                pinned.append(median_ms(
-                    lambda: gram.gram_table(tab, idx, wa, wb), 10))
-    torch.cuda.current_stream(dev).wait_stream(side)
-    base = float(np.median(plain_l2))
-    print(f"phase gram-table: ML-20M block through L2, without / with a "
-          f"persisting window over the table ({tab.numel() * 4} B, carve-out "
-          f"{carve} B) ms: {' '.join(f'{t:.4f}' for t in plain_l2)} / "
-          f"{' '.join(f'{t:.4f}' for t in pinned)} | median "
-          f"{base:.4f} / {float(np.median(pinned)):.4f}, window gain "
-          f"{base / float(np.median(pinned)) - 1:+.4f}, spread without "
-          f"{(max(plain_l2) - min(plain_l2)) / min(plain_l2):.4f}",
-          flush=True)
-    return row  # the ML-20M width case, the same work as fused_gram's row
+    optin = smem_optin(dev.index or 0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    small = table_inputs(rng, 512, RANK, 8192, 512, dev)
+    cases = [(f"512x{RANK} {p}", small, p, True)
+             for p in ("auto", 1, 2)]
+    cases += [("ML-20M block", tuple(table_block[:4]), "auto", True)]
+    for r in (10, 128):
+        t = table_inputs(rng, 512, r, 8192, 512, dev)
+        cases += [(f"512x{r} {p}", t, p, True) for p in ("auto", 2)]
+    cases += [("odd B and L, outside indices",
+               table_inputs(rng, 512, RANK, 8191, 500, dev, outside=True),
+               "auto", False),
+              ("split, outside indices",
+               table_inputs(rng, 26744, RANK, 40, 2048, dev, outside=True),
+               "auto", False)]
+    row, results = {}, []
+    for tag, (tab32, idx, wa, wb), want, timed in cases:
+        rows = int(torch.unique(idx.clamp(0, tab32.shape[0] - 1)).numel())
+        for wire, tab in (("f32", tab32), ("bf16", tab32.bfloat16())):
+            m, r = tab.shape
+            B, L = idx.shape
+            path = 0 if want == "auto" else want
+            if path == 1 and gram.gram_resident_bytes(
+                    m, r, tab.element_size()) > optin:
+                continue  # rank 128 in f32: the table does not fit
+            plan = gram.table_plan(m, r, tab.element_size(), B, L, n_sm,
+                                   optin, path, tab.data_ptr() % 16 == 0)
+            name = f"gram_table {tag} {wire}"
+            gram.LAUNCHES = 0
+            A, b = gram.gram_table(tab, idx, wa, wb, path=path)
+            torch.cuda.synchronize()
+            check(gram.LAUNCHES == 1 and gram.LAST_PATH == plan.path,
+                  f"{name}: {gram.LAUNCHES} launches, path "
+                  f"{gram.LAST_PATH}, plan {plan.path}")
+            check(torch.equal(A, A.transpose(1, 2)),
+                  f"{name}: A is not exactly symmetric")
+            if plan.splits > 1:
+                A2, b2 = gram.gram_table(tab, idx, wa, wb, path=path)
+                torch.cuda.synchronize()
+                check(torch.equal(A, A2) and torch.equal(b, b2),
+                      f"{name}: two runs of {plan.splits} splits differ")
+                del A2, b2
+            Ar, br = gram.gram_table_reference(tab, idx, wa, wb)
+            # the same function for the library's gather: an index outside
+            # the table a clipped one with no weight (and no weight in the
+            # tolerance)
+            out = (idx < 0) | (idx >= m)
+            ref = (tab, idx.clamp(0, m - 1), wa.masked_fill(out, 0.0),
+                   wb.masked_fill(out, 0.0))
+            err = check_gram(name, A, b, Ar, br, tab, ref[2], ref[3])
+            del A, b, Ar, br
+            line = (f"phase gram-table: {tag} {wire} m={m} r={r} B={B} "
+                    f"L={L} path={plan.path} plan=(workers={plan.workers} "
+                    f"warps={plan.warps} threads={plan.threads} "
+                    f"blocks={plan.blocks} splits={plan.splits} "
+                    f"smem={plan.smem_bytes} staging="
+                    f"{'cp.async-16B' if plan.vec16 else 'element-wise'}) "
+                    f"max_abs_err={err:.3e}")
+            if timed:
+                call = lambda: gram.gram_table(tab, idx, wa, wb, path=path)
+                ms = median_ms(call, 10)
+                q_ms = queued_ms(call, 10)
+                plain_ms = median_ms(lambda: gram.gram_table_reference(
+                    tab, idx, wa, wb), 3)
+                lib_ms = median_ms(lambda: library_gram(*ref), 3)
+                b_ms, b_by, tc_ms, tc_by = table_bounds(
+                    B, L, rows, r, tab.element_size(),
+                    2 if wire == "bf16" else 3)
+                line += (f" ms={ms:.4f} queued_ms={q_ms:.4f} "
+                         f"bound_ms={b_ms:.5f} bound_by={b_by} "
+                         f"tc_bound_ms={tc_ms:.5f} tc_bound_by={tc_by} "
+                         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}")
+                results.append((tag, wire, plan.path, ms))
+                if tag == "ML-20M block" and wire == "f32":
+                    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "library_ms": lib_ms, "queued_ms": q_ms,
+                           "tc_bound_ms": tc_ms}
+            print(line, flush=True)
+    by = {(t, w, p): ms for t, w, p, ms in results}
+    for wire in ("f32", "bf16"):
+        p1 = by.get((f"512x{RANK} 1", wire, 1))
+        p2 = by.get((f"512x{RANK} 2", wire, 2))
+        print(f"phase gram-table: 512x{RANK} {wire} path 1 / path 2 ms "
+              f"{p1:.4f} / {p2:.4f} ({p1 / p2:.3f}x)", flush=True)
+    return row  # the ML-20M block in f32, the same work as fused_gram's row
 
 
 #: the lifecycle's subset of the surrogate: every rating of 1 user in 10
@@ -8258,6 +8275,27 @@ def fleet_snapshot(agg: int) -> dict:
                              for _, st in own.values()))
 
 
+def fleet_ring_report(snap: dict) -> str:
+    """Why a replica left the ring: ``/route.json``'s state of each
+    replica (failures in a row, seconds of ejection left), the router's
+    ejections and transport errors by replica, and the lifecycle's and
+    the autoscaler's decisions."""
+    states = "; ".join(
+        f"{b['replica']} {b['state']} failures={b['consecutiveFailures']} "
+        f"ejectedForSec={b['ejectedForSec']} inflight={b['inflight']} "
+        f"requests={b['requests']}" for b in snap["route"]["replicas"])
+    ejections = {c["labels"].get("replica"): c["value"] for c in
+                 _children(snap["merged"], "pio_router_ejections_total")}
+    errors = {r: v for (f, r, o), v in snap["counter"].items()
+              if f == "pio_router_requests_total" and o != "ok"}
+    auto = snap["fleet"].get("autoscale") or {}
+    return (f"route.json: {states} | ejections {ejections} | requests "
+            f"not ok {errors} | lifecycle {auto.get('lifecycle')} "
+            f"{json.dumps(auto.get('replicas'))} removed "
+            f"{auto.get('removed')} | autoscaler decisions "
+            f"{json.dumps(auto.get('decisions'))}")
+
+
 def counter_sum(snap: dict, fam: str, outcome=None) -> float:
     return sum(v for (f, _, o), v in snap["counter"].items()
                if f == fam and (outcome is None or o == outcome))
@@ -8281,8 +8319,8 @@ def fleet_routed_burst(tag, agg, router, queries, U64, V64, dev,
     after = fleet_snapshot(agg)
     check(before["members"] == after["members"],
           f"{tag}: the ring changed during the burst "
-          f"({before['members']} -> {after['members']}; decisions "
-          f"{after['fleet']['autoscale'].get('decisions')})")
+          f"({before['members']} -> {after['members']}) | "
+          f"{fleet_ring_report(after)}")
     fleet_f64_check(tag, queries, [r[0] for r in res], U64, V64, dev)
     ring = HashRing(before["members"])
     routed = [r[3] for r in res]

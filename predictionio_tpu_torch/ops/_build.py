@@ -37,6 +37,12 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 #: Hopper with its architecture-specific features (wgmma, setmaxnreg)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of one source on top of :data:`NVCC_FLAGS`: ``gram_table.cu``'s
+#: 32 kernels are optimized on every core, or its build alone would set
+#: the wall time of every cold build (phase ``console`` of
+#: ``chip_smoke.py`` times each source's ``nvcc``)
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "gram_table": ("--split-compile=0",)}
 
 #: held while a library builds or loads: a kernel call that needs a
 #: library being built waits here, never half-built
@@ -100,7 +106,7 @@ def _target(name: str) -> Path:
     digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + SOURCE_FLAGS.get(name, ())).encode())
     return root() / digest.hexdigest()[:16] / f"lib{name}.so"
 
 
@@ -112,7 +118,8 @@ def _start(name: str, nvcc: str) -> "subprocess.Popen[str] | None":
         return None
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     with open(tmp.with_suffix(".log"), "w") as log_f:
         return subprocess.Popen(cmd, stdout=log_f,
                                 stderr=subprocess.STDOUT, text=True)

@@ -146,7 +146,7 @@ def _chol_grid():
             yield (R, warps)
 
 
-# ---- fused_gram and gram_table (csrc/gram_tile.cuh, csrc/gram_table.cu) ----
+# ---- fused_gram (csrc/gram_tile.cuh) ----------------------------------------
 
 #: kMaxRank, kChunk, kMetaRing of the tile; the f32 and bf16 wires
 GRAM_MAX_RANK = 128
@@ -166,28 +166,104 @@ def gram_stage_bytes(r: int, itemsize: int) -> int:
     return max(staging, out)
 
 
-def gram_resident_bytes(m: int, r: int, itemsize: int) -> int:
-    """Shared memory of ``gram_table``'s path 1 (``gram_table.cu``
-    resident_smem): the whole ``[m, r]`` table, 16-byte aligned, then the
-    tile's staging."""
-    return ((m * r * itemsize + 15) & ~15) + gram_stage_bytes(r, itemsize)
-
-
 def _gram_grid():
     for itemsize in GRAM_WIRES:
         for r in range(1, GRAM_MAX_RANK + 1):
             yield (r, itemsize)
 
 
-def _resident_grid():
-    """Table heights up to the largest that could fit, at every rank and
-    wire; the launcher takes path 1 only where the card's opt-in limit
-    holds the block and path 2 (the tile alone) elsewhere."""
+# ---- gram_table (csrc/gram_table.cu) ----------------------------------------
+
+#: slots of indices and weights a group (a lane each); the most workers
+#: of a path-2 block whose workers are several warps (named barriers
+#: 1..15)
+TABLE_GROUP = 32
+TABLE_MAX_BARRIER_WORKERS = 15
+#: buffers of gathered rows a path-2 worker takes (kBuffers)
+TABLE_BUFFERS = 2
+
+
+def table_worker_warps(strips: int) -> int:
+    """Warps of a row worker at ``strips`` 16-row strips of A
+    (``gram_table.cu`` worker_warps): one a pair of strips."""
+    return (strips + 1) // 2
+
+
+def table_max_threads(strips: int) -> int:
+    """Most threads of a block at ``strips`` strips (``gram_table.cu``
+    max_threads, its kernels' launch bounds): what the register file
+    gives warps that hold 2 S + 2 tiles of 4 sums each (16 warps leave
+    128 registers a thread, 12 leave 168)."""
+    if strips <= 2:
+        return 640
+    if strips <= 4:
+        return 512
+    return 384
+
+
+def table_row_words(r: int, itemsize: int) -> int:
+    """32-bit words a table row takes in shared memory (``gram_table.cu``
+    row_words): whole 16-column strips of A, then up to a stride of 8 or
+    24 words past a multiple of 32, so that the four slots of a k-step
+    read four bank windows."""
+    w = -(-r // 16) * 16 * itemsize // 4
+    while w % 32 != 8 and w % 32 != 24:
+        w += 4
+    return w
+
+
+def gram_resident_bytes(m: int, r: int, itemsize: int) -> int:
+    """Shared memory of ``gram_table``'s path 1: the whole ``[m, r]``
+    table and a zero row (for indices outside it), at
+    :func:`table_row_words` a row."""
+    return (m + 1) * table_row_words(r, itemsize) * 4
+
+
+def gram_staged_bytes(r: int, itemsize: int, workers: int) -> int:
+    """Shared memory of ``gram_table``'s path 2: :data:`TABLE_BUFFERS`
+    buffers of :data:`TABLE_GROUP` gathered rows for each of ``workers``
+    workers."""
+    return (workers * TABLE_BUFFERS * TABLE_GROUP
+            * table_row_words(r, itemsize) * 4)
+
+
+def gram_table_bytes(path: int, m: int, r: int, itemsize: int,
+                     workers: int) -> int:
+    """Dynamic shared memory of one ``gram_table`` block
+    (``gram_table.cu`` table_smem): path 1 the resident table, path 2
+    the workers' buffers."""
+    if path == 1:
+        return gram_resident_bytes(m, r, itemsize)
+    return gram_staged_bytes(r, itemsize, workers)
+
+
+def table_workers(path: int, r: int, itemsize: int,
+                  limit: int = SMEM_LIMIT) -> int:
+    """Row workers of one block (``ops/gram.py::table_plan``): as many
+    as the strips' thread budget gives; on path 2 no more than the
+    named barriers and ``limit`` bytes of buffers allow."""
+    strips = -(-r // 16)
+    warps = table_worker_warps(strips)
+    workers = table_max_threads(strips) // (32 * warps)
+    if path == 2:
+        if warps > 1:
+            workers = min(workers, TABLE_MAX_BARRIER_WORKERS)
+        workers = min(workers, limit // gram_staged_bytes(r, itemsize, 1))
+    return workers
+
+
+def _table_grid():
+    """Every (path, m, r, itemsize, workers) ``table_plan`` can launch:
+    path 2 at every rank and wire (its bytes do not hang on the table),
+    path 1 at table heights up to the largest that could fit; the plan
+    takes path 1 only where the card's opt-in limit holds the block."""
     for itemsize in GRAM_WIRES:
         for r in range(1, GRAM_MAX_RANK + 1):
+            yield (2, 1, r, itemsize, table_workers(2, r, itemsize))
+            workers = table_workers(1, r, itemsize)
             m = 1
             while m * r * itemsize <= 2 * SMEM_LIMIT:
-                yield (m, r, itemsize)
+                yield (1, m, r, itemsize, workers)
                 m *= 2
 
 
@@ -196,8 +272,9 @@ def _never(point, nbytes) -> bool:
 
 
 def _over_optin(point, nbytes) -> bool:
-    # gram_table.cu launch: path 1 only when resident_smem <= the card's
-    # cudaDevAttrMaxSharedMemoryPerBlockOptin
+    # gram_table.cu launch: a plan only within the card's
+    # cudaDevAttrMaxSharedMemoryPerBlockOptin (table_plan takes path 2
+    # where the resident table does not fit)
     return nbytes > SMEM_LIMIT
 
 
@@ -233,9 +310,9 @@ KERNELS = {
         "source": "gram_table.cu",
         "launch": "kern",
         "export": "gram_table_smem_bytes",
-        "args": ("m", "r", "itemsize"),
-        "bytes": lambda p: gram_resident_bytes(*p),
-        "grid": _resident_grid,
+        "args": ("path", "m", "r", "itemsize", "workers"),
+        "bytes": lambda p: gram_table_bytes(*p),
+        "grid": _table_grid,
         "refuses": _over_optin,
     },
 }

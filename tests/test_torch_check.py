@@ -742,6 +742,7 @@ def test_every_launch_in_the_ports_csrc_is_read():
         "fused_topk_kernel<T>": ("fused_topk.cu", "smem", True),
         "merge_topk_kernel": ("fused_topk.cu", "0", False),
         "kern": ("gram_table.cu", "smem", True),
+        "gram_tile::sum_partials": ("gram_table.cu", "0", False),
         "gram_rows_kernel<T>": ("gram_tile.cuh", "smem", True),
         "sum_partials": ("gram_tile.cuh", "0", False),
     }
@@ -802,14 +803,28 @@ def test_smem_gives_the_numbers_solve_plan_gives():
             assert (p.rank, p.warps_per_block) in grid
 
 
+def _table_c_words(r, itemsize):
+    """csrc/gram_table.cu row_words, transcribed."""
+    w = (r + 15) // 16 * 16 * itemsize // 4
+    return w + {0: 8, 4: 4, 8: 0, 12: 12, 16: 8, 20: 4, 24: 0, 28: 12}[w % 32]
+
+
 def test_smem_gram_formulas_are_the_tiles():
+    """fused_gram's tile (gram_tile.cuh stage_bytes) and gram_table's
+    two paths (gram_table.cu table_smem), transcribed."""
     for r in range(1, 129):
         for itemsize in (4, 2):
             staging = 2 * 32 * ((r + 7) // 8 * 8) * itemsize + 3 * 32 * 12
             want = max(staging, (r * (r + 1) + r) * 4)
             assert smem.gram_stage_bytes(r, itemsize) == want
-            assert smem.gram_resident_bytes(3, r, itemsize) \
-                == (3 * r * itemsize + 15) // 16 * 16 + want
+            words = _table_c_words(r, itemsize)
+            assert words % 32 in (8, 24)
+            assert words * 4 >= (r + 15) // 16 * 16 * itemsize
+            assert smem.gram_resident_bytes(3, r, itemsize) == 4 * words * 4
+            assert smem.gram_table_bytes(1, 3, r, itemsize, 7) \
+                == 4 * words * 4
+            assert smem.gram_table_bytes(2, 3, r, itemsize, 7) \
+                == 7 * 2 * 32 * words * 4
 
 
 def test_smem_module_imports_nothing():

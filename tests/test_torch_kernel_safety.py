@@ -665,15 +665,17 @@ def test_the_ports_tree_is_clean(rule):
 
 def test_the_rules_read_every_kernel_and_the_pipelines_in_csrc():
     """Every ``__global__`` function of the port's sources is found, and
-    the two double-buffered gathers are seen to issue and to wait."""
+    the double-buffered gathers (and gram_table's table load) are seen
+    to issue and to wait."""
     fns = [fn for path in sorted((PORT / "csrc").iterdir())
            for fn in ks._functions(ks._CFile(str(path), path.read_text()))]
     kernels = {fn.name for fn in fns if fn.kernel}
     assert {"gram_rows_kernel", "fused_topk_kernel", "merge_topk_kernel",
-            "gram_table_resident", "chol_solve_regs",
+            "gram_table_kernel", "chol_solve_regs",
             "chol_solve_smem"} <= kernels, kernels
     summary, _ = ks._dma_summaries(fns)
     assert summary["cp_async16"] == (True, False)
     assert summary["cp_async_wait"] == (False, True)
-    for name in ("gram_row", "fused_topk_kernel"):
+    for name in ("gram_row", "fused_topk_kernel", "worker_loop",
+                 "gram_table_kernel"):
         assert summary[name] == (False, True), name
