@@ -684,7 +684,16 @@ size of their item table (no f32 copy of a quantized table);
 a seeded regression, ``ops/gram.py``'s bf16 einsum with its upcast
 dropped, must be flagged by ``low-precision-reduction`` in a scratch
 package and, run on the card, fail the census diff against the
-einsum as shipped.
+einsum as shipped. Then ``analysis/hlo_audit.py::run_audit`` on the card
+in a threaded child, entry by entry (each kernel's launches and the
+allocator's peak read around each): the collective census of the 8 mesh
+entries must pass ``diff_manifests`` against the committed ``cuda``
+section of ``analysis/hlo_baseline.json``, its collectives, their shapes
+and its joins must be exactly the committed ``cpu`` section's,
+``lhs_fused`` must launch ``fused_gram`` and ``chol_solve`` and
+``sharded_rank`` ``fused_topk``, and ``sharded_rank`` with its item table
+made whole through ``unshard_table`` must fail the gate with the entry
+and its ``aten.cat`` join named.
 
 Phase 4b arms ``serving.dispatch=latency,delay_ms=400,times=1`` for its
 first burst (as ``benchmarks/trace_smoke.py`` does), so the delayed
@@ -8836,6 +8845,9 @@ def mesh_sharded_ranking(uv, dev, card) -> int:
     from predictionio_tpu_torch.models.convert import als_model_from_numpy
     from predictionio_tpu_torch.ops import fused_topk as ft
     from predictionio_tpu_torch.parallel import make_serving_mesh
+    from predictionio_tpu_torch.parallel.collectives import (
+        record_collectives,
+    )
 
     U, V = uv
     mesh = make_serving_mesh(devices=[dev] * MESH_DEVICES)
@@ -8856,9 +8868,14 @@ def mesh_sharded_ranking(uv, dev, card) -> int:
             rows = users[:B]
             want_i, want_s = als.recommend_batch(single, rows, MESH_K)
             ft.LAUNCHES = 0
-            got_i, got_s = als.recommend_batch(ms, rows, MESH_K)
+            with record_collectives() as rec:
+                got_i, got_s = als.recommend_batch(ms, rows, MESH_K)
             n = ft.LAUNCHES
             launches += n
+            census = rec.shapes()
+            check(rec.counts() == {"all-gather": 2},
+                  f"mesh {wire} B={B}: collectives {census}, not the "
+                  f"merge's two all-gathers")
             check(n == MESH_DEVICES,
                   f"mesh {wire} B={B}: fused_topk launched {n} times, not "
                   f"{MESH_DEVICES} shards x 1 batch")
@@ -8873,7 +8890,8 @@ def mesh_sharded_ranking(uv, dev, card) -> int:
                   f"to the single table's, scores "
                   f"{'bitwise' if err == 0 else f'max abs err {err:.3e}'}, "
                   f"fused_topk launches={n} ({MESH_DEVICES} shards of "
-                  f"{n_local} rows)", flush=True)
+                  f"{n_local} rows), collectives recorded {census}",
+                  flush=True)
         # 64 answers against float64 over the dequantized tables
         U64 = torch.from_numpy(als.table_host_f32(single.user_factors)).to(
             dev, torch.float64)
@@ -9583,6 +9601,9 @@ def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
     of it land); then the two- and one-shard in-process runs parts (b)
     and (c) are held to."""
     from predictionio_tpu_torch.models import als
+    from predictionio_tpu_torch.parallel.collectives import (
+        record_collectives,
+    )
 
     users, items, stars, n_users, n_items = data
     ratings = als.RatingsCOO(users, items, stars, n_users, n_items)
@@ -9597,12 +9618,22 @@ def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
     packed = als.pack_ratings(ratings, params, mesh=mesh)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t
+    # the sides cut before the recorded run (a bucket side's cut
+    # all-gathers its row map)
+    us, its = packed.mesh_side("user", params), packed.mesh_side("item",
+                                                                   params)
     zero_launch_counts()
-    U, V = als.train_als(ratings, params, mesh=mesh, packed=packed)
+    with record_collectives() as rec:
+        U, V = als.train_als(ratings, params, mesh=mesh, packed=packed)
     torch.cuda.synchronize()
     l4 = launch_counts()
     check(l4["fused_gram"] > 0 and l4["chol_solve"] > 0,
           f"the 4-shard training launched {l4}")
+    census = rec.counts()
+    check(census == {"all-gather": 2 * TRAIN_ITERS},
+          f"the 4-shard training's collectives {census}: not one "
+          f"all-gather a half-step over {TRAIN_ITERS} iterations")
+    gathered = sorted(set(rec.shapes()["all-gather"]))
     U4 = als.unshard_table(U).cpu().numpy()[:n_users]
     V4 = als.unshard_table(V).cpu().numpy()[:n_items]
     U1, V1 = host_factors
@@ -9614,8 +9645,6 @@ def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
                                                               V1[:n_items]),
           f"explicit: the 4 shards' factors are not phase train's bit for "
           f"bit (max |dU| {dU:.3e}, |dV| {dV:.3e})")
-    us, its = packed.mesh_side("user", params), packed.mesh_side("item",
-                                                                   params)
     per_iter = us.launches + its.launches
     # the same pieces planned as their own rows, not as their block
     us_own, its_own = (dataclasses.replace(side, pieces=tuple(
@@ -9693,8 +9722,10 @@ def train_mesh_shards(data, dev, host_factors, card: dict) -> dict:
     print(f"phase train-mesh (a): {MESH_TRAIN_SHARDS} shards on one card, "
           f"rank {RANK}, {TRAIN_ITERS} iterations, pack_ratings(mesh) "
           f"{pack_s:.3f}s | explicit factors bitwise equal to phase "
-          f"train's | launches fused_gram={l4['fused_gram']} chol_solve="
-          f"{l4['chol_solve']} ({per_iter} an iteration against the one "
+          f"train's | collectives recorded {census} (one a half-step, "
+          f"shapes {gathered}) | launches fused_gram={l4['fused_gram']} "
+          f"chol_solve={l4['chol_solve']} ({per_iter} an iteration "
+          f"against the one "
           f"card's 30; split into partial sums: block plan "
           f"{split['block']}, own rows {split['own']}, one card "
           f"{card_split}) | an iteration ms in turns, block plan "
@@ -10086,10 +10117,119 @@ def phase_check(card: dict) -> dict:
               f"{r['point']} dynamic={r['dynamic']} static={r['static']} "
               f"sum={r['dynamic'] + r['static']} of {optin} "
               f"({r['points']} points)", flush=True)
-    numerics = numerics_on_card(
-        torch.device("cuda", torch.cuda.current_device()), card)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    numerics = numerics_on_card(dev, card)
+    hlo = hlo_on_card(dev, card)
     return {"check_s": check_s, "optin": optin, "smem": rows,
-            "numerics": numerics, "launches": numerics["launches"]}
+            "numerics": numerics, "launches": numerics["launches"],
+            "hlo": hlo, "hlo_launches": hlo["launches"]}
+
+
+#: phase check: the ``audit-hlo`` entries and the kernels each must launch
+#: on the card
+HLO_KERNEL_GATES = {
+    "lhs_fused": ("fused_gram", "chol_solve"),
+    "sharded_rank": ("fused_topk",),
+}
+HLO_TIMEOUT_S = 300.0
+
+
+def hlo_census(dev) -> dict:
+    """``run_audit`` of each ``audit-hlo`` entry on ``dev``, the kernels'
+    launches and (on the card) the allocator's peak above its start read
+    around each, then the seeded ``unshard_table`` fault's census."""
+    from predictionio_tpu_torch.analysis import hlo_audit as ha
+    from predictionio_tpu_torch.analysis.numerics_audit import (
+        _forced_devices,
+    )
+
+    entries, launches, peaks = {}, {}, {}
+    for name in ha.ENTRY_POINTS:
+        before = launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        entries.update(ha.run_audit([name], device=dev)["entries"])
+        if dev.type == "cuda":
+            peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+        after = launch_counts()
+        launches[name] = {k: after[k] - before[k] for k in after}
+    with _forced_devices(ha.AUDIT_DEVICE_COUNT):
+        seeded = ha.census(ha.seeded_unshard, dev)
+    return {"entries": entries, "launches": launches, "peaks": peaks,
+            "seeded": seeded}
+
+
+def hlo_on_card(dev, card: dict) -> dict:
+    """The ``audit-hlo`` census on the card in a threaded child (module
+    docstring, phase 2b): its four gates, and its seconds (on the CPU, for
+    a rehearsal: the ``cpu`` section, and no launch is asked for)."""
+    from predictionio_tpu_torch.analysis import hlo_audit as ha
+
+    platform = ha.platform_of(dev)
+    doc = ha.load_manifest(ha.DEFAULT_BASELINE)
+    committed, cpu = ha.section(doc, platform), ha.section(doc, "cpu")
+    check(committed is not None and cpu is not None,
+          f"{ha.DEFAULT_BASELINE} records no {platform} or cpu section")
+    out: dict = {}
+
+    def run():
+        try:
+            out.update(hlo_census(dev))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            out["error"] = e
+
+    t0 = time.perf_counter()
+    child = threading.Thread(target=run, name="audit-hlo", daemon=True)
+    child.start()
+    child.join(HLO_TIMEOUT_S)
+    audit_s = time.perf_counter() - t0
+    check(not child.is_alive(),
+          f"the audit-hlo census ran past {HLO_TIMEOUT_S:.0f}s")
+    if "error" in out:
+        raise out["error"]
+    census = {"version": ha.MANIFEST_VERSION, "platform": platform,
+              "devices": ha.AUDIT_DEVICE_COUNT, "entries": out["entries"]}
+    violations, shrinkable = ha.diff_manifests(census, committed)
+    check(not violations, f"audit-hlo on {platform} against the committed "
+          f"section: {violations}")
+    check(ha.structure(census) == ha.structure(cpu),
+          f"the {platform} census's collectives, shapes and joins differ "
+          f"from the committed cpu section's: {ha.structure(census)}")
+    for entry, kernels in HLO_KERNEL_GATES.items():
+        for k in kernels:
+            n = out["launches"][entry][k]
+            check(platform == "cpu" or n > 0,
+                  f"audit-hlo {entry} launched {k} {n} times")
+    seeded, _ = ha.diff_manifests(
+        {**census, "entries": {"sharded_rank": out["seeded"]}}, committed)
+    hit = [v for v in seeded if v.startswith("sharded_rank: join aten.cat")]
+    check(bool(hit), f"sharded_rank through unshard_table passed the gate: "
+          f"{seeded}")
+    entries = out["entries"]
+    summary = "; ".join(
+        f"{name} " + (", ".join(f"{op} x{c} {rec['collective_shapes'][op]}"
+                                for op, c in sorted(
+                                    rec["collectives"].items()))
+                      or "no collective")
+        + "".join(f", join {op} x{len(sh)}"
+                  for op, sh in sorted(rec["joins"].items()))
+        for name, rec in entries.items())
+    temps = {name: (rec["temp_bytes"], out["peaks"].get(name))
+             for name, rec in entries.items()}
+    launches = {k: sum(l[k] for l in out["launches"].values())
+                for k in next(iter(out["launches"].values()))}
+    print(f"phase check hlo: run_audit on {platform} in a threaded child "
+          f"{audit_s:.3f}s, {len(entries)} entries pass the committed "
+          f"{platform} section ({len(shrinkable)} shrinkable), their "
+          f"collectives, shapes and joins exactly the cpu section's | "
+          f"{summary} | temp_bytes against max_memory_allocated's delta "
+          f"{temps} | launches "
+          f"{ {e: {k: out['launches'][e][k] for k in ks} for e, ks in HLO_KERNEL_GATES.items()} } "
+          f"(all entries {launches}) | seeded unshard_table: "
+          f"'{hit[0].split(' — ')[0]}' | {card_tag(card)}", flush=True)
+    return {"audit_s": audit_s, "launches": launches, "temps": temps}
 
 
 #: phase check: the serving wires and training entries of
@@ -10630,7 +10770,8 @@ def main(argv=None) -> int:
     with phase("build"):
         phase_build()
     with phase("check"):
-        check_l = phase_check(card)["launches"]
+        checked = phase_check(card)
+        check_l, check_hlo_l = checked["launches"], checked["hlo_launches"]
     dev = torch.device("cuda", torch.cuda.current_device())
     rng, U, V = make_tables(args.seed)
     with phase("kernel"):
@@ -10749,7 +10890,9 @@ def main(argv=None) -> int:
     # stream's fold-in and queries, the pinned lanes' serves);
     # audit_launches: phase audit's measured full-width cycles (serving
     # for fused_topk, the fold-ins for the others); check_launches: phase
-    # check's audit-numerics census, its 13 entries summed
+    # check's audit-numerics census, its 13 entries summed;
+    # check_hlo_launches: its audit-hlo census, the 8 entries' two runs
+    # and the seeded fault summed
     implicit_l = implicit["launches"]
     store_l = storage_l["launches"]
     kernels = [
@@ -10775,7 +10918,8 @@ def main(argv=None) -> int:
              fleet_launches=fleet_l["fused_topk"],
              mesh_launches=mesh_l["fused_topk"],
              audit_launches=audit_l["fused_topk"],
-             check_launches=check_l["fused_topk"], **row),
+             check_launches=check_l["fused_topk"],
+             check_hlo_launches=check_hlo_l["fused_topk"], **row),
         dict(name="fused_gram", route="cuda",
              source="predictionio_tpu_torch/csrc/fused_gram.cu",
              replaces="predictionio_tpu/ops/fused_gram.py:93",
@@ -10800,7 +10944,8 @@ def main(argv=None) -> int:
              train_mesh_launches={k: v["fused_gram"]
                                   for k, v in mesh_train_l.items()},
              audit_launches=audit_l["fused_gram"],
-             check_launches=check_l["fused_gram"], **gram_row),
+             check_launches=check_l["fused_gram"],
+             check_hlo_launches=check_hlo_l["fused_gram"], **gram_row),
         dict(name="chol_solve", route="cuda",
              source="predictionio_tpu_torch/csrc/chol_solve.cu",
              replaces="predictionio_tpu/ops/solve.py:126,133",
@@ -10825,7 +10970,8 @@ def main(argv=None) -> int:
              train_mesh_launches={k: v["chol_solve"]
                                   for k, v in mesh_train_l.items()},
              audit_launches=audit_l["chol_solve"],
-             check_launches=check_l["chol_solve"], **solve_row),
+             check_launches=check_l["chol_solve"],
+             check_hlo_launches=check_hlo_l["chol_solve"], **solve_row),
         dict(name="gram_table", route="cuda",
              source="predictionio_tpu_torch/csrc/gram_table.cu",
              replaces="predictionio_tpu/ops/gram.py:148",
@@ -10844,7 +10990,8 @@ def main(argv=None) -> int:
              resume_launches=resume_l["gram_table"],
              mesh_launches=mesh_l["gram_table"],
              audit_launches=audit_l["gram_table"],
-             check_launches=check_l["gram_table"], **table_row),
+             check_launches=check_l["gram_table"],
+             check_hlo_launches=check_hlo_l["gram_table"], **table_row),
     ]
     print(f"phase stream-kernel launches (the fold-in cases): fused_gram="
           f"{stream_kernel_l['fused_gram']} chol_solve="

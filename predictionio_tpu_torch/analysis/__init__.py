@@ -1,7 +1,7 @@
 """``check`` — the port's static analysis (the port of
-``predictionio_tpu/analysis``), and ``audit-lifecycle`` and
-``audit-numerics``, its runtime complements (:mod:`.lifecycle_audit`,
-:mod:`.numerics_audit`).
+``predictionio_tpu/analysis``), and ``audit-lifecycle``,
+``audit-numerics`` and ``audit-hlo``, its runtime complements
+(:mod:`.lifecycle_audit`, :mod:`.numerics_audit`, :mod:`.hlo_audit`).
 
 Public surface:
 

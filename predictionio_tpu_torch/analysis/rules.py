@@ -52,10 +52,13 @@ Not ported, as ``ROADMAP.md`` decided (rules about JAX programs):
 (``sharding-mismatch``, ``implicit-reshard``,
 ``shard-map-spec-mismatch``, ``unsharded-capture``,
 ``missing-donation-sharded``), ``materialized-gather`` and
-``config-drift``. The port places every tensor explicitly and calls
-its collectives by name (``parallel/collectives.py``), so there is no
-``PartitionSpec`` or compiled collective for the sharding family to
-read.
+``config-drift``. The sharding family reads ``shard_map`` specs,
+closures over sharded arrays and jit donation: the port's ``sharded`` /
+``shard_map_compat`` have no caller, and torch has no donation, so its
+rules would have no site to read. The moves they would guess at are
+counted at run time instead: ``audit-hlo`` (:mod:`.hlo_audit`) records
+every collective call and every op that joins blocks of two mesh
+positions outside one.
 
 Every rule obeys the ``# ptpu: allow[rule] — justification`` pragma
 (see :mod:`.core`).

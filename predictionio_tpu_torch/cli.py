@@ -59,6 +59,9 @@
     python -m predictionio_tpu_torch.cli audit-numerics [--entry E] \
         [--list-entries] [--format text|json] [--out F] \
         [--baseline F] [--write-baseline [--baseline-grow]] [--device cpu]
+    python -m predictionio_tpu_torch.cli audit-hlo [--entry E] \
+        [--list-entries] [--format text|json] [--out F] \
+        [--baseline F] [--write-baseline [--baseline-grow]] [--device cpu]
     python -m predictionio_tpu_torch.cli version|template|shell
     python -m predictionio_tpu_torch.cli run module:callable [ARG ...]
 
@@ -143,10 +146,13 @@ or the given paths, loading neither torch nor the storage;
 census against ``analysis/lifecycle_baseline.json``; ``audit-numerics``
 runs the 13 numeric entry points under a ``TorchDispatchMode`` on
 ``--device`` and gates their dtype census against the platform's section
-of ``analysis/numerics_baseline.json``. Their flags, output and exit
-codes are the JAX package's ``ptpu check``, ``ptpu audit-lifecycle`` and
-``ptpu audit-numerics``. ``audit-hlo`` reads XLA's output and is not
-ported.
+of ``analysis/numerics_baseline.json``; ``audit-hlo`` runs the 8 mesh
+entry points over 8 positions of ``--device`` and gates their collective
+census (each collective call with its result shape, the moves between
+positions that go through no collective, the peak bytes allocated)
+against the platform's section of ``analysis/hlo_baseline.json``. Their
+flags, output and exit codes are the JAX package's ``ptpu check``,
+``ptpu audit-lifecycle``, ``ptpu audit-numerics`` and ``ptpu audit-hlo``.
 """
 
 from __future__ import annotations
@@ -1909,6 +1915,97 @@ def cmd_audit_numerics(args) -> int:
     return 0
 
 
+def cmd_audit_hlo(args) -> int:
+    """``audit-hlo`` — run the port's 8 mesh entry points at small shapes
+    over 8 positions of ``--device`` (the card unless ``cpu``; without
+    CUDA it raises), record each one's collective census (collective
+    calls and their per-position result shapes, the joins between
+    positions outside any collective, the peak bytes allocated) and gate
+    it against the platform's section of the committed golden manifest
+    (``analysis/hlo_baseline.json``) with shrink-only ratchet semantics.
+    Non-zero exit on new collectives / joins / grown temps (see
+    --baseline-grow). Flags, output and exit codes are the JAX package's
+    ``ptpu audit-hlo``, plus ``--device``."""
+    from .analysis import hlo_audit as ha
+
+    if args.list_entries:
+        for name, (_b, desc) in ha.ENTRY_POINTS.items():
+            _out(f"{name}: {desc}")
+        return 0
+    try:
+        manifest = ha.run_audit(args.entry or None, device=args.device)
+    except ha.AuditError as e:
+        _err(f"ptpu audit-hlo: {e}")
+        return 2
+    platform = manifest["platform"]
+    baseline_path = args.baseline or ha.DEFAULT_BASELINE
+    if args.out:
+        from .analysis.baseline import atomic_write_text
+
+        atomic_write_text(
+            args.out, json.dumps(manifest, indent=2, sort_keys=True) + "\n")
+    doc = None
+    if os.path.exists(baseline_path):
+        try:
+            doc = ha.load_manifest(baseline_path)
+        except (OSError, ValueError) as e:
+            _err(f"ptpu audit-hlo: cannot read baseline: {e}")
+            return 2
+    recorded = ha.section(doc, platform) if doc is not None else None
+    if args.write_baseline:
+        cap = None if args.baseline_grow else recorded
+        ha.write_manifest(baseline_path, manifest, cap=cap)
+        _err(f"ptpu audit-hlo: wrote "
+             f"{len(manifest['entries'])} entry point(s) to the "
+             f"{platform} section of {baseline_path}"
+             f"{' (ratchet: shrink-only)' if cap is not None else ''}.")
+        if cap is not None:
+            violations, _ = ha.diff_manifests(manifest, cap)
+            if violations:
+                _err(f"ptpu audit-hlo: {len(violations)} regression(s) "
+                     f"were NOT absorbed (the baseline only ratchets "
+                     f"down; fix them or re-record deliberately with "
+                     f"--baseline-grow):")
+                for v in violations:
+                    _err(f"  {v}")
+                return 1
+        return 0
+    if args.format == "json":
+        _out(json.dumps(manifest, indent=2, sort_keys=True))
+    else:
+        _out(ha.format_text(manifest))
+    if recorded is None:
+        _err(f"ptpu audit-hlo: no {platform} baseline at {baseline_path} "
+             f"— record one with --write-baseline (gate skipped).")
+        return 0
+    baseline = recorded
+    if args.entry:
+        # a subset run gates only the audited entries — the others were
+        # not run, not "no longer reproduced"
+        keep = set(args.entry)
+        baseline = {**baseline,
+                    "entries": {k: v
+                                for k, v in baseline["entries"].items()
+                                if k in keep}}
+    violations, shrinkable = ha.diff_manifests(manifest, baseline)
+    if shrinkable:
+        _err(f"ptpu audit-hlo: {len(shrinkable)} baseline entr"
+             f"{'y is' if len(shrinkable) == 1 else 'ies are'} no "
+             f"longer fully reproduced — ratchet down with "
+             f"--write-baseline:")
+        for s in shrinkable:
+            _err(f"  {s}")
+    if violations:
+        _err(f"ptpu audit-hlo: {len(violations)} collective/temp "
+             f"regression(s) vs {baseline_path} ({platform}):")
+        for v in violations:
+            _err(f"  {v}")
+        return 1
+    _err(f"ptpu audit-hlo: the {platform} collective census matches the "
+         f"golden manifest.")
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="predictionio_tpu_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -2554,6 +2651,38 @@ def _parser() -> argparse.ArgumentParser:
                    help="the device the entries run on (default: the "
                         "CUDA card; cpu runs the kernels' plain "
                         "versions)")
+
+    s = sub.add_parser("audit-hlo", help="run the 8 mesh entry points over "
+                       "8 positions at small shapes and diff their "
+                       "collective census (collective calls and shapes, "
+                       "joins between positions outside any collective, "
+                       "temp bytes) against the platform's section of "
+                       "the committed golden manifest")
+    s.add_argument("--entry", action="append", default=[],
+                   help="audit only the named entry point (repeatable)")
+    s.add_argument("--list-entries", action="store_true",
+                   help="print the entry-point catalogue and exit")
+    s.add_argument("--format", choices=("text", "json"), default="text",
+                   help="output format for the fresh manifest")
+    s.add_argument("--out", default="",
+                   help="also write the fresh manifest JSON to FILE "
+                        "(the CI artifact)")
+    s.add_argument("--baseline", default="",
+                   help="golden manifest to gate against (default: the "
+                        "committed analysis/hlo_baseline.json)")
+    s.add_argument("--write-baseline", action="store_true",
+                   help="record the fresh manifest as its platform's "
+                        "section of the baseline; against an existing "
+                        "section this only RATCHETS (shrinks "
+                        "counts/temps) and fails on growth")
+    s.add_argument("--baseline-grow", action="store_true",
+                   help="with --write-baseline: allow recording new "
+                        "collectives/joins/entries (deliberate schedule "
+                        "changes) instead of the shrink-only ratchet")
+    s.add_argument("--device", default=None,
+                   help="the device the entries run on (default: the "
+                        "CUDA card; cpu runs the kernels' plain "
+                        "versions)")
     return p
 
 
@@ -2600,6 +2729,10 @@ def main(argv: Optional[List[str]] = None,
     if args.command == "audit-numerics":
         # small in-memory inputs on the card (or the CPU); no storage
         return cmd_audit_numerics(args)
+    if args.command == "audit-hlo":
+        # small in-memory inputs over 8 positions of the card (or the
+        # CPU); no storage
+        return cmd_audit_hlo(args)
     if args.command == "stream":
         return cmd_stream(args)
     if args.command == "trace":

@@ -96,7 +96,7 @@ from ..ops.ragged import (
     resolve_max_len,
 )
 from ..ops.solve import gramian, solve_spd_batch
-from ..parallel.collectives import all_gather, merge_candidates
+from ..parallel.collectives import all_gather, merge_candidates, tag_position
 from ..parallel.mesh import DeviceMesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.memo import ComputeOnce
@@ -440,10 +440,11 @@ def _shard_table(t: AnyTable, mesh: DeviceMesh) -> RowShardedTable:
     shards = []
     for s, dev in enumerate(mesh.devices):
         rows = slice(s * n_local, (s + 1) * n_local)
-        d = data[rows].to(dev, copy=True)
+        d = tag_position(data[rows].to(dev, copy=True), s)
         if isinstance(t, QuantizedFactors):
             shards.append(QuantizedFactors(
-                d, None if scale is None else scale[rows].to(dev, copy=True),
+                d, None if scale is None
+                else tag_position(scale[rows].to(dev, copy=True), s),
                 t.quant))
         else:
             shards.append(d)
@@ -1265,7 +1266,19 @@ class PackedRatings:
                 n = self.n_users if side == "user" else self.n_items
                 out = _mesh_side_of(h, n, self.mesh, params)
                 self._sides[key] = out
+                _tag_side(out, self.mesh)
         return out
+
+
+def _tag_side(side: "MeshSide", mesh: DeviceMesh) -> None:
+    """Each local position's pieces (and split counts) marked as its
+    blocks, for the collective census (``parallel/collectives.py``)."""
+    for k, p in enumerate(mesh.local_positions()):
+        for pc in side.pieces[k]:
+            for t in (pc.indices, pc.values, pc.counts):
+                tag_position(t, p)
+        if side.real_counts:
+            tag_position(side.real_counts[k], p)
 
 
 def pack_ratings(ratings: RatingsCOO, params: ALSParams,
@@ -1824,7 +1837,8 @@ def _row_sharded(tables: List[torch.Tensor], mesh: DeviceMesh
     for p in range(mesh.size):
         dev = mesh.devices[p] if p in local else whole.device
         src = tables[local.index(p)] if p in local else whole
-        shards.append(src[p * n_loc:(p + 1) * n_loc].to(dev, copy=True))
+        shards.append(tag_position(
+            src[p * n_loc:(p + 1) * n_loc].to(dev, copy=True), p))
     return RowShardedTable(tuple(shards), mesh)
 
 

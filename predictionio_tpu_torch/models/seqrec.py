@@ -389,7 +389,7 @@ class _MeshStep:
              p: SeqRecParams) -> torch.Tensor:
         """The step on the whole batch ``seq`` ([B, L]) with its
         negatives; returns the whole batch's loss (no sync)."""
-        from ..parallel.collectives import all_reduce_sum
+        from ..parallel.collectives import all_reduce_sum, tag_position
 
         n = self.mesh.size
         b = seq.shape[0] // n
@@ -403,8 +403,9 @@ class _MeshStep:
             rows = slice(pos * b, (pos + 1) * b)
             leaves = {k: v.detach().requires_grad_(True)
                       for k, v in ws.items()}
-            part = _loss_sum(leaves, seq[rows].to(dev),
-                             negs[rows].to(dev), p) / n_valid.to(dev)
+            part = _loss_sum(leaves, tag_position(seq[rows].to(dev), pos),
+                             tag_position(negs[rows].to(dev), pos),
+                             p) / n_valid.to(dev)
             grads = torch.autograd.grad(part, [leaves[k] for k in names])
             flats.append(torch.cat([part.detach().reshape(1)]
                                    + [g.reshape(-1) for g in grads]))

@@ -24,6 +24,24 @@ position, each on that position's device.
 Results for positions that share a device are one tensor, made once:
 four shards on one card read one gathered table, not four copies.
 
+:func:`record_collectives` is the port's collective census (the JAX
+package reads the collectives of compiled HLO; here they are calls). Off
+by default, a collective then costs one branch on :data:`_recorder`. On,
+each public collective called from the recording thread is recorded once
+a call under its HLO op name, with its per-position result shape in the
+HLO style (``f32[16,16]``): ``all_reduce_sum`` and ``gramian_allreduce``
+as ``all-reduce``; ``all_gather`` and the join of a :func:`sharded`
+out-spec as ``all-gather``; ``reduce_scatter`` as ``reduce-scatter``;
+``ring_permute`` as ``collective-permute``; ``merge_candidates`` as two
+``all-gather`` records, the scores and the ids. A collective another one
+calls is not recorded again, and a process mesh's ``torch.distributed``
+traffic counts as the call that made it, so a process mesh and a
+one-process mesh record the same census. With ``positions=True`` the
+recorder also keeps which mesh position each block belongs to
+(:func:`tag_position`, called where the mesh helpers cut blocks), for
+``analysis/hlo_audit.py`` to find the moves between positions that go
+through no collective.
+
 :func:`ring_permute` is the exception to "every block reaches every
 process": over a process mesh each block goes to its ring neighbour
 alone, point to point (``torch.distributed.batch_isend_irecv``), so a
@@ -39,7 +57,11 @@ serving kernel's own total order (score descending, then id ascending).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+import contextlib
+import functools
+import threading
+from typing import (Callable, Dict, FrozenSet, Iterator, List, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 
@@ -47,6 +69,175 @@ from ..ops.fused_topk import merge_partial_topk
 from .mesh import MODEL_AXIS, DeviceMesh
 
 Axis = Union[str, Sequence[str]]
+
+
+# -- the collective census ----------------------------------------------------
+
+#: torch dtypes by their HLO names
+_HLO_DTYPES = {
+    torch.float32: "f32", torch.float64: "f64", torch.float16: "f16",
+    torch.bfloat16: "bf16", torch.int8: "s8", torch.int16: "s16",
+    torch.int32: "s32", torch.int64: "s64", torch.uint8: "u8",
+    torch.bool: "pred",
+}
+
+
+def hlo_shape(t: torch.Tensor) -> str:
+    """``t``'s dtype and shape as HLO prints a result, the layout
+    dropped: ``f32[16,16]``, ``s32[4,8]``, ``f32[]``."""
+    dt = _HLO_DTYPES.get(t.dtype, str(t.dtype).replace("torch.", ""))
+    return f"{dt}[{','.join(str(n) for n in t.shape)}]"
+
+
+class Placement:
+    """Which mesh positions' blocks each storage's bytes hold: byte
+    ranges of a storage, each with its positions. Keyed on the storage,
+    since the positions of a mesh on one device share that device, and
+    held by a weak reference, so a freed storage's key is never reused
+    while the entry is kept."""
+
+    def __init__(self):
+        self._ranges: Dict[int, Tuple[object, Dict[Tuple[int, int],
+                                                    FrozenSet[int]]]] = {}
+
+    @staticmethod
+    def span(t: torch.Tensor):
+        """``(storage, first byte, end byte)`` of the bytes ``t`` views,
+        or None for an empty tensor."""
+        if t.numel() == 0:
+            return None
+        size = t.element_size()
+        lo = t.storage_offset() * size
+        extent = 1 + sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+        return t.untyped_storage(), lo, lo + extent * size
+
+    def of(self, t: torch.Tensor) -> FrozenSet[int]:
+        """The positions whose bytes ``t`` reads."""
+        span = self.span(t)
+        if span is None:
+            return frozenset()
+        st, lo, hi = span
+        ent = self._ranges.get(st._cdata)
+        if ent is None:
+            return frozenset()
+        out: FrozenSet[int] = frozenset()
+        for (a, b), ps in ent[1].items():
+            if a < hi and lo < b:
+                out |= ps
+        return out
+
+    def add(self, t: torch.Tensor, positions: FrozenSet[int],
+            replace: bool = False) -> None:
+        """``positions`` onto the bytes ``t`` views (in place of what they
+        held with ``replace``)."""
+        span = self.span(t)
+        if span is None or not positions:
+            return
+        st, lo, hi = span
+        ent = self._ranges.get(st._cdata)
+        if ent is None:
+            from torch.multiprocessing.reductions import StorageWeakRef
+
+            ent = self._ranges[st._cdata] = (StorageWeakRef(st), {})
+        ranges = ent[1]
+        if replace:
+            for key in [k for k in ranges if lo <= k[0] and k[1] <= hi]:
+                del ranges[key]
+        ranges[(lo, hi)] = ranges.get((lo, hi), frozenset()) | positions
+
+
+class CollectiveRecorder:
+    """What :func:`record_collectives` hands back: ``records``, one
+    ``(op, per-position result shape)`` a collective call of the thread
+    that opened it, and ``placement`` (a :class:`Placement`, or None)."""
+
+    def __init__(self, positions: bool):
+        self.thread = threading.get_ident()
+        self.records: List[Tuple[str, str]] = []
+        #: > 0 while a recorded collective runs (its own ops and the
+        #: collectives it calls are not recorded again)
+        self.depth = 0
+        self.placement = Placement() if positions else None
+
+    def owns(self) -> bool:
+        return threading.get_ident() == self.thread
+
+    def counts(self, start: int = 0) -> Dict[str, int]:
+        """op -> calls, over ``records[start:]``."""
+        out: Dict[str, int] = {}
+        for op, _ in self.records[start:]:
+            out[op] = out.get(op, 0) + 1
+        return out
+
+    def shapes(self, start: int = 0) -> Dict[str, List[str]]:
+        """op -> result shapes in call order, over ``records[start:]``."""
+        out: Dict[str, List[str]] = {}
+        for op, shape in self.records[start:]:
+            out.setdefault(op, []).append(shape)
+        return out
+
+
+#: the recorder :func:`record_collectives` has on, or None
+_recorder: Optional[CollectiveRecorder] = None
+
+
+@contextlib.contextmanager
+def record_collectives(positions: bool = False
+                       ) -> Iterator[CollectiveRecorder]:
+    """Record every public collective the calling thread makes in the
+    block (module docstring); with ``positions`` also keep the blocks'
+    mesh positions. One recorder at a time."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a collective recorder is already on")
+    rec = CollectiveRecorder(positions)
+    _recorder = rec
+    try:
+        yield rec
+    finally:
+        _recorder = None
+
+
+def tag_position(t: torch.Tensor, position: int) -> torch.Tensor:
+    """Mark ``t`` as mesh position ``position``'s block, where a mesh
+    helper cuts it (a no-op unless a recorder keeps positions)."""
+    rec = _recorder
+    if rec is not None and rec.placement is not None:
+        rec.placement.add(t, frozenset((position,)), replace=True)
+    return t
+
+
+def _note(op: str, t: torch.Tensor) -> None:
+    """Record one collective from inside a recorded collective's body
+    (``merge_candidates``' two all-gathers)."""
+    rec = _recorder
+    if rec is not None and rec.depth == 1 and rec.owns():
+        rec.records.append((op, hlo_shape(t)))
+
+
+def _collective(op: Optional[str]) -> Callable:
+    """Decorator of a public collective: with a recorder on, the call is
+    recorded once as ``op`` with its first per-position result's shape
+    (``op`` None: the body records through :func:`_note`)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            rec = _recorder
+            if rec is None or rec.depth or not rec.owns():
+                return fn(*args, **kwargs)
+            rec.depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                rec.depth -= 1
+            if op is not None:
+                first = out[0] if isinstance(out, (list, tuple)) else out
+                rec.records.append((op, hlo_shape(first)))
+            return out
+        return run
+
+    return deco
 
 
 def _axes(mesh: DeviceMesh, axis: Optional[Axis]) -> Tuple[int, ...]:
@@ -150,6 +341,7 @@ def _collect(mesh: DeviceMesh, axis: Optional[Axis], fn) -> List:
     return out
 
 
+@_collective("all-reduce")
 def all_reduce_sum(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
                    *, mesh: DeviceMesh) -> List[torch.Tensor]:
     """``lax.psum``: each position's block summed over its ``axis``
@@ -159,6 +351,7 @@ def all_reduce_sum(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
                     lambda group, dev, p: _group_sum(blocks, group, dev))
 
 
+@_collective("all-reduce")
 def gramian_allreduce(shards: Sequence[torch.Tensor], *,
                       mesh: DeviceMesh) -> List[torch.Tensor]:
     """``x^T x`` of a table row-sharded over every axis of ``mesh``: an
@@ -170,6 +363,7 @@ def gramian_allreduce(shards: Sequence[torch.Tensor], *,
     return all_reduce_sum(parts, axis=None, mesh=mesh)
 
 
+@_collective("all-gather")
 def all_gather(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
                *, mesh: DeviceMesh, tiled: bool = True
                ) -> List[torch.Tensor]:
@@ -182,6 +376,7 @@ def all_gather(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
         [blocks[q].to(dev) for q in group]))
 
 
+@_collective("reduce-scatter")
 def reduce_scatter(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
                    *, mesh: DeviceMesh) -> List[torch.Tensor]:
     """``lax.psum_scatter(tiled=True)``: the blocks of an ``axis`` group
@@ -202,6 +397,7 @@ def reduce_scatter(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
     return out
 
 
+@_collective("collective-permute")
 def ring_permute(shards: Sequence[torch.Tensor], axis: Axis = MODEL_AXIS,
                  shift: int = 1, *, mesh: DeviceMesh) -> List[torch.Tensor]:
     """``lax.ppermute`` around the ``axis`` ring: the block at index
@@ -303,7 +499,7 @@ def _split(x, mesh: DeviceMesh, spec: Spec, dim: int = 0
                              f"do not split over {n} positions")
         k = t.shape[dim] // n
         i = axis_index(mesh, p, spec)
-        out.append(t.narrow(dim, i * k, k).to(dev))
+        out.append(tag_position(t.narrow(dim, i * k, k).to(dev), p))
     return out
 
 
@@ -315,6 +511,13 @@ def _assemble(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
     dimension ``dim``."""
     if not spec:
         return blocks[0]
+    return _join_spec(blocks, mesh, spec, dim)
+
+
+@_collective("all-gather")
+def _join_spec(blocks: Sequence[torch.Tensor], mesh: DeviceMesh,
+               spec: Spec, dim: int) -> torch.Tensor:
+    """:func:`_assemble` of a split spec: the all-gather of its blocks."""
     every = gather_positions(list(blocks), mesh, "sharded")
     group = axis_group(mesh, 0, spec)
     dev = blocks[0].device
@@ -356,6 +559,7 @@ def shard_map_compat(fn: Callable, mesh: DeviceMesh, in_specs, out_specs,
     return sharded(mesh, in_specs, out_specs)(fn)
 
 
+@_collective(None)
 def merge_candidates(scores: Sequence[torch.Tensor],
                      ids: Sequence[torch.Tensor], k: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -367,6 +571,9 @@ def merge_candidates(scores: Sequence[torch.Tensor],
     dev = scores[0].device
     s = torch.cat([t.to(dev) for t in scores], dim=1)
     i = torch.cat([t.to(dev).to(torch.int32) for t in ids], dim=1)
+    # the JAX merge's two all-gathers: the candidates' scores and ids
+    _note("all-gather", s)
+    _note("all-gather", i)
     return merge_partial_topk(s[:, None, :], i[:, None, :], k=k)
 
 
