@@ -1,0 +1,9 @@
+"""``device_idle_share.score``: the share of the traced window in which
+no operation ran on the card (the union of the profiler's device
+intervals), percent."""
+
+from portbench.harness.readers import idle_share
+
+
+def read(run):
+    return idle_share(run)
