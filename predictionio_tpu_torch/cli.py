@@ -548,7 +548,8 @@ def cmd_train(args, storage: Storage) -> int:
         _out(f"Workflow stopped after {stage} (instance {instance_id} "
              f"left in INIT).")
         return 0
-    _out(f"Train stages: {json.dumps(ctx.stage_timings)}")
+    _out(f"Train stages: "
+         f"{json.dumps({k: round(v, 3) for k, v in ctx.stage_timings.items()})}")
     _out(f"Training completed. Engine instance ID: {instance_id}")
     return 0
 

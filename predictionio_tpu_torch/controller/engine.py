@@ -8,10 +8,10 @@ retrains the engine once, every other goes through its algorithm's
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Type, Union
 
+from ..utils.tracing import timed
 from .base import Algorithm, DataSource, Preparator, SanityCheck, Serving
 from .context import Context
 from .params import EngineParams, engine_params_from_variant, instantiate
@@ -27,12 +27,14 @@ def _as_map(x: Optional[ClassMap]) -> Dict[str, Type]:
     return x if isinstance(x, dict) else {"": x}
 
 
-def _sanity(obj: Any, what: str, skip: bool) -> None:
-    if skip:
-        return
-    if isinstance(obj, SanityCheck):
-        log.info("sanity check %s", what)
-        obj.sanity_check()
+def _sanity(obj: Any, what: str, skip: bool) -> float:
+    """Run ``obj``'s sanity check inside an ``engine.sanity`` span;
+    returns the span's seconds."""
+    with timed("engine.sanity") as span:
+        if not skip and isinstance(obj, SanityCheck):
+            log.info("sanity check %s", what)
+            obj.sanity_check()
+    return span.seconds
 
 
 @dataclass
@@ -98,35 +100,45 @@ class Engine:
     def train(self, ctx: Context, engine_params: EngineParams) -> TrainResult:
         """Read, sanity-check, prepare, sanity-check, then train every
         algorithm and sanity-check its model; ``ctx.stop_after_read`` and
-        ``ctx.stop_after_prepare`` end early with no models. Stage
-        seconds land in ``ctx.stage_timings``."""
+        ``ctx.stop_after_prepare`` end early with no models. Each stage is
+        a span (``engine.train`` around ``engine.read``,
+        ``engine.prepare``, ``engine.algorithm`` and each
+        ``engine.sanity``), and its seconds land in ``ctx.stage_timings``
+        from the same clock reads."""
+        with timed("engine.train"):
+            return self._train(ctx, engine_params)
+
+    def _train(self, ctx: Context, engine_params: EngineParams
+               ) -> TrainResult:
         stages = ctx.stage_timings
-        t0 = time.monotonic()
-        datasource = self.make_datasource(engine_params)
-        td = datasource.read_training(ctx)
-        stages["read_s"] = round(time.monotonic() - t0, 2)
+        with timed("engine.read") as span:
+            datasource = self.make_datasource(engine_params)
+            td = datasource.read_training(ctx)
+        stages["read_s"] = span.seconds
         _sanity(td, "training data", ctx.skip_sanity_check)
         if ctx.stop_after_read:
             log.info("stopping after read")
             return TrainResult(models=[], engine_params=engine_params)
 
-        t0 = time.monotonic()
-        preparator = self.make_preparator(engine_params)
-        pd = preparator.prepare(ctx, td)
-        stages["prepare_s"] = round(time.monotonic() - t0, 2)
+        with timed("engine.prepare") as span:
+            preparator = self.make_preparator(engine_params)
+            pd = preparator.prepare(ctx, td)
+        stages["prepare_s"] = span.seconds
         _sanity(pd, "prepared data", ctx.skip_sanity_check)
         if ctx.stop_after_prepare:
             log.info("stopping after prepare")
             return TrainResult(models=[], engine_params=engine_params)
 
         models = []
-        t0 = time.monotonic()
+        algo_s = 0.0
         for i, algo in enumerate(self.make_algorithms(engine_params)):
             log.info("training algorithm %d: %s", i, type(algo).__name__)
-            model = algo.train(ctx, pd)
-            _sanity(model, f"model[{i}]", ctx.skip_sanity_check)
+            with timed("engine.algorithm") as span:
+                model = algo.train(ctx, pd)
+            algo_s += span.seconds + _sanity(model, f"model[{i}]",
+                                             ctx.skip_sanity_check)
             models.append(model)
-        stages["algo_train_s"] = round(time.monotonic() - t0, 2)
+        stages["algo_train_s"] = algo_s
         return TrainResult(models=models, engine_params=engine_params)
 
     def eval(self, ctx: Context, engine_params: EngineParams

@@ -100,6 +100,8 @@ from ..parallel.collectives import all_gather, merge_candidates, tag_position
 from ..parallel.mesh import DeviceMesh
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.memo import ComputeOnce
+from ..utils import tracing
+from ..utils.tracing import timed
 
 log = logging.getLogger(__name__)
 
@@ -509,11 +511,12 @@ def _device_topk(user_table: Table, item_table: Table, idx: np.ndarray,
     (descending score, lowest id first). Returns ``(scores, ids)``."""
     ud, us = _table_leaves(user_table)
     vd, vs = _table_leaves(item_table)
-    idx_t = torch.from_numpy(np.asarray(idx, dtype=np.int32))
-    if ud.is_cuda:
-        # through pinned memory: a copy from pageable memory may wait for
-        # the kernels already queued on the stream
-        idx_t = idx_t.pin_memory().to(ud.device, non_blocking=True)
+    with timed("topk.stage"):
+        idx_t = torch.from_numpy(np.asarray(idx, dtype=np.int32))
+        if ud.is_cuda:
+            # through pinned memory: a copy from pageable memory may wait
+            # for the kernels already queued on the stream
+            idx_t = idx_t.pin_memory().to(ud.device, non_blocking=True)
     if 1 <= k_dev <= TOPK_MAX_K:
         return fused_topk(ud, idx_t, vd, us, vs, k=k_dev, n_items=n_items)
     return _serve_topk(user_table, item_table, idx_t, k=k_dev,
@@ -674,38 +677,47 @@ def _dispatch_topk_rows(user_table: AnyTable, item_table: AnyTable,
     are queued right behind the launch, into pinned host memory, and a
     CUDA event after them: the resolver waits on that event alone, so
     launches queued after this one (the next batches) never hold its
-    readback."""
+    readback. Spans: ``topk.dispatch`` around ``topk.stage`` (the ids
+    through pinned memory) and ``topk.readback`` (the pinned outputs,
+    their copies and the event); the resolver's ``topk.resolve`` around
+    ``topk.wait`` (the wait on the event)."""
     kk = min(k, n_items)
     k_dev = _compiled_k(k, n_items)
-    if isinstance(item_table, RowShardedTable):
-        scores, ids = _sharded_topk(user_table, item_table, rows, k_dev,
-                                    n_items)
-    else:
-        scores, ids = _device_topk(user_table, item_table, rows, k_dev,
-                                   n_items)
-    if not scores.is_cuda:
-        ids_h, scores_h, done = ids, scores, None
-    else:
-        ids_h = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-        scores_h = torch.empty(scores.shape, dtype=scores.dtype,
-                               pin_memory=True)
-        ids_h.copy_(ids, non_blocking=True)
-        scores_h.copy_(scores, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(scores.device))
+    with timed("topk.dispatch"):
+        if isinstance(item_table, RowShardedTable):
+            scores, ids = _sharded_topk(user_table, item_table, rows, k_dev,
+                                        n_items)
+        else:
+            scores, ids = _device_topk(user_table, item_table, rows, k_dev,
+                                       n_items)
+        with timed("topk.readback"):
+            if not scores.is_cuda:
+                ids_h, scores_h, done = ids, scores, None
+            else:
+                ids_h = torch.empty(ids.shape, dtype=ids.dtype,
+                                    pin_memory=True)
+                scores_h = torch.empty(scores.shape, dtype=scores.dtype,
+                                       pin_memory=True)
+                ids_h.copy_(ids, non_blocking=True)
+                scores_h.copy_(scores, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(scores.device))
 
     def resolve() -> Tuple[np.ndarray, np.ndarray]:
-        if done is not None:
-            done.synchronize()
-        s_h = scores_h.numpy()
-        if _numerics.active():
-            # debug_numerics: a NaN probe of the served scores' host copy
-            # (the JAX package's "serve_topk" seam); nan_only because
-            # padded slots legitimately score -inf. Here, never in the
-            # dispatch half, which must not wait on the card
-            _numerics.check_array("serve_topk", s_h, nan_only=True)
-        return (ids_h.numpy()[:, :kk].astype(np.int64),
-                s_h[:, :kk].copy())
+        with timed("topk.resolve"):
+            with timed("topk.wait"):
+                if done is not None:
+                    done.synchronize()
+            s_h = scores_h.numpy()
+            if _numerics.active():
+                # debug_numerics: a NaN probe of the served scores' host
+                # copy (the JAX package's "serve_topk" seam); nan_only
+                # because padded slots legitimately score -inf. Here,
+                # never in the dispatch half, which must not wait on the
+                # card
+                _numerics.check_array("serve_topk", s_h, nan_only=True)
+            return (ids_h.numpy()[:, :kk].astype(np.int64),
+                    s_h[:, :kk].copy())
 
     return resolve
 
@@ -1020,6 +1032,26 @@ def _fixed_side_gramian(fixed: torch.Tensor,
     return gramian(fixed if n_fixed is None else fixed[:n_fixed])
 
 
+def _slots(h) -> Tuple[int, int]:
+    """``(real, gathered)`` slots of one half-step over a packed side:
+    the entries its layout kept, and every slot its row blocks gather
+    (bucketed ``padded_entries``, padded ``n_rows x max_len``, split
+    ``n_virtual x max_len``), host integers from the packing."""
+    if isinstance(h, BucketedHistories):
+        return h.n_kept, h.padded_entries
+    if isinstance(h, SplitHistories):
+        return h.n_kept, h.n_virtual * h.max_len
+    return h.n_kept, h.n_rows * h.max_len
+
+
+def _count_slots(h) -> None:
+    """The counters ``als.slots_real`` and ``als.slots_padded`` of one
+    half-step (kept while a profiler capture runs)."""
+    real, gathered = _slots(h)
+    tracing.spans.count("als.slots_real", real)
+    tracing.spans.count("als.slots_padded", gathered)
+
+
 def _update_side(fixed: torch.Tensor, h, params: ALSParams,
                  n_fixed: Optional[int] = None) -> torch.Tensor:
     """One half-iteration over either layout: the JAX package's
@@ -1031,6 +1063,7 @@ def _update_side(fixed: torch.Tensor, h, params: ALSParams,
     row id: each real row sits in one bucket, so the writes are unique,
     and padding rows' sentinels land in one trash row past the table,
     cut off at the end. Rows with no history keep factor 0."""
+    _count_slots(h)
     r = fixed.shape[-1]
     G = _fixed_side_gramian(fixed, n_fixed) if params.implicit_prefs \
         else None
@@ -1132,6 +1165,7 @@ def _update_side_split(fixed: torch.Tensor, h: SplitHistories,
     (:func:`_segment_sum` within a block, blocks in turn), then one solve
     of every real row. Padding virtual rows (owner ``n_rows``) are cut
     off before the sum."""
+    _count_slots(h)
     r = fixed.shape[-1]
     G = _fixed_side_gramian(fixed, n_fixed) if params.implicit_prefs \
         else None
@@ -1633,7 +1667,7 @@ def _mesh_half_step(fixed: List[torch.Tensor], side: MeshSide,
         outs.append(out)
     if side.kind == "split":
         outs = _mesh_split_solve(outs, G, side, params)
-    with torch.profiler.record_function("ptpu.all_gather"):
+    with timed("all_gather"):
         gathered = all_gather(outs, axis=None, mesh=mesh)
         if side.kind == "pad":
             return gathered
@@ -1987,7 +2021,12 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
     run wrote (:func:`checkpoint_fingerprints`) is refused. Checkpointing
     needs the ratings as a :class:`RatingsCOO` (the fingerprint digests
     them). The kernels add in a fixed order, so a resumed run's factors
-    are bitwise those of an uninterrupted one."""
+    are bitwise those of an uninterrupted one.
+
+    Spans: ``als.train`` around ``als.init`` (``als.init.draw``, the host
+    tables; ``als.init.upload``, their copy to the device) and each
+    iteration's ``als.halfstep.user`` and ``als.halfstep.item``, the host
+    time launching a half-step."""
     if ratings is None:
         if packed is None:
             raise ValueError("train_als(ratings=None) needs packed= (from "
@@ -2000,17 +2039,29 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
             or ratings.n_items == 0:
         raise ValueError("ALS requires a non-empty ratings matrix "
                          "(0 entries/users/items given)")
-    if mesh is not None:
-        return _train_als_mesh(ratings, params, mesh, init, packed,
-                               checkpoint_dir, checkpoint_every)
-    dev = resolve_device(device)
+    with timed("als.train"):
+        if mesh is not None:
+            return _train_als_mesh(ratings, params, mesh, init, packed,
+                                   checkpoint_dir, checkpoint_every)
+        return _train_als_device(ratings, params, resolve_device(device),
+                                 init, packed, checkpoint_dir,
+                                 checkpoint_every)
+
+
+def _train_als_device(ratings, params: ALSParams, dev: torch.device, init,
+                      packed: Optional[PackedRatings], checkpoint_dir,
+                      checkpoint_every: int):
+    """:func:`train_als` on one device."""
     if packed is None:
         packed = pack_ratings(ratings, params, dev)
     user_h, item_h = packed
     n_u, n_i = packed.n_users, packed.n_items
     u_pad, i_pad = _rows_padded(user_h), _rows_padded(item_h)
-    U, V = _initial_tables(params, init, n_u, u_pad, n_i, i_pad)
-    U, V = U.to(dev), V.to(dev)
+    with timed("als.init"):
+        with timed("als.init.draw"):
+            U, V = _initial_tables(params, init, n_u, u_pad, n_i, i_pad)
+        with timed("als.init.upload"):
+            U, V = U.to(dev), V.to(dev)
     step_u, step_i = _half_step(user_h), _half_step(item_h)
     ckpt, start = None, 0
     if checkpoint_dir:
@@ -2025,8 +2076,10 @@ def train_als(ratings: Optional[RatingsCOO], params: ALSParams, *,
                 U = torch.as_tensor(state["U"]).to(dev)
                 V = torch.as_tensor(state["V"]).to(dev)
         for it in range(start, params.num_iterations):
-            U = step_u(V, user_h, params, n_i)
-            V = step_i(U, item_h, params, n_u)
+            with timed("als.halfstep.user"):
+                U = step_u(V, user_h, params, n_i)
+            with timed("als.halfstep.item"):
+                V = step_i(U, item_h, params, n_u)
             if ckpt is not None:
                 ckpt.maybe_save(it + 1, {"U": U, "V": V},
                                 every=checkpoint_every)
@@ -2060,9 +2113,6 @@ def _train_als_mesh(ratings, params: ALSParams, mesh: DeviceMesh, init,
                          "pack with pack_ratings(..., mesh=mesh)")
     us = packed.mesh_side("user", params)
     its = packed.mesh_side("item", params)
-    U0, V0 = _initial_tables(params, init, packed.n_users,
-                             us.n_rows_padded, packed.n_items,
-                             its.n_rows_padded)
     ckpt, start = None, 0
     if checkpoint_dir:
         ckpt = _open_checkpoint(checkpoint_dir, ratings, params,
@@ -2072,17 +2122,25 @@ def _train_als_mesh(ratings, params: ALSParams, mesh: DeviceMesh, init,
 
     sharded_state = isinstance(ckpt, DistributedCheckpointer)
     try:
-        if ckpt is not None:
-            start, state = ckpt.restore_latest(
-                like={"U": U0, "V": V0}, max_step=params.num_iterations)
-            if state is not None:
-                U0 = torch.as_tensor(np.asarray(state["U"]))
-                V0 = torch.as_tensor(np.asarray(state["V"]))
-        U = _replicate(U0, mesh)
-        V = _replicate(V0, mesh)
+        with timed("als.init"):
+            with timed("als.init.draw"):
+                U0, V0 = _initial_tables(params, init, packed.n_users,
+                                         us.n_rows_padded, packed.n_items,
+                                         its.n_rows_padded)
+            if ckpt is not None:
+                start, state = ckpt.restore_latest(
+                    like={"U": U0, "V": V0}, max_step=params.num_iterations)
+                if state is not None:
+                    U0 = torch.as_tensor(np.asarray(state["U"]))
+                    V0 = torch.as_tensor(np.asarray(state["V"]))
+            with timed("als.init.upload"):
+                U = _replicate(U0, mesh)
+                V = _replicate(V0, mesh)
         for it in range(start, params.num_iterations):
-            U = _mesh_half_step(V, us, params, mesh, packed.n_items)
-            V = _mesh_half_step(U, its, params, mesh, packed.n_users)
+            with timed("als.halfstep.user"):
+                U = _mesh_half_step(V, us, params, mesh, packed.n_items)
+            with timed("als.halfstep.item"):
+                V = _mesh_half_step(U, its, params, mesh, packed.n_users)
             if ckpt is not None:
                 state = ({"U": _row_sharded(U, mesh),
                           "V": _row_sharded(V, mesh)} if sharded_state
@@ -2103,14 +2161,12 @@ def als_flops_per_iter(user_h, item_h, params: ALSParams) -> int:
     r = params.rank
 
     def side(h, fixed_rows: int) -> int:
+        padded = _slots(h)[1]
         if isinstance(h, BucketedHistories):
-            padded = h.padded_entries
             n_solve = sum(b.n_rows for b in h.buckets)
         elif isinstance(h, SplitHistories):
-            padded = h.n_virtual * h.max_len
             n_solve = h.n_rows_padded
         else:
-            padded = h.n_rows * h.max_len
             n_solve = h.n_rows
         f = 2 * padded * r * r + 2 * padded * r
         if params.implicit_prefs:

@@ -39,11 +39,13 @@ AUTO_CAP_ENTRIES = 200_000_000
 class PaddedHistories:
     """Per-row padded histories: ``indices[i, k]`` is the k-th counterpart
     id of row i (0-padded), ``values[i, k]`` its rating (0-padded), and
-    ``counts[i]`` the kept history length. Tensors share one device."""
+    ``counts[i]`` the kept history length. Tensors share one device.
+    ``n_kept`` is ``counts``' sum, kept on the host at pack time."""
 
     indices: torch.Tensor  # [n_rows, max_len] int32
     values: torch.Tensor   # [n_rows, max_len] float32
     counts: torch.Tensor   # [n_rows] int32
+    n_kept: int
 
     @property
     def n_rows(self) -> int:
@@ -78,11 +80,13 @@ class BucketedHistories:
     """Drop-free layout for skewed histories: each row is padded to the
     next power of two of its own length (at least ``min_len``) instead of
     one global length, so padding stays under 2x and nothing is dropped.
-    Rows with no history join no bucket."""
+    Rows with no history join no bucket. ``n_kept`` is the entries the
+    buckets hold, counted on the host at pack time."""
 
     buckets: tuple          # of HistoryBucket, ascending length
     n_rows: int
     n_rows_padded: int
+    n_kept: int
 
     @property
     def padded_entries(self) -> int:
@@ -198,7 +202,8 @@ def pack_histories_device(rows: np.ndarray, cols: np.ndarray,
     cnt[:n_rows] = np.minimum(np.bincount(rows, minlength=n_rows), L)
     return PaddedHistories(indices=idx.reshape(n_pad, L),
                            values=val.reshape(n_pad, L),
-                           counts=torch.from_numpy(cnt).to(dev))
+                           counts=torch.from_numpy(cnt).to(dev),
+                           n_kept=int(cnt.sum()))
 
 
 def pack_histories(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
@@ -243,7 +248,7 @@ def pack_histories_bucketed_device(rows: np.ndarray, cols: np.ndarray,
     n_rows_pad = max(-(-n_rows // pad_rows_to) * pad_rows_to, pad_rows_to)
     if S == 0:
         return BucketedHistories(buckets=(), n_rows=n_rows,
-                                 n_rows_padded=n_rows_pad)
+                                 n_rows_padded=n_rows_pad, n_kept=0)
     flat_idx, flat_val = _pack_flat(rows, cols, vals, row_base, counts,
                                     n_rows, S, dev)
     buckets = []
@@ -264,7 +269,8 @@ def pack_histories_bucketed_device(rows: np.ndarray, cols: np.ndarray,
             counts=torch.from_numpy(cnt).to(dev),
             row_ids=torch.from_numpy(row_ids).to(dev)))
     return BucketedHistories(buckets=tuple(buckets), n_rows=n_rows,
-                             n_rows_padded=n_rows_pad)
+                             n_rows_padded=n_rows_pad,
+                             n_kept=int(counts.sum()))
 
 
 @dataclass(frozen=True)
@@ -280,7 +286,8 @@ class SplitHistories:
     owns virtual row v (``n_rows`` on padding rows). A real row's virtual
     rows are contiguous and real rows ascend, so every segment of
     ``row_ids`` is one real row. ``real_counts`` are the real rows' true
-    totals (the regularization's scale)."""
+    totals (the regularization's scale). ``n_kept`` is the entries the
+    virtual rows hold, counted on the host at pack time."""
 
     indices: torch.Tensor      # [n_virtual_pad, L] int32
     values: torch.Tensor       # [n_virtual_pad, L] float32
@@ -288,6 +295,7 @@ class SplitHistories:
     row_ids: torch.Tensor      # [n_virtual_pad] int32 -> real row or n_rows
     real_counts: torch.Tensor  # [n_rows_pad] int32
     n_rows: int                # real rows (unpadded)
+    n_kept: int
 
     @property
     def n_virtual(self) -> int:
@@ -358,7 +366,8 @@ def pack_histories_split(rows: np.ndarray, cols: np.ndarray,
     return SplitHistories(
         indices=torch.from_numpy(indices), values=torch.from_numpy(values),
         counts=torch.from_numpy(vcounts), row_ids=torch.from_numpy(row_ids),
-        real_counts=torch.from_numpy(real_counts), n_rows=n_rows)
+        real_counts=torch.from_numpy(real_counts), n_rows=n_rows,
+        n_kept=int(counts.sum()))
 
 
 def pack_histories_split_device(rows: np.ndarray, cols: np.ndarray,
@@ -389,4 +398,5 @@ def pack_histories_split_device(rows: np.ndarray, cols: np.ndarray,
         indices=idx.reshape(n_vpad, L), values=val.reshape(n_vpad, L),
         counts=torch.from_numpy(vcounts).to(dev),
         row_ids=torch.from_numpy(row_ids).to(dev),
-        real_counts=torch.from_numpy(real_counts).to(dev), n_rows=n_rows)
+        real_counts=torch.from_numpy(real_counts).to(dev), n_rows=n_rows,
+        n_kept=int(counts.sum()))

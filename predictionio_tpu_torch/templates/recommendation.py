@@ -60,6 +60,7 @@ from ..models.als import (
     shard_model,
 )
 from ..models.data import kfold_split, ratings_from_columnar
+from ..utils.tracing import timed
 from ._common import train_als_on
 
 
@@ -268,8 +269,9 @@ class ALSAlgorithm(Algorithm):
         the card, returns only once the queued iterations have run, so
         the engine's stage clock covers them."""
         U, V = train_als_on(ctx, td.ratings, self.params)
-        if U.is_cuda:
-            torch.cuda.synchronize(U.device)
+        with timed("als.wait"):  # the host idle while the card finishes
+            if U.is_cuda:
+                torch.cuda.synchronize(U.device)
         return ALSModel(user_factors=U, item_factors=V,
                         n_users=td.ratings.n_users,
                         n_items=td.ratings.n_items,

@@ -105,7 +105,7 @@ def run_train(ctx: Context, engine: Engine, engine_params: EngineParams,
         done = instances.get(instance_id)
         instances.update(done.copy(status=STATUS_COMPLETED,
                                    end_time=_now()))
-    ctx.stage_timings["persist_s"] = round(time.monotonic() - t0, 2)
+    ctx.stage_timings["persist_s"] = time.monotonic() - t0
     log.info("engine instance %s: training completed; stages=%s",
              instance_id, json.dumps(ctx.stage_timings))
     return instance_id
